@@ -1,0 +1,259 @@
+"""PSMNet-style iDispNet, eval forward (counterpart of
+disprcnn_tpu/models/psmnet/psmnet.py; reference
+modeling/psmnet/{stackhourglass.py, submodule.py}).
+
+Siamese feature tower with SPP -> concat cost volume -> 3D conv trunk with
+three stacked hourglasses -> classifier heads -> align-corners soft-argmin.
+Canonical layouts: NCHW in the tower, NCDHW in the trunk. The JAX package's
+TPU layout forms (W-packing of the tower, depth-packing of the trunk) are
+layouts of these same convolutions and are not carried over.
+
+Module and attribute names keep the Flax names (``ConvBN_0``,
+``BasicBlock_3``, ``dres2``, ``Conv_0``, ``BatchNorm_0`` ...) so the JAX
+variables map one to one (utils/weights.py). Batch norms are plain eval
+``nn.BatchNorm{2,3}d`` with eps 1e-5.
+
+Kernels on the card (csrc/conv3d.cu, csrc/softargmin.cu), each conv with
+its BN, residual and ReLU fused:
+- the tower's 3x3 stride-1 undilated convs of 32 and 64 channels (the
+  sites of the JAX package's W-packed kernel): the 2D conv;
+- the cost volume and its first conv (dres0_0): the cost-volume form;
+- every stride-1 3x3x3 conv (the trunk at full resolution, the hourglass
+  convs at 1/2 and 1/4): the stride-1 form; the hourglasses' stride-2
+  convs: the stride-2 form; their transposed convs: the transposed form;
+- each classifier's 32 -> 1 conv: the Co = 1 form;
+- the regression: the soft-argmin.
+The tower's other convs (the stride-2 stem and downsampling, the 1x1
+downsample and SPP convs, the 128-channel and dilated layers, lastconv)
+are cuDNN calls, as the JAX package leaves them to XLA on the TPU.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.cuda.conv3d import CHANNELS, conv2d_bn, conv3d_bn, cost_volume_conv_bn, deconv3d_bn
+from ...ops.cuda.softargmin import interp_matrix_align_corners, softargmin
+
+BN_EPS = 1e-5
+
+
+def fold_bn(bn: nn.modules.batchnorm._BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval BN as (mul, add): mul = scale * rsqrt(var + eps), add = bias -
+    mean * mul (psmnet.py:_fold_bn_affine)."""
+    mul = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+    return mul, bn.bias - bn.running_mean * mul
+
+
+class ConvBN(nn.Module):
+    """kxk conv (no bias, padding dilation * (k // 2)) + eval BN; the
+    residual joins before the ReLU. The 3x3 stride-1 undilated form of 32
+    or 64 output channels is one call of the 2D conv kernel."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
+                 dilation: int = 1):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(cin, cout, kernel, stride, dilation * (kernel // 2),
+                                dilation, bias=False)
+        self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.fused = kernel == 3 and stride == 1 and dilation == 1 and cout in CHANNELS
+
+    def forward(self, x, relu: bool = False, residual=None):
+        if self.fused:
+            return conv2d_bn(x, self.Conv_0.weight, *fold_bn(self.BatchNorm_0), residual, relu)
+        y = self.BatchNorm_0(self.Conv_0(x))
+        if residual is not None:
+            y = y + residual
+        return torch.relu(y) if relu else y
+
+
+class BasicBlock(nn.Module):
+    """PSMNet BasicBlock (submodule.py:40-57): no ReLU after the residual
+    add; the downsample is a 1x1 conv + BN."""
+
+    def __init__(self, cin: int, planes: int, stride: int = 1, dilation: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(cin, planes, 3, stride, dilation)
+        self.ConvBN_1 = ConvBN(planes, planes, 3, 1, dilation)
+        if downsample:
+            self.Conv_0 = nn.Conv2d(cin, planes, 1, stride, bias=False)
+            self.BatchNorm_0 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.downsample = downsample
+
+    def forward(self, x):
+        out = self.ConvBN_0(x, relu=True)
+        sc = self.BatchNorm_0(self.Conv_0(x)) if self.downsample else x
+        return self.ConvBN_1(out, residual=sc)
+
+
+def bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """(B, C, h, w) -> (B, C, H, W), align_corners=True, by the same matrix
+    contractions as the JAX package."""
+    mh = interp_matrix_align_corners(x.shape[2], out_hw[0], x.device)
+    mw = interp_matrix_align_corners(x.shape[3], out_hw[1], x.device)
+    x = torch.einsum("bchw,eh->bcew", x, mh)
+    return torch.einsum("bchw,ew->bche", x, mw)
+
+
+class FeatureExtraction(nn.Module):
+    """Siamese tower -> 1/4-res 32-channel features (submodule.py:234-313)."""
+
+    SPP_POOLS = (56, 32, 16, 8)
+    # (planes, blocks, stride, dilation) of layer1..layer4
+    LAYERS = ((32, 3, 1, 1), (64, 16, 2, 1), (128, 3, 1, 1), (128, 3, 1, 2))
+
+    def __init__(self):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(3, 32, 3, 2)
+        self.ConvBN_1 = ConvBN(32, 32)
+        self.ConvBN_2 = ConvBN(32, 32)
+        blocks = []
+        cin = 32
+        for planes, n, stride, dilation in self.LAYERS:
+            for i in range(n):
+                s = stride if i == 0 else 1
+                blocks.append(BasicBlock(cin, planes, s, dilation,
+                                         downsample=i == 0 and (s != 1 or cin != planes)))
+                cin = planes
+        for i, block in enumerate(blocks):
+            self.add_module(f"BasicBlock_{i}", block)
+        self.n_blocks = len(blocks)
+        self.raw_block = self.LAYERS[0][1] + self.LAYERS[1][1] - 1  # end of layer2
+        for i in range(len(self.SPP_POOLS)):
+            self.add_module(f"ConvBN_{3 + i}", ConvBN(128, 32, 1))
+        self.ConvBN_7 = ConvBN(320, 128)
+        self.Conv_0 = nn.Conv2d(128, 32, 1, bias=False)
+        self.eval()
+
+    def forward(self, x):
+        x = self.ConvBN_0(x, relu=True)
+        x = self.ConvBN_1(x, relu=True)
+        x = self.ConvBN_2(x, relu=True)
+        raw = None
+        for i in range(self.n_blocks):
+            x = getattr(self, f"BasicBlock_{i}")(x)
+            if i == self.raw_block:  # 1/4 res, 64 ch
+                raw = x
+        skip = x  # layer4, dilated
+        h, w = skip.shape[-2:]
+        spp = []
+        for i, pool in enumerate(self.SPP_POOLS):
+            p = min(pool, h)
+            y = F.avg_pool2d(skip, p, p)
+            y = getattr(self, f"ConvBN_{3 + i}")(y, relu=True)
+            spp.append(bilinear_align_corners(y, (h, w)))
+        # reference concat order: (raw, skip, branch4..branch1)
+        x = torch.cat([raw, skip] + spp[::-1], dim=1)  # 320 ch
+        x = self.ConvBN_7(x, relu=True)
+        return self.Conv_0(x)
+
+
+class ConvBN3d(nn.Module):
+    """3x3x3 conv (no bias, padding 1, stride 1 or 2) + eval BN
+    (+ residual, + ReLU): one call of the conv3d kernel."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__()
+        self.Conv_0 = nn.Conv3d(cin, cout, 3, stride, 1, bias=False)
+        self.BatchNorm_0 = nn.BatchNorm3d(cout, eps=BN_EPS)
+        self.stride = stride
+
+    def forward(self, x, relu: bool = False, residual=None):
+        mul, add = fold_bn(self.BatchNorm_0)
+        return conv3d_bn(x, self.Conv_0.weight, mul, add, residual, relu, self.stride)
+
+    def cost_volume(self, left, right, mindisp4: int, maxdisp4: int, relu: bool = True):
+        """This conv over the concat cost volume of (N, C, H, W) features,
+        the volume built inside the kernel."""
+        mul, add = fold_bn(self.BatchNorm_0)
+        return cost_volume_conv_bn(left, right, self.Conv_0.weight, mul, add, mindisp4,
+                                   maxdisp4, relu)
+
+
+def _deconv(cin: int, cout: int) -> nn.ConvTranspose3d:
+    # torch ConvTranspose3d(k=3, s=2, p=1, output_padding=1) doubles every
+    # dim with (lo, hi) = (1, 2) effective padding, the flax padding
+    # [(1, 2)] * 3 of the JAX package (its kernel is flipped in space:
+    # utils/weights.py)
+    return nn.ConvTranspose3d(cin, cout, 3, 2, 1, output_padding=1, bias=False)
+
+
+class Hourglass(nn.Module):
+    """Stacked-hourglass block (stackhourglass.py:8-52), canonical form."""
+
+    def __init__(self, planes: int):
+        super().__init__()
+        p2 = planes * 2
+        self.ConvBN_0 = ConvBN3d(planes, p2, 2)
+        self.ConvBN_1 = ConvBN3d(p2, p2, 1)
+        self.ConvBN_2 = ConvBN3d(p2, p2, 2)
+        self.ConvBN_3 = ConvBN3d(p2, p2, 1)
+        self.ConvTranspose_0 = _deconv(p2, p2)
+        self.BatchNorm_0 = nn.BatchNorm3d(p2, eps=BN_EPS)
+        self.ConvTranspose_1 = _deconv(p2, planes)
+        self.BatchNorm_1 = nn.BatchNorm3d(planes, eps=BN_EPS)
+
+    def forward(self, x, presqu, postsqu, final_residual):
+        out = self.ConvBN_0(x, relu=True)  # 1/2
+        pre = self.ConvBN_1(out, relu=True, residual=postsqu)
+        out = self.ConvBN_2(pre, relu=True)  # 1/4
+        out = self.ConvBN_3(out, relu=True)
+        post = deconv3d_bn(out, self.ConvTranspose_0.weight, *fold_bn(self.BatchNorm_0),
+                           presqu if presqu is not None else pre, relu=True)  # 1/2
+        up2 = deconv3d_bn(post, self.ConvTranspose_1.weight, *fold_bn(self.BatchNorm_1),
+                          final_residual)
+        return up2, pre, post
+
+
+class PSMNet(nn.Module):
+    """Full iDispNet, eval: forward(left, right) -> (B, H, W) disparity."""
+
+    def __init__(self, maxdisp: int = 48, mindisp: int = -48, num_hourglass: int = 3):
+        super().__init__()
+        self.maxdisp, self.mindisp = maxdisp, mindisp
+        self.num_hourglass = num_hourglass
+        self.feature_extraction = FeatureExtraction()
+        self.dres0_0 = ConvBN3d(64, 32)
+        self.dres0_1 = ConvBN3d(32, 32)
+        self.dres1_0 = ConvBN3d(32, 32)
+        self.dres1_1 = ConvBN3d(32, 32)
+        for i in range(num_hourglass):
+            self.add_module(f"dres{2 + i}", Hourglass(32))
+            self.add_module(f"classif{i + 1}_0", ConvBN3d(32, 32))
+            self.add_module(f"classif{i + 1}_1", nn.Conv3d(32, 1, 3, 1, 1, bias=False))
+        self.eval()
+
+    def forward(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+        """left, right (B, 3, H, W) normalized crops -> (B, H, W)."""
+        b, _, h, w = left.shape
+        both = self.feature_extraction(torch.cat([left, right], dim=0))
+        lf, rf = both[:b].contiguous(), both[b:].contiguous()
+        mind4, maxd4 = self.mindisp // 4, self.maxdisp // 4
+
+        x = self.dres0_0.cost_volume(lf, rf, mind4, maxd4, relu=True)
+        x = self.dres0_1(x, relu=True)
+        y = self.dres1_0(x, relu=True)
+        cost0 = self.dres1_1(y, residual=x)
+
+        # quirk kept from the reference: hourglass k >= 2 gets pre_1 as its
+        # presqu and the previous post as its postsqu (stackhourglass.py:139-141)
+        outs, pres, posts = [], [], []
+        inp = cost0
+        for i in range(self.num_hourglass):
+            o, pre, post = getattr(self, f"dres{2 + i}")(
+                inp, None if i == 0 else pres[0], None if i == 0 else posts[-1], cost0)
+            outs.append(o)
+            pres.append(pre)
+            posts.append(post)
+            inp = o
+
+        cost: Optional[torch.Tensor] = None
+        for i, o in enumerate(outs):
+            z = getattr(self, f"classif{i + 1}_0")(o, relu=True)
+            c = conv3d_bn(z, getattr(self, f"classif{i + 1}_1").weight)
+            cost = c if cost is None else c + cost
+        return softargmin(cost[:, 0], (h, w), self.mindisp, self.maxdisp)

@@ -6,8 +6,9 @@ covers the source and the flags, so an edited source is rebuilt and a stale
 library is never loaded. No PyTorch headers are compiled: a build takes
 seconds, not the minutes of ``torch.utils.cpp_extension.load``.
 
-``build(name)`` compiles a missing library; ``load(name)`` builds if needed
-and returns the loaded library.
+``build(*names)`` compiles the missing libraries, one nvcc process per
+source, all started together; ``load(name)`` builds if needed and returns
+the loaded library.
 """
 from __future__ import annotations
 
@@ -21,13 +22,17 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
-# -Xptxas -v only reports registers and shared memory; --fmad=false keeps
-# float arithmetic bit-equal to the plain PyTorch versions (no contraction
-# of a * b + c into one rounding); no fast math for the same reason.
+# -Xptxas -v only reports registers and shared memory. No fast math: the
+# kernels keep IEEE division, exp and denormals.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Per source: nms.cu must be bit-equal to its plain PyTorch version (one
+# flipped ulp at the IoU threshold changes the kept set), so it forbids the
+# contraction of a * b + c into one rounding. The convolutions and the
+# soft-argmin are held to tolerances and keep the fused multiply-add.
+EXTRA_FLAGS: Dict[str, tuple] = {"nms": ("--fmad=false",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -42,28 +47,43 @@ def nvcc_path() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless it is built. Returns nvcc's diagnostics
-    (ptxas resource usage), empty if nothing was built; raises if nvcc fails."""
-    out = library_path(name)
-    if out.is_file():
-        return ""
+def build(*names: str) -> Dict[str, str]:
+    """Compile csrc/<name>.cu for each name that is not built, one nvcc per
+    source, all running at once. Returns nvcc's diagnostics (ptxas resource
+    usage) by name, empty for a library that was already built; raises if
+    any nvcc fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"CUDA build of {name} failed (nvcc exit {proc.returncode}):\n"
-                           f"{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.is_file():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+    texts = {name: "" for name in names}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        texts[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{texts[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
+    return texts
 
 
 def load(name: str) -> ctypes.CDLL:

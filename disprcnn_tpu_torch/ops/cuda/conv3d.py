@@ -1,0 +1,268 @@
+"""The PSMNet convolutions with a fused epilogue: the CUDA kernels'
+wrappers and their plain PyTorch versions (counterparts of
+disprcnn_tpu/ops/pallas/packed_conv.py: ``packed_conv_bn``, its dg=1 "cl1"
+use, ``cost_volume_conv_bn``, ``packed_conv_bn_s2``, ``packed_deconv_bn``
+and ``wpacked_conv_bn``).
+
+- ``conv3d_bn``: 3x3x3 conv, stride 1 or 2, padding 1;
+- ``cost_volume_conv_bn``: the stride-1 conv over the PSMNet concat cost
+  volume, built on the fly;
+- ``deconv3d_bn``: the 3x3x3 stride-2 transposed conv of torch
+  ``ConvTranspose3d(k=3, s=2, p=1, output_padding=1)``;
+- ``conv2d_bn``: 3x3 stride-1 pad-1 2D conv.
+
+Layout is the canonical NCDHW (NCHW in 2D). The epilogue is ``y * mul +
+add`` (the folded eval BatchNorm, per output channel), then ``+ residual``,
+then ReLU, in that order. ``mul``/``add`` of None is the identity (the
+classifier's bias-free 32 -> 1 conv).
+
+Each function dispatches: a CPU tensor takes the plain version; a CUDA
+tensor launches the kernel (csrc/conv3d.cu). There is no fallback: a
+kernel that fails to build or launch raises. The launch points are
+``conv3d_bn_cuda``, ``cost_volume_conv_bn_cuda``, ``deconv3d_bn_cuda`` and
+``conv2d_bn_cuda``, looked up at call time, so a caller can route them
+elsewhere.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..cost_volume import build_cost_volume
+from . import build
+
+# Launches of each kernel in this process; a caller may reset them to 0
+# around a run it wants to count. "conv3d_cl1" is the Co = 1 instantiation
+# of the stride-1 conv, "conv3d_s2" its stride-2 form.
+launches = {"cost_volume_conv": 0, "conv3d": 0, "conv3d_cl1": 0, "conv3d_s2": 0,
+            "deconv3d": 0, "conv2d": 0}
+
+# output channel counts the kernels are instantiated for; Co = 1 only for
+# the stride-1 3D conv
+CHANNELS = (32, 64)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("conv3d")
+    if lib.conv3d_bn_cuda.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.conv3d_bn_cuda.argtypes = [p, i, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
+        lib.cost_volume_conv_bn_cuda.argtypes = [p, p, i, i, i, i, i, i, p, i, p, p, i, p, p, i]
+        lib.deconv3d_bn_cuda.argtypes = [p, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
+        lib.conv2d_bn_cuda.argtypes = [p, i, i, i, i, p, i, p, p, p, i, p, p, i]
+        for fn in (lib.conv3d_bn_cuda, lib.cost_volume_conv_bn_cuda, lib.deconv3d_bn_cuda,
+                   lib.conv2d_bn_cuda):
+            fn.restype = i
+        lib.conv3d_error_string.argtypes = [i]
+        lib.conv3d_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _epilogue(y, mul, add, residual, relu):
+    if mul is not None:
+        shape = (1, -1) + (1,) * (y.dim() - 2)
+        y = y * mul.view(shape) + add.view(shape)
+    if residual is not None:
+        y = y + residual
+    return torch.relu(y) if relu else y
+
+
+def conv3d_bn_plain(x: torch.Tensor, weight: torch.Tensor, mul: Optional[torch.Tensor] = None,
+                    add: Optional[torch.Tensor] = None, residual: Optional[torch.Tensor] = None,
+                    relu: bool = False, stride: int = 1) -> torch.Tensor:
+    """x (N, Ci, D, H, W), weight (Co, Ci, 3, 3, 3) -> (N, Co, D', H', W'),
+    D' = (D - 1) // stride + 1 (padding 1)."""
+    return _epilogue(F.conv3d(x, weight, stride=stride, padding=1), mul, add, residual, relu)
+
+
+def cost_volume_conv_bn_plain(left: torch.Tensor, right: torch.Tensor, weight: torch.Tensor,
+                              mul: torch.Tensor, add: torch.Tensor, mindisp4: int,
+                              maxdisp4: int, relu: bool = True) -> torch.Tensor:
+    """left, right (N, C, H, W) -> conv of the (N, 2C, D, H, W) cost volume,
+    (N, Co, D, H, W), D = maxdisp4 - mindisp4."""
+    vol = build_cost_volume(left, right, mindisp4, maxdisp4)
+    return conv3d_bn_plain(vol, weight, mul, add, relu=relu)
+
+
+def deconv3d_bn_plain(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
+                      add: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                      relu: bool = False) -> torch.Tensor:
+    """x (N, Ci, D, H, W), weight (Ci, Co, 3, 3, 3) of a torch
+    ConvTranspose3d(k=3, s=2, p=1, output_padding=1) -> (N, Co, 2D, 2H, 2W)."""
+    y = F.conv_transpose3d(x, weight, stride=2, padding=1, output_padding=1)
+    return _epilogue(y, mul, add, residual, relu)
+
+
+def conv2d_bn_plain(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
+                    add: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                    relu: bool = False) -> torch.Tensor:
+    """x (N, Ci, H, W), weight (Co, Ci, 3, 3) -> (N, Co, H, W)."""
+    return _epilogue(F.conv2d(x, weight, padding=1), mul, add, residual, relu)
+
+
+def _check_float32_cuda(name: str, t: torch.Tensor, shape, device) -> None:
+    if t.dtype != torch.float32 or not t.is_cuda:
+        raise ValueError(f"{name} must be a float32 CUDA tensor, got {t.dtype} on {t.device}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_input(name: str, t: torch.Tensor, dims: int) -> None:
+    if t.dim() != dims:
+        raise ValueError(f"{name} must have {dims} dims, got {tuple(t.shape)}")
+    _check_float32_cuda(name, t, t.shape, t.device)
+
+
+def _epilogue_args(co: int, mul, add, residual, out_shape, device, channels=CHANNELS):
+    if co not in channels:
+        raise ValueError(f"the kernel takes Co in {channels}, got {co}")
+    if mul is None:
+        mul = torch.ones(co, device=device)
+        add = torch.zeros(co, device=device)
+    _check_float32_cuda("mul", mul, (co,), device)
+    _check_float32_cuda("add", add, (co,), device)
+    if residual is not None:
+        _check_float32_cuda("residual", residual, out_shape, device)
+    return mul, add, None if residual is None else residual.data_ptr()
+
+
+def _weight(weight, shape, device, perm):
+    """The weight permuted so that a tap's Co weights are contiguous."""
+    _check_float32_cuda("weight", weight, shape, device)
+    return weight.permute(*perm).contiguous()
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.conv3d_error_string(err).decode()}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def conv3d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: Optional[torch.Tensor] = None,
+                   add: Optional[torch.Tensor] = None, residual: Optional[torch.Tensor] = None,
+                   relu: bool = False, stride: int = 1) -> torch.Tensor:
+    """Launch csrc/conv3d.cu on the current stream; same contract as
+    conv3d_bn_plain."""
+    _check_input("x", x, 5)
+    if stride not in (1, 2):
+        raise ValueError(f"stride must be 1 or 2, got {stride}")
+    n, ci, d, h, w = x.shape
+    co = weight.shape[0]
+    out_shape = (n, co, *((s - 1) // stride + 1 for s in (d, h, w)))
+    wt = _weight(weight, (co, ci, 3, 3, 3), x.device, (1, 2, 3, 4, 0))
+    mul, add, res = _epilogue_args(co, mul, add, residual, out_shape, x.device,
+                                   CHANNELS + ((1,) if stride == 1 else ()))
+    lib = _lib()
+    out = torch.empty(out_shape, device=x.device)
+    err = lib.conv3d_bn_cuda(x.data_ptr(), n, ci, d, h, w, stride, wt.data_ptr(), co,
+                             mul.data_ptr(), add.data_ptr(), res, int(relu), out.data_ptr(),
+                             _stream(x), x.device.index)
+    _raise_on(lib, err, "conv3d_bn_cuda")
+    launches["conv3d_s2" if stride == 2 else "conv3d_cl1" if co == 1 else "conv3d"] += 1
+    return out
+
+
+def cost_volume_conv_bn_cuda(left: torch.Tensor, right: torch.Tensor, weight: torch.Tensor,
+                             mul: torch.Tensor, add: torch.Tensor, mindisp4: int,
+                             maxdisp4: int, relu: bool = True) -> torch.Tensor:
+    """Launch csrc/conv3d.cu's cost-volume form on the current stream; same
+    contract as cost_volume_conv_bn_plain."""
+    _check_input("left", left, 4)
+    n, c, h, w = left.shape
+    d = maxdisp4 - mindisp4
+    if d < 1:
+        raise ValueError(f"empty disparity range [{mindisp4}, {maxdisp4})")
+    _check_float32_cuda("right", right, left.shape, left.device)
+    co = weight.shape[0]
+    wt = _weight(weight, (co, 2 * c, 3, 3, 3), left.device, (1, 2, 3, 4, 0))
+    mul, add, _ = _epilogue_args(co, mul, add, None, None, left.device)
+    lib = _lib()
+    out = torch.empty((n, co, d, h, w), device=left.device)
+    err = lib.cost_volume_conv_bn_cuda(
+        left.data_ptr(), right.data_ptr(), n, c, h, w, mindisp4, d, wt.data_ptr(), co,
+        mul.data_ptr(), add.data_ptr(), int(relu), out.data_ptr(), _stream(left),
+        left.device.index)
+    _raise_on(lib, err, "cost_volume_conv_bn_cuda")
+    launches["cost_volume_conv"] += 1
+    return out
+
+
+def deconv3d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
+                     add: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                     relu: bool = False) -> torch.Tensor:
+    """Launch csrc/conv3d.cu's transposed conv on the current stream; same
+    contract as deconv3d_bn_plain."""
+    _check_input("x", x, 5)
+    n, ci, d, h, w = x.shape
+    co = weight.shape[1]
+    out_shape = (n, co, 2 * d, 2 * h, 2 * w)
+    wt = _weight(weight, (ci, co, 3, 3, 3), x.device, (0, 2, 3, 4, 1))
+    mul, add, res = _epilogue_args(co, mul, add, residual, out_shape, x.device)
+    lib = _lib()
+    out = torch.empty(out_shape, device=x.device)
+    err = lib.deconv3d_bn_cuda(x.data_ptr(), n, ci, d, h, w, wt.data_ptr(), co, mul.data_ptr(),
+                               add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
+                               x.device.index)
+    _raise_on(lib, err, "deconv3d_bn_cuda")
+    launches["deconv3d"] += 1
+    return out
+
+
+def conv2d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
+                   add: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                   relu: bool = False) -> torch.Tensor:
+    """Launch csrc/conv3d.cu's 2D conv on the current stream; same contract
+    as conv2d_bn_plain."""
+    _check_input("x", x, 4)
+    n, ci, h, w = x.shape
+    co = weight.shape[0]
+    wt = _weight(weight, (co, ci, 3, 3), x.device, (1, 2, 3, 0))
+    mul, add, res = _epilogue_args(co, mul, add, residual, (n, co, h, w), x.device)
+    lib = _lib()
+    out = torch.empty((n, co, h, w), device=x.device)
+    err = lib.conv2d_bn_cuda(x.data_ptr(), n, ci, h, w, wt.data_ptr(), co, mul.data_ptr(),
+                             add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
+                             x.device.index)
+    _raise_on(lib, err, "conv2d_bn_cuda")
+    launches["conv2d"] += 1
+    return out
+
+
+def conv3d_bn(x, weight, mul=None, add=None, residual=None, relu=False,
+              stride=1) -> torch.Tensor:
+    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    if x.is_cuda:
+        return conv3d_bn_cuda(x, weight, mul, add, residual, relu, stride)
+    return conv3d_bn_plain(x, weight, mul, add, residual, relu, stride)
+
+
+def cost_volume_conv_bn(left, right, weight, mul, add, mindisp4, maxdisp4,
+                        relu=True) -> torch.Tensor:
+    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    if left.is_cuda:
+        return cost_volume_conv_bn_cuda(left, right, weight, mul, add, mindisp4, maxdisp4, relu)
+    return cost_volume_conv_bn_plain(left, right, weight, mul, add, mindisp4, maxdisp4, relu)
+
+
+def deconv3d_bn(x, weight, mul, add, residual=None, relu=False) -> torch.Tensor:
+    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    if x.is_cuda:
+        return deconv3d_bn_cuda(x, weight, mul, add, residual, relu)
+    return deconv3d_bn_plain(x, weight, mul, add, residual, relu)
+
+
+def conv2d_bn(x, weight, mul, add, residual=None, relu=False) -> torch.Tensor:
+    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    if x.is_cuda:
+        return conv2d_bn_cuda(x, weight, mul, add, residual, relu)
+    return conv2d_bn_plain(x, weight, mul, add, residual, relu)

@@ -2,16 +2,23 @@
 and random weights from an explicit ``torch.Generator``.
 
 ``state_dict_from_jax(model, variables)`` takes the JAX variables as numpy
-arrays, ``{"params": {...}, "frozen": {...}}``, each either nested as Flax
-keeps them or flattened by "/"-joined path. It maps
+arrays, ``{"params": {...}, "frozen": {...}, "batch_stats": {...}}`` (the
+collections the model has), each either nested as Flax keeps them or
+flattened by "/"-joined path. It maps
 
-- a conv kernel (kh, kw, in, out) HWIO to (out, in, kh, kw) OIHW;
-- a transposed-conv kernel to (in, out, kh, kw), flipped in space (Flax's
-  ConvTranspose correlates; torch's is the adjoint of a correlation);
+- a conv kernel (kh, kw, in, out) HWIO to (out, in, kh, kw) OIHW, and a 3D
+  one (kd, kh, kw, in, out) DHWIO to (out, in, kd, kh, kw) OIDHW;
+- a transposed-conv kernel, 2D or 3D, to (in, out, k...), flipped in every
+  spatial dim (Flax's ConvTranspose correlates; torch's is the adjoint of
+  a correlation);
 - a dense kernel (in, out) to (out, in);
 - FrozenBatchNorm ``scale/bias/mean/var`` to the buffers
   ``weight/bias/running_mean/running_var``, renaming Flax's auto-numbered
-  ``FrozenBatchNorm_<i>`` to the port's ``bn1..bn3``/``downsample_bn``.
+  ``FrozenBatchNorm_<i>`` to the port's ``bn1..bn3``/``downsample_bn``;
+- a Flax ``BatchNorm``'s params ``scale/bias`` to ``weight/bias`` and its
+  ``batch_stats`` ``mean/var`` to ``running_mean/running_var`` of the eval
+  ``nn.BatchNorm{2,3}d`` of the same name (``num_batches_tracked``, which
+  eval never reads, is set to 0).
 
 Every key is checked: it raises on a JAX key it leaves unused, on a port
 entry it leaves unset, and on a shape that does not match.
@@ -19,6 +26,7 @@ entry it leaves unset, and on a shape that does not match.
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -28,6 +36,7 @@ from torch import nn
 from ..models.backbone.resnet import Bottleneck, FrozenBatchNorm, Stem
 
 _BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+_COLLECTIONS = ("params", "frozen", "batch_stats")
 
 
 def flatten_variables(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -58,23 +67,35 @@ def _bn_module_name(model: nn.Module, owner: str, flax_name: str) -> str:
     return order[i]
 
 
-def _convert(model: nn.Module, path: str, arr: np.ndarray, frozen: bool):
-    """One JAX variable -> (state_dict key, tensor)."""
+def _convert(model: nn.Module, path: str, arr: np.ndarray, coll: str):
+    """One JAX variable of collection `coll` -> (state_dict key, tensor)."""
     parts = path.split("/")
     owner, module_name, leaf = ".".join(parts[:-2]), parts[-2], parts[-1]
-    if frozen:
+    if coll == "frozen":
         if not module_name.startswith("FrozenBatchNorm_") or leaf not in _BN_NAMES:
             raise KeyError(f"unexpected frozen variable {path!r}")
         name = _bn_module_name(model, owner, module_name)
         return f"{owner}.{name}.{_BN_NAMES[leaf]}", arr
     key_mod = f"{owner}.{module_name}" if owner else module_name
     mod = model.get_submodule(key_mod)
+    if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+        names = ({"mean": "running_mean", "var": "running_var"} if coll == "batch_stats"
+                 else {"scale": "weight", "bias": "bias"})
+        if leaf not in names:
+            raise KeyError(f"unexpected {coll} variable {path!r} of a batch norm")
+        return f"{key_mod}.{names[leaf]}", arr
+    if coll == "batch_stats":
+        raise KeyError(f"batch_stats variable {path!r} maps to {type(mod).__name__}")
     if leaf == "bias":
         return f"{key_mod}.bias", arr
     if leaf != "kernel":
         raise KeyError(f"unexpected parameter {path!r}")
-    if isinstance(mod, nn.ConvTranspose2d):
+    if isinstance(mod, nn.ConvTranspose3d):
+        arr = arr[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
+    elif isinstance(mod, nn.ConvTranspose2d):
         arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+    elif isinstance(mod, nn.Conv3d):
+        arr = arr.transpose(4, 3, 0, 1, 2)
     elif isinstance(mod, nn.Conv2d):
         arr = arr.transpose(3, 2, 0, 1)
     elif isinstance(mod, nn.Linear):
@@ -86,15 +107,18 @@ def _convert(model: nn.Module, path: str, arr: np.ndarray, frozen: bool):
 
 def state_dict_from_jax(model: nn.Module, variables: Mapping) -> Dict[str, torch.Tensor]:
     """JAX variables -> a complete state_dict for `model` (see module doc)."""
-    extra = set(variables) - {"params", "frozen"}
+    extra = set(variables) - set(_COLLECTIONS)
     if extra:
         raise KeyError(f"unexpected variable collections {sorted(extra)}")
     target = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
-    for coll in ("params", "frozen"):
+    for key in target:
+        if key.endswith(".num_batches_tracked"):
+            out[key] = torch.zeros_like(target[key])
+    for coll in _COLLECTIONS:
         for path, arr in flatten_variables(variables.get(coll, {})).items():
             try:
-                key, val = _convert(model, path, np.asarray(arr), coll == "frozen")
+                key, val = _convert(model, path, np.asarray(arr), coll)
             except AttributeError as e:  # get_submodule on a missing path
                 raise KeyError(f"JAX variable {coll}/{path} has no counterpart in the port") from e
             if key not in target:
@@ -117,6 +141,11 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     return model
 
 
+# The last norm of each residual branch: a ResNet Bottleneck's bn3 and the
+# second ConvBN of a PSMNet tower BasicBlock.
+_RESIDUAL_BRANCH_NORM = re.compile(r"(^|\.)(bn3|BasicBlock_\d+\.ConvBN_1\.BatchNorm_0)$")
+
+
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn from `generator` (which must live on the model's
@@ -130,12 +159,17 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         t.copy_(torch.rand(t.shape, generator=generator, device=t.device) * (hi - lo) + lo)
 
     for name, mod in model.named_modules():
-        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
-            normal(mod.weight, math.sqrt(2.0 / mod.weight[0].numel()))
+        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d,
+                            nn.Linear)):
+            # fan-in: a transposed conv's weight is (in, out, k...)
+            fan_in = (mod.weight.shape[0] * mod.weight[0, 0].numel()
+                      if isinstance(mod, (nn.ConvTranspose2d, nn.ConvTranspose3d))
+                      else mod.weight[0].numel())
+            normal(mod.weight, math.sqrt(2.0 / fan_in))
             if mod.bias is not None:
                 normal(mod.bias, 0.01)
-        elif isinstance(mod, FrozenBatchNorm):
-            lo, hi = (0.1, 0.3) if name.endswith("bn3") else (0.5, 1.0)
+        elif isinstance(mod, (FrozenBatchNorm, nn.modules.batchnorm._BatchNorm)):
+            lo, hi = (0.1, 0.3) if _RESIDUAL_BRANCH_NORM.search(name) else (0.5, 1.0)
             uniform(mod.weight, lo, hi)
             normal(mod.bias, 0.05)
             normal(mod.running_mean, 0.05)

@@ -5,11 +5,14 @@ imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+import numpy as np
 import pytest
 import torch
 
 from disprcnn_tpu_torch.ops import nms as tnms
+from disprcnn_tpu_torch.ops.cuda import conv3d as cconv
 from disprcnn_tpu_torch.ops.cuda import nms as cnms
+from disprcnn_tpu_torch.ops.cuda import softargmin as csam
 from nms_cases import KINDS, make_case
 
 pytestmark = pytest.mark.cuda
@@ -19,6 +22,9 @@ pytestmark = pytest.mark.cuda
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # the plain versions' cuDNN convs in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -46,3 +52,162 @@ def test_nms_kernel_refuses_non_contiguous(card):
     valid = torch.ones(2, 8, dtype=torch.bool, device=card)
     with pytest.raises(ValueError, match="contiguous"):
         cnms.nms_sorted_cuda(boxes, valid, 4, 0.5)
+
+
+def _randn(gen, *shape, scale=1.0):
+    return torch.randn(shape, generator=gen, device="cuda") * scale
+
+
+def _close(got, want):
+    """Kernel vs plain conv: the two sum in different orders;
+    max |diff| <= 1e-4 * max |plain| + 1e-5."""
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()) + 1e-5, err
+
+
+@pytest.mark.parametrize("co,mind4", [(32, -4), (32, 0), (32, -6), (64, 3)])
+def test_cost_volume_conv_kernel_matches_plain(card, co, mind4):
+    """Two column tiles (W 40), a partial row tile (H 13), and disparity
+    ranges below, at and above zero; the depth padding slices are zero."""
+    gen = torch.Generator(device="cuda").manual_seed(co - mind4)
+    left, right = _randn(gen, 2, 32, 13, 40), _randn(gen, 2, 32, 13, 40)
+    weight = _randn(gen, co, 64, 3, 3, 3, scale=0.05)
+    mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
+    before = cconv.launches["cost_volume_conv"]
+    got = cconv.cost_volume_conv_bn(left, right, weight, mul, add, mind4, mind4 + 8)
+    assert cconv.launches["cost_volume_conv"] == before + 1
+    _close(got, cconv.cost_volume_conv_bn_plain(left, right, weight, mul, add, mind4,
+                                                mind4 + 8))
+
+
+@pytest.mark.parametrize("ci,co,residual,relu", [
+    (32, 32, False, True), (32, 32, True, False), (64, 64, True, True), (64, 64, False, False),
+    (6, 32, False, True),  # Ci not a multiple of the kernel's 4-channel step
+])
+def test_conv3d_kernel_matches_plain(card, ci, co, residual, relu):
+    gen = torch.Generator(device="cuda").manual_seed(ci + co)
+    x = _randn(gen, 2, ci, 6, 14, 40)
+    weight = _randn(gen, co, ci, 3, 3, 3, scale=0.05)
+    mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
+    res = _randn(gen, 2, co, 6, 14, 40) if residual else None
+    before = cconv.launches["conv3d"]
+    got = cconv.conv3d_bn(x, weight, mul, add, res, relu)
+    assert cconv.launches["conv3d"] == before + 1
+    _close(got, cconv.conv3d_bn_plain(x, weight, mul, add, res, relu))
+
+
+def test_conv3d_cl1_kernel_matches_plain(card):
+    """The classifier's 32 -> 1 conv, no affine."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = _randn(gen, 3, 32, 8, 20, 36)
+    weight = _randn(gen, 1, 32, 3, 3, 3, scale=0.05)
+    before = cconv.launches["conv3d_cl1"]
+    got = cconv.conv3d_bn(x, weight)
+    assert cconv.launches["conv3d_cl1"] == before + 1
+    _close(got, cconv.conv3d_bn_plain(x, weight))
+
+
+@pytest.mark.parametrize("ci,co,shape,relu", [
+    (32, 64, (24, 56, 56), True),   # the hourglass's first stride-2 conv
+    (64, 64, (12, 28, 28), True),   # its second
+    (32, 32, (7, 13, 70), False),   # odd sizes, two column tiles
+    (6, 64, (5, 9, 11), True),      # Ci not a multiple of the 2-channel step
+])
+def test_conv3d_s2_kernel_matches_plain(card, ci, co, shape, relu):
+    gen = torch.Generator(device="cuda").manual_seed(ci + co + shape[0])
+    x = _randn(gen, 2, ci, *shape)
+    weight = _randn(gen, co, ci, 3, 3, 3, scale=0.05)
+    mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
+    before = cconv.launches["conv3d_s2"]
+    got = cconv.conv3d_bn(x, weight, mul, add, relu=relu, stride=2)
+    assert cconv.launches["conv3d_s2"] == before + 1
+    assert got.shape == (2, co, *((s - 1) // 2 + 1 for s in shape))
+    _close(got, cconv.conv3d_bn_plain(x, weight, mul, add, relu=relu, stride=2))
+
+
+@pytest.mark.parametrize("ci,co,shape,residual,relu", [
+    (64, 64, (6, 14, 14), True, True),    # the hourglass's first transposed conv
+    (64, 32, (12, 28, 28), True, False),  # its second
+    (64, 32, (3, 5, 40), False, False),   # odd sizes, two column tiles
+    (6, 64, (2, 3, 7), True, True),       # Ci not a multiple of the 4-channel step
+])
+def test_deconv3d_kernel_matches_plain(card, ci, co, shape, residual, relu):
+    gen = torch.Generator(device="cuda").manual_seed(ci + co + shape[0])
+    x = _randn(gen, 2, ci, *shape)
+    weight = _randn(gen, ci, co, 3, 3, 3, scale=0.05)
+    mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
+    out_shape = (2, co, *(2 * s for s in shape))
+    res = _randn(gen, *out_shape) if residual else None
+    before = cconv.launches["deconv3d"]
+    got = cconv.deconv3d_bn(x, weight, mul, add, res, relu)
+    assert cconv.launches["deconv3d"] == before + 1
+    assert got.shape == out_shape
+    _close(got, cconv.deconv3d_bn_plain(x, weight, mul, add, res, relu))
+
+
+@pytest.mark.parametrize("ci,co,hw,residual,relu", [
+    (32, 32, (112, 112), False, True), (32, 32, (112, 112), True, False),
+    (64, 64, (56, 56), True, False), (64, 64, (13, 70), False, True),
+    (5, 32, (9, 33), True, True),  # Ci not a multiple of the 8-channel step
+])
+def test_conv2d_kernel_matches_plain(card, ci, co, hw, residual, relu):
+    gen = torch.Generator(device="cuda").manual_seed(ci + co + hw[0])
+    x = _randn(gen, 3, ci, *hw)
+    weight = _randn(gen, co, ci, 3, 3, scale=0.05)
+    mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
+    res = _randn(gen, 3, co, *hw) if residual else None
+    before = cconv.launches["conv2d"]
+    got = cconv.conv2d_bn(x, weight, mul, add, res, relu)
+    assert cconv.launches["conv2d"] == before + 1
+    _close(got, cconv.conv2d_bn_plain(x, weight, mul, add, res, relu))
+
+
+def test_conv3d_kernel_refuses_bad_inputs(card):
+    x = torch.zeros(1, 32, 4, 8, 8, device=card)
+    w = torch.zeros(32, 32, 3, 3, 3, device=card)
+    with pytest.raises(ValueError, match="Co"):
+        cconv.conv3d_bn_cuda(x, torch.zeros(16, 32, 3, 3, 3, device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        cconv.conv3d_bn_cuda(x.transpose(3, 4), w)
+    with pytest.raises(ValueError, match="CUDA"):
+        cconv.conv3d_bn_cuda(x.cpu(), w)
+
+
+@pytest.mark.parametrize("b,d4,hw4,out_hw,disp", [
+    (2, 24, (14, 14), (56, 56), (-48, 48)),
+    (2, 8, (7, 9), (27, 33), (-16, 16)),
+    (1, 4, (1, 5), (3, 17), (0, 16)),  # one row of logits
+])
+def test_softargmin_kernel_matches_plain(card, b, d4, hw4, out_hw, disp):
+    """Within 1e-3 px: the kernel interpolates H and W before D and takes
+    the softmax online."""
+    gen = torch.Generator(device="cuda").manual_seed(d4)
+    logits = _randn(gen, b, d4, *hw4, scale=3.0)
+    before = csam.launches
+    got = csam.softargmin(logits, out_hw, *disp)
+    assert csam.launches == before + 1
+    want = csam.softargmin_plain(logits, out_hw, *disp)
+    torch.cuda.synchronize()
+    assert got.shape == (b, *out_hw)
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("n_in,n_out", [(56, 224), (24, 96), (14, 56), (1, 7)])
+def test_interp_matrix_on_card_divides_exactly(card, n_in, n_out):
+    """The matrix the soft-argmin's plain version uses on the card holds the
+    weights at the correctly rounded float32 positions o * (n_in - 1) /
+    (n_out - 1), as the kernel and the JAX package compute them (numpy's
+    float32 division here), not at a multiply by the reciprocal: exactly."""
+    got = csam.interp_matrix_align_corners(n_in, n_out, card)
+    assert got.device.type == "cuda"
+    want = np.zeros((n_out, n_in), np.float32)
+    if n_in == 1:
+        want[:] = 1
+    else:
+        pos = np.arange(n_out, dtype=np.float32) * np.float32(n_in - 1) / np.float32(n_out - 1)
+        i0 = np.clip(np.floor(pos).astype(np.int64), 0, n_in - 2)
+        frac = pos - i0.astype(np.float32)
+        want[np.arange(n_out), i0] = np.float32(1) - frac
+        want[np.arange(n_out), i0 + 1] = frac
+    assert np.array_equal(got.cpu().numpy(), want)

@@ -23,7 +23,19 @@ bad = sorted(m for m in sys.modules
              or (m.split(".")[0].startswith("disprcnn_tpu") and m.split(".")[0] != "disprcnn_tpu_torch"))
 print("BAD", bad)
 print("COUNT", sum(m.startswith("disprcnn_tpu_torch.") for m in sys.modules))
+print("LOADED", " ".join(sorted(m for m in sys.modules if m.startswith("disprcnn_tpu_torch."))))
 """
+
+# modules of the iDispNet slice, which chip_smoke.py drives on the card
+SLICE_MODULES = (
+    "disprcnn_tpu_torch.engine.inference",
+    "disprcnn_tpu_torch.models.detector.disprcnn3d",
+    "disprcnn_tpu_torch.models.pointrcnn.lift",
+    "disprcnn_tpu_torch.models.psmnet.psmnet",
+    "disprcnn_tpu_torch.ops.cost_volume",
+    "disprcnn_tpu_torch.ops.cuda.conv3d",
+    "disprcnn_tpu_torch.ops.cuda.softargmin",
+)
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -31,8 +43,10 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, cwd=str(REPO), timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    count = int(out.stdout.split("COUNT")[1])
-    assert count >= 20  # every submodule was imported
+    count = int(out.stdout.split("COUNT")[1].split()[0])
+    assert count >= 30  # every submodule was imported
+    loaded = set(out.stdout.split("LOADED")[1].split())
+    assert set(SLICE_MODULES) <= loaded, sorted(set(SLICE_MODULES) - loaded)
 
 
 def test_no_import_statement_names_jax():

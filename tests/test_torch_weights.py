@@ -1,14 +1,19 @@
 """utils/weights.py: JAX variables -> the port's state_dict, with every key
 checked."""
+import flax.linen as fnn
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 from disprcnn_tpu.models.detector.disprcnn import DispRCNN as JDispRCNN
+from disprcnn_tpu.models.psmnet.psmnet import PSMNet as JPSMNet
 from disprcnn_tpu_torch.models.detector.disprcnn import DispRCNN
+from disprcnn_tpu_torch.models.psmnet.psmnet import PSMNet, _deconv
 from disprcnn_tpu_torch.utils.weights import (
     flatten_variables, init_random_, load_jax_variables, state_dict_from_jax)
-from torch_port_helpers import TINY, jax_variables
+from torch_port_helpers import TINY, draw_variables, jax_variables
 
 
 @pytest.fixture(scope="module")
@@ -85,7 +90,7 @@ def test_extra_key_raises(variables, model, coll, path):
 
 def test_extra_collection_raises(variables, model):
     with pytest.raises(KeyError, match="collections"):
-        state_dict_from_jax(model, {**variables, "batch_stats": {}})
+        state_dict_from_jax(model, {**variables, "intermediates": {}})
 
 
 def test_shape_mismatch_raises(variables, model):
@@ -103,3 +108,99 @@ def test_random_init_is_seeded_and_sets_frozen_constants():
     var = sa["backbone.body.layer3_2.bn2.running_var"]
     assert not torch.equal(var, torch.ones_like(var))
     assert sa["rpn_head.conv.bias"].abs().sum() > 0
+
+
+@pytest.fixture(scope="module")
+def psm_variables():
+    x = jnp.zeros((1, 64, 64, 3))
+    return draw_variables(JPSMNet(maxdisp=16, mindisp=-16), x, x, seed=2, train=False)
+
+
+def test_psmnet_sets_every_key(psm_variables):
+    """Every PSMNet entry is set from params or batch_stats, and every JAX
+    variable is used: BatchNorm params and statistics, 2D and 3D convs, the
+    bias-free classifier convs and the flipped transposed convs."""
+    model = PSMNet(maxdisp=16, mindisp=-16)
+    sd = state_dict_from_jax(model, psm_variables)
+    assert set(sd) == set(model.state_dict())
+    p, st = psm_variables["params"], psm_variables["batch_stats"]
+    np.testing.assert_array_equal(  # 3D conv: DHWIO -> OIDHW
+        sd["dres0_0.Conv_0.weight"].numpy(), p["dres0_0"]["Conv_0"]["kernel"].transpose(4, 3, 0, 1, 2))
+    np.testing.assert_array_equal(
+        sd["classif3_1.weight"].numpy(), p["classif3_1"]["kernel"].transpose(4, 3, 0, 1, 2))
+    np.testing.assert_array_equal(  # transposed 3D conv: flipped, (in, out, kd, kh, kw)
+        sd["dres4.ConvTranspose_1.weight"].numpy(),
+        p["dres4"]["ConvTranspose_1"]["kernel"][::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2))
+    fe = "feature_extraction"
+    np.testing.assert_array_equal(
+        sd[f"{fe}.BasicBlock_3.Conv_0.weight"].numpy(),
+        p[fe]["BasicBlock_3"]["Conv_0"]["kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(sd[f"{fe}.ConvBN_7.BatchNorm_0.weight"].numpy(),
+                                  p[fe]["ConvBN_7"]["BatchNorm_0"]["scale"])
+    np.testing.assert_array_equal(sd["dres2.BatchNorm_1.running_var"].numpy(),
+                                  st["dres2"]["BatchNorm_1"]["var"])
+    np.testing.assert_array_equal(sd["dres1_1.BatchNorm_0.running_mean"].numpy(),
+                                  st["dres1_1"]["BatchNorm_0"]["mean"])
+    assert all(int(v) == 0 for k, v in sd.items() if k.endswith("num_batches_tracked"))
+
+
+@pytest.mark.parametrize("coll,path", [
+    ("batch_stats", "dres0_1/BatchNorm_0/var"),
+    ("params", "dres3/ConvTranspose_0/kernel"),
+    ("params", "feature_extraction/BasicBlock_19/BatchNorm_0/scale"),
+])
+def test_psmnet_missing_key_raises(psm_variables, coll, path):
+    flat = _flat_copy(psm_variables)
+    del flat[coll][path]
+    with pytest.raises(KeyError, match="left unset"):
+        state_dict_from_jax(PSMNet(maxdisp=16, mindisp=-16), flat)
+
+
+@pytest.mark.parametrize("coll,path", [
+    ("batch_stats", "dres0_1/Conv_0/mean"),  # statistics of a conv
+    ("batch_stats", "dres0_1/BatchNorm_0/scale"),  # a param in the statistics
+    ("params", "classif1_1/bias"),  # the classifier conv has no bias
+])
+def test_psmnet_extra_key_raises(psm_variables, coll, path):
+    flat = _flat_copy(psm_variables)
+    flat[coll][path] = np.zeros((32,), np.float32)
+    with pytest.raises(KeyError):
+        state_dict_from_jax(PSMNet(maxdisp=16, mindisp=-16), flat)
+
+
+class _OneDeconv(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.ConvTranspose_0 = _deconv(4, 3)
+
+
+def test_conv_transpose3d_flip_and_padding_match_flax():
+    """One flax ConvTranspose(k=3, s=2, padding [(1, 2)] * 3), as the JAX
+    hourglass builds it, against the port's ConvTranspose3d(k=3, s=2, p=1,
+    output_padding=1) with the kernel converted by state_dict_from_jax."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 3, 4, 5, 4)).astype(np.float32)  # NDHWC
+    kernel = rng.standard_normal((3, 3, 3, 4, 3)).astype(np.float32)
+    layer = fnn.ConvTranspose(3, (3, 3, 3), strides=(2, 2, 2), padding=[(1, 2)] * 3,
+                              use_bias=False)
+    want = np.asarray(layer.apply({"params": {"kernel": kernel}}, jnp.asarray(x)))
+    model = load_jax_variables(_OneDeconv(), {"params": {"ConvTranspose_0": {"kernel": kernel}}})
+    with torch.no_grad():
+        got = model.ConvTranspose_0(torch.from_numpy(x.transpose(0, 4, 1, 2, 3).copy()))
+    assert want.shape == (2, 6, 8, 10, 3)
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 4, 1), want, rtol=1e-5, atol=1e-5)
+
+
+def test_random_init_covers_psmnet():
+    """init_random_ sets every conv and batch norm of PSMNet from the
+    generator, scaling down the last norm of each tower residual branch."""
+    a = init_random_(PSMNet(maxdisp=16, mindisp=-16), torch.Generator().manual_seed(4))
+    b = init_random_(PSMNet(maxdisp=16, mindisp=-16), torch.Generator().manual_seed(4))
+    sa, sb = a.state_dict(), b.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    var = sa["dres3.BatchNorm_0.running_var"]
+    assert not torch.equal(var, torch.ones_like(var))
+    fe = "feature_extraction"
+    assert sa[f"{fe}.BasicBlock_5.ConvBN_1.BatchNorm_0.weight"].max() <= 0.3
+    assert sa[f"{fe}.BasicBlock_5.ConvBN_0.BatchNorm_0.weight"].min() >= 0.5
+    assert sa[f"{fe}.ConvBN_1.BatchNorm_0.weight"].min() >= 0.5

@@ -24,14 +24,20 @@ def _fill(path, shape, rng):
     return (0.1 * rng.standard_normal(shape)).astype(np.float32)
 
 
-def jax_variables(model, seed=0, hw=IMG_HW):
+def draw_variables(model, *args, seed=0, **kwargs):
     """Variables of a Flax model with every leaf drawn by numpy: FrozenBN
-    constants away from 0/1 and non-zero biases, so the reference's quirks
-    show. Shapes come from jax.eval_shape (no compile)."""
-    x = jnp.zeros((1, *hw, 3))
+    constants and BatchNorm statistics away from 0/1 and non-zero biases,
+    so the reference's quirks show. `args`/`kwargs` are what model.init
+    takes after the rngs; shapes come from jax.eval_shape (no compile)."""
     shapes = jax.eval_shape(
         lambda: model.init({"params": jax.random.PRNGKey(0), "sampling": jax.random.PRNGKey(0)},
-                           x, x, train=False))
+                           *args, **kwargs))
     rng = np.random.default_rng(seed)
     return jax.tree_util.tree_map_with_path(
         lambda p, s: _fill(tuple(k.key for k in p), s.shape, rng), shapes)
+
+
+def jax_variables(model, seed=0, hw=IMG_HW):
+    """draw_variables of a model that takes a (left, right) image pair."""
+    x = jnp.zeros((1, *hw, 3))
+    return draw_variables(model, x, x, seed=seed, train=False)
