@@ -5,8 +5,9 @@
 
 Phases, each ending in torch.cuda.synchronize() and one progress line:
   1. build every CUDA kernel of the path (csrc/nms.cu, conv3d.cu,
-     softargmin.cu), one nvcc per source, all at once, into
-     disprcnn_tpu_torch/csrc/build/ (listed in .gitignore);
+     softargmin.cu, fps.cu, sa.cu, fp.cu, roipool3d.cu), one nvcc per
+     source, all at once, into disprcnn_tpu_torch/csrc/build/ (listed in
+     .gitignore);
   2. the greedy-NMS kernel against its plain PyTorch version at the SRPN
      call (8, 6000) k=300 IoU 0.7 and the box head's (8, 300) k=16 IoU 0.5,
      on random, clustered, duplicate, tied-score, all-invalid-row and
@@ -18,30 +19,43 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      with and without residual and ReLU), its 32 -> 1 classifier form, the
      stride-2 and the transposed 3D convs of the hourglasses and the
      soft-argmin;
-  4. the main path: predict answers 2 requests of 8 stereo pairs at
-     384x1248 (R-101 2D detector, then iDispNet over 16 ROIs of 224^2 per
-     pair, disparity -48..48; random weights from a seeded
-     torch.Generator), timed with CUDA events, with every kernel's
+  4. the PointRCNN kernels against their plain versions at every site
+     shape of both budgets, on seeded clouds that hold empty, partial and
+     full balls, coincident points, and boxes with no point, fewer than 512
+     and more than 512: FPS indices and RoI-pool rows exactly, SA and FP
+     values within CONV_RTOL/CONV_ATOL;
+  5. the main path: predict answers 2 requests of 8 stereo pairs at
+     384x1248 at the headline 3D budget and 1 at the reference budget (R-101
+     2D detector, iDispNet over 16 ROIs of 224^2 per pair, disparity
+     -48..48, the lift to 768 points per ROI, PointRCNN's RPN, proposals,
+     RoI-pool 3D and RCNN; random weights and sampling priorities from
+     seeded torch.Generators), timed with CUDA events, with every kernel's
      launches counted from 0 over exactly these requests;
-  5. the same requests with every kernel's launch point routed to its
+  6. the same requests with every kernel's launch point routed to its
      plain version on the card: detections and masks equal, disparity
-     within DISP_TOL_PX;
-  6. small references: the R-50 2D test configuration at 64x128, and a
-     small DispRCNN3D (2 ROIs of 64^2, disparity -16..16), on the CPU
-     (plain versions) and on the card (kernels), to stated tolerances;
-  7. each kernel timed on the inputs the main path gave it in one request,
-     beside its plain version, the one PyTorch call that computes the same
-     function where there is one (cuDNN free to pick non-deterministic
-     algorithms), and the bound of the work (the
-     operations the function needs: products with padding or with the
-     cost volume's empty columns are not counted);
-  8. where a request's time goes: one request split into stages (2D
-     detector, crops, feature tower, cost volume + dres, hourglasses,
-     classifiers + regression) by CUDA events that forward hooks record;
-     then the same request timed with cuDNN (the 2D detector and the
-     tower's other convs) free to pick non-deterministic algorithms.
+     within DISP_TOL_PX; the 3D stage then runs on the kernel path's
+     disparity (so that both runs lift the same clouds): roi_ok and random
+     equal, box3d and score3d within BOX3D_TOL on at least BOX3D_AGREE of
+     the instances;
+  7. small references: the R-50 2D test configuration at 64x128, a small
+     DispRCNN3D (2 ROIs of 64^2, disparity -16..16), and the same with
+     det3d_on (clouds of 128 points), on the CPU (plain versions) and on
+     the card (kernels), to stated tolerances;
+  8. each kernel timed on the inputs the main path gave it in one headline
+     request, beside its plain version, the one PyTorch call that computes
+     the same function where there is one (cuDNN free to pick
+     non-deterministic algorithms), and the bound of the work the function
+     needs (products with padding or with the cost volume's empty columns,
+     and neighbour slots that repeat a ball's first point, are not counted);
+  9. where a request's time goes, at both budgets: one request split into
+     stages (2D detector, crops, feature tower, cost volume + dres,
+     hourglasses, classifiers + regression, lift, RPN backbone, RPN heads,
+     propose + NMS, RoI-pool 3D, RCNN, postprocess) by CUDA events that
+     forward hooks and wrappers record; the headline request is also timed
+     with cuDNN free to pick non-deterministic algorithms; pairs per second
+     at both budgets.
 Then it prints the card (name, power limit) from nvidia-smi, one JSON line
-of per-kernel numbers (per request), and as its last line
+of per-kernel numbers (per headline request), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or on any failure, it exits non-zero and prints no
 result. Float32 throughout with TF32 off and deterministic cuDNN.
@@ -61,47 +75,81 @@ import torch.nn.functional as F
 from disprcnn_tpu_torch.engine.inference import predict, predict_2d
 from disprcnn_tpu_torch.models.detector.disprcnn import DispRCNN
 from disprcnn_tpu_torch.models.detector.disprcnn3d import DispRCNN3D
+from disprcnn_tpu_torch.models.pointrcnn import rcnn3d, rpn3d
 from disprcnn_tpu_torch.ops import nms as port_nms
+from disprcnn_tpu_torch.ops import points as tpoints
+from disprcnn_tpu_torch.ops import roipool3d as troi
 from disprcnn_tpu_torch.ops.cuda import build
 from disprcnn_tpu_torch.ops.cuda import conv3d as cconv
+from disprcnn_tpu_torch.ops.cuda import fp as cfp
+from disprcnn_tpu_torch.ops.cuda import fps as cfps
 from disprcnn_tpu_torch.ops.cuda import nms as cuda_nms
+from disprcnn_tpu_torch.ops.cuda import roipool3d as croi
+from disprcnn_tpu_torch.ops.cuda import sa as csa
 from disprcnn_tpu_torch.ops.cuda import softargmin as csam
 from disprcnn_tpu_torch.structures.stereo import StereoBoxes
 from disprcnn_tpu_torch.utils.weights import init_random_
 
-PHASES = 8
+PHASES = 9
 IMG_HW = (384, 1248)  # KITTI network input (bench.py:_time_pipeline)
 PAIRS = 8
-REQUESTS = 2
+REQUESTS = 2  # at the headline budget; one more at the reference budget
 # bench.py:294-298, in float32
 BENCH_2D = dict(body="R-101", pre_nms_top_n_test=6000, post_nms_top_n_test=300,
                 max_det=16, detections_per_img=16)
-# bench.py:299-305 and configs/kitti/car/vob/idispnet.yaml (DET3D_ON: False)
-BENCH_3D = dict(max_det=16, roi_size=224, maxdisp=48, mindisp=-48)
+# bench.py:299-305 and configs/kitti/car/vob/rcnn.yaml (DET3D_ON: True)
+BENCH_3D = dict(max_det=16, roi_size=224, maxdisp=48, mindisp=-48, det3d_on=True, npoints=768,
+                lift_grid=112, sa_npoints=(768, 512, 256, 64))
+# the two 3D budgets of bench.py:268-271; the RCNN runs every post-NMS
+# proposal at eval, so its ROIs per instance equal post_nms
+BUDGETS = {"headline": dict(rpn_pre_nms_per_roi=128, proposals_per_roi=16),
+           "reference": dict(rpn_pre_nms_per_roi=768, proposals_per_roi=100)}
+# bench.py:312-317
+CALIB = dict(fu=721.5, fv=721.5, cu=IMG_HW[1] / 2.0, cv=IMG_HW[0] / 2.0, tx=0.0, ty=0.0,
+             fuxb=389.6)
 # the tests' small configurations (tests/torch_port_helpers.py, tests/test_torch_disprcnn3d.py)
 SMALL_2D = dict(body="R-50", out_channels=32, mlp_head_dim=64, pre_nms_top_n_test=200,
                 post_nms_top_n_test=48, max_det=8, detections_per_img=8)
 SMALL_3D = dict(max_det=2, roi_size=64, maxdisp=16, mindisp=-16)
+SMALL_DET3D = dict(SMALL_3D, det3d_on=True, npoints=128, lift_grid=32,
+                   sa_npoints=(128, 64, 32, 16))
 # BGR255 mean-subtracted input of the 2D detector (bench.py, data/transforms.py)
 PIXEL_MEAN_BGR = (102.9801, 115.9465, 122.7717)
 NMS_CASES = ("random", "clustered", "duplicates", "ties", "invalid_rows", "few_survivors")
 NMS_SHAPES = ((6000, 300, 0.7), (300, 16, 0.5))  # (N, k, IoU) of SRPN and box head
-# Kernel launches per request on the main path (the kernel table of PERF.md)
-# (the tower's 2D conv: ConvBN_1, ConvBN_2, layer1's 6, layer2's 31, over
-# both views at once; 2 stride-2 and 2 transposed convs per hourglass)
-EXPECTED_LAUNCHES = {"nms_sorted": 2, "conv2d": 39, "cost_volume_conv": 1, "conv3d": 12,
-                     "conv3d_cl1": 3, "conv3d_s2": 6, "deconv3d": 6, "softargmin": 1}
+# Kernel launches per headline request on the main path (the kernel table of
+# PERF.md): the tower's 2D conv: ConvBN_1, ConvBN_2, layer1's 6, layer2's 31,
+# over both views at once; 2 stride-2 and 2 transposed convs per hourglass;
+# NMS: SRPN, box head and the 3D proposals; FPS at RPN SA1-3 (SA0 keeps all
+# 768 points) and RCNN SA0-1; SA at the 6 RPN scales with 64+ channels and
+# RCNN SA0-1 (one launch per scale); FP at fp3, fp2 and fp1 (fp0 has no
+# skip features); RoI-pool once per proposal block
+EXPECTED_LAUNCHES = {"nms_sorted": 3, "conv2d": 39, "cost_volume_conv": 1, "conv3d": 12,
+                     "conv3d_cl1": 3, "conv3d_s2": 6, "deconv3d": 6, "softargmin": 1,
+                     "fps": 5, "sa": 8, "fp": 3, "roipool3d": 1}
+# at the reference budget the RCNN runs its 12 800 ROIs in two blocks of 6400
+EXPECTED_REFERENCE = {**EXPECTED_LAUNCHES, "fps": 7, "sa": 10, "roipool3d": 2}
 # Tolerances, fixed before the first card run of these kernels:
 # a conv kernel against its plain version (cuDNN, TF32 off) sums the same
 # products in another order: max |diff| <= CONV_RTOL * max |plain| + CONV_ATOL;
+# the SA and FP kernels against theirs (cuBLAS products) likewise;
 CONV_RTOL, CONV_ATOL = 1e-4, 1e-5
 # the soft-argmin kernel interpolates H and W before D and takes the
 # softmax online: max |diff| <= 1e-3 px;
 SOFTARGMIN_TOL_PX = 1e-3
-# disparity of a whole forward, kernels against plain versions (phase 5)
-# or card against CPU (phase 6): the differences above through ~20 3D conv
+# disparity of a whole forward, kernels against plain versions (phase 6)
+# or card against CPU (phase 7): the differences above through ~20 3D conv
 # layers and a softmax over 96 (32) disparities: max |diff| <= 1e-2 px.
 DISP_TOL_PX = 1e-2
+# box3d and score3d of the 3D stage on the same clouds, kernels against
+# plain versions or card against CPU: per instance max |diff| <= BOX3D_TOL *
+# (1 + max |plain|). The float32 sums of the SA/FP products differ in order
+# (~1e-6 relative); an argmax over the box codec's bins, or an NMS or score
+# threshold, that those differences tip for one point changes that
+# instance's proposals, so at least BOX3D_AGREE of the instances with
+# points must be within the tolerance, and roi_ok and random equal.
+BOX3D_TOL = 1e-3
+BOX3D_AGREE = 0.95
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -109,6 +157,34 @@ IOU_OPS = 17  # float ops of one IoU and its threshold test (nms.cu box_iou)
 # soft-argmin: ops per (pixel, logit slice) of the bilinear H/W taps, and per
 # (pixel, disparity) of the D interpolation, exp, running max and two sums
 SAM_TAP_OPS, SAM_DISP_OPS = 8, 8
+# FPS: per point and step, 3 differences, 3 squares, 2 sums, the running
+# minimum and the argmax comparison
+FPS_OPS = 10
+# a squared distance and its test (3 differences, 3 squares, 2 sums, 1
+# comparison); the in-box test of RoI-pool 3D (3 offsets, 3 bounds on them,
+# a rotation of 4 products and 2 sums, 4 bounds)
+DIST_OPS, INBOX_OPS = 9, 16
+# the PointRCNN kernels' site shapes (kernel table of PERF.md), both budgets:
+# FPS (clouds, N, npoint)
+FPS_SITES = ((128, 768, 512), (128, 512, 256), (128, 256, 64), (2048, 512, 128),
+             (2048, 128, 32), (6400, 512, 128), (6400, 128, 32))
+# SA (site, clouds, N, M, C0, chain after mlp0, radius, S)
+SA_SITES = (("RPN SA1 scale 0", 128, 768, 512, 64, (64, 128), 0.5, 16),
+            ("RPN SA1 scale 1", 128, 768, 512, 64, (96, 128), 1.0, 32),
+            ("RPN SA2 scale 0", 128, 512, 256, 128, (196, 256), 1.0, 16),
+            ("RPN SA2 scale 1", 128, 512, 256, 128, (196, 256), 2.0, 32),
+            ("RPN SA3 scale 0", 128, 256, 64, 256, (256, 512), 2.0, 16),
+            ("RPN SA3 scale 1", 128, 256, 64, 256, (384, 512), 4.0, 32),
+            ("RCNN SA0", 2048, 512, 128, 128, (128, 128), 0.2, 64),
+            ("RCNN SA1", 2048, 128, 32, 128, (128, 256), 0.4, 64),
+            ("RCNN SA0 reference", 6400, 512, 128, 128, (128, 128), 0.2, 64),
+            ("RCNN SA1 reference", 6400, 128, 32, 128, (128, 256), 0.4, 64))
+# FP (site, clouds, targets, sources, C, C skip, chain)
+FP_SITES = (("fp3", 128, 256, 64, 1024, 512, (512, 512)),
+            ("fp2", 128, 512, 256, 512, 256, (512, 512)),
+            ("fp1", 128, 768, 512, 512, 96, (256, 256)))
+# RoI-pool 3D (clouds, N, boxes, C, S): headline, and one reference block
+ROI_SITES = ((128, 768, 16, 130, 512), (128, 768, 50, 130, 512))
 
 
 def log(msg: str) -> None:
@@ -123,7 +199,7 @@ def card_line() -> str:
 
 
 def phase_build() -> float:
-    names = ("nms", "conv3d", "softargmin")
+    names = ("nms", "conv3d", "softargmin", "fps", "sa", "fp", "roipool3d")
     t0 = time.perf_counter()
     texts = build.build(*names)
     dt = time.perf_counter() - t0
@@ -132,7 +208,8 @@ def phase_build() -> float:
             if "registers" in line or "bytes stack" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     # load them: a library that does not load fails here
-    cuda_nms._lib(), cconv._lib(), csam._lib()
+    for mod in (cuda_nms, cconv, csam, cfps, csa, cfp, croi):
+        mod._lib()
     torch.cuda.synchronize()
     log(f"[1/{PHASES}] build: {', '.join(n + '.cu' for n in names)} with nvcc in {dt:.1f} s")
     return dt
@@ -142,11 +219,14 @@ def phase_build() -> float:
 def launches_replaced(**fns):
     """Route the named launch points (nms_sorted_cuda, conv3d_bn_cuda,
     cost_volume_conv_bn_cuda, deconv3d_bn_cuda, conv2d_bn_cuda,
-    softargmin_cuda) through the given functions; yields the original
-    launches by name."""
+    softargmin_cuda, furthest_point_sample_cuda, sa_ball_mlp_max_cuda,
+    fp_fused_cuda, roipool3d_cuda) through the given functions; yields the
+    original launches by name."""
     modules = {"nms_sorted_cuda": cuda_nms, "conv3d_bn_cuda": cconv,
                "cost_volume_conv_bn_cuda": cconv, "deconv3d_bn_cuda": cconv,
-               "conv2d_bn_cuda": cconv, "softargmin_cuda": csam}
+               "conv2d_bn_cuda": cconv, "softargmin_cuda": csam,
+               "furthest_point_sample_cuda": cfps, "sa_ball_mlp_max_cuda": csa,
+               "fp_fused_cuda": cfp, "roipool3d_cuda": croi}
     orig = {name: getattr(modules[name], name) for name in fns}
     for name, fn in fns.items():
         setattr(modules[name], name, fn)
@@ -163,7 +243,11 @@ def all_plain():
                              cost_volume_conv_bn_cuda=cconv.cost_volume_conv_bn_plain,
                              deconv3d_bn_cuda=cconv.deconv3d_bn_plain,
                              conv2d_bn_cuda=cconv.conv2d_bn_plain,
-                             softargmin_cuda=csam.softargmin_plain)
+                             softargmin_cuda=csam.softargmin_plain,
+                             furthest_point_sample_cuda=cfps.furthest_point_sample_plain,
+                             sa_ball_mlp_max_cuda=csa.sa_ball_mlp_max_plain,
+                             fp_fused_cuda=cfp.fp_fused_plain,
+                             roipool3d_cuda=croi.roipool3d_plain)
 
 
 def nms_case(kind: str, b: int, n: int, gen: torch.Generator):
@@ -237,7 +321,8 @@ def phase_3d_compare() -> dict:
     def affine(co):
         return 1 + randn(co, scale=0.3), randn(co, scale=0.1)
 
-    errs = {k: 0.0 for k in EXPECTED_LAUNCHES if k != "nms_sorted"}
+    errs = {k: 0.0 for k in ("conv2d", "cost_volume_conv", "conv3d", "conv3d_cl1",
+                             "conv3d_s2", "deconv3d", "softargmin")}
 
     def check(name, what, got, want):
         e = conv_err(got, want, what)
@@ -312,6 +397,117 @@ def phase_3d_compare() -> dict:
     return errs
 
 
+def point_clouds(gen: torch.Generator, b: int, n: int, scale: float, s: int = 64) -> torch.Tensor:
+    """(b, n, 3) clouds on the card: a normal spread, a dense cluster of
+    min(n // 2, s + 16) points around point 10 (full balls), coincident
+    points (distance ties) and a far outlier (a ball of one point)."""
+    x = torch.randn(b, n, 3, generator=gen, device="cuda") * scale
+    k = min(n // 2, s + 16)
+    x[:, 10:10 + k] = x[:, 10:11] + torch.randn(b, k, 3, generator=gen, device="cuda") * 1e-3
+    x[:, 5] = x[:, 2]
+    x[:, n - 1] = x[:, 7]
+    x[:, 3] = 40.0
+    return x.contiguous()
+
+
+def ball_counts(centers, xyz, radius, s):
+    """Per ball, the number of distinct points found (min(in radius, S))."""
+    out = []
+    for lo in range(0, xyz.shape[0], 256):
+        d2 = tpoints.sqdist(centers[lo:lo + 256, :, None], xyz[lo:lo + 256, None])
+        out.append((d2 < radius * radius).sum(-1).clamp_max(s))
+    return torch.cat(out)
+
+
+def phase_points_compare() -> dict:
+    """The PointRCNN kernels at every site shape of both budgets against
+    their plain versions, on clouds that hold empty, partial and full balls
+    and boxes with none, fewer than 512 and more than 512 points."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    errs = {"fps": 0.0, "sa": 0.0, "fp": 0.0, "roipool3d": 0.0}
+    for b, n, npoint in FPS_SITES:
+        xyz = point_clouds(gen, b, n, 1.5)
+        got = cfps.furthest_point_sample_cuda(xyz, npoint)
+        want = cfps.furthest_point_sample_plain(xyz, npoint)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"FPS ({b}, {n} -> {npoint}): kernel indices differ from plain "
+                                 f"in {int((got != want).sum())} slots")
+        if got.unique().numel() < npoint // 2:
+            raise AssertionError(f"FPS ({b}, {n} -> {npoint}): the selection hardly varies")
+        log(f"  fps ({b}, {n} -> {npoint}): indices equal")
+    for site, b, n, m, c0, chain, radius, s in SA_SITES:
+        xyz = point_clouds(gen, b, n, 1.2 * radius * n ** (1 / 3) / 4, s)
+        centers = torch.cat([xyz[:, :m - 1], torch.full((b, 1, 3), 60.0, device="cuda")], 1)
+        v = torch.randn(b, n, c0, generator=gen, device="cuda")
+        w0x = torch.randn(3, c0, generator=gen, device="cuda") * (0.5 / radius)
+        mul0 = 1 + torch.randn(c0, generator=gen, device="cuda") * 0.3
+        add0 = torch.randn(c0, generator=gen, device="cuda") * 0.1
+        ws, cin = [], c0
+        for co in chain:
+            ws.append((torch.randn(cin, co, generator=gen, device="cuda") * cin ** -0.5,
+                       torch.randn(co, generator=gen, device="cuda") * 0.1))
+            cin = co
+        cnt = ball_counts(centers, xyz, radius, s)
+        kinds = ((cnt == 0).any(), ((cnt > 0) & (cnt < s)).any(), (cnt == s).any())
+        if not all(bool(k) for k in kinds):
+            raise AssertionError(f"SA {site}: the clouds lack empty, partial or full balls")
+        got = csa.sa_ball_mlp_max_cuda(xyz, centers.contiguous(), v, w0x, mul0, add0, ws,
+                                       radius, s)
+        want = csa.sa_ball_mlp_max_plain(xyz, centers, v, w0x, mul0, add0, ws, radius, s)
+        e = conv_err(got, want, f"SA {site}")
+        errs["sa"] = max(errs["sa"], e)
+        del v, got, want
+        log(f"  sa {site} ({b}, {n} -> {m}, S {s}, {c0} -> {' -> '.join(map(str, chain))}): "
+            f"max |diff| {e:.3g}; balls empty {int((cnt == 0).sum())}, partial "
+            f"{int(((cnt > 0) & (cnt < s)).sum())}, full {int((cnt == s).sum())}")
+    for site, b, nt, ns, c, cs, chain in FP_SITES:
+        unknown, known = point_clouds(gen, b, nt, 1.5), point_clouds(gen, b, ns, 1.5)
+        unknown[:, 0] = known[:, 4]
+        kf = torch.randn(b, ns, c, generator=gen, device="cuda")
+        uf = torch.randn(b, nt, cs, generator=gen, device="cuda")
+        ws, cin = [], c + cs
+        for co in chain:
+            ws.append((torch.randn(cin, co, generator=gen, device="cuda") * cin ** -0.5,
+                       torch.randn(co, generator=gen, device="cuda") * 0.1))
+            cin = co
+        got = cfp.fp_fused_cuda(unknown, known, kf, uf, ws)
+        e = conv_err(got, cfp.fp_fused_plain(unknown, known, kf, uf, ws), f"FP {site}")
+        errs["fp"] = max(errs["fp"], e)
+        log(f"  fp {site} ({b}, {nt} <- {ns}, {c} + {cs} -> {' -> '.join(map(str, chain))}): "
+            f"max |diff| {e:.3g}")
+    kinds_of_box = torch.tensor([[0.0, 2.0, 0.0, 4.0, 4.0, 4.0, 0.4],  # ~100 points
+                                 [1.0, 0.5, -1.0, 1.6, 2.0, 2.0, -0.8],  # ~15
+                                 [50.0, 50.0, 50.0, 1.0, 1.0, 1.0, 0.0],  # none
+                                 [0.0, 4.0, 0.0, 8.5, 9.0, 9.0, 0.3]],  # > 512
+                                device="cuda")
+    for b, n, m, c, s in ROI_SITES:
+        pts = (torch.rand(b, n, 3, generator=gen, device="cuda") * 8 - 4).contiguous()
+        feats = torch.randn(b, n, c, generator=gen, device="cuda")
+        boxes = kinds_of_box[torch.arange(m, device="cuda") % 4][None].repeat(b, 1, 1)
+        boxes[:, :, :3] += torch.randn(b, m, 3, generator=gen, device="cuda") * 0.3
+        boxes = boxes.contiguous()
+        counts = troi.pts_in_boxes3d(pts, boxes).sum(-1)
+        if not ((counts == 0).any() and ((counts > 0) & (counts < s)).any()
+                and (counts > s).any()):
+            raise AssertionError("RoI-pool: the boxes lack ones with 0, < S and > S points")
+        got, gempty = croi.roipool3d_cuda(pts, feats, boxes, s)
+        want, wempty = croi.roipool3d_plain(pts, feats, boxes, s)
+        torch.cuda.synchronize()
+        if not (torch.equal(gempty, wempty) and torch.equal(got, want)):
+            raise AssertionError(f"RoI-pool ({b}, {n}, {m} boxes): kernel differs from plain, "
+                                 f"max |diff| {float((got - want).abs().max())}")
+        if not (got != 0).any():
+            raise AssertionError("RoI-pool: the output is all padding")
+        log(f"  roipool3d ({b}, {n}, {c} ch, {m} boxes, S {s}): rows and flags equal; boxes "
+            f"empty {int((counts == 0).sum())}, under S {int(((counts > 0) & (counts < s)).sum())}"
+            f", over S {int((counts > s).sum())}")
+        del got, want
+    torch.cuda.synchronize()
+    log(f"[4/{PHASES}] PointRCNN kernels match their plain versions at every site shape")
+    return errs
+
+
 def check_outputs(out, b: int, max_det: int) -> int:
     dets, masks = out["detections"], out["masks"]
     shapes = {"left": (b, max_det, 4), "right": (b, max_det, 4), "score": (b, max_det),
@@ -343,51 +539,143 @@ def check_disparity(disp: torch.Tensor, b: int, cfg: dict) -> None:
                              f"[{float(disp.min())}, {float(disp.max())}]")
 
 
+def check_3d(out, b: int, max_det: int) -> int:
+    """box3d (b, max_det, 7), score3d, random and roi_ok of one request:
+    shapes, finite values, booleans. Returns the instances with points."""
+    shapes = {"box3d": (b, max_det, 7), "score3d": (b, max_det), "random": (b, max_det),
+              "roi_ok": (b, max_det)}
+    for name, shape in shapes.items():
+        if tuple(out[name].shape) != shape:
+            raise AssertionError(f"{name} {tuple(out[name].shape)} != {shape}")
+    if out["random"].dtype != torch.bool or out["roi_ok"].dtype != torch.bool:
+        raise AssertionError("random and roi_ok must be booleans")
+    if not (torch.isfinite(out["box3d"]).all() and torch.isfinite(out["score3d"]).all()):
+        raise AssertionError("non-finite box3d or score3d")
+    return int(out["roi_ok"].sum())
+
+
+def set_budget(model3d, budget: str) -> None:
+    for name, value in BUDGETS[budget].items():
+        setattr(model3d.pointrcnn, name, value)
+
+
 def reset_launches() -> None:
     cuda_nms.launches = 0
     csam.launches = 0
+    for mod in (cfps, csa, cfp, croi):
+        mod.launches = 0
     for k in cconv.launches:
         cconv.launches[k] = 0
 
 
 def read_launches() -> dict:
-    return {"nms_sorted": cuda_nms.launches, **cconv.launches, "softargmin": csam.launches}
+    return {"nms_sorted": cuda_nms.launches, **cconv.launches, "softargmin": csam.launches,
+            "fps": cfps.launches, "sa": csa.launches, "fp": cfp.launches,
+            "roipool3d": croi.launches}
+
+
+@contextlib.contextmanager
+def proposals_counted(counts: list):
+    """Record the valid proposals of every propose call (a tensor, read
+    after the run, so that counting adds no host synchronisation)."""
+    orig = rpn3d.propose
+
+    def counted(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        counts.append(out[2].sum())
+        return out
+
+    rpn3d.propose = counted
+    try:
+        yield
+    finally:
+        rpn3d.propose = orig
+
+
+def run_request(model2d, model3d, req, budget: str):
+    """(output, ms) of one request at a 3D budget, timed with CUDA events."""
+    set_budget(model3d, budget)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = predict(model2d, model3d, *req[:4], calib=CALIB, priorities=req[4])
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def phase_main_path(model2d, model3d, requests):
-    outs, ms = [], []
+    """REQUESTS headline requests, then one reference request (the last of
+    `requests`)."""
+    runs = [(req, "headline") for req in requests[:REQUESTS]] + [(requests[-1], "reference")]
+    outs, ms, props = [], [], []
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    for req in requests:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = predict(model2d, model3d, *req)
-        end.record()
-        torch.cuda.synchronize()
-        ms.append(start.elapsed_time(end))
-        outs.append(out)
+    with proposals_counted(props):
+        for req, budget in runs:
+            out, t = run_request(model2d, model3d, req, budget)
+            outs.append(out)
+            ms.append(t)
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expected = {k: n * len(requests) for k, n in EXPECTED_LAUNCHES.items()}
+    expected = {k: n * REQUESTS + EXPECTED_REFERENCE[k] for k, n in EXPECTED_LAUNCHES.items()}
     if launches != expected:
         raise AssertionError(f"kernel launches on the main path {launches}, expected {expected}")
     valid = [check_outputs(o, PAIRS, BENCH_2D["max_det"]) for o in outs]
+    with_points = [check_3d(o, PAIRS, BENCH_3D["max_det"]) for o in outs]
     for o in outs:
         check_disparity(o["disparity_roi"], PAIRS, BENCH_3D)
-    spread = [(round(float(o["disparity_roi"].min()), 3), round(float(o["disparity_roi"].max()), 3))
-              for o in outs]
-    log(f"[4/{PHASES}] predict {BENCH_2D['body']} {PAIRS}x{IMG_HW[0]}x{IMG_HW[1]} -> "
-        f"{PAIRS * BENCH_3D['max_det']} ROIs of {BENCH_3D['roi_size']}^2: request ms "
-        f"{[round(t, 3) for t in ms]}, valid detections {valid}, disparity range {spread}, "
-        f"launches {launches}, peak memory {peak_gb:.2f} GB")
-    return outs, ms, launches, peak_gb
+    if not all(with_points):
+        raise AssertionError(f"a request with no instance that has lifted points: {with_points}")
+    proposals = [int(p) for p in props]
+    randoms = [int((o["random"] & o["roi_ok"]).sum()) for o in outs]
+    log(f"[5/{PHASES}] predict {BENCH_2D['body']} {PAIRS}x{IMG_HW[0]}x{IMG_HW[1]} -> "
+        f"{PAIRS * BENCH_3D['max_det']} ROIs of {BENCH_3D['roi_size']}^2 -> "
+        f"{BENCH_3D['npoints']}-point clouds -> PointRCNN, budgets "
+        f"{[b for _, b in runs]}: request ms {[round(t, 3) for t in ms]}, valid detections "
+        f"{valid}, instances with points {with_points}, valid proposals {proposals}, "
+        f"fallback (random) boxes among them {randoms}, launches {launches}, "
+        f"peak memory {peak_gb:.2f} GB")
+    return outs, runs, ms, launches, peak_gb
 
 
-def phase_plain_path(model2d, model3d, requests, kernel_outs) -> float:
-    worst = 0.0
-    for i, (req, ref) in enumerate(zip(requests, kernel_outs)):
-        with all_plain():
-            out = predict(model2d, model3d, *req)
+def check_boxes_3d(got, want, what: str) -> tuple[float, int, int]:
+    """roi_ok and random equal; box3d and score3d within BOX3D_TOL on at
+    least BOX3D_AGREE of the instances with points. -> (largest difference
+    among the agreeing instances, instances out of tolerance, instances)."""
+    ok = want["roi_ok"]
+    if not (torch.equal(got["roi_ok"], ok) and torch.equal(got["random"], want["random"])):
+        raise AssertionError(f"{what}: roi_ok or random differ")
+    box, score = (got[k].to(want[k].device) for k in ("box3d", "score3d"))
+    diff = torch.maximum((box - want["box3d"]).abs().amax(-1), (score - want["score3d"]).abs())
+    scale = torch.maximum(want["box3d"].abs().amax(-1), want["score3d"].abs())
+    good = diff <= BOX3D_TOL * (1 + scale)
+    n, bad = int(ok.sum()), int((ok & ~good).sum())
+    if n == 0 or bad > (1 - BOX3D_AGREE) * n:
+        raise AssertionError(f"{what}: {bad} of {n} instances with points off by more than "
+                             f"the tolerance (largest {float(diff[ok].max())})")
+    return float(diff[ok & good].max()), bad, n
+
+
+def phase_plain_path(model2d, model3d, runs, kernel_outs):
+    """The same requests with every launch point routed to its plain
+    version. The disparity is compared with the kernel path's, then the
+    3D stage runs on the kernel path's disparity (a forward hook on
+    iDispNet swaps it in), so that both runs lift the same clouds."""
+    worst, box_err, off = 0.0, 0.0, []
+    for i, ((req, budget), ref) in enumerate(zip(runs, kernel_outs)):
+        set_budget(model3d, budget)
+        seen = {}
+
+        def swap(_mod, _inp, disp, ref_disp=ref["disparity_roi"]):
+            seen["disp"] = disp
+            return ref_disp.reshape(disp.shape)
+
+        hook = model3d.idispnet.register_forward_hook(swap)
+        try:
+            with all_plain():
+                out = predict(model2d, model3d, *req[:4], calib=CALIB, priorities=req[4])
+        finally:
+            hook.remove()
         torch.cuda.synchronize()
         a, b = out["detections"], ref["detections"]
         same = all(torch.equal(getattr(a, f), getattr(b, f))
@@ -396,12 +684,17 @@ def phase_plain_path(model2d, model3d, requests, kernel_outs) -> float:
         same = same and torch.equal(out["masks"], ref["masks"])
         if not same:
             raise AssertionError(f"request {i}: plain-path detections differ from the kernels'")
-        err = float((out["disparity_roi"] - ref["disparity_roi"]).abs().max())
+        err = float((seen["disp"].reshape(ref["disparity_roi"].shape)
+                     - ref["disparity_roi"]).abs().max())
         if not err <= DISP_TOL_PX:
             raise AssertionError(f"request {i}: plain-path disparity off by {err} px")
         worst = max(worst, err)
-    log(f"[5/{PHASES}] plain versions on the card: detections and masks equal, disparity "
-        f"within {worst:.3g} px on {len(requests)} requests")
+        e, bad, n = check_boxes_3d(out, ref, f"request {i} ({budget})")
+        box_err = max(box_err, e)
+        off.append(f"{bad}/{n}")
+    log(f"[6/{PHASES}] plain versions on the card: detections and masks equal, disparity "
+        f"within {worst:.3g} px on {len(runs)} requests; on the same clouds roi_ok and random "
+        f"equal, box3d/score3d within {box_err:.3g} (instances out of tolerance: {off})")
     return worst
 
 
@@ -461,16 +754,58 @@ def small_3d_reference() -> float:
     return err
 
 
+def small_det3d_reference() -> tuple:
+    """The small DispRCNN3D with det3d_on (2 pairs, 2 detections each,
+    clouds of 128 points) on the CPU (plain versions) and on the card
+    (kernels), same weights and sampling priorities. The card lifts the
+    CPU's disparity (a forward hook on iDispNet swaps it in), so that both
+    run PointRCNN on the same clouds: roi_ok and random equal, box3d and
+    score3d within BOX3D_TOL on at least BOX3D_AGREE of the instances."""
+    cpu = init_random_(DispRCNN3D(**SMALL_DET3D, device="cpu"), torch.Generator().manual_seed(8))
+    card = DispRCNN3D(**SMALL_DET3D, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(9)
+    left_raw, right_raw = (torch.rand(2, 96, 160, 3, generator=gen) for _ in range(2))
+    left = torch.tensor([[[10.3, 20.7, 70.2, 60.9], [80.5, 30.1, 121.4, 75.6]],
+                         [[30.1, 10.2, 90.7, 80.3], [5.5, 40.4, 60.1, 90.2]]])
+    right = left - torch.tensor([[6.2, 0.0, 5.1, 0.0], [9.8, 0.0, 11.3, 0.0]])
+    mask = torch.rand(2, 2, 28, 28, generator=gen)
+    dets = StereoBoxes(left=left, right=right, score=torch.tensor([[0.9, 0.6], [0.8, 0.7]]),
+                       valid=torch.ones(2, 2, dtype=torch.bool), fields={"mask": mask})
+    calib = {k: torch.full((2,), v) for k, v in
+             dict(CALIB, cu=80.0, cv=48.0).items()}
+    pri = torch.rand(4, SMALL_DET3D["lift_grid"] ** 2, generator=gen)
+    with torch.inference_mode():
+        ref = cpu(left_raw, right_raw, dets, calib, pri)
+        hook = card.idispnet.register_forward_hook(
+            lambda _m, _i, disp: ref["disparity_roi"].to(disp.device))
+        try:
+            cdets = StereoBoxes(left=left.cuda(), right=right.cuda(), score=dets.score.cuda(),
+                                valid=dets.valid.cuda(), fields={"mask": mask.cuda()})
+            got = card(left_raw.cuda(), right_raw.cuda(), cdets,
+                       {k: v.cuda() for k, v in calib.items()}, pri.cuda())
+        finally:
+            hook.remove()
+    torch.cuda.synchronize()
+    got = {k: v.cpu() for k, v in got.items()}
+    err, bad, n = check_boxes_3d(got, ref, "small det3d reference")
+    return err, bad, n
+
+
 def phase_small_references() -> float:
     errs = small_2d_reference()
     err3 = small_3d_reference()
-    log(f"[6/{PHASES}] small references, card vs CPU: 2D (R-50, 2x64x128) max abs error {errs}; "
-        f"DispRCNN3D (2 ROIs of 64^2) disparity {err3:.3g} px")
+    box_err, bad, n = small_det3d_reference()
+    log(f"[7/{PHASES}] small references, card vs CPU: 2D (R-50, 2x64x128) max abs error {errs}; "
+        f"DispRCNN3D (2 ROIs of 64^2) disparity {err3:.3g} px; with det3d_on on the same "
+        f"clouds, box3d/score3d within {box_err:.3g} ({bad} of {n} instances with points out "
+        f"of tolerance)")
     return err3
 
 
 def capture_launches(model2d, model3d, req):
-    """The arguments of every kernel launch of one request, by kernel."""
+    """The arguments of every kernel launch of one headline request, by
+    kernel."""
     calls = {k: [] for k in EXPECTED_LAUNCHES}
 
     def recorder(kernel, launch_name, name_of=None):
@@ -485,14 +820,19 @@ def capture_launches(model2d, model3d, req):
             return "conv3d_s2"
         return "conv3d_cl1" if args[1].shape[0] == 1 else "conv3d"
 
+    set_budget(model3d, "headline")
     with launches_replaced(
             nms_sorted_cuda=recorder("nms_sorted", "nms_sorted_cuda"),
             conv3d_bn_cuda=recorder(None, "conv3d_bn_cuda", conv_name),
             cost_volume_conv_bn_cuda=recorder("cost_volume_conv", "cost_volume_conv_bn_cuda"),
             deconv3d_bn_cuda=recorder("deconv3d", "deconv3d_bn_cuda"),
             conv2d_bn_cuda=recorder("conv2d", "conv2d_bn_cuda"),
-            softargmin_cuda=recorder("softargmin", "softargmin_cuda")) as orig:
-        predict(model2d, model3d, *req)
+            softargmin_cuda=recorder("softargmin", "softargmin_cuda"),
+            furthest_point_sample_cuda=recorder("fps", "furthest_point_sample_cuda"),
+            sa_ball_mlp_max_cuda=recorder("sa", "sa_ball_mlp_max_cuda"),
+            fp_fused_cuda=recorder("fp", "fp_fused_cuda"),
+            roipool3d_cuda=recorder("roipool3d", "roipool3d_cuda")) as orig:
+        predict(model2d, model3d, *req[:4], calib=CALIB, priorities=req[4])
     torch.cuda.synchronize()
     return calls
 
@@ -595,9 +935,72 @@ def softargmin_work(args, out):
     return bound(nbytes, pixels * (SAM_TAP_OPS * d4 + SAM_DISP_OPS * (maxdisp - mindisp)))
 
 
+def fps_work(args, out):
+    """Inputs read once, int64 indices written once; FPS_OPS per point and
+    step."""
+    xyz, npoint = args[:2]
+    b, n, _ = xyz.shape
+    return bound(4 * xyz.numel() + 8 * out.numel(), float(FPS_OPS * b * n * (npoint - 1)))
+
+
+def scan_and_hits(mask: torch.Tensor, s: int):
+    """For (..., N) in-ball (or in-box) masks: the points a scan in index
+    order tests before it has found s, and the distinct hits (at most s)."""
+    cum = mask.cumsum(-1)
+    scanned = ((cum < s).sum(-1) + 1).clamp_max(mask.shape[-1])
+    return float(scanned.sum()), float(cum[..., -1].clamp_max(s).sum())
+
+
+def chain_ops(weights) -> float:
+    """A product and a sum per weight, a bias and a ReLU per output."""
+    return float(sum(2 * w.shape[0] * w.shape[1] + 2 * w.shape[1] for w, _ in weights))
+
+
+def sa_work(args, out):
+    """Inputs and weights read once, output written once. The distances a
+    ball query in index order needs until it has S; per distinct neighbour
+    (slots that repeat the first one are not counted): the centring (3),
+    the xyz term, v and the BN0 affine + ReLU (9 per channel), the chain
+    and the max."""
+    xyz, centers, v, w0x, _, _, weights, radius, s = args
+    scanned = hits = 0.0
+    for lo in range(0, xyz.shape[0], 128):
+        d2 = tpoints.sqdist(centers[lo:lo + 128, :, None], xyz[lo:lo + 128, None])
+        a, h = scan_and_hits(d2 < radius * radius, s)
+        scanned, hits = scanned + a, hits + h
+    c0 = v.shape[-1]
+    ops = DIST_OPS * scanned + hits * (3 + 9 * c0 + chain_ops(weights) + out.shape[-1])
+    nbytes = 4 * (xyz.numel() + centers.numel() + v.numel() + w0x.numel() + 2 * c0
+                  + sum(w.numel() + b.numel() for w, b in weights) + out.numel())
+    return bound(nbytes, ops)
+
+
+def fp_work(args, out):
+    """Inputs and weights read once, output written once; per target the
+    distances to every source, the three weights (~12), the interpolation
+    (5 per channel) and the chain."""
+    unknown, known, kf, uf, weights = args[:5]
+    b, nt, _ = unknown.shape
+    ops = b * nt * (DIST_OPS * known.shape[1] + 12 + 5 * kf.shape[-1] + chain_ops(weights))
+    nbytes = 4 * (unknown.numel() + known.numel() + kf.numel() + uf.numel()
+                  + sum(w.numel() + bb.numel() for w, bb in weights) + out.numel())
+    return bound(nbytes, float(ops))
+
+
+def roipool3d_work(args, out):
+    """Inputs read once, the pooled rows and flags written once; the in-box
+    tests a scan in index order needs until it has S points."""
+    pts, feats, boxes, s = args[:4]
+    scanned, _ = scan_and_hits(troi.pts_in_boxes3d(pts, boxes), s)
+    nbytes = 4 * (pts.numel() + feats.numel() + boxes.numel() + out[0].numel()) + out[1].numel()
+    return bound(nbytes, INBOX_OPS * scanned)
+
+
+@torch.inference_mode()
 def phase_timing(model2d, model3d, req, compare_errs):
     """Each kernel on one request's own inputs: kernel, plain version and
-    library call summed over the request's launches, with the bound."""
+    library call summed over the request's launches, with the bound (in
+    inference mode, as predict runs them)."""
     calls = capture_launches(model2d, model3d, req)
     pc = "disprcnn_tpu/ops/pallas/packed_conv.py"
     kinds = {
@@ -623,6 +1026,14 @@ def phase_timing(model2d, model3d, req, compare_errs):
                      lambda a, o: conv_work(a, o, transposed=True), "conv3d.cu", f"{pc}:342"),
         "softargmin": (csam.softargmin_cuda, csam.softargmin_plain, None, softargmin_work,
                        "softargmin.cu", "disprcnn_tpu/ops/pallas/softargmin.py:47"),
+        "fps": (cfps.furthest_point_sample_cuda, cfps.furthest_point_sample_plain, None,
+                fps_work, "fps.cu", "disprcnn_tpu/ops/pallas/fps.py:65"),
+        "sa": (csa.sa_ball_mlp_max_cuda, csa.sa_ball_mlp_max_plain, None, sa_work, "sa.cu",
+               "disprcnn_tpu/ops/pallas/sa_fused.py:1107"),
+        "fp": (cfp.fp_fused_cuda, cfp.fp_fused_plain, None, fp_work, "fp.cu",
+               "disprcnn_tpu/ops/pallas/fp_fused.py:76"),
+        "roipool3d": (croi.roipool3d_cuda, croi.roipool3d_plain, None, roipool3d_work,
+                      "roipool3d.cu", "disprcnn_tpu/ops/pallas/roipool3d_fused.py:137"),
     }
     rows = {}
     for name, (kernel, plain, library, work, src, replaces) in kinds.items():
@@ -635,10 +1046,14 @@ def phase_timing(model2d, model3d, req, compare_errs):
         for args in calls[name]:
             got, want = kernel(*args), plain(*args)
             torch.cuda.synchronize()
-            if name == "nms_sorted":
+            if name in ("nms_sorted", "roipool3d"):
                 e = float((got[0] - want[0]).abs().max())
                 if e != 0 or not torch.equal(got[1], want[1]):
-                    raise AssertionError("NMS kernel != plain on the main path's inputs")
+                    raise AssertionError(f"{name} kernel != plain on the main path's inputs")
+            elif name == "fps":
+                e = float((got - want).abs().max())
+                if e != 0:
+                    raise AssertionError("FPS kernel != plain on the main path's inputs")
             elif name == "softargmin":
                 e = sam_err(got, want, "softargmin on the main path")
             else:
@@ -670,16 +1085,39 @@ def phase_timing(model2d, model3d, req, compare_errs):
             library_ms=tot["library_ms"])
         log(f"  {name}, per request ({len(calls[name])} launches): kernel {tot['ms']:.4f} ms, "
             f"plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
-    log(f"[7/{PHASES}] kernels timed on one request's own inputs")
+    log(f"[8/{PHASES}] kernels timed on one headline request's own inputs")
     return rows
 
 
-def phase_breakdown(model2d, model3d, req) -> dict:
+@contextlib.contextmanager
+def functions_marked(mark, spans):
+    """Wrap the module functions of the 3D stage that are not modules
+    (rpn3d.propose, rcnn3d.pool_rcnn_inputs, rcnn3d.rcnn_postprocess) so
+    that each records `mark(name)` when it returns."""
+    orig = {}
+    for mod, fn_name, label in spans:
+        fn = getattr(mod, fn_name)
+        orig[(mod, fn_name)] = fn
+
+        def wrapped(*args, _fn=fn, _label=label, **kwargs):
+            out = _fn(*args, **kwargs)
+            mark(_label)()
+            return out
+
+        setattr(mod, fn_name, wrapped)
+    try:
+        yield
+    finally:
+        for (mod, fn_name), fn in orig.items():
+            setattr(mod, fn_name, fn)
+
+
+def breakdown(model2d, model3d, req, budget: str):
     """One request split into stages by CUDA events recorded at stage
-    boundaries (module forward hooks; nothing of the forward is copied);
-    then the same request with cuDNN free to pick non-deterministic
-    algorithms for the convs left to it."""
-    psm = model3d.idispnet
+    boundaries (module forward hooks and function wrappers; nothing of the
+    forward is copied). Stages that run once per proposal block are
+    summed."""
+    psm, prc = model3d.idispnet, model3d.pointrcnn
     marks = []  # (name of the stage that ends here, event)
 
     def mark(name):
@@ -694,35 +1132,64 @@ def phase_breakdown(model2d, model3d, req) -> dict:
              psm.feature_extraction.register_forward_hook(mark("feature tower")),
              psm.dres2.register_forward_pre_hook(mark("cost volume + dres")),
              psm.classif1_0.register_forward_pre_hook(mark("hourglasses")),
-             model3d.register_forward_hook(mark("classifiers + regression"))]
+             psm.register_forward_hook(mark("classifiers + regression")),
+             prc.register_forward_pre_hook(mark("lift")),
+             prc.rpn.backbone.register_forward_hook(mark("RPN backbone")),
+             prc.rpn.register_forward_hook(mark("RPN heads")),
+             prc.rcnn.register_forward_hook(mark("RCNN")),
+             model3d.register_forward_hook(mark("postprocess"))]
+    spans = ((rpn3d, "propose", "propose + NMS"), (rcnn3d, "pool_rcnn_inputs", "RoI-pool 3D"),
+             (rcnn3d, "rcnn_postprocess", "postprocess"))
+    set_budget(model3d, budget)
     try:
-        mark("start")()
-        predict(model2d, model3d, *req)
-        mark("reshape")()
-        torch.cuda.synchronize()
+        with functions_marked(mark, spans):
+            mark("start")()
+            predict(model2d, model3d, *req[:4], calib=CALIB, priorities=req[4])
+            mark("outputs")()
+            torch.cuda.synchronize()
     finally:
         for h in hooks:
             h.remove()
-    stages = {name: prev.elapsed_time(ev) for (_, prev), (name, ev) in zip(marks, marks[1:])}
-    total = marks[0][1].elapsed_time(marks[-1][1])
+    stages = {}
+    for (_, prev), (name, ev) in zip(marks, marks[1:]):
+        stages[name] = stages.get(name, 0.0) + prev.elapsed_time(ev)
+    return marks[0][1].elapsed_time(marks[-1][1]), stages
+
+
+def phase_breakdown(model2d, model3d, reqs, card: str) -> dict:
+    """breakdown() of one headline and one reference request, pairs per
+    second of each; then the headline request with cuDNN free to pick
+    non-deterministic algorithms for the convs left to it."""
+    out = {}
+    for budget, req in zip(BUDGETS, reqs):
+        total, stages = breakdown(model2d, model3d, req, budget)
+        out[budget] = (total, stages)
+        log(f"  {budget} request, {total:.3f} ms ({PAIRS * 1000.0 / total:.3f} pairs/s): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
+    set_budget(model3d, "headline")
     with cudnn_free():
-        free_ms = [time_ms(lambda: predict(model2d, model3d, *req), 1) for _ in range(2)]
-    log(f"[8/{PHASES}] one request, {total:.3f} ms: "
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
-        + f"; the same request with non-deterministic cuDNN: {[round(t, 3) for t in free_ms]} ms")
-    return stages
+        free_ms = [time_ms(lambda: predict(model2d, model3d, *reqs[0][:4], calib=CALIB,
+                                           priorities=reqs[0][4]), 1) for _ in range(2)]
+    log(f"[9/{PHASES}] pairs/s on {card}: headline {PAIRS * 1000.0 / out['headline'][0]:.3f}, "
+        f"reference {PAIRS * 1000.0 / out['reference'][0]:.3f}; the headline request with "
+        f"non-deterministic cuDNN: {[round(t, 3) for t in free_ms]} ms")
+    return out
 
 
 def make_requests(gen: torch.Generator):
-    """(left, right, left_raw, right_raw) per request: raw [0, 1] RGB for
-    the 3D stage, BGR255 mean-subtracted for the 2D detector (as bench.py)."""
+    """(left, right, left_raw, right_raw, priorities) per request: raw [0,
+    1] RGB for the 3D stage, BGR255 mean-subtracted for the 2D detector (as
+    bench.py), and the lift's sampling priorities, REQUESTS headline
+    requests and one reference request."""
     h, w = IMG_HW
     mean = torch.tensor(PIXEL_MEAN_BGR, device="cuda")
+    rois, grid = PAIRS * BENCH_3D["max_det"], BENCH_3D["lift_grid"]
     reqs = []
-    for _ in range(REQUESTS):
+    for _ in range(REQUESTS + 1):
         raw = [torch.rand(PAIRS, h, w, 3, generator=gen, device="cuda") for _ in range(2)]
         net = [r.flip(-1) * 255.0 - mean for r in raw]
-        reqs.append((net[0], net[1], raw[0], raw[1]))
+        pri = torch.rand(rois, grid * grid, generator=gen, device="cuda")
+        reqs.append((net[0], net[1], raw[0], raw[1], pri))
     return reqs
 
 
@@ -739,18 +1206,19 @@ def main() -> int:
         card = card_line()
         log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
         build_s = phase_build()
-        errs = {"nms_sorted": phase_nms_compare(), **phase_3d_compare()}
+        errs = {"nms_sorted": phase_nms_compare(), **phase_3d_compare(),
+                **phase_points_compare()}
 
         gen = torch.Generator(device="cuda").manual_seed(0)
         model2d = init_random_(DispRCNN(**BENCH_2D, device="cuda"), gen)
         model3d = init_random_(DispRCNN3D(**BENCH_3D, device="cuda"), gen)
         requests = make_requests(gen)
-        outs, ms, launches, _ = phase_main_path(model2d, model3d, requests)
-        phase_plain_path(model2d, model3d, requests, outs)
+        outs, runs, ms, launches, _ = phase_main_path(model2d, model3d, requests)
+        phase_plain_path(model2d, model3d, runs, outs)
         del outs
         phase_small_references()
         rows = phase_timing(model2d, model3d, requests[0], errs)
-        phase_breakdown(model2d, model3d, requests[1])
+        phase_breakdown(model2d, model3d, (requests[1], requests[-1]), card)
         kernels = [{**rows[name], "launches": launches[name]} for name in EXPECTED_LAUNCHES]
         log(f"done in {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     except Exception:  # report any phase's failure and exit non-zero

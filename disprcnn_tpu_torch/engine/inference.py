@@ -2,11 +2,13 @@
 disprcnn_tpu/engine/inference.py, which drives the jitted eval forward).
 
 ``predict_2d`` answers one request of stereo pairs with the 2D detector;
-``predict`` runs it and then iDispNet over the detections' ROI crops.
+``predict`` runs it and then the 3D stage over its detections: iDispNet
+over the ROI crops and, when the 3D model has det3d_on, the pseudo-LiDAR
+lift and PointRCNN.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -28,24 +30,41 @@ def predict_2d(model: DispRCNN, left, right) -> Dict[str, object]:
         return model(left, right)
 
 
-def predict(model2d: DispRCNN, model3d: DispRCNN3D, left, right, left_raw,
-            right_raw) -> Dict[str, object]:
-    """The 2D stereo detector, then instance disparity over its detections
-    (the pipeline of bench.py:_time_pipeline up to ``disparity_roi``).
+def predict(model2d: DispRCNN, model3d: DispRCNN3D, left, right, left_raw, right_raw,
+            calib: Optional[Dict[str, object]] = None,
+            generator: Optional[torch.Generator] = None,
+            priorities: Optional[torch.Tensor] = None) -> Dict[str, object]:
+    """The 2D stereo detector, then the 3D stage over its detections (the
+    pipeline of bench.py:_time_pipeline).
 
     left, right: (B, H, W, 3) normalized images for the 2D detector;
     left_raw, right_raw: the same pairs as raw [0, 1] RGB, which the 3D
     stage crops. Returns "detections" and "masks" as ``predict_2d`` does,
     and "disparity_roi" (B, max_det, roi, roi): one disparity map per
-    detection slot, valid or not.
+    detection slot, valid or not. With model3d.det3d_on it also returns
+    "box3d" (B, max_det, 7) xyzhwl_ry boxes in the rect camera frame,
+    "score3d" (B, max_det), "random" (B, max_det: no refined box passed the
+    score threshold and the box is the best RPN proposal) and "roi_ok"
+    (B, max_det: a valid detection with lifted points); it then needs
+    `calib` ({fu, fv, cu, cv, tx, ty, fuxb}, each a number or (B,) values)
+    and the lift's sampling priorities, as `priorities` (B * max_det,
+    lift_grid^2) or drawn from `generator` (on model3d's device).
     """
     out = predict_2d(model2d, left, right)
     dets = out["detections"]
     dets3 = StereoBoxes(left=dets.left, right=dets.right, score=dets.score, valid=dets.valid,
                         fields={"mask": out["masks"]})
-    left_raw, right_raw = (torch.as_tensor(x, dtype=torch.float32, device=model3d.device)
+    dev = model3d.device
+    left_raw, right_raw = (torch.as_tensor(x, dtype=torch.float32, device=dev)
                            for x in (left_raw, right_raw))
-    with torch.inference_mode():
-        disp = model3d(left_raw, right_raw, dets3)["disparity_roi"]
     b, d = dets.valid.shape
-    return {**out, "disparity_roi": disp.reshape(b, d, *disp.shape[1:])}
+    if calib is not None:
+        calib = {k: torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(-1).expand(b)
+                 for k, v in calib.items()}
+    if priorities is not None:
+        priorities = torch.as_tensor(priorities, dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        out3 = model3d(left_raw, right_raw, dets3, calib=calib, priorities=priorities,
+                       generator=generator)
+    disp = out3.pop("disparity_roi")
+    return {**out, "disparity_roi": disp.reshape(b, d, *disp.shape[1:]), **out3}

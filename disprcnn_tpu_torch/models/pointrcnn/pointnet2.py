@@ -1,0 +1,232 @@
+"""PointNet++ set abstraction and feature propagation, eval only
+(counterpart of disprcnn_tpu/models/pointrcnn/pointnet2.py; reference
+pointnet2_modules.py and pytorch_utils.SharedMLP).
+
+Layout: points (B, N, 3), features (B, N, C). Module and parameter names
+are the Flax ones (``mlp{i}``, ``bn{i}``, ``mlp_scale{i}``, ``sa{k}``,
+``fp{i}``), so utils/weights.py maps the JAX variables one to one.
+
+Where the TPU runs a Pallas kernel, the port runs its CUDA kernel (plain
+version on the CPU):
+
+- a ball-grouped scale whose first layer has >= ``sa_min_c0`` channels
+  (64, the shipped DISPRCNN_SA_MIN_C0) and that has input features: the
+  fused SA kernel (ops/cuda/sa.py), with mlp0 factored as the TPU does:
+  its feature columns applied at the N source points plus its bias, its xyz
+  columns on the float32-centred neighbour offsets inside the kernel;
+- feature propagation with both known points and skip features: the fused
+  FP kernel (ops/cuda/fp.py).
+
+The other scales (RPN SA0, below the gate and without features; the
+group-all scale) and FP level 0 (no skip features) run the XLA path's
+arithmetic in plain PyTorch, as the TPU runs them in XLA.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ...ops.cuda.fp import fp_fused
+from ...ops.cuda.sa import sa_ball_mlp_max
+from ...ops.points import (ball_query, fps_or_identity, gather_points, group_points,
+                           three_interpolate, three_nn, three_nn_interpolate_weights)
+
+BN_EPS = 1e-5
+SA_MIN_C0 = 64  # disprcnn_tpu pointnet2._sa_min_c0, the shipped gate
+
+
+def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    """Eval BN over the last axis as Flax applies it: (x - mean) *
+    (rsqrt(var + eps) * scale) + bias."""
+    return (x - bn.running_mean) * (torch.rsqrt(bn.running_var + BN_EPS) * bn.weight) + bn.bias
+
+
+class SharedMLP(nn.Module):
+    """Dense (+ eval BatchNorm) + ReLU layers over the last axis. ``mlp0``
+    takes ``in_channels`` inputs; with BN the dense layers have no bias."""
+
+    def __init__(self, channels: Sequence[int], in_channels: int, use_bn: bool = True):
+        super().__init__()
+        self.channels = tuple(channels)
+        self.use_bn = use_bn
+        cin = in_channels
+        for i, c in enumerate(self.channels):
+            setattr(self, f"mlp{i}", nn.Linear(cin, c, bias=not use_bn))
+            if use_bn:
+                setattr(self, f"bn{i}", nn.BatchNorm1d(c, eps=BN_EPS))
+            cin = c
+
+    def dense(self, i: int) -> nn.Linear:
+        return getattr(self, f"mlp{i}")
+
+    def bn_affine(self, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mul, add) of eval BN i: y = x * mul + add."""
+        bn = getattr(self, f"bn{i}")
+        mul = bn.weight * torch.rsqrt(bn.running_var + BN_EPS)
+        return mul, bn.bias - bn.running_mean * mul
+
+    def norm(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        return batch_norm_eval(getattr(self, f"bn{i}"), x) if self.use_bn else x
+
+    def folded_chain(self, start: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """[(W (Ci, Co), b (Co,))] of layers start.., the eval BN folded in,
+        contiguous (the fused kernels' weights)."""
+        out = []
+        for i in range(start, len(self.channels)):
+            w = self.dense(i).weight.t()
+            if self.use_bn:
+                mul, add = self.bn_affine(i)
+                out.append(((w * mul[None, :]).contiguous(), add.contiguous()))
+            else:
+                out.append((w.contiguous(), self.dense(i).bias))
+        return out
+
+    def layers_from(self, x: torch.Tensor, start: int) -> torch.Tensor:
+        for i in range(start, len(self.channels)):
+            x = torch.relu(self.norm(i, self.dense(i)(x)))
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layers_from(x, 0)
+
+
+def ball_mlp_max(mlp: SharedMLP, xyz: torch.Tensor, features: Optional[torch.Tensor],
+                 new_xyz: torch.Tensor, radius: float, nsample: int,
+                 sa_min_c0: int) -> torch.Tensor:
+    """One ball-grouped scale: SharedMLP over each ball of centred xyz (and
+    features), max over the ball -> (B, M, C_last)."""
+    w0 = mlp.dense(0).weight  # (C0, 3 + C)
+    b0 = mlp.dense(0).bias
+    v = None
+    if features is not None:
+        v = features @ w0[:, 3:].t()
+        if b0 is not None:
+            v = v + b0
+    if v is not None and mlp.channels[0] >= sa_min_c0:
+        c0 = mlp.channels[0]
+        mul0, add0 = (mlp.bn_affine(0) if mlp.use_bn
+                      else (torch.ones(c0, device=v.device), torch.zeros(c0, device=v.device)))
+        return sa_ball_mlp_max(xyz, new_xyz, v.contiguous(), w0[:, :3].t().contiguous(),
+                               mul0.contiguous(), add0.contiguous(), mlp.folded_chain(1),
+                               radius, nsample)
+    idx = ball_query(new_xyz, xyz, radius, nsample)
+    gx = group_points(xyz, idx) - new_xyz[:, :, None, :]
+    w0x = w0[:, :3].t()
+    term = (gx[..., 0:1] * w0x[0] + gx[..., 1:2] * w0x[1]) + gx[..., 2:3] * w0x[2]
+    if v is not None:
+        x = group_points(v, idx) + term
+    else:
+        x = term if b0 is None else term + b0
+    x = torch.relu(mlp.norm(0, x))
+    return mlp.layers_from(x, 1).amax(dim=2)
+
+
+class SAModuleMSG(nn.Module):
+    """Multi-scale-grouping set abstraction (PointnetSAModuleMSG)."""
+
+    def __init__(self, npoint: int, radii: Sequence[float], nsamples: Sequence[int],
+                 mlps: Sequence[Sequence[int]], in_features: int, use_bn: bool = True,
+                 sa_min_c0: int = SA_MIN_C0):
+        super().__init__()
+        self.npoint, self.radii, self.nsamples = npoint, tuple(radii), tuple(nsamples)
+        self.sa_min_c0 = sa_min_c0
+        for i, mlp in enumerate(mlps):
+            setattr(self, f"mlp_scale{i}", SharedMLP(mlp, 3 + in_features, use_bn))
+        self.out_channels = sum(m[-1] for m in mlps)
+
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor]):
+        idx = fps_or_identity(xyz, self.npoint)
+        new_xyz = xyz if idx is None else gather_points(xyz, idx)
+        outs = [ball_mlp_max(getattr(self, f"mlp_scale{i}"), xyz, features, new_xyz, r, ns,
+                             self.sa_min_c0)
+                for i, (r, ns) in enumerate(zip(self.radii, self.nsamples))]
+        return new_xyz, torch.cat(outs, dim=-1)
+
+
+class SAModule(nn.Module):
+    """Single-scale set abstraction; npoint None groups all points into one
+    ball of raw (uncentred) xyz (PointnetSAModule)."""
+
+    def __init__(self, npoint: Optional[int], radius: Optional[float],
+                 nsample: Optional[int], mlp: Sequence[int], in_features: int,
+                 use_bn: bool = True, sa_min_c0: int = SA_MIN_C0):
+        super().__init__()
+        self.npoint, self.radius, self.nsample = npoint, radius, nsample
+        self.sa_min_c0 = sa_min_c0
+        self.mlp = SharedMLP(mlp, 3 + in_features, use_bn)
+
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor]):
+        if self.npoint is None:
+            g = xyz if features is None else torch.cat([xyz, features], dim=-1)
+            new_xyz = xyz.new_zeros((xyz.shape[0], 1, 3))
+            return new_xyz, self.mlp(g).amax(dim=1, keepdim=True)
+        idx = fps_or_identity(xyz, self.npoint)
+        new_xyz = xyz if idx is None else gather_points(xyz, idx)
+        return new_xyz, ball_mlp_max(self.mlp, xyz, features, new_xyz, self.radius,
+                                     self.nsample, self.sa_min_c0)
+
+
+class FPModule(nn.Module):
+    """Feature propagation: 3-NN inverse-distance interpolation, concat with
+    the skip features, SharedMLP."""
+
+    def __init__(self, mlp: Sequence[int], in_channels: int, use_bn: bool = True):
+        super().__init__()
+        self.mlp = SharedMLP(mlp, in_channels, use_bn)
+
+    def forward(self, unknown, known, unknown_feats, known_feats):
+        if known is not None and unknown_feats is not None:
+            return fp_fused(unknown, known, known_feats.contiguous(), unknown_feats.contiguous(),
+                            self.mlp.folded_chain(0))
+        if known is not None:
+            d, idx = three_nn(unknown, known)
+            interp = three_interpolate(known_feats, idx, three_nn_interpolate_weights(d))
+        else:
+            interp = known_feats.expand(-1, unknown.shape[1], -1)
+        if unknown_feats is not None:
+            interp = torch.cat([interp, unknown_feats], dim=-1)
+        return self.mlp(interp)
+
+
+class Pointnet2MSG(nn.Module):
+    """Multi-level MSG encoder + FP decoders (reference pointnet2_msg.py);
+    the level count follows `npoints`."""
+
+    def __init__(self, npoints: Sequence[int] = (4096, 1024, 256, 64),
+                 radii: Sequence[Sequence[float]] = ((0.1, 0.5), (0.5, 1.0), (1.0, 2.0),
+                                                     (2.0, 4.0)),
+                 nsamples: Sequence[Sequence[int]] = ((16, 32),) * 4,
+                 mlps: Sequence[Sequence[Sequence[int]]] = (
+                     ((16, 16, 32), (32, 32, 64)),
+                     ((64, 64, 128), (64, 96, 128)),
+                     ((128, 196, 256), (128, 196, 256)),
+                     ((256, 256, 512), (256, 384, 512))),
+                 fp_mlps: Sequence[Sequence[int]] = ((128, 128), (256, 256), (512, 512),
+                                                     (512, 512)),
+                 in_features: int = 0, use_bn: bool = True, sa_min_c0: int = SA_MIN_C0):
+        super().__init__()
+        levels = len(npoints)
+        self.levels = levels
+        feat = [in_features]
+        for k in range(levels):
+            sa = SAModuleMSG(npoints[k], radii[k], nsamples[k], mlps[k], feat[k], use_bn,
+                             sa_min_c0)
+            setattr(self, f"sa{k}", sa)
+            feat.append(sa.out_channels)
+        for i in range(levels - 1, -1, -1):
+            known = feat[levels] if i == levels - 1 else fp_mlps[i + 1][-1]
+            setattr(self, f"fp{i}", FPModule(fp_mlps[i], known + feat[i], use_bn))
+        self.out_channels = fp_mlps[0][-1]
+
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None):
+        l_xyz, l_feats = [xyz], [features]
+        for k in range(self.levels):
+            nx, nf = getattr(self, f"sa{k}")(l_xyz[k], l_feats[k])
+            l_xyz.append(nx)
+            l_feats.append(nf)
+        for i in range(self.levels - 1, -1, -1):
+            l_feats[i] = getattr(self, f"fp{i}")(l_xyz[i], l_xyz[i + 1], l_feats[i],
+                                                 l_feats[i + 1])
+        return l_xyz[0], l_feats[0]

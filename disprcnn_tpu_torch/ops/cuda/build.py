@@ -2,8 +2,8 @@
 
 Each ``disprcnn_tpu_torch/csrc/<name>.cu`` has a plain C interface and
 becomes ``csrc/build/lib<name>-<hash>.so``, built at first use. The hash
-covers the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. No PyTorch headers are compiled: a build takes
+covers the source, the headers beside it (``csrc/*.cuh``) and the flags, so
+an edited source or header is rebuilt and a stale library is never loaded. No PyTorch headers are compiled: a build takes
 seconds, not the minutes of ``torch.utils.cpp_extension.load``.
 
 ``build(*names)`` compiles the missing libraries, one nvcc process per
@@ -52,8 +52,11 @@ def _flags(name: str) -> tuple:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(_flags(name)).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -1,0 +1,100 @@
+"""PointNet++ feature propagation with skip features: the CUDA kernel's
+wrapper and its plain PyTorch version (counterparts of
+disprcnn_tpu/ops/pallas/fp_fused.py:fp_fused and of the XLA FPModule path
+in disprcnn_tpu/models/pointrcnn/pointnet2.py).
+
+For each target point: its 3 nearest source points (ties to the lowest
+index), inverse-distance weights 1 / (d + eps) normalized over the three,
+the interpolated source features concatenated with the target's skip
+features, then the folded-BN chain x = relu(x W + b) per layer.
+
+``fp_fused`` dispatches: a CPU tensor takes the plain version; a CUDA
+tensor launches the kernel (csrc/fp.cu), whose one launch point is
+``fp_fused_cuda``, looked up at call time. There is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..points import three_interpolate, three_nn, three_nn_interpolate_weights
+from . import build
+from .sa import MAX_LAYERS, Weights, _check, _mlp_chain
+
+# Launches of the CUDA kernel in this process; a caller may reset it to 0
+# around a run it wants to count.
+launches = 0
+
+# the kernel keeps a cloud's source points in shared memory
+MAX_NS = 4096
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("fp")
+    if lib.fp_cuda.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fp_cuda.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, p, p, i]
+        lib.fp_cuda.restype = i
+        lib.fp_error_string.argtypes = [i]
+        lib.fp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def fp_fused_plain(unknown: torch.Tensor, known: torch.Tensor, known_feats: torch.Tensor,
+                   unknown_feats: torch.Tensor, weights: Weights,
+                   eps: float = 1e-8) -> torch.Tensor:
+    """unknown (B, Nt, 3), known (B, Ns, 3), known_feats (B, Ns, C),
+    unknown_feats (B, Nt, Cs), weights [(W (Ci, Co), b (Co,))] with the first
+    Ci = C + Cs -> (B, Nt, C_last)."""
+    d, idx = three_nn(unknown, known)
+    interp = three_interpolate(known_feats, idx, three_nn_interpolate_weights(d, eps))
+    return _mlp_chain(torch.cat([interp, unknown_feats], dim=-1), weights)
+
+
+def fp_fused_cuda(unknown: torch.Tensor, known: torch.Tensor, known_feats: torch.Tensor,
+                  unknown_feats: torch.Tensor, weights: Weights,
+                  eps: float = 1e-8) -> torch.Tensor:
+    """Launch csrc/fp.cu on the current stream; same contract as
+    fp_fused_plain. Every tensor float32, contiguous, on one card."""
+    global launches
+    if not unknown.is_cuda:
+        raise ValueError(f"unknown must be on a CUDA device, got {unknown.device}")
+    dev = unknown.device
+    b, nt = unknown.shape[:2]
+    ns = known.shape[1]
+    c, cs = known_feats.shape[-1], unknown_feats.shape[-1]
+    _check("unknown", unknown, (b, nt, 3), dev)
+    _check("known", known, (b, ns, 3), dev)
+    _check("known_feats", known_feats, (b, ns, c), dev)
+    _check("unknown_feats", unknown_feats, (b, nt, cs), dev)
+    chans = [c + cs]
+    for i, (w, bias) in enumerate(weights):
+        _check(f"weights[{i}]", w, (chans[-1], w.shape[1]), dev)
+        _check(f"bias[{i}]", bias, (w.shape[1],), dev)
+        chans.append(w.shape[1])
+    if not 1 <= len(weights) <= MAX_LAYERS or not 3 <= ns <= MAX_NS or not 1 <= b <= 65535:
+        raise ValueError(f"need 1..{MAX_LAYERS} layers, 3 <= Ns <= {MAX_NS} and B <= 65535, "
+                         f"got {len(weights)} layers, Ns={ns}, B={b}")
+    lib = _lib()
+    out = torch.empty((b, nt, chans[-1]), device=dev)
+    nl = len(weights)
+    wptr = (ctypes.c_void_p * nl)(*[w.data_ptr() for w, _ in weights])
+    bptr = (ctypes.c_void_p * nl)(*[bias.data_ptr() for _, bias in weights])
+    carr = (ctypes.c_int * len(chans))(*chans)
+    err = lib.fp_cuda(unknown.data_ptr(), known.data_ptr(), known_feats.data_ptr(),
+                      unknown_feats.data_ptr(), wptr, bptr, carr, nl, b, nt, ns, c, cs,
+                      float(eps), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+                      dev.index)
+    if err != 0:
+        raise RuntimeError(f"fp_cuda launch failed: {lib.fp_error_string(err).decode()}")
+    launches += 1
+    return out
+
+
+def fp_fused(unknown: torch.Tensor, known: torch.Tensor, known_feats: torch.Tensor,
+             unknown_feats: torch.Tensor, weights: Weights, eps: float = 1e-8) -> torch.Tensor:
+    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    if unknown.is_cuda:
+        return fp_fused_cuda(unknown, known, known_feats, unknown_feats, weights, eps)
+    return fp_fused_plain(unknown, known, known_feats, unknown_feats, weights, eps)

@@ -1,0 +1,136 @@
+"""One whole PointNet++ set-abstraction scale: the CUDA kernel's wrapper
+and its plain PyTorch version (counterparts of
+disprcnn_tpu/ops/pallas/sa_fused.py:sa_ball_mlp_max and of the XLA
+factored SharedMLP path in disprcnn_tpu/models/pointrcnn/pointnet2.py).
+
+For each centre: ball query (the first S points strictly within the
+radius, in index order; a partial ball repeats its first neighbour, an
+empty one takes point 0), then
+
+    x0 = relu((v[idx] + ((gx*w0x[0] + gy*w0x[1]) + gz*w0x[2])) * mul0 + add0)
+
+with (gx, gy, gz) the neighbour minus the centre in float32 and v mlp0's
+feature columns applied at the source points plus its bias; then the
+folded chain x = relu(x W + b) per layer, and the max over the ball.
+
+``sa_ball_mlp_max`` dispatches: a CPU tensor takes the plain version; a
+CUDA tensor launches the kernel (csrc/sa.cu), whose one launch point is
+``sa_ball_mlp_max_cuda``, looked up at call time. There is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from ..points import ball_query, group_points
+from . import build
+
+# Launches of the CUDA kernel in this process; a caller may reset it to 0
+# around a run it wants to count.
+launches = 0
+
+MAX_LAYERS = 4
+# the kernel's row tiles hold whole balls: S must divide 16, 32 or 64
+MAX_S = 64
+# the plain version works on batch chunks of at most this many grouped
+# activations, so that the reference budget's 6400 clouds fit on the card
+PLAIN_CHUNK_ELEMS = 1 << 27
+
+Weights = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("sa")
+    if lib.sa_cuda.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.sa_cuda.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p, p, i]
+        lib.sa_cuda.restype = i
+        lib.sa_error_string.argtypes = [i]
+        lib.sa_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _mlp_chain(x: torch.Tensor, weights: Weights) -> torch.Tensor:
+    for w, b in weights:
+        x = torch.relu(x @ w + b)
+    return x
+
+
+def sa_ball_mlp_max_plain(xyz: torch.Tensor, centers: torch.Tensor, v: torch.Tensor,
+                          w0x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor,
+                          weights: Weights, radius: float, s: int) -> torch.Tensor:
+    """xyz (B, N, 3), centers (B, M, 3), v (B, N, C0), w0x (3, C0), mul0 and
+    add0 (C0,), weights [(W (Ci, Co), b (Co,))] -> (B, M, C_last)."""
+    b, m = centers.shape[:2]
+    widest = max([v.shape[-1]] + [w.shape[1] for w, _ in weights])
+    step = max(1, PLAIN_CHUNK_ELEMS // (m * s * widest))
+    outs = []
+    for lo in range(0, b, step):
+        p, c, vv = xyz[lo:lo + step], centers[lo:lo + step], v[lo:lo + step]
+        idx = ball_query(c, p, radius, s)
+        gx = group_points(p, idx) - c[:, :, None, :]
+        term = (gx[..., 0:1] * w0x[0] + gx[..., 1:2] * w0x[1]) + gx[..., 2:3] * w0x[2]
+        x = torch.relu((group_points(vv, idx) + term) * mul0 + add0)
+        outs.append(_mlp_chain(x, weights).amax(dim=2))
+    return torch.cat(outs, 0)
+
+
+def _check(name: str, t: torch.Tensor, shape, device) -> None:
+    if t.dtype != torch.float32 or t.device != device or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)} float32 on {device}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def sa_ball_mlp_max_cuda(xyz: torch.Tensor, centers: torch.Tensor, v: torch.Tensor,
+                         w0x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor,
+                         weights: Weights, radius: float, s: int) -> torch.Tensor:
+    """Launch csrc/sa.cu on the current stream; same contract as
+    sa_ball_mlp_max_plain. Every tensor float32, contiguous, on one card."""
+    global launches
+    if not xyz.is_cuda:
+        raise ValueError(f"xyz must be on a CUDA device, got {xyz.device}")
+    dev = xyz.device
+    b, n = xyz.shape[:2]
+    m = centers.shape[1]
+    c0 = v.shape[-1]
+    _check("xyz", xyz, (b, n, 3), dev)
+    _check("centers", centers, (b, m, 3), dev)
+    _check("v", v, (b, n, c0), dev)
+    _check("w0x", w0x, (3, c0), dev)
+    _check("mul0", mul0, (c0,), dev)
+    _check("add0", add0, (c0,), dev)
+    chans = [c0]
+    for i, (w, bias) in enumerate(weights):
+        _check(f"weights[{i}]", w, (chans[-1], w.shape[1]), dev)
+        _check(f"bias[{i}]", bias, (w.shape[1],), dev)
+        chans.append(w.shape[1])
+    if len(weights) > MAX_LAYERS or not 1 <= s <= MAX_S or 64 % s or not 1 <= b <= 65535:
+        raise ValueError(f"need at most {MAX_LAYERS} layers, S dividing 64 and B <= 65535, "
+                         f"got {len(weights)} layers, S={s}, B={b}")
+    lib = _lib()
+    out = torch.empty((b, m, chans[-1]), device=dev)
+    nl = len(weights)
+    wptr = (ctypes.c_void_p * max(nl, 1))(*[w.data_ptr() for w, _ in weights])
+    bptr = (ctypes.c_void_p * max(nl, 1))(*[bias.data_ptr() for _, bias in weights])
+    carr = (ctypes.c_int * len(chans))(*chans)
+    err = lib.sa_cuda(xyz.data_ptr(), centers.data_ptr(), v.data_ptr(), w0x.data_ptr(),
+                      mul0.data_ptr(), add0.data_ptr(), wptr, bptr, carr, nl, b, n, m, s,
+                      float(radius) * float(radius), out.data_ptr(),
+                      torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    if err != 0:
+        raise RuntimeError(f"sa_cuda launch failed: {lib.sa_error_string(err).decode()}")
+    launches += 1
+    return out
+
+
+def sa_ball_mlp_max(xyz: torch.Tensor, centers: torch.Tensor, v: torch.Tensor,
+                    w0x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor,
+                    weights: Weights, radius: float, s: int) -> torch.Tensor:
+    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    if xyz.is_cuda:
+        return sa_ball_mlp_max_cuda(xyz, centers, v, w0x, mul0, add0, weights, radius, s)
+    return sa_ball_mlp_max_plain(xyz, centers, v, w0x, mul0, add0, weights, radius, s)

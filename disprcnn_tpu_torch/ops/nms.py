@@ -1,5 +1,6 @@
-"""Greedy 2D NMS that emits the first k survivors (counterpart of the 2D
-top-k forms in disprcnn_tpu/ops/nms.py).
+"""Greedy 2D NMS that emits the first k survivors, and the 3D proposals'
+BEV NMS (counterparts of the 2D top-k forms and of ``bev_nms_mask`` and
+``topk_after_nms`` in disprcnn_tpu/ops/nms.py).
 
 Score-descending greedy suppression with the legacy +1 IoU convention,
 suppress when IoU > thresh (reference csrc/cuda/nms.cu), ties broken by
@@ -69,3 +70,27 @@ def double_view_nms_topk_batched(
     NMS); one keep decision for both views."""
     return nms_topk_batched(union_box(boxes_left, boxes_right), scores, valid, iou_thresh,
                             k, to_remove=to_remove, presorted=presorted)
+
+
+def bev_nms_mask(bev_boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+                 iou_thresh: float) -> torch.Tensor:
+    """Greedy NMS of (B, N, 5) BEV boxes (x1, y1, x2, y2, ry) -> keep (B, N)
+    bool in the original order: the JAX ``bev_nms_mask(rotated=False)``
+    (RPN.NMS_TYPE "normal"), which ignores ry and takes the axis-aligned IoU
+    without the +1 term (reference iou3d nms_normal_gpu); suppression at
+    IoU > thresh, ties by index. The rotated form is not ported yet."""
+    b, n = scores.shape
+    idx, ok = nms_topk_batched(bev_boxes[..., :4], scores, valid, iou_thresh, n, to_remove=0.0)
+    keep = torch.zeros((b, n + 1), dtype=torch.bool, device=scores.device)
+    keep.scatter_(1, torch.where(ok, idx, torch.full_like(idx, n)), True)
+    return keep[:, :n]
+
+
+def topk_after_nms(keep: torch.Tensor, scores: torch.Tensor,
+                   k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Up to k kept boxes by score, (B, N) -> (indices (B, k), valid (B, k));
+    the slots past the kept boxes hold the lowest non-kept indices, as
+    XLA's top_k orders the tied _NEG scores."""
+    masked = torch.where(keep, scores, torch.full_like(scores, _NEG))
+    top, idx = torch.sort(masked, dim=-1, descending=True, stable=True)
+    return idx[:, :k], top[:, :k] > _NEG / 2

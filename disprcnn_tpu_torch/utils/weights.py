@@ -11,14 +11,21 @@ flattened by "/"-joined path. It maps
 - a transposed-conv kernel, 2D or 3D, to (in, out, k...), flipped in every
   spatial dim (Flax's ConvTranspose correlates; torch's is the adjoint of
   a correlation);
-- a dense kernel (in, out) to (out, in);
+- a dense kernel (in, out) to (out, in): ``nn.Dense``, and the
+  ``_SlicedDense``/``_RawDense`` of the PointNet++ MLPs, whose mlp0 holds the
+  3 xyz rows before the feature rows (the port keeps that column order);
 - FrozenBatchNorm ``scale/bias/mean/var`` to the buffers
   ``weight/bias/running_mean/running_var``, renaming Flax's auto-numbered
   ``FrozenBatchNorm_<i>`` to the port's ``bn1..bn3``/``downsample_bn``;
 - a Flax ``BatchNorm``'s params ``scale/bias`` to ``weight/bias`` and its
   ``batch_stats`` ``mean/var`` to ``running_mean/running_var`` of the eval
-  ``nn.BatchNorm{2,3}d`` of the same name (``num_batches_tracked``, which
-  eval never reads, is set to 0).
+  ``nn.BatchNorm{1,2,3}d`` of the same name (``num_batches_tracked``, which
+  eval never reads, is set to 0; eps 1e-5).
+
+Names are the Flax module paths, "/" becoming ".": e.g.
+``pointrcnn/rpn/backbone/sa1/mlp_scale0/mlp0``, ``.../fp2/mlp/bn1``,
+``pointrcnn/rpn/cls_head/fc0``, ``pointrcnn/rcnn/xyz_up/mlp1``,
+``pointrcnn/rcnn/sa0/mlp/mlp2``, ``pointrcnn/rcnn/reg_out``.
 
 Every key is checked: it raises on a JAX key it leaves unused, on a port
 entry it leaves unset, and on a shape that does not match.
@@ -151,7 +158,13 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn from `generator` (which must live on the model's
     device): He-normal convs and dense layers, small biases, and frozen-BN
     constants away from 0/1. The last norm of each residual branch is
-    scaled down so activations stay finite through deep stacks."""
+    scaled down so activations stay finite through deep stacks. The 2D
+    detector's classifiers (the RPN's ``cls_logits``, the box head's
+    ``cls_score``) are drawn as the reference initializes them (normal, std
+    0.01, zero bias), and its box regressors (``bbox_pred``) are zero: an
+    untrained detector then proposes its anchors and detects its proposals,
+    left and right boxes alike, instead of boxes that span the image or
+    collapse at its border."""
     def normal(t: torch.Tensor, std: float, mean: float = 0.0):
         t.copy_(torch.randn(t.shape, generator=generator, device=t.device) * std + mean)
 
@@ -165,6 +178,10 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             fan_in = (mod.weight.shape[0] * mod.weight[0, 0].numel()
                       if isinstance(mod, (nn.ConvTranspose2d, nn.ConvTranspose3d))
                       else mod.weight[0].numel())
+            if name.endswith(("cls_logits", "cls_score", "bbox_pred")):
+                normal(mod.weight, 0.0 if name.endswith("bbox_pred") else 0.01)
+                mod.bias.zero_()
+                continue
             normal(mod.weight, math.sqrt(2.0 / fan_in))
             if mod.bias is not None:
                 normal(mod.bias, 0.01)

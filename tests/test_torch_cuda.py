@@ -11,7 +11,11 @@ import torch
 
 from disprcnn_tpu_torch.ops import nms as tnms
 from disprcnn_tpu_torch.ops.cuda import conv3d as cconv
+from disprcnn_tpu_torch.ops.cuda import fp as cfp
+from disprcnn_tpu_torch.ops.cuda import fps as cfps
 from disprcnn_tpu_torch.ops.cuda import nms as cnms
+from disprcnn_tpu_torch.ops.cuda import roipool3d as croi
+from disprcnn_tpu_torch.ops.cuda import sa as csa
 from disprcnn_tpu_torch.ops.cuda import softargmin as csam
 from nms_cases import KINDS, make_case
 
@@ -211,3 +215,128 @@ def test_interp_matrix_on_card_divides_exactly(card, n_in, n_out):
         want[np.arange(n_out), i0] = np.float32(1) - frac
         want[np.arange(n_out), i0 + 1] = frac
     assert np.array_equal(got.cpu().numpy(), want)
+
+
+def _clouds(gen, b, n, scale=1.5):
+    """Clouds with coincident points (distance ties) and a far outlier."""
+    x = _randn(gen, b, n, 3, scale=scale)
+    x[:, 5] = x[:, 2]
+    x[:, n - 1] = x[:, 7]
+    x[:, 3] = 40.0
+    return x.contiguous()
+
+
+@pytest.mark.parametrize("b,n,npoint", [
+    (128, 768, 512), (6, 512, 128), (9, 128, 32), (5, 1000, 999), (3, 40, 40), (2, 33, 1),
+])
+def test_fps_kernel_matches_plain(card, b, n, npoint):
+    """Indices exactly, including the ties of coincident points and an
+    all-coincident cloud (every later step takes index 0)."""
+    gen = torch.Generator(device="cuda").manual_seed(n + npoint)
+    xyz = _clouds(gen, b, n)
+    xyz[-1] = 0.0
+    before = cfps.launches
+    got = cfps.furthest_point_sample(xyz, npoint)
+    assert cfps.launches == before + 1
+    want = cfps.furthest_point_sample_plain(xyz, npoint)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _sa_args(gen, b, n, m, c0, chain):
+    xyz = _clouds(gen, b, n)
+    centers = torch.cat([xyz[:, :m - 1], torch.full((b, 1, 3), 30.0, device="cuda")], 1)
+    v = _randn(gen, b, n, c0)
+    w0x = _randn(gen, 3, c0, scale=0.5)
+    mul0, add0 = 1 + _randn(gen, c0, scale=0.3), _randn(gen, c0, scale=0.1)
+    ws, cin = [], c0
+    for co in chain:
+        ws.append((_randn(gen, cin, co, scale=cin ** -0.5), _randn(gen, co, scale=0.1)))
+        cin = co
+    return xyz, centers.contiguous(), v, w0x, mul0, add0, ws
+
+
+@pytest.mark.parametrize("b,n,m,c0,chain,radius,s", [
+    (4, 768, 512, 64, (64, 128), 0.5, 16),    # RPN SA1, both scales
+    (4, 768, 512, 64, (96, 128), 1.0, 32),
+    (3, 512, 256, 128, (196, 256), 1.0, 16),  # RPN SA2 (196 wide)
+    (2, 256, 64, 256, (384, 512), 4.0, 32),   # RPN SA3, the widest chain
+    (8, 512, 128, 128, (128, 128), 0.2, 64),  # RCNN SA0
+    (8, 128, 32, 128, (128, 256), 0.4, 64),   # RCNN SA1
+    (3, 100, 37, 64, (), 0.8, 16),            # no layer after mlp0, a partial tile
+    (3, 90, 21, 64, (80, 70, 40), 0.8, 32),   # three layers, a width not a multiple of 4
+])
+def test_sa_kernel_matches_plain(card, b, n, m, c0, chain, radius, s):
+    """max |diff| <= 1e-4 * max |plain| + 1e-5 (float32 sums in another
+    order); the clouds hold empty (the far centre), partial and full balls,
+    so a wrong neighbour would show far above that."""
+    gen = torch.Generator(device="cuda").manual_seed(n + m + s)
+    args = _sa_args(gen, b, n, m, c0, chain)
+    before = csa.launches
+    got = csa.sa_ball_mlp_max(*args, radius, s)
+    assert csa.launches == before + 1
+    want = csa.sa_ball_mlp_max_plain(*args, radius, s)
+    assert got.shape == (b, m, chain[-1] if chain else c0)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("b,nt,ns,c,cs,chain", [
+    (4, 256, 64, 1024, 512, (512, 512)),  # fp3
+    (4, 512, 256, 512, 256, (512, 512)),  # fp2
+    (4, 768, 512, 512, 96, (256, 256)),   # fp1
+    (3, 50, 9, 20, 12, (30, 20, 10)),     # three layers, a partial tile
+])
+def test_fp_kernel_matches_plain(card, b, nt, ns, c, cs, chain):
+    gen = torch.Generator(device="cuda").manual_seed(nt + ns)
+    unknown, known = _clouds(gen, b, nt), _clouds(gen, b, ns)
+    unknown[:, 0] = known[:, 4]  # a zero distance
+    kf, uf = _randn(gen, b, ns, c), _randn(gen, b, nt, cs)
+    ws, cin = [], c + cs
+    for co in chain:
+        ws.append((_randn(gen, cin, co, scale=cin ** -0.5), _randn(gen, co, scale=0.1)))
+        cin = co
+    before = cfp.launches
+    got = cfp.fp_fused(unknown, known, kf, uf, ws)
+    assert cfp.launches == before + 1
+    _close(got, cfp.fp_fused_plain(unknown, known, kf, uf, ws))
+
+
+@pytest.mark.parametrize("b,n,m,c,s", [(128, 768, 16, 130, 512), (3, 700, 4, 5, 32),
+                                       (2, 50, 3, 0, 8)])
+def test_roipool3d_kernel_matches_plain(card, b, n, m, c, s):
+    """Boxes holding no point, fewer than S and more than S: rows and flags
+    exactly (copies of the same values)."""
+    gen = torch.Generator(device="cuda").manual_seed(n + m)
+    pts = (torch.rand(b, n, 3, generator=gen, device="cuda") * 8 - 4).contiguous()
+    feats = _randn(gen, b, n, c)
+    base = torch.tensor([[0.0, 2.0, 0.0, 4.0, 4.0, 4.0, 0.4],
+                         [1.0, 0.5, -1.0, 1.6, 2.0, 2.0, -0.8],
+                         [50.0, 50.0, 50.0, 1.0, 1.0, 1.0, 0.0],
+                         [0.0, 4.0, 0.0, 8.5, 9.0, 9.0, 0.3]], device="cuda")
+    boxes = base[torch.arange(m, device="cuda") % 4][None].repeat(b, 1, 1)
+    boxes[:, :, :3] += _randn(gen, b, m, 3, scale=0.3)
+    boxes = boxes.contiguous()
+    before = croi.launches
+    got, gempty = croi.roipool3d(pts, feats, boxes, s)
+    assert croi.launches == before + 1
+    want, wempty = croi.roipool3d_plain(pts, feats, boxes, s)
+    torch.cuda.synchronize()
+    assert torch.equal(gempty, wempty) and gempty.any() and not gempty.all()
+    assert torch.equal(got, want)
+
+
+def test_point_kernels_refuse_bad_inputs(card):
+    xyz = torch.zeros(2, 64, 3, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        cfps.furthest_point_sample_cuda(torch.zeros(2, 3, 64, device=card).transpose(1, 2), 8)
+    with pytest.raises(ValueError, match="npoint"):
+        cfps.furthest_point_sample_cuda(xyz, 65)
+    v = torch.zeros(2, 64, 64, device=card)
+    w0x, vec = torch.zeros(3, 64, device=card), torch.zeros(64, device=card)
+    with pytest.raises(ValueError, match="S dividing"):
+        csa.sa_ball_mlp_max_cuda(xyz, xyz, v, w0x, vec, vec, [], 1.0, 24)
+    with pytest.raises(ValueError, match="weights"):
+        csa.sa_ball_mlp_max_cuda(xyz, xyz, v, w0x, vec, vec,
+                                 [(torch.zeros(32, 8, device=card), vec[:8])], 1.0, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        croi.roipool3d_cuda(xyz.cpu(), xyz.cpu(), torch.zeros(2, 1, 7), 8)

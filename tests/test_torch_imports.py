@@ -26,15 +26,28 @@ print("COUNT", sum(m.startswith("disprcnn_tpu_torch.") for m in sys.modules))
 print("LOADED", " ".join(sorted(m for m in sys.modules if m.startswith("disprcnn_tpu_torch."))))
 """
 
-# modules of the iDispNet slice, which chip_smoke.py drives on the card
+# modules of the iDispNet and PointRCNN slices, which chip_smoke.py drives
+# on the card
 SLICE_MODULES = (
     "disprcnn_tpu_torch.engine.inference",
     "disprcnn_tpu_torch.models.detector.disprcnn3d",
+    "disprcnn_tpu_torch.models.pointrcnn.bbox3d_codec",
     "disprcnn_tpu_torch.models.pointrcnn.lift",
+    "disprcnn_tpu_torch.models.pointrcnn.point_rcnn",
+    "disprcnn_tpu_torch.models.pointrcnn.pointnet2",
+    "disprcnn_tpu_torch.models.pointrcnn.rcnn3d",
+    "disprcnn_tpu_torch.models.pointrcnn.rpn3d",
     "disprcnn_tpu_torch.models.psmnet.psmnet",
     "disprcnn_tpu_torch.ops.cost_volume",
     "disprcnn_tpu_torch.ops.cuda.conv3d",
+    "disprcnn_tpu_torch.ops.cuda.fp",
+    "disprcnn_tpu_torch.ops.cuda.fps",
+    "disprcnn_tpu_torch.ops.cuda.roipool3d",
+    "disprcnn_tpu_torch.ops.cuda.sa",
     "disprcnn_tpu_torch.ops.cuda.softargmin",
+    "disprcnn_tpu_torch.ops.points",
+    "disprcnn_tpu_torch.ops.roipool3d",
+    "disprcnn_tpu_torch.structures.boxes3d",
 )
 
 
@@ -44,7 +57,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     count = int(out.stdout.split("COUNT")[1].split()[0])
-    assert count >= 30  # every submodule was imported
+    assert count >= 40  # every submodule was imported
     loaded = set(out.stdout.split("LOADED")[1].split())
     assert set(SLICE_MODULES) <= loaded, sorted(set(SLICE_MODULES) - loaded)
 

@@ -265,3 +265,21 @@ def test_psmnet_eval_matches_jax():
     assert got.shape == want.shape == (2, 64, 64)
     assert np.isfinite(got).all() and np.abs(want).max() > 1.0
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+
+
+def test_psmnet_eval_matches_jax_at_main_path_geometry():
+    """The main path's geometry: one crop pair of 224x224, disparity -48..48
+    (56^2 features, where the SPP's 32 and 16 pools do not tile exactly, and
+    24 quarter-resolution disparities), 3 hourglasses. The same tolerance
+    as at 64^2, 2e-3 px."""
+    jm = jpsm.PSMNet(maxdisp=48, mindisp=-48, num_hourglass=3)
+    left, right = images(8, 1, (224, 224))
+    v = draw_variables(jm, jnp.asarray(left), jnp.asarray(right), seed=8, train=False)
+    want = np.asarray(jax.jit(lambda vv, a, b: jm.apply(vv, a, b, train=False))(
+        v, jnp.asarray(left), jnp.asarray(right)))
+    tm = load_jax_variables(PSMNet(maxdisp=48, mindisp=-48, num_hourglass=3), v)
+    with torch.no_grad():
+        got = tm(nchw(left), nchw(right)).numpy()
+    assert got.shape == want.shape == (1, 224, 224)
+    assert np.isfinite(got).all() and np.abs(want).max() > 1.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)

@@ -204,3 +204,95 @@ def test_random_init_covers_psmnet():
     assert sa[f"{fe}.BasicBlock_5.ConvBN_1.BatchNorm_0.weight"].max() <= 0.3
     assert sa[f"{fe}.BasicBlock_5.ConvBN_0.BatchNorm_0.weight"].min() >= 0.5
     assert sa[f"{fe}.ConvBN_1.BatchNorm_0.weight"].min() >= 0.5
+
+
+@pytest.fixture(scope="module")
+def prcnn_variables():
+    """A JAX PointRCNN (SA ladder 32/16/8/4 over clouds of 32 points)."""
+    from disprcnn_tpu.models.pointrcnn.point_rcnn import PointRCNN as JPointRCNN
+
+    args = (jnp.zeros((2, 32, 3)), jnp.ones((2,), bool), jnp.zeros((2,)), jnp.zeros((2, 3)))
+    return draw_variables(JPointRCNN(npoints=32, sa_npoints=(32, 16, 8, 4)), *args, seed=3,
+                          train=False)
+
+
+def _prcnn():
+    from disprcnn_tpu_torch.models.pointrcnn.point_rcnn import PointRCNN
+
+    return PointRCNN(npoints=32, sa_npoints=(32, 16, 8, 4))
+
+
+def test_pointrcnn_sets_every_key(prcnn_variables):
+    """Every PointRCNN entry is set and every JAX variable used: the SA
+    scales' sliced mlp0 (xyz rows first) and BatchNorms, the FP MLPs, the
+    RPN heads, and the BN-free RCNN's dense layers and heads."""
+    model = _prcnn()
+    sd = state_dict_from_jax(model, prcnn_variables)
+    assert set(sd) == set(model.state_dict())
+    p, st = prcnn_variables["params"], prcnn_variables["batch_stats"]
+    scale = p["rpn"]["backbone"]["sa1"]["mlp_scale0"]
+    np.testing.assert_array_equal(  # (3 + C, C0) -> (C0, 3 + C)
+        sd["rpn.backbone.sa1.mlp_scale0.mlp0.weight"].numpy(), scale["mlp0"]["kernel"].T)
+    assert sd["rpn.backbone.sa1.mlp_scale0.mlp0.weight"].shape == (64, 3 + 96)
+    np.testing.assert_array_equal(sd["rpn.backbone.sa1.mlp_scale0.bn2.weight"].numpy(),
+                                  scale["bn2"]["scale"])
+    np.testing.assert_array_equal(sd["rpn.backbone.fp2.mlp.bn1.running_var"].numpy(),
+                                  st["rpn"]["backbone"]["fp2"]["mlp"]["bn1"]["var"])
+    np.testing.assert_array_equal(sd["rpn.cls_head.bn0.running_mean"].numpy(),
+                                  st["rpn"]["cls_head"]["bn0"]["mean"])
+    np.testing.assert_array_equal(sd["rpn.reg_head.out.bias"].numpy(),
+                                  p["rpn"]["reg_head"]["out"]["bias"])
+    np.testing.assert_array_equal(sd["rcnn.sa0.mlp.mlp0.weight"].numpy(),
+                                  p["rcnn"]["sa0"]["mlp"]["mlp0"]["kernel"].T)
+    np.testing.assert_array_equal(sd["rcnn.merge_down.mlp0.bias"].numpy(),
+                                  p["rcnn"]["merge_down"]["mlp0"]["bias"])
+    np.testing.assert_array_equal(sd["rcnn.reg_out.weight"].numpy(),
+                                  p["rcnn"]["reg_out"]["kernel"].T)
+
+
+@pytest.mark.parametrize("coll,path", [
+    ("params", "rpn/backbone/sa2/mlp_scale1/bn1/scale"),
+    ("batch_stats", "rpn/cls_head/bn0/var"),
+    ("params", "rcnn/cls_fc1/bias"),
+])
+def test_pointrcnn_missing_key_raises(prcnn_variables, coll, path):
+    flat = _flat_copy(prcnn_variables)
+    del flat[coll][path]
+    with pytest.raises(KeyError, match="left unset"):
+        state_dict_from_jax(_prcnn(), flat)
+
+
+@pytest.mark.parametrize("coll,path", [
+    ("params", "rcnn/xyz_up/bn0/scale"),  # the RCNN has no batch norm
+    ("batch_stats", "rpn/backbone/fp0/mlp/mlp0/mean"),  # statistics of a dense layer
+    ("params", "rpn/backbone/sa0/mlp_scale0/mlp0/bias"),  # BN scales' dense have no bias
+])
+def test_pointrcnn_extra_key_raises(prcnn_variables, coll, path):
+    flat = _flat_copy(prcnn_variables)
+    flat[coll][path] = np.zeros((16,), np.float32)
+    with pytest.raises(KeyError):
+        state_dict_from_jax(_prcnn(), flat)
+
+
+def test_random_init_covers_pointrcnn():
+    """init_random_ sets every dense layer and batch norm of PointRCNN from
+    the generator, the statistics away from 0 and 1."""
+    a = init_random_(_prcnn(), torch.Generator().manual_seed(5))
+    b = init_random_(_prcnn(), torch.Generator().manual_seed(5))
+    sa, sb = a.state_dict(), b.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    var = sa["rpn.backbone.sa3.mlp_scale1.bn1.running_var"]
+    assert var.min() >= 0.5 and not torch.equal(var, torch.ones_like(var))
+    assert sa["rcnn.sa1.mlp.mlp2.bias"].abs().sum() > 0
+
+
+def test_random_init_of_the_detector_heads():
+    """The 2D detector's box regressors start at zero and its classifiers
+    at std 0.01 (the reference's init), so that an untrained detector
+    proposes its anchors instead of boxes that span or leave the image."""
+    sd = init_random_(DispRCNN(**TINY, device="cpu"), torch.Generator().manual_seed(6)).state_dict()
+    for name in ("rpn_head.bbox_pred", "box_predictor.bbox_pred"):
+        assert not sd[f"{name}.weight"].any() and not sd[f"{name}.bias"].any()
+    for name in ("rpn_head.cls_logits", "box_predictor.cls_score"):
+        w = sd[f"{name}.weight"]
+        assert 0.005 < float(w.std()) < 0.02 and not sd[f"{name}.bias"].any()
