@@ -54,8 +54,36 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      forward hooks and wrappers record; the headline request is also timed
      with cuDNN free to pick non-deterministic algorithms; pairs per second
      at both budgets.
+ 10. row 8, the stride-1 conv's train form (conv3d_train), at each trunk
+     site of the iDispNet train step (24 crops: 56^2 32 -> 32, 28^2 and
+     14^2 64 -> 64): the kernel's raw conv, dx through the kernel and dk
+     against F.conv3d and its autograd;
+ 11. row 11, the SA train form (sa_ball_mlp_max_train), at the RCNN's SA0
+     and SA1 of the RCNN train step (256 ROIs): the kernel forward and
+     every input and weight gradient against autograd of the plain
+     version;
+ 12. the iDispNet train step (configs/kitti/car/vob/idispnet.yaml): 2
+     pairs of 384x1248 with 16 offline detections each, ROI_MIN_SCORE 0.5
+     and MAX_ROI_FOR_TRAINING 12 (24 crops of 224^2), disparity -48..48, 3
+     hourglasses, deep supervision, SGD with OneCycle; 1 warm-up and
+     TRAIN_STEPS timed steps with the kernels' launches counted from 0:
+     finite losses, no skipped step, a finite gradient on every trainable
+     parameter, moved BN statistics; then one step from the same weights
+     on the kernels and on the plain versions (all_plain): the loss within
+     1e-4 relative, each gradient tensor within 1e-3 * max |plain|;
+ 13. the RCNN train step (configs/kitti/car/vob/rcnn.yaml): 1 pair, 16
+     detections lifted to 768 points, iDispNet and the RPN frozen (eval,
+     no gradients), TRAIN proposals 768 -> 512, 16 RCNN ROIs per instance
+     (256 x 512 pooled points), AUG_DATA with 10 noise trials, grad clip
+     10; the same checks, the kernel and plain steps sharing one
+     frozen-stage output;
+ 14. each train form timed on the inputs one step gave it (row 8 forward
+     and dx, row 11 forward), beside its plain version, the library call
+     (row 8: F.conv3d and cuDNN's input gradient) and its bound; ms per
+     step, crops/s and pairs/s.
 Then it prints the card (name, power limit) from nvidia-smi, one JSON line
-of per-kernel numbers (per headline request), and as its last line
+of per-kernel numbers (eval kernels per headline request, train forms per
+train step), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or on any failure, it exits non-zero and prints no
 result. Float32 throughout with TF32 off and deterministic cuDNN.
@@ -63,16 +91,19 @@ result. Float32 throughout with TF32 off and deterministic cuDNN.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import subprocess
 import sys
 import time
 import traceback
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 
 from disprcnn_tpu_torch.engine.inference import predict, predict_2d
+from disprcnn_tpu_torch.engine.trainer import make_train_step
 from disprcnn_tpu_torch.models.detector.disprcnn import DispRCNN
 from disprcnn_tpu_torch.models.detector.disprcnn3d import DispRCNN3D
 from disprcnn_tpu_torch.models.pointrcnn import rcnn3d, rpn3d
@@ -87,10 +118,12 @@ from disprcnn_tpu_torch.ops.cuda import nms as cuda_nms
 from disprcnn_tpu_torch.ops.cuda import roipool3d as croi
 from disprcnn_tpu_torch.ops.cuda import sa as csa
 from disprcnn_tpu_torch.ops.cuda import softargmin as csam
+from disprcnn_tpu_torch.solver.build import frozen_path_prefixes, make_optimizer
+from disprcnn_tpu_torch.solver.schedules import one_cycle, one_cycle_momentum
 from disprcnn_tpu_torch.structures.stereo import StereoBoxes
 from disprcnn_tpu_torch.utils.weights import init_random_
 
-PHASES = 9
+PHASES = 14
 IMG_HW = (384, 1248)  # KITTI network input (bench.py:_time_pipeline)
 PAIRS = 8
 REQUESTS = 2  # at the headline budget; one more at the reference budget
@@ -185,6 +218,31 @@ FP_SITES = (("fp3", 128, 256, 64, 1024, 512, (512, 512)),
             ("fp1", 128, 768, 512, 512, 96, (256, 256)))
 # RoI-pool 3D (clouds, N, boxes, C, S): headline, and one reference block
 ROI_SITES = ((128, 768, 16, 130, 512), (128, 768, 50, 130, 512))
+# The train steps, at tools/bench_train.py:bench_3d's geometry for the two
+# stage configs. idispnet.yaml: IMS_PER_BATCH 2, ROI_MIN_SCORE 0.5,
+# MAX_ROI_FOR_TRAINING 12, WEIGHT_DECAY 1e-4, OneCycle BASE_LR 0.01 over
+# MAX_ITER 41000; rcnn.yaml: IMS_PER_BATCH 1, MASK_THRESH 0.5, RPN.FIXED,
+# TRAIN.RPN_PRE/POST_NMS_TOP_N 9000/512 (pre capped at the 768 points),
+# RCNN.ROI_PER_IMAGE 16, FIX_DISPARITY, FIX_POINTRCNN_RPN, DO_GRAD_CLIP,
+# MAX_ITER 62100; the defaults' MOMENTUM 0.9, BIAS_LR_FACTOR 2 and
+# WEIGHT_DECAY_BIAS 0, GRAD_CLIP 10 as bench_3d sets it
+PSM_TRAIN = dict(max_det=16, roi_size=224, maxdisp=48, mindisp=-48, roi_min_score=0.5,
+                 max_roi_train=12)
+PC_TRAIN = dict(BENCH_3D, mask_thresh_train=0.5, rpn_pre_nms_per_roi_train=768,
+                proposals_per_roi_train=512, rcnn_rois_per_instance=16)
+PSM_PAIRS, PC_PAIRS = 2, 1
+PSM_ITER, PC_ITER, GRAD_CLIP = 41000, 62100, 10.0
+SOLVER = dict(momentum=0.9, weight_decay=1e-4, weight_decay_bias=0.0, bias_lr_factor=2.0)
+TRAIN_STEPS = 3  # timed, after one warm-up step
+# row 8's sites in the iDispNet step (crops, channels, depth, side), row
+# 11's in the RCNN step (site, clouds, N, M, C0, chain, radius, S)
+TRAIN_CONV_SITES = ((24, 32, 24, 56), (24, 64, 12, 28), (24, 64, 6, 14))
+TRAIN_SA_SITES = (("RCNN SA0", 256, 512, 128, 128, (128, 128), 0.2, 64),
+                  ("RCNN SA1", 256, 128, 32, 128, (128, 256), 0.4, 64))
+# Kernel against plain train step from the same weights: losses within
+# 1e-4 relative, each gradient tensor within 1e-3 * max |plain|
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -220,13 +278,15 @@ def launches_replaced(**fns):
     """Route the named launch points (nms_sorted_cuda, conv3d_bn_cuda,
     cost_volume_conv_bn_cuda, deconv3d_bn_cuda, conv2d_bn_cuda,
     softargmin_cuda, furthest_point_sample_cuda, sa_ball_mlp_max_cuda,
-    fp_fused_cuda, roipool3d_cuda) through the given functions; yields the
-    original launches by name."""
+    fp_fused_cuda, roipool3d_cuda, and the train forms' conv3d_train_cuda,
+    conv3d_train_dx_cuda, sa_ball_mlp_max_train_cuda) through the given
+    functions; yields the original launches by name."""
     modules = {"nms_sorted_cuda": cuda_nms, "conv3d_bn_cuda": cconv,
                "cost_volume_conv_bn_cuda": cconv, "deconv3d_bn_cuda": cconv,
                "conv2d_bn_cuda": cconv, "softargmin_cuda": csam,
                "furthest_point_sample_cuda": cfps, "sa_ball_mlp_max_cuda": csa,
-               "fp_fused_cuda": cfp, "roipool3d_cuda": croi}
+               "fp_fused_cuda": cfp, "roipool3d_cuda": croi, "conv3d_train_cuda": cconv,
+               "conv3d_train_dx_cuda": cconv, "sa_ball_mlp_max_train_cuda": csa}
     orig = {name: getattr(modules[name], name) for name in fns}
     for name, fn in fns.items():
         setattr(modules[name], name, fn)
@@ -247,7 +307,10 @@ def all_plain():
                              furthest_point_sample_cuda=cfps.furthest_point_sample_plain,
                              sa_ball_mlp_max_cuda=csa.sa_ball_mlp_max_plain,
                              fp_fused_cuda=cfp.fp_fused_plain,
-                             roipool3d_cuda=croi.roipool3d_plain)
+                             roipool3d_cuda=croi.roipool3d_plain,
+                             conv3d_train_cuda=cconv.conv3d_train_plain,
+                             conv3d_train_dx_cuda=cconv.conv3d_train_dx_plain,
+                             sa_ball_mlp_max_train_cuda=csa.sa_ball_mlp_max_plain)
 
 
 def nms_case(kind: str, b: int, n: int, gen: torch.Generator):
@@ -564,6 +627,7 @@ def reset_launches() -> None:
     csam.launches = 0
     for mod in (cfps, csa, cfp, croi):
         mod.launches = 0
+    csa.train_launches = 0
     for k in cconv.launches:
         cconv.launches[k] = 0
 
@@ -571,7 +635,7 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     return {"nms_sorted": cuda_nms.launches, **cconv.launches, "softargmin": csam.launches,
             "fps": cfps.launches, "sa": csa.launches, "fp": cfp.launches,
-            "roipool3d": croi.launches}
+            "roipool3d": croi.launches, "sa_train": csa.train_launches}
 
 
 @contextlib.contextmanager
@@ -618,6 +682,7 @@ def phase_main_path(model2d, model3d, requests):
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = {k: n * REQUESTS + EXPECTED_REFERENCE[k] for k, n in EXPECTED_LAUNCHES.items()}
+    expected.update(conv3d_train=0, sa_train=0)
     if launches != expected:
         raise AssertionError(f"kernel launches on the main path {launches}, expected {expected}")
     valid = [check_outputs(o, PAIRS, BENCH_2D["max_det"]) for o in outs]
@@ -803,36 +868,45 @@ def phase_small_references() -> float:
     return err3
 
 
-def capture_launches(model2d, model3d, req):
-    """The arguments of every kernel launch of one headline request, by
-    kernel."""
-    calls = {k: [] for k in EXPECTED_LAUNCHES}
+def snapshot(a):
+    """A launch argument as it was at the launch: tensors (and the (W, b)
+    pairs of an MLP chain) cloned, the rest as given."""
+    if torch.is_tensor(a):
+        return a.detach().clone()
+    if isinstance(a, list):
+        return [tuple(map(snapshot, pair)) for pair in a]
+    return a
 
-    def recorder(kernel, launch_name, name_of=None):
+
+def conv_name(args):
+    if args[6] == 2:
+        return "conv3d_s2"
+    return "conv3d_cl1" if args[1].shape[0] == 1 else "conv3d"
+
+
+# each launch point of the main path -> its kernel's name, or a function of
+# the launch's arguments that names it
+MAIN_PATH_POINTS = dict(
+    nms_sorted_cuda="nms_sorted", conv3d_bn_cuda=conv_name,
+    cost_volume_conv_bn_cuda="cost_volume_conv", deconv3d_bn_cuda="deconv3d",
+    conv2d_bn_cuda="conv2d", softargmin_cuda="softargmin", furthest_point_sample_cuda="fps",
+    sa_ball_mlp_max_cuda="sa", fp_fused_cuda="fp", roipool3d_cuda="roipool3d")
+
+
+def capture_launches(run, points: dict) -> dict:
+    """The arguments of every kernel launch during run() at the launch
+    points named in `points` (as MAIN_PATH_POINTS), by kernel."""
+    calls = {}
+
+    def recorder(point, name):
         def record(*args):
-            calls[name_of(args) if name_of else kernel].append(
-                tuple(a.clone() if torch.is_tensor(a) else a for a in args))
-            return orig[launch_name](*args)
+            calls.setdefault(name(args) if callable(name) else name, []).append(
+                tuple(map(snapshot, args)))
+            return orig[point](*args)
         return record
 
-    def conv_name(args):
-        if args[6] == 2:
-            return "conv3d_s2"
-        return "conv3d_cl1" if args[1].shape[0] == 1 else "conv3d"
-
-    set_budget(model3d, "headline")
-    with launches_replaced(
-            nms_sorted_cuda=recorder("nms_sorted", "nms_sorted_cuda"),
-            conv3d_bn_cuda=recorder(None, "conv3d_bn_cuda", conv_name),
-            cost_volume_conv_bn_cuda=recorder("cost_volume_conv", "cost_volume_conv_bn_cuda"),
-            deconv3d_bn_cuda=recorder("deconv3d", "deconv3d_bn_cuda"),
-            conv2d_bn_cuda=recorder("conv2d", "conv2d_bn_cuda"),
-            softargmin_cuda=recorder("softargmin", "softargmin_cuda"),
-            furthest_point_sample_cuda=recorder("fps", "furthest_point_sample_cuda"),
-            sa_ball_mlp_max_cuda=recorder("sa", "sa_ball_mlp_max_cuda"),
-            fp_fused_cuda=recorder("fp", "fp_fused_cuda"),
-            roipool3d_cuda=recorder("roipool3d", "roipool3d_cuda")) as orig:
-        predict(model2d, model3d, *req[:4], calib=CALIB, priorities=req[4])
+    with launches_replaced(**{p: recorder(p, n) for p, n in points.items()}) as orig:
+        run()
     torch.cuda.synchronize()
     return calls
 
@@ -996,12 +1070,75 @@ def roipool3d_work(args, out):
     return bound(nbytes, INBOX_OPS * scanned)
 
 
+def main_path_err(name: str, got, want) -> float:
+    """max |kernel - plain| of one main-path launch; the selections of NMS,
+    RoI-pool 3D and FPS must be equal, the rest within its tolerance."""
+    if name in ("nms_sorted", "roipool3d"):
+        e = float((got[0] - want[0]).abs().max())
+        if e != 0 or not torch.equal(got[1], want[1]):
+            raise AssertionError(f"{name} kernel != plain on the main path's inputs")
+        return e
+    if name == "fps":
+        e = float((got - want).abs().max())
+        if e != 0:
+            raise AssertionError("FPS kernel != plain on the main path's inputs")
+        return e
+    if name == "softargmin":
+        return sam_err(got, want, "softargmin on the main path")
+    return conv_err(got, want, f"{name} on the main path")
+
+
+@torch.inference_mode()
+def time_launches(name: str, forms, err: float, src: str, replaces: str) -> dict:
+    """One row of the `kernels` line. `forms` are (label, launches' arguments,
+    kernel, plain version, library call or None, work, compare): each
+    launch's kernel result held against its plain version (compare(got,
+    want) -> max |diff|, raising past the tolerance), then kernel, plain
+    version and library call timed on its arguments, with the bound; the
+    row sums them over the launches."""
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=None, t_bytes=0.0, t_ops=0.0, bound_ms=0.0)
+    n = 0
+    for label, calls, kernel, plain, library, work, compare in forms:
+        for args in calls:
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = max(err, compare(got, want))
+            t_bytes, t_ops = work(args, got)
+            del got, want
+            ms = time_ms(lambda: kernel(*args), 5)
+            plain_ms = time_ms(lambda: plain(*args), 2)
+            lib_ms = None
+            if library:
+                with cudnn_free():
+                    lib_ms = time_ms(lambda: library(args), 3)
+                tot["library_ms"] = (tot["library_ms"] or 0.0) + lib_ms
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("t_bytes", t_bytes),
+                         ("t_ops", t_ops), ("bound_ms", max(t_bytes, t_ops))):
+                tot[k] += v
+            n += 1
+            lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
+            log(f"  {name}{label} {tuple(args[0].shape)}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library {lib}, bound {max(t_bytes, t_ops):.4f} ms "
+                f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+    lib = "-" if tot["library_ms"] is None else f"{tot['library_ms']:.4f} ms"
+    log(f"  {name}, summed over {n} launches: kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, library {lib}, bound {tot['bound_ms']:.4f} ms")
+    return dict(name=name, route="cuda", source=f"disprcnn_tpu_torch/csrc/{src}",
+                replaces=replaces, max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                bound_ms=tot["bound_ms"],
+                bound_by="bytes" if tot["t_bytes"] > tot["t_ops"] else "operations",
+                library_ms=tot["library_ms"])
+
+
 @torch.inference_mode()
 def phase_timing(model2d, model3d, req, compare_errs):
     """Each kernel on one request's own inputs: kernel, plain version and
     library call summed over the request's launches, with the bound (in
     inference mode, as predict runs them)."""
-    calls = capture_launches(model2d, model3d, req)
+    set_budget(model3d, "headline")
+    calls = capture_launches(
+        lambda: predict(model2d, model3d, *req[:4], calib=CALIB, priorities=req[4]),
+        MAIN_PATH_POINTS)
     pc = "disprcnn_tpu/ops/pallas/packed_conv.py"
     kinds = {
         "nms_sorted": (cuda_nms.nms_sorted_cuda, cuda_nms.nms_sorted_plain, None, nms_work,
@@ -1037,87 +1174,49 @@ def phase_timing(model2d, model3d, req, compare_errs):
     }
     rows = {}
     for name, (kernel, plain, library, work, src, replaces) in kinds.items():
-        if len(calls[name]) != EXPECTED_LAUNCHES[name]:
-            raise AssertionError(f"{name}: {len(calls[name])} launches in one request, "
+        launches = calls.get(name, [])
+        if len(launches) != EXPECTED_LAUNCHES[name]:
+            raise AssertionError(f"{name}: {len(launches)} launches in one request, "
                                  f"expected {EXPECTED_LAUNCHES[name]}")
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0 if library else None, t_bytes=0.0,
-                   t_ops=0.0, bound_ms=0.0)
-        err = compare_errs.get(name, 0.0)
-        for args in calls[name]:
-            got, want = kernel(*args), plain(*args)
-            torch.cuda.synchronize()
-            if name in ("nms_sorted", "roipool3d"):
-                e = float((got[0] - want[0]).abs().max())
-                if e != 0 or not torch.equal(got[1], want[1]):
-                    raise AssertionError(f"{name} kernel != plain on the main path's inputs")
-            elif name == "fps":
-                e = float((got - want).abs().max())
-                if e != 0:
-                    raise AssertionError("FPS kernel != plain on the main path's inputs")
-            elif name == "softargmin":
-                e = sam_err(got, want, "softargmin on the main path")
-            else:
-                e = conv_err(got, want, f"{name} on the main path")
-            err = max(err, e)
-            t_bytes, t_ops = work(args, got)
-            del got, want
-            ms = time_ms(lambda: kernel(*args), 5)
-            plain_ms = time_ms(lambda: plain(*args), 2)
-            lib_ms = None
-            if library:
-                with cudnn_free():
-                    lib_ms = time_ms(lambda: library(args), 3)
-            tot["ms"] += ms
-            tot["plain_ms"] += plain_ms
-            if library:
-                tot["library_ms"] += lib_ms
-            tot["t_bytes"] += t_bytes
-            tot["t_ops"] += t_ops
-            tot["bound_ms"] += max(t_bytes, t_ops)
-            shape = tuple(args[0].shape)
-            log(f"  {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {max(t_bytes, t_ops):.4f} "
-                f"ms ({'bytes' if t_bytes >= t_ops else 'operations'})")
-        rows[name] = dict(
-            name=name, route="cuda", source=f"disprcnn_tpu_torch/csrc/{src}", replaces=replaces,
-            max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-            bound_by="bytes" if tot["t_bytes"] > tot["t_ops"] else "operations",
-            library_ms=tot["library_ms"])
-        log(f"  {name}, per request ({len(calls[name])} launches): kernel {tot['ms']:.4f} ms, "
-            f"plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+        rows[name] = time_launches(
+            name, [("", launches, kernel, plain, library, work, partial(main_path_err, name))],
+            compare_errs.get(name, 0.0), src, replaces)
     log(f"[8/{PHASES}] kernels timed on one headline request's own inputs")
     return rows
 
 
 @contextlib.contextmanager
 def functions_marked(mark, spans):
-    """Wrap the module functions of the 3D stage that are not modules
-    (rpn3d.propose, rcnn3d.pool_rcnn_inputs, rcnn3d.rcnn_postprocess) so
-    that each records `mark(name)` when it returns."""
+    """Wrap functions that are not modules (spans of (owner, attribute,
+    stage that ends at the call or None, stage that ends at the return))
+    so that each records `mark(name)` at those points."""
     orig = {}
-    for mod, fn_name, label in spans:
-        fn = getattr(mod, fn_name)
-        orig[(mod, fn_name)] = fn
+    for owner, fn_name, before, after in spans:
+        fn = getattr(owner, fn_name)
+        orig[(owner, fn_name)] = fn
 
-        def wrapped(*args, _fn=fn, _label=label, **kwargs):
+        def wrapped(*args, _fn=fn, _before=before, _after=after, **kwargs):
+            if _before:
+                mark(_before)()
             out = _fn(*args, **kwargs)
-            mark(_label)()
+            mark(_after)()
             return out
 
-        setattr(mod, fn_name, wrapped)
+        setattr(owner, fn_name, wrapped)
     try:
         yield
     finally:
-        for (mod, fn_name), fn in orig.items():
-            setattr(mod, fn_name, fn)
+        for (owner, fn_name), fn in orig.items():
+            setattr(owner, fn_name, fn)
 
 
-def breakdown(model2d, model3d, req, budget: str):
-    """One request split into stages by CUDA events recorded at stage
-    boundaries (module forward hooks and function wrappers; nothing of the
-    forward is copied). Stages that run once per proposal block are
-    summed."""
-    psm, prc = model3d.idispnet, model3d.pointrcnn
+def split_by_events(run, hooks, spans, last: str) -> tuple[float, dict]:
+    """run() split into stages by CUDA events recorded at stage boundaries:
+    `hooks` are (module, "pre" or "post", stage that ends at the module's
+    entry or exit), `spans` as functions_marked takes them, and `last` the
+    stage that ends when run() returns; nothing of the forward is copied.
+    Stages that recur (once per proposal block) are summed. -> (total ms,
+    ms by stage)."""
     marks = []  # (name of the stage that ends here, event)
 
     def mark(name):
@@ -1127,33 +1226,39 @@ def breakdown(model2d, model3d, req, budget: str):
             marks.append((name, ev))
         return record
 
-    hooks = [model3d.register_forward_pre_hook(mark("2D detector")),
-             psm.feature_extraction.register_forward_pre_hook(mark("crops")),
-             psm.feature_extraction.register_forward_hook(mark("feature tower")),
-             psm.dres2.register_forward_pre_hook(mark("cost volume + dres")),
-             psm.classif1_0.register_forward_pre_hook(mark("hourglasses")),
-             psm.register_forward_hook(mark("classifiers + regression")),
-             prc.register_forward_pre_hook(mark("lift")),
-             prc.rpn.backbone.register_forward_hook(mark("RPN backbone")),
-             prc.rpn.register_forward_hook(mark("RPN heads")),
-             prc.rcnn.register_forward_hook(mark("RCNN")),
-             model3d.register_forward_hook(mark("postprocess"))]
-    spans = ((rpn3d, "propose", "propose + NMS"), (rcnn3d, "pool_rcnn_inputs", "RoI-pool 3D"),
-             (rcnn3d, "rcnn_postprocess", "postprocess"))
-    set_budget(model3d, budget)
+    handles = [(mod.register_forward_pre_hook if kind == "pre" else mod.register_forward_hook)(
+        mark(name)) for mod, kind, name in hooks]
     try:
         with functions_marked(mark, spans):
             mark("start")()
-            predict(model2d, model3d, *req[:4], calib=CALIB, priorities=req[4])
-            mark("outputs")()
+            run()
+            mark(last)()
             torch.cuda.synchronize()
     finally:
-        for h in hooks:
+        for h in handles:
             h.remove()
     stages = {}
     for (_, prev), (name, ev) in zip(marks, marks[1:]):
         stages[name] = stages.get(name, 0.0) + prev.elapsed_time(ev)
     return marks[0][1].elapsed_time(marks[-1][1]), stages
+
+
+def breakdown(model2d, model3d, req, budget: str):
+    """One request split into its stages (split_by_events)."""
+    psm, prc = model3d.idispnet, model3d.pointrcnn
+    hooks = ((model3d, "pre", "2D detector"), (psm.feature_extraction, "pre", "crops"),
+             (psm.feature_extraction, "post", "feature tower"),
+             (psm.dres2, "pre", "cost volume + dres"), (psm.classif1_0, "pre", "hourglasses"),
+             (psm, "post", "classifiers + regression"), (prc, "pre", "lift"),
+             (prc.rpn.backbone, "post", "RPN backbone"), (prc.rpn, "post", "RPN heads"),
+             (prc.rcnn, "post", "RCNN"), (model3d, "post", "postprocess"))
+    spans = ((rpn3d, "propose", None, "propose + NMS"),
+             (rcnn3d, "pool_rcnn_inputs", None, "RoI-pool 3D"),
+             (rcnn3d, "rcnn_postprocess", None, "postprocess"))
+    set_budget(model3d, budget)
+    return split_by_events(
+        lambda: predict(model2d, model3d, *req[:4], calib=CALIB, priorities=req[4]),
+        hooks, spans, "outputs")
 
 
 def phase_breakdown(model2d, model3d, reqs, card: str) -> dict:
@@ -1174,6 +1279,367 @@ def phase_breakdown(model2d, model3d, reqs, card: str) -> dict:
         f"reference {PAIRS * 1000.0 / out['reference'][0]:.3f}; the headline request with "
         f"non-deterministic cuDNN: {[round(t, 3) for t in free_ms]} ms")
     return out
+
+
+def grads_agree(got: dict, want: dict, what: str) -> float:
+    """Gradients of the kernel and plain steps: each tensor finite and
+    within STEP_GRAD_TOL * max |plain| of the plain step's. -> the largest
+    max |diff| / max |plain| over the tensors."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        d, scale = float((g - w).abs().max()), float(w.abs().max())
+        if not (torch.isfinite(g).all() and d <= STEP_GRAD_TOL * scale):
+            raise AssertionError(f"{what}: gradient of {k} off the plain step's by max |diff| "
+                                 f"{d:.3g}, max |plain| {scale:.3g}")
+        worst = max(worst, d / max(scale, 1e-30))
+    return worst
+
+
+def phase_conv_train_compare() -> float:
+    """Row 8 at the iDispNet step's trunk sites: the raw conv, dx through
+    the kernel (flipped, channel-transposed weights) and dk, against
+    F.conv3d and its autograd."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    worst = 0.0
+    for n, c, d, s in TRAIN_CONV_SITES:
+        x = (torch.randn(n, c, d, s, s, generator=gen, device="cuda")).requires_grad_(True)
+        w = (torch.randn(c, c, 3, 3, 3, generator=gen, device="cuda") * 0.05).requires_grad_(True)
+        dy = torch.randn(n, c, d, s, s, generator=gen, device="cuda")
+        y = cconv.conv3d_train(x, w)
+        got = (y.detach(),) + torch.autograd.grad(y, (x, w), dy)
+        y = cconv.conv3d_train_plain(x, w)
+        want = (y.detach(),) + torch.autograd.grad(y, (x, w), dy)
+        errs = [conv_err(g, p, f"conv3d_train {what} at {tuple(x.shape)}")
+                for what, g, p in zip(("y", "dx", "dk"), got, want)]
+        worst = max(worst, *errs)
+        log(f"  conv3d_train {tuple(x.shape)}: y, dx, dk max |diff| "
+            f"{', '.join(f'{e:.3g}' for e in errs)}")
+        del x, dy, y, got, want
+    torch.cuda.synchronize()
+    log(f"[10/{PHASES}] row 8's train form matches F.conv3d and its autograd at the iDispNet "
+        f"step's trunk sites")
+    return worst
+
+
+def phase_sa_train_compare() -> float:
+    """Row 11 at the RCNN step's SA0 and SA1: the kernel forward and every
+    input and weight gradient against autograd of the plain version, on
+    clouds with empty, partial and full balls."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = 0.0
+    for site, b, n, m, c0, chain, radius, s in TRAIN_SA_SITES:
+        xyz = point_clouds(gen, b, n, 1.2 * radius * n ** (1 / 3) / 4, s)
+        centers = torch.cat([xyz[:, :m - 1], torch.full((b, 1, 3), 60.0, device="cuda")],
+                            1).contiguous()
+        cnt = ball_counts(centers, xyz, radius, s)
+        if not ((cnt == 0).any() and ((cnt > 0) & (cnt < s)).any() and (cnt == s).any()):
+            raise AssertionError(f"SA train {site}: the clouds lack empty, partial or full balls")
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda") * scale).requires_grad_(True)
+
+        leaves = [randn(b, n, c0), randn(3, c0, scale=0.5 / radius), 1 + randn(c0, scale=0.3),
+                  randn(c0, scale=0.1)]
+        leaves[2] = leaves[2].detach().requires_grad_(True)
+        ws, cin = [], c0
+        for co in chain:
+            ws.append((randn(cin, co, scale=cin ** -0.5), randn(co, scale=0.1)))
+            cin = co
+        flat = [t for pair in ws for t in pair]
+        dy = torch.randn(b, m, chain[-1], generator=gen, device="cuda")
+        outs = []
+        for fn in (csa.sa_ball_mlp_max_train, csa.sa_ball_mlp_max_plain):
+            out = fn(xyz, centers, *leaves, ws, radius, s)
+            outs.append((out.detach(),) + torch.autograd.grad(out, leaves + flat, dy))
+        names = ["value", "v", "w0x", "mul0", "add0"] + [f"{k}{i}" for i in range(len(ws))
+                                                         for k in ("W", "b")]
+        errs = [conv_err(g, w, f"SA train {site} {k}") for k, g, w in zip(names, *outs)]
+        worst = max(worst, *errs)
+        log(f"  sa_train {site} ({b}, {n} -> {m}, S {s}): value max |diff| {errs[0]:.3g}, "
+            f"gradients {max(errs[1:]):.3g} ({len(errs) - 1} tensors); balls empty "
+            f"{int((cnt == 0).sum())}, partial {int(((cnt > 0) & (cnt < s)).sum())}, full "
+            f"{int((cnt == s).sum())}")
+        del outs, leaves, ws, flat
+    torch.cuda.synchronize()
+    log(f"[11/{PHASES}] row 11's train form matches autograd of its plain version at the RCNN "
+        f"step's SA sites")
+    return worst
+
+
+def random_dets(gen, b: int, d: int):
+    """(b, d) stereo detections inside IMG_HW: boxes 60-360 x 60-200 px,
+    the right box 10-30 px left of the left one, scores above 0.55, masks
+    uniform."""
+    h, w = IMG_HW
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    x1, y1 = u(b, d) * (w - 360), u(b, d) * (h - 200)
+    left = torch.stack([x1, y1, x1 + 60 + 300 * u(b, d), y1 + 60 + 140 * u(b, d)], -1)
+    shift = 10 + 20 * u(b, d)
+    right = left - torch.stack([shift, torch.zeros_like(shift)] * 2, -1)
+    return StereoBoxes(left=left, right=right, score=0.55 + 0.45 * u(b, d),
+                       valid=torch.ones(b, d, dtype=torch.bool, device="cuda"),
+                       fields={"mask": u(b, d, 28, 28)})
+
+
+def trainable(model):
+    return {n: p for n, p in model.named_parameters() if p.requires_grad}
+
+
+def run_train_steps(step, batch, what: str) -> list:
+    """One warm-up and TRAIN_STEPS timed steps -> per-step ms; each step's
+    losses finite, none skipped, no trainable parameter left without a
+    gradient."""
+    ms = []
+    for i in range(1 + TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        if i:
+            ms.append(start.elapsed_time(end))
+        losses = {k: float(v) for k, v in m.items() if k.startswith("loss")}
+        if not all(map(lambda v: v == v and abs(v) != float("inf"), losses.values())):
+            raise AssertionError(f"{what}: non-finite losses {losses}")
+        if float(m["skipped_nonfinite"]) or int(m["params_without_grad"]):
+            raise AssertionError(f"{what}: step skipped or parameters without gradient: {m}")
+    return ms
+
+
+def check_grads_and_stats(model, before: dict, what: str, bn_trains: bool) -> int:
+    """Every trainable parameter has a finite gradient (a ctypes output
+    without grad_fn would leave it None); the BN running statistics moved
+    (bn_trains) or stayed (frozen stages), and so did the parameters that
+    do not train. -> the moved statistics."""
+    for n, p in trainable(model).items():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"{what}: {n} has no finite gradient")
+    running = [n for n, b in model.named_buffers() if "running" in n]
+    bufs = dict(model.named_buffers())
+    moved = sum(not torch.equal(bufs[n], before[n]) for n in running)
+    if (moved == 0) if bn_trains else moved:
+        raise AssertionError(f"{what}: {moved} of {len(running)} BN statistics moved")
+    for n, p in model.named_parameters():
+        if not p.requires_grad and not torch.equal(p, before[n]):
+            raise AssertionError(f"{what}: the frozen {n} changed")
+    return moved
+
+
+def kernel_vs_plain_step(model, opt, step, batch, what: str, share=None):
+    """One step on the kernels and one on the plain versions (all_plain),
+    both from the same weights and optimizer state. `share` (a module
+    whose rcnn_targets the plain step takes from the kernel step) makes
+    both train on one frozen-stage output. -> (loss relative difference,
+    gradient agreement, kernel-step metrics)."""
+    sd, osd, count = copy.deepcopy(model.state_dict()), copy.deepcopy(opt.sgd.state_dict()), \
+        opt.count
+    recorded = []
+    if share is not None:
+        orig = share.rcnn_targets
+        share.rcnn_targets = lambda *a: recorded.append(orig(*a)) or recorded[-1]
+    try:
+        mk = step(batch)
+        gk = {n: p.grad.clone() for n, p in trainable(model).items()}
+        model.load_state_dict(sd)
+        opt.sgd.load_state_dict(osd)
+        opt.count = count
+        if share is not None:
+            share.rcnn_targets = lambda *a: recorded[0]
+        reset_launches()
+        with all_plain():
+            mp = step(batch)
+        if any(read_launches().values()):
+            raise AssertionError(f"{what}: the plain step launched {read_launches()}")
+        gp = {n: p.grad.clone() for n, p in trainable(model).items()}
+    finally:
+        if share is not None:
+            del share.rcnn_targets
+    torch.cuda.synchronize()
+    lk, lp = float(mk["loss_total"]), float(mp["loss_total"])
+    rel = abs(lk - lp) / max(abs(lp), 1e-30)
+    if not rel <= STEP_LOSS_RTOL:
+        raise AssertionError(f"{what}: kernel step loss {lk} against plain {lp}")
+    return rel, grads_agree(gk, gp, what), mk, recorded
+
+
+def phase_psm_train(card: str) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    model = init_random_(DispRCNN3D(**PSM_TRAIN, device="cuda"), gen)
+    opt = make_optimizer(model, one_cycle(0.01, PSM_ITER), one_cycle_momentum(PSM_ITER),
+                         **SOLVER)
+    step = make_train_step(model, opt, forward_kwargs=dict(train_psm=True))
+    h, w = IMG_HW
+    cols = torch.arange(w, device="cuda", dtype=torch.float32)
+    batch = dict(left_img=torch.rand(PSM_PAIRS, h, w, 3, generator=gen, device="cuda"),
+                 right_img=torch.rand(PSM_PAIRS, h, w, 3, generator=gen, device="cuda"),
+                 dets=random_dets(gen, PSM_PAIRS, PSM_TRAIN["max_det"]),
+                 gt_disp=(20 + 5 * torch.sin(cols / 40)).expand(PSM_PAIRS, h, w).contiguous())
+    before = {n: t.detach().clone() for n, t in [*model.named_buffers(),
+                                                 *model.named_parameters()]}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms = run_train_steps(step, batch, "iDispNet step")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = check_grads_and_stats(model, before, "iDispNet step", bn_trains=True)
+    crops = PSM_PAIRS * PSM_TRAIN["max_roi_train"]
+    if launches["conv3d_train"] != (1 + TRAIN_STEPS) * 24 or any(
+            launches[k] for k in launches if k != "conv3d_train"):
+        raise AssertionError(f"iDispNet step launches {launches}: expected 24 conv3d_train a "
+                             f"step (12 trunk convs, forward and dx) and nothing else")
+    rel, grad_err, mk, _ = kernel_vs_plain_step(model, opt, step, batch, "iDispNet step")
+    mean = sum(ms) / len(ms)
+    log(f"[12/{PHASES}] iDispNet train step ({PSM_PAIRS} pairs, {crops} crops of "
+        f"{PSM_TRAIN['roi_size']}^2) on "
+        f"{card}: ms/step {[round(t, 3) for t in ms]} (mean {mean:.3f}: "
+        f"{crops * 1e3 / mean:.3f} crops/s, {PSM_PAIRS * 1e3 / mean:.3f} pairs/s), loss_psm "
+        f"{float(mk['loss_psm']):.5g}, launches {launches['conv3d_train']}, "
+        f"{len(trainable(model))} parameters with finite gradients, {moved} BN statistics "
+        f"moved, peak memory {peak:.2f} GB; kernel vs plain step: loss {rel:.3g} relative, "
+        f"gradients per tensor max |diff| <= {grad_err:.3g} * max |plain|")
+    return dict(model=model, step=step, batch=batch, ms=ms, launches=launches,
+                unit=crops, pairs=PSM_PAIRS)
+
+
+def centre_rpn_boxes_(model) -> None:
+    """Scale the random RPN's box-regression output down and bias its x and
+    z bins to the middle one: each proposal becomes a car-sized box about
+    its point (the random head throws them off the clouds, and every pooled
+    ROI comes out empty, so the sampler finds no foreground)."""
+    out = model.pointrcnn.rpn.reg_head.out
+    nbin = model.pointrcnn.rpn_codec.per_loc_bin_num
+    with torch.no_grad():
+        out.weight.mul_(0.01)
+        out.bias.zero_()
+        out.bias[[nbin // 2, nbin + nbin // 2]] = 2.0
+
+
+def phase_pc_train(card: str) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    model = init_random_(DispRCNN3D(**PC_TRAIN, device="cuda"), gen)
+    centre_rpn_boxes_(model)
+    frozen = frozen_path_prefixes(FIX_DISPARITY=True, FIX_POINTRCNN_RPN=True)
+    opt = make_optimizer(model, one_cycle(0.01, PC_ITER), one_cycle_momentum(PC_ITER), frozen,
+                         **SOLVER)
+    step = make_train_step(model, opt, do_grad_clip=True, grad_clip=GRAD_CLIP,
+                           forward_kwargs=dict(train_pc=True))
+    h, w = IMG_HW
+    d = PC_TRAIN["max_det"]
+    dets = random_dets(gen, PC_PAIRS, d)
+    prc = model.pointrcnn
+    batch = dict(left_img=torch.rand(PC_PAIRS, h, w, 3, generator=gen, device="cuda"),
+                 right_img=torch.rand(PC_PAIRS, h, w, 3, generator=gen, device="cuda"),
+                 dets=dets, calib={k: torch.full((PC_PAIRS,), v, device="cuda")
+                                   for k, v in CALIB.items()},
+                 priorities=torch.rand(PC_PAIRS * d, BENCH_3D["lift_grid"] ** 2, generator=gen,
+                                       device="cuda"),
+                 rcnn_draws=rcnn3d.draw_rcnn_draws(PC_PAIRS * d, prc.proposals_per_roi_train,
+                                                   prc.rcnn_rois_per_instance, 10, gen, "cuda"),
+                 gt_left=dets.left, gt_valid=torch.ones(PC_PAIRS, d, dtype=torch.bool,
+                                                        device="cuda"))
+    # each instance's GT box: its proposal that holds the most lifted points
+    seen = {}
+    orig = rcnn3d.prepare_rcnn_train_inputs
+
+    def record(rois, roi_valid, gt, gt_ok, xyz, *args, **kwargs):
+        seen.update(rois=rois, roi_valid=roi_valid, xyz=xyz)
+        return orig(rois, roi_valid, gt, gt_ok, xyz, *args, **kwargs)
+
+    rcnn3d.prepare_rcnn_train_inputs = record
+    try:
+        model.train()
+        with torch.no_grad():
+            model(**batch, gt_boxes3d=torch.zeros(PC_PAIRS, d, 7, device="cuda"), train_pc=True)
+    finally:
+        rcnn3d.prepare_rcnn_train_inputs = orig
+    inside = troi.pts_in_boxes3d(seen["xyz"], troi.enlarge_box3d(seen["rois"], 1.0)).sum(-1)
+    inside = torch.where(seen["roi_valid"], inside, torch.zeros_like(inside))
+    with_points = int((inside.amax(1) > 0).sum())
+    if with_points == 0:
+        raise AssertionError("RCNN step: no instance has a proposal with lifted points")
+    rows = torch.arange(PC_PAIRS * d, device="cuda")
+    batch["gt_boxes3d"] = seen["rois"][rows, inside.argmax(1)].reshape(PC_PAIRS, d, 7)
+    before = {n: t.detach().clone() for n, t in [*model.named_buffers(),
+                                                 *model.named_parameters()]}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms = run_train_steps(step, batch, "RCNN step")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_grads_and_stats(model, before, "RCNN step", bn_trains=False)
+    needed = ("cost_volume_conv", "conv3d", "conv3d_cl1", "conv3d_s2", "deconv3d", "conv2d",
+              "softargmin", "fps", "sa", "fp", "nms_sorted", "roipool3d", "sa_train")
+    if any(launches[k] == 0 for k in needed) or launches["conv3d_train"]:
+        raise AssertionError(f"RCNN step launches {launches}: rows 1-7, 9, 10, 11, 13, 14 and "
+                             f"15 must each launch, row 8 not")
+    rel, grad_err, mk, recorded = kernel_vs_plain_step(model, opt, step, batch,
+                                                            "RCNN step", share=prc)
+    tgt = recorded[0]
+    fg, labelled = int(tgt["reg_mask"].sum()), int((tgt["cls_label"] >= 0).sum())
+    if fg == 0:
+        raise AssertionError("RCNN step: no sampled RCNN ROI is foreground")
+    mean = sum(ms) / len(ms)
+    log(f"[13/{PHASES}] RCNN train step ({PC_PAIRS} pair, {d} instances, "
+        f"{tgt['cls_label'].numel()} RCNN ROIs of {prc.rcnn_num_points} points) on {card}: "
+        f"ms/step {[round(t, 3) for t in ms]} (mean {mean:.3f}: {PC_PAIRS * 1e3 / mean:.3f} "
+        f"pairs/s), loss_box3d {float(mk['loss_box3d']):.5g}, {with_points} instances with "
+        f"points in a proposal, {fg} foreground and {labelled} labelled ROIs, launches "
+        f"{launches}, {len(trainable(model))} RCNN parameters with finite gradients, peak "
+        f"memory {peak:.2f} GB; kernel vs plain step on one frozen-stage output: loss "
+        f"{rel:.3g} relative, gradients per tensor max |diff| <= {grad_err:.3g} * max |plain|")
+    return dict(model=model, step=step, batch=batch, ms=ms, launches=launches,
+                unit=PC_PAIRS, pairs=PC_PAIRS)
+
+
+def phase_train_timing(psm: dict, pc: dict, errs: dict, card: str) -> dict:
+    """Rows 8 and 11 on the inputs one train step gave them (time_launches),
+    and the step times of phases 12 and 13 with one step of each split into
+    stages (split_by_events)."""
+    calls = capture_launches(lambda: psm["step"](psm["batch"]),
+                             dict(conv3d_train_cuda="forward", conv3d_train_dx_cuda="dx"))
+    compare = lambda what: lambda got, want: conv_err(got, want, f"{what} in the step")
+    rows = {"conv3d_train": time_launches("conv3d_train", [
+        (" forward", calls["forward"], cconv.conv3d_train_cuda, cconv.conv3d_train_plain,
+         lambda a: F.conv3d(a[0], a[1], padding=1), conv_work, compare("conv3d_train forward")),
+        (" dx", calls["dx"], cconv.conv3d_train_dx_cuda, cconv.conv3d_train_dx_plain,
+         lambda a: torch.nn.grad.conv3d_input(a[0].shape, a[1], a[0], padding=1),
+         lambda a, o: conv_work((a[0], cconv.flip_transpose(a[1])), o),
+         compare("conv3d_train dx"))],
+        errs["conv3d_train"], "conv3d.cu", "disprcnn_tpu/ops/pallas/packed_conv.py:689")}
+    del calls
+    calls = capture_launches(lambda: pc["step"](pc["batch"]),
+                             dict(sa_ball_mlp_max_train_cuda="sa_train"))
+    rows["sa_train"] = time_launches("sa_train", [
+        ("", calls["sa_train"], csa.sa_ball_mlp_max_train_cuda, csa.sa_ball_mlp_max_plain, None,
+         sa_work, compare("sa_train"))],
+        errs["sa_train"], "sa.cu", "disprcnn_tpu/ops/pallas/sa_fused.py:1073")
+    del calls
+    psm_model, pc_model = psm["model"], pc["model"]
+    for what, r, hooks in (
+            ("iDispNet", psm, ((psm_model.idispnet.feature_extraction, "feature tower"),
+                               (psm_model.idispnet.dres2, "cost volume + dres + hourglass 1"),
+                               (psm_model.idispnet, "hourglasses 2-3 + classifiers"))),
+            ("RCNN", pc, ((pc_model.idispnet, "crops + frozen iDispNet"),
+                          (pc_model.pointrcnn.rpn, "lift + frozen RPN"),
+                          (pc_model.pointrcnn.rcnn.merge_down, "proposals + targets + RCNN "
+                                                                "xyz_up/merge_down"),
+                          (pc_model.pointrcnn.rcnn, "RCNN SA + heads")))):
+        mean = sum(r["ms"]) / len(r["ms"])
+        total, stages = split_by_events(
+            lambda: r["step"](r["batch"]),
+            [(mod, "post", name) for mod, name in hooks]
+            + [(r["model"], "post", "rest of the forward")],
+            [(r["step"].optimizer, "step", "backward", "optimizer")], "metrics")
+        log(f"  {what} train step on {card}: {mean:.3f} ms/step, "
+            f"{r['unit'] * 1e3 / mean:.3f} {'crops' if what == 'iDispNet' else 'pairs'}/s, "
+            f"{r['pairs'] * 1e3 / mean:.3f} pairs/s; one step split, {total:.3f} ms: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
+    log(f"[14/{PHASES}] train forms timed on one step's own inputs")
+    return rows
 
 
 def make_requests(gen: torch.Generator):
@@ -1220,6 +1686,15 @@ def main() -> int:
         rows = phase_timing(model2d, model3d, requests[0], errs)
         phase_breakdown(model2d, model3d, (requests[1], requests[-1]), card)
         kernels = [{**rows[name], "launches": launches[name]} for name in EXPECTED_LAUNCHES]
+        del model2d, model3d, requests, runs
+        torch.cuda.empty_cache()
+        train_errs = {"conv3d_train": phase_conv_train_compare(),
+                      "sa_train": phase_sa_train_compare()}
+        psm = phase_psm_train(card)
+        pc = phase_pc_train(card)
+        rows = phase_train_timing(psm, pc, train_errs, card)
+        kernels += [{**rows["conv3d_train"], "launches": psm["launches"]["conv3d_train"]},
+                    {**rows["sa_train"], "launches": pc["launches"]["sa_train"]}]
         log(f"done in {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     except Exception:  # report any phase's failure and exit non-zero
         traceback.print_exc()

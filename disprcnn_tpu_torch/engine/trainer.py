@@ -1,0 +1,89 @@
+"""One training step: forward with the model's losses, backward, gradient
+clip, optimizer update (counterpart of disprcnn_tpu/engine/trainer.py;
+reference engine/trainer.py:54-200).
+
+The model runs in train mode and returns a dict whose ``loss*`` entries are
+summed into the loss. A step whose loss or any gradient is not finite
+applies nothing: the parameters, the optimizer's state and schedules and
+the BatchNorm running statistics keep their values, only the step count
+advances, and the metrics report ``skipped_nonfinite`` (the reference's
+ALLOW_EXCEPTION skips such an iteration, engine/trainer.py:116-123). No
+config of the repo sets SOLVER.UNCERT_LOSS_WEIGHT, so the step does not
+wire in the learned uncertainty weights that ``total_loss`` takes.
+
+A trainable parameter that the backward pass leaves without a gradient is
+counted in the metrics (``params_without_grad``) and updated with a zero
+gradient, as optax updates a parameter whose gradient is zero (its weight
+decay and momentum still apply). A count above zero on the card means that
+a kernel's output was cut off from autograd.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from ..solver.build import Optimizer
+
+
+def total_loss(losses: Dict[str, torch.Tensor], uncert: Optional[torch.Tensor]) -> torch.Tensor:
+    """The sum of the losses (in key order), or the uncertainty weighting
+    sum(u) + sum(l_i * exp(-u_i)) (reference trainer.py:44-51)."""
+    vals = [v for _, v in sorted(losses.items())]
+    if uncert is None:
+        return torch.stack(vals).sum()
+    return uncert.sum() + (torch.stack(vals) * torch.exp(-uncert[:len(vals)])).sum()
+
+
+class TrainStep:
+    """``step(batch)`` runs one step of `model` on the keyword arguments in
+    `batch` (plus `forward_kwargs`) and returns its metrics; ``step.count``
+    is the number of steps taken, skipped ones included."""
+
+    def __init__(self, model: nn.Module, optimizer: Optimizer, do_grad_clip: bool,
+                 grad_clip: float, forward_kwargs: dict):
+        self.model, self.optimizer = model, optimizer
+        self.do_grad_clip, self.grad_clip = do_grad_clip, grad_clip
+        self.forward_kwargs = forward_kwargs
+        self.count = 0
+
+    def __call__(self, batch: dict) -> Dict[str, torch.Tensor]:
+        model, params = self.model, self.optimizer.params
+        model.train()
+        saved = [b.detach().clone() for b in model.buffers()]
+        for p in params:
+            p.grad = None
+        out = model(**batch, **self.forward_kwargs)
+        losses = {k: v for k, v in out.items() if k.startswith("loss")}
+        loss = total_loss(losses, None)
+        loss.backward()
+        missing = sum(p.grad is None for p in params)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        finite = bool(torch.isfinite(loss)
+                      & torch.stack([torch.isfinite(g).all() for g in grads]).all())
+        if finite:
+            if self.do_grad_clip:
+                gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
+                scale = torch.clamp(self.grad_clip / gnorm.clamp_min(1e-6), max=1.0)
+                for g in grads:
+                    g.mul_(scale)
+            self.optimizer.step()
+        else:
+            with torch.no_grad():
+                for b, old in zip(model.buffers(), saved):
+                    b.copy_(old)
+        self.count += 1
+        return {"loss_total": loss.detach(), **{k: v.detach() for k, v in losses.items()},
+                "skipped_nonfinite": torch.tensor(float(not finite)),
+                "params_without_grad": torch.tensor(missing)}
+
+
+def make_train_step(model: nn.Module, optimizer: Optimizer, do_grad_clip: bool = False,
+                    grad_clip: float = 1.0, forward_kwargs: Optional[dict] = None) -> Callable:
+    """A TrainStep. `forward_kwargs` are the fixed model arguments (the JAX
+    package's apply_kwargs, e.g. train_psm/train_pc)."""
+    return TrainStep(model, optimizer, do_grad_clip, grad_clip, dict(forward_kwargs or {}))

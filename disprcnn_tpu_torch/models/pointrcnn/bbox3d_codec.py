@@ -1,15 +1,17 @@
-"""Bin-based 3D box decoding, PointRCNN style (counterpart of the decode
-half of disprcnn_tpu/models/pointrcnn/bbox3d_codec.py; reference
-lib/utils/bbox_transform.py). A regression vector is laid out
+"""Bin-based 3D box decoding and its training loss, PointRCNN style
+(counterpart of disprcnn_tpu/models/pointrcnn/bbox3d_codec.py; reference
+lib/utils/bbox_transform.py, loss_utils.get_reg_loss). A regression vector
+is laid out
 [x_bins | z_bins | (x_res | z_res if xz_fine) | y_offset | ry_bins | ry_res
 | size_res(3)].
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 class CodecCfg(NamedTuple):
@@ -77,3 +79,64 @@ def decode(base_xyz: torch.Tensor, pred: torch.Tensor, anchor_size: torch.Tensor
         ry = ry + base_ry
     return torch.cat([(x + base_xyz[:, 0])[:, None], pos_y[:, None],
                       (z + base_xyz[:, 2])[:, None], hwl, ry[:, None]], dim=-1)
+
+
+def _sl1(x: torch.Tensor) -> torch.Tensor:
+    ax = x.abs()
+    return torch.where(ax < 1.0, 0.5 * ax * ax, ax - 0.5)
+
+
+def reg_loss(pred: torch.Tensor, reg_label: torch.Tensor, mask: torch.Tensor,
+             anchor_size: torch.Tensor,
+             cfg: CodecCfg) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """pred (N, C), reg_label (N, 7) [dx, dy, dz, h, w, l, ry], mask (N,)
+    weights -> the masked means (loc, angle, size): cross-entropy over the
+    x/z and heading bins, smooth-L1 on the residuals, the y offset and the
+    anchor-normalized size (loss_utils.get_reg_loss:100-273)."""
+    nbin = cfg.per_loc_bin_num
+    m = mask.to(pred.dtype)
+    denom = m.sum().clamp_min(1.0)
+
+    def ce(logits, label):
+        return -torch.gather(F.log_softmax(logits, dim=-1), 1, label[:, None])[:, 0]
+
+    def mean(x):
+        return (x * m).sum() / denom
+
+    x_shift = (reg_label[:, 0] + cfg.loc_scope).clamp(0, cfg.loc_scope * 2 - 1e-3)
+    z_shift = (reg_label[:, 2] + cfg.loc_scope).clamp(0, cfg.loc_scope * 2 - 1e-3)
+    x_bin = torch.floor(x_shift / cfg.loc_bin_size).long()
+    z_bin = torch.floor(z_shift / cfg.loc_bin_size).long()
+    loc = mean(ce(pred[:, 0:nbin], x_bin)) + mean(ce(pred[:, nbin:2 * nbin], z_bin))
+    off = 2 * nbin
+    if cfg.xz_fine:
+        half = cfg.loc_bin_size / 2
+        xr_lbl = (x_shift - (x_bin * cfg.loc_bin_size + half)) / cfg.loc_bin_size
+        zr_lbl = (z_shift - (z_bin * cfg.loc_bin_size + half)) / cfg.loc_bin_size
+        loc = loc + mean(_sl1(_pick(pred[:, off:off + nbin], x_bin) - xr_lbl))
+        loc = loc + mean(_sl1(_pick(pred[:, off + nbin:off + 2 * nbin], z_bin) - zr_lbl))
+        off += 2 * nbin
+    loc = loc + mean(_sl1(pred[:, off] - reg_label[:, 1]))
+    off += 1
+
+    nh = cfg.num_head_bin
+    ry_label = reg_label[:, 6]
+    if cfg.ry_fine:
+        per = (math.pi / 2) / nh
+        ry2 = remainder(ry_label, 2 * math.pi)
+        opposite = (ry2 > math.pi * 0.5) & (ry2 < math.pi * 1.5)
+        ry2 = torch.where(opposite, remainder(ry2 + math.pi, 2 * math.pi), ry2)
+        shift = remainder(ry2 + math.pi * 0.5, 2 * math.pi)
+        shift = (shift - math.pi * 0.25).clamp(1e-3, math.pi * 0.5 - 1e-3)
+    else:
+        per = (2 * math.pi) / nh
+        shift = remainder(remainder(ry_label, 2 * math.pi) + per / 2, 2 * math.pi)
+    ry_bin = torch.floor(shift / per).long()
+    ry_res_lbl = (shift - (ry_bin * per + per / 2)) / (per / 2)
+    angle = mean(ce(pred[:, off:off + nh], ry_bin))
+    angle = angle + mean(_sl1(_pick(pred[:, off + nh:off + 2 * nh], ry_bin) - ry_res_lbl))
+    off += 2 * nh
+
+    size_lbl = (reg_label[:, 3:6] - anchor_size) / anchor_size
+    size = (_sl1(pred[:, off:off + 3] - size_lbl) * m[:, None]).sum() / denom
+    return loc, angle, size

@@ -1,12 +1,18 @@
-"""The PointRCNN 3D stage, eval only: 3D RPN -> proposals -> RoI-pool 3D ->
-RCNN -> one box per instance (counterpart of the eval branch of
-disprcnn_tpu/models/pointrcnn/point_rcnn.py with rcnn_enabled, the score-
-based proposals and RPN.NMS_TYPE "normal"; reference lib/net/point_rcnn.py).
-Each 2D detection is one fixed-size canonical cloud on the instance axis.
+"""The PointRCNN 3D stage: 3D RPN -> proposals -> RoI-pool 3D -> RCNN ->
+one box per instance (counterpart of disprcnn_tpu/models/pointrcnn/
+point_rcnn.py with rcnn_enabled, the score-based proposals and
+RPN.NMS_TYPE "normal"; reference lib/net/point_rcnn.py). Each 2D detection
+is one fixed-size canonical cloud on the instance axis.
+
+Train mode trains the RCNN on a fixed RPN (RPN.FIXED, rcnn.yaml): the RPN
+runs in eval without gradients, with the TRAIN proposal budgets; the
+proposal target layer (``rcnn_targets``) samples, noises, pools and
+augments the RCNN's inputs, also without gradients; then the RCNN runs
+with gradients and the step's loss is ``loss_box3d`` (point_rcnn.py:74-135).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,7 +34,10 @@ class PointRCNN(nn.Module):
                  rpn_nms_thresh: float = 0.8, rcnn_num_points: int = 512,
                  rcnn_score_thresh: float = 0.1,
                  sa_npoints: Tuple[int, ...] = (768, 512, 256, 64),
-                 sa_min_c0: int = SA_MIN_C0, roi_block: int = ROI_BLOCK):
+                 sa_min_c0: int = SA_MIN_C0, roi_block: int = ROI_BLOCK,
+                 proposals_per_roi_train: Optional[int] = None,
+                 rpn_pre_nms_per_roi_train: Optional[int] = None,
+                 rcnn_rois_per_instance: int = 16):
         super().__init__()
         self.npoints = npoints
         self.register_buffer("anchor", torch.tensor(mean_size, dtype=torch.float32),
@@ -41,15 +50,28 @@ class PointRCNN(nn.Module):
         self.rcnn_num_points = rcnn_num_points
         self.rcnn_score_thresh = rcnn_score_thresh
         self.roi_block = roi_block
+        # TRAIN budgets (proposal_layer.py:19-24); None takes the eval value
+        self.proposals_per_roi_train = proposals_per_roi_train
+        self.rpn_pre_nms_per_roi_train = rpn_pre_nms_per_roi_train
+        self.rcnn_rois_per_instance = rcnn_rois_per_instance
         self.rpn = rpn3d.RPN3D(codec_cfg=rpn_codec, use_bn=rpn_use_bn, npoints=sa_npoints,
                                sa_min_c0=sa_min_c0)
         self.rcnn = rcnn3d.RCNNNet(rpn_channels=self.rpn.backbone.out_channels,
                                    sa_min_c0=sa_min_c0)
+        self.eval()  # train mode only on request (model.train())
 
     def forward(self, pts: torch.Tensor, roi_valid: torch.Tensor, angles: torch.Tensor,
-                pts_mean: torch.Tensor) -> Dict[str, torch.Tensor]:
+                pts_mean: torch.Tensor, gt_boxes3d: Optional[torch.Tensor] = None,
+                gt_ok: Optional[torch.Tensor] = None,
+                draws: Optional[rcnn3d.RCNNDraws] = None) -> Dict[str, torch.Tensor]:
         """pts (R, N, 3) canonical clouds, roi_valid (R,), angles (R,),
-        pts_mean (R, 3) -> box3d (R, 7), score3d (R,), random (R,)."""
+        pts_mean (R, 3) -> box3d (R, 7), score3d (R,), random (R,). In train
+        mode, with the matched GT gt_boxes3d (R, 7) rect frame, gt_ok (R,)
+        and the proposal target layer's draws -> loss_box3d."""
+        if self.training:
+            targets = self.rcnn_targets(pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok,
+                                        draws)
+            return {"loss_box3d": self.rcnn_train_loss(targets)}
         rpn_out = self.rpn(pts)
         rois_c, roi_scores, prop_valid = rpn3d.propose(
             rpn_out["cls"], rpn_out["reg"], rpn_out["xyz"], self.anchor, self.rpn_codec,
@@ -76,6 +98,42 @@ class PointRCNN(nn.Module):
             torch.cat(cls, 1), torch.cat(reg, 1), rois, prop_valid & ~torch.cat(empty, 1),
             roi_scores, self.anchor, score_thresh=self.rcnn_score_thresh)
         return {"box3d": box3d, "score3d": score3d, "random": is_random}
+
+    def rcnn_targets(self, pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok, draws):
+        """The frozen part of a train step, without gradients: the RPN in
+        eval (RPN.FIXED), the TRAIN proposal budgets, then the proposal target
+        layer. -> {pts_input (R * K, P, 5 + C), cls_label, reg_mask (R * K,),
+        gt_ct (R * K, 7)}."""
+        if self.rpn.training:
+            raise NotImplementedError("training the 3D RPN (stage 3) is not ported: keep "
+                                      "pointrcnn.rpn in eval (RPN.FIXED)")
+        if gt_boxes3d is None or gt_ok is None or draws is None:
+            raise ValueError("training needs gt_boxes3d, gt_ok and the RCNN draws")
+        with torch.no_grad():
+            rpn_out = self.rpn(pts)
+            rois_c, _, prop_valid = rpn3d.propose(
+                rpn_out["cls"], rpn_out["reg"], rpn_out["xyz"], self.anchor, self.rpn_codec,
+                pre_nms_top_n=min(self.rpn_pre_nms_per_roi_train or self.rpn_pre_nms_per_roi,
+                                  pts.shape[1]),
+                post_nms_top_n=self.proposals_per_roi_train or self.proposals_per_roi,
+                nms_thresh=self.rpn_nms_thresh)
+            rois = _decanon_rois(rois_c, angles, pts_mean)
+            xyz_rect = lift.decanonicalize(rpn_out["xyz"], angles, pts_mean)
+            seg_mask = (torch.sigmoid(rpn_out["cls"]) > self.rpn_score_thresh).to(pts.dtype)
+            pts_input, cls_label, reg_mask, gt_ct, _, _ = rcnn3d.prepare_rcnn_train_inputs(
+                rois, prop_valid & roi_valid[:, None], gt_boxes3d, gt_ok & roi_valid, xyz_rect,
+                rpn_out["features"], seg_mask, draws,
+                rois_per_instance=self.rcnn_rois_per_instance, num_points=self.rcnn_num_points)
+        n = cls_label.numel()
+        return {"pts_input": pts_input.reshape(n, self.rcnn_num_points, -1),
+                "cls_label": cls_label.reshape(n), "reg_mask": reg_mask.reshape(n),
+                "gt_ct": gt_ct.reshape(n, 7)}
+
+    def rcnn_train_loss(self, targets: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The RCNN on the targets' pooled inputs, with gradients, and its loss."""
+        cls_pred, reg_pred = self.rcnn(targets["pts_input"])
+        return rcnn3d.rcnn_loss(cls_pred, reg_pred, targets["cls_label"], targets["reg_mask"],
+                                targets["gt_ct"], self.anchor)
 
 
 def _roi_blocks(r: int, k: int, cap: int = ROI_BLOCK) -> int:

@@ -1,6 +1,6 @@
-"""PointNet++ set abstraction and feature propagation, eval only
-(counterpart of disprcnn_tpu/models/pointrcnn/pointnet2.py; reference
-pointnet2_modules.py and pytorch_utils.SharedMLP).
+"""PointNet++ set abstraction and feature propagation (counterpart of
+disprcnn_tpu/models/pointrcnn/pointnet2.py; reference pointnet2_modules.py
+and pytorch_utils.SharedMLP).
 
 Layout: points (B, N, 3), features (B, N, C). Module and parameter names
 are the Flax ones (``mlp{i}``, ``bn{i}``, ``mlp_scale{i}``, ``sa{k}``,
@@ -20,6 +20,11 @@ version on the CPU):
 The other scales (RPN SA0, below the gate and without features; the
 group-all scale) and FP level 0 (no skip features) run the XLA path's
 arithmetic in plain PyTorch, as the TPU runs them in XLA.
+
+Train mode is ported for the BN-free MLPs (the RCNN): a scale that takes
+the SA kernel in eval takes its train form (``sa_ball_mlp_max_train``:
+the kernel forward, the plain version's backward; pointnet2.py:209-219).
+Training an MLP with BN (the RPN, stage 3) raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import torch
 from torch import nn
 
 from ...ops.cuda.fp import fp_fused
-from ...ops.cuda.sa import sa_ball_mlp_max
+from ...ops.cuda.sa import sa_ball_mlp_max, sa_ball_mlp_max_train
 from ...ops.points import (ball_query, fps_or_identity, gather_points, group_points,
                            three_interpolate, three_nn, three_nn_interpolate_weights)
 
@@ -45,7 +50,8 @@ def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
 
 class SharedMLP(nn.Module):
     """Dense (+ eval BatchNorm) + ReLU layers over the last axis. ``mlp0``
-    takes ``in_channels`` inputs; with BN the dense layers have no bias."""
+    takes ``in_channels`` inputs; with BN the dense layers have no bias.
+    Built in eval mode, as the JAX modules default to train=False."""
 
     def __init__(self, channels: Sequence[int], in_channels: int, use_bn: bool = True):
         super().__init__()
@@ -57,6 +63,7 @@ class SharedMLP(nn.Module):
             if use_bn:
                 setattr(self, f"bn{i}", nn.BatchNorm1d(c, eps=BN_EPS))
             cin = c
+        self.eval()  # train mode only on request (model.train())
 
     def dense(self, i: int) -> nn.Linear:
         return getattr(self, f"mlp{i}")
@@ -68,7 +75,15 @@ class SharedMLP(nn.Module):
         return mul, bn.bias - bn.running_mean * mul
 
     def norm(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        return batch_norm_eval(getattr(self, f"bn{i}"), x) if self.use_bn else x
+        if not self.use_bn:
+            return x
+        self.check_trainable()
+        return batch_norm_eval(getattr(self, f"bn{i}"), x)
+
+    def check_trainable(self) -> None:
+        if self.training and self.use_bn:
+            raise NotImplementedError("training a PointNet++ MLP with BatchNorm (the 3D RPN, "
+                                      "stage 3) is not ported")
 
     def folded_chain(self, start: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """[(W (Ci, Co), b (Co,))] of layers start.., the eval BN folded in,
@@ -106,11 +121,12 @@ def ball_mlp_max(mlp: SharedMLP, xyz: torch.Tensor, features: Optional[torch.Ten
             v = v + b0
     if v is not None and mlp.channels[0] >= sa_min_c0:
         c0 = mlp.channels[0]
+        mlp.check_trainable()
         mul0, add0 = (mlp.bn_affine(0) if mlp.use_bn
                       else (torch.ones(c0, device=v.device), torch.zeros(c0, device=v.device)))
-        return sa_ball_mlp_max(xyz, new_xyz, v.contiguous(), w0[:, :3].t().contiguous(),
-                               mul0.contiguous(), add0.contiguous(), mlp.folded_chain(1),
-                               radius, nsample)
+        sa = sa_ball_mlp_max_train if mlp.training else sa_ball_mlp_max
+        return sa(xyz, new_xyz, v.contiguous(), w0[:, :3].t().contiguous(), mul0.contiguous(),
+                  add0.contiguous(), mlp.folded_chain(1), radius, nsample)
     idx = ball_query(new_xyz, xyz, radius, nsample)
     gx = group_points(xyz, idx) - new_xyz[:, :, None, :]
     w0x = w0[:, :3].t()

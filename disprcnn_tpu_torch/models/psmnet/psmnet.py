@@ -1,4 +1,4 @@
-"""PSMNet-style iDispNet, eval forward (counterpart of
+"""PSMNet-style iDispNet, eval and train forward (counterpart of
 disprcnn_tpu/models/psmnet/psmnet.py; reference
 modeling/psmnet/{stackhourglass.py, submodule.py}).
 
@@ -8,7 +8,9 @@ Canonical layouts: NCHW in the tower, NCDHW in the trunk. The JAX package's
 TPU layout forms (W-packing of the tower, depth-packing of the trunk) are
 layouts of these same convolutions and are not carried over.
 
-Module and attribute names keep the Flax names (``ConvBN_0``,
+Every module is built in eval mode, as the JAX modules default to
+train=False; ``model.train()`` turns train mode on. Module and attribute
+names keep the Flax names (``ConvBN_0``,
 ``BasicBlock_3``, ``dres2``, ``Conv_0``, ``BatchNorm_0`` ...) so the JAX
 variables map one to one (utils/weights.py). Batch norms are plain eval
 ``nn.BatchNorm{2,3}d`` with eps 1e-5.
@@ -26,19 +28,61 @@ its BN, residual and ReLU fused:
 The tower's other convs (the stride-2 stem and downsampling, the 1x1
 downsample and SPP convs, the 128-channel and dilated layers, lastconv)
 are cuDNN calls, as the JAX package leaves them to XLA on the TPU.
+
+Train mode (``self.training``, psmnet.py:529-579, :691-709, :962-1020):
+every BatchNorm normalizes with the batch statistics as Flax does
+(``batch_norm_train``); every stride-1 3x3x3 trunk conv (dres0_1,
+dres1_*, each hourglass's ConvBN_1 and ConvBN_3, classif*_0) is the raw
+conv of the train kernel (``conv3d_train``, differentiable), its BN,
+residual and ReLU outside; the cost volume with its first conv, the
+tower, the stride-2 and transposed convs, the one-channel classifiers
+and the soft-argmin are plain differentiable PyTorch, as they are XLA in
+the JAX package's training. ``forward`` then returns the deep-supervision
+tuple (one disparity per hourglass).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.cuda.conv3d import CHANNELS, conv2d_bn, conv3d_bn, cost_volume_conv_bn, deconv3d_bn
-from ...ops.cuda.softargmin import interp_matrix_align_corners, softargmin
+from ...ops.cost_volume import build_cost_volume
+from ...ops.cuda.conv3d import (CHANNELS, conv2d_bn, conv3d_bn, conv3d_train,
+                                cost_volume_conv_bn, deconv3d_bn)
+from ...ops.cuda.softargmin import interp_matrix_align_corners, softargmin, softargmin_plain
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
+
+
+def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """Train-mode BN over every axis but the channel axis 1, as Flax's
+    BatchNorm computes it: the biased variance E[x^2] - E[x]^2 (clipped at
+    0) normalizes, and the running statistics take momentum 0.9 with that
+    same biased variance (nn.BatchNorm's own train mode would store the
+    unbiased one)."""
+    dims = [d for d in range(x.dim()) if d != 1]
+    mean = x.mean(dims)
+    var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean.detach(), alpha=1 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var.detach(), alpha=1 - BN_MOMENTUM)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+
+
+def norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """Batch statistics in train mode, running statistics in eval."""
+    return batch_norm_train(bn, x) if bn.training else bn(x)
+
+
+def _finish(y, relu: bool, residual):
+    if residual is not None:
+        y = y + residual
+    return torch.relu(y) if relu else y
 
 
 def fold_bn(bn: nn.modules.batchnorm._BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,14 +104,12 @@ class ConvBN(nn.Module):
                                 dilation, bias=False)
         self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=BN_EPS)
         self.fused = kernel == 3 and stride == 1 and dilation == 1 and cout in CHANNELS
+        self.eval()
 
     def forward(self, x, relu: bool = False, residual=None):
-        if self.fused:
+        if self.fused and not self.training:
             return conv2d_bn(x, self.Conv_0.weight, *fold_bn(self.BatchNorm_0), residual, relu)
-        y = self.BatchNorm_0(self.Conv_0(x))
-        if residual is not None:
-            y = y + residual
-        return torch.relu(y) if relu else y
+        return _finish(norm(self.BatchNorm_0, self.Conv_0(x)), relu, residual)
 
 
 class BasicBlock(nn.Module):
@@ -83,18 +125,19 @@ class BasicBlock(nn.Module):
             self.Conv_0 = nn.Conv2d(cin, planes, 1, stride, bias=False)
             self.BatchNorm_0 = nn.BatchNorm2d(planes, eps=BN_EPS)
         self.downsample = downsample
+        self.eval()
 
     def forward(self, x):
         out = self.ConvBN_0(x, relu=True)
-        sc = self.BatchNorm_0(self.Conv_0(x)) if self.downsample else x
+        sc = norm(self.BatchNorm_0, self.Conv_0(x)) if self.downsample else x
         return self.ConvBN_1(out, residual=sc)
 
 
 def bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """(B, C, h, w) -> (B, C, H, W), align_corners=True, by the same matrix
     contractions as the JAX package."""
-    mh = interp_matrix_align_corners(x.shape[2], out_hw[0], x.device)
-    mw = interp_matrix_align_corners(x.shape[3], out_hw[1], x.device)
+    mh = interp_matrix_align_corners(x.shape[2], out_hw[0], x.device, x.dtype)
+    mw = interp_matrix_align_corners(x.shape[3], out_hw[1], x.device, x.dtype)
     x = torch.einsum("bchw,eh->bcew", x, mh)
     return torch.einsum("bchw,ew->bche", x, mw)
 
@@ -154,21 +197,32 @@ class FeatureExtraction(nn.Module):
 
 class ConvBN3d(nn.Module):
     """3x3x3 conv (no bias, padding 1, stride 1 or 2) + eval BN
-    (+ residual, + ReLU): one call of the conv3d kernel."""
+    (+ residual, + ReLU): one call of the conv3d kernel. In train mode the
+    conv is conv3d_train (stride 1) or a cuDNN conv (stride 2, the cost
+    volume), then batch-stat BN, residual and ReLU."""
 
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
         self.Conv_0 = nn.Conv3d(cin, cout, 3, stride, 1, bias=False)
         self.BatchNorm_0 = nn.BatchNorm3d(cout, eps=BN_EPS)
         self.stride = stride
+        self.eval()
 
     def forward(self, x, relu: bool = False, residual=None):
+        w = self.Conv_0.weight
+        if self.training:
+            y = conv3d_train(x, w) if self.stride == 1 else F.conv3d(x, w, stride=2, padding=1)
+            return _finish(batch_norm_train(self.BatchNorm_0, y), relu, residual)
         mul, add = fold_bn(self.BatchNorm_0)
-        return conv3d_bn(x, self.Conv_0.weight, mul, add, residual, relu, self.stride)
+        return conv3d_bn(x, w, mul, add, residual, relu, self.stride)
 
     def cost_volume(self, left, right, mindisp4: int, maxdisp4: int, relu: bool = True):
         """This conv over the concat cost volume of (N, C, H, W) features,
-        the volume built inside the kernel."""
+        the volume built inside the kernel (in train mode, stored)."""
+        if self.training:
+            y = F.conv3d(build_cost_volume(left, right, mindisp4, maxdisp4),
+                         self.Conv_0.weight, padding=1)
+            return _finish(batch_norm_train(self.BatchNorm_0, y), relu, None)
         mul, add = fold_bn(self.BatchNorm_0)
         return cost_volume_conv_bn(left, right, self.Conv_0.weight, mul, add, mindisp4,
                                    maxdisp4, relu)
@@ -196,21 +250,30 @@ class Hourglass(nn.Module):
         self.BatchNorm_0 = nn.BatchNorm3d(p2, eps=BN_EPS)
         self.ConvTranspose_1 = _deconv(p2, planes)
         self.BatchNorm_1 = nn.BatchNorm3d(planes, eps=BN_EPS)
+        self.eval()
 
     def forward(self, x, presqu, postsqu, final_residual):
         out = self.ConvBN_0(x, relu=True)  # 1/2
         pre = self.ConvBN_1(out, relu=True, residual=postsqu)
         out = self.ConvBN_2(pre, relu=True)  # 1/4
         out = self.ConvBN_3(out, relu=True)
+        skip = presqu if presqu is not None else pre
+        if self.training:
+            post = _finish(norm(self.BatchNorm_0, self.ConvTranspose_0(out)), True, skip)
+            up2 = _finish(norm(self.BatchNorm_1, self.ConvTranspose_1(post)), False,
+                          final_residual)
+            return up2, pre, post
         post = deconv3d_bn(out, self.ConvTranspose_0.weight, *fold_bn(self.BatchNorm_0),
-                           presqu if presqu is not None else pre, relu=True)  # 1/2
+                           skip, relu=True)  # 1/2
         up2 = deconv3d_bn(post, self.ConvTranspose_1.weight, *fold_bn(self.BatchNorm_1),
                           final_residual)
         return up2, pre, post
 
 
 class PSMNet(nn.Module):
-    """Full iDispNet, eval: forward(left, right) -> (B, H, W) disparity."""
+    """Full iDispNet: forward(left, right) -> (B, H, W) disparity in eval,
+    the tuple of num_hourglass disparities (deep supervision, the last
+    one the prediction) in train mode."""
 
     def __init__(self, maxdisp: int = 48, mindisp: int = -48, num_hourglass: int = 3):
         super().__init__()
@@ -227,8 +290,9 @@ class PSMNet(nn.Module):
             self.add_module(f"classif{i + 1}_1", nn.Conv3d(32, 1, 3, 1, 1, bias=False))
         self.eval()
 
-    def forward(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-        """left, right (B, 3, H, W) normalized crops -> (B, H, W)."""
+    def forward(self, left: torch.Tensor, right: torch.Tensor):
+        """left, right (B, 3, H, W) normalized crops -> (B, H, W), or in
+        train mode a tuple of them."""
         b, _, h, w = left.shape
         both = self.feature_extraction(torch.cat([left, right], dim=0))
         lf, rf = both[:b].contiguous(), both[b:].contiguous()
@@ -251,9 +315,13 @@ class PSMNet(nn.Module):
             posts.append(post)
             inp = o
 
-        cost: Optional[torch.Tensor] = None
+        costs = []
         for i, o in enumerate(outs):
             z = getattr(self, f"classif{i + 1}_0")(o, relu=True)
-            c = conv3d_bn(z, getattr(self, f"classif{i + 1}_1").weight)
-            cost = c if cost is None else c + cost
-        return softargmin(cost[:, 0], (h, w), self.mindisp, self.maxdisp)
+            wc = getattr(self, f"classif{i + 1}_1").weight
+            c = F.conv3d(z, wc, padding=1) if self.training else conv3d_bn(z, wc)
+            costs.append(c if i == 0 else c + costs[-1])
+        if self.training:
+            return tuple(softargmin_plain(c[:, 0], (h, w), self.mindisp, self.maxdisp)
+                         for c in costs)
+        return softargmin(costs[-1][:, 0], (h, w), self.mindisp, self.maxdisp)

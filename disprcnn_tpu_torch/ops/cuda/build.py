@@ -8,7 +8,8 @@ seconds, not the minutes of ``torch.utils.cpp_extension.load``.
 
 ``build(*names)`` compiles the missing libraries, one nvcc process per
 source, all started together; ``load(name)`` builds if needed and returns
-the loaded library.
+the loaded library. ``forward_only`` guards the wrappers whose outputs
+ctypes writes: such an output has no ``grad_fn``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -95,3 +98,14 @@ def load(name: str) -> ctypes.CDLL:
         build(name)
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def forward_only(what: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through `what`'s output: a
+    kernel launched through ctypes records nothing for the backward pass,
+    so a gradient would silently stop there. The train path calls the
+    kernels through torch.autograd.Function wrappers (conv3d_train,
+    sa_ball_mlp_max_train), whose forward runs with grad mode off."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward: run it under torch.no_grad() or "
+                           f"through its train form")

@@ -21,7 +21,16 @@ tensor launches the kernel (csrc/conv3d.cu). There is no fallback: a
 kernel that fails to build or launch raises. The launch points are
 ``conv3d_bn_cuda``, ``cost_volume_conv_bn_cuda``, ``deconv3d_bn_cuda`` and
 ``conv2d_bn_cuda``, looked up at call time, so a caller can route them
-elsewhere.
+elsewhere. These launches are forward only (``build.forward_only``).
+
+The train form of the stride-1 conv, ``conv3d_train`` (counterpart of
+``packed_conv_train``, packed_conv.py:689, a ``jax.custom_vjp``), is a
+``torch.autograd.Function``: its forward is the raw conv (identity
+epilogue, no residual, no ReLU: the train path's batch-stat BN stays
+outside) and its input gradient is the same kernel again, run on the
+output gradient with the flipped, channel-transposed weights; the weight
+gradient is PyTorch's (the JAX package takes both from XLA). Its launch
+points are ``conv3d_train_cuda`` and ``conv3d_train_dx_cuda``.
 """
 from __future__ import annotations
 
@@ -37,8 +46,9 @@ from . import build
 # Launches of each kernel in this process; a caller may reset them to 0
 # around a run it wants to count. "conv3d_cl1" is the Co = 1 instantiation
 # of the stride-1 conv, "conv3d_s2" its stride-2 form.
+# "conv3d_train" counts the train form's forward and input-gradient launches.
 launches = {"cost_volume_conv": 0, "conv3d": 0, "conv3d_cl1": 0, "conv3d_s2": 0,
-            "deconv3d": 0, "conv2d": 0}
+            "deconv3d": 0, "conv2d": 0, "conv3d_train": 0}
 
 # output channel counts the kernels are instantiated for; Co = 1 only for
 # the stride-1 3D conv
@@ -153,6 +163,15 @@ def conv3d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: Optional[torch.Te
                    relu: bool = False, stride: int = 1) -> torch.Tensor:
     """Launch csrc/conv3d.cu on the current stream; same contract as
     conv3d_bn_plain."""
+    build.forward_only("conv3d_bn_cuda", x, weight, mul, add, residual)
+    out = _conv3d_launch(x, weight, mul, add, residual, relu, stride)
+    launches["conv3d_s2" if stride == 2 else "conv3d_cl1" if weight.shape[0] == 1
+             else "conv3d"] += 1
+    return out
+
+
+def _conv3d_launch(x, weight, mul=None, add=None, residual=None, relu=False, stride=1):
+    """One launch of the conv3d kernel, not counted."""
     _check_input("x", x, 5)
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
@@ -168,7 +187,6 @@ def conv3d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: Optional[torch.Te
                              mul.data_ptr(), add.data_ptr(), res, int(relu), out.data_ptr(),
                              _stream(x), x.device.index)
     _raise_on(lib, err, "conv3d_bn_cuda")
-    launches["conv3d_s2" if stride == 2 else "conv3d_cl1" if co == 1 else "conv3d"] += 1
     return out
 
 
@@ -177,6 +195,7 @@ def cost_volume_conv_bn_cuda(left: torch.Tensor, right: torch.Tensor, weight: to
                              maxdisp4: int, relu: bool = True) -> torch.Tensor:
     """Launch csrc/conv3d.cu's cost-volume form on the current stream; same
     contract as cost_volume_conv_bn_plain."""
+    build.forward_only("cost_volume_conv_bn_cuda", left, right, weight, mul, add)
     _check_input("left", left, 4)
     n, c, h, w = left.shape
     d = maxdisp4 - mindisp4
@@ -202,6 +221,7 @@ def deconv3d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
                      relu: bool = False) -> torch.Tensor:
     """Launch csrc/conv3d.cu's transposed conv on the current stream; same
     contract as deconv3d_bn_plain."""
+    build.forward_only("deconv3d_bn_cuda", x, weight, mul, add, residual)
     _check_input("x", x, 5)
     n, ci, d, h, w = x.shape
     co = weight.shape[1]
@@ -223,6 +243,7 @@ def conv2d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
                    relu: bool = False) -> torch.Tensor:
     """Launch csrc/conv3d.cu's 2D conv on the current stream; same contract
     as conv2d_bn_plain."""
+    build.forward_only("conv2d_bn_cuda", x, weight, mul, add, residual)
     _check_input("x", x, 4)
     n, ci, h, w = x.shape
     co = weight.shape[0]
@@ -266,3 +287,63 @@ def conv2d_bn(x, weight, mul, add, residual=None, relu=False) -> torch.Tensor:
     if x.is_cuda:
         return conv2d_bn_cuda(x, weight, mul, add, residual, relu)
     return conv2d_bn_plain(x, weight, mul, add, residual, relu)
+
+
+def flip_transpose(weight: torch.Tensor) -> torch.Tensor:
+    """(Co, Ci, 3, 3, 3) -> (Ci, Co, 3, 3, 3) flipped in every spatial dim:
+    for stride 1 and padding 1, the input gradient of conv(x, weight) is
+    conv(dy, flip_transpose(weight))."""
+    return weight.flip((2, 3, 4)).transpose(0, 1).contiguous()
+
+
+def conv3d_train_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The raw stride-1 pad-1 3x3x3 conv, differentiable by autograd: the
+    train form's plain version."""
+    return F.conv3d(x, weight, padding=1)
+
+
+def conv3d_train_dx_plain(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The input gradient of conv3d_train_plain(x, weight) for output
+    gradient dy, computed as the kernel computes it."""
+    return F.conv3d(dy, flip_transpose(weight), padding=1)
+
+
+def conv3d_train_cuda(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The train form's forward: csrc/conv3d.cu with the identity epilogue."""
+    out = _conv3d_launch(x, weight)
+    launches["conv3d_train"] += 1
+    return out
+
+
+def conv3d_train_dx_cuda(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The train form's input gradient: csrc/conv3d.cu on dy with the
+    flipped, channel-transposed weights (Ci = Co in every trunk site)."""
+    out = _conv3d_launch(dy.contiguous(), flip_transpose(weight))
+    launches["conv3d_train"] += 1
+    return out
+
+
+class _Conv3dTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        return conv3d_train_cuda(x, weight)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx = conv3d_train_dx_cuda(dy, weight) if ctx.needs_input_grad[0] else None
+        dk = None
+        if ctx.needs_input_grad[1]:
+            dk = torch.nn.grad.conv3d_weight(x, weight.shape, dy, padding=1)
+        return dx, dk
+
+
+def conv3d_train(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """x (N, Ci, D, H, W), weight (Co, Ci, 3, 3, 3) -> the raw conv (N, Co,
+    D, H, W), differentiable in x and weight. CUDA tensors take the kernel
+    forward and backward (Co and Ci in CHANNELS), CPU tensors the plain
+    version."""
+    if x.is_cuda:
+        return _Conv3dTrain.apply(x, weight)
+    return conv3d_train_plain(x, weight)

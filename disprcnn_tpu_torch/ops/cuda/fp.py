@@ -58,6 +58,8 @@ def fp_fused_cuda(unknown: torch.Tensor, known: torch.Tensor, known_feats: torch
     """Launch csrc/fp.cu on the current stream; same contract as
     fp_fused_plain. Every tensor float32, contiguous, on one card."""
     global launches
+    build.forward_only("fp_fused_cuda", known_feats, unknown_feats,
+                       *(t for pair in weights for t in pair))
     if not unknown.is_cuda:
         raise ValueError(f"unknown must be on a CUDA device, got {unknown.device}")
     dev = unknown.device

@@ -48,6 +48,7 @@ def roipool3d_cuda(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor
     """Launch csrc/roipool3d.cu on the current stream; same contract as
     roipool3d_plain. Every tensor float32, contiguous, on one card."""
     global launches
+    build.forward_only("roipool3d_cuda", pts, feats)
     if not pts.is_cuda:
         raise ValueError(f"pts must be on a CUDA device, got {pts.device}")
     dev = pts.device

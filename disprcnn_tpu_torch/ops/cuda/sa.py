@@ -16,6 +16,16 @@ folded chain x = relu(x W + b) per layer, and the max over the ball.
 ``sa_ball_mlp_max`` dispatches: a CPU tensor takes the plain version; a
 CUDA tensor launches the kernel (csrc/sa.cu), whose one launch point is
 ``sa_ball_mlp_max_cuda``, looked up at call time. There is no fallback.
+That launch is forward only (``build.forward_only``).
+
+The train form ``sa_ball_mlp_max_train`` (counterpart of sa_fused.py:1073,
+a ``jax.custom_vjp``) is a ``torch.autograd.Function``: the kernel as its
+forward, and as its backward autograd of the plain version recomputed
+(JAX's backward is ``jax.vjp`` of ``_sa_xla_oracle``, which recomputes
+too). Its launch point is ``sa_ball_mlp_max_train_cuda``. The JAX package
+takes its kernel in training only for bf16 models, because that kernel
+rounds to bf16 inside; this kernel computes in float32, so the port takes
+it for the float32 model.
 """
 from __future__ import annotations
 
@@ -27,9 +37,11 @@ import torch
 from ..points import ball_query, group_points
 from . import build
 
-# Launches of the CUDA kernel in this process; a caller may reset it to 0
-# around a run it wants to count.
+# Launches of the CUDA kernel in this process, by the eval wrapper and by
+# the train form's forward; a caller may reset them to 0 around a run it
+# wants to count.
 launches = 0
+train_launches = 0
 
 MAX_LAYERS = 4
 # the kernel's row tiles hold whole balls: S must divide 16, 32 or 64
@@ -91,6 +103,15 @@ def sa_ball_mlp_max_cuda(xyz: torch.Tensor, centers: torch.Tensor, v: torch.Tens
     """Launch csrc/sa.cu on the current stream; same contract as
     sa_ball_mlp_max_plain. Every tensor float32, contiguous, on one card."""
     global launches
+    build.forward_only("sa_ball_mlp_max_cuda", xyz, centers, v, w0x, mul0, add0,
+                       *(t for pair in weights for t in pair))
+    out = _sa_launch(xyz, centers, v, w0x, mul0, add0, weights, radius, s)
+    launches += 1
+    return out
+
+
+def _sa_launch(xyz, centers, v, w0x, mul0, add0, weights, radius, s):
+    """One launch of the SA kernel, not counted."""
     if not xyz.is_cuda:
         raise ValueError(f"xyz must be on a CUDA device, got {xyz.device}")
     dev = xyz.device
@@ -123,7 +144,6 @@ def sa_ball_mlp_max_cuda(xyz: torch.Tensor, centers: torch.Tensor, v: torch.Tens
                       torch.cuda.current_stream(dev).cuda_stream, dev.index)
     if err != 0:
         raise RuntimeError(f"sa_cuda launch failed: {lib.sa_error_string(err).decode()}")
-    launches += 1
     return out
 
 
@@ -133,4 +153,47 @@ def sa_ball_mlp_max(xyz: torch.Tensor, centers: torch.Tensor, v: torch.Tensor,
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     if xyz.is_cuda:
         return sa_ball_mlp_max_cuda(xyz, centers, v, w0x, mul0, add0, weights, radius, s)
+    return sa_ball_mlp_max_plain(xyz, centers, v, w0x, mul0, add0, weights, radius, s)
+
+
+def sa_ball_mlp_max_train_cuda(xyz, centers, v, w0x, mul0, add0, weights, radius, s):
+    """The train form's forward: the SA kernel."""
+    global train_launches
+    out = _sa_launch(xyz, centers, v, w0x, mul0, add0, weights, radius, s)
+    train_launches += 1
+    return out
+
+
+class _SATrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, radius, s, xyz, centers, v, w0x, mul0, add0, *flat):
+        ctx.radius, ctx.s = radius, s
+        ctx.save_for_backward(xyz, centers, v, w0x, mul0, add0, *flat)
+        weights = list(zip(flat[0::2], flat[1::2]))
+        return sa_ball_mlp_max_train_cuda(xyz, centers, v, w0x, mul0, add0, weights, radius, s)
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            xyz, centers, v, w0x, mul0, add0, *flat = leaves
+            out = sa_ball_mlp_max_plain(xyz, centers, v, w0x, mul0, add0,
+                                        list(zip(flat[0::2], flat[1::2])), ctx.radius, ctx.s)
+            wanted = [t for t, n in zip(leaves, need) if n]
+            got = iter(torch.autograd.grad(out, wanted, dout, allow_unused=True))
+        return (None, None, *(next(got) if n else None for n in need))
+
+
+def sa_ball_mlp_max_train(xyz: torch.Tensor, centers: torch.Tensor, v: torch.Tensor,
+                          w0x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor,
+                          weights: Weights, radius: float, s: int) -> torch.Tensor:
+    """sa_ball_mlp_max, differentiable in every tensor argument (v, w0x,
+    mul0, add0 and each (W, b) for the train step; xyz and centers through
+    the neighbour offsets). CUDA tensors take the kernel forward and the
+    plain version's autograd backward, CPU tensors the plain version."""
+    if xyz.is_cuda:
+        flat = [t for pair in weights for t in pair]
+        return _SATrain.apply(float(radius), int(s), xyz, centers, v, w0x, mul0, add0, *flat)
     return sa_ball_mlp_max_plain(xyz, centers, v, w0x, mul0, add0, weights, radius, s)

@@ -83,6 +83,7 @@ def softargmin_cuda(logits: torch.Tensor, out_hw: Tuple[int, int], mindisp: int,
     """Launch csrc/softargmin.cu on the current stream; same contract as
     softargmin_plain."""
     global launches
+    build.forward_only("softargmin_cuda", logits)
     if logits.dim() != 4 or logits.dtype != torch.float32 or not logits.is_cuda:
         raise ValueError(f"logits must be (B, D4, h4, w4) float32 on CUDA, got "
                          f"{tuple(logits.shape)} {logits.dtype} on {logits.device}")

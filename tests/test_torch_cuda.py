@@ -340,3 +340,59 @@ def test_point_kernels_refuse_bad_inputs(card):
                                  [(torch.zeros(32, 8, device=card), vec[:8])], 1.0, 16)
     with pytest.raises(ValueError, match="CUDA"):
         croi.roipool3d_cuda(xyz.cpu(), xyz.cpu(), torch.zeros(2, 1, 7), 8)
+
+
+def _grads(out, leaves, dy):
+    """(out, d out / d leaf for each leaf) under output gradient dy."""
+    return [out.detach()] + list(torch.autograd.grad(out, leaves, dy))
+
+
+@pytest.mark.parametrize("c,d,hw", [(32, 24, 56), (64, 12, 28), (64, 6, 14), (32, 5, 13)])
+def test_conv3d_train_kernel_matches_autograd(card, c, d, hw):
+    """Row 8's train form at the trunk sites (one crop each) and a ragged
+    one: the raw conv, dx through the kernel and dk, against autograd of
+    F.conv3d; two kernel launches (forward and dx)."""
+    gen = torch.Generator(device="cuda").manual_seed(c + d)
+    x = _randn(gen, 2, c, d, hw, hw).requires_grad_(True)
+    w = _randn(gen, c, c, 3, 3, 3, scale=0.05).requires_grad_(True)
+    dy = _randn(gen, 2, c, d, hw, hw)
+    before = cconv.launches["conv3d_train"]
+    got = _grads(cconv.conv3d_train(x, w), (x, w), dy)
+    assert cconv.launches["conv3d_train"] == before + 2
+    want = _grads(cconv.conv3d_train_plain(x, w), (x, w), dy)
+    for g, ww in zip(got, want):
+        _close(g, ww)
+
+
+@pytest.mark.parametrize("b,n,m,c0,chain,radius,s", [
+    (8, 512, 128, 128, (128, 128), 0.2, 64),  # RCNN SA0
+    (8, 128, 32, 128, (128, 256), 0.4, 64),   # RCNN SA1
+    (3, 90, 21, 64, (80, 70, 40), 0.8, 32),
+])
+def test_sa_train_kernel_matches_autograd(card, b, n, m, c0, chain, radius, s):
+    """Row 11's train form: the kernel forward and every input and weight
+    gradient against autograd of the plain version; one launch."""
+    gen = torch.Generator(device="cuda").manual_seed(b + n + m)
+    xyz, centers, v, w0x, mul0, add0, ws = _sa_args(gen, b, n, m, c0, chain)
+    leaves = [t.requires_grad_(True) for t in (v, w0x, mul0, add0)]
+    flat = [t.requires_grad_(True) for pair in ws for t in pair]
+    dy = _randn(gen, b, m, chain[-1])
+    before = csa.train_launches
+    got = _grads(csa.sa_ball_mlp_max_train(xyz, centers, *leaves, ws, radius, s),
+                 leaves + flat, dy)
+    assert csa.train_launches == before + 1
+    want = _grads(csa.sa_ball_mlp_max_plain(xyz, centers, *leaves, ws, radius, s),
+                  leaves + flat, dy)
+    for g, ww in zip(got, want):
+        _close(g, ww)
+
+
+def test_forward_only_kernels_refuse_gradients(card):
+    """An eval launch whose output autograd would need raises instead of
+    silently cutting the gradient."""
+    x = torch.zeros(1, 32, 4, 8, 8, device=card)
+    w = torch.zeros(32, 32, 3, 3, 3, device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cconv.conv3d_bn(x, w)
+    with torch.no_grad():
+        cconv.conv3d_bn(x, w)

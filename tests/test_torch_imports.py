@@ -26,10 +26,11 @@ print("COUNT", sum(m.startswith("disprcnn_tpu_torch.") for m in sys.modules))
 print("LOADED", " ".join(sorted(m for m in sys.modules if m.startswith("disprcnn_tpu_torch."))))
 """
 
-# modules of the iDispNet and PointRCNN slices, which chip_smoke.py drives
-# on the card
+# modules of the iDispNet and PointRCNN slices and of their train steps,
+# which chip_smoke.py drives on the card
 SLICE_MODULES = (
     "disprcnn_tpu_torch.engine.inference",
+    "disprcnn_tpu_torch.engine.trainer",
     "disprcnn_tpu_torch.models.detector.disprcnn3d",
     "disprcnn_tpu_torch.models.pointrcnn.bbox3d_codec",
     "disprcnn_tpu_torch.models.pointrcnn.lift",
@@ -45,8 +46,12 @@ SLICE_MODULES = (
     "disprcnn_tpu_torch.ops.cuda.roipool3d",
     "disprcnn_tpu_torch.ops.cuda.sa",
     "disprcnn_tpu_torch.ops.cuda.softargmin",
+    "disprcnn_tpu_torch.ops.iou",
+    "disprcnn_tpu_torch.ops.losses",
     "disprcnn_tpu_torch.ops.points",
     "disprcnn_tpu_torch.ops.roipool3d",
+    "disprcnn_tpu_torch.solver.build",
+    "disprcnn_tpu_torch.solver.schedules",
     "disprcnn_tpu_torch.structures.boxes3d",
 )
 
