@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Phases, each ending in torch.cuda.synchronize() and one progress line:
-  1. build every CUDA kernel of the path (csrc/nms.cu, conv3d.cu,
-     softargmin.cu, fps.cu, sa.cu, fp.cu, roipool3d.cu), one nvcc per
-     source, all at once, into disprcnn_tpu_torch/csrc/build/ (listed in
-     .gitignore);
+  1. build every CUDA kernel of the port (build.SOURCES: csrc/nms.cu,
+     conv3d.cu, softargmin.cu, fps.cu, sa.cu, grouped_mlp.cu, fp.cu,
+     roipool3d.cu), one nvcc per source, all at once, into
+     disprcnn_tpu_torch/csrc/build/ (listed in .gitignore);
   2. the greedy-NMS kernel against its plain PyTorch version at the SRPN
      call (8, 6000) k=300 IoU 0.7 and the box head's (8, 300) k=16 IoU 0.5,
      on random, clustered, duplicate, tied-score, all-invalid-row and
@@ -24,66 +24,88 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      full balls, coincident points, and boxes with no point, fewer than 512
      and more than 512: FPS indices and RoI-pool rows exactly, SA and FP
      values within CONV_RTOL/CONV_ATOL;
-  5. the main path: predict answers 2 requests of 8 stereo pairs at
+  5. row 12, the grouped MLP + max, against its plain version at the 8
+     site shapes of the SA-off route at the headline budget (RPN SA1-SA3,
+     two scales each, and RCNN SA0 and SA1, whole: G groups of S rows) and
+     at edge cases (all pre-activations negative, S = 1, S that does not
+     divide the row tile, a last partial tile, widths that are not
+     multiples of 4), seeded inputs with non-trivial BN affines, within
+     CONV_RTOL/CONV_ATOL;
+  6. the main path: predict answers 2 requests of 8 stereo pairs at
      384x1248 at the headline 3D budget and 1 at the reference budget (R-101
      2D detector, iDispNet over 16 ROIs of 224^2 per pair, disparity
      -48..48, the lift to 768 points per ROI, PointRCNN's RPN, proposals,
      RoI-pool 3D and RCNN; random weights and sampling priorities from
      seeded torch.Generators), timed with CUDA events, with every kernel's
      launches counted from 0 over exactly these requests;
-  6. the same requests with every kernel's launch point routed to its
+  7. the same requests with every kernel's launch point routed to its
      plain version on the card: detections and masks equal, disparity
      within DISP_TOL_PX; the 3D stage then runs on the kernel path's
      disparity (so that both runs lift the same clouds): roi_ok and random
      equal, box3d and score3d within BOX3D_TOL on at least BOX3D_AGREE of
      the instances;
-  7. small references: the R-50 2D test configuration at 64x128, a small
+  8. small references: the R-50 2D test configuration at 64x128, a small
      DispRCNN3D (2 ROIs of 64^2, disparity -16..16), and the same with
      det3d_on (clouds of 128 points), on the CPU (plain versions) and on
      the card (kernels), to stated tolerances;
-  8. each kernel timed on the inputs the main path gave it in one headline
+  9. each kernel timed on the inputs the main path gave it in one headline
      request, beside its plain version, the one PyTorch call that computes
      the same function where there is one (cuDNN free to pick
      non-deterministic algorithms), and the bound of the work the function
      needs (products with padding or with the cost volume's empty columns,
      and neighbour slots that repeat a ball's first point, are not counted);
-  9. where a request's time goes, at both budgets: one request split into
+ 10. where a request's time goes, at both budgets: one request split into
      stages (2D detector, crops, feature tower, cost volume + dres,
      hourglasses, classifiers + regression, lift, RPN backbone, RPN heads,
      propose + NMS, RoI-pool 3D, RCNN, postprocess) by CUDA events that
      forward hooks and wrappers record; the headline request is also timed
      with cuDNN free to pick non-deterministic algorithms; pairs per second
      at both budgets.
- 10. row 8, the stride-1 conv's train form (conv3d_train), at each trunk
+ 11. the SA-off route (kernels_off={"sa"}, the route the JAX package takes
+     with DISPRCNN_PALLAS_DISABLE=sa): one headline request with the
+     launches counted from 0 (row 12 launched, row 10 not), its 3D stage
+     on the clouds of the default route's run of the same request held to
+     that run as phase 7 holds the plain path; its time, the RPN backbone
+     and RCNN stages beside the default route's, and its peak memory; then
+     row 12 timed on the inputs that request gave it (every row of the
+     grouped tensor counted in its bound: it cannot tell repeated ball
+     slots apart);
+ 12. the bench (disprcnn_tpu_torch/bench.py): its canary (every kernel row
+     at tiny shapes against its plain version), then time_pipeline at the
+     headline budget on the models of phase 6, 3 requests after a warm-up:
+     pairs/s and the spread;
+ 13. row 8, the stride-1 conv's train form (conv3d_train), at each trunk
      site of the iDispNet train step (24 crops: 56^2 32 -> 32, 28^2 and
      14^2 64 -> 64): the kernel's raw conv, dx through the kernel and dk
      against F.conv3d and its autograd;
- 11. row 11, the SA train form (sa_ball_mlp_max_train), at the RCNN's SA0
+ 14. row 11, the SA train form (sa_ball_mlp_max_train), at the RCNN's SA0
      and SA1 of the RCNN train step (256 ROIs): the kernel forward and
      every input and weight gradient against autograd of the plain
      version;
- 12. the iDispNet train step (configs/kitti/car/vob/idispnet.yaml): 2
-     pairs of 384x1248 with 16 offline detections each, ROI_MIN_SCORE 0.5
-     and MAX_ROI_FOR_TRAINING 12 (24 crops of 224^2), disparity -48..48, 3
-     hourglasses, deep supervision, SGD with OneCycle; 1 warm-up and
-     TRAIN_STEPS timed steps with the kernels' launches counted from 0:
-     finite losses, no skipped step, a finite gradient on every trainable
-     parameter, moved BN statistics; then one step from the same weights
-     on the kernels and on the plain versions (all_plain): the loss within
-     1e-4 relative, each gradient tensor within 1e-3 * max |plain|;
- 13. the RCNN train step (configs/kitti/car/vob/rcnn.yaml): 1 pair, 16
-     detections lifted to 768 points, iDispNet and the RPN frozen (eval,
-     no gradients), TRAIN proposals 768 -> 512, 16 RCNN ROIs per instance
-     (256 x 512 pooled points), AUG_DATA with 10 noise trials, grad clip
-     10; the same checks, the kernel and plain steps sharing one
-     frozen-stage output;
- 14. each train form timed on the inputs one step gave it (row 8 forward
+ 15. the iDispNet train step (configs/kitti/car/vob/idispnet.yaml, built by
+     disprcnn_tpu_torch/tools/bench_train.py): 2 pairs of 384x1248 with 16
+     offline detections each, ROI_MIN_SCORE 0.5 and MAX_ROI_FOR_TRAINING 12
+     (24 crops of 224^2), disparity -48..48, 3 hourglasses, deep
+     supervision, SGD with OneCycle; 1 warm-up and TRAIN_STEPS timed steps
+     with the kernels' launches counted from 0: finite losses, no skipped
+     step, a finite gradient on every trainable parameter, moved BN
+     statistics; then one step from the same weights on the kernels and on
+     the plain versions (all_plain): the loss within 1e-4 relative, each
+     gradient tensor within 1e-3 * max |plain|;
+ 16. the RCNN train step (configs/kitti/car/vob/rcnn.yaml, tools/
+     bench_train.py): 1 pair, 16 detections lifted to 768 points, iDispNet
+     and the RPN frozen (eval, no gradients), TRAIN proposals 768 -> 512, 16
+     RCNN ROIs per instance (256 x 512 pooled points), AUG_DATA with 10
+     noise trials, grad clip 10; the same checks, the kernel and plain
+     steps sharing one frozen-stage output;
+ 17. each train form timed on the inputs one step gave it (row 8 forward
      and dx, row 11 forward), beside its plain version, the library call
      (row 8: F.conv3d and cuDNN's input gradient) and its bound; ms per
      step, crops/s and pairs/s.
 Then it prints the card (name, power limit) from nvidia-smi, one JSON line
-of per-kernel numbers (eval kernels per headline request, train forms per
-train step), and as its last line
+of per-kernel numbers (eval kernels per headline request, row 12 per
+SA-off headline request, train forms per train step), and as its last
+line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or on any failure, it exits non-zero and prints no
 result. Float32 throughout with TF32 off and deterministic cuDNN.
@@ -93,7 +115,6 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
-import subprocess
 import sys
 import time
 import traceback
@@ -102,11 +123,14 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 
+from disprcnn_tpu_torch import bench
+from disprcnn_tpu_torch.bench import (BENCH_2D, BENCH_3D, BUDGETS, CALIB, CONV_ATOL, CONV_RTOL,
+                                      IMG_HW, SOFTARGMIN_TOL_PX, card_line, set_budget)
 from disprcnn_tpu_torch.engine.inference import predict, predict_2d
-from disprcnn_tpu_torch.engine.trainer import make_train_step
 from disprcnn_tpu_torch.models.detector.disprcnn import DispRCNN
 from disprcnn_tpu_torch.models.detector.disprcnn3d import DispRCNN3D
 from disprcnn_tpu_torch.models.pointrcnn import rcnn3d, rpn3d
+from disprcnn_tpu_torch.models.pointrcnn.pointnet2 import set_kernels_off
 from disprcnn_tpu_torch.ops import nms as port_nms
 from disprcnn_tpu_torch.ops import points as tpoints
 from disprcnn_tpu_torch.ops import roipool3d as troi
@@ -114,40 +138,30 @@ from disprcnn_tpu_torch.ops.cuda import build
 from disprcnn_tpu_torch.ops.cuda import conv3d as cconv
 from disprcnn_tpu_torch.ops.cuda import fp as cfp
 from disprcnn_tpu_torch.ops.cuda import fps as cfps
+from disprcnn_tpu_torch.ops.cuda import grouped_mlp as cgm
 from disprcnn_tpu_torch.ops.cuda import nms as cuda_nms
 from disprcnn_tpu_torch.ops.cuda import roipool3d as croi
 from disprcnn_tpu_torch.ops.cuda import sa as csa
 from disprcnn_tpu_torch.ops.cuda import softargmin as csam
-from disprcnn_tpu_torch.solver.build import frozen_path_prefixes, make_optimizer
-from disprcnn_tpu_torch.solver.schedules import one_cycle, one_cycle_momentum
 from disprcnn_tpu_torch.structures.stereo import StereoBoxes
+from disprcnn_tpu_torch.tools import bench_train
+from disprcnn_tpu_torch.tools.bench_train import PC_TRAIN, PSM_TRAIN
 from disprcnn_tpu_torch.utils.weights import init_random_
 
-PHASES = 14
-IMG_HW = (384, 1248)  # KITTI network input (bench.py:_time_pipeline)
+# The pipeline's geometry, budgets, calibration and the kernel-against-
+# plain tolerances CONV_RTOL/CONV_ATOL and SOFTARGMIN_TOL_PX (fixed before
+# the first card run of these kernels) are the bench's
+# (disprcnn_tpu_torch/bench.py); the train stages' configurations are
+# disprcnn_tpu_torch/tools/bench_train.py's.
+PHASES = 17
 PAIRS = 8
 REQUESTS = 2  # at the headline budget; one more at the reference budget
-# bench.py:294-298, in float32
-BENCH_2D = dict(body="R-101", pre_nms_top_n_test=6000, post_nms_top_n_test=300,
-                max_det=16, detections_per_img=16)
-# bench.py:299-305 and configs/kitti/car/vob/rcnn.yaml (DET3D_ON: True)
-BENCH_3D = dict(max_det=16, roi_size=224, maxdisp=48, mindisp=-48, det3d_on=True, npoints=768,
-                lift_grid=112, sa_npoints=(768, 512, 256, 64))
-# the two 3D budgets of bench.py:268-271; the RCNN runs every post-NMS
-# proposal at eval, so its ROIs per instance equal post_nms
-BUDGETS = {"headline": dict(rpn_pre_nms_per_roi=128, proposals_per_roi=16),
-           "reference": dict(rpn_pre_nms_per_roi=768, proposals_per_roi=100)}
-# bench.py:312-317
-CALIB = dict(fu=721.5, fv=721.5, cu=IMG_HW[1] / 2.0, cv=IMG_HW[0] / 2.0, tx=0.0, ty=0.0,
-             fuxb=389.6)
 # the tests' small configurations (tests/torch_port_helpers.py, tests/test_torch_disprcnn3d.py)
 SMALL_2D = dict(body="R-50", out_channels=32, mlp_head_dim=64, pre_nms_top_n_test=200,
                 post_nms_top_n_test=48, max_det=8, detections_per_img=8)
 SMALL_3D = dict(max_det=2, roi_size=64, maxdisp=16, mindisp=-16)
 SMALL_DET3D = dict(SMALL_3D, det3d_on=True, npoints=128, lift_grid=32,
                    sa_npoints=(128, 64, 32, 16))
-# BGR255 mean-subtracted input of the 2D detector (bench.py, data/transforms.py)
-PIXEL_MEAN_BGR = (102.9801, 115.9465, 122.7717)
 NMS_CASES = ("random", "clustered", "duplicates", "ties", "invalid_rows", "few_survivors")
 NMS_SHAPES = ((6000, 300, 0.7), (300, 16, 0.5))  # (N, k, IoU) of SRPN and box head
 # Kernel launches per headline request on the main path (the kernel table of
@@ -162,16 +176,13 @@ EXPECTED_LAUNCHES = {"nms_sorted": 3, "conv2d": 39, "cost_volume_conv": 1, "conv
                      "fps": 5, "sa": 8, "fp": 3, "roipool3d": 1}
 # at the reference budget the RCNN runs its 12 800 ROIs in two blocks of 6400
 EXPECTED_REFERENCE = {**EXPECTED_LAUNCHES, "fps": 7, "sa": 10, "roipool3d": 2}
-# Tolerances, fixed before the first card run of these kernels:
-# a conv kernel against its plain version (cuDNN, TF32 off) sums the same
-# products in another order: max |diff| <= CONV_RTOL * max |plain| + CONV_ATOL;
-# the SA and FP kernels against theirs (cuBLAS products) likewise;
-CONV_RTOL, CONV_ATOL = 1e-4, 1e-5
-# the soft-argmin kernel interpolates H and W before D and takes the
-# softmax online: max |diff| <= 1e-3 px;
-SOFTARGMIN_TOL_PX = 1e-3
-# disparity of a whole forward, kernels against plain versions (phase 6)
-# or card against CPU (phase 7): the differences above through ~20 3D conv
+# a headline request on the SA-off route: no SA launch; row 12 once per
+# chunk of clouds of the grouped pre-activation (pointnet2.py
+# GROUPED_CHUNK_ELEMS, 2^28 values): the 6 RPN scales one each, RCNN SA0's
+# 2048 clouds in 8 chunks of 256, SA1's in 2 of 1024
+EXPECTED_SA_OFF = {**EXPECTED_LAUNCHES, "sa": 0, "grouped_mlp": 16}
+# disparity of a whole forward, kernels against plain versions (phase 7)
+# or card against CPU (phase 8): the differences above through ~20 3D conv
 # layers and a softmax over 96 (32) disparities: max |diff| <= 1e-2 px.
 DISP_TOL_PX = 1e-2
 # box3d and score3d of the 3D stage on the same clouds, kernels against
@@ -218,21 +229,25 @@ FP_SITES = (("fp3", 128, 256, 64, 1024, 512, (512, 512)),
             ("fp1", 128, 768, 512, 512, 96, (256, 256)))
 # RoI-pool 3D (clouds, N, boxes, C, S): headline, and one reference block
 ROI_SITES = ((128, 768, 16, 130, 512), (128, 768, 50, 130, 512))
-# The train steps, at tools/bench_train.py:bench_3d's geometry for the two
-# stage configs. idispnet.yaml: IMS_PER_BATCH 2, ROI_MIN_SCORE 0.5,
-# MAX_ROI_FOR_TRAINING 12, WEIGHT_DECAY 1e-4, OneCycle BASE_LR 0.01 over
-# MAX_ITER 41000; rcnn.yaml: IMS_PER_BATCH 1, MASK_THRESH 0.5, RPN.FIXED,
-# TRAIN.RPN_PRE/POST_NMS_TOP_N 9000/512 (pre capped at the 768 points),
-# RCNN.ROI_PER_IMAGE 16, FIX_DISPARITY, FIX_POINTRCNN_RPN, DO_GRAD_CLIP,
-# MAX_ITER 62100; the defaults' MOMENTUM 0.9, BIAS_LR_FACTOR 2 and
-# WEIGHT_DECAY_BIAS 0, GRAD_CLIP 10 as bench_3d sets it
-PSM_TRAIN = dict(max_det=16, roi_size=224, maxdisp=48, mindisp=-48, roi_min_score=0.5,
-                 max_roi_train=12)
-PC_TRAIN = dict(BENCH_3D, mask_thresh_train=0.5, rpn_pre_nms_per_roi_train=768,
-                proposals_per_roi_train=512, rcnn_rois_per_instance=16)
+# Row 12 at the SA-off route's sites of a headline request, whole (site,
+# groups G, S, C0, chain after the input affine): G = clouds x centres
+GM_SITES = (("RPN SA1 scale 0", 65536, 16, 64, (64, 128)),
+            ("RPN SA1 scale 1", 65536, 32, 64, (96, 128)),
+            ("RPN SA2 scale 0", 32768, 16, 128, (196, 256)),
+            ("RPN SA2 scale 1", 32768, 32, 128, (196, 256)),
+            ("RPN SA3 scale 0", 8192, 16, 256, (256, 512)),
+            ("RPN SA3 scale 1", 8192, 32, 256, (384, 512)),
+            ("RCNN SA0", 262144, 64, 128, (128, 128)),
+            ("RCNN SA1", 65536, 64, 128, (128, 256)))
+# and its edge cases: every pre-activation negative (the max is 0), S = 1,
+# S = 48 (a 64-row tile holding one group and 16 padding rows), a last
+# partial tile, widths that are not multiples of 4 (the scalar path)
+GM_EDGES = (("all negative", 1000, 16, 64, (64, 128)), ("S = 1", 777, 1, 128, (196, 256)),
+            ("S = 48", 301, 48, 64, (96, 128)), ("partial tile", 1001, 16, 128, (128,)),
+            ("odd widths", 517, 32, 65, (70, 33, 18)))
+# The train steps (tools/bench_train.py: idispnet.yaml's IMS_PER_BATCH 2,
+# rcnn.yaml's 1)
 PSM_PAIRS, PC_PAIRS = 2, 1
-PSM_ITER, PC_ITER, GRAD_CLIP = 41000, 62100, 10.0
-SOLVER = dict(momentum=0.9, weight_decay=1e-4, weight_decay_bias=0.0, bias_lr_factor=2.0)
 TRAIN_STEPS = 3  # timed, after one warm-up step
 # row 8's sites in the iDispNet step (crops, channels, depth, side), row
 # 11's in the RCNN step (site, clouds, N, M, C0, chain, radius, S)
@@ -249,15 +264,8 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def phase_build() -> float:
-    names = ("nms", "conv3d", "softargmin", "fps", "sa", "fp", "roipool3d")
+    names = build.SOURCES
     t0 = time.perf_counter()
     texts = build.build(*names)
     dt = time.perf_counter() - t0
@@ -266,7 +274,7 @@ def phase_build() -> float:
             if "registers" in line or "bytes stack" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     # load them: a library that does not load fails here
-    for mod in (cuda_nms, cconv, csam, cfps, csa, cfp, croi):
+    for mod in (cuda_nms, cconv, csam, cfps, csa, cgm, cfp, croi):
         mod._lib()
     torch.cuda.synchronize()
     log(f"[1/{PHASES}] build: {', '.join(n + '.cu' for n in names)} with nvcc in {dt:.1f} s")
@@ -278,15 +286,17 @@ def launches_replaced(**fns):
     """Route the named launch points (nms_sorted_cuda, conv3d_bn_cuda,
     cost_volume_conv_bn_cuda, deconv3d_bn_cuda, conv2d_bn_cuda,
     softargmin_cuda, furthest_point_sample_cuda, sa_ball_mlp_max_cuda,
-    fp_fused_cuda, roipool3d_cuda, and the train forms' conv3d_train_cuda,
-    conv3d_train_dx_cuda, sa_ball_mlp_max_train_cuda) through the given
-    functions; yields the original launches by name."""
+    grouped_mlp_max_cuda, fp_fused_cuda, roipool3d_cuda, and the train
+    forms' conv3d_train_cuda, conv3d_train_dx_cuda,
+    sa_ball_mlp_max_train_cuda) through the given functions; yields the
+    original launches by name."""
     modules = {"nms_sorted_cuda": cuda_nms, "conv3d_bn_cuda": cconv,
                "cost_volume_conv_bn_cuda": cconv, "deconv3d_bn_cuda": cconv,
                "conv2d_bn_cuda": cconv, "softargmin_cuda": csam,
                "furthest_point_sample_cuda": cfps, "sa_ball_mlp_max_cuda": csa,
-               "fp_fused_cuda": cfp, "roipool3d_cuda": croi, "conv3d_train_cuda": cconv,
-               "conv3d_train_dx_cuda": cconv, "sa_ball_mlp_max_train_cuda": csa}
+               "grouped_mlp_max_cuda": cgm, "fp_fused_cuda": cfp, "roipool3d_cuda": croi,
+               "conv3d_train_cuda": cconv, "conv3d_train_dx_cuda": cconv,
+               "sa_ball_mlp_max_train_cuda": csa}
     orig = {name: getattr(modules[name], name) for name in fns}
     for name, fn in fns.items():
         setattr(modules[name], name, fn)
@@ -306,6 +316,7 @@ def all_plain():
                              softargmin_cuda=csam.softargmin_plain,
                              furthest_point_sample_cuda=cfps.furthest_point_sample_plain,
                              sa_ball_mlp_max_cuda=csa.sa_ball_mlp_max_plain,
+                             grouped_mlp_max_cuda=cgm.grouped_mlp_max_plain,
                              fp_fused_cuda=cfp.fp_fused_plain,
                              roipool3d_cuda=croi.roipool3d_plain,
                              conv3d_train_cuda=cconv.conv3d_train_plain,
@@ -571,6 +582,47 @@ def phase_points_compare() -> dict:
     return errs
 
 
+def grouped_mlp_inputs(gen: torch.Generator, g: int, s: int, c0: int, chain,
+                       negative: bool = False):
+    """(x (g, s, c0), mul0, add0, [(W, b)]) on the card, seeded, with a
+    non-trivial BN affine; `negative`: every input pre-activation and bias
+    below 0, so that every activation is 0."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x, mul0, add0 = randn(g, s, c0), 1 + randn(c0, scale=0.3), randn(c0, scale=0.1)
+    if negative:
+        x, mul0, add0 = -(x.abs() + 1), mul0.abs() + 0.5, -add0.abs()
+    ws, cin = [], c0
+    for co in chain:
+        b = randn(co, scale=0.1)
+        ws.append((randn(cin, co, scale=cin ** -0.5), -b.abs() if negative else b))
+        cin = co
+    return x, mul0, add0, ws
+
+
+def phase_grouped_mlp_compare() -> dict:
+    """Row 12 at the SA-off route's site shapes of a headline request, whole,
+    and at its edge cases, against its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    worst = 0.0
+    for site, g, s, c0, chain in GM_SITES + GM_EDGES:
+        args = grouped_mlp_inputs(gen, g, s, c0, chain, negative=site == "all negative")
+        got = cgm.grouped_mlp_max_cuda(*args)
+        want = cgm.grouped_mlp_max_plain(*args)
+        e = conv_err(got, want, f"grouped MLP {site}")
+        if site == "all negative" and float(got.abs().max()) != 0:
+            raise AssertionError("grouped MLP: all-negative pre-activations give a max above 0")
+        worst = max(worst, e)
+        log(f"  grouped_mlp {site} (G {g}, S {s}, {c0} -> {' -> '.join(map(str, chain))}): "
+            f"max |diff| {e:.3g} (max |plain| {float(want.abs().max()):.3g})")
+        del args, got, want
+    torch.cuda.synchronize()
+    log(f"[5/{PHASES}] row 12 matches its plain version at the SA-off route's {len(GM_SITES)} "
+        f"site shapes and {len(GM_EDGES)} edge cases")
+    return {"grouped_mlp": worst}
+
+
 def check_outputs(out, b: int, max_det: int) -> int:
     dets, masks = out["detections"], out["masks"]
     shapes = {"left": (b, max_det, 4), "right": (b, max_det, 4), "score": (b, max_det),
@@ -617,15 +669,10 @@ def check_3d(out, b: int, max_det: int) -> int:
     return int(out["roi_ok"].sum())
 
 
-def set_budget(model3d, budget: str) -> None:
-    for name, value in BUDGETS[budget].items():
-        setattr(model3d.pointrcnn, name, value)
-
-
 def reset_launches() -> None:
     cuda_nms.launches = 0
     csam.launches = 0
-    for mod in (cfps, csa, cfp, croi):
+    for mod in (cfps, csa, cgm, cfp, croi):
         mod.launches = 0
     csa.train_launches = 0
     for k in cconv.launches:
@@ -634,8 +681,8 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {"nms_sorted": cuda_nms.launches, **cconv.launches, "softargmin": csam.launches,
-            "fps": cfps.launches, "sa": csa.launches, "fp": cfp.launches,
-            "roipool3d": croi.launches, "sa_train": csa.train_launches}
+            "fps": cfps.launches, "sa": csa.launches, "grouped_mlp": cgm.launches,
+            "fp": cfp.launches, "roipool3d": croi.launches, "sa_train": csa.train_launches}
 
 
 @contextlib.contextmanager
@@ -682,7 +729,7 @@ def phase_main_path(model2d, model3d, requests):
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = {k: n * REQUESTS + EXPECTED_REFERENCE[k] for k, n in EXPECTED_LAUNCHES.items()}
-    expected.update(conv3d_train=0, sa_train=0)
+    expected.update(conv3d_train=0, sa_train=0, grouped_mlp=0)
     if launches != expected:
         raise AssertionError(f"kernel launches on the main path {launches}, expected {expected}")
     valid = [check_outputs(o, PAIRS, BENCH_2D["max_det"]) for o in outs]
@@ -693,7 +740,7 @@ def phase_main_path(model2d, model3d, requests):
         raise AssertionError(f"a request with no instance that has lifted points: {with_points}")
     proposals = [int(p) for p in props]
     randoms = [int((o["random"] & o["roi_ok"]).sum()) for o in outs]
-    log(f"[5/{PHASES}] predict {BENCH_2D['body']} {PAIRS}x{IMG_HW[0]}x{IMG_HW[1]} -> "
+    log(f"[6/{PHASES}] predict {BENCH_2D['body']} {PAIRS}x{IMG_HW[0]}x{IMG_HW[1]} -> "
         f"{PAIRS * BENCH_3D['max_det']} ROIs of {BENCH_3D['roi_size']}^2 -> "
         f"{BENCH_3D['npoints']}-point clouds -> PointRCNN, budgets "
         f"{[b for _, b in runs]}: request ms {[round(t, 3) for t in ms]}, valid detections "
@@ -757,7 +804,7 @@ def phase_plain_path(model2d, model3d, runs, kernel_outs):
         e, bad, n = check_boxes_3d(out, ref, f"request {i} ({budget})")
         box_err = max(box_err, e)
         off.append(f"{bad}/{n}")
-    log(f"[6/{PHASES}] plain versions on the card: detections and masks equal, disparity "
+    log(f"[7/{PHASES}] plain versions on the card: detections and masks equal, disparity "
         f"within {worst:.3g} px on {len(runs)} requests; on the same clouds roi_ok and random "
         f"equal, box3d/score3d within {box_err:.3g} (instances out of tolerance: {off})")
     return worst
@@ -861,7 +908,7 @@ def phase_small_references() -> float:
     errs = small_2d_reference()
     err3 = small_3d_reference()
     box_err, bad, n = small_det3d_reference()
-    log(f"[7/{PHASES}] small references, card vs CPU: 2D (R-50, 2x64x128) max abs error {errs}; "
+    log(f"[8/{PHASES}] small references, card vs CPU: 2D (R-50, 2x64x128) max abs error {errs}; "
         f"DispRCNN3D (2 ROIs of 64^2) disparity {err3:.3g} px; with det3d_on on the same "
         f"clouds, box3d/score3d within {box_err:.3g} ({bad} of {n} instances with points out "
         f"of tolerance)")
@@ -927,7 +974,7 @@ def time_ms(fn, reps: int) -> float:
 def cudnn_free():
     """cuDNN free to pick non-deterministic algorithms (the rest of the
     script keeps it deterministic, so that kernel and plain runs of the
-    cuDNN layers compare exactly): the library yardstick and phase 8's
+    cuDNN layers compare exactly): the library yardstick and phase 10's
     second timing run under it."""
     torch.backends.cudnn.deterministic = False
     try:
@@ -1047,6 +1094,19 @@ def sa_work(args, out):
     nbytes = 4 * (xyz.numel() + centers.numel() + v.numel() + w0x.numel() + 2 * c0
                   + sum(w.numel() + b.numel() for w, b in weights) + out.numel())
     return bound(nbytes, ops)
+
+
+def grouped_mlp_work(args, out):
+    """x, the affine and the weights read once, the output written once; per
+    row of x the affine and ReLU (3 per channel), the chain and the max.
+    Every row counts: the function cannot tell a ball's repeated first
+    neighbour from a distinct one (sa_work counts distinct neighbours)."""
+    x, mul0, _, weights = args
+    g, s, c0 = x.shape
+    ops = g * s * (3 * c0 + chain_ops(weights) + out.shape[-1])
+    nbytes = 4 * (x.numel() + 2 * c0 + sum(w.numel() + b.numel() for w, b in weights)
+                  + out.numel())
+    return bound(nbytes, float(ops))
 
 
 def fp_work(args, out):
@@ -1181,7 +1241,7 @@ def phase_timing(model2d, model3d, req, compare_errs):
         rows[name] = time_launches(
             name, [("", launches, kernel, plain, library, work, partial(main_path_err, name))],
             compare_errs.get(name, 0.0), src, replaces)
-    log(f"[8/{PHASES}] kernels timed on one headline request's own inputs")
+    log(f"[9/{PHASES}] kernels timed on one headline request's own inputs")
     return rows
 
 
@@ -1275,10 +1335,76 @@ def phase_breakdown(model2d, model3d, reqs, card: str) -> dict:
     with cudnn_free():
         free_ms = [time_ms(lambda: predict(model2d, model3d, *reqs[0][:4], calib=CALIB,
                                            priorities=reqs[0][4]), 1) for _ in range(2)]
-    log(f"[9/{PHASES}] pairs/s on {card}: headline {PAIRS * 1000.0 / out['headline'][0]:.3f}, "
+    log(f"[10/{PHASES}] pairs/s on {card}: headline {PAIRS * 1000.0 / out['headline'][0]:.3f}, "
         f"reference {PAIRS * 1000.0 / out['reference'][0]:.3f}; the headline request with "
         f"non-deterministic cuDNN: {[round(t, 3) for t in free_ms]} ms")
     return out
+
+
+def phase_sa_off(model2d, model3d, req, ref, default_stages: dict, err: float,
+                 card: str) -> dict:
+    """The SA-off route on one headline request (`req`, whose default-route
+    output phase 6 gave as `ref`): launches counted from 0, the 3D stage on
+    ref's disparity (a forward hook on iDispNet swaps it in, so that both
+    lift the same clouds) held to ref, the time and peak memory, the RPN
+    backbone and RCNN stages beside the default route's; then row 12 timed
+    on that request's own inputs. -> row 12's row of the `kernels` line."""
+    set_kernels_off(model3d, {"sa"})
+    try:
+        hook = model3d.idispnet.register_forward_hook(
+            lambda _m, _i, disp: ref["disparity_roi"].reshape(disp.shape))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        try:
+            out, ms = run_request(model2d, model3d, req, "headline")
+        finally:
+            hook.remove()
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        expected = dict(EXPECTED_SA_OFF, conv3d_train=0, sa_train=0)
+        if launches != expected:
+            raise AssertionError(f"SA-off request launches {launches}, expected {expected}")
+        check_outputs(out, PAIRS, BENCH_2D["max_det"])
+        a, b = out["detections"], ref["detections"]
+        if not (all(torch.equal(getattr(a, f), getattr(b, f))
+                    for f in ("left", "right", "score", "valid"))
+                and torch.equal(out["masks"], ref["masks"])):
+            raise AssertionError("SA-off request: the 2D detections differ from the default's")
+        check_3d(out, PAIRS, BENCH_3D["max_det"])
+        box_err, bad, n = check_boxes_3d(out, ref, "SA-off route against the default")
+        del out
+        total, stages = breakdown(model2d, model3d, req, "headline")
+        calls = capture_launches(
+            lambda: predict(model2d, model3d, *req[:4], calib=CALIB, priorities=req[4]),
+            dict(grouped_mlp_max_cuda="grouped_mlp"))
+        row = time_launches("grouped_mlp", [
+            ("", calls["grouped_mlp"], cgm.grouped_mlp_max_cuda, cgm.grouped_mlp_max_plain, None,
+             grouped_mlp_work, partial(main_path_err, "grouped_mlp"))],
+            err, "grouped_mlp.cu", "disprcnn_tpu/ops/pallas/grouped_mlp.py:44")
+        del calls
+    finally:
+        set_kernels_off(model3d, ())
+    dtotal, dstages = default_stages
+    split = ", ".join(f"{k} {stages[k]:.3f} ms (default {dstages[k]:.3f})"
+                      for k in ("RPN backbone", "RCNN"))
+    log(f"[11/{PHASES}] SA-off headline request on {card}: {ms:.3f} ms ({PAIRS * 1e3 / ms:.3f} "
+        f"pairs/s), split {total:.3f} ms (default {dtotal:.3f}): {split}; launches {launches}; "
+        f"peak memory {peak_gb:.2f} GB; on the default run's clouds roi_ok and random equal, "
+        f"box3d/score3d within {box_err:.3g} ({bad} of {n} instances out of tolerance)")
+    return {**row, "launches": launches["grouped_mlp"]}
+
+
+def phase_bench(model2d, model3d, card: str) -> None:
+    """The bench's canary, then its time_pipeline at the headline budget on
+    the models of phase 6 (default route), 3 requests after a warm-up."""
+    rows = bench.canary("cuda")
+    worst = max(rows, key=lambda r: r["max_abs_err"])
+    res = bench.time_pipeline((model2d, model3d), PAIRS, "headline", (), iters=3)
+    log(f"[12/{PHASES}] bench canary: {len(rows)} kernel rows match their plain versions "
+        f"(largest max |diff| {worst['max_abs_err']:.3g}, row {worst['row']}); time_pipeline "
+        f"headline on {card}: {res['pairs_per_sec']:.3f} pairs/s, ms per request median "
+        f"{res['ms_median']:.3f} (min {res['ms_min']:.3f}, max {res['ms_max']:.3f}) over "
+        f"{res['iters']}")
 
 
 def grads_agree(got: dict, want: dict, what: str) -> float:
@@ -1317,7 +1443,7 @@ def phase_conv_train_compare() -> float:
             f"{', '.join(f'{e:.3g}' for e in errs)}")
         del x, dy, y, got, want
     torch.cuda.synchronize()
-    log(f"[10/{PHASES}] row 8's train form matches F.conv3d and its autograd at the iDispNet "
+    log(f"[13/{PHASES}] row 8's train form matches F.conv3d and its autograd at the iDispNet "
         f"step's trunk sites")
     return worst
 
@@ -1362,52 +1488,13 @@ def phase_sa_train_compare() -> float:
             f"{int((cnt == s).sum())}")
         del outs, leaves, ws, flat
     torch.cuda.synchronize()
-    log(f"[11/{PHASES}] row 11's train form matches autograd of its plain version at the RCNN "
+    log(f"[14/{PHASES}] row 11's train form matches autograd of its plain version at the RCNN "
         f"step's SA sites")
     return worst
 
 
-def random_dets(gen, b: int, d: int):
-    """(b, d) stereo detections inside IMG_HW: boxes 60-360 x 60-200 px,
-    the right box 10-30 px left of the left one, scores above 0.55, masks
-    uniform."""
-    h, w = IMG_HW
-
-    def u(*shape):
-        return torch.rand(shape, generator=gen, device="cuda")
-
-    x1, y1 = u(b, d) * (w - 360), u(b, d) * (h - 200)
-    left = torch.stack([x1, y1, x1 + 60 + 300 * u(b, d), y1 + 60 + 140 * u(b, d)], -1)
-    shift = 10 + 20 * u(b, d)
-    right = left - torch.stack([shift, torch.zeros_like(shift)] * 2, -1)
-    return StereoBoxes(left=left, right=right, score=0.55 + 0.45 * u(b, d),
-                       valid=torch.ones(b, d, dtype=torch.bool, device="cuda"),
-                       fields={"mask": u(b, d, 28, 28)})
-
-
 def trainable(model):
     return {n: p for n, p in model.named_parameters() if p.requires_grad}
-
-
-def run_train_steps(step, batch, what: str) -> list:
-    """One warm-up and TRAIN_STEPS timed steps -> per-step ms; each step's
-    losses finite, none skipped, no trainable parameter left without a
-    gradient."""
-    ms = []
-    for i in range(1 + TRAIN_STEPS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        m = step(batch)
-        end.record()
-        torch.cuda.synchronize()
-        if i:
-            ms.append(start.elapsed_time(end))
-        losses = {k: float(v) for k, v in m.items() if k.startswith("loss")}
-        if not all(map(lambda v: v == v and abs(v) != float("inf"), losses.values())):
-            raise AssertionError(f"{what}: non-finite losses {losses}")
-        if float(m["skipped_nonfinite"]) or int(m["params_without_grad"]):
-            raise AssertionError(f"{what}: step skipped or parameters without gradient: {m}")
-    return ms
 
 
 def check_grads_and_stats(model, before: dict, what: str, bn_trains: bool) -> int:
@@ -1467,33 +1554,24 @@ def kernel_vs_plain_step(model, opt, step, batch, what: str, share=None):
 
 
 def phase_psm_train(card: str) -> dict:
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    model = init_random_(DispRCNN3D(**PSM_TRAIN, device="cuda"), gen)
-    opt = make_optimizer(model, one_cycle(0.01, PSM_ITER), one_cycle_momentum(PSM_ITER),
-                         **SOLVER)
-    step = make_train_step(model, opt, forward_kwargs=dict(train_psm=True))
-    h, w = IMG_HW
-    cols = torch.arange(w, device="cuda", dtype=torch.float32)
-    batch = dict(left_img=torch.rand(PSM_PAIRS, h, w, 3, generator=gen, device="cuda"),
-                 right_img=torch.rand(PSM_PAIRS, h, w, 3, generator=gen, device="cuda"),
-                 dets=random_dets(gen, PSM_PAIRS, PSM_TRAIN["max_det"]),
-                 gt_disp=(20 + 5 * torch.sin(cols / 40)).expand(PSM_PAIRS, h, w).contiguous())
+    st = bench_train.psm_stage(PSM_PAIRS, torch.Generator(device="cuda").manual_seed(12))
+    model, opt, step, batch = st.model, st.optimizer, st.step, st.batch
     before = {n: t.detach().clone() for n, t in [*model.named_buffers(),
                                                  *model.named_parameters()]}
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    ms = run_train_steps(step, batch, "iDispNet step")
+    ms = bench_train.time_steps(st, TRAIN_STEPS)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 1e9
     moved = check_grads_and_stats(model, before, "iDispNet step", bn_trains=True)
-    crops = PSM_PAIRS * PSM_TRAIN["max_roi_train"]
+    crops = st.units
     if launches["conv3d_train"] != (1 + TRAIN_STEPS) * 24 or any(
             launches[k] for k in launches if k != "conv3d_train"):
         raise AssertionError(f"iDispNet step launches {launches}: expected 24 conv3d_train a "
                              f"step (12 trunk convs, forward and dx) and nothing else")
     rel, grad_err, mk, _ = kernel_vs_plain_step(model, opt, step, batch, "iDispNet step")
     mean = sum(ms) / len(ms)
-    log(f"[12/{PHASES}] iDispNet train step ({PSM_PAIRS} pairs, {crops} crops of "
+    log(f"[15/{PHASES}] iDispNet train step ({PSM_PAIRS} pairs, {crops} crops of "
         f"{PSM_TRAIN['roi_size']}^2) on "
         f"{card}: ms/step {[round(t, 3) for t in ms]} (mean {mean:.3f}: "
         f"{crops * 1e3 / mean:.3f} crops/s, {PSM_PAIRS * 1e3 / mean:.3f} pairs/s), loss_psm "
@@ -1505,69 +1583,16 @@ def phase_psm_train(card: str) -> dict:
                 unit=crops, pairs=PSM_PAIRS)
 
 
-def centre_rpn_boxes_(model) -> None:
-    """Scale the random RPN's box-regression output down and bias its x and
-    z bins to the middle one: each proposal becomes a car-sized box about
-    its point (the random head throws them off the clouds, and every pooled
-    ROI comes out empty, so the sampler finds no foreground)."""
-    out = model.pointrcnn.rpn.reg_head.out
-    nbin = model.pointrcnn.rpn_codec.per_loc_bin_num
-    with torch.no_grad():
-        out.weight.mul_(0.01)
-        out.bias.zero_()
-        out.bias[[nbin // 2, nbin + nbin // 2]] = 2.0
-
-
 def phase_pc_train(card: str) -> dict:
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    model = init_random_(DispRCNN3D(**PC_TRAIN, device="cuda"), gen)
-    centre_rpn_boxes_(model)
-    frozen = frozen_path_prefixes(FIX_DISPARITY=True, FIX_POINTRCNN_RPN=True)
-    opt = make_optimizer(model, one_cycle(0.01, PC_ITER), one_cycle_momentum(PC_ITER), frozen,
-                         **SOLVER)
-    step = make_train_step(model, opt, do_grad_clip=True, grad_clip=GRAD_CLIP,
-                           forward_kwargs=dict(train_pc=True))
-    h, w = IMG_HW
-    d = PC_TRAIN["max_det"]
-    dets = random_dets(gen, PC_PAIRS, d)
-    prc = model.pointrcnn
-    batch = dict(left_img=torch.rand(PC_PAIRS, h, w, 3, generator=gen, device="cuda"),
-                 right_img=torch.rand(PC_PAIRS, h, w, 3, generator=gen, device="cuda"),
-                 dets=dets, calib={k: torch.full((PC_PAIRS,), v, device="cuda")
-                                   for k, v in CALIB.items()},
-                 priorities=torch.rand(PC_PAIRS * d, BENCH_3D["lift_grid"] ** 2, generator=gen,
-                                       device="cuda"),
-                 rcnn_draws=rcnn3d.draw_rcnn_draws(PC_PAIRS * d, prc.proposals_per_roi_train,
-                                                   prc.rcnn_rois_per_instance, 10, gen, "cuda"),
-                 gt_left=dets.left, gt_valid=torch.ones(PC_PAIRS, d, dtype=torch.bool,
-                                                        device="cuda"))
-    # each instance's GT box: its proposal that holds the most lifted points
-    seen = {}
-    orig = rcnn3d.prepare_rcnn_train_inputs
-
-    def record(rois, roi_valid, gt, gt_ok, xyz, *args, **kwargs):
-        seen.update(rois=rois, roi_valid=roi_valid, xyz=xyz)
-        return orig(rois, roi_valid, gt, gt_ok, xyz, *args, **kwargs)
-
-    rcnn3d.prepare_rcnn_train_inputs = record
-    try:
-        model.train()
-        with torch.no_grad():
-            model(**batch, gt_boxes3d=torch.zeros(PC_PAIRS, d, 7, device="cuda"), train_pc=True)
-    finally:
-        rcnn3d.prepare_rcnn_train_inputs = orig
-    inside = troi.pts_in_boxes3d(seen["xyz"], troi.enlarge_box3d(seen["rois"], 1.0)).sum(-1)
-    inside = torch.where(seen["roi_valid"], inside, torch.zeros_like(inside))
-    with_points = int((inside.amax(1) > 0).sum())
-    if with_points == 0:
-        raise AssertionError("RCNN step: no instance has a proposal with lifted points")
-    rows = torch.arange(PC_PAIRS * d, device="cuda")
-    batch["gt_boxes3d"] = seen["rois"][rows, inside.argmax(1)].reshape(PC_PAIRS, d, 7)
+    st = bench_train.pc_stage(PC_PAIRS, torch.Generator(device="cuda").manual_seed(13))
+    model, opt, step, batch, with_points = st.model, st.optimizer, st.step, st.batch, \
+        st.with_points
+    d, prc = PC_TRAIN["max_det"], model.pointrcnn
     before = {n: t.detach().clone() for n, t in [*model.named_buffers(),
                                                  *model.named_parameters()]}
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    ms = run_train_steps(step, batch, "RCNN step")
+    ms = bench_train.time_steps(st, TRAIN_STEPS)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 1e9
     check_grads_and_stats(model, before, "RCNN step", bn_trains=False)
@@ -1583,7 +1608,7 @@ def phase_pc_train(card: str) -> dict:
     if fg == 0:
         raise AssertionError("RCNN step: no sampled RCNN ROI is foreground")
     mean = sum(ms) / len(ms)
-    log(f"[13/{PHASES}] RCNN train step ({PC_PAIRS} pair, {d} instances, "
+    log(f"[16/{PHASES}] RCNN train step ({PC_PAIRS} pair, {d} instances, "
         f"{tgt['cls_label'].numel()} RCNN ROIs of {prc.rcnn_num_points} points) on {card}: "
         f"ms/step {[round(t, 3) for t in ms]} (mean {mean:.3f}: {PC_PAIRS * 1e3 / mean:.3f} "
         f"pairs/s), loss_box3d {float(mk['loss_box3d']):.5g}, {with_points} instances with "
@@ -1597,7 +1622,7 @@ def phase_pc_train(card: str) -> dict:
 
 def phase_train_timing(psm: dict, pc: dict, errs: dict, card: str) -> dict:
     """Rows 8 and 11 on the inputs one train step gave them (time_launches),
-    and the step times of phases 12 and 13 with one step of each split into
+    and the step times of phases 15 and 16 with one step of each split into
     stages (split_by_events)."""
     calls = capture_launches(lambda: psm["step"](psm["batch"]),
                              dict(conv3d_train_cuda="forward", conv3d_train_dx_cuda="dx"))
@@ -1638,25 +1663,8 @@ def phase_train_timing(psm: dict, pc: dict, errs: dict, card: str) -> dict:
             f"{r['unit'] * 1e3 / mean:.3f} {'crops' if what == 'iDispNet' else 'pairs'}/s, "
             f"{r['pairs'] * 1e3 / mean:.3f} pairs/s; one step split, {total:.3f} ms: "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
-    log(f"[14/{PHASES}] train forms timed on one step's own inputs")
+    log(f"[17/{PHASES}] train forms timed on one step's own inputs")
     return rows
-
-
-def make_requests(gen: torch.Generator):
-    """(left, right, left_raw, right_raw, priorities) per request: raw [0,
-    1] RGB for the 3D stage, BGR255 mean-subtracted for the 2D detector (as
-    bench.py), and the lift's sampling priorities, REQUESTS headline
-    requests and one reference request."""
-    h, w = IMG_HW
-    mean = torch.tensor(PIXEL_MEAN_BGR, device="cuda")
-    rois, grid = PAIRS * BENCH_3D["max_det"], BENCH_3D["lift_grid"]
-    reqs = []
-    for _ in range(REQUESTS + 1):
-        raw = [torch.rand(PAIRS, h, w, 3, generator=gen, device="cuda") for _ in range(2)]
-        net = [r.flip(-1) * 255.0 - mean for r in raw]
-        pri = torch.rand(rois, grid * grid, generator=gen, device="cuda")
-        reqs.append((net[0], net[1], raw[0], raw[1], pri))
-    return reqs
 
 
 def main() -> int:
@@ -1673,19 +1681,25 @@ def main() -> int:
         log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
         build_s = phase_build()
         errs = {"nms_sorted": phase_nms_compare(), **phase_3d_compare(),
-                **phase_points_compare()}
+                **phase_points_compare(), **phase_grouped_mlp_compare()}
 
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        model2d = init_random_(DispRCNN(**BENCH_2D, device="cuda"), gen)
-        model3d = init_random_(DispRCNN3D(**BENCH_3D, device="cuda"), gen)
-        requests = make_requests(gen)
+        model2d, model3d = bench.build_models("cuda")
+        # REQUESTS headline requests and one reference request
+        requests = [bench.make_request(PAIRS, IMG_HW, PAIRS * BENCH_3D["max_det"],
+                                       BENCH_3D["lift_grid"], "cuda", seed)
+                    for seed in range(REQUESTS + 1)]
         outs, runs, ms, launches, _ = phase_main_path(model2d, model3d, requests)
         phase_plain_path(model2d, model3d, runs, outs)
+        ref = outs[0]  # requests[0] at the headline budget, default route
         del outs
         phase_small_references()
         rows = phase_timing(model2d, model3d, requests[0], errs)
-        phase_breakdown(model2d, model3d, (requests[1], requests[-1]), card)
+        stages = phase_breakdown(model2d, model3d, (requests[1], requests[-1]), card)
         kernels = [{**rows[name], "launches": launches[name]} for name in EXPECTED_LAUNCHES]
+        kernels.append(phase_sa_off(model2d, model3d, requests[0], ref, stages["headline"],
+                                    errs["grouped_mlp"], card))
+        del ref
+        phase_bench(model2d, model3d, card)
         del model2d, model3d, requests, runs
         torch.cuda.empty_cache()
         train_errs = {"conv3d_train": phase_conv_train_compare(),

@@ -1,4 +1,5 @@
-// The shared-MLP chain inside the fused PointNet++ kernels (sa.cu, fp.cu):
+// The shared-MLP chain inside the fused PointNet++ kernels (sa.cu, fp.cu,
+// grouped_mlp.cu):
 // a block of 256 threads multiplies a tile of R activation rows, held in
 // shared memory, by a dense weight (Ci, Co) read from device memory, adds
 // the bias and applies ReLU. The products are the TPU kernels' own work, so
@@ -126,6 +127,48 @@ __device__ void hidden_layers(const Chain& chain, float* buf0, int ld0, float* b
   }
   *in = cur;
   *ld = lc;
+}
+
+// The chain over a tile of R = 8 RT rows whose first activations sit in
+// buf0 (ld0), reduced over groups of s consecutive rows: the hidden layers
+// (hidden_layers), then the last layer 128 columns at a time through
+// `chunk` (R x 128, shared), each column's max over rows t s .. t s + s - 1
+// written to out[t * co + col] for t < groups. The last layer's
+// activations are never stored whole. chain.layers >= 1; the caller
+// synchronises after filling buf0.
+template <int RT>
+__device__ void chain_max(const Chain& chain, float* buf0, int ld0, float* buf1, int ld1,
+                          float* chunk, int groups, int s, float* __restrict__ out) {
+  float* in;
+  int ld;
+  hidden_layers<RT>(chain, buf0, ld0, buf1, ld1, &in, &ld);
+  const int last = chain.layers - 1;
+  const int ci = chain.c[last], co = chain.c[chain.layers];
+  const float* W = chain.w[last];
+  const float* bias = chain.b[last];
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
+  for (int col0 = 0; col0 < co; col0 += kColChunk) {
+    float acc[RT][4];
+    tile_product<RT>(in, ld, ci, W, co, col0, chain.vec != 0, acc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = col0 + 4 * tx + j;
+      const float bv = col < co ? __ldg(bias + col) : 0.f;
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+        chunk[(ty + 8 * i) * kColChunk + 4 * tx + j] = fmaxf(acc[i][j] + bv, 0.f);
+    }
+    __syncthreads();
+    for (int e = tid; e < groups * kColChunk; e += kThreads) {
+      const int t = e / kColChunk, cl = e - t * kColChunk;
+      const int col = col0 + cl;
+      if (col >= co) continue;
+      float mx = chunk[(t * s) * kColChunk + cl];
+      for (int r = 1; r < s; ++r) mx = fmaxf(mx, chunk[(t * s + r) * kColChunk + cl]);
+      out[(size_t)t * co + col] = mx;
+    }
+    __syncthreads();
+  }
 }
 
 // Widths of the two ping-pong buffers: activations 0, 2, 4, ... live in

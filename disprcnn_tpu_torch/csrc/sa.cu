@@ -121,38 +121,9 @@ sa_kernel(const float* __restrict__ xyz, const float* __restrict__ centers,
     return;
   }
 
-  // 3. the hidden layers, then the last one 128 columns at a time, reduced
-  //    over each ball through `chunk`
-  float* in;
-  int ld;
-  mlp::hidden_layers<RT>(chain, buf0, ld0, buf1, ld1, &in, &ld);
-  const int last = chain.layers - 1;
-  const int ci = chain.c[last], co = chain.c[chain.layers];
-  const float* W = chain.w[last];
-  const float* bias = chain.b[last];
-  const int tx = tid & 31, ty = tid >> 5;
-  for (int col0 = 0; col0 < co; col0 += mlp::kColChunk) {
-    float acc[RT][4];
-    mlp::tile_product<RT>(in, ld, ci, W, co, col0, chain.vec != 0, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + 4 * tx + j;
-      const float bv = col < co ? __ldg(bias + col) : 0.f;
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-        chunk[(ty + 8 * i) * mlp::kColChunk + 4 * tx + j] = fmaxf(acc[i][j] + bv, 0.f);
-    }
-    __syncthreads();
-    for (int e = tid; e < tiles * mlp::kColChunk; e += mlp::kThreads) {
-      const int t = e / mlp::kColChunk, cl = e - t * mlp::kColChunk;
-      const int col = col0 + cl, mc = m0 + t;
-      if (col >= co || mc >= m) continue;
-      float mx = chunk[(t * s) * mlp::kColChunk + cl];
-      for (int r = 1; r < s; ++r) mx = fmaxf(mx, chunk[(t * s + r) * mlp::kColChunk + cl]);
-      out_b[(size_t)mc * co + col] = mx;
-    }
-    __syncthreads();
-  }
+  // 3. the chain, the last layer reduced over each ball (mlp.cuh)
+  mlp::chain_max<RT>(chain, buf0, ld0, buf1, ld1, chunk, min(tiles, m - m0), s,
+                     out_b + (size_t)m0 * chain.c[chain.layers]);
 }
 
 size_t shared_bytes(int rows, int ld0, int ld1) {

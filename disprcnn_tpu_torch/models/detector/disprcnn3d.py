@@ -170,7 +170,9 @@ class DispRCNN3D(nn.Module):
     BinaryCrossEntropy, rpn_nms_thresh_train unset) are not options here:
     the port runs only those values. Its DISPRCNN_SA_MIN_C0 and
     DISPRCNN_RCNN_ROI_BLOCK knobs are the arguments sa_min_c0 and
-    roi_block, with the shipped values."""
+    roi_block, with the shipped values; DISPRCNN_PALLAS_DISABLE's PointNet++
+    tags ("sa", "pool", "fp") are the argument kernels_off (none off by
+    default; models/pointrcnn/pointnet2.py)."""
 
     def __init__(self, max_det: int = 32, roi_size: int = 224, maxdisp: int = 48,
                  mindisp: int = -48, npoints: int = 768, lift_grid: int = 112,
@@ -182,8 +184,8 @@ class DispRCNN3D(nn.Module):
                  rpn_pre_nms_per_roi_train: Optional[int] = None, rcnn_rois_per_instance: int = 16,
                  sa_npoints: Tuple[int, ...] = (768, 512, 256, 64), rpn_score_thresh: float = 0.3,
                  rpn_nms_thresh: float = 0.8, psm_hourglass: int = 3,
-                 sa_min_c0: int = SA_MIN_C0, roi_block: int = ROI_BLOCK,
-                 device: str | torch.device = "cuda"):
+                 sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset(),
+                 roi_block: int = ROI_BLOCK, device: str | torch.device = "cuda"):
         super().__init__()
         self.max_det = max_det
         self.roi_size = roi_size
@@ -200,7 +202,7 @@ class DispRCNN3D(nn.Module):
                     npoints=npoints, mean_size=mean_size, proposals_per_roi=proposals_per_roi,
                     rpn_pre_nms_per_roi=rpn_pre_nms_per_roi, sa_npoints=sa_npoints,
                     rpn_score_thresh=rpn_score_thresh, rpn_nms_thresh=rpn_nms_thresh,
-                    sa_min_c0=sa_min_c0, roi_block=roi_block,
+                    sa_min_c0=sa_min_c0, kernels_off=kernels_off, roi_block=roi_block,
                     proposals_per_roi_train=proposals_per_roi_train,
                     rpn_pre_nms_per_roi_train=rpn_pre_nms_per_roi_train,
                     rcnn_rois_per_instance=rcnn_rois_per_instance)

@@ -34,8 +34,8 @@ class PointRCNN(nn.Module):
                  rpn_nms_thresh: float = 0.8, rcnn_num_points: int = 512,
                  rcnn_score_thresh: float = 0.1,
                  sa_npoints: Tuple[int, ...] = (768, 512, 256, 64),
-                 sa_min_c0: int = SA_MIN_C0, roi_block: int = ROI_BLOCK,
-                 proposals_per_roi_train: Optional[int] = None,
+                 sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset(),
+                 roi_block: int = ROI_BLOCK, proposals_per_roi_train: Optional[int] = None,
                  rpn_pre_nms_per_roi_train: Optional[int] = None,
                  rcnn_rois_per_instance: int = 16):
         super().__init__()
@@ -55,9 +55,9 @@ class PointRCNN(nn.Module):
         self.rpn_pre_nms_per_roi_train = rpn_pre_nms_per_roi_train
         self.rcnn_rois_per_instance = rcnn_rois_per_instance
         self.rpn = rpn3d.RPN3D(codec_cfg=rpn_codec, use_bn=rpn_use_bn, npoints=sa_npoints,
-                               sa_min_c0=sa_min_c0)
+                               sa_min_c0=sa_min_c0, kernels_off=kernels_off)
         self.rcnn = rcnn3d.RCNNNet(rpn_channels=self.rpn.backbone.out_channels,
-                                   sa_min_c0=sa_min_c0)
+                                   sa_min_c0=sa_min_c0, kernels_off=kernels_off)
         self.eval()  # train mode only on request (model.train())
 
     def forward(self, pts: torch.Tensor, roi_valid: torch.Tensor, angles: torch.Tensor,

@@ -7,24 +7,41 @@ are the Flax ones (``mlp{i}``, ``bn{i}``, ``mlp_scale{i}``, ``sa{k}``,
 ``fp{i}``), so utils/weights.py maps the JAX variables one to one.
 
 Where the TPU runs a Pallas kernel, the port runs its CUDA kernel (plain
-version on the CPU):
+version on the CPU), with the JAX package's gates in the JAX order
+(disprcnn_tpu pointnet2.py:194-248):
 
 - a ball-grouped scale whose first layer has >= ``sa_min_c0`` channels
   (64, the shipped DISPRCNN_SA_MIN_C0) and that has input features: the
-  fused SA kernel (ops/cuda/sa.py), with mlp0 factored as the TPU does:
-  its feature columns applied at the N source points plus its bias, its xyz
-  columns on the float32-centred neighbour offsets inside the kernel;
+  fused SA kernel, row 10 (ops/cuda/sa.py), with mlp0 factored as the TPU
+  does: its feature columns applied at the N source points plus its bias,
+  its xyz columns on the float32-centred neighbour offsets inside the
+  kernel;
+- in eval, any other scale of >= ``sa_min_c0`` channels, and every such
+  scale when the SA family is off: the ``pool`` route. The factored
+  grouped pre-activation (mlp0's feature columns gathered, plus the xyz
+  term; the xyz term plus mlp0's bias without features) is formed per
+  chunk of clouds of at most GROUPED_CHUNK_ELEMS float32 values, and the
+  grouped MLP + max kernel, row 12 (ops/cuda/grouped_mlp.py), takes each
+  chunk;
 - feature propagation with both known points and skip features: the fused
-  FP kernel (ops/cuda/fp.py).
+  FP kernel, row 13 (ops/cuda/fp.py).
+
+``kernels_off`` is the port's form of DISPRCNN_PALLAS_DISABLE for these
+families: a set of the JAX tags "sa", "pool" and "fp", each of which sends
+its scales down the next route (SA off: the pool route; pool off: the plain
+arithmetic; FP off: the plain interpolation and MLP). It is a route the
+caller asks for; nothing sets it on a failure.
 
 The other scales (RPN SA0, below the gate and without features; the
 group-all scale) and FP level 0 (no skip features) run the XLA path's
 arithmetic in plain PyTorch, as the TPU runs them in XLA.
 
-Train mode is ported for the BN-free MLPs (the RCNN): a scale that takes
-the SA kernel in eval takes its train form (``sa_ball_mlp_max_train``:
-the kernel forward, the plain version's backward; pointnet2.py:209-219).
-Training an MLP with BN (the RPN, stage 3) raises NotImplementedError.
+Train mode is ported for the BN-free MLPs (the RCNN): a scale with
+features and >= ``sa_min_c0`` channels takes the SA kernel's train form
+(``sa_ball_mlp_max_train``: the kernel forward, the plain version's
+backward; pointnet2.py:209-219), whether or not "sa" is off (JAX's train
+gate reads its own tag, "satrain"). Training an MLP with BN (the RPN,
+stage 3) raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -34,12 +51,29 @@ import torch
 from torch import nn
 
 from ...ops.cuda.fp import fp_fused
+from ...ops.cuda.grouped_mlp import grouped_mlp_max
 from ...ops.cuda.sa import sa_ball_mlp_max, sa_ball_mlp_max_train
 from ...ops.points import (ball_query, fps_or_identity, gather_points, group_points,
                            three_interpolate, three_nn, three_nn_interpolate_weights)
 
 BN_EPS = 1e-5
 SA_MIN_C0 = 64  # disprcnn_tpu pointnet2._sa_min_c0, the shipped gate
+# the JAX package's DISPRCNN_PALLAS_DISABLE tags of the PointNet++ families
+KERNEL_TAGS = ("sa", "pool", "fp")
+# The pool route forms the grouped pre-activation per chunk of clouds of at
+# most this many float32 values (1 GiB): RCNN SA0's whole tensor is 8.6 GB
+# at the headline budget (2048 x 128 x 64 x 128) and 26.8 GB for a
+# reference-budget block of 6400 clouds, before the gather's temporaries.
+GROUPED_CHUNK_ELEMS = 1 << 28
+
+
+def kernel_tags(tags) -> frozenset:
+    """`tags` as a frozenset of KERNEL_TAGS; raises ValueError on any other."""
+    tags = frozenset(tags)
+    unknown = sorted(tags - set(KERNEL_TAGS))
+    if unknown:
+        raise ValueError(f"unknown kernel family {unknown}: the tags are {KERNEL_TAGS}")
+    return tags
 
 
 def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
@@ -107,36 +141,64 @@ class SharedMLP(nn.Module):
         return self.layers_from(x, 0)
 
 
+def grouped_preactivation(xyz: torch.Tensor, v: Optional[torch.Tensor], new_xyz: torch.Tensor,
+                          w0x: torch.Tensor, b0: Optional[torch.Tensor], radius: float,
+                          nsample: int) -> torch.Tensor:
+    """mlp0 over each ball, factored: v (mlp0's feature columns applied at
+    the source points, plus its bias) gathered, plus the xyz columns w0x (3,
+    C0) on the centred offsets; without features the xyz term plus b0 ->
+    (B, M, S, C0)."""
+    idx = ball_query(new_xyz, xyz, radius, nsample)
+    gx = group_points(xyz, idx) - new_xyz[:, :, None, :]
+    term = (gx[..., 0:1] * w0x[0] + gx[..., 1:2] * w0x[1]) + gx[..., 2:3] * w0x[2]
+    if v is not None:
+        return group_points(v, idx) + term
+    return term if b0 is None else term + b0
+
+
 def ball_mlp_max(mlp: SharedMLP, xyz: torch.Tensor, features: Optional[torch.Tensor],
-                 new_xyz: torch.Tensor, radius: float, nsample: int,
-                 sa_min_c0: int) -> torch.Tensor:
+                 new_xyz: torch.Tensor, radius: float, nsample: int, sa_min_c0: int,
+                 kernels_off: frozenset = frozenset()) -> torch.Tensor:
     """One ball-grouped scale: SharedMLP over each ball of centred xyz (and
     features), max over the ball -> (B, M, C_last)."""
     w0 = mlp.dense(0).weight  # (C0, 3 + C)
     b0 = mlp.dense(0).bias
+    c0 = mlp.channels[0]
+    gated = c0 >= sa_min_c0
     v = None
     if features is not None:
         v = features @ w0[:, 3:].t()
         if b0 is not None:
             v = v + b0
-    if v is not None and mlp.channels[0] >= sa_min_c0:
-        c0 = mlp.channels[0]
-        mlp.check_trainable()
-        mul0, add0 = (mlp.bn_affine(0) if mlp.use_bn
-                      else (torch.ones(c0, device=v.device), torch.zeros(c0, device=v.device)))
-        sa = sa_ball_mlp_max_train if mlp.training else sa_ball_mlp_max
-        return sa(xyz, new_xyz, v.contiguous(), w0[:, :3].t().contiguous(), mul0.contiguous(),
-                  add0.contiguous(), mlp.folded_chain(1), radius, nsample)
-    idx = ball_query(new_xyz, xyz, radius, nsample)
-    gx = group_points(xyz, idx) - new_xyz[:, :, None, :]
     w0x = w0[:, :3].t()
-    term = (gx[..., 0:1] * w0x[0] + gx[..., 1:2] * w0x[1]) + gx[..., 2:3] * w0x[2]
-    if v is not None:
-        x = group_points(v, idx) + term
-    else:
-        x = term if b0 is None else term + b0
+    if gated and (mlp.training or "sa" not in kernels_off) and v is not None:
+        mlp.check_trainable()
+        mul0, add0 = mlp_affine0(mlp, v.device)
+        sa = sa_ball_mlp_max_train if mlp.training else sa_ball_mlp_max
+        return sa(xyz, new_xyz, v.contiguous(), w0x.contiguous(), mul0, add0,
+                  mlp.folded_chain(1), radius, nsample)
+    if gated and not mlp.training and "pool" not in kernels_off:
+        mul0, add0 = mlp_affine0(mlp, xyz.device)
+        weights = mlp.folded_chain(1)
+        b, m = new_xyz.shape[:2]
+        step = max(1, GROUPED_CHUNK_ELEMS // (m * nsample * c0))
+        outs = []
+        for lo in range(0, b, step):
+            x = grouped_preactivation(xyz[lo:lo + step], None if v is None else v[lo:lo + step],
+                                      new_xyz[lo:lo + step], w0x, b0, radius, nsample)
+            outs.append(grouped_mlp_max(x.reshape(-1, nsample, c0), mul0, add0, weights))
+        return torch.cat(outs, 0).reshape(b, m, -1)
+    x = grouped_preactivation(xyz, v, new_xyz, w0x, b0, radius, nsample)
     x = torch.relu(mlp.norm(0, x))
     return mlp.layers_from(x, 1).amax(dim=2)
+
+
+def mlp_affine0(mlp: SharedMLP, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mul0, add0) of mlp0's eval BN, ones and zeros without BN, contiguous."""
+    if mlp.use_bn:
+        return tuple(t.contiguous() for t in mlp.bn_affine(0))
+    c0 = mlp.channels[0]
+    return torch.ones(c0, device=device), torch.zeros(c0, device=device)
 
 
 class SAModuleMSG(nn.Module):
@@ -144,10 +206,11 @@ class SAModuleMSG(nn.Module):
 
     def __init__(self, npoint: int, radii: Sequence[float], nsamples: Sequence[int],
                  mlps: Sequence[Sequence[int]], in_features: int, use_bn: bool = True,
-                 sa_min_c0: int = SA_MIN_C0):
+                 sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset()):
         super().__init__()
         self.npoint, self.radii, self.nsamples = npoint, tuple(radii), tuple(nsamples)
         self.sa_min_c0 = sa_min_c0
+        self.kernels_off = kernel_tags(kernels_off)
         for i, mlp in enumerate(mlps):
             setattr(self, f"mlp_scale{i}", SharedMLP(mlp, 3 + in_features, use_bn))
         self.out_channels = sum(m[-1] for m in mlps)
@@ -156,7 +219,7 @@ class SAModuleMSG(nn.Module):
         idx = fps_or_identity(xyz, self.npoint)
         new_xyz = xyz if idx is None else gather_points(xyz, idx)
         outs = [ball_mlp_max(getattr(self, f"mlp_scale{i}"), xyz, features, new_xyz, r, ns,
-                             self.sa_min_c0)
+                             self.sa_min_c0, self.kernels_off)
                 for i, (r, ns) in enumerate(zip(self.radii, self.nsamples))]
         return new_xyz, torch.cat(outs, dim=-1)
 
@@ -167,10 +230,11 @@ class SAModule(nn.Module):
 
     def __init__(self, npoint: Optional[int], radius: Optional[float],
                  nsample: Optional[int], mlp: Sequence[int], in_features: int,
-                 use_bn: bool = True, sa_min_c0: int = SA_MIN_C0):
+                 use_bn: bool = True, sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset()):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.sa_min_c0 = sa_min_c0
+        self.kernels_off = kernel_tags(kernels_off)
         self.mlp = SharedMLP(mlp, 3 + in_features, use_bn)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor]):
@@ -181,19 +245,21 @@ class SAModule(nn.Module):
         idx = fps_or_identity(xyz, self.npoint)
         new_xyz = xyz if idx is None else gather_points(xyz, idx)
         return new_xyz, ball_mlp_max(self.mlp, xyz, features, new_xyz, self.radius,
-                                     self.nsample, self.sa_min_c0)
+                                     self.nsample, self.sa_min_c0, self.kernels_off)
 
 
 class FPModule(nn.Module):
     """Feature propagation: 3-NN inverse-distance interpolation, concat with
     the skip features, SharedMLP."""
 
-    def __init__(self, mlp: Sequence[int], in_channels: int, use_bn: bool = True):
+    def __init__(self, mlp: Sequence[int], in_channels: int, use_bn: bool = True,
+                 kernels_off=frozenset()):
         super().__init__()
         self.mlp = SharedMLP(mlp, in_channels, use_bn)
+        self.kernels_off = kernel_tags(kernels_off)
 
     def forward(self, unknown, known, unknown_feats, known_feats):
-        if known is not None and unknown_feats is not None:
+        if known is not None and unknown_feats is not None and "fp" not in self.kernels_off:
             return fp_fused(unknown, known, known_feats.contiguous(), unknown_feats.contiguous(),
                             self.mlp.folded_chain(0))
         if known is not None:
@@ -221,19 +287,20 @@ class Pointnet2MSG(nn.Module):
                      ((256, 256, 512), (256, 384, 512))),
                  fp_mlps: Sequence[Sequence[int]] = ((128, 128), (256, 256), (512, 512),
                                                      (512, 512)),
-                 in_features: int = 0, use_bn: bool = True, sa_min_c0: int = SA_MIN_C0):
+                 in_features: int = 0, use_bn: bool = True, sa_min_c0: int = SA_MIN_C0,
+                 kernels_off=frozenset()):
         super().__init__()
         levels = len(npoints)
         self.levels = levels
         feat = [in_features]
         for k in range(levels):
             sa = SAModuleMSG(npoints[k], radii[k], nsamples[k], mlps[k], feat[k], use_bn,
-                             sa_min_c0)
+                             sa_min_c0, kernels_off)
             setattr(self, f"sa{k}", sa)
             feat.append(sa.out_channels)
         for i in range(levels - 1, -1, -1):
             known = feat[levels] if i == levels - 1 else fp_mlps[i + 1][-1]
-            setattr(self, f"fp{i}", FPModule(fp_mlps[i], known + feat[i], use_bn))
+            setattr(self, f"fp{i}", FPModule(fp_mlps[i], known + feat[i], use_bn, kernels_off))
         self.out_channels = fp_mlps[0][-1]
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None):
@@ -246,3 +313,13 @@ class Pointnet2MSG(nn.Module):
             l_feats[i] = getattr(self, f"fp{i}")(l_xyz[i], l_xyz[i + 1], l_feats[i],
                                                  l_feats[i + 1])
         return l_xyz[0], l_feats[0]
+
+
+def set_kernels_off(model: nn.Module, tags) -> None:
+    """Route every PointNet++ module of a built model as ``kernels_off``
+    would have at construction (a bench or smoke run switches routes on
+    models it already holds)."""
+    tags = kernel_tags(tags)
+    for mod in model.modules():
+        if isinstance(mod, (SAModuleMSG, SAModule, FPModule)):
+            mod.kernels_off = tags

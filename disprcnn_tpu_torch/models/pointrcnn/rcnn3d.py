@@ -50,7 +50,8 @@ class RCNNNet(nn.Module):
                  sa_mlps: Sequence[Sequence[int]] = ((128, 128, 128), (128, 128, 256),
                                                      (256, 256, 512)),
                  cls_fc: Sequence[int] = (256, 256), reg_fc: Sequence[int] = (256, 256),
-                 rpn_channels: int = 128, input_extra: int = 2, sa_min_c0: int = SA_MIN_C0):
+                 rpn_channels: int = 128, input_extra: int = 2, sa_min_c0: int = SA_MIN_C0,
+                 kernels_off=frozenset()):
         super().__init__()
         self.nc_in = 3 + input_extra
         self.xyz_up = SharedMLP(xyz_up, self.nc_in, use_bn=False)
@@ -59,7 +60,8 @@ class RCNNNet(nn.Module):
         self.n_sa = len(sa_npoints)
         for i, (npt, r, ns, mlp) in enumerate(zip(sa_npoints, sa_radius, sa_nsample, sa_mlps)):
             setattr(self, f"sa{i}", SAModule(None if npt == -1 else npt, r, ns, mlp, feat,
-                                             use_bn=False, sa_min_c0=sa_min_c0))
+                                             use_bn=False, sa_min_c0=sa_min_c0,
+                                             kernels_off=kernels_off))
             feat = mlp[-1]
         self.cls_fc, self.reg_fc = tuple(cls_fc), tuple(reg_fc)
         for name, hidden, out in (("cls", cls_fc, 1), ("reg", reg_fc, RCNN_CODEC.reg_channels)):

@@ -46,9 +46,10 @@ class RPN3D(nn.Module):
     def __init__(self, codec_cfg: codec.CodecCfg = codec.CodecCfg(),
                  cls_fc: Sequence[int] = (128,), reg_fc: Sequence[int] = (128,),
                  use_bn: bool = True, npoints: Sequence[int] = (4096, 1024, 256, 64),
-                 sa_min_c0: int = SA_MIN_C0):
+                 sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset()):
         super().__init__()
-        self.backbone = Pointnet2MSG(npoints=npoints, use_bn=use_bn, sa_min_c0=sa_min_c0)
+        self.backbone = Pointnet2MSG(npoints=npoints, use_bn=use_bn, sa_min_c0=sa_min_c0,
+                                     kernels_off=kernels_off)
         c = self.backbone.out_channels
         self.cls_head = ConvHead(cls_fc, 1, c, use_bn)
         self.reg_head = ConvHead(reg_fc, codec_cfg.reg_channels, c, use_bn)

@@ -1,0 +1,187 @@
+"""The port's train stages for the bench (counterpart of
+tools/bench_train.py:bench_3d): the DispRCNN3D train step of the iDispNet
+stage (``psm``, configs/kitti/car/vob/idispnet.yaml) and of the RCNN
+stage (``pc``, rcnn.yaml) at bench_3d's geometry (384x1248 pairs, 16
+detections each), with random weights and synthetic detections and ground
+truth made from a seeded torch.Generator.
+
+``build_stage(name, pairs, gen)`` returns a ``TrainStage`` (model,
+optimizer, step, batch); ``time_steps`` runs and times it. The 2D (stage 1)
+step is not ported (ROADMAP A4): asking for it raises NotImplementedError.
+chip_smoke.py builds its train steps (phases 12-14) from the same pieces.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List
+
+import torch
+
+from ..bench import BENCH_3D, CALIB, IMG_HW, timed
+from ..engine.trainer import make_train_step
+from ..models.detector.disprcnn3d import DispRCNN3D
+from ..models.pointrcnn import rcnn3d
+from ..ops import roipool3d as troi
+from ..solver.build import frozen_path_prefixes, make_optimizer
+from ..solver.schedules import one_cycle, one_cycle_momentum
+from ..structures.stereo import StereoBoxes
+from ..utils.weights import init_random_
+
+# The stage configs at bench_3d's geometry. idispnet.yaml: ROI_MIN_SCORE
+# 0.5, MAX_ROI_FOR_TRAINING 12, WEIGHT_DECAY 1e-4, OneCycle BASE_LR 0.01
+# over MAX_ITER 41000; rcnn.yaml: MASK_THRESH 0.5, RPN.FIXED,
+# TRAIN.RPN_PRE/POST_NMS_TOP_N 9000/512 (pre capped at the 768 points),
+# RCNN.ROI_PER_IMAGE 16, FIX_DISPARITY, FIX_POINTRCNN_RPN, DO_GRAD_CLIP,
+# MAX_ITER 62100; the defaults' MOMENTUM 0.9, BIAS_LR_FACTOR 2 and
+# WEIGHT_DECAY_BIAS 0, GRAD_CLIP 10 as bench_3d sets it
+PSM_TRAIN = dict(max_det=16, roi_size=224, maxdisp=48, mindisp=-48, roi_min_score=0.5,
+                 max_roi_train=12)
+PC_TRAIN = dict(BENCH_3D, mask_thresh_train=0.5, rpn_pre_nms_per_roi_train=768,
+                proposals_per_roi_train=512, rcnn_rois_per_instance=16)
+PSM_ITER, PC_ITER, GRAD_CLIP = 41000, 62100, 10.0
+SOLVER = dict(momentum=0.9, weight_decay=1e-4, weight_decay_bias=0.0, bias_lr_factor=2.0)
+# pairs a step in the JAX bench's train stages (bench.py:412)
+BENCH_PAIRS = {"psm": 1, "pc": 1}
+
+
+@dataclass
+class TrainStage:
+    model: DispRCNN3D
+    optimizer: object
+    step: object
+    batch: dict
+    units: int  # crops a step (psm) or pairs a step (pc)
+    pairs: int
+    with_points: int = 0  # pc: instances with lifted points in a proposal
+
+
+def random_dets(gen: torch.Generator, b: int, d: int, img_hw=IMG_HW) -> StereoBoxes:
+    """(b, d) stereo detections inside img_hw: boxes 60-360 x 60-200 px
+    (narrower on a small image), the right box 10-30 px left of the left
+    one, scores above 0.55, masks uniform; on gen's device."""
+    h, w = img_hw
+    bw, bh = min(300, (w - 60) // 2), min(140, (h - 60) // 2)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=gen.device)
+
+    x1, y1 = u(b, d) * (w - 60 - bw), u(b, d) * (h - 60 - bh)
+    left = torch.stack([x1, y1, x1 + 60 + bw * u(b, d), y1 + 60 + bh * u(b, d)], -1)
+    shift = 10 + 20 * u(b, d)
+    right = left - torch.stack([shift, torch.zeros_like(shift)] * 2, -1)
+    return StereoBoxes(left=left, right=right, score=0.55 + 0.45 * u(b, d),
+                       valid=torch.ones(b, d, dtype=torch.bool, device=gen.device),
+                       fields={"mask": u(b, d, 28, 28)})
+
+
+def centre_rpn_boxes_(model: DispRCNN3D) -> None:
+    """Scale the random RPN's box-regression output down and bias its x and
+    z bins to the middle one: each proposal becomes a car-sized box about
+    its point (the random head throws them off the clouds, and every pooled
+    ROI comes out empty, so the sampler finds no foreground)."""
+    out = model.pointrcnn.rpn.reg_head.out
+    nbin = model.pointrcnn.rpn_codec.per_loc_bin_num
+    with torch.no_grad():
+        out.weight.mul_(0.01)
+        out.bias.zero_()
+        out.bias[[nbin // 2, nbin + nbin // 2]] = 2.0
+
+
+def psm_stage(pairs: int, gen: torch.Generator, cfg: dict = PSM_TRAIN,
+              img_hw=IMG_HW) -> TrainStage:
+    """The iDispNet step: SGD with OneCycle, a smooth ground-truth
+    disparity."""
+    dev = gen.device
+    model = init_random_(DispRCNN3D(**cfg, device=dev), gen)
+    opt = make_optimizer(model, one_cycle(0.01, PSM_ITER), one_cycle_momentum(PSM_ITER),
+                         **SOLVER)
+    step = make_train_step(model, opt, forward_kwargs=dict(train_psm=True))
+    h, w = img_hw
+    cols = torch.arange(w, device=dev, dtype=torch.float32)
+    batch = dict(left_img=torch.rand(pairs, h, w, 3, generator=gen, device=dev),
+                 right_img=torch.rand(pairs, h, w, 3, generator=gen, device=dev),
+                 dets=random_dets(gen, pairs, cfg["max_det"], img_hw),
+                 gt_disp=(20 + 5 * torch.sin(cols / 40)).expand(pairs, h, w).contiguous())
+    crops = pairs * min(cfg["max_det"], cfg.get("max_roi_train") or cfg["max_det"])
+    return TrainStage(model, opt, step, batch, crops, pairs)
+
+
+def pc_stage(pairs: int, gen: torch.Generator, cfg: dict = PC_TRAIN, img_hw=IMG_HW,
+             calib: dict = CALIB) -> TrainStage:
+    """The RCNN step on a fixed RPN whose box regression is centred
+    (centre_rpn_boxes_): each instance's ground-truth box is its proposal
+    that holds the most lifted points, found by one train-mode forward.
+    Raises if no instance has a proposal with points."""
+    dev = gen.device
+    model = init_random_(DispRCNN3D(**cfg, device=dev), gen)
+    centre_rpn_boxes_(model)
+    frozen = frozen_path_prefixes(FIX_DISPARITY=True, FIX_POINTRCNN_RPN=True)
+    opt = make_optimizer(model, one_cycle(0.01, PC_ITER), one_cycle_momentum(PC_ITER), frozen,
+                         **SOLVER)
+    step = make_train_step(model, opt, do_grad_clip=True, grad_clip=GRAD_CLIP,
+                           forward_kwargs=dict(train_pc=True))
+    h, w = img_hw
+    d = cfg["max_det"]
+    dets = random_dets(gen, pairs, d, img_hw)
+    prc = model.pointrcnn
+    batch = dict(left_img=torch.rand(pairs, h, w, 3, generator=gen, device=dev),
+                 right_img=torch.rand(pairs, h, w, 3, generator=gen, device=dev),
+                 dets=dets, calib={k: torch.full((pairs,), v, device=dev)
+                                   for k, v in calib.items()},
+                 priorities=torch.rand(pairs * d, cfg["lift_grid"] ** 2, generator=gen,
+                                       device=dev),
+                 rcnn_draws=rcnn3d.draw_rcnn_draws(pairs * d, prc.proposals_per_roi_train,
+                                                   prc.rcnn_rois_per_instance, 10, gen, dev),
+                 gt_left=dets.left, gt_valid=torch.ones(pairs, d, dtype=torch.bool, device=dev))
+    seen = {}
+    orig = rcnn3d.prepare_rcnn_train_inputs
+
+    def record(rois, roi_valid, gt, gt_ok, xyz, *args, **kwargs):
+        seen.update(rois=rois, roi_valid=roi_valid, xyz=xyz)
+        return orig(rois, roi_valid, gt, gt_ok, xyz, *args, **kwargs)
+
+    rcnn3d.prepare_rcnn_train_inputs = record
+    try:
+        model.train()
+        with torch.no_grad():
+            model(**batch, gt_boxes3d=torch.zeros(pairs, d, 7, device=dev), train_pc=True)
+    finally:
+        rcnn3d.prepare_rcnn_train_inputs = orig
+    inside = troi.pts_in_boxes3d(seen["xyz"], troi.enlarge_box3d(seen["rois"], 1.0)).sum(-1)
+    inside = torch.where(seen["roi_valid"], inside, torch.zeros_like(inside))
+    with_points = int((inside.amax(1) > 0).sum())
+    if with_points == 0:
+        raise AssertionError("RCNN step: no instance has a proposal with lifted points")
+    rows = torch.arange(pairs * d, device=dev)
+    batch["gt_boxes3d"] = seen["rois"][rows, inside.argmax(1)].reshape(pairs, d, 7)
+    return TrainStage(model, opt, step, batch, pairs, pairs, with_points)
+
+
+def build_stage(name: str, pairs: int, gen: torch.Generator) -> TrainStage:
+    """The train stage `name` ("psm" or "pc") at bench_3d's geometry."""
+    if name == "2d":
+        raise NotImplementedError("the 2D (stage 1) train step is not ported yet (ROADMAP A4)")
+    if name == "psm":
+        return psm_stage(pairs, gen)
+    if name == "pc":
+        return pc_stage(pairs, gen)
+    raise ValueError(f"unknown train stage {name!r}: the stages are {tuple(BENCH_PAIRS)} "
+                     f"(and 2d)")
+
+
+def time_steps(stage: TrainStage, steps: int, warmup: int = 1) -> List[float]:
+    """`warmup` untimed and `steps` timed steps -> ms per timed step (CUDA
+    events on the card, the host clock on the CPU). Each step's losses must
+    be finite, no step skipped and no trainable parameter left without a
+    gradient."""
+    ms = []
+    for i in range(warmup + steps):
+        m, dt = timed(lambda: stage.step(stage.batch), stage.model.device)
+        if i >= warmup:
+            ms.append(dt)
+        losses = {k: float(v) for k, v in m.items() if k.startswith("loss")}
+        if not all(v == v and abs(v) != float("inf") for v in losses.values()):
+            raise AssertionError(f"train step: non-finite losses {losses}")
+        if float(m["skipped_nonfinite"]) or int(m["params_without_grad"]):
+            raise AssertionError(f"train step skipped or parameters without gradient: {m}")
+    return ms

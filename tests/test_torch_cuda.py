@@ -13,6 +13,7 @@ from disprcnn_tpu_torch.ops import nms as tnms
 from disprcnn_tpu_torch.ops.cuda import conv3d as cconv
 from disprcnn_tpu_torch.ops.cuda import fp as cfp
 from disprcnn_tpu_torch.ops.cuda import fps as cfps
+from disprcnn_tpu_torch.ops.cuda import grouped_mlp as cgm
 from disprcnn_tpu_torch.ops.cuda import nms as cnms
 from disprcnn_tpu_torch.ops.cuda import roipool3d as croi
 from disprcnn_tpu_torch.ops.cuda import sa as csa
@@ -278,6 +279,59 @@ def test_sa_kernel_matches_plain(card, b, n, m, c0, chain, radius, s):
     want = csa.sa_ball_mlp_max_plain(*args, radius, s)
     assert got.shape == (b, m, chain[-1] if chain else c0)
     _close(got, want)
+
+
+@pytest.mark.parametrize("g,s,c0,chain,negative", [
+    (4096, 16, 64, (64, 128), False),    # RPN SA1 scale 0 (G cut from 65 536)
+    (4096, 32, 64, (96, 128), False),    # RPN SA1 scale 1
+    (2048, 16, 128, (196, 256), False),  # RPN SA2 (196 wide)
+    (1024, 32, 256, (384, 512), False),  # RPN SA3 scale 1, the widest chain
+    (2048, 64, 128, (128, 128), False),  # RCNN SA0
+    (2048, 64, 128, (128, 256), False),  # RCNN SA1
+    (1000, 16, 64, (64, 128), True),     # every pre-activation below 0: the max is 0
+    (777, 1, 128, (196, 256), False),    # S = 1
+    (301, 48, 64, (96, 128), False),     # S = 48: one group and 16 padding rows a tile
+    (1001, 16, 128, (128,), False),      # one layer, a last partial tile
+    (517, 32, 65, (70, 33, 18), False),  # widths not multiples of 4 (the scalar path)
+])
+def test_grouped_mlp_kernel_matches_plain(card, g, s, c0, chain, negative):
+    """Row 12: max |diff| <= 1e-4 * max |plain| + 1e-5 (float32 sums in
+    another order)."""
+    gen = torch.Generator(device="cuda").manual_seed(g + s + c0)
+    x, mul0, add0 = _randn(gen, g, s, c0), 1 + _randn(gen, c0, scale=0.3), _randn(gen, c0,
+                                                                                 scale=0.1)
+    if negative:
+        x, mul0, add0 = -(x.abs() + 1), mul0.abs() + 0.5, -add0.abs()
+    ws, cin = [], c0
+    for co in chain:
+        b = _randn(gen, co, scale=0.1)
+        ws.append((_randn(gen, cin, co, scale=cin ** -0.5), -b.abs() if negative else b))
+        cin = co
+    before = cgm.launches
+    got = cgm.grouped_mlp_max(x, mul0, add0, ws)
+    assert cgm.launches == before + 1
+    assert got.shape == (g, chain[-1])
+    want = cgm.grouped_mlp_max_plain(x, mul0, add0, ws)
+    _close(got, want)
+    if negative:
+        assert float(got.abs().max()) == 0.0
+
+
+def test_grouped_mlp_kernel_refuses_bad_inputs(card):
+    x, vec = torch.zeros(8, 16, 64, device=card), torch.zeros(64, device=card)
+    w = [(torch.zeros(64, 32, device=card), torch.zeros(32, device=card))]
+    with pytest.raises(ValueError, match="layers"):
+        cgm.grouped_mlp_max_cuda(x, vec, vec, [])
+    with pytest.raises(ValueError, match="layers"):
+        cgm.grouped_mlp_max_cuda(x, vec, vec, w * 5)
+    with pytest.raises(ValueError, match="S <= 64"):
+        cgm.grouped_mlp_max_cuda(torch.zeros(2, 65, 64, device=card), vec, vec, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        cgm.grouped_mlp_max_cuda(torch.zeros(8, 64, 16, device=card).transpose(1, 2), vec, vec,
+                                 w)
+    with pytest.raises(ValueError, match="CUDA"):
+        cgm.grouped_mlp_max_cuda(x.cpu(), vec.cpu(), vec.cpu(),
+                                 [(t.cpu(), b.cpu()) for t, b in w])
 
 
 @pytest.mark.parametrize("b,nt,ns,c,cs,chain", [

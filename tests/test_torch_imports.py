@@ -26,9 +26,10 @@ print("COUNT", sum(m.startswith("disprcnn_tpu_torch.") for m in sys.modules))
 print("LOADED", " ".join(sorted(m for m in sys.modules if m.startswith("disprcnn_tpu_torch."))))
 """
 
-# modules of the iDispNet and PointRCNN slices and of their train steps,
-# which chip_smoke.py drives on the card
+# modules of the iDispNet and PointRCNN slices, of their train steps and of
+# the bench, which chip_smoke.py drives on the card
 SLICE_MODULES = (
+    "disprcnn_tpu_torch.bench",
     "disprcnn_tpu_torch.engine.inference",
     "disprcnn_tpu_torch.engine.trainer",
     "disprcnn_tpu_torch.models.detector.disprcnn3d",
@@ -43,6 +44,7 @@ SLICE_MODULES = (
     "disprcnn_tpu_torch.ops.cuda.conv3d",
     "disprcnn_tpu_torch.ops.cuda.fp",
     "disprcnn_tpu_torch.ops.cuda.fps",
+    "disprcnn_tpu_torch.ops.cuda.grouped_mlp",
     "disprcnn_tpu_torch.ops.cuda.roipool3d",
     "disprcnn_tpu_torch.ops.cuda.sa",
     "disprcnn_tpu_torch.ops.cuda.softargmin",
@@ -53,6 +55,7 @@ SLICE_MODULES = (
     "disprcnn_tpu_torch.solver.build",
     "disprcnn_tpu_torch.solver.schedules",
     "disprcnn_tpu_torch.structures.boxes3d",
+    "disprcnn_tpu_torch.tools.bench_train",
 )
 
 
