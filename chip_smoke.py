@@ -5,9 +5,10 @@
 
 Phases, each ending in torch.cuda.synchronize() and one progress line:
   1. build every CUDA kernel of the port (build.SOURCES: csrc/nms.cu,
-     conv3d.cu, softargmin.cu, fps.cu, sa.cu, grouped_mlp.cu, fp.cu,
-     roipool3d.cu), one nvcc per source, all at once, into
-     disprcnn_tpu_torch/csrc/build/ (listed in .gitignore);
+     conv3d.cu, conv3d_tc.cu, softargmin.cu, fps.cu, sa.cu, grouped_mlp.cu,
+     fp.cu, roipool3d.cu), one nvcc per source, all at once, into
+     disprcnn_tpu_torch/csrc/build/ (listed in .gitignore), printing each
+     kernel's registers, spills and shared memory from ptxas;
   2. the greedy-NMS kernel against its plain PyTorch version at the SRPN
      call (8, 6000) k=300 IoU 0.7 and the box head's (8, 300) k=16 IoU 0.5,
      on random, clustered, duplicate, tied-score, all-invalid-row and
@@ -18,7 +19,8 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      ReLU), the cost-volume conv, the stride-1 3D conv (56^2, 28^2, 14^2;
      with and without residual and ReLU), its 32 -> 1 classifier form, the
      stride-2 and the transposed 3D convs of the hourglasses and the
-     soft-argmin;
+     soft-argmin; the tensor-core convs (stride 1 and 2) and their plain
+     versions are also compared with the same conv in float64 (logged);
   4. the PointRCNN kernels against their plain versions at every site
      shape of both budgets, on seeded clouds that hold empty, partial and
      full balls, coincident points, and boxes with no point, fewer than 512
@@ -54,6 +56,8 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      non-deterministic algorithms), and the bound of the work the function
      needs (products with padding or with the cost volume's empty columns,
      and neighbour slots that repeat a ball's first point, are not counted);
+     the tensor-core convs (rows 3 and 6, and row 8 in phase 17) also get
+     the bound at the 3xTF32 tensor-core rate (bound_tc_ms);
  10. where a request's time goes, at both budgets: one request split into
      stages (2D detector, crops, feature tower, cost volume + dres,
      hourglasses, classifiers + regression, lift, RPN backbone, RPN heads,
@@ -89,15 +93,23 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      supervision, SGD with OneCycle; 1 warm-up and TRAIN_STEPS timed steps
      with the kernels' launches counted from 0: finite losses, no skipped
      step, a finite gradient on every trainable parameter, moved BN
-     statistics; then one step from the same weights on the kernels and on
-     the plain versions (all_plain): the loss within 1e-4 relative, each
-     gradient tensor within 1e-3 * max |plain|;
+     statistics; then one step from the same weights on the kernels, on
+     the plain versions (all_plain), and on the plain versions with row 8
+     exact (float64, rounded once), in two more float32 orders and as one
+     TF32 product: the loss within 1e-4 relative of the plain step's; the
+     whole gradient no further from the exact step's than the plain
+     step's is, + 1e-3 of its norm, and each tensor within twice the
+     furthest float32 order's distance, + 1e-3 of its norm (STEP_GRAD_TOL
+     says why); the one-TF32 step, and the kernel step's gradients with
+     the smallest tensor negated, must both fail that check;
  16. the RCNN train step (configs/kitti/car/vob/rcnn.yaml, tools/
      bench_train.py): 1 pair, 16 detections lifted to 768 points, iDispNet
      and the RPN frozen (eval, no gradients), TRAIN proposals 768 -> 512, 16
      RCNN ROIs per instance (256 x 512 pooled points), AUG_DATA with 10
      noise trials, grad clip 10; the same checks, the kernel and plain
-     steps sharing one frozen-stage output;
+     steps sharing one frozen-stage output and starting from the seeded
+     weights (the timed steps leave weights that differ in their last bits
+     from run to run);
  17. each train form timed on the inputs one step gave it (row 8 forward
      and dx, row 11 forward), beside its plain version, the library call
      (row 8: F.conv3d and cuDNN's input gradient) and its bound; ms per
@@ -115,6 +127,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import sys
 import time
 import traceback
@@ -194,9 +207,14 @@ DISP_TOL_PX = 1e-2
 # points must be within the tolerance, and roi_ok and random equal.
 BOX3D_TOL = 1e-3
 BOX3D_AGREE = 0.95
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit); the 3xTF32 rate is
+# the dense TF32 tensor-core peak over the 3 TF32 products a float32 product
+# takes in csrc/conv3d_tc.cu
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TC_3XTF32_OPS_PER_S = 495e12 / 3
+# the rows whose kernel runs on the tensor cores, with a second bound at that rate
+TC_ROWS = ("conv3d", "conv3d_s2", "conv3d_train")
 IOU_OPS = 17  # float ops of one IoU and its threshold test (nms.cu box_iou)
 # soft-argmin: ops per (pixel, logit slice) of the bilinear H/W taps, and per
 # (pixel, disparity) of the D interpolation, exp, running max and two sums
@@ -255,9 +273,23 @@ TRAIN_CONV_SITES = ((24, 32, 24, 56), (24, 64, 12, 28), (24, 64, 6, 14))
 TRAIN_SA_SITES = (("RCNN SA0", 256, 512, 128, 128, (128, 128), 0.2, 64),
                   ("RCNN SA1", 256, 128, 32, 128, (128, 256), 0.4, 64))
 # Kernel against plain train step from the same weights: losses within
-# 1e-4 relative, each gradient tensor within 1e-3 * max |plain|
+# 1e-4 relative, each gradient tensor within 1e-3 * max |plain|. The
+# iDispNet step's gradients are ill-conditioned in row 8's rounding (ReLUs
+# at ~0 flip, ROADMAP.md C19): any float32 row 8 that does not repeat
+# cuDNN's sums bit for bit, cuDNN itself over the channels in another order
+# included, is off the plain step by more than 1e-3 of max |plain| on most
+# tensors, up to ~2e-2 (PERF.md, Findings). That step is held instead to
+# one whose row 8 is exact (float64, rounded once to float32), beside
+# STEP_ORDERS, the plain step and two more float32 orders of row 8:
+# - over the whole gradient (2-norms over every tensor), |g_kernel -
+#   g_exact| <= |g_plain - g_exact| + 1e-3 |g_exact|;
+# - each tensor within STEP_ORDER_FACTOR times the furthest order's
+#   distance from the exact step's, + 1e-3 of its norm (2-norms).
+# Two controls must fail that check: row 8 as one TF32 product, and the
+# kernel step's gradients with their smallest tensor negated.
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_TOL = 1e-3
+STEP_ORDER_FACTOR = 2
 
 
 def log(msg: str) -> None:
@@ -271,11 +303,12 @@ def phase_build() -> float:
     dt = time.perf_counter() - t0
     for name in names:
         for line in texts[name].splitlines():
-            if "registers" in line or "bytes stack" in line:
+            if "entry function" in line or "registers" in line or "bytes stack" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     # load them: a library that does not load fails here
     for mod in (cuda_nms, cconv, csam, cfps, csa, cgm, cfp, croi):
         mod._lib()
+    cconv._tc_lib()
     torch.cuda.synchronize()
     log(f"[1/{PHASES}] build: {', '.join(n + '.cu' for n in names)} with nvcc in {dt:.1f} s")
     return dt
@@ -307,21 +340,41 @@ def launches_replaced(**fns):
             setattr(modules[name], name, fn)
 
 
-def all_plain():
-    return launches_replaced(nms_sorted_cuda=cuda_nms.nms_sorted_plain,
-                             conv3d_bn_cuda=cconv.conv3d_bn_plain,
-                             cost_volume_conv_bn_cuda=cconv.cost_volume_conv_bn_plain,
-                             deconv3d_bn_cuda=cconv.deconv3d_bn_plain,
-                             conv2d_bn_cuda=cconv.conv2d_bn_plain,
-                             softargmin_cuda=csam.softargmin_plain,
-                             furthest_point_sample_cuda=cfps.furthest_point_sample_plain,
-                             sa_ball_mlp_max_cuda=csa.sa_ball_mlp_max_plain,
-                             grouped_mlp_max_cuda=cgm.grouped_mlp_max_plain,
-                             fp_fused_cuda=cfp.fp_fused_plain,
-                             roipool3d_cuda=croi.roipool3d_plain,
-                             conv3d_train_cuda=cconv.conv3d_train_plain,
-                             conv3d_train_dx_cuda=cconv.conv3d_train_dx_plain,
-                             sa_ball_mlp_max_train_cuda=csa.sa_ball_mlp_max_plain)
+def all_plain(**overrides):
+    """Every launch point routed to its plain version (or to `overrides`)."""
+    plain = dict(nms_sorted_cuda=cuda_nms.nms_sorted_plain,
+                 conv3d_bn_cuda=cconv.conv3d_bn_plain,
+                 cost_volume_conv_bn_cuda=cconv.cost_volume_conv_bn_plain,
+                 deconv3d_bn_cuda=cconv.deconv3d_bn_plain,
+                 conv2d_bn_cuda=cconv.conv2d_bn_plain,
+                 softargmin_cuda=csam.softargmin_plain,
+                 furthest_point_sample_cuda=cfps.furthest_point_sample_plain,
+                 sa_ball_mlp_max_cuda=csa.sa_ball_mlp_max_plain,
+                 grouped_mlp_max_cuda=cgm.grouped_mlp_max_plain,
+                 fp_fused_cuda=cfp.fp_fused_plain,
+                 roipool3d_cuda=croi.roipool3d_plain,
+                 conv3d_train_cuda=cconv.conv3d_train_plain,
+                 conv3d_train_dx_cuda=cconv.conv3d_train_dx_plain,
+                 sa_ball_mlp_max_train_cuda=csa.sa_ball_mlp_max_plain)
+    return launches_replaced(**{**plain, **overrides})
+
+
+def row8_as(conv) -> dict:
+    """Row 8's two launch points (forward and input gradient) computed by
+    conv(x, weight), a stride-1 pad-1 3x3x3 conv."""
+    return dict(conv3d_train_cuda=conv,
+                conv3d_train_dx_cuda=lambda dy, w: conv(dy.contiguous(), cconv.flip_transpose(w)))
+
+
+# the iDispNet step's row 8 other ways (launch overrides on top of all_plain):
+# exact (float64, rounded once), the float32 orders that the gradient check
+# reads besides the plain step's, and the control that it must reject
+ROW8_EXACT = row8_as(lambda x, w: F.conv3d(x.double(), w.double(), padding=1).float())
+STEP_ORDERS = {
+    "cuDNN, channels reversed": row8_as(lambda x, w: F.conv3d(x.flip(1), w.flip(1), padding=1)),
+    "3xTF32 emulation": row8_as(cconv.conv3d_bn_3xtf32_plain)}
+ROW8_ONE_TF32 = row8_as(lambda x, w: F.conv3d(cconv.split_tf32(x)[0], cconv.split_tf32(w)[0],
+                                              padding=1))
 
 
 def nms_case(kind: str, b: int, n: int, gen: torch.Generator):
@@ -404,6 +457,25 @@ def phase_3d_compare() -> dict:
         log(f"  {name} {what} -> {tuple(got.shape)}: max |diff| {e:.3g} "
             f"(max |plain| {float(want.abs().max()):.3g})")
 
+    def check_tc(name, what, x, w, mul, add, rt, relu, stride):
+        """A tensor-core conv (rows 3 and 6) against its plain version, and
+        both against the same conv in float64 (max |diff| / max |exact|);
+        its weight packing, and the input gradient's, equal to their plain
+        version."""
+        for flip in (False, True):
+            if not torch.equal(cconv.pack_tf32_weight_cuda(w, flip), cconv.pack_tf32_weight(
+                    cconv.flip_transpose(w) if flip else w)):
+                raise AssertionError(f"{name}: the weight packing (flip={flip}) != its plain "
+                                     f"version at {tuple(w.shape)}")
+        got = cconv.conv3d_bn_cuda(x, w, mul, add, rt, relu, stride)
+        want = cconv.conv3d_bn_plain(x, w, mul, add, rt, relu, stride)
+        check(name, what, got, want)
+        exact = cconv.conv3d_bn_plain(*(None if t is None else t.double()
+                                        for t in (x, w, mul, add, rt)), relu, stride)
+        scale = float(exact.abs().max())
+        log(f"    against float64: kernel {float((got - exact).abs().max()) / scale:.3g}, plain "
+            f"{float((want - exact).abs().max()) / scale:.3g} of max |exact|")
+
     # the tower's 3x3 stride-1 convs: (channels, side, residual, relu)
     for c, s, res, relu in ((32, 2 * q, False, True), (32, 2 * q, True, False),
                             (64, q, False, True), (64, q, True, False)):
@@ -431,9 +503,8 @@ def phase_3d_compare() -> dict:
         w = randn(c, c, 3, 3, 3, scale=0.05)
         mul, add = affine(c)
         rt = randn(r, c, d, s, s) if res else None
-        check("conv3d", f"{tuple(x.shape)} residual={res} relu={relu}",
-              cconv.conv3d_bn_cuda(x, w, mul, add, rt, relu),
-              cconv.conv3d_bn_plain(x, w, mul, add, rt, relu))
+        check_tc("conv3d", f"{tuple(x.shape)} residual={res} relu={relu}", x, w, mul, add, rt,
+                 relu, 1)
         del x, rt
     x = randn(r, 32, d4, q, q)
     w = randn(1, 32, 3, 3, 3, scale=0.05)
@@ -444,9 +515,7 @@ def phase_3d_compare() -> dict:
         x = randn(r, ci, d, s, s)
         w = randn(64, ci, 3, 3, 3, scale=0.05)
         mul, add = affine(64)
-        check("conv3d_s2", f"{tuple(x.shape)}",
-              cconv.conv3d_bn_cuda(x, w, mul, add, None, True, 2),
-              cconv.conv3d_bn_plain(x, w, mul, add, None, True, 2))
+        check_tc("conv3d_s2", f"{tuple(x.shape)}", x, w, mul, add, None, True, 2)
     del x
     # its transposed convs (64 -> 64 from 14^2 with residual and ReLU,
     # 64 -> 32 from 28^2 with residual)
@@ -1155,8 +1224,12 @@ def time_launches(name: str, forms, err: float, src: str, replaces: str) -> dict
     launch's kernel result held against its plain version (compare(got,
     want) -> max |diff|, raising past the tolerance), then kernel, plain
     version and library call timed on its arguments, with the bound; the
-    row sums them over the launches."""
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=None, t_bytes=0.0, t_ops=0.0, bound_ms=0.0)
+    row sums them over the launches. A row of TC_ROWS also gets the bound
+    at the 3xTF32 tensor-core rate, bound_tc_ms, and the time of its
+    weight split and packing alone (pack_tf32_weight_cuda, a launch of
+    the kernel's call) in the log."""
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=None, t_bytes=0.0, t_ops=0.0, bound_ms=0.0,
+               bound_tc_ms=0.0, pack_ms=0.0)
     n = 0
     for label, calls, kernel, plain, library, work, compare in forms:
         for args in calls:
@@ -1172,22 +1245,34 @@ def time_launches(name: str, forms, err: float, src: str, replaces: str) -> dict
                 with cudnn_free():
                     lib_ms = time_ms(lambda: library(args), 3)
                 tot["library_ms"] = (tot["library_ms"] or 0.0) + lib_ms
+            bound_tc = max(t_bytes, t_ops * FP32_OPS_PER_S / TC_3XTF32_OPS_PER_S)
             for k, v in (("ms", ms), ("plain_ms", plain_ms), ("t_bytes", t_bytes),
-                         ("t_ops", t_ops), ("bound_ms", max(t_bytes, t_ops))):
+                         ("t_ops", t_ops), ("bound_ms", max(t_bytes, t_ops)),
+                         ("bound_tc_ms", bound_tc)):
                 tot[k] += v
             n += 1
             lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
+            tc = ""
+            if name in TC_ROWS:
+                pack_ms = time_ms(lambda: cconv.pack_tf32_weight_cuda(args[1]), 5)
+                tot["pack_ms"] += pack_ms
+                tc = f", tensor-core bound {bound_tc:.4f} ms, weight packing {pack_ms:.4f} ms"
             log(f"  {name}{label} {tuple(args[0].shape)}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, library {lib}, bound {max(t_bytes, t_ops):.4f} ms "
-                f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+                f"({'bytes' if t_bytes >= t_ops else 'operations'}){tc}")
     lib = "-" if tot["library_ms"] is None else f"{tot['library_ms']:.4f} ms"
+    tc = (f", tensor-core bound {tot['bound_tc_ms']:.4f} ms, weight packing "
+          f"{tot['pack_ms']:.4f} ms" if name in TC_ROWS else "")
     log(f"  {name}, summed over {n} launches: kernel {tot['ms']:.4f} ms, plain "
-        f"{tot['plain_ms']:.4f} ms, library {lib}, bound {tot['bound_ms']:.4f} ms")
-    return dict(name=name, route="cuda", source=f"disprcnn_tpu_torch/csrc/{src}",
-                replaces=replaces, max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
-                bound_ms=tot["bound_ms"],
-                bound_by="bytes" if tot["t_bytes"] > tot["t_ops"] else "operations",
-                library_ms=tot["library_ms"])
+        f"{tot['plain_ms']:.4f} ms, library {lib}, bound {tot['bound_ms']:.4f} ms{tc}")
+    row = dict(name=name, route="cuda", source=f"disprcnn_tpu_torch/csrc/{src}",
+               replaces=replaces, max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
+               bound_ms=tot["bound_ms"],
+               bound_by="bytes" if tot["t_bytes"] > tot["t_ops"] else "operations",
+               library_ms=tot["library_ms"])
+    if name in TC_ROWS:
+        row["bound_tc_ms"] = tot["bound_tc_ms"]
+    return row
 
 
 @torch.inference_mode()
@@ -1209,14 +1294,14 @@ def phase_timing(model2d, model3d, req, compare_errs):
         "cost_volume_conv": (cconv.cost_volume_conv_bn_cuda, cconv.cost_volume_conv_bn_plain,
                              None, cost_volume_work, "conv3d.cu", f"{pc}:37"),
         "conv3d": (cconv.conv3d_bn_cuda, cconv.conv3d_bn_plain,
-                   lambda a: F.conv3d(a[0], a[1], padding=1), conv_work, "conv3d.cu",
+                   lambda a: F.conv3d(a[0], a[1], padding=1), conv_work, "conv3d_tc.cu",
                    f"{pc}:461"),
         "conv3d_cl1": (cconv.conv3d_bn_cuda, cconv.conv3d_bn_plain,
                        lambda a: F.conv3d(a[0], a[1], padding=1), conv_work, "conv3d.cu",
                        f"{pc}:461"),
         "conv3d_s2": (cconv.conv3d_bn_cuda, cconv.conv3d_bn_plain,
                       lambda a: F.conv3d(a[0], a[1], stride=2, padding=1), conv_work,
-                      "conv3d.cu", f"{pc}:239"),
+                      "conv3d_tc.cu", f"{pc}:239"),
         "deconv3d": (cconv.deconv3d_bn_cuda, cconv.deconv3d_bn_plain,
                      lambda a: F.conv_transpose3d(a[0], a[1], stride=2, padding=1,
                                                   output_padding=1),
@@ -1422,6 +1507,37 @@ def grads_agree(got: dict, want: dict, what: str) -> float:
     return worst
 
 
+def exact_step_misses(got: dict, exact: dict, orders: dict) -> tuple:
+    """The iDispNet step's gradient check (STEP_GRAD_TOL says why): `got`
+    held to the `exact` step's gradients, beside the float32 `orders`'
+    (the plain step's first). -> (what it misses, empty when it passes;
+    |got - exact| / |exact| and |plain - exact| / |exact| over the whole
+    gradient; the largest per-tensor distance over its bound, and its
+    tensor)."""
+    def dist(a, b):
+        return float((a - b).double().norm())
+
+    misses = [f"gradient of {k} is not finite" for k, g in got.items()
+              if not torch.isfinite(g).all()]
+    scale = math.hypot(*(float(e.double().norm()) for e in exact.values()))
+    whole = [math.hypot(*(dist(g[k], e) for k, e in exact.items()))
+             for g in (got, next(iter(orders.values())))]
+    if not whole[0] <= whole[1] + STEP_GRAD_TOL * scale:
+        misses.append(f"whole gradient off the exact step's by {whole[0] / scale:.3g} of its "
+                      f"norm, the plain step's by {whole[1] / scale:.3g}")
+    worst, at = 0.0, None
+    for k, e in exact.items():
+        d = dist(got[k], e)
+        bound = (STEP_ORDER_FACTOR * max(dist(g[k], e) for g in orders.values())
+                 + STEP_GRAD_TOL * float(e.double().norm()))
+        ratio = d / bound if bound > 0 else (0.0 if d == 0 else math.inf)
+        if ratio > worst:
+            worst, at = ratio, k
+    if worst > 1:
+        misses.append(f"gradient of {at} off the exact step's by {worst:.3g} of its bound")
+    return misses, whole[0] / scale, whole[1] / scale, worst, at
+
+
 def phase_conv_train_compare() -> float:
     """Row 8 at the iDispNet step's trunk sites: the raw conv, dx through
     the kernel (flipped, channel-transposed weights) and dk, against
@@ -1516,32 +1632,53 @@ def check_grads_and_stats(model, before: dict, what: str, bn_trains: bool) -> in
     return moved
 
 
-def kernel_vs_plain_step(model, opt, step, batch, what: str, share=None):
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (a warning where an op has none):
+    the compared steps' backward sums (the scatter-adds of gathers and
+    index ops) in a fixed order, so that two runs of one step agree and a
+    difference between two steps is their kernels'."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def kernel_vs_plain_step(model, opt, step, batch, what: str, share=None, others=None):
     """One step on the kernels and one on the plain versions (all_plain),
-    both from the same weights and optimizer state. `share` (a module
-    whose rcnn_targets the plain step takes from the kernel step) makes
-    both train on one frozen-stage output. -> (loss relative difference,
-    gradient agreement, kernel-step metrics)."""
+    both from the same weights and optimizer state, and one more such step
+    for each entry of `others` (name -> launch overrides on top of
+    all_plain). `share` (a module whose rcnn_targets the plain step takes
+    from the kernel step) makes them train on one frozen-stage output. ->
+    (loss relative difference, kernel-step gradients, plain-step
+    gradients, the other steps' gradients by name, kernel-step metrics)."""
     sd, osd, count = copy.deepcopy(model.state_dict()), copy.deepcopy(opt.sgd.state_dict()), \
         opt.count
     recorded = []
     if share is not None:
         orig = share.rcnn_targets
         share.rcnn_targets = lambda *a: recorded.append(orig(*a)) or recorded[-1]
-    try:
-        mk = step(batch)
-        gk = {n: p.grad.clone() for n, p in trainable(model).items()}
+
+    def plain_step(**overrides):
         model.load_state_dict(sd)
         opt.sgd.load_state_dict(osd)
         opt.count = count
-        if share is not None:
-            share.rcnn_targets = lambda *a: recorded[0]
         reset_launches()
-        with all_plain():
-            mp = step(batch)
+        with all_plain(**overrides):
+            m = step(batch)
         if any(read_launches().values()):
             raise AssertionError(f"{what}: the plain step launched {read_launches()}")
-        gp = {n: p.grad.clone() for n, p in trainable(model).items()}
+        return m, {n: p.grad.clone() for n, p in trainable(model).items()}
+
+    try:
+        with deterministic():
+            mk = step(batch)
+            gk = {n: p.grad.clone() for n, p in trainable(model).items()}
+            if share is not None:
+                share.rcnn_targets = lambda *a: recorded[0]
+            mp, gp = plain_step()
+            go = {name: plain_step(**overrides)[1] for name, overrides in (others or {}).items()}
     finally:
         if share is not None:
             del share.rcnn_targets
@@ -1550,7 +1687,7 @@ def kernel_vs_plain_step(model, opt, step, batch, what: str, share=None):
     rel = abs(lk - lp) / max(abs(lp), 1e-30)
     if not rel <= STEP_LOSS_RTOL:
         raise AssertionError(f"{what}: kernel step loss {lk} against plain {lp}")
-    return rel, grads_agree(gk, gp, what), mk, recorded
+    return rel, gk, gp, go, mk, recorded
 
 
 def phase_psm_train(card: str) -> dict:
@@ -1569,7 +1706,28 @@ def phase_psm_train(card: str) -> dict:
             launches[k] for k in launches if k != "conv3d_train"):
         raise AssertionError(f"iDispNet step launches {launches}: expected 24 conv3d_train a "
                              f"step (12 trunk convs, forward and dx) and nothing else")
-    rel, grad_err, mk, _ = kernel_vs_plain_step(model, opt, step, batch, "iDispNet step")
+    rel, gk, gp, go, mk, _ = kernel_vs_plain_step(
+        model, opt, step, batch, "iDispNet step",
+        others={"exact": ROW8_EXACT, **STEP_ORDERS, "one TF32 product": ROW8_ONE_TF32})
+    ge, g_tf32 = go.pop("exact"), go.pop("one TF32 product")
+    orders = {"plain": gp, **go}
+    misses, grad_err, plain_err, worst, at = exact_step_misses(gk, ge, orders)
+    if misses:
+        raise AssertionError(f"iDispNet step: {'; '.join(misses)}")
+    smallest = min((k for k in ge if ge[k].abs().max() > 0), key=lambda k: float(ge[k].norm()))
+    controls = []
+    for name, g in (("row 8 as one TF32 product", g_tf32),
+                    (f"{smallest} negated", {**gk, smallest: -gk[smallest]})):
+        c_misses, c_err, _, c_worst, _ = exact_step_misses(g, ge, orders)
+        if not c_misses:
+            raise AssertionError(f"iDispNet step: the gradient check passes the control {name} "
+                                 f"({c_err:.3g} of the norm, {c_worst:.3g} of a tensor's bound)")
+        controls.append(f"{name}: {c_err:.3g} of the norm, {c_worst:.3g} of a tensor's bound")
+    # the per-tensor form against the plain step (max |g - g_plain| / max
+    # |g_plain|, the largest over the tensors) of every other row 8
+    spread = {name: max(float((g[k] - gp[k]).abs().max()) / max(float(gp[k].abs().max()), 1e-30)
+                        for k in gp)
+              for name, g in (("kernel", gk), *go.items(), ("exact", ge))}
     mean = sum(ms) / len(ms)
     log(f"[15/{PHASES}] iDispNet train step ({PSM_PAIRS} pairs, {crops} crops of "
         f"{PSM_TRAIN['roi_size']}^2) on "
@@ -1577,8 +1735,11 @@ def phase_psm_train(card: str) -> dict:
         f"{crops * 1e3 / mean:.3f} crops/s, {PSM_PAIRS * 1e3 / mean:.3f} pairs/s), loss_psm "
         f"{float(mk['loss_psm']):.5g}, launches {launches['conv3d_train']}, "
         f"{len(trainable(model))} parameters with finite gradients, {moved} BN statistics "
-        f"moved, peak memory {peak:.2f} GB; kernel vs plain step: loss {rel:.3g} relative, "
-        f"gradients per tensor max |diff| <= {grad_err:.3g} * max |plain|")
+        f"moved, peak memory {peak:.2f} GB; kernel vs plain step: loss {rel:.3g} relative; "
+        f"gradients off the exact-row-8 step's by {grad_err:.3g} of its norm (the plain "
+        f"step's by {plain_err:.3g}), per tensor at most {worst:.3g} of the bound ({at}); "
+        f"controls rejected: {'; '.join(controls)}; per tensor, max |diff| / max |plain| off "
+        f"the plain step at most: {', '.join(f'{n} {v:.3g}' for n, v in spread.items())}")
     return dict(model=model, step=step, batch=batch, ms=ms, launches=launches,
                 unit=crops, pairs=PSM_PAIRS)
 
@@ -1590,19 +1751,28 @@ def phase_pc_train(card: str) -> dict:
     d, prc = PC_TRAIN["max_det"], model.pointrcnn
     before = {n: t.detach().clone() for n, t in [*model.named_buffers(),
                                                  *model.named_parameters()]}
+    # the kernel and plain steps below start from these seeded weights: the
+    # timed steps' backward sums its scatter-adds in no fixed order, so the
+    # weights they leave differ in the last bits from run to run, and with
+    # them whether a ReLU or a max near a tie flips between the two steps
+    start = copy.deepcopy(model.state_dict()), copy.deepcopy(opt.sgd.state_dict()), opt.count
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     ms = bench_train.time_steps(st, TRAIN_STEPS)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 1e9
     check_grads_and_stats(model, before, "RCNN step", bn_trains=False)
+    model.load_state_dict(start[0])
+    opt.sgd.load_state_dict(start[1])
+    opt.count = start[2]
     needed = ("cost_volume_conv", "conv3d", "conv3d_cl1", "conv3d_s2", "deconv3d", "conv2d",
               "softargmin", "fps", "sa", "fp", "nms_sorted", "roipool3d", "sa_train")
     if any(launches[k] == 0 for k in needed) or launches["conv3d_train"]:
         raise AssertionError(f"RCNN step launches {launches}: rows 1-7, 9, 10, 11, 13, 14 and "
                              f"15 must each launch, row 8 not")
-    rel, grad_err, mk, recorded = kernel_vs_plain_step(model, opt, step, batch,
-                                                            "RCNN step", share=prc)
+    rel, gk, gp, _, mk, recorded = kernel_vs_plain_step(model, opt, step, batch, "RCNN step",
+                                                        share=prc)
+    grad_err = grads_agree(gk, gp, "RCNN step")
     tgt = recorded[0]
     fg, labelled = int(tgt["reg_mask"].sum()), int((tgt["cls_label"] >= 0).sum())
     if fg == 0:
@@ -1634,7 +1804,7 @@ def phase_train_timing(psm: dict, pc: dict, errs: dict, card: str) -> dict:
          lambda a: torch.nn.grad.conv3d_input(a[0].shape, a[1], a[0], padding=1),
          lambda a, o: conv_work((a[0], cconv.flip_transpose(a[1])), o),
          compare("conv3d_train dx"))],
-        errs["conv3d_train"], "conv3d.cu", "disprcnn_tpu/ops/pallas/packed_conv.py:689")}
+        errs["conv3d_train"], "conv3d_tc.cu", "disprcnn_tpu/ops/pallas/packed_conv.py:689")}
     del calls
     calls = capture_launches(lambda: pc["step"](pc["batch"]),
                              dict(sa_ball_mlp_max_train_cuda="sa_train"))

@@ -1,32 +1,29 @@
-// The PSMNet convolutions with a fused epilogue, for Hopper (sm_90a),
-// float32, canonical NCDHW (3D) and NCHW (2D) layouts.
+// The PSMNet convolutions with a fused epilogue on the CUDA cores, for
+// Hopper (sm_90a), float32, canonical NCDHW (3D) and NCHW (2D) layouts.
 //
-// Replaces six TPU kernels of disprcnn_tpu/ops/pallas/packed_conv.py:
-//   - _kernel via _conv_call (packed_conv_bn): the stride-1 3x3x3 trunk
-//     conv + folded BN + optional residual + optional ReLU (conv3d_bn_cuda,
-//     stride 1, CO 32 and 64);
-//   - the same _conv_call at dg = 1 ("cl1"): the classifier's 32 -> 1
-//     conv, no BN (conv3d_bn_cuda, CO 1, its own instantiation);
+// Replaces four TPU kernels of disprcnn_tpu/ops/pallas/packed_conv.py:
+//   - _conv_call at dg = 1 ("cl1"): the classifier's 32 -> 1 stride-1
+//     conv, no BN (conv3d_bn_cuda, CO 1);
 //   - _kernel_cv (cost_volume_conv_bn): the PSMNet concat cost volume built
 //     inside the first trunk conv (cost_volume_conv_bn_cuda);
-//   - _kernel_s2 (packed_conv_bn_s2): the hourglass's stride-2 pad-1 3x3x3
-//     conv + BN + ReLU (conv3d_bn_cuda, stride 2);
 //   - _kernel_dc (packed_deconv_bn): the hourglass's stride-2 transposed
 //     3x3x3 conv + BN + optional residual + optional ReLU
 //     (deconv3d_bn_cuda);
 //   - _kernel_w (wpacked_conv_bn): the feature tower's 3x3 stride-1 2D conv
 //     + BN + optional residual + optional ReLU (conv2d_bn_cuda).
+// The stride-1 trunk conv and the stride-2 conv at Co 32/64 (_kernel and
+// _kernel_s2) are conv3d_tc.cu's, on the tensor cores.
 // They compute what the TPU kernels compute, not their packed layouts:
 //   out[n, o, z, y, x] = epilogue(sum_{c, kd, kh, kw}
-//       in(n, c, S*z + kd - 1, S*y + kh - 1, S*x + kw - 1) * wt[c, kd, kh, kw, o])
-// (stride S = 1 or 2, padding 1, zero outside the volume; the 2D conv is
-// the same with one depth tap), and for the transposed conv (torch
-// ConvTranspose3d(k 3, stride 2, padding 1, output_padding 1), whose
-// effective padding (1, 2) is the flax padding of the JAX package)
+//       in(n, c, z + kd - 1, y + kh - 1, x + kw - 1) * wt[c, kd, kh, kw, o])
+// (padding 1, zero outside the volume; the 2D conv is the same with one
+// depth tap), and for the transposed conv (torch ConvTranspose3d(k 3,
+// stride 2, padding 1, output_padding 1), whose effective padding (1, 2) is
+// the flax padding of the JAX package)
 //   out[n, o, z, y, x] = epilogue(sum over in(n, c, i_z, i_y, i_x) *
 //       wt[c, k_z, k_y, k_x, o] with 2 * i + k - 1 = output index per dim)
-// The epilogue is v * mul[o] + add[o], then + residual, then ReLU, in that
-// order (psmnet.py:504-505: the residual joins before the ReLU).
+// The epilogue is conv3d.cuh's: v * mul[o] + add[o], then + residual, then
+// ReLU.
 //
 // Two input loaders feed the forward conv body:
 //   PlainSrc       reads a stored volume (N, Ci, D, H, W), D = 1 in 2D;
@@ -41,19 +38,17 @@
 //                  packed_conv.py:37-47).
 //
 // Bound on an H100 SXM (67 TFLOP/s float32, 3.35 TB/s): operations for
-// every form but CO = 1. One trunk launch at (N 128, 32 -> 32, D 24,
-// 56 x 56) needs ~0.5 TFLOP, ~7.5 ms, against 2.5 GB of input and
-// output, ~0.7 ms.
+// every form but CO = 1, which is bound by its input's bytes.
 //
-// Design (simple and right first; wgmma/TMA come later).
+// Design (simple and right first; the tensor cores come later).
 // Forward conv: one block per (n, z, 8 x 32 output tile). Per step of
 // CI_STEP input channels the block stages the KD-deep halo of the input
-// ((8 - 1) * S + 3 rows, (32 - 1) * S + 3 columns) and the weights of those
-// channels for all CO outputs in shared memory, then each thread
-// accumulates 8 output rows x 8 output channels (CO 32/64; lane = column,
-// warp = group of 8 channels) in registers: per tap, 8 input reads and 2
-// broadcast float4 weight reads feed 64 FMAs. CO = 1 gets its own shape:
-// 4 warps split the tile's rows, 2 rows per thread.
+// (10 rows, 34 columns) and the weights of those channels for all CO
+// outputs in shared memory, then each thread accumulates 8 output rows x 8
+// output channels (CO 32/64; lane = column, warp = group of 8 channels) in
+// registers: per tap, 8 input reads and 2 broadcast float4 weight reads
+// feed 64 FMAs. CO = 1 gets its own shape: 4 warps split the tile's rows,
+// 2 rows per thread.
 // Transposed conv: per dimension an even output 2i takes one tap (input i,
 // k 1) and an odd output 2i + 1 two (input i + 1, k 0; input i, k 2), so
 // an output does 1.5^3 taps on average. One block per (n, z, 4 x 64
@@ -64,9 +59,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "conv3d.cuh"
 
 namespace {
+
+using conv::Out;
 
 constexpr int kTH = 8;   // output rows per block
 constexpr int kTW = 32;  // output columns per block, one per lane
@@ -95,27 +92,11 @@ struct CostVolumeSrc {
   }
 };
 
-// Output geometry and the fused epilogue, shared by both conv bodies.
-struct Out {
-  float* out;  // (N, CO, D, H, W)
-  const float* mul;
-  const float* add;
-  const float* res;  // (N, CO, D, H, W) or null
-  int co, d, h, w, relu;
-  __device__ __forceinline__ void store(int n, int o, int z, int y, int x, float v) const {
-    const size_t idx = ((((size_t)n * co + o) * d + z) * h + y) * (size_t)w + x;
-    v = v * __ldg(mul + o) + __ldg(add + o);
-    if (res != nullptr) v += __ldg(res + idx);
-    if (relu) v = fmaxf(v, 0.f);
-    out[idx] = v;
-  }
-};
-
 // Blocks per SM the forward conv's register allocation must leave room
 // for: 512 threads resident at least, so that one block's barrier does not
-// idle the SM (uncapped, the 2D and stride-2 forms take ~170 registers and
-// fit one 256-thread block per SM). The transposed conv was slower under
-// the same cap and has none.
+// idle the SM (uncapped, the 2D form takes ~170 registers and fits one
+// 256-thread block per SM). The transposed conv was slower under the same
+// cap and has none.
 constexpr int min_blocks(int threads) { return threads >= 512 ? 1 : 512 / threads; }
 
 template <int CO_T>
@@ -137,16 +118,16 @@ __device__ __forceinline__ void load_weights(const float* wp, float (&wv)[CO_T])
 
 // Forward conv: CO output channels, CO_T of them per thread, RG warps
 // splitting the tile rows (kTH / RG rows per thread), CO / CO_T * RG warps
-// per block; stride S, KD depth taps (3, or 1 for 2D), CI_STEP input
-// channels staged per step. The input tile's origin is S * (output origin)
-// - 1 in H and W, and S * z - KD / 2 in depth.
-template <int CO, int CO_T, int RG, int S, int KD, int CI_STEP, class Src>
+// per block; KD depth taps (3, or 1 for 2D), CI_STEP input channels staged
+// per step. The input tile's origin is the output origin - 1 in H and W,
+// and z - KD / 2 in depth.
+template <int CO, int CO_T, int RG, int KD, int CI_STEP, class Src>
 __global__ void __launch_bounds__(CO / CO_T * RG * 32, min_blocks(CO / CO_T * RG * 32))
 conv_kernel(const Src src, int ci, int tiles_w, const float* __restrict__ wt, const Out out) {
   constexpr int kPX = kTH / RG;
   constexpr int kThreads = CO / CO_T * RG * 32;
-  constexpr int kHaloH = (kTH - 1) * S + 3;
-  constexpr int kHaloW = (kTW - 1) * S + 3;
+  constexpr int kHaloH = kTH + 2;
+  constexpr int kHaloW = kTW + 2;
   constexpr int kHaloSize = CI_STEP * KD * kHaloH * kHaloW;
   constexpr int kTaps = KD * 9;
   constexpr int kWSize = CI_STEP * kTaps * CO;
@@ -177,7 +158,7 @@ conv_kernel(const Src src, int ci, int tiles_w, const float* __restrict__ wt, co
       t /= kHaloH;
       const int kd = t % KD;
       const int c = t / KD;
-      in_s[i] = src.load(n, c0 + c, S * z + kd - KD / 2, S * y0 + yy - 1, S * x0 + xx - 1);
+      in_s[i] = src.load(n, c0 + c, z + kd - KD / 2, y0 + yy - 1, x0 + xx - 1);
     }
     for (int i = threadIdx.x; i < kWSize; i += kThreads) {
       const int c = i / (kTaps * CO);
@@ -193,10 +174,10 @@ conv_kernel(const Src src, int ci, int tiles_w, const float* __restrict__ wt, co
         float wv[CO_T];
         load_weights<CO_T>(w_s + (c * kTaps + k) * CO + cog * CO_T, wv);
         const float* ip =
-            in_s + ((c * KD + kd) * kHaloH + rg * kPX * S + kh) * kHaloW + lane * S + kw;
+            in_s + ((c * KD + kd) * kHaloH + rg * kPX + kh) * kHaloW + lane + kw;
 #pragma unroll
         for (int p = 0; p < kPX; ++p) {
-          const float xv = ip[p * S * kHaloW];
+          const float xv = ip[p * kHaloW];
 #pragma unroll
           for (int j = 0; j < CO_T; ++j) acc[p][j] += xv * wv[j];
         }
@@ -311,75 +292,54 @@ deconv_kernel(const PlainSrc src, int tiles_w, const float* __restrict__ wt, con
   }
 }
 
-template <int CO, int CO_T, int RG, int S, int KD, int CI_STEP, class Src>
+template <int CO, int CO_T, int RG, int KD, int CI_STEP, class Src>
 cudaError_t launch(const Src& src, int n, int ci, const float* wt, const Out& out,
                    cudaStream_t s) {
   const int tiles_w = (out.w + kTW - 1) / kTW;
   const int tiles = ((out.h + kTH - 1) / kTH) * tiles_w;
   const dim3 grid(tiles, out.d, n);
-  conv_kernel<CO, CO_T, RG, S, KD, CI_STEP, Src>
+  conv_kernel<CO, CO_T, RG, KD, CI_STEP, Src>
       <<<grid, CO / CO_T * RG * 32, 0, s>>>(src, ci, tiles_w, wt, out);
   return cudaGetLastError();
 }
 
-// 3D stride 1: Co 32 and 64 for both loaders, Co 1 (the classifier) for
-// stored volumes. 3D stride 2 and 2D: Co 32 and 64, stored volumes.
-template <int S, int KD, class Src>
+// Co 32 and 64: the cost-volume conv (CostVolumeSrc, KD 3) and the 2D conv
+// (PlainSrc, KD 1). Shared memory stays under 48 KiB: 4 channels a step in
+// 3D, 8 in 2D.
+template <int KD, class Src>
 cudaError_t dispatch(const Src& src, int n, int ci, const float* wt, const Out& out,
                      cudaStream_t s) {
-  // shared memory stays under 48 KiB: 4 channels a step in 3D stride 1,
-  // 2 in stride 2 (a 17 x 65 halo), 8 in 2D
-  constexpr int kStep = KD == 1 ? 8 : S == 1 ? 4 : 2;
+  constexpr int kStep = KD == 1 ? 8 : 4;
   switch (out.co) {
-    case 32: return launch<32, 8, 1, S, KD, kStep>(src, n, ci, wt, out, s);
-    case 64: return launch<64, 8, 1, S, KD, kStep>(src, n, ci, wt, out, s);
-    default:
-      if constexpr (std::is_same_v<Src, PlainSrc> && S == 1 && KD == 3) {
-        if (out.co == 1) return launch<1, 1, 4, 1, 3, 4>(src, n, ci, wt, out, s);
-      }
-      return cudaErrorInvalidValue;
+    case 32: return launch<32, 8, 1, KD, kStep>(src, n, ci, wt, out, s);
+    case 64: return launch<64, 8, 1, KD, kStep>(src, n, ci, wt, out, s);
+    default: return cudaErrorInvalidValue;
   }
-}
-
-bool grid_fits(int n, int d, int h, int w, int th, int tw) {
-  const long long tiles = (long long)((h + th - 1) / th) * ((w + tw - 1) / tw);
-  return n >= 1 && d >= 1 && h >= 1 && w >= 1 && n <= 65535 && d <= 65535 &&
-         tiles <= 2147483647LL;
-}
-
-Out make_out(void* out, const void* mul, const void* add, const void* res, int co, int d,
-             int h, int w, int relu) {
-  return Out{static_cast<float*>(out), static_cast<const float*>(mul),
-             static_cast<const float*>(add), static_cast<const float*>(res), co, d, h, w, relu};
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (N, Ci, D, H, W); wt (Ci, 3, 3, 3, Co), the torch weight permuted so
-// that a tap's Co weights are contiguous; mul, add (Co,); stride 1 or 2
-// (padding 1 either way, so the output is (D - 1) / stride + 1 per dim);
-// res (N, Co, D', H', W') of the output's shape or null; out (N, Co, D',
-// H', W'). All float32, contiguous, on `device`. Co is 1 (stride 1 only),
-// 32 or 64. Launches on `stream`, does not synchronise, returns the
-// cudaError_t of the launch (0 on success).
-int conv3d_bn_cuda(const void* x, int n, int ci, int d, int h, int w, int stride,
-                   const void* wt, int co, const void* mul, const void* add, const void* res,
-                   int relu, void* out, void* stream, int device) {
+// x (N, Ci, D, H, W); wt (Ci, 3, 3, 3, 1), the torch weight (1, Ci, 3, 3,
+// 3) permuted; the stride-1 pad-1 conv to one output channel (the
+// classifier's), out (N, 1, D, H, W); mul, add (1,); res of the output's
+// shape or null. All float32, contiguous, on `device`. Launches on
+// `stream`, does not synchronise, returns the cudaError_t of the launch (0
+// on success). Co 32 and 64 are conv3d_tc.cu's.
+int conv3d_bn_cuda(const void* x, int n, int ci, int d, int h, int w, const void* wt,
+                   const void* mul, const void* add, const void* res, int relu, void* out,
+                   void* stream, int device) {
   // this library links its own CUDA runtime, whose current device is not
   // PyTorch's: set it to the tensors' device
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int od = (d - 1) / stride + 1, oh = (h - 1) / stride + 1, ow = (w - 1) / stride + 1;
-  if (ci < 1 || (stride != 1 && stride != 2) || !grid_fits(n, od, oh, ow, kTH, kTW))
+  if (ci < 1 || !conv::grid_fits(n, d, h, w, kTH, kTW))
     return static_cast<int>(cudaErrorInvalidValue);
   const PlainSrc src{static_cast<const float*>(x), ci, d, h, w};
-  const Out o = make_out(out, mul, add, res, co, od, oh, ow, relu);
-  const float* wf = static_cast<const float*>(wt);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(stride == 1 ? dispatch<1, 3>(src, n, ci, wf, o, s)
-                                      : dispatch<2, 3>(src, n, ci, wf, o, s));
+  return static_cast<int>(launch<1, 1, 4, 3, 4>(
+      src, n, ci, static_cast<const float*>(wt),
+      conv::make_out(out, mul, add, res, 1, d, h, w, relu), static_cast<cudaStream_t>(stream)));
 }
 
 // left, right (N, C, H, W); the cost volume has D slices, slice z at
@@ -391,12 +351,14 @@ int cost_volume_conv_bn_cuda(const void* left, const void* right, int n, int c, 
                              void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (c < 1 || !grid_fits(n, d, h, w, kTH, kTW)) return static_cast<int>(cudaErrorInvalidValue);
+  if (c < 1 || !conv::grid_fits(n, d, h, w, kTH, kTW))
+    return static_cast<int>(cudaErrorInvalidValue);
   const CostVolumeSrc src{static_cast<const float*>(left), static_cast<const float*>(right),
                           c, d, h, w, mind};
-  return static_cast<int>(dispatch<1, 3>(
+  return static_cast<int>(dispatch<3>(
       src, n, 2 * c, static_cast<const float*>(wt),
-      make_out(out, mul, add, nullptr, co, d, h, w, relu), static_cast<cudaStream_t>(stream)));
+      conv::make_out(out, mul, add, nullptr, co, d, h, w, relu),
+      static_cast<cudaStream_t>(stream)));
 }
 
 // x (N, Ci, D, H, W) -> out (N, Co, 2D, 2H, 2W), the transposed conv;
@@ -408,10 +370,10 @@ int deconv3d_bn_cuda(const void* x, int n, int ci, int d, int h, int w, const vo
                      void* out, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (ci < 1 || !grid_fits(n, 2 * d, 2 * h, 2 * w, kDTH, kDTW))
+  if (ci < 1 || !conv::grid_fits(n, 2 * d, 2 * h, 2 * w, kDTH, kDTW))
     return static_cast<int>(cudaErrorInvalidValue);
   const PlainSrc src{static_cast<const float*>(x), ci, d, h, w};
-  const Out o = make_out(out, mul, add, res, co, 2 * d, 2 * h, 2 * w, relu);
+  const Out o = conv::make_out(out, mul, add, res, co, 2 * d, 2 * h, 2 * w, relu);
   const int tiles_w = (o.w + kDTW - 1) / kDTW;
   const dim3 grid(((o.h + kDTH - 1) / kDTH) * tiles_w, o.d, n);
   const float* wf = static_cast<const float*>(wt);
@@ -432,11 +394,12 @@ int conv2d_bn_cuda(const void* x, int n, int ci, int h, int w, const void* wt, i
                    void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (ci < 1 || !grid_fits(n, 1, h, w, kTH, kTW)) return static_cast<int>(cudaErrorInvalidValue);
+  if (ci < 1 || !conv::grid_fits(n, 1, h, w, kTH, kTW))
+    return static_cast<int>(cudaErrorInvalidValue);
   const PlainSrc src{static_cast<const float*>(x), ci, 1, h, w};
-  return static_cast<int>(dispatch<1, 1>(
-      src, n, ci, static_cast<const float*>(wt), make_out(out, mul, add, res, co, 1, h, w, relu),
-      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dispatch<1>(
+      src, n, ci, static_cast<const float*>(wt),
+      conv::make_out(out, mul, add, res, co, 1, h, w, relu), static_cast<cudaStream_t>(stream)));
 }
 
 const char* conv3d_error_string(int err) {

@@ -1,0 +1,40 @@
+// The PSMNet convolutions' output geometry and fused epilogue, shared by
+// conv3d.cu (the SIMT bodies) and conv3d_tc.cu (the tensor-core body).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace conv {
+
+// The epilogue is v * mul[o] + add[o], then + residual, then ReLU, in that
+// order (psmnet.py:504-505: the residual joins before the ReLU).
+struct Out {
+  float* out;  // (N, CO, D, H, W)
+  const float* mul;
+  const float* add;
+  const float* res;  // (N, CO, D, H, W) or null
+  int co, d, h, w, relu;
+  __device__ __forceinline__ void store(int n, int o, int z, int y, int x, float v) const {
+    const size_t idx = ((((size_t)n * co + o) * d + z) * h + y) * (size_t)w + x;
+    v = v * __ldg(mul + o) + __ldg(add + o);
+    if (res != nullptr) v += __ldg(res + idx);
+    if (relu) v = fmaxf(v, 0.f);
+    out[idx] = v;
+  }
+};
+
+inline Out make_out(void* out, const void* mul, const void* add, const void* res, int co,
+                    int d, int h, int w, int relu) {
+  return Out{static_cast<float*>(out), static_cast<const float*>(mul),
+             static_cast<const float*>(add), static_cast<const float*>(res), co, d, h, w, relu};
+}
+
+// A grid of (row tiles x column tiles, d, n) blocks fits the launch limits.
+inline bool grid_fits(int n, int d, int h, int w, int th, int tw) {
+  const long long tiles = (long long)((h + th - 1) / th) * ((w + tw - 1) / tw);
+  return n >= 1 && d >= 1 && h >= 1 && w >= 1 && n <= 65535 && d <= 65535 &&
+         tiles <= 2147483647LL;
+}
+
+}  // namespace conv

@@ -17,8 +17,14 @@ then ReLU, in that order. ``mul``/``add`` of None is the identity (the
 classifier's bias-free 32 -> 1 conv).
 
 Each function dispatches: a CPU tensor takes the plain version; a CUDA
-tensor launches the kernel (csrc/conv3d.cu). There is no fallback: a
-kernel that fails to build or launch raises. The launch points are
+tensor launches the kernel. There is no fallback: a kernel that fails to
+build or launch raises. ``conv3d_bn`` at Co 32 and 64 (stride 1 and 2) is
+csrc/conv3d_tc.cu, an implicit GEMM on the tensor cores at float32
+accuracy through error-compensated TF32 ("3xTF32": each operand split as
+hi + lo by ``split_tf32``, each product lo*hi + hi*lo + hi*hi; the
+weights are split and laid out by ``pack_tf32_weight``;
+``conv3d_bn_3xtf32_plain`` is the same arithmetic in three ``F.conv3d``
+calls). The other forms are csrc/conv3d.cu. The launch points are
 ``conv3d_bn_cuda``, ``cost_volume_conv_bn_cuda``, ``deconv3d_bn_cuda`` and
 ``conv2d_bn_cuda``, looked up at call time, so a caller can route them
 elsewhere. These launches are forward only (``build.forward_only``).
@@ -59,7 +65,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("conv3d")
     if lib.conv3d_bn_cuda.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.conv3d_bn_cuda.argtypes = [p, i, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
+        lib.conv3d_bn_cuda.argtypes = [p, i, i, i, i, i, p, p, p, p, i, p, p, i]
         lib.cost_volume_conv_bn_cuda.argtypes = [p, p, i, i, i, i, i, i, p, i, p, p, i, p, p, i]
         lib.deconv3d_bn_cuda.argtypes = [p, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
         lib.conv2d_bn_cuda.argtypes = [p, i, i, i, i, p, i, p, p, p, i, p, p, i]
@@ -69,6 +75,85 @@ def _lib() -> ctypes.CDLL:
         lib.conv3d_error_string.argtypes = [i]
         lib.conv3d_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _tc_lib() -> ctypes.CDLL:
+    lib = build.load("conv3d_tc")
+    if lib.conv3d_tc_cuda.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.conv3d_tc_cuda.argtypes = [p, i, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
+        lib.conv3d_tc_pack_cuda.argtypes = [p, i, i, i, p, p, i]
+        for fn in (lib.conv3d_tc_cuda, lib.conv3d_tc_pack_cuda):
+            fn.restype = i
+        lib.conv3d_tc_error_string.argtypes = [i]
+        lib.conv3d_tc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def split_tf32(t: torch.Tensor):
+    """float32 t -> (hi, lo), float32 tensors with t ~= hi + lo: hi is t
+    rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+    lo is t - hi rounded the same way; |t - (hi + lo)| <= 2^-22 |t| for
+    finite t. Integer bit operations: (bits + 0x1000) & ~0x1fff, which is
+    cvt.rna.tf32.f32 for finite values."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(t)
+    return hi, rna(t - hi)
+
+
+def conv3d_bn_3xtf32_plain(x: torch.Tensor, weight: torch.Tensor,
+                           mul: Optional[torch.Tensor] = None,
+                           add: Optional[torch.Tensor] = None,
+                           residual: Optional[torch.Tensor] = None, relu: bool = False,
+                           stride: int = 1) -> torch.Tensor:
+    """conv3d_bn_plain in the tensor-core kernel's arithmetic: the input
+    and the weight split by split_tf32, the conv as lo*hi + hi*lo + hi*hi
+    (three F.conv3d calls; a product of two TF32 values is exact in
+    float32), then the epilogue."""
+    xh, xl = split_tf32(x)
+    wh, wl = split_tf32(weight)
+    y = (F.conv3d(xl, wh, stride=stride, padding=1) + F.conv3d(xh, wl, stride=stride, padding=1)
+         + F.conv3d(xh, wh, stride=stride, padding=1))
+    return _epilogue(y, mul, add, residual, relu)
+
+
+def pack_tf32_weight(weight: torch.Tensor) -> torch.Tensor:
+    """(Co, Ci, 3, 3, 3) -> csrc/conv3d_tc.cu's staged weights:
+    (ceil(Ci / 8), 3 kd, 9 taps (kh, kw), Co / 8, 32 lanes, 4), Ci padded
+    with zeros to a multiple of 8. Lane l of N-tile j in chunk cc holds
+    [hi(k), hi(k + 4), lo(k), lo(k + 4)] of the weight from input channel
+    8 cc + k, k = l % 4, to output channel 8 j + l // 4: the B fragment of
+    mma.m16n8k8 (b0 at row k, b1 at row k + 4, column l // 4), split by
+    split_tf32. The plain version of the kernel's own packing,
+    pack_tf32_weight_cuda."""
+    co, ci = weight.shape[:2]
+    ci8 = -(-ci // 8)
+    hi, lo = split_tf32(F.pad(weight, (0, 0, 0, 0, 0, 0, 0, 8 * ci8 - ci)))
+
+    def fragments(t):
+        # (j, l // 4, cc, k >= 4, k % 4, kd, tap) -> (cc, kd, tap, j, l, k >= 4)
+        t = t.reshape(co // 8, 8, ci8, 2, 4, 3, 9).permute(2, 5, 6, 0, 1, 4, 3)
+        return t.reshape(ci8, 3, 9, co // 8, 32, 2)
+    return torch.cat((fragments(hi), fragments(lo)), dim=-1).contiguous()
+
+
+def pack_tf32_weight_cuda(weight: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """pack_tf32_weight(weight), or with `flip` pack_tf32_weight(
+    flip_transpose(weight)), in one launch of csrc/conv3d_tc.cu's packing
+    on the current stream (weight float32, contiguous, on the card)."""
+    co, ci = weight.shape[:2]
+    if flip:
+        co, ci = ci, co
+    _check_float32_cuda("weight", weight, (ci, co, 3, 3, 3) if flip else (co, ci, 3, 3, 3),
+                        weight.device)
+    lib = _tc_lib()
+    out = torch.empty((-(-ci // 8), 3, 9, co // 8, 32, 4), device=weight.device)
+    err = lib.conv3d_tc_pack_cuda(weight.data_ptr(), co, ci, int(flip), out.data_ptr(),
+                                  _stream(weight), weight.device.index)
+    _raise_on(lib.conv3d_tc_error_string, err, "conv3d_tc_pack_cuda")
+    return out
 
 
 def _epilogue(y, mul, add, residual, relu):
@@ -149,9 +234,9 @@ def _weight(weight, shape, device, perm):
     return weight.permute(*perm).contiguous()
 
 
-def _raise_on(lib, err: int, what: str) -> None:
+def _raise_on(error_string, err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.conv3d_error_string(err).decode()}")
+        raise RuntimeError(f"{what} launch failed: {error_string(err).decode()}")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -161,8 +246,8 @@ def _stream(t: torch.Tensor) -> int:
 def conv3d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: Optional[torch.Tensor] = None,
                    add: Optional[torch.Tensor] = None, residual: Optional[torch.Tensor] = None,
                    relu: bool = False, stride: int = 1) -> torch.Tensor:
-    """Launch csrc/conv3d.cu on the current stream; same contract as
-    conv3d_bn_plain."""
+    """Launch csrc/conv3d_tc.cu (Co 32, 64) or csrc/conv3d.cu (Co 1) on the
+    current stream; same contract as conv3d_bn_plain."""
     build.forward_only("conv3d_bn_cuda", x, weight, mul, add, residual)
     out = _conv3d_launch(x, weight, mul, add, residual, relu, stride)
     launches["conv3d_s2" if stride == 2 else "conv3d_cl1" if weight.shape[0] == 1
@@ -170,23 +255,35 @@ def conv3d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: Optional[torch.Te
     return out
 
 
-def _conv3d_launch(x, weight, mul=None, add=None, residual=None, relu=False, stride=1):
-    """One launch of the conv3d kernel, not counted."""
+def _conv3d_launch(x, weight, mul=None, add=None, residual=None, relu=False, stride=1,
+                   flip=False):
+    """One launch of the conv3d kernel, not counted; with `flip`, the conv
+    with flip_transpose(weight)."""
     _check_input("x", x, 5)
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
     n, ci, d, h, w = x.shape
-    co = weight.shape[0]
+    co = weight.shape[1] if flip else weight.shape[0]
     out_shape = (n, co, *((s - 1) // stride + 1 for s in (d, h, w)))
-    wt = _weight(weight, (co, ci, 3, 3, 3), x.device, (1, 2, 3, 4, 0))
+    _check_float32_cuda("weight", weight, (ci, co, 3, 3, 3) if flip else (co, ci, 3, 3, 3),
+                        x.device)
     mul, add, res = _epilogue_args(co, mul, add, residual, out_shape, x.device,
                                    CHANNELS + ((1,) if stride == 1 else ()))
-    lib = _lib()
     out = torch.empty(out_shape, device=x.device)
-    err = lib.conv3d_bn_cuda(x.data_ptr(), n, ci, d, h, w, stride, wt.data_ptr(), co,
+    if co == 1 and not flip:
+        lib = _lib()
+        wt = weight.permute(1, 2, 3, 4, 0).contiguous()
+        err = lib.conv3d_bn_cuda(x.data_ptr(), n, ci, d, h, w, wt.data_ptr(), mul.data_ptr(),
+                                 add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
+                                 x.device.index)
+        _raise_on(lib.conv3d_error_string, err, "conv3d_bn_cuda")
+        return out
+    lib = _tc_lib()
+    wt = pack_tf32_weight_cuda(weight, flip)
+    err = lib.conv3d_tc_cuda(x.data_ptr(), n, ci, d, h, w, stride, wt.data_ptr(), co,
                              mul.data_ptr(), add.data_ptr(), res, int(relu), out.data_ptr(),
                              _stream(x), x.device.index)
-    _raise_on(lib, err, "conv3d_bn_cuda")
+    _raise_on(lib.conv3d_tc_error_string, err, "conv3d_tc_cuda")
     return out
 
 
@@ -211,7 +308,7 @@ def cost_volume_conv_bn_cuda(left: torch.Tensor, right: torch.Tensor, weight: to
         left.data_ptr(), right.data_ptr(), n, c, h, w, mindisp4, d, wt.data_ptr(), co,
         mul.data_ptr(), add.data_ptr(), int(relu), out.data_ptr(), _stream(left),
         left.device.index)
-    _raise_on(lib, err, "cost_volume_conv_bn_cuda")
+    _raise_on(lib.conv3d_error_string, err, "cost_volume_conv_bn_cuda")
     launches["cost_volume_conv"] += 1
     return out
 
@@ -233,7 +330,7 @@ def deconv3d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
     err = lib.deconv3d_bn_cuda(x.data_ptr(), n, ci, d, h, w, wt.data_ptr(), co, mul.data_ptr(),
                                add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
                                x.device.index)
-    _raise_on(lib, err, "deconv3d_bn_cuda")
+    _raise_on(lib.conv3d_error_string, err, "deconv3d_bn_cuda")
     launches["deconv3d"] += 1
     return out
 
@@ -254,7 +351,7 @@ def conv2d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
     err = lib.conv2d_bn_cuda(x.data_ptr(), n, ci, h, w, wt.data_ptr(), co, mul.data_ptr(),
                              add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
                              x.device.index)
-    _raise_on(lib, err, "conv2d_bn_cuda")
+    _raise_on(lib.conv3d_error_string, err, "conv2d_bn_cuda")
     launches["conv2d"] += 1
     return out
 
@@ -309,16 +406,17 @@ def conv3d_train_dx_plain(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tenso
 
 
 def conv3d_train_cuda(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """The train form's forward: csrc/conv3d.cu with the identity epilogue."""
+    """The train form's forward: csrc/conv3d_tc.cu with the identity
+    epilogue."""
     out = _conv3d_launch(x, weight)
     launches["conv3d_train"] += 1
     return out
 
 
 def conv3d_train_dx_cuda(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """The train form's input gradient: csrc/conv3d.cu on dy with the
+    """The train form's input gradient: csrc/conv3d_tc.cu on dy with the
     flipped, channel-transposed weights (Ci = Co in every trunk site)."""
-    out = _conv3d_launch(dy.contiguous(), flip_transpose(weight))
+    out = _conv3d_launch(dy.contiguous(), weight, flip=True)
     launches["conv3d_train"] += 1
     return out
 

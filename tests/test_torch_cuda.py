@@ -86,16 +86,28 @@ def test_cost_volume_conv_kernel_matches_plain(card, co, mind4):
                                                 mind4 + 8))
 
 
-@pytest.mark.parametrize("ci,co,residual,relu", [
-    (32, 32, False, True), (32, 32, True, False), (64, 64, True, True), (64, 64, False, False),
-    (6, 32, False, True),  # Ci not a multiple of the kernel's 4-channel step
+@pytest.mark.parametrize("ci,co,shape,residual,relu", [
+    (32, 32, (6, 14, 40), False, True), (32, 32, (6, 14, 40), True, False),
+    (64, 64, (6, 14, 40), True, True), (64, 64, (6, 14, 40), False, False),
+    (6, 32, (6, 14, 40), False, True),  # Ci not a multiple of the kernel's 8-channel step
+    # the trunk's sites (row 3): 56^2 32 -> 32, 28^2 and 14^2 64 -> 64
+    (32, 32, (24, 56, 56), False, True), (32, 32, (24, 56, 56), True, False),
+    (64, 64, (12, 28, 28), True, True), (64, 64, (12, 28, 28), False, True),
+    (64, 64, (6, 14, 14), False, True), (64, 64, (6, 14, 14), True, False),
+    # ragged: rows and columns that fill no tile, odd depth, W = 1, H = 1,
+    # 32 -> 64, a width past one block's positions (column tiles)
+    (32, 64, (7, 13, 37), True, True), (64, 64, (5, 9, 1), False, True),
+    (32, 32, (3, 1, 29), True, False), (64, 32, (1, 3, 300), False, True),
+    (32, 32, (2, 3, 600), True, True),
 ])
-def test_conv3d_kernel_matches_plain(card, ci, co, residual, relu):
-    gen = torch.Generator(device="cuda").manual_seed(ci + co)
-    x = _randn(gen, 2, ci, 6, 14, 40)
+def test_conv3d_kernel_matches_plain(card, ci, co, shape, residual, relu):
+    # the (6, 14, 40) cases keep their seed ci + co
+    seed = ci + co + (0 if shape == (6, 14, 40) else shape[0] + shape[2])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = _randn(gen, 2, ci, *shape)
     weight = _randn(gen, co, ci, 3, 3, 3, scale=0.05)
     mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
-    res = _randn(gen, 2, co, 6, 14, 40) if residual else None
+    res = _randn(gen, 2, co, *shape) if residual else None
     before = cconv.launches["conv3d"]
     got = cconv.conv3d_bn(x, weight, mul, add, res, relu)
     assert cconv.launches["conv3d"] == before + 1
@@ -113,22 +125,44 @@ def test_conv3d_cl1_kernel_matches_plain(card):
     _close(got, cconv.conv3d_bn_plain(x, weight))
 
 
-@pytest.mark.parametrize("ci,co,shape,relu", [
-    (32, 64, (24, 56, 56), True),   # the hourglass's first stride-2 conv
-    (64, 64, (12, 28, 28), True),   # its second
-    (32, 32, (7, 13, 70), False),   # odd sizes, two column tiles
-    (6, 64, (5, 9, 11), True),      # Ci not a multiple of the 2-channel step
+@pytest.mark.parametrize("ci,co,flip", [(32, 32, False), (32, 64, False), (64, 64, True),
+                                         (6, 32, False), (64, 32, True), (6, 32, True)])
+def test_tf32_pack_kernel_matches_plain(card, ci, co, flip):
+    """The tensor-core conv's weight split and layout (one launch) equals
+    pack_tf32_weight bit for bit, of the weight or, with flip, of the input
+    gradient's weight; Ci not a multiple of 8 padded with zeros."""
+    gen = torch.Generator(device="cuda").manual_seed(ci + co)
+    weight = _randn(gen, ci, co, 3, 3, 3) if flip else _randn(gen, co, ci, 3, 3, 3)
+    got = cconv.pack_tf32_weight_cuda(weight, flip)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cconv.pack_tf32_weight(cconv.flip_transpose(weight) if flip
+                                                   else weight))
+
+
+@pytest.mark.parametrize("ci,co,shape,residual,relu", [
+    (32, 64, (24, 56, 56), False, True),   # the hourglass's first stride-2 conv
+    (64, 64, (12, 28, 28), False, True),   # its second
+    (32, 32, (7, 13, 70), False, False),   # odd sizes, two column tiles
+    (6, 64, (5, 9, 11), False, True),      # Ci not a multiple of the 8-channel step
+    (32, 64, (24, 56, 56), True, False),   # with a residual
+    (64, 64, (12, 28, 28), True, True),
+    (64, 64, (5, 1, 9), False, True),      # H = 1
+    (64, 32, (4, 6, 1), True, True),       # W = 1
+    (32, 64, (3, 27, 3), False, False),    # odd sizes, depth 3
+    (64, 64, (2, 5, 601), False, True),    # output wider than a block's positions
 ])
-def test_conv3d_s2_kernel_matches_plain(card, ci, co, shape, relu):
+def test_conv3d_s2_kernel_matches_plain(card, ci, co, shape, residual, relu):
     gen = torch.Generator(device="cuda").manual_seed(ci + co + shape[0])
     x = _randn(gen, 2, ci, *shape)
     weight = _randn(gen, co, ci, 3, 3, 3, scale=0.05)
     mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
+    out_shape = (2, co, *((s - 1) // 2 + 1 for s in shape))
+    res = _randn(gen, *out_shape) if residual else None
     before = cconv.launches["conv3d_s2"]
-    got = cconv.conv3d_bn(x, weight, mul, add, relu=relu, stride=2)
+    got = cconv.conv3d_bn(x, weight, mul, add, res, relu=relu, stride=2)
     assert cconv.launches["conv3d_s2"] == before + 1
-    assert got.shape == (2, co, *((s - 1) // 2 + 1 for s in shape))
-    _close(got, cconv.conv3d_bn_plain(x, weight, mul, add, relu=relu, stride=2))
+    assert got.shape == out_shape
+    _close(got, cconv.conv3d_bn_plain(x, weight, mul, add, res, relu=relu, stride=2))
 
 
 @pytest.mark.parametrize("ci,co,shape,residual,relu", [
@@ -401,10 +435,11 @@ def _grads(out, leaves, dy):
     return [out.detach()] + list(torch.autograd.grad(out, leaves, dy))
 
 
-@pytest.mark.parametrize("c,d,hw", [(32, 24, 56), (64, 12, 28), (64, 6, 14), (32, 5, 13)])
+@pytest.mark.parametrize("c,d,hw", [(32, 24, 56), (64, 12, 28), (64, 6, 14), (32, 5, 13),
+                                    (64, 3, 9)])
 def test_conv3d_train_kernel_matches_autograd(card, c, d, hw):
-    """Row 8's train form at the trunk sites (one crop each) and a ragged
-    one: the raw conv, dx through the kernel and dk, against autograd of
+    """Row 8's train form at the trunk sites (two crops each) and ragged
+    ones: the raw conv, dx through the kernel and dk, against autograd of
     F.conv3d; two kernel launches (forward and dx)."""
     gen = torch.Generator(device="cuda").manual_seed(c + d)
     x = _randn(gen, 2, c, d, hw, hw).requires_grad_(True)
