@@ -19,13 +19,17 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      ReLU), the cost-volume conv, the stride-1 3D conv (56^2, 28^2, 14^2;
      with and without residual and ReLU), its 32 -> 1 classifier form, the
      stride-2 and the transposed 3D convs of the hourglasses and the
-     soft-argmin; the tensor-core convs (stride 1 and 2) and their plain
-     versions are also compared with the same conv in float64 (logged);
+     soft-argmin; the tensor-core convs (the 2D conv, the 3D conv at stride
+     1 and 2), their plain versions and cuDNN's float32 conv are also
+     compared with the same conv in float64 (logged), and their weight
+     packings held equal to their plain versions;
   4. the PointRCNN kernels against their plain versions at every site
      shape of both budgets, on seeded clouds that hold empty, partial and
      full balls, coincident points, and boxes with no point, fewer than 512
      and more than 512: FPS indices and RoI-pool rows exactly, SA and FP
-     values within CONV_RTOL/CONV_ATOL;
+     values within CONV_RTOL/CONV_ATOL; the SA kernel's chain packing equal
+     to its plain version, and the kernel's and the plain version's
+     distance from the same scale with its chain in float64 logged;
   5. row 12, the grouped MLP + max, against its plain version at the 8
      site shapes of the SA-off route at the headline budget (RPN SA1-SA3,
      two scales each, and RCNN SA0 and SA1, whole: G groups of S rows) and
@@ -56,8 +60,9 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      non-deterministic algorithms), and the bound of the work the function
      needs (products with padding or with the cost volume's empty columns,
      and neighbour slots that repeat a ball's first point, are not counted);
-     the tensor-core convs (rows 3 and 6, and row 8 in phase 17) also get
-     the bound at the 3xTF32 tensor-core rate (bound_tc_ms);
+     the tensor-core kernels (rows 3, 6, 7 and 10, and rows 8 and 11 in
+     phase 17) also get the bound at the 3xTF32 tensor-core rate
+     (bound_tc_ms) and their weight packing's time alone (logged);
  10. where a request's time goes, at both budgets: one request split into
      stages (2D detector, crops, feature tower, cost volume + dres,
      hourglasses, classifiers + regression, lift, RPN backbone, RPN heads,
@@ -209,12 +214,19 @@ BOX3D_TOL = 1e-3
 BOX3D_AGREE = 0.95
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit); the 3xTF32 rate is
 # the dense TF32 tensor-core peak over the 3 TF32 products a float32 product
-# takes in csrc/conv3d_tc.cu
+# takes in csrc/conv3d_tc.cu and csrc/mlp_tc.cuh
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TC_3XTF32_OPS_PER_S = 495e12 / 3
-# the rows whose kernel runs on the tensor cores, with a second bound at that rate
-TC_ROWS = ("conv3d", "conv3d_s2", "conv3d_train")
+# the rows whose kernel runs on the tensor cores, with a second bound at that
+# rate, and the weight packing each of their launches runs first (a function
+# of the launch's arguments)
+TC_ROWS = {"conv3d": lambda a: cconv.pack_tf32_weight_cuda(a[1]),
+           "conv3d_s2": lambda a: cconv.pack_tf32_weight_cuda(a[1]),
+           "conv3d_train": lambda a: cconv.pack_tf32_weight_cuda(a[1]),
+           "conv2d": lambda a: cconv.pack_tf32_weight_cuda(a[1]),
+           "sa": lambda a: csa.pack_tf32_chain_cuda(a[6]),
+           "sa_train": lambda a: csa.pack_tf32_chain_cuda(a[6])}
 IOU_OPS = 17  # float ops of one IoU and its threshold test (nms.cu box_iou)
 # soft-argmin: ops per (pixel, logit slice) of the bilinear H/W taps, and per
 # (pixel, disparity) of the D interpolation, exp, running max and two sums
@@ -458,20 +470,24 @@ def phase_3d_compare() -> dict:
             f"(max |plain| {float(want.abs().max()):.3g})")
 
     def check_tc(name, what, x, w, mul, add, rt, relu, stride):
-        """A tensor-core conv (rows 3 and 6) against its plain version, and
-        both against the same conv in float64 (max |diff| / max |exact|);
-        its weight packing, and the input gradient's, equal to their plain
-        version."""
-        for flip in (False, True):
+        """A tensor-core conv (rows 3, 6 and 7) against its plain version,
+        and both against the same conv in float64 (max |diff| / max
+        |exact|); its weight packing, and in 3D the input gradient's, equal
+        to their plain version."""
+        for flip in (False, True) if w.dim() == 5 else (False,):
             if not torch.equal(cconv.pack_tf32_weight_cuda(w, flip), cconv.pack_tf32_weight(
                     cconv.flip_transpose(w) if flip else w)):
                 raise AssertionError(f"{name}: the weight packing (flip={flip}) != its plain "
                                      f"version at {tuple(w.shape)}")
-        got = cconv.conv3d_bn_cuda(x, w, mul, add, rt, relu, stride)
-        want = cconv.conv3d_bn_plain(x, w, mul, add, rt, relu, stride)
+        if w.dim() == 4:
+            kernel, plain = cconv.conv2d_bn_cuda, cconv.conv2d_bn_plain
+        else:
+            kernel = partial(cconv.conv3d_bn_cuda, stride=stride)
+            plain = partial(cconv.conv3d_bn_plain, stride=stride)
+        got = kernel(x, w, mul, add, rt, relu)
+        want = plain(x, w, mul, add, rt, relu)
         check(name, what, got, want)
-        exact = cconv.conv3d_bn_plain(*(None if t is None else t.double()
-                                        for t in (x, w, mul, add, rt)), relu, stride)
+        exact = plain(*(None if t is None else t.double() for t in (x, w, mul, add, rt)), relu)
         scale = float(exact.abs().max())
         log(f"    against float64: kernel {float((got - exact).abs().max()) / scale:.3g}, plain "
             f"{float((want - exact).abs().max()) / scale:.3g} of max |exact|")
@@ -483,9 +499,8 @@ def phase_3d_compare() -> dict:
         w = randn(c, c, 3, 3, scale=0.05)
         mul, add = affine(c)
         rt = randn(2 * r, c, s, s) if res else None
-        check("conv2d", f"{tuple(x.shape)} residual={res} relu={relu}",
-              cconv.conv2d_bn_cuda(x, w, mul, add, rt, relu),
-              cconv.conv2d_bn_plain(x, w, mul, add, rt, relu))
+        check_tc("conv2d", f"{tuple(x.shape)} residual={res} relu={relu}", x, w, mul, add, rt,
+                 relu, 1)
         del x, rt
     left, right = randn(r, 32, q, q), randn(r, 32, q, q)
     w = randn(32, 64, 3, 3, 3, scale=0.05)
@@ -538,6 +553,13 @@ def phase_3d_compare() -> dict:
     torch.cuda.synchronize()
     log(f"[3/{PHASES}] iDispNet kernels match their plain versions at the main path's shapes")
     return errs
+
+
+def chain_float64(x: torch.Tensor, weights) -> torch.Tensor:
+    """The SA chain after mlp0 in float64 (x and every weight and bias
+    widened), rounded once to float32 at its end: the exact chain that
+    phase 4 measures the kernel and the plain version against."""
+    return csa.mlp_chain(x.double(), [(w.double(), b.double()) for w, b in weights]).float()
 
 
 def point_clouds(gen: torch.Generator, b: int, n: int, scale: float, s: int = 64) -> torch.Tensor:
@@ -595,15 +617,23 @@ def phase_points_compare() -> dict:
         kinds = ((cnt == 0).any(), ((cnt > 0) & (cnt < s)).any(), (cnt == s).any())
         if not all(bool(k) for k in kinds):
             raise AssertionError(f"SA {site}: the clouds lack empty, partial or full balls")
-        got = csa.sa_ball_mlp_max_cuda(xyz, centers.contiguous(), v, w0x, mul0, add0, ws,
-                                       radius, s)
-        want = csa.sa_ball_mlp_max_plain(xyz, centers, v, w0x, mul0, add0, ws, radius, s)
+        if not torch.equal(csa.pack_tf32_chain_cuda(ws), csa.pack_tf32_chain(ws)):
+            raise AssertionError(f"SA {site}: the chain packing != its plain version")
+        args = (xyz, centers.contiguous(), v, w0x, mul0, add0, ws, radius, s)
+        got = csa.sa_ball_mlp_max_cuda(*args)
+        want = csa.sa_ball_mlp_max_plain(*args)
         e = conv_err(got, want, f"SA {site}")
         errs["sa"] = max(errs["sa"], e)
-        del v, got, want
+        exact = csa.sa_ball_mlp_max_plain(*args, chain=chain_float64)
+        scale = float(exact.abs().max())
+        del v, args
         log(f"  sa {site} ({b}, {n} -> {m}, S {s}, {c0} -> {' -> '.join(map(str, chain))}): "
-            f"max |diff| {e:.3g}; balls empty {int((cnt == 0).sum())}, partial "
-            f"{int(((cnt > 0) & (cnt < s)).sum())}, full {int((cnt == s).sum())}")
+            f"max |diff| {e:.3g}; against the chain in float64: kernel "
+            f"{float((got - exact).abs().max()) / scale:.3g}, plain "
+            f"{float((want - exact).abs().max()) / scale:.3g} of max |exact|; balls empty "
+            f"{int((cnt == 0).sum())}, partial {int(((cnt > 0) & (cnt < s)).sum())}, full "
+            f"{int((cnt == s).sum())}")
+        del got, want, exact
     for site, b, nt, ns, c, cs, chain in FP_SITES:
         unknown, known = point_clouds(gen, b, nt, 1.5), point_clouds(gen, b, ns, 1.5)
         unknown[:, 0] = known[:, 4]
@@ -1226,8 +1256,8 @@ def time_launches(name: str, forms, err: float, src: str, replaces: str) -> dict
     version and library call timed on its arguments, with the bound; the
     row sums them over the launches. A row of TC_ROWS also gets the bound
     at the 3xTF32 tensor-core rate, bound_tc_ms, and the time of its
-    weight split and packing alone (pack_tf32_weight_cuda, a launch of
-    the kernel's call) in the log."""
+    weight split and packing alone (TC_ROWS, a launch of the kernel's call)
+    in the log."""
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=None, t_bytes=0.0, t_ops=0.0, bound_ms=0.0,
                bound_tc_ms=0.0, pack_ms=0.0)
     n = 0
@@ -1254,7 +1284,7 @@ def time_launches(name: str, forms, err: float, src: str, replaces: str) -> dict
             lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
             tc = ""
             if name in TC_ROWS:
-                pack_ms = time_ms(lambda: cconv.pack_tf32_weight_cuda(args[1]), 5)
+                pack_ms = time_ms(lambda: TC_ROWS[name](args), 5)
                 tot["pack_ms"] += pack_ms
                 tc = f", tensor-core bound {bound_tc:.4f} ms, weight packing {pack_ms:.4f} ms"
             log(f"  {name}{label} {tuple(args[0].shape)}: kernel {ms:.4f} ms, plain "
@@ -1289,7 +1319,7 @@ def phase_timing(model2d, model3d, req, compare_errs):
         "nms_sorted": (cuda_nms.nms_sorted_cuda, cuda_nms.nms_sorted_plain, None, nms_work,
                        "nms.cu", "disprcnn_tpu/ops/pallas/nms.py:32"),
         "conv2d": (cconv.conv2d_bn_cuda, cconv.conv2d_bn_plain,
-                   lambda a: F.conv2d(a[0], a[1], padding=1), conv_work, "conv3d.cu",
+                   lambda a: F.conv2d(a[0], a[1], padding=1), conv_work, "conv3d_tc.cu",
                    f"{pc}:147"),
         "cost_volume_conv": (cconv.cost_volume_conv_bn_cuda, cconv.cost_volume_conv_bn_plain,
                              None, cost_volume_work, "conv3d.cu", f"{pc}:37"),

@@ -1,23 +1,21 @@
 // The PSMNet convolutions with a fused epilogue on the CUDA cores, for
-// Hopper (sm_90a), float32, canonical NCDHW (3D) and NCHW (2D) layouts.
+// Hopper (sm_90a), float32, canonical NCDHW layout.
 //
-// Replaces four TPU kernels of disprcnn_tpu/ops/pallas/packed_conv.py:
+// Replaces three TPU kernels of disprcnn_tpu/ops/pallas/packed_conv.py:
 //   - _conv_call at dg = 1 ("cl1"): the classifier's 32 -> 1 stride-1
 //     conv, no BN (conv3d_bn_cuda, CO 1);
 //   - _kernel_cv (cost_volume_conv_bn): the PSMNet concat cost volume built
 //     inside the first trunk conv (cost_volume_conv_bn_cuda);
 //   - _kernel_dc (packed_deconv_bn): the hourglass's stride-2 transposed
 //     3x3x3 conv + BN + optional residual + optional ReLU
-//     (deconv3d_bn_cuda);
-//   - _kernel_w (wpacked_conv_bn): the feature tower's 3x3 stride-1 2D conv
-//     + BN + optional residual + optional ReLU (conv2d_bn_cuda).
+//     (deconv3d_bn_cuda).
 // The stride-1 trunk conv and the stride-2 conv at Co 32/64 (_kernel and
-// _kernel_s2) are conv3d_tc.cu's, on the tensor cores.
+// _kernel_s2) and the feature tower's 2D conv (_kernel_w) are
+// conv3d_tc.cu's, on the tensor cores.
 // They compute what the TPU kernels compute, not their packed layouts:
 //   out[n, o, z, y, x] = epilogue(sum_{c, kd, kh, kw}
 //       in(n, c, z + kd - 1, y + kh - 1, x + kw - 1) * wt[c, kd, kh, kw, o])
-// (padding 1, zero outside the volume; the 2D conv is the same with one
-// depth tap), and for the transposed conv (torch ConvTranspose3d(k 3,
+// (padding 1, zero outside the volume), and for the transposed conv (torch ConvTranspose3d(k 3,
 // stride 2, padding 1, output_padding 1), whose effective padding (1, 2) is
 // the flax padding of the JAX package)
 //   out[n, o, z, y, x] = epilogue(sum over in(n, c, i_z, i_y, i_x) *
@@ -26,7 +24,7 @@
 // ReLU.
 //
 // Two input loaders feed the forward conv body:
-//   PlainSrc       reads a stored volume (N, Ci, D, H, W), D = 1 in 2D;
+//   PlainSrc       reads a stored volume (N, Ci, D, H, W);
 //   CostVolumeSrc  reads input channel c of depth slice z straight from the
 //                  (N, C, H, W) left/right feature maps: disparity
 //                  i = mind + z; channel c < C is left[c, y, x], channel
@@ -42,7 +40,7 @@
 //
 // Design (simple and right first; the tensor cores come later).
 // Forward conv: one block per (n, z, 8 x 32 output tile). Per step of
-// CI_STEP input channels the block stages the KD-deep halo of the input
+// CI_STEP input channels the block stages the 3-deep halo of the input
 // (10 rows, 34 columns) and the weights of those channels for all CO
 // outputs in shared memory, then each thread accumulates 8 output rows x 8
 // output channels (CO 32/64; lane = column, warp = group of 8 channels) in
@@ -67,6 +65,7 @@ using conv::Out;
 
 constexpr int kTH = 8;   // output rows per block
 constexpr int kTW = 32;  // output columns per block, one per lane
+constexpr int kKD = 3;   // depth taps
 
 struct PlainSrc {
   const float* x;  // (N, Ci, D, H, W)
@@ -94,8 +93,8 @@ struct CostVolumeSrc {
 
 // Blocks per SM the forward conv's register allocation must leave room
 // for: 512 threads resident at least, so that one block's barrier does not
-// idle the SM (uncapped, the 2D form takes ~170 registers and fits one
-// 256-thread block per SM). The transposed conv was slower under the same
+// idle the SM (uncapped, the Co 64 form of this body took ~170 registers
+// and fit one 256-thread block per SM). The transposed conv was slower under the same
 // cap and has none.
 constexpr int min_blocks(int threads) { return threads >= 512 ? 1 : 512 / threads; }
 
@@ -118,18 +117,17 @@ __device__ __forceinline__ void load_weights(const float* wp, float (&wv)[CO_T])
 
 // Forward conv: CO output channels, CO_T of them per thread, RG warps
 // splitting the tile rows (kTH / RG rows per thread), CO / CO_T * RG warps
-// per block; KD depth taps (3, or 1 for 2D), CI_STEP input channels staged
-// per step. The input tile's origin is the output origin - 1 in H and W,
-// and z - KD / 2 in depth.
-template <int CO, int CO_T, int RG, int KD, int CI_STEP, class Src>
+// per block; CI_STEP input channels staged per step. The input tile's
+// origin is the output origin - 1 in every dim.
+template <int CO, int CO_T, int RG, int CI_STEP, class Src>
 __global__ void __launch_bounds__(CO / CO_T * RG * 32, min_blocks(CO / CO_T * RG * 32))
 conv_kernel(const Src src, int ci, int tiles_w, const float* __restrict__ wt, const Out out) {
   constexpr int kPX = kTH / RG;
   constexpr int kThreads = CO / CO_T * RG * 32;
   constexpr int kHaloH = kTH + 2;
   constexpr int kHaloW = kTW + 2;
-  constexpr int kHaloSize = CI_STEP * KD * kHaloH * kHaloW;
-  constexpr int kTaps = KD * 9;
+  constexpr int kHaloSize = CI_STEP * kKD * kHaloH * kHaloW;
+  constexpr int kTaps = kKD * 9;
   constexpr int kWSize = CI_STEP * kTaps * CO;
   __shared__ float in_s[kHaloSize];
   __shared__ __align__(16) float w_s[kWSize];
@@ -156,9 +154,9 @@ conv_kernel(const Src src, int ci, int tiles_w, const float* __restrict__ wt, co
       int t = i / kHaloW;
       const int yy = t % kHaloH;
       t /= kHaloH;
-      const int kd = t % KD;
-      const int c = t / KD;
-      in_s[i] = src.load(n, c0 + c, z + kd - KD / 2, y0 + yy - 1, x0 + xx - 1);
+      const int kd = t % kKD;
+      const int c = t / kKD;
+      in_s[i] = src.load(n, c0 + c, z + kd - 1, y0 + yy - 1, x0 + xx - 1);
     }
     for (int i = threadIdx.x; i < kWSize; i += kThreads) {
       const int c = i / (kTaps * CO);
@@ -174,7 +172,7 @@ conv_kernel(const Src src, int ci, int tiles_w, const float* __restrict__ wt, co
         float wv[CO_T];
         load_weights<CO_T>(w_s + (c * kTaps + k) * CO + cog * CO_T, wv);
         const float* ip =
-            in_s + ((c * KD + kd) * kHaloH + rg * kPX + kh) * kHaloW + lane + kw;
+            in_s + ((c * kKD + kd) * kHaloH + rg * kPX + kh) * kHaloW + lane + kw;
 #pragma unroll
         for (int p = 0; p < kPX; ++p) {
           const float xv = ip[p * kHaloW];
@@ -292,27 +290,24 @@ deconv_kernel(const PlainSrc src, int tiles_w, const float* __restrict__ wt, con
   }
 }
 
-template <int CO, int CO_T, int RG, int KD, int CI_STEP, class Src>
+template <int CO, int CO_T, int RG, int CI_STEP, class Src>
 cudaError_t launch(const Src& src, int n, int ci, const float* wt, const Out& out,
                    cudaStream_t s) {
   const int tiles_w = (out.w + kTW - 1) / kTW;
   const int tiles = ((out.h + kTH - 1) / kTH) * tiles_w;
   const dim3 grid(tiles, out.d, n);
-  conv_kernel<CO, CO_T, RG, KD, CI_STEP, Src>
+  conv_kernel<CO, CO_T, RG, CI_STEP, Src>
       <<<grid, CO / CO_T * RG * 32, 0, s>>>(src, ci, tiles_w, wt, out);
   return cudaGetLastError();
 }
 
-// Co 32 and 64: the cost-volume conv (CostVolumeSrc, KD 3) and the 2D conv
-// (PlainSrc, KD 1). Shared memory stays under 48 KiB: 4 channels a step in
-// 3D, 8 in 2D.
-template <int KD, class Src>
-cudaError_t dispatch(const Src& src, int n, int ci, const float* wt, const Out& out,
+// Co 32 and 64: the cost-volume conv. Shared memory stays under 48 KiB: 4
+// channels a step.
+cudaError_t dispatch(const CostVolumeSrc& src, int n, int ci, const float* wt, const Out& out,
                      cudaStream_t s) {
-  constexpr int kStep = KD == 1 ? 8 : 4;
   switch (out.co) {
-    case 32: return launch<32, 8, 1, KD, kStep>(src, n, ci, wt, out, s);
-    case 64: return launch<64, 8, 1, KD, kStep>(src, n, ci, wt, out, s);
+    case 32: return launch<32, 8, 1, 4>(src, n, ci, wt, out, s);
+    case 64: return launch<64, 8, 1, 4>(src, n, ci, wt, out, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -337,7 +332,7 @@ int conv3d_bn_cuda(const void* x, int n, int ci, int d, int h, int w, const void
   if (ci < 1 || !conv::grid_fits(n, d, h, w, kTH, kTW))
     return static_cast<int>(cudaErrorInvalidValue);
   const PlainSrc src{static_cast<const float*>(x), ci, d, h, w};
-  return static_cast<int>(launch<1, 1, 4, 3, 4>(
+  return static_cast<int>(launch<1, 1, 4, 4>(
       src, n, ci, static_cast<const float*>(wt),
       conv::make_out(out, mul, add, res, 1, d, h, w, relu), static_cast<cudaStream_t>(stream)));
 }
@@ -355,7 +350,7 @@ int cost_volume_conv_bn_cuda(const void* left, const void* right, int n, int c, 
     return static_cast<int>(cudaErrorInvalidValue);
   const CostVolumeSrc src{static_cast<const float*>(left), static_cast<const float*>(right),
                           c, d, h, w, mind};
-  return static_cast<int>(dispatch<3>(
+  return static_cast<int>(dispatch(
       src, n, 2 * c, static_cast<const float*>(wt),
       conv::make_out(out, mul, add, nullptr, co, d, h, w, relu),
       static_cast<cudaStream_t>(stream)));
@@ -384,22 +379,6 @@ int deconv3d_bn_cuda(const void* x, int n, int ci, int d, int h, int w, const vo
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// x (N, Ci, H, W) -> out (N, Co, H, W), the 3x3 stride-1 pad-1 2D conv;
-// wt (Ci, 3, 3, Co), the torch weight permuted; res of the output's shape
-// or null. Co is 32 or 64. Otherwise as conv3d_bn_cuda.
-int conv2d_bn_cuda(const void* x, int n, int ci, int h, int w, const void* wt, int co,
-                   const void* mul, const void* add, const void* res, int relu, void* out,
-                   void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (ci < 1 || !conv::grid_fits(n, 1, h, w, kTH, kTW))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const PlainSrc src{static_cast<const float*>(x), ci, 1, h, w};
-  return static_cast<int>(dispatch<1>(
-      src, n, ci, static_cast<const float*>(wt),
-      conv::make_out(out, mul, add, res, co, 1, h, w, relu), static_cast<cudaStream_t>(stream)));
 }
 
 const char* conv3d_error_string(int err) {

@@ -1,14 +1,19 @@
-// The PSMNet 3x3x3 convolution with a fused epilogue on Hopper's tensor
-// cores (sm_90a), float32 in and out at float32 accuracy, NCDHW.
+// The PSMNet 3x3x3 and 3x3 convolutions with a fused epilogue on Hopper's
+// tensor cores (sm_90a), float32 in and out at float32 accuracy, NCDHW
+// (NCHW in 2D).
 //
-// Replaces two TPU kernels of disprcnn_tpu/ops/pallas/packed_conv.py, and
+// Replaces three TPU kernels of disprcnn_tpu/ops/pallas/packed_conv.py, and
 // through the first the train form's forward and input gradient:
 //   - _kernel via _conv_call (packed_conv_bn): the stride-1 trunk conv +
 //     folded BN + optional residual + optional ReLU, Co 32 and 64 (and
 //     packed_conv_train's _pct_fwd/_pct_bwd, which run the same conv);
 //   - _kernel_s2 (packed_conv_bn_s2): the hourglass's stride-2 pad-1 conv
-//     + BN + ReLU.
-// Both TPU kernels do the conv as matrix products on the MXU with float32
+//     + BN + ReLU;
+//   - _kernel_w (wpacked_conv_bn): the feature tower's 3x3 stride-1 2D conv
+//     + BN + optional residual + optional ReLU, Co 32 and 64: the 3D conv at
+//     D = 1, where only the middle depth tap is inside the volume, with
+//     weights packed for that one tap (conv2d_tc_cuda).
+// The TPU kernels do the conv as matrix products on the MXU with float32
 // accumulation (jnp.dot(..., preferred_element_type=jnp.float32)); this is
 // their Hopper counterpart. It computes
 //   out[n, o, z, y, x] = epilogue(sum_{c, kd, kh, kw}
@@ -21,22 +26,15 @@
 // the float32 cores (67 TFLOP/s), ~3 ms at the 3xTF32 tensor-core rate
 // (495 / 3 TFLOP/s), 0.75 ms of memory traffic.
 //
-// Accuracy: error-compensated TF32 ("3xTF32"). Each operand v is split as
-// v = hi + lo, hi = tf32(v), lo = tf32(v - hi), tf32 rounding to nearest
-// with ties away from zero at 10 mantissa bits ((bits + 0x1000) & ~0x1fff,
-// what cvt.rna.tf32.f32 gives for finite v). A product is lo*hi + hi*lo +
-// hi*hi into float32 accumulators (the two small terms first); the dropped
-// lo*lo and the rounding of lo are ~2^-22 of |a*b|, float32-level, where one
-// TF32 product keeps ~2^-11. The weights come split and fragment-ordered
-// by conv3d_tc_pack_cuda, one launch before the conv's (its plain version
-// is ops/cuda/conv3d.py::pack_tf32_weight); the input is split in
-// registers as each fragment is read. The mma's own accumulation is not IEEE: each
-// add into its accumulator truncates toward zero, and over K = 1728 terms
-// (648 mma adds into one register) that bias grows past cuDNN's float32
-// error. So each stage (72 terms) sums into fresh accumulators, added to
-// the running sums in float32 with rounding to nearest. chip_smoke.py
-// (phase 3) logs the kernel's and cuDNN's distance from a float64 conv at
-// the main path's sites.
+// Accuracy: error-compensated TF32 ("3xTF32", tf32.cuh). The weights come
+// split and fragment-ordered by conv3d_tc_pack_cuda, one launch before the
+// conv's (its plain version is ops/cuda/conv3d.py::pack_tf32_weight); the
+// input is split in registers as each fragment is read. Over K = 1728
+// terms (648 mma adds into one register) the mma's truncating adds drift
+// past cuDNN's float32 error, so each stage (72 terms) sums into fresh
+// accumulators, added to the running sums in float32 with rounding to
+// nearest. chip_smoke.py (phase 3) logs the kernel's and cuDNN's distance
+// from a float64 conv at the main path's sites.
 //
 // Design.
 // GEMM view: per block, M = a tile of output positions of one (n, z) plane,
@@ -52,21 +50,23 @@
 // wgmma's asynchrony and its higher issue rate (mma.sync on Hopper reaches
 // only part of the 495 TFLOP/s TF32 peak).
 // Block: 8 warps, one (n, z, tile of TH whole output rows x TW columns);
-// TW = the output width where it fits (56, 28 and 14 on the main path), TH
-// chosen so that TH x TW <= 512 positions (Co 32) or 256 (Co 64) and the
-// row tiles of a plane are equal; M-tiles of 16 positions run over the
-// tile's flattened positions, so no lane idles at widths that are not a
-// multiple of 16 (masked positions only in a tile's last M-tile). Warp w
+// TW = the output width where it fits (112, 56, 28 and 14 on the main
+// path), TH chosen so that TH x TW <= 512 positions (Co 32) or 256 (Co 64)
+// and the row tiles of a plane are equal; M-tiles of 16 positions run
+// over the tile's flattened positions, so no lane idles at widths that are
+// not a multiple of 16 (masked positions only in a tile's last M-tile). Warp w
 // owns M-tiles w, w + 8, ... (4 of them at Co 32, 2 at Co 64) against all
 // Co: 64 float32 accumulators a thread either way. M-tiles past the tile's
 // positions are skipped (warp-uniform).
 // Staging: one stage = (8-channel chunk, one depth tap kd): the input
 // slice S*z + kd - 1 of those channels over the tile's halo, and the 9
 // taps' weights of that (chunk, kd). Depth taps outside the volume are
-// never staged. A ring of 3 stages in dynamic shared memory, filled by
-// cp.async (4-byte copies with zero fill for the padding and the ragged
-// edges, 16-byte copies for the weights) two stages ahead of the one that
-// multiplies: one __syncthreads per stage.
+// never staged, so at D = 1 (the 2D conv) a stage is one chunk at kd = 1,
+// and its weights are packed with that one depth tap. A ring of 3 stages
+// in dynamic shared memory, filled by cp.async (4-byte copies with zero
+// fill for the padding and the ragged edges, 16-byte copies for the
+// weights) two stages ahead of the one that multiplies: one __syncthreads
+// per stage.
 // Halo layout: per channel a slot of CP floats, CP = 8 (mod 32), so that
 // the A-fragment reads of one instruction (8 positions x 4 channels) fall
 // in distinct banks wherever their 8 positions are consecutive in a halo
@@ -89,6 +89,7 @@
 #include <stdint.h>
 
 #include "conv3d.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -108,56 +109,15 @@ struct Tile {
   int cp;               // floats per staged channel, >= the channel's halo, = 8 (mod 32)
 };
 
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(v);
-  lo = tf32_rna(v - __uint_as_float(hi));
-}
-
-// d += a * b, a 16x8 (row), b 8x8 (col), tf32 operands, float32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 4 bytes, zero-filled where !valid (src is then not read)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // x (N, Ci, D, H, W); wpk the weights as pack_tf32_weight lays them out:
-// (ceil(Ci / 8), 3 kd, 9 taps, CO / 8 N-tiles, 32 lanes, 4), lane l's 4
+// (ceil(Ci / 8), wkd, 9 taps, CO / 8 N-tiles, 32 lanes, 4), lane l's 4
 // floats [hi(k), hi(k + 4), lo(k), lo(k + 4)] of input channel k = l % 4 of
-// the chunk and output channel l / 4 of the N-tile (the B fragment).
+// the chunk and output channel l / 4 of the N-tile (the B fragment); wkd =
+// 3 depth taps, or 1 (the middle one) for the 2D conv, whose D is 1.
 template <int CO, int S>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
-               const float* __restrict__ wpk, const Out out, const Tile tl) {
+               const float* __restrict__ wpk, int wkd, const Out out, const Tile tl) {
   constexpr int kNT = CO / 8;        // N-tiles
   constexpr int kMT = 16 / kNT;      // M-tiles per warp
   constexpr int kWS = 9 * kNT * 128;  // floats of one stage's weights
@@ -183,7 +143,7 @@ conv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
   auto load_stage = [&](int s, int buf) {
     const int cc = s / nkd, kd = kd_lo + s % nkd;
     float* ws = smem + buf * stage_floats;
-    const float* wsrc = wpk + (size_t)(cc * 3 + kd) * kWS;
+    const float* wsrc = wpk + (size_t)(cc * wkd + (wkd == 3 ? kd : 0)) * kWS;
     for (int i = threadIdx.x; i < kWS / 4; i += kThreads) cp_async16(ws + 4 * i, wsrc + 4 * i);
     float* hs = ws + kWS;
     const int c0 = cc * kChunk;
@@ -366,7 +326,7 @@ size_t plan_tile(int oh, int ow, Tile& tl) {
 
 template <int CO, int S>
 cudaError_t launch(const float* x, int n, int ci, int d, int h, int w, const float* wpk,
-                   const Out& o, cudaStream_t s) {
+                   int wkd, const Out& o, cudaStream_t s) {
   Tile tl;
   const size_t bytes = plan_tile<CO, S>(o.h, o.w, tl);
   if (bytes == 0 || !conv::grid_fits(n, o.d, o.h, o.w, tl.th, tl.tw))
@@ -375,15 +335,16 @@ cudaError_t launch(const float* x, int n, int ci, int d, int h, int w, const flo
       conv_tc_kernel<CO, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(((o.h + tl.th - 1) / tl.th) * tl.tiles_w, o.d, n);
-  conv_tc_kernel<CO, S><<<grid, kThreads, bytes, s>>>(x, ci, d, h, w, wpk, o, tl);
+  conv_tc_kernel<CO, S><<<grid, kThreads, bytes, s>>>(x, ci, d, h, w, wpk, wkd, o, tl);
   return cudaGetLastError();
 }
 
 // One float of the staged weights (pack_tf32_weight's layout, (ceil(Ci /
-// 8), 3, 9, Co / 8, 32, 4)) per thread, from the torch weight w (Co, Ci, 3,
-// 3, 3), or with `flip` from w (Ci, Co, 3, 3, 3) flipped in every spatial
-// dim: the input gradient's weights (flip_transpose).
-__global__ void pack_kernel(const float* __restrict__ w, int co, int ci, int flip,
+// 8), wkd, 9, Co / 8, 32, 4)) per thread, from the torch weight w (Co, Ci,
+// wkd, 3, 3) (wkd = 3, or 1: the 2D weight (Co, Ci, 3, 3)), or with `flip`
+// (wkd 3) from w (Ci, Co, 3, 3, 3) flipped in every spatial dim: the input
+// gradient's weights (flip_transpose).
+__global__ void pack_kernel(const float* __restrict__ w, int co, int ci, int wkd, int flip,
                             float* __restrict__ out, int total) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= total) return;
@@ -393,47 +354,62 @@ __global__ void pack_kernel(const float* __restrict__ w, int co, int ci, int fli
   r /= nt;
   const int tap = r % 9;
   r /= 9;
-  const int kd = r % 3, cc = r / 3;
+  const int kd = r % wkd, cc = r / wkd;
   const int c = 8 * cc + (l & 3) + 4 * (e & 1), oc = 8 * j + (l >> 2);
   float v = 0.f;
   if (c < ci) {
     const int kh = tap / 3, kw = tap % 3;
     v = flip ? w[(((size_t)c * co + oc) * 3 + 2 - kd) * 9 + (2 - kh) * 3 + 2 - kw]
-             : w[(((size_t)oc * ci + c) * 3 + kd) * 9 + tap];
+             : w[(((size_t)oc * ci + c) * wkd + kd) * 9 + tap];
   }
   uint32_t hi, lo;
   split_tf32(v, hi, lo);
   out[o] = __uint_as_float(e < 2 ? hi : lo);
 }
 
+// The launch of one conv: Co 32 or 64, stride 1 or 2, weights of wkd depth
+// taps (pack_kernel's layout).
+cudaError_t run(const float* x, int n, int ci, int d, int h, int w, int stride,
+                const float* wpk, int wkd, const Out& o, cudaStream_t s) {
+  if (o.co == 32)
+    return stride == 1 ? launch<32, 1>(x, n, ci, d, h, w, wpk, wkd, o, s)
+                       : launch<32, 2>(x, n, ci, d, h, w, wpk, wkd, o, s);
+  if (o.co == 64)
+    return stride == 1 ? launch<64, 1>(x, n, ci, d, h, w, wpk, wkd, o, s)
+                       : launch<64, 2>(x, n, ci, d, h, w, wpk, wkd, o, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// The staged weights of conv3d_tc_cuda into wpk (pack_tf32_weight's layout
-// for Co, Ci): from w (Co, Ci, 3, 3, 3), or with flip from w (Ci, Co, 3, 3,
-// 3) as flip_transpose gives them (the input gradient of a conv with
-// weights w). Float32, contiguous, on `device`; Co is 32 or 64. Launches
-// on `stream`, returns the cudaError_t of the launch.
-int conv3d_tc_pack_cuda(const void* w, int co, int ci, int flip, void* wpk, void* stream,
-                        int device) {
+// The staged weights of conv3d_tc_cuda (wkd 3) or conv2d_tc_cuda (wkd 1)
+// into wpk (pack_tf32_weight's layout for Co, Ci): from w (Co, Ci, 3, 3, 3)
+// or (Co, Ci, 3, 3), or with flip (wkd 3 only) from w (Ci, Co, 3, 3, 3) as
+// flip_transpose gives them (the input gradient of a conv with weights w).
+// Float32, contiguous, on `device`; Co is 32 or 64. Launches on `stream`,
+// returns the cudaError_t of the launch.
+int conv3d_tc_pack_cuda(const void* w, int co, int ci, int wkd, int flip, void* wpk,
+                        void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if ((co != 32 && co != 64) || ci < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int total = (ci + 7) / 8 * 27 * co * 16;
+  if ((co != 32 && co != 64) || ci < 1 || (wkd != 1 && wkd != 3) || (flip && wkd != 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int total = (ci + 7) / 8 * wkd * 9 * co * 16;
   pack_kernel<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(w), co, ci, flip, static_cast<float*>(wpk), total);
+      static_cast<const float*>(w), co, ci, wkd, flip, static_cast<float*>(wpk), total);
   return static_cast<int>(cudaGetLastError());
 }
 
-
 // x (N, Ci, D, H, W); wpk the split, fragment-ordered weights of
 // conv3d_tc_pack_cuda (ops/cuda/conv3d.py::pack_tf32_weight's layout) for
-// the torch weight (Co, Ci, 3, 3, 3); mul, add (Co,); stride 1 or 2 (padding 1 either way, so the output
-// is (D - 1) / stride + 1 per dim); res (N, Co, D', H', W') of the
-// output's shape or null; out (N, Co, D', H', W'). All float32,
-// contiguous, on `device`. Co is 32 or 64. Launches on `stream`, does not
-// synchronise, returns the cudaError_t of the launch (0 on success).
+// the torch weight (Co, Ci, 3, 3, 3); mul, add (Co,); stride 1 or 2
+// (padding 1 either way, so the output is (D - 1) / stride + 1 per dim);
+// res (N, Co, D', H', W') of the output's shape or null; out (N, Co, D',
+// H', W'). All float32, contiguous, on `device`. Co is 32 or 64. Launches
+// on `stream`, does not synchronise, returns the cudaError_t of the launch
+// (0 on success).
 int conv3d_tc_cuda(const void* x, int n, int ci, int d, int h, int w, int stride,
                    const void* wpk, int co, const void* mul, const void* add, const void* res,
                    int relu, void* out, void* stream, int device) {
@@ -444,19 +420,25 @@ int conv3d_tc_cuda(const void* x, int n, int ci, int d, int h, int w, int stride
   if (ci < 1 || d < 1 || h < 1 || w < 1 || (stride != 1 && stride != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const int od = (d - 1) / stride + 1, oh = (h - 1) / stride + 1, ow = (w - 1) / stride + 1;
-  const Out o = conv::make_out(out, mul, add, res, co, od, oh, ow, relu);
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(wpk);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (co == 32)
-    err = stride == 1 ? launch<32, 1>(xf, n, ci, d, h, w, wf, o, s)
-                      : launch<32, 2>(xf, n, ci, d, h, w, wf, o, s);
-  else if (co == 64)
-    err = stride == 1 ? launch<64, 1>(xf, n, ci, d, h, w, wf, o, s)
-                      : launch<64, 2>(xf, n, ci, d, h, w, wf, o, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(run(static_cast<const float*>(x), n, ci, d, h, w, stride,
+                              static_cast<const float*>(wpk), 3,
+                              conv::make_out(out, mul, add, res, co, od, oh, ow, relu),
+                              static_cast<cudaStream_t>(stream)));
+}
+
+// x (N, Ci, H, W) -> out (N, Co, H, W), the 3x3 stride-1 pad-1 2D conv;
+// wpk the packing of the torch weight (Co, Ci, 3, 3) (conv3d_tc_pack_cuda
+// with wkd 1). Otherwise as conv3d_tc_cuda.
+int conv2d_tc_cuda(const void* x, int n, int ci, int h, int w, const void* wpk, int co,
+                   const void* mul, const void* add, const void* res, int relu, void* out,
+                   void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ci < 1 || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run(static_cast<const float*>(x), n, ci, 1, h, w, 1,
+                              static_cast<const float*>(wpk), 1,
+                              conv::make_out(out, mul, add, res, co, 1, h, w, relu),
+                              static_cast<cudaStream_t>(stream)));
 }
 
 const char* conv3d_tc_error_string(int err) {

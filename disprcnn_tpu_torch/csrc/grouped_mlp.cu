@@ -18,13 +18,13 @@
 // repeat a ball's first neighbour cannot be told apart here, so every row
 // is computed and counted.
 //
-// Design: sa.cu without the ball query and the gather. One block of 256
-// threads per tile of T = R / S whole groups (R = 16, 32 or 64 rows, the
-// largest that holds a group and fits in shared memory); it loads the T S
-// rows of x with the affine and ReLU into shared memory (rows past the
-// last group are zero and never reduced), runs the chain as register-tiled
-// products between two shared buffers and reduces the last layer 128
-// columns at a time into the max over each group (mlp.cuh: chain_max).
+// Design: one block of 256 threads per tile of T = R / S whole groups (R =
+// 16, 32 or 64 rows, the largest that holds a group and fits in shared
+// memory); it loads the T S rows of x with the affine and ReLU into shared
+// memory (rows past the last group are zero and never reduced), runs the
+// chain as register-tiled products between two shared buffers and reduces
+// the last layer 128 columns at a time into the max over each group
+// (mlp.cuh: chain_max).
 // Only the (G, C_last) result is written.
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -18,13 +18,15 @@ classifier's bias-free 32 -> 1 conv).
 
 Each function dispatches: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel. There is no fallback: a kernel that fails to
-build or launch raises. ``conv3d_bn`` at Co 32 and 64 (stride 1 and 2) is
-csrc/conv3d_tc.cu, an implicit GEMM on the tensor cores at float32
-accuracy through error-compensated TF32 ("3xTF32": each operand split as
-hi + lo by ``split_tf32``, each product lo*hi + hi*lo + hi*hi; the
-weights are split and laid out by ``pack_tf32_weight``;
-``conv3d_bn_3xtf32_plain`` is the same arithmetic in three ``F.conv3d``
-calls). The other forms are csrc/conv3d.cu. The launch points are
+build or launch raises. ``conv3d_bn`` at Co 32 and 64 (stride 1 and 2) and
+``conv2d_bn`` are csrc/conv3d_tc.cu, an implicit GEMM on the tensor cores
+at float32 accuracy through error-compensated TF32 ("3xTF32": each operand
+split as hi + lo by ``split_tf32``, each product lo*hi + hi*lo + hi*hi;
+the weights are split and laid out by ``pack_tf32_weight``;
+``conv3d_bn_3xtf32_plain`` and ``conv2d_bn_3xtf32_plain`` are the same
+arithmetic in three ``F.conv3d`` or ``F.conv2d`` calls); the 2D conv is
+the 3D body at depth 1. The other forms are csrc/conv3d.cu. The launch
+points are
 ``conv3d_bn_cuda``, ``cost_volume_conv_bn_cuda``, ``deconv3d_bn_cuda`` and
 ``conv2d_bn_cuda``, looked up at call time, so a caller can route them
 elsewhere. These launches are forward only (``build.forward_only``).
@@ -68,9 +70,7 @@ def _lib() -> ctypes.CDLL:
         lib.conv3d_bn_cuda.argtypes = [p, i, i, i, i, i, p, p, p, p, i, p, p, i]
         lib.cost_volume_conv_bn_cuda.argtypes = [p, p, i, i, i, i, i, i, p, i, p, p, i, p, p, i]
         lib.deconv3d_bn_cuda.argtypes = [p, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
-        lib.conv2d_bn_cuda.argtypes = [p, i, i, i, i, p, i, p, p, p, i, p, p, i]
-        for fn in (lib.conv3d_bn_cuda, lib.cost_volume_conv_bn_cuda, lib.deconv3d_bn_cuda,
-                   lib.conv2d_bn_cuda):
+        for fn in (lib.conv3d_bn_cuda, lib.cost_volume_conv_bn_cuda, lib.deconv3d_bn_cuda):
             fn.restype = i
         lib.conv3d_error_string.argtypes = [i]
         lib.conv3d_error_string.restype = ctypes.c_char_p
@@ -82,8 +82,9 @@ def _tc_lib() -> ctypes.CDLL:
     if lib.conv3d_tc_cuda.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.conv3d_tc_cuda.argtypes = [p, i, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
-        lib.conv3d_tc_pack_cuda.argtypes = [p, i, i, i, p, p, i]
-        for fn in (lib.conv3d_tc_cuda, lib.conv3d_tc_pack_cuda):
+        lib.conv2d_tc_cuda.argtypes = [p, i, i, i, i, p, i, p, p, p, i, p, p, i]
+        lib.conv3d_tc_pack_cuda.argtypes = [p, i, i, i, i, p, p, i]
+        for fn in (lib.conv3d_tc_cuda, lib.conv2d_tc_cuda, lib.conv3d_tc_pack_cuda):
             fn.restype = i
         lib.conv3d_tc_error_string.argtypes = [i]
         lib.conv3d_tc_error_string.restype = ctypes.c_char_p
@@ -119,39 +120,61 @@ def conv3d_bn_3xtf32_plain(x: torch.Tensor, weight: torch.Tensor,
     return _epilogue(y, mul, add, residual, relu)
 
 
+def conv2d_bn_3xtf32_plain(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
+                           add: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                           relu: bool = False) -> torch.Tensor:
+    """conv2d_bn_plain in the tensor-core kernel's arithmetic, as
+    conv3d_bn_3xtf32_plain (three F.conv2d calls)."""
+    xh, xl = split_tf32(x)
+    wh, wl = split_tf32(weight)
+    y = F.conv2d(xl, wh, padding=1) + F.conv2d(xh, wl, padding=1) + F.conv2d(xh, wh, padding=1)
+    return _epilogue(y, mul, add, residual, relu)
+
+
 def pack_tf32_weight(weight: torch.Tensor) -> torch.Tensor:
     """(Co, Ci, 3, 3, 3) -> csrc/conv3d_tc.cu's staged weights:
     (ceil(Ci / 8), 3 kd, 9 taps (kh, kw), Co / 8, 32 lanes, 4), Ci padded
-    with zeros to a multiple of 8. Lane l of N-tile j in chunk cc holds
-    [hi(k), hi(k + 4), lo(k), lo(k + 4)] of the weight from input channel
-    8 cc + k, k = l % 4, to output channel 8 j + l // 4: the B fragment of
-    mma.m16n8k8 (b0 at row k, b1 at row k + 4, column l // 4), split by
-    split_tf32. The plain version of the kernel's own packing,
+    with zeros to a multiple of 8; a 2D weight (Co, Ci, 3, 3) -> the same
+    without the kd dim (its one depth tap). Lane l of N-tile j in chunk cc
+    holds [hi(k), hi(k + 4), lo(k), lo(k + 4)] of the weight from input
+    channel 8 cc + k, k = l % 4, to output channel 8 j + l // 4: the B
+    fragment of mma.m16n8k8 (b0 at row k, b1 at row k + 4, column l // 4),
+    split by split_tf32. The plain version of the kernel's own packing,
     pack_tf32_weight_cuda."""
-    co, ci = weight.shape[:2]
+    w5 = weight[:, :, None] if weight.dim() == 4 else weight
+    co, ci, kd = w5.shape[:3]
     ci8 = -(-ci // 8)
-    hi, lo = split_tf32(F.pad(weight, (0, 0, 0, 0, 0, 0, 0, 8 * ci8 - ci)))
+    hi, lo = split_tf32(F.pad(w5, (0, 0, 0, 0, 0, 0, 0, 8 * ci8 - ci)))
 
     def fragments(t):
         # (j, l // 4, cc, k >= 4, k % 4, kd, tap) -> (cc, kd, tap, j, l, k >= 4)
-        t = t.reshape(co // 8, 8, ci8, 2, 4, 3, 9).permute(2, 5, 6, 0, 1, 4, 3)
-        return t.reshape(ci8, 3, 9, co // 8, 32, 2)
-    return torch.cat((fragments(hi), fragments(lo)), dim=-1).contiguous()
+        t = t.reshape(co // 8, 8, ci8, 2, 4, kd, 9).permute(2, 5, 6, 0, 1, 4, 3)
+        return t.reshape(ci8, kd, 9, co // 8, 32, 2)
+    packed = torch.cat((fragments(hi), fragments(lo)), dim=-1)
+    return (packed[:, 0] if weight.dim() == 4 else packed).contiguous()
 
 
 def pack_tf32_weight_cuda(weight: torch.Tensor, flip: bool = False) -> torch.Tensor:
-    """pack_tf32_weight(weight), or with `flip` pack_tf32_weight(
-    flip_transpose(weight)), in one launch of csrc/conv3d_tc.cu's packing
-    on the current stream (weight float32, contiguous, on the card)."""
+    """pack_tf32_weight(weight), or with `flip` (3D only)
+    pack_tf32_weight(flip_transpose(weight)), in one launch of
+    csrc/conv3d_tc.cu's packing on the current stream (weight float32,
+    contiguous, on the card)."""
     co, ci = weight.shape[:2]
     if flip:
         co, ci = ci, co
-    _check_float32_cuda("weight", weight, (ci, co, 3, 3, 3) if flip else (co, ci, 3, 3, 3),
+    if weight.dim() not in (4, 5) or (flip and weight.dim() != 5):
+        raise ValueError(f"need a (Co, Ci, 3, 3) or (Co, Ci, 3, 3, 3) weight (3D to flip), "
+                         f"got {tuple(weight.shape)}")
+    wkd = 3 if weight.dim() == 5 else 1
+    _check_float32_cuda("weight", weight,
+                        (ci, co, 3, 3, 3) if flip else (co, ci) + (3,) * (weight.dim() - 2),
                         weight.device)
     lib = _tc_lib()
-    out = torch.empty((-(-ci // 8), 3, 9, co // 8, 32, 4), device=weight.device)
-    err = lib.conv3d_tc_pack_cuda(weight.data_ptr(), co, ci, int(flip), out.data_ptr(),
+    out = torch.empty((-(-ci // 8), wkd, 9, co // 8, 32, 4), device=weight.device)
+    err = lib.conv3d_tc_pack_cuda(weight.data_ptr(), co, ci, wkd, int(flip), out.data_ptr(),
                                   _stream(weight), weight.device.index)
+    if wkd == 1:
+        out = out[:, 0]
     _raise_on(lib.conv3d_tc_error_string, err, "conv3d_tc_pack_cuda")
     return out
 
@@ -338,20 +361,21 @@ def deconv3d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
 def conv2d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
                    add: torch.Tensor, residual: Optional[torch.Tensor] = None,
                    relu: bool = False) -> torch.Tensor:
-    """Launch csrc/conv3d.cu's 2D conv on the current stream; same contract
-    as conv2d_bn_plain."""
+    """Launch csrc/conv3d_tc.cu's 2D conv (its weight packing, then the
+    conv) on the current stream; same contract as conv2d_bn_plain."""
     build.forward_only("conv2d_bn_cuda", x, weight, mul, add, residual)
     _check_input("x", x, 4)
     n, ci, h, w = x.shape
     co = weight.shape[0]
-    wt = _weight(weight, (co, ci, 3, 3), x.device, (1, 2, 3, 0))
+    _check_float32_cuda("weight", weight, (co, ci, 3, 3), x.device)
     mul, add, res = _epilogue_args(co, mul, add, residual, (n, co, h, w), x.device)
-    lib = _lib()
+    lib = _tc_lib()
+    wt = pack_tf32_weight_cuda(weight)
     out = torch.empty((n, co, h, w), device=x.device)
-    err = lib.conv2d_bn_cuda(x.data_ptr(), n, ci, h, w, wt.data_ptr(), co, mul.data_ptr(),
+    err = lib.conv2d_tc_cuda(x.data_ptr(), n, ci, h, w, wt.data_ptr(), co, mul.data_ptr(),
                              add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
                              x.device.index)
-    _raise_on(lib.conv3d_error_string, err, "conv2d_bn_cuda")
+    _raise_on(lib.conv3d_tc_error_string, err, "conv2d_tc_cuda")
     launches["conv2d"] += 1
     return out
 

@@ -20,7 +20,7 @@ import torch
 
 from ..points import three_interpolate, three_nn, three_nn_interpolate_weights
 from . import build
-from .sa import MAX_LAYERS, Weights, _check, _mlp_chain
+from .sa import MAX_LAYERS, Weights, _check, mlp_chain
 
 # Launches of the CUDA kernel in this process; a caller may reset it to 0
 # around a run it wants to count.
@@ -49,7 +49,7 @@ def fp_fused_plain(unknown: torch.Tensor, known: torch.Tensor, known_feats: torc
     Ci = C + Cs -> (B, Nt, C_last)."""
     d, idx = three_nn(unknown, known)
     interp = three_interpolate(known_feats, idx, three_nn_interpolate_weights(d, eps))
-    return _mlp_chain(torch.cat([interp, unknown_feats], dim=-1), weights)
+    return mlp_chain(torch.cat([interp, unknown_feats], dim=-1), weights)
 
 
 def fp_fused_cuda(unknown: torch.Tensor, known: torch.Tensor, known_feats: torch.Tensor,

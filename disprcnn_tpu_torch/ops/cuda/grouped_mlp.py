@@ -24,7 +24,7 @@ from typing import Sequence, Tuple
 import torch
 
 from . import build
-from .sa import MAX_LAYERS, _check, _mlp_chain
+from .sa import MAX_LAYERS, _check, mlp_chain
 
 # Launches of the CUDA kernel in this process; a caller may reset it to 0
 # around a run it wants to count.
@@ -64,7 +64,7 @@ def grouped_mlp_max_plain(x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tenso
     g, s, c0 = x.shape
     widest = max([c0] + [w.shape[1] for w, _ in weights])
     step = max(1, PLAIN_CHUNK_ELEMS // (s * widest))
-    outs = [_mlp_chain(torch.relu(x[lo:lo + step] * mul0 + add0), weights).amax(dim=1)
+    outs = [mlp_chain(torch.relu(x[lo:lo + step] * mul0 + add0), weights).amax(dim=1)
             for lo in range(0, g, step)]
     return torch.cat(outs, 0)
 

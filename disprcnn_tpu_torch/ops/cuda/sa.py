@@ -16,7 +16,13 @@ folded chain x = relu(x W + b) per layer, and the max over the ball.
 ``sa_ball_mlp_max`` dispatches: a CPU tensor takes the plain version; a
 CUDA tensor launches the kernel (csrc/sa.cu), whose one launch point is
 ``sa_ball_mlp_max_cuda``, looked up at call time. There is no fallback.
-That launch is forward only (``build.forward_only``).
+That launch is forward only (``build.forward_only``). The kernel runs the
+chain's products on the tensor cores at float32 accuracy through
+error-compensated TF32 (csrc/mlp_tc.cuh: each operand split as hi + lo by
+``split_tf32``, each product lo*hi + hi*lo + hi*hi); its weights are split
+and laid out by one launch before it (``pack_tf32_chain_cuda``, whose
+plain version is ``pack_tf32_chain``). ``sa_ball_mlp_max_3xtf32_plain`` is
+the plain version with the chain in that arithmetic.
 
 The train form ``sa_ball_mlp_max_train`` (counterpart of sa_fused.py:1073,
 a ``jax.custom_vjp``) is a ``torch.autograd.Function``: the kernel as its
@@ -30,12 +36,13 @@ it for the float32 model.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from ..points import ball_query, group_points
 from . import build
+from .conv3d import split_tf32
 
 # Launches of the CUDA kernel in this process, by the eval wrapper and by
 # the train form's forward; a caller may reset them to 0 around a run it
@@ -58,23 +65,45 @@ def _lib() -> ctypes.CDLL:
     if lib.sa_cuda.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sa_cuda.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, p, p, i]
-        lib.sa_cuda.restype = i
+        lib.sa_pack_cuda.argtypes = [p, p, i, p, p, i]
+        lib.sa_packed_floats.argtypes = [p, i]
+        for fn in (lib.sa_cuda, lib.sa_pack_cuda, lib.sa_packed_floats):
+            fn.restype = i
         lib.sa_error_string.argtypes = [i]
         lib.sa_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _mlp_chain(x: torch.Tensor, weights: Weights) -> torch.Tensor:
+def mlp_chain(x: torch.Tensor, weights: Weights) -> torch.Tensor:
+    """The folded chain: x = relu(x W + b) per layer."""
     for w, b in weights:
         x = torch.relu(x @ w + b)
     return x
 
 
+def product_3xtf32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the tensor-core kernel's arithmetic: both split by
+    split_tf32, lo*hi + hi*lo + hi*hi (a product of two TF32 values is
+    exact in float32)."""
+    (xh, xl), (wh, wl) = split_tf32(x), split_tf32(w)
+    return xl @ wh + xh @ wl + xh @ wh
+
+
+def mlp_chain_3xtf32(x: torch.Tensor, weights: Weights) -> torch.Tensor:
+    """mlp_chain with each product in the kernel's 3xTF32 arithmetic."""
+    for w, b in weights:
+        x = torch.relu(product_3xtf32(x, w) + b)
+    return x
+
+
 def sa_ball_mlp_max_plain(xyz: torch.Tensor, centers: torch.Tensor, v: torch.Tensor,
                           w0x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor,
-                          weights: Weights, radius: float, s: int) -> torch.Tensor:
+                          weights: Weights, radius: float, s: int,
+                          chain: Optional[Callable] = None) -> torch.Tensor:
     """xyz (B, N, 3), centers (B, M, 3), v (B, N, C0), w0x (3, C0), mul0 and
-    add0 (C0,), weights [(W (Ci, Co), b (Co,))] -> (B, M, C_last)."""
+    add0 (C0,), weights [(W (Ci, Co), b (Co,))] -> (B, M, C_last). `chain`
+    (x, weights) -> activations runs the layers after mlp0 (mlp_chain by
+    default)."""
     b, m = centers.shape[:2]
     widest = max([v.shape[-1]] + [w.shape[1] for w, _ in weights])
     step = max(1, PLAIN_CHUNK_ELEMS // (m * s * widest))
@@ -85,8 +114,65 @@ def sa_ball_mlp_max_plain(xyz: torch.Tensor, centers: torch.Tensor, v: torch.Ten
         gx = group_points(p, idx) - c[:, :, None, :]
         term = (gx[..., 0:1] * w0x[0] + gx[..., 1:2] * w0x[1]) + gx[..., 2:3] * w0x[2]
         x = torch.relu((group_points(vv, idx) + term) * mul0 + add0)
-        outs.append(_mlp_chain(x, weights).amax(dim=2))
+        outs.append((chain or mlp_chain)(x, weights).amax(dim=2))
     return torch.cat(outs, 0)
+
+
+def sa_ball_mlp_max_3xtf32_plain(xyz, centers, v, w0x, mul0, add0, weights, radius,
+                                 s) -> torch.Tensor:
+    """sa_ball_mlp_max_plain with the chain in the kernel's 3xTF32
+    arithmetic (mlp_chain_3xtf32)."""
+    return sa_ball_mlp_max_plain(xyz, centers, v, w0x, mul0, add0, weights, radius, s,
+                                 chain=mlp_chain_3xtf32)
+
+
+def pack_tf32_chain(weights: Weights) -> torch.Tensor:
+    """The chain's weights as csrc/sa.cu's kernel reads them: per layer W
+    (Ci, Co), padded with zeros to (8 K8, 8 N8), K8 = ceil(Ci / 8), N8 =
+    ceil(Co / 8), as (K8, N8, 32 lanes, 4): lane l of N-tile nt in k8 step
+    kk holds [hi(k), hi(k + 4), lo(k), lo(k + 4)] of the weight from row
+    8 kk + k, k = l % 4, to column 8 nt + l // 4 (mma.m16n8k8's B fragment),
+    split by split_tf32; the layers flattened one after the other. The
+    plain version of the kernel's own packing, pack_tf32_chain_cuda."""
+    parts = []
+    for w, _ in weights:
+        ci, co = w.shape
+        k8, n8 = -(-ci // 8), -(-co // 8)
+        hi, lo = split_tf32(torch.nn.functional.pad(w, (0, 8 * n8 - co, 0, 8 * k8 - ci)))
+
+        def fragments(t):
+            # (kk, k >= 4, k % 4, nt, l // 4) -> (kk, nt, l, k >= 4)
+            return t.reshape(k8, 2, 4, n8, 8).permute(0, 3, 4, 2, 1).reshape(k8, n8, 32, 2)
+        parts.append(torch.cat((fragments(hi), fragments(lo)), dim=-1).reshape(-1))
+    return torch.cat(parts)
+
+
+def _chain_args(weights: Weights, c0: int):
+    chans = [c0] + [w.shape[1] for w, _ in weights]
+    nl = len(weights)
+    wptr = (ctypes.c_void_p * max(nl, 1))(*[w.data_ptr() for w, _ in weights])
+    return wptr, (ctypes.c_int * len(chans))(*chans), nl
+
+
+def pack_tf32_chain_cuda(weights: Weights) -> torch.Tensor:
+    """pack_tf32_chain(weights) in one launch of csrc/sa.cu's packing on the
+    current stream (each W float32, contiguous, on one card; 1 to
+    MAX_LAYERS layers)."""
+    if not 1 <= len(weights) <= MAX_LAYERS:
+        raise ValueError(f"need 1 to {MAX_LAYERS} layers, got {len(weights)}")
+    dev = weights[0][0].device
+    cin = weights[0][0].shape[0]
+    for i, (w, _) in enumerate(weights):
+        _check(f"weights[{i}]", w, (cin, w.shape[1]), dev)
+        cin = w.shape[1]
+    lib = _lib()
+    wptr, carr, nl = _chain_args(weights, weights[0][0].shape[0])
+    out = torch.empty(lib.sa_packed_floats(carr, nl), device=dev)
+    err = lib.sa_pack_cuda(wptr, carr, nl, out.data_ptr(),
+                           torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    if err != 0:
+        raise RuntimeError(f"sa_pack_cuda launch failed: {lib.sa_error_string(err).decode()}")
+    return out
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -133,13 +219,13 @@ def _sa_launch(xyz, centers, v, w0x, mul0, add0, weights, radius, s):
         raise ValueError(f"need at most {MAX_LAYERS} layers, S dividing 64 and B <= 65535, "
                          f"got {len(weights)} layers, S={s}, B={b}")
     lib = _lib()
+    wpk = pack_tf32_chain_cuda(weights) if weights else None
     out = torch.empty((b, m, chans[-1]), device=dev)
-    nl = len(weights)
-    wptr = (ctypes.c_void_p * max(nl, 1))(*[w.data_ptr() for w, _ in weights])
+    _, carr, nl = _chain_args(weights, c0)
     bptr = (ctypes.c_void_p * max(nl, 1))(*[bias.data_ptr() for _, bias in weights])
-    carr = (ctypes.c_int * len(chans))(*chans)
     err = lib.sa_cuda(xyz.data_ptr(), centers.data_ptr(), v.data_ptr(), w0x.data_ptr(),
-                      mul0.data_ptr(), add0.data_ptr(), wptr, bptr, carr, nl, b, n, m, s,
+                      mul0.data_ptr(), add0.data_ptr(), None if wpk is None else wpk.data_ptr(),
+                      bptr, carr, nl, b, n, m, s,
                       float(radius) * float(radius), out.data_ptr(),
                       torch.cuda.current_stream(dev).cuda_stream, dev.index)
     if err != 0:

@@ -139,6 +139,31 @@ def test_tf32_pack_kernel_matches_plain(card, ci, co, flip):
                                                    else weight))
 
 
+@pytest.mark.parametrize("ci,co", [(32, 32), (64, 64), (5, 32), (32, 64)])
+def test_tf32_pack_kernel_2d_matches_plain(card, ci, co):
+    """The 2D conv's weight packing (one launch, one depth tap) equals
+    pack_tf32_weight of the 2D weight bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(ci * co)
+    weight = _randn(gen, co, ci, 3, 3)
+    got = cconv.pack_tf32_weight_cuda(weight)
+    torch.cuda.synchronize()
+    assert got.shape == (-(-ci // 8), 9, co // 8, 32, 4)
+    assert torch.equal(got, cconv.pack_tf32_weight(weight))
+
+
+@pytest.mark.parametrize("widths", [(64, 64, 128), (128, 196, 256), (256, 384, 512),
+                                    (64, 80, 70, 40), (128, 128, 128, 128, 256)])
+def test_sa_pack_kernel_matches_plain(card, widths):
+    """The SA chain's weight packing (one launch for every layer) equals
+    pack_tf32_chain bit for bit, widths not multiples of 8 padded with
+    zeros."""
+    gen = torch.Generator(device="cuda").manual_seed(sum(widths))
+    ws = [(_randn(gen, ci, co), _randn(gen, co)) for ci, co in zip(widths, widths[1:])]
+    got = csa.pack_tf32_chain_cuda(ws)
+    torch.cuda.synchronize()
+    assert torch.equal(got, csa.pack_tf32_chain(ws))
+
+
 @pytest.mark.parametrize("ci,co,shape,residual,relu", [
     (32, 64, (24, 56, 56), False, True),   # the hourglass's first stride-2 conv
     (64, 64, (12, 28, 28), False, True),   # its second
@@ -185,17 +210,25 @@ def test_deconv3d_kernel_matches_plain(card, ci, co, shape, residual, relu):
     _close(got, cconv.deconv3d_bn_plain(x, weight, mul, add, res, relu))
 
 
-@pytest.mark.parametrize("ci,co,hw,residual,relu", [
-    (32, 32, (112, 112), False, True), (32, 32, (112, 112), True, False),
-    (64, 64, (56, 56), True, False), (64, 64, (13, 70), False, True),
-    (5, 32, (9, 33), True, True),  # Ci not a multiple of the 8-channel step
+@pytest.mark.parametrize("ci,co,hw,residual,relu,n", [
+    (32, 32, (112, 112), False, True, 3), (32, 32, (112, 112), True, False, 3),
+    (64, 64, (56, 56), True, False, 3), (64, 64, (13, 70), False, True, 3),
+    (5, 32, (9, 33), True, True, 3),  # Ci not a multiple of the 8-channel step
+    # the feature tower's two sites (112^2 32 -> 32, 56^2 64 -> 64) at N = 2
+    (32, 32, (112, 112), False, True, 2), (64, 64, (56, 56), True, False, 2),
+    # ragged sizes: a last short row tile, a width over one tile's positions
+    # (two column tiles), one row, one column, 32 -> 64
+    (32, 32, (113, 111), True, True, 2), (64, 64, (57, 55), False, False, 2),
+    (64, 64, (5, 300), False, True, 2), (32, 32, (1, 40), True, False, 2),
+    (32, 32, (37, 1), False, True, 2), (32, 64, (20, 24), False, True, 2),
 ])
-def test_conv2d_kernel_matches_plain(card, ci, co, hw, residual, relu):
+def test_conv2d_kernel_matches_plain(card, ci, co, hw, residual, relu, n):
+    """The 2D conv on the tensor cores (csrc/conv3d_tc.cu at depth 1)."""
     gen = torch.Generator(device="cuda").manual_seed(ci + co + hw[0])
-    x = _randn(gen, 3, ci, *hw)
+    x = _randn(gen, n, ci, *hw)
     weight = _randn(gen, co, ci, 3, 3, scale=0.05)
     mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
-    res = _randn(gen, 3, co, *hw) if residual else None
+    res = _randn(gen, n, co, *hw) if residual else None
     before = cconv.launches["conv2d"]
     got = cconv.conv2d_bn(x, weight, mul, add, res, relu)
     assert cconv.launches["conv2d"] == before + 1
@@ -300,6 +333,14 @@ def _sa_args(gen, b, n, m, c0, chain):
     (8, 128, 32, 128, (128, 256), 0.4, 64),   # RCNN SA1
     (3, 100, 37, 64, (), 0.8, 16),            # no layer after mlp0, a partial tile
     (3, 90, 21, 64, (80, 70, 40), 0.8, 32),   # three layers, a width not a multiple of 4
+    (2, 256, 64, 256, (256, 512), 2.0, 16),   # RPN SA3 scale 0
+    (3, 512, 100, 128, (196, 256), 2.0, 32),  # RPN SA2 scale 1, a partial tile
+    (5, 300, 45, 128, (128, 196), 0.6, 64),   # the last layer 196 wide, one ball a tile
+    (3, 200, 50, 64, (64, 96), 1.0, 8),       # S under 16: several balls a fragment half
+    (2, 150, 33, 64, (64,), 0.7, 4),
+    (2, 80, 19, 64, (72, 64), 0.9, 2),
+    (2, 60, 23, 64, (64, 64), 0.9, 1),
+    (2, 128, 40, 96, (128, 128, 128, 256), 1.2, 32),  # four layers
 ])
 def test_sa_kernel_matches_plain(card, b, n, m, c0, chain, radius, s):
     """max |diff| <= 1e-4 * max |plain| + 1e-5 (float32 sums in another

@@ -1,6 +1,7 @@
 """The arithmetic of the tensor-core conv (csrc/conv3d_tc.cu) on the CPU:
-the TF32 split, the emulated 3xTF32 conv against the float32 conv and
-against the JAX Pallas kernels it replaces, and the staged weight layout.
+the TF32 split, the emulated 3xTF32 conv (3D, and the feature tower's 2D
+conv) against the float32 conv and against the JAX Pallas kernels it
+replaces, and the staged weight layouts.
 
 The kernel holds each operand as hi + lo, hi = tf32(v), lo = tf32(v - hi)
 (10 mantissa bits, to nearest, ties away from zero), and sums lo*hi +
@@ -16,8 +17,9 @@ import pytest
 import torch
 
 from disprcnn_tpu.ops.conv3d_packed import (pack_depth, pack_kernel, pack_kernel_strided,
-                                            unpack_depth)
-from disprcnn_tpu.ops.pallas.packed_conv import packed_conv_bn, packed_conv_bn_s2
+                                            pack_kernel_w, unpack_depth, wpack, wunpack)
+from disprcnn_tpu.ops.pallas.packed_conv import (packed_conv_bn, packed_conv_bn_s2,
+                                                 wpacked_conv_bn)
 from disprcnn_tpu_torch.bench import CONV_ATOL, CONV_RTOL
 from disprcnn_tpu_torch.ops.cuda import conv3d as tconv
 
@@ -180,3 +182,73 @@ def test_pack_tf32_weight_is_the_b_fragment_layout(ci, co):
         want[inside] = part.numpy()[o[inside], c[inside], kd[inside], tap[inside] // 3,
                                     tap[inside] % 3]
         np.testing.assert_array_equal(packed[..., k].numpy(), want)
+
+
+@pytest.mark.parametrize("ci,hw,residual,relu", [
+    (32, (12, 14), False, True), (32, (12, 14), True, False),
+    (64, (7, 9), True, True), (64, (7, 9), False, False),
+])
+def test_3xtf32_conv2d_matches_float32_conv(ci, hw, residual, relu):
+    """The 2D conv in the kernel's arithmetic (the feature tower's sites:
+    Ci = Co = 32 and 64, K = 288 and 576 terms) within the card tolerance
+    of the float32 conv, with and without residual and ReLU."""
+    rng = np.random.default_rng(ci + hw[0] + 2 * residual + relu)
+    x = torch.from_numpy(normal(rng, B, ci, *hw))
+    w = torch.from_numpy(normal(rng, ci, ci, 3, 3, scale=0.05))
+    mul = torch.from_numpy(normal(rng, ci, scale=0.3) + 1)
+    add = torch.from_numpy(normal(rng, ci, scale=0.1))
+    res = torch.from_numpy(normal(rng, B, ci, *hw)) if residual else None
+    got = tconv.conv2d_bn_3xtf32_plain(x, w, mul, add, res, relu)
+    want = tconv.conv2d_bn_plain(x, w, mul, add, res, relu)
+    assert got.shape == (B, ci, *hw)
+    err, ok = within_tolerance(got, want)
+    assert ok, err
+    assert err <= 1e-5 * float(want.abs().max())  # float32-level, 10x inside
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_3xtf32_conv2d_matches_pallas(residual):
+    """The emulated 2D kernel against wpacked_conv_bn (_kernel_w, the TPU
+    kernel it replaces) in interpret mode on a W-packed image (G = 4), with
+    BN and ReLU, at the JAX package's kernel tolerance."""
+    rng = np.random.default_rng(20 + residual)
+    h, w, ci, co, g = 6, 20, 8, 8, 4
+    x = normal(rng, B, h, w, ci)
+    kern = normal(rng, 3, 3, ci, co, scale=0.2)
+    mul, add = normal(rng, co, scale=0.5) + 1.0, normal(rng, co, scale=0.1)
+    res = normal(rng, B, h, w, co) if residual else None
+    want = wpacked_conv_bn(wpack(jnp.asarray(x), g), pack_kernel_w(jnp.asarray(kern), g),
+                           jnp.tile(mul, g), jnp.tile(add, g), g, relu=True,
+                           residual=None if res is None else wpack(jnp.asarray(res), g),
+                           interpret=True)
+    weight = torch.from_numpy(np.ascontiguousarray(kern.transpose(3, 2, 0, 1)))
+
+    def nchw(a):
+        return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
+    got = tconv.conv2d_bn_3xtf32_plain(nchw(x), weight, torch.from_numpy(mul),
+                                       torch.from_numpy(add),
+                                       None if res is None else nchw(res), True)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(wunpack(want, g)).transpose(0, 3, 1, 2),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("ci,co", [(32, 32), (64, 64), (5, 32)])
+def test_pack_tf32_weight_2d_is_the_middle_depth_tap(ci, co):
+    """A 2D weight (Co, Ci, 3, 3) packs as (ceil(Ci / 8), 9, Co / 8, 32,
+    4): the B fragments of its taps, which are those of the middle depth
+    tap of the 3D weight that holds it there (the 2D conv is the 3D body at
+    D = 1, where only that tap is inside the volume); Ci padded with zeros
+    to a multiple of 8."""
+    rng = np.random.default_rng(ci * co)
+    w = torch.from_numpy(normal(rng, co, ci, 3, 3))
+    packed = tconv.pack_tf32_weight(w)
+    assert packed.shape == (-(-ci // 8), 9, co // 8, 32, 4) and packed.is_contiguous()
+    w3 = torch.zeros(co, ci, 3, 3, 3)
+    w3[:, :, 1] = w
+    assert torch.equal(packed, tconv.pack_tf32_weight(w3)[:, 1])
+    hi, lo = tconv.split_tf32(w)
+    k, o = 1, 3  # one fragment read out by hand: chunk 0, tap (0, 2), N-tile 0, lane 4 o + k
+    assert packed[0, 2, 0, 4 * o + k].tolist() == [
+        float(v) for v in (hi[o, k, 0, 2], hi[o, k + 4, 0, 2] if k + 4 < ci else 0.0,
+                           lo[o, k, 0, 2], lo[o, k + 4, 0, 2] if k + 4 < ci else 0.0)]
