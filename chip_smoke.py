@@ -5,8 +5,9 @@
 
 Phases, each ending in torch.cuda.synchronize() and one progress line:
   1. build every CUDA kernel of the port (build.SOURCES: csrc/nms.cu,
-     conv3d.cu, conv3d_tc.cu, softargmin.cu, fps.cu, sa.cu, grouped_mlp.cu,
-     fp.cu, roipool3d.cu), one nvcc per source, all at once, into
+     conv3d.cu, conv3d_tc.cu, cost_volume_tc.cu, softargmin.cu, fps.cu,
+     sa.cu, grouped_mlp.cu, fp.cu, roipool3d.cu), one nvcc per source, all
+     at once, into
      disprcnn_tpu_torch/csrc/build/ (listed in .gitignore), printing each
      kernel's registers, spills and shared memory from ptxas;
   2. the greedy-NMS kernel against its plain PyTorch version at the SRPN
@@ -20,9 +21,10 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      with and without residual and ReLU), its 32 -> 1 classifier form, the
      stride-2 and the transposed 3D convs of the hourglasses and the
      soft-argmin; the tensor-core convs (the 2D conv, the 3D conv at stride
-     1 and 2), their plain versions and cuDNN's float32 conv are also
-     compared with the same conv in float64 (logged), and their weight
-     packings held equal to their plain versions;
+     1 and 2, the cost-volume conv, the transposed conv), their plain
+     versions and cuDNN's float32 conv are also compared with the same conv
+     in float64 (logged), and their weight packings held equal to their
+     plain versions;
   4. the PointRCNN kernels against their plain versions at every site
      shape of both budgets, on seeded clouds that hold empty, partial and
      full balls, coincident points, and boxes with no point, fewer than 512
@@ -58,11 +60,13 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      request, beside its plain version, the one PyTorch call that computes
      the same function where there is one (cuDNN free to pick
      non-deterministic algorithms), and the bound of the work the function
-     needs (products with padding or with the cost volume's empty columns,
-     and neighbour slots that repeat a ball's first point, are not counted);
-     the tensor-core kernels (rows 3, 6, 7 and 10, and rows 8 and 11 in
-     phase 17) also get the bound at the 3xTF32 tensor-core rate
-     (bound_tc_ms) and their weight packing's time alone (logged);
+     needs (products with padding, and neighbour slots that repeat a
+     ball's first point, are not counted; the cost-volume conv counts its
+     tap planes and their sums, with the dense conv's count logged and
+     kept as dense_bound_ms); the tensor-core kernels (rows 2, 3, 5, 6, 7
+     and 10, and rows 8 and 11 in phase 17) also get the bound at the
+     3xTF32 tensor-core rate (bound_tc_ms) and their weight packing's time
+     alone (logged);
  10. where a request's time goes, at both budgets: one request split into
      stages (2D detector, crops, feature tower, cost volume + dres,
      hourglasses, classifiers + regression, lift, RPN backbone, RPN heads,
@@ -221,7 +225,9 @@ TC_3XTF32_OPS_PER_S = 495e12 / 3
 # the rows whose kernel runs on the tensor cores, with a second bound at that
 # rate, and the weight packing each of their launches runs first (a function
 # of the launch's arguments)
-TC_ROWS = {"conv3d": lambda a: cconv.pack_tf32_weight_cuda(a[1]),
+TC_ROWS = {"cost_volume_conv": lambda a: cconv.pack_tf32_cost_volume_weight_cuda(a[2]),
+           "deconv3d": lambda a: cconv.pack_tf32_deconv_weight_cuda(a[1]),
+           "conv3d": lambda a: cconv.pack_tf32_weight_cuda(a[1]),
            "conv3d_s2": lambda a: cconv.pack_tf32_weight_cuda(a[1]),
            "conv3d_train": lambda a: cconv.pack_tf32_weight_cuda(a[1]),
            "conv2d": lambda a: cconv.pack_tf32_weight_cuda(a[1]),
@@ -321,6 +327,7 @@ def phase_build() -> float:
     for mod in (cuda_nms, cconv, csam, cfps, csa, cgm, cfp, croi):
         mod._lib()
     cconv._tc_lib()
+    cconv._cv_lib()
     torch.cuda.synchronize()
     log(f"[1/{PHASES}] build: {', '.join(n + '.cu' for n in names)} with nvcc in {dt:.1f} s")
     return dt
@@ -469,6 +476,13 @@ def phase_3d_compare() -> dict:
         log(f"  {name} {what} -> {tuple(got.shape)}: max |diff| {e:.3g} "
             f"(max |plain| {float(want.abs().max()):.3g})")
 
+    def log_exact(name, got, want, exact):
+        """The kernel's and the plain version's distance from the same
+        function in float64 (max |diff| / max |exact|)."""
+        scale = float(exact.abs().max())
+        log(f"    against float64: kernel {float((got - exact).abs().max()) / scale:.3g}, plain "
+            f"{float((want - exact).abs().max()) / scale:.3g} of max |exact|")
+
     def check_tc(name, what, x, w, mul, add, rt, relu, stride):
         """A tensor-core conv (rows 3, 6 and 7) against its plain version,
         and both against the same conv in float64 (max |diff| / max
@@ -487,10 +501,8 @@ def phase_3d_compare() -> dict:
         got = kernel(x, w, mul, add, rt, relu)
         want = plain(x, w, mul, add, rt, relu)
         check(name, what, got, want)
-        exact = plain(*(None if t is None else t.double() for t in (x, w, mul, add, rt)), relu)
-        scale = float(exact.abs().max())
-        log(f"    against float64: kernel {float((got - exact).abs().max()) / scale:.3g}, plain "
-            f"{float((want - exact).abs().max()) / scale:.3g} of max |exact|")
+        log_exact(name, got, want, plain(
+            *(None if t is None else t.double() for t in (x, w, mul, add, rt)), relu))
 
     # the tower's 3x3 stride-1 convs: (channels, side, residual, relu)
     for c, s, res, relu in ((32, 2 * q, False, True), (32, 2 * q, True, False),
@@ -505,10 +517,17 @@ def phase_3d_compare() -> dict:
     left, right = randn(r, 32, q, q), randn(r, 32, q, q)
     w = randn(32, 64, 3, 3, 3, scale=0.05)
     mul, add = affine(32)
-    check("cost_volume_conv", f"{tuple(left.shape)} x2",
-          cconv.cost_volume_conv_bn_cuda(left, right, w, mul, add, -12, 12),
-          cconv.cost_volume_conv_bn_plain(left, right, w, mul, add, -12, 12))
-    del left, right
+    if not torch.equal(cconv.pack_tf32_cost_volume_weight_cuda(w),
+                       cconv.pack_tf32_cost_volume_weight(w)):
+        raise AssertionError("cost_volume_conv: the weight packing != its plain version")
+    got = cconv.cost_volume_conv_bn_cuda(left, right, w, mul, add, -12, 12)
+    want = cconv.cost_volume_conv_bn_plain(left, right, w, mul, add, -12, 12)
+    check("cost_volume_conv", f"{tuple(left.shape)} x2", got, want)
+    # the planes form in float64 is the exact conv of the volume (its
+    # identity, tests/test_torch_tf32_cv_deconv.py)
+    log_exact("cost_volume_conv", got, want, cconv.cost_volume_conv_bn_planes_plain(
+        left.double(), right.double(), w.double(), mul.double(), add.double(), -12, 12))
+    del left, right, got, want
     # (channels, depth, side, residual, relu) of the trunk's stride-1 sites
     for c, d, s, res, relu in ((32, d4, q, False, True), (32, d4, q, True, False),
                                (64, d4 // 2, q // 2, True, True),
@@ -539,10 +558,16 @@ def phase_3d_compare() -> dict:
         w = randn(64, co, 3, 3, 3, scale=0.05)
         mul, add = affine(co)
         rt = randn(r, co, 2 * d, 2 * s, 2 * s)
-        check("deconv3d", f"{tuple(x.shape)} relu={relu}",
-              cconv.deconv3d_bn_cuda(x, w, mul, add, rt, relu),
-              cconv.deconv3d_bn_plain(x, w, mul, add, rt, relu))
-        del x, rt
+        if not torch.equal(cconv.pack_tf32_deconv_weight_cuda(w),
+                           cconv.pack_tf32_deconv_weight(w)):
+            raise AssertionError(f"deconv3d: the weight packing != its plain version at "
+                                 f"{tuple(w.shape)}")
+        got = cconv.deconv3d_bn_cuda(x, w, mul, add, rt, relu)
+        want = cconv.deconv3d_bn_plain(x, w, mul, add, rt, relu)
+        check("deconv3d", f"{tuple(x.shape)} relu={relu}", got, want)
+        log_exact("deconv3d", got, want, cconv.deconv3d_bn_plain(
+            *(t.double() for t in (x, w, mul, add, rt)), relu))
+        del x, rt, got, want
     logits = randn(r, d4, q, q, scale=3.0)
     size = (BENCH_3D["roi_size"],) * 2
     disp = BENCH_3D["mindisp"], BENCH_3D["maxdisp"]
@@ -1130,8 +1155,9 @@ def conv_work(args, out, transposed=False):
 
 
 def cost_volume_work(args, out):
-    """As conv_work over the cost volume, counting only its non-zero
-    inputs: slice z (disparity i = mind4 + z) holds W - |i| columns."""
+    """The dense conv's count: as conv_work over the cost volume, counting
+    only its non-zero inputs: slice z (disparity i = mind4 + z) holds W -
+    |i| columns."""
     left, right, w, _, _, mind4 = args[:6]
     n, c, h, wd = left.shape
     d = out.shape[2]
@@ -1145,6 +1171,30 @@ def cost_volume_work(args, out):
         pairs += float(rd[z]) * float(rw[valid].sum())
     pairs *= float(rh.sum())
     return bound(nbytes, 2.0 * n * w.shape[0] * 2 * c * pairs)
+
+
+def cost_volume_planes_work(args, out):
+    """The work the cost-volume conv needs, as its tap planes compute it
+    (the dense count, cost_volume_work, does each plane product again in
+    every slice that reads it): bytes as cost_volume_work; 2 operations
+    per product of a feature value and a weight in the planes of both
+    views (rows in the padding not counted), and 2 adds per plane pair an
+    output sums (PL + PR, then into the sum; at most 9 pairs)."""
+    left, right, w, _, _, mind4 = args[:6]
+    n, c, h, wd = left.shape
+    co, d = w.shape[0], out.shape[2]
+    nbytes = 4 * (left.numel() + right.numel() + w.numel() + out.numel() + 2 * co)
+    products = 2.0 * n * 9 * co * c * float(reach(h, h).sum()) * wd
+    z, x = torch.arange(d)[:, None], torch.arange(wd)[None]
+    pairs = 0
+    for kd in range(3):
+        zz = z + kd - 1
+        for kw in range(3):
+            xp = x + kw - 1
+            u = xp - (mind4 + zz)
+            pairs += int(((zz >= 0) & (zz < d) & (xp >= 0) & (xp < wd) & (u >= 0)
+                          & (u < wd)).sum())
+    return bound(nbytes, 2.0 * products + 2.0 * n * co * h * pairs)
 
 
 def softargmin_work(args, out):
@@ -1322,7 +1372,7 @@ def phase_timing(model2d, model3d, req, compare_errs):
                    lambda a: F.conv2d(a[0], a[1], padding=1), conv_work, "conv3d_tc.cu",
                    f"{pc}:147"),
         "cost_volume_conv": (cconv.cost_volume_conv_bn_cuda, cconv.cost_volume_conv_bn_plain,
-                             None, cost_volume_work, "conv3d.cu", f"{pc}:37"),
+                             None, cost_volume_planes_work, "cost_volume_tc.cu", f"{pc}:37"),
         "conv3d": (cconv.conv3d_bn_cuda, cconv.conv3d_bn_plain,
                    lambda a: F.conv3d(a[0], a[1], padding=1), conv_work, "conv3d_tc.cu",
                    f"{pc}:461"),
@@ -1335,7 +1385,8 @@ def phase_timing(model2d, model3d, req, compare_errs):
         "deconv3d": (cconv.deconv3d_bn_cuda, cconv.deconv3d_bn_plain,
                      lambda a: F.conv_transpose3d(a[0], a[1], stride=2, padding=1,
                                                   output_padding=1),
-                     lambda a, o: conv_work(a, o, transposed=True), "conv3d.cu", f"{pc}:342"),
+                     lambda a, o: conv_work(a, o, transposed=True), "conv3d_tc.cu",
+                     f"{pc}:342"),
         "softargmin": (csam.softargmin_cuda, csam.softargmin_plain, None, softargmin_work,
                        "softargmin.cu", "disprcnn_tpu/ops/pallas/softargmin.py:47"),
         "fps": (cfps.furthest_point_sample_cuda, cfps.furthest_point_sample_plain, None,
@@ -1356,6 +1407,13 @@ def phase_timing(model2d, model3d, req, compare_errs):
         rows[name] = time_launches(
             name, [("", launches, kernel, plain, library, work, partial(main_path_err, name))],
             compare_errs.get(name, 0.0), src, replaces)
+        if name == "cost_volume_conv":
+            # the dense conv's count, the bound that earlier rows were read against
+            dense = sum(max(cost_volume_work(a, torch.empty(
+                (a[0].shape[0], a[2].shape[0], a[6] - a[5], *a[0].shape[2:]), device="meta")))
+                for a in launches)
+            rows[name]["dense_bound_ms"] = dense
+            log(f"  cost_volume_conv: the dense conv's bound {dense:.4f} ms (operations)")
     log(f"[9/{PHASES}] kernels timed on one headline request's own inputs")
     return rows
 

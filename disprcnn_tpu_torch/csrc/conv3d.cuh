@@ -1,5 +1,6 @@
 // The PSMNet convolutions' output geometry and fused epilogue, shared by
-// conv3d.cu (the SIMT bodies) and conv3d_tc.cu (the tensor-core body).
+// conv3d.cu (the classifier's SIMT body), conv3d_tc.cu (the tensor-core
+// convs) and cost_volume_tc.cu (the cost-volume conv).
 #pragma once
 
 #include <cuda_runtime.h>

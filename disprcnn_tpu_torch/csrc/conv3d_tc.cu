@@ -2,7 +2,7 @@
 // tensor cores (sm_90a), float32 in and out at float32 accuracy, NCDHW
 // (NCHW in 2D).
 //
-// Replaces three TPU kernels of disprcnn_tpu/ops/pallas/packed_conv.py, and
+// Replaces four TPU kernels of disprcnn_tpu/ops/pallas/packed_conv.py, and
 // through the first the train form's forward and input gradient:
 //   - _kernel via _conv_call (packed_conv_bn): the stride-1 trunk conv +
 //     folded BN + optional residual + optional ReLU, Co 32 and 64 (and
@@ -12,19 +12,30 @@
 //   - _kernel_w (wpacked_conv_bn): the feature tower's 3x3 stride-1 2D conv
 //     + BN + optional residual + optional ReLU, Co 32 and 64: the 3D conv at
 //     D = 1, where only the middle depth tap is inside the volume, with
-//     weights packed for that one tap (conv2d_tc_cuda).
+//     weights packed for that one tap (conv2d_tc_cuda);
+//   - _kernel_dc (packed_deconv_bn): the hourglass's stride-2 transposed
+//     3x3x3 conv + BN + optional residual + optional ReLU, Co 32 and 64
+//     (deconv3d_tc_cuda): split by output parity into 8 stride-1 convs
+//     over the input grid, as _kernel_dc does the op as four spatial-parity
+//     products on the MXU (packed_conv.py:376-383); deconv_tc_kernel below.
 // The TPU kernels do the conv as matrix products on the MXU with float32
 // accumulation (jnp.dot(..., preferred_element_type=jnp.float32)); this is
 // their Hopper counterpart. It computes
 //   out[n, o, z, y, x] = epilogue(sum_{c, kd, kh, kw}
 //       in(n, c, S*z + kd - 1, S*y + kh - 1, S*x + kw - 1) * wt[o, c, kd, kh, kw])
 // (stride S = 1 or 2, padding 1, zero outside the volume), the epilogue of
-// conv3d.cuh.
+// conv3d.cuh, and the transposed conv
+//   out[n, o, z, y, x] = epilogue(sum over in(n, c, i_z, i_y, i_x) *
+//       wt[c, o, k_z, k_y, k_x] with 2 * i + k - 1 = output index per dim)
+// (torch ConvTranspose3d(k 3, stride 2, padding 1, output_padding 1), whose
+// effective padding (1, 2) is the flax padding of the JAX package).
 //
 // Bound on an H100 SXM: operations. One 56^2 trunk launch (N 128, 32 -> 32,
 // D 24) needs ~0.5 TFLOP against ~2.5 GB of input and output: 7.5 ms on
 // the float32 cores (67 TFLOP/s), ~3 ms at the 3xTF32 tensor-core rate
-// (495 / 3 TFLOP/s), 0.75 ms of memory traffic.
+// (495 / 3 TFLOP/s), 0.75 ms of memory traffic. The transposed conv at
+// 28^2 -> 56^2 (N 128, 64 -> 32, D 12 -> 24) needs ~0.17 TFLOP: 2.5 ms on
+// the float32 cores, 1.0 ms at the 3xTF32 rate.
 //
 // Accuracy: error-compensated TF32 ("3xTF32", tf32.cuh). The weights come
 // split and fragment-ordered by conv3d_tc_pack_cuda, one launch before the
@@ -85,6 +96,11 @@
 // an M-tile and channels 2t, 2t + 1 of an N-tile (g = lane / 4, t = lane %
 // 4), so the 8 lanes of one t store 8 consecutive positions of one output
 // channel: contiguous in x within a row.
+// Transposed conv: the same ring, stages, fragments and promotion over the
+// input grid, one block per (input tile, output slice, n);
+// deconv_tc_kernel's comment says how its four parity classes share one
+// halo. Its epilogue stores each class at stride 2 in x; the block's two
+// column classes fill the same output rows, which meet in L2.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -102,10 +118,12 @@ constexpr int kChunk = 8;            // input channels per k8 step
 constexpr int kMaxSmem = 232448;     // bytes of shared memory a block may take on sm_90
 
 // A launch's tile geometry, the same for every block.
+// Its positions are output positions, or input positions for the
+// transposed conv.
 struct Tile {
-  int th, tw, tiles_w;  // output rows and columns per block; column tiles per plane
-  int hs;               // halo row stride: tw + 2 (stride 1), tw + 1 (stride 2)
-  int ps;               // one halo plane: (th + 2) * hs (stride 1), (th + 1) * hs (stride 2)
+  int th, tw, tiles_w;  // rows and columns of positions per block; column tiles per plane
+  int hs;               // halo row stride: tw + 2 (stride 1), tw + 1 (stride 2, transposed)
+  int ps;               // one halo plane: (th + 2) * hs (stride 1), (th + 1) * hs (the others)
   int cp;               // floats per staged channel, >= the channel's halo, = 8 (mod 32)
 };
 
@@ -292,27 +310,201 @@ conv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
   }
 }
 
-// The tile of a launch: whole output rows where the width fits the block's
-// positions (else column tiles of one row), the row tiles of a plane equal,
-// and the 3-stage ring within kMaxSmem. Returns the dynamic shared memory
-// in bytes, 0 if no tile fits.
-template <int CO, int S>
-size_t plan_tile(int oh, int ow, Tile& tl) {
-  constexpr int kNT = CO / 8;
-  constexpr int kPositions = kWarps * (16 / kNT) * 16;
-  constexpr int kWS = 9 * kNT * 128;
-  int tw = ow < kPositions ? ow : kPositions;
-  int th_max = kPositions / tw < oh ? kPositions / tw : oh;
+// The transposed conv, torch ConvTranspose3d(k 3, stride 2, padding 1,
+// output_padding 1): x (N, Ci, D, H, W) -> (N, CO, 2D, 2H, 2W). Per axis an
+// even output 2m takes tap k 1 at input m, an odd output 2m + 1 taps k 2 at
+// input m and k 0 at input m + 1 (zero past the edge): each of the 8
+// output-parity classes is a stride-1 conv over the input grid with input
+// offsets {0} or {0, +1} per axis, 27 taps over the classes per input
+// position and none of them zero. A block takes one output slice (its
+// depth parity fixes the depth taps: 1 for an even slice, 2 for an odd one,
+// staged as the forward conv stages its depth taps) and a tile of th x tw
+// input positions for all four (row, column) parity classes; its halo is
+// the tile plus one row and one column on the high side. Tap (kh, kw)
+// reads the halo at input offset (kh == 0, kw == 0) and feeds class (kh !=
+// 1, kw != 1), so the 9 taps of a stage need 4 A fragments. Warp w holds
+// M-tile w / (CO / 32) and 32 of the output channels (N-tiles 4 (w % (CO /
+// 32)) .. + 3) for all 4 classes: 64 float32 accumulators a thread, so a
+// block takes 128 input positions at CO 32 and 64 at CO 64. wpk is
+// pack_tf32_deconv_weight's layout: pack_kernel's of the (CO, Ci) weight
+// w[c, o, kd, kh, kw].
+template <int CO>
+__global__ void __launch_bounds__(kThreads, 1)
+deconv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
+                 const float* __restrict__ wpk, const Out out, const Tile tl) {
+  constexpr int kNT = CO / 8;        // N-tiles
+  constexpr int kWN = CO / 32;       // warps along N, 4 N-tiles each
+  constexpr int kWS = 9 * kNT * 128;  // floats of one stage's weights
+  extern __shared__ __align__(16) float smem[];
+  const int stage_floats = kWS + kChunk * tl.cp;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp / kWN, nw = warp % kWN;
+  const int r0 = (blockIdx.x / tl.tiles_w) * tl.th;  // the input tile's origin
+  const int c0 = (blockIdx.x % tl.tiles_w) * tl.tw;
+  const int zo = blockIdx.y;  // the output slice, 2 m + pz
+  const int n = blockIdx.z;
+  const int npos = tl.th * tl.tw;
+  const int m = zo >> 1, pz = zo & 1;
+
+  // depth taps: an even slice kd 1 at input slice m; an odd one kd 2 at m
+  // and kd 0 at m + 1, if inside the volume
+  const int nkd = pz == 0 ? 1 : (m + 1 < d ? 2 : 1);
+  const int nstages = (ci + kChunk - 1) / kChunk * nkd;
+  const size_t plane = (size_t)d * h * w;
+  const float* xn = x + (size_t)n * ci * plane;
+
+  auto load_stage = [&](int s, int buf) {
+    const int cc = s / nkd, tz = s % nkd;
+    const int kd = pz == 0 ? 1 : (tz == 0 ? 2 : 0);
+    float* ws = smem + buf * stage_floats;
+    const float* wsrc = wpk + (size_t)(cc * 3 + kd) * kWS;
+    for (int i = threadIdx.x; i < kWS / 4; i += kThreads) cp_async16(ws + 4 * i, wsrc + 4 * i);
+    float* hs = ws + kWS;
+    const int c0c = cc * kChunk;
+    const int nc = min(kChunk, ci - c0c);
+    const float* xs = xn + (size_t)c0c * plane + (size_t)(m + tz) * h * w;
+    // halo rows r0 .. r0 + th, columns c0 .. c0 + tw
+    for (int r = warp; r <= tl.th; r += kWarps) {
+      const int yin = r0 + r;
+      for (int e = lane; e < tl.hs; e += 32) {
+        const int xin = c0 + e;
+        const bool ok = yin < h && xin < w;
+        const float* src = ok ? xs + (size_t)yin * w + xin : x;
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          const bool v = ok && c < nc;
+          cp_async4(hs + c * tl.cp + r * tl.hs + e, v ? src + c * plane : x, v);
+        }
+      }
+    }
+  };
+
+  // this lane's A rows: positions g and g + 8 of its M-tile, as halo
+  // offsets (channel t's slot); positions past the tile read offset 0
+  int aoff[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int p = mt * 16 + g + 8 * hh;
+    aoff[hh] = (p < npos ? (p / tl.tw) * tl.hs + p % tl.tw : 0) + t * tl.cp;
+  }
+  const bool active = mt * 16 < npos;  // warp-uniform
+  const int cp4 = 4 * tl.cp;           // channel k + 4
+
+  float acc[4][4][4];  // (class 2 py + px, N-tile, fragment)
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][j][e] = 0.f;
+
+  load_stage(0, 0);
+  cp_async_commit();
+  if (nstages > 1) load_stage(1, 1);
+  cp_async_commit();
+  for (int s = 0; s < nstages; ++s) {
+    cp_async_wait<1>();  // stage s has landed (only s + 1 may be in flight)
+    __syncthreads();     // ... for every thread; and stage s - 1's buffer is free
+    if (s + 2 < nstages) load_stage(s + 2, (s + 2) % kStages);
+    cp_async_commit();
+    if (!active) continue;
+    const float* ws = smem + (s % kStages) * stage_floats;
+    const float4* wv = reinterpret_cast<const float4*>(ws);
+    const float* hs = ws + kWS;
+    float part[4][4][4];  // this stage's products
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[q][j][e] = 0.f;
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+#pragma unroll
+      for (int dx = 0; dx < 2; ++dx) {
+        const float* ht = hs + dy * tl.hs + dx;
+        uint32_t ah[4], al[4];
+        split_tf32(ht[aoff[0]], ah[0], al[0]);
+        split_tf32(ht[aoff[1]], ah[1], al[1]);
+        split_tf32(ht[aoff[0] + cp4], ah[2], al[2]);
+        split_tf32(ht[aoff[1] + cp4], ah[3], al[3]);
+        // the taps at this offset: kh 0 (dy 1) or 1, 2 (dy 0); kw alike
+#pragma unroll
+        for (int kh = dy ? 0 : 1; kh < (dy ? 1 : 3); ++kh) {
+#pragma unroll
+          for (int kw = dx ? 0 : 1; kw < (dx ? 1 : 3); ++kw) {
+            const int tap = kh * 3 + kw, q = 2 * (kh != 1) + (kw != 1);
+            uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float4 f = wv[(tap * kNT + nw * 4 + j) * 32 + lane];
+              bh[j][0] = __float_as_uint(f.x);
+              bh[j][1] = __float_as_uint(f.y);
+              bl[j][0] = __float_as_uint(f.z);
+              bl[j][1] = __float_as_uint(f.w);
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_tf32(part[q][j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_tf32(part[q][j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_tf32(part[q][j], ah, bh[j][0], bh[j][1]);
+          }
+        }
+      }
+    }
+    // the stage's sums join the running ones in float32, rounded to nearest
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q][j][e] += part[q][j][e];
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int p = mt * 16 + g + 8 * hh;
+    if (p >= npos) continue;
+    const int yi = r0 + p / tl.tw, xi = c0 + p % tl.tw;
+    if (yi >= h || xi >= w) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int yo = 2 * yi + (q >> 1), xo = 2 * xi + (q & 1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int o = (nw * 4 + j) * 8 + 2 * t;
+        out.store(n, o, zo, yo, xo, acc[q][j][2 * hh]);
+        out.store(n, o + 1, zo, yo, xo, acc[q][j][2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// The tile of a launch over a grid of oh x ow positions: whole rows where
+// the width fits the block's `positions` (else column tiles of one row),
+// the row tiles of a plane equal, and the 3-stage ring within kMaxSmem. A
+// tile's halo is `planes` planes of (th + ext) x (tw + ext); a stage holds
+// `ws` floats of weights. Returns the dynamic shared memory in bytes, 0 if
+// no tile fits.
+size_t plan_tile(int positions, int ws, int ext, int planes, int oh, int ow, Tile& tl) {
+  int tw = ow < positions ? ow : positions;
+  int th_max = positions / tw < oh ? positions / tw : oh;
   for (;;) {
     const int tiles_h = (oh + th_max - 1) / th_max;
     tl.th = (oh + tiles_h - 1) / tiles_h;
     tl.tw = tw;
     tl.tiles_w = (ow + tw - 1) / tw;
-    tl.hs = tw + (S == 1 ? 2 : 1);
-    tl.ps = (tl.th + (S == 1 ? 2 : 1)) * tl.hs;
-    const int halo = S == 1 ? tl.ps : 4 * tl.ps;
+    tl.hs = tw + ext;
+    tl.ps = (tl.th + ext) * tl.hs;
+    const int halo = planes * tl.ps;
     tl.cp = halo <= 8 ? 8 : (halo - 8 + 31) / 32 * 32 + 8;
-    const size_t bytes = sizeof(float) * kStages * ((size_t)kWS + (size_t)kChunk * tl.cp);
+    const size_t bytes = sizeof(float) * kStages * ((size_t)ws + (size_t)kChunk * tl.cp);
     if (bytes <= (size_t)kMaxSmem) return bytes;
     if (th_max > 1) {
       --th_max;
@@ -327,8 +519,10 @@ size_t plan_tile(int oh, int ow, Tile& tl) {
 template <int CO, int S>
 cudaError_t launch(const float* x, int n, int ci, int d, int h, int w, const float* wpk,
                    int wkd, const Out& o, cudaStream_t s) {
+  constexpr int kNT = CO / 8;
   Tile tl;
-  const size_t bytes = plan_tile<CO, S>(o.h, o.w, tl);
+  const size_t bytes = plan_tile(kWarps * (16 / kNT) * 16, 9 * kNT * 128, S == 1 ? 2 : 1,
+                                 S == 1 ? 1 : 4, o.h, o.w, tl);
   if (bytes == 0 || !conv::grid_fits(n, o.d, o.h, o.w, tl.th, tl.tw))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -339,12 +533,16 @@ cudaError_t launch(const float* x, int n, int ci, int d, int h, int w, const flo
   return cudaGetLastError();
 }
 
+// The forms of a weight pack_kernel reads: the torch conv weight (Co, Ci,
+// wkd, 3, 3) (wkd = 3, or 1: the 2D weight (Co, Ci, 3, 3)); or (wkd 3) w
+// (Ci, Co, 3, 3, 3) flipped in every spatial dim, the input gradient's
+// weights (flip_transpose); or (wkd 3) the torch ConvTranspose3d weight
+// (Ci, Co, 3, 3, 3) as it is, the transposed conv's.
+enum PackForm { kConv = 0, kFlip = 1, kDeconv = 2 };
+
 // One float of the staged weights (pack_tf32_weight's layout, (ceil(Ci /
-// 8), wkd, 9, Co / 8, 32, 4)) per thread, from the torch weight w (Co, Ci,
-// wkd, 3, 3) (wkd = 3, or 1: the 2D weight (Co, Ci, 3, 3)), or with `flip`
-// (wkd 3) from w (Ci, Co, 3, 3, 3) flipped in every spatial dim: the input
-// gradient's weights (flip_transpose).
-__global__ void pack_kernel(const float* __restrict__ w, int co, int ci, int wkd, int flip,
+// 8), wkd, 9, Co / 8, 32, 4)) per thread, from w in the given form.
+__global__ void pack_kernel(const float* __restrict__ w, int co, int ci, int wkd, int form,
                             float* __restrict__ out, int total) {
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= total) return;
@@ -359,8 +557,9 @@ __global__ void pack_kernel(const float* __restrict__ w, int co, int ci, int wkd
   float v = 0.f;
   if (c < ci) {
     const int kh = tap / 3, kw = tap % 3;
-    v = flip ? w[(((size_t)c * co + oc) * 3 + 2 - kd) * 9 + (2 - kh) * 3 + 2 - kw]
-             : w[(((size_t)oc * ci + c) * wkd + kd) * 9 + tap];
+    v = form == kFlip     ? w[(((size_t)c * co + oc) * 3 + 2 - kd) * 9 + (2 - kh) * 3 + 2 - kw]
+        : form == kDeconv ? w[(((size_t)c * co + oc) * 3 + kd) * 9 + tap]
+                          : w[(((size_t)oc * ci + c) * wkd + kd) * 9 + tap];
   }
   uint32_t hi, lo;
   split_tf32(v, hi, lo);
@@ -380,25 +579,45 @@ cudaError_t run(const float* x, int n, int ci, int d, int h, int w, int stride,
   return cudaErrorInvalidValue;
 }
 
+// The transposed conv's launch: a tile of the input grid, its halo one
+// plane of (th + 1) x (tw + 1), a block per (tile, output slice, n).
+template <int CO>
+cudaError_t launch_deconv(const float* x, int n, int ci, int d, int h, int w,
+                          const float* wpk, const Out& o, cudaStream_t s) {
+  constexpr int kNT = CO / 8;
+  Tile tl;
+  const size_t bytes = plan_tile(16 * kWarps / (CO / 32), 9 * kNT * 128, 1, 1, h, w, tl);
+  if (bytes == 0 || !conv::grid_fits(n, o.d, h, w, tl.th, tl.tw)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      deconv_tc_kernel<CO>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((h + tl.th - 1) / tl.th) * tl.tiles_w, o.d, n);
+  deconv_tc_kernel<CO><<<grid, kThreads, bytes, s>>>(x, ci, d, h, w, wpk, o, tl);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// The staged weights of conv3d_tc_cuda (wkd 3) or conv2d_tc_cuda (wkd 1)
-// into wpk (pack_tf32_weight's layout for Co, Ci): from w (Co, Ci, 3, 3, 3)
-// or (Co, Ci, 3, 3), or with flip (wkd 3 only) from w (Ci, Co, 3, 3, 3) as
-// flip_transpose gives them (the input gradient of a conv with weights w).
+// The staged weights of conv3d_tc_cuda (wkd 3), conv2d_tc_cuda (wkd 1) or
+// deconv3d_tc_cuda into wpk (pack_tf32_weight's layout for Co, Ci): with
+// form 0 from w (Co, Ci, 3, 3, 3) or (Co, Ci, 3, 3); with form 1 (wkd 3)
+// from w (Ci, Co, 3, 3, 3) as flip_transpose gives them (the input
+// gradient of a conv with weights w); with form 2 (wkd 3) from the torch
+// ConvTranspose3d weight w (Ci, Co, 3, 3, 3) (pack_tf32_deconv_weight).
 // Float32, contiguous, on `device`; Co is 32 or 64. Launches on `stream`,
 // returns the cudaError_t of the launch.
-int conv3d_tc_pack_cuda(const void* w, int co, int ci, int wkd, int flip, void* wpk,
+int conv3d_tc_pack_cuda(const void* w, int co, int ci, int wkd, int form, void* wpk,
                         void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if ((co != 32 && co != 64) || ci < 1 || (wkd != 1 && wkd != 3) || (flip && wkd != 3))
+  if ((co != 32 && co != 64) || ci < 1 || (wkd != 1 && wkd != 3) || form < kConv ||
+      form > kDeconv || (form != kConv && wkd != 3))
     return static_cast<int>(cudaErrorInvalidValue);
   const int total = (ci + 7) / 8 * wkd * 9 * co * 16;
   pack_kernel<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(w), co, ci, wkd, flip, static_cast<float*>(wpk), total);
+      static_cast<const float*>(w), co, ci, wkd, form, static_cast<float*>(wpk), total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -439,6 +658,25 @@ int conv2d_tc_cuda(const void* x, int n, int ci, int h, int w, const void* wpk, 
                               static_cast<const float*>(wpk), 1,
                               conv::make_out(out, mul, add, res, co, 1, h, w, relu),
                               static_cast<cudaStream_t>(stream)));
+}
+
+// x (N, Ci, D, H, W) -> out (N, Co, 2D, 2H, 2W), the transposed conv of
+// torch ConvTranspose3d(k 3, stride 2, padding 1, output_padding 1); wpk the
+// packing of its weight (Ci, Co, 3, 3, 3) by conv3d_tc_pack_cuda with form
+// 2; res of the output's shape or null. Otherwise as conv3d_tc_cuda.
+int deconv3d_tc_cuda(const void* x, int n, int ci, int d, int h, int w, const void* wpk,
+                     int co, const void* mul, const void* add, const void* res, int relu,
+                     void* out, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ci < 1 || d < 1 || h < 1 || w < 1 || (co != 32 && co != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Out o = conv::make_out(out, mul, add, res, co, 2 * d, 2 * h, 2 * w, relu);
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(wpk);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(co == 32 ? launch_deconv<32>(xf, n, ci, d, h, w, wf, o, s)
+                                   : launch_deconv<64>(xf, n, ci, d, h, w, wf, o, s));
 }
 
 const char* conv3d_tc_error_string(int err) {

@@ -15,16 +15,16 @@ names keep the Flax names (``ConvBN_0``,
 variables map one to one (utils/weights.py). Batch norms are plain eval
 ``nn.BatchNorm{2,3}d`` with eps 1e-5.
 
-Kernels on the card (csrc/conv3d.cu, csrc/conv3d_tc.cu,
-csrc/softargmin.cu), each conv with its BN, residual and ReLU fused:
+Kernels on the card (csrc/conv3d_tc.cu, csrc/cost_volume_tc.cu,
+csrc/conv3d.cu, csrc/softargmin.cu), each conv with its BN, residual and
+ReLU fused:
 - the tower's 3x3 stride-1 undilated convs of 32 and 64 channels (the
-  sites of the JAX package's W-packed kernel): the 2D conv;
-- the cost volume and its first conv (dres0_0): the cost-volume form;
+  sites of the JAX package's W-packed kernel): the 2D conv (conv3d_tc.cu);
+- the cost volume and its first conv (dres0_0): cost_volume_tc.cu;
 - every stride-1 3x3x3 conv (the trunk at full resolution, the hourglass
-  convs at 1/2 and 1/4) and the hourglasses' stride-2 convs: the
-  tensor-core conv (conv3d_tc.cu); their transposed convs: the
-  transposed form;
-- each classifier's 32 -> 1 conv: the Co = 1 form;
+  convs at 1/2 and 1/4), the hourglasses' stride-2 convs and their
+  transposed convs: the tensor-core convs (conv3d_tc.cu);
+- each classifier's 32 -> 1 conv: the Co = 1 form (conv3d.cu);
 - the regression: the soft-argmin.
 The tower's other convs (the stride-2 stem and downsampling, the 1x1
 downsample and SPP convs, the 128-channel and dilated layers, lastconv)

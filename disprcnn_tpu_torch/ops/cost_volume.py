@@ -2,8 +2,9 @@
 disprcnn_tpu/models/psmnet/psmnet.py:build_cost_volume).
 
 On the card the volume is never stored: the cost-volume conv kernel
-(csrc/conv3d.cu) reads it from the feature maps. This version is the
-kernel's plain reference and the CPU path.
+(csrc/cost_volume_tc.cu) computes the conv from per-view tap planes of the
+feature maps. This version is the kernel's plain reference and the CPU
+path.
 """
 from __future__ import annotations
 

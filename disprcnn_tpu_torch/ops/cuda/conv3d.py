@@ -18,15 +18,22 @@ classifier's bias-free 32 -> 1 conv).
 
 Each function dispatches: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel. There is no fallback: a kernel that fails to
-build or launch raises. ``conv3d_bn`` at Co 32 and 64 (stride 1 and 2) and
-``conv2d_bn`` are csrc/conv3d_tc.cu, an implicit GEMM on the tensor cores
-at float32 accuracy through error-compensated TF32 ("3xTF32": each operand
-split as hi + lo by ``split_tf32``, each product lo*hi + hi*lo + hi*hi;
-the weights are split and laid out by ``pack_tf32_weight``;
-``conv3d_bn_3xtf32_plain`` and ``conv2d_bn_3xtf32_plain`` are the same
-arithmetic in three ``F.conv3d`` or ``F.conv2d`` calls); the 2D conv is
-the 3D body at depth 1. The other forms are csrc/conv3d.cu. The launch
-points are
+build or launch raises. ``conv3d_bn`` at Co 32 and 64 (stride 1 and 2),
+``deconv3d_bn`` and ``conv2d_bn`` are csrc/conv3d_tc.cu, an implicit GEMM
+on the tensor cores at float32 accuracy through error-compensated TF32
+("3xTF32": each operand split as hi + lo by ``split_tf32``, each product
+lo*hi + hi*lo + hi*hi; the weights are split and laid out by
+``pack_tf32_weight``; ``conv3d_bn_3xtf32_plain``,
+``deconv3d_bn_3xtf32_plain`` and ``conv2d_bn_3xtf32_plain`` are the same
+arithmetic in ``F.conv3d`` or ``F.conv2d`` calls); the 2D conv is the 3D
+body at depth 1, the transposed conv the same GEMM split by output parity
+(``deconv3d_bn_parity_plain``). ``cost_volume_conv_bn`` is
+csrc/cost_volume_tc.cu: the tap planes of each view on the tensor cores in
+the same arithmetic, then their masked, shifted sums
+(``cost_volume_conv_bn_planes_plain``; ``cost_volume_conv_bn_3xtf32_plain``
+in the kernel's arithmetic; weights laid out by
+``pack_tf32_cost_volume_weight``). The classifier's Co = 1 conv is
+csrc/conv3d.cu. The launch points are
 ``conv3d_bn_cuda``, ``cost_volume_conv_bn_cuda``, ``deconv3d_bn_cuda`` and
 ``conv2d_bn_cuda``, looked up at call time, so a caller can route them
 elsewhere. These launches are forward only (``build.forward_only``).
@@ -68,10 +75,7 @@ def _lib() -> ctypes.CDLL:
     if lib.conv3d_bn_cuda.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.conv3d_bn_cuda.argtypes = [p, i, i, i, i, i, p, p, p, p, i, p, p, i]
-        lib.cost_volume_conv_bn_cuda.argtypes = [p, p, i, i, i, i, i, i, p, i, p, p, i, p, p, i]
-        lib.deconv3d_bn_cuda.argtypes = [p, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
-        for fn in (lib.conv3d_bn_cuda, lib.cost_volume_conv_bn_cuda, lib.deconv3d_bn_cuda):
-            fn.restype = i
+        lib.conv3d_bn_cuda.restype = i
         lib.conv3d_error_string.argtypes = [i]
         lib.conv3d_error_string.restype = ctypes.c_char_p
     return lib
@@ -83,11 +87,26 @@ def _tc_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.conv3d_tc_cuda.argtypes = [p, i, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
         lib.conv2d_tc_cuda.argtypes = [p, i, i, i, i, p, i, p, p, p, i, p, p, i]
+        lib.deconv3d_tc_cuda.argtypes = [p, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
         lib.conv3d_tc_pack_cuda.argtypes = [p, i, i, i, i, p, p, i]
-        for fn in (lib.conv3d_tc_cuda, lib.conv2d_tc_cuda, lib.conv3d_tc_pack_cuda):
+        for fn in (lib.conv3d_tc_cuda, lib.conv2d_tc_cuda, lib.deconv3d_tc_cuda,
+                   lib.conv3d_tc_pack_cuda):
             fn.restype = i
         lib.conv3d_tc_error_string.argtypes = [i]
         lib.conv3d_tc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _cv_lib() -> ctypes.CDLL:
+    lib = build.load("cost_volume_tc")
+    if lib.cost_volume_tc_cuda.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.cost_volume_tc_cuda.argtypes = [p, p, i, i, i, i, i, i, p, i, p, p, i, p, p, p, i]
+        lib.cost_volume_tc_pack_cuda.argtypes = [p, i, i, p, p, i]
+        for fn in (lib.cost_volume_tc_cuda, lib.cost_volume_tc_pack_cuda):
+            fn.restype = i
+        lib.cost_volume_tc_error_string.argtypes = [i]
+        lib.cost_volume_tc_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -154,6 +173,10 @@ def pack_tf32_weight(weight: torch.Tensor) -> torch.Tensor:
     return (packed[:, 0] if weight.dim() == 4 else packed).contiguous()
 
 
+# the weight forms of csrc/conv3d_tc.cu's packing (its PackForm)
+_PACK_CONV, _PACK_FLIP, _PACK_DECONV = 0, 1, 2
+
+
 def pack_tf32_weight_cuda(weight: torch.Tensor, flip: bool = False) -> torch.Tensor:
     """pack_tf32_weight(weight), or with `flip` (3D only)
     pack_tf32_weight(flip_transpose(weight)), in one launch of
@@ -169,13 +192,43 @@ def pack_tf32_weight_cuda(weight: torch.Tensor, flip: bool = False) -> torch.Ten
     _check_float32_cuda("weight", weight,
                         (ci, co, 3, 3, 3) if flip else (co, ci) + (3,) * (weight.dim() - 2),
                         weight.device)
+    out = _pack_launch(weight, co, ci, wkd, _PACK_FLIP if flip else _PACK_CONV)
+    return out[:, 0] if wkd == 1 else out
+
+
+def pack_tf32_deconv_weight_cuda(weight: torch.Tensor) -> torch.Tensor:
+    """pack_tf32_deconv_weight(weight) of the ConvTranspose3d weight (Ci, Co,
+    3, 3, 3), in one launch of csrc/conv3d_tc.cu's packing on the current
+    stream (weight float32, contiguous, on the card)."""
+    if weight.dim() != 5:
+        raise ValueError(f"need a (Ci, Co, 3, 3, 3) weight, got {tuple(weight.shape)}")
+    ci, co = weight.shape[:2]
+    _check_float32_cuda("weight", weight, (ci, co, 3, 3, 3), weight.device)
+    return _pack_launch(weight, co, ci, 3, _PACK_DECONV)
+
+
+def _pack_launch(weight, co, ci, wkd, form):
     lib = _tc_lib()
     out = torch.empty((-(-ci // 8), wkd, 9, co // 8, 32, 4), device=weight.device)
-    err = lib.conv3d_tc_pack_cuda(weight.data_ptr(), co, ci, wkd, int(flip), out.data_ptr(),
+    err = lib.conv3d_tc_pack_cuda(weight.data_ptr(), co, ci, wkd, form, out.data_ptr(),
                                   _stream(weight), weight.device.index)
-    if wkd == 1:
-        out = out[:, 0]
     _raise_on(lib.conv3d_tc_error_string, err, "conv3d_tc_pack_cuda")
+    return out
+
+
+def pack_tf32_cost_volume_weight_cuda(weight: torch.Tensor) -> torch.Tensor:
+    """pack_tf32_cost_volume_weight(weight) of the (Co, 2C, 3, 3, 3) weight,
+    in one launch of csrc/cost_volume_tc.cu's packing on the current stream
+    (weight float32, contiguous, on the card)."""
+    if weight.dim() != 5 or weight.shape[1] % 2:
+        raise ValueError(f"need a (Co, 2C, 3, 3, 3) weight, got {tuple(weight.shape)}")
+    co, c = weight.shape[0], weight.shape[1] // 2
+    _check_float32_cuda("weight", weight, (co, 2 * c, 3, 3, 3), weight.device)
+    lib = _cv_lib()
+    out = torch.empty((2, 3, -(-c // 8), 3, 3 * co // 8, 32, 4), device=weight.device)
+    err = lib.cost_volume_tc_pack_cuda(weight.data_ptr(), co, c, out.data_ptr(),
+                                       _stream(weight), weight.device.index)
+    _raise_on(lib.cost_volume_tc_error_string, err, "cost_volume_tc_pack_cuda")
     return out
 
 
@@ -205,6 +258,103 @@ def cost_volume_conv_bn_plain(left: torch.Tensor, right: torch.Tensor, weight: t
     return conv3d_bn_plain(vol, weight, mul, add, relu=relu)
 
 
+def cost_volume_planes(left: torch.Tensor, right: torch.Tensor, weight: torch.Tensor,
+                       conv2d):
+    """The tap planes of the cost-volume conv, one per view: (PL, PR), each
+    (N, 3 kd, 3 kw, Co, H, W) with
+        PL[n, kd, kw, o, y, x] = sum_{c, kh} weight[o, c, kd, kh, kw] * left[n, c, y + kh - 1, x]
+    (rows outside [0, H) zero), PR the same of `right` with weight[:, C:].
+    Each is one 2D conv with a (3, 1) kernel to 9 Co channels, padding (1,
+    0); `conv2d(x, w)` computes it (the float32 conv, or the kernel's
+    arithmetic)."""
+    n, c, h, w = left.shape
+    co = weight.shape[0]
+
+    def planes(x, wv):
+        # (Co, C, kd, kh, kw) -> (kd, kw, Co, C, kh): 9 Co output channels of a (3, 1) kernel
+        w2 = wv.permute(2, 4, 0, 1, 3).reshape(9 * co, c, 3, 1)
+        return conv2d(x, w2).view(n, 3, 3, co, h, w)
+    return planes(left, weight[:, :c]), planes(right, weight[:, c:])
+
+
+def cost_volume_planes_sum(pl: torch.Tensor, pr: torch.Tensor, mindisp4: int,
+                           maxdisp4: int) -> torch.Tensor:
+    """The cost-volume conv from its tap planes, before the epilogue: (N, Co,
+    D, H, W) with
+        out[n, o, z, y, x] = sum_{kd, kw} PL[n, kd, kw, o, y, x'] + PR[n, kd, kw, o, y, x' - i]
+    over the taps with slice z + kd - 1 in [0, D), x' = x + kw - 1 in [0, W)
+    and x' - i in [0, W), i = mindisp4 + z + kd - 1 its disparity: the
+    volume's mask depends only on the input column, so the channel and row
+    sums of the conv are the planes, and the depth and column taps pick
+    them up where the volume is not zero (the depth padding slices are
+    zero, as the TPU kernel zeroes them). Summed in (kd, kw) order."""
+    n, _, _, co, h, w = pl.shape
+    d = maxdisp4 - mindisp4
+    dev = pl.device
+    cols, z = torch.arange(w, device=dev), torch.arange(d, device=dev)
+    out = pl.new_zeros(n, co, h, d, w)
+    for kd in range(3):
+        zz = z + kd - 1
+        disp = mindisp4 + zz
+        for kw in range(3):
+            xp = cols + kw - 1
+            u = xp[None] - disp[:, None]  # (D, W): the right view's column
+            ok = (((zz >= 0) & (zz < d))[:, None] & ((xp >= 0) & (xp < w))[None]
+                  & (u >= 0) & (u < w))
+            a = pl[:, kd, kw][..., xp.clamp(0, w - 1)]  # (N, Co, H, W)
+            b = pr[:, kd, kw][..., u.clamp(0, w - 1)]  # (N, Co, H, D, W)
+            out += torch.where(ok, a[:, :, :, None] + b, 0.0)
+    return out.permute(0, 1, 3, 2, 4)
+
+
+def cost_volume_conv_bn_planes_plain(left: torch.Tensor, right: torch.Tensor,
+                                     weight: torch.Tensor, mul: torch.Tensor,
+                                     add: torch.Tensor, mindisp4: int, maxdisp4: int,
+                                     relu: bool = True) -> torch.Tensor:
+    """cost_volume_conv_bn_plain computed as the kernel computes it: the tap
+    planes of each view (two F.conv2d calls), then their masked, shifted
+    sums (cost_volume_planes_sum); the volume is never built."""
+    pl, pr = cost_volume_planes(left, right, weight,
+                                lambda x, w: F.conv2d(x, w, padding=(1, 0)))
+    return _epilogue(cost_volume_planes_sum(pl, pr, mindisp4, maxdisp4), mul, add, None, relu)
+
+
+def cost_volume_conv_bn_3xtf32_plain(left: torch.Tensor, right: torch.Tensor,
+                                     weight: torch.Tensor, mul: torch.Tensor,
+                                     add: torch.Tensor, mindisp4: int, maxdisp4: int,
+                                     relu: bool = True) -> torch.Tensor:
+    """cost_volume_conv_bn_planes_plain in the kernel's arithmetic: the
+    planes as lo*hi + hi*lo + hi*hi of the split features and weights
+    (three F.conv2d calls a view), their sums in float32."""
+    def conv2d(x, w):
+        (xh, xl), (wh, wl) = split_tf32(x), split_tf32(w)
+        return (F.conv2d(xl, wh, padding=(1, 0)) + F.conv2d(xh, wl, padding=(1, 0))
+                + F.conv2d(xh, wh, padding=(1, 0)))
+    pl, pr = cost_volume_planes(left, right, weight, conv2d)
+    return _epilogue(cost_volume_planes_sum(pl, pr, mindisp4, maxdisp4), mul, add, None, relu)
+
+
+def pack_tf32_cost_volume_weight(weight: torch.Tensor) -> torch.Tensor:
+    """(Co, 2C, 3, 3, 3) -> csrc/cost_volume_tc.cu's staged plane weights:
+    (2 views, 3 kd, ceil(C / 8), 3 kh, 3 Co / 8, 32 lanes, 4), C padded with
+    zeros to a multiple of 8. The planes of view v and depth tap kd are a
+    GEMM with K = (channel, kh) and N = (kw, o), column kw * Co + o; lane l
+    of N-tile j in chunk cc holds [hi(k), hi(k + 4), lo(k), lo(k + 4)] of
+    weight[o, v * C + 8 cc + k, kd, kh, kw], k = l % 4, for column 8 j + l //
+    4 (mma.m16n8k8's B fragment), split by split_tf32. The plain version of
+    the kernel's own packing, pack_tf32_cost_volume_weight_cuda."""
+    co, c = weight.shape[0], weight.shape[1] // 2
+    ci8 = -(-c // 8)
+    w = F.pad(weight.reshape(co, 2, c, 3, 3, 3), (0, 0, 0, 0, 0, 0, 0, 8 * ci8 - c))
+    hi, lo = split_tf32(w)
+
+    def fragments(t):
+        # (o, v, cc, k >= 4, k % 4, kd, kh, kw) -> (v, kd, cc, kh, (kw, o), k % 4, k >= 4)
+        t = t.reshape(co, 2, ci8, 2, 4, 3, 3, 3).permute(1, 5, 2, 6, 7, 0, 4, 3)
+        return t.reshape(2, 3, ci8, 3, 3 * co // 8, 32, 2)
+    return torch.cat((fragments(hi), fragments(lo)), dim=-1).contiguous()
+
+
 def deconv3d_bn_plain(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
                       add: torch.Tensor, residual: Optional[torch.Tensor] = None,
                       relu: bool = False) -> torch.Tensor:
@@ -212,6 +362,53 @@ def deconv3d_bn_plain(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
     ConvTranspose3d(k=3, s=2, p=1, output_padding=1) -> (N, Co, 2D, 2H, 2W)."""
     y = F.conv_transpose3d(x, weight, stride=2, padding=1, output_padding=1)
     return _epilogue(y, mul, add, residual, relu)
+
+
+# Per axis of the transposed conv: an even output 2m takes tap k 1 at input
+# m; an odd output 2m + 1 takes k 2 at input m and k 0 at input m + 1 (zero
+# past the edge). The taps of each output parity, in input offset order.
+PARITY_TAPS = ((1,), (2, 0))
+
+
+def deconv3d_bn_parity_plain(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
+                             add: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                             relu: bool = False, conv3d=F.conv3d) -> torch.Tensor:
+    """deconv3d_bn_plain split by output parity, as the kernel computes it:
+    each of the 8 classes (pz, py, px) of outputs (2m + pz, 2m' + py, 2m'' +
+    px) is a stride-1 conv over the input grid with the taps PARITY_TAPS
+    gives per axis (input padded by one on the high side of the odd axes),
+    the 8 results interleaved. `conv3d(x, w)` computes each class's conv."""
+    n, _, d, h, w = x.shape
+    co = weight.shape[1]
+    y = x.new_empty(n, co, 2 * d, 2 * h, 2 * w)
+    for pz in (0, 1):
+        for py in (0, 1):
+            for px in (0, 1):
+                wc = weight[:, :, list(PARITY_TAPS[pz])][:, :, :, list(PARITY_TAPS[py])]
+                wc = wc[..., list(PARITY_TAPS[px])].transpose(0, 1)
+                y[:, :, pz::2, py::2, px::2] = conv3d(F.pad(x, (0, px, 0, py, 0, pz)), wc)
+    return _epilogue(y, mul, add, residual, relu)
+
+
+def deconv3d_bn_3xtf32_plain(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
+                             add: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                             relu: bool = False) -> torch.Tensor:
+    """deconv3d_bn_parity_plain in the kernel's arithmetic: each class's
+    products as lo*hi + hi*lo + hi*hi of the split input and weights (three
+    F.conv3d calls)."""
+    def conv3d(xc, wc):
+        (xh, xl), (wh, wl) = split_tf32(xc), split_tf32(wc)
+        return F.conv3d(xl, wh) + F.conv3d(xh, wl) + F.conv3d(xh, wh)
+    return deconv3d_bn_parity_plain(x, weight, mul, add, residual, relu, conv3d)
+
+
+def pack_tf32_deconv_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The torch ConvTranspose3d weight (Ci, Co, 3, 3, 3) -> the transposed
+    conv's staged weights in csrc/conv3d_tc.cu: pack_tf32_weight's layout
+    of the (Co, Ci) weight weight[c, o, kd, kh, kw], unflipped (the kernel
+    sends tap (kd, kh, kw) to the output parity class it feeds). The plain
+    version of pack_tf32_deconv_weight_cuda."""
+    return pack_tf32_weight(weight.transpose(0, 1))
 
 
 def conv2d_bn_plain(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
@@ -249,12 +446,6 @@ def _epilogue_args(co: int, mul, add, residual, out_shape, device, channels=CHAN
     if residual is not None:
         _check_float32_cuda("residual", residual, out_shape, device)
     return mul, add, None if residual is None else residual.data_ptr()
-
-
-def _weight(weight, shape, device, perm):
-    """The weight permuted so that a tap's Co weights are contiguous."""
-    _check_float32_cuda("weight", weight, shape, device)
-    return weight.permute(*perm).contiguous()
 
 
 def _raise_on(error_string, err: int, what: str) -> None:
@@ -313,8 +504,10 @@ def _conv3d_launch(x, weight, mul=None, add=None, residual=None, relu=False, str
 def cost_volume_conv_bn_cuda(left: torch.Tensor, right: torch.Tensor, weight: torch.Tensor,
                              mul: torch.Tensor, add: torch.Tensor, mindisp4: int,
                              maxdisp4: int, relu: bool = True) -> torch.Tensor:
-    """Launch csrc/conv3d.cu's cost-volume form on the current stream; same
-    contract as cost_volume_conv_bn_plain."""
+    """Launch csrc/cost_volume_tc.cu (its weight packing, the tap planes,
+    their sums) on the current stream; same contract as
+    cost_volume_conv_bn_plain. The planes, (2, N, H, 9, Co, W), are scratch
+    of this call."""
     build.forward_only("cost_volume_conv_bn_cuda", left, right, weight, mul, add)
     _check_input("left", left, 4)
     n, c, h, w = left.shape
@@ -323,15 +516,17 @@ def cost_volume_conv_bn_cuda(left: torch.Tensor, right: torch.Tensor, weight: to
         raise ValueError(f"empty disparity range [{mindisp4}, {maxdisp4})")
     _check_float32_cuda("right", right, left.shape, left.device)
     co = weight.shape[0]
-    wt = _weight(weight, (co, 2 * c, 3, 3, 3), left.device, (1, 2, 3, 4, 0))
+    _check_float32_cuda("weight", weight, (co, 2 * c, 3, 3, 3), left.device)
     mul, add, _ = _epilogue_args(co, mul, add, None, None, left.device)
-    lib = _lib()
+    lib = _cv_lib()
+    wt = pack_tf32_cost_volume_weight_cuda(weight)
+    planes = torch.empty((2, n, h, 9, co, w), device=left.device)
     out = torch.empty((n, co, d, h, w), device=left.device)
-    err = lib.cost_volume_conv_bn_cuda(
+    err = lib.cost_volume_tc_cuda(
         left.data_ptr(), right.data_ptr(), n, c, h, w, mindisp4, d, wt.data_ptr(), co,
-        mul.data_ptr(), add.data_ptr(), int(relu), out.data_ptr(), _stream(left),
-        left.device.index)
-    _raise_on(lib.conv3d_error_string, err, "cost_volume_conv_bn_cuda")
+        mul.data_ptr(), add.data_ptr(), int(relu), planes.data_ptr(), out.data_ptr(),
+        _stream(left), left.device.index)
+    _raise_on(lib.cost_volume_tc_error_string, err, "cost_volume_tc_cuda")
     launches["cost_volume_conv"] += 1
     return out
 
@@ -339,21 +534,22 @@ def cost_volume_conv_bn_cuda(left: torch.Tensor, right: torch.Tensor, weight: to
 def deconv3d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
                      add: torch.Tensor, residual: Optional[torch.Tensor] = None,
                      relu: bool = False) -> torch.Tensor:
-    """Launch csrc/conv3d.cu's transposed conv on the current stream; same
-    contract as deconv3d_bn_plain."""
+    """Launch csrc/conv3d_tc.cu's transposed conv (its weight packing, then
+    the conv) on the current stream; same contract as deconv3d_bn_plain."""
     build.forward_only("deconv3d_bn_cuda", x, weight, mul, add, residual)
     _check_input("x", x, 5)
     n, ci, d, h, w = x.shape
     co = weight.shape[1]
     out_shape = (n, co, 2 * d, 2 * h, 2 * w)
-    wt = _weight(weight, (ci, co, 3, 3, 3), x.device, (0, 2, 3, 4, 1))
+    _check_float32_cuda("weight", weight, (ci, co, 3, 3, 3), x.device)
     mul, add, res = _epilogue_args(co, mul, add, residual, out_shape, x.device)
-    lib = _lib()
+    lib = _tc_lib()
+    wt = pack_tf32_deconv_weight_cuda(weight)
     out = torch.empty(out_shape, device=x.device)
-    err = lib.deconv3d_bn_cuda(x.data_ptr(), n, ci, d, h, w, wt.data_ptr(), co, mul.data_ptr(),
+    err = lib.deconv3d_tc_cuda(x.data_ptr(), n, ci, d, h, w, wt.data_ptr(), co, mul.data_ptr(),
                                add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
                                x.device.index)
-    _raise_on(lib.conv3d_error_string, err, "deconv3d_bn_cuda")
+    _raise_on(lib.conv3d_tc_error_string, err, "deconv3d_tc_cuda")
     launches["deconv3d"] += 1
     return out
 

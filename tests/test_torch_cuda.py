@@ -86,6 +86,62 @@ def test_cost_volume_conv_kernel_matches_plain(card, co, mind4):
                                                 mind4 + 8))
 
 
+@pytest.mark.parametrize("n,c,hw,co,mind4,maxd4", [
+    (2, 32, (7, 9), 32, -2, -1),     # D = 1: both depth taps in the padding
+    (2, 32, (5, 11), 64, 0, 2),      # D = 2
+    (3, 32, (6, 5), 32, -12, 12),    # |i| >= W: whole slices empty
+    (2, 32, (4, 7), 64, 7, 11),      # every disparity >= W
+    (2, 12, (9, 31), 32, -5, 6),     # C not a multiple of the 8-channel step, odd widths
+    (1, 32, (3, 97), 32, -4, 4),     # a width past the sum's channel groups' rows
+    (8, 32, (56, 56), 32, -12, 12),  # the main path's site at N = 8
+    (2, 32, (1, 13), 32, -3, 3),     # H = 1
+])
+def test_cost_volume_conv_kernel_edges(card, n, c, hw, co, mind4, maxd4):
+    """The planes form at the depth edges (D = 1, 2), disparities that
+    empty whole slices, ragged C, H and W."""
+    gen = torch.Generator(device="cuda").manual_seed(n + c + hw[1] - mind4)
+    left, right = _randn(gen, n, c, *hw), _randn(gen, n, c, *hw)
+    weight = _randn(gen, co, 2 * c, 3, 3, 3, scale=0.05)
+    mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
+    got = cconv.cost_volume_conv_bn(left, right, weight, mul, add, mind4, maxd4)
+    assert got.shape == (n, co, maxd4 - mind4, *hw)
+    _close(got, cconv.cost_volume_conv_bn_plain(left, right, weight, mul, add, mind4, maxd4))
+
+
+@pytest.mark.parametrize("co,c", [(32, 32), (64, 32), (32, 5), (64, 12)])
+def test_cost_volume_pack_kernel_matches_plain(card, co, c):
+    """The cost-volume planes' weight packing (one launch) equals
+    pack_tf32_cost_volume_weight bit for bit, C not a multiple of 8 padded
+    with zeros."""
+    gen = torch.Generator(device="cuda").manual_seed(co + c)
+    weight = _randn(gen, co, 2 * c, 3, 3, 3)
+    got = cconv.pack_tf32_cost_volume_weight_cuda(weight)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cconv.pack_tf32_cost_volume_weight(weight))
+
+
+def test_cost_volume_kernel_refuses_bad_inputs(card):
+    left = torch.zeros(1, 32, 4, 8, device=card)
+    w = torch.zeros(32, 64, 3, 3, 3, device=card)
+    mul, add = torch.ones(32, device=card), torch.zeros(32, device=card)
+    with pytest.raises(ValueError, match="Co"):
+        cconv.cost_volume_conv_bn_cuda(left, left, torch.zeros(16, 64, 3, 3, 3, device=card),
+                                       mul[:16], add[:16], -2, 2)
+    with pytest.raises(ValueError, match="empty"):
+        cconv.cost_volume_conv_bn_cuda(left, left, w, mul, add, 2, 2)
+    with pytest.raises(ValueError, match="shape"):
+        cconv.cost_volume_conv_bn_cuda(left, left, torch.zeros(32, 32, 3, 3, 3, device=card),
+                                       mul, add, -2, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        cconv.cost_volume_conv_bn_cuda(left.transpose(2, 3), left.transpose(2, 3), w, mul, add,
+                                       -2, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        cconv.cost_volume_conv_bn_cuda(left.cpu(), left, w, mul, add, -2, 2)
+    wide = torch.zeros(1, 32, 2, 404, device=card)  # the sum's rows past shared memory
+    with pytest.raises(RuntimeError, match="cost_volume_tc_cuda"):
+        cconv.cost_volume_conv_bn_cuda(wide, wide, w, mul, add, -2, 2)
+
+
 @pytest.mark.parametrize("ci,co,shape,residual,relu", [
     (32, 32, (6, 14, 40), False, True), (32, 32, (6, 14, 40), True, False),
     (64, 64, (6, 14, 40), True, True), (64, 64, (6, 14, 40), False, False),
@@ -195,6 +251,13 @@ def test_conv3d_s2_kernel_matches_plain(card, ci, co, shape, residual, relu):
     (64, 32, (12, 28, 28), True, False),  # its second
     (64, 32, (3, 5, 40), False, False),   # odd sizes, two column tiles
     (6, 64, (2, 3, 7), True, True),       # Ci not a multiple of the 4-channel step
+    (64, 64, (1, 5, 7), True, True),      # D = 1: the odd slice's second depth tap is past the edge
+    (32, 32, (2, 9, 13), False, True),    # D = 2, odd sizes
+    (64, 64, (3, 7, 33), True, False),    # a last short row tile, odd width
+    (64, 32, (2, 4, 1), True, True),      # W = 1
+    (64, 64, (2, 1, 6), False, False),    # H = 1
+    (64, 64, (1, 2, 150), True, True),    # an input wider than a block's positions
+    (13, 32, (3, 6, 6), False, True),     # Ci not a multiple of the 8-channel step
 ])
 def test_deconv3d_kernel_matches_plain(card, ci, co, shape, residual, relu):
     gen = torch.Generator(device="cuda").manual_seed(ci + co + shape[0])
@@ -208,6 +271,32 @@ def test_deconv3d_kernel_matches_plain(card, ci, co, shape, residual, relu):
     assert cconv.launches["deconv3d"] == before + 1
     assert got.shape == out_shape
     _close(got, cconv.deconv3d_bn_plain(x, weight, mul, add, res, relu))
+
+
+@pytest.mark.parametrize("ci,co", [(64, 64), (64, 32), (6, 64), (13, 32)])
+def test_deconv_pack_kernel_matches_plain(card, ci, co):
+    """The transposed conv's weight packing (one launch) equals
+    pack_tf32_deconv_weight of the ConvTranspose3d weight bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(ci * co + 1)
+    weight = _randn(gen, ci, co, 3, 3, 3)
+    got = cconv.pack_tf32_deconv_weight_cuda(weight)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cconv.pack_tf32_deconv_weight(weight))
+
+
+def test_deconv3d_kernel_refuses_bad_inputs(card):
+    x = torch.zeros(1, 64, 2, 4, 4, device=card)
+    w = torch.zeros(64, 32, 3, 3, 3, device=card)
+    mul, add = torch.ones(32, device=card), torch.zeros(32, device=card)
+    with pytest.raises(ValueError, match="Co"):
+        cconv.deconv3d_bn_cuda(x, torch.zeros(64, 16, 3, 3, 3, device=card), mul[:16],
+                               add[:16])
+    with pytest.raises(ValueError, match="residual"):
+        cconv.deconv3d_bn_cuda(x, w, mul, add, torch.zeros(1, 32, 4, 8, 7, device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        cconv.deconv3d_bn_cuda(x.transpose(3, 4), w, mul, add)
+    with pytest.raises(ValueError, match="CUDA"):
+        cconv.deconv3d_bn_cuda(x.cpu(), w, mul, add)
 
 
 @pytest.mark.parametrize("ci,co,hw,residual,relu,n", [
