@@ -18,20 +18,22 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      main path gives them, on seeded random inputs: the tower's 2D conv
      (32 channels at 112^2, 64 at 56^2; with and without residual and
      ReLU), the cost-volume conv, the stride-1 3D conv (56^2, 28^2, 14^2;
-     with and without residual and ReLU), its 32 -> 1 classifier form, the
+     with and without residual and ReLU), its 32 -> 1 classifier form
+     (with and without the previous classifier's cost as residual), the
      stride-2 and the transposed 3D convs of the hourglasses and the
      soft-argmin; the tensor-core convs (the 2D conv, the 3D conv at stride
-     1 and 2, the cost-volume conv, the transposed conv), their plain
-     versions and cuDNN's float32 conv are also compared with the same conv
-     in float64 (logged), and their weight packings held equal to their
-     plain versions;
+     1 and 2, the cost-volume conv, the transposed conv) and the
+     classifier's conv, their plain versions and cuDNN's float32 conv are
+     also compared with the same conv in float64 (logged), and the weight
+     packings held equal to their plain versions;
   4. the PointRCNN kernels against their plain versions at every site
      shape of both budgets, on seeded clouds that hold empty, partial and
      full balls, coincident points, and boxes with no point, fewer than 512
      and more than 512: FPS indices and RoI-pool rows exactly, SA and FP
-     values within CONV_RTOL/CONV_ATOL; the SA kernel's chain packing equal
-     to its plain version, and the kernel's and the plain version's
-     distance from the same scale with its chain in float64 logged;
+     values within CONV_RTOL/CONV_ATOL; the SA and FP kernels' chain
+     packing equal to its plain version, and each kernel's and plain
+     version's distance from the same function with its chain in float64
+     logged;
   5. row 12, the grouped MLP + max, against its plain version at the 8
      site shapes of the SA-off route at the headline budget (RPN SA1-SA3,
      two scales each, and RCNN SA0 and SA1, whole: G groups of S rows) and
@@ -63,10 +65,11 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      needs (products with padding, and neighbour slots that repeat a
      ball's first point, are not counted; the cost-volume conv counts its
      tap planes and their sums, with the dense conv's count logged and
-     kept as dense_bound_ms); the tensor-core kernels (rows 2, 3, 5, 6, 7
-     and 10, and rows 8 and 11 in phase 17) also get the bound at the
+     kept as dense_bound_ms); the tensor-core kernels (rows 2, 3, 5, 6, 7,
+     10 and 13, and rows 8 and 11 in phase 17) also get the bound at the
      3xTF32 tensor-core rate (bound_tc_ms) and their weight packing's time
-     alone (logged);
+     alone (pack_ms); every row lists each launch's time (launch_ms), and
+     FP each site's (form_ms: fp3, fp2, fp1);
  10. where a request's time goes, at both budgets: one request split into
      stages (2D detector, crops, feature tower, cost volume + dres,
      hourglasses, classifiers + regression, lift, RPN backbone, RPN heads,
@@ -232,7 +235,8 @@ TC_ROWS = {"cost_volume_conv": lambda a: cconv.pack_tf32_cost_volume_weight_cuda
            "conv3d_train": lambda a: cconv.pack_tf32_weight_cuda(a[1]),
            "conv2d": lambda a: cconv.pack_tf32_weight_cuda(a[1]),
            "sa": lambda a: csa.pack_tf32_chain_cuda(a[6]),
-           "sa_train": lambda a: csa.pack_tf32_chain_cuda(a[6])}
+           "sa_train": lambda a: csa.pack_tf32_chain_cuda(a[6]),
+           "fp": lambda a: csa.pack_tf32_chain_cuda(a[4])}
 IOU_OPS = 17  # float ops of one IoU and its threshold test (nms.cu box_iou)
 # soft-argmin: ops per (pixel, logit slice) of the bilinear H/W taps, and per
 # (pixel, disparity) of the D interpolation, exp, running max and two sums
@@ -263,6 +267,10 @@ SA_SITES = (("RPN SA1 scale 0", 128, 768, 512, 64, (64, 128), 0.5, 16),
 FP_SITES = (("fp3", 128, 256, 64, 1024, 512, (512, 512)),
             ("fp2", 128, 512, 256, 512, 256, (512, 512)),
             ("fp1", 128, 768, 512, 512, 96, (256, 256)))
+# rows that phase 9 times per site (form_ms): a launch's site from its
+# arguments, FP's by its (targets, sources)
+LAUNCH_SITE = {"fp": lambda a: {(nt, ns): site for site, _, nt, ns, *_ in FP_SITES}[
+    (a[0].shape[1], a[1].shape[1])]}
 # RoI-pool 3D (clouds, N, boxes, C, S): headline, and one reference block
 ROI_SITES = ((128, 768, 16, 130, 512), (128, 768, 50, 130, 512))
 # Row 12 at the SA-off route's sites of a headline request, whole (site,
@@ -540,10 +548,18 @@ def phase_3d_compare() -> dict:
         check_tc("conv3d", f"{tuple(x.shape)} residual={res} relu={relu}", x, w, mul, add, rt,
                  relu, 1)
         del x, rt
+    # the classifiers' 32 -> 1 conv; the second and third add the previous
+    # classifier's cost as the residual
     x = randn(r, 32, d4, q, q)
     w = randn(1, 32, 3, 3, 3, scale=0.05)
-    check("conv3d_cl1", f"{tuple(x.shape)}", cconv.conv3d_bn_cuda(x, w),
-          cconv.conv3d_bn_plain(x, w))
+    for res in (False, True):
+        rt = randn(r, 1, d4, q, q) if res else None
+        got = cconv.conv3d_bn_cuda(x, w, residual=rt)
+        want = cconv.conv3d_bn_plain(x, w, residual=rt)
+        check("conv3d_cl1", f"{tuple(x.shape)} residual={res}", got, want)
+        log_exact("conv3d_cl1", got, want, cconv.conv3d_bn_plain(
+            x.double(), w.double(), residual=None if rt is None else rt.double()))
+        del rt, got, want
     # the hourglass's stride-2 convs (32 -> 64 at 56^2, 64 -> 64 at 28^2)
     for ci, d, s in ((32, d4, q), (64, d4 // 2, q // 2)):
         x = randn(r, ci, d, s, s)
@@ -581,9 +597,10 @@ def phase_3d_compare() -> dict:
 
 
 def chain_float64(x: torch.Tensor, weights) -> torch.Tensor:
-    """The SA chain after mlp0 in float64 (x and every weight and bias
-    widened), rounded once to float32 at its end: the exact chain that
-    phase 4 measures the kernel and the plain version against."""
+    """The SA chain after mlp0, or the FP chain, in float64 (x and every
+    weight and bias widened), rounded once to float32 at its end: the exact
+    chain that phase 4 measures the kernels and the plain versions
+    against."""
     return csa.mlp_chain(x.double(), [(w.double(), b.double()) for w, b in weights]).float()
 
 
@@ -669,11 +686,19 @@ def phase_points_compare() -> dict:
             ws.append((torch.randn(cin, co, generator=gen, device="cuda") * cin ** -0.5,
                        torch.randn(co, generator=gen, device="cuda") * 0.1))
             cin = co
+        if not torch.equal(csa.pack_tf32_chain_cuda(ws), csa.pack_tf32_chain(ws)):
+            raise AssertionError(f"FP {site}: the chain packing != its plain version")
         got = cfp.fp_fused_cuda(unknown, known, kf, uf, ws)
-        e = conv_err(got, cfp.fp_fused_plain(unknown, known, kf, uf, ws), f"FP {site}")
+        want = cfp.fp_fused_plain(unknown, known, kf, uf, ws)
+        e = conv_err(got, want, f"FP {site}")
         errs["fp"] = max(errs["fp"], e)
+        exact = cfp.fp_fused_plain(unknown, known, kf, uf, ws, chain=chain_float64)
+        scale = float(exact.abs().max())
         log(f"  fp {site} ({b}, {nt} <- {ns}, {c} + {cs} -> {' -> '.join(map(str, chain))}): "
-            f"max |diff| {e:.3g}")
+            f"max |diff| {e:.3g}; against the chain in float64: kernel "
+            f"{float((got - exact).abs().max()) / scale:.3g}, plain "
+            f"{float((want - exact).abs().max()) / scale:.3g} of max |exact|")
+        del got, want, exact
     kinds_of_box = torch.tensor([[0.0, 2.0, 0.0, 4.0, 4.0, 4.0, 0.4],  # ~100 points
                                  [1.0, 0.5, -1.0, 1.6, 2.0, 2.0, -0.8],  # ~15
                                  [50.0, 50.0, 50.0, 1.0, 1.0, 1.0, 0.0],  # none
@@ -1306,12 +1331,15 @@ def time_launches(name: str, forms, err: float, src: str, replaces: str) -> dict
     version and library call timed on its arguments, with the bound; the
     row sums them over the launches. A row of TC_ROWS also gets the bound
     at the 3xTF32 tensor-core rate, bound_tc_ms, and the time of its
-    weight split and packing alone (TC_ROWS, a launch of the kernel's call)
-    in the log."""
+    weight split and packing alone (TC_ROWS, a launch of the kernel's call),
+    pack_ms. The row lists each launch's time (launch_ms), in launch order,
+    and with more than one form each form's (form_ms)."""
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=None, t_bytes=0.0, t_ops=0.0, bound_ms=0.0,
                bound_tc_ms=0.0, pack_ms=0.0)
     n = 0
+    form_ms, launch_ms = {}, []
     for label, calls, kernel, plain, library, work, compare in forms:
+        form_ms[label.strip()] = 0.0
         for args in calls:
             got, want = kernel(*args), plain(*args)
             torch.cuda.synchronize()
@@ -1331,6 +1359,8 @@ def time_launches(name: str, forms, err: float, src: str, replaces: str) -> dict
                          ("bound_tc_ms", bound_tc)):
                 tot[k] += v
             n += 1
+            form_ms[label.strip()] += ms
+            launch_ms.append(ms)
             lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
             tc = ""
             if name in TC_ROWS:
@@ -1352,6 +1382,10 @@ def time_launches(name: str, forms, err: float, src: str, replaces: str) -> dict
                library_ms=tot["library_ms"])
     if name in TC_ROWS:
         row["bound_tc_ms"] = tot["bound_tc_ms"]
+        row["pack_ms"] = tot["pack_ms"]
+    row["launch_ms"] = launch_ms
+    if len(forms) > 1:
+        row["form_ms"] = form_ms
     return row
 
 
@@ -1404,8 +1438,13 @@ def phase_timing(model2d, model3d, req, compare_errs):
         if len(launches) != EXPECTED_LAUNCHES[name]:
             raise AssertionError(f"{name}: {len(launches)} launches in one request, "
                                  f"expected {EXPECTED_LAUNCHES[name]}")
+        site = LAUNCH_SITE.get(name, lambda a: "")
+        groups = {}
+        for a in launches:
+            groups.setdefault(f" {site(a)}".rstrip(), []).append(a)
         rows[name] = time_launches(
-            name, [("", launches, kernel, plain, library, work, partial(main_path_err, name))],
+            name, [(label, group, kernel, plain, library, work, partial(main_path_err, name))
+                   for label, group in groups.items()],
             compare_errs.get(name, 0.0), src, replaces)
         if name == "cost_volume_conv":
             # the dense conv's count, the bound that earlier rows were read against

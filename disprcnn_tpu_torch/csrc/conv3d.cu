@@ -3,21 +3,49 @@
 //
 // Replaces disprcnn_tpu/ops/pallas/packed_conv.py's _conv_call at dg = 1
 // ("cl1"): the conv to one output channel, no BN (conv3d_bn_cuda):
-//   out[n, 0, z, y, x] = epilogue(sum_{c, kd, kh, kw}
-//       in(n, c, z + kd - 1, y + kh - 1, x + kw - 1) * wt[c, kd, kh, kw, 0])
+//   out[n, 0, z, y, x] = epilogue(sum_{kd, c, kh, kw}
+//       in(n, c, z + kd - 1, y + kh - 1, x + kw - 1) * wt[c, kd, kh, kw])
 // (padding 1, zero outside the volume), the epilogue of conv3d.cuh: v *
-// mul + add, then + residual, then ReLU. The other PSMNet convs are on the
+// mul + add, then + residual, then ReLU. Each output sums its 27 Ci terms
+// in that order, (kd, c, kh, kw), each product fused into the running sum
+// (fmaf); ops/cuda/conv3d.py::conv3d_cl1_march_plain models that
+// arithmetic. The other PSMNet convs are on the
 // tensor cores: the stride-1 and stride-2 3D convs, the transposed conv and
 // the feature tower's 2D conv in conv3d_tc.cu, the cost-volume conv in
 // cost_volume_tc.cu.
 //
-// Bound on an H100 SXM: its input's bytes (one output channel: 27 products
-// per input value read).
+// Bound on an H100 SXM: its input's bytes. One output channel does 27
+// multiply-adds per input value read: at the main path's shape (128 ROI
+// slots x 32 channels x 24 x 56 x 56) 1.23 GB, 0.37 ms at 3.35 TB/s,
+// against 0.25 ms for its 8.3e9 multiply-adds at 67 TFLOP/s.
 //
-// Design: one block per (n, z, 8 x 32 output tile). Per step of CI_STEP
-// input channels the block stages the 3-deep halo of the input (10 rows,
-// 34 columns) and the weights of those channels in shared memory; 4 warps
-// split the tile's rows, 2 rows per thread, a lane per column.
+// Design: a depth-marching stencil that reads its input about once. The
+// rows of every image, each padded by a zero row above and below, are laid
+// end to end; a block owns a tile of TH = 2 G consecutive padded rows over
+// the whole width (or a column tile of up to 256 columns), G row groups of
+// Q quads (4 columns) laid out linearly on its threads, so that a 56-wide
+// row (14 quads) leaves no lane idle at G = 16 (224 threads). The block
+// marches through the depth slices one input plane at a time; per stage
+// of kCG channels it copies the plane's TH + 2 rows and the channels'
+// weights into shared memory, kStages stages in flight. Where W % 4 == 0
+// and the tile is the whole width, the rows of one image are one
+// contiguous run in x and in the stage, and warp 0 asks the Tensor Memory
+// Accelerator for each (channel, run) as one bulk copy whose arrival an
+// mbarrier counts; the padding rows are zeroed once. Elsewhere every
+// thread copies with cp.async (16 bytes a copy where W % 4 == 0, else 4),
+// the columns either side of a column tile too. Issuing the copies is
+// what limits a stencil this light: per-thread copies with per-row index
+// arithmetic read x well under the card's rate, one bulk copy per run of
+// rows near it. A thread keeps the sums of its 2 x 4 outputs at depths z - 1,
+// z and z + 1, so one staged plane serves all 27 taps: per channel and
+// input row one 16-byte shared load, two shuffles for the neighbouring
+// columns (a shared load where the neighbour is another row's or warp's),
+// and 36 multiply-adds per output row it feeds. An output slice is written
+// once its last plane (z + 1) has been added. The host picks G from the
+// card's SM count (fewest warps of work on the busiest SM).
+//
+// conv3d_cl1_study_cuda launches the same kernel with its copies or its
+// arithmetic left out, so that tools/profile_convs.py can time each alone.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -27,143 +55,448 @@ namespace {
 
 using conv::Out;
 
-constexpr int kTH = 8;   // output rows per block
-constexpr int kTW = 32;  // output columns per block, one per lane
-constexpr int kKD = 3;   // depth taps
+constexpr int kTR = 2;           // output rows a thread computes
+constexpr int kCG = 4;           // input channels a stage copies
+constexpr int kStages = 3;       // stages in flight
+constexpr int kMaxThreads = 256;
+constexpr int kMaxQuads = 64;    // quads of a column tile (256 columns)
+constexpr int kWPad = 28;        // a channel's 27 weights padded to 7 float4
+constexpr int kMaxShared = 232448;
+constexpr unsigned kFull = 0xffffffffu;
 
-struct PlainSrc {
-  const float* x;  // (N, Ci, D, H, W)
-  int ci, d, h, w;
-  __device__ __forceinline__ float load(int n, int c, int z, int y, int xx) const {
-    if (c >= ci || z < 0 || z >= d || y < 0 || y >= h || xx < 0 || xx >= w) return 0.f;
-    return __ldg(x + ((((size_t)n * ci + c) * d + z) * h + y) * (size_t)w + xx);
-  }
+// The launch geometry, set by the host.
+struct Geom {
+  int n, ci, d, h, w;
+  int qw;      // quads of a column tile
+  int ctiles;  // column tiles
+  int g;       // row groups: a tile holds kTR * g padded rows
+  int vec;     // 16-byte copies: W % 4 == 0 and x 16-byte aligned
+  int bulk;    // bulk copies of whole runs of rows: vec and one column tile
 };
 
-// Blocks per SM the conv's register allocation must leave room for: 512
-// threads resident at least, so that one block's barrier does not idle the
-// SM.
-constexpr int min_blocks(int threads) { return threads >= 512 ? 1 : 512 / threads; }
-
-template <int CO_T>
-__device__ __forceinline__ void load_weights(const float* wp, float (&wv)[CO_T]) {
-#pragma unroll
-  for (int j = 0; j < CO_T; ++j) wv[j] = wp[j];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// The conv: CO output channels, CO_T of them per thread, RG warps
-// splitting the tile rows (kTH / RG rows per thread), CO / CO_T * RG warps
-// per block; CI_STEP input channels staged per step. The input tile's
-// origin is the output origin - 1 in every dim.
-template <int CO, int CO_T, int RG, int CI_STEP>
-__global__ void __launch_bounds__(CO / CO_T * RG * 32, min_blocks(CO / CO_T * RG * 32))
-conv_kernel(const PlainSrc src, int ci, int tiles_w, const float* __restrict__ wt, const Out out) {
-  constexpr int kPX = kTH / RG;
-  constexpr int kThreads = CO / CO_T * RG * 32;
-  constexpr int kHaloH = kTH + 2;
-  constexpr int kHaloW = kTW + 2;
-  constexpr int kHaloSize = CI_STEP * kKD * kHaloH * kHaloW;
-  constexpr int kTaps = kKD * 9;
-  constexpr int kWSize = CI_STEP * kTaps * CO;
-  __shared__ float in_s[kHaloSize];
-  __shared__ __align__(16) float w_s[kWSize];
+// cp.async of 16 or 4 bytes, zero-filled where !valid (src is then not read)
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int cog = warp / RG;
-  const int rg = warp % RG;
-  const int y0 = (blockIdx.x / tiles_w) * kTH;
-  const int x0 = (blockIdx.x % tiles_w) * kTW;
-  const int z = blockIdx.y;
-  const int n = blockIdx.z;
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
 
-  float acc[kPX][CO_T];
-#pragma unroll
-  for (int p = 0; p < kPX; ++p)
-#pragma unroll
-    for (int j = 0; j < CO_T; ++j) acc[p][j] = 0.f;
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  for (int c0 = 0; c0 < ci; c0 += CI_STEP) {
-    __syncthreads();  // the previous step's reads are done
-    for (int i = threadIdx.x; i < kHaloSize; i += kThreads) {
-      const int xx = i % kHaloW;
-      int t = i / kHaloW;
-      const int yy = t % kHaloH;
-      t /= kHaloH;
-      const int kd = t % kKD;
-      const int c = t / kKD;
-      in_s[i] = src.load(n, c0 + c, z + kd - 1, y0 + yy - 1, x0 + xx - 1);
+// The Tensor Memory Accelerator's bulk copies: one thread asks for a
+// contiguous run of bytes, whose arrival counts against an mbarrier's
+// expected transaction bytes.
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Floats of one channel of a stage: TH + 2 staged rows of 4 qw columns,
+// then the two columns either side of each row, then the 28 weights.
+__host__ __device__ inline int chan_floats(int g, int qw) {
+  return (kTR * g + 2) * (4 * qw + 2) + kWPad;
+}
+
+// The stages, then per staged row its offset in x (8 bytes), the runs of
+// rows (8 bytes each, at most one a row), their count and rows (8), then a
+// barrier per stage.
+inline size_t shared_bytes(int g, int qw) {
+  return sizeof(float) * (size_t)kStages * kCG * chan_floats(g, qw) +
+         16 * (size_t)(kTR * g + 2) + 8 * (size_t)(kStages + 1);
+}
+
+// kMode 0: the conv. The study's builds: 1, the copies and their waits
+// without the arithmetic (the outputs are zeros); 2, the arithmetic on
+// stages zeroed once, with no copy.
+template <int kMode>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+cl1_kernel(const float* __restrict__ x, const float* __restrict__ wt, const Geom gm,
+           const Out out) {
+  extern __shared__ __align__(16) float smem[];
+  const int sr = kTR * gm.g + 2;  // staged rows
+  const int p = 4 * gm.qw;        // staged columns
+  const int cb = chan_floats(gm.g, gm.qw);
+  const int sb = kCG * cb;        // floats of a stage
+  long long* rowoff = reinterpret_cast<long long*>(smem + kStages * sb);
+  int2* runs = reinterpret_cast<int2*>(rowoff + sr);  // (first staged row, rows)
+  int2* nruns = runs + sr;                            // (runs, rows in them)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(nruns + 1);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const bool active = tid < gm.g * gm.qw;
+  const int grp = active ? tid / gm.qw : 0;
+  const int q = active ? tid - grp * gm.qw : 0;
+  const int rt = blockIdx.x / gm.ctiles, ct = blockIdx.x - rt * gm.ctiles;
+  const long long hp = gm.h + 2;
+  const long long prows = (long long)gm.n * hp;
+  const long long p0 = (long long)rt * (kTR * gm.g);  // the tile's first padded row
+  const int x0 = ct * p;                             // its first column
+  const long long plane = (long long)gm.h * gm.w;
+
+  // staged row r is padded row p0 - 1 + r: the offset of (n, 0, 0, y, 0) in
+  // x, or -1 for a padding row
+  for (int r = tid; r < sr; r += blockDim.x) {
+    const long long pr = p0 - 1 + r;
+    long long off = -1;
+    if (pr >= 0 && pr < prows) {
+      const long long nn = pr / hp;
+      const int y = (int)(pr - nn * hp) - 1;
+      if (y >= 0 && y < gm.h) off = nn * gm.ci * gm.d * plane + (long long)y * gm.w;
     }
-    for (int i = threadIdx.x; i < kWSize; i += kThreads) {
-      const int c = i / (kTaps * CO);
-      w_s[i] = c0 + c < ci ? __ldg(wt + (size_t)c0 * kTaps * CO + i) : 0.f;
+    rowoff[r] = off;
+  }
+  if (gm.ctiles == 1) {
+    // the columns either side of a whole-width tile are padding: zero them
+    // once in every stage; no copy writes them
+    for (int e = tid; e < kStages * kCG * sr * 2; e += blockDim.x) {
+      const int sc = e / (sr * 2);
+      smem[sc * cb + sr * p + e % (sr * 2)] = 0.f;
+    }
+  }
+  __syncthreads();
+  if (gm.bulk) {
+    // the padding rows are the same in every stage: zero them once; no bulk
+    // copy writes them (they are the rows outside every run)
+    for (int e = warp; e < kStages * kCG * sr; e += nwarps) {
+      const int r = e % sr;
+      if (rowoff[r] >= 0) continue;
+      float* row = smem + (e / sr) * cb + r * p;
+      for (int k = lane; k < p; k += 32) row[k] = 0.f;
+    }
+    if (tid == 0) {
+      // runs of rows of one image, contiguous in x and in the stage
+      int nr = 0, rows = 0;
+      for (int r = 0; r < sr;) {
+        if (rowoff[r] < 0) {
+          ++r;
+          continue;
+        }
+        int k = 1;
+        while (r + k < sr && rowoff[r + k] >= 0 && rowoff[r + k] == rowoff[r] + (long long)k * gm.w)
+          ++k;
+        runs[nr++] = make_int2(r, k);
+        rows += k;
+        r += k;
+      }
+      *nruns = make_int2(nr, rows);
+      for (int b = 0; b < kStages; ++b) bar_init(bars + b);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
+  }
 
+  const int ngroups = (gm.ci + kCG - 1) / kCG;
+  const int nstage = gm.d * ngroups;
+  // the copies of a staged row: lpr lanes a row, rpw rows a warp step
+  const int lpr = gm.qw < 32 ? gm.qw : 32;
+  const int rpw = 32 / lpr;
+  const int sub = lane / lpr, lq = lane - sub * lpr;
+
+  auto issue = [&](int s) {
+    if constexpr (kMode == 2) return;
+    if (gm.bulk) {
+      // warp 0: one lane per (channel, run) or channel's weights
+      if (warp == 0 && s < nstage) {
+        float* st = smem + (s % kStages) * sb;
+        uint64_t* bar = bars + s % kStages;
+        const int zi = s / ngroups, c0 = (s - zi * ngroups) * kCG;
+        const int nc = min(kCG, gm.ci - c0);
+        const int2 nr = *nruns;
+        // the stage's buffer was last read before this iteration's barrier
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        if (lane == 0) bar_expect(bar, nc * (nr.y * p + kWPad) * 4);  // rows and weights
+        __syncwarp();
+        for (int t = lane; t < nc * (nr.x + 1); t += 32) {
+          const int c = t / (nr.x + 1), k = t - c * (nr.x + 1);
+          if (k < nr.x) {
+            const int2 run = runs[k];
+            bulk_copy(st + c * cb + run.x * p,
+                      x + rowoff[run.x] + ((long long)(c0 + c) * gm.d + zi) * plane,
+                      run.y * p * 4, bar);
+          } else {
+            bulk_copy(st + c * cb + sr * (p + 2), wt + (size_t)(c0 + c) * kWPad, kWPad * 4, bar);
+          }
+        }
+      }
+      return;
+    }
+    if (s < nstage) {
+      float* st = smem + (s % kStages) * sb;
+      const int zi = s / ngroups, c0 = (s - zi * ngroups) * kCG;
 #pragma unroll
-    for (int c = 0; c < CI_STEP; ++c) {
+      for (int c = 0; c < kCG; ++c) {
+        const bool cok = c0 + c < gm.ci;
+        const float* xc = x + (cok ? ((long long)(c0 + c) * gm.d + zi) * plane + x0 : 0);
+        float* sc = st + c * cb;
+        for (int r = warp * rpw + sub; sub < rpw && r < sr; r += nwarps * rpw) {
+          const long long ro = rowoff[r];
+          const bool ok = cok && ro >= 0;
+          const float* src = ok ? xc + ro : x;
+          float* dst = sc + r * p;
+          if (gm.vec) {
+            for (int qq = lq; qq < gm.qw; qq += lpr)
+              cp16(dst + 4 * qq, src + (ok ? 4 * qq : 0), ok && x0 + 4 * qq < gm.w);
+          } else {
+            for (int e = lq; e < p; e += lpr) cp4(dst + e, src + (ok ? e : 0), ok && x0 + e < gm.w);
+          }
+        }
+      }
+      if (gm.ctiles > 1) {
+        // column x0 - 1 and column x0 + p of each staged row
+        for (int e = tid; e < kCG * sr * 2; e += blockDim.x) {
+          const int c = e / (sr * 2), r = (e >> 1) - c * sr, side = e & 1;
+          const int col = side ? x0 + p : x0 - 1;
+          const long long ro = rowoff[r];
+          const bool ok = ro >= 0 && c0 + c < gm.ci && col >= 0 && col < gm.w;
+          cp4(st + c * cb + sr * p + 2 * r + side,
+              ok ? x + ro + ((long long)(c0 + c) * gm.d + zi) * plane + col : x, ok);
+        }
+      }
+      for (int e = tid; e < kCG * (kWPad / 4); e += blockDim.x) {
+        const int c = e / (kWPad / 4), k = e - c * (kWPad / 4);
+        const bool ok = c0 + c < gm.ci;
+        cp16(st + c * cb + sr * (p + 2) + 4 * k, ok ? wt + (size_t)(c0 + c) * kWPad + 4 * k : wt,
+             ok);
+      }
+    }
+    cp_commit();
+  };
+
+  // where this thread finds the columns left and right of its quad in a
+  // staged row: in the neighbouring lane (a shuffle), else in shared memory
+  // (the halo columns at the tile's edges, the row itself at a warp's)
+  const bool need_l = q == 0 || lane == 0;
+  const bool need_r = q == gm.qw - 1 || lane == 31;
+  const int row0 = grp * kTR;
+  const int lofs = q == 0 ? sr * p + 2 * row0 : row0 * p + 4 * q - 1;
+  const int lstr = q == 0 ? 2 : p;
+  const int rofs = q == gm.qw - 1 ? sr * p + 2 * row0 + 1 : row0 * p + 4 * q + 4;
+  const int rstr = q == gm.qw - 1 ? 2 : p;
+
+  // the image and row of each output row, y = -1 for a padding row
+  long long on[kTR];
+  int oy[kTR];
 #pragma unroll
-      for (int k = 0; k < kTaps; ++k) {
-        const int kd = k / 9, kh = (k / 3) % 3, kw = k % 3;
-        float wv[CO_T];
-        load_weights<CO_T>(w_s + (c * kTaps + k) * CO + cog * CO_T, wv);
-        const float* ip =
-            in_s + ((c * kKD + kd) * kHaloH + rg * kPX + kh) * kHaloW + lane + kw;
+  for (int rr = 0; rr < kTR; ++rr) {
+    const long long pr = p0 + row0 + rr;
+    on[rr] = pr / hp;
+    oy[rr] = active && pr < prows ? (int)(pr - on[rr] * hp) - 1 : -1;
+    if (oy[rr] >= gm.h) oy[rr] = -1;
+  }
+  auto store = [&](const float (&a)[kTR][4], int z) {
 #pragma unroll
-        for (int p = 0; p < kPX; ++p) {
-          const float xv = ip[p * kHaloW];
+    for (int rr = 0; rr < kTR; ++rr) {
+      if (oy[rr] < 0) continue;
 #pragma unroll
-          for (int j = 0; j < CO_T; ++j) acc[p][j] += xv * wv[j];
+      for (int j = 0; j < 4; ++j) {
+        const int xx = x0 + 4 * q + j;
+        if (xx < gm.w) out.store((int)on[rr], 0, z, oy[rr], xx, a[rr][j]);
+      }
+    }
+  };
+
+  // acc[0]: output slice zi - 1 (gets the plane's kd = 2 taps), acc[1]: zi
+  // (kd = 1), acc[2]: zi + 1 (kd = 0)
+  float acc[3][kTR][4];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int rr = 0; rr < kTR; ++rr)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[k][rr][j] = 0.f;
+
+  if constexpr (kMode == 2) {
+    for (int e = tid; e < kStages * sb; e += blockDim.x) smem[e] = 0.f;
+    __syncthreads();
+  }
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  for (int s = 0; s < nstage; ++s) {
+    if constexpr (kMode != 2) {
+      if (gm.bulk)
+        bar_wait(bars + s % kStages, (s / kStages) & 1);  // stage s has landed
+      else
+        cp_wait<kStages - 2>();  // this thread's copies of stage s have landed
+    }
+    __syncthreads();  // everyone's; and stage s - 1 is read
+    issue(s + kStages - 1);
+    const float* st = smem + (s % kStages) * sb;
+    const int zi = s / ngroups, c0 = (s - zi * ngroups) * kCG;
+#pragma unroll 1
+    for (int c = 0; c < kCG; ++c) {
+      if (kMode == 1 || c0 + c >= gm.ci) break;
+      const float* cbase = st + c * cb;
+      float wv[kWPad];
+#pragma unroll
+      for (int k = 0; k < kWPad / 4; ++k) {
+        const float4 t = reinterpret_cast<const float4*>(cbase + sr * (p + 2))[k];
+        wv[4 * k] = t.x;
+        wv[4 * k + 1] = t.y;
+        wv[4 * k + 2] = t.z;
+        wv[4 * k + 3] = t.w;
+      }
+#pragma unroll
+      for (int i = 0; i < kTR + 2; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(cbase + (row0 + i) * p + 4 * q);
+        float l = __shfl_up_sync(kFull, v.w, 1);
+        float r = __shfl_down_sync(kFull, v.x, 1);
+        if (need_l) l = cbase[lofs + i * lstr];
+        if (need_r) r = cbase[rofs + i * rstr];
+        const float u[6] = {l, v.x, v.y, v.z, v.w, r};
+#pragma unroll
+        for (int rr = 0; rr < kTR; ++rr) {
+          const int kh = i - rr;
+          if (kh < 0 || kh > 2) continue;
+#pragma unroll
+          for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float a = u[j + kw];
+              acc[0][rr][j] = fmaf(a, wv[18 + 3 * kh + kw], acc[0][rr][j]);
+              acc[1][rr][j] = fmaf(a, wv[9 + 3 * kh + kw], acc[1][rr][j]);
+              acc[2][rr][j] = fmaf(a, wv[3 * kh + kw], acc[2][rr][j]);
+            }
         }
       }
     }
-  }
-
-  const int xo = x0 + lane;
-  if (xo >= out.w) return;
+    if (c0 + kCG >= gm.ci) {  // plane zi is done: slice zi - 1 is complete
+      if (zi >= 1) store(acc[0], zi - 1);
 #pragma unroll
-  for (int p = 0; p < kPX; ++p) {
-    const int yo = y0 + rg * kPX + p;
-    if (yo >= out.h) continue;
+      for (int rr = 0; rr < kTR; ++rr)
 #pragma unroll
-    for (int j = 0; j < CO_T; ++j) out.store(n, cog * CO_T + j, z, yo, xo, acc[p][j]);
+        for (int j = 0; j < 4; ++j) {
+          acc[0][rr][j] = acc[1][rr][j];
+          acc[1][rr][j] = acc[2][rr][j];
+          acc[2][rr][j] = 0.f;
+        }
+    }
   }
+  cp_wait<0>();
+  store(acc[0], gm.d - 1);  // the last slice (plane d is padding)
 }
 
-template <int CO, int CO_T, int RG, int CI_STEP>
-cudaError_t launch(const PlainSrc& src, int n, int ci, const float* wt, const Out& out,
-                   cudaStream_t s) {
-  const int tiles_w = (out.w + kTW - 1) / kTW;
-  const int tiles = ((out.h + kTH - 1) / kTH) * tiles_w;
-  const dim3 grid(tiles, out.d, n);
-  conv_kernel<CO, CO_T, RG, CI_STEP>
-      <<<grid, CO / CO_T * RG * 32, 0, s>>>(src, ci, tiles_w, wt, out);
-  return cudaGetLastError();
+// Row groups G for quads of qw: among those whose block fits (threads,
+// shared memory), the fewest warps of work on the busiest SM when the
+// tiles spread evenly, ties to the larger tile (fewer halo rows).
+int pick_groups(long long padded_rows, int ctiles, int qw, int sms) {
+  int best = 0;
+  long long best_cost = 0;
+  for (int g = 1; g * qw <= kMaxThreads; ++g) {
+    if (shared_bytes(g, qw) > (size_t)kMaxShared) break;
+    const long long tiles = (padded_rows + kTR * g - 1) / (kTR * g) * ctiles;
+    const long long warps = (g * qw + 31) / 32;
+    const long long cost = (tiles + sms - 1) / sms * warps;
+    if (best == 0 || cost <= best_cost) {
+      best = g;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <int kMode>
+int launch(const void* x, int n, int ci, int d, int h, int w, const void* wt, const void* mul,
+           const void* add, const void* res, int relu, void* out, void* stream, int device) {
+  // this library links its own CUDA runtime, whose current device is not
+  // PyTorch's: set it to the tensors' device
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ci < 1 || (reinterpret_cast<uintptr_t>(wt) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int quads = (w + 3) / 4;
+  const int ctiles = (quads + kMaxQuads - 1) / kMaxQuads;
+  const int qw = (quads + ctiles - 1) / ctiles;
+  if (!conv::grid_fits(n, d, h, w, kTR, 4 * qw)) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long padded_rows = (long long)n * (h + 2);
+  const int g = pick_groups(padded_rows, ctiles, qw, sms);
+  if (g == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long blocks = (padded_rows + kTR * g - 1) / (kTR * g) * ctiles;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = w % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const Geom gm{n, ci, d, h, w, qw, ctiles, g, vec, vec && ctiles == 1};
+  const size_t bytes = shared_bytes(g, qw);
+  err = cudaFuncSetAttribute(cl1_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = 32 * ((g * qw + 31) / 32);
+  cl1_kernel<kMode><<<static_cast<unsigned>(blocks), threads, bytes,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wt), gm,
+      conv::make_out(out, mul, add, res, 1, d, h, w, relu));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (N, Ci, D, H, W); wt (Ci, 3, 3, 3, 1), the torch weight (1, Ci, 3, 3,
-// 3) permuted; the stride-1 pad-1 conv to one output channel (the
-// classifier's), out (N, 1, D, H, W); mul, add (1,); res of the output's
-// shape or null. All float32, contiguous, on `device`. Launches on
-// `stream`, does not synchronise, returns the cudaError_t of the launch (0
-// on success). Co 32 and 64 are conv3d_tc.cu's.
+// x (N, Ci, D, H, W); wt (Ci, 28): the torch weight (1, Ci, 3, 3, 3) as
+// (Ci, 27) in (kd, kh, kw) order, padded with a zero to 28; the stride-1
+// pad-1 conv to one output channel (the classifier's), out (N, 1, D, H, W);
+// mul, add (1,); res of the output's shape or null. All float32,
+// contiguous, on `device`, wt 16-byte aligned. Launches on `stream`, does
+// not synchronise, returns the cudaError_t of the launch (0 on success).
+// Co 32 and 64 are conv3d_tc.cu's.
 int conv3d_bn_cuda(const void* x, int n, int ci, int d, int h, int w, const void* wt,
                    const void* mul, const void* add, const void* res, int relu, void* out,
                    void* stream, int device) {
-  // this library links its own CUDA runtime, whose current device is not
-  // PyTorch's: set it to the tensors' device
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (ci < 1 || !conv::grid_fits(n, d, h, w, kTH, kTW))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const PlainSrc src{static_cast<const float*>(x), ci, d, h, w};
-  return static_cast<int>(launch<1, 1, 4, 4>(
-      src, n, ci, static_cast<const float*>(wt),
-      conv::make_out(out, mul, add, res, 1, d, h, w, relu), static_cast<cudaStream_t>(stream)));
+  return launch<0>(x, n, ci, d, h, w, wt, mul, add, res, relu, out, stream, device);
+}
+
+// conv3d_bn_cuda's arguments, then the study's mode: 1 copies only, 2
+// arithmetic only (the kernel's kMode); 0 is the conv itself.
+int conv3d_cl1_study_cuda(const void* x, int n, int ci, int d, int h, int w, const void* wt,
+                          const void* mul, const void* add, const void* res, int relu, void* out,
+                          void* stream, int device, int mode) {
+  switch (mode) {
+    case 0: return launch<0>(x, n, ci, d, h, w, wt, mul, add, res, relu, out, stream, device);
+    case 1: return launch<1>(x, n, ci, d, h, w, wt, mul, add, res, relu, out, stream, device);
+    case 2: return launch<2>(x, n, ci, d, h, w, wt, mul, add, res, relu, out, stream, device);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* conv3d_error_string(int err) {

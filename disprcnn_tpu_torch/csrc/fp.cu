@@ -1,6 +1,6 @@
 // PointNet++ feature propagation for Hopper (sm_90a), float32: 3-NN,
 // inverse-distance interpolation, the skip features concatenated, and the
-// folded-BN MLP chain.
+// folded-BN MLP chain on the tensor cores.
 //
 // Replaces the TPU kernel disprcnn_tpu/ops/pallas/fp_fused.py:_kernel
 // (entry fp_fused). For target point n of cloud b:
@@ -12,66 +12,145 @@
 //   x = [(f[i0] w0 + f[i1] w1) + f[i2] w2, skip[n]], then x = relu(x W_l +
 //   b_l) for each layer.
 // The TPU kernel kept the features and weights in bf16; this one is
-// float32 throughout.
+// float32 in and out at float32 accuracy: the chain's products in 3xTF32
+// on the tensor cores (mlp_tc.cuh, the set-abstraction kernel's chain).
 //
 // Bound on an H100 SXM: operations, the chain's products (fp3: 128 clouds x
 // 256 targets x (1536 x 512 + 512 x 512) multiply-adds, 68.7 GFLOP; the
-// three sites ~190 GFLOP a request, ~3 ms at 67 TFLOP/s).
+// three sites 198 GFLOP a request, 2.98 ms at 67 TFLOP/s on the float32
+// cores, 1.2 ms at the 3xTF32 rate of 495 / 3 TFLOP/s).
 //
-// Design: one block of 256 threads per (cloud, tile of R = 16, 32 or 64
-// target points). The cloud's source points sit in shared memory; one
-// warp per target scans them, each lane keeping its own 3 best, and three
-// butterfly rounds over (distance, index) merge the lanes' lists. The
-// block writes the interpolated and skip columns of its R rows into shared
-// memory and runs the chain as register-tiled products (mlp.cuh: 4 rows of
-// a weight and 4 values of an activation row per 16-byte load); the last
-// layer goes from registers to the output.
+// Design: one block of 512 threads per (cloud, tile of R = 64 targets),
+// one block an SM (R = 32 or 16 where 64 rows do not fit). The cloud's
+// source points sit in shared memory; one warp per target scans them, each
+// lane keeping its own 3 best, and three butterfly rounds over (distance,
+// index) merge the lanes' lists. The first layer's input (1536 wide at fp3,
+// 394 KB for 64 rows) does not fit in shared memory, so it is made in
+// chunks of kKC columns, double buffered: a chunk's interpolated columns
+// from each row's 3 indices and weights, its skip columns copied, 16 bytes
+// a load where the widths allow. A pass of the 16 warps covers 256 of the
+// layer's output columns against all R rows (each B fragment feeds the MT
+// M-tiles; each block reads each weight once, from L2), so the chunks are
+// made again for each pass: the input is read twice at fp3, against the
+// weights' 4.2 MB. The later layers run from shared memory as sa.cu's do;
+// the last one stores its rows from registers. The weights are split and
+// fragment-ordered once per launch by sa.cu's packing (sa_pack_cuda).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "mlp.cuh"
+#include "mlp_tc.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using mlp_tc::kFull;
+using mlp_tc::kNT;
+using mlp_tc::lead;
+using mlp_tc::pad8;
+
+// 16 warps, one block an SM: a pass covers 256 output columns, so fp3 and
+// fp2 make their chunks twice, fp1 once (8 warps, mlp_tc's, were slower on
+// the card: half the warps to hide the weights' loads, twice the chunks)
+constexpr int kWarps = 16;
+constexpr int kThreads = 32 * kWarps;
+
 constexpr int kMaxShared = 232448;
 constexpr int kNoIndex = 0x7fffffff;
+constexpr int kKC = 128;          // columns of the first layer's input a chunk holds
+constexpr int kLdC = kKC + 4;     // a chunk row's floats (4 mod 32: no bank conflicts)
 
-template <int RT>
-__global__ void __launch_bounds__(mlp::kThreads)
+struct Shape {
+  int nt, ns, c, cs;
+  float eps;
+  int lda;  // floats of a row of the region that holds the chunks, then odd layers' outputs
+  int ld1;  // floats of a row of even layers' outputs
+  int vec;  // 16-byte loads: C % 4 == 0, Cs % 4 == 0, both feature arrays 16-byte aligned
+};
+
+// The interpolated and skip columns k0 .. k0 + kKC - 1 of the tile's R rows
+// into dst (R x kLdC), zero past C + Cs and in rows past the cloud's Nt.
+template <int MT>
+__device__ __forceinline__ void stage_chunk(int k0, const Shape& sh, int rows,
+                                            const int* nni, const float* nnw,
+                                            const float* __restrict__ F,
+                                            const float* __restrict__ S, float* dst) {
+  constexpr int R = 16 * MT;
+  const int tid = threadIdx.x, c0 = sh.c + sh.cs;
+  if (sh.vec) {
+#pragma unroll 1
+    for (int e = tid; e < R * (kKC / 4); e += kThreads) {
+      const int r = e / (kKC / 4), col = k0 + 4 * (e % (kKC / 4));
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < rows && col < c0) {
+        if (col < sh.c) {
+          const int* ii = nni + r * 3;
+          const float* ww = nnw + r * 3;
+          const float4 f0 = __ldg(reinterpret_cast<const float4*>(F + (size_t)ii[0] * sh.c + col));
+          const float4 f1 = __ldg(reinterpret_cast<const float4*>(F + (size_t)ii[1] * sh.c + col));
+          const float4 f2 = __ldg(reinterpret_cast<const float4*>(F + (size_t)ii[2] * sh.c + col));
+          v.x = (f0.x * ww[0] + f1.x * ww[1]) + f2.x * ww[2];
+          v.y = (f0.y * ww[0] + f1.y * ww[1]) + f2.y * ww[2];
+          v.z = (f0.z * ww[0] + f1.z * ww[1]) + f2.z * ww[2];
+          v.w = (f0.w * ww[0] + f1.w * ww[1]) + f2.w * ww[2];
+        } else {
+          v = __ldg(reinterpret_cast<const float4*>(S + (size_t)r * sh.cs + col - sh.c));
+        }
+      }
+      *reinterpret_cast<float4*>(dst + r * kLdC + col - k0) = v;
+    }
+  } else {
+    for (int e = tid; e < R * kKC; e += kThreads) {
+      const int r = e / kKC, col = k0 + e % kKC;
+      float v = 0.f;
+      if (r < rows && col < c0) {
+        if (col < sh.c) {
+          const int* ii = nni + r * 3;
+          const float* ww = nnw + r * 3;
+          v = (__ldg(F + (size_t)ii[0] * sh.c + col) * ww[0] +
+               __ldg(F + (size_t)ii[1] * sh.c + col) * ww[1]) +
+              __ldg(F + (size_t)ii[2] * sh.c + col) * ww[2];
+        } else {
+          v = __ldg(S + (size_t)r * sh.cs + col - sh.c);
+        }
+      }
+      dst[r * kLdC + col - k0] = v;
+    }
+  }
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
 fp_kernel(const float* __restrict__ unknown, const float* __restrict__ known,
           const float* __restrict__ known_feats, const float* __restrict__ unknown_feats,
-          mlp::Chain chain, int nt, int ns, int c, int cs, float eps, int ld0, int ld1,
-          float* __restrict__ out) {
-  constexpr int R = 8 * RT;
-  extern __shared__ float smem[];
-  float* kxyz = smem;                                // ns x 3, padded to 4
-  float* nnw = kxyz + ((ns * 3 + 3) & ~3);           // R x 3
+          const mlp_tc::Chain chain, const Shape sh, float* __restrict__ out) {
+  constexpr int R = 16 * MT;
+  extern __shared__ __align__(16) float smem[];
+  float* nnw = smem;                                 // R x 3
   int* nni = reinterpret_cast<int*>(nnw + R * 3);    // R x 3
-  float* buf0 = reinterpret_cast<float*>(nni + R * 3);  // R x ld0
-  float* buf1 = buf0 + R * ld0;                      // R x ld1
+  float* region = smem + R * 6;       // the chunks, then odd layers' outputs (R x lda)
+  float* buf1 = region + R * sh.lda;  // even layers' outputs (R x ld1)
   const int b = blockIdx.y, n0 = blockIdx.x * R;
+  const int rows = min(R, sh.nt - n0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float* K = known + (size_t)b * ns * 3;
-  for (int e = tid; e < ns * 3; e += mlp::kThreads) kxyz[e] = K[e];
+  const float* K = known + (size_t)b * sh.ns * 3;
+  float* kxyz = region;  // the cloud's points, over both buffers until the 3-NN is done
+  for (int e = tid; e < sh.ns * 3; e += kThreads) kxyz[e] = K[e];
   __syncthreads();
 
   // 1. three nearest sources of each target, one warp per target
-  for (int r = warp; r < R; r += mlp::kThreads / 32) {
-    const int nn = n0 + r;
-    if (nn >= nt) {
+  for (int r = warp; r < R; r += kWarps) {
+    if (r >= rows) {
       if (lane < 3) {
         nni[r * 3 + lane] = 0;
         nnw[r * 3 + lane] = 0.f;
       }
       continue;
     }
-    const float* u = unknown + ((size_t)b * nt + nn) * 3;
+    const float* u = unknown + ((size_t)b * sh.nt + n0 + r) * 3;
     const float ux = u[0], uy = u[1], uz = u[2];
     float d0 = CUDART_INF_F, d1 = CUDART_INF_F, d2 = CUDART_INF_F;
     int i0 = kNoIndex, i1 = kNoIndex, i2 = kNoIndex;
-    for (int j = lane; j < ns; j += 32) {
+    for (int j = lane; j < sh.ns; j += 32) {
       const float dx = __fsub_rn(ux, kxyz[j * 3]), dy = __fsub_rn(uy, kxyz[j * 3 + 1]),
                   dz = __fsub_rn(uz, kxyz[j * 3 + 2]);
       const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
@@ -125,7 +204,7 @@ fp_kernel(const float* __restrict__ unknown, const float* __restrict__ known,
     if (lane == 0) {
       float rk[3];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) rk[k] = 1.f / (sqrtf(fmaxf(dk[k], 0.f)) + eps);
+      for (int k = 0; k < 3; ++k) rk[k] = 1.f / (sqrtf(fmaxf(dk[k], 0.f)) + sh.eps);
       const float sum = (rk[0] + rk[1]) + rk[2];
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
@@ -134,72 +213,98 @@ fp_kernel(const float* __restrict__ unknown, const float* __restrict__ known,
       }
     }
   }
-  __syncthreads();
+  __syncthreads();  // the indices and weights are set; the points are read
 
-  // 2. the input rows: interpolated features, then the skip features
-  const float* F = known_feats + (size_t)b * ns * c;
-  for (int e = tid; e < R * c; e += mlp::kThreads) {
-    const int r = e / c, ch = e - r * c;
-    float val = 0.f;
-    if (n0 + r < nt) {
-      const int* ii = nni + r * 3;
-      const float* ww = nnw + r * 3;
-      val = (__ldg(F + (size_t)ii[0] * c + ch) * ww[0] + __ldg(F + (size_t)ii[1] * c + ch) * ww[1]) +
-            __ldg(F + (size_t)ii[2] * c + ch) * ww[2];
-    }
-    buf0[r * ld0 + ch] = val;
-  }
-  const float* S = unknown_feats + ((size_t)b * nt + n0) * cs;
-  for (int e = tid; e < R * cs; e += mlp::kThreads) {
-    const int r = e / cs, ch = e - r * cs;
-    buf0[r * ld0 + c + ch] = n0 + r < nt ? __ldg(S + (size_t)r * cs + ch) : 0.f;
-  }
+  // 2. the first layer, its input made a chunk at a time: step s is pass s /
+  // nk (128 output columns) over chunk s % nk; chunk s + 1 is made while
+  // chunk s multiplies
+  const float* F = known_feats + (size_t)b * sh.ns * sh.c;
+  const float* S = unknown_feats + ((size_t)b * sh.nt + n0) * sh.cs;
+  const int c1 = chain.c[1];
+  const int k8 = pad8(chain.c[0]) / 8, n8 = pad8(c1) / 8;
+  const int nk = (k8 + kKC / 8 - 1) / (kKC / 8);
+  const int steps = (n8 + kWarps * kNT - 1) / (kWarps * kNT) * nk;
+  float* ob = out + ((size_t)b * sh.nt + n0) * chain.c[chain.layers];
+  stage_chunk<MT>(0, sh, rows, nni, nnw, F, S, region);
   __syncthreads();
-
-  // 3. the chain; the last layer goes from registers to the output
-  float* in;
-  int ld;
-  mlp::hidden_layers<RT>(chain, buf0, ld0, buf1, ld1, &in, &ld);
-  const int last = chain.layers - 1;
-  const int ci = chain.c[last], co = chain.c[chain.layers];
-  const float* W = chain.w[last];
-  const float* bias = chain.b[last];
-  const int tx = tid & 31, ty = tid >> 5;
-  float* ob = out + ((size_t)b * nt + n0) * co;
-  for (int col0 = 0; col0 < co; col0 += mlp::kColChunk) {
-    float acc[RT][4];
-    mlp::tile_product<RT>(in, ld, ci, W, co, col0, chain.vec != 0, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + 4 * tx + j;
-      if (col >= co) continue;
-      const float bv = __ldg(bias + col);
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const int r = ty + 8 * i;
-        if (n0 + r < nt) ob[(size_t)r * co + col] = fmaxf(acc[i][j] + bv, 0.f);
+  float acc[MT][kNT][4];
+  for (int s = 0; s < steps; ++s) {
+    const int pass = s / nk, k = s - pass * nk;
+    if (nk > 1 && s + 1 < steps)
+      stage_chunk<MT>((k + 1 < nk ? k + 1 : 0) * kKC, sh, rows, nni, nnw, F, S,
+                      region + ((s + 1) & 1) * R * kLdC);
+    if (k == 0) mlp_tc::zero_acc<MT>(acc);
+    const int nt0 = pass * kWarps * kNT + warp * kNT;
+    if (nt0 < n8) {
+      const int kb = k * (kKC / 8);
+      mlp_tc::pass_accumulate<MT>(region + (nk > 1 ? s & 1 : 0) * R * kLdC, kLdC, kb,
+                                  min(k8, kb + kKC / 8), chain.wpk[0], n8, nt0, acc);
+      if (k == nk - 1) {
+        if (chain.layers == 1)
+          mlp_tc::store_relu_rows<MT>(acc, chain.b[0], c1, n8, nt0, rows, ob);
+        else
+          mlp_tc::store_relu<MT>(acc, chain.b[0], c1, n8, nt0, buf1, sh.ld1);
       }
     }
+    __syncthreads();  // the chunk is read before it is made again
+  }
+
+  // 3. the later layers: outputs of layers 1 and 3 in the region, of layer
+  // 2 in buf1; the last layer's rows from registers to the output
+  float* cur = buf1;
+  float* nxt = region;
+  int lc = sh.ld1, ln = sh.lda;
+  for (int l = 1; l < chain.layers; ++l) {
+    if (l + 1 < chain.layers) {
+      mlp_tc::hidden_layer<MT, kWarps>(cur, lc, chain.c[l], chain.wpk[l], chain.b[l],
+                                       chain.c[l + 1], nxt, ln);
+      __syncthreads();
+      float* tb = cur;
+      cur = nxt;
+      nxt = tb;
+      const int tl = lc;
+      lc = ln;
+      ln = tl;
+    } else {
+      mlp_tc::last_layer_rows<MT, kWarps>(cur, lc, chain.c[l], chain.wpk[l], chain.b[l],
+                                  chain.c[l + 1], rows, ob);
+    }
   }
 }
 
-size_t shared_bytes(int rows, int ns, int ld0, int ld1) {
-  return sizeof(float) * ((size_t)((ns * 3 + 3) & ~3) + (size_t)rows * (6 + ld0 + ld1));
+// Floats of a row of the region that holds the two chunks, then the
+// outputs of layers 1 and 3 (a hidden layer's output feeds the next
+// layer), and of a row of the even layers' outputs; both 4 (mod 32).
+void row_widths(const mlp_tc::Chain& chain, int* lda, int* ld1) {
+  int wa = 2 * kLdC, w1 = 0;
+  for (int l = 0; l + 1 < chain.layers; ++l) {
+    const int w = chain.c[l + 1];
+    if (l % 2 == 0) w1 = w > w1 ? w : w1;
+    else wa = w > wa ? w : wa;
+  }
+  *lda = lead(wa);
+  *ld1 = w1 > 0 ? lead(w1) : 0;
 }
 
-template <int RT>
+// The region also holds the cloud's points during the 3-NN, before either
+// buffer is written.
+size_t shared_bytes(int rows, int ns, int lda, int ld1) {
+  const size_t bufs = (size_t)rows * (lda + ld1);
+  return sizeof(float) * ((size_t)rows * 6 + (bufs > (size_t)ns * 3 ? bufs : (size_t)ns * 3));
+}
+
+template <int MT>
 cudaError_t launch(const float* unknown, const float* known, const float* kf, const float* uf,
-                   const mlp::Chain& chain, int b, int nt, int ns, int c, int cs, float eps,
-                   int ld0, int ld1, float* out, cudaStream_t stream) {
-  constexpr int R = 8 * RT;
-  const size_t bytes = shared_bytes(R, ns, ld0, ld1);
-  cudaError_t err = cudaFuncSetAttribute(fp_kernel<RT>,
+                   const mlp_tc::Chain& chain, int b, const Shape& sh, float* out,
+                   cudaStream_t stream) {
+  constexpr int R = 16 * MT;
+  const size_t bytes = shared_bytes(R, sh.ns, sh.lda, sh.ld1);
+  cudaError_t err = cudaFuncSetAttribute(fp_kernel<MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  dim3 grid((nt + R - 1) / R, b);
-  fp_kernel<RT><<<grid, mlp::kThreads, bytes, stream>>>(unknown, known, kf, uf, chain, nt, ns, c,
-                                                         cs, eps, ld0, ld1, out);
+  dim3 grid((sh.nt + R - 1) / R, b);
+  fp_kernel<MT><<<grid, kThreads, bytes, stream>>>(unknown, known, kf, uf, chain, sh, out);
   return cudaGetLastError();
 }
 
@@ -208,50 +313,50 @@ cudaError_t launch(const float* unknown, const float* known, const float* kf, co
 extern "C" {
 
 // unknown (B, Nt, 3), known (B, Ns, 3), known_feats (B, Ns, C),
-// unknown_feats (B, Nt, Cs), weights[l] (C_l, C_{l+1}) and biases[l]
-// (C_{l+1},) for l < layers (1..4) with chans[0] = C + Cs; all float32,
-// contiguous; 3 <= Ns <= 4096. out (B, Nt, C_layers). Launches on
-// `stream`, does not synchronise, returns the cudaError_t of the launch
-// (0 on success).
+// unknown_feats (B, Nt, Cs); wpk the chain's weights packed by sa.cu's
+// sa_pack_cuda (chans[0] = C + Cs), biases[l] (C_{l+1},) for l < layers
+// (1..4); all float32, contiguous; 3 <= Ns <= 4096. out (B, Nt,
+// C_layers). Launches on `stream`, does not synchronise, returns the
+// cudaError_t of the launch (0 on success).
 int fp_cuda(const void* unknown, const void* known, const void* known_feats,
-            const void* unknown_feats, const void* const* weights, const void* const* biases,
+            const void* unknown_feats, const void* wpk, const void* const* biases,
             const int* chans, int layers, int b, int nt, int ns, int c, int cs, float eps,
             void* out, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b < 1 || b > 65535 || nt < 1 || ns < 3 || ns > 4096 || c < 1 || cs < 1 || layers < 1 ||
-      layers > mlp::kMaxLayers || chans[0] != c + cs)
+      layers > mlp_tc::kMaxLayers || chans[0] != c + cs)
     return static_cast<int>(cudaErrorInvalidValue);
-  mlp::Chain chain;
+  mlp_tc::Chain chain;
   chain.layers = layers;
   for (int l = 0; l <= layers; ++l) {
     if (chans[l] < 1) return static_cast<int>(cudaErrorInvalidValue);
     chain.c[l] = chans[l];
   }
+  const float* wp = static_cast<const float*>(wpk);
   for (int l = 0; l < layers; ++l) {
-    chain.w[l] = static_cast<const float*>(weights[l]);
+    chain.wpk[l] = wp;
+    wp += mlp_tc::packed_floats(chans[l], chans[l + 1]);
     chain.b[l] = static_cast<const float*>(biases[l]);
   }
-  int ld0, ld1;
-  mlp::buffer_widths(chain, &ld0, &ld1);
-  chain.vec = mlp::vector_ok(chain, ld0, ld1);
-  int rt = 0;
-  for (int cand = 8; cand >= 2; cand /= 2) {
-    if (shared_bytes(8 * cand, ns, ld0, ld1) <= (size_t)kMaxShared) {
-      rt = cand;
-      break;
-    }
-  }
+  Shape sh{nt, ns, c, cs, eps, 0, 0, 0};
+  row_widths(chain, &sh.lda, &sh.ld1);
+  sh.vec = c % 4 == 0 && cs % 4 == 0 && (reinterpret_cast<uintptr_t>(known_feats) & 15) == 0 &&
+           (reinterpret_cast<uintptr_t>(unknown_feats) & 15) == 0;
   const float* u = static_cast<const float*>(unknown);
   const float* k = static_cast<const float*>(known);
   const float* kf = static_cast<const float*>(known_feats);
   const float* uf = static_cast<const float*>(unknown_feats);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rt == 8) err = launch<8>(u, k, kf, uf, chain, b, nt, ns, c, cs, eps, ld0, ld1, o, st);
-  else if (rt == 4) err = launch<4>(u, k, kf, uf, chain, b, nt, ns, c, cs, eps, ld0, ld1, o, st);
-  else if (rt == 2) err = launch<2>(u, k, kf, uf, chain, b, nt, ns, c, cs, eps, ld0, ld1, o, st);
-  else return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (shared_bytes(64, ns, sh.lda, sh.ld1) <= (size_t)kMaxShared)
+    err = launch<4>(u, k, kf, uf, chain, b, sh, o, st);
+  else if (shared_bytes(32, ns, sh.lda, sh.ld1) <= (size_t)kMaxShared)
+    err = launch<2>(u, k, kf, uf, chain, b, sh, o, st);
+  else if (shared_bytes(16, ns, sh.lda, sh.ld1) <= (size_t)kMaxShared)
+    err = launch<1>(u, k, kf, uf, chain, b, sh, o, st);
+  else
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   return static_cast<int>(err);
 }
 

@@ -1,9 +1,9 @@
-// The shared-MLP chain inside the fused PointNet++ kernels fp.cu and
-// grouped_mlp.cu on the CUDA cores (sa.cu's runs on the tensor cores,
-// mlp_tc.cuh): a block of 256 threads multiplies a tile of R activation
-// rows, held in shared memory, by a dense weight (Ci, Co) read from device
-// memory, adds the bias and applies ReLU. The products are the TPU kernels'
-// own work, so they run here and not in a library.
+// The shared-MLP chain of the grouped MLP + max kernel (grouped_mlp.cu,
+// its only user) on the CUDA cores; sa.cu's and fp.cu's chains run on the
+// tensor cores (mlp_tc.cuh). A block of 256 threads multiplies a tile of R
+// activation rows, held in shared memory, by a dense weight (Ci, Co) read
+// from device memory, adds the bias and applies ReLU. The products are the
+// TPU kernel's own work, so they run here and not in a library.
 //
 // Thread (ty, tx) = (threadIdx.x / 32, threadIdx.x % 32) computes rows
 // ty + 8 i (i < RT, R = 8 RT) and the 4 neighbouring columns col0 + 4 tx ..

@@ -1,19 +1,21 @@
-// The shared-MLP chain of the fused set-abstraction kernel (sa.cu) on
-// Hopper's tensor cores (sm_90a), float32 in and out at float32 accuracy.
+// The shared-MLP chain of the fused set-abstraction kernel (sa.cu) and of
+// the feature-propagation kernel (fp.cu) on Hopper's tensor cores
+// (sm_90a), float32 in and out at float32 accuracy.
 //
-// A block of 8 warps holds a tile of R = 16 MT activation rows (whole
-// balls) in shared memory and runs each dense layer Y = relu(X W + b) as an
-// (R x Ci) by (Ci x Co) product on mma.sync.m16n8k8 TF32 with both operands
-// split hi + lo and the three products lo*hi + hi*lo + hi*hi summed
-// (tf32.cuh: "3xTF32"); the last layer ends in the max over each ball, in
-// registers. The TPU kernel runs this chain as MXU products with float32
-// accumulation (disprcnn_tpu/ops/pallas/sa_fused.py, bf16 weights); this
-// one keeps float32 accuracy.
+// A block of W warps (8 in sa.cu, 16 in fp.cu) holds a tile of R = 16 MT
+// activation rows (whole balls in sa.cu) in shared memory and runs each dense layer Y = relu(X W +
+// b) as an (R x Ci) by (Ci x Co) product on mma.sync.m16n8k8 TF32 with both
+// operands split hi + lo and the three products lo*hi + hi*lo + hi*hi
+// summed (tf32.cuh: "3xTF32"); the last layer ends in the max over each
+// ball (sa.cu) or stores its rows (fp.cu), from registers. The TPU kernels
+// run these chains as MXU products with float32 accumulation
+// (disprcnn_tpu/ops/pallas/sa_fused.py and fp_fused.py, bf16 weights);
+// this one keeps float32 accuracy.
 //
 // GEMM view of a layer: M = the tile's R rows, N = Co, K = Ci, both padded
 // to a multiple of 8 with zeros (a 196-wide layer is 200 wide here; the
 // padded weights are zero, so the padded columns of Y are relu(0) = 0 and
-// add nothing to the next layer). A pass of the 8 warps covers 128 output
+// add nothing to the next layer). A pass of the W warps covers 16 W output
 // columns: warp w owns N-tiles 2w, 2w + 1 of the pass against all R rows
 // (MT M-tiles), so a ball's rows all sit in one warp and its max needs no
 // shared memory: an in-lane max over the M-tiles and halves the ball spans,
@@ -80,29 +82,27 @@ inline void buffer_widths(const Chain& chain, int* ld0, int* ld1) {
   *ld1 = w1 > 0 ? lead(w1) : 0;
 }
 
-// acc[i][j] = rows 16 i .. 16 i + 15 of A (shared, lda, 8 k8 columns) times
-// N-tile nt0 + j of the packed weights wpk (k8, n8, 32, 4); N-tiles at or
-// past n8 are neither read nor multiplied (warp-uniform).
+// acc[i][j] += rows 16 i .. 16 i + 15 of A (shared, lda) times N-tile nt0 +
+// j of the packed weights wpk (k8 steps of 8 rows, n8 N-tiles, 32 lanes, 4),
+// over the weights' k8 steps kb .. ke - 1; A's column 0 is row 8 kb of the
+// weights. The mma sums are promoted every kPromote steps counted from kb
+// (a multiple of kPromote, so that a product split over several calls
+// rounds as one call over all its steps). N-tiles at or past n8 are
+// neither read nor multiplied (warp-uniform).
 template <int MT>
-__device__ __forceinline__ void pass_product(const float* A, int lda, int k8,
-                                             const float* __restrict__ wpk, int n8, int nt0,
-                                             float (&acc)[MT][kNT][4]) {
+__device__ __forceinline__ void pass_accumulate(const float* A, int lda, int kb, int ke,
+                                                const float* __restrict__ wpk, int n8, int nt0,
+                                                float (&acc)[MT][kNT][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int nts = min(kNT, n8 - nt0);
   const float4* wb = reinterpret_cast<const float4*>(wpk) + (size_t)nt0 * 32 + lane;
   const size_t kstride = (size_t)n8 * 32;
   const float* ap = A + g * lda + t;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
   float4 b[kNT];
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) b[j] = j < nts ? __ldg(wb + j * 32) : zero;
-  for (int k0 = 0; k0 < k8; k0 += kPromote) {
+  for (int j = 0; j < kNT; ++j) b[j] = j < nts ? __ldg(wb + (size_t)kb * kstride + j * 32) : zero;
+  for (int k0 = kb; k0 < ke; k0 += kPromote) {
     float part[MT][kNT][4];  // this stage's products
 #pragma unroll
     for (int i = 0; i < MT; ++i)
@@ -110,17 +110,17 @@ __device__ __forceinline__ void pass_product(const float* A, int lda, int k8,
       for (int j = 0; j < kNT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
-    const int k1 = min(k8, k0 + kPromote);
+    const int k1 = min(ke, k0 + kPromote);
     for (int kk = k0; kk < k1; ++kk) {
       float4 nb[kNT];  // the next step's B, in flight while this one multiplies
-      const bool more = kk + 1 < k8;
+      const bool more = kk + 1 < ke;
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
         nb[j] = more && j < nts ? __ldg(wb + (size_t)(kk + 1) * kstride + j * 32) : zero;
       uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        const float* p = ap + 16 * i * lda + 8 * kk;
+        const float* p = ap + 16 * i * lda + 8 * (kk - kb);
         split_tf32(p[0], ah[i][0], al[i][0]);
         split_tf32(p[8 * lda], ah[i][1], al[i][1]);
         split_tf32(p[4], ah[i][2], al[i][2]);
@@ -162,30 +162,112 @@ __device__ __forceinline__ void pass_product(const float* A, int lda, int k8,
   }
 }
 
+template <int MT>
+__device__ __forceinline__ void zero_acc(float (&acc)[MT][kNT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// acc[i][j] = rows 16 i .. 16 i + 15 of A (shared, lda, k8 steps of 8
+// columns) times N-tile nt0 + j of the packed weights wpk (k8, n8, 32, 4).
+template <int MT>
+__device__ __forceinline__ void pass_product(const float* A, int lda, int k8,
+                                             const float* __restrict__ wpk, int n8, int nt0,
+                                             float (&acc)[MT][kNT][4]) {
+  zero_acc<MT>(acc);
+  pass_accumulate<MT>(A, lda, 0, k8, wpk, n8, nt0, acc);
+}
+
+// Y (shared, ldy) = relu(acc + b) in the columns of N-tiles nt0 .. nt0 +
+// kNT - 1 below n8 (zero past co): a pass's epilogue into the next layer's
+// input.
+template <int MT>
+__device__ __forceinline__ void store_relu(const float (&acc)[MT][kNT][4],
+                                           const float* __restrict__ bias, int co, int n8,
+                                           int nt0, float* Y, int ldy) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    if (nt0 + j >= n8) break;
+    const int col = (nt0 + j) * 8 + 2 * t;
+    const float b0 = col < co ? __ldg(bias + col) : 0.f;
+    const float b1 = col + 1 < co ? __ldg(bias + col + 1) : 0.f;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(Y + (16 * i + g + 8 * h) * ldy + col) =
+            make_float2(fmaxf(acc[i][j][2 * h] + b0, 0.f), fmaxf(acc[i][j][2 * h + 1] + b1, 0.f));
+  }
+}
+
+// out[r * co + col] = relu(acc + b) for rows r < rows and columns col < co
+// of N-tiles nt0 .. nt0 + kNT - 1 below n8: a last layer's rows, from
+// registers to device memory.
+template <int MT>
+__device__ __forceinline__ void store_relu_rows(const float (&acc)[MT][kNT][4],
+                                                const float* __restrict__ bias, int co, int n8,
+                                                int nt0, int rows, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    if (nt0 + j >= n8) break;
+    const int col = (nt0 + j) * 8 + 2 * t;
+    if (col >= co) continue;
+    const bool two = col + 1 < co;
+    const float b0 = __ldg(bias + col);
+    const float b1 = two ? __ldg(bias + col + 1) : 0.f;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * i + g + 8 * h;
+        if (r >= rows) continue;
+        float* o = out + (size_t)r * co + col;
+        const float v0 = fmaxf(acc[i][j][2 * h] + b0, 0.f);
+        const float v1 = fmaxf(acc[i][j][2 * h + 1] + b1, 0.f);
+        if (two && co % 2 == 0) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          o[0] = v0;
+          if (two) o[1] = v1;
+        }
+      }
+  }
+}
+
 // Y (shared, ldy) = relu(A W + b) over the padded width pad8(co), zero past
 // co. A and Y are different buffers; the caller synchronises before
 // reading Y.
-template <int MT>
+// WARPS warps share the layer, kNT N-tiles each a pass.
+template <int MT, int WARPS = kWarps>
 __device__ void hidden_layer(const float* A, int lda, int ci, const float* __restrict__ wpk,
                              const float* __restrict__ bias, int co, float* Y, int ldy) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5;
   const int k8 = pad8(ci) / 8, n8 = pad8(co) / 8;
-  for (int nt0 = warp * kNT; nt0 < n8; nt0 += kWarps * kNT) {
+  for (int nt0 = warp * kNT; nt0 < n8; nt0 += WARPS * kNT) {
     float acc[MT][kNT][4];
     pass_product<MT>(A, lda, k8, wpk, n8, nt0, acc);
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      if (nt0 + j >= n8) break;
-      const int col = (nt0 + j) * 8 + 2 * t;
-      const float b0 = col < co ? __ldg(bias + col) : 0.f;
-      const float b1 = col + 1 < co ? __ldg(bias + col + 1) : 0.f;
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<float2*>(Y + (16 * i + g + 8 * h) * ldy + col) =
-              make_float2(fmaxf(acc[i][j][2 * h] + b0, 0.f), fmaxf(acc[i][j][2 * h + 1] + b1, 0.f));
-    }
+    store_relu<MT>(acc, bias, co, n8, nt0, Y, ldy);
+  }
+}
+
+// out[r * co + col] = relu(A W + b) for the tile's rows r < rows: a last
+// layer whose rows go from registers to device memory.
+template <int MT, int WARPS = kWarps>
+__device__ void last_layer_rows(const float* A, int lda, int ci, const float* __restrict__ wpk,
+                                const float* __restrict__ bias, int co, int rows,
+                                float* __restrict__ out) {
+  const int warp = threadIdx.x >> 5;
+  const int k8 = pad8(ci) / 8, n8 = pad8(co) / 8;
+  for (int nt0 = warp * kNT; nt0 < n8; nt0 += WARPS * kNT) {
+    float acc[MT][kNT][4];
+    pass_product<MT>(A, lda, k8, wpk, n8, nt0, acc);
+    store_relu_rows<MT>(acc, bias, co, n8, nt0, rows, out);
   }
 }
 

@@ -320,8 +320,14 @@ class PSMNet(nn.Module):
         for i, o in enumerate(outs):
             z = getattr(self, f"classif{i + 1}_0")(o, relu=True)
             wc = getattr(self, f"classif{i + 1}_1").weight
-            c = F.conv3d(z, wc, padding=1) if self.training else conv3d_bn(z, wc)
-            costs.append(c if i == 0 else c + costs[-1])
+            if self.training:
+                c = F.conv3d(z, wc, padding=1)
+                costs.append(c if i == 0 else c + costs[-1])
+            else:
+                # the sum with the previous classifier's cost joins as the
+                # conv's residual: the same single add (the identity affine
+                # leaves v exact)
+                costs.append(conv3d_bn(z, wc, residual=costs[-1] if i else None))
         if self.training:
             return tuple(softargmin_plain(c[:, 0], (h, w), self.mindisp, self.maxdisp)
                          for c in costs)

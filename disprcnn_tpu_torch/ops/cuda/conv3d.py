@@ -33,7 +33,9 @@ the same arithmetic, then their masked, shifted sums
 (``cost_volume_conv_bn_planes_plain``; ``cost_volume_conv_bn_3xtf32_plain``
 in the kernel's arithmetic; weights laid out by
 ``pack_tf32_cost_volume_weight``). The classifier's Co = 1 conv is
-csrc/conv3d.cu. The launch points are
+csrc/conv3d.cu, a depth-marching stencil on the CUDA cores that sums each
+output's products in (kd, c, kh, kw) order (``conv3d_cl1_march_plain``).
+The launch points are
 ``conv3d_bn_cuda``, ``cost_volume_conv_bn_cuda``, ``deconv3d_bn_cuda`` and
 ``conv2d_bn_cuda``, looked up at call time, so a caller can route them
 elsewhere. These launches are forward only (``build.forward_only``).
@@ -247,6 +249,33 @@ def conv3d_bn_plain(x: torch.Tensor, weight: torch.Tensor, mul: Optional[torch.T
     """x (N, Ci, D, H, W), weight (Co, Ci, 3, 3, 3) -> (N, Co, D', H', W'),
     D' = (D - 1) // stride + 1 (padding 1)."""
     return _epilogue(F.conv3d(x, weight, stride=stride, padding=1), mul, add, residual, relu)
+
+
+def conv3d_cl1_march_plain(x: torch.Tensor, weight: torch.Tensor,
+                           mul: Optional[torch.Tensor] = None,
+                           add: Optional[torch.Tensor] = None,
+                           residual: Optional[torch.Tensor] = None,
+                           relu: bool = False) -> torch.Tensor:
+    """conv3d_bn_plain at Co = 1 and stride 1 in csrc/conv3d.cu's arithmetic:
+    each output (z, y, x) adds its products x[c, z + kd - 1, y + kh - 1, x +
+    kw - 1] * weight[0, c, kd, kh, kw] one at a time in (kd, c, kh, kw)
+    order, from 0, taps in the padding included as zeros, each product
+    fused into the running sum as the kernel's fmaf does: the product is
+    exact in float64, the sum is rounded to float64 and then to float32.
+    That double rounding differs from fmaf's single one by an ulp in rare
+    cases (about 2^-29 of the additions). Then the epilogue."""
+    n, ci, d, h, w = x.shape
+    xp = F.pad(x, (1, 1, 1, 1, 1, 1)).double()
+    wd = weight.double()
+    acc = xp.new_zeros(n, 1, d, h, w)
+    for kd in range(3):
+        for c in range(ci):
+            for kh in range(3):
+                for kw in range(3):
+                    acc = (acc + xp[:, c:c + 1, kd:kd + d, kh:kh + h, kw:kw + w]
+                           * wd[0, c, kd, kh, kw]).float().double()
+    acc = acc.float()
+    return _epilogue(acc, mul, add, residual, relu)
 
 
 def cost_volume_conv_bn_plain(left: torch.Tensor, right: torch.Tensor, weight: torch.Tensor,
@@ -486,7 +515,7 @@ def _conv3d_launch(x, weight, mul=None, add=None, residual=None, relu=False, str
     out = torch.empty(out_shape, device=x.device)
     if co == 1 and not flip:
         lib = _lib()
-        wt = weight.permute(1, 2, 3, 4, 0).contiguous()
+        wt = F.pad(weight.reshape(ci, 27), (0, 1))
         err = lib.conv3d_bn_cuda(x.data_ptr(), n, ci, d, h, w, wt.data_ptr(), mul.data_ptr(),
                                  add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
                                  x.device.index)

@@ -10,17 +10,24 @@ features, then the folded-BN chain x = relu(x W + b) per layer.
 
 ``fp_fused`` dispatches: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel (csrc/fp.cu), whose one launch point is
-``fp_fused_cuda``, looked up at call time. There is no fallback.
+``fp_fused_cuda``, looked up at call time. There is no fallback. The
+kernel runs the chain's products on the tensor cores at float32 accuracy
+through error-compensated TF32 (csrc/mlp_tc.cuh, the set-abstraction
+kernel's chain); its weights are split and laid out by one launch of the
+SA kernel's packing before it (``sa.pack_tf32_chain_cuda``).
+``fp_fused_3xtf32_plain`` is the plain version with the chain in that
+arithmetic.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, Optional
 
 import torch
 
 from ..points import three_interpolate, three_nn, three_nn_interpolate_weights
 from . import build
-from .sa import MAX_LAYERS, Weights, _check, mlp_chain
+from .sa import MAX_LAYERS, Weights, _check, mlp_chain, mlp_chain_3xtf32, pack_tf32_chain_cuda
 
 # Launches of the CUDA kernel in this process; a caller may reset it to 0
 # around a run it wants to count.
@@ -42,21 +49,34 @@ def _lib() -> ctypes.CDLL:
 
 
 def fp_fused_plain(unknown: torch.Tensor, known: torch.Tensor, known_feats: torch.Tensor,
-                   unknown_feats: torch.Tensor, weights: Weights,
-                   eps: float = 1e-8) -> torch.Tensor:
+                   unknown_feats: torch.Tensor, weights: Weights, eps: float = 1e-8,
+                   chain: Optional[Callable] = None) -> torch.Tensor:
     """unknown (B, Nt, 3), known (B, Ns, 3), known_feats (B, Ns, C),
     unknown_feats (B, Nt, Cs), weights [(W (Ci, Co), b (Co,))] with the first
-    Ci = C + Cs -> (B, Nt, C_last)."""
+    Ci = C + Cs -> (B, Nt, C_last). `chain` (x, weights) -> activations runs
+    the layers (mlp_chain by default)."""
     d, idx = three_nn(unknown, known)
     interp = three_interpolate(known_feats, idx, three_nn_interpolate_weights(d, eps))
-    return mlp_chain(torch.cat([interp, unknown_feats], dim=-1), weights)
+    return (chain or mlp_chain)(torch.cat([interp, unknown_feats], dim=-1), weights)
+
+
+def fp_fused_3xtf32_plain(unknown, known, known_feats, unknown_feats, weights,
+                          eps: float = 1e-8) -> torch.Tensor:
+    """fp_fused_plain with the chain in the kernel's 3xTF32 arithmetic
+    (mlp_chain_3xtf32: each product lo*hi + hi*lo + hi*hi of operands split
+    by split_tf32). The kernel makes the first layer's input in chunks of
+    128 columns; the chunks' products are summed in one running sum, so the
+    chunking changes no value."""
+    return fp_fused_plain(unknown, known, known_feats, unknown_feats, weights, eps,
+                          chain=mlp_chain_3xtf32)
 
 
 def fp_fused_cuda(unknown: torch.Tensor, known: torch.Tensor, known_feats: torch.Tensor,
                   unknown_feats: torch.Tensor, weights: Weights,
                   eps: float = 1e-8) -> torch.Tensor:
-    """Launch csrc/fp.cu on the current stream; same contract as
-    fp_fused_plain. Every tensor float32, contiguous, on one card."""
+    """Launch csrc/fp.cu (its weight packing, then the kernel) on the
+    current stream; same contract as fp_fused_plain. Every tensor float32,
+    contiguous, on one card."""
     global launches
     build.forward_only("fp_fused_cuda", known_feats, unknown_feats,
                        *(t for pair in weights for t in pair))
@@ -79,13 +99,13 @@ def fp_fused_cuda(unknown: torch.Tensor, known: torch.Tensor, known_feats: torch
         raise ValueError(f"need 1..{MAX_LAYERS} layers, 3 <= Ns <= {MAX_NS} and B <= 65535, "
                          f"got {len(weights)} layers, Ns={ns}, B={b}")
     lib = _lib()
+    wpk = pack_tf32_chain_cuda(weights)
     out = torch.empty((b, nt, chans[-1]), device=dev)
     nl = len(weights)
-    wptr = (ctypes.c_void_p * nl)(*[w.data_ptr() for w, _ in weights])
     bptr = (ctypes.c_void_p * nl)(*[bias.data_ptr() for _, bias in weights])
     carr = (ctypes.c_int * len(chans))(*chans)
     err = lib.fp_cuda(unknown.data_ptr(), known.data_ptr(), known_feats.data_ptr(),
-                      unknown_feats.data_ptr(), wptr, bptr, carr, nl, b, nt, ns, c, cs,
+                      unknown_feats.data_ptr(), wpk.data_ptr(), bptr, carr, nl, b, nt, ns, c, cs,
                       float(eps), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
                       dev.index)
     if err != 0:

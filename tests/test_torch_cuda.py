@@ -170,15 +170,47 @@ def test_conv3d_kernel_matches_plain(card, ci, co, shape, residual, relu):
     _close(got, cconv.conv3d_bn_plain(x, weight, mul, add, res, relu))
 
 
-def test_conv3d_cl1_kernel_matches_plain(card):
-    """The classifier's 32 -> 1 conv, no affine."""
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    x = _randn(gen, 3, 32, 8, 20, 36)
-    weight = _randn(gen, 1, 32, 3, 3, 3, scale=0.05)
+CL1_CASES = [
+    (3, 32, (8, 20, 36), False),
+    # the main path's classifier at 4 ROI slots: 56-wide rows (14 quads), 24
+    # slices; the later classifiers add the previous one's cost as residual
+    (4, 32, (24, 56, 56), False), (4, 32, (24, 56, 56), True),
+    # edges: one and two slices, rows and widths that fill no tile, W % 4 != 0
+    # (4-byte staging), Ci not a multiple of the 4-channel stage, H = 1, a
+    # width past one column tile (256 columns) with and without W % 4
+    (2, 32, (1, 9, 12), True), (2, 8, (2, 7, 13), False), (3, 6, (5, 1, 30), True),
+    (1, 5, (3, 11, 300), False), (1, 32, (2, 5, 601), True),
+]
+
+
+@pytest.mark.parametrize("n,ci,shape,residual", CL1_CASES)
+def test_conv3d_cl1_kernel_matches_plain(card, n, ci, shape, residual):
+    """The classifier's Ci -> 1 conv, identity affine."""
+    seed = 7 if shape == (8, 20, 36) else n + ci + sum(shape)  # the first case keeps its seed
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = _randn(gen, n, ci, *shape)
+    weight = _randn(gen, 1, ci, 3, 3, 3, scale=0.05)
+    res = _randn(gen, n, 1, *shape) if residual else None
     before = cconv.launches["conv3d_cl1"]
-    got = cconv.conv3d_bn(x, weight)
+    got = cconv.conv3d_bn(x, weight, residual=res)
     assert cconv.launches["conv3d_cl1"] == before + 1
-    _close(got, cconv.conv3d_bn_plain(x, weight))
+    _close(got, cconv.conv3d_bn_plain(x, weight, residual=res))
+
+
+@pytest.mark.parametrize("n,ci,shape,residual", CL1_CASES)
+def test_conv3d_cl1_kernel_matches_march(card, n, ci, shape, residual):
+    """The classifier's conv against conv3d_cl1_march_plain, its own order of
+    sums with each product fused: max |diff| <= 2e-6 * max |march|, 50x
+    inside CONV_RTOL (the two differ only where the plain version's double
+    rounding does, an ulp of a partial sum)."""
+    gen = torch.Generator(device="cuda").manual_seed(n + ci + sum(shape) + 1)
+    x = _randn(gen, n, ci, *shape)
+    weight = _randn(gen, 1, ci, 3, 3, 3, scale=0.05)
+    res = _randn(gen, n, 1, *shape) if residual else None
+    got = cconv.conv3d_bn(x, weight, residual=res)
+    want = cconv.conv3d_cl1_march_plain(x, weight, residual=res)
+    err = float((got - want).abs().max())
+    assert err <= 2e-6 * float(want.abs().max()), err
 
 
 @pytest.mark.parametrize("ci,co,flip", [(32, 32, False), (32, 64, False), (64, 64, True),
@@ -503,6 +535,13 @@ def test_grouped_mlp_kernel_refuses_bad_inputs(card):
     (4, 512, 256, 512, 256, (512, 512)),  # fp2
     (4, 768, 512, 512, 96, (256, 256)),   # fp1
     (3, 50, 9, 20, 12, (30, 20, 10)),     # three layers, a partial tile
+    (2, 70, 48, 128, 24, (64, 64)),       # a tail tile of 6 targets; the last chunk all skip
+    (1, 40, 9, 100, 60, (30, 20)),        # a chunk boundary inside the skip columns;
+                                          # widths not multiples of 8 or 4
+    (2, 33, 11, 37, 11, (45, 17, 33, 9)),  # four layers, every width odd
+    (2, 20, 8, 8, 4, (16,)),              # one layer
+    (1, 100, 4096, 64, 32, (64, 64)),     # Ns at the limit: the points fill the buffers
+    (1, 70, 16, 512, 512, (2048, 256)),   # a 2048-wide layer: 16-row tiles
 ])
 def test_fp_kernel_matches_plain(card, b, nt, ns, c, cs, chain):
     gen = torch.Generator(device="cuda").manual_seed(nt + ns)
