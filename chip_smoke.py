@@ -24,12 +24,14 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      soft-argmin; the tensor-core convs (the 2D conv, the 3D conv at stride
      1 and 2, the cost-volume conv, the transposed conv) and the
      classifier's conv, their plain versions and cuDNN's float32 conv are
-     also compared with the same conv in float64 (logged), and the weight
-     packings held equal to their plain versions;
+     also compared with the same conv in float64 (logged), the soft-argmin
+     and its plain version with the same function in float64 (logged, px),
+     and the weight packings held equal to their plain versions;
   4. the PointRCNN kernels against their plain versions at every site
      shape of both budgets, on seeded clouds that hold empty, partial and
      full balls, coincident points, and boxes with no point, fewer than 512
-     and more than 512: FPS indices and RoI-pool rows exactly, SA and FP
+     and more than 512: FPS indices (on both of the kernel's routes) and
+     RoI-pool rows exactly, SA and FP
      values within CONV_RTOL/CONV_ATOL; the SA and FP kernels' chain
      packing equal to its plain version, and each kernel's and plain
      version's distance from the same function with its chain in float64
@@ -69,7 +71,18 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      10 and 13, and rows 8 and 11 in phase 17) also get the bound at the
      3xTF32 tensor-core rate (bound_tc_ms) and their weight packing's time
      alone (pack_ms); every row lists each launch's time (launch_ms), and
-     FP each site's (form_ms: fp3, fp2, fp1);
+     FP each site's (form_ms: fp3, fp2, fp1); the soft-argmin's bound is the
+     longest of bytes, FP32 operations and the exponentials the function
+     needs (two a segment of the D interpolation) at the SFU rate
+     (bound_parts_ms, binds; beside them, not a bound, the SFU time of the
+     kernel's one exponential a disparity, sfu_design); FPS also gets the
+     serial chain of each launch, one cloud of its N on its route at B = 1,
+     npoint against 1 (chain_ms, the median of 5, chain_spread_ms, and
+     step_us a step), summed over the launches as the serial floor
+     (serial_floor_ms); every row also gets the
+     device's time alone, its launches queued behind a sleeping kernel
+     (device_ms, device_launch_ms: ms times a launch at the host's call
+     rate where a kernel is shorter than a call, ~25 us);
  10. where a request's time goes, at both budgets: one request split into
      stages (2D detector, crops, feature tower, cost volume + dres,
      hourglasses, classifiers + regression, lift, RPN backbone, RPN heads,
@@ -150,7 +163,8 @@ import torch.nn.functional as F
 
 from disprcnn_tpu_torch import bench
 from disprcnn_tpu_torch.bench import (BENCH_2D, BENCH_3D, BUDGETS, CALIB, CONV_ATOL, CONV_RTOL,
-                                      IMG_HW, SOFTARGMIN_TOL_PX, card_line, set_budget)
+                                      IMG_HW, SOFTARGMIN_TOL_PX, card_line, set_budget,
+                                      time_ms)
 from disprcnn_tpu_torch.engine.inference import predict, predict_2d
 from disprcnn_tpu_torch.models.detector.disprcnn import DispRCNN
 from disprcnn_tpu_torch.models.detector.disprcnn3d import DispRCNN3D
@@ -239,8 +253,13 @@ TC_ROWS = {"cost_volume_conv": lambda a: cconv.pack_tf32_cost_volume_weight_cuda
            "fp": lambda a: csa.pack_tf32_chain_cuda(a[4])}
 IOU_OPS = 17  # float ops of one IoU and its threshold test (nms.cu box_iou)
 # soft-argmin: ops per (pixel, logit slice) of the bilinear H/W taps, and per
-# (pixel, disparity) of the D interpolation, exp, running max and two sums
-SAM_TAP_OPS, SAM_DISP_OPS = 8, 8
+# (pixel, disparity) of the D interpolation, exp, running max and two sums;
+# the exponentials it needs: within a segment of the D interpolation z
+# steps by a constant, so exp(z - m) is a geometric sequence given by two
+# exponentials (its first term and its ratio); the SFU takes 16 a clock per
+# SM (132 SMs, 1.98 GHz)
+SAM_TAP_OPS, SAM_DISP_OPS, SAM_SEGMENT_EXPS = 8, 8, 2
+SFU_PER_S = 16 * 132 * 1.98e9
 # FPS: per point and step, 3 differences, 3 squares, 2 sums, the running
 # minimum and the argmax comparison
 FPS_OPS = 10
@@ -588,9 +607,21 @@ def phase_3d_compare() -> dict:
     size = (BENCH_3D["roi_size"],) * 2
     disp = BENCH_3D["mindisp"], BENCH_3D["maxdisp"]
     got = csam.softargmin_cuda(logits, size, *disp)
-    errs["softargmin"] = sam_err(got, csam.softargmin_plain(logits, size, *disp), "softargmin")
+    want = csam.softargmin_plain(logits, size, *disp)
+    errs["softargmin"] = sam_err(got, want, "softargmin")
     log(f"  softargmin {tuple(logits.shape)} -> {tuple(got.shape)}: max |diff| "
         f"{errs['softargmin']:.3g} px")
+    # the same function in float64 (a quarter of the ROIs at a time)
+    exact = torch.cat([csam.softargmin_plain(part.double(), size, *disp)
+                       for part in logits.split(r // 4)])
+    log(f"    against float64: kernel {float((got - exact).abs().max()):.3g} px, plain "
+        f"{float((want - exact).abs().max()):.3g} px")
+    del exact
+    # the kernel's order of operations in PyTorch on the same card
+    twin = csam.softargmin_segments_plain(logits, size, *disp)
+    log(f"    against its twin (softargmin_segments_plain): kernel "
+        f"{float((got - twin).abs().max()):.3g} px")
+    del twin
     torch.cuda.synchronize()
     log(f"[3/{PHASES}] iDispNet kernels match their plain versions at the main path's shapes")
     return errs
@@ -634,15 +665,20 @@ def phase_points_compare() -> dict:
     errs = {"fps": 0.0, "sa": 0.0, "fp": 0.0, "roipool3d": 0.0}
     for b, n, npoint in FPS_SITES:
         xyz = point_clouds(gen, b, n, 1.5)
-        got = cfps.furthest_point_sample_cuda(xyz, npoint)
         want = cfps.furthest_point_sample_plain(xyz, npoint)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"FPS ({b}, {n} -> {npoint}): kernel indices differ from plain "
-                                 f"in {int((got != want).sum())} slots")
+        # the wrapper's route, then the other one
+        route = cfps.fps_route(b, n)
+        for r in (route, *(set(cfps.ROUTES) - {route})):
+            got = cfps._launch(xyz, npoint, r)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"FPS ({b}, {n} -> {npoint}) on the {r} route: kernel "
+                                     f"indices differ from plain in {int((got != want).sum())} "
+                                     f"slots")
         if got.unique().numel() < npoint // 2:
             raise AssertionError(f"FPS ({b}, {n} -> {npoint}): the selection hardly varies")
-        log(f"  fps ({b}, {n} -> {npoint}): indices equal")
+        log(f"  fps ({b}, {n} -> {npoint}): indices equal on both routes (the wrapper's: "
+            f"{route})")
     for site, b, n, m, c0, chain, radius, s in SA_SITES:
         xyz = point_clouds(gen, b, n, 1.2 * radius * n ** (1 / 3) / 4, s)
         centers = torch.cat([xyz[:, :m - 1], torch.full((b, 1, 3), 60.0, device="cuda")], 1)
@@ -1107,18 +1143,6 @@ def capture_launches(run, points: dict) -> dict:
     return calls
 
 
-def time_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 @contextlib.contextmanager
 def cudnn_free():
     """cuDNN free to pick non-deterministic algorithms (the rest of the
@@ -1222,12 +1246,27 @@ def cost_volume_planes_work(args, out):
     return bound(nbytes, 2.0 * products + 2.0 * n * co * h * pairs)
 
 
-def softargmin_work(args, out):
+def softargmin_parts(args, out) -> dict:
+    """The soft-argmin's bounds, ms: bytes (logits read once, the map written
+    once), FP32 operations, and the exponentials the function needs at the
+    SFU rate (two per non-empty segment and pixel); and, not a bound, the
+    SFU time of the present design's one exponential per pixel and
+    disparity (sfu_design)."""
     logits, _, mindisp, maxdisp = args
-    b, d4 = logits.shape[:2]
-    pixels = out.numel()
-    nbytes = 4 * (logits.numel() + pixels)
-    return bound(nbytes, pixels * (SAM_TAP_OPS * d4 + SAM_DISP_OPS * (maxdisp - mindisp)))
+    d4, pixels, d = logits.shape[1], out.numel(), maxdisp - mindisp
+    t_bytes, t_ops = bound(4 * (logits.numel() + pixels),
+                           pixels * (SAM_TAP_OPS * d4 + SAM_DISP_OPS * d))
+    segments = int((csam.disparity_segments(d4, d)[2] > 0).sum())
+    return {"bytes": t_bytes, "fp32": t_ops,
+            "sfu": pixels * SAM_SEGMENT_EXPS * segments / SFU_PER_S * 1e3,
+            "sfu_design": pixels * d / SFU_PER_S * 1e3}
+
+
+def softargmin_work(args, out):
+    """(bytes ms, operations ms): the operations' time is the longer of the
+    FP32 work and the exponentials the function needs (softargmin_parts)."""
+    parts = softargmin_parts(args, out)
+    return parts["bytes"], max(parts["fp32"], parts["sfu"])
 
 
 def fps_work(args, out):
@@ -1236,6 +1275,22 @@ def fps_work(args, out):
     xyz, npoint = args[:2]
     b, n, _ = xyz.shape
     return bound(4 * xyz.numel() + 8 * out.numel(), float(FPS_OPS * b * n * (npoint - 1)))
+
+
+def fps_chain_ms(n: int, npoint: int, route: str, repeats: int = 5) -> tuple:
+    """The serial chain of one cloud of N points on `route`: t(B = 1, npoint)
+    - t(B = 1, npoint = 1) in device time, the (npoint - 1) dependent steps
+    that a launch of any B takes at least. The median of `repeats` and
+    their (min, max); raises unless every one is positive."""
+    xyz = torch.randn(1, n, 3, generator=torch.Generator(device="cuda").manual_seed(n),
+                      device="cuda")
+    diffs = sorted(time_ms(lambda: cfps._launch(xyz, npoint, route), 10, queued=True)
+                   - time_ms(lambda: cfps._launch(xyz, 1, route), 10, queued=True)
+                   for _ in range(repeats))
+    if diffs[0] <= 0:
+        raise AssertionError(f"FPS chain ({n} -> {npoint}, {route} route): a difference "
+                             f"{diffs[0]:.4g} ms is not positive")
+    return diffs[len(diffs) // 2], (diffs[0], diffs[-1])
 
 
 def scan_and_hits(mask: torch.Tensor, s: int):
@@ -1333,11 +1388,12 @@ def time_launches(name: str, forms, err: float, src: str, replaces: str) -> dict
     at the 3xTF32 tensor-core rate, bound_tc_ms, and the time of its
     weight split and packing alone (TC_ROWS, a launch of the kernel's call),
     pack_ms. The row lists each launch's time (launch_ms), in launch order,
-    and with more than one form each form's (form_ms)."""
+    and with more than one form each form's (form_ms); device_ms and
+    device_launch_ms are the same launches timed with time_ms(queued=True)."""
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=None, t_bytes=0.0, t_ops=0.0, bound_ms=0.0,
-               bound_tc_ms=0.0, pack_ms=0.0)
+               bound_tc_ms=0.0, pack_ms=0.0, device_ms=0.0)
     n = 0
-    form_ms, launch_ms = {}, []
+    form_ms, launch_ms, device_launch_ms = {}, [], []
     for label, calls, kernel, plain, library, work, compare in forms:
         form_ms[label.strip()] = 0.0
         for args in calls:
@@ -1347,6 +1403,7 @@ def time_launches(name: str, forms, err: float, src: str, replaces: str) -> dict
             t_bytes, t_ops = work(args, got)
             del got, want
             ms = time_ms(lambda: kernel(*args), 5)
+            dev_ms = time_ms(lambda: kernel(*args), 5, queued=True)
             plain_ms = time_ms(lambda: plain(*args), 2)
             lib_ms = None
             if library:
@@ -1356,24 +1413,27 @@ def time_launches(name: str, forms, err: float, src: str, replaces: str) -> dict
             bound_tc = max(t_bytes, t_ops * FP32_OPS_PER_S / TC_3XTF32_OPS_PER_S)
             for k, v in (("ms", ms), ("plain_ms", plain_ms), ("t_bytes", t_bytes),
                          ("t_ops", t_ops), ("bound_ms", max(t_bytes, t_ops)),
-                         ("bound_tc_ms", bound_tc)):
+                         ("bound_tc_ms", bound_tc), ("device_ms", dev_ms)):
                 tot[k] += v
             n += 1
             form_ms[label.strip()] += ms
             launch_ms.append(ms)
+            device_launch_ms.append(dev_ms)
             lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
             tc = ""
             if name in TC_ROWS:
                 pack_ms = time_ms(lambda: TC_ROWS[name](args), 5)
                 tot["pack_ms"] += pack_ms
                 tc = f", tensor-core bound {bound_tc:.4f} ms, weight packing {pack_ms:.4f} ms"
-            log(f"  {name}{label} {tuple(args[0].shape)}: kernel {ms:.4f} ms, plain "
+            log(f"  {name}{label} {tuple(args[0].shape)}: kernel {ms:.4f} ms (device "
+                f"{dev_ms:.4f} ms), plain "
                 f"{plain_ms:.4f} ms, library {lib}, bound {max(t_bytes, t_ops):.4f} ms "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'}){tc}")
     lib = "-" if tot["library_ms"] is None else f"{tot['library_ms']:.4f} ms"
     tc = (f", tensor-core bound {tot['bound_tc_ms']:.4f} ms, weight packing "
           f"{tot['pack_ms']:.4f} ms" if name in TC_ROWS else "")
-    log(f"  {name}, summed over {n} launches: kernel {tot['ms']:.4f} ms, plain "
+    log(f"  {name}, summed over {n} launches: kernel {tot['ms']:.4f} ms (device "
+        f"{tot['device_ms']:.4f} ms), plain "
         f"{tot['plain_ms']:.4f} ms, library {lib}, bound {tot['bound_ms']:.4f} ms{tc}")
     row = dict(name=name, route="cuda", source=f"disprcnn_tpu_torch/csrc/{src}",
                replaces=replaces, max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
@@ -1384,6 +1444,8 @@ def time_launches(name: str, forms, err: float, src: str, replaces: str) -> dict
         row["bound_tc_ms"] = tot["bound_tc_ms"]
         row["pack_ms"] = tot["pack_ms"]
     row["launch_ms"] = launch_ms
+    row["device_ms"] = tot["device_ms"]
+    row["device_launch_ms"] = device_launch_ms
     if len(forms) > 1:
         row["form_ms"] = form_ms
     return row
@@ -1446,6 +1508,34 @@ def phase_timing(model2d, model3d, req, compare_errs):
             name, [(label, group, kernel, plain, library, work, partial(main_path_err, name))
                    for label, group in groups.items()],
             compare_errs.get(name, 0.0), src, replaces)
+        if name == "softargmin":
+            parts = {}
+            for a in launches:
+                for k, v in softargmin_parts(a, torch.empty(a[0].shape[0], *a[1],
+                                                            device="meta")).items():
+                    parts[k] = parts.get(k, 0.0) + v
+            binds = max(("bytes", "fp32", "sfu"), key=parts.get)
+            rows[name].update(bound_parts_ms=parts, binds=binds)
+            log(f"  softargmin bounds: bytes {parts['bytes']:.4f} ms, FP32 operations "
+                f"{parts['fp32']:.4f} ms, the exponentials it needs on the SFU "
+                f"{parts['sfu']:.4f} ms: {binds} binds (not a bound: the design's one "
+                f"exponential a disparity on the SFU {parts['sfu_design']:.4f} ms)")
+        if name == "fps":
+            # each launch's serial chain: one cloud of its N on its route
+            sites = [(cfps.fps_route(*a[0].shape[:2]), a[0].shape[1], a[1]) for a in launches]
+            chains = {(r, n, npoint): fps_chain_ms(n, npoint, r)
+                      for r, n, npoint in dict.fromkeys(sites)}
+            floor = sum(chains[site][0] for site in sites)
+            label = {site: "{} {} -> {}".format(*site) for site in chains}
+            step_us = {label[site]: ms / (site[2] - 1) * 1e3 for site, (ms, _) in chains.items()}
+            rows[name].update(chain_ms={label[k]: c[0] for k, c in chains.items()},
+                              chain_spread_ms={label[k]: c[1] for k, c in chains.items()},
+                              step_us=step_us, serial_floor_ms=floor)
+            for site, (ms, (lo, hi)) in chains.items():
+                log(f"  fps chain of one cloud, {label[site]}: {ms:.4f} ms (5 runs "
+                    f"{lo:.4f}-{hi:.4f}), {step_us[label[site]]:.4f} us a step")
+            log(f"  fps: serial floor {floor:.4f} ms over the {len(launches)} launches, "
+                f"operations bound {rows[name]['bound_ms']:.4f} ms")
         if name == "cost_volume_conv":
             # the dense conv's count, the bound that earlier rows were read against
             dense = sum(max(cost_volume_work(a, torch.empty(

@@ -93,6 +93,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def time_ms(fn: Callable[[], object], reps: int, queued: bool = False) -> float:
+    """ms a call of fn on the card, from CUDA events around `reps` calls.
+    queued: the calls first queue behind a sleeping kernel (~20 ms) and run
+    back to back, so that a kernel shorter than the host's call (~25 us
+    through a ctypes wrapper) is timed on the device, not at the host's
+    call rate."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(4 * 10 ** 7)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def max_err(got, want, what: str, tol: float = None) -> float:
     """max |got - want|, raising past `tol` (default CONV_RTOL * max |want|
     + CONV_ATOL); tol 0 asks for equal values."""

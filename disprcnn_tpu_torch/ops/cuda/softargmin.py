@@ -7,6 +7,9 @@ disprcnn_tpu/ops/pallas/softargmin.py:fused_softargmin and of the plain
 ``softargmin`` dispatches: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel (csrc/softargmin.cu), whose one launch point is
 ``softargmin_cuda``, looked up at call time. There is no fallback.
+``disparity_segments`` builds the D interpolation's taps by segment, as the
+kernel takes them; ``softargmin_segments_plain`` is the kernel's order of
+operations on the CPU.
 """
 from __future__ import annotations
 
@@ -22,19 +25,31 @@ from . import build
 # around a run it wants to count.
 launches = 0
 
-# the kernel keeps one pixel's D4 bilinear values in a thread
+# the kernel keeps one pixel's D4 bilinear values in a thread, and the D
+# taps in its argument (csrc/softargmin.cu kMaxD4, kMaxD)
 MAX_D4 = 64
+MAX_D = 512
+LOG2E = 1.4426950408889634
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("softargmin")
     if lib.softargmin_cuda.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.softargmin_cuda.argtypes = [p, i, i, i, i, i, i, i, i, p, p, i]
+        lib.softargmin_cuda.argtypes = [p, i, i, i, i, i, i, i, i, p, p, p, p, p, i]
         lib.softargmin_cuda.restype = i
         lib.softargmin_error_string.argtypes = [i]
         lib.softargmin_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _positions(n_in: int, n_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(i0, frac) of interp_matrix_align_corners's rows, on the CPU: the
+    float32 positions o * (n_in - 1) / max(n_out - 1, 1) with i0 clamped to
+    [0, n_in - 2]; n_in >= 2."""
+    pos = torch.arange(n_out, dtype=torch.float32) * (n_in - 1) / max(n_out - 1, 1)
+    i0 = torch.floor(pos).long().clamp(0, n_in - 2)
+    return i0, pos - i0
 
 
 @functools.lru_cache(maxsize=64)
@@ -52,14 +67,85 @@ def interp_matrix_align_corners(n_in: int, n_out: int, device=None,
     with torch.inference_mode(False):
         if n_in == 1:
             return torch.ones((n_out, 1), device=device, dtype=dtype)
-        pos = torch.arange(n_out, dtype=torch.float32) * (n_in - 1) / max(n_out - 1, 1)
-        i0 = torch.floor(pos).long().clamp(0, n_in - 2)
-        frac = pos - i0
+        i0, frac = _positions(n_in, n_out)
         rows = torch.arange(n_out)
         m = torch.zeros((n_out, n_in))
         m[rows, i0] = 1.0 - frac
         m[rows, i0 + 1] = frac
         return m.to(device=device, dtype=dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def disparity_segments(d4: int, d: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The D interpolation (D4 -> D) as the kernel walks it, on the CPU:
+    (fk (D,) float32, first (S,) int16, count (S,) int16), S = max(D4 - 1,
+    1). Segment s holds disparities first[s] .. first[s] + count[s] - 1
+    (count 0 where D < D4 skips it), each at position s + fk[k]: weight 1 -
+    fk[k] on logit s and fk[k] on logit s + 1, exactly the nonzeros of
+    interp_matrix_align_corners(d4, d) (D4 = 1: one segment, fk = 0, weight
+    1 on logit 0). Shared: callers must not modify it."""
+    nseg = max(d4 - 1, 1)
+    if d4 == 1:
+        fk, i0 = torch.zeros(d), torch.zeros(d, dtype=torch.long)
+    else:
+        i0, fk = _positions(d4, d)
+    count = torch.bincount(i0, minlength=nseg)
+    first = torch.cumsum(count, 0) - count
+    return fk, first.to(torch.int16), count.to(torch.int16)
+
+
+def softargmin_segments_plain(logits: torch.Tensor, out_hw: Tuple[int, int], mindisp: int,
+                              maxdisp: int) -> torch.Tensor:
+    """softargmin_plain in the kernel's order: per pixel the H and W taps
+    first, as four weights ((1 - fy)(1 - fx), ...) on the four logits of each
+    slice (v, (B, D4, H, W)), then per segment z = v[s] + fk (v[s + 1] -
+    v[s]); the max over D from each segment's two ends; exp(z - m) as 2^((z
+    - m) log2 e), with log2 e folded into the segment's two constants; per
+    segment sums of exp and exp * j (j the disparity's place in it), then
+    into the totals with the segment's first place; mindisp is added to
+    the expected place last."""
+    b, d4, h4, w4 = logits.shape
+    h, w = out_hw
+    fk, first, count = disparity_segments(d4, maxdisp - mindisp)
+    fk = fk.to(logits.device)
+
+    def taps(n_in, n_out):
+        if n_in == 1:
+            zero = torch.zeros(n_out, dtype=torch.long)
+            return zero, zero, torch.zeros(n_out)
+        i0, f = _positions(n_in, n_out)
+        return i0, i0 + 1, f
+
+    y0, y1, fy = (t.to(logits.device) for t in taps(h4, h))
+    x0, x1, fx = (t.to(logits.device) for t in taps(w4, w))
+    fy, fx = fy[:, None], fx[None, :]
+    r0, r1 = logits[:, :, y0], logits[:, :, y1]  # (B, D4, H, w4)
+    v = ((1 - fy) * (1 - fx) * r0[..., x0] + (1 - fy) * fx * r0[..., x1]
+         + fy * (1 - fx) * r1[..., x0]) + fy * fx * r1[..., x1]  # (B, D4, H, W)
+    segments = [(s, int(first[s]), int(count[s])) for s in range(len(count)) if count[s] > 0]
+
+    def ends(s):
+        a = v[:, s]
+        return a, (v[:, s + 1] if s + 1 < d4 else a) - a
+
+    m = torch.full((b, h, w), -torch.inf, dtype=logits.dtype, device=logits.device)
+    for s, k0, cnt in segments:
+        a, g = ends(s)
+        m = torch.maximum(m, torch.maximum(a + fk[k0] * g, a + fk[k0 + cnt - 1] * g))
+    total = torch.zeros_like(m)
+    dtotal = torch.zeros_like(m)
+    for s, k0, cnt in segments:
+        a, g = ends(s)
+        gl, al = g * LOG2E, (a - m) * LOG2E
+        ss = torch.zeros_like(m)
+        sj = torch.zeros_like(m)
+        for j in range(cnt):
+            e = torch.exp2(fk[k0 + j] * gl + al)
+            ss = ss + e
+            sj = sj + e * j
+        total = total + ss
+        dtotal = dtotal + k0 * ss + sj
+    return mindisp + dtotal / total
 
 
 def softargmin_plain(logits: torch.Tensor, out_hw: Tuple[int, int], mindisp: int,
@@ -91,13 +177,15 @@ def softargmin_cuda(logits: torch.Tensor, out_hw: Tuple[int, int], mindisp: int,
         raise ValueError("logits must be contiguous")
     b, d4, h4, w4 = logits.shape
     h, w = out_hw
-    if d4 > MAX_D4 or maxdisp <= mindisp:
-        raise ValueError(f"need D4 <= {MAX_D4} and maxdisp > mindisp, got D4={d4} "
-                         f"[{mindisp}, {maxdisp})")
+    if d4 > MAX_D4 or not 0 < maxdisp - mindisp <= MAX_D:
+        raise ValueError(f"need D4 <= {MAX_D4} and 0 < maxdisp - mindisp <= {MAX_D}, got "
+                         f"D4={d4} [{mindisp}, {maxdisp})")
+    fk, first, count = disparity_segments(d4, maxdisp - mindisp)
     lib = _lib()
     out = torch.empty((b, h, w), device=logits.device)
     err = lib.softargmin_cuda(
-        logits.data_ptr(), b, d4, h4, w4, h, w, mindisp, maxdisp, out.data_ptr(),
+        logits.data_ptr(), b, d4, h4, w4, h, w, mindisp, maxdisp, fk.data_ptr(),
+        first.data_ptr(), count.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(logits.device).cuda_stream, logits.device.index)
     if err != 0:
         raise RuntimeError(f"softargmin_cuda launch failed: "

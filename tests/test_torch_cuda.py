@@ -386,6 +386,35 @@ def test_softargmin_kernel_matches_plain(card, b, d4, hw4, out_hw, disp):
     assert float((got - want).abs().max()) <= 1e-3
 
 
+@pytest.mark.parametrize("b,d4,hw4,out_hw,disp", [
+    (2, 3, (5, 6), (19, 23), (-10, 11)),
+    (2, 8, (6, 5), (21, 17), (0, 40)),
+    (2, 13, (4, 7), (15, 25), (-30, 20)),
+    (2, 24, (56, 56), (224, 224), (-48, 48)),  # the main path's shape at B = 2
+    (1, 31, (5, 5), (17, 17), (-64, 64)),
+    (1, 48, (3, 4), (9, 13), (5, 200)),
+    (1, 64, (4, 4), (13, 13), (-256, 256)),
+])
+def test_softargmin_kernel_specialisations_match_plain(card, b, d4, hw4, out_hw, disp):
+    """Each D4 instantiation of the segment walk (D4 <= 4, 8, 16, 24, 32,
+    48, 64) within 1e-3 px; D = 512 is the largest the wrapper takes."""
+    gen = torch.Generator(device="cuda").manual_seed(100 + d4)
+    logits = _randn(gen, b, d4, *hw4, scale=3.0)
+    got = csam.softargmin_cuda(logits, out_hw, *disp)
+    want = csam.softargmin_plain(logits, out_hw, *disp)
+    torch.cuda.synchronize()
+    assert got.shape == (b, *out_hw) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+def test_softargmin_kernel_refuses_bad_inputs(card):
+    logits = torch.zeros(1, 4, 3, 3, device=card)
+    with pytest.raises(ValueError, match="D4"):
+        csam.softargmin_cuda(torch.zeros(1, 65, 3, 3, device=card), (5, 5), 0, 8)
+    with pytest.raises(ValueError, match="maxdisp"):
+        csam.softargmin_cuda(logits, (5, 5), 0, 513)
+
+
 @pytest.mark.parametrize("n_in,n_out", [(56, 224), (24, 96), (14, 56), (1, 7)])
 def test_interp_matrix_on_card_divides_exactly(card, n_in, n_out):
     """The matrix the soft-argmin's plain version uses on the card holds the
@@ -430,6 +459,40 @@ def test_fps_kernel_matches_plain(card, b, n, npoint):
     want = cfps.furthest_point_sample_plain(xyz, npoint)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1024, 768, 512, 256, 128])
+@pytest.mark.parametrize("above", [0, 1])
+def test_fps_kernel_at_the_route_threshold(card, above, n):
+    """At each N range of BLOCK_ROUTE_MAX_B its limit of clouds takes the
+    block route, one more the warp route: indices exactly on both sides."""
+    b = next(lim for n0, lim in cfps.BLOCK_ROUTE_MAX_B if n > n0) + above
+    assert cfps.fps_route(b, n) == ("warp" if above else "block")
+    gen = torch.Generator(device="cuda").manual_seed(b + n)
+    xyz = _clouds(gen, b, n)
+    xyz[-1] = 0.0
+    got = cfps.furthest_point_sample(xyz, 32)
+    want = cfps.furthest_point_sample_plain(xyz, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("route", ["block", "warp"])
+@pytest.mark.parametrize("b,n,npoint", [(3, 1024, 1024), (5, 1024, 300), (7, 700, 200),
+                                        (4, 257, 100), (2, 1, 1), (2048, 128, 32)])
+def test_fps_kernel_routes_match_plain(card, route, b, n, npoint):
+    """Both routes at any shape (N = 1024 included), indices exactly, and
+    equal to the CPU twin of the route's argmax (furthest_point_sample_keys_plain)."""
+    gen = torch.Generator(device="cuda").manual_seed(n + b)
+    xyz = _clouds(gen, b, n) if n > 7 else _randn(gen, b, n, 3)
+    xyz[-1] = 0.0
+    got = cfps._launch(xyz, npoint, route)
+    want = cfps.furthest_point_sample_plain(xyz, npoint)
+    threads = cfps.BLOCK_THREADS if route == "block" else 32
+    twin = cfps.furthest_point_sample_keys_plain(xyz.cpu(), npoint, threads)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), twin)
 
 
 def _sa_args(gen, b, n, m, c0, chain):
@@ -588,6 +651,8 @@ def test_point_kernels_refuse_bad_inputs(card):
         cfps.furthest_point_sample_cuda(torch.zeros(2, 3, 64, device=card).transpose(1, 2), 8)
     with pytest.raises(ValueError, match="npoint"):
         cfps.furthest_point_sample_cuda(xyz, 65)
+    with pytest.raises(ValueError, match="route"):
+        cfps._launch(xyz, 8, "grid")
     v = torch.zeros(2, 64, 64, device=card)
     w0x, vec = torch.zeros(3, 64, device=card), torch.zeros(64, device=card)
     with pytest.raises(ValueError, match="S dividing"):
