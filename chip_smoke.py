@@ -11,9 +11,13 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      disprcnn_tpu_torch/csrc/build/ (listed in .gitignore), printing each
      kernel's registers, spills and shared memory from ptxas;
   2. the greedy-NMS kernel against its plain PyTorch version at the SRPN
-     call (8, 6000) k=300 IoU 0.7 and the box head's (8, 300) k=16 IoU 0.5,
-     on random, clustered, duplicate, tied-score, all-invalid-row and
-     few-survivor inputs: indices and flags equal;
+     call (8, 6000) k=300 IoU 0.7, the box head's (8, 300) k=16 IoU 0.5,
+     the 3D proposals' BEV NMS without the +1 term at (128, 128) and the
+     reference budget's (128, 768), k = N, IoU 0.8, an N off the 64-box
+     tile walked in two passes (8, 3000) k=100, and an N whose walk reads
+     global memory (2, 12000) k=2000, on random, clustered, duplicate,
+     tied-score, all-invalid-row and few-survivor inputs: indices and
+     flags equal;
   3. the iDispNet kernels against their plain versions at every shape the
      main path gives them, on seeded random inputs: the tower's 2D conv
      (32 channels at 112^2, 64 at 56^2; with and without residual and
@@ -79,7 +83,11 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      serial chain of each launch, one cloud of its N on its route at B = 1,
      npoint against 1 (chain_ms, the median of 5, chain_spread_ms, and
      step_us a step), summed over the launches as the serial floor
-     (serial_floor_ms); every row also gets the
+     (serial_floor_ms); NMS likewise each site's launch on its first image
+     alone (chain_ms by site: SRPN, box head, 3D proposals, the median of
+     5, and chain_spread_ms; serial_floor_ms their sum over the launches),
+     and the sorted position where each site's walk stopped (walk_stop);
+     every row also gets the
      device's time alone, its launches queued behind a sleeping kernel
      (device_ms, device_launch_ms: ms times a launch at the host's call
      rate where a kernel is shorter than a call, ~25 us);
@@ -202,7 +210,15 @@ SMALL_3D = dict(max_det=2, roi_size=64, maxdisp=16, mindisp=-16)
 SMALL_DET3D = dict(SMALL_3D, det3d_on=True, npoints=128, lift_grid=32,
                    sa_npoints=(128, 64, 32, 16))
 NMS_CASES = ("random", "clustered", "duplicates", "ties", "invalid_rows", "few_survivors")
-NMS_SHAPES = ((6000, 300, 0.7), (300, 16, 0.5))  # (N, k, IoU) of SRPN and box head
+# (site, B, N, k, IoU, +1 term): the SRPN and the box head; the 3D
+# proposals' BEV NMS at both budgets; an N off the 64-box tile, walked in
+# two passes; and an N whose walk reads global memory (ops/cuda/nms.py
+# walk_routes)
+NMS_SHAPES = (("SRPN", PAIRS, 6000, 300, 0.7, 1.0), ("box head", PAIRS, 300, 16, 0.5, 1.0),
+              ("3D proposals", 128, 128, 128, 0.8, 0.0),
+              ("3D proposals, reference", 128, 768, 768, 0.8, 0.0),
+              ("N off the tile", PAIRS, 3000, 100, 0.7, 1.0),
+              ("global route", 2, 12000, 2000, 0.7, 1.0))
 # Kernel launches per headline request on the main path (the kernel table of
 # PERF.md): the tower's 2D conv: ConvBN_1, ConvBN_2, layer1's 6, layer2's 31,
 # over both views at once; 2 stride-2 and 2 transposed convs per hourglass;
@@ -287,9 +303,13 @@ FP_SITES = (("fp3", 128, 256, 64, 1024, 512, (512, 512)),
             ("fp2", 128, 512, 256, 512, 256, (512, 512)),
             ("fp1", 128, 768, 512, 512, 96, (256, 256)))
 # rows that phase 9 times per site (form_ms): a launch's site from its
-# arguments, FP's by its (targets, sources)
+# arguments, FP's by its (targets, sources), NMS's by its +1 term (the 3D
+# proposals' BEV NMS has none) and N (the SRPN's 6000 pre-NMS boxes, the
+# box head's 300 proposals)
 LAUNCH_SITE = {"fp": lambda a: {(nt, ns): site for site, _, nt, ns, *_ in FP_SITES}[
-    (a[0].shape[1], a[1].shape[1])]}
+    (a[0].shape[1], a[1].shape[1])],
+    "nms_sorted": lambda a: "3D proposals" if a[4] == 0 else (
+        "SRPN" if a[0].shape[1] >= 1000 else "box head")}
 # RoI-pool 3D (clouds, N, boxes, C, S): headline, and one reference block
 ROI_SITES = ((128, 768, 16, 130, 512), (128, 768, 50, 130, 512))
 # Row 12 at the SA-off route's sites of a headline request, whole (site,
@@ -448,19 +468,23 @@ def nms_case(kind: str, b: int, n: int, gen: torch.Generator):
 def phase_nms_compare() -> float:
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = 0.0
-    for n, k, thresh in NMS_SHAPES:
+    for site, b, n, k, thresh, to_remove in NMS_SHAPES:
+        routes = cuda_nms.walk_routes(n, k)
+        if site == "global route" and "global" not in routes:
+            raise AssertionError(f"NMS at N={n} k={k} walks {routes}, not from global memory")
         for kind in NMS_CASES:
-            boxes, scores, valid = nms_case(kind, PAIRS, n, gen)
-            ki, kok = port_nms.nms_topk_batched(boxes, scores, valid, thresh, k)
+            boxes, scores, valid = nms_case(kind, b, n, gen)
+            ki, kok = port_nms.nms_topk_batched(boxes, scores, valid, thresh, k, to_remove)
             with launches_replaced(nms_sorted_cuda=cuda_nms.nms_sorted_plain):
-                pi, pok = port_nms.nms_topk_batched(boxes, scores, valid, thresh, k)
+                pi, pok = port_nms.nms_topk_batched(boxes, scores, valid, thresh, k, to_remove)
             torch.cuda.synchronize()
             err = float((ki - pi).abs().max())
             if not (torch.equal(kok, pok) and err == 0):
-                raise AssertionError(f"NMS kernel != plain at N={n} k={k} {kind}: "
+                raise AssertionError(f"NMS kernel != plain at {site} N={n} k={k} {kind}: "
                                      f"max |idx diff| {err}, flags equal {torch.equal(kok, pok)}")
             worst = max(worst, err)
-            log(f"  nms N={n} k={k} iou={thresh} {kind}: equal, {int(kok.sum())} kept")
+            log(f"  nms {site} ({b}, {n}) k={k} iou={thresh} +{to_remove:g} {kind}: equal, "
+                f"{int(kok.sum())} kept; walk {' then '.join(routes)}")
     log(f"[2/{PHASES}] NMS kernel equals its plain version on "
         f"{len(NMS_SHAPES) * len(NMS_CASES)} cases")
     return worst
@@ -1293,6 +1317,24 @@ def fps_chain_ms(n: int, npoint: int, route: str, repeats: int = 5) -> tuple:
     return diffs[len(diffs) // 2], (diffs[0], diffs[-1])
 
 
+def nms_chain_ms(args, repeats: int = 5) -> tuple:
+    """One NMS launch's work for its first image alone (B = 1) in device
+    time, the serial walk with the masks it needs: the median of `repeats`
+    and their (min, max)."""
+    one = (args[0][:1].contiguous(), args[1][:1].contiguous(), *args[2:])
+    runs = sorted(time_ms(lambda: cuda_nms.nms_sorted_cuda(*one), 10, queued=True)
+                  for _ in range(repeats))
+    return runs[len(runs) // 2], (runs[0], runs[-1])
+
+
+def nms_walk_stop(args, out) -> int:
+    """The sorted position after which the launch's longest walk stopped:
+    its image's k-th survivor, or N where an image keeps fewer."""
+    n = args[0].shape[1]
+    idx, ok = out
+    return int(torch.where(ok[:, -1], idx[:, -1] + 1, torch.full_like(idx[:, -1], n)).max())
+
+
 def scan_and_hits(mask: torch.Tensor, s: int):
     """For (..., N) in-ball (or in-box) masks: the points a scan in index
     order tests before it has found s, and the distinct hits (at most s)."""
@@ -1535,6 +1577,24 @@ def phase_timing(model2d, model3d, req, compare_errs):
                 log(f"  fps chain of one cloud, {label[site]}: {ms:.4f} ms (5 runs "
                     f"{lo:.4f}-{hi:.4f}), {step_us[label[site]]:.4f} us a step")
             log(f"  fps: serial floor {floor:.4f} ms over the {len(launches)} launches, "
+                f"operations bound {rows[name]['bound_ms']:.4f} ms")
+        if name == "nms_sorted":
+            # each site's launch on one image: the serial floor beside the
+            # operations bound
+            chains, stops = {}, {}
+            for a in launches:
+                site = LAUNCH_SITE[name](a)
+                chains[site] = nms_chain_ms(a)
+                stops[site] = (nms_walk_stop(a, cuda_nms.nms_sorted_cuda(*a)), a[0].shape[1])
+            floor = sum(chains[LAUNCH_SITE[name](a)][0] for a in launches)
+            rows[name].update(chain_ms={k: c[0] for k, c in chains.items()},
+                              chain_spread_ms={k: c[1] for k, c in chains.items()},
+                              walk_stop={k: v[0] for k, v in stops.items()},
+                              serial_floor_ms=floor)
+            for site, (ms, (lo, hi)) in chains.items():
+                log(f"  nms {site} on one image: {ms:.4f} ms (5 runs {lo:.4f}-{hi:.4f}); the "
+                    f"walk stopped after sorted box {stops[site][0]} of {stops[site][1]}")
+            log(f"  nms: serial floor {floor:.4f} ms over the {len(launches)} launches, "
                 f"operations bound {rows[name]['bound_ms']:.4f} ms")
         if name == "cost_volume_conv":
             # the dense conv's count, the bound that earlier rows were read against

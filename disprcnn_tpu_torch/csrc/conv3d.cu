@@ -50,6 +50,7 @@
 #include <stdint.h>
 
 #include "conv3d.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -74,9 +75,7 @@ struct Geom {
   int bulk;    // bulk copies of whole runs of rows: vec and one column tile
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using tma::smem_u32;
 
 // cp.async of 16 or 4 bytes, zero-filled where !valid (src is then not read)
 __device__ __forceinline__ void cp16(float* dst, const float* src, bool valid) {
@@ -91,40 +90,6 @@ __device__ __forceinline__ void cp4(float* dst, const float* src, bool valid) {
 
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// The Tensor Memory Accelerator's bulk copies: one thread asks for a
-// contiguous run of bytes, whose arrival counts against an mbarrier's
-// expected transaction bytes.
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
-}
-
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
 }
 
 template <int N>
@@ -220,8 +185,8 @@ cl1_kernel(const float* __restrict__ x, const float* __restrict__ wt, const Geom
         r += k;
       }
       *nruns = make_int2(nr, rows);
-      for (int b = 0; b < kStages; ++b) bar_init(bars + b);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int b = 0; b < kStages; ++b) tma::bar_init(bars + b);
+      tma::bar_init_fence();
     }
     __syncthreads();
   }
@@ -244,18 +209,18 @@ cl1_kernel(const float* __restrict__ x, const float* __restrict__ wt, const Geom
         const int nc = min(kCG, gm.ci - c0);
         const int2 nr = *nruns;
         // the stage's buffer was last read before this iteration's barrier
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        if (lane == 0) bar_expect(bar, nc * (nr.y * p + kWPad) * 4);  // rows and weights
+        tma::fence_to_async();
+        if (lane == 0) tma::expect(bar, nc * (nr.y * p + kWPad) * 4);  // rows and weights
         __syncwarp();
         for (int t = lane; t < nc * (nr.x + 1); t += 32) {
           const int c = t / (nr.x + 1), k = t - c * (nr.x + 1);
           if (k < nr.x) {
             const int2 run = runs[k];
-            bulk_copy(st + c * cb + run.x * p,
+            tma::load(st + c * cb + run.x * p,
                       x + rowoff[run.x] + ((long long)(c0 + c) * gm.d + zi) * plane,
                       run.y * p * 4, bar);
           } else {
-            bulk_copy(st + c * cb + sr * (p + 2), wt + (size_t)(c0 + c) * kWPad, kWPad * 4, bar);
+            tma::load(st + c * cb + sr * (p + 2), wt + (size_t)(c0 + c) * kWPad, kWPad * 4, bar);
           }
         }
       }
@@ -354,7 +319,7 @@ cl1_kernel(const float* __restrict__ x, const float* __restrict__ wt, const Geom
   for (int s = 0; s < nstage; ++s) {
     if constexpr (kMode != 2) {
       if (gm.bulk)
-        bar_wait(bars + s % kStages, (s / kStages) & 1);  // stage s has landed
+        tma::wait(bars + s % kStages, (s / kStages) & 1);  // stage s has landed
       else
         cp_wait<kStages - 2>();  // this thread's copies of stage s have landed
     }

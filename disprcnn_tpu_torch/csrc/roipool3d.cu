@@ -24,23 +24,92 @@
 // points at a time; a warp ballot, popc and a scan of the 8 warp counts
 // give each inside point its rank in scan order, and the first S ranks
 // store their point index in shared memory; the scan stops once S are
-// found. The block then writes the box's (S, 3 + C) rows flat and
-// coalesced, each element reading its source row through L1/L2.
+// found. The box's output is one contiguous run of S rows of 3 + C
+// floats. On the bulk route the block gathers chunks of up to 16 rows
+// into a ring of 3 shared-memory buffers, a warp a row (its lanes read the
+// source row's xyz and features, coalesced, and no element needs a
+// division), and one thread writes each chunk out with a TMA bulk store,
+// so the output leaves as whole lines while the next chunk is gathered.
+// Where a chunk's part of the run does not start or end on 16 bytes, its
+// first and last floats (at most 3 each) are plain stores. The main path's
+// width, 133, is a compile-time constant. The direct route, taken where
+// the ring does not fit in shared memory, stores each row from its warp's
+// registers.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBufs = 3;            // the bulk route's ring of chunks
+constexpr int kChunkRows = 16;      // rows a chunk, at most: 8 blocks an SM at C = 130
+constexpr int kChunkBytes = 24576;  // a chunk's rows, at most
+constexpr int kMaxShared = 232448;
+constexpr int kMainWidth = 3 + 130;  // the RCNN's pooled row: xyz, seg, depth, 128 features
 
+enum Route { kAuto = 0, kBulk = 1, kDirect = 2 };
+
+__host__ __device__ inline int align_up(int x, int a) { return (x + a - 1) / a * a; }
+
+// Floats of a chunk's buffer: its rows and up to 3 floats ahead of them,
+// so that the buffer starts on the 16 bytes of the output that hold the
+// chunk's first float.
+__host__ __device__ inline int chunk_floats(int rows, int width) {
+  return align_up(rows * width + 3, 4);
+}
+
+// Rows [s0, s1) of a box with cnt > 0 points inside (sel their indices),
+// row `slot` into dst + (slot - s0) * width: a warp a row, its lanes over
+// the channels; each warp's rows are unrolled so that their loads are in
+// flight together.
+template <int kWidth>
+__device__ __forceinline__ void gather_rows(float* dst, const int* sel, int s0, int s1, int cnt,
+                                            const float* __restrict__ P,
+                                            const float* __restrict__ Fb, int c, int warp,
+                                            int lane) {
+  const int width = kWidth > 0 ? kWidth : 3 + c;
+#pragma unroll 4
+  for (int slot = s0 + warp; slot < s1; slot += kWarps) {
+    const int j = sel[slot < cnt ? slot : slot % cnt];
+    const float* xyz = P + static_cast<size_t>(j) * 3;
+    const float* f = Fb + static_cast<size_t>(j) * c;
+    float* row = dst + static_cast<size_t>(slot - s0) * width;
+    if constexpr (kWidth > 0) {
+      constexpr int kSteps = (kWidth + 31) / 32;
+      float v[kSteps];
+#pragma unroll
+      for (int q = 0; q < kSteps; ++q) {
+        const int ch = lane + 32 * q;
+        v[q] = ch < kWidth ? __ldg(ch < 3 ? xyz + ch : f + (ch - 3)) : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < kSteps; ++q) {
+        const int ch = lane + 32 * q;
+        if (ch < kWidth) row[ch] = v[q];
+      }
+    } else {
+      for (int ch = lane; ch < width; ch += 32) row[ch] = __ldg(ch < 3 ? xyz + ch : f + (ch - 3));
+    }
+  }
+}
+
+// dst[0, count) = 0, by the whole block
+__device__ __forceinline__ void zero_fill(float* dst, size_t count, int tid) {
+  for (size_t e = tid; e < count; e += kThreads) dst[e] = 0.f;
+}
+
+template <int kWidth, bool kBulkRoute>
 __global__ void __launch_bounds__(kThreads)
 roipool3d_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
                  const float* __restrict__ boxes, const float* __restrict__ cossin, int n,
-                 int m, int c, int s, float max_dis, float* __restrict__ out,
+                 int m, int c, int s, int rows, float max_dis, float* __restrict__ out,
                  uint8_t* __restrict__ empty) {
-  extern __shared__ int sel[];  // s
+  extern __shared__ __align__(128) unsigned char smem[];
+  int* sel = reinterpret_cast<int*>(smem);  // s
   __shared__ int warp_cnt[kWarps];
   __shared__ int warp_off[kWarps + 1];
   const int box = blockIdx.x, b = blockIdx.y;
@@ -77,46 +146,127 @@ roipool3d_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
     const int pos = count + warp_off[warp] + __popc(hit & ((1u << lane) - 1u));
     if (in && pos < s) sel[pos] = j;
     count += warp_off[kWarps];
-    __syncthreads();  // warp_off is rewritten by the next step
+    __syncthreads();  // warp_off is rewritten by the next step; sel is complete
   }
   const int cnt = min(count, s);
   if (tid == 0) empty[bm] = cnt == 0;
 
-  const int width = 3 + c;
-  float* o = out + bm * (size_t)s * width;
+  const int width = kWidth > 0 ? kWidth : 3 + c;
   const float* Fb = feats + (size_t)b * n * c;
-  for (int e = tid; e < s * width; e += kThreads) {
-    const int slot = e / width, ch = e - slot * width;
-    float val = 0.f;
-    if (cnt > 0) {
-      const int j = sel[slot < cnt ? slot : slot % cnt];
-      val = ch < 3 ? __ldg(P + j * 3 + ch) : __ldg(Fb + (size_t)j * c + (ch - 3));
-    }
-    o[e] = val;
+  const size_t run = bm * (size_t)s * width;  // the box's first float in out
+  if (!kBulkRoute) {
+    if (cnt == 0)
+      zero_fill(out + run, (size_t)s * width, tid);
+    else
+      gather_rows<kWidth>(out + run, sel, 0, s, cnt, P, Fb, c, warp, lane);
+    return;
   }
+
+  float* bufs = reinterpret_cast<float*>(smem + align_up(s * 4, 128));
+  const int cf = chunk_floats(rows, width);
+  const int chunks = (s + rows - 1) / rows;
+  for (int q = 0; q < chunks; ++q) {
+    float* buf = bufs + (q % kBufs) * cf;
+    const int s0 = q * rows, s1 = min(s, s0 + rows);
+    const size_t g0 = run + (size_t)s0 * width, g1 = run + (size_t)s1 * width;
+    const size_t a0 = g0 & ~size_t(3);  // the 16 bytes that hold g0 start the buffer
+    if (cnt == 0)
+      zero_fill(buf + (g0 - a0), g1 - g0, tid);
+    else
+      gather_rows<kWidth>(buf + (g0 - a0), sel, s0, s1, cnt, P, Fb, c, warp, lane);
+    tma::fence_to_async();
+    // the buffer that the next chunk fills was last read by the store of
+    // chunk q + 1 - kBufs: at most kBufs - 2 later groups may be pending
+    if (tid == 0) tma::wait_read<kBufs - 2>();
+    __syncthreads();
+    const size_t b0 = (g0 + 3) & ~size_t(3), b1 = g1 & ~size_t(3);
+    if (tid == 0) {
+      if (b1 > b0) tma::store(out + b0, buf + (b0 - a0), static_cast<uint32_t>((b1 - b0) * 4));
+      tma::commit();
+    } else if (warp == 1) {
+      // the floats before and after the 16-byte-aligned body
+      for (size_t f = g0 + lane; f < g1 && f < b0; f += 32) out[f] = buf[f - a0];
+      for (size_t f = (b1 > b0 ? b1 : b0) + lane; f < g1; f += 32) out[f] = buf[f - a0];
+    }
+  }
+  if (tid == 0) tma::wait_all();  // the stores are done before the block leaves
+}
+
+template <int kWidth, bool kBulkRoute>
+cudaError_t launch(const float* pts, const float* feats, const float* boxes, const float* cossin,
+                   int b, int n, int m, int c, int s, int rows, float max_dis, float* out,
+                   uint8_t* empty, int smem, cudaStream_t stream) {
+  static bool attr_set[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (!attr_set[device]) {
+    err = cudaFuncSetAttribute(roipool3d_kernel<kWidth, kBulkRoute>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared - 1024);
+    if (err != cudaSuccess) return err;
+    attr_set[device] = true;
+  }
+  roipool3d_kernel<kWidth, kBulkRoute><<<dim3(m, b), kThreads, smem, stream>>>(
+      pts, feats, boxes, cossin, n, m, c, s, rows, max_dis, out, empty);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// The route a launch takes (kBulk or kDirect) for `route` (kAuto: bulk
+// where its ring fits in shared memory), its rows a chunk and its shared
+// memory; -1 where the route asked for does not fit.
+int roipool3d_plan(int c, int s, int route, int* rows_out, int* smem_out) {
+  const int width = 3 + c;
+  int rows = kChunkBytes / (4 * width);
+  rows = rows > kChunkRows ? kChunkRows : rows;
+  rows = rows > s ? s : rows;
+  const int sel_bytes = align_up(s * 4, 128);
+  const int bulk_smem = sel_bytes + kBufs * chunk_floats(rows > 0 ? rows : 1, width) * 4;
+  const bool bulk_fits = rows >= 1 && bulk_smem <= kMaxShared - 1024;
+  if (route == kAuto) route = bulk_fits ? kBulk : kDirect;
+  if (route == kBulk && !bulk_fits) return -1;
+  *rows_out = route == kBulk ? rows : 0;
+  *smem_out = route == kBulk ? bulk_smem : sel_bytes;
+  return route;
+}
+
 // pts (B, N, 3), feats (B, N, C), boxes (B, M, 7), cossin (B, M, 2) = (cos
-// ry, sin ry); all float32, contiguous. out (B, M, S, 3 + C) float32, empty
-// (B, M) uint8. Launches on `stream`, does not synchronise, returns the
+// ry, sin ry); all float32, contiguous, out 16-byte aligned. out (B, M, S,
+// 3 + C) float32, empty (B, M) uint8. route: 0 the plan's choice, 1 bulk,
+// 2 direct. Launches on `stream`, does not synchronise, returns the
 // cudaError_t of the launch (0 on success).
 int roipool3d_cuda(const void* pts, const void* feats, const void* boxes, const void* cossin,
-                   int b, int n, int m, int c, int s, float max_dis, void* out, void* empty,
-                   void* stream, int device) {
+                   int b, int n, int m, int c, int s, float max_dis, int route, void* out,
+                   void* empty, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (b < 1 || b > 65535 || n < 1 || m < 1 || c < 0 || s < 1 || s > 8192)
+  if (b < 1 || b > 65535 || n < 1 || m < 1 || c < 0 || s < 1 || s > 8192 || route < 0 ||
+      route > kDirect || reinterpret_cast<uintptr_t>(out) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(m, b);
-  roipool3d_kernel<<<grid, kThreads, sizeof(int) * s, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pts), static_cast<const float*>(feats),
-      static_cast<const float*>(boxes), static_cast<const float*>(cossin), n, m, c, s, max_dis,
-      static_cast<float*>(out), static_cast<uint8_t*>(empty));
-  return static_cast<int>(cudaGetLastError());
+  int rows = 0, smem = 0;
+  route = roipool3d_plan(c, s, route, &rows, &smem);
+  if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const float* p = static_cast<const float*>(pts);
+  const float* f = static_cast<const float*>(feats);
+  const float* bx = static_cast<const float*>(boxes);
+  const float* cs = static_cast<const float*>(cossin);
+  float* o = static_cast<float*>(out);
+  uint8_t* e = static_cast<uint8_t*>(empty);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool main_width = 3 + c == kMainWidth;
+  if (route == kBulk)
+    err = main_width ? launch<kMainWidth, true>(p, f, bx, cs, b, n, m, c, s, rows, max_dis, o, e,
+                                               smem, st)
+                     : launch<0, true>(p, f, bx, cs, b, n, m, c, s, rows, max_dis, o, e, smem, st);
+  else
+    err = main_width ? launch<kMainWidth, false>(p, f, bx, cs, b, n, m, c, s, rows, max_dis, o, e,
+                                                smem, st)
+                     : launch<0, false>(p, f, bx, cs, b, n, m, c, s, rows, max_dis, o, e, smem, st);
+  return static_cast<int>(err);
 }
 
 const char* roipool3d_error_string(int err) {

@@ -107,7 +107,10 @@ def pool_rcnn_inputs(xyz: torch.Tensor, rpn_feats: torch.Tensor, seg_mask: torch
     p_xyz = pooled[..., 0:3] - rois[..., None, 0:3]
     p_xyz = rotate_points_along_y(p_xyz.reshape(r * m, num_points, 3),
                                   rois[..., 6].reshape(r * m)).reshape(r, m, num_points, 3)
-    return torch.cat([p_xyz, pooled[..., 3:]], dim=-1), empty
+    # in place: the canonical xyz over the pooled xyz, not a copy of the
+    # whole (R, M, num_points, 5 + C) tensor; pooled is this call's own
+    pooled[..., 0:3] = p_xyz
+    return pooled, empty
 
 
 def rcnn_postprocess(cls_pred: torch.Tensor, reg_pred: torch.Tensor, rois: torch.Tensor,

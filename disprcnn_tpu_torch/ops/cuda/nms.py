@@ -10,6 +10,10 @@ slot past the last survivor.
 ``nms_sorted`` dispatches: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel (csrc/nms.cu). There is no fallback: a kernel
 that fails to build or launch raises.
+
+``iou_above_band_plain`` is the kernel's IoU test, which forms the quotient
+only near the threshold; it is held to ``inter / union > thresh`` on the
+CPU (tests/test_torch_nms_band.py).
 """
 from __future__ import annotations
 
@@ -23,9 +27,17 @@ from . import build
 # around a run it wants to count.
 launches = 0
 
-# The walk keeps ceil(N/64) 64-bit words in shared memory (48 KB without an
-# opt-in attribute).
+# The walk keeps two words a tile of 64 boxes in shared memory (its `removed`
+# and `alive` bits: 96 KB at MAX_N) and, where it fits (up to ~9500 boxes a
+# pass), a ring of tiles' mask runs; MAX_N is the limit of the kernel this
+# one replaced.
 MAX_N = 48 * 1024 // 8 * 64
+# The kernel's IoU test: inter above union * TH_HI (rounded) is above the
+# threshold, below union * TH_LO not, whatever the quotient's rounding; only
+# between the two does it divide. Sound where the products stay normal:
+# thresholds in [BAND_MIN, 1].
+BAND = 2.0 ** -20
+BAND_MIN = 2.0 ** -60
 
 
 def _lib() -> ctypes.CDLL:
@@ -37,7 +49,25 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.nms_error_string.argtypes = [ctypes.c_int]
         lib.nms_error_string.restype = ctypes.c_char_p
+        lib.nms_first_pass_tiles.argtypes = [i, i]
+        lib.nms_walk_plan.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+def walk_routes(n: int, k: int) -> tuple:
+    """How the kernel walks N boxes for k survivors: per pass, "staged"
+    (the masks' runs by bulk copies into shared memory) or "global" (read
+    from global memory where the ring does not fit)."""
+    lib = _lib()
+    tiles = -(-n // 64)
+    r1 = lib.nms_first_pass_tiles(n, k)
+    nbuf = ctypes.c_int()
+    routes = []
+    for t0, t1 in ((0, r1), (r1, tiles)):
+        if t0 < t1:
+            lib.nms_walk_plan(tiles, t1 - t0, ctypes.byref(nbuf))
+            routes.append("staged" if nbuf.value else "global")
+    return tuple(routes)
 
 
 def _check_inputs(boxes: torch.Tensor, valid: torch.Tensor, k: int) -> None:
@@ -49,6 +79,28 @@ def _check_inputs(boxes: torch.Tensor, valid: torch.Tensor, k: int) -> None:
         raise ValueError(f"boxes on {boxes.device}, valid on {valid.device}")
     if boxes.shape[1] < 1 or k < 1:
         raise ValueError(f"need N >= 1 and k >= 1, got N={boxes.shape[1]} k={k}")
+
+
+def band_thresholds(thresh: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(thresh, thresh (1 + BAND), thresh (1 - BAND)) as float32 scalars,
+    each product rounded once as the kernel's host code rounds them."""
+    t = torch.tensor(thresh, dtype=torch.float32)
+    return (t, t * torch.tensor(1.0 + BAND, dtype=torch.float32),
+            t * torch.tensor(1.0 - BAND, dtype=torch.float32))
+
+
+def iou_above_band_plain(inter: torch.Tensor, union: torch.Tensor,
+                         thresh: float) -> torch.Tensor:
+    """The kernel's test of fl(inter / union) > thresh (csrc/nms.cu
+    suppresses), float32: certain above union * th_hi and below union *
+    th_lo, the quotient between; the quotient everywhere for thresholds
+    outside [BAND_MIN, 1]. -> bool, the shape of inter."""
+    t, th_hi, th_lo = band_thresholds(thresh)
+    exact = inter / union > t
+    if not BAND_MIN <= float(t) <= 1.0:
+        return exact
+    above, below = inter > th_hi * union, inter < th_lo * union
+    return above | (~below & exact)
 
 
 def nms_sorted_plain(
@@ -93,23 +145,28 @@ def nms_sorted_cuda(
     if boxes.data_ptr() % 16:
         raise ValueError("boxes must be 16-byte aligned (read as float4)")
     b, n, _ = boxes.shape
-    if n > MAX_N:
-        raise ValueError(f"N={n} exceeds the kernel's shared-memory limit {MAX_N}")
+    if n > MAX_N or b > 65535:
+        raise ValueError(f"N={n} exceeds the kernel's shared-memory limit {MAX_N}, or "
+                         f"B={b} its grid's 65535")
     lib = _lib()
-    words = -(-n // 64)
+    tiles = -(-n // 64)
     dev = boxes.device
-    mask = torch.empty((b, n, words), dtype=torch.int64, device=dev)
-    idx = torch.empty((b, k), dtype=torch.int32, device=dev)
+    # per image: the (row tile, column tile, row) suppression words, the
+    # valid bits and the kept rows of each tile, a count and a done flag
+    # (csrc/nms.cu nms_sorted_cuda)
+    scratch = torch.empty(b * (tiles * tiles * 64 + 2 * tiles + 1), dtype=torch.int64,
+                          device=dev)
+    idx = torch.empty((b, k), dtype=torch.int64, device=dev)
     ok = torch.empty((b, k), dtype=torch.bool, device=dev)
     err = lib.nms_sorted_cuda(
         boxes.data_ptr(), valid.data_ptr(), b, n, k, float(thresh), float(to_remove),
-        mask.data_ptr(), idx.data_ptr(), ok.data_ptr(),
+        scratch.data_ptr(), idx.data_ptr(), ok.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream, dev.index,
     )
     if err != 0:
         raise RuntimeError(f"nms_sorted_cuda launch failed: {lib.nms_error_string(err).decode()}")
     launches += 1
-    return idx.long(), ok
+    return idx, ok
 
 
 def nms_sorted(

@@ -11,7 +11,11 @@ tests points with the same values as the plain version on that device.
 
 ``roipool3d`` dispatches: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel (csrc/roipool3d.cu), whose one launch point is
-``roipool3d_cuda``, looked up at call time. There is no fallback.
+``roipool3d_cuda``, looked up at call time. There is no fallback. The
+kernel writes its rows on one of two routes, both hand-written: "bulk"
+(chunks of rows staged in shared memory and written by TMA bulk stores),
+wherever its ring of chunks fits in shared memory, else "direct" (each
+row stored from registers); ``_launch(..., route=...)`` forces one.
 """
 from __future__ import annotations
 
@@ -30,24 +34,29 @@ __all__ = ["roipool3d", "roipool3d_cuda", "roipool3d_plain"]
 launches = 0
 
 MAX_S = 8192
+# the kernel's routes by the number its C interface takes (0: its own plan)
+ROUTES = {"bulk": 1, "direct": 2}
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("roipool3d")
     if lib.roipool3d_cuda.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.roipool3d_cuda.argtypes = [p, p, p, p, i, i, i, i, i, f, p, p, p, i]
+        lib.roipool3d_cuda.argtypes = [p, p, p, p, i, i, i, i, i, f, i, p, p, p, i]
         lib.roipool3d_cuda.restype = i
         lib.roipool3d_error_string.argtypes = [i]
         lib.roipool3d_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def roipool3d_cuda(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
-                   sampled_pts_num: int = 512, max_dis: float = 10.0):
-    """Launch csrc/roipool3d.cu on the current stream; same contract as
+def _launch(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
+            sampled_pts_num: int = 512, max_dis: float = 10.0, route: str = None):
+    """Launch csrc/roipool3d.cu on the current stream on `route` ("bulk",
+    "direct", or None: the kernel's plan); same contract as
     roipool3d_plain. Every tensor float32, contiguous, on one card."""
     global launches
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route must be one of {sorted(ROUTES)}, got {route!r}")
     build.forward_only("roipool3d_cuda", pts, feats)
     if not pts.is_cuda:
         raise ValueError(f"pts must be on a CUDA device, got {pts.device}")
@@ -67,13 +76,20 @@ def roipool3d_cuda(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor
     empty = torch.empty((b, m), dtype=torch.bool, device=dev)
     err = lib.roipool3d_cuda(pts.data_ptr(), feats.data_ptr(), boxes3d.data_ptr(),
                              cossin.data_ptr(), b, n, m, c, sampled_pts_num, float(max_dis),
-                             out.data_ptr(), empty.data_ptr(),
+                             ROUTES.get(route, 0), out.data_ptr(), empty.data_ptr(),
                              torch.cuda.current_stream(dev).cuda_stream, dev.index)
     if err != 0:
         raise RuntimeError(f"roipool3d_cuda launch failed: "
                            f"{lib.roipool3d_error_string(err).decode()}")
     launches += 1
     return out, empty
+
+
+def roipool3d_cuda(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
+                   sampled_pts_num: int = 512, max_dis: float = 10.0):
+    """Launch csrc/roipool3d.cu on the route its plan picks from the
+    shapes; same contract as roipool3d_plain."""
+    return _launch(pts, feats, boxes3d, sampled_pts_num, max_dis)
 
 
 def roipool3d(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,

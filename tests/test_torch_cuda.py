@@ -52,6 +52,29 @@ def test_nms_kernel_matches_plain(card, kind, n, k, thresh):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("b,n,k,thresh,to_remove", [
+    (128, 128, 128, 0.8, 0.0), (128, 768, 768, 0.8, 0.0), (8, 1000, 1000, 0.7, 1.0),
+    (3, 3000, 40, 0.5, 1.0), (2, 10000, 600, 0.7, 1.0), (2, 12000, 2000, 0.7, 1.0)])
+def test_nms_kernel_at_more_sites_matches_plain(card, kind, b, n, k, thresh, to_remove):
+    """The 3D proposals' BEV NMS (no +1 term, k = N) at both budgets, Ns
+    that are not a multiple of 64 walked to their end and in two passes,
+    and an N whose walk reads the masks from global memory. Exact."""
+    boxes, scores, valid = (torch.from_numpy(x).to(card)
+                            for x in make_case(n + b, b, n, kind))
+    if n == 12000:
+        assert cnms.walk_routes(n, k) == ("global",)
+    before = cnms.launches
+    got = tnms.nms_topk_batched(boxes, scores, valid, thresh, k, to_remove=to_remove)
+    assert cnms.launches == before + 1
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cnms, "nms_sorted_cuda", cnms.nms_sorted_plain)
+        want = tnms.nms_topk_batched(boxes, scores, valid, thresh, k, to_remove=to_remove)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_nms_kernel_refuses_non_contiguous(card):
     boxes = torch.zeros(2, 8, 8, device=card)[..., :4]
     valid = torch.ones(2, 8, dtype=torch.bool, device=card)
@@ -621,11 +644,9 @@ def test_fp_kernel_matches_plain(card, b, nt, ns, c, cs, chain):
     _close(got, cfp.fp_fused_plain(unknown, known, kf, uf, ws))
 
 
-@pytest.mark.parametrize("b,n,m,c,s", [(128, 768, 16, 130, 512), (3, 700, 4, 5, 32),
-                                       (2, 50, 3, 0, 8)])
-def test_roipool3d_kernel_matches_plain(card, b, n, m, c, s):
-    """Boxes holding no point, fewer than S and more than S: rows and flags
-    exactly (copies of the same values)."""
+def _roipool_inputs(b, n, m, c):
+    """Seeded points and features, and boxes holding no point, fewer than
+    S and more than S."""
     gen = torch.Generator(device="cuda").manual_seed(n + m)
     pts = (torch.rand(b, n, 3, generator=gen, device="cuda") * 8 - 4).contiguous()
     feats = _randn(gen, b, n, c)
@@ -635,10 +656,33 @@ def test_roipool3d_kernel_matches_plain(card, b, n, m, c, s):
                          [0.0, 4.0, 0.0, 8.5, 9.0, 9.0, 0.3]], device="cuda")
     boxes = base[torch.arange(m, device="cuda") % 4][None].repeat(b, 1, 1)
     boxes[:, :, :3] += _randn(gen, b, m, 3, scale=0.3)
-    boxes = boxes.contiguous()
+    return pts, feats, boxes.contiguous()
+
+
+@pytest.mark.parametrize("b,n,m,c,s", [(128, 768, 16, 130, 512), (128, 768, 50, 130, 512),
+                                       (3, 700, 4, 5, 32), (2, 50, 3, 0, 8)])
+def test_roipool3d_kernel_matches_plain(card, b, n, m, c, s):
+    """The headline and the reference block, and small edges: rows and
+    flags exactly (copies of the same values)."""
+    pts, feats, boxes = _roipool_inputs(b, n, m, c)
     before = croi.launches
     got, gempty = croi.roipool3d(pts, feats, boxes, s)
     assert croi.launches == before + 1
+    want, wempty = croi.roipool3d_plain(pts, feats, boxes, s)
+    torch.cuda.synchronize()
+    assert torch.equal(gempty, wempty) and gempty.any() and not gempty.all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("route", ["bulk", "direct"])
+@pytest.mark.parametrize("b,n,m,c,s", [(4, 300, 6, 130, 7), (3, 700, 5, 130, 513),
+                                       (2, 500, 6, 7, 7), (2, 400, 3, 7, 45)])
+def test_roipool3d_routes_match_plain(card, route, b, n, m, c, s):
+    """Both routes where S is not a multiple of 4 (a box's run and its
+    chunks start off 16 bytes: plain stores at both ends of each bulk
+    store) and at an odd C. Exact."""
+    pts, feats, boxes = _roipool_inputs(b, n, m, c)
+    got, gempty = croi._launch(pts, feats, boxes, s, route=route)
     want, wempty = croi.roipool3d_plain(pts, feats, boxes, s)
     torch.cuda.synchronize()
     assert torch.equal(gempty, wempty) and gempty.any() and not gempty.all()
@@ -662,6 +706,8 @@ def test_point_kernels_refuse_bad_inputs(card):
                                  [(torch.zeros(32, 8, device=card), vec[:8])], 1.0, 16)
     with pytest.raises(ValueError, match="CUDA"):
         croi.roipool3d_cuda(xyz.cpu(), xyz.cpu(), torch.zeros(2, 1, 7), 8)
+    with pytest.raises(ValueError, match="route"):
+        croi._launch(xyz, xyz, torch.zeros(2, 1, 7, device=card), 8, route="tma")
 
 
 def _grads(out, leaves, dy):
