@@ -43,10 +43,11 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
   5. row 12, the grouped MLP + max, against its plain version at the 8
      site shapes of the SA-off route at the headline budget (RPN SA1-SA3,
      two scales each, and RCNN SA0 and SA1, whole: G groups of S rows) and
-     at edge cases (all pre-activations negative, S = 1, S that does not
-     divide the row tile, a last partial tile, widths that are not
-     multiples of 4), seeded inputs with non-trivial BN affines, within
-     CONV_RTOL/CONV_ATOL;
+     at edge cases (all pre-activations negative, S = 1, S = 48 and 24 that
+     do not divide the row tile, a last partial tile at S = 16, 32 and 64 and on
+     one consumer warpgroup, widths that are not multiples of 4), seeded
+     inputs with non-trivial BN affines, within CONV_RTOL/CONV_ATOL; the
+     weight packing equal to its plain version;
   6. the main path: predict answers 2 requests of 8 stereo pairs at
      384x1248 at the headline 3D budget and 1 at the reference budget (R-101
      2D detector, iDispNet over 16 ROIs of 224^2 per pair, disparity
@@ -106,7 +107,10 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      and RCNN stages beside the default route's, and its peak memory; then
      row 12 timed on the inputs that request gave it (every row of the
      grouped tensor counted in its bound: it cannot tell repeated ball
-     slots apart);
+     slots apart), with its 3xTF32 bound and weight packing's time; and
+     row 12 and its plain version at the 8 sites against the same function
+     in float64, the kernel held within twice the plain version's
+     distance;
  12. the bench (disprcnn_tpu_torch/bench.py): its canary (every kernel row
      at tiny shapes against its plain version), then time_pipeline at the
      headline budget on the models of phase 6, 3 requests after a warm-up:
@@ -251,7 +255,7 @@ BOX3D_TOL = 1e-3
 BOX3D_AGREE = 0.95
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit); the 3xTF32 rate is
 # the dense TF32 tensor-core peak over the 3 TF32 products a float32 product
-# takes in csrc/conv3d_tc.cu and csrc/mlp_tc.cuh
+# takes in csrc/conv3d_tc.cu, csrc/mlp_tc.cuh and csrc/mlp_wgmma.cuh
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TC_3XTF32_OPS_PER_S = 495e12 / 3
@@ -266,7 +270,8 @@ TC_ROWS = {"cost_volume_conv": lambda a: cconv.pack_tf32_cost_volume_weight_cuda
            "conv2d": lambda a: cconv.pack_tf32_weight_cuda(a[1]),
            "sa": lambda a: csa.pack_tf32_chain_cuda(a[6]),
            "sa_train": lambda a: csa.pack_tf32_chain_cuda(a[6]),
-           "fp": lambda a: csa.pack_tf32_chain_cuda(a[4])}
+           "fp": lambda a: csa.pack_tf32_chain_cuda(a[4]),
+           "grouped_mlp": lambda a: cgm.pack_for_launch(a[0], a[3])}
 IOU_OPS = 17  # float ops of one IoU and its threshold test (nms.cu box_iou)
 # soft-argmin: ops per (pixel, logit slice) of the bilinear H/W taps, and per
 # (pixel, disparity) of the D interpolation, exp, running max and two sums;
@@ -327,7 +332,13 @@ GM_SITES = (("RPN SA1 scale 0", 65536, 16, 64, (64, 128)),
 # partial tile, widths that are not multiples of 4 (the scalar path)
 GM_EDGES = (("all negative", 1000, 16, 64, (64, 128)), ("S = 1", 777, 1, 128, (196, 256)),
             ("S = 48", 301, 48, 64, (96, 128)), ("partial tile", 1001, 16, 128, (128,)),
-            ("odd widths", 517, 32, 65, (70, 33, 18)))
+            ("odd widths", 517, 32, 65, (70, 33, 18)),
+            # a last partial tile at S = 64 (two groups a tile), and at S = 32
+            # on one consumer warpgroup (the widest chain: two groups a tile)
+            ("partial tile, S = 64", 1001, 64, 128, (128, 128)),
+            ("partial tile, S = 32, one warpgroup", 1001, 32, 256, (384, 512)),
+            # S neither dividing 16 nor a multiple of 16: groups across warps
+            ("S = 24", 301, 24, 64, (96, 128)))
 # The train steps (tools/bench_train.py: idispnet.yaml's IMS_PER_BATCH 2,
 # rcnn.yaml's 1)
 PSM_PAIRS, PC_PAIRS = 2, 1
@@ -817,6 +828,10 @@ def phase_grouped_mlp_compare() -> dict:
     worst = 0.0
     for site, g, s, c0, chain in GM_SITES + GM_EDGES:
         args = grouped_mlp_inputs(gen, g, s, c0, chain, negative=site == "all negative")
+        nc = cgm.launch_plan([c0, *chain], s)[1]
+        if not torch.equal(cgm.pack_wgmma_chain_cuda(args[3], nc),
+                           cgm.pack_wgmma_chain(args[3], nc)):
+            raise AssertionError(f"grouped MLP {site}: the chain packing != its plain version")
         got = cgm.grouped_mlp_max_cuda(*args)
         want = cgm.grouped_mlp_max_plain(*args)
         e = conv_err(got, want, f"grouped MLP {site}")
@@ -1703,6 +1718,41 @@ def phase_breakdown(model2d, model3d, reqs, card: str) -> dict:
     return out
 
 
+def grouped_mlp_float64(x, mul0, add0, weights) -> torch.Tensor:
+    """Row 12's function with the input affine, every product and sum in
+    float64 and the max, rounded once to float32 at its end, 4096 groups at
+    a time."""
+    outs = []
+    for lo in range(0, x.shape[0], 4096):
+        y = torch.relu(x[lo:lo + 4096].double() * mul0.double() + add0.double())
+        outs.append(chain_float64(y, weights).amax(dim=1))
+    return torch.cat(outs)
+
+
+@torch.inference_mode()
+def grouped_mlp_exact_errs() -> dict:
+    """Row 12 and its plain float32 version against the same function in
+    float64 (grouped_mlp_float64) at the eight GM_SITES, whole: max |diff| /
+    max |exact| of each. The kernel's 3xTF32 chain must stay within twice
+    the plain float32 chain's distance."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    errs = {}
+    for site, g, s, c0, chain in GM_SITES:
+        args = grouped_mlp_inputs(gen, g, s, c0, chain)
+        exact = grouped_mlp_float64(*args)
+        scale = float(exact.abs().max())
+        kernel = float((cgm.grouped_mlp_max_cuda(*args) - exact).abs().max()) / scale
+        plain = float((cgm.grouped_mlp_max_plain(*args) - exact).abs().max()) / scale
+        errs[site] = (kernel, plain)
+        log(f"  grouped_mlp {site} against the chain in float64: kernel {kernel:.3g}, plain "
+            f"{plain:.3g} of max |exact|")
+        if not kernel <= 2 * plain:
+            raise AssertionError(f"row 12 at {site}: {kernel:.3g} from the float64 chain, more "
+                                 f"than twice the plain float32 chain's {plain:.3g}")
+        del args, exact
+    return errs
+
+
 def phase_sa_off(model2d, model3d, req, ref, default_stages: dict, err: float,
                  card: str) -> dict:
     """The SA-off route on one headline request (`req`, whose default-route
@@ -1744,6 +1794,7 @@ def phase_sa_off(model2d, model3d, req, ref, default_stages: dict, err: float,
              grouped_mlp_work, partial(main_path_err, "grouped_mlp"))],
             err, "grouped_mlp.cu", "disprcnn_tpu/ops/pallas/grouped_mlp.py:44")
         del calls
+        exact_errs = grouped_mlp_exact_errs()
     finally:
         set_kernels_off(model3d, ())
     dtotal, dstages = default_stages
@@ -1753,7 +1804,12 @@ def phase_sa_off(model2d, model3d, req, ref, default_stages: dict, err: float,
         f"pairs/s), split {total:.3f} ms (default {dtotal:.3f}): {split}; launches {launches}; "
         f"peak memory {peak_gb:.2f} GB; on the default run's clouds roi_ok and random equal, "
         f"box3d/score3d within {box_err:.3g} ({bad} of {n} instances out of tolerance)")
-    return {**row, "launches": launches["grouped_mlp"]}
+    worst = max(exact_errs, key=lambda k: exact_errs[k][0])
+    log(f"  grouped_mlp against float64, worst site {worst}: kernel {exact_errs[worst][0]:.3g}, "
+        f"plain {exact_errs[worst][1]:.3g} of max |exact|")
+    return {**row, "launches": launches["grouped_mlp"],
+            "float64_err": {k: v[0] for k, v in exact_errs.items()},
+            "plain_float64_err": {k: v[1] for k, v in exact_errs.items()}}
 
 
 def phase_bench(model2d, model3d, card: str) -> None:

@@ -1,5 +1,5 @@
 // A PointNet++ SharedMLP over grouped activations and the max over each
-// group, for Hopper (sm_90a), float32.
+// group, for Hopper (sm_90a), float32 at float32 accuracy.
 //
 // Replaces the TPU kernel disprcnn_tpu/ops/pallas/grouped_mlp.py
 // (grouped_mlp_max). For group g of S rows of x (G, S, C0), the grouped
@@ -8,82 +8,277 @@
 //   x_l = relu(x_{l-1} W_l + b_l)           (the folded-BN chain, 1-4 layers)
 //   out[g] = max over the S rows of the last x.
 // The TPU kernel rounded x, the weights and every layer to bf16; this one
-// is float32 throughout (the plain version's arithmetic, to a float32
-// tolerance).
+// is float32 in and out, its products in 3xTF32 on the tensor cores.
 //
 // Bound on an H100 SXM: operations. At the headline budget with the SA
 // kernel off, the chain's products over every row of x are ~2.1 TFLOP a
-// request (RCNN SA0 1.1, SA1 0.4, the six RPN scales 0.55), ~31 ms at 67
-// TFLOP/s, against ~13 GB of x read once (~4 ms at 3.35 TB/s). Rows that
-// repeat a ball's first neighbour cannot be told apart here, so every row
-// is computed and counted.
+// request (RCNN SA0 1.1, SA1 0.4, the six RPN scales 0.55): ~12.5 ms at the
+// 3xTF32 tensor-core rate (495 / 3 TFLOP/s), against ~13 GB of x read once
+// (~4 ms at 3.35 TB/s). Rows that repeat a ball's first neighbour cannot be
+// told apart here, so every row is computed and counted.
 //
-// Design: one block of 256 threads per tile of T = R / S whole groups (R =
-// 16, 32 or 64 rows, the largest that holds a group and fits in shared
-// memory); it loads the T S rows of x with the affine and ReLU into shared
-// memory (rows past the last group are zero and never reduced), runs the
-// chain as register-tiled products between two shared buffers and reduces
-// the last layer 128 columns at a time into the max over each group
-// (mlp.cuh: chain_max).
-// Only the (G, C_last) result is written.
+// Design: persistent blocks, one an SM, each walking tiles of T = 64 W / S
+// whole groups (W = 2 consumer warpgroups, 128 rows, where the shared
+// memory allows, else 1: the RPN SA3 scales). A block is W consumer
+// warpgroups and a producer warpgroup, which hands most of its registers
+// to the consumers (setmaxnreg; W = 2). One producer warp brings each
+// tile's x in by bulk copies (one a row, into rows padded to a leading
+// dimension of 4 mod 32) as soon as the consumers have finished the
+// previous tile's first layer; another streams the packed weight slabs
+// through a ring (mlp_wgmma.cuh), so one slab read from L2 serves the
+// tile's 64 W rows. Each consumer warpgroup runs the chain over its 64
+// rows on wgmma: x0's affine and ReLU applied while forming the first
+// layer's A fragments, hidden activations in shared memory, and the last
+// layer reduced from the accumulators into the max over each group
+// (shuffles within a warp; groups of 32 or more rows meet in shared
+// memory). Only the (G, C_last) result is written. The weights are split
+// and laid out once per launch by pack_kernel (grouped_mlp_pack_cuda, one
+// launch before).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mlp.cuh"
+#include "mlp_wgmma.cuh"
 
 namespace {
 
-constexpr int kMaxShared = 232448;  // bytes of shared memory a block may use
+namespace mw = mlp_wgmma;
 
-template <int RT>
-__global__ void __launch_bounds__(mlp::kThreads)
-grouped_mlp_kernel(const float* __restrict__ x, const float* __restrict__ mul0,
-                   const float* __restrict__ add0, mlp::Chain chain, int g, int s, int ld0,
-                   int ld1, float* __restrict__ out) {
-  constexpr int R = 8 * RT;
-  extern __shared__ float smem[];
-  float* buf0 = smem;              // R x ld0
-  float* buf1 = buf0 + R * ld0;    // R x ld1
-  float* chunk = buf1 + R * ld1;   // R x 128
-  const int tiles = R / s;
-  const int g0 = blockIdx.x * tiles;
-  const int groups = min(tiles, g - g0);
-  const int rows = groups * s;
-  const int c0 = chain.c[0];
-  const float* xt = x + (size_t)g0 * s * c0;
+constexpr size_t kMaxShared = 232448;  // bytes of shared memory a block may use
+// the producer warpgroup: the weight warp, the x warp and two idle warps
+// (a whole warpgroup, so that its registers can go to the consumers)
+constexpr int kProducerThreads = 128;
+// with two consumer warpgroups a block starts at 168 registers a thread
+// (384 threads); the producers give 128 each to the consumers
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
-  // 1. x0 = relu(x * mul0 + add0) for the tile's rows, zero below them
-  for (int e = threadIdx.x; e < R * c0; e += mlp::kThreads) {
-    const int r = e / c0, c = e - r * c0;
-    float val = 0.f;
-    if (r < rows) val = fmaxf(__ldg(xt + (size_t)r * c0 + c) * __ldg(mul0 + c) + __ldg(add0 + c),
-                              0.f);
-    buf0[r * ld0 + c] = val;
+// Byte offsets of a block's shared memory regions (each 128-byte aligned)
+// and its shapes.
+struct Layout {
+  size_t bars, mul, otile, ring, x, h0, h1, total;
+  int ldx, ld0, ld1, slot_floats, tile_groups, stages;
+};
+
+size_t align128(size_t v) { return (v + 127) & ~size_t(127); }
+
+// The layout for chans (C0, ..., C_layers), groups of s rows, wgs consumer
+// warpgroups, chunks of nc columns and a ring of `stages` slots; false if
+// it exceeds a block's shared memory.
+bool make_layout(const int* c, int layers, int s, int wgs, int nc, int stages, Layout* L) {
+  const int rows = 64 * wgs;
+  int widest = 0, w[2] = {0, 0};  // hidden layer l's output lives in h[l % 2]
+  for (int l = 0; l < layers; ++l) {
+    widest = max(widest, mw::pad32(c[l + 1]));
+    if (l + 1 < layers) w[l % 2] = max(w[l % 2], c[l + 1]);
   }
+  const int w0 = w[0], w1 = w[1];
+  L->stages = stages;
+  L->tile_groups = rows / s;
+  L->slot_floats = mw::slab_floats(min(nc, widest));
+  L->ldx = mw::lead(c[0]);
+  L->ld0 = w0 ? mw::lead(w0) : 0;
+  L->ld1 = w1 ? mw::lead(w1) : 0;
+  size_t off = 0;
+  L->bars = off;
+  off = align128(off + 8 * (2 + 2 * (size_t)stages));
+  L->mul = off;
+  off = align128(off + 4 * 2 * (size_t)mw::pad32(c[0]));
+  L->otile = off;
+  if (16 % s != 0) off = align128(off + 4 * (size_t)L->tile_groups * c[layers]);
+  L->ring = off;
+  off = align128(off + 4 * (size_t)stages * L->slot_floats);
+  L->x = off;
+  off = align128(off + 4 * (size_t)rows * L->ldx);
+  L->h0 = off;
+  off = align128(off + 4 * (size_t)rows * L->ld0);
+  L->h1 = off;
+  off = align128(off + 4 * (size_t)rows * L->ld1);
+  L->total = off;
+  return off <= kMaxShared;
+}
+
+struct Params {
+  const float* x;
+  const float* mul0;
+  const float* add0;
+  mw::Chain chain;
+  Layout L;
+  int g, s, bulk;  // bulk: x's rows come by bulk copies (C0 % 4 == 0, x 16-byte aligned)
+  float* out;
+};
+
+template <int WGS>
+__global__ void __launch_bounds__(WGS * 128 + kProducerThreads, 1)
+grouped_mlp_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout& L = p.L;
+  const mw::Chain& ch = p.chain;
+  constexpr int kConsumers = WGS * 128;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c0 = ch.c[0], co = ch.c[ch.layers], rows = 64 * WGS;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* x_full = bars;
+  uint64_t* x_empty = bars + 1;
+  float* mul0 = reinterpret_cast<float*>(smem + L.mul);
+  float* add0 = mul0 + mw::pad32(c0);
+  int* otile = reinterpret_cast<int*>(smem + L.otile);
+  float* xs = reinterpret_cast<float*>(smem + L.x);
+  float* h[2] = {reinterpret_cast<float*>(smem + L.h0), reinterpret_cast<float*>(smem + L.h1)};
+  const int ldh[2] = {L.ld0, L.ld1};
+  const mw::Ring ring{reinterpret_cast<float*>(smem + L.ring), bars + 2, bars + 2 + L.stages,
+                      L.stages, L.slot_floats};
+  const bool direct = 16 % p.s == 0;
+  const int tile_groups = L.tile_groups;
+  const int tiles = (p.g + tile_groups - 1) / tile_groups;
+
+  if (tid == 0) {
+    mw::bar_init(x_full, 1);
+    mw::bar_init(x_empty, 4 * WGS);
+    for (int i = 0; i < L.stages; ++i) {
+      mw::bar_init(ring.full + i, 1);
+      mw::bar_init(ring.empty + i, 4 * WGS);
+    }
+    tma::bar_init_fence();
+  }
+  // x's padding columns stay zero (the bulk copies write C0 columns a row);
+  // the affine's are zero too, so x0 is zero there
+  for (int i = tid; i < rows * L.ldx; i += blockDim.x) xs[i] = 0.f;
+  for (int i = tid; i < mw::pad32(c0); i += blockDim.x) {
+    mul0[i] = i < c0 ? p.mul0[i] : 0.f;
+    add0[i] = i < c0 ? p.add0[i] : 0.f;
+  }
+  if (!direct)
+    for (int i = tid; i < tile_groups * co; i += blockDim.x) otile[i] = 0;
+  tma::fence_to_async();
   __syncthreads();
 
-  // 2. the chain, the last layer reduced over each group
-  mlp::chain_max<RT>(chain, buf0, ld0, buf1, ld1, chunk, groups, s,
-                     out + (size_t)g0 * chain.c[chain.layers]);
+  if (warp >= 4 * WGS) {
+    if (WGS == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == 4 * WGS) {
+      // the weights: the packed chain once a tile
+      if (lane == 0) {
+        mw::Cursor cur;
+        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+          mw::produce_chain(ch, ring, cur);
+      }
+    } else if (warp == 4 * WGS + 1) {
+      // x: a tile's rows once its previous tile's first layer is done
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
+        if (it > 0) tma::wait(x_empty, (it - 1) & 1);
+        const int nrows = min(tile_groups, p.g - tile * tile_groups) * p.s;
+        const float* src = p.x + (size_t)tile * tile_groups * p.s * c0;
+        if (p.bulk) {
+          if (lane == 0) tma::expect(x_full, 4u * nrows * c0);
+          __syncwarp();
+          for (int r = lane; r < nrows; r += 32)
+            tma::load(xs + r * L.ldx, src + (size_t)r * c0, 4u * c0, x_full);
+        } else {
+          for (int e = lane; e < nrows * c0; e += 32) {
+            const int r = e / c0;
+            xs[r * L.ldx + e - r * c0] = src[e];
+          }
+          __syncwarp();
+          if (lane == 0) mw::arrive(x_full);
+        }
+      }
+    }
+    return;
+  }
+  if (WGS == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+
+  // the consumers: warpgroup wg owns the tile's rows 64 wg .. 64 wg + 63
+  const int wg = warp >> 2;
+  mw::Cursor cur;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
+    const int g0 = tile * tile_groups;
+    const mw::MaxOut mo{p.out + (size_t)g0 * co, otile, p.s, min(tile_groups, p.g - g0),
+                        64 * wg};
+    tma::wait(x_full, it & 1);
+    mw::layer<true>(ch, 0, xs + 64 * wg * L.ldx, L.ldx, mul0, add0, ring, cur,
+                    h[0] + 64 * wg * ldh[0], ldh[0], mo);
+    __syncwarp();
+    if (lane == 0) mw::arrive(x_empty);
+    for (int l = 1; l < ch.layers; ++l) {
+      const float* a = h[(l - 1) & 1] + 64 * wg * ldh[(l - 1) & 1];
+      mw::layer<false>(ch, l, a, ldh[(l - 1) & 1], nullptr, nullptr, ring, cur,
+                       h[l & 1] + 64 * wg * ldh[l & 1], ldh[l & 1], mo);
+      __syncwarp();
+    }
+    if (!direct) {
+      // every warp's maxes are in otile: write the tile's groups, clear it
+      mw::named_sync(1, kConsumers);
+      for (int i = tid; i < mo.groups * co; i += kConsumers) {
+        mo.out[i] = __int_as_float(otile[i]);
+        otile[i] = 0;
+      }
+      mw::named_sync(1, kConsumers);
+    }
+  }
 }
 
-size_t shared_bytes(int rows, int ld0, int ld1) {
-  return sizeof(float) * (size_t)rows * (ld0 + ld1 + mlp::kColChunk);
+// The chain's weights as the consumers' descriptors read them: per layer,
+// chunks of nc columns (the last one narrower where the padded width
+// calls for it), each chunk's slabs of 32 K values, a slab's hi image
+// then its lo image, an image's k8 steps, each step's groups of 8 columns
+// as two core matrices (K 0-3, K 4-7) of 8
+// columns x 4 K values; zero past W's rows and columns.
+struct Raw {
+  const float* w[mw::kMaxLayers];
+  int c[mw::kMaxLayers + 1];
+  int layers;
+};
+
+__global__ void pack_kernel(const Raw raw, int nc, float* __restrict__ out, int total) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= total) return;
+  int l = 0, base = 0;
+  while (o >= base + mw::packed_floats(raw.c[l], raw.c[l + 1])) {
+    base += mw::packed_floats(raw.c[l], raw.c[l + 1]);
+    ++l;
+  }
+  const int ci = raw.c[l], co = raw.c[l + 1], kp = mw::pad32(ci), np = mw::pad32(co);
+  int r = o - base;
+  const int chunk = r / (2 * kp * nc);
+  r -= chunk * 2 * kp * nc;
+  const int ncw = min(nc, np - chunk * nc);
+  const int slab = r / mw::slab_floats(ncw);
+  r -= slab * mw::slab_floats(ncw);
+  const int lo = r / (mw::kSlabK * ncw);
+  r -= lo * mw::kSlabK * ncw;
+  const int kk = r / (8 * ncw);
+  r -= kk * 8 * ncw;
+  const int n8 = r / 64, half = (r / 32) & 1, row = (r / 4) & 7, k4 = r & 3;
+  const int k = mw::kSlabK * slab + 8 * kk + 4 * half + k4;
+  const int col = chunk * nc + 8 * n8 + row;
+  const float v = k < ci && col < co ? raw.w[l][(size_t)k * co + col] : 0.f;
+  uint32_t hi, lov;
+  split_tf32(v, hi, lov);
+  out[o] = __uint_as_float(lo ? lov : hi);
 }
 
-template <int RT>
-cudaError_t launch(const float* x, const float* mul0, const float* add0, const mlp::Chain& chain,
-                   int g, int s, int ld0, int ld1, float* out, cudaStream_t stream) {
-  constexpr int R = 8 * RT;
-  const size_t bytes = shared_bytes(R, ld0, ld1);
-  cudaError_t err = cudaFuncSetAttribute(grouped_mlp_kernel<RT>,
+int check_chain(const int* chans, int layers) {
+  if (layers < 1 || layers > mw::kMaxLayers) return 0;
+  for (int l = 0; l <= layers; ++l)
+    if (chans[l] < 1) return 0;
+  return 1;
+}
+
+template <int WGS>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(grouped_mlp_kernel<WGS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+                                         static_cast<int>(p.L.total));
   if (err != cudaSuccess) return err;
-  const int tiles = R / s;
-  dim3 grid((g + tiles - 1) / tiles);
-  grouped_mlp_kernel<RT><<<grid, mlp::kThreads, bytes, stream>>>(x, mul0, add0, chain, g, s, ld0,
-                                                                  ld1, out);
+  int dev, sms;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int tiles = (p.g + p.L.tile_groups - 1) / p.L.tile_groups;
+  grouped_mlp_kernel<WGS><<<min(tiles, sms), WGS * 128 + kProducerThreads, p.L.total, stream>>>(
+      p);
   return cudaGetLastError();
 }
 
@@ -91,53 +286,89 @@ cudaError_t launch(const float* x, const float* mul0, const float* add0, const m
 
 extern "C" {
 
-// x (G, S, C0), mul0 and add0 (C0,), weights[l] (C_l, C_{l+1}) and
-// biases[l] (C_{l+1},) for l < layers (1..4), chans = (C0, ..., C_layers);
+// The launch plan for chans = (C0, ..., C_layers) and groups of s rows:
+// plan[0] consumer warpgroups (2, else 1), plan[1] the chunk width nc
+// (128, else 64), plan[2] the ring's slots (4 down to 2), plan[3] the
+// block's shared memory bytes: the first that fits, in that order.
+// Returns 0, or cudaErrorInvalidConfiguration if none fits.
+int grouped_mlp_plan(const int* chans, int layers, int s, int* plan) {
+  if (!check_chain(chans, layers) || s < 1 || s > 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int wgs = 2; wgs >= 1; --wgs)
+    for (int nc = mw::kMaxChunk; nc >= 64; nc /= 2)
+      for (int stages = 4; stages >= 2; --stages) {
+        Layout L;
+        if (make_layout(chans, layers, s, wgs, nc, stages, &L)) {
+          plan[0] = wgs;
+          plan[1] = nc;
+          plan[2] = stages;
+          plan[3] = static_cast<int>(L.total);
+          return 0;
+        }
+      }
+  return static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+// Floats of the packed chain for chans = (C0, ..., C_layers).
+int grouped_mlp_packed_floats(const int* chans, int layers) {
+  int total = 0;
+  for (int l = 0; l < layers; ++l) total += mw::packed_floats(chans[l], chans[l + 1]);
+  return total;
+}
+
+// The chain's weights[l] (C_l, C_{l+1}) for l < layers (1..4), chans =
+// (C0, ..., C_layers), split and laid out in chunks of nc (64 or 128)
+// columns into wpk (grouped_mlp_packed_floats(chans, layers) floats; the
+// plain version is ops/cuda/grouped_mlp.py::pack_wgmma_chain). Float32,
+// contiguous, on `device`. Launches on `stream`, returns the cudaError_t
+// of the launch.
+int grouped_mlp_pack_cuda(const void* const* weights, const int* chans, int layers, int nc,
+                          void* wpk, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!check_chain(chans, layers) || (nc != 64 && nc != mw::kMaxChunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Raw raw;
+  raw.layers = layers;
+  for (int l = 0; l <= layers; ++l) raw.c[l] = chans[l];
+  for (int l = 0; l < layers; ++l) raw.w[l] = static_cast<const float*>(weights[l]);
+  const int total = grouped_mlp_packed_floats(chans, layers);
+  pack_kernel<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      raw, nc, static_cast<float*>(wpk), total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (G, S, C0), mul0 and add0 (C0,), wpk the chain packed by
+// grouped_mlp_pack_cuda with plan[1] as nc, biases[l] (C_{l+1},) for l <
+// layers (1..4), chans = (C0, ..., C_layers), plan from grouped_mlp_plan;
 // all float32, contiguous. out (G, C_layers). 1 <= S <= 64. Launches on
 // `stream`, does not synchronise, returns the cudaError_t of the launch (0
 // on success).
-int grouped_mlp_cuda(const void* x, const void* mul0, const void* add0,
-                     const void* const* weights, const void* const* biases, const int* chans,
-                     int layers, int g, int s, void* out, void* stream, int device) {
+int grouped_mlp_cuda(const void* x, const void* mul0, const void* add0, const void* wpk,
+                     const void* const* biases, const int* chans, int layers, int g, int s,
+                     const int* plan, void* out, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (g < 1 || s < 1 || s > 64 || layers < 1 || layers > mlp::kMaxLayers)
+  if (g < 1 || s < 1 || s > 64 || !check_chain(chans, layers))
     return static_cast<int>(cudaErrorInvalidValue);
-  mlp::Chain chain;
-  chain.layers = layers;
-  for (int l = 0; l <= layers; ++l) {
-    if (chans[l] < 1) return static_cast<int>(cudaErrorInvalidValue);
-    chain.c[l] = chans[l];
-  }
-  for (int l = 0; l < layers; ++l) {
-    chain.w[l] = static_cast<const float*>(weights[l]);
-    chain.b[l] = static_cast<const float*>(biases[l]);
-  }
-  int ld0, ld1;
-  mlp::buffer_widths(chain, &ld0, &ld1);
-  chain.vec = mlp::vector_ok(chain, ld0, ld1);
-  // the largest row tile that holds a whole group and fits in shared memory
-  int rt = 0;
-  for (int cand = 8; cand >= 2; cand /= 2) {
-    const int rows = 8 * cand;
-    if (rows >= s && shared_bytes(rows, ld0, ld1) <= (size_t)kMaxShared) {
-      rt = cand;
-      break;
-    }
-  }
-  const float* xp = static_cast<const float*>(x);
-  const float* m0 = static_cast<const float*>(mul0);
-  const float* a0 = static_cast<const float*>(add0);
-  float* o = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rt == 8)
-    err = launch<8>(xp, m0, a0, chain, g, s, ld0, ld1, o, st);
-  else if (rt == 4)
-    err = launch<4>(xp, m0, a0, chain, g, s, ld0, ld1, o, st);
-  else if (rt == 2)
-    err = launch<2>(xp, m0, a0, chain, g, s, ld0, ld1, o, st);
-  else
+  Params p;
+  if ((plan[0] != 1 && plan[0] != 2) || (plan[1] != 64 && plan[1] != mw::kMaxChunk) ||
+      plan[2] < 2 || !make_layout(chans, layers, s, plan[0], plan[1], plan[2], &p.L))
     return static_cast<int>(cudaErrorInvalidConfiguration);
+  p.x = static_cast<const float*>(x);
+  p.mul0 = static_cast<const float*>(mul0);
+  p.add0 = static_cast<const float*>(add0);
+  p.chain.wpk = static_cast<const float*>(wpk);
+  p.chain.layers = layers;
+  p.chain.nc = plan[1];
+  for (int l = 0; l <= layers; ++l) p.chain.c[l] = chans[l];
+  for (int l = 0; l < layers; ++l) p.chain.b[l] = static_cast<const float*>(biases[l]);
+  p.g = g;
+  p.s = s;
+  p.bulk = chans[0] % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  p.out = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = plan[0] == 2 ? launch<2>(p, st) : launch<1>(p, st);
   return static_cast<int>(err);
 }
 

@@ -14,24 +14,38 @@ chain relu(x W + b) per layer, BN folded into W and b.
 ``grouped_mlp_max`` dispatches: a CPU tensor takes the plain version; a
 CUDA tensor launches the kernel (csrc/grouped_mlp.cu), whose one launch
 point is ``grouped_mlp_max_cuda``, looked up at call time. There is no
-fallback. That launch is forward only (``build.forward_only``).
+fallback. That launch is forward only (``build.forward_only``). The kernel
+runs the chain's products on the tensor cores (wgmma, csrc/mlp_wgmma.cuh)
+at float32 accuracy through error-compensated TF32 (each operand split as
+hi + lo by ``split_tf32``, each product lo*hi + hi*lo + hi*hi);
+``grouped_mlp_max_3xtf32_plain`` is the plain version in that arithmetic.
+Its weights are split and laid out as the kernel's shared-memory image by
+one launch before it (``pack_wgmma_chain_cuda``, whose plain version is
+``pack_wgmma_chain``), in chunks of the launch plan's width
+(``launch_plan``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from . import build
-from .sa import MAX_LAYERS, _check, mlp_chain
+from .conv3d import split_tf32
+from .sa import MAX_LAYERS, _check, mlp_chain, mlp_chain_3xtf32
 
 # Launches of the CUDA kernel in this process; a caller may reset it to 0
 # around a run it wants to count.
 launches = 0
 
-# a group fits in the kernel's largest row tile
+# a group fits in one consumer warpgroup's 64 rows
 MAX_S = 64
+# the packed weights are padded to this in K and N: a slab of the kernel's
+# weight ring holds this many K values (csrc/mlp_wgmma.cuh kSlabK) of a
+# chunk of 128 or 64 output columns (CHUNKS, the launch plan's choice)
+SLAB_K = 32
+CHUNKS = (128, 64)
 # the plain version works on chunks of at most this many activations of
 # its widest layer
 PLAIN_CHUNK_ELEMS = 1 << 27
@@ -43,8 +57,13 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("grouped_mlp")
     if lib.grouped_mlp_cuda.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.grouped_mlp_cuda.argtypes = [p, p, p, p, p, p, i, i, i, p, p, i]
-        lib.grouped_mlp_cuda.restype = i
+        lib.grouped_mlp_cuda.argtypes = [p, p, p, p, p, p, i, i, i, p, p, p, i]
+        lib.grouped_mlp_plan.argtypes = [p, i, i, p]
+        lib.grouped_mlp_packed_floats.argtypes = [p, i]
+        lib.grouped_mlp_pack_cuda.argtypes = [p, p, i, i, p, p, i]
+        for fn in (lib.grouped_mlp_cuda, lib.grouped_mlp_plan, lib.grouped_mlp_packed_floats,
+                   lib.grouped_mlp_pack_cuda):
+            fn.restype = i
         lib.grouped_mlp_error_string.argtypes = [i]
         lib.grouped_mlp_error_string.restype = ctypes.c_char_p
     return lib
@@ -57,16 +76,106 @@ def _check_layers(weights: Weights) -> None:
 
 
 def grouped_mlp_max_plain(x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor,
-                          weights: Weights) -> torch.Tensor:
+                          weights: Weights, chain: Optional[Callable] = None) -> torch.Tensor:
     """x (G, S, C0), mul0 and add0 (C0,), weights [(W (Ci, Co), b (Co,))]
-    -> (G, C_last)."""
+    -> (G, C_last). `chain` (x, weights) -> activations runs the layers
+    (mlp_chain by default)."""
     _check_layers(weights)
     g, s, c0 = x.shape
     widest = max([c0] + [w.shape[1] for w, _ in weights])
     step = max(1, PLAIN_CHUNK_ELEMS // (s * widest))
-    outs = [mlp_chain(torch.relu(x[lo:lo + step] * mul0 + add0), weights).amax(dim=1)
+    outs = [(chain or mlp_chain)(torch.relu(x[lo:lo + step] * mul0 + add0), weights).amax(dim=1)
             for lo in range(0, g, step)]
     return torch.cat(outs, 0)
+
+
+def grouped_mlp_max_3xtf32_plain(x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor,
+                                 weights: Weights) -> torch.Tensor:
+    """grouped_mlp_max_plain with each product of the chain in the kernel's
+    3xTF32 arithmetic (sa.py::mlp_chain_3xtf32)."""
+    return grouped_mlp_max_plain(x, mul0, add0, weights, chain=mlp_chain_3xtf32)
+
+
+def _pad(c: int) -> int:
+    return -(-c // SLAB_K) * SLAB_K
+
+
+def pack_wgmma_chain(weights: Weights, nc: int) -> torch.Tensor:
+    """The chain's weights as csrc/grouped_mlp.cu's kernel reads them into
+    shared memory: per layer W (Ci, Co) padded with zeros to (Kp, Np), both
+    multiples of SLAB_K, split by split_tf32; cut into chunks of nc (one
+    of CHUNKS) output columns (the last one narrower), each chunk into slabs of SLAB_K rows
+    of K; a slab is its hi image then its lo image, an image (K8 = 4 k8
+    steps, NCW / 8 column groups, 2 K halves, 8 columns, 4 K values) for
+    chunk width NCW: wgmma's K-major layout without swizzle, core matrices
+    of 8 columns x 4 K values. The layers, chunks and slabs one after the
+    other. The plain version of the kernel's own packing,
+    pack_wgmma_chain_cuda."""
+    parts = []
+    for w, _ in weights:
+        ci, co = w.shape
+        kp, np_ = _pad(ci), _pad(co)
+        hi, lo = split_tf32(torch.nn.functional.pad(w, (0, np_ - co, 0, kp - ci)))
+        for n0 in range(0, np_, nc):
+            ncw = min(nc, np_ - n0)
+
+            def image(t):
+                # (slab, kk, half, k4, n8, row) -> (slab, kk, n8, half, row, k4)
+                return (t[:, n0:n0 + ncw].reshape(kp // SLAB_K, SLAB_K // 8, 2, 4, ncw // 8, 8)
+                        .permute(0, 1, 4, 2, 5, 3).reshape(kp // SLAB_K, -1))
+            parts.append(torch.cat((image(hi), image(lo)), dim=1).reshape(-1))
+    return torch.cat(parts)
+
+
+def _chans(weights: Weights, c0: int):
+    chans = [c0] + [w.shape[1] for w, _ in weights]
+    return (ctypes.c_int * len(chans))(*chans), len(weights)
+
+
+def launch_plan(chans: Sequence[int], s: int) -> Tuple[int, int, int, int]:
+    """The kernel's launch plan for the chain's widths chans (C0, ...,
+    C_last) and groups of s rows: (consumer warpgroups, chunk width nc,
+    ring slots, shared memory bytes). Raises if no plan fits a block's
+    shared memory."""
+    lib = _lib()
+    carr = (ctypes.c_int * len(chans))(*chans)
+    plan = (ctypes.c_int * 4)()
+    err = lib.grouped_mlp_plan(carr, len(chans) - 1, s, plan)
+    if err != 0:
+        raise ValueError(f"grouped_mlp: no launch plan for widths {tuple(chans)} and S={s}: "
+                         f"{lib.grouped_mlp_error_string(err).decode()}")
+    return tuple(plan)
+
+
+def pack_wgmma_chain_cuda(weights: Weights, nc: int) -> torch.Tensor:
+    """pack_wgmma_chain(weights, nc) in one launch of csrc/grouped_mlp.cu's
+    packing on the current stream (each W float32, contiguous, on one
+    card; 1 to MAX_LAYERS layers)."""
+    if nc not in CHUNKS:
+        raise ValueError(f"nc must be one of {CHUNKS}, got {nc}")
+    _check_layers(weights)
+    dev = weights[0][0].device
+    cin = weights[0][0].shape[0]
+    for i, (w, _) in enumerate(weights):
+        _check(f"weights[{i}]", w, (cin, w.shape[1]), dev)
+        cin = w.shape[1]
+    lib = _lib()
+    carr, nl = _chans(weights, weights[0][0].shape[0])
+    wptr = (ctypes.c_void_p * nl)(*[w.data_ptr() for w, _ in weights])
+    out = torch.empty(lib.grouped_mlp_packed_floats(carr, nl), device=dev)
+    err = lib.grouped_mlp_pack_cuda(wptr, carr, nl, nc, out.data_ptr(),
+                                    torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    if err != 0:
+        raise RuntimeError(f"grouped_mlp_pack_cuda launch failed: "
+                           f"{lib.grouped_mlp_error_string(err).decode()}")
+    return out
+
+
+def pack_for_launch(x: torch.Tensor, weights: Weights) -> torch.Tensor:
+    """The packed weights that a launch of the kernel on x (G, S, C0) reads:
+    the weight packing each launch runs first."""
+    plan = launch_plan([x.shape[2]] + [w.shape[1] for w, _ in weights], x.shape[1])
+    return pack_wgmma_chain_cuda(weights, plan[1])
 
 
 def grouped_mlp_max_cuda(x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor,
@@ -94,13 +203,15 @@ def grouped_mlp_max_cuda(x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor
     if not 1 <= s <= MAX_S or g < 1 or g >= 1 << 31:
         raise ValueError(f"need 1 <= S <= {MAX_S} and 1 <= G < 2^31, got S={s}, G={g}")
     lib = _lib()
+    plan = launch_plan(chans, s)
+    wpk = pack_wgmma_chain_cuda(weights, plan[1])
     out = torch.empty((g, chans[-1]), device=dev)
     nl = len(weights)
-    wptr = (ctypes.c_void_p * nl)(*[w.data_ptr() for w, _ in weights])
     bptr = (ctypes.c_void_p * nl)(*[bias.data_ptr() for _, bias in weights])
     carr = (ctypes.c_int * len(chans))(*chans)
-    err = lib.grouped_mlp_cuda(x.data_ptr(), mul0.data_ptr(), add0.data_ptr(), wptr, bptr, carr,
-                               nl, g, s, out.data_ptr(),
+    parr = (ctypes.c_int * 4)(*plan)
+    err = lib.grouped_mlp_cuda(x.data_ptr(), mul0.data_ptr(), add0.data_ptr(), wpk.data_ptr(),
+                               bptr, carr, nl, g, s, parr, out.data_ptr(),
                                torch.cuda.current_stream(dev).cuda_stream, dev.index)
     if err != 0:
         raise RuntimeError(f"grouped_mlp_cuda launch failed: "

@@ -572,9 +572,18 @@ def test_sa_kernel_matches_plain(card, b, n, m, c0, chain, radius, s):
     (2048, 64, 128, (128, 256), False),  # RCNN SA1
     (1000, 16, 64, (64, 128), True),     # every pre-activation below 0: the max is 0
     (777, 1, 128, (196, 256), False),    # S = 1
-    (301, 48, 64, (96, 128), False),     # S = 48: one group and 16 padding rows a tile
+    (301, 48, 64, (96, 128), False),     # S = 48: two groups and 32 idle rows a tile
     (1001, 16, 128, (128,), False),      # one layer, a last partial tile
     (517, 32, 65, (70, 33, 18), False),  # widths not multiples of 4 (the scalar path)
+    # whole tiles only, each block walking one or more: the tile boundaries
+    # split no group (128-row tiles of 8, 4 and 2 groups)
+    (1056, 16, 64, (64, 128), False),    # S = 16: 132 tiles, one a block
+    (2128, 32, 128, (128, 128), False),  # S = 32: 532 tiles
+    (528, 64, 128, (128, 256), False),   # S = 64: 264 tiles, two a block
+    (1001, 16, 256, (384, 512), False),  # the widest chain 256 -> 384 -> 512, S = 16
+    # S neither dividing 16 nor a multiple of 16: the max value by value
+    (301, 24, 64, (96, 128), False),     # groups across two warps
+    (333, 5, 64, (64,), False),          # groups across warps and row halves
 ])
 def test_grouped_mlp_kernel_matches_plain(card, g, s, c0, chain, negative):
     """Row 12: max |diff| <= 1e-4 * max |plain| + 1e-5 (float32 sums in
