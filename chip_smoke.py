@@ -150,7 +150,22 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
  17. each train form timed on the inputs one step gave it (row 8 forward
      and dx, row 11 forward), beside its plain version, the library call
      (row 8: F.conv3d and cuDNN's input gradient) and its bound; ms per
-     step, crops/s and pairs/s.
+     step, crops/s and pairs/s;
+ 18. the 3D RPN train step (configs/kitti/car/vob/rpn.yaml, tools/
+     bench_train.py rpn_stage): 3 pairs with 16 detections each (48 clouds
+     of 768 points), iDispNet frozen, the RPN in train mode (BN batch
+     statistics through PointNet++ and the heads, fixed dropout masks), the
+     RCNN disabled, each GT box on its own cloud, BCE, OneCycle BASE_LR
+     0.002, grad clip 10; 1 warm-up and TRAIN_STEPS timed steps with the
+     launches counted from 0: rows 2-7, 9 and 15 launch, rows 1, 8 and
+     10-14 not; every trainable parameter with a finite gradient, every
+     RPN BN statistic moved and finite; peak memory, the positive and
+     ignored point counts and the losses logged; then the kernel step
+     against the plain step from the seeded weights on one frozen-stage
+     output, as phase 16 (the RPN's input is shared, so of the kernels
+     only row 9, FPS, is inside what this compares: rows 2-7 and 15 are
+     held to their plain versions in phases 3, 9 and 15), and one step
+     split into stages by CUDA events.
 Then it prints the card (name, power limit) from nvidia-smi, one JSON line
 of per-kernel numbers (eval kernels per headline request, row 12 per
 SA-off headline request, train forms per train step), and as its last
@@ -196,7 +211,7 @@ from disprcnn_tpu_torch.ops.cuda import sa as csa
 from disprcnn_tpu_torch.ops.cuda import softargmin as csam
 from disprcnn_tpu_torch.structures.stereo import StereoBoxes
 from disprcnn_tpu_torch.tools import bench_train
-from disprcnn_tpu_torch.tools.bench_train import PC_TRAIN, PSM_TRAIN
+from disprcnn_tpu_torch.tools.bench_train import PC_TRAIN, PSM_TRAIN, RPN_PAIRS, RPN_TRAIN
 from disprcnn_tpu_torch.utils.weights import init_random_
 
 # The pipeline's geometry, budgets, calibration and the kernel-against-
@@ -204,7 +219,7 @@ from disprcnn_tpu_torch.utils.weights import init_random_
 # the first card run of these kernels) are the bench's
 # (disprcnn_tpu_torch/bench.py); the train stages' configurations are
 # disprcnn_tpu_torch/tools/bench_train.py's.
-PHASES = 17
+PHASES = 18
 PAIRS = 8
 REQUESTS = 2  # at the headline budget; one more at the reference budget
 # the tests' small configurations (tests/torch_port_helpers.py, tests/test_torch_disprcnn3d.py)
@@ -1978,20 +1993,26 @@ def deterministic():
         torch.use_deterministic_algorithms(False)
 
 
-def kernel_vs_plain_step(model, opt, step, batch, what: str, share=None, others=None):
+def kernel_vs_plain_step(model, opt, step, batch, what: str, share=None, others=None,
+                         share_inputs=None):
     """One step on the kernels and one on the plain versions (all_plain),
     both from the same weights and optimizer state, and one more such step
     for each entry of `others` (name -> launch overrides on top of
     all_plain). `share` (a module whose rcnn_targets the plain step takes
-    from the kernel step) makes them train on one frozen-stage output. ->
-    (loss relative difference, kernel-step gradients, plain-step
-    gradients, the other steps' gradients by name, kernel-step metrics)."""
+    from the kernel step) makes them train on one frozen-stage output;
+    `share_inputs` (a module that the plain step calls on the kernel
+    step's inputs) on one frozen-stage input to the module. -> (loss
+    relative difference, kernel-step gradients, plain-step gradients, the
+    other steps' gradients by name, kernel-step metrics, what was shared)."""
     sd, osd, count = copy.deepcopy(model.state_dict()), copy.deepcopy(opt.sgd.state_dict()), \
         opt.count
     recorded = []
     if share is not None:
         orig = share.rcnn_targets
         share.rcnn_targets = lambda *a: recorded.append(orig(*a)) or recorded[-1]
+    if share_inputs is not None:
+        forward = share_inputs.forward
+        share_inputs.forward = lambda *a: recorded.append(a) or forward(*a)
 
     def plain_step(**overrides):
         model.load_state_dict(sd)
@@ -2010,11 +2031,15 @@ def kernel_vs_plain_step(model, opt, step, batch, what: str, share=None, others=
             gk = {n: p.grad.clone() for n, p in trainable(model).items()}
             if share is not None:
                 share.rcnn_targets = lambda *a: recorded[0]
+            if share_inputs is not None:
+                share_inputs.forward = lambda *a: forward(*recorded[0])
             mp, gp = plain_step()
             go = {name: plain_step(**overrides)[1] for name, overrides in (others or {}).items()}
     finally:
         if share is not None:
             del share.rcnn_targets
+        if share_inputs is not None:
+            del share_inputs.forward
     torch.cuda.synchronize()
     lk, lp = float(mk["loss_total"]), float(mp["loss_total"])
     rel = abs(lk - lp) / max(abs(lp), 1e-30)
@@ -2123,6 +2148,62 @@ def phase_pc_train(card: str) -> dict:
                 unit=PC_PAIRS, pairs=PC_PAIRS)
 
 
+def phase_rpn_train(card: str) -> None:
+    """The 3D RPN step (stage 3): the timed steps with their launches
+    counted from 0, every RPN BN statistic moved and finite, then the
+    kernel step against the plain step from the seeded weights on one
+    frozen-stage output (the clouds, their frame and the matched GT): FPS
+    (row 9) is the one kernel inside that comparison."""
+    st = bench_train.rpn_stage(RPN_PAIRS, torch.Generator(device="cuda").manual_seed(14))
+    model, opt, step, batch = st.model, st.optimizer, st.step, st.batch
+    d, rpn = RPN_TRAIN["max_det"], model.pointrcnn.rpn
+    before = {n: t.detach().clone() for n, t in [*model.named_buffers(),
+                                                 *model.named_parameters()]}
+    start = copy.deepcopy(model.state_dict()), copy.deepcopy(opt.sgd.state_dict()), opt.count
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms = bench_train.time_steps(st, TRAIN_STEPS)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = check_grads_and_stats(model, before, "RPN step", bn_trains=True)
+    stats = {n: b for n, b in rpn.named_buffers() if "running" in n}
+    stuck = [n for n, b in stats.items()
+             if torch.equal(b, before[f"pointrcnn.rpn.{n}"]) or not torch.isfinite(b).all()]
+    if stuck:
+        raise AssertionError(f"RPN step: {len(stuck)} of {len(stats)} RPN BN statistics did not "
+                             f"move or are not finite, e.g. {stuck[:3]}")
+    model.load_state_dict(start[0])
+    opt.sgd.load_state_dict(start[1])
+    opt.count = start[2]
+    needed = ("cost_volume_conv", "conv3d", "conv3d_cl1", "conv3d_s2", "deconv3d", "conv2d",
+              "softargmin", "fps")
+    absent = ("nms_sorted", "conv3d_train", "sa", "sa_train", "grouped_mlp", "fp", "roipool3d")
+    if any(launches[k] == 0 for k in needed) or any(launches[k] for k in absent):
+        raise AssertionError(f"RPN step launches {launches}: rows 2-7, 9 and 15 must each "
+                             f"launch, rows 1, 8 and 10-14 not")
+    rel, gk, gp, _, mk, _ = kernel_vs_plain_step(model, opt, step, batch, "RPN step",
+                                                 share_inputs=model.pointrcnn)
+    grad_err = grads_agree(gk, gp, "RPN step")
+    total, split = split_by_events(
+        lambda: step(batch),
+        [(model.idispnet, "post", "crops + frozen iDispNet"),
+         (model.pointrcnn, "pre", "lift + GT match"), (rpn.backbone, "post", "RPN backbone"),
+         (rpn.reg_head, "post", "RPN heads"), (model, "post", "labels + RPN loss")],
+        [(opt, "step", "backward", "optimizer")], "metrics")
+    mean = sum(ms) / len(ms)
+    log(f"[18/{PHASES}] 3D RPN train step ({RPN_PAIRS} pairs, {RPN_PAIRS * d} clouds of "
+        f"{RPN_TRAIN['npoints']} points, {st.with_points} with points) on {card}: ms/step "
+        f"{[round(t, 3) for t in ms]} (mean {mean:.3f}: {RPN_PAIRS * 1e3 / mean:.3f} pairs/s), "
+        f"loss_rpn_cls {float(mk['loss_rpn_cls']):.5g}, loss_rpn_reg "
+        f"{float(mk['loss_rpn_reg']):.5g}, {st.positive} positive and {st.ignored} ignored "
+        f"points, launches {launches}, {len(trainable(model))} RPN parameters with finite "
+        f"gradients, {moved} BN statistics moved ({len(stats)} of the RPN's), peak memory "
+        f"{peak:.2f} GB; kernel (row 9) vs plain step on one frozen-stage output: loss "
+        f"{rel:.3g} relative, gradients per tensor max |diff| <= {grad_err:.3g} * max "
+        f"|plain|; one step split, {total:.3f} ms: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+
+
 def phase_train_timing(psm: dict, pc: dict, errs: dict, card: str) -> dict:
     """Rows 8 and 11 on the inputs one train step gave them (time_launches),
     and the step times of phases 15 and 16 with one step of each split into
@@ -2212,6 +2293,9 @@ def main() -> int:
         rows = phase_train_timing(psm, pc, train_errs, card)
         kernels += [{**rows["conv3d_train"], "launches": psm["launches"]["conv3d_train"]},
                     {**rows["sa_train"], "launches": pc["launches"]["sa_train"]}]
+        del psm, pc
+        torch.cuda.empty_cache()
+        phase_rpn_train(card)
         log(f"done in {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     except Exception:  # report any phase's failure and exit non-zero
         traceback.print_exc()

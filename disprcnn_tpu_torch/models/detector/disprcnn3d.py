@@ -9,17 +9,21 @@ B * max_det ROIs, valid or not, as the JAX package does (fixed shapes).
 With det3d_on=False (configs/kitti/car/vob/idispnet.yaml) that is all.
 With det3d_on=True (configs/kitti/car/vob/rcnn.yaml) the instance
 disparity is lifted to one fixed-size pseudo-LiDAR cloud per ROI and
-PointRCNN returns one 3D box per ROI.
+PointRCNN returns one 3D box per ROI; with rcnn_enabled=False (rpn.yaml)
+it has no RCNN, and eval returns the disparity and roi_ok only, as JAX's
+does.
 
-Train mode (SOLVER.TRAIN_PSM / TRAIN_PC, disprcnn3d.py:162-264) first drops
+Train mode (SOLVER.TRAIN_PSM / TRAIN_PC, disprcnn3d.py:162-290) first drops
 the low-score detections (keeping the best two) and keeps the
 max_roi_train best of each image. With train_psm, iDispNet trains on the
 crops against the GT disparity warped into each crop, masked by the
 detection's mask and the disparity range (loss_psm, deep supervision
 0.5/0.7/1.0). With train_pc, iDispNet is frozen (eval, no gradients), the
 lift runs on its disparity, each detection takes the GT box its left box
-overlaps most (IoU >= 0.5), and PointRCNN trains its RCNN on a fixed RPN
-(loss_box3d).
+overlaps most (IoU >= 0.5), and PointRCNN trains either its 3D RPN
+(rcnn_enabled=False: stage 3, rpn.yaml; loss_rpn_cls and loss_rpn_reg)
+or its RCNN on a fixed RPN (rcnn_enabled=True: stage 4, rcnn.yaml;
+loss_box3d).
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from ..pointrcnn import lift
 from ..pointrcnn.lift import _bilinear_separable, _grid_fractions, expand_box_to_integer
 from ..pointrcnn.point_rcnn import MEAN_SIZE, ROI_BLOCK, PointRCNN
 from ..pointrcnn.rcnn3d import FG_AUG_TIMES, RCNNDraws, draw_rcnn_draws
+from ..pointrcnn.rpn3d import RPNDraws, draw_rpn_draws
 from ..pointrcnn.pointnet2 import SA_MIN_C0
 from ..psmnet.psmnet import PSMNet
 
@@ -163,14 +168,17 @@ CALIB_KEYS = ("fu", "fv", "cu", "cv", "tx", "ty", "fuxb")
 class DispRCNN3D(nn.Module):
     """The JAX constructor's names and defaults for the fields that the port
     runs, but det3d_on defaults to False (the iDispNet-only
-    configuration). The JAX package's rcnn_enabled (True), rpn_nms_rotated
-    and rpn_distance_based (False), and the train fields that every config
-    of the repo sets alike (rpn_fixed True: RPN training is not ported;
-    aug_data True, fg_aug_times 10, aug_rot_range 18, rcnn_loss_cls
-    BinaryCrossEntropy, rpn_nms_thresh_train unset) are not options here:
-    the port runs only those values. Its DISPRCNN_SA_MIN_C0 and
-    DISPRCNN_RCNN_ROI_BLOCK knobs are the arguments sa_min_c0 and
-    roi_block, with the shipped values; DISPRCNN_PALLAS_DISABLE's PointNet++
+    configuration). Stage 3 (rpn.yaml) is det3d_on=True,
+    rcnn_enabled=False. The JAX package's rpn_fixed is rcnn_enabled here:
+    every config of the repo trains the RPN without an RCNN (rpn.yaml) or
+    the RCNN on a fixed RPN (rcnn.yaml), and both in one step (JAX's
+    default) is not ported (ROADMAP A4.4). Its rpn_nms_rotated and
+    rpn_distance_based (False), and the train fields that every config of
+    the repo sets alike (aug_data True, fg_aug_times 10, aug_rot_range 18,
+    rpn_loss_cls and rcnn_loss_cls BinaryCrossEntropy, rpn_nms_thresh_train
+    unset) are not options here: the port runs only those values. Its
+    DISPRCNN_SA_MIN_C0 and DISPRCNN_RCNN_ROI_BLOCK knobs are the arguments
+    sa_min_c0 and roi_block, with the shipped values; DISPRCNN_PALLAS_DISABLE's PointNet++
     tags ("sa", "pool", "fp") are the argument kernels_off (none off by
     default; models/pointrcnn/pointnet2.py)."""
 
@@ -185,7 +193,8 @@ class DispRCNN3D(nn.Module):
                  sa_npoints: Tuple[int, ...] = (768, 512, 256, 64), rpn_score_thresh: float = 0.3,
                  rpn_nms_thresh: float = 0.8, psm_hourglass: int = 3,
                  sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset(),
-                 roi_block: int = ROI_BLOCK, device: str | torch.device = "cuda"):
+                 roi_block: int = ROI_BLOCK, rcnn_enabled: bool = True,
+                 device: str | torch.device = "cuda"):
         super().__init__()
         self.max_det = max_det
         self.roi_size = roi_size
@@ -205,7 +214,7 @@ class DispRCNN3D(nn.Module):
                     sa_min_c0=sa_min_c0, kernels_off=kernels_off, roi_block=roi_block,
                     proposals_per_roi_train=proposals_per_roi_train,
                     rpn_pre_nms_per_roi_train=rpn_pre_nms_per_roi_train,
-                    rcnn_rois_per_instance=rcnn_rois_per_instance)
+                    rcnn_rois_per_instance=rcnn_rois_per_instance, rcnn_enabled=rcnn_enabled)
         self.eval()
 
     @property
@@ -220,12 +229,14 @@ class DispRCNN3D(nn.Module):
                 gt_left: Optional[torch.Tensor] = None,
                 gt_boxes3d: Optional[torch.Tensor] = None,
                 gt_valid: Optional[torch.Tensor] = None,
-                rcnn_draws: Optional[RCNNDraws] = None) -> Dict[str, torch.Tensor]:
+                rcnn_draws: Optional[RCNNDraws] = None,
+                rpn_draws: Optional[RPNDraws] = None) -> Dict[str, torch.Tensor]:
         """left_img, right_img (B, H, W, 3) raw [0, 1] RGB; dets batched
         (B, D, ...) 2D detections, with the "mask" field (B, D, M, M) when
         det3d_on or training. In eval returns the JAX eval outputs:
-        "disparity_roi" (B * D, roi, roi); with det3d_on also "box3d" (B, D,
-        7), "score3d" (B, D), "random" (B, D) and "roi_ok" (B, D).
+        "disparity_roi" (B * D, roi, roi); with det3d_on also "roi_ok" (B,
+        D) and, with the RCNN enabled, "box3d" (B, D, 7), "score3d" (B, D)
+        and "random" (B, D).
 
         det3d_on needs `calib`, {fu, fv, cu, cv, tx, ty, fuxb} of (B,)
         tensors, and the lift's sampling priorities: `priorities` (B * D',
@@ -233,10 +244,12 @@ class DispRCNN3D(nn.Module):
         draw them from.
 
         In train mode, with train_psm: gt_disp (B, H, W), and the outputs
-        gain "loss_psm"; with train_pc (det3d_on; the RPN fixed): calib,
-        gt_left (B, M, 4), gt_boxes3d (B, M, 7) rect frame, gt_valid (B, M),
-        the priorities and `rcnn_draws` (or the generator for both), and the
-        outputs gain "loss_box3d". D' is max_roi_train when it caps D."""
+        gain "loss_psm"; with train_pc (det3d_on): calib, gt_left (B, M, 4),
+        gt_boxes3d (B, M, 7) rect frame, gt_valid (B, M) and the priorities,
+        then with the RCNN `rcnn_draws` (or the generator for both) and the
+        outputs gain "loss_box3d", without it `rpn_draws` (the RPN's dropout
+        masks, or the generator) and they gain "loss_rpn_cls" and
+        "loss_rpn_reg". D' is max_roi_train when it caps D."""
         dets = remove_illegal_detections(dets)
         train = self.training
         if train:
@@ -290,23 +303,29 @@ class DispRCNN3D(nn.Module):
         roi_ok = valid & has_pts
         angles = lift.canonical_angles(left_b, float(left_img.shape[2]), cal["fu"])
         pts_c, pts_mean = lift.canonicalize(pts, angles)
+        prc = self.pointrcnn
         if train:
-            self.pointrcnn.rpn.eval()  # RPN.FIXED: training the RPN (stage 3) is not ported
             if gt_left is None or gt_boxes3d is None or gt_valid is None:
                 raise ValueError("train_pc needs gt_left, gt_boxes3d and gt_valid")
             gt, gt_ok = match_gt(dets.left, dets.valid, gt_left, gt_boxes3d, gt_valid)
-            if rcnn_draws is None:
+            if prc.rcnn_enabled and rcnn_draws is None:
                 if generator is None:
                     raise ValueError("train_pc needs rcnn_draws or a generator")
-                prc = self.pointrcnn
                 rcnn_draws = draw_rcnn_draws(
                     b * d, prc.proposals_per_roi_train or prc.proposals_per_roi,
                     prc.rcnn_rois_per_instance, FG_AUG_TIMES, generator, disp.device)
-            out.update(self.pointrcnn(pts_c, roi_ok, angles, pts_mean, gt.reshape(b * d, 7),
-                                      gt_ok.reshape(b * d), rcnn_draws))
+            if not prc.rcnn_enabled and rpn_draws is None:
+                if generator is None:
+                    raise ValueError("training the RPN needs rpn_draws or a generator")
+                rpn = prc.rpn
+                rpn_draws = draw_rpn_draws(b * d, self.npoints, generator, disp.device,
+                                           (rpn.cls_head.hidden[0], rpn.reg_head.hidden[0]))
+            out.update(prc(pts_c, roi_ok, angles, pts_mean, gt.reshape(b * d, 7),
+                           gt_ok.reshape(b * d), rcnn_draws, rpn_draws))
             return out
-        pr = self.pointrcnn(pts_c, roi_ok, angles, pts_mean)
-        for k in ("box3d", "score3d", "random"):
-            out[k] = pr[k].reshape((b, d) + pr[k].shape[1:])
+        pr = prc(pts_c, roi_ok, angles, pts_mean)
+        if prc.rcnn_enabled:
+            for k in ("box3d", "score3d", "random"):
+                out[k] = pr[k].reshape((b, d) + pr[k].shape[1:])
         out["roi_ok"] = roi_ok.reshape(b, d)
         return out

@@ -27,6 +27,7 @@ from typing import Tuple
 
 import torch
 
+from ...ops.roipool3d import pts_in_boxes3d
 from ...structures.boxes3d import (corners_from_xyzhwl_ry, rotate_points_along_y,
                                    xyzhwl_ry_from_corners)
 
@@ -145,3 +146,25 @@ def decanonicalize_boxes3d(boxes: torch.Tensor, angles: torch.Tensor, mean: torc
     """Inverse of canonicalize_boxes3d: un-centre, then rotate back."""
     corners = corners_from_xyzhwl_ry(boxes) + mean[:, None, :]
     return xyzhwl_ry_from_corners(rotate_points_along_y(corners, -angles))
+
+
+def rpn_point_labels(pts: torch.Tensor, gt_boxes: torch.Tensor, gt_ok: torch.Tensor):
+    """The RPN's per-point targets (point_rcnn.py:402-432
+    generate_rpn_training_labels). pts (R, N, 3) and the matched GT boxes
+    (R, 7) xyzhwl_ry, both in the canonical frame, gt_ok (R,) ->
+    cls_label (R, N): 1 inside the GT box, -1 inside the box grown by 0.2
+    (h, w, l + 0.4, bottom y + 0.2) but not in it, else 0, and 0 for every
+    point of an instance without GT; reg_label (R, N, 7): the true centre
+    (bottom y - h / 2) minus the point, then h, w, l and ry."""
+    boxes = gt_boxes[:, None, :]
+    inside = pts_in_boxes3d(pts, boxes)[:, 0]
+    grow = gt_boxes.new_tensor([0.0, 0.2, 0.0, 0.4, 0.4, 0.4, 0.0])
+    near = pts_in_boxes3d(pts, boxes + grow)[:, 0]
+    one = torch.ones_like(pts[..., 0])
+    cls = torch.where(inside, one, torch.where(near, -one, torch.zeros_like(one)))
+    cls = torch.where(gt_ok[:, None], cls, torch.zeros_like(cls))
+    center = torch.stack([gt_boxes[:, 0], gt_boxes[:, 1] - gt_boxes[:, 3] / 2, gt_boxes[:, 2]],
+                         dim=-1)
+    reg = torch.cat([center[:, None, :] - pts, gt_boxes[:, None, 3:7].expand(-1, pts.shape[1], -1)],
+                    dim=-1)
+    return cls, reg

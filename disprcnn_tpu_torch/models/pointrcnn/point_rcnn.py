@@ -1,14 +1,26 @@
 """The PointRCNN 3D stage: 3D RPN -> proposals -> RoI-pool 3D -> RCNN ->
 one box per instance (counterpart of disprcnn_tpu/models/pointrcnn/
-point_rcnn.py with rcnn_enabled, the score-based proposals and
-RPN.NMS_TYPE "normal"; reference lib/net/point_rcnn.py). Each 2D detection
-is one fixed-size canonical cloud on the instance axis.
+point_rcnn.py with the score-based proposals and RPN.NMS_TYPE "normal";
+reference lib/net/point_rcnn.py). Each 2D detection is one fixed-size
+canonical cloud on the instance axis. With rcnn_enabled=False (RCNN.ENABLED,
+rpn.yaml) there is no RCNN: eval returns the RPN's per-point scores
+``rpn_cls``.
 
-Train mode trains the RCNN on a fixed RPN (RPN.FIXED, rcnn.yaml): the RPN
-runs in eval without gradients, with the TRAIN proposal budgets; the
-proposal target layer (``rcnn_targets``) samples, noises, pools and
-augments the RCNN's inputs, also without gradients; then the RCNN runs
-with gradients and the step's loss is ``loss_box3d`` (point_rcnn.py:74-135).
+Train mode trains one of the two networks (point_rcnn.py:74-135), the
+RCNN where there is one and else the RPN (the JAX package's RPN.FIXED is
+rcnn_enabled here: every config of the repo sets the two alike):
+- the RPN (rcnn_enabled=False: stage 3, rpn.yaml): the RPN in train mode
+  (batch-statistics BN, the heads' dropout on the ``RPNDraws`` masks), the
+  matched GT moved into each cloud's canonical frame, the per-point labels
+  (``lift.rpn_point_labels``), and the losses ``loss_rpn_cls`` and
+  ``loss_rpn_reg`` over the instances that are valid and matched;
+- the RCNN on a fixed RPN (rcnn_enabled=True: stage 4, rcnn.yaml): the RPN
+  runs in eval without gradients, with the TRAIN proposal budgets; the
+  proposal target layer (``rcnn_targets``) samples, noises, pools and
+  augments the RCNN's inputs, also without gradients; then the RCNN runs
+  with gradients and the step's loss is ``loss_box3d``.
+Both at once (RPN.FIXED False with the RCNN enabled) is set by no config
+of the repo and is not ported (ROADMAP A4.4).
 """
 from __future__ import annotations
 
@@ -37,9 +49,10 @@ class PointRCNN(nn.Module):
                  sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset(),
                  roi_block: int = ROI_BLOCK, proposals_per_roi_train: Optional[int] = None,
                  rpn_pre_nms_per_roi_train: Optional[int] = None,
-                 rcnn_rois_per_instance: int = 16):
+                 rcnn_rois_per_instance: int = 16, rcnn_enabled: bool = True):
         super().__init__()
         self.npoints = npoints
+        self.rcnn_enabled = rcnn_enabled
         self.register_buffer("anchor", torch.tensor(mean_size, dtype=torch.float32),
                              persistent=False)
         self.rpn_codec = rpn_codec
@@ -56,23 +69,36 @@ class PointRCNN(nn.Module):
         self.rcnn_rois_per_instance = rcnn_rois_per_instance
         self.rpn = rpn3d.RPN3D(codec_cfg=rpn_codec, use_bn=rpn_use_bn, npoints=sa_npoints,
                                sa_min_c0=sa_min_c0, kernels_off=kernels_off)
-        self.rcnn = rcnn3d.RCNNNet(rpn_channels=self.rpn.backbone.out_channels,
-                                   sa_min_c0=sa_min_c0, kernels_off=kernels_off)
+        if rcnn_enabled:
+            self.rcnn = rcnn3d.RCNNNet(rpn_channels=self.rpn.backbone.out_channels,
+                                       sa_min_c0=sa_min_c0, kernels_off=kernels_off)
         self.eval()  # train mode only on request (model.train())
 
     def forward(self, pts: torch.Tensor, roi_valid: torch.Tensor, angles: torch.Tensor,
                 pts_mean: torch.Tensor, gt_boxes3d: Optional[torch.Tensor] = None,
                 gt_ok: Optional[torch.Tensor] = None,
-                draws: Optional[rcnn3d.RCNNDraws] = None) -> Dict[str, torch.Tensor]:
+                draws: Optional[rcnn3d.RCNNDraws] = None,
+                rpn_draws: Optional[rpn3d.RPNDraws] = None) -> Dict[str, torch.Tensor]:
         """pts (R, N, 3) canonical clouds, roi_valid (R,), angles (R,),
-        pts_mean (R, 3) -> box3d (R, 7), score3d (R,), random (R,). In train
-        mode, with the matched GT gt_boxes3d (R, 7) rect frame, gt_ok (R,)
-        and the proposal target layer's draws -> loss_box3d."""
-        if self.training:
+        pts_mean (R, 3) -> box3d (R, 7), score3d (R,), random (R,), or with
+        the RCNN disabled rpn_cls (R, N). In train mode, with the matched GT
+        gt_boxes3d (R, 7) rect frame and gt_ok (R,): with the RCNN the
+        proposal target layer's draws -> loss_box3d; without it the RPN's
+        dropout masks rpn_draws -> loss_rpn_cls, loss_rpn_reg."""
+        train = self.training
+        self.rpn.train(train and not self.rcnn_enabled)
+        if train:
+            if gt_boxes3d is None or gt_ok is None:
+                raise ValueError("training needs gt_boxes3d and gt_ok")
+            if not self.rcnn_enabled:
+                return self.rpn_train_loss(pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok,
+                                           rpn_draws)
             targets = self.rcnn_targets(pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok,
                                         draws)
             return {"loss_box3d": self.rcnn_train_loss(targets)}
         rpn_out = self.rpn(pts)
+        if not self.rcnn_enabled:
+            return {"rpn_cls": rpn_out["cls"]}
         rois_c, roi_scores, prop_valid = rpn3d.propose(
             rpn_out["cls"], rpn_out["reg"], rpn_out["xyz"], self.anchor, self.rpn_codec,
             pre_nms_top_n=min(self.rpn_pre_nms_per_roi, pts.shape[1]),
@@ -99,16 +125,24 @@ class PointRCNN(nn.Module):
             roi_scores, self.anchor, score_thresh=self.rcnn_score_thresh)
         return {"box3d": box3d, "score3d": score3d, "random": is_random}
 
+    def rpn_train_loss(self, pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok,
+                       rpn_draws) -> Dict[str, torch.Tensor]:
+        """The RPN in train mode on the clouds, the per-point labels of the
+        matched GT in the canonical frame, and the RPN loss over the valid,
+        matched instances (point_rcnn.py:74-88)."""
+        rpn_out = self.rpn(pts, rpn_draws)
+        gt_canon = lift.canonicalize_boxes3d(gt_boxes3d, angles, pts_mean)
+        cls_label, reg_label = lift.rpn_point_labels(pts, gt_canon, gt_ok)
+        return rpn3d.rpn_loss(rpn_out["cls"], rpn_out["reg"], cls_label, reg_label,
+                              roi_valid & gt_ok, self.anchor, self.rpn_codec)
+
     def rcnn_targets(self, pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok, draws):
         """The frozen part of a train step, without gradients: the RPN in
         eval (RPN.FIXED), the TRAIN proposal budgets, then the proposal target
         layer. -> {pts_input (R * K, P, 5 + C), cls_label, reg_mask (R * K,),
         gt_ct (R * K, 7)}."""
-        if self.rpn.training:
-            raise NotImplementedError("training the 3D RPN (stage 3) is not ported: keep "
-                                      "pointrcnn.rpn in eval (RPN.FIXED)")
-        if gt_boxes3d is None or gt_ok is None or draws is None:
-            raise ValueError("training needs gt_boxes3d, gt_ok and the RCNN draws")
+        if draws is None:
+            raise ValueError("training the RCNN needs its draws")
         with torch.no_grad():
             rpn_out = self.rpn(pts)
             rois_c, _, prop_valid = rpn3d.propose(

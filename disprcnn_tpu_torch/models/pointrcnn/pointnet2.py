@@ -36,12 +36,24 @@ The other scales (RPN SA0, below the gate and without features; the
 group-all scale) and FP level 0 (no skip features) run the XLA path's
 arithmetic in plain PyTorch, as the TPU runs them in XLA.
 
-Train mode is ported for the BN-free MLPs (the RCNN): a scale with
-features and >= ``sa_min_c0`` channels takes the SA kernel's train form
-(``sa_ball_mlp_max_train``: the kernel forward, the plain version's
-backward; pointnet2.py:209-219), whether or not "sa" is off (JAX's train
-gate reads its own tag, "satrain"). Training an MLP with BN (the RPN,
-stage 3) raises NotImplementedError.
+In train mode:
+
+- a BN-free MLP (the RCNN) scale with features and >= ``sa_min_c0``
+  channels takes the SA kernel's train form (``sa_ball_mlp_max_train``:
+  the kernel forward, the plain version's backward; pointnet2.py:209-219),
+  whether or not "sa" is off (JAX's train gate reads its own tag,
+  "satrain");
+- an MLP with BN (the 3D RPN, stage 3) takes the plain grouped route at
+  every scale: the grouped pre-activation, train-mode BN with Flax's
+  statistics over every axis but the channels (``batch_norm_train``:
+  (B, M, S) for a grouped scale, (B, N) for FP; every instance row and
+  every repeated ball slot counted, as JAX counts them), ReLU, the later
+  layers, the max over the ball (JAX's literal grouped path,
+  pointnet2.py:392-394);
+- feature propagation takes the plain interpolation and MLP (JAX's FP
+  gate has ``not train``, pointnet2.py:481-487).
+
+No kernel of rows 10-13 runs in a train-mode MLP with BN.
 """
 from __future__ import annotations
 
@@ -55,6 +67,7 @@ from ...ops.cuda.grouped_mlp import grouped_mlp_max
 from ...ops.cuda.sa import sa_ball_mlp_max, sa_ball_mlp_max_train
 from ...ops.points import (ball_query, fps_or_identity, gather_points, group_points,
                            three_interpolate, three_nn, three_nn_interpolate_weights)
+from ..psmnet.psmnet import batch_norm_train
 
 BN_EPS = 1e-5
 SA_MIN_C0 = 64  # disprcnn_tpu pointnet2._sa_min_c0, the shipped gate
@@ -83,9 +96,10 @@ def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
 
 
 class SharedMLP(nn.Module):
-    """Dense (+ eval BatchNorm) + ReLU layers over the last axis. ``mlp0``
-    takes ``in_channels`` inputs; with BN the dense layers have no bias.
-    Built in eval mode, as the JAX modules default to train=False."""
+    """Dense (+ BatchNorm: running statistics in eval, batch statistics in
+    train) + ReLU layers over the last axis. ``mlp0`` takes ``in_channels``
+    inputs; with BN the dense layers have no bias. Built in eval mode, as
+    the JAX modules default to train=False."""
 
     def __init__(self, channels: Sequence[int], in_channels: int, use_bn: bool = True):
         super().__init__()
@@ -111,13 +125,8 @@ class SharedMLP(nn.Module):
     def norm(self, i: int, x: torch.Tensor) -> torch.Tensor:
         if not self.use_bn:
             return x
-        self.check_trainable()
-        return batch_norm_eval(getattr(self, f"bn{i}"), x)
-
-    def check_trainable(self) -> None:
-        if self.training and self.use_bn:
-            raise NotImplementedError("training a PointNet++ MLP with BatchNorm (the 3D RPN, "
-                                      "stage 3) is not ported")
+        bn = getattr(self, f"bn{i}")
+        return batch_norm_train(bn, x, axis=-1) if self.training else batch_norm_eval(bn, x)
 
     def folded_chain(self, start: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """[(W (Ci, Co), b (Co,))] of layers start.., the eval BN folded in,
@@ -171,8 +180,8 @@ def ball_mlp_max(mlp: SharedMLP, xyz: torch.Tensor, features: Optional[torch.Ten
         if b0 is not None:
             v = v + b0
     w0x = w0[:, :3].t()
-    if gated and (mlp.training or "sa" not in kernels_off) and v is not None:
-        mlp.check_trainable()
+    trains_bn = mlp.training and mlp.use_bn
+    if gated and not trains_bn and (mlp.training or "sa" not in kernels_off) and v is not None:
         mul0, add0 = mlp_affine0(mlp, v.device)
         sa = sa_ball_mlp_max_train if mlp.training else sa_ball_mlp_max
         return sa(xyz, new_xyz, v.contiguous(), w0x.contiguous(), mul0, add0,
@@ -259,7 +268,8 @@ class FPModule(nn.Module):
         self.kernels_off = kernel_tags(kernels_off)
 
     def forward(self, unknown, known, unknown_feats, known_feats):
-        if known is not None and unknown_feats is not None and "fp" not in self.kernels_off:
+        if (known is not None and unknown_feats is not None and not self.training
+                and "fp" not in self.kernels_off):
             return fp_fused(unknown, known, known_feats.contiguous(), unknown_feats.contiguous(),
                             self.mlp.folded_chain(0))
         if known is not None:

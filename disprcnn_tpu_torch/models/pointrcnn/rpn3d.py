@@ -1,24 +1,54 @@
-"""The 3D RPN over per-instance pseudo-LiDAR clouds and its proposal layer,
-eval only (counterpart of disprcnn_tpu/models/pointrcnn/rpn3d.py;
-reference lib/net/rpn.py, rpn/proposal_layer.py).
+"""The 3D RPN over per-instance pseudo-LiDAR clouds, its loss and its
+proposal layer (counterpart of disprcnn_tpu/models/pointrcnn/rpn3d.py;
+reference lib/net/rpn.py, rpn/proposal_layer.py, net/rpn_loss.py).
+
+In train mode the heads' BN takes batch statistics (Flax's, as
+``batch_norm_train`` computes them) and the dropout after each head's
+first layer keeps the entries of an input mask (``RPNDraws``, drawn by
+``draw_rpn_draws``): every train-time random draw is an input.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ...ops.iou import boxes3d_to_bev
+from ...ops.losses import binary_cross_entropy
 from ...ops.nms import bev_nms_mask, topk_after_nms
 from ...ops.topk_select import topk_scores
+from ..psmnet.psmnet import batch_norm_train
 from . import bbox3d_codec as codec
 from .pointnet2 import BN_EPS, SA_MIN_C0, Pointnet2MSG, batch_norm_eval
 
+DP_RATIO = 0.5  # RPN.DP_RATIO (config/defaults.py:229)
+
+
+@dataclass
+class RPNDraws:
+    """The dropout keep masks of one train-mode RPN forward over R clouds
+    of N points: True keeps an entry of the heads' first hidden layer."""
+    cls_keep: torch.Tensor  # (R, N, cls_fc[0]) bool
+    reg_keep: torch.Tensor  # (R, N, reg_fc[0]) bool
+
+
+def draw_rpn_draws(r: int, n: int, generator: torch.Generator, device=None,
+                   widths: Tuple[int, int] = (128, 128)) -> RPNDraws:
+    """One RPNDraws from `generator` (on `device`) for heads of the given
+    first widths: each entry kept with probability 1 - DP_RATIO, as Flax's
+    Dropout keeps it."""
+    def keep(c):
+        return torch.rand((r, n, c), generator=generator, device=device) < 1.0 - DP_RATIO
+
+    return RPNDraws(cls_keep=keep(widths[0]), reg_keep=keep(widths[1]))
+
 
 class ConvHead(nn.Module):
-    """Per-point dense head: fc{i} (+ BN) + ReLU per hidden width, then
-    ``out``. Dropout is the identity at eval."""
+    """Per-point dense head: fc{i} (+ BN) + ReLU per hidden width, dropout
+    after the first (train mode: the kept entries scaled by 1 / (1 -
+    DP_RATIO), the others 0), then ``out``."""
 
     def __init__(self, hidden: Sequence[int], out: int, in_channels: int, use_bn: bool = True):
         super().__init__()
@@ -30,13 +60,22 @@ class ConvHead(nn.Module):
                 setattr(self, f"bn{i}", nn.BatchNorm1d(c, eps=BN_EPS))
             cin = c
         self.out = nn.Linear(cin, out)
+        self.eval()  # train mode only on request, as the JAX modules default to train=False
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (..., C) -> (..., out); in train mode with dropout, `keep` is
+        the first layer's keep mask (..., hidden[0])."""
+        dropout = self.training and len(self.hidden) > 0
+        if dropout and keep is None:
+            raise ValueError("train-mode dropout needs its keep mask")
         for i in range(len(self.hidden)):
             x = getattr(self, f"fc{i}")(x)
             if self.use_bn:
-                x = batch_norm_eval(getattr(self, f"bn{i}"), x)
+                bn = getattr(self, f"bn{i}")
+                x = batch_norm_train(bn, x, axis=-1) if self.training else batch_norm_eval(bn, x)
             x = torch.relu(x)
+            if i == 0 and dropout:
+                x = torch.where(keep, x / (1.0 - DP_RATIO), torch.zeros_like(x))
         return self.out(x)
 
 
@@ -53,13 +92,40 @@ class RPN3D(nn.Module):
         c = self.backbone.out_channels
         self.cls_head = ConvHead(cls_fc, 1, c, use_bn)
         self.reg_head = ConvHead(reg_fc, codec_cfg.reg_channels, c, use_bn)
+        self.eval()
 
-    def forward(self, pts: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, pts: torch.Tensor,
+                draws: Optional[RPNDraws] = None) -> Dict[str, torch.Tensor]:
         """pts (R, N, 3) -> xyz (R, N, 3), features (R, N, C), per-point cls
-        (R, N) and reg (R, N, reg_channels)."""
+        (R, N) and reg (R, N, reg_channels). Train mode takes the heads'
+        dropout masks, `draws`."""
         xyz, feats = self.backbone(pts)
-        return {"xyz": xyz, "features": feats, "cls": self.cls_head(feats)[..., 0],
-                "reg": self.reg_head(feats)}
+        cls_keep = reg_keep = None
+        if draws is not None:
+            cls_keep, reg_keep = draws.cls_keep, draws.reg_keep
+        return {"xyz": xyz, "features": feats, "cls": self.cls_head(feats, cls_keep)[..., 0],
+                "reg": self.reg_head(feats, reg_keep)}
+
+
+def rpn_loss(cls_pred: torch.Tensor, reg_pred: torch.Tensor, cls_label: torch.Tensor,
+             reg_label: torch.Tensor, roi_valid: torch.Tensor, anchor_size: torch.Tensor,
+             cfg: codec.CodecCfg) -> Dict[str, torch.Tensor]:
+    """cls_pred (R, N), reg_pred (R, N, C), cls_label (R, N) in {1, 0, -1},
+    reg_label (R, N, 7), roi_valid (R,) -> {loss_rpn_cls, loss_rpn_reg}
+    (reference rpn_loss.py:7-70). The classification loss is the BCE (each
+    log clipped at 1e-12) averaged over the labelled points (not -1) of
+    valid instances: RPN.LOSS_CLS BinaryCrossEntropy, as every rpn.yaml of
+    the repo sets it (JAX's focal and dice forms are not ported). The
+    bin-based regression loss takes the positive points."""
+    care = (cls_label >= 0) & roi_valid[:, None]
+    pos = (cls_label > 0) & roi_valid[:, None]
+    tgt = pos.to(cls_pred.dtype)
+    bce = binary_cross_entropy(cls_pred, tgt)
+    cls_l = (bce * care).sum() / care.sum().to(cls_pred.dtype).clamp_min(1.0)
+    loc, angle, size = codec.reg_loss(reg_pred.reshape(-1, reg_pred.shape[-1]),
+                                      reg_label.reshape(-1, 7), tgt.reshape(-1), anchor_size,
+                                      cfg)
+    return {"loss_rpn_cls": cls_l, "loss_rpn_reg": loc + angle + size}
 
 
 def propose(cls_pred: torch.Tensor, reg_pred: torch.Tensor, xyz: torch.Tensor,

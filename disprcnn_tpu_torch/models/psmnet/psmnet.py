@@ -58,19 +58,26 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
 
 
-def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
-    """Train-mode BN over every axis but the channel axis 1, as Flax's
+def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                     axis: int = 1) -> torch.Tensor:
+    """Train-mode BN over every axis but the channel axis `axis`, as Flax's
     BatchNorm computes it: the biased variance E[x^2] - E[x]^2 (clipped at
     0) normalizes, and the running statistics take momentum 0.9 with that
     same biased variance (nn.BatchNorm's own train mode would store the
-    unbiased one)."""
-    dims = [d for d in range(x.dim()) if d != 1]
+    unbiased one). The one implementation for both users: iDispNet's
+    channels-first convs (axis 1) and PointNet++'s channels-last MLPs and
+    RPN heads (axis -1, models/pointrcnn/pointnet2.py and rpn3d.py), whose
+    statistics take every row, padded instances and repeated ball slots
+    included, as JAX's do."""
+    axis = axis % x.dim()
+    dims = [d for d in range(x.dim()) if d != axis]
     mean = x.mean(dims)
     var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_(mean.detach(), alpha=1 - BN_MOMENTUM)
         bn.running_var.mul_(BN_MOMENTUM).add_(var.detach(), alpha=1 - BN_MOMENTUM)
-    shape = (1, -1) + (1,) * (x.dim() - 2)
+    shape = [1] * x.dim()
+    shape[axis] = -1
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
 

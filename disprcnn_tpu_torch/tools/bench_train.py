@@ -3,12 +3,14 @@ tools/bench_train.py:bench_3d): the DispRCNN3D train step of the iDispNet
 stage (``psm``, configs/kitti/car/vob/idispnet.yaml) and of the RCNN
 stage (``pc``, rcnn.yaml) at bench_3d's geometry (384x1248 pairs, 16
 detections each), with random weights and synthetic detections and ground
-truth made from a seeded torch.Generator.
+truth made from a seeded torch.Generator. ``rpn_stage`` builds the 3D RPN
+stage's step (rpn.yaml) the same way; the bench does not time it yet.
 
 ``build_stage(name, pairs, gen)`` returns a ``TrainStage`` (model,
 optimizer, step, batch); ``time_steps`` runs and times it. The 2D (stage 1)
 step is not ported (ROADMAP A4): asking for it raises NotImplementedError.
-chip_smoke.py builds its train steps (phases 12-14) from the same pieces.
+chip_smoke.py builds its train steps (phases 15, 16 and 18) from the same
+pieces.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 from ..bench import BENCH_3D, CALIB, IMG_HW, timed
 from ..engine.trainer import make_train_step
 from ..models.detector.disprcnn3d import DispRCNN3D
-from ..models.pointrcnn import rcnn3d
+from ..models.pointrcnn import lift, rcnn3d, rpn3d
 from ..ops import roipool3d as troi
 from ..solver.build import frozen_path_prefixes, make_optimizer
 from ..solver.schedules import one_cycle, one_cycle_momentum
@@ -38,7 +40,15 @@ PSM_TRAIN = dict(max_det=16, roi_size=224, maxdisp=48, mindisp=-48, roi_min_scor
                  max_roi_train=12)
 PC_TRAIN = dict(BENCH_3D, mask_thresh_train=0.5, rpn_pre_nms_per_roi_train=768,
                 proposals_per_roi_train=512, rcnn_rois_per_instance=16)
-PSM_ITER, PC_ITER, GRAD_CLIP = 41000, 62100, 10.0
+# rpn.yaml: IMS_PER_BATCH 3, PCNET.MAX_ROI_FOR_TRAINING 20 (no cap on 16
+# detections), MASK_THRESH 0.5, RPN.LOSS_CLS BinaryCrossEntropy (the port's
+# only RPN loss), the RPN training (RPN.FIXED False) and no RCNN
+# (RCNN.ENABLED False), FIX_DISPARITY, DO_GRAD_CLIP, OneCycle BASE_LR 0.002
+# over MAX_ITER 27600
+RPN_TRAIN = dict(BENCH_3D, mask_thresh_train=0.5, mask_thresh_eval=0.5, max_roi_train=20,
+                 rcnn_enabled=False)
+RPN_PAIRS, RPN_LR = 3, 0.002
+PSM_ITER, PC_ITER, RPN_ITER, GRAD_CLIP = 41000, 62100, 27600, 10.0
 SOLVER = dict(momentum=0.9, weight_decay=1e-4, weight_decay_bias=0.0, bias_lr_factor=2.0)
 # pairs a step in the JAX bench's train stages (bench.py:412)
 BENCH_PAIRS = {"psm": 1, "pc": 1}
@@ -53,6 +63,8 @@ class TrainStage:
     units: int  # crops a step (psm) or pairs a step (pc)
     pairs: int
     with_points: int = 0  # pc: instances with lifted points in a proposal
+    positive: int = 0  # rpn: points labelled inside their GT box
+    ignored: int = 0  # rpn: points in the 0.2 band around it (label -1)
 
 
 def random_dets(gen: torch.Generator, b: int, d: int, img_hw=IMG_HW) -> StereoBoxes:
@@ -155,6 +167,70 @@ def pc_stage(pairs: int, gen: torch.Generator, cfg: dict = PC_TRAIN, img_hw=IMG_
     rows = torch.arange(pairs * d, device=dev)
     batch["gt_boxes3d"] = seen["rois"][rows, inside.argmax(1)].reshape(pairs, d, 7)
     return TrainStage(model, opt, step, batch, pairs, pairs, with_points)
+
+
+def boxes_on_clouds(pts_c: torch.Tensor, angles: torch.Tensor,
+                    pts_mean: torch.Tensor) -> torch.Tensor:
+    """One GT box (R, 7) rect frame on each canonical cloud (R, N, 3):
+    centred at its median, the inter-quartile extent on each axis (at least
+    0.5 m), yawed by 0.2 in the canonical frame, so that points fall inside
+    it, in the 0.2 band around it and outside."""
+    med = pts_c.median(dim=1).values
+    q = torch.quantile(pts_c, torch.tensor([0.25, 0.75], device=pts_c.device), dim=1)
+    ext = (q[1] - q[0]).clamp_min(0.5)
+    canon = torch.stack([med[:, 0], med[:, 1] + ext[:, 1] / 2, med[:, 2], ext[:, 1], ext[:, 2],
+                         ext[:, 0], torch.full_like(med[:, 0], 0.2)], -1)
+    return lift.decanonicalize_boxes3d(canon, angles, pts_mean)
+
+
+def rpn_stage(pairs: int, gen: torch.Generator, cfg: dict = RPN_TRAIN, img_hw=IMG_HW,
+              calib: dict = CALIB) -> TrainStage:
+    """The 3D RPN step (stage 3, rpn.yaml): iDispNet frozen, the RPN in
+    train mode with fixed dropout masks, BCE, grad clip 10. Each
+    instance's ground-truth box lies on its own lifted cloud (one eval
+    forward gives the clouds; boxes_on_clouds). Raises if no point is
+    labelled positive or ignored."""
+    dev = gen.device
+    model = init_random_(DispRCNN3D(**cfg, device=dev), gen)
+    opt = make_optimizer(model, one_cycle(RPN_LR, RPN_ITER), one_cycle_momentum(RPN_ITER),
+                         frozen_path_prefixes(FIX_DISPARITY=True), **SOLVER)
+    step = make_train_step(model, opt, do_grad_clip=True, grad_clip=GRAD_CLIP,
+                           forward_kwargs=dict(train_pc=True))
+    h, w = img_hw
+    d = cfg["max_det"]
+    dets = random_dets(gen, pairs, d, img_hw)
+    rpn = model.pointrcnn.rpn
+    batch = dict(left_img=torch.rand(pairs, h, w, 3, generator=gen, device=dev),
+                 right_img=torch.rand(pairs, h, w, 3, generator=gen, device=dev),
+                 dets=dets, calib={k: torch.full((pairs,), v, device=dev)
+                                   for k, v in calib.items()},
+                 priorities=torch.rand(pairs * d, cfg["lift_grid"] ** 2, generator=gen,
+                                       device=dev),
+                 rpn_draws=rpn3d.draw_rpn_draws(pairs * d, cfg["npoints"], gen, dev,
+                                                (rpn.cls_head.hidden[0],
+                                                 rpn.reg_head.hidden[0])),
+                 gt_left=dets.left, gt_valid=torch.ones(pairs, d, dtype=torch.bool, device=dev))
+    # the eval forward lifts the clouds that the train step lifts: the
+    # scores pass ROI_MIN_SCORE, MAX_ROI_FOR_TRAINING does not cap and the
+    # two mask thresholds are equal
+    seen = []
+    hook = model.pointrcnn.register_forward_pre_hook(lambda mod, args: seen.append(args[:4]))
+    try:
+        with torch.no_grad():
+            model(batch["left_img"], batch["right_img"], dets, batch["calib"],
+                  batch["priorities"])
+    finally:
+        hook.remove()
+    pts_c, roi_ok, angles, pts_mean = seen[0]
+    gt = boxes_on_clouds(pts_c, angles, pts_mean)
+    batch["gt_boxes3d"] = gt.reshape(pairs, d, 7)
+    labels = lift.rpn_point_labels(pts_c, lift.canonicalize_boxes3d(gt, angles, pts_mean),
+                                   roi_ok)[0]
+    positive, ignored = int((labels == 1).sum()), int((labels == -1).sum())
+    if positive == 0 or ignored == 0:
+        raise AssertionError(f"RPN step: {positive} positive and {ignored} ignored points")
+    return TrainStage(model, opt, step, batch, pairs, pairs, int(roi_ok.sum()), positive,
+                      ignored)
 
 
 def build_stage(name: str, pairs: int, gen: torch.Generator) -> TrainStage:

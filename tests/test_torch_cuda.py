@@ -5,10 +5,13 @@ imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
+from disprcnn_tpu_torch.models.pointrcnn import pointnet2 as tpn2
 from disprcnn_tpu_torch.ops import nms as tnms
 from disprcnn_tpu_torch.ops.cuda import conv3d as cconv
 from disprcnn_tpu_torch.ops.cuda import fp as cfp
@@ -774,3 +777,46 @@ def test_forward_only_kernels_refuse_gradients(card):
         cconv.conv3d_bn(x, w)
     with torch.no_grad():
         cconv.conv3d_bn(x, w)
+
+
+def _point_launches():
+    return {"sa": csa.launches, "sa_train": csa.train_launches, "grouped_mlp": cgm.launches,
+            "fp": cfp.launches, "fps": cfps.launches}
+
+
+def test_bn_train_backbone_takes_no_sa_or_fp_kernel(card):
+    """A train-mode PointNet++ backbone with BN (the 3D RPN's) forward and
+    backward on the card: FPS launches at the two sampled levels, and none
+    of the SA, grouped-MLP or FP kernels; its output, gradients and updated
+    BN statistics match the same module's run on the CPU (features and
+    statistics 1e-4 * max + 1e-5, each gradient within relative L2 1e-2,
+    all of them within 5e-3: float32 sums in other orders, ROADMAP C19)."""
+    gen = torch.Generator().manual_seed(0)
+    m = tpn2.Pointnet2MSG(npoints=(256, 64, 16))
+    with torch.no_grad():
+        for n, b in m.named_buffers():
+            if "running_var" in n:
+                b.uniform_(0.5, 2.0, generator=gen)
+    xyz = torch.randn(4, 256, 3, generator=gen) * torch.tensor([2.0, 1.0, 2.0])
+    ct = torch.randn(4, 256, m.out_channels, generator=gen)
+    runs = []
+    for dev in (torch.device("cpu"), card):
+        mm = copy.deepcopy(m).to(dev).train()
+        before = _point_launches()
+        _, feats = mm(xyz.to(dev))
+        (feats * ct.to(dev)).sum().backward()
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _point_launches().items()}
+        runs.append((feats.detach().cpu(), {n: p.grad.cpu() for n, p in mm.named_parameters()},
+                     {n: b.cpu() for n, b in mm.named_buffers() if "running" in n}, launched))
+    (want, want_g, want_s, _), (got, got_g, got_s, launched) = runs
+    assert launched == {"sa": 0, "sa_train": 0, "grouped_mlp": 0, "fp": 0, "fps": 2}, launched
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max() + 1e-5
+    for n, w in want_s.items():
+        assert (got_s[n] - w).abs().max() <= 1e-4 * w.abs().max() + 1e-5, n
+    num = den = 0.0
+    for n, w in want_g.items():
+        d, ww = float((got_g[n] - w).norm()), float(w.norm())
+        assert d <= 1e-2 * ww, (n, d / ww)
+        num, den = num + d * d, den + ww * ww
+    assert num ** 0.5 <= 5e-3 * den ** 0.5
