@@ -11,7 +11,8 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      disprcnn_tpu_torch/csrc/build/ (listed in .gitignore), printing each
      kernel's registers, spills and shared memory from ptxas;
   2. the greedy-NMS kernel against its plain PyTorch version at the SRPN
-     call (8, 6000) k=300 IoU 0.7, the box head's (8, 300) k=16 IoU 0.5,
+     call (8, 6000) k=300 IoU 0.7, the SRPN's train budget in the 2D train
+     step (4, 2000) k=2000 IoU 0.7, the box head's (8, 300) k=16 IoU 0.5,
      the 3D proposals' BEV NMS without the +1 term at (128, 128) and the
      reference budget's (128, 768), k = N, IoU 0.8, an N off the 64-box
      tile walked in two passes (8, 3000) k=100, and an N whose walk reads
@@ -165,7 +166,27 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      output, as phase 16 (the RPN's input is shared, so of the kernels
      only row 9, FPS, is inside what this compares: rows 2-7 and 15 are
      held to their plain versions in phases 3, 9 and 15), and one step
-     split into stages by CUDA events.
+     split into stages by CUDA events;
+ 19. the 2D train step (stage 1, configs/kitti/car/vob/mask.yaml, tools/
+     bench_train.py build_stage("2d")): R-101-FPN on 4 pairs of 384x1248,
+     2-4 GT pairs an image with ellipse masks, the SRPN's train budget
+     (top 2000 -> double-view NMS, row 1 -> 2000), its loss, the GT
+     appended, ROI matching and sampling to 512 an image, the box head
+     (frozen, dropout on) and the mask head, all five losses; backbone,
+     RPN and box head frozen, grad clip 10, OneCycle BASE_LR 0.01; 1
+     warm-up and TRAIN_STEPS timed steps with the launches counted from 0:
+     row 1 once a step and no other kernel; finite losses, loss_mask > 0,
+     a positive ROI in every image (each step draws anew), a finite gradient on every mask-head
+     parameter and no trainable parameter without one, exactly the
+     mask-head parameters changed, every frozen weight and FrozenBN
+     constant bit-equal; then the kernel step against the plain step from
+     the seeded weights and draws under deterministic algorithms: the five losses and
+     every mask-head gradient equal (where not bit-equal, the ops that
+     have no deterministic CUDA form are named and the step is held in
+     phase 16's per-tensor form); row 1 timed on the inputs the step gave
+     it (kernel, device, plain, bound, its one-image walk and where it
+     stopped), one step split into stages, ms per step, pairs/s and peak
+     memory; and bench.time_train_stage("2d") as the bench runs it.
 Then it prints the card (name, power limit) from nvidia-smi, one JSON line
 of per-kernel numbers (eval kernels per headline request, row 12 per
 SA-off headline request, train forms per train step), and as its last
@@ -183,6 +204,7 @@ import math
 import sys
 import time
 import traceback
+import warnings
 from functools import partial
 
 import torch
@@ -219,7 +241,7 @@ from disprcnn_tpu_torch.utils.weights import init_random_
 # the first card run of these kernels) are the bench's
 # (disprcnn_tpu_torch/bench.py); the train stages' configurations are
 # disprcnn_tpu_torch/tools/bench_train.py's.
-PHASES = 18
+PHASES = 19
 PAIRS = 8
 REQUESTS = 2  # at the headline budget; one more at the reference budget
 # the tests' small configurations (tests/torch_port_helpers.py, tests/test_torch_disprcnn3d.py)
@@ -229,11 +251,13 @@ SMALL_3D = dict(max_det=2, roi_size=64, maxdisp=16, mindisp=-16)
 SMALL_DET3D = dict(SMALL_3D, det3d_on=True, npoints=128, lift_grid=32,
                    sa_npoints=(128, 64, 32, 16))
 NMS_CASES = ("random", "clustered", "duplicates", "ties", "invalid_rows", "few_survivors")
-# (site, B, N, k, IoU, +1 term): the SRPN and the box head; the 3D
+# (site, B, N, k, IoU, +1 term): the SRPN, its train budget in the 2D train
+# step (k = N: one pass over all 32 tiles) and the box head; the 3D
 # proposals' BEV NMS at both budgets; an N off the 64-box tile, walked in
 # two passes; and an N whose walk reads global memory (ops/cuda/nms.py
 # walk_routes)
-NMS_SHAPES = (("SRPN", PAIRS, 6000, 300, 0.7, 1.0), ("box head", PAIRS, 300, 16, 0.5, 1.0),
+NMS_SHAPES = (("SRPN", PAIRS, 6000, 300, 0.7, 1.0), ("SRPN train", 4, 2000, 2000, 0.7, 1.0),
+              ("box head", PAIRS, 300, 16, 0.5, 1.0),
               ("3D proposals", 128, 128, 128, 0.8, 0.0),
               ("3D proposals, reference", 128, 768, 768, 0.8, 0.0),
               ("N off the tile", PAIRS, 3000, 100, 0.7, 1.0),
@@ -2204,6 +2228,120 @@ def phase_rpn_train(card: str) -> None:
         + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
 
 
+def phase_2d_train(card: str) -> dict:
+    """The 2D train step (stage 1, mask.yaml): the timed steps with their
+    launches counted from 0, what trains and what stays, the kernel step
+    against the plain step, row 1 at its train site, the step's stages,
+    and the bench's timing of the stage. -> row 1's numbers at the site."""
+    pairs = bench_train.DET2D_PAIRS
+    st = bench_train.build_stage("2d", pairs, torch.Generator(device="cuda").manual_seed(19))
+    model, opt, step, batch = st.model, st.optimizer, st.step, st.batch
+    before = {n: t.detach().clone() for n, t in [*model.named_buffers(),
+                                                 *model.named_parameters()]}
+    start = copy.deepcopy(model.state_dict()), copy.deepcopy(opt.sgd.state_dict()), opt.count
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms = bench_train.time_steps(st, TRAIN_STEPS)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    roi_pos = st.record["roi_pos"]
+    positive = int(roi_pos.sum())
+    positive_proposals = int(roi_pos[:, :model.post_nms_top_n_train].sum())
+    check_grads_and_stats(model, before, "2D step", bn_trains=False)
+    bufs = dict(model.named_buffers())
+    changed = [n for n in bufs if not torch.equal(bufs[n], before[n])]
+    moved = sorted(n for n, p in model.named_parameters() if not torch.equal(p, before[n]))
+    mask_head = sorted(n for n, _ in model.named_parameters() if n.startswith("mask_head."))
+    if changed or moved != mask_head or sorted(trainable(model)) != mask_head:
+        raise AssertionError(f"2D step: buffers changed {changed[:3]}; parameters moved "
+                             f"{moved[:3]}... ({len(moved)}), the mask head has "
+                             f"{len(mask_head)}")
+    steps = 1 + TRAIN_STEPS
+    if launches["nms_sorted"] != steps or any(v for k, v in launches.items()
+                                               if k != "nms_sorted"):
+        raise AssertionError(f"2D step launches {launches}: expected row 1 once a step "
+                             f"({steps}) and no other kernel")
+    model.load_state_dict(start[0])
+    opt.sgd.load_state_dict(start[1])
+    opt.count = start[2]
+    metrics = []
+    gen, gen_state = batch["generator"], batch["generator"].get_state()
+
+    def same_draws_step(b):  # both steps draw the same priorities and masks
+        gen.set_state(gen_state)
+        metrics.append(step(b))
+        return metrics[-1]
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rel, gk, gp, _, mk, _ = kernel_vs_plain_step(model, opt, same_draws_step, batch,
+                                                     "2D step")
+    mp = metrics[1]
+    losses = [k for k in mk if k.startswith("loss")]
+    bad = [k for k in losses if not math.isfinite(float(mk[k]))]
+    if bad or not float(mk["loss_mask"]) > 0:
+        raise AssertionError(f"2D step losses { {k: float(mk[k]) for k in losses} }")
+    if all(torch.equal(mk[k], mp[k]) for k in losses) and all(
+            torch.equal(gk[n], gp[n]) for n in gk):
+        compared = "the five losses and every mask-head gradient bit-equal"
+    else:
+        ops = sorted({str(w.message).split(" does not have")[0] for w in caught
+                      if "deterministic" in str(w.message)})
+        for k in losses:
+            if abs(float(mk[k]) - float(mp[k])) > STEP_LOSS_RTOL * abs(float(mp[k])):
+                raise AssertionError(f"2D step: kernel {k} {float(mk[k])} against plain "
+                                     f"{float(mp[k])}")
+        compared = (f"not bit-equal (ops without a deterministic CUDA form: {ops or 'none'}); "
+                    f"losses within {STEP_LOSS_RTOL:g} relative, gradients per tensor max "
+                    f"|diff| <= {grads_agree(gk, gp, '2D step'):.3g} * max |plain|")
+    calls = capture_launches(lambda: step(batch), dict(nms_sorted_cuda="nms_sorted"))
+    site = calls["nms_sorted"]
+    if len(site) != 1:
+        raise AssertionError(f"2D step: {len(site)} NMS launches in one step")
+    row = time_launches("nms_sorted", [(" SRPN train", site, cuda_nms.nms_sorted_cuda,
+                                        cuda_nms.nms_sorted_plain, None, nms_work,
+                                        lambda g, w: main_path_err("nms_sorted", g, w))],
+                        0.0, "nms.cu", "disprcnn_tpu/ops/pallas/nms.py:98")
+    a = site[0]
+    n, k = a[0].shape[1], a[2]
+    chain, (lo, hi) = nms_chain_ms(a)
+    out = cuda_nms.nms_sorted_cuda(*a)
+    stop, kept = nms_walk_stop(a, out), out[1].sum(1).tolist()
+    routes = cuda_nms.walk_routes(n, k)
+    total, split = split_by_events(
+        lambda: step(batch),
+        [(model.backbone, "post", "backbone"), (model.rpn_head, "post", "RPN head"),
+         (model.box_extractor, "pre", "proposals + SRPN loss + ROI sampling"),
+         (model.box_predictor, "post", "box head"), (model.mask_head, "post", "mask head"),
+         (model, "post", "losses")],
+        [(opt, "step", "backward", "optimizer")], "metrics")
+    mean = sum(ms) / len(ms)
+    med = sorted(ms)[len(ms) // 2]
+    log(f"  2D step row 1 at ({a[0].shape[0]}, {n}) k={k}: walk {' then '.join(routes)}, "
+        f"{kept} kept, the walk stopped after sorted box {stop} of {n}; one image {chain:.4f} "
+        f"ms (5 runs {lo:.4f}-{hi:.4f})")
+    log(f"[19/{PHASES}] 2D train step ({pairs} pairs of {IMG_HW[0]}x{IMG_HW[1]}, "
+        f"{bench_train.DET2D_TRAIN['body']}-FPN, mask.yaml freezing) on {card}: ms/step "
+        f"{[round(t, 3) for t in ms]} (mean {mean:.3f}, median {med:.3f}: "
+        f"{pairs * 1e3 / med:.3f} pairs/s), losses "
+        f"{ {k: round(float(mk[k]), 5) for k in losses} }, {positive} positive ROIs in the "
+        f"last timed step ({positive_proposals} of them proposals, the rest appended GT), "
+        f"launches {launches}, {len(mask_head)} mask-head parameters with finite gradients "
+        f"and all of them changed, frozen weights and FrozenBN constants bit-equal, peak "
+        f"memory {peak:.2f} GB; kernel vs plain step: {compared}; row 1 at its site {row['ms']:.4f} ms "
+        f"(device {row['device_ms']:.4f}), plain {row['plain_ms']:.4f}, bound "
+        f"{row['bound_ms']:.4f} ms; one step split, {total:.3f} ms: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    del st, model, opt, step, batch, calls, site, a, out, gen, roi_pos
+    torch.cuda.empty_cache()
+    timed = bench.time_train_stage("2d", "cuda", iters=TRAIN_STEPS)
+    log(f"  bench.time_train_stage('2d') on {card}: {json.dumps(timed)}")
+    return dict(launches=launches["nms_sorted"] // steps, ms=row["ms"],
+                device_ms=row["device_ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], walk=list(routes), ms_per_step=med,
+                peak_gb=peak)
+
+
 def phase_train_timing(psm: dict, pc: dict, errs: dict, card: str) -> dict:
     """Rows 8 and 11 on the inputs one train step gave them (time_launches),
     and the step times of phases 15 and 16 with one step of each split into
@@ -2296,6 +2434,10 @@ def main() -> int:
         del psm, pc
         torch.cuda.empty_cache()
         phase_rpn_train(card)
+        torch.cuda.empty_cache()
+        det2d = phase_2d_train(card)
+        row1 = next(r for r in kernels if r["name"] == "nms_sorted")
+        row1.update(train_2d_launches=det2d["launches"], train_2d=det2d)
         log(f"done in {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     except Exception:  # report any phase's failure and exit non-zero
         traceback.print_exc()

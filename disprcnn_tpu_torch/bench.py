@@ -17,7 +17,8 @@ NVIDIA card (counterpart of bench.py).
    median and the min-max spread of ms per request, and pairs/s at the
    median.
 3. The train stages (tools/bench_train.py): the iDispNet step (``psm``)
-   and the RCNN step (``pc``) at bench.py's pairs a step, TRAIN_ITERS steps
+   and the RCNN step (``pc``) at bench.py's pairs a step, and on request
+   (``--train 2d``) the 2D mask-stage step at 4 pairs, TRAIN_ITERS steps
    after one warm-up: ms per step, crops/s or pairs/s.
 
 Float32 with TF32 off, as the port is held to its plain versions. Prints
@@ -348,7 +349,7 @@ def main(argv=None) -> int:
                     help="comma list of 3D budgets (headline: 16 proposals per instance, "
                          "reference: 100)")
     ap.add_argument("--train", default="psm,pc",
-                    help="comma list of train stages (psm, pc; '' for none)")
+                    help="comma list of train stages (psm, pc, 2d; '' for none)")
     ap.add_argument("--kernels-off", default="",
                     help="comma list of PointNet++ kernel families to route off (sa, pool, "
                          "fp), as DISPRCNN_PALLAS_DISABLE")

@@ -2,7 +2,9 @@
 disprcnn_tpu/models/backbone/resnet.py; reference modeling/backbone/resnet.py).
 
 Bottleneck stacks of R-50/101/152, stride in the 1x1 conv, C2..C5 outputs
-for the FPN. NCHW inside; the eval path only (no stage freezing, no GN).
+for the FPN. NCHW inside; no GN. The JAX package's freeze_at = 2, the
+default of every config, is a fixed boundary here: no gradient flows back
+past layer1's output (C2), so the stem and layer1 get none.
 """
 from __future__ import annotations
 
@@ -114,8 +116,10 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = self.stem(x)
         outs = []
-        for names in self.block_names:
+        for stage, names in enumerate(self.block_names):
             for name in names:
                 x = getattr(self, name)(x)
+            if stage == 0:  # freeze_at = 2: nothing reaches layer1 or the stem
+                x = x.detach()
             outs.append(x)
         return tuple(outs)

@@ -1,25 +1,91 @@
-"""DispRCNN 2D stereo detector, eval forward (counterpart of
-disprcnn_tpu/models/detector/disprcnn.py with train=False, mask_on=True,
+"""DispRCNN 2D stereo detector (counterpart of
+disprcnn_tpu/models/detector/disprcnn.py with mask_on=True and
 dispnet_on=False; reference modeling/detector/disprcnn.py:93-160).
 
-Left and right images go through one backbone pass as a doubled batch, the
-stereo RPN proposes post_nms_top_n pairs per image, the stereo box head
-scores and refines them into max_det detections, and the mask head predicts
-28x28 masks on the left view. Inputs are NHWC at the public boundary, as in
-the JAX package; NCHW inside.
+Left and right images go through one backbone pass as a doubled batch and
+the stereo RPN scores every anchor. Inputs are NHWC at the public
+boundary, as in the JAX package; NCHW inside.
+
+- Eval (the default mode): the RPN proposes post_nms_top_n_test pairs per
+  image, the stereo box head scores and refines them into max_det
+  detections, and the mask head predicts 28x28 masks on the left view.
+- Train (``model.train()``, as ``engine/trainer.py`` sets it): the
+  proposals at the train budgets, the SRPN loss, the GT appended to the
+  proposals, ROI matching and balanced sampling per image, the sampled
+  rows compacted to roi_batch_per_image a image (positives first, then
+  negatives, then the rest in index order), the box head and the mask
+  head on them, and the JAX package's five losses. The box head runs its
+  dropout in train mode even where the optimizer freezes it
+  (SOLVER.FIX_BOX_HEAD), because the JAX package's does: its
+  loss_classifier and loss_box_reg see the dropped features. Every random
+  draw of a step (the two samplers' priorities, the dropout masks) is an
+  input, ``Det2DDraws``, or drawn in the forward from a given generator.
+  The proposals keep the gradient of their coordinates (RoIAlign's
+  sampling weights, the regression targets), as in the JAX package; only
+  the NMS decision is cut. The matching thresholds, the SRPN's sampler
+  (256 anchors an image, half positive), the ROI sampler's positive
+  fraction (0.25) and the anchors' straddle threshold (0) are the
+  defaults of stereo_rpn.loss, box_head.subsample and
+  anchors.STRADDLE_THRESH: no config sets another value.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ...structures.stereo import StereoBoxes
 from ..backbone.fpn import ResNetFPNBackbone
 from ..roi_heads import box_head as bh
 from ..roi_heads import mask_head as mh
 from ..rpn import stereo_rpn
-from ..rpn.anchors import AnchorGenerator
+from ..rpn.anchors import AnchorGenerator, visibility
+
+
+@dataclass
+class Det2DDraws:
+    """The random draws of one train step of B images: uniform priorities
+    of the SRPN's anchor sampler and of the ROI sampler, and the box head's
+    two dropout keep masks (True keeps an entry)."""
+    rpn_pos: torch.Tensor  # (B, anchors)
+    rpn_neg: torch.Tensor  # (B, anchors)
+    roi_pos: torch.Tensor  # (B, post_nms_top_n_train + GT slots)
+    roi_neg: torch.Tensor  # (B, post_nms_top_n_train + GT slots)
+    keep0: torch.Tensor  # (B * roi_batch_per_image, mlp_head_dim) bool
+    keep1: torch.Tensor  # (B * roi_batch_per_image, mlp_head_dim) bool
+
+
+def draw_det2d_draws(b: int, n_anchors: int, n_proposals: int, roi_batch: int, mlp_dim: int,
+                     generator: torch.Generator, device=None) -> Det2DDraws:
+    """One Det2DDraws from `generator` (on `device`): uniforms in [0, 1),
+    and each dropout entry kept with probability 1 - bh.DROPOUT."""
+    def u(*shape):
+        return torch.rand(shape, generator=generator, device=device)
+
+    return Det2DDraws(rpn_pos=u(b, n_anchors), rpn_neg=u(b, n_anchors),
+                      roi_pos=u(b, n_proposals), roi_neg=u(b, n_proposals),
+                      keep0=u(b * roi_batch, mlp_dim) < 1.0 - bh.DROPOUT,
+                      keep1=u(b * roi_batch, mlp_dim) < 1.0 - bh.DROPOUT)
+
+
+def compact_sampled(proposals: StereoBoxes, labels: torch.Tensor, reg_targets: torch.Tensor,
+                    pos: torch.Tensor, sampled: torch.Tensor, matched_gt: torch.Tensor,
+                    roi_batch: int) -> Tuple[StereoBoxes, Dict[str, torch.Tensor]]:
+    """The first roi_batch rows of each image (B, P) in the order: sampled
+    positives, sampled negatives, the rest, each in index order (a stable
+    descending sort, as the JAX package's top-k orders equal priorities).
+    -> (rois (B, roi_batch), {labels (-1 where not sampled), reg_targets,
+    pos, sampled, matched_gt})."""
+    pri = sampled.float() + pos.float()
+    idx = torch.sort(pri, dim=-1, descending=True, stable=True).indices[:, :roi_batch]
+    keep = torch.gather(sampled, 1, idx)
+    rows = lambda x: torch.gather(x, 1, idx)
+    meta = {"labels": torch.where(keep, rows(labels), torch.full_like(idx, -1)),
+            "reg_targets": torch.gather(reg_targets, 1, idx[..., None].expand(-1, -1, 6)),
+            "pos": rows(pos) & keep, "sampled": keep, "matched_gt": rows(matched_gt)}
+    return proposals.take(idx, keep), meta
 
 
 class DispRCNN(nn.Module):
@@ -30,7 +96,9 @@ class DispRCNN(nn.Module):
         anchor_sizes: Sequence[int] = (32, 64, 128, 256, 512),
         anchor_strides: Sequence[int] = (4, 8, 16, 32, 64),
         aspect_ratios: Sequence[float] = (0.5, 1.0, 2.0),
+        pre_nms_top_n_train: int = 2000,
         pre_nms_top_n_test: int = 6000,
+        post_nms_top_n_train: int = 2000,
         post_nms_top_n_test: int = 300,
         rpn_nms_thresh: float = 0.7,
         rpn_min_size: float = 0.0,
@@ -39,6 +107,7 @@ class DispRCNN(nn.Module):
         box_resolution: int = 7,
         box_sampling_ratio: int = 0,
         pooler_scales: Sequence[float] = (0.25, 0.125, 0.0625, 0.03125),
+        roi_batch_per_image: int = 512,
         score_thresh: float = 0.05,
         box_nms_thresh: float = 0.5,
         detections_per_img: int = 100,
@@ -53,10 +122,13 @@ class DispRCNN(nn.Module):
         # anchors on the card, per (feature sizes, device): a fixed input
         # geometry builds and copies them once
         self._anchors: Dict[tuple, torch.Tensor] = {}
-        self.pre_nms_top_n = pre_nms_top_n_test
-        self.post_nms_top_n = post_nms_top_n_test
+        self.pre_nms_top_n_train, self.pre_nms_top_n_test = pre_nms_top_n_train, pre_nms_top_n_test
+        self.post_nms_top_n_train = post_nms_top_n_train
+        self.post_nms_top_n_test = post_nms_top_n_test
         self.rpn_nms_thresh = rpn_nms_thresh
         self.rpn_min_size = rpn_min_size
+        self.mlp_head_dim = mlp_head_dim
+        self.roi_batch_per_image = roi_batch_per_image
         self.score_thresh = score_thresh
         self.box_nms_thresh = box_nms_thresh
         self.detections_per_img = detections_per_img
@@ -72,34 +144,55 @@ class DispRCNN(nn.Module):
             self.mask_head = mh.MaskHead(
                 out_channels, num_classes, resolution=mask_resolution,
                 scales=pooler_scales, sampling_ratio=mask_sampling_ratio)
-        self.eval()
+        self.eval()  # train mode only on request, as the JAX module defaults to train=False
 
     @property
     def device(self) -> torch.device:
         return self.rpn_head.conv.weight.device
 
     def anchors(self, feature_hws: Sequence[tuple], device: torch.device) -> torch.Tensor:
+        """The anchors (N, 4) on `device`."""
         key = (tuple(feature_hws), device)
         if key not in self._anchors:
             self._anchors[key] = torch.from_numpy(self.anchor_gen(feature_hws)).to(device)
         return self._anchors[key]
 
-    def forward(self, left: torch.Tensor, right: torch.Tensor) -> Dict[str, object]:
-        """left, right (B, H, W, 3) normalized images -> {"detections":
-        StereoBoxes (B, max_det) with 'labels', "masks": (B, max_det, 28, 28)}."""
+    def forward(self, left: torch.Tensor, right: torch.Tensor,
+                gt_left: Optional[torch.Tensor] = None, gt_right: Optional[torch.Tensor] = None,
+                gt_labels: Optional[torch.Tensor] = None,
+                gt_valid: Optional[torch.Tensor] = None,
+                gt_masks: Optional[torch.Tensor] = None,
+                draws: Optional[Det2DDraws] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, object]:
+        """left, right (B, H, W, 3) normalized images.
+
+        Eval -> {"detections": StereoBoxes (B, max_det) with 'labels',
+        "masks": (B, max_det, 28, 28)}.
+
+        Train, with the GT padded to M slots a image (gt_left, gt_right
+        (B, M, 4), gt_labels (B, M) int, gt_valid (B, M) bool, gt_masks
+        (B, M, H, W)) and the step's `draws` (or a `generator` on the
+        model's device to draw them from) -> {"loss_objectness",
+        "loss_rpn_box_reg", "loss_classifier", "loss_box_reg", "loss_mask",
+        "proposals": StereoBoxes (B, post_nms_top_n_train + M) with the GT
+        appended, "roi_pos": (B, post_nms_top_n_train + M) bool, the
+        sampled positives among them}."""
         b, img_h, img_w, _ = left.shape
         feats = self.backbone(torch.cat([left, right], dim=0).permute(0, 3, 1, 2).contiguous())
         lf = [f[:b] for f in feats]
         rf = [f[b:] for f in feats]
-
-        anchors = self.anchors([tuple(f.shape[-2:]) for f in feats], left.device)
+        hws = [tuple(f.shape[-2:]) for f in feats]
         obj_logits, deltas = stereo_rpn.flatten_levels(self.rpn_head(feats))
+        if self.training:
+            return self._train_forward(lf, rf, hws, obj_logits, deltas, (img_h, img_w), gt_left,
+                                       gt_right, gt_labels, gt_valid, gt_masks, draws, generator)
+
+        anchors = self.anchors(hws, left.device)
         rois = stereo_rpn.postprocess_batched(
-            anchors, obj_logits, deltas, (img_h, img_w), self.pre_nms_top_n,
-            self.post_nms_top_n, self.rpn_nms_thresh, self.rpn_min_size,
+            anchors, obj_logits, deltas, (img_h, img_w), self.pre_nms_top_n_test,
+            self.post_nms_top_n_test, self.rpn_nms_thresh, self.rpn_min_size,
             scores_are_probs=self.srpn_quirk_exact,
         )
-
         p = rois.left.shape[1]
         batch_idx = torch.arange(b, device=left.device).repeat_interleave(p)
         x = self.box_extractor(lf[:-1], rf[:-1], rois.left.reshape(b * p, 4),
@@ -116,3 +209,55 @@ class DispRCNN(nn.Module):
         probs = mh.mask_probs(logits, dets.fields["labels"].reshape(b * d))
         return {"detections": dets, "masks": probs.reshape(b, d, *probs.shape[1:])}
 
+    def _train_forward(self, lf, rf, hws, obj_logits, deltas, image_hw, gt_left, gt_right,
+                       gt_labels, gt_valid, gt_masks, draws, generator) -> Dict[str, object]:
+        if any(x is None for x in (gt_left, gt_right, gt_labels, gt_valid, gt_masks)):
+            raise ValueError("the 2D train step needs gt_left, gt_right, gt_labels, gt_valid "
+                             "and gt_masks")
+        (b, n_anchors), dev, m = obj_logits.shape[:2], obj_logits.device, gt_left.shape[1]
+        if draws is None:
+            if generator is None:
+                raise ValueError("the 2D train step needs draws or a generator")
+            draws = draw_det2d_draws(b, n_anchors, self.post_nms_top_n_train + m,
+                                     self.roi_batch_per_image, self.mlp_head_dim, generator, dev)
+        anchors = self.anchors(hws, dev)
+        if draws.rpn_pos.shape != obj_logits.shape[:2]:
+            raise ValueError(f"SRPN priorities {tuple(draws.rpn_pos.shape)} for "
+                             f"{tuple(obj_logits.shape[:2])} anchors")
+        props = stereo_rpn.postprocess_batched(
+            anchors, obj_logits, deltas, image_hw, self.pre_nms_top_n_train,
+            self.post_nms_top_n_train, self.rpn_nms_thresh, self.rpn_min_size,
+            scores_are_probs=self.srpn_quirk_exact,
+        )
+        out = {}
+        out["loss_objectness"], out["loss_rpn_box_reg"] = stereo_rpn.loss(
+            anchors, visibility(anchors, image_hw), obj_logits, deltas, gt_left, gt_right,
+            gt_valid, draws.rpn_pos, draws.rpn_neg)
+        # the GT appended to the proposals (SRPNPostProcessor.add_gt_proposals)
+        proposals = StereoBoxes(
+            left=torch.cat([props.left, gt_left], 1), right=torch.cat([props.right, gt_right], 1),
+            score=torch.cat([props.score, torch.ones_like(gt_valid, dtype=props.score.dtype)], 1),
+            valid=torch.cat([props.valid, gt_valid], 1))
+        labels, reg_targets, pos, sampled, matched_gt = bh.subsample(
+            proposals, gt_left, gt_right, gt_labels, gt_valid, draws.roi_pos, draws.roi_neg,
+            batch_size=self.roi_batch_per_image)
+        rois, meta = compact_sampled(proposals, labels, reg_targets, pos, sampled, matched_gt,
+                                     self.roi_batch_per_image)
+        p = self.roi_batch_per_image
+        flat = lambda x: x.reshape(b * p, *x.shape[2:])
+        batch_idx = torch.arange(b, device=dev).repeat_interleave(p)
+        left_rois = flat(rois.left)
+        x = self.box_extractor(lf[:-1], rf[:-1], left_rois, flat(rois.right), batch_idx,
+                               keep=(draws.keep0, draws.keep1))
+        class_logits, box_deltas = self.box_predictor(x)
+        labels_f, pos_f = flat(meta["labels"]), flat(meta["pos"])
+        out["loss_classifier"], out["loss_box_reg"] = bh.head_loss(
+            class_logits, box_deltas, labels_f, flat(meta["reg_targets"]), pos_f,
+            flat(meta["sampled"]))
+        mask_logits = self.mask_head(lf[:-1], left_rois, batch_idx)
+        # each image's GT masks are rows [i * m, (i + 1) * m)
+        out["loss_mask"] = mh.mask_loss(
+            mask_logits, left_rois, labels_f, pos_f, gt_masks.reshape(-1, *gt_masks.shape[2:]),
+            flat(meta["matched_gt"]) + batch_idx * m)
+        out["proposals"], out["roi_pos"] = proposals, pos
+        return out

@@ -1,10 +1,12 @@
-"""Mask head on the left view, eval path (counterpart of
+"""Mask head on the left view (counterpart of
 disprcnn_tpu/models/roi_heads/mask_head.py; reference
 modeling/roi_heads/mask_head/).
 
 14x14 pooling, four 3x3 convs + ReLU, a 2x2/2 transposed conv + ReLU and a
 1x1 conv to num_classes logits at 28x28; inference takes the sigmoid of the
-predicted label's channel.
+predicted label's channel. The loss (loss.py:44-141) is BCE-with-logits of
+the matched class's channel against the matched GT mask cropped to the ROI
+and thresholded at 0.5, averaged over the positive rows' pixels.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...structures.masks import crop_and_resize_mask
 from .pooler import fpn_roi_align
 
 
@@ -48,3 +51,20 @@ def mask_probs(mask_logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lbl = labels.clamp_min(0).long()
     idx = lbl[:, None, None, None].expand(-1, 1, *mask_logits.shape[2:])
     return torch.sigmoid(torch.gather(mask_logits, 1, idx)[:, 0])
+
+
+def mask_loss(mask_logits: torch.Tensor, boxes: torch.Tensor, labels: torch.Tensor,
+              pos: torch.Tensor, gt_masks: torch.Tensor, matched_gt: torch.Tensor
+              ) -> torch.Tensor:
+    """mask_logits (P, C, 2r, 2r); boxes (P, 4) left ROIs; labels (P,)
+    matched class; pos (P,) bool; gt_masks (N, H, W) full-image masks;
+    matched_gt (P,) index into them -> the mean BCE over the positive rows."""
+    out_size = mask_logits.shape[-1]
+    t = (crop_and_resize_mask(gt_masks, matched_gt, boxes, out_size) > 0.5).to(
+        mask_logits.dtype)
+    lbl = labels.clamp_min(0).long()
+    idx = lbl[:, None, None, None].expand(-1, 1, *mask_logits.shape[2:])
+    logit = torch.gather(mask_logits, 1, idx)[:, 0]
+    bce = logit.clamp_min(0) - logit * t + torch.log1p(torch.exp(-logit.abs()))
+    w = pos[:, None, None].to(logit.dtype)
+    return (bce * w).sum() / (w.sum() * out_size * out_size).clamp_min(1.0)

@@ -1,5 +1,6 @@
 """Anchor generation (host-side numpy; anchors are static given the feature
-sizes). The eval part of disprcnn_tpu/models/rpn/anchors.py, copied.
+sizes). The FPN part of disprcnn_tpu/models/rpn/anchors.py, copied, with the
+visibility mask that the RPN loss reads.
 
 Reproduces the reference cell-anchor recipe (modeling/rpn/anchor_generator.py:
 223-295): base window (0, 0, stride-1, stride-1), ratio enumeration with
@@ -12,6 +13,9 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+# RPN.STRADDLE_THRESH: the default 0 of every config (none sets it)
+STRADDLE_THRESH = 0
 
 
 def cell_anchors(stride: int, sizes: Sequence[float], ratios: Sequence[float]) -> np.ndarray:
@@ -56,8 +60,7 @@ def grid_anchors(
 
 class AnchorGenerator:
     """FPN anchor generator: one size per level (reference make_anchor_generator
-    FPN branch: len(strides) == len(sizes), ratios shared). The eval path
-    needs no visibility mask, so none is computed."""
+    FPN branch: len(strides) == len(sizes), ratios shared)."""
 
     def __init__(
         self,
@@ -80,3 +83,12 @@ class AnchorGenerator:
             grid_anchors(fhw, st, c)
             for fhw, st, c in zip(feature_hws, self.strides, self.cells)
         ], axis=0)
+
+
+def visibility(anchors, image_hw: Tuple[int, int]):
+    """(N, 4) anchors (numpy or torch) -> (N,) bool: the anchors within
+    STRADDLE_THRESH px of the image (anchor_generator.py add_visibility_to)."""
+    h, w = image_hw
+    t = STRADDLE_THRESH
+    return ((anchors[:, 0] >= -t) & (anchors[:, 1] >= -t)
+            & (anchors[:, 2] < w + t) & (anchors[:, 3] < h + t))

@@ -1,11 +1,18 @@
-"""Stereo RPN head and proposal selection, eval path (counterpart of
+"""Stereo RPN head, proposal selection and loss (counterpart of
 disprcnn_tpu/models/rpn/stereo_rpn.py; reference
-modeling/rpn/stereo_rpn/srpn.py, inference.py).
+modeling/rpn/stereo_rpn/srpn.py, inference.py, loss.py).
 
 - SRPNHead: one shared 3x3 conv over both views, channel concat, then 1x1
   heads for A*2 objectness logits and A*6 stereo deltas, per FPN level.
 - postprocess_batched: softmax objectness, exact top pre_nms_top_n, decode,
-  split L/R, clip, min-size filter, double-view NMS to post_nms_top_n.
+  split L/R, clip, min-size filter, double-view NMS to post_nms_top_n. The
+  proposals' coordinates keep their gradient (only the NMS decision is
+  cut), as in the JAX package.
+- loss: anchors matched to the union of each GT pair (0.7/0.3, low-quality
+  recovery), anchors that are not visible ignored, balanced 256 at 0.5
+  sampling on given priorities, 2-way cross-entropy over the sampled
+  anchors and smooth-L1 (beta 1/9) on the 6 deltas of the positives, both
+  divided by the batch's sampled count.
 
 The JAX package's level-atlas variant of the head (DISPRCNN_SRPN_ATLAS,
 off by default) is a TPU layout form with the same outputs; it is not
@@ -19,10 +26,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.iou import pairwise_iou
+from ...ops.losses import smooth_l1
 from ...ops.nms import double_view_nms_topk_batched
 from ...ops.topk_select import topk_scores
+from ...structures.boxes import union_box
 from ...structures.stereo import StereoBoxes
 from . import box_coder
+from .matcher import balanced_sample, match
 
 
 class SRPNHead(nn.Module):
@@ -110,3 +121,37 @@ def postprocess_batched(
     take = lambda x: torch.gather(x, 1, idx[..., None].expand(-1, -1, 4))
     return StereoBoxes(left=take(left), right=take(right),
                        score=torch.gather(top_scores, 1, idx), valid=ok)
+
+
+def loss(
+    anchors: torch.Tensor,  # (N, 4)
+    visibility: torch.Tensor,  # (N,) bool
+    obj_logits: torch.Tensor,  # (B, N, 2)
+    deltas: torch.Tensor,  # (B, N, 6)
+    gt_left: torch.Tensor,  # (B, M, 4)
+    gt_right: torch.Tensor,  # (B, M, 4)
+    gt_valid: torch.Tensor,  # (B, M) bool
+    pos_priorities: torch.Tensor,  # (B, N) uniforms
+    neg_priorities: torch.Tensor,  # (B, N) uniforms
+    fg_iou: float = 0.7,
+    bg_iou: float = 0.3,
+    batch_per_image: int = 256,
+    positive_fraction: float = 0.5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (objectness loss, box loss) of the batch."""
+    quality = pairwise_iou(union_box(gt_left, gt_right), anchors)  # (B, M, N)
+    m = match(quality, gt_valid, fg_iou, bg_iou, allow_low_quality=True)
+    one, zero = torch.ones_like(quality[:, 0]), torch.zeros_like(quality[:, 0])
+    labels = torch.where(m >= 0, one, torch.where(m == -1, zero, -one))
+    labels = torch.where(visibility, labels, -one)
+    pos, neg = balanced_sample(labels, batch_per_image, positive_fraction, pos_priorities,
+                               neg_priorities)
+    sampled = pos | neg
+    gt6 = box_coder.join_stereo(gt_left, gt_right)
+    gt6 = torch.gather(gt6, 1, m.clamp_min(0)[..., None].expand(-1, -1, 6))
+    reg_targets = box_coder.encode6(gt6, anchors.expand(gt6.shape[0], -1, -1))
+    box_l = (smooth_l1(deltas - reg_targets, beta=1.0 / 9) * pos[..., None]).sum()
+    logp = torch.log_softmax(obj_logits, dim=-1)
+    ce = -torch.gather(logp, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    total = sampled.sum().clamp_min(1).to(ce.dtype)
+    return (ce * sampled).sum() / total, box_l / total

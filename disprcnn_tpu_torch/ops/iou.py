@@ -18,12 +18,13 @@ def box_area(boxes: torch.Tensor, to_remove: float = 1.0) -> torch.Tensor:
 
 
 def pairwise_iou(a: torch.Tensor, b: torch.Tensor, to_remove: float = 1.0) -> torch.Tensor:
-    """IoU matrix between (N, 4) and (M, 4) xyxy boxes -> (N, M)."""
-    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
-    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    """IoU matrix between (..., N, 4) and (..., M, 4) xyxy boxes -> (..., N,
+    M); leading axes broadcast."""
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
     wh = (rb - lt + to_remove).clamp_min(0.0)
     inter = wh[..., 0] * wh[..., 1]
-    union = box_area(a, to_remove)[:, None] + box_area(b, to_remove)[None, :] - inter
+    union = box_area(a, to_remove)[..., :, None] + box_area(b, to_remove)[..., None, :] - inter
     return inter / union.clamp_min(1e-12)
 
 

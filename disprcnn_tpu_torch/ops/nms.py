@@ -31,7 +31,9 @@ def nms_topk_batched(
     to_remove: float = 1.0,
     presorted: bool = False,  # rows already score-descending (out of a top-k)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (indices (B, k) int64 into N, ok (B, k) bool), score-descending."""
+    """-> (indices (B, k) int64 into N, ok (B, k) bool), score-descending.
+    The boxes' gradient stops here: NMS emits indices."""
+    boxes = boxes.detach()
     if presorted:
         return nms_sorted(boxes.contiguous(), valid.contiguous(), k, iou_thresh, to_remove)
     key = torch.where(valid, scores, torch.full_like(scores, _NEG))

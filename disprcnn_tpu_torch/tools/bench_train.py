@@ -1,26 +1,30 @@
 """The port's train stages for the bench (counterpart of
-tools/bench_train.py:bench_3d): the DispRCNN3D train step of the iDispNet
-stage (``psm``, configs/kitti/car/vob/idispnet.yaml) and of the RCNN
-stage (``pc``, rcnn.yaml) at bench_3d's geometry (384x1248 pairs, 16
-detections each), with random weights and synthetic detections and ground
-truth made from a seeded torch.Generator. ``rpn_stage`` builds the 3D RPN
-stage's step (rpn.yaml) the same way; the bench does not time it yet.
+tools/bench_train.py: bench_2d and bench_3d): the DispRCNN 2D step of the
+mask stage (``2d``, configs/kitti/car/vob/mask.yaml: backbone, RPN and box
+head frozen, the mask head trains, all five losses computed) at 4 pairs a
+step, and the DispRCNN3D train step of the iDispNet stage (``psm``,
+idispnet.yaml) and of the RCNN stage (``pc``, rcnn.yaml) at bench_3d's
+geometry (384x1248 pairs, 16 detections each), with random weights and
+synthetic detections and ground truth made from a seeded torch.Generator.
+``rpn_stage`` builds the 3D RPN stage's step (rpn.yaml) the same way; the
+bench does not time it yet.
 
 ``build_stage(name, pairs, gen)`` returns a ``TrainStage`` (model,
-optimizer, step, batch); ``time_steps`` runs and times it. The 2D (stage 1)
-step is not ported (ROADMAP A4): asking for it raises NotImplementedError.
-chip_smoke.py builds its train steps (phases 15, 16 and 18) from the same
-pieces.
+optimizer, step, batch); ``time_steps`` runs and times it. chip_smoke.py
+builds its train steps (phases 15, 16, 18 and 19) from the same pieces.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List
 
 import torch
 
-from ..bench import BENCH_3D, CALIB, IMG_HW, timed
+from torch import nn
+
+from ..bench import BENCH_3D, CALIB, IMG_HW, PIXEL_MEAN_BGR, timed
 from ..engine.trainer import make_train_step
+from ..models.detector.disprcnn import DispRCNN
 from ..models.detector.disprcnn3d import DispRCNN3D
 from ..models.pointrcnn import lift, rcnn3d, rpn3d
 from ..ops import roipool3d as troi
@@ -50,21 +54,33 @@ RPN_TRAIN = dict(BENCH_3D, mask_thresh_train=0.5, mask_thresh_eval=0.5, max_roi_
 RPN_PAIRS, RPN_LR = 3, 0.002
 PSM_ITER, PC_ITER, RPN_ITER, GRAD_CLIP = 41000, 62100, 27600, 10.0
 SOLVER = dict(momentum=0.9, weight_decay=1e-4, weight_decay_bias=0.0, bias_lr_factor=2.0)
-# pairs a step in the JAX bench's train stages (bench.py:412)
-BENCH_PAIRS = {"psm": 1, "pc": 1}
+# mask.yaml: R-101-FPN, IMS_PER_BATCH 4, RPN.PRE_NMS_TOP_N_TRAIN 2000 (and the
+# defaults' POST_NMS_TOP_N_TRAIN 2000, 512 ROIs an image at 0.25 positive),
+# FIX_BACKBONE, FIX_RPN, FIX_BOX_HEAD, DO_GRAD_CLIP, OneCycle BASE_LR 0.01
+# over MAX_ITER 4140 with BIAS_LR_FACTOR 1 and WEIGHT_DECAY 5e-4 (the model's
+# defaults hold the RPN and ROI budgets); bench_2d's 8 GT slots an image
+DET2D_TRAIN = dict(body="R-101")
+DET2D_PAIRS, DET2D_GT, DET2D_LR, DET2D_ITER = 4, 8, 0.01, 4140
+DET2D_SOLVER = dict(momentum=0.9, weight_decay=5e-4, weight_decay_bias=0.0, bias_lr_factor=1.0)
+DET2D_FROZEN = dict(FIX_BACKBONE=True, FIX_RPN=True, FIX_BOX_HEAD=True)
+# pairs a step in the JAX bench's train stages (bench.py:412; bench_2d at
+# mask.yaml's IMS_PER_BATCH)
+BENCH_PAIRS = {"psm": 1, "pc": 1, "2d": DET2D_PAIRS}
 
 
 @dataclass
 class TrainStage:
-    model: DispRCNN3D
+    model: nn.Module
     optimizer: object
     step: object
     batch: dict
-    units: int  # crops a step (psm) or pairs a step (pc)
+    units: int  # crops a step (psm) or pairs a step (pc, rpn, 2d)
     pairs: int
     with_points: int = 0  # pc: instances with lifted points in a proposal
     positive: int = 0  # rpn: points labelled inside their GT box
     ignored: int = 0  # rpn: points in the 0.2 band around it (label -1)
+    # 2d: the last step's sampled positive ROIs, "roi_pos" (B, proposals)
+    record: dict = field(default_factory=dict)
 
 
 def random_dets(gen: torch.Generator, b: int, d: int, img_hw=IMG_HW) -> StereoBoxes:
@@ -233,23 +249,83 @@ def rpn_stage(pairs: int, gen: torch.Generator, cfg: dict = RPN_TRAIN, img_hw=IM
                       ignored)
 
 
+def gt_pairs(gen: torch.Generator, b: int, m: int, img_hw=IMG_HW) -> dict:
+    """Padded 2D GT for b pairs on gen's device: 2-4 valid pairs of m slots
+    an image, left boxes 60-360 x 40-200 px inside the image (narrower on a
+    small one), the right box the left shifted 10-40 px left (a disparity),
+    label 1, and as each mask a filled ellipse inside its left box."""
+    dev = gen.device
+    h, w = img_hw
+    bw, bh = min(300, (w - 20) // 2), min(160, (h - 20) // 2)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    sw, sh = 0.2 * bw + 0.8 * bw * u(b, m), 0.25 * bh + 0.75 * bh * u(b, m)
+    x1, y1 = u(b, m) * (w - 1 - sw), u(b, m) * (h - 1 - sh)
+    left = torch.stack([x1, y1, x1 + sw, y1 + sh], -1)
+    shift = (10 + 30 * u(b, m)).clamp_max(x1 + 1)
+    right = left - torch.stack([shift, torch.zeros_like(shift)] * 2, -1)
+    count = torch.randint(2, 5, (b, 1), generator=gen, device=dev)
+    valid = torch.arange(m, device=dev) < count
+    ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xs = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    c = lambda i, j: ((left[..., i] + left[..., j]) / 2)[..., None, None]
+    r = lambda i, j: ((left[..., j] - left[..., i]) * 0.45)[..., None, None]
+    masks = (((xs - c(0, 2)) / r(0, 2)) ** 2 + ((ys - c(1, 3)) / r(1, 3)) ** 2 <= 1) \
+        & valid[..., None, None]
+    zero = lambda x: x * valid[..., None]
+    return dict(gt_left=zero(left), gt_right=zero(right),
+                gt_labels=valid.long(), gt_valid=valid, gt_masks=masks.float())
+
+
+def det2d_stage(pairs: int, gen: torch.Generator, cfg: dict = DET2D_TRAIN, img_hw=IMG_HW,
+                frozen: dict = DET2D_FROZEN) -> TrainStage:
+    """The 2D step (stage 1, mask.yaml): random weights (init_random_: zero
+    box regressors, so the proposals are the anchors), GT from gt_pairs,
+    the images BGR255 less the pixel mean; the SOLVER.FIX_* flags in
+    `frozen`. Each step draws its sampler priorities and dropout masks
+    from `gen`, which the batch holds, and
+    records its sampled positive ROIs in the stage's record (time_steps
+    raises where an image has none)."""
+    dev = gen.device
+    model = init_random_(DispRCNN(**cfg, device=dev), gen)
+    opt = make_optimizer(model, one_cycle(DET2D_LR, DET2D_ITER), one_cycle_momentum(DET2D_ITER),
+                         frozen_path_prefixes(**frozen), **DET2D_SOLVER)
+    step = make_train_step(model, opt, do_grad_clip=True, grad_clip=GRAD_CLIP)
+    h, w = img_hw
+    mean = torch.tensor(PIXEL_MEAN_BGR, device=dev)
+    left, right = (torch.rand(pairs, h, w, 3, generator=gen, device=dev) * 255.0 - mean
+                   for _ in range(2))
+    batch = dict(left=left, right=right, **gt_pairs(gen, pairs, DET2D_GT, img_hw),
+                 generator=gen)
+    record = {}
+
+    def keep_roi_pos(module, args, out):
+        if module.training:
+            record["roi_pos"] = out["roi_pos"]
+
+    model.register_forward_hook(keep_roi_pos)
+    return TrainStage(model, opt, step, batch, pairs, pairs, record=record)
+
+
 def build_stage(name: str, pairs: int, gen: torch.Generator) -> TrainStage:
-    """The train stage `name` ("psm" or "pc") at bench_3d's geometry."""
+    """The train stage `name` ("2d", "psm" or "pc") at the bench's
+    geometry."""
     if name == "2d":
-        raise NotImplementedError("the 2D (stage 1) train step is not ported yet (ROADMAP A4)")
+        return det2d_stage(pairs, gen)
     if name == "psm":
         return psm_stage(pairs, gen)
     if name == "pc":
         return pc_stage(pairs, gen)
-    raise ValueError(f"unknown train stage {name!r}: the stages are {tuple(BENCH_PAIRS)} "
-                     f"(and 2d)")
+    raise ValueError(f"unknown train stage {name!r}: the stages are {tuple(BENCH_PAIRS)}")
 
 
 def time_steps(stage: TrainStage, steps: int, warmup: int = 1) -> List[float]:
     """`warmup` untimed and `steps` timed steps -> ms per timed step (CUDA
     events on the card, the host clock on the CPU). Each step's losses must
-    be finite, no step skipped and no trainable parameter left without a
-    gradient."""
+    be finite, no step skipped, no trainable parameter left without a
+    gradient and (2d) no image without a positive ROI."""
     ms = []
     for i in range(warmup + steps):
         m, dt = timed(lambda: stage.step(stage.batch), stage.model.device)
@@ -260,4 +336,7 @@ def time_steps(stage: TrainStage, steps: int, warmup: int = 1) -> List[float]:
             raise AssertionError(f"train step: non-finite losses {losses}")
         if float(m["skipped_nonfinite"]) or int(m["params_without_grad"]):
             raise AssertionError(f"train step skipped or parameters without gradient: {m}")
+        pos = stage.record.get("roi_pos")
+        if pos is not None and not bool(pos.any(1).all()):
+            raise AssertionError(f"2D step: positive ROIs per image {pos.sum(1).tolist()}")
     return ms

@@ -102,9 +102,26 @@ def test_train_stages_at_a_tiny_geometry():
     assert len(bench_train.time_steps(pc, 1)) == 1
 
 
+def test_2d_train_stage_at_a_tiny_geometry():
+    """The 2D step of tools/bench_train.py (mask.yaml's freezing) built and
+    run on the CPU at the tests' small detector, one timed step: only the
+    mask head changes."""
+    cfg = dict(TINY_2D, pre_nms_top_n_train=300, post_nms_top_n_train=100,
+               roi_batch_per_image=64)
+    st = bench_train.det2d_stage(2, torch.Generator().manual_seed(4), cfg, (64, 128))
+    assert st.batch["gt_valid"].sum(1).min() >= 2 and not st.record
+    before = {n: p.detach().clone() for n, p in st.model.named_parameters()}
+    assert len(bench_train.time_steps(st, 1, warmup=0)) == 1
+    pos = st.record["roi_pos"]
+    assert pos.shape == (2, 100 + bench_train.DET2D_GT) and pos.any(1).all()
+    moved = {n for n, p in st.model.named_parameters() if not torch.equal(p, before[n])}
+    assert moved and all(n.startswith("mask_head.") for n in moved)
+    assert bench_train.BENCH_PAIRS["2d"] == 4
+
+
 def test_unported_and_unknown_train_stages_raise():
-    with pytest.raises(NotImplementedError, match="A4"):
-        bench.time_train_stage("2d", "cpu")
+    """The bench times the 2d, psm and pc stages; "rpn" (stage 3's step,
+    built by rpn_stage) is not one of them."""
     with pytest.raises(ValueError, match="unknown train stage"):
         bench.time_train_stage("rpn", "cpu")
 

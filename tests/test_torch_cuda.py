@@ -78,6 +78,29 @@ def test_nms_kernel_at_more_sites_matches_plain(card, kind, b, n, k, thresh, to_
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_nms_kernel_at_the_2d_train_site_matches_plain(card, kind):
+    """The SRPN's train budget in the 2D train step: 4 images, the top 2000
+    boxes in score order (presorted), k = 2000, IoU 0.7, the double-view
+    union. Exact."""
+    boxes, scores, valid = (torch.from_numpy(x).to(card) for x in make_case(17, 4, 2000, kind))
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    valid = torch.gather(valid, 1, order)
+    right = boxes - torch.tensor([12.0, 0.0, 12.0, 0.0], device=card)
+    before = cnms.launches
+    got = tnms.double_view_nms_topk_batched(boxes, right, scores, valid, 0.7, 2000,
+                                            presorted=True)
+    assert cnms.launches == before + 1
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cnms, "nms_sorted_cuda", cnms.nms_sorted_plain)
+        want = tnms.double_view_nms_topk_batched(boxes, right, scores, valid, 0.7, 2000,
+                                                 presorted=True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_nms_kernel_refuses_non_contiguous(card):
     boxes = torch.zeros(2, 8, 8, device=card)[..., :4]
     valid = torch.ones(2, 8, dtype=torch.bool, device=card)
