@@ -187,6 +187,28 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      it (kernel, device, plain, bound, its one-image walk and where it
      stopped), one step split into stages, ms per step, pairs/s and peak
      memory; and bench.time_train_stage("2d") as the bench runs it.
+ 20. the eval entry point, tools/test_net.run in-process: configs/kitti/
+     car/vob/mask.yaml on synthetic_8 (R-101-FPN at 384x1248, the resize
+     to the 600-pixel short side, 4 pairs a batch, 100 detections into 32
+     slots) and configs/kitti/car/vob/rcnn.yaml on synthetic3d_8 (the 3D
+     model over each scene's 32 offline slots, 224^2 ROIs at +-48,
+     768-point clouds, TEST's 9000 pre-NMS proposals capped to 768 -> 100
+     an instance, 1 pair a batch), random weights from a seed, each run
+     with the launches counted from 0: row 1 launched by mask.yaml, rows
+     1-7, 9, 10 and 13-15 by rcnn.yaml (and no train form, no row 12);
+     predictions.pkl and the KITTI txt written, with the JAX package's
+     keys and dtypes, finite and of the configs' shapes; the first batch
+     of each rerun with every kernel routed to its plain version: the 2D
+     predictions equal, and (on the kernel run's disparity, as phase 7)
+     roi_ok and random equal and box3d/score3d within BOX3D_TOL on
+     BOX3D_AGREE of the instances; the synthetic scenes' GT written as
+     KITTI label files, on which the port's evaluator gives AP 100 (bbox,
+     BEV, 3D, both IoU thresholds) with the GT as the detections (48
+     scenes: the devkit's 41 recall points need 41 GT instances), then
+     scores each run's txt (logged, random weights: not gated); images/s
+     of each loop, split into the data layer (dataset, transforms,
+     collate), the copy to the card, the model (CUDA events), the copy
+     back with the prediction dicts, and the txt and AP.
 Then it prints the card (name, power limit) from nvidia-smi, one JSON line
 of per-kernel numbers (eval kernels per headline request, row 12 per
 SA-off headline request, train forms per train step), and as its last
@@ -201,12 +223,16 @@ import contextlib
 import copy
 import json
 import math
+import os
+import pickle
 import sys
+import tempfile
 import time
 import traceback
 import warnings
 from functools import partial
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -214,7 +240,11 @@ from disprcnn_tpu_torch import bench
 from disprcnn_tpu_torch.bench import (BENCH_2D, BENCH_3D, BUDGETS, CALIB, CONV_ATOL, CONV_RTOL,
                                       IMG_HW, SOFTARGMIN_TOL_PX, card_line, set_budget,
                                       time_ms)
+from disprcnn_tpu_torch.config import get_default_cfg
+from disprcnn_tpu_torch.data.catalog import resolve
+from disprcnn_tpu_torch.engine.batching import make_batch_converter
 from disprcnn_tpu_torch.engine.inference import predict, predict_2d
+from disprcnn_tpu_torch.evaluation.kitti_eval import evaluate_kitti
 from disprcnn_tpu_torch.models.detector.disprcnn import DispRCNN
 from disprcnn_tpu_torch.models.detector.disprcnn3d import DispRCNN3D
 from disprcnn_tpu_torch.models.pointrcnn import rcnn3d, rpn3d
@@ -233,6 +263,7 @@ from disprcnn_tpu_torch.ops.cuda import sa as csa
 from disprcnn_tpu_torch.ops.cuda import softargmin as csam
 from disprcnn_tpu_torch.structures.stereo import StereoBoxes
 from disprcnn_tpu_torch.tools import bench_train
+from disprcnn_tpu_torch.tools import test_net
 from disprcnn_tpu_torch.tools.bench_train import PC_TRAIN, PSM_TRAIN, RPN_PAIRS, RPN_TRAIN
 from disprcnn_tpu_torch.utils.weights import init_random_
 
@@ -241,7 +272,7 @@ from disprcnn_tpu_torch.utils.weights import init_random_
 # the first card run of these kernels) are the bench's
 # (disprcnn_tpu_torch/bench.py); the train stages' configurations are
 # disprcnn_tpu_torch/tools/bench_train.py's.
-PHASES = 19
+PHASES = 20
 PAIRS = 8
 REQUESTS = 2  # at the headline budget; one more at the reference budget
 # the tests' small configurations (tests/torch_port_helpers.py, tests/test_torch_disprcnn3d.py)
@@ -2389,6 +2420,156 @@ def phase_train_timing(psm: dict, pc: dict, errs: dict, card: str) -> dict:
     return rows
 
 
+# Phase 20: the eval entry point on two shipped configs (config file,
+# dataset, 384x1248 static size) and the kernel rows each must launch
+EVAL_RUNS = (("configs/kitti/car/vob/mask.yaml", "synthetic_8", ("nms_sorted",)),
+             ("configs/kitti/car/vob/rcnn.yaml", "synthetic3d_8",
+              ("nms_sorted", "cost_volume_conv", "conv3d", "conv3d_cl1", "deconv3d",
+               "conv3d_s2", "conv2d", "fps", "sa", "fp", "roipool3d", "softargmin")))
+EVAL_IMAGES = 8  # synthetic_8, synthetic3d_8
+EVAL_GT_SCENES = 48  # >= 41 GT instances at every difficulty for AP 100
+
+
+def pred_shapes(cfg) -> dict:
+    """An image's prediction shapes: TPU.MAX_DETECTIONS slots of the 2D
+    detector, or the dataset's TPU.MAX_GT offline slots of the 3D model."""
+    d = cfg.TPU.MAX_DETECTIONS if cfg.MODEL.META_ARCHITECTURE == "DispRCNN" else cfg.TPU.MAX_GT
+    shapes = {"left_boxes": (d, 4), "right_boxes": (d, 4), "scores": (d,), "valid": (d,),
+              "labels": (d,), "masks": (d, 28, 28)}
+    if cfg.MODEL.DET3D_ON and cfg.MODEL.POINTRCNN.RCNN.ENABLED:
+        shapes.update(box3d=(d, 7), score3d=(d,), random3d=(d,))
+    return shapes
+
+
+def write_kitti_gt(gt_dir: str, n: int, det_dir: str = None) -> int:
+    """The synthetic scenes' GT as KITTI label files (and, in det_dir, the
+    same lines scored as detections). -> GT instances."""
+    ds = resolve(f"synthetic_{n}", get_default_cfg(), training=False)
+    count = 0
+    for d in filter(None, (gt_dir, det_dir)):
+        os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        s = ds[i]
+        lines = [f"Car 0.00 0 -10 {' '.join(f'{v:.2f}' for v in b)} {h:.2f} {w:.2f} {l:.2f} "
+                 f"{x:.2f} {y:.2f} {z:.2f} {ry:.2f}"
+                 for b, (x, y, z, h, w, l, ry), ok in zip(s["gt_left"], s["gt_box3d"],
+                                                           s["gt_valid"]) if ok]
+        count += len(lines)
+        for d, tail in ((gt_dir, ""), (det_dir, " 0.9")):
+            if d:
+                with open(os.path.join(d, f"{s['imgid']}.txt"), "w") as f:
+                    f.write("".join(line + tail + "\n" for line in lines))
+    return count
+
+
+def check_predictions(preds: dict, shapes: dict, n_images: int) -> int:
+    """Every image's prediction dict: the JAX package's keys and dtypes,
+    the configs' shapes, finite values. -> valid slots."""
+    if len(preds) != n_images:
+        raise AssertionError(f"{len(preds)} images predicted, expected {n_images}")
+    valid = 0
+    for imgid, p in preds.items():
+        if sorted(p) != sorted(shapes):
+            raise AssertionError(f"{imgid}: keys {sorted(p)}")
+        for k, v in p.items():
+            if v.dtype != test_net.PRED_DTYPES[k] or v.shape != shapes[k]:
+                raise AssertionError(f"{imgid} {k}: {v.dtype} {v.shape}")
+            if v.dtype.kind == "f" and not np.isfinite(v).all():
+                raise AssertionError(f"{imgid} {k}: not finite")
+        valid += int(p["valid"].sum())
+    return valid
+
+
+def first_batch_plain(res: dict, cfg, name: str, model) -> str:
+    """The first batch of a run again, every kernel routed to its plain
+    version: the 2D predictions equal to the run's; the 3D stage on the
+    kernel path's disparity (a forward hook swaps it in) held as phase 7
+    holds it, against a kernel run of the batch on the same priorities."""
+    batch = next(iter(test_net.make_loader(cfg, name, IMG_HW)))
+    dev = model.device
+    if cfg.MODEL.META_ARCHITECTURE == "DispRCNN":
+        with all_plain():
+            plain = test_net.Predictor(cfg, model, dev)(batch)
+        for i, imgid in enumerate(batch["imgid"]):
+            for k, v in res["predictions"][imgid].items():
+                if not np.array_equal(plain[k][i], v):
+                    raise AssertionError(f"{name} {imgid}: plain-path {k} differs")
+        return f"2D predictions of {len(batch['imgid'])} pairs equal"
+    convert = make_batch_converter(cfg, dev)
+    kw = convert(batch)
+    b, d = batch["pred_valid"].shape
+    kw["priorities"] = torch.rand((b * d, model.lift_grid ** 2),
+                                  generator=torch.Generator(device=dev).manual_seed(20),
+                                  device=dev)
+    seen = {}
+    with torch.inference_mode():
+        hook = model.idispnet.register_forward_hook(
+            lambda _m, _i, disp: seen.setdefault("disp", disp))
+        try:
+            ref = model(**kw)
+        finally:
+            hook.remove()
+        hook = model.idispnet.register_forward_hook(lambda _m, _i, disp: seen["disp"])
+        try:
+            with all_plain():
+                out = model(**kw)
+        finally:
+            hook.remove()
+    e, bad, n = check_boxes_3d(out, ref, f"{name} first batch")
+    return f"on the same clouds roi_ok and random equal, box3d within {e:.3g} ({bad}/{n} off)"
+
+
+def phase_eval_entry(card: str) -> None:
+    """tools/test_net.run on mask.yaml and rcnn.yaml (see the docstring)."""
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        gt_dir, det_dir = os.path.join(tmp, "gt"), os.path.join(tmp, "gt_as_dets")
+        n_gt = write_kitti_gt(gt_dir, EVAL_GT_SCENES, det_dir)
+        ap = evaluate_kitti(gt_dir, det_dir, os.path.join(tmp, "gt_eval"))
+        for thr, res in ap.items():
+            for kind in ("image", "ground", "3d"):
+                if any(abs(v - 100.0) > 1e-9 for v in res[kind]):
+                    raise AssertionError(f"GT as detections: AP@{thr} {kind} {res[kind]}")
+        for path, name, rows in EVAL_RUNS:
+            reset_launches()
+            run = test_net.run(path, ["OUTPUT_DIR", os.path.join(tmp, "out")], dataset=name,
+                               static_hw=IMG_HW, evaluate=True, gt_dir=gt_dir, device="cuda",
+                               seed=20)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            cfg, model = run["cfg"], run["model"]
+            res = run["datasets"][name]
+            missing = [r for r in rows if not launches[r]]
+            stray = [k for k, v in launches.items() if v and k not in rows]
+            if missing or stray:
+                raise AssertionError(f"{path}: rows not launched {missing}, launched off the "
+                                     f"path {stray}: {launches}")
+            shapes = pred_shapes(cfg)
+            valid = check_predictions(res["predictions"], shapes, EVAL_IMAGES)
+            with open(os.path.join(res["out_dir"], "predictions.pkl"), "rb") as f:
+                check_predictions(pickle.load(f), shapes, EVAL_IMAGES)
+            if len(os.listdir(res["txt_dir"])) != EVAL_IMAGES:
+                raise AssertionError(f"{path}: {len(os.listdir(res['txt_dir']))} txt files")
+            plain = first_batch_plain(res, cfg, name, model)
+            st = res["stats"]
+            ap_txt = {thr: {k: [round(v, 2) for v in a[k]] for k in ("image", "ground", "3d")}
+                      for thr, a in res["ap"].items()}
+            lines.append(
+                f"  {path} on {name}: {res['images']} images in {st['loop_s']:.3f} s "
+                f"({res['images'] / st['loop_s']:.3f} images/s; {st['batches']} batches): data "
+                f"{st['data_s']:.3f} s, to card {st['to_device_s']:.3f} s, model "
+                f"{st['model_s']:.3f} s, back + dicts {st['to_host_s']:.3f} s, txt + AP "
+                f"{st['txt_s'] + st['ap_s']:.3f} s; valid slots {valid}; launches "
+                f"{ {k: v for k, v in launches.items() if v} }; plain versions: {plain}; AP "
+                f"(easy, moderate, hard) {ap_txt}")
+            del run, model
+            torch.cuda.empty_cache()
+    log(f"[20/{PHASES}] eval entry point (tools/test_net) on {card}: the evaluator gives AP "
+        f"100 on {n_gt} GT instances of {EVAL_GT_SCENES} scenes as their own detections")
+    for line in lines:
+        log(line)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2438,6 +2619,9 @@ def main() -> int:
         det2d = phase_2d_train(card)
         row1 = next(r for r in kernels if r["name"] == "nms_sorted")
         row1.update(train_2d_launches=det2d["launches"], train_2d=det2d)
+        del det2d
+        torch.cuda.empty_cache()
+        phase_eval_entry(card)
         log(f"done in {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     except Exception:  # report any phase's failure and exit non-zero
         traceback.print_exc()

@@ -5,16 +5,28 @@ disprcnn_tpu/engine/inference.py, which drives the jitted eval forward).
 ``predict`` runs it and then the 3D stage over its detections: iDispNet
 over the ROI crops and, when the 3D model has det3d_on, the pseudo-LiDAR
 lift and PointRCNN.
+
+``compute_on_dataset`` and ``inference`` are the eval loop over a loader
+(disprcnn_tpu/engine/inference.py:20-38, 96-137): per-image prediction
+dicts of numpy arrays, cached in ``predictions.pkl`` (the reference's
+predictions.pth and --no_force_recompute workflow), then the evaluator.
+One process: the JAX package's merge across hosts is not ported (ROADMAP
+A5).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os
+import pickle
+import time
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..models.detector.disprcnn import DispRCNN
 from ..models.detector.disprcnn3d import DispRCNN3D
 from ..structures.stereo import StereoBoxes
+from ..utils.logging import Timer, setup_logger
 
 
 def predict_2d(model: DispRCNN, left, right) -> Dict[str, object]:
@@ -68,3 +80,64 @@ def predict(model2d: DispRCNN, model3d: DispRCNN3D, left, right, left_raw, right
                        generator=generator)
     disp = out3.pop("disparity_roi")
     return {**out, "disparity_roi": disp.reshape(b, d, *disp.shape[1:]), **out3}
+
+
+def compute_on_dataset(predict_fn: Callable[[dict], dict], loader, logger=None,
+                       stats: Optional[Dict[str, float]] = None) -> Dict[str, dict]:
+    """predict_fn(batch) -> dict of numpy arrays with a leading batch axis.
+    Returns imgid -> that image's prediction dict (the duplicate ids of a
+    padded last batch collapse). `stats`, when given, gains the seconds
+    spent waiting for the loader ("data_s": dataset, transforms and
+    collate) and in predict_fn ("predict_s"), and the batch count."""
+    results = {}
+    timer = Timer()
+    stats = {} if stats is None else stats
+    for key in ("data_s", "predict_s", "batches"):
+        stats.setdefault(key, 0)
+    it = iter(loader)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        stats["data_s"] += time.perf_counter() - t0
+        if batch is None:
+            break
+        timer.tic()
+        out = predict_fn(batch)
+        dt = timer.toc()
+        stats["predict_s"] += dt
+        stats["batches"] += 1
+        bs = len(batch["imgid"])
+        for i, imgid in enumerate(batch["imgid"]):
+            results[imgid] = {k: np.asarray(v[i]) for k, v in out.items()}
+        if logger:
+            logger.info(f"inference {len(results)} images, {dt / bs:.3f} s/img")
+    return results
+
+
+def inference(predict_fn, loader, dataset_name: str, output_folder: Optional[str] = None,
+              force_recompute: bool = True, evaluator=None, logger=None,
+              stats: Optional[Dict[str, float]] = None):
+    """The eval loop of one dataset: predictions from `predict_fn` over
+    `loader` (or, with force_recompute False, from the folder's cached
+    predictions.pkl), written to that cache, then `evaluator(predictions,
+    output_folder)` when given (its result is returned), else the
+    predictions."""
+    logger = logger or setup_logger("disprcnn_tpu_torch.inference", output_folder or "")
+    cache = os.path.join(output_folder, "predictions.pkl") if output_folder else None
+    if cache and os.path.exists(cache) and not force_recompute:
+        with open(cache, "rb") as f:
+            predictions = pickle.load(f)
+        logger.info(f"loaded cached predictions for {dataset_name}")
+    else:
+        t0 = time.perf_counter()
+        predictions = compute_on_dataset(predict_fn, loader, logger, stats)
+        total = time.perf_counter() - t0
+        logger.info(f"total inference time {total:.1f}s "
+                    f"({total / max(len(predictions), 1):.3f} s/img per device)")
+        if cache:
+            os.makedirs(output_folder, exist_ok=True)
+            with open(cache, "wb") as f:
+                pickle.dump(predictions, f)
+    if evaluator is not None:
+        return evaluator(predictions, output_folder)
+    return predictions

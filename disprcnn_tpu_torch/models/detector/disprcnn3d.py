@@ -176,7 +176,9 @@ class DispRCNN3D(nn.Module):
     rpn_distance_based (False), and the train fields that every config of
     the repo sets alike (aug_data True, fg_aug_times 10, aug_rot_range 18,
     rpn_loss_cls and rcnn_loss_cls BinaryCrossEntropy, rpn_nms_thresh_train
-    unset) are not options here: the port runs only those values. Its
+    0.85, point_rcnn.TRAIN_RPN_NMS_THRESH) are not options here:
+    the port runs only those values (models/build.py raises on a config that
+    asks for another). Its
     DISPRCNN_SA_MIN_C0 and DISPRCNN_RCNN_ROI_BLOCK knobs are the arguments
     sa_min_c0 and roi_block, with the shipped values; DISPRCNN_PALLAS_DISABLE's PointNet++
     tags ("sa", "pool", "fp") are the argument kernels_off (none off by

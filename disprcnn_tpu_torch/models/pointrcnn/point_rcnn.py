@@ -35,6 +35,9 @@ from .pointnet2 import SA_MIN_C0
 
 MEAN_SIZE = (1.52563191462, 1.62856739989, 3.88311640418)  # h, w, l
 ROI_BLOCK = 6400  # disprcnn_tpu point_rcnn._roi_blocks, the shipped cap
+# TRAIN.RPN_NMS_THRESH: the RCNN train step's proposal NMS (point_rcnn.py:95-99
+# of the JAX package); every config keeps the defaults' 0.85
+TRAIN_RPN_NMS_THRESH = 0.85
 
 
 class PointRCNN(nn.Module):
@@ -138,7 +141,7 @@ class PointRCNN(nn.Module):
 
     def rcnn_targets(self, pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok, draws):
         """The frozen part of a train step, without gradients: the RPN in
-        eval (RPN.FIXED), the TRAIN proposal budgets, then the proposal target
+        eval (RPN.FIXED), the TRAIN proposal budgets and NMS threshold, then the proposal target
         layer. -> {pts_input (R * K, P, 5 + C), cls_label, reg_mask (R * K,),
         gt_ct (R * K, 7)}."""
         if draws is None:
@@ -150,7 +153,7 @@ class PointRCNN(nn.Module):
                 pre_nms_top_n=min(self.rpn_pre_nms_per_roi_train or self.rpn_pre_nms_per_roi,
                                   pts.shape[1]),
                 post_nms_top_n=self.proposals_per_roi_train or self.proposals_per_roi,
-                nms_thresh=self.rpn_nms_thresh)
+                nms_thresh=TRAIN_RPN_NMS_THRESH)
             rois = _decanon_rois(rois_c, angles, pts_mean)
             xyz_rect = lift.decanonicalize(rpn_out["xyz"], angles, pts_mean)
             seg_mask = (torch.sigmoid(rpn_out["cls"]) > self.rpn_score_thresh).to(pts.dtype)

@@ -37,6 +37,7 @@ from ..utils.weights import init_random_
 # 0.5, MAX_ROI_FOR_TRAINING 12, WEIGHT_DECAY 1e-4, OneCycle BASE_LR 0.01
 # over MAX_ITER 41000; rcnn.yaml: MASK_THRESH 0.5, RPN.FIXED,
 # TRAIN.RPN_PRE/POST_NMS_TOP_N 9000/512 (pre capped at the 768 points),
+# the defaults' TRAIN.RPN_NMS_THRESH 0.85 (point_rcnn.TRAIN_RPN_NMS_THRESH),
 # RCNN.ROI_PER_IMAGE 16, FIX_DISPARITY, FIX_POINTRCNN_RPN, DO_GRAD_CLIP,
 # MAX_ITER 62100; the defaults' MOMENTUM 0.9, BIAS_LR_FACTOR 2 and
 # WEIGHT_DECAY_BIAS 0, GRAD_CLIP 10 as bench_3d sets it

@@ -423,7 +423,9 @@ def test_pc_train_step_matches_jax():
     the most lifted points (the proposals of a first JAX run), so that the
     sampler finds foreground that pools points."""
     left, right, mask, raw = pc_inputs()
-    jm = j3d.DispRCNN3D(**PC_MODEL, rpn_fixed=True)
+    # the port's train NMS threshold is rcnn.yaml's 0.85 (JAX's is unset by default)
+    jm = j3d.DispRCNN3D(**PC_MODEL, rpn_fixed=True,
+                        rpn_nms_thresh_train=tpr.TRAIN_RPN_NMS_THRESH)
     jd = JStereoBoxes(left=jnp.asarray(left), right=jnp.asarray(right),
                       score=jnp.asarray([[0.9, 0.8]]), valid=jnp.ones((1, 2), bool),
                       fields={"mask": jnp.asarray(mask)})
