@@ -263,7 +263,9 @@ from disprcnn_tpu_torch.ops.cuda import sa as csa
 from disprcnn_tpu_torch.ops.cuda import softargmin as csam
 from disprcnn_tpu_torch.structures.stereo import StereoBoxes
 from disprcnn_tpu_torch.tools import bench_train
-from disprcnn_tpu_torch.tools import test_net
+from disprcnn_tpu_torch.models.build import build_detection_model
+from disprcnn_tpu_torch.tools import test_net, train_idispnet, train_net
+from disprcnn_tpu_torch.utils.checkpoint import Checkpointer, load_stage_weights
 from disprcnn_tpu_torch.tools.bench_train import PC_TRAIN, PSM_TRAIN, RPN_PAIRS, RPN_TRAIN
 from disprcnn_tpu_torch.utils.weights import init_random_
 
@@ -272,7 +274,7 @@ from disprcnn_tpu_torch.utils.weights import init_random_
 # the first card run of these kernels) are the bench's
 # (disprcnn_tpu_torch/bench.py); the train stages' configurations are
 # disprcnn_tpu_torch/tools/bench_train.py's.
-PHASES = 20
+PHASES = 21
 PAIRS = 8
 REQUESTS = 2  # at the headline budget; one more at the reference budget
 # the tests' small configurations (tests/torch_port_helpers.py, tests/test_torch_disprcnn3d.py)
@@ -2495,7 +2497,7 @@ def first_batch_plain(res: dict, cfg, name: str, model) -> str:
                 if not np.array_equal(plain[k][i], v):
                     raise AssertionError(f"{name} {imgid}: plain-path {k} differs")
         return f"2D predictions of {len(batch['imgid'])} pairs equal"
-    convert = make_batch_converter(cfg, dev)
+    convert, _ = make_batch_converter(cfg, dev)
     kw = convert(batch)
     b, d = batch["pred_valid"].shape
     kw["priorities"] = torch.rand((b * d, model.lift_grid ** 2),
@@ -2569,6 +2571,173 @@ def phase_eval_entry(card: str) -> None:
     for line in lines:
         log(line)
 
+# Phase 21: the train entry points. tools/train_net.py on the recipe's four
+# stages (each (config, dataset, opts, the rows it must launch and no
+# other)), rpn.yaml seeded from idispnet.yaml's checkpoint and rcnn.yaml
+# from rpn.yaml's, then tools/test_net.py on rcnn.yaml's checkpoint and
+# tools/train_idispnet.py
+TRAIN_ENTRY_ITERS = 2
+TRAIN_ENTRY_RUNS = (
+    ("mask", "synthetic_8", ["MODEL.WEIGHT", ""], ("nms_sorted",)),
+    ("idispnet", "synthetic3d_4", [], ("conv3d_train",)),
+    ("rpn", "synthetic3d_4", [], ("cost_volume_conv", "conv3d", "conv3d_cl1", "conv3d_s2",
+                                  "deconv3d", "conv2d", "softargmin", "fps")),
+    ("rcnn", "synthetic3d_4", [], ("cost_volume_conv", "conv3d", "conv3d_cl1", "conv3d_s2",
+                                   "deconv3d", "conv2d", "softargmin", "fps", "sa", "fp",
+                                   "nms_sorted", "roipool3d", "sa_train")))
+# the stage whose checkpoint each stage starts from (MODEL.WEIGHT)
+TRAIN_ENTRY_SEED_FROM = {"rpn": "idispnet", "rcnn": "rpn"}
+# train_idispnet: 48 synthetic crops (4 steps of 12) and 12 validation crops
+# (one full batch: with fewer, no EPE and no best model to save)
+IDISPNET_CLI = ["--synthetic", "48", "--epochs", "1", "--bs", "12", "--roi-size", "224",
+                "--maxdisp", "48", "--mindisp", "-48"]
+PSM_ROWS = ("conv3d_train", "cost_volume_conv", "conv3d", "conv3d_cl1", "conv3d_s2",
+            "deconv3d", "conv2d", "softargmin")
+
+
+def check_rows(launches: dict, rows, what: str) -> dict:
+    """Each of `rows` launched and no other kernel. -> the launched counts."""
+    missing = [r for r in rows if not launches[r]]
+    stray = [k for k, v in launches.items() if v and k not in rows]
+    if missing or stray:
+        raise AssertionError(f"{what}: rows not launched {missing}, launched off the path "
+                             f"{stray}: {launches}")
+    return {k: v for k, v in launches.items() if v}
+
+
+def reloads_bit_equal(model, ckpt_dir: str, fresh) -> str:
+    """The newest checkpoint of ckpt_dir, loaded into a freshly built model
+    (`fresh`), equals `model` entry for entry, bit for bit."""
+    unmatched = load_stage_weights(fresh, ckpt_dir)
+    want, got = model.state_dict(), fresh.state_dict()
+    bad = [k for k in want if not torch.equal(want[k], got[k])]
+    if unmatched or bad:
+        raise AssertionError(f"{ckpt_dir}: reload left {unmatched[:3]} unmatched, {bad[:3]} "
+                             "differ")
+    return f"{Checkpointer(ckpt_dir).path(Checkpointer(ckpt_dir).latest_step())}"
+
+
+def phase_train_entry(card: str) -> dict:
+    """tools/train_net.py on mask, idispnet, rpn and rcnn.yaml with the
+    stage handoff, tools/test_net.py on the last checkpoint and
+    tools/train_idispnet.py (see the docstring). -> the launches of each
+    run by row."""
+    lines, counted, runs = [], {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for stage, dataset, opts, rows in TRAIN_ENTRY_RUNS:
+            out = os.path.join(tmp, stage)
+            if stage in TRAIN_ENTRY_SEED_FROM:
+                opts = opts + ["MODEL.WEIGHT", runs[TRAIN_ENTRY_SEED_FROM[stage]]["ckpt_dir"]]
+            reset_launches()
+            res = train_net.run(["--config-file", f"configs/kitti/car/vob/{stage}.yaml",
+                                 "--max-iter", str(TRAIN_ENTRY_ITERS), "--dataset", dataset,
+                                 "--static-hw", ",".join(map(str, IMG_HW)), "--device", "cuda",
+                                 "--seed", "21", *opts, "SOLVER.PRINT_INTERVAL", "1",
+                                 "OUTPUT_DIR", out])
+            torch.cuda.synchronize()
+            counted[stage] = check_rows(read_launches(), rows, f"train_net {stage}.yaml")
+            model = res["model"]
+            if [it for it, _ in res["metrics"]] != list(range(TRAIN_ENTRY_ITERS)):
+                raise AssertionError(f"{stage}.yaml: iterations {res['metrics']}")
+            for it, m in res["metrics"]:
+                if not all(math.isfinite(v) for k, v in m.items() if k.startswith("loss")) \
+                        or m["skipped_nonfinite"] or m["params_without_grad"]:
+                    raise AssertionError(f"{stage}.yaml iteration {it}: {m}")
+            handoff = ""
+            if stage in TRAIN_ENTRY_SEED_FROM:
+                prev = TRAIN_ENTRY_SEED_FROM[stage]
+                saved = Checkpointer(runs[prev]["ckpt_dir"]).read()["model"]
+                sd = model.state_dict()
+                kept = ("idispnet.",) if stage == "rpn" else ("idispnet.", "pointrcnn.rpn.")
+                keys = [k for k in sd if k.startswith(kept)]
+                bad = [k for k in keys if not torch.equal(sd[k].cpu(), saved[k])]
+                new = [k for k in sd if not k.startswith(kept)]
+                if bad or sorted(res["unmatched"]) != sorted(new):
+                    raise AssertionError(f"{stage}.yaml from {prev}'s checkpoint: {bad[:3]} "
+                                         f"differ, unmatched {res['unmatched'][:3]}")
+                handoff = (f"; from {prev}'s checkpoint {len(keys)} entries bit-equal after "
+                           f"training ({'/'.join(kept)} frozen), {len(new)} at their init")
+            fresh = build_detection_model(res["cfg"], device="cuda")
+            path = reloads_bit_equal(model, res["ckpt_dir"], fresh)
+            del fresh
+            st, last = res["stats"], res["metrics"][-1][1]
+            lines.append(
+                f"  train_net {stage}.yaml on {dataset}: {res['iters']} iterations, "
+                f"{st['s_per_iter']:.3f} s/iteration, data layer {100 * st['data_share']:.1f}% "
+                f"({st['data_s']:.3f} of {st['loop_s']:.3f} s; to card {st['to_device_s']:.3f}, "
+                f"steps {st['step_s']:.3f}), last losses "
+                f"{ {k: round(v, 5) for k, v in last.items() if k.startswith('loss')} }, "
+                f"launches {counted[stage]}, {path} reloads bit-equal{handoff}")
+            runs[stage] = res
+            if stage != "rcnn":
+                del res, model
+            torch.cuda.empty_cache()
+        rcnn = runs["rcnn"]
+        for stage in ("mask", "idispnet", "rpn"):
+            runs[stage] = {"ckpt_dir": runs[stage]["ckpt_dir"]}
+        torch.cuda.empty_cache()
+        # test_net on rcnn.yaml's checkpoint, against the final model in memory
+        preds = {}
+        for how in ("ckpt", "memory"):
+            reset_launches()
+            kw = dict(ckpt=rcnn["ckpt_dir"]) if how == "ckpt" else dict(model=rcnn["model"])
+            run = test_net.run("configs/kitti/car/vob/rcnn.yaml",
+                               ["OUTPUT_DIR", os.path.join(tmp, f"eval_{how}")],
+                               dataset="synthetic3d_4", static_hw=IMG_HW, device="cuda",
+                               seed=20, **kw)
+            torch.cuda.synchronize()
+            rows = check_rows(read_launches(), EVAL_RUNS[1][2], f"test_net ({how})")
+            preds[how] = run["datasets"]["synthetic3d_4"]["predictions"]
+            if how == "ckpt":
+                counted["test_net"] = rows
+                check_predictions(preds[how], pred_shapes(run["cfg"]), 4)
+            del run
+        for imgid, p in preds["memory"].items():
+            for k, v in p.items():
+                if not np.array_equal(preds["ckpt"][imgid][k], v):
+                    raise AssertionError(f"test_net --ckpt: {imgid} {k} differs from the "
+                                         "model in memory")
+        lines.append(f"  test_net --ckpt {rcnn['ckpt_dir']} on synthetic3d_4: predictions "
+                     f"bit-equal to the final model's in memory, launches {counted['test_net']}")
+        del rcnn, runs
+        torch.cuda.empty_cache()
+        # train_idispnet: its train steps and its validation, launches counted
+        reset_launches()
+        t0 = time.perf_counter()
+        res = train_idispnet.run(IDISPNET_CLI + ["--output", os.path.join(tmp, "psm"),
+                                                 "--device", "cuda", "--seed", "21"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trainer = res["trainer"]
+        counted["train_idispnet"] = check_rows(read_launches(), PSM_ROWS, "train_idispnet")
+        for n, p in trainer.model.named_parameters():
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                raise AssertionError(f"train_idispnet: {n} has no finite gradient")
+        (_, loss, epe), = trainer.history
+        if not (math.isfinite(loss) and math.isfinite(epe)) or trainer.ckpt.steps() != [0]:
+            raise AssertionError(f"train_idispnet: history {trainer.history}, saved "
+                                 f"{trainer.ckpt.steps()}")
+        saved = trainer.ckpt.read()["model"]
+        bad = [k for k, v in trainer.model.state_dict().items()
+               if not torch.equal(v.cpu(), saved[k])]
+        if bad:
+            raise AssertionError(f"train_idispnet: the checkpoint differs at {bad[:3]}")
+        tm = trainer.times
+        lines.append(
+            f"  train_idispnet {' '.join(IDISPNET_CLI)}: {tm['steps']} steps, "
+            f"{tm['train_s'] / tm['steps']:.3f} s/step, data layer "
+            f"{100 * tm['data_s'] / wall:.1f}% ({tm['data_s']:.3f} of {wall:.3f} s; validation "
+            f"{tm['val_s']:.3f} s), loss {loss:.5g}, EPE {epe:.5g}, launches "
+            f"{counted['train_idispnet']}, {trainer.ckpt.path(0)} reloads bit-equal")
+        del res, trainer
+        torch.cuda.empty_cache()
+    log(f"[21/{PHASES}] train entry points (tools/train_net, test_net --ckpt, train_idispnet) "
+        f"on {card}: finite losses, no skipped step, no parameter without a gradient, the "
+        f"stage handoff exact, every checkpoint reloads bit-equal")
+    for line in lines:
+        log(line)
+    return counted
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2622,6 +2791,11 @@ def main() -> int:
         del det2d
         torch.cuda.empty_cache()
         phase_eval_entry(card)
+        torch.cuda.empty_cache()
+        entry = phase_train_entry(card)
+        for row in kernels:
+            row["train_entry_launches"] = {run: c[row["name"]] for run, c in entry.items()
+                                           if c.get(row["name"])}
         log(f"done in {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     except Exception:  # report any phase's failure and exit non-zero
         traceback.print_exc()

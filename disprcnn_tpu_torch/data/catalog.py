@@ -51,3 +51,14 @@ def resolve(name: str, cfg=None, training: bool = True, transforms=None):
             with_offline_preds=bool(m.group(1)),
         )
     raise KeyError(f"Unknown dataset: {name}")
+
+
+def resolve_many(names, cfg=None, training: bool = True, transforms=None):
+    """Concatenation of several catalog entries (reference
+    data/datasets/concat_dataset.py via data/build.py:16-44)."""
+    from .datasets.concat import ConcatDataset
+
+    datasets = [resolve(n, cfg, training, transforms) for n in names]
+    if len(datasets) == 1:
+        return datasets[0]
+    return ConcatDataset(datasets)

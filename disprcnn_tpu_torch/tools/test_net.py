@@ -20,10 +20,13 @@ the AP evaluator against the label files in --gt-dir.
 The predictions are dicts of numpy arrays with the JAX package's keys and
 dtypes, so either package reads the other's predictions.pkl.
 
-The weights are random, drawn by utils/weights.py::init_random_ from
---seed (the lift's sampling priorities come from a generator seeded
-alike): loading a checkpoint (--ckpt) waits for utils/checkpoint.py
-(ROADMAP A4.3) and raises. The JAX tool's --roi-buckets dispatches
+The weights are a train run's checkpoint: --ckpt (a Checkpointer
+directory such as tools/train_net.py's OUTPUT_DIR/ckpt, or one of its
+files), else OUTPUT_DIR/ckpt when it holds a last_checkpoint, as the JAX
+tool does, loaded by utils/checkpoint.py::load_stage_weights; without
+one they are random, drawn by utils/weights.py::init_random_ from --seed
+(the lift's sampling priorities come from a generator seeded alike either
+way). The JAX tool's --roi-buckets dispatches
 per-image ROI counts to separately compiled programs, a compile-count
 option of XLA, and is not ported. It runs on the card unless --device
 says otherwise; the CPU runs every kernel's plain version.
@@ -46,6 +49,7 @@ from ..engine.batching import make_batch_converter
 from ..engine.inference import inference
 from ..evaluation.kitti_eval import evaluate_kitti, write_kitti_txt
 from ..models.build import build_detection_model
+from ..utils.checkpoint import load_stage_weights
 from ..utils.logging import setup_logger
 from ..utils.weights import init_random_
 
@@ -58,7 +62,9 @@ PRED_DTYPES = {"left_boxes": np.float32, "right_boxes": np.float32, "scores": np
 def parse_args(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser(description="disprcnn_tpu_torch inference")
     p.add_argument("--config-file", required=True)
-    p.add_argument("--ckpt", default=None, help="not ported yet (ROADMAP A4.3)")
+    p.add_argument("--ckpt", default=None,
+                   help="checkpoint directory or file (default OUTPUT_DIR/ckpt when it holds "
+                        "a last_checkpoint)")
     p.add_argument("--no_force_recompute", action="store_true")
     p.add_argument("--dataset", default=None)
     p.add_argument("--static-hw", default="384,1248")
@@ -100,7 +106,7 @@ class Predictor:
         self.meta = cfg.MODEL.META_ARCHITECTURE
         self.model = model
         self.device = torch.device(device)
-        self.convert = make_batch_converter(cfg, self.device)
+        self.convert, _ = make_batch_converter(cfg, self.device)
         self.generator = generator
         self.priorities = priorities
         self.times = {"to_device_s": 0.0, "model_s": 0.0, "to_host_s": 0.0}
@@ -166,13 +172,13 @@ def run(config_file: str, opts: Sequence[str] = (), dataset: Optional[str] = Non
         priorities=None, logger=None) -> dict:
     """The tool's run, in-process. `model` replaces the built one (the
     tests load the JAX package's weights into it); `priorities` as
-    Predictor's. -> {"cfg", "model", "datasets": {name: {"predictions",
+    Predictor's; the checkpoint (`ckpt`, else OUTPUT_DIR/ckpt when it
+    holds a last_checkpoint) loads into either. -> {"cfg", "model",
+    "ckpt", "datasets": {name: {"predictions",
     "out_dir", "txt_dir", "ap" (with evaluate), "images", "stats"}}}, where
     "stats" holds the loop's seconds: data_s, to_device_s, model_s,
     to_host_s, txt_s, ap_s, loop_s (the whole loop, txt and AP
     included)."""
-    if ckpt:
-        raise NotImplementedError("--ckpt: checkpoint loading is not ported (ROADMAP A4.3)")
     cfg = get_default_cfg()
     cfg.merge_from_file(config_file)
     if opts:
@@ -186,10 +192,16 @@ def run(config_file: str, opts: Sequence[str] = (), dataset: Optional[str] = Non
     if model is None:
         model = build_detection_model(cfg, device=device, kernels_off=kernels_off)
         init_random_(model, torch.Generator(device=device).manual_seed(seed))
+    default_ckpt = os.path.join(cfg.OUTPUT_DIR, "ckpt")
+    if not ckpt and os.path.exists(os.path.join(default_ckpt, "last_checkpoint")):
+        ckpt = default_ckpt
+    if ckpt:
+        unmatched = load_stage_weights(model, ckpt)
+        logger.info(f"weights from {ckpt} ({len(unmatched)} entries not in it)")
     model.eval()
     names = [dataset] if dataset else (list(cfg.DATASETS.TEST) or ["synthetic_16"])
     transforms = build_transforms(cfg, is_train=False)
-    out = {"cfg": cfg, "model": model, "datasets": {}}
+    out = {"cfg": cfg, "model": model, "ckpt": ckpt, "datasets": {}}
     for name in names:
         t_start = time.perf_counter()
         loader = make_loader(cfg, name, static_hw, transforms)

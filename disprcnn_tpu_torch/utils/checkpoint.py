@@ -1,0 +1,174 @@
+"""Checkpoints and the stage handoff (counterpart of
+disprcnn_tpu/utils/checkpoint.py; reference utils/checkpoint.py:13-148,
+model_serialization.py:10-80). ``torch.save`` takes the place of orbax.
+
+- ``Checkpointer(directory, max_to_keep=10)`` writes ``step_<n>.pt`` files,
+  each ``{"model": model.state_dict(), "optimizer": optimizer.state_dict()
+  (with its update count), "step": n}``, and a ``last_checkpoint`` file
+  holding the step; it keeps the newest max_to_keep. ``load(model,
+  optimizer, load_optimizer=...)`` restores the newest into the model (and
+  the optimizer) and returns its step as the start iteration. With
+  load_optimizer False (SOLVER.LOAD_OPTIMIZER, False in every shipped
+  config) the optimizer stays fresh but the saved step is still returned,
+  as the JAX package's does: the iterations continue from the saved step
+  while the schedules, which read the optimizer's update count, start
+  again at 0.
+- ``resolve_weight`` maps the catalog (``catalog://``) and URL names of
+  MODEL.WEIGHT to files under $DISPRCNN_WEIGHTS (default ``weights``,
+  relative to the working directory): there is no download.
+- ``align_and_update_params`` is the fuzzy longest-dotted-suffix alignment
+  of the reference (model_serialization.py:10-59), here over
+  ``state_dict()`` keys, buffers included (FrozenBN constants, BN running
+  statistics).
+- ``load_stage_weights(model, weight)`` loads a previous stage's
+  checkpoint directory (or one of its files) into a model by that
+  alignment: stage 2's DispRCNN3D fills stage 3's ``idispnet.*`` and leaves
+  ``pointrcnn.*`` at their init, reported as unmatched. The reference's
+  released ``.pth``/``.tar`` and Detectron ``.pkl`` layouts raise
+  NotImplementedError (ROADMAP A6, utils/torch_import.py).
+"""
+from __future__ import annotations
+
+import logging
+import os
+import re
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+_STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
+
+
+class Checkpointer:
+    def __init__(self, directory: str, max_to_keep: int = 10):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step}.pt")
+
+    def steps(self) -> List[int]:
+        return sorted(int(m.group(1)) for m in map(_STEP_FILE.match, os.listdir(self.directory))
+                      if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, model: nn.Module, optimizer=None) -> str:
+        state = {"model": model.state_dict(),
+                 "optimizer": None if optimizer is None else optimizer.state_dict(),
+                 "step": int(step)}
+        path = self.path(step)
+        tmp = path + ".tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+        with open(os.path.join(self.directory, "last_checkpoint"), "w") as f:
+            f.write(str(step))
+        for old in self.steps()[:-self.max_to_keep]:
+            os.remove(self.path(old))
+        return path
+
+    def read(self, step: Optional[int] = None) -> Optional[dict]:
+        """The saved state of `step` (default the newest) on the CPU, or None."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        return torch.load(self.path(step), map_location="cpu", weights_only=True)
+
+    def load(self, model: nn.Module, optimizer=None, step: Optional[int] = None,
+             load_optimizer: bool = True) -> int:
+        """Restore `step` (default the newest) into `model` (strict) and, with
+        load_optimizer, into `optimizer`. -> the saved step, 0 when there is
+        no checkpoint."""
+        state = self.read(step)
+        if state is None:
+            return 0
+        model.load_state_dict(state["model"])
+        if load_optimizer and optimizer is not None:
+            if state["optimizer"] is None:
+                raise ValueError(f"{self.path(state['step'])} holds no optimizer state")
+            optimizer.load_state_dict(state["optimizer"])
+        return int(state["step"])
+
+
+_CATALOG = {
+    # names the reference resolves through ModelCatalog (utils/checkpoint.py:
+    # 110-148 + model_zoo); there is no download, so they map to local files
+    "ImageNetPretrained/MSRA/R-50": "R-50.pkl",
+    "ImageNetPretrained/MSRA/R-101": "R-101.pkl",
+    "ImageNetPretrained/MSRA/R-152": "R-152.pkl",
+}
+
+
+def resolve_weight(weight: str) -> str:
+    """`catalog://` / URL resolution (reference DetectronCheckpointer
+    _load_file): catalog names and URLs map to files under
+    $DISPRCNN_WEIGHTS (default ``weights``); a missing file raises."""
+    root = os.environ.get("DISPRCNN_WEIGHTS", "weights")
+    if weight.startswith("catalog://"):
+        name = weight[len("catalog://"):]
+        path = os.path.join(root, _CATALOG.get(name, name.replace("/", "_") + ".pkl"))
+    elif weight.startswith(("http://", "https://")):
+        path = os.path.join(root, os.path.basename(weight))
+    else:
+        return weight
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{weight} resolves to the local file {path}, which does not "
+                                "exist (there is no download: place the file there)")
+    return path
+
+
+def align_and_update_params(target: Dict[str, object],
+                            source: Dict[str, object]) -> Tuple[Dict[str, object], List[str]]:
+    """Fuzzy alignment by the longest matching dotted suffix (reference
+    model_serialization.py:10-59): each target key takes the source entry
+    whose key equals it, or is a dotted suffix of it, or has it as one,
+    with the longest common length (the first such source key on ties), if
+    the shapes agree. -> (the updated flat dict, the target keys left
+    unmatched)."""
+    out = dict(target)
+    unmatched = []
+    skeys = list(source)
+    for tk in target:
+        best, best_len = None, 0
+        for sk in skeys:
+            if tk == sk or tk.endswith("." + sk) or sk.endswith("." + tk):
+                n = min(len(tk), len(sk))
+                if n > best_len:
+                    best, best_len = sk, n
+        if best is not None and tuple(source[best].shape) == tuple(target[tk].shape):
+            out[tk] = source[best]
+        else:
+            unmatched.append(tk)
+    return out, unmatched
+
+
+def load_stage_weights(model: nn.Module, weight: str) -> List[str]:
+    """Load a previous stage's weights, MODEL.WEIGHT: a Checkpointer
+    directory (its newest step) or one of its files (see the module doc),
+    into `model` in place by align_and_update_params. -> the model's
+    state_dict keys left at their values (logged, as the JAX package logs
+    them)."""
+    weight = resolve_weight(weight)
+    if weight.endswith((".pth", ".tar", ".pkl")):
+        raise NotImplementedError(
+            f"{weight}: the reference's .pth/.tar and Detectron .pkl layouts are not "
+            "imported yet (ROADMAP A6, utils/torch_import.py)")
+    if not os.path.exists(weight):
+        raise FileNotFoundError(f"no checkpoint at {weight}")
+    if os.path.isdir(weight):
+        state = Checkpointer(weight).read()
+        if state is None:
+            raise FileNotFoundError(f"no checkpoint under {weight}")
+    else:
+        state = torch.load(weight, map_location="cpu", weights_only=True)
+    merged, unmatched = align_and_update_params(model.state_dict(), state["model"])
+    model.load_state_dict(merged)
+    if unmatched:
+        logging.getLogger("disprcnn_tpu_torch").info(
+            f"load_stage_weights({weight}): {len(unmatched)} entries not found (kept init), "
+            f"e.g. {unmatched[:5]}")
+    return unmatched

@@ -1,11 +1,13 @@
-"""Logging and a timer (counterpart of disprcnn_tpu/utils/logging.py's
-setup_logger and Timer; reference utils/logger.py:7-30, timer.py)."""
+"""Logging, windowed metrics and a timer (counterpart of
+disprcnn_tpu/utils/logging.py; reference utils/logger.py:7-30,
+metric_logger.py:8-67, timer.py)."""
 from __future__ import annotations
 
 import logging
 import os
 import sys
 import time
+from collections import defaultdict, deque
 
 
 def setup_logger(name: str, save_dir: str = "", rank: int = 0) -> logging.Logger:
@@ -33,6 +35,52 @@ def setup_logger(name: str, save_dir: str = "", rank: int = 0) -> logging.Logger
         fh.setFormatter(fmt)
         logger.addHandler(fh)
     return logger
+
+
+class SmoothedValue:
+    """Windowed median/avg of a scalar series (window 20)."""
+
+    def __init__(self, window: int = 20):
+        self.deque = deque(maxlen=window)
+        self.total = 0.0
+        self.count = 0
+
+    def update(self, value: float):
+        self.deque.append(value)
+        self.total += value
+        self.count += 1
+
+    @property
+    def median(self) -> float:
+        d = sorted(self.deque)
+        return d[len(d) // 2] if d else 0.0
+
+    @property
+    def avg(self) -> float:
+        return sum(self.deque) / max(len(self.deque), 1)
+
+    @property
+    def global_avg(self) -> float:
+        return self.total / max(self.count, 1)
+
+
+class MetricLogger:
+    """SmoothedValues by name; str() gives each as "name: median (global
+    average)"."""
+
+    def __init__(self, delimiter: str = "  "):
+        self.meters = defaultdict(SmoothedValue)
+        self.delimiter = delimiter
+
+    def update(self, **kwargs):
+        for k, v in kwargs.items():
+            self.meters[k].update(float(v))
+
+    def __str__(self):
+        return self.delimiter.join(
+            f"{name}: {m.median:.4f} ({m.global_avg:.4f})"
+            for name, m in self.meters.items()
+        )
 
 
 class Timer:

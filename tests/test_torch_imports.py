@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py load nothing of JAX, Flax or disprcnn_tpu.
+"""The port and chip_smoke.py load nothing of JAX, Flax, orbax, optax or
+disprcnn_tpu.
 
 Checked in a subprocess: tests/conftest.py has already imported jax in
 this process. The machine with the card has no jax or flax, so one such
@@ -19,7 +20,7 @@ for mod in pkgutil.walk_packages(disprcnn_tpu_torch.__path__, "disprcnn_tpu_torc
     importlib.import_module(mod.name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax")
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax")
              or (m.split(".")[0].startswith("disprcnn_tpu") and m.split(".")[0] != "disprcnn_tpu_torch"))
 print("BAD", bad)
 print("COUNT", sum(m.startswith("disprcnn_tpu_torch.") for m in sys.modules))
@@ -27,13 +28,15 @@ print("LOADED", " ".join(sorted(m for m in sys.modules if m.startswith("disprcnn
 """
 
 # modules of the iDispNet and PointRCNN slices, of their train steps, of
-# the bench and of the eval entry point, which chip_smoke.py drives on the
-# card
+# the bench and of the eval and train entry points, which chip_smoke.py
+# drives on the card
 SLICE_MODULES = (
     "disprcnn_tpu_torch.bench",
     "disprcnn_tpu_torch.config.defaults",
     "disprcnn_tpu_torch.config.node",
     "disprcnn_tpu_torch.data.catalog",
+    "disprcnn_tpu_torch.data.datasets.concat",
+    "disprcnn_tpu_torch.data.datasets.kitti_roi",
     "disprcnn_tpu_torch.data.datasets.kitti",
     "disprcnn_tpu_torch.data.datasets.synthetic",
     "disprcnn_tpu_torch.data.kitti_io",
@@ -41,11 +44,16 @@ SLICE_MODULES = (
     "disprcnn_tpu_torch.data.transforms",
     "disprcnn_tpu_torch.data.zarr_io",
     "disprcnn_tpu_torch.engine.batching",
+    "disprcnn_tpu_torch.engine.psm_trainer",
     "disprcnn_tpu_torch.evaluation.ap",
     "disprcnn_tpu_torch.evaluation.kitti_eval",
     "disprcnn_tpu_torch.models.build",
     "disprcnn_tpu_torch.tools.test_net",
+    "disprcnn_tpu_torch.tools.train_idispnet",
+    "disprcnn_tpu_torch.tools.train_net",
+    "disprcnn_tpu_torch.utils.checkpoint",
     "disprcnn_tpu_torch.utils.logging",
+    "disprcnn_tpu_torch.utils.tb",
     "disprcnn_tpu_torch.engine.inference",
     "disprcnn_tpu_torch.engine.trainer",
     "disprcnn_tpu_torch.models.detector.disprcnn3d",
@@ -87,7 +95,7 @@ def test_port_and_chip_smoke_import_no_jax():
 
 
 def test_no_import_statement_names_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|disprcnn_tpu)\b")
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|orbax|optax|disprcnn_tpu)\b")
     files = [*(REPO / "disprcnn_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
     hits = [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1) if pat.match(line)]
@@ -112,7 +120,7 @@ from disprcnn_tpu_torch.config import get_default_cfg
 from disprcnn_tpu_torch.data import catalog, loader, transforms
 from disprcnn_tpu_torch.data.datasets import kitti, synthetic
 from disprcnn_tpu_torch.evaluation.kitti_eval import evaluate_kitti
-from disprcnn_tpu_torch.tools import test_net
+from disprcnn_tpu_torch.tools import test_net, train_idispnet, train_net
 cfg = get_default_cfg()
 cfg.merge_from_file(os.path.join({repo!r}, "configs/kitti/car/vob/mask.yaml"))
 cfg.merge_from_list(["TPU.MAX_GT", "4"])
