@@ -209,6 +209,26 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      of each loop, split into the data layer (dataset, transforms,
      collate), the copy to the card, the model (CUDA events), the copy
      back with the prediction dicts, and the txt and AP.
+ 21. the train entry points in-process: tools/train_net on mask, idispnet,
+     rpn and rcnn.yaml with the stage handoff, test_net --ckpt and
+     tools/train_idispnet (phase_train_entry).
+ 22. the distributed paths, two ranks sharing the card on gloo (each a
+     process of this script with --dist-worker and torchrun's
+     environment; no time of theirs is a scaling figure): (a) train_net on
+     idispnet, rpn and rcnn.yaml at the test size (DIST_TINY), 1 pair a
+     rank against one process at 2 pairs from the same seeded weights and
+     draws, float32 on the kernels, and the two train-BN stages also in
+     float64 on the plain versions: the first step's losses, gradients and
+     BN statistics (DIST_LOSS_RTOL, phase 16's per-tensor form, ...), the
+     ranks bit-equal after 3 iterations, rank 0's checkpoint and log.txt
+     alone, the launches; (b) test_net on rcnn.yaml over synthetic3d_8:
+     the merged predictions.pkl bit-equal to one process's, the same AP;
+     (c) NCCL refusing two ranks on the card, and a world-1 NCCL group's
+     all_reduce and train_net iteration bit-equal to the run without a
+     group; (d) the recipe: test_net on mask.yaml -> split_predictions ->
+     generate_psmnet_input (records on the card against the CPU's) ->
+     train_idispnet on the records; (e) utils/profiling.py: a trace of one
+     train iteration naming csrc kernels, StepTimer, device_memory_stats.
 Then it prints the card (name, power limit) from nvidia-smi, one JSON line
 of per-kernel numbers (eval kernels per headline request, row 12 per
 SA-off headline request, train forms per train step), and as its last
@@ -221,10 +241,14 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import datetime
 import json
 import math
 import os
 import pickle
+import re
+import socket
+import subprocess
 import sys
 import tempfile
 import time
@@ -234,6 +258,7 @@ from functools import partial
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from disprcnn_tpu_torch import bench
@@ -242,6 +267,8 @@ from disprcnn_tpu_torch.bench import (BENCH_2D, BENCH_3D, BUDGETS, CALIB, CONV_A
                                       time_ms)
 from disprcnn_tpu_torch.config import get_default_cfg
 from disprcnn_tpu_torch.data.catalog import resolve
+from disprcnn_tpu_torch.engine import batching
+from disprcnn_tpu_torch.engine import trainer as trainer_mod
 from disprcnn_tpu_torch.engine.batching import make_batch_converter
 from disprcnn_tpu_torch.engine.inference import predict, predict_2d
 from disprcnn_tpu_torch.evaluation.kitti_eval import evaluate_kitti
@@ -261,10 +288,13 @@ from disprcnn_tpu_torch.ops.cuda import nms as cuda_nms
 from disprcnn_tpu_torch.ops.cuda import roipool3d as croi
 from disprcnn_tpu_torch.ops.cuda import sa as csa
 from disprcnn_tpu_torch.ops.cuda import softargmin as csam
+from disprcnn_tpu_torch.parallel.multihost import init_distributed
 from disprcnn_tpu_torch.structures.stereo import StereoBoxes
 from disprcnn_tpu_torch.tools import bench_train
 from disprcnn_tpu_torch.models.build import build_detection_model
-from disprcnn_tpu_torch.tools import test_net, train_idispnet, train_net
+from disprcnn_tpu_torch.tools import (generate_psmnet_input, split_predictions, test_net,
+                                      train_idispnet, train_net)
+from disprcnn_tpu_torch.utils import profiling
 from disprcnn_tpu_torch.utils.checkpoint import Checkpointer, load_stage_weights
 from disprcnn_tpu_torch.tools.bench_train import PC_TRAIN, PSM_TRAIN, RPN_PAIRS, RPN_TRAIN
 from disprcnn_tpu_torch.utils.weights import init_random_
@@ -274,7 +304,7 @@ from disprcnn_tpu_torch.utils.weights import init_random_
 # the first card run of these kernels) are the bench's
 # (disprcnn_tpu_torch/bench.py); the train stages' configurations are
 # disprcnn_tpu_torch/tools/bench_train.py's.
-PHASES = 21
+PHASES = 22
 PAIRS = 8
 REQUESTS = 2  # at the headline budget; one more at the reference budget
 # the tests' small configurations (tests/torch_port_helpers.py, tests/test_torch_disprcnn3d.py)
@@ -2739,6 +2769,453 @@ def phase_train_entry(card: str) -> dict:
     return counted
 
 
+# Phase 22: the distributed paths on the one card. Two ranks share cuda:0 on
+# the gloo backend (gloo takes CUDA tensors; NCCL refuses two ranks on one
+# card), each a process running this script with --dist-worker and
+# torchrun's environment; no time of theirs is a scaling figure.
+DIST_DEVICE = "cuda:0"
+DIST_TIMEOUT_S = 240  # a rank's whole job, and every collective of the group
+# the train stages at the test size (tests/torch_train_helpers.py's, with
+# 64^2 ROIs as phase 8's small references), 2 pairs a global batch
+DIST_TINY = ["TPU.MAX_DETECTIONS", "4", "TPU.MAX_GT", "4", "TPU.ROI_CROP_SIZE", "64",
+             "MODEL.DISPNET.MAX_DISP", "16", "MODEL.DISPNET.MIN_DISP", "-16",
+             "MODEL.POINTRCNN.RPN.NPOINTS", "128",
+             "MODEL.POINTRCNN.RPN.SA_CONFIG.NPOINTS", "[128, 64, 32, 16]",
+             "MODEL.POINTRCNN.TEST.RPN_POST_NMS_TOP_N", "8",
+             "MODEL.POINTRCNN.TRAIN.RPN_POST_NMS_TOP_N", "8", "INPUT.DO_RESIZE", "False",
+             "SOLVER.IMS_PER_BATCH", "2", "SOLVER.PRINT_INTERVAL", "1"]
+DIST_HW = (192, 640)
+DIST_ITERS = 3  # the first step, then 2 more
+# (stage, extra opts, dtype): float32 on the kernels; the two stages with
+# train-mode BN also in float64 on the plain versions, where the two runs'
+# arithmetic differs only by its order of sums (float32's flips the odd
+# ReLU, C19, and cancels in E[x^2] - E[x]^2 on a random iDispNet's deep
+# clouds, C26)
+DIST_RUNS = (("idispnet", [], "float32"), ("rpn", [], "float32"),
+             ("rcnn", ["MODEL.POINTRCNN.RCNN.ROI_PER_IMAGE", "4"], "float32"),
+             ("idispnet", [], "float64"), ("rpn", [], "float64"))
+# the first step's losses, two ranks against one process: float32 1e-5
+# relative (rpn.yaml 1e-4: C26's cancellation, 1.9e-5 on the CPU), float64
+# 1e-9; gradients per tensor within STEP_GRAD_TOL * max |one| (phase 16's
+# form) for rcnn.yaml and the float64 runs, the float32 train-BN stages
+# over all tensors within DIST_F32_GRAD_L2 relative L2 (a bound that a
+# gradient not summed over the ranks, ~1e-1 and more, fails); BN running
+# statistics (float64) within 1e-6 relative L2 per tensor
+DIST_LOSS_RTOL = {("rpn", "float32"): 1e-4, "float32": 1e-5, "float64": 1e-9}
+DIST_F32_GRAD_L2 = 5e-2
+DIST_EVAL = ("configs/kitti/car/vob/rcnn.yaml", "synthetic3d_8", [])  # config, dataset, opts
+# the recipe: mask.yaml at the scenes' own 192x640 (no resize, so that the
+# boxes are in the raw images' pixels), 8 detection slots, then the records
+# (crops 2^-14, disparity 1e-5 + 1e-6 relative, masks: at most 1e-3 of
+# the entries, the card's and the CPU's matrix products summing the
+# bilinear taps in another order) and train_idispnet, 2 steps
+RECIPE_OPTS = ["INPUT.DO_RESIZE", "False", "TPU.MAX_DETECTIONS", "8",
+               "TEST.DETECTIONS_PER_IMG", "8", "MODEL.WEIGHT", ""]
+RECIPE_SCENES = "synthetic_4"
+RECIPE_MASK_FLIPS = 1e-3
+
+
+def first_step_capture(store: dict):
+    """The first TrainStep call leaves its gradients (summed over the ranks,
+    clipped) and the model's buffers in `store` (on the CPU)."""
+    orig = trainer_mod.TrainStep.__call__
+
+    def call(self, batch):
+        metrics = orig(self, batch)
+        if not store:
+            ids = {id(p) for p in self.optimizer.params}
+            store["grads"] = {n: p.grad.detach().cpu().clone()
+                              for n, p in self.model.named_parameters() if id(p) in ids}
+            store["buffers"] = {n: b.detach().cpu().clone()
+                                for n, b in self.model.named_buffers()}
+        return metrics
+
+    return attr_patched(trainer_mod.TrainStep, "__call__", call)
+
+
+@contextlib.contextmanager
+def attr_patched(obj, name, fn):
+    orig = getattr(obj, name)
+    setattr(obj, name, fn)
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def float64_batches():
+    """The batch converter's float tensors in float64."""
+    orig = batching.to_device
+    return attr_patched(batching, "to_device", lambda x, device: (
+        lambda t: t.double() if t.is_floating_point() else t)(orig(x, device)))
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dist_train_run(stage: str, opts, out_dir: str, dtype: str, max_iter: int,
+                   device: str = None, dist_backend: str = "gloo") -> dict:
+    """tools/train_net.train of a stage at DIST_TINY on cuda:0 from the
+    weights drawn from seed 22, float32 on the kernels or float64 on the
+    plain versions. -> the first step's metrics, gradients and buffers,
+    each iteration's metrics, the final state (CPU), the launches, and the
+    run's world, rank, pairs a rank, checkpoint directory and s/iteration."""
+    device = device or DIST_DEVICE
+    cfg = train_net.load_config(f"configs/kitti/car/vob/{stage}.yaml",
+                                DIST_TINY + list(opts) + ["OUTPUT_DIR", out_dir], max_iter)
+    model = init_random_(build_detection_model(cfg, device=device),
+                         torch.Generator(device=device).manual_seed(22))
+    store = {}
+    f64 = dtype == "float64"
+    reset_launches()
+    with first_step_capture(store), (float64_batches() if f64 else contextlib.nullcontext()), \
+            (all_plain() if f64 else contextlib.nullcontext()):
+        res = train_net.train(cfg, dataset="synthetic3d_4", static_hw=DIST_HW, device=device,
+                              seed=22, model=model.to(getattr(torch, dtype)),
+                              dist_backend=dist_backend)
+    sync(device)
+    return {"metrics": res["metrics"], "grads": store["grads"], "buffers": store["buffers"],
+            "state": {k: v.cpu() for k, v in res["model"].state_dict().items()},
+            "launches": read_launches(), "world": res["world"],
+            "rank": res["rank"], "ims": res["ims_per_rank"], "ckpt_dir": res["ckpt_dir"],
+            "s_per_iter": res["stats"]["s_per_iter"]}
+
+
+def dist_test_net(out_dir: str, gt_dir: str, device: str, dataset: str, hw, opts) -> dict:
+    """tools/test_net.run of rcnn.yaml with `opts` on `dataset` (seed 20,
+    with the AP), on the gloo group where there is one."""
+    reset_launches()
+    t0 = time.perf_counter()
+    run = test_net.run(DIST_EVAL[0], list(opts) + ["OUTPUT_DIR", out_dir], dataset=dataset,
+                       static_hw=tuple(hw), evaluate=True, gt_dir=gt_dir, device=device,
+                       seed=20, dist_backend="gloo")
+    sync(device)
+    res = run["datasets"][dataset]
+    return {"predictions": res["predictions"], "ap": res.get("ap"), "out_dir": res["out_dir"],
+            "has_txt": "txt_dir" in res, "launches": read_launches(),
+            "s": time.perf_counter() - t0}
+
+
+def dist_worker(job_json: str, out_dir: str) -> int:
+    """One rank of phase 22 (torchrun's environment): the train runs of
+    DIST_RUNS, then the 2-rank eval; writes out_dir/rank<RANK>.pkl."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    job = json.loads(job_json)
+    dev = job["device"]
+    init_distributed("gloo", dev, timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    out = {"train": [dist_train_run(stage, opts, os.path.join(out_dir, f"{stage}_{dtype}"),
+                                    dtype, DIST_ITERS if dtype == "float32" else 1, dev)
+                     for stage, opts, dtype in DIST_RUNS],
+           "eval": dist_test_net(os.path.join(out_dir, "eval"), job["gt_dir"], dev,
+                                 *job["eval"])}
+    with open(os.path.join(out_dir, f"rank{os.environ['RANK']}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def spawn_ranks(job: dict, out_dir: str, world: int = 2):
+    """Start `world` ranks of dist_worker on one card. -> the processes."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    here = os.path.abspath(__file__)
+    return [subprocess.Popen([sys.executable, here, "--dist-worker", json.dumps(job), out_dir],
+                             env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                             cwd=os.path.dirname(here), stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT)
+            for r in range(world)]
+
+
+def join_ranks(procs, out_dir: str, timeout: float) -> list:
+    """Wait for every rank (killing all at the first failure or at the
+    timeout, which fails the phase). -> each rank's results."""
+    deadline = time.perf_counter() + timeout
+    outs = [None] * len(procs)
+    try:
+        for r, p in enumerate(procs):
+            outs[r] = p.communicate(timeout=max(deadline - time.perf_counter(), 1))[0].decode()
+            if p.returncode:
+                raise AssertionError(f"rank {r} exited {p.returncode}:\n{outs[r][-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = []
+    for r in range(len(procs)):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def check_dist_train(two: list, one: dict, stage: str, dtype: str) -> str:
+    """Phase 22 (a): the ranks' run against the one-process run at the
+    global batch. -> a log line."""
+    r0, r1 = two
+    what = f"{stage}.yaml {dtype}"
+    if (r0["world"], r0["rank"], r1["rank"], r0["ims"], one["world"], one["ims"]) != \
+            (2, 0, 1, 1, 1, 2):
+        raise AssertionError(f"{what}: ranks {r0['world'], r0['rank'], r1['rank'], r0['ims']}")
+    tol = DIST_LOSS_RTOL.get((stage, dtype), DIST_LOSS_RTOL[dtype])
+    m0, mo = r0["metrics"][0][1], one["metrics"][0][1]
+    losses = {k: rel(m0[k], mo[k]) for k in mo if k.startswith("loss")}
+    if r0["metrics"] != r1["metrics"] or any(v > tol for v in losses.values()) \
+            or any(m["skipped_nonfinite"] or m["params_without_grad"]
+                   for _, m in r0["metrics"] + one["metrics"]):
+        raise AssertionError(f"{what}: losses {m0} against {mo}, rank 1 {r1['metrics'][0]}")
+    g2, g1 = r0["grads"], one["grads"]
+    num = sum(float(((g2[k].double() - g1[k].double()) ** 2).sum()) for k in g1)
+    together = math.sqrt(num / max(sum(float((g.double() ** 2).sum()) for g in g1.values()),
+                                   1e-300))
+    worst = max(float((g2[k] - g1[k]).abs().max()) / max(float(g1[k].abs().max()), 1e-30)
+                for k in g1)
+    if dtype == "float64" or stage == "rcnn":
+        grads_agree(g2, g1, what)
+    elif not together <= DIST_F32_GRAD_L2:
+        raise AssertionError(f"{what}: gradients {together:.3g} apart (relative L2)")
+    stats = [k for k in one["buffers"] if k.endswith(("running_mean", "running_var"))]
+    bn = max([float((r0["buffers"][k].double() - one["buffers"][k].double()).norm())
+              / max(float(one["buffers"][k].double().norm()), 1e-300) for k in stats] or [0.0])
+    if dtype == "float64" and bn > 1e-6:
+        raise AssertionError(f"{what}: BN running statistics {bn:.3g} apart")
+    if any(not torch.equal(v, r1["state"][k]) for k, v in r0["state"].items()):
+        raise AssertionError(f"{what}: the ranks' parameters differ after "
+                             f"{len(r0['metrics'])} iterations")
+    ckpt = Checkpointer(r0["ckpt_dir"])
+    saved = ckpt.read()["model"]
+    if ckpt.steps() != [len(r0["metrics"])] or any(not torch.equal(saved[k], v)
+                                                   for k, v in r0["state"].items()):
+        raise AssertionError(f"{what}: checkpoint {ckpt.steps()} differs from the ranks' state")
+    with open(os.path.join(os.path.dirname(r0["ckpt_dir"]), "log.txt")) as f:
+        if any(" rank1 " in line for line in f):
+            raise AssertionError(f"{what}: rank 1 wrote to log.txt")
+    return (f"  {what}: first-step losses {losses} relative apart; gradients {together:.3g} "
+            f"relative L2 over all tensors, worst tensor max |diff| {worst:.3g} of its max; BN "
+            f"running statistics {bn:.3g}; {len(r0['metrics'])} iterations, ranks bit-equal, "
+            f"rank 0's checkpoint and log.txt alone; s/iteration 2 ranks {r0['s_per_iter']:.3f}, "
+            f"1 process {one['s_per_iter']:.3f}")
+
+
+def check_dist_eval(two: list, one: dict) -> str:
+    """Phase 22 (b): the merged predictions.pkl, every imgid once, equal
+    to the one-process run's, and the same AP. -> a log line."""
+    with open(os.path.join(two[0]["out_dir"], "predictions.pkl"), "rb") as f:
+        saved = pickle.load(f)
+    want = one["predictions"]
+    for got in (saved, two[0]["predictions"], two[1]["predictions"]):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"2-rank eval: images {sorted(got)}")
+        for imgid, p in want.items():
+            for k, v in p.items():
+                if not np.array_equal(got[imgid][k], v) or got[imgid][k].dtype != v.dtype:
+                    raise AssertionError(f"2-rank eval: {imgid} {k} differs")
+    if two[0]["ap"] != one["ap"] or not two[0]["has_txt"] or two[1]["has_txt"] \
+            or two[1]["ap"] is not None:
+        raise AssertionError(f"2-rank eval: AP {two[0]['ap']} against {one['ap']}")
+    launched = check_rows(two[0]["launches"], EVAL_RUNS[1][2], "2-rank test_net")
+    return (f"  test_net {DIST_EVAL[0]} on {DIST_EVAL[1]}, 2 ranks: {len(saved)} images merged, "
+            f"predictions bit-equal to one process's, AP equal; {two[0]['s']:.3f} s a rank "
+            f"(one process {one['s']:.3f} s); launches a rank {launched}")
+
+
+def check_nccl() -> str:
+    """Phase 22 (c): NCCL refuses two ranks on one card; a world-1 NCCL
+    group runs an all_reduce, and one rcnn.yaml iteration through it
+    leaves the checkpoint of the run without a group, bit for bit."""
+    env = {k: os.environ.get(k) for k in ("WORLD_SIZE", "LOCAL_WORLD_SIZE", "RANK",
+                                          "LOCAL_RANK", "MASTER_PORT")}
+    os.environ.update(WORLD_SIZE="2", LOCAL_WORLD_SIZE="2", RANK="1", LOCAL_RANK="1",
+                      MASTER_PORT="1")
+    try:
+        init_distributed("nccl", None)
+        raise AssertionError("nccl accepted two ranks on one card")
+    except RuntimeError as e:
+        refused = str(e).split(":")[0]
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if dist.is_initialized():
+        raise AssertionError("a process group survived the refusal")
+    with tempfile.TemporaryDirectory() as tmp:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                                rank=0)
+        try:
+            x = torch.full((4,), 3.0, device="cuda:0")
+            dist.all_reduce(x)
+            if x.tolist() != [3.0] * 4:
+                raise AssertionError(f"nccl all_reduce at world 1: {x.tolist()}")
+            grouped = dist_train_run("rcnn", DIST_RUNS[2][1], os.path.join(tmp, "nccl"),
+                                     "float32", 1, dist_backend="nccl")
+        finally:
+            dist.destroy_process_group()
+        alone = dist_train_run("rcnn", DIST_RUNS[2][1], os.path.join(tmp, "alone"), "float32",
+                               1)
+        a = Checkpointer(grouped["ckpt_dir"]).read()["model"]
+        b = Checkpointer(alone["ckpt_dir"]).read()["model"]
+        if sorted(a) != sorted(b) or any(not torch.equal(a[k], b[k]) for k in b):
+            raise AssertionError("the checkpoint under a world-1 NCCL group differs")
+    return (f"  NCCL: two ranks on one card refused ({refused!r}); a world-1 group's "
+            f"all_reduce and one rcnn.yaml iteration through it: checkpoint bit-equal to the "
+            f"run without a group")
+
+
+def check_records(card_dir: str, cpu_dir: str) -> str:
+    """Phase 22 (d): generate_psmnet_input's records on the card against
+    the CPU's. -> a log line."""
+    names = sorted(os.listdir(card_dir))
+    if not names or names != sorted(os.listdir(cpu_dir)):
+        raise AssertionError(f"records: {len(names)} on the card, {sorted(os.listdir(cpu_dir))}")
+    err = {"crop": 0.0, "disparity": 0.0}
+    flips = total = 0
+    shapes = set()
+    for n in names:
+        a, b = np.load(os.path.join(card_dir, n)), np.load(os.path.join(cpu_dir, n))
+        shapes.add(tuple((k, a[k].shape) for k in sorted(a.files)))
+        for k in ("left", "right"):
+            err["crop"] = max(err["crop"], float(np.abs(a[k] - b[k]).max()))
+        d = np.abs(a["disparity"] - b["disparity"]) - 1e-6 * np.abs(b["disparity"])
+        err["disparity"] = max(err["disparity"], float(d.max()))
+        flips += int((a["mask"] != b["mask"]).sum())
+        total += a["mask"].size
+    if err["crop"] > 2.0 ** -14 or err["disparity"] > 1e-5 or flips > RECIPE_MASK_FLIPS * total:
+        raise AssertionError(f"records, card against CPU: {err}, {flips} mask entries differ")
+    return (f"{len(names)} records {sorted(shapes)}; card against CPU: crops max |diff| "
+            f"{err['crop']:.3g}, disparity {err['disparity']:.3g} over 1e-6 relative, "
+            f"{flips} of {total} mask entries differ")
+
+
+def check_recipe(tmp: str) -> str:
+    """Phase 22 (d): test_net on mask.yaml -> split_predictions ->
+    generate_psmnet_input (card and CPU) -> train_idispnet, 2 steps."""
+    reset_launches()
+    run = test_net.run("configs/kitti/car/vob/mask.yaml",
+                       RECIPE_OPTS + ["OUTPUT_DIR", os.path.join(tmp, "mask")],
+                       dataset=RECIPE_SCENES, static_hw=DIST_HW, device=DIST_DEVICE, seed=22)
+    preds_path = os.path.join(run["datasets"][RECIPE_SCENES]["out_dir"], "predictions.pkl")
+    with open(preds_path, "rb") as f:
+        preds = pickle.load(f)
+    n_split = split_predictions.split(preds, os.path.join(tmp, "offline"))
+    if sorted(os.listdir(os.path.join(tmp, "offline"))) != sorted(f"{i}.pkl" for i in preds):
+        raise AssertionError("split_predictions: files")
+    card_dir, cpu_dir = os.path.join(tmp, "rec", "train"), os.path.join(tmp, "cpu")
+    n = generate_psmnet_input.generate(preds, RECIPE_SCENES, card_dir, device=DIST_DEVICE)
+    generate_psmnet_input.generate(preds, RECIPE_SCENES, cpu_dir, device="cpu")
+    records = check_records(card_dir, cpu_dir)
+    if n < 2:
+        raise AssertionError(f"generate_psmnet_input: {n} records")
+    os.symlink(card_dir, os.path.join(tmp, "rec", "val"))
+    bs = n // 2
+    res = train_idispnet.run(["--data-dir", os.path.join(tmp, "rec"), "--epochs", "1", "--bs",
+                              str(bs), "--output", os.path.join(tmp, "psm"), "--device",
+                              DIST_DEVICE, "--seed", "22"])
+    sync(DIST_DEVICE)
+    tr = res["trainer"]
+    (_, loss, epe), = tr.history
+    if tr.times["steps"] != n // bs or not (math.isfinite(loss) and math.isfinite(epe)):
+        raise AssertionError(f"train_idispnet on the records: {tr.times}, {tr.history}")
+    launches = check_rows(read_launches(), PSM_ROWS + ("nms_sorted",), "the recipe")
+    return (f"  recipe: test_net mask.yaml on {RECIPE_SCENES} -> {n_split} split pickles -> "
+            f"{records} -> train_idispnet {n // bs} steps of {bs}: loss {loss:.5g}, EPE {epe:.5g}; "
+            f"launches {launches}")
+
+
+def csrc_kernel_names() -> set:
+    """The __global__ functions of csrc/*.cu."""
+    pat = r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)\s*)?(?:void\s+)?(\w+)"
+    return {name for f in build.CSRC.glob("*.cu") for name in re.findall(pat, f.read_text())}
+
+
+def check_profiling(tmp: str) -> str:
+    """Phase 22 (e): a trace of one rcnn.yaml train iteration names a
+    csrc kernel; StepTimer and device_memory_stats read more than 0."""
+    kernels = csrc_kernel_names()
+    with profiling.trace(os.path.join(tmp, "trace")) as prof:
+        dist_train_run("rcnn", DIST_RUNS[2][1], os.path.join(tmp, "traced"), "float32", 1)
+    named = sorted({e.key for e in prof.key_averages()
+                    if any(re.search(rf"\b{k}\b", e.key) for k in kernels)})
+    size = os.path.getsize(prof.trace_path)
+    if not named or size == 0:
+        raise AssertionError(f"trace: {size} bytes, no csrc kernel among "
+                             f"{[e.key for e in prof.key_averages()][:20]}")
+    cfg = train_net.load_config("configs/kitti/car/vob/rcnn.yaml", DIST_TINY, 1)
+    model = init_random_(build_detection_model(cfg, device=DIST_DEVICE),
+                         torch.Generator(device=DIST_DEVICE).manual_seed(22)).eval()
+    convert, _ = make_batch_converter(cfg, torch.device(DIST_DEVICE))
+    kw = convert(next(iter(test_net.make_loader(cfg, "synthetic3d_4", DIST_HW))))
+    gen = torch.Generator(device=DIST_DEVICE).manual_seed(22)
+    timer = profiling.StepTimer()
+    with torch.inference_mode():
+        for _ in range(3):
+            _, dt = timer.timed(lambda: model(**kw, generator=gen))
+    mem = profiling.device_memory_stats()
+    if not (timer.median > 0 and all(v > 0 for v in mem.values()) and len(mem) == 3):
+        raise AssertionError(f"StepTimer {timer.samples}, memory {mem}")
+    return (f"  profiling: the trace of one rcnn.yaml iteration ({size} bytes) names "
+            f"{len(named)} csrc kernels (e.g. {named[:3]}); StepTimer median of a tiny rcnn.yaml "
+            f"forward {1e3 * timer.median:.3f} ms; memory {mem}")
+
+
+def phase_dist(card: str) -> dict:
+    """Phase 22 (see the docstring). -> the launches of each run by row."""
+    lines, counted = [], {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gt_dir = os.path.join(tmp, "gt")
+        write_kitti_gt(gt_dir, EVAL_IMAGES)
+        evl = (DIST_EVAL[1], IMG_HW, DIST_EVAL[2])
+        procs = spawn_ranks({"gt_dir": gt_dir, "device": DIST_DEVICE, "eval": evl}, tmp)
+        try:
+            one = [dist_train_run(stage, opts, os.path.join(tmp, f"one_{stage}_{dtype}"), dtype,
+                                  DIST_ITERS if dtype == "float32" else 1)
+                   for stage, opts, dtype in DIST_RUNS]
+            one_eval = dist_test_net(os.path.join(tmp, "one_eval"), gt_dir, DIST_DEVICE, *evl)
+        finally:
+            ranks = join_ranks(procs, tmp, DIST_TIMEOUT_S)
+        rows = {s: r for s, _, _, r in TRAIN_ENTRY_RUNS}
+        for i, (stage, _, dtype) in enumerate(DIST_RUNS):
+            for who, run in (("2-rank", ranks[0]["train"][i]), ("one-process", one[i])):
+                if dtype == "float32":
+                    counted[f"{who} {stage}"] = check_rows(run["launches"], rows[stage],
+                                                           f"{who} {stage}.yaml")
+                elif any(run["launches"].values()):
+                    raise AssertionError(f"{who} {stage}.yaml float64: a kernel launched on "
+                                         f"the plain route: {run['launches']}")
+            lines.append(check_dist_train([r["train"][i] for r in ranks], one[i], stage, dtype))
+        lines.append(check_dist_eval([r["eval"] for r in ranks], one_eval))
+        counted["2-rank test_net"] = {k: v for k, v in ranks[0]["eval"]["launches"].items()
+                                      if v}
+        t_ab = time.perf_counter() - t0
+        del ranks, one
+        lines.append(check_nccl())
+        lines.append(check_recipe(tmp))
+        lines.append(check_profiling(tmp))
+    log(f"[22/{PHASES}] distribution on {card} (2 ranks share the one card on gloo: no "
+        f"scaling figure): the 2-rank steps at 1 pair a rank equal one process's at 2 pairs, "
+        f"the 2-rank eval's merged predictions and AP equal; NCCL; the recipe's handoff "
+        f"tools; profiling; (a) and (b) in {t_ab:.1f} s, the phase in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in lines:
+        log(line)
+    return counted
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2796,6 +3273,11 @@ def main() -> int:
         for row in kernels:
             row["train_entry_launches"] = {run: c[row["name"]] for run, c in entry.items()
                                            if c.get(row["name"])}
+        torch.cuda.empty_cache()
+        dist = phase_dist(card)
+        for row in kernels:
+            row["dist_launches"] = {run: c[row["name"]] for run, c in dist.items()
+                                    if c.get(row["name"])}
         log(f"done in {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     except Exception:  # report any phase's failure and exit non-zero
         traceback.print_exc()
@@ -2810,4 +3292,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(*sys.argv[2:4]))
     sys.exit(main())

@@ -10,8 +10,9 @@ lift and PointRCNN.
 (disprcnn_tpu/engine/inference.py:20-38, 96-137): per-image prediction
 dicts of numpy arrays, cached in ``predictions.pkl`` (the reference's
 predictions.pth and --no_force_recompute workflow), then the evaluator.
-One process: the JAX package's merge across hosts is not ported (ROADMAP
-A5).
+With several ranks (parallel/multihost.py) each rank evaluates its shard
+of the dataset, ``merge_predictions_across_hosts`` gives every rank the
+whole dict (JAX :42-93), and rank 0 alone writes the cache.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ import torch
 
 from ..models.detector.disprcnn import DispRCNN
 from ..models.detector.disprcnn3d import DispRCNN3D
+from ..parallel.multihost import (all_gather_predictions, is_main_process, process_count,
+                                  synchronize)
 from ..structures.stereo import StereoBoxes
 from ..utils.logging import Timer, setup_logger
 
@@ -114,6 +117,53 @@ def compute_on_dataset(predict_fn: Callable[[dict], dict], loader, logger=None,
     return results
 
 
+def merge_predictions_across_hosts(local: Dict[str, dict]) -> Dict[str, dict]:
+    """Every rank's per-image predictions, merged into the full dict on
+    every rank (the identity on one process), as fixed-shape array
+    gathers (reference engine/inference.py:253-272 pickled them).
+
+    Shards may differ in size: a first gather agrees on the largest row
+    count and image-id width, every rank zero-pads its stacked arrays to
+    them (a ``_valid`` row mask marks the padding, dropped after the
+    gather), and the ids travel as zero-padded UTF-8 codes, so any string
+    id comes back. An id that several rows carry (a loader's pad_last
+    repeats samples to fill the shards) keeps the first row in rank
+    order: the padding repeats the dataset's first samples on later ranks
+    than theirs, so the image's own prediction is kept where the JAX
+    package's dict update would keep the repeat's. A rank with no
+    prediction raises.
+    """
+    if process_count() == 1:
+        return local
+    if not local:
+        raise ValueError("merge_predictions_across_hosts: this rank holds 0 predictions "
+                         "(every rank must evaluate >= 1 image; the loader pads shards)")
+    ids = sorted(local)
+    keys = sorted(local[ids[0]])
+    n = len(ids)
+    width = max(len(i.encode("utf-8")) for i in ids)
+    dims = all_gather_predictions({"_dims": np.asarray([[n, width]], np.int64)})["_dims"]
+    nmax, wmax = int(dims[:, 0].max()), int(dims[:, 1].max())
+
+    def pad_rows(a: np.ndarray) -> np.ndarray:
+        return np.concatenate([a, np.zeros((nmax - n,) + a.shape[1:], a.dtype)])
+
+    stacked = {k: pad_rows(np.stack([np.asarray(local[i][k]) for i in ids])) for k in keys}
+    codes = np.zeros((nmax, wmax), np.uint8)
+    for r, i in enumerate(ids):
+        b = i.encode("utf-8")
+        codes[r, :len(b)] = np.frombuffer(b, np.uint8)
+    stacked["_imgid"] = codes
+    stacked["_valid"] = np.arange(nmax) < n
+    merged = all_gather_predictions(stacked)
+    out = {}
+    for row in np.flatnonzero(merged["_valid"]):
+        imgid = bytes(merged["_imgid"][row]).rstrip(b"\x00").decode("utf-8")
+        if imgid not in out:
+            out[imgid] = {k: merged[k][row] for k in keys}
+    return out
+
+
 def inference(predict_fn, loader, dataset_name: str, output_folder: Optional[str] = None,
               force_recompute: bool = True, evaluator=None, logger=None,
               stats: Optional[Dict[str, float]] = None):
@@ -121,7 +171,9 @@ def inference(predict_fn, loader, dataset_name: str, output_folder: Optional[str
     `loader` (or, with force_recompute False, from the folder's cached
     predictions.pkl), written to that cache, then `evaluator(predictions,
     output_folder)` when given (its result is returned), else the
-    predictions."""
+    predictions. With several ranks `loader` holds this rank's shard; the
+    ranks meet at a barrier, merge their predictions, and rank 0 writes
+    the cache."""
     logger = logger or setup_logger("disprcnn_tpu_torch.inference", output_folder or "")
     cache = os.path.join(output_folder, "predictions.pkl") if output_folder else None
     if cache and os.path.exists(cache) and not force_recompute:
@@ -134,7 +186,9 @@ def inference(predict_fn, loader, dataset_name: str, output_folder: Optional[str
         total = time.perf_counter() - t0
         logger.info(f"total inference time {total:.1f}s "
                     f"({total / max(len(predictions), 1):.3f} s/img per device)")
-        if cache:
+        synchronize()
+        predictions = merge_predictions_across_hosts(predictions)
+        if cache and is_main_process():
             os.makedirs(output_folder, exist_ok=True)
             with open(cache, "wb") as f:
                 pickle.dump(predictions, f)

@@ -16,6 +16,15 @@ counted in the metrics (``params_without_grad``) and updated with a zero
 gradient, as optax updates a parameter whose gradient is zero (its weight
 decay and momentum still apply). A count above zero on the card means that
 a kernel's output was cut off from autograd.
+
+With several ranks (parallel/) each rank runs the step on its share of
+the global batch, and its losses are its shares of the global batch's
+(every normalizer is a count over the ranks, train-mode BN takes the
+global statistics). After the backward pass the gradients are summed over
+the ranks in one flat buffer, before the finite check and the clip, so
+every rank takes the same decision and the same update: the step of one
+process at the global batch, as the JAX package's step over its mesh is.
+The losses in the metrics are summed over the ranks too.
 """
 from __future__ import annotations
 
@@ -24,6 +33,8 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import all_reduce_grads, sum_over_ranks
+from ..parallel.multihost import process_count
 from ..solver.build import Optimizer
 
 
@@ -63,6 +74,12 @@ class TrainStep:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        if process_count() > 1:
+            all_reduce_grads(grads)
+            names = sorted(losses)
+            summed = sum_over_ranks(torch.stack([loss.detach()] + [losses[k].detach()
+                                                                   for k in names]))
+            loss, losses = summed[0], dict(zip(names, summed[1:]))
         finite = bool(torch.isfinite(loss)
                       & torch.stack([torch.isfinite(g).all() for g in grads]).all())
         if finite:

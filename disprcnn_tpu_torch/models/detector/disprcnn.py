@@ -19,7 +19,9 @@ boundary, as in the JAX package; NCHW inside.
   (SOLVER.FIX_BOX_HEAD), because the JAX package's does: its
   loss_classifier and loss_box_reg see the dropped features. Every random
   draw of a step (the two samplers' priorities, the dropout masks) is an
-  input, ``Det2DDraws``, or drawn in the forward from a given generator.
+  input, ``Det2DDraws``, or drawn in the forward from a given generator
+  (with several ranks, the global batch's draws, of which each rank keeps
+  its samples' rows: parallel/mesh.py::shard_batch).
   The proposals keep the gradient of their coordinates (RoIAlign's
   sampling weights, the regression targets), as in the JAX package; only
   the NMS decision is cut. The matching thresholds, the SRPN's sampler
@@ -36,6 +38,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ...parallel.mesh import shard_batch
+from ...parallel.multihost import process_count
 from ...structures.stereo import StereoBoxes
 from ..backbone.fpn import ResNetFPNBackbone
 from ..roi_heads import box_head as bh
@@ -218,8 +222,11 @@ class DispRCNN(nn.Module):
         if draws is None:
             if generator is None:
                 raise ValueError("the 2D train step needs draws or a generator")
-            draws = draw_det2d_draws(b, n_anchors, self.post_nms_top_n_train + m,
-                                     self.roi_batch_per_image, self.mlp_head_dim, generator, dev)
+            # the global batch's draws, of which this rank keeps its samples' rows
+            gb = b * process_count()
+            draws = shard_batch(draw_det2d_draws(gb, n_anchors, self.post_nms_top_n_train + m,
+                                                 self.roi_batch_per_image, self.mlp_head_dim,
+                                                 generator, dev), gb)
         anchors = self.anchors(hws, dev)
         if draws.rpn_pos.shape != obj_logits.shape[:2]:
             raise ValueError(f"SRPN priorities {tuple(draws.rpn_pos.shape)} for "

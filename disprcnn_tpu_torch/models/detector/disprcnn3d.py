@@ -38,6 +38,8 @@ from ...ops.iou import pairwise_iou
 from ...ops.losses import psm_deep_supervision_loss
 from ...ops.roi_align import roi_align_batched
 from ...ops.topk_select import topk_scores
+from ...parallel.mesh import shard_batch
+from ...parallel.multihost import process_count
 from ...structures.stereo import StereoBoxes
 from ..pointrcnn import lift
 from ..pointrcnn.lift import _bilinear_separable, _grid_fractions, expand_box_to_integer
@@ -251,7 +253,10 @@ class DispRCNN3D(nn.Module):
         then with the RCNN `rcnn_draws` (or the generator for both) and the
         outputs gain "loss_box3d", without it `rpn_draws` (the RPN's dropout
         masks, or the generator) and they gain "loss_rpn_cls" and
-        "loss_rpn_reg". D' is max_roi_train when it caps D."""
+        "loss_rpn_reg". D' is max_roi_train when it caps D. With several
+        ranks (parallel/) a generator draws the global batch's draws, of
+        which this rank keeps its samples' rows (mesh.shard_batch), so the
+        ranks together draw what one process draws at the global batch."""
         dets = remove_illegal_detections(dets)
         train = self.training
         if train:
@@ -262,6 +267,7 @@ class DispRCNN3D(nn.Module):
                 dets = top_score_rois(dets, self.max_roi_train)
             self.idispnet.train(train_psm)  # frozen (FIX_DISPARITY) unless trained
         b, d = dets.left.shape[:2]
+        gb = b * process_count()  # the global batch, whose draws a generator makes
         batch_idx = torch.arange(b, device=left_img.device).repeat_interleave(d)
         left_b, right_b = dets.left.reshape(b * d, 4), dets.right.reshape(b * d, 4)
         valid = dets.valid.reshape(b * d)
@@ -300,7 +306,8 @@ class DispRCNN3D(nn.Module):
         if priorities is None:
             if generator is None:
                 raise ValueError("det3d_on needs sampling priorities or a generator")
-            priorities = torch.rand(cand_ok.shape, generator=generator, device=disp.device)
+            priorities = shard_batch(torch.rand((gb * d, cand_ok.shape[1]), generator=generator,
+                                                device=disp.device), gb)
         pts, has_pts = lift.sample_fixed_points(priorities, pts_cand, cand_ok, self.npoints)
         roi_ok = valid & has_pts
         angles = lift.canonical_angles(left_b, float(left_img.shape[2]), cal["fu"])
@@ -313,15 +320,16 @@ class DispRCNN3D(nn.Module):
             if prc.rcnn_enabled and rcnn_draws is None:
                 if generator is None:
                     raise ValueError("train_pc needs rcnn_draws or a generator")
-                rcnn_draws = draw_rcnn_draws(
-                    b * d, prc.proposals_per_roi_train or prc.proposals_per_roi,
-                    prc.rcnn_rois_per_instance, FG_AUG_TIMES, generator, disp.device)
+                rcnn_draws = shard_batch(draw_rcnn_draws(
+                    gb * d, prc.proposals_per_roi_train or prc.proposals_per_roi,
+                    prc.rcnn_rois_per_instance, FG_AUG_TIMES, generator, disp.device), gb)
             if not prc.rcnn_enabled and rpn_draws is None:
                 if generator is None:
                     raise ValueError("training the RPN needs rpn_draws or a generator")
                 rpn = prc.rpn
-                rpn_draws = draw_rpn_draws(b * d, self.npoints, generator, disp.device,
-                                           (rpn.cls_head.hidden[0], rpn.reg_head.hidden[0]))
+                rpn_draws = shard_batch(draw_rpn_draws(
+                    gb * d, self.npoints, generator, disp.device,
+                    (rpn.cls_head.hidden[0], rpn.reg_head.hidden[0])), gb)
             out.update(prc(pts_c, roi_ok, angles, pts_mean, gt.reshape(b * d, 7),
                            gt_ok.reshape(b * d), rcnn_draws, rpn_draws))
             return out

@@ -13,6 +13,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...parallel.mesh import sum_over_ranks
+
 
 class CodecCfg(NamedTuple):
     loc_scope: float = 3.0
@@ -95,7 +97,7 @@ def reg_loss(pred: torch.Tensor, reg_label: torch.Tensor, mask: torch.Tensor,
     anchor-normalized size (loss_utils.get_reg_loss:100-273)."""
     nbin = cfg.per_loc_bin_num
     m = mask.to(pred.dtype)
-    denom = m.sum().clamp_min(1.0)
+    denom = sum_over_ranks(m.sum()).clamp_min(1.0)
 
     def ce(logits, label):
         return -torch.gather(F.log_softmax(logits, dim=-1), 1, label[:, None])[:, 0]

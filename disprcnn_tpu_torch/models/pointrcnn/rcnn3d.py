@@ -34,6 +34,7 @@ from ...ops.iou import iou3d
 from ...ops.losses import binary_cross_entropy
 from ...ops.roipool3d import enlarge_box3d
 from ...ops.topk_select import topk_scores
+from ...parallel.mesh import sum_over_ranks
 from ...structures.boxes3d import rotate_points_along_y
 from . import bbox3d_codec as codec
 from .pointnet2 import SA_MIN_C0, SAModule, SharedMLP
@@ -352,7 +353,8 @@ def rcnn_loss(cls_pred: torch.Tensor, reg_pred: torch.Tensor, cls_label: torch.T
     (B,), gt_ct (B, 7)."""
     t = (cls_label > 0).to(cls_pred.dtype)
     care = (cls_label >= 0).to(cls_pred.dtype)
-    cls_l = (binary_cross_entropy(cls_pred, t) * care).sum() / care.sum().clamp_min(1.0)
+    cls_l = (binary_cross_entropy(cls_pred, t) * care).sum() / sum_over_ranks(
+        care.sum()).clamp_min(1.0)
     loc, angle, size = codec.reg_loss(reg_pred, gt_ct, reg_mask.to(cls_pred.dtype),
                                       anchor_size, RCNN_CODEC)
     return cls_l + loc + angle + 3.0 * size

@@ -19,6 +19,7 @@ from ...ops.iou import boxes3d_to_bev
 from ...ops.losses import binary_cross_entropy
 from ...ops.nms import bev_nms_mask, topk_after_nms
 from ...ops.topk_select import topk_scores
+from ...parallel.mesh import sum_over_ranks
 from ..psmnet.psmnet import batch_norm_train
 from . import bbox3d_codec as codec
 from .pointnet2 import BN_EPS, SA_MIN_C0, Pointnet2MSG, batch_norm_eval
@@ -121,7 +122,7 @@ def rpn_loss(cls_pred: torch.Tensor, reg_pred: torch.Tensor, cls_label: torch.Te
     pos = (cls_label > 0) & roi_valid[:, None]
     tgt = pos.to(cls_pred.dtype)
     bce = binary_cross_entropy(cls_pred, tgt)
-    cls_l = (bce * care).sum() / care.sum().to(cls_pred.dtype).clamp_min(1.0)
+    cls_l = (bce * care).sum() / sum_over_ranks(care.sum()).to(cls_pred.dtype).clamp_min(1.0)
     loc, angle, size = codec.reg_loss(reg_pred.reshape(-1, reg_pred.shape[-1]),
                                       reg_label.reshape(-1, 7), tgt.reshape(-1), anchor_size,
                                       cfg)

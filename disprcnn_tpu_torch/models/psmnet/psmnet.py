@@ -53,6 +53,8 @@ from ...ops.cost_volume import build_cost_volume
 from ...ops.cuda.conv3d import (CHANNELS, conv2d_bn, conv3d_bn, conv3d_train,
                                 cost_volume_conv_bn, deconv3d_bn)
 from ...ops.cuda.softargmin import interp_matrix_align_corners, softargmin, softargmin_plain
+from ...parallel.mesh import sum_over_ranks_autograd
+from ...parallel.multihost import process_count
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
@@ -68,11 +70,23 @@ def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     channels-first convs (axis 1) and PointNet++'s channels-last MLPs and
     RPN heads (axis -1, models/pointrcnn/pointnet2.py and rpn3d.py), whose
     statistics take every row, padded instances and repeated ball slots
-    included, as JAX's do."""
+    included, as JAX's do.
+
+    With several ranks the statistics are the global batch's: E[x] and
+    E[x^2] from the sums of x and x^2 over every rank's rows, through the
+    autograd all-reduce, so that the gradient keeps the cross-rank terms;
+    the running statistics then come out equal on every rank."""
     axis = axis % x.dim()
     dims = [d for d in range(x.dim()) if d != axis]
-    mean = x.mean(dims)
-    var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+    if process_count() == 1:
+        mean = x.mean(dims)
+        var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+    else:
+        s = x.sum(dims)
+        rows = torch.full_like(s, float(x.numel() // x.shape[axis]))
+        sums = sum_over_ranks_autograd(torch.stack([s, (x * x).sum(dims), rows]))
+        mean, mean_sq = sums[0] / sums[2], sums[1] / sums[2]
+        var = (mean_sq - mean * mean).clamp_min(0.0)
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_(mean.detach(), alpha=1 - BN_MOMENTUM)
         bn.running_var.mul_(BN_MOMENTUM).add_(var.detach(), alpha=1 - BN_MOMENTUM)

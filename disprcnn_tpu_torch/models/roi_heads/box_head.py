@@ -28,6 +28,7 @@ from ...ops.iou import pairwise_iou
 from ...ops.losses import smooth_l1
 from ...ops.nms import nms_topk_batched
 from ...ops.topk_select import topk_scores
+from ...parallel.mesh import sum_over_ranks
 from ...structures.boxes import union_box
 from ...structures.stereo import StereoBoxes
 from ..rpn import box_coder
@@ -123,7 +124,7 @@ def head_loss(class_logits: torch.Tensor, box_deltas: torch.Tensor, labels: torc
     lbl = labels.clamp_min(0).long()
     logp = torch.log_softmax(class_logits, dim=-1)
     ce = -torch.gather(logp, 1, lbl[:, None])[:, 0]
-    n = sampled.sum().clamp_min(1).to(ce.dtype)
+    n = sum_over_ranks(sampled.sum()).clamp_min(1).to(ce.dtype)
     d = box_deltas.reshape(box_deltas.shape[0], -1, 6)
     d_pos = torch.gather(d, 1, lbl[:, None, None].expand(-1, 1, 6))[:, 0]
     box_loss = (smooth_l1(d_pos - reg_targets, beta=1.0) * pos[:, None]).sum() / n

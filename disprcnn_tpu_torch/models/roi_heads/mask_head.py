@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import sum_over_ranks
 from ...structures.masks import crop_and_resize_mask
 from .pooler import fpn_roi_align
 
@@ -67,4 +68,4 @@ def mask_loss(mask_logits: torch.Tensor, boxes: torch.Tensor, labels: torch.Tens
     logit = torch.gather(mask_logits, 1, idx)[:, 0]
     bce = logit.clamp_min(0) - logit * t + torch.log1p(torch.exp(-logit.abs()))
     w = pos[:, None, None].to(logit.dtype)
-    return (bce * w).sum() / (w.sum() * out_size * out_size).clamp_min(1.0)
+    return (bce * w).sum() / (sum_over_ranks(w.sum()) * out_size * out_size).clamp_min(1.0)

@@ -30,6 +30,7 @@ from ...ops.iou import pairwise_iou
 from ...ops.losses import smooth_l1
 from ...ops.nms import double_view_nms_topk_batched
 from ...ops.topk_select import topk_scores
+from ...parallel.mesh import sum_over_ranks
 from ...structures.boxes import union_box
 from ...structures.stereo import StereoBoxes
 from . import box_coder
@@ -153,5 +154,5 @@ def loss(
     box_l = (smooth_l1(deltas - reg_targets, beta=1.0 / 9) * pos[..., None]).sum()
     logp = torch.log_softmax(obj_logits, dim=-1)
     ce = -torch.gather(logp, -1, labels.clamp_min(0).long()[..., None])[..., 0]
-    total = sampled.sum().clamp_min(1).to(ce.dtype)
+    total = sum_over_ranks(sampled.sum()).clamp_min(1).to(ce.dtype)
     return (ce * sampled).sum() / total, box_l / total

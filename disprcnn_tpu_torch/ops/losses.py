@@ -8,6 +8,8 @@ from typing import Sequence
 
 import torch
 
+from ..parallel.mesh import sum_over_ranks
+
 
 def smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
     """Elementwise smooth-L1 (reference layers/smooth_l1_loss.py)."""
@@ -19,7 +21,7 @@ def masked_epe(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> 
     """|pred - target| averaged over the mask (reference
     utils/stereo_utils.py end_point_error)."""
     m = mask.to(pred.dtype)
-    return ((pred - target).abs() * m).sum() / m.sum().clamp_min(1.0)
+    return ((pred - target).abs() * m).sum() / sum_over_ranks(m.sum()).clamp_min(1.0)
 
 
 def psm_deep_supervision_loss(preds: Sequence[torch.Tensor], target: torch.Tensor,
@@ -30,7 +32,7 @@ def psm_deep_supervision_loss(preds: Sequence[torch.Tensor], target: torch.Tenso
     than weights the last weights apply: the last output always carries
     the last weight."""
     m = mask.to(target.dtype)
-    denom = m.sum().clamp_min(1.0)
+    denom = sum_over_ranks(m.sum()).clamp_min(1.0)
     total = target.new_zeros(())
     for w, p in zip(tuple(weights)[-len(preds):], preds):
         total = total + w * (smooth_l1(p - target) * m).sum() / denom

@@ -3,7 +3,9 @@ reference tools/test_net.py:19-103).
 
     python -m disprcnn_tpu_torch.tools.test_net --config-file configs/kitti/car/vob/rcnn.yaml \\
         [--dataset synthetic3d_8] [--static-hw 384,1248] [--evaluate --gt-dir DIR] \\
-        [--device cuda] [--kernels-off sa] [--seed 0] [--no_force_recompute] [KEY VALUE ...]
+        [--device cuda] [--kernels-off sa] [--seed 0] [--no_force_recompute] \\
+        [--dist-backend nccl] [KEY VALUE ...]
+    torchrun --nproc_per_node N -m disprcnn_tpu_torch.tools.test_net ...
 
 config file (+ KEY VALUE overrides) -> the dataset(s) of --dataset or
 DATASETS.TEST (data/catalog.py), the eval transforms and a loader padded
@@ -30,6 +32,17 @@ way). The JAX tool's --roi-buckets dispatches
 per-image ROI counts to separately compiled programs, a compile-count
 option of XLA, and is not ported. It runs on the card unless --device
 says otherwise; the CPU runs every kernel's plain version.
+
+Under torchrun (WORLD_SIZE > 1) every rank joins the process group of
+--dist-backend (parallel/multihost.py) on cuda:LOCAL_RANK (or the
+--device given with an index) and evaluates its shard of each dataset
+(the loader's interleaved shards, the last ones padded with repeats);
+the predictions are merged on every rank
+(engine/inference.py::merge_predictions_across_hosts), and rank 0 alone
+writes predictions.pkl, the txt and the AP while the others wait at a
+barrier. Each rank's generator replays the lift's draws of every rank's
+batch and keeps its own, so at TEST.IMS_PER_BATCH 1 the merged
+predictions are the one-process run's.
 """
 from __future__ import annotations
 
@@ -49,6 +62,8 @@ from ..engine.batching import make_batch_converter
 from ..engine.inference import inference
 from ..evaluation.kitti_eval import evaluate_kitti, write_kitti_txt
 from ..models.build import build_detection_model
+from ..parallel.multihost import (init_distributed, is_main_process, process_count,
+                                  process_index, synchronize)
 from ..utils.checkpoint import load_stage_weights
 from ..utils.logging import setup_logger
 from ..utils.weights import init_random_
@@ -75,6 +90,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--kernels-off", default="",
                    help="comma list of PointNet++ kernel families to route off (sa, pool, fp)")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    p.add_argument("--dist-backend", default="nccl",
+                   help="torch.distributed backend under torchrun (nccl, or gloo)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return p.parse_args(argv)
 
@@ -83,13 +100,14 @@ def make_loader(cfg, name: str, static_hw, transforms=None) -> StereoBatchLoader
     """The eval loader of dataset `name`: TEST.IMS_PER_BATCH samples a
     batch in order, padded to static_hw (rounded up to
     DATALOADER.SIZE_DIVISIBILITY, at least 32), the last batch filled up
-    with its first sample."""
+    with its first sample; with several ranks this rank's shard."""
     if transforms is None:
         transforms = build_transforms(cfg, is_train=False)
     ds = resolve(name, cfg, training=False, transforms=transforms)
     return StereoBatchLoader(ds, max(cfg.TEST.IMS_PER_BATCH, 1), tuple(static_hw),
                              shuffle=False,
                              size_divisibility=max(cfg.DATALOADER.SIZE_DIVISIBILITY, 32),
+                             num_shards=process_count(), shard_id=process_index(),
                              pad_last=True)
 
 
@@ -122,6 +140,14 @@ class Predictor:
             if self.priorities is not None:
                 kw["priorities"] = torch.as_tensor(self.priorities(batch), dtype=torch.float32,
                                                    device=self.device)
+            elif process_count() > 1 and self.model.det3d_on:
+                # every rank's batch of this step drawn in rank order, as one
+                # process draws them batch after batch; this rank keeps its own
+                b, d = batch["pred_valid"].shape
+                shape = (b * d, self.model.lift_grid ** 2)
+                kw["priorities"] = [torch.rand(shape, generator=self.generator,
+                                               device=self.device)
+                                    for _ in range(process_count())][process_index()]
             else:
                 kw["generator"] = self.generator
         self._sync()
@@ -169,26 +195,28 @@ def run(config_file: str, opts: Sequence[str] = (), dataset: Optional[str] = Non
         static_hw=(384, 1248), evaluate: bool = False, gt_dir: Optional[str] = None,
         device: str = "cuda", kernels_off: Sequence[str] = (), seed: int = 0,
         force_recompute: bool = True, ckpt: Optional[str] = None, model=None,
-        priorities=None, logger=None) -> dict:
+        priorities=None, logger=None, dist_backend: str = "nccl") -> dict:
     """The tool's run, in-process. `model` replaces the built one (the
     tests load the JAX package's weights into it); `priorities` as
     Predictor's; the checkpoint (`ckpt`, else OUTPUT_DIR/ckpt when it
     holds a last_checkpoint) loads into either. -> {"cfg", "model",
-    "ckpt", "datasets": {name: {"predictions",
-    "out_dir", "txt_dir", "ap" (with evaluate), "images", "stats"}}}, where
-    "stats" holds the loop's seconds: data_s, to_device_s, model_s,
-    to_host_s, txt_s, ap_s, loop_s (the whole loop, txt and AP
-    included)."""
+    "ckpt", "datasets": {name: {"predictions", "out_dir", "txt_dir", "ap"
+    (with evaluate), "images", "stats"}}}, where "stats" holds the loop's
+    seconds: data_s, to_device_s, model_s, to_host_s, txt_s, ap_s, loop_s
+    (the whole loop, txt and AP included). Under torchrun a rank other
+    than 0 has no "txt_dir" or "ap"."""
     cfg = get_default_cfg()
     cfg.merge_from_file(config_file)
     if opts:
         cfg.merge_from_list(list(opts))
     cfg.freeze()
-    logger = logger or setup_logger("disprcnn_tpu_torch.test", cfg.OUTPUT_DIR)
+    device = init_distributed(dist_backend, device)
+    main = is_main_process()
+    logger = logger or setup_logger("disprcnn_tpu_torch.test", cfg.OUTPUT_DIR,
+                                    rank=process_index())
     meta = cfg.MODEL.META_ARCHITECTURE
     if kernels_off and meta != "DispRCNN3D":
         raise ValueError(f"--kernels-off routes PointNet++ kernels; {meta} runs none")
-    device = torch.device(device)
     if model is None:
         model = build_detection_model(cfg, device=device, kernels_off=kernels_off)
         init_random_(model, torch.Generator(device=device).manual_seed(seed))
@@ -212,18 +240,20 @@ def run(config_file: str, opts: Sequence[str] = (), dataset: Optional[str] = Non
         preds = inference(predictor, loader, name, out_dir, force_recompute=force_recompute,
                           logger=logger, stats=stats)
         stats.update(predictor.times)
-        t0 = time.perf_counter()
-        txt_dir = write_kitti_txt(preds, out_dir)
-        stats["txt_s"] = time.perf_counter() - t0
-        logger.info(f"wrote KITTI txt to {txt_dir}")
-        res = {"predictions": preds, "out_dir": out_dir, "txt_dir": txt_dir,
-               "images": len(preds), "stats": stats}
-        t0 = time.perf_counter()
-        if evaluate and gt_dir:
-            res["ap"] = evaluate_kitti(gt_dir, txt_dir, out_dir)
-            for thr, ap in res["ap"].items():
-                logger.info(f"AP@{thr}: {ap}")
-        stats["ap_s"] = time.perf_counter() - t0
+        res = {"predictions": preds, "out_dir": out_dir, "images": len(preds), "stats": stats}
+        stats["txt_s"] = stats["ap_s"] = 0.0
+        if main:
+            t0 = time.perf_counter()
+            res["txt_dir"] = write_kitti_txt(preds, out_dir)
+            stats["txt_s"] = time.perf_counter() - t0
+            logger.info(f"wrote KITTI txt to {res['txt_dir']}")
+            t0 = time.perf_counter()
+            if evaluate and gt_dir:
+                res["ap"] = evaluate_kitti(gt_dir, res["txt_dir"], out_dir)
+                for thr, ap in res["ap"].items():
+                    logger.info(f"AP@{thr}: {ap}")
+            stats["ap_s"] = time.perf_counter() - t0
+        synchronize()
         stats["loop_s"] = time.perf_counter() - t_start
         logger.info(f"{name}: {len(preds)} images in {stats['loop_s']:.3f} s "
                     f"({len(preds) / stats['loop_s']:.3f} images/s); " + ", ".join(
@@ -239,7 +269,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         static_hw=tuple(int(v) for v in args.static_hw.split(",")),
         evaluate=args.evaluate, gt_dir=args.gt_dir, device=args.device,
         kernels_off=[t for t in args.kernels_off.split(",") if t], seed=args.seed,
-        force_recompute=not args.no_force_recompute, ckpt=args.ckpt)
+        force_recompute=not args.no_force_recompute, ckpt=args.ckpt,
+        dist_backend=args.dist_backend)
 
 
 if __name__ == "__main__":

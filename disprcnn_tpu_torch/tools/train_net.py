@@ -3,7 +3,8 @@ reference tools/train_net.py:23-128).
 
     python -m disprcnn_tpu_torch.tools.train_net --config-file configs/kitti/car/vob/mask.yaml \\
         [--max-iter N] [--dataset NAME] [--static-hw 384,1248] [--device cuda] \\
-        [--kernels-off sa] [--seed 0] [KEY VALUE ...]
+        [--kernels-off sa] [--seed 0] [--dist-backend nccl] [KEY VALUE ...]
+    torchrun --nproc_per_node N -m disprcnn_tpu_torch.tools.train_net ...
 
 config file (+ KEY VALUE overrides; --max-iter sets SOLVER.MAX_ITER, so the
 OneCycle schedules span the shortened run) -> the dataset(s) of --dataset
@@ -36,6 +37,24 @@ kwargs (train_psm / train_pc) -> the loop.
   dropout, the 2D sampler's priorities and the box head's dropout) come
   from a torch.Generator on the device seeded by --seed.
 
+- Under torchrun (WORLD_SIZE > 1) every rank joins the process group of
+  --dist-backend (parallel/multihost.py; NCCL takes one card a rank,
+  gloo lets several ranks share one) on cuda:LOCAL_RANK (or the --device
+  given with an index), broadcasts rank 0's weights, and walks the
+  one-process loader's stream, taking its share of every global batch
+  of SOLVER.IMS_PER_BATCH pairs (IMS_PER_BATCH / world a rank; fewer
+  pairs than ranks gives one a rank, as the JAX package's
+  max(IMS_PER_BATCH, devices) does; a remainder raises). The step
+  (engine/trainer.py) then equals one process's step at the global
+  batch. The model's draws come from one generator seeded by --seed on
+  every rank, which draws the global batch's and keeps the rank's rows
+  (parallel/mesh.py::shard_batch), so the ranks draw what one process
+  draws; the transforms' numpy generator is seeded by (--seed, rank).
+  Rank 0 alone writes the checkpoints, TensorBoard and log.txt; every
+  rank resumes from the same checkpoint, after a barrier. With
+  WORLD_SIZE unset or 1 no process group is made and the run is the
+  one-process run.
+
 SOLVER.UNCERT_LOSS_WEIGHT other than 0 raises ValueError: no shipped
 config sets it and the step does not wire it in (ROADMAP A7). It runs on
 the card unless --device says otherwise; with --device cuda and no card it
@@ -59,6 +78,9 @@ from ..data.transforms import build_transforms
 from ..engine.batching import make_batch_converter
 from ..engine.trainer import make_train_step
 from ..models.build import build_detection_model
+from ..parallel.mesh import replicate
+from ..parallel.multihost import (init_distributed, is_main_process, process_count,
+                                  process_index, synchronize)
 from ..solver.build import FIX_FLAG_PREFIXES, frozen_path_prefixes, make_optimizer
 from ..solver.schedules import make_momentum_schedule, make_schedule
 from ..utils.checkpoint import Checkpointer, load_stage_weights
@@ -78,8 +100,20 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="comma list of PointNet++ kernel families to route off (sa, pool, fp)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights, the transforms and the model's draws")
+    p.add_argument("--dist-backend", default="nccl",
+                   help="torch.distributed backend under torchrun (nccl, or gloo)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return p.parse_args(argv)
+
+
+def rank_batch(ims_per_batch: int, world: int) -> int:
+    """Pairs a rank takes of a global batch of ims_per_batch pairs."""
+    if ims_per_batch <= world:
+        return 1
+    if ims_per_batch % world:
+        raise ValueError(f"SOLVER.IMS_PER_BATCH {ims_per_batch} does not split over {world} "
+                         "ranks")
+    return ims_per_batch // world
 
 
 def load_config(config_file: str, opts: Sequence[str] = (), max_iter: Optional[int] = None):
@@ -108,7 +142,8 @@ def build_optimizer(cfg, model):
 
 
 def train(cfg, dataset: Optional[str] = None, static_hw=(384, 1248), device: str = "cuda",
-          kernels_off: Sequence[str] = (), seed: int = 0, model=None, logger=None) -> dict:
+          kernels_off: Sequence[str] = (), seed: int = 0, model=None, logger=None,
+          dist_backend: str = "nccl") -> dict:
     """The tool's run on a frozen config, in-process. `model` replaces the
     built and randomly drawn one (the tests load the JAX package's weights
     into it; MODEL.WEIGHT still applies). -> {"cfg", "model", "optimizer",
@@ -116,15 +151,17 @@ def train(cfg, dataset: Optional[str] = None, static_hw=(384, 1248), device: str
     list of (iteration, {name: float}) at the log cadence), "ckpt_dir",
     "unmatched" (MODEL.WEIGHT's keys left at their init, or None), "stats"
     (seconds: data_s in the loader, to_device_s, step_s, loop_s; and
-    s_per_iter, data_share)}."""
+    s_per_iter, data_share), "world", "rank", "ims_per_rank"}."""
     s = cfg.SOLVER
     if s.UNCERT_LOSS_WEIGHT:
         raise ValueError(f"SOLVER.UNCERT_LOSS_WEIGHT = {s.UNCERT_LOSS_WEIGHT}: the port's train "
                          "step does not wire in the learned uncertainty weights (ROADMAP A7)")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device (pass --device cpu to run on the CPU)")
-    logger = logger or setup_logger("disprcnn_tpu_torch.train", cfg.OUTPUT_DIR)
+    device = init_distributed(dist_backend, device)
+    world, rank, main = process_count(), process_index(), is_main_process()
+    ims = rank_batch(s.IMS_PER_BATCH, world)
+    logger = logger or setup_logger("disprcnn_tpu_torch.train", cfg.OUTPUT_DIR, rank=rank)
     meta = cfg.MODEL.META_ARCHITECTURE
     if model is None:
         model = build_detection_model(cfg, device=device, kernels_off=kernels_off)
@@ -141,22 +178,28 @@ def train(cfg, dataset: Optional[str] = None, static_hw=(384, 1248), device: str
     step = make_train_step(model, opt, s.DO_GRAD_CLIP, s.GRAD_CLIP, forward_kwargs=static_kwargs)
     ckpt_dir = os.path.join(cfg.OUTPUT_DIR, "ckpt")
     ckpt = Checkpointer(ckpt_dir)
+    synchronize()
     start_iter = ckpt.load(model, opt, load_optimizer=s.LOAD_OPTIMIZER)
+    replicate(model)
     if start_iter:
         if s.LOAD_OPTIMIZER:
             step.count = start_iter
         logger.info(f"resumed from {ckpt.path(start_iter)} at iteration {start_iter}")
 
     names = [dataset] if dataset else (list(cfg.DATASETS.TRAIN) or ["synthetic_64"])
-    transforms = build_transforms(cfg, True, np.random.default_rng(seed))
+    transforms = build_transforms(
+        cfg, True, np.random.default_rng(seed if world == 1 else (seed, rank)))
     ds = resolve_many(names, cfg, training=True, transforms=transforms)
-    loader = StereoBatchLoader(ds, s.IMS_PER_BATCH, tuple(static_hw), shuffle=cfg.INPUT.SHUFFLE,
+    loader = StereoBatchLoader(ds, ims, tuple(static_hw), shuffle=cfg.INPUT.SHUFFLE,
                                size_divisibility=max(cfg.DATALOADER.SIZE_DIVISIBILITY, 32),
                                max_iter=s.MAX_ITER, start_iter=start_iter,
+                               num_shards=world, shard_id=rank,
                                group_by_aspect=cfg.DATALOADER.ASPECT_RATIO_GROUPING)
+    if world > 1:
+        logger.info(f"rank {rank} of {world} on {device}: {ims} of every {ims * world} pairs")
     generator = torch.Generator(device=device).manual_seed(seed)
     meters = MetricLogger()
-    tb = SummaryWriter(os.path.join(cfg.OUTPUT_DIR, "tb"))
+    tb = SummaryWriter(os.path.join(cfg.OUTPUT_DIR, "tb")) if main else None
     stats = {"data_s": 0.0, "to_device_s": 0.0, "step_s": 0.0}
     logged = []
     it = start_iter - 1
@@ -182,7 +225,8 @@ def train(cfg, dataset: Optional[str] = None, static_hw=(384, 1248), device: str
                 scalars = dict(metrics, lr=float(schedule(it)),
                                batch_time=(now - t_last) / max(s.PRINT_INTERVAL, 1))
                 t_last = now
-                tb.add_scalars(scalars, it)
+                if tb:
+                    tb.add_scalars(scalars, it)
                 bad = [k for k, v in metrics.items() if not np.isfinite(v)]
                 if bad:
                     msg = f"non-finite metrics at iteration {it}: {bad}"
@@ -194,12 +238,15 @@ def train(cfg, dataset: Optional[str] = None, static_hw=(384, 1248), device: str
                 eta = (now - t0) / max(it - start_iter + 1, 1) * (s.MAX_ITER - it)
                 logger.info(f"iter {it}/{s.MAX_ITER} {meters} "
                             f"eta {datetime.timedelta(seconds=int(eta))}")
-            if it > start_iter and it % s.CHECKPOINT_PERIOD == 0:
+            if it > start_iter and it % s.CHECKPOINT_PERIOD == 0 and main:
                 ckpt.save(it, model, opt)
         final = max(s.MAX_ITER, it + 1)
-        ckpt.save(final, model, opt)
+        if main:
+            ckpt.save(final, model, opt)
+        synchronize()
     finally:
-        tb.close()
+        if tb:
+            tb.close()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     iters = it + 1 - start_iter
@@ -211,7 +258,8 @@ def train(cfg, dataset: Optional[str] = None, static_hw=(384, 1248), device: str
                 f"{100 * stats['data_share']:.1f}%); checkpoint {ckpt.path(final)}")
     return {"cfg": cfg, "model": model, "optimizer": opt, "step": step,
             "start_iter": start_iter, "iters": iters, "metrics": logged, "ckpt_dir": ckpt_dir,
-            "final_step": final, "unmatched": unmatched, "stats": stats}
+            "final_step": final, "unmatched": unmatched, "stats": stats, "world": world,
+            "rank": rank, "ims_per_rank": ims}
 
 
 def run(argv: Optional[Sequence[str]] = None, model=None) -> dict:
@@ -221,7 +269,7 @@ def run(argv: Optional[Sequence[str]] = None, model=None) -> dict:
     return train(cfg, dataset=args.dataset,
                  static_hw=tuple(int(v) for v in args.static_hw.split(",")),
                  device=args.device, kernels_off=[t for t in args.kernels_off.split(",") if t],
-                 seed=args.seed, model=model)
+                 seed=args.seed, model=model, dist_backend=args.dist_backend)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

@@ -28,7 +28,8 @@ print("LOADED", " ".join(sorted(m for m in sys.modules if m.startswith("disprcnn
 """
 
 # modules of the iDispNet and PointRCNN slices, of their train steps, of
-# the bench and of the eval and train entry points, which chip_smoke.py
+# the bench, of the eval and train entry points, and of the distribution
+# layer, the handoff tools and the profiling utilities, which chip_smoke.py
 # drives on the card
 SLICE_MODULES = (
     "disprcnn_tpu_torch.bench",
@@ -80,6 +81,12 @@ SLICE_MODULES = (
     "disprcnn_tpu_torch.solver.schedules",
     "disprcnn_tpu_torch.structures.boxes3d",
     "disprcnn_tpu_torch.tools.bench_train",
+    "disprcnn_tpu_torch.parallel.mesh",
+    "disprcnn_tpu_torch.parallel.multihost",
+    "disprcnn_tpu_torch.tools.generate_psmnet_input",
+    "disprcnn_tpu_torch.tools.split_predictions",
+    "disprcnn_tpu_torch.utils.benchmarking",
+    "disprcnn_tpu_torch.utils.profiling",
 )
 
 
