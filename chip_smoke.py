@@ -211,7 +211,10 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      back with the prediction dicts, and the txt and AP.
  21. the train entry points in-process: tools/train_net on mask, idispnet,
      rpn and rcnn.yaml with the stage handoff, test_net --ckpt and
-     tools/train_idispnet (phase_train_entry).
+     tools/train_idispnet (phase_train_entry); mask.yaml's MODEL.WEIGHT is
+     a 2D mrcnn .pth in the reference's layout, written from the random-init
+     model (every entry filled from it, the frozen ones bit-equal after
+     training).
  22. the distributed paths, two ranks sharing the card on gloo (each a
      process of this script with --dist-worker and torchrun's
      environment; no time of theirs is a scaling figure): (a) train_net on
@@ -229,6 +232,28 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      generate_psmnet_input (records on the card against the CPU's) ->
      train_idispnet on the records; (e) utils/profiling.py: a trace of one
      train iteration naming csrc kernels, StepTimer, device_memory_stats.
+ 23. a user's files on the card, at full width (R-101, the shipped configs):
+     (a) the port's make_mini_kitti writes 4 train and 4 val scenes at
+     375x1242 and KittiStereoDataset reads them back through data/png.py
+     (no PIL): images, disparities and masks equal to the synthetic scenes
+     after the uint8 and uint16 rounding, the image sizes from IHDR; (b) the
+     reference's five released layouts (the 2D mrcnn .pth, pointrcnn.pth,
+     the full 3D stage .pth with module. prefixes, a PSMNet bestmodel .tar
+     under state_dict, an R-101 Detectron .pkl) written from random-init
+     mask.yaml and rcnn.yaml models by tests/torch_ckpt_writer.py, each
+     loaded by load_stage_weights into a freshly drawn model: its entries
+     torch.equal to the source's (the .pkl's weights only: Caffe2 norms
+     carry no statistics); (c) disprcnn_tpu_torch/scripts/car/vob/
+     eval_with_trained_model.sh on the mini-KITTI (DISPRCNN_DATA_DIR), its
+     --ckpt files (b)'s, run with --deterministic from a directory that links
+     the checkout's package and configs: rc 0, each stage's predictions;
+     the native evaluator's stats equal to the Python evaluator's to their
+     print precision on rcnn.yaml's txt and on the mini-KITTI's GT jittered
+     into detections (an AP strictly between 0 and 100); rcnn.yaml in this process on
+     the script's model with its pointrcnn.* from the source model's own
+     state_dict: predictions bit-equal to the script's, rows 1-7, 9, 10 and
+     13-15 launched; (d) each load's wall time, each CLI's images/s, the
+     mini-KITTI's write and read rates.
 Then it prints the card (name, power limit) from nvidia-smi, one JSON line
 of per-kernel numbers (eval kernels per headline request, row 12 per
 SA-off headline request, train forms per train step), and as its last
@@ -298,13 +323,23 @@ from disprcnn_tpu_torch.utils import profiling
 from disprcnn_tpu_torch.utils.checkpoint import Checkpointer, load_stage_weights
 from disprcnn_tpu_torch.tools.bench_train import PC_TRAIN, PSM_TRAIN, RPN_PAIRS, RPN_TRAIN
 from disprcnn_tpu_torch.utils.weights import init_random_
+from disprcnn_tpu_torch.data.datasets.kitti import KittiStereoDataset
+from disprcnn_tpu_torch.data.datasets.synthetic import SyntheticStereoDataset
+from disprcnn_tpu_torch.evaluation import kitti_eval
+from disprcnn_tpu_torch.tools import make_mini_kitti
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# the reference's released layouts are written by the writer the CPU tests
+# use (tests/torch_ckpt_writer.py: torch and numpy only)
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+import torch_ckpt_writer as ckpt_writer  # noqa: E402
 
 # The pipeline's geometry, budgets, calibration and the kernel-against-
 # plain tolerances CONV_RTOL/CONV_ATOL and SOFTARGMIN_TOL_PX (fixed before
 # the first card run of these kernels) are the bench's
 # (disprcnn_tpu_torch/bench.py); the train stages' configurations are
 # disprcnn_tpu_torch/tools/bench_train.py's.
-PHASES = 22
+PHASES = 23
 PAIRS = 8
 REQUESTS = 2  # at the headline budget; one more at the reference budget
 # the tests' small configurations (tests/torch_port_helpers.py, tests/test_torch_disprcnn3d.py)
@@ -2608,7 +2643,7 @@ def phase_eval_entry(card: str) -> None:
 # tools/train_idispnet.py
 TRAIN_ENTRY_ITERS = 2
 TRAIN_ENTRY_RUNS = (
-    ("mask", "synthetic_8", ["MODEL.WEIGHT", ""], ("nms_sorted",)),
+    ("mask", "synthetic_8", [], ("nms_sorted",)),
     ("idispnet", "synthetic3d_4", [], ("conv3d_train",)),
     ("rpn", "synthetic3d_4", [], ("cost_volume_conv", "conv3d", "conv3d_cl1", "conv3d_s2",
                                   "deconv3d", "conv2d", "softargmin", "fps")),
@@ -2654,10 +2689,22 @@ def phase_train_entry(card: str) -> dict:
     run by row."""
     lines, counted, runs = [], {}, {}
     with tempfile.TemporaryDirectory() as tmp:
+        # mask.yaml's MODEL.WEIGHT: the pretrained 2D detector as the
+        # reference releases it (a maskrcnn-benchmark .pth), here the model
+        # train_net draws from --seed 21
+        cfg = train_net.load_config("configs/kitti/car/vob/mask.yaml")
+        src = init_random_(build_detection_model(cfg, device="cuda"),
+                           torch.Generator(device="cuda").manual_seed(21))
+        mask_src = {k: v.cpu() for k, v in src.state_dict().items()}
+        mask_pth = ckpt_writer.write_pth(os.path.join(tmp, "srcnn_2d_mrcnn_format.pth"),
+                                         ckpt_writer.reference_2d(mask_src))
+        del src
         for stage, dataset, opts, rows in TRAIN_ENTRY_RUNS:
             out = os.path.join(tmp, stage)
             if stage in TRAIN_ENTRY_SEED_FROM:
                 opts = opts + ["MODEL.WEIGHT", runs[TRAIN_ENTRY_SEED_FROM[stage]]["ckpt_dir"]]
+            if stage == "mask":
+                opts = opts + ["MODEL.WEIGHT", mask_pth]
             reset_launches()
             res = train_net.run(["--config-file", f"configs/kitti/car/vob/{stage}.yaml",
                                  "--max-iter", str(TRAIN_ENTRY_ITERS), "--dataset", dataset,
@@ -2674,6 +2721,16 @@ def phase_train_entry(card: str) -> dict:
                         or m["skipped_nonfinite"] or m["params_without_grad"]:
                     raise AssertionError(f"{stage}.yaml iteration {it}: {m}")
             handoff = ""
+            if stage == "mask":
+                sd = model.state_dict()
+                frozen = [k for k in sd if k.startswith(("backbone.", "rpn_head.", "box_"))]
+                bad = [k for k in frozen if not torch.equal(sd[k].cpu(), mask_src[k])]
+                if res["unmatched"] != [] or bad or not frozen:
+                    raise AssertionError(f"mask.yaml from {mask_pth}: unmatched "
+                                         f"{res['unmatched'][:3]}, frozen {bad[:3]} differ")
+                handoff = (f"; MODEL.WEIGHT a 2D mrcnn .pth in the reference's layout: every "
+                           f"entry filled, the {len(frozen)} frozen ones bit-equal to it after "
+                           "training")
             if stage in TRAIN_ENTRY_SEED_FROM:
                 prev = TRAIN_ENTRY_SEED_FROM[stage]
                 saved = Checkpointer(runs[prev]["ckpt_dir"]).read()["model"]
@@ -3216,6 +3273,311 @@ def phase_dist(card: str) -> dict:
     return counted
 
 
+# Phase 23: a user's files on the card. A mini-KITTI at KITTI's size, the
+# reference's five released layouts written from random-init models of the
+# shipped configs (R-101), and the recipe's eval script run on them
+USER_SCENES = (4, 4)  # train, val
+USER_HW = (375, 1242)
+USER_SEED = 23
+# mask.yaml resizes to the 600-pixel short side (600 x 1987): the static
+# size holds the whole image
+USER_STATIC_HW = (608, 2016)
+USER_SCRIPT = "disprcnn_tpu_torch/scripts/car/vob/eval_with_trained_model.sh"
+USER_MODELS = "models/kitti/car/vob"  # the script's --ckpt and outputs, under its root
+STATS_ATOL = 1e-6  # the native build prints 6 significant digits, Python 6 decimals
+# where the phase runs and the configs' overrides: the card at the shipped
+# configs (a rehearsal on the CPU sets "cpu" and small models' opts)
+USER_DEVICE = "cuda"
+USER_OPTS: list = []
+
+
+def user_models() -> dict:
+    """The random-init models of mask.yaml and rcnn.yaml (R-101, the
+    shipped widths) on the card, drawn from USER_SEED, and fresh ones drawn
+    from another seed, to load into."""
+    out = {}
+    for name in ("mask", "rcnn"):
+        cfg = train_net.load_config(f"configs/kitti/car/vob/{name}.yaml", USER_OPTS)
+        for which, seed in (("src", USER_SEED), ("fresh", USER_SEED + 100)):
+            out[f"{name}_{which}"] = init_random_(
+                build_detection_model(cfg, device=USER_DEVICE),
+                torch.Generator(device=USER_DEVICE).manual_seed(seed)).eval()
+    return out
+
+
+def check_mini_kitti(root: str) -> str:
+    """(a): the tree read back through KittiStereoDataset (data/png.py)
+    equals the synthetic scenes it was written from, after the uint8 and
+    uint16 rounding. -> the line to log."""
+    n = sum(USER_SCENES)
+    t0 = time.perf_counter()
+    make_mini_kitti.write(root, *USER_SCENES, USER_HW, seed=USER_SEED)
+    t_write = time.perf_counter() - t0
+    ds = SyntheticStereoDataset(n_samples=n, image_hw=USER_HW, max_gt=8, seed=USER_SEED)
+    kitti = KittiStereoDataset(root, "trainval", shape_prior_base="vob", training=False,
+                               max_gt=8)
+    t0 = time.perf_counter()
+    sizes = kitti.image_sizes()
+    samples = [kitti[i] for i in range(len(kitti))]
+    t_read = time.perf_counter() - t0
+    if kitti.ids != [f"{i:06d}" for i in range(n)] or sizes != [USER_HW[::-1]] * n:
+        raise AssertionError(f"mini-KITTI: ids {kitti.ids}, sizes {sizes}")
+    for i, k in enumerate(samples):
+        s = ds[i]
+        for key in ("left", "right"):
+            if not np.array_equal(k[key], (s[key] * 255).astype(np.uint8) / np.float32(255)):
+                raise AssertionError(f"mini-KITTI {kitti.ids[i]}: {key} differs")
+        disp = np.clip(s["gt_disp"] * 256, 0, 65535).astype(np.uint16) / np.float32(256)
+        m = int(s["gt_valid"].sum())
+        if not np.array_equal(k["gt_disp"], disp) or not np.array_equal(
+                k["gt_masks"][:m], s["gt_masks"][s["gt_valid"]] != 0) or not m:
+            raise AssertionError(f"mini-KITTI {kitti.ids[i]}: disparity or masks differ")
+    return (f"  (a) make_mini_kitti wrote {n} scenes of {USER_HW[0]}x{USER_HW[1]} in "
+            f"{t_write:.3f} s ({n / t_write:.3f} scenes/s); KittiStereoDataset read them "
+            f"(image sizes from IHDR, the pair, disparity, masks) in {t_read:.3f} s "
+            f"({n / t_read:.3f} samples/s), equal to the scenes after the uint8/uint16 "
+            "rounding")
+
+
+def released_files(models: dict, d: str) -> dict:
+    """(b)'s files: {layout: (path, source state_dict, fresh model to load
+    into, entries that must equal)}."""
+    cpu = lambda m: {k: v.cpu() for k, v in m.state_dict().items()}
+    w = ckpt_writer
+    mask, rcnn = cpu(models["mask_src"]), cpu(models["rcnn_src"])
+    scope = lambda sd, p: {k[len(p):]: v for k, v in sd.items() if k.startswith(p)}
+    psm, pr = scope(rcnn, "idispnet."), scope(rcnn, "pointrcnn.")
+    weights = [k for k in mask if k.startswith("backbone.") and "running_" not in k]
+    return {
+        "2D mrcnn .pth": (w.write_pth(os.path.join(d, "smrcnn.pth"), w.reference_2d(mask)),
+                          mask, models["mask_fresh"], list(mask)),
+        "pointrcnn.pth": (w.write_pth(os.path.join(d, "pointrcnn.pth"),
+                                      w.ddp(w.reference_pointrcnn(pr)), iteration=1),
+                          pr, models["rcnn_fresh"].pointrcnn, list(pr)),
+        "full 3D stage .pth": (w.write_pth(os.path.join(d, "disprcnn3d.pth"),
+                                           w.ddp(w.reference_disprcnn3d(rcnn))),
+                               rcnn, models["rcnn_fresh"], list(rcnn)),
+        "PSMNet bestmodel .tar": (w.write_pth(os.path.join(d, "bestmodel.tar"),
+                                              w.ddp(w.reference_psmnet(psm)),
+                                              wrapper="state_dict", epoch=1),
+                                  psm, models["rcnn_fresh"].idispnet, list(psm)),
+        # Caffe2 norms carry no statistics: only the backbone's weights count
+        "R-101 Detectron .pkl": (w.write_pkl(os.path.join(d, "R-101.pkl"), w.c2_blobs(mask)),
+                                 mask, models["mask_fresh"], weights),
+    }
+
+
+def check_released(files: dict) -> tuple:
+    """(b): each file through load_stage_weights into a fresh model equals
+    its source entry for entry. -> (log lines, {layout: load seconds})."""
+    lines, secs = [], {}
+    for i, (name, (path, src, fresh, keys)) in enumerate(files.items()):
+        # drawn anew before each load, so that no earlier load's values pass
+        init_random_(fresh, torch.Generator(device=USER_DEVICE).manual_seed(USER_SEED + 200 + i))
+        same = [k for k in keys if torch.equal(fresh.state_dict()[k].cpu(), src[k])]
+        if len(same) * 2 > len(keys):
+            raise AssertionError(f"{name}: the fresh model already holds {len(same)} of the "
+                                 f"{len(keys)} source entries")
+        sync(USER_DEVICE)
+        t0 = time.perf_counter()
+        unmatched = load_stage_weights(fresh, path)
+        sync(USER_DEVICE)
+        secs[name] = time.perf_counter() - t0
+        got = fresh.state_dict()
+        bad = [k for k in keys if not torch.equal(got[k].cpu(), src[k])]
+        left = sorted(set(got) - set(keys) - {k for k in got if "num_batches_tracked" in k})
+        if bad or (name != "R-101 Detectron .pkl" and unmatched) or \
+                not set(unmatched) <= set(left):
+            raise AssertionError(f"{name}: {bad[:3]} differ, unmatched {unmatched[:3]}")
+        lines.append(f"  (b) {name} ({os.path.getsize(path) / 1e6:.1f} MB): "
+                     f"load_stage_weights {secs[name]:.3f} s, {len(keys)} entries equal to "
+                     f"the source model's, {len(unmatched)} unmatched")
+    return lines, secs
+
+
+def run_root(tmp: str, files: dict) -> str:
+    """A directory the recipe script runs from: the checkout's package and
+    configs linked in, (b)'s 2D and PointRCNN files where the script's
+    --ckpt points, and a `python` that is this interpreter."""
+    root = os.path.join(tmp, "root")
+    os.makedirs(os.path.join(root, "bin"))
+    for name in ("disprcnn_tpu_torch", "configs"):
+        os.symlink(os.path.join(ROOT, name), os.path.join(root, name))
+    for stage, layout, fname in (("mask", "2D mrcnn .pth", "smrcnn.pth"),
+                                 ("rcnn", "pointrcnn.pth", "pointrcnn.pth")):
+        os.makedirs(os.path.join(root, USER_MODELS, stage))
+        os.symlink(files[layout][0], os.path.join(root, USER_MODELS, stage, fname))
+    with open(os.path.join(root, "bin", "python"), "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(os.path.join(root, "bin", "python"), 0o755)
+    return root
+
+
+def cli_rate(log_txt: str) -> str:
+    """The images/s line test_net logged."""
+    with open(log_txt) as f:
+        hits = [line.split(": ", 1)[1].strip() for line in f if "images/s" in line]
+    if not hits:
+        raise AssertionError(f"{log_txt}: no images/s line")
+    return hits[-1]
+
+
+def jittered_detections(gt_dir: str, out_dir: str) -> None:
+    """Each label file's objects as detections: boxes and centres moved by
+    seeded noise, one in five dropped, a false positive added, scored;
+    written to 6 decimals, as tools/test_net writes detections (on labels
+    and detections both rounded to 2 decimals an overlap can equal the
+    threshold exactly, where the two evaluators part: ROADMAP C32)."""
+    rng = np.random.default_rng(USER_SEED)
+    os.makedirs(out_dir)
+    for name in sorted(os.listdir(gt_dir)):
+        lines = []
+        with open(os.path.join(gt_dir, name)) as f:
+            for line in f:
+                v = line.split()
+                if rng.random() < 0.2:
+                    continue
+                box = np.asarray(v[4:8], float) + rng.normal(0, 4, 4)
+                xyz = np.asarray(v[11:14], float) + rng.normal(0, 0.4, 3)
+                lines.append(" ".join([v[0], "-1 -1", v[3], *(f"{b:.6f}" for b in box), *v[8:11],
+                                       *(f"{c:.6f}" for c in xyz), v[14],
+                                       f"{rng.uniform(0.3, 1):.6f}"]))
+        x1 = rng.uniform(0, 1000)
+        lines.append(f"Car -1 -1 0.1 {x1:.2f} 150.00 {x1 + 80:.2f} 210.00 1.5 1.6 3.9 "
+                     f"{rng.uniform(-10, 10):.2f} 1.6 {rng.uniform(10, 40):.2f} 0.1 "
+                     f"{rng.uniform(0.05, 0.95):.4f}")
+        with open(os.path.join(out_dir, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def check_script(root: str, data: str, rcnn_fresh, rcnn_src, tmp: str) -> tuple:
+    """(c): the recipe's eval script on the mini-KITTI, then rcnn.yaml in
+    this process on the same model loaded from its own state_dict. -> (log
+    lines, that run's launches by row)."""
+    gt = os.path.join(data, "object", "training", "label_2")
+    env = dict(os.environ, DISPRCNN_DATA_DIR=data,
+               PATH=os.path.join(root, "bin") + os.pathsep + os.environ.get("PATH", ""))
+    env.pop("PYTHONPATH", None)
+    args = ["--static-hw", ",".join(map(str, USER_STATIC_HW)), "--deterministic", "--evaluate",
+            "--gt-dir", gt, "--seed", str(USER_SEED), "--device", USER_DEVICE, *USER_OPTS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(["bash", os.path.join(root, USER_SCRIPT), *args], cwd=tmp, env=env,
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{USER_SCRIPT} exit {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    lines = [f"  (c) {USER_SCRIPT} {' '.join(args)}: rc 0 in {wall:.1f} s "
+             "(three test_net processes)"]
+    out = {}
+    for stage in ("mask", "idispnet", "rcnn"):
+        res = os.path.join(root, USER_MODELS, stage, "inference", "kitti_val_vob_car")
+        with open(os.path.join(res, "predictions.pkl"), "rb") as f:
+            out[stage] = pickle.load(f)
+        if sorted(out[stage]) != [f"{i:06d}" for i in range(USER_SCENES[0], sum(USER_SCENES))]:
+            raise AssertionError(f"{stage}: predictions of {sorted(out[stage])}")
+        lines.append(f"      test_net {stage}.yaml: "
+                     f"{cli_rate(os.path.join(root, USER_MODELS, stage, 'log.txt'))}")
+    res = os.path.join(root, USER_MODELS, "rcnn", "inference", "kitti_val_vob_car")
+    # the native AP against the Python evaluator's on the same txt
+    py = kitti_eval.evaluate_kitti(gt, os.path.join(res, "txt"), os.path.join(tmp, "py"),
+                                   use_native=False)
+    for thr, sub in ((0.7, "eval_07"), (0.5, "eval_05")):
+        native = kitti_eval.read_stats(os.path.join(res, sub), "Car")
+        for kind in ("detection", "detection_ground", "detection_3d", "orientation"):
+            a = np.loadtxt(os.path.join(res, sub, f"stats_car_{kind}.txt"), ndmin=2)
+            b = np.loadtxt(os.path.join(tmp, "py", sub, f"stats_car_{kind}.txt"), ndmin=2)
+            if a.shape != b.shape or np.abs(a - b).max() > STATS_ATOL:
+                raise AssertionError(f"native {sub} {kind} differs from the Python evaluator's")
+        if any(abs(x - y) > 100 * STATS_ATOL for k in py[thr]
+               for x, y in zip(native[k], py[thr][k])):
+            raise AssertionError(f"AP@{thr}: native {native}, Python {py[thr]}")
+    # and on detections that score: the mini-KITTI's GT, jittered, some dropped,
+    # false positives added
+    dets = os.path.join(tmp, "jittered")
+    jittered_detections(gt, dets)
+    nat_j = kitti_eval.evaluate_kitti(gt, dets, os.path.join(tmp, "nat_j"))
+    py_j = kitti_eval.evaluate_kitti(gt, dets, os.path.join(tmp, "py_j"), use_native=False)
+    for thr, sub in ((0.7, "eval_07"), (0.5, "eval_05")):
+        for name in sorted(os.listdir(os.path.join(tmp, "py_j", sub))):
+            a = np.loadtxt(os.path.join(tmp, "nat_j", sub, name), ndmin=2)
+            b = np.loadtxt(os.path.join(tmp, "py_j", sub, name), ndmin=2)
+            if a.shape != b.shape or np.abs(a - b).max() > STATS_ATOL:
+                raise AssertionError(f"jittered detections: native {sub} {name} differs")
+        if any(abs(x - y) > 100 * STATS_ATOL for k in py_j[thr]
+               for x, y in zip(nat_j[thr][k], py_j[thr][k])) or \
+                not 0 < max(nat_j[thr]["image"]) < 100:
+            raise AssertionError(f"jittered AP@{thr}: native {nat_j[thr]}, Python {py_j[thr]}")
+    shown = {t: {k: [(round(a, 4), round(b, 4)) for a, b in zip(nat_j[t][k], py_j[t][k])]
+                 for k in ("image", "3d")} for t in nat_j}
+    lines.append("      the native evaluator's stats files equal the Python evaluator's to "
+                 f"{STATS_ATOL:g} (their print precision), the AP to {100 * STATS_ATOL:g}: on "
+                 "rcnn.yaml's txt (AP 0: random weights) and on the GT jittered (AP easy, "
+                 f"moderate, hard as (native, Python): {shown})")
+    # rcnn.yaml in this process: the script's model, its pointrcnn.* loaded
+    # from the source model's own state_dict instead of pointrcnn.pth
+    init_random_(rcnn_fresh, torch.Generator(device=USER_DEVICE).manual_seed(USER_SEED))
+    rcnn_fresh.pointrcnn.load_state_dict(rcnn_src.pointrcnn.state_dict())
+    offline = os.path.join(root, USER_MODELS, "idispnet", "inference", "kitti_%s_vob_car",
+                           "predictions")
+    reset_launches()
+    os.environ["DISPRCNN_DATA_DIR"] = data
+    try:
+        run = test_net.run("configs/kitti/car/vob/rcnn.yaml",
+                           [*USER_OPTS, "OUTPUT_DIR", os.path.join(tmp, "inproc"),
+                            "SOLVER.OFFLINE_2D_PREDICTIONS", offline],
+                           dataset="kitti_val_vob_car", static_hw=USER_STATIC_HW,
+                           device=USER_DEVICE, seed=USER_SEED, model=rcnn_fresh,
+                           deterministic=True)
+    finally:
+        del os.environ["DISPRCNN_DATA_DIR"]
+    sync(USER_DEVICE)
+    launches = read_launches()
+    if USER_DEVICE == "cuda":
+        launches = check_rows(launches, EVAL_RUNS[1][2], "rcnn.yaml on the mini-KITTI")
+    preds = run["datasets"]["kitti_val_vob_car"]["predictions"]
+    check_predictions(preds, pred_shapes(run["cfg"]), USER_SCENES[1])
+    for imgid, p in preds.items():
+        for k, v in p.items():
+            if not np.array_equal(out["rcnn"][imgid][k], v):
+                raise AssertionError(f"rcnn.yaml fed pointrcnn.pth: {imgid} {k} differs from "
+                                     "the model loaded from its own state_dict")
+    valid = sum(int(p["valid"].sum()) for p in preds.values())
+    lines.append(f"      rcnn.yaml fed pointrcnn.pth (the script) and the same model loaded "
+                 f"from its own state_dict (this process): predictions bit-equal, {valid} valid "
+                 f"slots; launches {launches}")
+    return lines, launches
+
+
+def phase_user_files(card: str) -> dict:
+    """Phase 23 (see the docstring). -> the in-process rcnn.yaml run's
+    launches by row."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "mini_kitti")
+        lines = [check_mini_kitti(data)]
+        models = user_models()
+        files = released_files(models, tmp)
+        more, secs = check_released(files)
+        lines += more
+        root = run_root(tmp, files)
+        for k in [k for k in models if k != "rcnn_fresh" and k != "rcnn_src"]:
+            del models[k]
+        del files
+        torch.cuda.empty_cache()
+        more, launches = check_script(root, data, models["rcnn_fresh"], models["rcnn_src"], tmp)
+        lines += more
+        del models
+        torch.cuda.empty_cache()
+    log(f"[23/{PHASES}] a user's files on {card}: a {USER_HW[0]}x{USER_HW[1]} mini-KITTI "
+        f"read through data/png.py, the reference's five released layouts loaded exactly, "
+        f"the recipe's eval script on them with the native evaluator, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in lines:
+        log(line)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3278,6 +3640,11 @@ def main() -> int:
         for row in kernels:
             row["dist_launches"] = {run: c[row["name"]] for run, c in dist.items()
                                     if c.get(row["name"])}
+        torch.cuda.empty_cache()
+        user = phase_user_files(card)
+        for row in kernels:
+            if user.get(row["name"]):
+                row["mini_kitti_launches"] = user[row["name"]]
         log(f"done in {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     except Exception:  # report any phase's failure and exit non-zero
         traceback.print_exc()

@@ -1,6 +1,7 @@
 """KITTI stereo object dataset -> fixed-shape numpy samples (a copy of
-disprcnn_tpu/data/datasets/kitti.py; PNGs are read with PIL, imported
-where an image is read).
+disprcnn_tpu/data/datasets/kitti.py; PNGs are read by data/png.py, which
+needs no PIL: images as PIL's ``.convert("RGB")`` gives them, disparities
+as their 16-bit samples).
 
 Reference: data/datasets/kitti_car.py:20-337 (and the pedestrian/cyclist
 variants, kitti_human.py / kitti_cyclist.py — same loader parameterized by
@@ -25,6 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..kitti_io import KittiCalib, KittiObject, load_labels, load_split
+from ..png import png_size, read_png, read_png_rgb
 
 CLASS_FILTERS = {
     "car": ("Car", "Van"),
@@ -119,18 +121,9 @@ class KittiStereoDataset:
     def image_sizes(self):
         """(w, h) per sample for aspect-ratio batch grouping (reference
         GroupedBatchSampler input; KITTI images are uniformly landscape, so
-        a single group results — the hook matters for mixed datasets)."""
-        out = []
-        for imgid in self.ids:
-            path = self._path("image_2", imgid, ".png")
-            try:
-                from PIL import Image
-
-                with Image.open(path) as im:
-                    out.append(im.size)
-            except Exception:
-                out.append((1242, 375))
-        return out
+        a single group results — the hook matters for mixed datasets), read
+        from each left image's IHDR; a missing or broken file raises."""
+        return [png_size(self._path("image_2", imgid, ".png")) for imgid in self.ids]
 
     # -- raw pieces --------------------------------------------------------
     def _path(self, sub: str, imgid: str, ext: str) -> str:
@@ -150,10 +143,7 @@ class KittiStereoDataset:
         return align_left_right(left, right)
 
     def _load_image(self, sub: str, imgid: str) -> np.ndarray:
-        from PIL import Image
-
-        im = Image.open(self._path(sub, imgid, ".png")).convert("RGB")
-        return np.asarray(im, np.float32) / 255.0
+        return read_png_rgb(self._path(sub, imgid, ".png")).astype(np.float32) / 255.0
 
     def _load_disparity(self, imgid: str, shape) -> np.ndarray:
         # reference layout first (kitti_car.py:290-305:
@@ -169,10 +159,7 @@ class KittiStereoDataset:
             )
         for path in candidates:
             if os.path.exists(path):
-                from PIL import Image
-
-                arr = np.asarray(Image.open(path), np.float32)
-                return arr / 256.0
+                return read_png(path).astype(np.float32) / 256.0
         return np.zeros(shape, np.float32)
 
     def _load_offline(self, imgid: str) -> Optional[dict]:

@@ -1,0 +1,7 @@
+#!/bin/bash
+# The PyTorch port's twin of scripts/cyclist/eval_rcnn.sh (run from anywhere; it cds to the repo root).
+# Full-pipeline evaluation (reference scripts/cyclist/eval_rcnn.sh):
+# offline 2D preds -> iDispNet -> PointRCNN -> KITTI txt (+ AP if --evaluate).
+set -e
+cd "$(dirname "$0")/../../.."
+python -m disprcnn_tpu_torch.tools.test_net --config-file configs/kitti/cyclist/rcnn.yaml "$@"

@@ -1,0 +1,13 @@
+#!/bin/bash
+# The PyTorch port's twin of scripts/pedestrian/pob/eval_with_trained_model.sh (run from anywhere; it cds to the repo root).
+# Evaluate the RELEASED checkpoints (reference scripts/pedestrian/pob/eval_with_trained_model.sh):
+# place the downloaded artifacts under models/kitti/pedestrian/pob/ (there is no
+# download) — the importer sniffs each torch layout automatically.
+set -e
+cd "$(dirname "$0")/../../../.."
+python -m disprcnn_tpu_torch.tools.test_net --config-file configs/kitti/pedestrian/pob/mask.yaml \
+    --ckpt models/kitti/pedestrian/pob/mask/smrcnn.pth --dataset kitti_val_pob_pedestrian "$@"
+python -m disprcnn_tpu_torch.tools.test_net --config-file configs/kitti/pedestrian/pob/idispnet.yaml \
+    --dataset kitti_val_pob_pedestrian "$@"
+python -m disprcnn_tpu_torch.tools.test_net --config-file configs/kitti/pedestrian/pob/rcnn.yaml \
+    --ckpt models/kitti/pedestrian/pob/rcnn/pointrcnn.pth --dataset kitti_val_pob_pedestrian "$@"

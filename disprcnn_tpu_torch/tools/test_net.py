@@ -4,7 +4,7 @@ reference tools/test_net.py:19-103).
     python -m disprcnn_tpu_torch.tools.test_net --config-file configs/kitti/car/vob/rcnn.yaml \\
         [--dataset synthetic3d_8] [--static-hw 384,1248] [--evaluate --gt-dir DIR] \\
         [--device cuda] [--kernels-off sa] [--seed 0] [--no_force_recompute] \\
-        [--dist-backend nccl] [KEY VALUE ...]
+        [--ckpt DIR_OR_FILE] [--deterministic] [--dist-backend nccl] [KEY VALUE ...]
     torchrun --nproc_per_node N -m disprcnn_tpu_torch.tools.test_net ...
 
 config file (+ KEY VALUE overrides) -> the dataset(s) of --dataset or
@@ -22,13 +22,17 @@ the AP evaluator against the label files in --gt-dir.
 The predictions are dicts of numpy arrays with the JAX package's keys and
 dtypes, so either package reads the other's predictions.pkl.
 
-The weights are a train run's checkpoint: --ckpt (a Checkpointer
+The weights are --ckpt: a train run's checkpoint (a Checkpointer
 directory such as tools/train_net.py's OUTPUT_DIR/ckpt, or one of its
-files), else OUTPUT_DIR/ckpt when it holds a last_checkpoint, as the JAX
-tool does, loaded by utils/checkpoint.py::load_stage_weights; without
+files) or one of the reference's released files (a .pth/.tar of its four
+layouts, a Detectron .pkl), else OUTPUT_DIR/ckpt when it holds a
+last_checkpoint, as the JAX tool does, loaded by
+utils/checkpoint.py::load_stage_weights; without
 one they are random, drawn by utils/weights.py::init_random_ from --seed
 (the lift's sampling priorities come from a generator seeded alike either
-way). The JAX tool's --roi-buckets dispatches
+way). --deterministic turns TF32 off and has cuDNN pick deterministic
+algorithms, so that two runs on one card give equal predictions. The JAX
+tool's --roi-buckets dispatches
 per-image ROI counts to separately compiled programs, a compile-count
 option of XLA, and is not ported. It runs on the card unless --device
 says otherwise; the CPU runs every kernel's plain version.
@@ -90,6 +94,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--kernels-off", default="",
                    help="comma list of PointNet++ kernel families to route off (sa, pool, fp)")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    p.add_argument("--deterministic", action="store_true",
+                   help="no TF32 and deterministic cuDNN algorithms: equal predictions "
+                        "run to run")
     p.add_argument("--dist-backend", default="nccl",
                    help="torch.distributed backend under torchrun (nccl, or gloo)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
@@ -195,7 +202,8 @@ def run(config_file: str, opts: Sequence[str] = (), dataset: Optional[str] = Non
         static_hw=(384, 1248), evaluate: bool = False, gt_dir: Optional[str] = None,
         device: str = "cuda", kernels_off: Sequence[str] = (), seed: int = 0,
         force_recompute: bool = True, ckpt: Optional[str] = None, model=None,
-        priorities=None, logger=None, dist_backend: str = "nccl") -> dict:
+        priorities=None, logger=None, dist_backend: str = "nccl",
+        deterministic: bool = False) -> dict:
     """The tool's run, in-process. `model` replaces the built one (the
     tests load the JAX package's weights into it); `priorities` as
     Predictor's; the checkpoint (`ckpt`, else OUTPUT_DIR/ckpt when it
@@ -210,6 +218,9 @@ def run(config_file: str, opts: Sequence[str] = (), dataset: Optional[str] = Non
     if opts:
         cfg.merge_from_list(list(opts))
     cfg.freeze()
+    if deterministic:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     device = init_distributed(dist_backend, device)
     main = is_main_process()
     logger = logger or setup_logger("disprcnn_tpu_torch.test", cfg.OUTPUT_DIR,
@@ -270,7 +281,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         evaluate=args.evaluate, gt_dir=args.gt_dir, device=args.device,
         kernels_off=[t for t in args.kernels_off.split(",") if t], seed=args.seed,
         force_recompute=not args.no_force_recompute, ckpt=args.ckpt,
-        dist_backend=args.dist_backend)
+        dist_backend=args.dist_backend, deterministic=args.deterministic)
 
 
 if __name__ == "__main__":

@@ -23,9 +23,12 @@ model_serialization.py:10-80). ``torch.save`` takes the place of orbax.
 - ``load_stage_weights(model, weight)`` loads a previous stage's
   checkpoint directory (or one of its files) into a model by that
   alignment: stage 2's DispRCNN3D fills stage 3's ``idispnet.*`` and leaves
-  ``pointrcnn.*`` at their init, reported as unmatched. The reference's
-  released ``.pth``/``.tar`` and Detectron ``.pkl`` layouts raise
-  NotImplementedError (ROADMAP A6, utils/torch_import.py).
+  ``pointrcnn.*`` at their init, reported as unmatched. It also takes the
+  reference's released files (utils/torch_import.py): a ``.pth``/``.tar``
+  of one of the four layouts (the full 3D stage, ``pointrcnn.pth``,
+  iDispNet's bestmodel, the 2D detector) or a Detectron ``.pkl``; their
+  BN counters (``num_batches_tracked``) keep the model's values and are
+  not reported.
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+
+from . import torch_import
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
@@ -128,17 +133,22 @@ def align_and_update_params(target: Dict[str, object],
     whose key equals it, or is a dotted suffix of it, or has it as one,
     with the longest common length (the first such source key on ties), if
     the shapes agree. -> (the updated flat dict, the target keys left
-    unmatched)."""
+    unmatched). The candidates are looked up by dotted suffix, not by
+    scanning every source key for every target key."""
     out = dict(target)
     unmatched = []
-    skeys = list(source)
+    order = {sk: i for i, sk in enumerate(source)}
+    longer: Dict[str, int] = {}  # dotted suffix -> the first source key that ends with it
+    for sk, i in order.items():
+        for pos in (j for j, ch in enumerate(sk) if ch == "."):
+            longer.setdefault(sk[pos + 1:], i)
+    keys = list(source)
     for tk in target:
-        best, best_len = None, 0
-        for sk in skeys:
-            if tk == sk or tk.endswith("." + sk) or sk.endswith("." + tk):
-                n = min(len(tk), len(sk))
-                if n > best_len:
-                    best, best_len = sk, n
+        # (common length, -source order): the longest, the first on ties
+        cands = [(len(tk), -i) for i in (order.get(tk), longer.get(tk)) if i is not None]
+        cands += [(len(tk) - pos - 1, -order[tk[pos + 1:]]) for pos, ch in enumerate(tk)
+                  if ch == "." and tk[pos + 1:] in order]
+        best = keys[-max(cands)[1]] if cands else None
         if best is not None and tuple(source[best].shape) == tuple(target[tk].shape):
             out[tk] = source[best]
         else:
@@ -147,26 +157,29 @@ def align_and_update_params(target: Dict[str, object],
 
 
 def load_stage_weights(model: nn.Module, weight: str) -> List[str]:
-    """Load a previous stage's weights, MODEL.WEIGHT: a Checkpointer
-    directory (its newest step) or one of its files (see the module doc),
-    into `model` in place by align_and_update_params. -> the model's
-    state_dict keys left at their values (logged, as the JAX package logs
-    them)."""
+    """Load weights, MODEL.WEIGHT or --ckpt: a Checkpointer directory (its
+    newest step) or one of its files, or a released ``.pth``/``.tar``/
+    ``.pkl`` (see the module doc), into `model` in place by
+    align_and_update_params. -> the model's state_dict keys left at their
+    values (logged, as the JAX package logs them)."""
     weight = resolve_weight(weight)
-    if weight.endswith((".pth", ".tar", ".pkl")):
-        raise NotImplementedError(
-            f"{weight}: the reference's .pth/.tar and Detectron .pkl layouts are not "
-            "imported yet (ROADMAP A6, utils/torch_import.py)")
     if not os.path.exists(weight):
         raise FileNotFoundError(f"no checkpoint at {weight}")
-    if os.path.isdir(weight):
-        state = Checkpointer(weight).read()
-        if state is None:
+    state = model.state_dict()
+    target = state
+    if weight.endswith((".pth", ".tar", ".pkl")):
+        source = (torch_import.import_c2_backbone(weight) if weight.endswith(".pkl")
+                  else torch_import.import_released(weight)[1])
+        target = {k: v for k, v in state.items() if not k.endswith("num_batches_tracked")}
+    elif os.path.isdir(weight):
+        saved = Checkpointer(weight).read()
+        if saved is None:
             raise FileNotFoundError(f"no checkpoint under {weight}")
+        source = saved["model"]
     else:
-        state = torch.load(weight, map_location="cpu", weights_only=True)
-    merged, unmatched = align_and_update_params(model.state_dict(), state["model"])
-    model.load_state_dict(merged)
+        source = torch.load(weight, map_location="cpu", weights_only=True)["model"]
+    merged, unmatched = align_and_update_params(target, source)
+    model.load_state_dict({**state, **merged})
     if unmatched:
         logging.getLogger("disprcnn_tpu_torch").info(
             f"load_stage_weights({weight}): {len(unmatched)} entries not found (kept init), "

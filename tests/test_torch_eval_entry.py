@@ -53,17 +53,19 @@ def test_evaluate_ap_matches_jax(tmp_path, thresh, seed):
 def test_evaluate_kitti_matches_jax(tmp_path):
     gt, pred = str(tmp_path / "gt"), str(tmp_path / "pred")
     _write_scene(gt, pred, np.random.default_rng(2), det_prob=0.6)
-    got = kitti_eval.evaluate_kitti(gt, pred, str(tmp_path / "t"))
+    got = kitti_eval.evaluate_kitti(gt, pred, str(tmp_path / "t"), use_native=False)
     want = jkitti_eval.evaluate_kitti(gt, pred, str(tmp_path / "j"), use_native=False)
     assert got == want and set(got) == {0.7, 0.5}
     for sub in ("eval_07", "eval_05"):
         assert read_all(tmp_path / "t" / sub) == read_all(tmp_path / "j" / sub)
-        parsed = kitti_eval._parse_stats(str(tmp_path / "t" / sub), "Car")
-        assert parsed == jkitti_eval._parse_stats(str(tmp_path / "j" / sub), "Car")
+        parsed = kitti_eval.read_stats(str(tmp_path / "t" / sub), "Car")
+        names = (("bbox", "image"), ("bev", "ground"), ("3d", "3d"))
+        assert {kind: parsed[metric] for kind, metric in names} == \
+            jkitti_eval._parse_stats(str(tmp_path / "j" / sub), "Car")
         thr = 0.7 if sub == "eval_07" else 0.5
         # the files hold the curves to 6 decimals: AP (x 100) to 1e-4
-        for kind, metric in (("bbox", "image"), ("bev", "ground"), ("3d", "3d")):
-            np.testing.assert_allclose(parsed[kind], got[thr][metric], rtol=0, atol=1e-4)
+        for metric in parsed:
+            np.testing.assert_allclose(parsed[metric], got[thr][metric], rtol=0, atol=1e-4)
 
 
 def random_predictions(rng, n_images, d, with_3d):

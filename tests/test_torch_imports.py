@@ -42,6 +42,7 @@ SLICE_MODULES = (
     "disprcnn_tpu_torch.data.datasets.synthetic",
     "disprcnn_tpu_torch.data.kitti_io",
     "disprcnn_tpu_torch.data.loader",
+    "disprcnn_tpu_torch.data.png",
     "disprcnn_tpu_torch.data.transforms",
     "disprcnn_tpu_torch.data.zarr_io",
     "disprcnn_tpu_torch.engine.batching",
@@ -49,10 +50,12 @@ SLICE_MODULES = (
     "disprcnn_tpu_torch.evaluation.ap",
     "disprcnn_tpu_torch.evaluation.kitti_eval",
     "disprcnn_tpu_torch.models.build",
+    "disprcnn_tpu_torch.tools.make_mini_kitti",
     "disprcnn_tpu_torch.tools.test_net",
     "disprcnn_tpu_torch.tools.train_idispnet",
     "disprcnn_tpu_torch.tools.train_net",
     "disprcnn_tpu_torch.utils.checkpoint",
+    "disprcnn_tpu_torch.utils.torch_import",
     "disprcnn_tpu_torch.utils.logging",
     "disprcnn_tpu_torch.utils.tb",
     "disprcnn_tpu_torch.engine.inference",
@@ -112,7 +115,9 @@ def test_no_import_statement_names_jax():
 # The machine with the card has no PyYAML, PIL or OpenCV: with the three
 # made unimportable, the config reads a shipped YAML, the synthetic data
 # goes through mask.yaml's eval transforms (the resize included) and the
-# loader, and the evaluator scores GT against itself.
+# loader, the evaluator scores GT against itself, and a mini-KITTI written
+# by the port's make_mini_kitti reads back through the catalog's
+# KittiStereoDataset (its PNGs, image sizes, disparity and masks).
 _BLOCKED = r"""
 import importlib.abc, os, sys, tempfile
 sys.path.insert(0, {repo!r})
@@ -144,6 +149,16 @@ for sub in ("gt", "pred"):
                     + (" 0.9" if sub == "pred" else "") + "\n")
 ap = evaluate_kitti(os.path.join(d, "gt"), os.path.join(d, "pred"), d, (0.7,))
 assert all(v == [100.0] * 3 for k, v in ap[0.7].items() if k != "orientation"), ap
+from disprcnn_tpu_torch.tools import make_mini_kitti
+root = os.path.join(d, "mini")
+make_mini_kitti.main(["--root", root, "--n-train", "2", "--n-val", "1", "--image-hw", "96,320"])
+os.environ["DISPRCNN_DATA_DIR"] = root
+kds = catalog.resolve("kitti_train_vob_car", cfg, training=True)
+assert isinstance(kds, kitti.KittiStereoDataset) and len(kds) == 2
+assert kds.image_sizes() == [(320, 96)] * 2, kds.image_sizes()
+s = kds[1]
+assert s["left"].shape == (96, 320, 3) and s["gt_valid"].any() and s["gt_disp"].max() > 0
+assert s["gt_masks"].max() == 1.0
 print("LOADED", sorted(m for m in sys.modules if m.split(".")[0] in ("yaml", "PIL", "cv2")))
 """
 

@@ -2,22 +2,24 @@
 in-process on the CPU: mask.yaml cut as tests/torch_eval_helpers.py cuts
 it (TINY_MASK: R-50, 32 FPN channels, the box head at 64, no resize), with
 the train budgets cut too (200 pre-NMS proposals into 64, 64 ROIs an
-image), random weights (MODEL.WEIGHT empty: the recipe's pretrained .pth
-is the reference's layout, ROADMAP A6), synthetic_4 at 96x320, 2 pairs a
-batch, 2 iterations, then a resumed run. The 2D train step itself is held
+image), the pretrained weights of MODEL.WEIGHT a .pth in the reference's
+2D layout (tests/torch_ckpt_writer.py) of weights drawn from a seed,
+synthetic_4 at 96x320, 2 pairs a batch, 2 iterations, then a resumed run. The 2D train step itself is held
 to the JAX package's in tests/test_torch_detector2d_train.py.
 
 Held exactly: finite losses, no skipped step, no trainable parameter
 without a gradient, the frozen backbone, RPN and box head (FrozenBN
 constants included) bit-equal to their init, the mask head moved, the
 checkpoint bit-equal to the model, a resumed run starting at the saved
-step; and a .pth MODEL.WEIGHT refused, naming ROADMAP A6.
+step; every entry of the model filled from the .pth; and the shipped
+MODEL.WEIGHT, whose file is not in the repo, refused by name.
 """
 import pytest
 import torch
 
 from disprcnn_tpu_torch.tools import train_net as trn
 from disprcnn_tpu_torch.utils.checkpoint import Checkpointer
+import torch_ckpt_writer as W
 from torch_eval_helpers import MASK_HW, TINY_MASK
 from torch_train_helpers import (check_resume, check_stage, port_train,  # noqa: F401
                                  torch_one_thread, yaml)
@@ -33,14 +35,18 @@ pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 def test_mask_stage_trains_and_resumes(tmp_path):
     kw = dict(dataset="synthetic_4", hw=MASK_HW)
-    with pytest.raises(NotImplementedError, match="A6"):  # the shipped WEIGHT
-        port_train("mask", MASK_TRAIN[:-2], tmp_path / "pth", **kw)
-    # the weights train_net draws from its seed (3), before training
+    with pytest.raises(FileNotFoundError, match="srcnn_pretrained_2d_mrcnn_format.pth"):
+        port_train("mask", MASK_TRAIN[:-2], tmp_path / "pth", **kw)  # the shipped WEIGHT
+    # the pretrained detector: weights drawn from seed 9 (train_net draws
+    # its own from 3), written in the reference's layout
     cfg = trn.load_config(yaml("mask"), MASK_TRAIN, 2)
     model = trn.init_random_(trn.build_detection_model(cfg, device="cpu"),
-                             torch.Generator().manual_seed(3))
+                             torch.Generator().manual_seed(9))
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    res = port_train("mask", MASK_TRAIN, tmp_path / "mask", **kw)
+    pth = W.write_pth(str(tmp_path / "mrcnn.pth"), W.reference_2d(before))
+    opts = MASK_TRAIN[:-2] + ["MODEL.WEIGHT", pth]
+    res = port_train("mask", opts, tmp_path / "mask", **kw)
+    assert res["unmatched"] == []
     sd = res["model"].state_dict()
     frozen = {k: v for k, v in before.items() if k.startswith(FROZEN)}
     assert any("bn1.running_var" in k for k in frozen)
@@ -50,4 +56,4 @@ def test_mask_stage_trains_and_resumes(tmp_path):
     assert mask_head and all(not torch.equal(sd[k], before[k]) for k in mask_head)
     saved = Checkpointer(res["ckpt_dir"]).read()["model"]
     assert all(torch.equal(saved[k], v) for k, v in sd.items())
-    check_resume("mask", MASK_TRAIN, tmp_path / "mask", res, **kw)
+    check_resume("mask", opts, tmp_path / "mask", res, **kw)
