@@ -254,6 +254,33 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      state_dict: predictions bit-equal to the script's, rows 1-7, 9, 10 and
      13-15 launched; (d) each load's wall time, each CLI's images/s, the
      mini-KITTI's write and read rates.
+ 24. the stereo detector's last options and A2, at full width: (a)
+     mask.yaml with MODEL.DISPNET_ON (R-101-FPN, 8 pairs of 384x1248, 32
+     detections each, DispModule at 28^2 -> 112^2 over [-48, 48)): one
+     request with the launches counted from 0 (rows 1-6 and 15, and no
+     other), each of DispModule's kernel launches held and timed against
+     its plain version at its shape (rows 2-6 at (24, 28^2), (12, 14^2) and
+     (6, 7^2); row 15 against the same function in float64 on its logits,
+     within twice the plain version's distance + SOFTARGMIN_TOL_PX), the
+     kernel and plain runs' detections and masks equal and disparity_roi
+     held to DispModule in float64 on the same inputs (DISPNET_ORDER_FACTOR),
+     the request's time and peak memory, and rois_to_fullimage_disparity on
+     the card against the CPU; (b) tools/train_net on mask.yaml with
+     DISPNET_ON and SOLVER.TRAIN_PSM, 2 iterations of 2 pairs x 128 ROIs
+     (the cut: DISPNET_TRAIN_OPTS): loss_psm finite, every dispnet
+     parameter updated, rows 1 and 8 launched and no other; row 8 timed at
+     DispModule's three trunk levels; (c) mask.yaml with both USE_GN: a
+     request against its plain run, one train iteration; (d) test_net on
+     mask.yaml with MASK_ON False: no mask head, predictions without masks;
+     (e) rcnn.yaml at the headline budget with RPN.NMS_TYPE rotate, then
+     TEST.RPN_DISTANCE_BASED_PROPOSE: one predict each, the proposal
+     layer's inputs re-proposed on the CPU (clouds that differ must hold
+     an IoU or a z within A2_NEAR of a decision, C16), row 1's launches
+     and the rotated route's fixpoint passes and host syncs; (f) test_net
+     on (a)'s config without the resize, then tools/visualize on its
+     predictions, the PNGs read back by data/png.py equal to the drawings,
+     and one box outline for each valid detection in the outlines drawn
+     alone.
 Then it prints the card (name, power limit) from nvidia-smi, one JSON line
 of per-kernel numbers (eval kernels per headline request, row 12 per
 SA-off headline request, train forms per train step), and as its last
@@ -299,6 +326,10 @@ from disprcnn_tpu_torch.engine.inference import predict, predict_2d
 from disprcnn_tpu_torch.evaluation.kitti_eval import evaluate_kitti
 from disprcnn_tpu_torch.models.detector.disprcnn import DispRCNN
 from disprcnn_tpu_torch.models.detector.disprcnn3d import DispRCNN3D
+from disprcnn_tpu_torch.models.backbone.resnet import GroupNorm
+from disprcnn_tpu_torch.models.psmnet.inference import rois_to_fullimage_disparity
+from disprcnn_tpu_torch.ops.iou import boxes3d_to_bev, pairwise_bev_iou, pairwise_iou
+from disprcnn_tpu_torch.data.png import read_png
 from disprcnn_tpu_torch.models.pointrcnn import rcnn3d, rpn3d
 from disprcnn_tpu_torch.models.pointrcnn.pointnet2 import set_kernels_off
 from disprcnn_tpu_torch.ops import nms as port_nms
@@ -326,7 +357,7 @@ from disprcnn_tpu_torch.utils.weights import init_random_
 from disprcnn_tpu_torch.data.datasets.kitti import KittiStereoDataset
 from disprcnn_tpu_torch.data.datasets.synthetic import SyntheticStereoDataset
 from disprcnn_tpu_torch.evaluation import kitti_eval
-from disprcnn_tpu_torch.tools import make_mini_kitti
+from disprcnn_tpu_torch.tools import make_mini_kitti, visualize
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the reference's released layouts are written by the writer the CPU tests
@@ -339,7 +370,7 @@ import torch_ckpt_writer as ckpt_writer  # noqa: E402
 # the first card run of these kernels) are the bench's
 # (disprcnn_tpu_torch/bench.py); the train stages' configurations are
 # disprcnn_tpu_torch/tools/bench_train.py's.
-PHASES = 23
+PHASES = 24
 PAIRS = 8
 REQUESTS = 2  # at the headline budget; one more at the reference budget
 # the tests' small configurations (tests/torch_port_helpers.py, tests/test_torch_disprcnn3d.py)
@@ -1645,17 +1676,11 @@ def time_launches(name: str, forms, err: float, src: str, replaces: str) -> dict
     return row
 
 
-@torch.inference_mode()
-def phase_timing(model2d, model3d, req, compare_errs):
-    """Each kernel on one request's own inputs: kernel, plain version and
-    library call summed over the request's launches, with the bound (in
-    inference mode, as predict runs them)."""
-    set_budget(model3d, "headline")
-    calls = capture_launches(
-        lambda: predict(model2d, model3d, *req[:4], calib=CALIB, priorities=req[4]),
-        MAIN_PATH_POINTS)
+def kernel_kinds() -> dict:
+    """Each eval kernel row -> (kernel, plain version, library call or None,
+    work, source, the TPU kernel it replaces)."""
     pc = "disprcnn_tpu/ops/pallas/packed_conv.py"
-    kinds = {
+    return {
         "nms_sorted": (cuda_nms.nms_sorted_cuda, cuda_nms.nms_sorted_plain, None, nms_work,
                        "nms.cu", "disprcnn_tpu/ops/pallas/nms.py:32"),
         "conv2d": (cconv.conv2d_bn_cuda, cconv.conv2d_bn_plain,
@@ -1688,6 +1713,18 @@ def phase_timing(model2d, model3d, req, compare_errs):
         "roipool3d": (croi.roipool3d_cuda, croi.roipool3d_plain, None, roipool3d_work,
                       "roipool3d.cu", "disprcnn_tpu/ops/pallas/roipool3d_fused.py:137"),
     }
+
+
+@torch.inference_mode()
+def phase_timing(model2d, model3d, req, compare_errs):
+    """Each kernel on one request's own inputs: kernel, plain version and
+    library call summed over the request's launches, with the bound (in
+    inference mode, as predict runs them)."""
+    set_budget(model3d, "headline")
+    calls = capture_launches(
+        lambda: predict(model2d, model3d, *req[:4], calib=CALIB, priorities=req[4]),
+        MAIN_PATH_POINTS)
+    kinds = kernel_kinds()
     rows = {}
     for name, (kernel, plain, library, work, src, replaces) in kinds.items():
         launches = calls.get(name, [])
@@ -3578,6 +3615,464 @@ def phase_user_files(card: str) -> dict:
     return launches
 
 
+# Phase 24: the stereo detector's last options (DISPNET_ON eval and train,
+# the full-image disparity, GroupNorm, MASK_ON False), A2's proposals and
+# the visualizer, on mask.yaml and rcnn.yaml
+STEREO_YAML = "configs/kitti/car/vob/mask.yaml"
+STEREO_DEVICE = "cuda"
+STEREO_SEED = 24
+STEREO_DATASET = "synthetic_8"
+DISPNET_ON = ["MODEL.DISPNET_ON", "True"]
+# one DISPNET_ON request (8 pairs, 32 detections each: 256 ROIs): the SRPN's
+# and the box head's NMS, then DispModule's trunk as PSMNet's (no tower, so
+# no row 7; its reduce_out is a 1x1 conv and CONV_LAYERS is empty)
+EXPECTED_DISPNET = {"nms_sorted": 2, "cost_volume_conv": 1, "conv3d": 12, "conv3d_cl1": 3,
+                    "conv3d_s2": 6, "deconv3d": 6, "softargmin": 1}
+DISPNET_ROWS = ("cost_volume_conv", "conv3d", "conv3d_cl1", "conv3d_s2", "deconv3d",
+                "softargmin")
+# the trunk's levels at 28^2 ROIs, +-48 at stride 4: (D, H = W)
+DISPNET_SITES = ((24, 28), (12, 14), (6, 7))
+# full-image disparity on the card against the CPU: values within
+# FULLIMAGE_TOL_PX where both cover a pixel; at most FULLIMAGE_FLIPS of the
+# pixels covered by one side only (a mask sample or a box edge one ulp
+# across its threshold)
+FULLIMAGE_TOL_PX = 1e-3
+FULLIMAGE_FLIPS = 1e-3
+# disparity_roi of the kernel run, held as phase 15 holds the train step's
+# gradients (ROADMAP C19): its distance from DispModule in float64 on the
+# same inputs within twice the plain float32 run's, + DISP_TOL_PX
+DISPNET_ORDER_FACTOR = 2
+# (b): the JAX step runs DispModule on every sampled ROI: at mask.yaml's 4
+# images x 512 that is 2048 ROIs, with ~100 MB of saved activations each in
+# the trunk and the plain soft-argmin (one 32-channel (24, 28, 28) volume is
+# 2.4 MB a ROI, one (96, 112, 112) soft-argmin volume 4.8 MB): ~200 GB.
+# Cut to 2 images x 128 ROIs, every width kept
+DISPNET_TRAIN_OPTS = DISPNET_ON + ["SOLVER.TRAIN_PSM", "True", "MODEL.WEIGHT", "",
+                                   "SOLVER.IMS_PER_BATCH", "2",
+                                   "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "128",
+                                   "SOLVER.PRINT_INTERVAL", "1"]
+DISPNET_TRAIN_ITERS = 2
+GN_OPTS = ["MODEL.BACKBONE.USE_GN", "True", "MODEL.FPN.USE_GN", "True"]
+# (e): rcnn.yaml at the headline budget (16 detections of 8 pairs, 128
+# pre-NMS and 16 post-NMS proposals a cloud)
+VIZ_HW = (192, 640)  # the synthetic scenes' size
+A2_YAML = "configs/kitti/car/vob/rcnn.yaml"
+A2_OPTS = ["TPU.MAX_DETECTIONS", "16", "MODEL.POINTRCNN.TEST.RPN_PRE_NMS_TOP_N", "128",
+           "MODEL.POINTRCNN.TEST.RPN_POST_NMS_TOP_N", "16"]
+A2_RUNS = (("NMS_TYPE rotate", ["MODEL.POINTRCNN.RPN.NMS_TYPE", "rotate"], 0),
+           ("RPN_DISTANCE_BASED_PROPOSE", ["MODEL.POINTRCNN.TEST.RPN_DISTANCE_BASED_PROPOSE",
+                                           "True"], 2))
+A2_NEAR = 1e-4  # an IoU this close to the threshold, or a z this close to a band edge
+
+
+def stereo_model(opts, seed: int = STEREO_SEED):
+    cfg = train_net.load_config(STEREO_YAML, opts)
+    model = build_detection_model(cfg, device=STEREO_DEVICE)
+    return cfg, init_random_(model, torch.Generator(device=STEREO_DEVICE).manual_seed(seed))
+
+
+def fullimage_check(out, i: int = 0) -> str:
+    """rois_to_fullimage_disparity of image i's detections on the card
+    against the CPU."""
+    dets = out["detections"]
+    args = (out["disparity_roi"][i], out["masks"][i], dets.left[i], dets.right[i],
+            dets.valid[i])
+    got = rois_to_fullimage_disparity(*args, *IMG_HW)
+    want = rois_to_fullimage_disparity(*(a.cpu() for a in args), *IMG_HW)
+    got = got.cpu()
+    both = (got != 0) & (want != 0)
+    err = float((got - want)[both].abs().max()) if both.any() else 0.0
+    flips = float(((got != 0) != (want != 0)).float().mean())
+    if not (err <= FULLIMAGE_TOL_PX and flips <= FULLIMAGE_FLIPS and both.any()):
+        raise AssertionError(f"full-image disparity card vs CPU: max |diff| {err} px, "
+                             f"{flips} of the pixels covered by one side, {int(both.sum())} "
+                             "by both")
+    return (f"full-image disparity of image {i} ({int(dets.valid[i].sum())} instances, "
+            f"{int(both.sum())} pixels): card vs CPU max |diff| {err:.3g} px, coverage "
+            f"differs on {flips:.2g} of the pixels")
+
+
+def dispnet_sam_check(calls):
+    """The soft-argmin launch of a DISPNET_ON request held to the same
+    function in float64 on its logits: the kernel's distance within
+    DISPNET_ORDER_FACTOR times the plain version's + SOFTARGMIN_TOL_PX.
+    -> compare(got, want), which logs the three distances and the logits'
+    range and returns max |kernel - plain|."""
+    (a,) = calls
+    exact = csam.softargmin_plain(a[0].double(), *a[1:])
+    span = float(a[0].amax() - a[0].amin())
+
+    def compare(got, want):
+        kp = float((got - want).abs().max())
+        ke, pe = (float((x.double() - exact).abs().max()) for x in (got, want))
+        log(f"  softargmin at DispModule's site {tuple(a[0].shape)}, logits spanning "
+            f"{span:.4g}: kernel vs plain {kp:.4g} px; from float64: kernel {ke:.4g} px, "
+            f"plain {pe:.4g} px")
+        if not ke <= DISPNET_ORDER_FACTOR * pe + SOFTARGMIN_TOL_PX:
+            raise AssertionError(f"softargmin at DispModule's site: kernel {ke} px from "
+                                 f"float64, plain {pe} px")
+        return kp
+    return compare
+
+
+def dispnet_eval(card: str, req) -> dict:
+    """(a): mask.yaml with DISPNET_ON at 8 pairs: the launches, each trunk
+    site's launches held and timed against their plain versions, the
+    kernel run against the plain run and both against DispModule in
+    float64 on the same inputs, the request's time and peak memory, and
+    the full-image disparity. -> the rows' timings and launches."""
+    cfg, model = stereo_model(DISPNET_ON)
+    left, right = req[:2]
+    run = lambda: predict_2d(model, left, right)
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out, ms = bench.timed(run, "cuda")
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_launches().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches != EXPECTED_DISPNET:
+        raise AssertionError(f"DISPNET_ON request launched {launches}, expected "
+                             f"{EXPECTED_DISPNET}")
+    n = out["detections"].valid.sum().item()
+    disp = out["disparity_roi"]
+    if disp.shape != (PAIRS, cfg.TPU.MAX_DETECTIONS, 112, 112) or not torch.isfinite(disp).all():
+        raise AssertionError(f"disparity_roi {tuple(disp.shape)}, finite "
+                             f"{bool(torch.isfinite(disp).all())}")
+    calls = capture_launches(run, MAIN_PATH_POINTS)
+    kinds = kernel_kinds()
+    sites, rows = {}, {}
+    for name in DISPNET_ROWS:
+        kernel, plainf, library, work, src, replaces = kinds[name]
+        for a in calls[name]:
+            x = a[0]
+            key = (x.shape[2], x.shape[3]) if x.dim() == 5 else ("soft-argmin", x.shape[2])
+            sites.setdefault(name, set()).add(key)
+        compare = (dispnet_sam_check(calls[name]) if name == "softargmin"
+                   else partial(main_path_err, name))
+        rows[name] = time_launches(name, [("", calls[name], kernel, plainf, library, work,
+                                           compare)], 0.0, src, replaces)
+    del calls
+    # every trunk level is reached: the stride-1 convs at all three, the
+    # stride-2 convs from 28^2 and 14^2, the transposed convs from 7^2 and 14^2
+    if sites["conv3d"] != set(DISPNET_SITES) or {s[1] for s in sites["conv3d_s2"]} != {28, 14} \
+            or {s[1] for s in sites["deconv3d"]} != {7, 14}:
+        raise AssertionError(f"DispModule sites {sites}")
+    seen = []
+    hook = model.dispnet.register_forward_pre_hook(
+        lambda mod, args: seen.append([[f.clone() for f in a] if isinstance(a, list)
+                                       else a.clone() for a in args]))
+    with all_plain():
+        plain = run()
+    hook.remove()
+    torch.cuda.synchronize()
+    d0, d1 = out["detections"], plain["detections"]
+    for f in ("left", "right", "score", "valid"):
+        if not torch.equal(getattr(d0, f), getattr(d1, f)):
+            raise AssertionError(f"DISPNET_ON detections' {f} differ, kernels vs plain")
+    if not torch.equal(out["masks"], plain["masks"]):
+        raise AssertionError("DISPNET_ON masks differ, kernels vs plain")
+    # both float32 runs against DispModule in float64 on the same inputs
+    exact = copy.deepcopy(model.dispnet).double()
+    with torch.inference_mode(), all_plain():
+        args = [[f.double() for f in a] if isinstance(a, list) else
+                (a.double() if a.is_floating_point() else a) for a in seen[0]]
+        ref = exact(*args).reshape(disp.shape)
+    del exact, args, seen
+    kd, pd = disp.double(), plain["disparity_roi"].double()
+    derr = float((kd - pd).abs().max())
+    k64, p64 = float((kd - ref).abs().max()), float((pd - ref).abs().max())
+    q = lambda d: float(torch.quantile(d.abs().flatten()[::97].float(), 0.999))
+    log(f"  disparity_roi: kernels vs plain max |diff| {derr:.4g} px (99.9% {q(kd - pd):.3g}); "
+        f"from float64: kernels {k64:.4g} px (99.9% {q(kd - ref):.3g}), plain {p64:.4g} px "
+        f"(99.9% {q(pd - ref):.3g})")
+    if not k64 <= DISPNET_ORDER_FACTOR * p64 + DISP_TOL_PX:
+        raise AssertionError(f"disparity_roi: kernels {k64} px from float64, plain {p64}")
+    del kd, pd, ref, plain
+    full = fullimage_check(out)
+    log(f"  DISPNET_ON eval (mask.yaml, R-101-FPN, {PAIRS} pairs of {IMG_HW[0]}x{IMG_HW[1]}, "
+        f"{n} of {PAIRS * cfg.TPU.MAX_DETECTIONS} detection slots valid, DispModule at 28^2 -> "
+        f"112^2 over [-48, 48)): {ms:.3f} ms a request, peak {peak:.2f} GB, launches "
+        f"{launches}; kernels vs plain: detections and masks equal, disparity_roi max |diff| "
+        f"{derr:.3g} px, from float64 {k64:.3g} px (plain {p64:.3g}); the trunk's sites "
+        f"(D, H) { {k: sorted(v, key=str) for k, v in sites.items()} }; {full}")
+    return {"rows": rows, "launches": launches, "ms": ms, "peak_gb": peak,
+            "disp_err_px": derr, "kernel_f64_px": k64, "plain_f64_px": p64}
+
+
+def dispnet_train(card: str, tmp: str) -> dict:
+    """(b): tools/train_net on mask.yaml with DISPNET_ON and TRAIN_PSM."""
+    cfg = train_net.load_config(STEREO_YAML, DISPNET_TRAIN_OPTS + [
+        "OUTPUT_DIR", os.path.join(tmp, "dispnet_train")], DISPNET_TRAIN_ITERS)
+    model = init_random_(build_detection_model(cfg, device=STEREO_DEVICE),
+                         torch.Generator(device=STEREO_DEVICE).manual_seed(STEREO_SEED))
+    before = {k: v.detach().clone() for k, v in model.dispnet.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = train_net.train(cfg, dataset=STEREO_DATASET, static_hw=IMG_HW, device=STEREO_DEVICE,
+                          seed=STEREO_SEED, model=model)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = check_rows(read_launches(), ("nms_sorted", "conv3d_train"),
+                          "train_net mask.yaml DISPNET_ON")
+    for it, m in res["metrics"]:
+        if not (math.isfinite(m.get("loss_psm", math.nan)) and m["loss_psm"] > 0) \
+                or m["skipped_nonfinite"] or m["params_without_grad"]:
+            raise AssertionError(f"DISPNET_ON train iteration {it}: {m}")
+    moved = [k for k, v in model.dispnet.named_parameters() if not torch.equal(v, before[k])]
+    if len(moved) != len(before):
+        raise AssertionError(f"dispnet: {len(before) - len(moved)} parameters not updated")
+    st, iters, psm = res["stats"], res["iters"], [m["loss_psm"] for _, m in res["metrics"]]
+    del res, model
+    torch.cuda.empty_cache()
+    row8 = dispnet_row8()
+    log(f"  DISPNET_ON train (train_net mask.yaml, SOLVER.TRAIN_PSM, {iters} iterations "
+        f"on {STEREO_DATASET}; cut to IMS_PER_BATCH 2 x BATCH_SIZE_PER_IMAGE 128 = 256 ROIs "
+        f"through DispModule, from mask.yaml's 4 x 512 = 2048, whose saved trunk and "
+        f"soft-argmin activations would not fit in 80 GB): {st['s_per_iter']:.3f} "
+        f"s/iteration, peak {peak:.2f} GB, loss_psm "
+        f"{[round(v, 5) for v in psm]}, all {len(moved)} dispnet "
+        f"parameters updated, launches {launches}")
+    return {"launches": launches, "s_per_iter": st["s_per_iter"], "peak_gb": peak, "row8": row8}
+
+
+def dispnet_row8() -> dict:
+    """Row 8 (forward and input gradient) timed at the DispModule train
+    step's trunk sites, 256 ROIs (the cut step's rows), seeded inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(STEREO_SEED)
+    n = 256
+    calls = []
+    for (d, s), c in zip(DISPNET_SITES, (32, 64, 64)):
+        calls.append((torch.randn(n, c, d, s, s, generator=gen, device="cuda"),
+                      torch.randn(c, c, 3, 3, 3, generator=gen, device="cuda") * 0.05))
+    compare = lambda what: lambda got, want: conv_err(got, want, f"{what} at DispModule's sites")
+    return time_launches("conv3d_train", [
+        (" forward", calls, cconv.conv3d_train_cuda, cconv.conv3d_train_plain,
+         lambda a: F.conv3d(a[0], a[1], padding=1), conv_work, compare("conv3d_train forward")),
+        (" dx", calls, cconv.conv3d_train_dx_cuda, cconv.conv3d_train_dx_plain,
+         lambda a: torch.nn.grad.conv3d_input(a[0].shape, a[1], a[0], padding=1),
+         lambda a, o: conv_work((a[0], cconv.flip_transpose(a[1])), o),
+         compare("conv3d_train dx"))],
+        0.0, "conv3d_tc.cu", "disprcnn_tpu/ops/pallas/packed_conv.py:689")
+
+
+def gn_run(card: str, req, tmp: str) -> dict:
+    """(c): mask.yaml with both USE_GN: one request with kernels against the
+    plain run, one train iteration."""
+    cfg, model = stereo_model(GN_OPTS)
+    reset_launches()
+    out, ms = bench.timed(lambda: predict_2d(model, *req[:2]), "cuda")
+    launches = {k: v for k, v in read_launches().items() if v}
+    with all_plain():
+        plain = predict_2d(model, *req[:2])
+    for f in ("left", "right", "score", "valid"):
+        if not torch.equal(getattr(out["detections"], f), getattr(plain["detections"], f)):
+            raise AssertionError(f"GN detections' {f} differ, kernels vs plain")
+    if not torch.equal(out["masks"], plain["masks"]):
+        raise AssertionError("GN masks differ, kernels vs plain")
+    del model
+    cfg = train_net.load_config(STEREO_YAML, GN_OPTS + [
+        "MODEL.WEIGHT", "", "SOLVER.PRINT_INTERVAL", "1",
+        "OUTPUT_DIR", os.path.join(tmp, "gn_train")], 1)
+    reset_launches()
+    res = train_net.train(cfg, dataset=STEREO_DATASET, static_hw=IMG_HW, device=STEREO_DEVICE,
+                          seed=STEREO_SEED)
+    tl = check_rows(read_launches(), ("nms_sorted",), "train_net mask.yaml USE_GN")
+    (it, m), = res["metrics"]
+    if not all(math.isfinite(v) for k, v in m.items() if k.startswith("loss")) \
+            or m["skipped_nonfinite"] or m["params_without_grad"]:
+        raise AssertionError(f"GN train iteration: {m}")
+    gn = sum(isinstance(mod, GroupNorm) for mod in res["model"].modules())
+    log(f"  USE_GN (body and FPN, {gn} GroupNorms): a request {ms:.3f} ms, launches "
+        f"{launches}, detections and masks equal to the plain run; one train iteration "
+        f"{res['stats']['s_per_iter']:.3f} s, losses "
+        f"{ {k: round(v, 5) for k, v in m.items() if k.startswith('loss')} }, launches {tl}")
+    return {"launches": launches, "train_launches": tl}
+
+
+def mask_off_run(card: str, tmp: str) -> dict:
+    """(d): tools/test_net on mask.yaml with MODEL.MASK_ON False."""
+    reset_launches()
+    res = test_net.run(STEREO_YAML, ["MODEL.MASK_ON", "False", "OUTPUT_DIR",
+                                     os.path.join(tmp, "mask_off")], dataset=STEREO_DATASET,
+                       static_hw=IMG_HW, device=STEREO_DEVICE, seed=STEREO_SEED)
+    launches = check_rows(read_launches(), ("nms_sorted",), "test_net mask.yaml MASK_ON False")
+    shapes = {k: v for k, v in pred_shapes(res["cfg"]).items() if k != "masks"}
+    if hasattr(res["model"], "mask_head"):
+        raise AssertionError("MASK_ON False built a mask head")
+    valid = check_predictions(res["datasets"][STEREO_DATASET]["predictions"], shapes,
+                              EVAL_IMAGES)
+    log(f"  MASK_ON False (test_net mask.yaml on {STEREO_DATASET}): predictions without masks, "
+        f"{valid} valid slots, launches {launches}")
+    return launches
+
+
+def visualize_run(card: str, tmp: str) -> int:
+    """(a)'s config through test_net at the scenes' size (without the
+    resize or padding, so that the boxes are the raw images' pixels), then
+    (f): tools/visualize on its predictions, the PNGs read back by
+    data/png.py equal to the drawings,
+    and, drawn without masks, the outline of every valid detection in its
+    colour."""
+    # the boxes in the raw images' pixels, which the visualizer draws on:
+    # no resize, and no padding past the scenes' size to detect in
+    res = test_net.run(STEREO_YAML, DISPNET_ON + ["INPUT.DO_RESIZE", "False",
+                                                  "OUTPUT_DIR", os.path.join(tmp, "dispnet")],
+                       dataset=STEREO_DATASET, static_hw=VIZ_HW, device=STEREO_DEVICE,
+                       seed=STEREO_SEED)
+    out = res["datasets"][STEREO_DATASET]
+    with open(os.path.join(out["out_dir"], "predictions.pkl"), "rb") as f:
+        preds = pickle.load(f)
+    check_predictions(preds, pred_shapes(res["cfg"]), EVAL_IMAGES)
+    del res
+    t0 = time.perf_counter()
+    paths = visualize.visualize(preds, STEREO_DATASET, os.path.join(tmp, "viz"),
+                                limit=EVAL_IMAGES, device=STEREO_DEVICE)
+    dt = time.perf_counter() - t0
+    if len(paths) != EVAL_IMAGES:
+        raise AssertionError(f"visualize wrote {len(paths)} images")
+    ds = resolve(STEREO_DATASET, get_default_cfg(), training=False)
+    samples = {ds[i]["imgid"]: ds[i] for i in range(len(ds))}
+    boxes = 0
+    for path in paths:
+        imgid = os.path.basename(path)[:-4]
+        pred, sample = preds[imgid], samples[imgid]
+        if not np.array_equal(read_png(path), visualize.render(sample, pred, STEREO_DEVICE)):
+            raise AssertionError(f"{path} read back differs from its drawing")
+        # the outlines alone (a later mask or box may cover an earlier outline)
+        img = visualize.render(sample, {k: pred[k] for k in ("left_boxes", "scores", "valid")},
+                               STEREO_DEVICE)
+        rng = np.random.default_rng(0)
+        seen = 0
+        for i in np.flatnonzero(pred["valid"]):
+            color = rng.integers(100, 255, 3).astype(np.uint8)
+            x1, y1, x2, y2 = (int(round(v)) for v in pred["left_boxes"][i])
+            x1, x2 = max(x1, 0), min(x2, VIZ_HW[1] - 1)
+            y1, y2 = max(y1, 0), min(y2, VIZ_HW[0] - 1)
+            edge = np.concatenate([img[y1:y2 + 1, x1], img[y1:y2 + 1, x2], img[y1, x1:x2 + 1],
+                                   img[y2, x1:x2 + 1]])
+            seen += bool((edge == color).all(-1).any())
+        if seen != int(pred["valid"].sum()):
+            raise AssertionError(f"{path}: {seen} box outlines of {int(pred['valid'].sum())} "
+                                 "valid detections")
+        boxes += seen
+    if not boxes:
+        raise AssertionError("visualize: no valid detection to draw")
+    log(f"  visualize: {len(paths)} PNGs of the DISPNET_ON predictions in {dt:.2f} s, read back "
+        f"by png.py equal to their drawings; the outlines drawn alone: {boxes}, one for each "
+        f"valid detection")
+    return boxes
+
+
+def a2_run(card: str, req) -> dict:
+    """(e): rcnn.yaml at the headline budget with NMS_TYPE rotate, then with
+    RPN_DISTANCE_BASED_PROPOSE: one predict each; the proposal layer's
+    inputs of the run re-proposed on the CPU."""
+    gen = torch.Generator(device=STEREO_DEVICE).manual_seed(0)
+    model2d = init_random_(DispRCNN(**BENCH_2D, device=STEREO_DEVICE), gen)
+    out = {}
+    for label, opts, nms_3d in A2_RUNS:
+        cfg = train_net.load_config(A2_YAML, A2_OPTS + opts)
+        model3d = init_random_(build_detection_model(cfg, device=STEREO_DEVICE),
+                               torch.Generator(device=STEREO_DEVICE).manual_seed(STEREO_SEED))
+        pr = model3d.pointrcnn
+        seen = []
+        orig = pr.propose
+
+        def propose(rpn_out, **kw):
+            res = orig(rpn_out, **kw)
+            seen.append(({k: rpn_out[k].detach().clone() for k in ("cls", "reg", "xyz")}, kw,
+                         [r.clone() for r in res]))
+            return res
+
+        pr.propose = propose
+        rotated0 = dict(port_nms.rotated_stats)
+        reset_launches()
+        try:
+            res, ms = bench.timed(lambda: predict(model2d, model3d, *req[:4], calib=CALIB,
+                                                  priorities=req[4]), "cuda")
+        finally:
+            del pr.propose
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_launches().items() if v}
+        rot = {k: port_nms.rotated_stats[k] - rotated0[k] for k in rotated0}
+        if launches.get("nms_sorted") != EXPECTED_DISPNET["nms_sorted"] + nms_3d \
+                or (nms_3d == 0) != (rot["calls"] > 0):
+            raise AssertionError(f"{label}: launches {launches}, rotated route {rot}")
+        (rpn_out, kw, got), = seen
+        fn = rpn3d.distance_propose if pr.rpn_distance_based else rpn3d.propose
+        cpu = {k: v.cpu() for k, v in rpn_out.items()}
+        want = fn(cpu["cls"], cpu["reg"], cpu["xyz"], pr.anchor.cpu(), pr.rpn_codec,
+                  rotated=pr.rpn_nms_rotated, **kw)
+        agree = ((got[2].cpu() == want[2]).all(1) & (got[1].cpu() == want[1]).all(1)
+                 & ((got[0].cpu() - want[0]).abs().amax((1, 2))
+                    <= BOX3D_TOL * (1 + want[0].abs().amax((1, 2)))))
+        flips = torch.nonzero(~agree).flatten().tolist()
+        explained = [c for c in flips if near_decision(cpu, c, pr, kw)]
+        if len(explained) != len(flips) or not want[2].any():
+            raise AssertionError(f"{label}: proposals of clouds {flips} differ card vs CPU, "
+                                 f"{len(explained)} near a threshold; valid {int(want[2].sum())}")
+        out[label] = {"launches": launches, "rotated": rot, "ms": ms, "flips": len(flips)}
+        log(f"  {label} (rcnn.yaml, headline budget, {got[2].shape[0]} clouds): a request "
+            f"{ms:.3f} ms, {int(got[2].sum())} valid proposals; proposals card vs CPU equal on "
+            f"{int(agree.sum())} clouds, {len(flips)} differ, each with an IoU or a z within "
+            f"{A2_NEAR} of a decision (C16); row 1 launches {launches['nms_sorted']} "
+            f"({nms_3d} of them the proposals'); the rotated route: {rot['calls']} calls, "
+            f"{rot['passes']} fixpoint passes, {rot['syncs']} host syncs")
+        del model3d, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def near_decision(cpu: dict, c: int, pr, kw) -> bool:
+    """Cloud c's proposal decisions lie near a threshold: some pair of its
+    pre-NMS boxes at an IoU within A2_NEAR of the NMS threshold, or (the
+    distance bands) a box within A2_NEAR of a band edge."""
+    boxes = rpn3d._decode_bottom(cpu["cls"][c:c + 1], cpu["reg"][c:c + 1], cpu["xyz"][c:c + 1],
+                                 pr.anchor.cpu(), pr.rpn_codec)[0]
+    top = boxes[torch.sort(cpu["cls"][c], descending=True, stable=True).indices[
+        :kw["pre_nms_top_n"]]]
+    bev = boxes3d_to_bev(top)
+    iou = (pairwise_bev_iou(bev, bev) if pr.rpn_nms_rotated
+           else pairwise_iou(bev[:, :4], bev[:, :4], to_remove=0.0))
+    near = bool(((iou - kw["nms_thresh"]).abs() < A2_NEAR).any())
+    if pr.rpn_distance_based:
+        z = boxes[:, 2]
+        near |= bool(min((z - e).abs().min() for e in rpn3d.NMS_RANGES) < A2_NEAR)
+    return near
+
+
+def phase_stereo_options(card: str) -> dict:
+    """Phase 24: (a) DISPNET_ON eval, (b) DISPNET_ON train, (c) GroupNorm,
+    (d) MASK_ON False, (e) A2's proposals, (f) the visualizer (see the
+    docstring). -> {row: its launches in these runs}."""
+    t0 = time.perf_counter()
+    req = bench.make_request(PAIRS, IMG_HW, PAIRS * BENCH_3D["max_det"], BENCH_3D["lift_grid"],
+                             STEREO_DEVICE, STEREO_SEED)
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ev = dispnet_eval(card, req)
+        counts["dispnet_eval"] = ev["launches"]
+        torch.cuda.empty_cache()
+        tr = dispnet_train(card, tmp)
+        counts["dispnet_train"] = tr["launches"]
+        torch.cuda.empty_cache()
+        gn = gn_run(card, req, tmp)
+        counts["gn_eval"], counts["gn_train"] = gn["launches"], gn["train_launches"]
+        torch.cuda.empty_cache()
+        counts["mask_off"] = mask_off_run(card, tmp)
+        torch.cuda.empty_cache()
+        visualize_run(card, tmp)
+        torch.cuda.empty_cache()
+        a2 = a2_run(card, req)
+        for label, r in a2.items():
+            counts[label] = r["launches"]
+    log(f"[24/{PHASES}] stereo options and A2 on {card} in {time.perf_counter() - t0:.1f} s")
+    rows = dict(ev["rows"], conv3d_train=tr["row8"])
+    return {"rows": rows, "counts": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3645,6 +4140,17 @@ def main() -> int:
         for row in kernels:
             if user.get(row["name"]):
                 row["mini_kitti_launches"] = user[row["name"]]
+        torch.cuda.empty_cache()
+        stereo = phase_stereo_options(card)
+        for row in kernels:
+            row["stereo_options_launches"] = {run: c[row["name"]]
+                                              for run, c in stereo["counts"].items()
+                                              if c.get(row["name"])}
+            if row["name"] in stereo["rows"]:
+                r = stereo["rows"][row["name"]]
+                row["stereo_options"] = {k: r[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                    "launch_ms", "device_ms")}
         log(f"done in {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     except Exception:  # report any phase's failure and exit non-zero
         traceback.print_exc()

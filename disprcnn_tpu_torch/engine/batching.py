@@ -44,24 +44,30 @@ _KEYS_2D = ("gt_left", "gt_right", "gt_labels", "gt_valid", "gt_masks")
 
 def make_batch_converter(cfg, device):
     """-> (convert(batch, train=False) -> the forward's keyword arguments on
-    `device`, static_kwargs): the fixed flags of a DispRCNN3D train step
-    (train_psm, train_pc from SOLVER.TRAIN_PSM/TRAIN_PC), which
-    make_train_step takes as its forward_kwargs; none for the 2D detector
-    (the port's DispRCNN has no DISPNET_ON branch, models/build.py).
+    `device`, static_kwargs): the fixed flags of a train step, which
+    make_train_step takes as its forward_kwargs: a DispRCNN3D's train_psm
+    and train_pc (SOLVER.TRAIN_PSM/TRAIN_PC), a DispRCNN's train_psm with
+    MODEL.DISPNET_ON (none without it).
 
     In train, DispRCNN takes gt_left, gt_right, gt_labels, gt_valid and
-    gt_masks; DispRCNN3D gt_disp (when the batch has it), gt_left,
+    gt_masks, and gt_disp with DISPNET_ON and TRAIN_PSM (when the batch
+    has it); DispRCNN3D gt_disp (when the batch has it), gt_left,
     gt_boxes3d (the batch's gt_box3d) and gt_valid."""
     meta = cfg.MODEL.META_ARCHITECTURE
     if meta in ("DispRCNN", "GeneralizedRCNN"):
+        want_disp = bool(cfg.MODEL.DISPNET_ON and cfg.SOLVER.TRAIN_PSM)
+
         def convert(batch, train: bool = False):
             kw = {"left": to_device(batch["left"], device),
                   "right": to_device(batch["right"], device)}
             if train:
                 kw.update({k: to_device(batch[k], device) for k in _KEYS_2D if k in batch})
+                if want_disp and "gt_disp" in batch:
+                    kw["gt_disp"] = to_device(batch["gt_disp"], device)
             return kw
 
-        return convert, {}
+        return convert, ({"train_psm": bool(cfg.SOLVER.TRAIN_PSM)} if cfg.MODEL.DISPNET_ON
+                         else {})
 
     if meta == "DispRCNN3D":
         def convert(batch, train: bool = False):

@@ -37,7 +37,9 @@ def predict_2d(model: DispRCNN, left, right) -> Dict[str, object]:
 
     left, right: (B, H, W, 3) normalized images, tensors or numpy arrays.
     Returns the JAX eval forward's dict: "detections" (StereoBoxes of
-    (B, max_det) rows with "labels") and "masks" (B, max_det, 28, 28).
+    (B, max_det) rows with "labels"), "masks" (B, max_det, 28, 28) with
+    the mask head (mask_on), and "disparity_roi" (B, max_det, R, R) with
+    DispModule (dispnet_on).
     """
     left, right = (torch.as_tensor(x, dtype=torch.float32, device=model.device)
                    for x in (left, right))

@@ -1,10 +1,14 @@
-"""ResNet body with frozen batch norm (counterpart of
+"""ResNet body with frozen batch norm or GroupNorm (counterpart of
 disprcnn_tpu/models/backbone/resnet.py; reference modeling/backbone/resnet.py).
 
 Bottleneck stacks of R-50/101/152, stride in the 1x1 conv, C2..C5 outputs
-for the FPN. NCHW inside; no GN. The JAX package's freeze_at = 2, the
-default of every config, is a fixed boundary here: no gradient flows back
-past layer1's output (C2), so the stem and layer1 get none.
+for the FPN. NCHW inside. Every norm is a FrozenBatchNorm, or with
+``use_gn`` (MODEL.BACKBONE.USE_GN) a trainable GroupNorm of 32 groups,
+eps 1e-5, computed as Flax's: the variance is E[x^2] - E[x]^2 over each
+group, clipped at 0 (``nn.GroupNorm`` takes it in two passes, which is
+another rounding). The JAX package's freeze_at = 2, the default of every
+config, is a fixed boundary here: no gradient flows back past layer1's
+output (C2), so the stem and layer1 get none, their GroupNorms included.
 """
 from __future__ import annotations
 
@@ -42,6 +46,38 @@ class FrozenBatchNorm(nn.Module):
         return x * mul[:, None, None] + add[:, None, None]
 
 
+GN_GROUPS = 32
+GN_EPS = 1e-5
+
+
+class GroupNorm(nn.Module):
+    """Flax's GroupNorm on NCHW: each sample's channels in `groups`
+    groups, normalized by the group's mean and its variance E[x^2] -
+    E[x]^2 (clipped at 0), then y = (x - mean) * (rsqrt(var + eps) *
+    weight) + bias, in Flax's order of operations."""
+
+    def __init__(self, channels: int, groups: int = GN_GROUPS, eps: float = GN_EPS):
+        super().__init__()
+        self.groups, self.eps = groups, eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c = x.shape[:2]
+        g = x.reshape(n, self.groups, -1)
+        mean = g.mean(-1)
+        var = ((g * g).mean(-1) - mean * mean).clamp_min(0.0)
+        per_channel = lambda t: t.repeat_interleave(c // self.groups, dim=1).reshape(
+            n, c, *(1,) * (x.dim() - 2))
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        mul = per_channel(torch.rsqrt(var + self.eps)) * self.weight.reshape(shape)
+        return (x - per_channel(mean)) * mul + self.bias.reshape(shape)
+
+
+def norm_layer(use_gn: bool, channels: int) -> nn.Module:
+    return GroupNorm(channels) if use_gn else FrozenBatchNorm(channels)
+
+
 def _conv(cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride=stride, padding=dilation * (k // 2),
                      dilation=dilation, bias=False)
@@ -49,20 +85,21 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1) -> nn
 
 class Bottleneck(nn.Module):
     def __init__(self, in_channels: int, bottleneck_channels: int, out_channels: int,
-                 stride: int = 1, stride_in_1x1: bool = True, dilation: int = 1):
+                 stride: int = 1, stride_in_1x1: bool = True, dilation: int = 1,
+                 use_gn: bool = False):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         if stride != 1 or in_channels != out_channels:
             self.downsample_conv = _conv(in_channels, out_channels, 1, stride)
-            self.downsample_bn = FrozenBatchNorm(out_channels)
+            self.downsample_bn = norm_layer(use_gn, out_channels)
         else:
             self.downsample_conv = self.downsample_bn = None
         self.conv1 = _conv(in_channels, bottleneck_channels, 1, s1)
-        self.bn1 = FrozenBatchNorm(bottleneck_channels)
+        self.bn1 = norm_layer(use_gn, bottleneck_channels)
         self.conv2 = _conv(bottleneck_channels, bottleneck_channels, 3, s3, dilation)
-        self.bn2 = FrozenBatchNorm(bottleneck_channels)
+        self.bn2 = norm_layer(use_gn, bottleneck_channels)
         self.conv3 = _conv(bottleneck_channels, out_channels, 1)
-        self.bn3 = FrozenBatchNorm(out_channels)
+        self.bn3 = norm_layer(use_gn, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x
@@ -75,10 +112,10 @@ class Bottleneck(nn.Module):
 
 
 class Stem(nn.Module):
-    def __init__(self, out_channels: int = 64):
+    def __init__(self, out_channels: int = 64, use_gn: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(3, out_channels, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm(out_channels)
+        self.bn1 = norm_layer(use_gn, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x)))
@@ -92,10 +129,10 @@ class ResNet(nn.Module):
 
     def __init__(self, body: str = "R-101", stem_out_channels: int = 64,
                  res2_out_channels: int = 256, width_per_group: int = 64,
-                 stride_in_1x1: bool = True):
+                 stride_in_1x1: bool = True, use_gn: bool = False):
         super().__init__()
         blocks = STAGE_BLOCKS[body.replace("-FPN", "")]
-        self.stem = Stem(stem_out_channels)
+        self.stem = Stem(stem_out_channels, use_gn)
         self.block_names = []
         in_ch = stem_out_channels
         for stage, n_blocks in enumerate(blocks):
@@ -107,7 +144,7 @@ class ResNet(nn.Module):
                 self.add_module(name, Bottleneck(
                     in_ch if i == 0 else out_ch, mid_ch, out_ch,
                     stride=(1 if stage == 0 else 2) if i == 0 else 1,
-                    stride_in_1x1=stride_in_1x1,
+                    stride_in_1x1=stride_in_1x1, use_gn=use_gn,
                 ))
                 names.append(name)
             self.block_names.append(names)

@@ -5,9 +5,15 @@ reference modeling/detector/detectors.py:11-14).
 MODEL.META_ARCHITECTURE:
 - "DispRCNN", or "GeneralizedRCNN" with MODEL.STEREO_ON: the 2D stereo
   detector (``DispRCNN``), as every shipped mask.yaml asks;
-- "DispRCNN3D": the stage 2-4 model over offline 2D predictions.
-RetinaNet (MODEL.RETINANET_ON) and the mono "GeneralizedRCNN" (STEREO_ON
-False) raise NotImplementedError: they are ROADMAP A6.
+  on a ResNet-FPN body, with MODEL.BACKBONE.USE_GN / MODEL.FPN.USE_GN
+  (GroupNorm), MODEL.MASK_ON and MODEL.DISPNET_ON (DispModule, wired from
+  MODEL.DISPNET.{MAX_DISP, MIN_DISP, RESOLUTIONS[0], DISP_RESOLUTIONS[0],
+  CONV_LAYERS, LOSS_WEIGHT} as the JAX build_detection_model wires them);
+- "DispRCNN3D": the stage 2-4 model over offline 2D predictions, with
+  MODEL.POINTRCNN.RPN.NMS_TYPE ("rotate": the rotated BEV NMS) and
+  TEST.RPN_DISTANCE_BASED_PROPOSE.
+RetinaNet (MODEL.RETINANET_ON), the mono "GeneralizedRCNN" (STEREO_ON
+False) and the FBNet bodies raise: they are ROADMAP A6.
 
 The JAX build passes some settings that the port's constructors do not
 take, because the port runs one value of each. For those the build reads
@@ -18,15 +24,10 @@ whenever the config asks for another value:
 |---|---|---|
 | MODEL.BACKBONE.CONV_BODY | R-50/101/152(-FPN) | A6 (FBNet) |
 | MODEL.BACKBONE.FREEZE_CONV_BODY_AT | 2 (stem and layer1 detached) | A7 |
-| MODEL.BACKBONE.USE_GN, MODEL.FPN.USE_GN | False | A6 |
-| MODEL.MASK_ON | True | A6 |
-| MODEL.DISPNET_ON (DispRCNN) | False | A6 (DispModule) |
 | MODEL.RPN.STRADDLE_THRESH | anchors.STRADDLE_THRESH (0) | A7 |
 | MODEL.RPN.FG/BG_IOU_THRESHOLD, BATCH_SIZE_PER_IMAGE, POSITIVE_FRACTION | stereo_rpn.loss's defaults | A7 |
 | MODEL.ROI_HEADS.FG/BG_IOU_THRESHOLD, POSITIVE_FRACTION | box_head.subsample's defaults | A7 |
 | MODEL.POINTRCNN.RPN.FIXED (DET3D_ON) | equal to RCNN.ENABLED | A4.4 |
-| MODEL.POINTRCNN.RPN.NMS_TYPE | "normal" | A2 |
-| MODEL.POINTRCNN.TEST.RPN_DISTANCE_BASED_PROPOSE | False | A2 |
 | MODEL.POINTRCNN.RPN.LOSS_CLS (the RPN trains) | BinaryCrossEntropy | A4.1 |
 | MODEL.POINTRCNN.RCNN.LOSS_CLS (RCNN.ENABLED) | BinaryCrossEntropy | A7 |
 | MODEL.POINTRCNN.AUG_DATA, RCNN.ROI_FG_AUG_TIMES, AUG_ROT_RANGE (RCNN.ENABLED) | True, rcnn3d.FG_AUG_TIMES, rcnn3d.AUG_ROT_RANGE | A7 |
@@ -79,10 +80,6 @@ def _check_2d(cfg) -> str:
                          f"port has the ResNet-FPN bodies {sorted(STAGE_BLOCKS)} (ROADMAP A6)")
     fixed = (
         ("MODEL.BACKBONE.FREEZE_CONV_BODY_AT", 2, "A7"),
-        ("MODEL.BACKBONE.USE_GN", False, "A6"),
-        ("MODEL.FPN.USE_GN", False, "A6"),
-        ("MODEL.MASK_ON", True, "A6"),
-        ("MODEL.DISPNET_ON", False, "A6"),
         ("MODEL.RPN.STRADDLE_THRESH", anchors.STRADDLE_THRESH, "A7"),
         ("MODEL.RPN.FG_IOU_THRESHOLD", _default(stereo_rpn.loss, "fg_iou"), "A7"),
         ("MODEL.RPN.BG_IOU_THRESHOLD", _default(stereo_rpn.loss, "bg_iou"), "A7"),
@@ -105,8 +102,6 @@ def _check_3d(cfg) -> None:
     if not cfg.MODEL.DET3D_ON:
         return
     _require(cfg, "MODEL.POINTRCNN.RPN.FIXED", p.RCNN.ENABLED, "A4.4")
-    _require(cfg, "MODEL.POINTRCNN.RPN.NMS_TYPE", "normal", "A2")
-    _require(cfg, "MODEL.POINTRCNN.TEST.RPN_DISTANCE_BASED_PROPOSE", False, "A2")
     if not p.RPN.FIXED:
         _require(cfg, "MODEL.POINTRCNN.RPN.LOSS_CLS", "BinaryCrossEntropy", "A4.1")
     if p.RCNN.ENABLED:
@@ -132,6 +127,7 @@ def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=
         body = _check_2d(cfg)
         rpn, heads = cfg.MODEL.RPN, cfg.MODEL.ROI_HEADS
         box, mask = cfg.MODEL.ROI_BOX_HEAD, cfg.MODEL.ROI_MASK_HEAD
+        disp = cfg.MODEL.DISPNET
         return DispRCNN(
             body=body,
             out_channels=cfg.MODEL.RESNETS.BACKBONE_OUT_CHANNELS,
@@ -154,8 +150,18 @@ def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=
             box_nms_thresh=heads.NMS,
             detections_per_img=cfg.TEST.DETECTIONS_PER_IMG,
             max_det=cfg.TPU.MAX_DETECTIONS,
+            mask_on=cfg.MODEL.MASK_ON,
             mask_resolution=mask.POOLER_RESOLUTION,
             mask_sampling_ratio=mask.POOLER_SAMPLING_RATIO,
+            dispnet_on=cfg.MODEL.DISPNET_ON,
+            dispnet_maxdisp=disp.MAX_DISP,
+            dispnet_mindisp=disp.MIN_DISP,
+            dispnet_resolution=disp.RESOLUTIONS[0],
+            dispnet_disp_resolution=disp.DISP_RESOLUTIONS[0],
+            dispnet_conv_layers=tuple(disp.CONV_LAYERS),
+            dispnet_loss_weight=disp.LOSS_WEIGHT,
+            use_gn=cfg.MODEL.BACKBONE.USE_GN,
+            use_gn_fpn=cfg.MODEL.FPN.USE_GN,
             srpn_quirk_exact=cfg.TPU.SRPN_QUIRK_EXACT,
             device=device,
         )
@@ -187,6 +193,8 @@ def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=
             sa_npoints=tuple(p.RPN.SA_CONFIG.NPOINTS),
             rpn_score_thresh=p.RPN.SCORE_THRESH,
             rpn_nms_thresh=p.TEST.RPN_NMS_THRESH,
+            rpn_nms_rotated=p.RPN.NMS_TYPE == "rotate",
+            rpn_distance_based=p.TEST.RPN_DISTANCE_BASED_PROPOSE,
             rpn_pre_nms_per_roi=p.TEST.RPN_PRE_NMS_TOP_N,
             proposals_per_roi=p.TEST.RPN_POST_NMS_TOP_N,
             rpn_pre_nms_per_roi_train=p.TRAIN.RPN_PRE_NMS_TOP_N,

@@ -1,6 +1,9 @@
 """DispRCNN 2D stereo detector (counterpart of
-disprcnn_tpu/models/detector/disprcnn.py with mask_on=True and
-dispnet_on=False; reference modeling/detector/disprcnn.py:93-160).
+disprcnn_tpu/models/detector/disprcnn.py; reference
+modeling/detector/disprcnn.py:93-160), on a ResNet-FPN body with
+FrozenBatchNorm or GroupNorm (use_gn, use_gn_fpn), with or without its
+mask head (mask_on) and its in-framework iDispNet (dispnet_on,
+models/psmnet/dispmodule.py).
 
 Left and right images go through one backbone pass as a doubled batch and
 the stereo RPN scores every anchor. Inputs are NHWC at the public
@@ -8,13 +11,24 @@ boundary, as in the JAX package; NCHW inside.
 
 - Eval (the default mode): the RPN proposes post_nms_top_n_test pairs per
   image, the stereo box head scores and refines them into max_det
-  detections, and the mask head predicts 28x28 masks on the left view.
+  detections, and (mask_on) the mask head predicts 28x28 masks on the left
+  view. With dispnet_on, DispModule runs on the B x max_det detections,
+  each pair widened to a common width (expand_left_right_freex), and gives
+  their disparity at dispnet_disp_resolution^2 ("disparity_roi").
 - Train (``model.train()``, as ``engine/trainer.py`` sets it): the
   proposals at the train budgets, the SRPN loss, the GT appended to the
   proposals, ROI matching and balanced sampling per image, the sampled
   rows compacted to roi_batch_per_image a image (positives first, then
   negatives, then the rest in index order), the box head and the mask
-  head on them, and the JAX package's five losses. The box head runs its
+  head on them (mask_on), and the JAX package's five losses (four without
+  the mask head). With dispnet_on, train_psm and a GT disparity, DispModule
+  runs in train mode on every compacted row (its batch statistics take
+  them all, as Flax's), and ``loss_psm`` is its deep-supervised smooth L1
+  (0.5, 0.7, 1.0) against the GT disparity warped to each widened box,
+  over the pixels of the positive rows where the matched GT mask is on
+  (``gt_mask_on_roi``; every pixel without GT masks) and the GT lies
+  strictly inside (mindisp, maxdisp), normalized by that pixel count
+  (at least 1; summed over the ranks), times dispnet_loss_weight. The box head runs its
   dropout in train mode even where the optimizer freezes it
   (SOLVER.FIX_BOX_HEAD), because the JAX package's does: its
   loss_classifier and loss_box_reg see the dropped features. Every random
@@ -38,14 +52,18 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ...ops.losses import psm_deep_supervision_loss
 from ...parallel.mesh import shard_batch
 from ...parallel.multihost import process_count
+from ...structures.masks import _sample_bilinear_2d
 from ...structures.stereo import StereoBoxes
 from ..backbone.fpn import ResNetFPNBackbone
+from ..psmnet.dispmodule import DispModule, expand_left_right_freex
 from ..roi_heads import box_head as bh
 from ..roi_heads import mask_head as mh
 from ..rpn import stereo_rpn
 from ..rpn.anchors import AnchorGenerator, visibility
+from .disprcnn3d import _crop_grid, warp_gt_disparity_to_roi
 
 
 @dataclass
@@ -116,12 +134,25 @@ class DispRCNN(nn.Module):
         box_nms_thresh: float = 0.5,
         detections_per_img: int = 100,
         max_det: int = 32,
+        mask_on: bool = True,
         mask_resolution: int = 14,
         mask_sampling_ratio: int = 2,
+        dispnet_on: bool = False,
+        dispnet_maxdisp: int = 48,
+        dispnet_mindisp: int = -48,
+        dispnet_resolution: int = 28,
+        dispnet_disp_resolution: int = 112,
+        dispnet_conv_layers: Sequence[int] = (256,),
+        dispnet_loss_weight: float = 1.0,
+        use_gn: bool = False,  # MODEL.BACKBONE.USE_GN
+        use_gn_fpn: bool = False,  # MODEL.FPN.USE_GN
         srpn_quirk_exact: bool = False,  # TPU.SRPN_QUIRK_EXACT
         device: str | torch.device = "cuda",
     ):
         super().__init__()
+        self.mask_on, self.dispnet_on = mask_on, dispnet_on
+        self.dispnet_maxdisp, self.dispnet_mindisp = dispnet_maxdisp, dispnet_mindisp
+        self.dispnet_loss_weight = dispnet_loss_weight
         self.anchor_gen = AnchorGenerator(anchor_sizes, anchor_strides, aspect_ratios)
         # anchors on the card, per (feature sizes, device): a fixed input
         # geometry builds and copies them once
@@ -139,15 +170,21 @@ class DispRCNN(nn.Module):
         self.max_det = max_det
         self.srpn_quirk_exact = srpn_quirk_exact
         with torch.device(device):
-            self.backbone = ResNetFPNBackbone(body=body, out_channels=out_channels)
+            self.backbone = ResNetFPNBackbone(body=body, out_channels=out_channels,
+                                              use_gn_body=use_gn, use_gn_fpn=use_gn_fpn)
             self.rpn_head = stereo_rpn.SRPNHead(
                 out_channels, self.anchor_gen.num_anchors_per_location, srpn_quirk_exact)
             self.box_extractor = bh.StereoBoxFeatureExtractor(
                 out_channels, mlp_head_dim, box_resolution, pooler_scales, box_sampling_ratio)
             self.box_predictor = bh.StereoBoxPredictor(mlp_head_dim, num_classes)
-            self.mask_head = mh.MaskHead(
-                out_channels, num_classes, resolution=mask_resolution,
-                scales=pooler_scales, sampling_ratio=mask_sampling_ratio)
+            if mask_on:
+                self.mask_head = mh.MaskHead(
+                    out_channels, num_classes, resolution=mask_resolution,
+                    scales=pooler_scales, sampling_ratio=mask_sampling_ratio)
+            if dispnet_on:
+                self.dispnet = DispModule(
+                    out_channels, dispnet_maxdisp, dispnet_mindisp, dispnet_resolution,
+                    dispnet_disp_resolution, pooler_scales, dispnet_conv_layers)
         self.eval()  # train mode only on request, as the JAX module defaults to train=False
 
     @property
@@ -167,11 +204,13 @@ class DispRCNN(nn.Module):
                 gt_valid: Optional[torch.Tensor] = None,
                 gt_masks: Optional[torch.Tensor] = None,
                 draws: Optional[Det2DDraws] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, object]:
+                generator: Optional[torch.Generator] = None, train_psm: bool = False,
+                gt_disp: Optional[torch.Tensor] = None) -> Dict[str, object]:
         """left, right (B, H, W, 3) normalized images.
 
         Eval -> {"detections": StereoBoxes (B, max_det) with 'labels',
-        "masks": (B, max_det, 28, 28)}.
+        "masks": (B, max_det, 28, 28) (mask_on), "disparity_roi": (B,
+        max_det, R, R) at R = dispnet_disp_resolution (dispnet_on)}.
 
         Train, with the GT padded to M slots a image (gt_left, gt_right
         (B, M, 4), gt_labels (B, M) int, gt_valid (B, M) bool, gt_masks
@@ -180,7 +219,9 @@ class DispRCNN(nn.Module):
         "loss_rpn_box_reg", "loss_classifier", "loss_box_reg", "loss_mask",
         "proposals": StereoBoxes (B, post_nms_top_n_train + M) with the GT
         appended, "roi_pos": (B, post_nms_top_n_train + M) bool, the
-        sampled positives among them}."""
+        sampled positives among them}; without the mask head no
+        "loss_mask"; with dispnet_on, train_psm (SOLVER.TRAIN_PSM) and
+        gt_disp (B, H, W) also "loss_psm"."""
         b, img_h, img_w, _ = left.shape
         feats = self.backbone(torch.cat([left, right], dim=0).permute(0, 3, 1, 2).contiguous())
         lf = [f[:b] for f in feats]
@@ -189,7 +230,8 @@ class DispRCNN(nn.Module):
         obj_logits, deltas = stereo_rpn.flatten_levels(self.rpn_head(feats))
         if self.training:
             return self._train_forward(lf, rf, hws, obj_logits, deltas, (img_h, img_w), gt_left,
-                                       gt_right, gt_labels, gt_valid, gt_masks, draws, generator)
+                                       gt_right, gt_labels, gt_valid, gt_masks, draws, generator,
+                                       gt_disp if train_psm and self.dispnet_on else None)
 
         anchors = self.anchors(hws, left.device)
         rois = stereo_rpn.postprocess_batched(
@@ -209,15 +251,27 @@ class DispRCNN(nn.Module):
         )
         d = self.max_det
         det_batch_idx = torch.arange(b, device=left.device).repeat_interleave(d)
-        logits = self.mask_head(lf[:-1], dets.left.reshape(b * d, 4), det_batch_idx)
-        probs = mh.mask_probs(logits, dets.fields["labels"].reshape(b * d))
-        return {"detections": dets, "masks": probs.reshape(b, d, *probs.shape[1:])}
+        out = {"detections": dets}
+        if self.mask_on:
+            logits = self.mask_head(lf[:-1], dets.left.reshape(b * d, 4), det_batch_idx)
+            probs = mh.mask_probs(logits, dets.fields["labels"].reshape(b * d))
+            out["masks"] = probs.reshape(b, d, *probs.shape[1:])
+        if self.dispnet_on:
+            lb, rb = expand_left_right_freex(dets.left.reshape(b * d, 4),
+                                             dets.right.reshape(b * d, 4), float(img_w))
+            disp = self.dispnet(lf[:-1], rf[:-1], lb, rb, det_batch_idx)
+            out["disparity_roi"] = disp.reshape(b, d, *disp.shape[1:])
+        return out
 
     def _train_forward(self, lf, rf, hws, obj_logits, deltas, image_hw, gt_left, gt_right,
-                       gt_labels, gt_valid, gt_masks, draws, generator) -> Dict[str, object]:
-        if any(x is None for x in (gt_left, gt_right, gt_labels, gt_valid, gt_masks)):
-            raise ValueError("the 2D train step needs gt_left, gt_right, gt_labels, gt_valid "
-                             "and gt_masks")
+                       gt_labels, gt_valid, gt_masks, draws, generator,
+                       gt_disp) -> Dict[str, object]:
+        needs = {"gt_left": gt_left, "gt_right": gt_right, "gt_labels": gt_labels,
+                 "gt_valid": gt_valid}
+        if self.mask_on:
+            needs["gt_masks"] = gt_masks
+        if any(x is None for x in needs.values()):
+            raise ValueError(f"the 2D train step needs {', '.join(needs)}")
         (b, n_anchors), dev, m = obj_logits.shape[:2], obj_logits.device, gt_left.shape[1]
         if draws is None:
             if generator is None:
@@ -261,10 +315,49 @@ class DispRCNN(nn.Module):
         out["loss_classifier"], out["loss_box_reg"] = bh.head_loss(
             class_logits, box_deltas, labels_f, flat(meta["reg_targets"]), pos_f,
             flat(meta["sampled"]))
-        mask_logits = self.mask_head(lf[:-1], left_rois, batch_idx)
-        # each image's GT masks are rows [i * m, (i + 1) * m)
-        out["loss_mask"] = mh.mask_loss(
-            mask_logits, left_rois, labels_f, pos_f, gt_masks.reshape(-1, *gt_masks.shape[2:]),
-            flat(meta["matched_gt"]) + batch_idx * m)
+        if self.mask_on:
+            mask_logits = self.mask_head(lf[:-1], left_rois, batch_idx)
+            # each image's GT masks are rows [i * m, (i + 1) * m)
+            out["loss_mask"] = mh.mask_loss(
+                mask_logits, left_rois, labels_f, pos_f,
+                gt_masks.reshape(-1, *gt_masks.shape[2:]),
+                flat(meta["matched_gt"]) + batch_idx * m)
+        if gt_disp is not None:
+            out["loss_psm"] = self._psm_loss(lf, rf, left_rois, flat(rois.right), batch_idx,
+                                             pos_f, flat(meta["matched_gt"]), gt_disp, gt_masks,
+                                             float(image_hw[1]))
         out["proposals"], out["roi_pos"] = proposals, pos
         return out
+
+    def _psm_loss(self, lf, rf, left_rois, right_rois, batch_idx, pos_f, matched_gt, gt_disp,
+                  gt_masks, img_w: float) -> torch.Tensor:
+        """DispModule in train mode on every row, and its masked,
+        deep-supervised smooth L1 (disprcnn.py:219-258 of the JAX package)."""
+        dlb, drb = expand_left_right_freex(left_rois, right_rois, img_w)
+        size = self.dispnet.disp_resolution
+        preds = self.dispnet(lf[:-1], rf[:-1], dlb, drb, batch_idx)
+        tgt = warp_gt_disparity_to_roi(gt_disp, dlb, drb, size, which=batch_idx)
+        if gt_masks is not None:
+            gmask = gt_mask_on_roi(gt_masks, matched_gt, batch_idx, dlb, size)
+        else:
+            gmask = torch.ones_like(tgt, dtype=torch.bool)
+        m = (gmask & (tgt > self.dispnet_mindisp) & (tgt < self.dispnet_maxdisp)
+             & pos_f[:, None, None])
+        return self.dispnet_loss_weight * psm_deep_supervision_loss(preds, tgt, m)
+
+
+def gt_mask_on_roi(gt_masks: torch.Tensor, matched_gt: torch.Tensor, batch_idx: torch.Tensor,
+                   boxes: torch.Tensor, size: int) -> torch.Tensor:
+    """Each ROI's matched GT instance mask sampled on the ROI's size x size
+    pixel grid (DispModule.prepare_target's mask warping; the JAX package's
+    ``_gt_mask_on_roi``): gt_masks (B, M, H, W), matched_gt (R,) (clipped
+    to [0, M - 1]), batch_idx (R,), boxes (R, 4) -> (R, size, size) bool,
+    the bilinear sample above 0.5. Only each sample's four taps are read
+    (no per-ROI copy of a full mask)."""
+    b, m = gt_masks.shape[:2]
+    which = batch_idx.long() * m + matched_gt.long().clamp(0, m - 1)
+    gy = _crop_grid(boxes[:, 1:2], boxes[:, 3:4] - boxes[:, 1:2], size)
+    gx = _crop_grid(boxes[:, 0:1], boxes[:, 2:3] - boxes[:, 0:1], size)
+    gy, gx = torch.broadcast_tensors(gy[:, :, None], gx[:, None, :])
+    flat = gt_masks.reshape(b * m, *gt_masks.shape[2:]).float()
+    return _sample_bilinear_2d(flat, which, gy, gx) > 0.5

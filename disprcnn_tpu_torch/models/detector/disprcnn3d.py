@@ -40,6 +40,7 @@ from ...ops.roi_align import roi_align_batched
 from ...ops.topk_select import topk_scores
 from ...parallel.mesh import shard_batch
 from ...parallel.multihost import process_count
+from ...structures.masks import _sample_bilinear_2d
 from ...structures.stereo import StereoBoxes
 from ..pointrcnn import lift
 from ..pointrcnn.lift import _bilinear_separable, _grid_fractions, expand_box_to_integer
@@ -125,14 +126,22 @@ def _crop_grid(start: torch.Tensor, extent: torch.Tensor, size: int) -> torch.Te
 
 
 def warp_gt_disparity_to_roi(gt_disp: torch.Tensor, left_crop: torch.Tensor,
-                             right_crop: torch.Tensor, size: int = 224) -> torch.Tensor:
+                             right_crop: torch.Tensor, size: int = 224,
+                             which: Optional[torch.Tensor] = None) -> torch.Tensor:
     """gt_disp (R, H, W) full-image GT disparity of each ROI's image, crops
     (R, 4) -> (R, size, size) GT disparity in ROI coordinates: sampled over
     the left crop, shifted by x1 - x1' and rescaled by size / width
-    (generate_psmnet_input_inf.py semantics)."""
+    (generate_psmnet_input_inf.py semantics). With `which` (R,), gt_disp is
+    (N, H, W) and ROI r reads gt_disp[which[r]], by gathering each sample's
+    four taps (no per-ROI copy of a full map)."""
     x1, y1, x2, y2 = (left_crop[:, i:i + 1] for i in range(4))
     w = x2 - x1
-    vals = _bilinear_separable(gt_disp, _crop_grid(y1, y2 - y1, size), _crop_grid(x1, w, size))
+    gy, gx = _crop_grid(y1, y2 - y1, size), _crop_grid(x1, w, size)
+    if which is None:
+        vals = _bilinear_separable(gt_disp, gy, gx)
+    else:
+        gy, gx = torch.broadcast_tensors(gy[:, :, None], gx[:, None, :])
+        vals = _sample_bilinear_2d(gt_disp, which, gy, gx)
     scale = torch.full_like(w, float(size)) / w.clamp_min(1.0)
     return (vals - (x1 - right_crop[:, 0:1])[:, :, None]) * scale[:, :, None]
 
@@ -175,7 +184,8 @@ class DispRCNN3D(nn.Module):
     every config of the repo trains the RPN without an RCNN (rpn.yaml) or
     the RCNN on a fixed RPN (rcnn.yaml), and both in one step (JAX's
     default) is not ported (ROADMAP A4.4). Its rpn_nms_rotated and
-    rpn_distance_based (False), and the train fields that every config of
+    rpn_distance_based (default False) are options, passed to PointRCNN;
+    the train fields that every config of
     the repo sets alike (aug_data True, fg_aug_times 10, aug_rot_range 18,
     rpn_loss_cls and rcnn_loss_cls BinaryCrossEntropy, rpn_nms_thresh_train
     0.85, point_rcnn.TRAIN_RPN_NMS_THRESH) are not options here:
@@ -198,6 +208,7 @@ class DispRCNN3D(nn.Module):
                  rpn_nms_thresh: float = 0.8, psm_hourglass: int = 3,
                  sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset(),
                  roi_block: int = ROI_BLOCK, rcnn_enabled: bool = True,
+                 rpn_nms_rotated: bool = False, rpn_distance_based: bool = False,
                  device: str | torch.device = "cuda"):
         super().__init__()
         self.max_det = max_det
@@ -218,7 +229,8 @@ class DispRCNN3D(nn.Module):
                     sa_min_c0=sa_min_c0, kernels_off=kernels_off, roi_block=roi_block,
                     proposals_per_roi_train=proposals_per_roi_train,
                     rpn_pre_nms_per_roi_train=rpn_pre_nms_per_roi_train,
-                    rcnn_rois_per_instance=rcnn_rois_per_instance, rcnn_enabled=rcnn_enabled)
+                    rcnn_rois_per_instance=rcnn_rois_per_instance, rcnn_enabled=rcnn_enabled,
+                    rpn_nms_rotated=rpn_nms_rotated, rpn_distance_based=rpn_distance_based)
         self.eval()
 
     @property

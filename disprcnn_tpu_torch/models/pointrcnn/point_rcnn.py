@@ -1,7 +1,11 @@
 """The PointRCNN 3D stage: 3D RPN -> proposals -> RoI-pool 3D -> RCNN ->
 one box per instance (counterpart of disprcnn_tpu/models/pointrcnn/
-point_rcnn.py with the score-based proposals and RPN.NMS_TYPE "normal";
-reference lib/net/point_rcnn.py). Each 2D detection is one fixed-size
+point_rcnn.py; reference lib/net/point_rcnn.py). The proposals are
+score-based (``rpn3d.propose``) or, with rpn_distance_based
+(TEST.RPN_DISTANCE_BASED_PROPOSE), distance-based
+(``rpn3d.distance_propose``), over the axis-aligned BEV NMS or, with
+rpn_nms_rotated (RPN.NMS_TYPE "rotate"), the rotated one, in eval and in
+the RCNN's train step alike. Each 2D detection is one fixed-size
 canonical cloud on the instance axis. With rcnn_enabled=False (RCNN.ENABLED,
 rpn.yaml) there is no RCNN: eval returns the RPN's per-point scores
 ``rpn_cls``.
@@ -52,8 +56,10 @@ class PointRCNN(nn.Module):
                  sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset(),
                  roi_block: int = ROI_BLOCK, proposals_per_roi_train: Optional[int] = None,
                  rpn_pre_nms_per_roi_train: Optional[int] = None,
-                 rcnn_rois_per_instance: int = 16, rcnn_enabled: bool = True):
+                 rcnn_rois_per_instance: int = 16, rcnn_enabled: bool = True,
+                 rpn_nms_rotated: bool = False, rpn_distance_based: bool = False):
         super().__init__()
+        self.rpn_nms_rotated, self.rpn_distance_based = rpn_nms_rotated, rpn_distance_based
         self.npoints = npoints
         self.rcnn_enabled = rcnn_enabled
         self.register_buffer("anchor", torch.tensor(mean_size, dtype=torch.float32),
@@ -102,9 +108,8 @@ class PointRCNN(nn.Module):
         rpn_out = self.rpn(pts)
         if not self.rcnn_enabled:
             return {"rpn_cls": rpn_out["cls"]}
-        rois_c, roi_scores, prop_valid = rpn3d.propose(
-            rpn_out["cls"], rpn_out["reg"], rpn_out["xyz"], self.anchor, self.rpn_codec,
-            pre_nms_top_n=min(self.rpn_pre_nms_per_roi, pts.shape[1]),
+        rois_c, roi_scores, prop_valid = self.propose(
+            rpn_out, pre_nms_top_n=min(self.rpn_pre_nms_per_roi, pts.shape[1]),
             post_nms_top_n=self.proposals_per_roi, nms_thresh=self.rpn_nms_thresh)
         r, k = rois_c.shape[:2]
         rois = _decanon_rois(rois_c, angles, pts_mean)
@@ -128,6 +133,14 @@ class PointRCNN(nn.Module):
             roi_scores, self.anchor, score_thresh=self.rcnn_score_thresh)
         return {"box3d": box3d, "score3d": score3d, "random": is_random}
 
+    def propose(self, rpn_out: Dict[str, torch.Tensor], pre_nms_top_n: int,
+                post_nms_top_n: int, nms_thresh: float):
+        """The proposal layer of the model's options on the RPN's output."""
+        fn = rpn3d.distance_propose if self.rpn_distance_based else rpn3d.propose
+        return fn(rpn_out["cls"], rpn_out["reg"], rpn_out["xyz"], self.anchor, self.rpn_codec,
+                  pre_nms_top_n=pre_nms_top_n, post_nms_top_n=post_nms_top_n,
+                  nms_thresh=nms_thresh, rotated=self.rpn_nms_rotated)
+
     def rpn_train_loss(self, pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok,
                        rpn_draws) -> Dict[str, torch.Tensor]:
         """The RPN in train mode on the clouds, the per-point labels of the
@@ -148,9 +161,8 @@ class PointRCNN(nn.Module):
             raise ValueError("training the RCNN needs its draws")
         with torch.no_grad():
             rpn_out = self.rpn(pts)
-            rois_c, _, prop_valid = rpn3d.propose(
-                rpn_out["cls"], rpn_out["reg"], rpn_out["xyz"], self.anchor, self.rpn_codec,
-                pre_nms_top_n=min(self.rpn_pre_nms_per_roi_train or self.rpn_pre_nms_per_roi,
+            rois_c, _, prop_valid = self.propose(
+                rpn_out, pre_nms_top_n=min(self.rpn_pre_nms_per_roi_train or self.rpn_pre_nms_per_roi,
                                   pts.shape[1]),
                 post_nms_top_n=self.proposals_per_roi_train or self.proposals_per_roi,
                 nms_thresh=TRAIN_RPN_NMS_THRESH)

@@ -129,25 +129,86 @@ def rpn_loss(cls_pred: torch.Tensor, reg_pred: torch.Tensor, cls_label: torch.Te
     return {"loss_rpn_cls": cls_l, "loss_rpn_reg": loc + angle + size}
 
 
-def propose(cls_pred: torch.Tensor, reg_pred: torch.Tensor, xyz: torch.Tensor,
-            anchor_size: torch.Tensor, cfg: codec.CodecCfg, pre_nms_top_n: int,
-            post_nms_top_n: int,
-            nms_thresh: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Score-based proposals (reference score_based_proposal): decode every
-    point's box with its y moved to the bottom face, keep the pre-NMS top-k
-    scores (ties by index), axis-aligned BEV NMS (RPN.NMS_TYPE "normal"),
-    then the post-NMS top-k.
-    -> (rois (R, post, 7), scores (R, post), valid (R, post))."""
+def _decode_bottom(cls_pred, reg_pred, xyz, anchor_size, cfg) -> torch.Tensor:
+    """Every point's decoded box (R, N, 7) with its y moved to the bottom
+    face (proposal_layer.py:40)."""
     r, n = cls_pred.shape
     boxes = codec.decode(xyz.reshape(r * n, 3), reg_pred.reshape(r * n, -1), anchor_size,
                          cfg).reshape(r, n, 7)
-    boxes = torch.cat([boxes[..., :1], boxes[..., 1:2] + boxes[..., 3:4] / 2, boxes[..., 2:]],
-                      dim=-1)
+    return torch.cat([boxes[..., :1], boxes[..., 1:2] + boxes[..., 3:4] / 2, boxes[..., 2:]],
+                     dim=-1)
+
+
+def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t (R, N, ...) at idx (R, K) -> (R, K, ...)."""
+    return torch.gather(t, 1, idx.reshape(idx.shape + (1,) * (t.dim() - 2)).expand(
+        idx.shape + t.shape[2:]))
+
+
+def propose(cls_pred: torch.Tensor, reg_pred: torch.Tensor, xyz: torch.Tensor,
+            anchor_size: torch.Tensor, cfg: codec.CodecCfg, pre_nms_top_n: int,
+            post_nms_top_n: int, nms_thresh: float,
+            rotated: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Score-based proposals (reference score_based_proposal): decode every
+    point's box with its y moved to the bottom face, keep the pre-NMS top-k
+    scores (ties by index), BEV NMS (RPN.NMS_TYPE "normal" axis-aligned, or
+    with `rotated` "rotate", ops/nms.py), then the post-NMS top-k.
+    -> (rois (R, post, 7), scores (R, post), valid (R, post))."""
+    n = cls_pred.shape[1]
+    boxes = _decode_bottom(cls_pred, reg_pred, xyz, anchor_size, cfg)
     k = min(pre_nms_top_n, n)
     top_s, top_i = topk_scores(cls_pred, k)
-    b = torch.gather(boxes, 1, top_i[..., None].expand(-1, -1, 7))
+    b = _rows(boxes, top_i)
     keep = bev_nms_mask(boxes3d_to_bev(b), top_s, torch.ones_like(top_s, dtype=torch.bool),
-                        nms_thresh)
+                        nms_thresh, rotated=rotated)
     idx, ok = topk_after_nms(keep, top_s, post_nms_top_n)
-    return (torch.gather(b, 1, idx[..., None].expand(-1, -1, 7)), torch.gather(top_s, 1, idx),
-            ok)
+    return _rows(b, idx), torch.gather(top_s, 1, idx), ok
+
+
+NMS_RANGES = (0.0, 40.0, 80.0)  # the distance bands' z limits (proposal_layer.py:70-134)
+NEAR_FRAC = 0.7  # the near band's share of the pre- and post-NMS budgets
+
+
+def distance_propose(cls_pred: torch.Tensor, reg_pred: torch.Tensor, xyz: torch.Tensor,
+                     anchor_size: torch.Tensor, cfg: codec.CodecCfg, pre_nms_top_n: int,
+                     post_nms_top_n: int, nms_thresh: float,
+                     rotated: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Distance-based proposals (TEST.RPN_DISTANCE_BASED_PROPOSE, reference
+    proposal_layer.py:70-134, the JAX package's ``distance_propose``): the
+    decoded boxes split into a near band (z in (0, 40]) and a far band (z
+    in (40, 80]) with a 70/30 split of the pre- and post-NMS budgets, BEV
+    NMS in each band, the two concatenated. Where a cloud's far band is
+    empty, its second band is the near band's overflow window, score ranks
+    [pre_near, pre_near + pre_far), chosen per row without a branch.
+    -> (rois (R, post, 7), scores (R, post), valid (R, post))."""
+    pre1 = int(pre_nms_top_n * NEAR_FRAC)
+    pre2 = pre_nms_top_n - pre1
+    post1 = int(post_nms_top_n * NEAR_FRAC)
+    post2 = post_nms_top_n - post1
+    neg = -1e10
+    scores = cls_pred
+    boxes = _decode_bottom(cls_pred, reg_pred, xyz, anchor_size, cfg)
+    z = boxes[..., 2]
+    band1 = (z > NMS_RANGES[0]) & (z <= NMS_RANGES[1])
+    band2 = (z > NMS_RANGES[1]) & (z <= NMS_RANGES[2])
+    neg_t = torch.full_like(scores, neg)
+
+    t1_s, t1_i = topk_scores(torch.where(band1, scores, neg_t), pre1 + pre2)
+    i1, v1 = t1_i[:, :pre1], t1_s[:, :pre1] > neg / 2
+    over_i, over_v = t1_i[:, pre1:], t1_s[:, pre1:] > neg / 2
+    any2 = band2.any(dim=1, keepdim=True)
+    t2_s, t2_i = topk_scores(torch.where(band2, scores, neg_t), pre2)
+    i2 = torch.where(any2, t2_i, over_i)
+    v2 = torch.where(any2, t2_s > neg / 2, over_v)
+
+    def band_nms(idx, vmask, post_n):
+        b = _rows(boxes, idx)
+        raw = torch.gather(scores, 1, idx)
+        sc = torch.where(vmask, raw, torch.full_like(raw, neg))
+        keep = bev_nms_mask(boxes3d_to_bev(b), sc, vmask, nms_thresh, rotated=rotated)
+        kidx, kok = topk_after_nms(keep, sc, post_n)
+        return _rows(b, kidx), torch.gather(raw, 1, kidx), kok
+
+    b1, sc1, ok1 = band_nms(i1, v1, post1)
+    b2, sc2, ok2 = band_nms(i2, v2, post2)
+    return torch.cat([b1, b2], 1), torch.cat([sc1, sc2], 1), torch.cat([ok1, ok2], 1)

@@ -292,16 +292,18 @@ class Hourglass(nn.Module):
         return up2, pre, post
 
 
-class PSMNet(nn.Module):
-    """Full iDispNet: forward(left, right) -> (B, H, W) disparity in eval,
-    the tuple of num_hourglass disparities (deep supervision, the last
-    one the prediction) in train mode."""
+class CostVolumeTrunk(nn.Module):
+    """The 3D half of iDispNet, shared by PSMNet (over its tower's 1/4
+    features) and DispModule (over pooled FPN features): the concat cost
+    volume with its first conv (dres0_0), dres0_1, dres1_*, the stacked
+    hourglasses dres2.., each hourglass's classifier (classif{k}_0, _1),
+    and the regression. ``_build_trunk`` registers the modules under their
+    Flax names on the subclass (after the subclass's own first modules, in
+    the JAX creation order); ``_regress`` runs them."""
 
-    def __init__(self, maxdisp: int = 48, mindisp: int = -48, num_hourglass: int = 3):
-        super().__init__()
+    def _build_trunk(self, maxdisp: int, mindisp: int, num_hourglass: int) -> None:
         self.maxdisp, self.mindisp = maxdisp, mindisp
         self.num_hourglass = num_hourglass
-        self.feature_extraction = FeatureExtraction()
         self.dres0_0 = ConvBN3d(64, 32)
         self.dres0_1 = ConvBN3d(32, 32)
         self.dres1_0 = ConvBN3d(32, 32)
@@ -310,17 +312,16 @@ class PSMNet(nn.Module):
             self.add_module(f"dres{2 + i}", Hourglass(32))
             self.add_module(f"classif{i + 1}_0", ConvBN3d(32, 32))
             self.add_module(f"classif{i + 1}_1", nn.Conv3d(32, 1, 3, 1, 1, bias=False))
-        self.eval()
 
-    def forward(self, left: torch.Tensor, right: torch.Tensor):
-        """left, right (B, 3, H, W) normalized crops -> (B, H, W), or in
-        train mode a tuple of them."""
-        b, _, h, w = left.shape
-        both = self.feature_extraction(torch.cat([left, right], dim=0))
-        lf, rf = both[:b].contiguous(), both[b:].contiguous()
-        mind4, maxd4 = self.mindisp // 4, self.maxdisp // 4
-
-        x = self.dres0_0.cost_volume(lf, rf, mind4, maxd4, relu=True)
+    def _regress(self, lf: torch.Tensor, rf: torch.Tensor, stride: int,
+                 out_hw: Tuple[int, int]):
+        """lf, rf (B, 32, h, w) features at 1/stride of the output -> (B, H,
+        W) disparity over [mindisp, maxdisp), or in train mode the tuple of
+        num_hourglass disparities (deep supervision, the last one the
+        prediction). The volume spans [mindisp // stride, maxdisp //
+        stride)."""
+        x = self.dres0_0.cost_volume(lf.contiguous(), rf.contiguous(), self.mindisp // stride,
+                                     self.maxdisp // stride, relu=True)
         x = self.dres0_1(x, relu=True)
         y = self.dres1_0(x, relu=True)
         cost0 = self.dres1_1(y, residual=x)
@@ -350,6 +351,25 @@ class PSMNet(nn.Module):
                 # leaves v exact)
                 costs.append(conv3d_bn(z, wc, residual=costs[-1] if i else None))
         if self.training:
-            return tuple(softargmin_plain(c[:, 0], (h, w), self.mindisp, self.maxdisp)
+            return tuple(softargmin_plain(c[:, 0], out_hw, self.mindisp, self.maxdisp)
                          for c in costs)
-        return softargmin(costs[-1][:, 0], (h, w), self.mindisp, self.maxdisp)
+        return softargmin(costs[-1][:, 0], out_hw, self.mindisp, self.maxdisp)
+
+
+class PSMNet(CostVolumeTrunk):
+    """Full iDispNet: forward(left, right) -> (B, H, W) disparity in eval,
+    the tuple of num_hourglass disparities (deep supervision, the last
+    one the prediction) in train mode."""
+
+    def __init__(self, maxdisp: int = 48, mindisp: int = -48, num_hourglass: int = 3):
+        super().__init__()
+        self.feature_extraction = FeatureExtraction()
+        self._build_trunk(maxdisp, mindisp, num_hourglass)
+        self.eval()
+
+    def forward(self, left: torch.Tensor, right: torch.Tensor):
+        """left, right (B, 3, H, W) normalized crops -> (B, H, W), or in
+        train mode a tuple of them."""
+        b, _, h, w = left.shape
+        both = self.feature_extraction(torch.cat([left, right], dim=0))
+        return self._regress(both[:b], both[b:], 4, (h, w))

@@ -114,17 +114,17 @@ def rotated_rect_intersection_area(bev_a: torch.Tensor, bev_b: torch.Tensor) -> 
 
 
 def pairwise_bev_overlap(bev_a: torch.Tensor, bev_b: torch.Tensor) -> torch.Tensor:
-    """(N, 5) x (M, 5) -> (N, M) rotated intersection areas."""
-    n, m = bev_a.shape[0], bev_b.shape[0]
-    return rotated_rect_intersection_area(bev_a[:, None].expand(n, m, 5),
-                                          bev_b[None].expand(n, m, 5))
+    """(..., N, 5) x (..., M, 5) -> (..., N, M) rotated intersection areas."""
+    a, b = torch.broadcast_tensors(bev_a[..., :, None, :], bev_b[..., None, :, :])
+    return rotated_rect_intersection_area(a, b)
 
 
 def pairwise_bev_iou(bev_a: torch.Tensor, bev_b: torch.Tensor) -> torch.Tensor:
-    """Rotated BEV IoU matrix (N, M)."""
+    """Rotated BEV IoU matrix (..., N, M) of (..., N, 5) x (..., M, 5)."""
     inter = pairwise_bev_overlap(bev_a, bev_b)
-    area = lambda b: (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
-    return inter / (area(bev_a)[:, None] + area(bev_b)[None, :] - inter).clamp_min(1e-7)
+    area = lambda b: (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    return inter / (area(bev_a)[..., :, None] + area(bev_b)[..., None, :]
+                    - inter).clamp_min(1e-7)
 
 
 def iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:

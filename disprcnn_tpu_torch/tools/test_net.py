@@ -194,7 +194,9 @@ class Predictor:
             dets = out["detections"]
             pred = {"left_boxes": host(dets.left), "right_boxes": host(dets.right),
                     "scores": host(dets.score), "valid": host(dets.valid),
-                    "labels": host(dets.fields["labels"]), "masks": host(out["masks"])}
+                    "labels": host(dets.fields["labels"])}
+            if "masks" in out:  # MODEL.MASK_ON False writes none, as the JAX tool
+                pred["masks"] = host(out["masks"])
         return {k: np.asarray(v, PRED_DTYPES[k]) for k, v in pred.items()}
 
 

@@ -17,6 +17,11 @@ flattened by "/"-joined path. It maps
 - FrozenBatchNorm ``scale/bias/mean/var`` to the buffers
   ``weight/bias/running_mean/running_var``, renaming Flax's auto-numbered
   ``FrozenBatchNorm_<i>`` to the port's ``bn1..bn3``/``downsample_bn``;
+- a Flax ``GroupNorm_<i>``'s params ``scale/bias`` (MODEL.BACKBONE.USE_GN,
+  MODEL.FPN.USE_GN) to ``weight/bias`` of the port's GroupNorm in the same
+  place: ``bn1..bn3``/``downsample_bn`` in the ResNet, as the frozen norms,
+  and in the FPN ``lateral{k}_gn`` (Flax's first ones, from P2 up), then
+  ``output{k}_gn`` (from the top down, as Flax creates them);
 - a Flax ``BatchNorm``'s params ``scale/bias`` to ``weight/bias`` and its
   ``batch_stats`` ``mean/var`` to ``running_mean/running_var`` of the eval
   ``nn.BatchNorm{1,2,3}d`` of the same name (``num_batches_tracked``, which
@@ -40,7 +45,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.backbone.resnet import Bottleneck, FrozenBatchNorm, Stem
+from ..models.backbone.fpn import FPN
+from ..models.backbone.resnet import Bottleneck, FrozenBatchNorm, GroupNorm, Stem
 
 _BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 _COLLECTIONS = ("params", "frozen", "batch_stats")
@@ -58,17 +64,28 @@ def flatten_variables(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def _bn_module_name(model: nn.Module, owner: str, flax_name: str) -> str:
-    """Flax's FrozenBatchNorm_<i> inside `owner` -> the port's attribute."""
-    i = int(flax_name.rsplit("_", 1)[1])
-    mod = model.get_submodule(owner)
+def norm_order(mod: nn.Module) -> list:
+    """The port's names of the auto-numbered Flax norms (FrozenBatchNorm_<i>
+    or GroupNorm_<i>) of a Stem, Bottleneck or FPN, in Flax's numbering."""
     if isinstance(mod, Stem):
-        order = ["bn1"]
-    elif isinstance(mod, Bottleneck):
+        return ["bn1"]
+    if isinstance(mod, Bottleneck):
         # the downsample norm is created first when there is one
-        order = (["downsample_bn"] if mod.downsample_bn is not None else []) + ["bn1", "bn2", "bn3"]
-    else:
-        raise KeyError(f"no FrozenBatchNorm expected under {owner!r}")
+        return (["downsample_bn"] if mod.downsample_bn is not None else []) + ["bn1", "bn2", "bn3"]
+    if isinstance(mod, FPN) and mod.use_gn:
+        n = mod.num_levels
+        return ([f"lateral{k}_gn" for k in range(2, n + 2)]
+                + [f"output{k}_gn" for k in range(n, 1, -1)])
+    return []
+
+
+def _bn_module_name(model: nn.Module, owner: str, flax_name: str) -> str:
+    """Flax's FrozenBatchNorm_<i> or GroupNorm_<i> inside `owner` -> the
+    port's attribute."""
+    i = int(flax_name.rsplit("_", 1)[1])
+    order = norm_order(model.get_submodule(owner))
+    if not order:
+        raise KeyError(f"no {flax_name.rsplit('_', 1)[0]} expected under {owner!r}")
     if i >= len(order):
         raise KeyError(f"{owner}/{flax_name} has no counterpart")
     return order[i]
@@ -82,6 +99,13 @@ def _convert(model: nn.Module, path: str, arr: np.ndarray, coll: str):
         if not module_name.startswith("FrozenBatchNorm_") or leaf not in _BN_NAMES:
             raise KeyError(f"unexpected frozen variable {path!r}")
         name = _bn_module_name(model, owner, module_name)
+        return f"{owner}.{name}.{_BN_NAMES[leaf]}", arr
+    if module_name.startswith("GroupNorm_"):
+        name = _bn_module_name(model, owner, module_name)
+        if coll != "params" or leaf not in ("scale", "bias"):
+            raise KeyError(f"unexpected {coll} variable {path!r} of a group norm")
+        if not isinstance(model.get_submodule(f"{owner}.{name}"), GroupNorm):
+            raise KeyError(f"{path!r} maps to {owner}.{name}, which is not a GroupNorm")
         return f"{owner}.{name}.{_BN_NAMES[leaf]}", arr
     key_mod = f"{owner}.{module_name}" if owner else module_name
     mod = model.get_submodule(key_mod)
@@ -185,6 +209,10 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             normal(mod.weight, math.sqrt(2.0 / fan_in))
             if mod.bias is not None:
                 normal(mod.bias, 0.01)
+        elif isinstance(mod, GroupNorm):
+            uniform(mod.weight, *((0.1, 0.3) if _RESIDUAL_BRANCH_NORM.search(name)
+                                  else (0.5, 1.0)))
+            normal(mod.bias, 0.05)
         elif isinstance(mod, (FrozenBatchNorm, nn.modules.batchnorm._BatchNorm)):
             lo, hi = (0.1, 0.3) if _RESIDUAL_BRANCH_NORM.search(name) else (0.5, 1.0)
             uniform(mod.weight, lo, hi)

@@ -18,6 +18,7 @@ from disprcnn_tpu.models import build as jbuild
 from disprcnn_tpu_torch.config import get_default_cfg
 from disprcnn_tpu_torch.config.node import load_yaml
 from disprcnn_tpu_torch.models import build as tbuild
+from disprcnn_tpu_torch.models.backbone.resnet import GroupNorm
 from disprcnn_tpu_torch.models.pointrcnn import point_rcnn as tpoint_rcnn
 from disprcnn_tpu_torch.models.pointrcnn import rcnn3d, rpn3d
 
@@ -150,9 +151,6 @@ def test_built_model_matches_jax_fields(monkeypatch, path):
 UNSUPPORTED = [
     ("configs/kitti/car/vob/mask.yaml", ["MODEL.BACKBONE.FREEZE_CONV_BODY_AT", "3"],
      "FREEZE_CONV_BODY_AT", "A7"),
-    ("configs/kitti/car/vob/mask.yaml", ["MODEL.BACKBONE.USE_GN", "True"], "USE_GN", "A6"),
-    ("configs/kitti/car/vob/mask.yaml", ["MODEL.MASK_ON", "False"], "MASK_ON", "A6"),
-    ("configs/kitti/car/vob/mask.yaml", ["MODEL.DISPNET_ON", "True"], "DISPNET_ON", "A6"),
     ("configs/kitti/car/vob/mask.yaml", ["MODEL.BACKBONE.CONV_BODY", "FBNet"], "CONV_BODY",
      "A6"),
     ("configs/kitti/car/vob/mask.yaml", ["MODEL.RPN.FG_IOU_THRESHOLD", "0.6"],
@@ -161,10 +159,6 @@ UNSUPPORTED = [
      "POSITIVE_FRACTION", "A7"),
     ("configs/kitti/car/vob/mask.yaml", ["MODEL.RPN.STRADDLE_THRESH", "-1"], "STRADDLE",
      "A7"),
-    ("configs/kitti/car/vob/rcnn.yaml", ["MODEL.POINTRCNN.RPN.NMS_TYPE", "rotate"],
-     "NMS_TYPE", "A2"),
-    ("configs/kitti/car/vob/rcnn.yaml",
-     ["MODEL.POINTRCNN.TEST.RPN_DISTANCE_BASED_PROPOSE", "True"], "DISTANCE_BASED", "A2"),
     ("configs/kitti/car/vob/rcnn.yaml", ["MODEL.POINTRCNN.RPN.FIXED", "False"], "FIXED",
      "A4.4"),
     ("configs/kitti/car/vob/rpn.yaml", ["MODEL.POINTRCNN.RPN.LOSS_CLS", "SigmoidFocalLoss"],
@@ -185,6 +179,66 @@ def test_unsupported_setting_raises(path, opts, key, item):
     cfg.merge_from_list(opts)
     with pytest.raises(ValueError, match=rf"{key}.*ROADMAP {item}\)"):
         tbuild.build_detection_model(cfg, device="meta")
+
+
+def _jax_model(cfg_path, opts):
+    cfg = jax_default_cfg()
+    cfg.merge_from_file(str(REPO / cfg_path))
+    cfg.merge_from_list(list(opts))
+    return jbuild.build_detection_model(cfg)
+
+
+def _port_model(cfg_path, opts):
+    cfg = get_default_cfg()
+    cfg.merge_from_file(str(REPO / cfg_path))
+    cfg.merge_from_list(list(opts))
+    return tbuild.build_detection_model(cfg, device="meta")
+
+
+def _dispnet_fields(m):
+    d = m.dispnet
+    return dict(dispnet_on=m.dispnet_on, dispnet_maxdisp=d.maxdisp, dispnet_mindisp=d.mindisp,
+                dispnet_resolution=d.resolution, dispnet_disp_resolution=d.disp_resolution,
+                dispnet_conv_layers=d.conv_layers, dispnet_loss_weight=m.dispnet_loss_weight)
+
+
+# the settings that the port once refused (ROADMAP A6's stereo half and A2),
+# each with what the built model carries, as the JAX build_detection_model's
+# fields: (config, opts, the JAX fields, the port model's values)
+SUPPORTED = {
+    "BACKBONE.USE_GN": ("configs/kitti/car/vob/mask.yaml", ["MODEL.BACKBONE.USE_GN", "True"],
+                        lambda m: dict(use_gn=m.backbone.body.stem.bn1.__class__ is GroupNorm
+                                       and m.backbone.body.layer4_2.bn3.__class__ is GroupNorm,
+                                       use_gn_fpn=m.backbone.fpn.use_gn)),
+    "FPN.USE_GN": ("configs/kitti/car/vob/mask.yaml", ["MODEL.FPN.USE_GN", "True"],
+                   lambda m: dict(use_gn=any(isinstance(x, GroupNorm)
+                                             for x in m.backbone.body.modules()),
+                                  use_gn_fpn=m.backbone.fpn.use_gn
+                                  and m.backbone.fpn.lateral2.bias is None)),
+    "MASK_ON": ("configs/kitti/car/vob/mask.yaml", ["MODEL.MASK_ON", "False"],
+                lambda m: dict(mask_on=m.mask_on and hasattr(m, "mask_head"))),
+    "DISPNET_ON": ("configs/kitti/car/vob/mask.yaml",
+                   ["MODEL.DISPNET_ON", "True", "MODEL.DISPNET.LOSS_WEIGHT", "0.5",
+                    "MODEL.DISPNET.MAX_DISP", "64"], _dispnet_fields),
+    "NMS_TYPE": ("configs/kitti/car/vob/rcnn.yaml", ["MODEL.POINTRCNN.RPN.NMS_TYPE", "rotate"],
+                 lambda m: dict(rpn_nms_rotated=m.pointrcnn.rpn_nms_rotated,
+                                rpn_distance_based=m.pointrcnn.rpn_distance_based)),
+    "DISTANCE_BASED": ("configs/kitti/car/vob/rcnn.yaml",
+                       ["MODEL.POINTRCNN.TEST.RPN_DISTANCE_BASED_PROPOSE", "True"],
+                       lambda m: dict(rpn_nms_rotated=m.pointrcnn.rpn_nms_rotated,
+                                      rpn_distance_based=m.pointrcnn.rpn_distance_based)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SUPPORTED))
+def test_once_refused_setting_builds_as_jax(case):
+    """The setting builds, and the port's model carries what the JAX
+    build_detection_model gives its model (each field against JAX's)."""
+    path, opts, read = SUPPORTED[case]
+    jm, tm = _jax_model(path, opts), _port_model(path, opts)
+    got = read(tm)
+    want = {k: getattr(jm, k) for k in got}
+    assert got == want, case
 
 
 @pytest.mark.parametrize("opts", [["MODEL.RETINANET_ON", "True"],

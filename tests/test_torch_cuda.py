@@ -843,3 +843,77 @@ def test_bn_train_backbone_takes_no_sa_or_fp_kernel(card):
         assert d <= 1e-2 * ww, (n, d / ww)
         num, den = num + d * d, den + ww * ww
     assert num ** 0.5 <= 5e-3 * den ** 0.5
+
+
+# DispModule's trunk (MODEL.DISPNET_ON: 28^2 ROIs, [-48, 48) at stride 4):
+# (kind, input channels, output channels, input shape (D, H, W))
+DISPMODULE_SITES = [
+    ("cost_volume", 32, 32, (1, 28, 28)),  # the volume of D = 24, built in the kernel
+    ("conv3d", 32, 32, (24, 28, 28)), ("conv3d", 64, 64, (12, 14, 14)),
+    ("conv3d", 64, 64, (6, 7, 7)),
+    ("conv3d_s2", 32, 64, (24, 28, 28)), ("conv3d_s2", 64, 64, (12, 14, 14)),
+    ("deconv3d", 64, 64, (6, 7, 7)), ("deconv3d", 64, 32, (12, 14, 14)),
+    ("conv3d_cl1", 32, 1, (24, 28, 28)),
+    ("conv3d_train", 32, 32, (24, 28, 28)), ("conv3d_train", 64, 64, (6, 7, 7)),
+]
+
+
+@pytest.mark.parametrize("kind,ci,co,shape", DISPMODULE_SITES)
+def test_dispmodule_sites_match_plain(card, kind, ci, co, shape):
+    """Rows 2-6 and 8 at the shapes DispModule gives them (3 ROIs each,
+    with residuals where the trunk adds them), against their plain
+    versions, one launch each (row 8: its forward and dx)."""
+    gen = torch.Generator(device="cuda").manual_seed(ci + co + shape[0] + shape[1])
+    n = 3
+    weight = _randn(gen, *((ci, co) if kind == "deconv3d" else (co, ci)), 3, 3, 3, scale=0.05)
+    mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
+    name = "cost_volume_conv" if kind == "cost_volume" else kind
+    before = cconv.launches[name]
+    if kind == "cost_volume":
+        left, right = (_randn(gen, n, ci, *shape[1:]) for _ in range(2))
+        weight = _randn(gen, co, 2 * ci, 3, 3, 3, scale=0.05)
+        got = cconv.cost_volume_conv_bn(left, right, weight, mul, add, -12, 12, relu=True)
+        want = cconv.cost_volume_conv_bn_plain(left, right, weight, mul, add, -12, 12, True)
+        assert got.shape == (n, co, 24, *shape[1:])
+    elif kind == "conv3d_train":
+        x = _randn(gen, n, ci, *shape).requires_grad_(True)
+        dy = _randn(gen, n, co, *shape)
+        w = weight.requires_grad_(True)
+        got = _grads(cconv.conv3d_train(x, w), (x, w), dy)
+        want = _grads(cconv.conv3d_train_plain(x, w), (x, w), dy)
+        assert cconv.launches[name] == before + 2
+        for g, ww in zip(got, want):
+            _close(g, ww)
+        return
+    else:
+        x = _randn(gen, n, ci, *shape)
+        if kind == "deconv3d":
+            res = _randn(gen, n, co, *(2 * s for s in shape))
+            got = cconv.deconv3d_bn(x, weight, mul, add, res, relu=True)
+            want = cconv.deconv3d_bn_plain(x, weight, mul, add, res, relu=True)
+        elif kind == "conv3d_cl1":
+            res = _randn(gen, n, 1, *shape)
+            got = cconv.conv3d_bn(x, weight, residual=res)
+            want = cconv.conv3d_bn_plain(x, weight, residual=res)
+        else:
+            stride = 2 if kind == "conv3d_s2" else 1
+            out = tuple((s - 1) // stride + 1 for s in shape)
+            res = _randn(gen, n, co, *out)
+            got = cconv.conv3d_bn(x, weight, mul, add, res, relu=True, stride=stride)
+            want = cconv.conv3d_bn_plain(x, weight, mul, add, res, relu=True, stride=stride)
+    assert cconv.launches[name] == before + 1
+    _close(got, want)
+
+
+def test_dispmodule_softargmin_matches_plain(card):
+    """Row 15 at DispModule's 28^2 -> 112^2 over [-48, 48): the main path's
+    (24, 96) disparity taps (softargmin_fixed_kernel), within 1e-3 px."""
+    gen = torch.Generator(device="cuda").manual_seed(112)
+    logits = _randn(gen, 4, 24, 28, 28, scale=3.0)
+    before = csam.launches
+    got = csam.softargmin(logits, (112, 112), -48, 48)
+    assert csam.launches == before + 1
+    want = csam.softargmin_plain(logits, (112, 112), -48, 48)
+    torch.cuda.synchronize()
+    assert got.shape == (4, 112, 112)
+    assert float((got - want).abs().max()) <= 1e-3

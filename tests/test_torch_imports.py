@@ -68,6 +68,11 @@ SLICE_MODULES = (
     "disprcnn_tpu_torch.models.pointrcnn.rcnn3d",
     "disprcnn_tpu_torch.models.pointrcnn.rpn3d",
     "disprcnn_tpu_torch.models.psmnet.psmnet",
+    "disprcnn_tpu_torch.models.psmnet.dispmodule",
+    "disprcnn_tpu_torch.models.psmnet.inference",
+    "disprcnn_tpu_torch.models.backbone.resnet",
+    "disprcnn_tpu_torch.tools.visualize",
+    "disprcnn_tpu_torch.utils.draw",
     "disprcnn_tpu_torch.ops.cost_volume",
     "disprcnn_tpu_torch.ops.cuda.conv3d",
     "disprcnn_tpu_torch.ops.cuda.fp",
@@ -117,7 +122,8 @@ def test_no_import_statement_names_jax():
 # goes through mask.yaml's eval transforms (the resize included) and the
 # loader, the evaluator scores GT against itself, and a mini-KITTI written
 # by the port's make_mini_kitti reads back through the catalog's
-# KittiStereoDataset (its PNGs, image sizes, disparity and masks).
+# KittiStereoDataset (its PNGs, image sizes, disparity and masks), and the
+# visualizer draws boxes, masks and 3D boxes (its own line raster).
 _BLOCKED = r"""
 import importlib.abc, os, sys, tempfile
 sys.path.insert(0, {repo!r})
@@ -159,6 +165,13 @@ assert kds.image_sizes() == [(320, 96)] * 2, kds.image_sizes()
 s = kds[1]
 assert s["left"].shape == (96, 320, 3) and s["gt_valid"].any() and s["gt_disp"].max() > 0
 assert s["gt_masks"].max() == 1.0
+from disprcnn_tpu_torch.tools import visualize
+import numpy as np
+raw = catalog.resolve("synthetic_2", cfg, training=False)[0]
+pred = {{"left_boxes": raw["gt_left"][:2], "scores": np.ones(2), "valid": np.ones(2, bool),
+         "masks": np.full((2, 28, 28), 0.7, np.float32), "box3d": raw["gt_box3d"][:2]}}
+img = visualize.render(raw, pred, device="cpu")
+assert img.shape == raw["left"].shape and img.dtype == np.uint8
 print("LOADED", sorted(m for m in sys.modules if m.split(".")[0] in ("yaml", "PIL", "cv2")))
 """
 
