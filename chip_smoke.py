@@ -281,11 +281,39 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      predictions, the PNGs read back by data/png.py equal to the drawings,
      and one box outline for each valid detection in the outlines drawn
      alone.
+ 25. the models off the stereo path and the 3D RPN's other losses, at
+     full width, through build_detection_model and the model's forward, on
+     2 images of 800x1344 (INPUT.MIN/MAX_SIZE_TEST 800/1333, padded to
+     32), float32, random weights with the class heads drawn so that boxes
+     clear the score thresholds (A6_LOGIT_STD; RetinaNet's bias 0): (a)
+     the mono R-50-C4 of the bare default config (81 classes, RPN 6000 ->
+     1000, res5 on every proposal, 32 detections) and (b) the mono
+     R-50-FPN with MASK_ON and R-50-C5: one request each with the launches
+     counted from 0 (row 1 twice: the RPN's and one launch for every
+     class of both images), its ms and peak memory, and the run with row 1
+     on its plain version: detections (and masks) equal; (c) a mono C4
+     train step (4 GT boxes an image on its first proposals, moved by up
+     to 5%, seeded draws, RPN cut to 512 proposals an image:
+     A6_TRAIN_OPTS), kernels against plain under
+     deterministic algorithms, ms a step and peak memory; (d) RetinaNet
+     R-50-FPN (80 classes, 9 anchors a location, P3-P7) in eval as (a)
+     (row 1 once) and one train forward, losses finite and equal on the
+     plain route; (e) mask.yaml on FBNet-FPN, 8 pairs of 384x1248, as (a)
+     (the SRPN and the box head), and tools/train_net for 2 iterations at
+     mask.yaml's batch: FBNet's running statistics bit-equal; (f) phase
+     18's rpn.yaml step with RPN.LOSS_CLS SigmoidFocalLoss and DiceLoss:
+     rows 2-7, 9 and 15 launched, rows 1, 8, 10-14 not, the kernel step
+     against the plain step as phase 18 holds it; (g) row 1 timed at each
+     new site on its own inputs (kernel, device, plain, bound), with the
+     valid boxes that entered it (each site must have some).
 Then it prints the card (name, power limit) from nvidia-smi, one JSON line
 of per-kernel numbers (eval kernels per headline request, row 12 per
 SA-off headline request, train forms per train step), and as its last
 line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Row 1's entry also holds `a6_sites` (phase 25's sites: shape, k, valid
+boxes in, ms, device_ms, plain_ms, bound_ms) and every row `a6_launches`
+(its launches in each run of phase 25).
 Without a CUDA device, or on any failure, it exits non-zero and prints no
 result. Float32 throughout with TF32 off and deterministic cuDNN.
 """
@@ -326,6 +354,7 @@ from disprcnn_tpu_torch.engine.inference import predict, predict_2d
 from disprcnn_tpu_torch.evaluation.kitti_eval import evaluate_kitti
 from disprcnn_tpu_torch.models.detector.disprcnn import DispRCNN
 from disprcnn_tpu_torch.models.detector.disprcnn3d import DispRCNN3D
+from disprcnn_tpu_torch.models.detector import generalized_rcnn
 from disprcnn_tpu_torch.models.backbone.resnet import GroupNorm
 from disprcnn_tpu_torch.models.psmnet.inference import rois_to_fullimage_disparity
 from disprcnn_tpu_torch.ops.iou import boxes3d_to_bev, pairwise_bev_iou, pairwise_iou
@@ -370,7 +399,7 @@ import torch_ckpt_writer as ckpt_writer  # noqa: E402
 # the first card run of these kernels) are the bench's
 # (disprcnn_tpu_torch/bench.py); the train stages' configurations are
 # disprcnn_tpu_torch/tools/bench_train.py's.
-PHASES = 24
+PHASES = 25
 PAIRS = 8
 REQUESTS = 2  # at the headline budget; one more at the reference budget
 # the tests' small configurations (tests/torch_port_helpers.py, tests/test_torch_disprcnn3d.py)
@@ -4073,6 +4102,396 @@ def phase_stereo_options(card: str) -> dict:
     return {"rows": rows, "counts": counts}
 
 
+# Phase 25: the models off the stereo path (ROADMAP A6) and the 3D RPN's
+# focal and Dice losses, at full width. The single-view models run through
+# build_detection_model and their forward (the CLIs refuse them, as the JAX
+# package's do), 2 images of 800x1344: INPUT.MIN_SIZE_TEST 800 and
+# MAX_SIZE_TEST 1333, padded to a multiple of 32
+A6_DEVICE = "cuda"
+A6_SEED = 25
+A6_IMAGES = 2
+A6_HW = (800, 1344)
+A6_GT = 4  # GT boxes an image in the train steps
+# the bare default config is the mono R-50-C4 (81 classes, RPN 6000 ->
+# 1000, 32 detections an image); the FPN body needs a stride a level
+A6_MONO = (("R-50-C4", []),
+           ("R-50-FPN", ["MODEL.BACKBONE.CONV_BODY", "R-50-FPN", "MODEL.MASK_ON", "True",
+                         "MODEL.RPN.ANCHOR_STRIDE", "(4, 8, 16, 32, 64)"]),
+           ("R-50-C5", ["MODEL.BACKBONE.CONV_BODY", "R-50-C5"]))
+# (c): the C4 train step at the default's RPN train budget (12000 -> 2000
+# an image) keeps 4 x 4000 x 28^2 x 1024 floats of ROIAlign taps for the
+# backward (51 GB: the proposals keep their coordinates' gradient, as in
+# the JAX package); cut to 512 proposals an image, every width kept
+A6_TRAIN_OPTS = ["MODEL.RPN.POST_NMS_TOP_N_TRAIN", "512"]
+A6_RETINA = ["MODEL.RETINANET_ON", "True", "MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET"]
+A6_FBNET = ["MODEL.BACKBONE.CONV_BODY", "FBNet-FPN"]
+A6_FBNET_TRAIN = A6_FBNET + ["MODEL.WEIGHT", "", "SOLVER.PRINT_INTERVAL", "1"]
+A6_FBNET_ITERS = 2
+A6_RPN_LOSSES = ("SigmoidFocalLoss", "DiceLoss")
+# random weights find nothing (C15): the mono box head's class scores are
+# redrawn so that their logits spread A6_LOGIT_STD (about 1/3 of the
+# proposals then clear SCORE_THRESH 0.05 in some class), and RetinaNet's
+# class logits take bias 0 (sigmoid 0.5 against INFERENCE_TH 0.05)
+A6_LOGIT_STD = 3.0
+
+
+def a6_config(opts):
+    cfg = get_default_cfg()
+    cfg.merge_from_list(list(opts))
+    cfg.freeze()
+    return cfg
+
+
+def a6_images(seed: int = A6_SEED):
+    return bench.make_request(A6_IMAGES, A6_HW, 1, 1, A6_DEVICE, seed)[0]
+
+
+def a6_gt(gen: torch.Generator, b: int = A6_IMAGES, m: int = A6_GT, classes: int = 80):
+    """(boxes (b, m, 4), labels 1..classes, valid) on the card: boxes of
+    80-400 x 60-300 px inside A6_HW, every slot valid."""
+    h, w = A6_HW
+    u = lambda *s: torch.rand(s, generator=gen, device=A6_DEVICE)
+    bw, bh = 80 + 320 * u(b, m), 60 + 240 * u(b, m)
+    x1, y1 = (w - bw) * u(b, m), (h - bh) * u(b, m)
+    boxes = torch.stack([x1, y1, x1 + bw, y1 + bh], -1)
+    labels = (u(b, m) * classes).long().clamp_max(classes - 1) + 1
+    return boxes, labels, torch.ones(b, m, dtype=torch.bool, device=A6_DEVICE)
+
+
+def a6_gt_on_proposals(model, images, draws, gen: torch.Generator):
+    """GT boxes that the ROI sampler finds: the first A6_GT train proposals
+    of each image (an untrained RPN's proposals match no box drawn at
+    random at 0.5), each side moved by up to 5% of its box, labels 1..80."""
+    seen = []
+    orig = generalized_rcnn.rpn.postprocess_batched
+
+    def record(*args, **kwargs):
+        seen.append(orig(*args, **kwargs))
+        return seen[-1]
+
+    boxes, labels, valid = a6_gt(gen)
+    generalized_rcnn.rpn.postprocess_batched = record
+    try:
+        with torch.no_grad():
+            model(images, boxes, labels, valid, draws=draws)
+    finally:
+        generalized_rcnn.rpn.postprocess_batched = orig
+    props = seen[0]
+    p = props.xyxy[:, :A6_GT]
+    wh = (p[..., 2:] - p[..., :2]).repeat(1, 1, 2)
+    jitter = (torch.rand(p.shape, generator=gen, device=A6_DEVICE) - 0.5) * 0.1 * wh
+    return p + jitter, labels, props.valid[:, :A6_GT].clone()
+
+
+def mono_model(opts, images):
+    """The mono model of the default config with `opts`, seeded random
+    weights, its class scores redrawn to spread A6_LOGIT_STD on `images`."""
+    model = build_detection_model(a6_config(opts), device=A6_DEVICE)
+    gen = torch.Generator(device=A6_DEVICE).manual_seed(A6_SEED)
+    init_random_(model, gen)
+    feats = []
+    hook = model.box_head.cls_score.register_forward_pre_hook(
+        lambda mod, args: feats.append(args[0].norm(dim=1).mean()))
+    with torch.inference_mode():
+        model(images[:1])
+    hook.remove()
+    with torch.no_grad():
+        w = model.box_head.cls_score.weight
+        w.copy_(torch.randn(w.shape, generator=gen, device=A6_DEVICE) * (A6_LOGIT_STD
+                                                                           / float(feats[0])))
+    return model
+
+
+def boxes_equal(a, b, what: str) -> None:
+    for f in ("xyxy", "valid"):
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: detections' {f} differ, kernels vs plain")
+    for f in a.fields:
+        if not torch.equal(a.fields[f], b.fields[f]):
+            raise AssertionError(f"{what}: detections' {f} differ, kernels vs plain")
+
+
+def nms_sites(calls, labels) -> list:
+    """Row 1's launches of one request, labelled by site in launch order:
+    (label, args, valid boxes in)."""
+    if len(calls) != len(labels):
+        raise AssertionError(f"{len(calls)} row 1 launches, expected {len(labels)} ({labels})")
+    sites = []
+    for label, a in zip(labels, calls):
+        valid = int(a[1].sum())
+        if valid == 0:
+            raise AssertionError(f"row 1 at {label} {tuple(a[0].shape)}: no valid box entered")
+        sites.append((label, a, valid))
+    return sites
+
+
+@torch.inference_mode()
+def a6_eval(name: str, model, images, site_labels, run=None) -> dict:
+    """One request of `model` on `images`: launches counted from 0, its ms
+    and peak memory, row 1's launches captured by site, and the run with
+    row 1 on its plain version: detections (and masks) equal."""
+    run = run or (lambda: model(images))
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out, ms = bench.timed(run, "cuda")
+    launches = {k: v for k, v in read_launches().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches != {"nms_sorted": len(site_labels)}:
+        raise AssertionError(f"{name}: launches {launches}, expected row 1 "
+                             f"{len(site_labels)} times and no other kernel")
+    sites = nms_sites(capture_launches(run, dict(nms_sorted_cuda="nms_sorted"))["nms_sorted"],
+                      site_labels)
+    with all_plain():
+        plain = run()
+    torch.cuda.synchronize()
+    dets = out["detections"]
+    if hasattr(dets, "xyxy"):
+        boxes_equal(dets, plain["detections"], name)
+    else:
+        for f in ("left", "right", "score", "valid"):
+            if not torch.equal(getattr(dets, f), getattr(plain["detections"], f)):
+                raise AssertionError(f"{name}: detections' {f} differ, kernels vs plain")
+    if "masks" in out and not torch.equal(out["masks"], plain["masks"]):
+        raise AssertionError(f"{name}: masks differ, kernels vs plain")
+    n = int(dets.valid.sum())
+    finite = all(torch.isfinite(t).all() for t in (
+        (dets.xyxy, dets.fields["scores"]) if hasattr(dets, "xyxy") else (dets.left, dets.score)))
+    if n == 0 or not finite:
+        raise AssertionError(f"{name}: {n} valid detections, finite {finite}")
+    log(f"  {name}: a request {ms:.3f} ms, peak {peak:.2f} GB, {n} valid detections of "
+        f"{dets.valid.numel()} slots, launches {launches}; row 1's sites "
+        + ", ".join(f"{lb} {tuple(a[0].shape[:2])} k={a[2]} with {v} valid boxes"
+                    for lb, a, v in sites)
+        + "; kernels vs plain: detections" + (" and masks" if "masks" in out else "")
+        + " equal")
+    return {"launches": launches, "ms": ms, "peak_gb": peak, "sites": sites, "valid": n}
+
+
+def a6_mono_train(card: str, images) -> dict:
+    """(c): one train step of the mono R-50-C4 on 2 images with A6_GT GT
+    boxes each and seeded draws, kernels against plain under deterministic
+    algorithms; then the step timed."""
+    model = mono_model(A6_TRAIN_OPTS, images)
+    model.train()
+    gen = torch.Generator(device=A6_DEVICE).manual_seed(A6_SEED + 1)
+    with torch.no_grad():
+        n_anchors = model.rpn_head(
+            (model.backbone(images.permute(0, 3, 1, 2).contiguous())[-1],))[0][0][0].numel()
+    draws = generalized_rcnn.draw_mono_draws(A6_IMAGES, n_anchors,
+                                             model.post_nms_top_n_train, gen, A6_DEVICE)
+    gt = a6_gt_on_proposals(model, images, draws, gen)
+    params = trainable(model)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        out = model(images, *gt, draws=draws)
+        sum(out.values()).backward()
+        return out
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms = [bench.timed(step, "cuda")[1] for _ in range(TRAIN_STEPS)]
+    launches = {k: v for k, v in read_launches().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches != {"nms_sorted": TRAIN_STEPS}:
+        raise AssertionError(f"mono C4 train step launches {launches}: row 1 once a step")
+    with deterministic(), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mk = {k: v.detach() for k, v in step().items()}
+        gk = {n: p.grad.clone() for n, p in params.items() if p.grad is not None}
+        with all_plain():
+            mp = {k: v.detach() for k, v in step().items()}
+        gp = {n: p.grad.clone() for n, p in params.items() if p.grad is not None}
+    torch.cuda.synchronize()
+    bad = [k for k, v in mk.items() if not (torch.isfinite(v) and v > 0)]
+    if bad or set(gk) != set(gp) or not gk:
+        raise AssertionError(f"mono C4 train step: losses { {k: float(v) for k, v in mk.items()} }, "
+                             f"{len(gk)} gradients")
+    if all(torch.equal(mk[k], mp[k]) for k in mk) and all(torch.equal(gk[n], gp[n]) for n in gk):
+        compared = "the four losses and every gradient bit-equal"
+    else:
+        ops = sorted({str(w.message).split(" does not have")[0] for w in caught
+                      if "deterministic" in str(w.message)})
+        for k in mk:
+            if abs(float(mk[k]) - float(mp[k])) > STEP_LOSS_RTOL * abs(float(mp[k])):
+                raise AssertionError(f"mono C4 step: kernel {k} {float(mk[k])} against plain "
+                                     f"{float(mp[k])}")
+        compared = (f"not bit-equal (ops without a deterministic CUDA form: {ops or 'none'}); "
+                    f"losses within {STEP_LOSS_RTOL:g} relative, gradients per tensor max "
+                    f"|diff| <= {grads_agree(gk, gp, 'mono C4 step'):.3g} * max |plain|")
+    med = sorted(ms)[len(ms) // 2]
+    log(f"  mono R-50-C4 train step ({A6_IMAGES} images of {A6_HW[0]}x{A6_HW[1]}, "
+        f"{A6_GT} GT boxes each on its proposals, RPN 12000 -> {model.post_nms_top_n_train} proposals an "
+        f"image, {model.roi_batch_per_image} ROIs sampled): ms/step "
+        f"{[round(t, 3) for t in ms]} (median {med:.3f}), peak {peak:.2f} GB, losses "
+        f"{ {k: round(float(v), 5) for k, v in mk.items()} }, {len(gk)} parameters with "
+        f"gradients, launches {launches}; kernel vs plain step: {compared}")
+    return {"launches": launches, "ms_per_step": med, "peak_gb": peak}
+
+
+def a6_retinanet(card: str, images) -> tuple:
+    """(d): RetinaNet R-50-FPN (80 classes, 9 anchors a location, P3-P7):
+    eval kernels against plain; one train step, losses finite and equal on
+    both routes (no kernel runs in its train forward)."""
+    model = build_detection_model(a6_config(A6_RETINA), device=A6_DEVICE)
+    init_random_(model, torch.Generator(device=A6_DEVICE).manual_seed(A6_SEED))
+    with torch.no_grad():
+        model.head.cls_logits.bias.zero_()
+    ev = a6_eval("RetinaNet R-50-FPN eval", model, images, ["RetinaNet"])
+    model.train()
+    gt = a6_gt(torch.Generator(device=A6_DEVICE).manual_seed(A6_SEED + 2))
+    reset_launches()
+    out, ms = bench.timed(lambda: model(images, *gt), "cuda")
+    sum(out.values()).backward()
+    launches = {k: v for k, v in read_launches().items() if v}
+    with all_plain():
+        plain = model(images, *gt)
+    if launches or not all(torch.isfinite(v) and torch.equal(v, plain[k])
+                           for k, v in out.items()):
+        raise AssertionError(f"RetinaNet train: launches {launches}, losses "
+                             f"{ {k: float(v) for k, v in out.items()} }, plain "
+                             f"{ {k: float(v) for k, v in plain.items()} }")
+    log(f"  RetinaNet train forward {ms:.3f} ms, losses "
+        f"{ {k: round(float(v.detach()), 5) for k, v in out.items()} } (plain route equal), "
+        "no kernel")
+    return ev, ms
+
+
+def a6_fbnet(card: str, tmp: str) -> tuple:
+    """(e): mask.yaml on FBNet-FPN: a request of 8 pairs, kernels against
+    plain (detections and masks); tools/train_net, 2 iterations at mask.yaml's
+    batch, FBNet's running statistics unchanged."""
+    cfg = train_net.load_config(STEREO_YAML, A6_FBNET)
+    model = init_random_(build_detection_model(cfg, device=STEREO_DEVICE),
+                         torch.Generator(device=STEREO_DEVICE).manual_seed(A6_SEED))
+    req = bench.make_request(PAIRS, IMG_HW, 1, 1, STEREO_DEVICE, A6_SEED)
+    ev = a6_eval("mask.yaml on FBNet-FPN eval", model, None, ["SRPN", "box head"],
+                 run=lambda: predict_2d(model, req[0], req[1]))
+    check_outputs(bench.timed(lambda: predict_2d(model, req[0], req[1]), "cuda")[0], PAIRS,
+                  cfg.TPU.MAX_DETECTIONS)
+    del model
+    torch.cuda.empty_cache()
+    cfg = train_net.load_config(STEREO_YAML, A6_FBNET_TRAIN + [
+        "OUTPUT_DIR", os.path.join(tmp, "fbnet_train")], A6_FBNET_ITERS)
+    model = init_random_(build_detection_model(cfg, device=STEREO_DEVICE),
+                         torch.Generator(device=STEREO_DEVICE).manual_seed(A6_SEED))
+    stats = {n: b.clone() for n, b in model.backbone.body.named_buffers()}
+    reset_launches()
+    res = train_net.train(cfg, dataset=STEREO_DATASET, static_hw=IMG_HW, device=STEREO_DEVICE,
+                          seed=A6_SEED, model=model)
+    launches = check_rows(read_launches(), ("nms_sorted",), "train_net mask.yaml FBNet-FPN")
+    for it, m in res["metrics"]:
+        if not all(math.isfinite(v) for k, v in m.items() if k.startswith("loss")) \
+                or m["skipped_nonfinite"] or m["params_without_grad"]:
+            raise AssertionError(f"FBNet train iteration {it}: {m}")
+    moved = [n for n, b in model.backbone.body.named_buffers() if not torch.equal(b, stats[n])]
+    if moved or res["iters"] != A6_FBNET_ITERS:
+        raise AssertionError(f"FBNet train_net: {res['iters']} iterations, running statistics "
+                             f"moved: {moved[:3]}")
+    log(f"  train_net mask.yaml on FBNet-FPN: {res['iters']} iterations, "
+        f"{res['stats']['s_per_iter']:.3f} s/iteration, launches {launches}, losses of the "
+        f"last { {k: round(v, 5) for k, v in res['metrics'][-1][1].items() if k.startswith('loss')} }, "
+        f"all {len(stats)} FBNet buffers bit-equal (its norms keep running statistics)")
+    return ev, launches
+
+
+def a6_rpn_losses(card: str) -> dict:
+    """(f): phase 18's rpn.yaml step with RPN.LOSS_CLS SigmoidFocalLoss and
+    DiceLoss: the launches of a step, and the kernel step against the plain
+    step on one frozen-stage output."""
+    out = {}
+    for loss in A6_RPN_LOSSES:
+        st = bench_train.rpn_stage(RPN_PAIRS, torch.Generator(device="cuda").manual_seed(14),
+                                   cfg=dict(RPN_TRAIN, rpn_loss_cls=loss))
+        model, opt, step, batch = st.model, st.optimizer, st.step, st.batch
+        step(batch)
+        torch.cuda.synchronize()
+        reset_launches()
+        m, ms = bench.timed(lambda: step(batch), "cuda")
+        launches = read_launches()
+        needed = ("cost_volume_conv", "conv3d", "conv3d_cl1", "conv3d_s2", "deconv3d", "conv2d",
+                  "softargmin", "fps")
+        absent = ("nms_sorted", "conv3d_train", "sa", "sa_train", "grouped_mlp", "fp",
+                  "roipool3d")
+        if any(launches[k] == 0 for k in needed) or any(launches[k] for k in absent):
+            raise AssertionError(f"RPN step ({loss}) launches {launches}")
+        rel, gk, gp, _, mk, _ = kernel_vs_plain_step(model, opt, step, batch,
+                                                     f"RPN step ({loss})",
+                                                     share_inputs=model.pointrcnn)
+        grad_err = grads_agree(gk, gp, f"RPN step ({loss})")
+        cls = float(mk["loss_rpn_cls"])
+        if not (math.isfinite(cls) and cls > 0):
+            raise AssertionError(f"RPN step ({loss}): loss_rpn_cls {cls}")
+        log(f"  rpn.yaml step with RPN.LOSS_CLS {loss}: {ms:.3f} ms, loss_rpn_cls {cls:.5g}, "
+            f"loss_rpn_reg {float(mk['loss_rpn_reg']):.5g}, launches "
+            f"{ {k: v for k, v in launches.items() if v} }; kernel vs plain step: loss "
+            f"{rel:.3g} relative, gradients per tensor max |diff| <= {grad_err:.3g} * max "
+            f"|plain|")
+        out[loss] = {k: v for k, v in launches.items() if v}
+        del st, model, opt, step, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+@torch.inference_mode()
+def a6_site_rows(sites) -> dict:
+    """(g): row 1 at each new site on its own inputs: kernel, device and
+    plain ms, bound, valid boxes in."""
+    rows = {}
+    for label, a, valid in sites:
+        r = time_launches("nms_sorted", [(f" {label}", [a], cuda_nms.nms_sorted_cuda,
+                                          cuda_nms.nms_sorted_plain, None, nms_work,
+                                          lambda g, w: main_path_err("nms_sorted", g, w))],
+                          0.0, "nms.cu", "disprcnn_tpu/ops/pallas/nms.py:98")
+        rows[label] = {"shape": list(a[0].shape[:2]), "k": a[2], "valid_in": valid,
+                       **{k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                            "bound_by")}}
+    return rows
+
+
+def phase_single_view(card: str) -> dict:
+    """Phase 25: (a) the mono R-50-C4 of the bare default config, (b) the
+    mono R-50-FPN with MASK_ON and R-50-C5, (c) a mono C4 train step, (d)
+    RetinaNet, (e) mask.yaml on FBNet-FPN, (f) the rpn.yaml step with the
+    focal and Dice losses, (g) row 1 at each new site. -> {"sites": row 1's
+    site rows, "counts": {run: launches}}."""
+    t0 = time.perf_counter()
+    images = a6_images()
+    counts, sites = {}, []
+    for name, opts in A6_MONO:
+        model = mono_model(opts, images)
+        ev = a6_eval(f"mono {name} eval", model, images,
+                     [f"mono {name} RPN", f"mono {name} per-class"])
+        counts[f"mono {name}"] = ev["launches"]
+        sites += ev["sites"]
+        del model, ev
+        torch.cuda.empty_cache()
+    tr = a6_mono_train(card, images)
+    counts["mono R-50-C4 train step"] = tr["launches"]
+    torch.cuda.empty_cache()
+    ev, _ = a6_retinanet(card, images)
+    counts["RetinaNet"] = ev["launches"]
+    sites += ev["sites"]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ev, tl = a6_fbnet(card, tmp)
+    counts["FBNet-FPN mask.yaml"], counts["FBNet-FPN train_net"] = ev["launches"], tl
+    sites += [(f"FBNet-FPN {lb}", a, v) for lb, a, v in ev["sites"]]
+    torch.cuda.empty_cache()
+    for loss, launches in a6_rpn_losses(card).items():
+        counts[f"rpn.yaml {loss}"] = launches
+    rows = a6_site_rows(sites)
+    del sites
+    torch.cuda.empty_cache()
+    log(f"[25/{PHASES}] single-view models and the 3D RPN's losses on {card} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"sites": rows, "counts": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4151,6 +4570,12 @@ def main() -> int:
                 row["stereo_options"] = {k: r[k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
                     "launch_ms", "device_ms")}
+        torch.cuda.empty_cache()
+        a6 = phase_single_view(card)
+        for row in kernels:
+            row["a6_launches"] = {run: c[row["name"]] for run, c in a6["counts"].items()
+                                  if c.get(row["name"])}
+        row1["a6_sites"] = a6["sites"]
         log(f"done in {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     except Exception:  # report any phase's failure and exit non-zero
         traceback.print_exc()

@@ -38,6 +38,24 @@ def preds_to_stereoboxes(batch: Dict[str, np.ndarray], device) -> StereoBoxes:
     )
 
 
+def check_cli_model(cfg) -> None:
+    """Raise ValueError on a config whose model the CLIs do not run: the
+    single-view ones, MODEL.RETINANET_ON and MODEL.META_ARCHITECTURE
+    "GeneralizedRCNN" with MODEL.STEREO_ON False. The JAX package's CLIs
+    feed left/right pairs and read the stereo detections, and do not run
+    them either; their entry point is models/build.py's
+    build_detection_model and the model's forward."""
+    single = ("MODEL.RETINANET_ON True" if cfg.MODEL.RETINANET_ON else
+              "MODEL.META_ARCHITECTURE GeneralizedRCNN with MODEL.STEREO_ON False"
+              if cfg.MODEL.META_ARCHITECTURE == "GeneralizedRCNN" and not cfg.MODEL.STEREO_ON
+              else None)
+    if single:
+        raise ValueError(f"{single} is a single-view model, which test_net and train_net do "
+                         "not run (nor do the JAX package's CLIs, which feed stereo pairs): "
+                         "build it with models.build.build_detection_model and call its "
+                         "forward")
+
+
 # keys the 2D detector trains on, besides the images
 _KEYS_2D = ("gt_left", "gt_right", "gt_labels", "gt_valid", "gt_masks")
 
@@ -52,7 +70,9 @@ def make_batch_converter(cfg, device):
     In train, DispRCNN takes gt_left, gt_right, gt_labels, gt_valid and
     gt_masks, and gt_disp with DISPNET_ON and TRAIN_PSM (when the batch
     has it); DispRCNN3D gt_disp (when the batch has it), gt_left,
-    gt_boxes3d (the batch's gt_box3d) and gt_valid."""
+    gt_boxes3d (the batch's gt_box3d) and gt_valid. A single-view config
+    raises (check_cli_model)."""
+    check_cli_model(cfg)
     meta = cfg.MODEL.META_ARCHITECTURE
     if meta in ("DispRCNN", "GeneralizedRCNN"):
         want_disp = bool(cfg.MODEL.DISPNET_ON and cfg.SOLVER.TRAIN_PSM)

@@ -2,7 +2,9 @@
 disprcnn_tpu/models/backbone/resnet.py; reference modeling/backbone/resnet.py).
 
 Bottleneck stacks of R-50/101/152, stride in the 1x1 conv, C2..C5 outputs
-for the FPN. NCHW inside. Every norm is a FrozenBatchNorm, or with
+for the FPN, or with ``num_stages`` 3 (C4) the first three stages alone
+(the mono detector's single-map bodies R-x-C4 and R-x-C5). ``Stage5Head``
+is res5 on pooled ROI features (the C4/C5 box head). NCHW inside. Every norm is a FrozenBatchNorm, or with
 ``use_gn`` (MODEL.BACKBONE.USE_GN) a trainable GroupNorm of 32 groups,
 eps 1e-5, computed as Flax's: the variance is E[x^2] - E[x]^2 over each
 group, clipped at 0 (``nn.GroupNorm`` takes it in two passes, which is
@@ -124,14 +126,20 @@ class Stem(nn.Module):
         return F.max_pool2d(x, 3, stride=2, padding=0, ceil_mode=True)
 
 
+def body_blocks(body: str) -> Tuple[int, ...]:
+    """The blocks a stage of a ResNet body name, its -FPN, -C4 or -C5
+    suffix stripped."""
+    return STAGE_BLOCKS[body.replace("-FPN", "").replace("-C4", "").replace("-C5", "")]
+
+
 class ResNet(nn.Module):
-    """-> (C2, C3, C4, C5) NCHW feature maps."""
+    """-> (C2, C3, C4, C5) NCHW feature maps, the first `num_stages` of them."""
 
     def __init__(self, body: str = "R-101", stem_out_channels: int = 64,
                  res2_out_channels: int = 256, width_per_group: int = 64,
-                 stride_in_1x1: bool = True, use_gn: bool = False):
+                 stride_in_1x1: bool = True, use_gn: bool = False, num_stages: int = 4):
         super().__init__()
-        blocks = STAGE_BLOCKS[body.replace("-FPN", "")]
+        blocks = body_blocks(body)[:num_stages]
         self.stem = Stem(stem_out_channels, use_gn)
         self.block_names = []
         in_ch = stem_out_channels
@@ -160,3 +168,27 @@ class ResNet(nn.Module):
                 x = x.detach()
             outs.append(x)
         return tuple(outs)
+
+
+class Stage5Head(nn.Module):
+    """res5 on pooled ROI features (reference ResNet50Conv5ROIFeatureExtractor,
+    the C4 box head's path): (N, in_channels, r, r) -> (N, 2048, r/2, r/2),
+    the first block at stride 2, blocks named layer4_{b} as the JAX
+    package's. in_channels is the body's last map's: 1024 for C4, 2048 for
+    C5."""
+
+    def __init__(self, body: str = "R-50", in_channels: int = 1024, width_per_group: int = 64,
+                 stride_in_1x1: bool = True, use_gn: bool = False):
+        super().__init__()
+        self.block_names = []
+        for b in range(body_blocks(body)[3]):
+            name = f"layer4_{b}"
+            self.add_module(name, Bottleneck(
+                in_channels if b == 0 else 2048, width_per_group * 8, 2048,
+                stride=2 if b == 0 else 1, stride_in_1x1=stride_in_1x1, use_gn=use_gn))
+            self.block_names.append(name)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        return x

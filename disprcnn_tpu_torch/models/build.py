@@ -2,18 +2,32 @@
 reference modeling/detector/detectors.py:11-14).
 
 ``build_detection_model(cfg, device="cuda")`` builds the port's model of
-MODEL.META_ARCHITECTURE:
+MODEL.META_ARCHITECTURE, as the JAX build_detection_model dispatches:
+- MODEL.RETINANET_ON: ``RetinaNetDetector`` (R-x-FPN over P3-P7; the body
+  is CONV_BODY without -FPN and -RETINANET, num_classes
+  RETINANET.NUM_CLASSES - 1, max_det TEST.DETECTIONS_PER_IMG);
+- "GeneralizedRCNN" with MODEL.STEREO_ON False: the mono
+  ``GeneralizedRCNN`` on CONV_BODY as given (R-x-C4, R-x-C5, R-x-FPN or
+  FBNet[-<arch>]), max_det TPU.MAX_DETECTIONS;
 - "DispRCNN", or "GeneralizedRCNN" with MODEL.STEREO_ON: the 2D stereo
   detector (``DispRCNN``), as every shipped mask.yaml asks;
-  on a ResNet-FPN body, with MODEL.BACKBONE.USE_GN / MODEL.FPN.USE_GN
-  (GroupNorm), MODEL.MASK_ON and MODEL.DISPNET_ON (DispModule, wired from
-  MODEL.DISPNET.{MAX_DISP, MIN_DISP, RESOLUTIONS[0], DISP_RESOLUTIONS[0],
-  CONV_LAYERS, LOSS_WEIGHT} as the JAX build_detection_model wires them);
+  on a ResNet-FPN or FBNet[-<arch>]-FPN body (MODEL.FBNET.{SCALE_FACTOR,
+  WIDTH_DIVISOR, DW_CONV_SKIP_BN, DW_CONV_SKIP_RELU}), with
+  MODEL.BACKBONE.USE_GN / MODEL.FPN.USE_GN (GroupNorm), MODEL.MASK_ON and
+  MODEL.DISPNET_ON (DispModule, wired from MODEL.DISPNET.{MAX_DISP,
+  MIN_DISP, RESOLUTIONS[0], DISP_RESOLUTIONS[0], CONV_LAYERS, LOSS_WEIGHT}
+  as the JAX build_detection_model wires them);
 - "DispRCNN3D": the stage 2-4 model over offline 2D predictions, with
-  MODEL.POINTRCNN.RPN.NMS_TYPE ("rotate": the rotated BEV NMS) and
-  TEST.RPN_DISTANCE_BASED_PROPOSE.
-RetinaNet (MODEL.RETINANET_ON), the mono "GeneralizedRCNN" (STEREO_ON
-False) and the FBNet bodies raise: they are ROADMAP A6.
+  MODEL.POINTRCNN.RPN.NMS_TYPE ("rotate": the rotated BEV NMS),
+  TEST.RPN_DISTANCE_BASED_PROPOSE and RPN.LOSS_CLS (BinaryCrossEntropy,
+  SigmoidFocalLoss or DiceLoss, at the JAX package's focal alpha 0.25 and
+  gamma 2).
+Each reads the keys the JAX build reads for that model and no other: the
+RetinaNet and mono models do not read RETINANET.NUM_CONVS, PRIOR_PROB,
+BBOX_REG_WEIGHT, BBOX_REG_BETA, USE_C5 or STRADDLE_THRESH, nor the RPN's
+and ROI heads' matching thresholds and sampler sizes (the JAX models fix
+them at the reference defaults), and neither reads MODEL.FBNET.ARCH (an
+FBNet body's arch is its name's).
 
 The JAX build passes some settings that the port's constructors do not
 take, because the port runs one value of each. For those the build reads
@@ -22,21 +36,19 @@ whenever the config asks for another value:
 
 | key | the port runs | item |
 |---|---|---|
-| MODEL.BACKBONE.CONV_BODY | R-50/101/152(-FPN) | A6 (FBNet) |
-| MODEL.BACKBONE.FREEZE_CONV_BODY_AT | 2 (stem and layer1 detached) | A7 |
-| MODEL.RPN.STRADDLE_THRESH | anchors.STRADDLE_THRESH (0) | A7 |
-| MODEL.RPN.FG/BG_IOU_THRESHOLD, BATCH_SIZE_PER_IMAGE, POSITIVE_FRACTION | stereo_rpn.loss's defaults | A7 |
-| MODEL.ROI_HEADS.FG/BG_IOU_THRESHOLD, POSITIVE_FRACTION | box_head.subsample's defaults | A7 |
+| MODEL.BACKBONE.FREEZE_CONV_BODY_AT (ResNet bodies; every model) | 2 (stem and layer1 detached) | A7 |
+| MODEL.RPN.STRADDLE_THRESH (DispRCNN) | anchors.STRADDLE_THRESH (0) | A7 |
+| MODEL.RPN.FG/BG_IOU_THRESHOLD, BATCH_SIZE_PER_IMAGE, POSITIVE_FRACTION (DispRCNN) | stereo_rpn.loss's defaults | A7 |
+| MODEL.ROI_HEADS.FG/BG_IOU_THRESHOLD, POSITIVE_FRACTION (DispRCNN) | box_head.subsample's defaults | A7 |
 | MODEL.POINTRCNN.RPN.FIXED (DET3D_ON) | equal to RCNN.ENABLED | A4.4 |
-| MODEL.POINTRCNN.RPN.LOSS_CLS (the RPN trains) | BinaryCrossEntropy | A4.1 |
 | MODEL.POINTRCNN.RCNN.LOSS_CLS (RCNN.ENABLED) | BinaryCrossEntropy | A7 |
 | MODEL.POINTRCNN.AUG_DATA, RCNN.ROI_FG_AUG_TIMES, AUG_ROT_RANGE (RCNN.ENABLED) | True, rcnn3d.FG_AUG_TIMES, rcnn3d.AUG_ROT_RANGE | A7 |
 | MODEL.POINTRCNN.TRAIN.RPN_NMS_THRESH (RCNN.ENABLED) | point_rcnn.TRAIN_RPN_NMS_THRESH (0.85) | A7 |
 
 A key is checked only where the JAX model would read it (the DISPNET_*
-and FBNET_* widths only with their module on, the 3D train settings only
-with the 3D stage on). Every one of the 20 configs under configs/ sets the
-port's values.
+widths only with their module on, FREEZE_CONV_BODY_AT only with a ResNet
+body, the 3D train settings only with the 3D stage on). Every one of the
+20 configs under configs/ sets the port's values.
 
 Read and not obeyed: TPU.COMPUTE_DTYPE and TPU.PARAM_DTYPE (the port
 computes in float32, ROADMAP C7), and the TPU layout keys TPU.REMAT_* and
@@ -52,9 +64,11 @@ import inspect
 
 import torch
 
-from .backbone.resnet import STAGE_BLOCKS
+from .backbone.resnet import body_blocks
 from .detector.disprcnn import DispRCNN
 from .detector.disprcnn3d import DispRCNN3D
+from .detector.generalized_rcnn import GeneralizedRCNN
+from .detector.retinanet_det import RetinaNetDetector
 from .pointrcnn import point_rcnn, rcnn3d
 from .roi_heads import box_head
 from .rpn import anchors, stereo_rpn
@@ -72,14 +86,25 @@ def _require(cfg, key: str, want, item: str) -> None:
         raise ValueError(f"{key} = {node!r}: the port runs only {want!r} (ROADMAP {item})")
 
 
+def _check_body(cfg, body: str) -> None:
+    """A ResNet body (its blocks known) with FREEZE_CONV_BODY_AT 2, or an
+    FBNet body (which the JAX package never freezes, and so does not read
+    FREEZE_CONV_BODY_AT for)."""
+    if body.startswith("FBNet"):
+        return
+    try:
+        body_blocks(body)
+    except KeyError:
+        raise ValueError(f"MODEL.BACKBONE.CONV_BODY = {cfg.MODEL.BACKBONE.CONV_BODY!r}: not a "
+                         "ResNet (R-50/101/152) or FBNet body") from None
+    _require(cfg, "MODEL.BACKBONE.FREEZE_CONV_BODY_AT", 2, "A7")
+
+
 def _check_2d(cfg) -> str:
-    """The 2D detector's fixed settings; -> the ResNet body."""
+    """The 2D stereo detector's fixed settings; -> its body."""
     body = cfg.MODEL.BACKBONE.CONV_BODY.replace("-FPN", "")
-    if body not in STAGE_BLOCKS:
-        raise ValueError(f"MODEL.BACKBONE.CONV_BODY = {cfg.MODEL.BACKBONE.CONV_BODY!r}: the "
-                         f"port has the ResNet-FPN bodies {sorted(STAGE_BLOCKS)} (ROADMAP A6)")
+    _check_body(cfg, body)
     fixed = (
-        ("MODEL.BACKBONE.FREEZE_CONV_BODY_AT", 2, "A7"),
         ("MODEL.RPN.STRADDLE_THRESH", anchors.STRADDLE_THRESH, "A7"),
         ("MODEL.RPN.FG_IOU_THRESHOLD", _default(stereo_rpn.loss, "fg_iou"), "A7"),
         ("MODEL.RPN.BG_IOU_THRESHOLD", _default(stereo_rpn.loss, "bg_iou"), "A7"),
@@ -102,8 +127,6 @@ def _check_3d(cfg) -> None:
     if not cfg.MODEL.DET3D_ON:
         return
     _require(cfg, "MODEL.POINTRCNN.RPN.FIXED", p.RCNN.ENABLED, "A4.4")
-    if not p.RPN.FIXED:
-        _require(cfg, "MODEL.POINTRCNN.RPN.LOSS_CLS", "BinaryCrossEntropy", "A4.1")
     if p.RCNN.ENABLED:
         _require(cfg, "MODEL.POINTRCNN.RCNN.LOSS_CLS", "BinaryCrossEntropy", "A7")
         _require(cfg, "MODEL.POINTRCNN.AUG_DATA", True, "A7")
@@ -119,10 +142,55 @@ def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=
     PointNet++ families off a DispRCNN3D (models/pointrcnn/pointnet2.py)."""
     meta = cfg.MODEL.META_ARCHITECTURE
     if cfg.MODEL.RETINANET_ON:
-        raise NotImplementedError("MODEL.RETINANET_ON: RetinaNet is not ported (ROADMAP A6)")
+        r = cfg.MODEL.RETINANET
+        body = cfg.MODEL.BACKBONE.CONV_BODY.replace("-FPN", "").replace("-RETINANET", "")
+        _check_body(cfg, body)
+        return RetinaNetDetector(
+            body=body,
+            out_channels=cfg.MODEL.RESNETS.BACKBONE_OUT_CHANNELS,
+            num_classes=r.NUM_CLASSES - 1,
+            anchor_sizes=tuple(r.ANCHOR_SIZES),
+            anchor_strides=tuple(r.ANCHOR_STRIDES),
+            aspect_ratios=tuple(r.ASPECT_RATIOS),
+            octave=r.OCTAVE,
+            scales_per_octave=r.SCALES_PER_OCTAVE,
+            fg_iou=r.FG_IOU_THRESHOLD,
+            bg_iou=r.BG_IOU_THRESHOLD,
+            loss_gamma=r.LOSS_GAMMA,
+            loss_alpha=r.LOSS_ALPHA,
+            pre_nms_top_n=r.PRE_NMS_TOP_N,
+            score_thresh=r.INFERENCE_TH,
+            nms_thresh=r.NMS_TH,
+            max_det=cfg.TEST.DETECTIONS_PER_IMG,
+            use_gn=cfg.MODEL.BACKBONE.USE_GN,
+            device=device,
+        )
     if meta == "GeneralizedRCNN" and not cfg.MODEL.STEREO_ON:
-        raise NotImplementedError("the mono GeneralizedRCNN (MODEL.STEREO_ON False) is not "
-                                  "ported (ROADMAP A6)")
+        rpn = cfg.MODEL.RPN
+        _check_body(cfg, cfg.MODEL.BACKBONE.CONV_BODY)
+        return GeneralizedRCNN(
+            body=cfg.MODEL.BACKBONE.CONV_BODY,
+            out_channels=cfg.MODEL.RESNETS.BACKBONE_OUT_CHANNELS,
+            anchor_sizes=tuple(rpn.ANCHOR_SIZES),
+            anchor_strides=tuple(rpn.ANCHOR_STRIDE),
+            aspect_ratios=tuple(rpn.ASPECT_RATIOS),
+            pre_nms_top_n_train=rpn.PRE_NMS_TOP_N_TRAIN,
+            pre_nms_top_n_test=rpn.PRE_NMS_TOP_N_TEST,
+            post_nms_top_n_train=rpn.POST_NMS_TOP_N_TRAIN,
+            post_nms_top_n_test=rpn.POST_NMS_TOP_N_TEST,
+            rpn_nms_thresh=rpn.NMS_THRESH,
+            num_classes=cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES,
+            mlp_head_dim=cfg.MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM,
+            roi_batch_per_image=cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE,
+            score_thresh=cfg.MODEL.ROI_HEADS.SCORE_THRESH,
+            box_nms_thresh=cfg.MODEL.ROI_HEADS.NMS,
+            max_det=cfg.TPU.MAX_DETECTIONS,
+            mask_on=cfg.MODEL.MASK_ON,
+            use_gn=cfg.MODEL.BACKBONE.USE_GN,
+            fbnet_scale_factor=cfg.MODEL.FBNET.SCALE_FACTOR,
+            fbnet_width_divisor=cfg.MODEL.FBNET.WIDTH_DIVISOR,
+            device=device,
+        )
     if meta in ("DispRCNN", "GeneralizedRCNN"):
         body = _check_2d(cfg)
         rpn, heads = cfg.MODEL.RPN, cfg.MODEL.ROI_HEADS
@@ -163,6 +231,10 @@ def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=
             use_gn=cfg.MODEL.BACKBONE.USE_GN,
             use_gn_fpn=cfg.MODEL.FPN.USE_GN,
             srpn_quirk_exact=cfg.TPU.SRPN_QUIRK_EXACT,
+            fbnet_scale_factor=cfg.MODEL.FBNET.SCALE_FACTOR,
+            fbnet_width_divisor=cfg.MODEL.FBNET.WIDTH_DIVISOR,
+            fbnet_dw_skip_bn=cfg.MODEL.FBNET.DW_CONV_SKIP_BN,
+            fbnet_dw_skip_relu=cfg.MODEL.FBNET.DW_CONV_SKIP_RELU,
             device=device,
         )
     if meta == "DispRCNN3D":
@@ -195,6 +267,7 @@ def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=
             rpn_nms_thresh=p.TEST.RPN_NMS_THRESH,
             rpn_nms_rotated=p.RPN.NMS_TYPE == "rotate",
             rpn_distance_based=p.TEST.RPN_DISTANCE_BASED_PROPOSE,
+            rpn_loss_cls=p.RPN.LOSS_CLS,
             rpn_pre_nms_per_roi=p.TEST.RPN_PRE_NMS_TOP_N,
             proposals_per_roi=p.TEST.RPN_POST_NMS_TOP_N,
             rpn_pre_nms_per_roi_train=p.TRAIN.RPN_PRE_NMS_TOP_N,

@@ -1,7 +1,8 @@
 """DispRCNN 2D stereo detector (counterpart of
 disprcnn_tpu/models/detector/disprcnn.py; reference
 modeling/detector/disprcnn.py:93-160), on a ResNet-FPN body with
-FrozenBatchNorm or GroupNorm (use_gn, use_gn_fpn), with or without its
+FrozenBatchNorm or GroupNorm (use_gn, use_gn_fpn) or an FBNet[-<arch>]
+body (the four fbnet_* settings, MODEL.FBNET.*), with or without its
 mask head (mask_on) and its in-framework iDispNet (dispnet_on,
 models/psmnet/dispmodule.py).
 
@@ -147,6 +148,10 @@ class DispRCNN(nn.Module):
         use_gn: bool = False,  # MODEL.BACKBONE.USE_GN
         use_gn_fpn: bool = False,  # MODEL.FPN.USE_GN
         srpn_quirk_exact: bool = False,  # TPU.SRPN_QUIRK_EXACT
+        fbnet_scale_factor: float = 1.0,  # MODEL.FBNET.SCALE_FACTOR
+        fbnet_width_divisor: int = 1,  # MODEL.FBNET.WIDTH_DIVISOR
+        fbnet_dw_skip_bn: bool = True,  # MODEL.FBNET.DW_CONV_SKIP_BN
+        fbnet_dw_skip_relu: bool = True,  # MODEL.FBNET.DW_CONV_SKIP_RELU
         device: str | torch.device = "cuda",
     ):
         super().__init__()
@@ -170,8 +175,10 @@ class DispRCNN(nn.Module):
         self.max_det = max_det
         self.srpn_quirk_exact = srpn_quirk_exact
         with torch.device(device):
-            self.backbone = ResNetFPNBackbone(body=body, out_channels=out_channels,
-                                              use_gn_body=use_gn, use_gn_fpn=use_gn_fpn)
+            self.backbone = ResNetFPNBackbone(
+                body=body, out_channels=out_channels, use_gn_body=use_gn, use_gn_fpn=use_gn_fpn,
+                fbnet_scale_factor=fbnet_scale_factor, fbnet_width_divisor=fbnet_width_divisor,
+                fbnet_dw_skip_bn=fbnet_dw_skip_bn, fbnet_dw_skip_relu=fbnet_dw_skip_relu)
             self.rpn_head = stereo_rpn.SRPNHead(
                 out_channels, self.anchor_gen.num_anchors_per_location, srpn_quirk_exact)
             self.box_extractor = bh.StereoBoxFeatureExtractor(

@@ -184,10 +184,11 @@ class DispRCNN3D(nn.Module):
     every config of the repo trains the RPN without an RCNN (rpn.yaml) or
     the RCNN on a fixed RPN (rcnn.yaml), and both in one step (JAX's
     default) is not ported (ROADMAP A4.4). Its rpn_nms_rotated and
-    rpn_distance_based (default False) are options, passed to PointRCNN;
-    the train fields that every config of
+    rpn_distance_based (default False) and rpn_loss_cls (BinaryCrossEntropy,
+    SigmoidFocalLoss or DiceLoss, default BinaryCrossEntropy) are options,
+    passed to PointRCNN; the train fields that every config of
     the repo sets alike (aug_data True, fg_aug_times 10, aug_rot_range 18,
-    rpn_loss_cls and rcnn_loss_cls BinaryCrossEntropy, rpn_nms_thresh_train
+    rcnn_loss_cls BinaryCrossEntropy, rpn_nms_thresh_train
     0.85, point_rcnn.TRAIN_RPN_NMS_THRESH) are not options here:
     the port runs only those values (models/build.py raises on a config that
     asks for another). Its
@@ -209,6 +210,7 @@ class DispRCNN3D(nn.Module):
                  sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset(),
                  roi_block: int = ROI_BLOCK, rcnn_enabled: bool = True,
                  rpn_nms_rotated: bool = False, rpn_distance_based: bool = False,
+                 rpn_loss_cls: str = "BinaryCrossEntropy",
                  device: str | torch.device = "cuda"):
         super().__init__()
         self.max_det = max_det
@@ -230,7 +232,8 @@ class DispRCNN3D(nn.Module):
                     proposals_per_roi_train=proposals_per_roi_train,
                     rpn_pre_nms_per_roi_train=rpn_pre_nms_per_roi_train,
                     rcnn_rois_per_instance=rcnn_rois_per_instance, rcnn_enabled=rcnn_enabled,
-                    rpn_nms_rotated=rpn_nms_rotated, rpn_distance_based=rpn_distance_based)
+                    rpn_nms_rotated=rpn_nms_rotated, rpn_distance_based=rpn_distance_based,
+                    rpn_loss_cls=rpn_loss_cls)
         self.eval()
 
     @property

@@ -57,9 +57,13 @@ class PointRCNN(nn.Module):
                  roi_block: int = ROI_BLOCK, proposals_per_roi_train: Optional[int] = None,
                  rpn_pre_nms_per_roi_train: Optional[int] = None,
                  rcnn_rois_per_instance: int = 16, rcnn_enabled: bool = True,
-                 rpn_nms_rotated: bool = False, rpn_distance_based: bool = False):
+                 rpn_nms_rotated: bool = False, rpn_distance_based: bool = False,
+                 rpn_loss_cls: str = "BinaryCrossEntropy"):
         super().__init__()
         self.rpn_nms_rotated, self.rpn_distance_based = rpn_nms_rotated, rpn_distance_based
+        if rpn_loss_cls not in rpn3d.RPN_LOSS_CLS:
+            raise ValueError(f"rpn_loss_cls {rpn_loss_cls!r}: one of {rpn3d.RPN_LOSS_CLS}")
+        self.rpn_loss_cls = rpn_loss_cls
         self.npoints = npoints
         self.rcnn_enabled = rcnn_enabled
         self.register_buffer("anchor", torch.tensor(mean_size, dtype=torch.float32),
@@ -150,7 +154,8 @@ class PointRCNN(nn.Module):
         gt_canon = lift.canonicalize_boxes3d(gt_boxes3d, angles, pts_mean)
         cls_label, reg_label = lift.rpn_point_labels(pts, gt_canon, gt_ok)
         return rpn3d.rpn_loss(rpn_out["cls"], rpn_out["reg"], cls_label, reg_label,
-                              roi_valid & gt_ok, self.anchor, self.rpn_codec)
+                              roi_valid & gt_ok, self.anchor, self.rpn_codec,
+                              loss_cls=self.rpn_loss_cls)
 
     def rcnn_targets(self, pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok, draws):
         """The frozen part of a train step, without gradients: the RPN in

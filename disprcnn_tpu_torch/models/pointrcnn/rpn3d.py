@@ -16,10 +16,11 @@ import torch
 from torch import nn
 
 from ...ops.iou import boxes3d_to_bev
-from ...ops.losses import binary_cross_entropy
+from ...ops.losses import binary_cross_entropy, sigmoid_focal_loss_binary
 from ...ops.nms import bev_nms_mask, topk_after_nms
 from ...ops.topk_select import topk_scores
 from ...parallel.mesh import sum_over_ranks
+from ...parallel.multihost import process_count
 from ..psmnet.psmnet import batch_norm_train
 from . import bbox3d_codec as codec
 from .pointnet2 import BN_EPS, SA_MIN_C0, Pointnet2MSG, batch_norm_eval
@@ -108,21 +109,44 @@ class RPN3D(nn.Module):
                 "reg": self.reg_head(feats, reg_keep)}
 
 
+RPN_LOSS_CLS = ("BinaryCrossEntropy", "SigmoidFocalLoss", "DiceLoss")
+
+
 def rpn_loss(cls_pred: torch.Tensor, reg_pred: torch.Tensor, cls_label: torch.Tensor,
              reg_label: torch.Tensor, roi_valid: torch.Tensor, anchor_size: torch.Tensor,
-             cfg: codec.CodecCfg) -> Dict[str, torch.Tensor]:
+             cfg: codec.CodecCfg, loss_cls: str = "BinaryCrossEntropy",
+             focal_alpha: float = 0.25, focal_gamma: float = 2.0) -> Dict[str, torch.Tensor]:
     """cls_pred (R, N), reg_pred (R, N, C), cls_label (R, N) in {1, 0, -1},
     reg_label (R, N, 7), roi_valid (R,) -> {loss_rpn_cls, loss_rpn_reg}
-    (reference rpn_loss.py:7-70). The classification loss is the BCE (each
-    log clipped at 1e-12) averaged over the labelled points (not -1) of
-    valid instances: RPN.LOSS_CLS BinaryCrossEntropy, as every rpn.yaml of
-    the repo sets it (JAX's focal and dice forms are not ported). The
-    bin-based regression loss takes the positive points."""
+    (reference rpn_loss.py:7-70). The points that count are the labelled
+    ones (not -1) of valid instances; the positives those labelled 1. The
+    classification loss by RPN.LOSS_CLS:
+    - "BinaryCrossEntropy": the BCE (each log clipped at 1e-12) averaged
+      over the counted points;
+    - "SigmoidFocalLoss": the binary focal loss (alpha, gamma) summed over
+      the counted points, divided by the positives (at least 1);
+    - "DiceLoss": 1 - (inter + 1e-5) / (sum p + sum t + 1e-5) with p the
+      sigmoid zeroed off the counted points and inter = sum p t (no factor
+      2 on inter: not ops.losses.dice_loss). Its sums are this process's:
+      it raises with several ranks (ROADMAP C35).
+    The bin-based regression loss takes the positive points."""
     care = (cls_label >= 0) & roi_valid[:, None]
     pos = (cls_label > 0) & roi_valid[:, None]
     tgt = pos.to(cls_pred.dtype)
-    bce = binary_cross_entropy(cls_pred, tgt)
-    cls_l = (bce * care).sum() / sum_over_ranks(care.sum()).to(cls_pred.dtype).clamp_min(1.0)
+    if loss_cls == "SigmoidFocalLoss":
+        raw = sigmoid_focal_loss_binary(cls_pred, tgt, focal_gamma, focal_alpha)
+        cls_l = (raw * care).sum() / sum_over_ranks(pos.sum()).to(cls_pred.dtype).clamp_min(1.0)
+    elif loss_cls == "DiceLoss":
+        if process_count() > 1:
+            raise NotImplementedError("RPN.LOSS_CLS DiceLoss over several ranks: its sums are "
+                                      "one process's")
+        p = torch.where(care, torch.sigmoid(cls_pred), torch.zeros_like(cls_pred))
+        cls_l = 1.0 - ((p * tgt).sum() + 1e-5) / (p.sum() + tgt.sum() + 1e-5)
+    elif loss_cls == "BinaryCrossEntropy":
+        bce = binary_cross_entropy(cls_pred, tgt)
+        cls_l = (bce * care).sum() / sum_over_ranks(care.sum()).to(cls_pred.dtype).clamp_min(1.0)
+    else:
+        raise ValueError(f"RPN.LOSS_CLS {loss_cls!r}: one of {RPN_LOSS_CLS}")
     loc, angle, size = codec.reg_loss(reg_pred.reshape(-1, reg_pred.shape[-1]),
                                       reg_label.reshape(-1, 7), tgt.reshape(-1), anchor_size,
                                       cfg)

@@ -60,7 +60,8 @@ def grid_anchors(
 
 class AnchorGenerator:
     """FPN anchor generator: one size per level (reference make_anchor_generator
-    FPN branch: len(strides) == len(sizes), ratios shared)."""
+    FPN branch: len(strides) == len(sizes), ratios shared), or with one
+    stride every size at that one level (the C4/C5 single-map RPN)."""
 
     def __init__(
         self,
@@ -68,10 +69,20 @@ class AnchorGenerator:
         strides: Sequence[int] = (4, 8, 16, 32, 64),
         ratios: Sequence[float] = (0.5, 1.0, 2.0),
     ):
-        if len(strides) != len(sizes):
+        if len(strides) == len(sizes):
+            self.cells = [cell_anchors(st, (sz,), ratios) for st, sz in zip(strides, sizes)]
+        elif len(strides) == 1:
+            self.cells = [cell_anchors(strides[0], sizes, ratios)]
+        else:
             raise ValueError(f"one anchor size per FPN level, got {sizes} for {strides}")
-        self.cells = [cell_anchors(st, (sz,), ratios) for st, sz in zip(strides, sizes)]
         self.strides = list(strides)
+
+    @classmethod
+    def from_cells(cls, cells: Sequence[np.ndarray], strides: Sequence[int]) -> "AnchorGenerator":
+        """A generator of given cell anchors, one (A, 4) array a level."""
+        gen = cls.__new__(cls)
+        gen.cells, gen.strides = list(cells), list(strides)
+        return gen
 
     @property
     def num_anchors_per_location(self) -> int:

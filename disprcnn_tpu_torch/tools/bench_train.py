@@ -46,8 +46,8 @@ PSM_TRAIN = dict(max_det=16, roi_size=224, maxdisp=48, mindisp=-48, roi_min_scor
 PC_TRAIN = dict(BENCH_3D, mask_thresh_train=0.5, rpn_pre_nms_per_roi_train=768,
                 proposals_per_roi_train=512, rcnn_rois_per_instance=16)
 # rpn.yaml: IMS_PER_BATCH 3, PCNET.MAX_ROI_FOR_TRAINING 20 (no cap on 16
-# detections), MASK_THRESH 0.5, RPN.LOSS_CLS BinaryCrossEntropy (the port's
-# only RPN loss), the RPN training (RPN.FIXED False) and no RCNN
+# detections), MASK_THRESH 0.5, RPN.LOSS_CLS BinaryCrossEntropy (cfg's
+# rpn_loss_cls takes the other forms), the RPN training (RPN.FIXED False) and no RCNN
 # (RCNN.ENABLED False), FIX_DISPARITY, DO_GRAD_CLIP, OneCycle BASE_LR 0.002
 # over MAX_ITER 27600
 RPN_TRAIN = dict(BENCH_3D, mask_thresh_train=0.5, mask_thresh_eval=0.5, max_roi_train=20,
@@ -203,7 +203,8 @@ def boxes_on_clouds(pts_c: torch.Tensor, angles: torch.Tensor,
 def rpn_stage(pairs: int, gen: torch.Generator, cfg: dict = RPN_TRAIN, img_hw=IMG_HW,
               calib: dict = CALIB) -> TrainStage:
     """The 3D RPN step (stage 3, rpn.yaml): iDispNet frozen, the RPN in
-    train mode with fixed dropout masks, BCE, grad clip 10. Each
+    train mode with fixed dropout masks, BCE (or cfg's rpn_loss_cls), grad
+    clip 10. Each
     instance's ground-truth box lies on its own lifted cloud (one eval
     forward gives the clouds; boxes_on_clouds). Raises if no point is
     labelled positive or ignored."""

@@ -62,7 +62,7 @@ from ..config import get_default_cfg
 from ..data.catalog import resolve
 from ..data.loader import StereoBatchLoader
 from ..data.transforms import build_transforms
-from ..engine.batching import make_batch_converter
+from ..engine.batching import check_cli_model, make_batch_converter
 from ..engine.inference import inference
 from ..evaluation.kitti_eval import evaluate_kitti, write_kitti_txt
 from ..models.build import build_detection_model
@@ -220,6 +220,7 @@ def run(config_file: str, opts: Sequence[str] = (), dataset: Optional[str] = Non
     if opts:
         cfg.merge_from_list(list(opts))
     cfg.freeze()
+    check_cli_model(cfg)
     if deterministic:
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False

@@ -75,7 +75,7 @@ from ..config import get_default_cfg
 from ..data.catalog import resolve_many
 from ..data.loader import StereoBatchLoader
 from ..data.transforms import build_transforms
-from ..engine.batching import make_batch_converter
+from ..engine.batching import check_cli_model, make_batch_converter
 from ..engine.trainer import make_train_step
 from ..models.build import build_detection_model
 from ..parallel.mesh import replicate
@@ -153,6 +153,7 @@ def train(cfg, dataset: Optional[str] = None, static_hw=(384, 1248), device: str
     (seconds: data_s in the loader, to_device_s, step_s, loop_s; and
     s_per_iter, data_share), "world", "rank", "ims_per_rank"}."""
     s = cfg.SOLVER
+    check_cli_model(cfg)
     if s.UNCERT_LOSS_WEIGHT:
         raise ValueError(f"SOLVER.UNCERT_LOSS_WEIGHT = {s.UNCERT_LOSS_WEIGHT}: the port's train "
                          "step does not wire in the learned uncertainty weights (ROADMAP A7)")

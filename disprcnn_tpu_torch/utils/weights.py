@@ -6,7 +6,8 @@ arrays, ``{"params": {...}, "frozen": {...}, "batch_stats": {...}}`` (the
 collections the model has), each either nested as Flax keeps them or
 flattened by "/"-joined path. It maps
 
-- a conv kernel (kh, kw, in, out) HWIO to (out, in, kh, kw) OIHW, and a 3D
+- a conv kernel (kh, kw, in, out) HWIO to (out, in, kh, kw) OIHW (a
+  depthwise one, FBNet's (k, k, 1, mid), to (mid, 1, k, k)), and a 3D
   one (kd, kh, kw, in, out) DHWIO to (out, in, kd, kh, kw) OIDHW;
 - a transposed-conv kernel, 2D or 3D, to (in, out, k...), flipped in every
   spatial dim (Flax's ConvTranspose correlates; torch's is the adjoint of
@@ -16,7 +17,8 @@ flattened by "/"-joined path. It maps
   3 xyz rows before the feature rows (the port keeps that column order);
 - FrozenBatchNorm ``scale/bias/mean/var`` to the buffers
   ``weight/bias/running_mean/running_var``, renaming Flax's auto-numbered
-  ``FrozenBatchNorm_<i>`` to the port's ``bn1..bn3``/``downsample_bn``;
+  ``FrozenBatchNorm_<i>`` to the port's ``bn1..bn3``/``downsample_bn``
+  (the ResNet's, and those of the C4 box head's ``head/layer4_{b}``);
 - a Flax ``GroupNorm_<i>``'s params ``scale/bias`` (MODEL.BACKBONE.USE_GN,
   MODEL.FPN.USE_GN) to ``weight/bias`` of the port's GroupNorm in the same
   place: ``bn1..bn3``/``downsample_bn`` in the ResNet, as the frozen norms,
@@ -25,9 +27,12 @@ flattened by "/"-joined path. It maps
 - a Flax ``BatchNorm``'s params ``scale/bias`` to ``weight/bias`` and its
   ``batch_stats`` ``mean/var`` to ``running_mean/running_var`` of the eval
   ``nn.BatchNorm{1,2,3}d`` of the same name (``num_batches_tracked``, which
-  eval never reads, is set to 0; eps 1e-5).
+  eval never reads, is set to 0; eps 1e-5), FBNet's ``RunningBatchNorm2d``
+  included.
 
 Names are the Flax module paths, "/" becoming ".": e.g.
+``backbone/body/xif3_2/dw/conv`` (FBNet), ``backbone/fpn/p6_s2``,
+``head/cls_tower0`` (RetinaNet), ``box_head/head/layer4_0/conv1`` (C4),
 ``pointrcnn/rpn/backbone/sa1/mlp_scale0/mlp0``, ``.../fp2/mlp/bn1``,
 ``pointrcnn/rpn/cls_head/fc0``, ``pointrcnn/rcnn/xyz_up/mlp1``,
 ``pointrcnn/rcnn/sa0/mlp/mlp2``, ``pointrcnn/rcnn/reg_out``.
@@ -181,7 +186,9 @@ _RESIDUAL_BRANCH_NORM = re.compile(r"(^|\.)(bn3|BasicBlock_\d+\.ConvBN_1\.BatchN
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn from `generator` (which must live on the model's
     device): He-normal convs and dense layers, small biases, and frozen-BN
-    constants away from 0/1. The last norm of each residual branch is
+    constants away from 0/1. A RetinaNet head's ``cls_logits`` bias takes
+    its prior (``cls_logits_prior_bias``, -log((1 - 0.01) / 0.01)), as
+    Flax's bias_init draws it. The last norm of each residual branch is
     scaled down so activations stay finite through deep stacks. The 2D
     detector's classifiers (the RPN's ``cls_logits``, the box head's
     ``cls_score``) are drawn as the reference initializes them (normal, std
@@ -204,7 +211,9 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                       else mod.weight[0].numel())
             if name.endswith(("cls_logits", "cls_score", "bbox_pred")):
                 normal(mod.weight, 0.0 if name.endswith("bbox_pred") else 0.01)
-                mod.bias.zero_()
+                owner = model.get_submodule(name.rpartition(".")[0])
+                mod.bias.fill_(getattr(owner, "cls_logits_prior_bias", 0.0)
+                               if name.endswith("cls_logits") else 0.0)
                 continue
             normal(mod.weight, math.sqrt(2.0 / fan_in))
             if mod.bias is not None:

@@ -17,10 +17,12 @@ from disprcnn_tpu.config import get_default_cfg as jax_default_cfg
 from disprcnn_tpu.models import build as jbuild
 from disprcnn_tpu_torch.config import get_default_cfg
 from disprcnn_tpu_torch.config.node import load_yaml
+from disprcnn_tpu_torch.engine.batching import make_batch_converter
 from disprcnn_tpu_torch.models import build as tbuild
 from disprcnn_tpu_torch.models.backbone.resnet import GroupNorm
 from disprcnn_tpu_torch.models.pointrcnn import point_rcnn as tpoint_rcnn
 from disprcnn_tpu_torch.models.pointrcnn import rcnn3d, rpn3d
+from disprcnn_tpu_torch.tools import test_net, train_net
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIGS = sorted(str(p.relative_to(REPO)) for p in (REPO / "configs").rglob("*.yaml"))
@@ -107,12 +109,15 @@ def test_merge_from_list_matches_jax():
         get_default_cfg().merge_from_list(["MODEL.MASK_ON", "true"])
 
 
-def _built(monkeypatch, path):
+def _built(monkeypatch, path, opts=()):
     """The keyword arguments the port's build hands its constructor (built
-    on the meta device), and the JAX build's module."""
+    on the meta device), and the JAX build's module. path None is the bare
+    default config."""
     cfg, jcfg = get_default_cfg(), jax_default_cfg()
     for c in (cfg, jcfg):
-        c.merge_from_file(str(REPO / path))
+        if path:
+            c.merge_from_file(str(REPO / path))
+        c.merge_from_list(list(opts))
         c.freeze()
     seen = {}
 
@@ -122,15 +127,15 @@ def _built(monkeypatch, path):
             return cls(**kw)
         return make
 
-    for name in ("DispRCNN", "DispRCNN3D"):
+    for name in ("DispRCNN", "DispRCNN3D", "GeneralizedRCNN", "RetinaNetDetector"):
         monkeypatch.setattr(tbuild, name, recording(getattr(tbuild, name)))
     model = tbuild.build_detection_model(cfg, device="meta")
     return model, seen, jbuild.build_detection_model(jcfg)
 
 
-@pytest.mark.parametrize("path", CONFIGS)
-def test_built_model_matches_jax_fields(monkeypatch, path):
-    model, kw, jmodel = _built(monkeypatch, path)
+def _fields_match(model, kw, jmodel):
+    """The port model is the JAX model's class, and every keyword argument
+    the build passed equals the JAX module's field of that name."""
     assert type(model).__name__ == type(jmodel).__name__
     kw.pop("device")
     kw.pop("kernels_off", None)
@@ -139,6 +144,12 @@ def test_built_model_matches_jax_fields(monkeypatch, path):
         if isinstance(want, tuple):
             value = tuple(value)
         assert value == want, (name, value, want)
+
+
+@pytest.mark.parametrize("path", CONFIGS)
+def test_built_model_matches_jax_fields(monkeypatch, path):
+    model, kw, jmodel = _built(monkeypatch, path)
+    _fields_match(model, kw, jmodel)
     if type(model).__name__ == "DispRCNN":
         assert (model.max_det, model.post_nms_top_n_test) == (32, 300)
     elif jmodel.det3d_on:
@@ -151,8 +162,13 @@ def test_built_model_matches_jax_fields(monkeypatch, path):
 UNSUPPORTED = [
     ("configs/kitti/car/vob/mask.yaml", ["MODEL.BACKBONE.FREEZE_CONV_BODY_AT", "3"],
      "FREEZE_CONV_BODY_AT", "A7"),
-    ("configs/kitti/car/vob/mask.yaml", ["MODEL.BACKBONE.CONV_BODY", "FBNet"], "CONV_BODY",
-     "A6"),
+    ("configs/kitti/car/vob/mask.yaml", ["MODEL.META_ARCHITECTURE", "GeneralizedRCNN",
+                                         "MODEL.STEREO_ON", "False",
+                                         "MODEL.BACKBONE.FREEZE_CONV_BODY_AT", "1"],
+     "FREEZE_CONV_BODY_AT", "A7"),
+    ("configs/kitti/car/vob/mask.yaml", ["MODEL.RETINANET_ON", "True",
+                                         "MODEL.BACKBONE.FREEZE_CONV_BODY_AT", "3"],
+     "FREEZE_CONV_BODY_AT", "A7"),
     ("configs/kitti/car/vob/mask.yaml", ["MODEL.RPN.FG_IOU_THRESHOLD", "0.6"],
      "FG_IOU_THRESHOLD", "A7"),
     ("configs/kitti/car/vob/mask.yaml", ["MODEL.ROI_HEADS.POSITIVE_FRACTION", "0.5"],
@@ -161,8 +177,6 @@ UNSUPPORTED = [
      "A7"),
     ("configs/kitti/car/vob/rcnn.yaml", ["MODEL.POINTRCNN.RPN.FIXED", "False"], "FIXED",
      "A4.4"),
-    ("configs/kitti/car/vob/rpn.yaml", ["MODEL.POINTRCNN.RPN.LOSS_CLS", "SigmoidFocalLoss"],
-     "LOSS_CLS", "A4.1"),
     ("configs/kitti/car/vob/rcnn.yaml", ["MODEL.POINTRCNN.AUG_DATA", "False"], "AUG_DATA",
      "A7"),
     ("configs/kitti/car/vob/rcnn.yaml", ["MODEL.POINTRCNN.RCNN.ROI_FG_AUG_TIMES", "5"],
@@ -181,20 +195,6 @@ def test_unsupported_setting_raises(path, opts, key, item):
         tbuild.build_detection_model(cfg, device="meta")
 
 
-def _jax_model(cfg_path, opts):
-    cfg = jax_default_cfg()
-    cfg.merge_from_file(str(REPO / cfg_path))
-    cfg.merge_from_list(list(opts))
-    return jbuild.build_detection_model(cfg)
-
-
-def _port_model(cfg_path, opts):
-    cfg = get_default_cfg()
-    cfg.merge_from_file(str(REPO / cfg_path))
-    cfg.merge_from_list(list(opts))
-    return tbuild.build_detection_model(cfg, device="meta")
-
-
 def _dispnet_fields(m):
     d = m.dispnet
     return dict(dispnet_on=m.dispnet_on, dispnet_maxdisp=d.maxdisp, dispnet_mindisp=d.mindisp,
@@ -202,9 +202,11 @@ def _dispnet_fields(m):
                 dispnet_conv_layers=d.conv_layers, dispnet_loss_weight=m.dispnet_loss_weight)
 
 
-# the settings that the port once refused (ROADMAP A6's stereo half and A2),
-# each with what the built model carries, as the JAX build_detection_model's
-# fields: (config, opts, the JAX fields, the port model's values)
+# the settings that the port once refused (ROADMAP A6 and A2, A4.1's loss
+# forms), each with what the built model carries, as the JAX
+# build_detection_model's fields: (config (None: the bare default), opts,
+# the port model's values of JAX fields, or None to hold every keyword
+# argument of the port's build to the JAX module's field of that name)
 SUPPORTED = {
     "BACKBONE.USE_GN": ("configs/kitti/car/vob/mask.yaml", ["MODEL.BACKBONE.USE_GN", "True"],
                         lambda m: dict(use_gn=m.backbone.body.stem.bn1.__class__ is GroupNorm
@@ -227,15 +229,37 @@ SUPPORTED = {
                        ["MODEL.POINTRCNN.TEST.RPN_DISTANCE_BASED_PROPOSE", "True"],
                        lambda m: dict(rpn_nms_rotated=m.pointrcnn.rpn_nms_rotated,
                                       rpn_distance_based=m.pointrcnn.rpn_distance_based)),
+    "FBNet-FPN (DispRCNN)": ("configs/kitti/car/vob/mask.yaml",
+                             ["MODEL.BACKBONE.CONV_BODY", "FBNet-FPN"], None),
+    "FBNet-cham_v1a-FPN (DispRCNN)": ("configs/kitti/car/vob/mask.yaml",
+                                      ["MODEL.BACKBONE.CONV_BODY", "FBNet-cham_v1a-FPN",
+                                       "MODEL.FBNET.SCALE_FACTOR", "0.5",
+                                       "MODEL.FBNET.DW_CONV_SKIP_BN", "False"], None),
+    "RETINANET_ON": (None, ["MODEL.RETINANET_ON", "True", "MODEL.BACKBONE.CONV_BODY",
+                            "R-50-FPN-RETINANET", "MODEL.RETINANET.NUM_CLASSES", "5"], None),
+    "STEREO_ON False, R-50-C4": (None, [], None),
+    "STEREO_ON False, R-50-C5": (None, ["MODEL.BACKBONE.CONV_BODY", "R-50-C5"], None),
+    "STEREO_ON False, R-50-FPN": (None, ["MODEL.BACKBONE.CONV_BODY", "R-50-FPN",
+                                         "MODEL.MASK_ON", "True", "MODEL.RPN.ANCHOR_STRIDE",
+                                         "(4, 8, 16, 32, 64)"], None),
+    "RPN.LOSS_CLS SigmoidFocalLoss": ("configs/kitti/car/vob/rpn.yaml",
+                                      ["MODEL.POINTRCNN.RPN.LOSS_CLS", "SigmoidFocalLoss"],
+                                      lambda m: dict(rpn_loss_cls=m.pointrcnn.rpn_loss_cls)),
+    "RPN.LOSS_CLS DiceLoss": ("configs/kitti/car/vob/rpn.yaml",
+                              ["MODEL.POINTRCNN.RPN.LOSS_CLS", "DiceLoss"],
+                              lambda m: dict(rpn_loss_cls=m.pointrcnn.rpn_loss_cls)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(SUPPORTED))
-def test_once_refused_setting_builds_as_jax(case):
+def test_once_refused_setting_builds_as_jax(monkeypatch, case):
     """The setting builds, and the port's model carries what the JAX
     build_detection_model gives its model (each field against JAX's)."""
     path, opts, read = SUPPORTED[case]
-    jm, tm = _jax_model(path, opts), _port_model(path, opts)
+    tm, kw, jm = _built(monkeypatch, path, opts)
+    if read is None:
+        _fields_match(tm, kw, jm)
+        return
     got = read(tm)
     want = {k: getattr(jm, k) for k in got}
     assert got == want, case
@@ -244,12 +268,23 @@ def test_once_refused_setting_builds_as_jax(case):
 @pytest.mark.parametrize("opts", [["MODEL.RETINANET_ON", "True"],
                                   ["MODEL.META_ARCHITECTURE", "GeneralizedRCNN",
                                    "MODEL.STEREO_ON", "False"]])
-def test_models_off_the_port_raise(opts):
+def test_models_off_the_port_raise(opts, tmp_path):
+    """The single-view models build (test_once_refused_setting_builds_as_jax)
+    but the CLIs refuse them, as the JAX package's CLIs do not run them
+    either: test_net and train_net raise before building a model or a
+    batch."""
+    path = str(REPO / "configs/kitti/car/vob/mask.yaml")
+    out = ["OUTPUT_DIR", str(tmp_path)]
+    with pytest.raises(ValueError, match="single-view model.*build_detection_model"):
+        test_net.run(path, opts + out, dataset="synthetic_8", device="cpu")
+    with pytest.raises(ValueError, match="single-view model.*build_detection_model"):
+        train_net.train(train_net.load_config(path, opts + out, 1), dataset="synthetic_8",
+                        device="cpu")
     cfg = get_default_cfg()
-    cfg.merge_from_file(str(REPO / "configs/kitti/car/vob/mask.yaml"))
+    cfg.merge_from_file(path)
     cfg.merge_from_list(opts)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tbuild.build_detection_model(cfg, device="meta")
+    with pytest.raises(ValueError, match="single-view model"):
+        make_batch_converter(cfg, "cpu")
 
 
 def test_settings_off_the_3d_stage_are_not_read():

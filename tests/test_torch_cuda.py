@@ -101,6 +101,59 @@ def test_nms_kernel_at_the_2d_train_site_matches_plain(card, kind):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("b,n,k,thresh,share", [
+    (160, 1000, 32, 0.5, 0.05), (2, 6000, 1000, 0.7, 1.0), (2, 1000, 100, 0.4, 0.3)])
+def test_nms_kernel_at_the_a6_sites_matches_plain(card, kind, b, n, k, thresh, share):
+    """The single-view models' sites: the mono box head's per-class NMS (2
+    images x 80 classes as one batch, N = 1000 proposals, k = 32, few valid
+    boxes a row: those above the score threshold), the C4 RPN's (6000 ->
+    1000) and RetinaNet's (1000 -> 100); `share` keeps about that share of
+    the case's valid boxes. Exact."""
+    boxes, scores, valid = (torch.from_numpy(x).to(card) for x in make_case(n + k, b, n, kind))
+    gen = torch.Generator(device="cuda").manual_seed(n + b)
+    valid &= torch.rand(valid.shape, generator=gen, device=card) < share
+    before = cnms.launches
+    got = tnms.nms_topk_batched(boxes, scores, valid, thresh, k)
+    assert cnms.launches == before + 1
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cnms, "nms_sorted_cuda", cnms.nms_sorted_plain)
+        want = tnms.nms_topk_batched(boxes, scores, valid, thresh, k)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("hw", [(96, 312), (95, 313)])
+def test_fbnet_padded_depthwise_conv_card_matches_cpu(card, k, hw):
+    """FBNet's stride-2 depthwise ConvBNRelu (Flax's SAME padding, (0, 1) or
+    (1, 1) at k = 3 on even and odd sides) and a whole FBNet-cham_v1a trunk
+    at scale 0.5, card against CPU: 1e-5 (one conv) and 1e-4 (the trunk)
+    of max |CPU| + 1e-6."""
+    from disprcnn_tpu_torch.models.backbone import fbnet
+    from disprcnn_tpu_torch.utils.weights import init_random_
+
+    torch.manual_seed(k)
+    conv = fbnet.ConvBNRelu(24, 24, k, stride=2, groups=24)
+    init_random_(conv, torch.Generator().manual_seed(k))
+    x = torch.randn(2, 24, *hw)
+    with torch.no_grad():
+        want = conv(x)
+        got = copy.deepcopy(conv).to(card)(x.to(card)).cpu()
+    assert got.shape == want.shape == (2, 24, -(-hw[0] // 2), -(-hw[1] // 2))
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()) + 1e-6
+    if k != 7:
+        return
+    trunk = init_random_(fbnet.FBNet("cham_v1a", scale_factor=0.5), torch.Generator().manual_seed(1))
+    x = torch.randn(1, 3, *hw)
+    with torch.no_grad():
+        want = trunk(x)
+        got = [g.cpu() for g in copy.deepcopy(trunk).to(card)(x.to(card))]
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()) + 1e-6
+
+
 def test_nms_kernel_refuses_non_contiguous(card):
     boxes = torch.zeros(2, 8, 8, device=card)[..., :4]
     valid = torch.ones(2, 8, dtype=torch.bool, device=card)

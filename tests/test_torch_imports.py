@@ -95,6 +95,11 @@ SLICE_MODULES = (
     "disprcnn_tpu_torch.tools.split_predictions",
     "disprcnn_tpu_torch.utils.benchmarking",
     "disprcnn_tpu_torch.utils.profiling",
+    "disprcnn_tpu_torch.models.backbone.fbnet",
+    "disprcnn_tpu_torch.models.rpn.rpn",
+    "disprcnn_tpu_torch.models.rpn.retinanet",
+    "disprcnn_tpu_torch.models.detector.generalized_rcnn",
+    "disprcnn_tpu_torch.models.detector.retinanet_det",
 )
 
 

@@ -11,6 +11,11 @@ scores (ties, broken by index: ROADMAP C4). Validity and scores are held
 exactly, the boxes to 1e-5 of max |JAX| (the decode's float32 rounding).
 The fixpoint is held to a sequential greedy and to JAX's ``_greedy_keep``
 on random IoU matrices, exactly.
+
+The 3D RPN's other classification losses, RPN.LOSS_CLS SigmoidFocalLoss
+(normalized by the positives) and DiceLoss (no factor 2, over the counted
+points), on rpn_point_labels' labels with one instance invalid: the losses
+within 1e-6 relative, their gradients 1e-5 * max + 1e-7.
 """
 import jax
 import jax.numpy as jnp
@@ -19,12 +24,14 @@ import pytest
 import torch
 
 from disprcnn_tpu.models.pointrcnn import bbox3d_codec as jcodec
+from disprcnn_tpu.models.pointrcnn import lift as jlift
 from disprcnn_tpu.models.pointrcnn import rpn3d as jrpn
 from disprcnn_tpu.ops import nms as jnms
 from disprcnn_tpu_torch.models.pointrcnn import bbox3d_codec as tcodec
 from disprcnn_tpu_torch.models.pointrcnn import rpn3d as trpn
 from disprcnn_tpu_torch.models.pointrcnn.point_rcnn import MEAN_SIZE
 from disprcnn_tpu_torch.ops import nms as tnms
+from test_torch_rpn_train import ANCHOR, RPN_CODEC, close, label_scene
 from torch_train_helpers import torch_one_thread  # noqa: F401 (fixture)
 
 pytestmark = pytest.mark.usefixtures("torch_one_thread")
@@ -166,3 +173,32 @@ def test_rotated_bev_nms_mask_matches_jax_in_chunks(monkeypatch):
         jnp.asarray(bev), jnp.asarray(scores), jnp.asarray(valid))
     np.testing.assert_array_equal(got, np.asarray(want))
     assert got.any() and not got[valid].all()
+
+
+@pytest.mark.parametrize("loss_cls", ["SigmoidFocalLoss", "DiceLoss"])
+def test_rpn_loss_forms_match_jax(loss_cls):
+    pts, boxes, gt_ok = label_scene(5)
+    cls_label, reg_label = (np.asarray(a) for a in jlift.rpn_point_labels(
+        jnp.asarray(pts), jnp.asarray(boxes), jnp.asarray(gt_ok)))
+    rng = np.random.default_rng(7)
+    r, n = cls_label.shape
+    cls = (rng.standard_normal((r, n)) * 2).astype(np.float32)
+    reg = rng.standard_normal((r, n, RPN_CODEC.reg_channels)).astype(np.float32)
+    valid = np.array([True, True, False, True])
+    assert (cls_label[valid] == 1).any() and (cls_label[valid] == -1).any()
+
+    def f(c):
+        out = jrpn.rpn_loss(c, jnp.asarray(reg), jnp.asarray(cls_label), jnp.asarray(reg_label),
+                            jnp.asarray(valid), jnp.asarray(ANCHOR), RPN_CODEC,
+                            loss_cls=loss_cls)
+        return out["loss_rpn_cls"], out
+
+    (_, want), want_g = jax.jit(jax.value_and_grad(f, has_aux=True))(jnp.asarray(cls))
+    tc = t(cls).requires_grad_(True)
+    got = trpn.rpn_loss(tc, t(reg), t(cls_label), t(reg_label), t(valid), t(ANCHOR),
+                        tcodec.CodecCfg(*RPN_CODEC), loss_cls=loss_cls)
+    got["loss_rpn_cls"].backward()
+    for k in ("loss_rpn_cls", "loss_rpn_reg"):
+        w, g = float(want[k]), float(got[k].detach())
+        assert w > 0 and abs(g - w) <= 1e-6 * abs(w), (k, g, w)
+    close(tc.grad.numpy(), want_g, 1e-5, 1e-7, "d cls")
