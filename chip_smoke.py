@@ -306,6 +306,22 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      against the plain step as phase 18 holds it; (g) row 1 timed at each
      new site on its own inputs (kernel, device, plain, bound), with the
      valid boxes that entered it (each site must have some).
+ 26. the RPN and the RCNN trained in one step (rcnn.yaml with RPN.FIXED False
+     and FIX_POINTRCNN_RPN False, ROADMAP A4.4) and the settings no shipped
+     config changes (A7), at full width: (a) the joint step at the bench's
+     geometry (tools/bench_train.py JOINT_TRAIN), timed, with the launches
+     counted from 0 (rows 1-7, 9, 15, 11's and 14's train forms, and no
+     other), the kernel step against the plain step as phase 16 holds it,
+     and row 14's train form (roipool3d_train) on that step's own pooling
+     inputs against autograd of its plain version: rows equal, gradients
+     within ROI_TRAIN_GRAD_TOL of their max, then timed (kernel, plain
+     forward, the backward, bound); (b) tools/train_net on that config, 2
+     iterations at its batch: the three losses finite, every RPN parameter
+     moved, ms a step and peak memory; (c) one train_net iteration for each
+     A7 setting (FREEZE_CONV_BODY_AT, the SRPN and ROI matcher and sampler
+     settings with STRADDLE_THRESH -1, RCNN.LOSS_CLS SigmoidFocalLoss,
+     AUG_DATA False, ROI_FG_AUG_TIMES and AUG_ROT_RANGE, TRAIN.RPN_NMS_THRESH)
+     and UNCERT_LOSS_WEIGHT 3 on the joint step, resumed for a second.
 Then it prints the card (name, power limit) from nvidia-smi, one JSON line
 of per-kernel numbers (eval kernels per headline request, row 12 per
 SA-off headline request, train forms per train step), and as its last
@@ -313,7 +329,10 @@ line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Row 1's entry also holds `a6_sites` (phase 25's sites: shape, k, valid
 boxes in, ms, device_ms, plain_ms, bound_ms) and every row `a6_launches`
-(its launches in each run of phase 25).
+(its launches in each run of phase 25) and `a7_launches` (phase 26's).
+Row 14's train form (roipool3d_train) has its own entry: its launches in
+phase 26's train_net joint run, its times on the joint step's pooling
+inputs (ms the kernel forward, backward_ms the plain backward).
 Without a CUDA device, or on any failure, it exits non-zero and prints no
 result. Float32 throughout with TF32 off and deterministic cuDNN.
 """
@@ -399,7 +418,7 @@ import torch_ckpt_writer as ckpt_writer  # noqa: E402
 # the first card run of these kernels) are the bench's
 # (disprcnn_tpu_torch/bench.py); the train stages' configurations are
 # disprcnn_tpu_torch/tools/bench_train.py's.
-PHASES = 25
+PHASES = 26
 PAIRS = 8
 REQUESTS = 2  # at the headline budget; one more at the reference budget
 # the tests' small configurations (tests/torch_port_helpers.py, tests/test_torch_disprcnn3d.py)
@@ -595,15 +614,15 @@ def launches_replaced(**fns):
     softargmin_cuda, furthest_point_sample_cuda, sa_ball_mlp_max_cuda,
     grouped_mlp_max_cuda, fp_fused_cuda, roipool3d_cuda, and the train
     forms' conv3d_train_cuda, conv3d_train_dx_cuda,
-    sa_ball_mlp_max_train_cuda) through the given functions; yields the
-    original launches by name."""
+    sa_ball_mlp_max_train_cuda, roipool3d_train_cuda) through the given
+    functions; yields the original launches by name."""
     modules = {"nms_sorted_cuda": cuda_nms, "conv3d_bn_cuda": cconv,
                "cost_volume_conv_bn_cuda": cconv, "deconv3d_bn_cuda": cconv,
                "conv2d_bn_cuda": cconv, "softargmin_cuda": csam,
                "furthest_point_sample_cuda": cfps, "sa_ball_mlp_max_cuda": csa,
                "grouped_mlp_max_cuda": cgm, "fp_fused_cuda": cfp, "roipool3d_cuda": croi,
                "conv3d_train_cuda": cconv, "conv3d_train_dx_cuda": cconv,
-               "sa_ball_mlp_max_train_cuda": csa}
+               "sa_ball_mlp_max_train_cuda": csa, "roipool3d_train_cuda": croi}
     orig = {name: getattr(modules[name], name) for name in fns}
     for name, fn in fns.items():
         setattr(modules[name], name, fn)
@@ -629,7 +648,8 @@ def all_plain(**overrides):
                  roipool3d_cuda=croi.roipool3d_plain,
                  conv3d_train_cuda=cconv.conv3d_train_plain,
                  conv3d_train_dx_cuda=cconv.conv3d_train_dx_plain,
-                 sa_ball_mlp_max_train_cuda=csa.sa_ball_mlp_max_plain)
+                 sa_ball_mlp_max_train_cuda=csa.sa_ball_mlp_max_plain,
+                 roipool3d_train_cuda=croi.roipool3d_plain)
     return launches_replaced(**{**plain, **overrides})
 
 
@@ -1095,7 +1115,7 @@ def reset_launches() -> None:
     csam.launches = 0
     for mod in (cfps, csa, cgm, cfp, croi):
         mod.launches = 0
-    csa.train_launches = 0
+    csa.train_launches = croi.train_launches = 0
     for k in cconv.launches:
         cconv.launches[k] = 0
 
@@ -1103,7 +1123,8 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     return {"nms_sorted": cuda_nms.launches, **cconv.launches, "softargmin": csam.launches,
             "fps": cfps.launches, "sa": csa.launches, "grouped_mlp": cgm.launches,
-            "fp": cfp.launches, "roipool3d": croi.launches, "sa_train": csa.train_launches}
+            "fp": cfp.launches, "roipool3d": croi.launches, "sa_train": csa.train_launches,
+            "roipool3d_train": croi.train_launches}
 
 
 @contextlib.contextmanager
@@ -1150,7 +1171,7 @@ def phase_main_path(model2d, model3d, requests):
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = {k: n * REQUESTS + EXPECTED_REFERENCE[k] for k, n in EXPECTED_LAUNCHES.items()}
-    expected.update(conv3d_train=0, sa_train=0, grouped_mlp=0)
+    expected.update(conv3d_train=0, sa_train=0, grouped_mlp=0, roipool3d_train=0)
     if launches != expected:
         raise AssertionError(f"kernel launches on the main path {launches}, expected {expected}")
     valid = [check_outputs(o, PAIRS, BENCH_2D["max_det"]) for o in outs]
@@ -1976,7 +1997,7 @@ def phase_sa_off(model2d, model3d, req, ref, default_stages: dict, err: float,
             hook.remove()
         launches = read_launches()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        expected = dict(EXPECTED_SA_OFF, conv3d_train=0, sa_train=0)
+        expected = dict(EXPECTED_SA_OFF, conv3d_train=0, sa_train=0, roipool3d_train=0)
         if launches != expected:
             raise AssertionError(f"SA-off request launches {launches}, expected {expected}")
         check_outputs(out, PAIRS, BENCH_2D["max_det"])
@@ -2318,6 +2339,10 @@ def phase_pc_train(card: str) -> dict:
                              f"15 must each launch, row 8 not")
     rel, gk, gp, _, mk, recorded = kernel_vs_plain_step(model, opt, step, batch, "RCNN step",
                                                         share=prc)
+    if not prc.rpn_fixed or sorted(k for k in mk if k.startswith("loss")) != [
+            "loss_box3d", "loss_total"]:
+        raise AssertionError(f"RCNN step: an RCNN-only step has loss_box3d alone, got "
+                             f"{sorted(mk)}")
     grad_err = grads_agree(gk, gp, "RCNN step")
     tgt = recorded[0]
     fg, labelled = int(tgt["reg_mask"].sum()), int((tgt["cls_label"] >= 0).sum())
@@ -2786,6 +2811,9 @@ def phase_train_entry(card: str) -> dict:
                 if not all(math.isfinite(v) for k, v in m.items() if k.startswith("loss")) \
                         or m["skipped_nonfinite"] or m["params_without_grad"]:
                     raise AssertionError(f"{stage}.yaml iteration {it}: {m}")
+                if stage == "rcnn" and sorted(k for k in m if k.startswith("loss")) != [
+                        "loss_box3d", "loss_total"]:
+                    raise AssertionError(f"rcnn.yaml (RPN.FIXED): an RCNN-only step, got {m}")
             handoff = ""
             if stage == "mask":
                 sd = model.state_dict()
@@ -3103,6 +3131,9 @@ def check_dist_train(two: list, one: dict, stage: str, dtype: str) -> str:
                                    1e-300))
     worst = max(float((g2[k] - g1[k]).abs().max()) / max(float(g1[k].abs().max()), 1e-30)
                 for k in g1)
+    if stage == "rcnn" and sorted(k for k in mo if k.startswith("loss")) != [
+            "loss_box3d", "loss_total"]:
+        raise AssertionError(f"{what} (RPN.FIXED): an RCNN-only step, got {sorted(mo)}")
     if dtype == "float64" or stage == "rcnn":
         grads_agree(g2, g1, what)
     elif not together <= DIST_F32_GRAD_L2:
@@ -4492,6 +4523,276 @@ def phase_single_view(card: str) -> dict:
     return {"sites": rows, "counts": counts}
 
 
+# Phase 26: the RPN and the RCNN trained in one step (ROADMAP A4.4), with row
+# 14's train form, and the model and solver settings that no shipped config
+# changes (A7), at full width. (b) runs tools/train_net on rcnn.yaml with
+# RPN.FIXED False and FIX_POINTRCNN_RPN False; (c) one train_net iteration a
+# setting
+JOINT_YAML = "configs/kitti/car/vob/rcnn.yaml"
+JOINT_DEVICE = "cuda"
+JOINT_SEED = 26
+JOINT_DATASET = "synthetic3d_4"
+JOINT_OPTS = ["MODEL.POINTRCNN.RPN.FIXED", "False", "SOLVER.FIX_POINTRCNN_RPN", "False",
+              "MODEL.WEIGHT", "", "SOLVER.PRINT_INTERVAL", "1"]
+JOINT_ITERS = 2
+# the joint step's kernels: the frozen iDispNet's (rows 2-7 and 15), FPS in
+# the train-mode RPN (its BN MLPs take the plain grouped route), NMS at the
+# proposals, and the RCNN's train forms of rows 11 and 14
+JOINT_ROWS = ("cost_volume_conv", "conv3d", "conv3d_cl1", "conv3d_s2", "deconv3d", "conv2d",
+              "softargmin", "fps", "nms_sorted", "sa_train", "roipool3d_train")
+# (a): row 14's train form against autograd of its plain version: the rows
+# equal, each gradient within ROI_TRAIN_GRAD_TOL * its max
+ROI_TRAIN_GRAD_TOL = 1e-5
+# (c): (config, dataset, opts, the setting as the built model carries it),
+# each run from random weights (MODEL.WEIGHT '')
+A7_OPTS = ["MODEL.WEIGHT", "", "SOLVER.PRINT_INTERVAL", "1"]
+A7_RUNS = (
+    ("mask", "synthetic_8", ["MODEL.BACKBONE.FREEZE_CONV_BODY_AT", "3"],
+     lambda m: m.backbone.body.freeze_at == 3),
+    ("mask", "synthetic_8", ["MODEL.RPN.FG_IOU_THRESHOLD", "0.6", "MODEL.RPN.BG_IOU_THRESHOLD",
+                             "0.4", "MODEL.RPN.BATCH_SIZE_PER_IMAGE", "128",
+                             "MODEL.RPN.POSITIVE_FRACTION", "0.25",
+                             "MODEL.RPN.STRADDLE_THRESH", "-1"],
+     lambda m: (m.rpn_fg_iou, m.rpn_bg_iou, m.rpn_batch_per_image, m.rpn_positive_fraction,
+                m.straddle_thresh) == (0.6, 0.4, 128, 0.25, -1)),
+    ("mask", "synthetic_8", ["MODEL.ROI_HEADS.FG_IOU_THRESHOLD", "0.6",
+                             "MODEL.ROI_HEADS.BG_IOU_THRESHOLD", "0.4",
+                             "MODEL.ROI_HEADS.POSITIVE_FRACTION", "0.5"],
+     lambda m: (m.roi_fg_iou, m.roi_bg_iou, m.roi_positive_fraction) == (0.6, 0.4, 0.5)),
+    ("rcnn", JOINT_DATASET, ["MODEL.POINTRCNN.RCNN.LOSS_CLS", "SigmoidFocalLoss"],
+     lambda m: m.pointrcnn.rcnn_loss_cls == "SigmoidFocalLoss"),
+    ("rcnn", JOINT_DATASET, ["MODEL.POINTRCNN.AUG_DATA", "False"],
+     lambda m: m.pointrcnn.aug_data is False),
+    ("rcnn", JOINT_DATASET, ["MODEL.POINTRCNN.RCNN.ROI_FG_AUG_TIMES", "5",
+                             "MODEL.POINTRCNN.AUG_ROT_RANGE", "9"],
+     lambda m: (m.pointrcnn.fg_aug_times, m.pointrcnn.aug_rot_range) == (5, 9)),
+    ("rcnn", JOINT_DATASET, ["MODEL.POINTRCNN.TRAIN.RPN_NMS_THRESH", "0.8"],
+     lambda m: m.pointrcnn.rpn_nms_thresh_train == 0.8),
+)
+# (c): the learned uncertainty weights on the joint step's three losses, 1
+# iteration, then resumed for a second (the saved optimizer, u and draws)
+UNCERT_OPTS = JOINT_OPTS + ["SOLVER.UNCERT_LOSS_WEIGHT", "3", "SOLVER.LOAD_OPTIMIZER", "True"]
+
+
+def train_net_run(stage: str, dataset: str, opts, out: str, max_iter: int, model=None):
+    """tools/train_net in-process on the card with the launches counted
+    from 0: finite losses, no skipped step, no trainable parameter without
+    a gradient. -> (result, launches)."""
+    cfg = train_net.load_config(f"configs/kitti/car/vob/{stage}.yaml",
+                                list(opts) + ["OUTPUT_DIR", out], max_iter)
+    reset_launches()
+    res = train_net.train(cfg, dataset=dataset, static_hw=IMG_HW, device=JOINT_DEVICE,
+                          seed=JOINT_SEED, model=model)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for it, m in res["metrics"]:
+        if not all(math.isfinite(v) for k, v in m.items() if k.startswith("loss")) \
+                or m["skipped_nonfinite"] or m["params_without_grad"]:
+            raise AssertionError(f"train_net {stage}.yaml {opts} iteration {it}: {m}")
+    return res, launches
+
+
+def roipool3d_train_row(calls, err: float) -> dict:
+    """(a) row 14's train form on the joint step's own pooling inputs:
+    the Function's rows and flags equal to the plain version's, its
+    gradients in the points and features within ROI_TRAIN_GRAD_TOL of
+    autograd of the plain version's, under a non-uniform output gradient;
+    then the kernel (the train form's forward), the plain forward, and
+    the backward (roipool3d_backward_plain) timed, with the forward's
+    bound. -> the row of the kernels line."""
+    gen = torch.Generator(device="cuda").manual_seed(JOINT_SEED)
+    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, backward_ms=0.0, plain_fb_ms=0.0,
+               t_bytes=0.0, t_ops=0.0)
+    for pts, feats, boxes, s in calls:
+        runs = []
+        for use_fn in (True, False):
+            tp, tf = pts.clone().requires_grad_(True), feats.clone().requires_grad_(True)
+            fn = croi._RoIPool3dTrain.apply if use_fn else croi.roipool3d_plain
+            pooled, empty = fn(tp, tf, boxes, s, 10.0) if use_fn else fn(tp, tf, boxes, s)
+            if not runs:
+                ct = torch.randn(pooled.shape, generator=gen, device="cuda")
+            pooled.backward(ct)
+            runs.append((pooled.detach(), empty, tp.grad, tf.grad))
+        (fp, fe, fdp, fdf), (pp, pe, pdp, pdf) = runs
+        if not (torch.equal(fp, pp) and torch.equal(fe, pe)):
+            raise AssertionError("roipool3d_train: its rows differ from the plain version's")
+        for what, g, w in (("points", fdp, pdp), ("features", fdf, pdf)):
+            d, scale = float((g - w).abs().max()), float(w.abs().max())
+            if not d <= ROI_TRAIN_GRAD_TOL * scale:
+                raise AssertionError(f"roipool3d_train: the {what}' gradient off autograd of "
+                                     f"the plain version by {d:.3g} (max {scale:.3g})")
+            err = max(err, d)
+        args = (pts, feats, boxes, s)
+
+        def plain_fb():
+            tf = feats.detach().requires_grad_(True)
+            croi.roipool3d_plain(pts, tf, boxes, s)[0].backward(ct)
+
+        t_bytes, t_ops = roipool3d_work(args, (fp, fe))
+        one = dict(t_bytes=t_bytes, t_ops=t_ops,
+                   ms=time_ms(lambda: croi.roipool3d_train_cuda(*args), 5),
+                   device_ms=time_ms(lambda: croi.roipool3d_train_cuda(*args), 5, queued=True),
+                   plain_ms=time_ms(lambda: croi.roipool3d_plain(*args), 2),
+                   backward_ms=time_ms(
+                       lambda: croi.roipool3d_backward_plain(pts, boxes, ct, s), 3),
+                   plain_fb_ms=time_ms(plain_fb, 2))
+        for k, v in one.items():
+            tot[k] += v
+        log(f"  roipool3d_train {tuple(pts.shape)} {tuple(feats.shape)} -> {tuple(fp.shape)}: "
+            f"kernel {one['ms']:.4f} ms (device {one['device_ms']:.4f} ms), plain forward "
+            f"{one['plain_ms']:.4f} ms, backward {one['backward_ms']:.4f} ms (the plain "
+            f"forward and backward {one['plain_fb_ms']:.4f} ms), bound "
+            f"{max(t_bytes, t_ops):.4f} ms; rows equal, gradients max |diff| {err:.3g}")
+    return dict(name="roipool3d_train", route="cuda",
+                source="disprcnn_tpu_torch/csrc/roipool3d.cu",
+                replaces="disprcnn_tpu/ops/pallas/roipool3d_fused.py:137", max_abs_err=err,
+                ms=tot["ms"], plain_ms=tot["plain_ms"],
+                bound_ms=max(tot["t_bytes"], tot["t_ops"]),
+                bound_by="bytes" if tot["t_bytes"] > tot["t_ops"] else "operations",
+                library_ms=None, device_ms=tot["device_ms"], backward_ms=tot["backward_ms"],
+                plain_forward_backward_ms=tot["plain_fb_ms"])
+
+
+def joint_step_vs_plain(card: str) -> dict:
+    """(a) and the joint step at the bench's geometry (tools/bench_train.py
+    JOINT_TRAIN: 1 pair, 16 detections, 768-point clouds, TRAIN proposals
+    768 -> 512, 16 RCNN ROIs an instance): TRAIN_STEPS timed steps after a
+    warm-up with the launches counted from 0, the pooling inputs of one
+    step recorded for (a), then the kernel step against the plain step on
+    one frozen-stage input to PointRCNN, in phase 16's per-tensor form.
+    -> {"row": (a)'s row, "ms", "launches"}."""
+    st = bench_train.pc_stage(PC_PAIRS, torch.Generator(device="cuda").manual_seed(JOINT_SEED),
+                              cfg=bench_train.JOINT_TRAIN)
+    model, opt, step, batch = st.model, st.optimizer, st.step, st.batch
+    prc = model.pointrcnn
+    start = copy.deepcopy(model.state_dict()), copy.deepcopy(opt.sgd.state_dict()), opt.count
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms = bench_train.time_steps(st, TRAIN_STEPS)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_rows(launches, JOINT_ROWS, "joint step")
+    model.load_state_dict(start[0])
+    opt.sgd.load_state_dict(start[1])
+    opt.count = start[2]
+    calls = []
+    launch = croi.roipool3d_train_cuda
+
+    def record(*args):
+        calls.append(tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args[:4]))
+        return launch(*args)
+
+    with attr_patched(croi, "roipool3d_train_cuda", record):
+        step(batch)
+    model.load_state_dict(start[0])
+    opt.sgd.load_state_dict(start[1])
+    opt.count = start[2]
+    rel, gk, gp, _, mk, _ = kernel_vs_plain_step(model, opt, step, batch, "joint step",
+                                                 share_inputs=prc)
+    grad_err = grads_agree(gk, gp, "joint step")
+    losses = {k: float(v) for k, v in mk.items() if k.startswith("loss") and k != "loss_total"}
+    if sorted(losses) != ["loss_box3d", "loss_rpn_cls", "loss_rpn_reg"]:
+        raise AssertionError(f"joint step: losses {losses}")
+    rpn_live = [n for n, g in gk.items()
+                if n.startswith("pointrcnn.rpn.") and g.abs().max() > 0]
+    mean = sum(ms) / len(ms)
+    log(f"  joint step at the bench's geometry ({PC_PAIRS} pair, {PC_TRAIN['max_det']} clouds "
+        f"of {PC_TRAIN['npoints']} points, {calls[0][2].shape[1]} sampled ROIs a cloud, "
+        f"{len(calls)} pooling launch a step): ms/step {[round(t, 3) for t in ms]} (mean "
+        f"{mean:.3f}), peak memory {peak:.2f} GB, losses "
+        f"{ {k: round(v, 5) for k, v in losses.items()} }, launches "
+        f"{ {k: v for k, v in launches.items() if v} }, {len(rpn_live)} RPN tensors with a "
+        f"gradient; kernel vs plain step on one PointRCNN input: loss {rel:.3g} relative, "
+        f"gradients per tensor max |diff| <= {grad_err:.3g} * max |plain|")
+    row = roipool3d_train_row(calls, 0.0)
+    del st, model, opt, step, batch
+    torch.cuda.empty_cache()
+    return {"row": row, "ms": ms, "launches": launches, "peak": peak}
+
+
+def phase_joint_and_settings(card: str) -> dict:
+    """Phase 26: (a) and the joint step at the bench's geometry
+    (joint_step_vs_plain); (b) tools/train_net on rcnn.yaml with RPN.FIXED
+    False and FIX_POINTRCNN_RPN False, JOINT_ITERS iterations at the
+    config's batch on synthetic scenes: the three losses finite, rows
+    JOINT_ROWS launched and no other, the RPN's parameters moved, ms a
+    step and peak memory; (c) one train_net iteration a setting of
+    A7_RUNS (the built model carries it), and UNCERT_LOSS_WEIGHT 3 on the
+    joint step, resumed for a second iteration. -> {"row": row 14's train
+    form, "counts": {run: launches}}."""
+    t0 = time.perf_counter()
+    joint = joint_step_vs_plain(card)
+    counts = {"joint step (bench geometry)": {k: v for k, v in joint["launches"].items() if v}}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = train_net.load_config(JOINT_YAML, JOINT_OPTS)
+        model = init_random_(build_detection_model(cfg, device=JOINT_DEVICE),
+                             torch.Generator(device=JOINT_DEVICE).manual_seed(JOINT_SEED))
+        bench_train.centre_rpn_boxes_(model)
+        rpn0 = {n: p.detach().clone() for n, p in model.pointrcnn.rpn.named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        res, launches = train_net_run("rcnn", JOINT_DATASET, JOINT_OPTS,
+                                      os.path.join(tmp, "joint"), JOINT_ITERS, model)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts["train_net rcnn.yaml joint"] = check_rows(launches, JOINT_ROWS,
+                                                         "train_net rcnn.yaml joint")
+        last = res["metrics"][-1][1]
+        if sorted(k for k in last if k.startswith("loss")) != [
+                "loss_box3d", "loss_rpn_cls", "loss_rpn_reg", "loss_total"]:
+            raise AssertionError(f"train_net rcnn.yaml joint: metrics {last}")
+        moved = [n for n, p in model.pointrcnn.rpn.named_parameters()
+                 if not torch.equal(p.detach(), rpn0[n])]
+        if len(moved) != len(rpn0):
+            raise AssertionError(f"train_net rcnn.yaml joint: {len(rpn0) - len(moved)} RPN "
+                                 "parameters did not move")
+        log(f"  train_net rcnn.yaml RPN.FIXED False, FIX_POINTRCNN_RPN False on "
+            f"{JOINT_DATASET}: {res['iters']} iterations of {cfg.SOLVER.IMS_PER_BATCH} pair "
+            f"({cfg.TPU.MAX_DETECTIONS} detection slots), "
+            f"{res['stats']['s_per_iter'] * 1e3:.1f} ms/step, peak memory {peak:.2f} GB, "
+            f"last losses "
+            f"{ {k: round(v, 5) for k, v in last.items() if k.startswith('loss')} }, all "
+            f"{len(rpn0)} RPN parameters moved, launches {counts['train_net rcnn.yaml joint']}")
+        del model, res
+        torch.cuda.empty_cache()
+        lines = []
+        for i, (stage, dataset, opts, carried) in enumerate(A7_RUNS):
+            res, launches = train_net_run(stage, dataset, A7_OPTS + opts,
+                                          os.path.join(tmp, f"a7_{i}"), 1)
+            if not carried(res["model"]):
+                raise AssertionError(f"train_net {stage}.yaml {opts}: the model does not carry "
+                                     "the setting")
+            counts[f"train_net {stage}.yaml {' '.join(opts)}"] = {
+                k: v for k, v in launches.items() if v}
+            m = res["metrics"][-1][1]
+            lines.append(f"{stage}.yaml {' '.join(opts)}: "
+                         f"{res['stats']['s_per_iter'] * 1e3:.1f} ms, losses "
+                         f"{ {k: round(v, 4) for k, v in m.items() if k.startswith('loss')} }")
+            del res
+            torch.cuda.empty_cache()
+        out = os.path.join(tmp, "uncert")
+        first, _ = train_net_run("rcnn", JOINT_DATASET, UNCERT_OPTS, out, 1)
+        u1 = first["uncert"].u.detach().clone()
+        del first
+        res, launches = train_net_run("rcnn", JOINT_DATASET, UNCERT_OPTS, out, 2)
+        u = res["uncert"]
+        if res["start_iter"] != 1 or u.count != 2 or not torch.isfinite(u.u).all() \
+                or torch.equal(u.u.detach(), u1):
+            raise AssertionError(f"UNCERT_LOSS_WEIGHT 3: start {res['start_iter']}, count "
+                                 f"{u.count}, u {u.u.tolist()} after {u1.tolist()}")
+        counts["train_net rcnn.yaml joint UNCERT_LOSS_WEIGHT 3"] = {
+            k: v for k, v in launches.items() if v}
+        lines.append(f"rcnn.yaml joint with UNCERT_LOSS_WEIGHT 3, resumed at iteration 1: u "
+                     f"{[round(float(x), 6) for x in u1]} -> "
+                     f"{[round(float(x), 6) for x in u.u.detach()]}, loss_total "
+                     f"{res['metrics'][-1][1]['loss_total']:.5g}")
+        del res
+        torch.cuda.empty_cache()
+    log(f"[26/{PHASES}] the RPN and RCNN in one step, row 14's train form and the A7 settings "
+        f"on {card} in {time.perf_counter() - t0:.1f} s")
+    for line in lines:
+        log(f"  train_net {line}")
+    return {"row": joint["row"], "ms": joint["ms"], "counts": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4576,6 +4877,17 @@ def main() -> int:
             row["a6_launches"] = {run: c[row["name"]] for run, c in a6["counts"].items()
                                   if c.get(row["name"])}
         row1["a6_sites"] = a6["sites"]
+        torch.cuda.empty_cache()
+        joint = phase_joint_and_settings(card)
+        for row in kernels:
+            row["a7_launches"] = {run: c[row["name"]] for run, c in joint["counts"].items()
+                                  if c.get(row["name"])}
+        kernels.append({**joint["row"],
+                        "launches": joint["counts"]["train_net rcnn.yaml joint"][
+                            "roipool3d_train"],
+                        "a7_launches": {run: c["roipool3d_train"]
+                                        for run, c in joint["counts"].items()
+                                        if c.get("roipool3d_train")}})
         log(f"done in {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     except Exception:  # report any phase's failure and exit non-zero
         traceback.print_exc()

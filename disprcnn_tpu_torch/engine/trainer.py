@@ -3,13 +3,16 @@ clip, optimizer update (counterpart of disprcnn_tpu/engine/trainer.py;
 reference engine/trainer.py:54-200).
 
 The model runs in train mode and returns a dict whose ``loss*`` entries are
-summed into the loss. A step whose loss or any gradient is not finite
-applies nothing: the parameters, the optimizer's state and schedules and
-the BatchNorm running statistics keep their values, only the step count
+summed into the loss, or with learned uncertainty weights
+(SOLVER.UNCERT_LOSS_WEIGHT, ``solver/build.py::UncertWeights``) weighted
+as sum(u) + sum(l_i * exp(-u_i)) over the losses sorted by key. Their
+gradient is not clipped with the parameters' (JAX clips its parameter
+gradients alone), and they take their own optimizer's update in the same
+step. A step whose loss or any gradient (u's too) is not finite applies
+nothing: the parameters, u, both optimizers' state and schedules and the
+BatchNorm running statistics keep their values, only the step count
 advances, and the metrics report ``skipped_nonfinite`` (the reference's
-ALLOW_EXCEPTION skips such an iteration, engine/trainer.py:116-123). No
-config of the repo sets SOLVER.UNCERT_LOSS_WEIGHT, so the step does not
-wire in the learned uncertainty weights that ``total_loss`` takes.
+ALLOW_EXCEPTION skips such an iteration, engine/trainer.py:116-123).
 
 A trainable parameter that the backward pass leaves without a gradient is
 counted in the metrics (``params_without_grad``) and updated with a zero
@@ -24,7 +27,9 @@ global statistics). After the backward pass the gradients are summed over
 the ranks in one flat buffer, before the finite check and the clip, so
 every rank takes the same decision and the same update: the step of one
 process at the global batch, as the JAX package's step over its mesh is.
-The losses in the metrics are summed over the ranks too.
+u's gradient is summed with them; each rank's loss holds sum(u) / ranks,
+so that the sum over the ranks is the global loss and its gradient. The
+losses in the metrics are summed over the ranks too.
 """
 from __future__ import annotations
 
@@ -35,26 +40,31 @@ from torch import nn
 
 from ..parallel.mesh import all_reduce_grads, sum_over_ranks
 from ..parallel.multihost import process_count
-from ..solver.build import Optimizer
+from ..solver.build import Optimizer, UncertWeights
 
 
-def total_loss(losses: Dict[str, torch.Tensor], uncert: Optional[torch.Tensor]) -> torch.Tensor:
+def total_loss(losses: Dict[str, torch.Tensor], uncert: Optional[torch.Tensor],
+               u_share: float = 1.0) -> torch.Tensor:
     """The sum of the losses (in key order), or the uncertainty weighting
-    sum(u) + sum(l_i * exp(-u_i)) (reference trainer.py:44-51)."""
+    u_share * sum(u) + sum(l_i * exp(-u_i)) (reference trainer.py:44-51;
+    u_share is a rank's share of the global batch)."""
     vals = [v for _, v in sorted(losses.items())]
     if uncert is None:
         return torch.stack(vals).sum()
-    return uncert.sum() + (torch.stack(vals) * torch.exp(-uncert[:len(vals)])).sum()
+    u_sum = uncert.sum() if u_share == 1.0 else uncert.sum() * u_share
+    return u_sum + (torch.stack(vals) * torch.exp(-uncert[:len(vals)])).sum()
 
 
 class TrainStep:
     """``step(batch)`` runs one step of `model` on the keyword arguments in
     `batch` (plus `forward_kwargs`) and returns its metrics; ``step.count``
-    is the number of steps taken, skipped ones included."""
+    is the number of steps taken, skipped ones included. ``uncert`` holds
+    the learned loss weights, or None."""
 
     def __init__(self, model: nn.Module, optimizer: Optimizer, do_grad_clip: bool,
-                 grad_clip: float, forward_kwargs: dict):
-        self.model, self.optimizer = model, optimizer
+                 grad_clip: float, forward_kwargs: dict,
+                 uncert: Optional[UncertWeights] = None):
+        self.model, self.optimizer, self.uncert = model, optimizer, uncert
         self.do_grad_clip, self.grad_clip = do_grad_clip, grad_clip
         self.forward_kwargs = forward_kwargs
         self.count = 0
@@ -63,25 +73,27 @@ class TrainStep:
         model, params = self.model, self.optimizer.params
         model.train()
         saved = [b.detach().clone() for b in model.buffers()]
-        for p in params:
+        u = None if self.uncert is None else self.uncert.u
+        for p in params + ([] if u is None else [u]):
             p.grad = None
         out = model(**batch, **self.forward_kwargs)
         losses = {k: v for k, v in out.items() if k.startswith("loss")}
-        loss = total_loss(losses, None)
+        loss = total_loss(losses, u, 1.0 / process_count())
         loss.backward()
         missing = sum(p.grad is None for p in params)
-        for p in params:
+        for p in params + ([] if u is None else [u]):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         if process_count() > 1:
-            all_reduce_grads(grads)
+            all_reduce_grads(grads + ([] if u is None else [u.grad]))
             names = sorted(losses)
             summed = sum_over_ranks(torch.stack([loss.detach()] + [losses[k].detach()
                                                                    for k in names]))
             loss, losses = summed[0], dict(zip(names, summed[1:]))
         finite = bool(torch.isfinite(loss)
-                      & torch.stack([torch.isfinite(g).all() for g in grads]).all())
+                      & torch.stack([torch.isfinite(g).all()
+                                     for g in grads + ([] if u is None else [u.grad])]).all())
         if finite:
             if self.do_grad_clip:
                 gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
@@ -89,6 +101,8 @@ class TrainStep:
                 for g in grads:
                     g.mul_(scale)
             self.optimizer.step()
+            if u is not None:
+                self.uncert.step()
         else:
             with torch.no_grad():
                 for b, old in zip(model.buffers(), saved):
@@ -100,7 +114,10 @@ class TrainStep:
 
 
 def make_train_step(model: nn.Module, optimizer: Optimizer, do_grad_clip: bool = False,
-                    grad_clip: float = 1.0, forward_kwargs: Optional[dict] = None) -> Callable:
+                    grad_clip: float = 1.0, forward_kwargs: Optional[dict] = None,
+                    uncert: Optional[UncertWeights] = None) -> Callable:
     """A TrainStep. `forward_kwargs` are the fixed model arguments (the JAX
-    package's apply_kwargs, e.g. train_psm/train_pc)."""
-    return TrainStep(model, optimizer, do_grad_clip, grad_clip, dict(forward_kwargs or {}))
+    package's apply_kwargs, e.g. train_psm/train_pc); `uncert` the learned
+    loss weights (the JAX package's uncert_count and uncert_tx)."""
+    return TrainStep(model, optimizer, do_grad_clip, grad_clip, dict(forward_kwargs or {}),
+                     uncert)

@@ -86,13 +86,15 @@ class ResNetFPNBackbone(nn.Module):
     """R-{50,101,152}-FPN or FBNet[-<arch>]-FPN (reference
     modeling/backbone/backbone.py). An FBNet body takes the four fbnet_*
     settings (MODEL.FBNET.SCALE_FACTOR, WIDTH_DIVISOR, DW_CONV_SKIP_BN,
-    DW_CONV_SKIP_RELU) and no norm option; skip_c2 leaves the first map out
-    of the FPN (RetinaNet's P3-P7)."""
+    DW_CONV_SKIP_RELU) and no norm option; a ResNet body takes freeze_at
+    (models/backbone/resnet.py); skip_c2 leaves the first map out of the
+    FPN (RetinaNet's P3-P7)."""
 
     def __init__(self, body: str = "R-101", out_channels: int = 256, use_gn_body: bool = False,
                  use_gn_fpn: bool = False, top_blocks: str = "maxpool", skip_c2: bool = False,
                  fbnet_scale_factor: float = 1.0, fbnet_width_divisor: int = 1,
-                 fbnet_dw_skip_bn: bool = True, fbnet_dw_skip_relu: bool = True):
+                 fbnet_dw_skip_bn: bool = True, fbnet_dw_skip_relu: bool = True,
+                 freeze_at: int = 2):
         super().__init__()
         self.skip_c2 = skip_c2
         if body.startswith("FBNet"):
@@ -102,7 +104,7 @@ class ResNetFPNBackbone(nn.Module):
                               dw_skip_relu=fbnet_dw_skip_relu)
             cins = stage_channels(arch, fbnet_scale_factor, fbnet_width_divisor)
         else:
-            self.body = ResNet(body=body, use_gn=use_gn_body)
+            self.body = ResNet(body=body, use_gn=use_gn_body, freeze_at=freeze_at)
             cins = (256, 512, 1024, 2048)
         self.fpn = FPN(cins[1:] if skip_c2 else cins, out_channels, use_gn=use_gn_fpn,
                        top_blocks=top_blocks)

@@ -8,9 +8,11 @@ is res5 on pooled ROI features (the C4/C5 box head). NCHW inside. Every norm is 
 ``use_gn`` (MODEL.BACKBONE.USE_GN) a trainable GroupNorm of 32 groups,
 eps 1e-5, computed as Flax's: the variance is E[x^2] - E[x]^2 over each
 group, clipped at 0 (``nn.GroupNorm`` takes it in two passes, which is
-another rounding). The JAX package's freeze_at = 2, the default of every
-config, is a fixed boundary here: no gradient flows back past layer1's
-output (C2), so the stem and layer1 get none, their GroupNorms included.
+another rounding). ``freeze_at`` (MODEL.BACKBONE.FREEZE_CONV_BODY_AT,
+0-5, default 2) cuts the gradient as the JAX package's stop_gradient
+does: after the stem when it is at least 1, after stage i (layer{i}) when
+it is at least i + 1, so that the stem and the first freeze_at - 1
+stages get none, their GroupNorms included.
 """
 from __future__ import annotations
 
@@ -137,8 +139,10 @@ class ResNet(nn.Module):
 
     def __init__(self, body: str = "R-101", stem_out_channels: int = 64,
                  res2_out_channels: int = 256, width_per_group: int = 64,
-                 stride_in_1x1: bool = True, use_gn: bool = False, num_stages: int = 4):
+                 stride_in_1x1: bool = True, use_gn: bool = False, num_stages: int = 4,
+                 freeze_at: int = 2):
         super().__init__()
+        self.freeze_at = freeze_at
         blocks = body_blocks(body)[:num_stages]
         self.stem = Stem(stem_out_channels, use_gn)
         self.block_names = []
@@ -160,11 +164,13 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = self.stem(x)
+        if self.freeze_at >= 1:
+            x = x.detach()
         outs = []
         for stage, names in enumerate(self.block_names):
             for name in names:
                 x = getattr(self, name)(x)
-            if stage == 0:  # freeze_at = 2: nothing reaches layer1 or the stem
+            if self.freeze_at >= stage + 2:
                 x = x.detach()
             outs.append(x)
         return tuple(outs)

@@ -22,45 +22,29 @@ MODEL.META_ARCHITECTURE, as the JAX build_detection_model dispatches:
   TEST.RPN_DISTANCE_BASED_PROPOSE and RPN.LOSS_CLS (BinaryCrossEntropy,
   SigmoidFocalLoss or DiceLoss, at the JAX package's focal alpha 0.25 and
   gamma 2).
-Each reads the keys the JAX build reads for that model and no other: the
+Each reads the keys the JAX build reads for that model and passes them
+as the JAX build does, MODEL.BACKBONE.FREEZE_CONV_BODY_AT (freeze_at) to
+every model's ResNet body; DispRCNN also MODEL.RPN.STRADDLE_THRESH, the
+SRPN's FG/BG_IOU_THRESHOLD, BATCH_SIZE_PER_IMAGE and POSITIVE_FRACTION and
+the ROI heads' FG/BG_IOU_THRESHOLD and POSITIVE_FRACTION; DispRCNN3D also
+MODEL.POINTRCNN.RPN.FIXED (rpn_fixed), RCNN.LOSS_CLS, AUG_DATA,
+RCNN.ROI_FG_AUG_TIMES, AUG_ROT_RANGE and TRAIN.RPN_NMS_THRESH. The
 RetinaNet and mono models do not read RETINANET.NUM_CONVS, PRIOR_PROB,
 BBOX_REG_WEIGHT, BBOX_REG_BETA, USE_C5 or STRADDLE_THRESH, nor the RPN's
 and ROI heads' matching thresholds and sampler sizes (the JAX models fix
 them at the reference defaults), and neither reads MODEL.FBNET.ARCH (an
-FBNet body's arch is its name's).
-
-The JAX build passes some settings that the port's constructors do not
-take, because the port runs one value of each. For those the build reads
-the config and raises ValueError, naming the key and the ROADMAP item,
-whenever the config asks for another value:
-
-| key | the port runs | item |
-|---|---|---|
-| MODEL.BACKBONE.FREEZE_CONV_BODY_AT (ResNet bodies; every model) | 2 (stem and layer1 detached) | A7 |
-| MODEL.RPN.STRADDLE_THRESH (DispRCNN) | anchors.STRADDLE_THRESH (0) | A7 |
-| MODEL.RPN.FG/BG_IOU_THRESHOLD, BATCH_SIZE_PER_IMAGE, POSITIVE_FRACTION (DispRCNN) | stereo_rpn.loss's defaults | A7 |
-| MODEL.ROI_HEADS.FG/BG_IOU_THRESHOLD, POSITIVE_FRACTION (DispRCNN) | box_head.subsample's defaults | A7 |
-| MODEL.POINTRCNN.RPN.FIXED (DET3D_ON) | equal to RCNN.ENABLED | A4.4 |
-| MODEL.POINTRCNN.RCNN.LOSS_CLS (RCNN.ENABLED) | BinaryCrossEntropy | A7 |
-| MODEL.POINTRCNN.AUG_DATA, RCNN.ROI_FG_AUG_TIMES, AUG_ROT_RANGE (RCNN.ENABLED) | True, rcnn3d.FG_AUG_TIMES, rcnn3d.AUG_ROT_RANGE | A7 |
-| MODEL.POINTRCNN.TRAIN.RPN_NMS_THRESH (RCNN.ENABLED) | point_rcnn.TRAIN_RPN_NMS_THRESH (0.85) | A7 |
-
-A key is checked only where the JAX model would read it (the DISPNET_*
-widths only with their module on, FREEZE_CONV_BODY_AT only with a ResNet
-body, the 3D train settings only with the 3D stage on). Every one of the
-20 configs under configs/ sets the port's values.
+FBNet body's arch is its name's; an FBNet body is never frozen, as in
+the JAX package).
 
 Read and not obeyed: TPU.COMPUTE_DTYPE and TPU.PARAM_DTYPE (the port
-computes in float32, ROADMAP C7), and the TPU layout keys TPU.REMAT_* and
-TPU.MESH_*. Obeyed: TPU.MAX_DETECTIONS, TPU.ROI_CROP_SIZE and
+computes in float32, ROADMAP C7 and A8), and the TPU layout keys
+TPU.REMAT_* and TPU.MESH_*. Obeyed: TPU.MAX_DETECTIONS, TPU.ROI_CROP_SIZE and
 TPU.SRPN_QUIRK_EXACT here, and TPU.MAX_GT by the datasets
 (data/catalog.py). POINTRCNN.TEST.RPN_PRE_NMS_TOP_N above the cloud's
 points (rcnn.yaml's 9000 over 768) is capped at the points in the
 forward, as in the JAX package.
 """
 from __future__ import annotations
-
-import inspect
 
 import torch
 
@@ -69,27 +53,10 @@ from .detector.disprcnn import DispRCNN
 from .detector.disprcnn3d import DispRCNN3D
 from .detector.generalized_rcnn import GeneralizedRCNN
 from .detector.retinanet_det import RetinaNetDetector
-from .pointrcnn import point_rcnn, rcnn3d
-from .roi_heads import box_head
-from .rpn import anchors, stereo_rpn
-
-
-def _default(fn, name: str):
-    return inspect.signature(fn).parameters[name].default
-
-
-def _require(cfg, key: str, want, item: str) -> None:
-    node = cfg
-    for part in key.split("."):
-        node = node[part]
-    if node != want:
-        raise ValueError(f"{key} = {node!r}: the port runs only {want!r} (ROADMAP {item})")
 
 
 def _check_body(cfg, body: str) -> None:
-    """A ResNet body (its blocks known) with FREEZE_CONV_BODY_AT 2, or an
-    FBNet body (which the JAX package never freezes, and so does not read
-    FREEZE_CONV_BODY_AT for)."""
+    """A ResNet body (its blocks known) or an FBNet body."""
     if body.startswith("FBNet"):
         return
     try:
@@ -97,43 +64,6 @@ def _check_body(cfg, body: str) -> None:
     except KeyError:
         raise ValueError(f"MODEL.BACKBONE.CONV_BODY = {cfg.MODEL.BACKBONE.CONV_BODY!r}: not a "
                          "ResNet (R-50/101/152) or FBNet body") from None
-    _require(cfg, "MODEL.BACKBONE.FREEZE_CONV_BODY_AT", 2, "A7")
-
-
-def _check_2d(cfg) -> str:
-    """The 2D stereo detector's fixed settings; -> its body."""
-    body = cfg.MODEL.BACKBONE.CONV_BODY.replace("-FPN", "")
-    _check_body(cfg, body)
-    fixed = (
-        ("MODEL.RPN.STRADDLE_THRESH", anchors.STRADDLE_THRESH, "A7"),
-        ("MODEL.RPN.FG_IOU_THRESHOLD", _default(stereo_rpn.loss, "fg_iou"), "A7"),
-        ("MODEL.RPN.BG_IOU_THRESHOLD", _default(stereo_rpn.loss, "bg_iou"), "A7"),
-        ("MODEL.RPN.BATCH_SIZE_PER_IMAGE", _default(stereo_rpn.loss, "batch_per_image"), "A7"),
-        ("MODEL.RPN.POSITIVE_FRACTION", _default(stereo_rpn.loss, "positive_fraction"), "A7"),
-        ("MODEL.ROI_HEADS.FG_IOU_THRESHOLD", _default(box_head.subsample, "fg_iou"), "A7"),
-        ("MODEL.ROI_HEADS.BG_IOU_THRESHOLD", _default(box_head.subsample, "bg_iou"), "A7"),
-        ("MODEL.ROI_HEADS.POSITIVE_FRACTION",
-         _default(box_head.subsample, "positive_fraction"), "A7"),
-    )
-    for key, want, item in fixed:
-        _require(cfg, key, want, item)
-    return body
-
-
-def _check_3d(cfg) -> None:
-    """The 3D stage's fixed settings (read only with DET3D_ON, as the JAX
-    model reads them)."""
-    p = cfg.MODEL.POINTRCNN
-    if not cfg.MODEL.DET3D_ON:
-        return
-    _require(cfg, "MODEL.POINTRCNN.RPN.FIXED", p.RCNN.ENABLED, "A4.4")
-    if p.RCNN.ENABLED:
-        _require(cfg, "MODEL.POINTRCNN.RCNN.LOSS_CLS", "BinaryCrossEntropy", "A7")
-        _require(cfg, "MODEL.POINTRCNN.AUG_DATA", True, "A7")
-        _require(cfg, "MODEL.POINTRCNN.RCNN.ROI_FG_AUG_TIMES", rcnn3d.FG_AUG_TIMES, "A7")
-        _require(cfg, "MODEL.POINTRCNN.AUG_ROT_RANGE", rcnn3d.AUG_ROT_RANGE, "A7")
-        _require(cfg, "MODEL.POINTRCNN.TRAIN.RPN_NMS_THRESH", point_rcnn.TRAIN_RPN_NMS_THRESH,
-                 "A7")
 
 
 def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=frozenset()):
@@ -163,6 +93,7 @@ def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=
             nms_thresh=r.NMS_TH,
             max_det=cfg.TEST.DETECTIONS_PER_IMG,
             use_gn=cfg.MODEL.BACKBONE.USE_GN,
+            freeze_at=cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT,
             device=device,
         )
     if meta == "GeneralizedRCNN" and not cfg.MODEL.STEREO_ON:
@@ -189,10 +120,12 @@ def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=
             use_gn=cfg.MODEL.BACKBONE.USE_GN,
             fbnet_scale_factor=cfg.MODEL.FBNET.SCALE_FACTOR,
             fbnet_width_divisor=cfg.MODEL.FBNET.WIDTH_DIVISOR,
+            freeze_at=cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT,
             device=device,
         )
     if meta in ("DispRCNN", "GeneralizedRCNN"):
-        body = _check_2d(cfg)
+        body = cfg.MODEL.BACKBONE.CONV_BODY.replace("-FPN", "")
+        _check_body(cfg, body)
         rpn, heads = cfg.MODEL.RPN, cfg.MODEL.ROI_HEADS
         box, mask = cfg.MODEL.ROI_BOX_HEAD, cfg.MODEL.ROI_MASK_HEAD
         disp = cfg.MODEL.DISPNET
@@ -235,10 +168,18 @@ def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=
             fbnet_width_divisor=cfg.MODEL.FBNET.WIDTH_DIVISOR,
             fbnet_dw_skip_bn=cfg.MODEL.FBNET.DW_CONV_SKIP_BN,
             fbnet_dw_skip_relu=cfg.MODEL.FBNET.DW_CONV_SKIP_RELU,
+            freeze_at=cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT,
+            straddle_thresh=rpn.STRADDLE_THRESH,
+            rpn_fg_iou=rpn.FG_IOU_THRESHOLD,
+            rpn_bg_iou=rpn.BG_IOU_THRESHOLD,
+            rpn_batch_per_image=rpn.BATCH_SIZE_PER_IMAGE,
+            rpn_positive_fraction=rpn.POSITIVE_FRACTION,
+            roi_positive_fraction=heads.POSITIVE_FRACTION,
+            roi_fg_iou=heads.FG_IOU_THRESHOLD,
+            roi_bg_iou=heads.BG_IOU_THRESHOLD,
             device=device,
         )
     if meta == "DispRCNN3D":
-        _check_3d(cfg)
         p = cfg.MODEL.POINTRCNN
         if cfg.SOLVER.TRAIN_PSM:
             max_roi_train = cfg.MODEL.DISPNET.MAX_ROI_FOR_TRAINING
@@ -268,6 +209,12 @@ def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=
             rpn_nms_rotated=p.RPN.NMS_TYPE == "rotate",
             rpn_distance_based=p.TEST.RPN_DISTANCE_BASED_PROPOSE,
             rpn_loss_cls=p.RPN.LOSS_CLS,
+            rpn_fixed=p.RPN.FIXED,
+            rcnn_loss_cls=p.RCNN.LOSS_CLS,
+            aug_data=p.AUG_DATA,
+            fg_aug_times=p.RCNN.ROI_FG_AUG_TIMES,
+            aug_rot_range=p.AUG_ROT_RANGE,
+            rpn_nms_thresh_train=p.TRAIN.RPN_NMS_THRESH,
             rpn_pre_nms_per_roi=p.TEST.RPN_PRE_NMS_TOP_N,
             proposals_per_roi=p.TEST.RPN_POST_NMS_TOP_N,
             rpn_pre_nms_per_roi_train=p.TRAIN.RPN_PRE_NMS_TOP_N,

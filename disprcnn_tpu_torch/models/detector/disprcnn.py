@@ -39,11 +39,13 @@ boundary, as in the JAX package; NCHW inside.
   its samples' rows: parallel/mesh.py::shard_batch).
   The proposals keep the gradient of their coordinates (RoIAlign's
   sampling weights, the regression targets), as in the JAX package; only
-  the NMS decision is cut. The matching thresholds, the SRPN's sampler
-  (256 anchors an image, half positive), the ROI sampler's positive
-  fraction (0.25) and the anchors' straddle threshold (0) are the
-  defaults of stereo_rpn.loss, box_head.subsample and
-  anchors.STRADDLE_THRESH: no config sets another value.
+  the NMS decision is cut. The SRPN's matcher and sampler (rpn_fg_iou,
+  rpn_bg_iou, rpn_batch_per_image, rpn_positive_fraction: MODEL.RPN.*),
+  the anchors' straddle threshold (straddle_thresh, RPN.STRADDLE_THRESH;
+  negative: every anchor counts) and the ROI matcher and sampler
+  (roi_fg_iou, roi_bg_iou, roi_positive_fraction: MODEL.ROI_HEADS.*) are
+  options with the JAX names and defaults, as is the ResNet body's
+  freeze_at (MODEL.BACKBONE.FREEZE_CONV_BODY_AT).
 """
 from __future__ import annotations
 
@@ -152,9 +154,24 @@ class DispRCNN(nn.Module):
         fbnet_width_divisor: int = 1,  # MODEL.FBNET.WIDTH_DIVISOR
         fbnet_dw_skip_bn: bool = True,  # MODEL.FBNET.DW_CONV_SKIP_BN
         fbnet_dw_skip_relu: bool = True,  # MODEL.FBNET.DW_CONV_SKIP_RELU
+        freeze_at: int = 2,  # MODEL.BACKBONE.FREEZE_CONV_BODY_AT
+        straddle_thresh: float = 0.0,  # MODEL.RPN.STRADDLE_THRESH
+        rpn_fg_iou: float = 0.7,  # MODEL.RPN.FG_IOU_THRESHOLD
+        rpn_bg_iou: float = 0.3,  # MODEL.RPN.BG_IOU_THRESHOLD
+        rpn_batch_per_image: int = 256,  # MODEL.RPN.BATCH_SIZE_PER_IMAGE
+        rpn_positive_fraction: float = 0.5,  # MODEL.RPN.POSITIVE_FRACTION
+        roi_positive_fraction: float = 0.25,  # MODEL.ROI_HEADS.POSITIVE_FRACTION
+        roi_fg_iou: float = 0.5,  # MODEL.ROI_HEADS.FG_IOU_THRESHOLD
+        roi_bg_iou: float = 0.5,  # MODEL.ROI_HEADS.BG_IOU_THRESHOLD
         device: str | torch.device = "cuda",
     ):
         super().__init__()
+        self.straddle_thresh = straddle_thresh
+        self.rpn_fg_iou, self.rpn_bg_iou = rpn_fg_iou, rpn_bg_iou
+        self.rpn_batch_per_image, self.rpn_positive_fraction = rpn_batch_per_image, \
+            rpn_positive_fraction
+        self.roi_fg_iou, self.roi_bg_iou = roi_fg_iou, roi_bg_iou
+        self.roi_positive_fraction = roi_positive_fraction
         self.mask_on, self.dispnet_on = mask_on, dispnet_on
         self.dispnet_maxdisp, self.dispnet_mindisp = dispnet_maxdisp, dispnet_mindisp
         self.dispnet_loss_weight = dispnet_loss_weight
@@ -178,7 +195,8 @@ class DispRCNN(nn.Module):
             self.backbone = ResNetFPNBackbone(
                 body=body, out_channels=out_channels, use_gn_body=use_gn, use_gn_fpn=use_gn_fpn,
                 fbnet_scale_factor=fbnet_scale_factor, fbnet_width_divisor=fbnet_width_divisor,
-                fbnet_dw_skip_bn=fbnet_dw_skip_bn, fbnet_dw_skip_relu=fbnet_dw_skip_relu)
+                fbnet_dw_skip_bn=fbnet_dw_skip_bn, fbnet_dw_skip_relu=fbnet_dw_skip_relu,
+                freeze_at=freeze_at)
             self.rpn_head = stereo_rpn.SRPNHead(
                 out_channels, self.anchor_gen.num_anchors_per_location, srpn_quirk_exact)
             self.box_extractor = bh.StereoBoxFeatureExtractor(
@@ -299,8 +317,9 @@ class DispRCNN(nn.Module):
         )
         out = {}
         out["loss_objectness"], out["loss_rpn_box_reg"] = stereo_rpn.loss(
-            anchors, visibility(anchors, image_hw), obj_logits, deltas, gt_left, gt_right,
-            gt_valid, draws.rpn_pos, draws.rpn_neg)
+            anchors, visibility(anchors, image_hw, self.straddle_thresh), obj_logits, deltas,
+            gt_left, gt_right, gt_valid, draws.rpn_pos, draws.rpn_neg, self.rpn_fg_iou,
+            self.rpn_bg_iou, self.rpn_batch_per_image, self.rpn_positive_fraction)
         # the GT appended to the proposals (SRPNPostProcessor.add_gt_proposals)
         proposals = StereoBoxes(
             left=torch.cat([props.left, gt_left], 1), right=torch.cat([props.right, gt_right], 1),
@@ -308,7 +327,8 @@ class DispRCNN(nn.Module):
             valid=torch.cat([props.valid, gt_valid], 1))
         labels, reg_targets, pos, sampled, matched_gt = bh.subsample(
             proposals, gt_left, gt_right, gt_labels, gt_valid, draws.roi_pos, draws.roi_neg,
-            batch_size=self.roi_batch_per_image)
+            self.roi_fg_iou, self.roi_bg_iou, self.roi_batch_per_image,
+            self.roi_positive_fraction)
         rois, meta = compact_sampled(proposals, labels, reg_targets, pos, sampled, matched_gt,
                                      self.roi_batch_per_image)
         p = self.roi_batch_per_image

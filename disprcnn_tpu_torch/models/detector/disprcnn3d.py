@@ -20,10 +20,11 @@ crops against the GT disparity warped into each crop, masked by the
 detection's mask and the disparity range (loss_psm, deep supervision
 0.5/0.7/1.0). With train_pc, iDispNet is frozen (eval, no gradients), the
 lift runs on its disparity, each detection takes the GT box its left box
-overlaps most (IoU >= 0.5), and PointRCNN trains either its 3D RPN
-(rcnn_enabled=False: stage 3, rpn.yaml; loss_rpn_cls and loss_rpn_reg)
-or its RCNN on a fixed RPN (rcnn_enabled=True: stage 4, rcnn.yaml;
-loss_box3d).
+overlaps most (IoU >= 0.5), and PointRCNN trains its 3D RPN
+(rcnn_enabled=False: stage 3, rpn.yaml; loss_rpn_cls and loss_rpn_reg),
+its RCNN on a fixed RPN (rpn_fixed=True: stage 4, rcnn.yaml; loss_box3d),
+or both in one step (rpn_fixed=False with the RCNN, JAX's default; the
+three losses).
 """
 from __future__ import annotations
 
@@ -45,7 +46,7 @@ from ...structures.stereo import StereoBoxes
 from ..pointrcnn import lift
 from ..pointrcnn.lift import _bilinear_separable, _grid_fractions, expand_box_to_integer
 from ..pointrcnn.point_rcnn import MEAN_SIZE, ROI_BLOCK, PointRCNN
-from ..pointrcnn.rcnn3d import FG_AUG_TIMES, RCNNDraws, draw_rcnn_draws
+from ..pointrcnn.rcnn3d import AUG_ROT_RANGE, FG_AUG_TIMES, RCNNDraws, draw_rcnn_draws
 from ..pointrcnn.rpn3d import RPNDraws, draw_rpn_draws
 from ..pointrcnn.pointnet2 import SA_MIN_C0
 from ..psmnet.psmnet import PSMNet
@@ -177,21 +178,14 @@ CALIB_KEYS = ("fu", "fv", "cu", "cv", "tx", "ty", "fuxb")
 
 
 class DispRCNN3D(nn.Module):
-    """The JAX constructor's names and defaults for the fields that the port
-    runs, but det3d_on defaults to False (the iDispNet-only
-    configuration). Stage 3 (rpn.yaml) is det3d_on=True,
-    rcnn_enabled=False. The JAX package's rpn_fixed is rcnn_enabled here:
-    every config of the repo trains the RPN without an RCNN (rpn.yaml) or
-    the RCNN on a fixed RPN (rcnn.yaml), and both in one step (JAX's
-    default) is not ported (ROADMAP A4.4). Its rpn_nms_rotated and
-    rpn_distance_based (default False) and rpn_loss_cls (BinaryCrossEntropy,
-    SigmoidFocalLoss or DiceLoss, default BinaryCrossEntropy) are options,
-    passed to PointRCNN; the train fields that every config of
-    the repo sets alike (aug_data True, fg_aug_times 10, aug_rot_range 18,
-    rcnn_loss_cls BinaryCrossEntropy, rpn_nms_thresh_train
-    0.85, point_rcnn.TRAIN_RPN_NMS_THRESH) are not options here:
-    the port runs only those values (models/build.py raises on a config that
-    asks for another). Its
+    """The JAX constructor's names and defaults, but det3d_on defaults to
+    False (the iDispNet-only configuration). Stage 3 (rpn.yaml) is
+    det3d_on=True, rcnn_enabled=False; stage 4 (rcnn.yaml) rpn_fixed=True;
+    rpn_fixed=False with the RCNN (the default) trains the RPN and the RCNN
+    in one step. The PointRCNN settings (rpn_fixed, rpn_nms_rotated,
+    rpn_distance_based, rpn_loss_cls, rcnn_loss_cls, aug_data,
+    fg_aug_times, aug_rot_range, rpn_nms_thresh_train: None takes the
+    eval rpn_nms_thresh) pass to PointRCNN. Its
     DISPRCNN_SA_MIN_C0 and DISPRCNN_RCNN_ROI_BLOCK knobs are the arguments
     sa_min_c0 and roi_block, with the shipped values; DISPRCNN_PALLAS_DISABLE's PointNet++
     tags ("sa", "pool", "fp") are the argument kernels_off (none off by
@@ -210,7 +204,10 @@ class DispRCNN3D(nn.Module):
                  sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset(),
                  roi_block: int = ROI_BLOCK, rcnn_enabled: bool = True,
                  rpn_nms_rotated: bool = False, rpn_distance_based: bool = False,
-                 rpn_loss_cls: str = "BinaryCrossEntropy",
+                 rpn_loss_cls: str = "BinaryCrossEntropy", rpn_fixed: bool = False,
+                 rcnn_loss_cls: str = "BinaryCrossEntropy", aug_data: bool = True,
+                 fg_aug_times: int = FG_AUG_TIMES, aug_rot_range: float = AUG_ROT_RANGE,
+                 rpn_nms_thresh_train: Optional[float] = None,
                  device: str | torch.device = "cuda"):
         super().__init__()
         self.max_det = max_det
@@ -233,7 +230,9 @@ class DispRCNN3D(nn.Module):
                     rpn_pre_nms_per_roi_train=rpn_pre_nms_per_roi_train,
                     rcnn_rois_per_instance=rcnn_rois_per_instance, rcnn_enabled=rcnn_enabled,
                     rpn_nms_rotated=rpn_nms_rotated, rpn_distance_based=rpn_distance_based,
-                    rpn_loss_cls=rpn_loss_cls)
+                    rpn_loss_cls=rpn_loss_cls, rpn_fixed=rpn_fixed,
+                    rcnn_loss_cls=rcnn_loss_cls, aug_data=aug_data, fg_aug_times=fg_aug_times,
+                    aug_rot_range=aug_rot_range, rpn_nms_thresh_train=rpn_nms_thresh_train)
         self.eval()
 
     @property
@@ -265,10 +264,11 @@ class DispRCNN3D(nn.Module):
         In train mode, with train_psm: gt_disp (B, H, W), and the outputs
         gain "loss_psm"; with train_pc (det3d_on): calib, gt_left (B, M, 4),
         gt_boxes3d (B, M, 7) rect frame, gt_valid (B, M) and the priorities,
-        then with the RCNN `rcnn_draws` (or the generator for both) and the
-        outputs gain "loss_box3d", without it `rpn_draws` (the RPN's dropout
-        masks, or the generator) and they gain "loss_rpn_cls" and
-        "loss_rpn_reg". D' is max_roi_train when it caps D. With several
+        then with the RCNN `rcnn_draws` (or the generator for all) and the
+        outputs gain "loss_box3d", and where the RPN trains (not rpn_fixed)
+        `rpn_draws` (the RPN's dropout masks, or the generator) and they
+        gain "loss_rpn_cls" and "loss_rpn_reg"; a generator draws the
+        RCNN's first. D' is max_roi_train when it caps D. With several
         ranks (parallel/) a generator draws the global batch's draws, of
         which this rank keeps its samples' rows (mesh.shard_batch), so the
         ranks together draw what one process draws at the global batch."""
@@ -337,8 +337,8 @@ class DispRCNN3D(nn.Module):
                     raise ValueError("train_pc needs rcnn_draws or a generator")
                 rcnn_draws = shard_batch(draw_rcnn_draws(
                     gb * d, prc.proposals_per_roi_train or prc.proposals_per_roi,
-                    prc.rcnn_rois_per_instance, FG_AUG_TIMES, generator, disp.device), gb)
-            if not prc.rcnn_enabled and rpn_draws is None:
+                    prc.rcnn_rois_per_instance, prc.fg_aug_times, generator, disp.device), gb)
+            if not prc.rpn_fixed and rpn_draws is None:
                 if generator is None:
                     raise ValueError("training the RPN needs rpn_draws or a generator")
                 rpn = prc.rpn

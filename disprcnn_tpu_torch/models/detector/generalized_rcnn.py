@@ -29,7 +29,8 @@ pooled from P2-P5).
   the gradient of their coordinates.
 
 Input images are NHWC at the public boundary, as in the JAX package. The
-body's freeze_at is 2 (models/backbone/resnet.py); the RPN's and the ROI
+body's freeze_at (MODEL.BACKBONE.FREEZE_CONV_BODY_AT, default 2) is
+models/backbone/resnet.py's; the RPN's and the ROI
 sampler's thresholds and sizes are the defaults of rpn.loss and of
 ``_subsample`` here, the RPN's min size 0, as the JAX model fixes them.
 """
@@ -171,6 +172,7 @@ class GeneralizedRCNN(nn.Module):
         use_gn: bool = False,
         fbnet_scale_factor: float = 1.0,
         fbnet_width_divisor: int = 1,
+        freeze_at: int = 2,  # MODEL.BACKBONE.FREEZE_CONV_BODY_AT
         device: str | torch.device = "cuda",
     ):
         super().__init__()
@@ -189,7 +191,8 @@ class GeneralizedRCNN(nn.Module):
             if self.c4_mode:
                 c5 = body.endswith("-C5")
                 # one map: stem + res2..res4 (C4, stride 16) or res5 too (C5, stride 32)
-                self.backbone = ResNet(body=body, use_gn=use_gn, num_stages=4 if c5 else 3)
+                self.backbone = ResNet(body=body, use_gn=use_gn, num_stages=4 if c5 else 3,
+                                       freeze_at=freeze_at)
                 feat_ch = 2048 if c5 else 1024
                 self.anchor_gen = AnchorGenerator(anchor_sizes, (32 if c5 else 16,),
                                                   aspect_ratios)
@@ -199,7 +202,7 @@ class GeneralizedRCNN(nn.Module):
                 self.backbone = ResNetFPNBackbone(
                     body=body, out_channels=out_channels, use_gn_body=use_gn,
                     use_gn_fpn=use_gn, fbnet_scale_factor=fbnet_scale_factor,
-                    fbnet_width_divisor=fbnet_width_divisor)
+                    fbnet_width_divisor=fbnet_width_divisor, freeze_at=freeze_at)
                 feat_ch = out_channels
                 self.anchor_gen = AnchorGenerator(anchor_sizes, anchor_strides, aspect_ratios)
                 self.box_head = MonoBoxHead(out_channels, num_classes, mlp_head_dim)

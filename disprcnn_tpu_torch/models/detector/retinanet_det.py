@@ -4,7 +4,8 @@ modeling/rpn/retinanet/retinanet.py:13-152 through MODEL.RETINANET_ON):
 an R-x-FPN ``backbone`` with LastLevelP6P7 over C3-C5 (P3-P7), the
 ``head`` (models/rpn/retinanet.py), octave anchors, the focal loss in
 train and the top-k + NMS postprocessing in eval. Images are NHWC at the
-public boundary; the body's freeze_at is 2.
+public boundary; the body's freeze_at (MODEL.BACKBONE.FREEZE_CONV_BODY_AT)
+defaults to 2.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ class RetinaNetDetector(nn.Module):
         nms_thresh: float = 0.4,
         max_det: int = 100,
         use_gn: bool = False,
+        freeze_at: int = 2,
         device: str | torch.device = "cuda",
     ):
         super().__init__()
@@ -50,7 +52,7 @@ class RetinaNetDetector(nn.Module):
         with torch.device(device):
             self.backbone = ResNetFPNBackbone(body=body, out_channels=out_channels,
                                               use_gn_body=use_gn, top_blocks="p6p7",
-                                              skip_c2=True)
+                                              skip_c2=True, freeze_at=freeze_at)
             self.head = rn.RetinaNetHead(out_channels, num_classes,
                                          len(aspect_ratios) * scales_per_octave)
         self.eval()  # train mode only on request

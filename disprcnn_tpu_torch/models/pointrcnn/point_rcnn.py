@@ -10,21 +10,31 @@ canonical cloud on the instance axis. With rcnn_enabled=False (RCNN.ENABLED,
 rpn.yaml) there is no RCNN: eval returns the RPN's per-point scores
 ``rpn_cls``.
 
-Train mode trains one of the two networks (point_rcnn.py:74-135), the
-RCNN where there is one and else the RPN (the JAX package's RPN.FIXED is
-rcnn_enabled here: every config of the repo sets the two alike):
-- the RPN (rcnn_enabled=False: stage 3, rpn.yaml): the RPN in train mode
-  (batch-statistics BN, the heads' dropout on the ``RPNDraws`` masks), the
-  matched GT moved into each cloud's canonical frame, the per-point labels
-  (``lift.rpn_point_labels``), and the losses ``loss_rpn_cls`` and
-  ``loss_rpn_reg`` over the instances that are valid and matched;
-- the RCNN on a fixed RPN (rcnn_enabled=True: stage 4, rcnn.yaml): the RPN
-  runs in eval without gradients, with the TRAIN proposal budgets; the
-  proposal target layer (``rcnn_targets``) samples, noises, pools and
-  augments the RCNN's inputs, also without gradients; then the RCNN runs
-  with gradients and the step's loss is ``loss_box3d``.
-Both at once (RPN.FIXED False with the RCNN enabled) is set by no config
-of the repo and is not ported (ROADMAP A4.4).
+Train mode (point_rcnn.py:74-135) trains by rpn_fixed (RPN.FIXED) and
+rcnn_enabled (RCNN.ENABLED), JAX's names and defaults:
+- the RPN alone (rcnn_enabled=False: stage 3, rpn.yaml): the RPN in train
+  mode (batch-statistics BN, the heads' dropout on the ``RPNDraws``
+  masks), the matched GT moved into each cloud's canonical frame, the
+  per-point labels (``lift.rpn_point_labels``), and the losses
+  ``loss_rpn_cls`` and ``loss_rpn_reg`` over the instances that are valid
+  and matched;
+- the RCNN on a fixed RPN (rpn_fixed=True: stage 4, rcnn.yaml): the RPN
+  runs in eval without gradients, with the TRAIN proposal budgets and
+  NMS threshold; the proposal target layer (``rcnn_targets``) samples,
+  noises, pools and augments the RCNN's inputs, also without gradients;
+  then the RCNN runs with gradients and the step's loss is ``loss_box3d``;
+- both in one step (rpn_fixed=False with the RCNN, JAX's default;
+  ``joint_train_loss``): the RPN in train mode and its two losses as
+  above, the TRAIN proposals from that train-mode output, the proposal
+  target layer and the RCNN, and ``loss_box3d`` beside the RPN's losses.
+  Gradients flow where the JAX package's jax.grad sends them (ROADMAP
+  C36): loss_box3d reaches the RPN through the pooled RPN features (row
+  14's train form on the card) and through the proposal boxes (decoded
+  from the RPN's regression; the sampling, noise, augmentation and
+  canonical transform are differentiable in them), but not through the
+  top-k, NMS, IoU or in-box decisions, nor the segmentation mask. The
+  reference runs this under torch.no_grad().
+rpn_fixed with no RCNN has nothing to train and raises in train mode.
 """
 from __future__ import annotations
 
@@ -39,9 +49,6 @@ from .pointnet2 import SA_MIN_C0
 
 MEAN_SIZE = (1.52563191462, 1.62856739989, 3.88311640418)  # h, w, l
 ROI_BLOCK = 6400  # disprcnn_tpu point_rcnn._roi_blocks, the shipped cap
-# TRAIN.RPN_NMS_THRESH: the RCNN train step's proposal NMS (point_rcnn.py:95-99
-# of the JAX package); every config keeps the defaults' 0.85
-TRAIN_RPN_NMS_THRESH = 0.85
 
 
 class PointRCNN(nn.Module):
@@ -58,12 +65,23 @@ class PointRCNN(nn.Module):
                  rpn_pre_nms_per_roi_train: Optional[int] = None,
                  rcnn_rois_per_instance: int = 16, rcnn_enabled: bool = True,
                  rpn_nms_rotated: bool = False, rpn_distance_based: bool = False,
-                 rpn_loss_cls: str = "BinaryCrossEntropy"):
+                 rpn_loss_cls: str = "BinaryCrossEntropy", rpn_fixed: bool = False,
+                 rcnn_loss_cls: str = "BinaryCrossEntropy", aug_data: bool = True,
+                 fg_aug_times: int = rcnn3d.FG_AUG_TIMES,
+                 aug_rot_range: float = rcnn3d.AUG_ROT_RANGE,
+                 rpn_nms_thresh_train: Optional[float] = None):
         super().__init__()
         self.rpn_nms_rotated, self.rpn_distance_based = rpn_nms_rotated, rpn_distance_based
         if rpn_loss_cls not in rpn3d.RPN_LOSS_CLS:
             raise ValueError(f"rpn_loss_cls {rpn_loss_cls!r}: one of {rpn3d.RPN_LOSS_CLS}")
-        self.rpn_loss_cls = rpn_loss_cls
+        if rcnn_loss_cls not in rcnn3d.RCNN_LOSS_CLS:
+            raise ValueError(f"rcnn_loss_cls {rcnn_loss_cls!r}: one of {rcnn3d.RCNN_LOSS_CLS}")
+        self.rpn_loss_cls, self.rcnn_loss_cls = rpn_loss_cls, rcnn_loss_cls
+        self.rpn_fixed = rpn_fixed
+        # the proposal target layer's augmentation (AUG_DATA, RCNN.ROI_FG_AUG_TIMES,
+        # AUG_ROT_RANGE)
+        self.aug_data, self.fg_aug_times, self.aug_rot_range = aug_data, fg_aug_times, \
+            aug_rot_range
         self.npoints = npoints
         self.rcnn_enabled = rcnn_enabled
         self.register_buffer("anchor", torch.tensor(mean_size, dtype=torch.float32),
@@ -79,6 +97,7 @@ class PointRCNN(nn.Module):
         # TRAIN budgets (proposal_layer.py:19-24); None takes the eval value
         self.proposals_per_roi_train = proposals_per_roi_train
         self.rpn_pre_nms_per_roi_train = rpn_pre_nms_per_roi_train
+        self.rpn_nms_thresh_train = rpn_nms_thresh_train
         self.rcnn_rois_per_instance = rcnn_rois_per_instance
         self.rpn = rpn3d.RPN3D(codec_cfg=rpn_codec, use_bn=rpn_use_bn, npoints=sa_npoints,
                                sa_min_c0=sa_min_c0, kernels_off=kernels_off)
@@ -96,16 +115,22 @@ class PointRCNN(nn.Module):
         pts_mean (R, 3) -> box3d (R, 7), score3d (R,), random (R,), or with
         the RCNN disabled rpn_cls (R, N). In train mode, with the matched GT
         gt_boxes3d (R, 7) rect frame and gt_ok (R,): with the RCNN the
-        proposal target layer's draws -> loss_box3d; without it the RPN's
-        dropout masks rpn_draws -> loss_rpn_cls, loss_rpn_reg."""
+        proposal target layer's draws -> loss_box3d; where the RPN trains
+        (not rpn_fixed) the RPN's dropout masks rpn_draws -> loss_rpn_cls,
+        loss_rpn_reg."""
         train = self.training
-        self.rpn.train(train and not self.rcnn_enabled)
+        self.rpn.train(train and not self.rpn_fixed)
         if train:
             if gt_boxes3d is None or gt_ok is None:
                 raise ValueError("training needs gt_boxes3d and gt_ok")
             if not self.rcnn_enabled:
+                if self.rpn_fixed:
+                    raise ValueError("rpn_fixed without an RCNN: there is nothing to train")
                 return self.rpn_train_loss(pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok,
                                            rpn_draws)
+            if not self.rpn_fixed:
+                return self.joint_train_loss(pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok,
+                                             draws, rpn_draws)
             targets = self.rcnn_targets(pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok,
                                         draws)
             return {"loss_box3d": self.rcnn_train_loss(targets)}
@@ -146,48 +171,69 @@ class PointRCNN(nn.Module):
                   nms_thresh=nms_thresh, rotated=self.rpn_nms_rotated)
 
     def rpn_train_loss(self, pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok,
-                       rpn_draws) -> Dict[str, torch.Tensor]:
-        """The RPN in train mode on the clouds, the per-point labels of the
-        matched GT in the canonical frame, and the RPN loss over the valid,
-        matched instances (point_rcnn.py:74-88)."""
-        rpn_out = self.rpn(pts, rpn_draws)
+                       rpn_draws, rpn_out=None) -> Dict[str, torch.Tensor]:
+        """The RPN in train mode on the clouds (or its output rpn_out), the
+        per-point labels of the matched GT in the canonical frame, and the
+        RPN loss over the valid, matched instances (point_rcnn.py:74-88)."""
+        if rpn_out is None:
+            rpn_out = self.rpn(pts, rpn_draws)
         gt_canon = lift.canonicalize_boxes3d(gt_boxes3d, angles, pts_mean)
         cls_label, reg_label = lift.rpn_point_labels(pts, gt_canon, gt_ok)
         return rpn3d.rpn_loss(rpn_out["cls"], rpn_out["reg"], cls_label, reg_label,
                               roi_valid & gt_ok, self.anchor, self.rpn_codec,
                               loss_cls=self.rpn_loss_cls)
 
-    def rcnn_targets(self, pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok, draws):
-        """The frozen part of a train step, without gradients: the RPN in
-        eval (RPN.FIXED), the TRAIN proposal budgets and NMS threshold, then the proposal target
-        layer. -> {pts_input (R * K, P, 5 + C), cls_label, reg_mask (R * K,),
-        gt_ct (R * K, 7)}."""
+    def _targets(self, rpn_out, pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok, draws):
+        """The TRAIN proposals of an RPN output, then the proposal target
+        layer (point_rcnn.py:90-125). -> {pts_input (R * K, P, 5 + C),
+        cls_label, reg_mask (R * K,), gt_ct (R * K, 7)}."""
         if draws is None:
             raise ValueError("training the RCNN needs its draws")
-        with torch.no_grad():
-            rpn_out = self.rpn(pts)
-            rois_c, _, prop_valid = self.propose(
-                rpn_out, pre_nms_top_n=min(self.rpn_pre_nms_per_roi_train or self.rpn_pre_nms_per_roi,
-                                  pts.shape[1]),
-                post_nms_top_n=self.proposals_per_roi_train or self.proposals_per_roi,
-                nms_thresh=TRAIN_RPN_NMS_THRESH)
-            rois = _decanon_rois(rois_c, angles, pts_mean)
-            xyz_rect = lift.decanonicalize(rpn_out["xyz"], angles, pts_mean)
-            seg_mask = (torch.sigmoid(rpn_out["cls"]) > self.rpn_score_thresh).to(pts.dtype)
-            pts_input, cls_label, reg_mask, gt_ct, _, _ = rcnn3d.prepare_rcnn_train_inputs(
-                rois, prop_valid & roi_valid[:, None], gt_boxes3d, gt_ok & roi_valid, xyz_rect,
-                rpn_out["features"], seg_mask, draws,
-                rois_per_instance=self.rcnn_rois_per_instance, num_points=self.rcnn_num_points)
+        rois_c, _, prop_valid = self.propose(
+            rpn_out, pre_nms_top_n=min(self.rpn_pre_nms_per_roi_train or self.rpn_pre_nms_per_roi,
+                                       pts.shape[1]),
+            post_nms_top_n=self.proposals_per_roi_train or self.proposals_per_roi,
+            nms_thresh=self.rpn_nms_thresh_train or self.rpn_nms_thresh)
+        rois = _decanon_rois(rois_c, angles, pts_mean)
+        xyz_rect = lift.decanonicalize(rpn_out["xyz"], angles, pts_mean)
+        seg_mask = (torch.sigmoid(rpn_out["cls"]) > self.rpn_score_thresh).to(pts.dtype)
+        pts_input, cls_label, reg_mask, gt_ct, _, _ = rcnn3d.prepare_rcnn_train_inputs(
+            rois, prop_valid & roi_valid[:, None], gt_boxes3d, gt_ok & roi_valid, xyz_rect,
+            rpn_out["features"], seg_mask, draws,
+            rois_per_instance=self.rcnn_rois_per_instance, num_points=self.rcnn_num_points,
+            aug_data=self.aug_data, fg_aug_times=self.fg_aug_times,
+            aug_rot_range=self.aug_rot_range)
         n = cls_label.numel()
         return {"pts_input": pts_input.reshape(n, self.rcnn_num_points, -1),
                 "cls_label": cls_label.reshape(n), "reg_mask": reg_mask.reshape(n),
                 "gt_ct": gt_ct.reshape(n, 7)}
 
+    def rcnn_targets(self, pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok, draws):
+        """The frozen part of an RCNN train step on a fixed RPN, without
+        gradients: the RPN in eval (RPN.FIXED), then ``_targets``."""
+        with torch.no_grad():
+            return self._targets(self.rpn(pts), pts, roi_valid, angles, pts_mean, gt_boxes3d,
+                                 gt_ok, draws)
+
+    def joint_train_loss(self, pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok, draws,
+                         rpn_draws) -> Dict[str, torch.Tensor]:
+        """The RPN and the RCNN trained in one step (RPN.FIXED False,
+        point_rcnn.py:74-135): the train-mode RPN's losses, the proposal
+        target layer on its output, and the RCNN's loss, with gradients
+        through all of it."""
+        rpn_out = self.rpn(pts, rpn_draws)
+        out = self.rpn_train_loss(pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok, None,
+                                  rpn_out)
+        targets = self._targets(rpn_out, pts, roi_valid, angles, pts_mean, gt_boxes3d, gt_ok,
+                                draws)
+        out["loss_box3d"] = self.rcnn_train_loss(targets)
+        return out
+
     def rcnn_train_loss(self, targets: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The RCNN on the targets' pooled inputs, with gradients, and its loss."""
         cls_pred, reg_pred = self.rcnn(targets["pts_input"])
         return rcnn3d.rcnn_loss(cls_pred, reg_pred, targets["cls_label"], targets["reg_mask"],
-                                targets["gt_ct"], self.anchor)
+                                targets["gt_ct"], self.anchor, loss_cls=self.rcnn_loss_cls)
 
 
 def _roi_blocks(r: int, k: int, cap: int = ROI_BLOCK) -> int:

@@ -12,13 +12,19 @@ with the ``random`` flag.
 
 Training (the proposal target layer, then the loss): per instance 16
 proposals are sampled by 3D IoU with the matched GT box (foreground, hard
-and easy background), noised (``aug_roi_by_noise``), pooled, rotated,
-scaled and flipped with the GT (``rcnn_data_augmentation``, with the
-reference's ``(rand - 0.5 / 0.5)`` precedence quirk that makes the
-rotation one-sided) and moved into each proposal's canonical frame. The
-JAX package draws the randomness with jax.random inside; here every draw
-is an input, an ``RCNNDraws`` (``draw_rcnn_draws`` draws one from a
-torch.Generator).
+and easy background), noised (``aug_roi_by_noise``, fg_aug_times trials,
+RCNN.ROI_FG_AUG_TIMES), pooled, rotated, scaled and flipped with the GT
+(``rcnn_data_augmentation``, rotations up to pi / aug_rot_range,
+AUG_ROT_RANGE, with the reference's ``(rand - 0.5 / 0.5)`` precedence
+quirk that makes the rotation one-sided) and moved into each proposal's
+canonical frame; aug_data False (POINTRCNN.AUG_DATA) skips the noise and
+the rotation, scaling and flip. The JAX package draws the randomness with
+jax.random inside; here every draw is an input, an ``RCNNDraws``
+(``draw_rcnn_draws`` draws one from a torch.Generator).
+
+Where the pooled points or features carry a gradient (the RPN and RCNN
+trained in one step), the pooling takes row 14's train form
+(``roipool3d_train``); otherwise its eval kernel.
 """
 from __future__ import annotations
 
@@ -29,9 +35,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ...ops.cuda.roipool3d import roipool3d
+from ...ops.cuda.roipool3d import roipool3d, roipool3d_train
 from ...ops.iou import iou3d
-from ...ops.losses import binary_cross_entropy
+from ...ops.losses import binary_cross_entropy, sigmoid_focal_loss_binary
 from ...ops.roipool3d import enlarge_box3d
 from ...ops.topk_select import topk_scores
 from ...parallel.mesh import sum_over_ranks
@@ -95,7 +101,8 @@ def _pool(xyz, rpn_feats, seg_mask, rois, num_points, pool_extra_width):
     depth = norm / torch.full_like(norm, 70.0) - 0.5  # a division, not a reciprocal multiply
     feats = torch.cat([seg_mask[..., None], depth[..., None], rpn_feats], dim=-1).contiguous()
     grown = enlarge_box3d(rois, pool_extra_width).contiguous()
-    return roipool3d(xyz.contiguous(), feats, grown, num_points)
+    pool = roipool3d_train if torch.is_grad_enabled() and feats.requires_grad else roipool3d
+    return pool(xyz.contiguous(), feats, grown.detach(), num_points)
 
 
 def pool_rcnn_inputs(xyz: torch.Tensor, rpn_feats: torch.Tensor, seg_mask: torch.Tensor,
@@ -140,8 +147,8 @@ def rcnn_postprocess(cls_pred: torch.Tensor, reg_pred: torch.Tensor, rois: torch
 
 # (pos, hwl, angle) noise ranges per tier (proposal_target_layer
 # random_aug_box3d, REG_AUG_METHOD 'multiple')
-FG_AUG_TIMES = 10  # RCNN.ROI_FG_AUG_TIMES, the noise trials of a foreground roi
-AUG_ROT_RANGE = 18.0  # AUG_ROT_RANGE: the rotation reaches pi / 18
+FG_AUG_TIMES = 10  # RCNN.ROI_FG_AUG_TIMES' default, the noise trials of a foreground roi
+AUG_ROT_RANGE = 18.0  # AUG_ROT_RANGE's default: the rotation reaches pi / 18
 AUG_RANGES = ((0.2, 0.1, math.pi / 12), (0.3, 0.15, math.pi / 12), (0.5, 0.15, math.pi / 9),
               (0.8, 0.15, math.pi / 6), (1.0, 0.15, math.pi / 3))
 
@@ -226,13 +233,13 @@ def aug_roi_by_noise(rois: torch.Tensor, gts: torch.Tensor, iou_src: torch.Tenso
 
 
 def rcnn_data_augmentation(pts: torch.Tensor, rois: torch.Tensor, gts: torch.Tensor,
-                           draws: RCNNDraws):
+                           draws: RCNNDraws, aug_rot_range: float = AUG_ROT_RANGE):
     """Joint rotation, scaling and x flip of pooled points (K, P, 3), rois
     and GT (K, 7) (proposal_target_layer.data_augmentation:291-348). The
     rotated boxes keep their viewing angle alpha. The rotation angle is
-    (u - 0.5 / 0.5) * pi / AUG_ROT_RANGE = (u - 1) * pi / AUG_ROT_RANGE,
+    (u - 0.5 / 0.5) * pi / aug_rot_range = (u - 1) * pi / aug_rot_range,
     the reference's precedence quirk: one-sided."""
-    angles = (draws.rot - 0.5 / 0.5) * (math.pi / AUG_ROT_RANGE)
+    angles = (draws.rot - 0.5 / 0.5) * (math.pi / aug_rot_range)
 
     def alpha(b):
         beta = torch.atan2(b[..., 2], b[..., 0])
@@ -305,6 +312,8 @@ def prepare_rcnn_train_inputs(rois: torch.Tensor, roi_valid: torch.Tensor, gt: t
                               gt_ok: torch.Tensor, xyz: torch.Tensor, rpn_feats: torch.Tensor,
                               seg_mask: torch.Tensor, draws: RCNNDraws,
                               rois_per_instance: int = 16, num_points: int = 512,
+                              aug_data: bool = True, fg_aug_times: int = FG_AUG_TIMES,
+                              aug_rot_range: float = AUG_ROT_RANGE,
                               reg_fg_thresh: float = 0.55,
                               cls_fg_thresh: float = 0.6, cls_bg_thresh: float = 0.45,
                               pool_extra_width: float = 1.0):
@@ -314,25 +323,29 @@ def prepare_rcnn_train_inputs(rois: torch.Tensor, roi_valid: torch.Tensor, gt: t
     (R, N, 3), rpn_feats (R, N, C), seg_mask (R, N) -> (pts_input (R, K,
     num_points, 5 + C), cls_label (R, K) of 1/0/-1, reg_mask (R, K), gt_ct
     (R, K, 7) canonical GT, rois (R, K, 7), valid (R, K)). Labels come from
-    the noised rois' IoU; an empty pooled roi is ignored. The augmentation
-    is always on, with FG_AUG_TIMES noise trials and AUG_ROT_RANGE, as
-    every config of the repo sets it."""
+    the noised rois' IoU; an empty pooled roi is ignored. aug_data (AUG_DATA)
+    turns on the noise, fg_aug_times trials of a foreground roi
+    (ROI_FG_AUG_TIMES; 0 skips it), and the rotation (up to pi /
+    aug_rot_range, AUG_ROT_RANGE), scaling and flip; draws holds at least
+    fg_aug_times trials."""
     r, k = rois.shape[0], rois_per_instance
     s_rois, s_iou, fg_slot, ok = sample_rcnn_rois(
         rois, roi_valid, gt, gt_ok, draws, rois_per_instance=k, reg_fg_thresh=reg_fg_thresh,
         cls_fg_thresh=cls_fg_thresh, cls_bg_thresh=cls_bg_thresh)
     gt_rep = gt[:, None, :].expand(r, k, 7)
-    a_rois, a_iou = aug_roi_by_noise(
-        s_rois.reshape(r * k, 7), gt_rep.reshape(r * k, 7), s_iou.reshape(r * k),
-        min(reg_fg_thresh, cls_fg_thresh), draws, FG_AUG_TIMES, fg_slot.reshape(r * k))
-    s_rois, s_iou = a_rois.reshape(r, k, 7), a_iou.reshape(r, k)
+    if aug_data and fg_aug_times > 0:
+        a_rois, a_iou = aug_roi_by_noise(
+            s_rois.reshape(r * k, 7), gt_rep.reshape(r * k, 7), s_iou.reshape(r * k),
+            min(reg_fg_thresh, cls_fg_thresh), draws, fg_aug_times, fg_slot.reshape(r * k))
+        s_rois, s_iou = a_rois.reshape(r, k, 7), a_iou.reshape(r, k)
     pooled, empty = _pool(xyz, rpn_feats, seg_mask, s_rois, num_points, pool_extra_width)
     p_xyz, p_feats = pooled[..., 0:3], pooled[..., 3:]
-    pts_f, rois_f, gts_f = rcnn_data_augmentation(
-        p_xyz.reshape(r * k, num_points, 3), s_rois.reshape(r * k, 7),
-        gt_rep.reshape(r * k, 7), draws)
-    p_xyz = pts_f.reshape(r, k, num_points, 3)
-    s_rois, gt_rep = rois_f.reshape(r, k, 7), gts_f.reshape(r, k, 7)
+    if aug_data:
+        pts_f, rois_f, gts_f = rcnn_data_augmentation(
+            p_xyz.reshape(r * k, num_points, 3), s_rois.reshape(r * k, 7),
+            gt_rep.reshape(r * k, 7), draws, aug_rot_range)
+        p_xyz = pts_f.reshape(r, k, num_points, 3)
+        s_rois, gt_rep = rois_f.reshape(r, k, 7), gts_f.reshape(r, k, 7)
     p_xyz = rotate_points_along_y((p_xyz - s_rois[:, :, None, 0:3]).reshape(r * k, num_points, 3),
                                   s_rois[..., 6].reshape(r * k)).reshape(r, k, num_points, 3)
     gt_ct = canonical_gt(s_rois, gt_rep)
@@ -344,17 +357,32 @@ def prepare_rcnn_train_inputs(rois: torch.Tensor, roi_valid: torch.Tensor, gt: t
     return torch.cat([p_xyz, p_feats], dim=-1), cls_label, reg_mask, gt_ct, s_rois, valid
 
 
+RCNN_LOSS_CLS = ("BinaryCrossEntropy", "SigmoidFocalLoss")
+
+
 def rcnn_loss(cls_pred: torch.Tensor, reg_pred: torch.Tensor, cls_label: torch.Tensor,
-              reg_mask: torch.Tensor, gt_ct: torch.Tensor, anchor_size: torch.Tensor) -> torch.Tensor:
-    """The RCNN loss (rcnn_loss.py:27-134): the binary cross-entropy over
-    the labelled rois (LOSS_CLS BinaryCrossEntropy, as every config of the
-    repo sets it) plus the bin-based loc + angle + 3 * size over reg_mask.
+              reg_mask: torch.Tensor, gt_ct: torch.Tensor, anchor_size: torch.Tensor,
+              loss_cls: str = "BinaryCrossEntropy", focal_alpha: float = 0.25,
+              focal_gamma: float = 2.0) -> torch.Tensor:
+    """The RCNN loss (rcnn_loss.py:27-134): the classification loss over the
+    labelled rois plus the bin-based loc + angle + 3 * size over reg_mask.
     cls_pred (B,), reg_pred (B, C), cls_label (B,) of 1/0/-1, reg_mask
-    (B,), gt_ct (B, 7)."""
+    (B,), gt_ct (B, 7). The classification loss by RCNN.LOSS_CLS:
+    "BinaryCrossEntropy" averaged over the labelled rois, or
+    "SigmoidFocalLoss" (alpha, gamma) summed over them and divided by the
+    labelled foreground (at least 1; rcnn_loss.py:57-72). The reference's
+    "CrossEntropy" branch reads an undefined name, and the JAX package
+    leaves it out: it raises here, as any other name does."""
+    if loss_cls not in RCNN_LOSS_CLS:
+        raise ValueError(f"RCNN.LOSS_CLS {loss_cls!r}: one of {RCNN_LOSS_CLS}")
     t = (cls_label > 0).to(cls_pred.dtype)
     care = (cls_label >= 0).to(cls_pred.dtype)
-    cls_l = (binary_cross_entropy(cls_pred, t) * care).sum() / sum_over_ranks(
-        care.sum()).clamp_min(1.0)
+    if loss_cls == "SigmoidFocalLoss":
+        raw = sigmoid_focal_loss_binary(cls_pred, t, focal_gamma, focal_alpha)
+        cls_l = (raw * care).sum() / sum_over_ranks((t * care).sum()).clamp_min(1.0)
+    else:
+        cls_l = (binary_cross_entropy(cls_pred, t) * care).sum() / sum_over_ranks(
+            care.sum()).clamp_min(1.0)
     loc, angle, size = codec.reg_loss(reg_pred, gt_ct, reg_mask.to(cls_pred.dtype),
                                       anchor_size, RCNN_CODEC)
     return cls_l + loc + angle + 3.0 * size

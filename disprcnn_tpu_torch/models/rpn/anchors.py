@@ -13,8 +13,9 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
-# RPN.STRADDLE_THRESH: the default 0 of every config (none sets it)
+# RPN.STRADDLE_THRESH's default
 STRADDLE_THRESH = 0
 
 
@@ -96,10 +97,15 @@ class AnchorGenerator:
         ], axis=0)
 
 
-def visibility(anchors, image_hw: Tuple[int, int]):
+def visibility(anchors, image_hw: Tuple[int, int], straddle_thresh: float = STRADDLE_THRESH):
     """(N, 4) anchors (numpy or torch) -> (N,) bool: the anchors within
-    STRADDLE_THRESH px of the image (anchor_generator.py add_visibility_to)."""
+    straddle_thresh px of the image, all of them where it is negative
+    (anchor_generator.py add_visibility_to)."""
     h, w = image_hw
-    t = STRADDLE_THRESH
+    t = straddle_thresh
+    if t < 0:
+        if isinstance(anchors, torch.Tensor):
+            return torch.ones(anchors.shape[0], dtype=torch.bool, device=anchors.device)
+        return np.ones(len(anchors), bool)
     return ((anchors[:, 0] >= -t) & (anchors[:, 1] >= -t)
             & (anchors[:, 2] < w + t) & (anchors[:, 3] < h + t))

@@ -11,11 +11,22 @@ tests points with the same values as the plain version on that device.
 
 ``roipool3d`` dispatches: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel (csrc/roipool3d.cu), whose one launch point is
-``roipool3d_cuda``, looked up at call time. There is no fallback. The
-kernel writes its rows on one of two routes, both hand-written: "bulk"
-(chunks of rows staged in shared memory and written by TMA bulk stores),
-wherever its ring of chunks fits in shared memory, else "direct" (each
-row stored from registers); ``_launch(..., route=...)`` forces one.
+``roipool3d_cuda``, looked up at call time. There is no fallback. That
+launch is forward only (``build.forward_only``). The kernel writes its
+rows on one of two routes, both hand-written: "bulk" (chunks of rows
+staged in shared memory and written by TMA bulk stores), wherever its
+ring of chunks fits in shared memory, else "direct" (each row stored from
+registers); ``_launch(..., route=...)`` forces one.
+
+The train form ``roipool3d_train`` (the RCNN and RPN trained in one step,
+where the pooled points and features carry the RPN's gradient) is a
+``torch.autograd.Function``: the same kernel as its forward (launch point
+``roipool3d_train_cuda``), and as its backward ``roipool3d_backward_plain``,
+which recomputes each box's sampled points by the plain version's rule
+and adds each slot's gradient to its point's row (``scatter_add_``, the
+backward of the plain version's gather); an empty box sends none. The
+JAX package's fused kernel has no VJP: its train step differentiates the
+plain gather route (disprcnn_tpu/ops/roipool3d.py), as this backward does.
 """
 from __future__ import annotations
 
@@ -23,15 +34,18 @@ import ctypes
 
 import torch
 
-from ..roipool3d import roipool3d_plain
+from ..roipool3d import _first_k_cycled_rows, pts_in_boxes3d, roipool3d_plain
 from . import build
 from .sa import _check
 
-__all__ = ["roipool3d", "roipool3d_cuda", "roipool3d_plain"]
+__all__ = ["roipool3d", "roipool3d_cuda", "roipool3d_plain", "roipool3d_train",
+           "roipool3d_train_cuda", "roipool3d_backward_plain"]
 
-# Launches of the CUDA kernel in this process; a caller may reset it to 0
-# around a run it wants to count.
+# Launches of the CUDA kernel in this process, by the eval wrapper and by
+# the train form's forward; a caller may reset them to 0 around a run it
+# wants to count.
 launches = 0
+train_launches = 0
 
 MAX_S = 8192
 # the kernel's routes by the number its C interface takes (0: its own plan)
@@ -53,8 +67,8 @@ def _launch(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
             sampled_pts_num: int = 512, max_dis: float = 10.0, route: str = None):
     """Launch csrc/roipool3d.cu on the current stream on `route` ("bulk",
     "direct", or None: the kernel's plan); same contract as
-    roipool3d_plain. Every tensor float32, contiguous, on one card."""
-    global launches
+    roipool3d_plain. Every tensor float32, contiguous, on one card. The
+    callers count the launch."""
     if route is not None and route not in ROUTES:
         raise ValueError(f"route must be one of {sorted(ROUTES)}, got {route!r}")
     build.forward_only("roipool3d_cuda", pts, feats)
@@ -81,7 +95,6 @@ def _launch(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"roipool3d_cuda launch failed: "
                            f"{lib.roipool3d_error_string(err).decode()}")
-    launches += 1
     return out, empty
 
 
@@ -89,7 +102,10 @@ def roipool3d_cuda(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor
                    sampled_pts_num: int = 512, max_dis: float = 10.0):
     """Launch csrc/roipool3d.cu on the route its plan picks from the
     shapes; same contract as roipool3d_plain."""
-    return _launch(pts, feats, boxes3d, sampled_pts_num, max_dis)
+    global launches
+    out = _launch(pts, feats, boxes3d, sampled_pts_num, max_dis)
+    launches += 1
+    return out
 
 
 def roipool3d(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
@@ -97,4 +113,59 @@ def roipool3d(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     if pts.is_cuda:
         return roipool3d_cuda(pts, feats, boxes3d, sampled_pts_num, max_dis)
+    return roipool3d_plain(pts, feats, boxes3d, sampled_pts_num, max_dis)
+
+
+def roipool3d_train_cuda(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
+                         sampled_pts_num: int = 512, max_dis: float = 10.0):
+    """The train form's forward: the kernel, on tensors without autograd."""
+    global train_launches
+    out = _launch(pts, feats, boxes3d, sampled_pts_num, max_dis)
+    train_launches += 1
+    return out
+
+
+def roipool3d_backward_plain(pts: torch.Tensor, boxes3d: torch.Tensor, grad: torch.Tensor,
+                             sampled_pts_num: int = 512, max_dis: float = 10.0):
+    """The gradient of roipool3d's pooled rows: pts (B, N, 3), boxes (B, M,
+    7), grad (B, M, S, 3 + C) -> the gradient of [xyz, features] (B, N, 3 +
+    C): every slot's row added to the point it sampled (the first-k-cycled
+    rule of the plain version, recomputed), nothing from an empty box."""
+    b, n = pts.shape[:2]
+    m, c = boxes3d.shape[1], grad.shape[-1]
+    mask = pts_in_boxes3d(pts, boxes3d, max_dis)
+    idx, cnt = _first_k_cycled_rows(mask.reshape(b * m, n), sampled_pts_num)
+    grad = torch.where((cnt == 0).reshape(b, m, 1, 1), torch.zeros_like(grad), grad)
+    out = torch.zeros((b, n, c), dtype=grad.dtype, device=grad.device)
+    return out.scatter_add_(1, idx.reshape(b, m * sampled_pts_num, 1).expand(-1, -1, c),
+                            grad.reshape(b, m * sampled_pts_num, c))
+
+
+class _RoIPool3dTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pts, feats, boxes3d, sampled_pts_num, max_dis):
+        ctx.save_for_backward(pts, boxes3d)
+        ctx.sampled_pts_num, ctx.max_dis = sampled_pts_num, max_dis
+        pooled, empty = roipool3d_train_cuda(pts, feats, boxes3d, sampled_pts_num, max_dis)
+        ctx.mark_non_differentiable(empty)
+        return pooled, empty
+
+    @staticmethod
+    def backward(ctx, dpooled, _):
+        pts, boxes3d = ctx.saved_tensors
+        full = roipool3d_backward_plain(pts, boxes3d, dpooled.contiguous(), ctx.sampled_pts_num,
+                                        ctx.max_dis)
+        dpts = full[..., :3] if ctx.needs_input_grad[0] else None
+        dfeats = full[..., 3:] if ctx.needs_input_grad[1] else None
+        return dpts, dfeats, None, None, None
+
+
+def roipool3d_train(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
+                    sampled_pts_num: int = 512, max_dis: float = 10.0):
+    """roipool3d, differentiable in pts and feats (the boxes only decide
+    which points a box takes: no gradient). CUDA tensors take the kernel
+    forward and roipool3d_backward_plain's backward, CPU tensors the plain
+    version."""
+    if pts.is_cuda:
+        return _RoIPool3dTrain.apply(pts, feats, boxes3d, int(sampled_pts_num), float(max_dis))
     return roipool3d_plain(pts, feats, boxes3d, sampled_pts_num, max_dis)

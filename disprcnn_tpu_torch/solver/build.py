@@ -29,6 +29,9 @@ optimizer's state with that count, for utils/checkpoint.py.
 
 Frozen subtrees (SOLVER.FIX_*) get ``requires_grad_(False)`` and are left
 out of the optimizer: no gradient, no decay, no update.
+
+``UncertWeights`` are SOLVER.UNCERT_LOSS_WEIGHT's learned loss weights
+with their own optimizer (JAX tools/train_net.py:113-121).
 """
 from __future__ import annotations
 
@@ -98,6 +101,35 @@ class Optimizer:
         return {"count": self.count, "sgd": self.sgd.state_dict()}
 
     def load_state_dict(self, state: dict) -> None:
+        self.sgd.load_state_dict(state["sgd"])
+        self.count = int(state["count"])
+
+
+class UncertWeights:
+    """The learned uncertainty loss weights u (count,), from -1.0, and their
+    optimizer, the JAX package's uncert_tx: the momentum trace t = g + m t
+    (optax.trace, m = SOLVER.MOMENTUM, no schedule) and the update -lr * t
+    at the LR schedule's value for this optimizer's own update count; no
+    weight decay and no bias factor. ``step()`` applies one update to
+    ``u.grad``; ``state_dict()`` holds u, the trace and the count."""
+
+    def __init__(self, count: int, schedule: Schedule, momentum: float, device=None):
+        self.u = torch.full((count,), -1.0, device=device, requires_grad=True)
+        self.schedule = schedule
+        self.sgd = torch.optim.SGD([self.u], lr=schedule(0), momentum=momentum)
+        self.count = 0
+
+    def step(self) -> None:
+        self.sgd.param_groups[0]["lr"] = self.schedule(self.count)
+        self.sgd.step()
+        self.count += 1
+
+    def state_dict(self) -> dict:
+        return {"u": self.u.detach().clone(), "count": self.count, "sgd": self.sgd.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        with torch.no_grad():
+            self.u.copy_(state["u"])
         self.sgd.load_state_dict(state["sgd"])
         self.count = int(state["count"])
 

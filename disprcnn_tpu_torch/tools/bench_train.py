@@ -37,14 +37,18 @@ from ..utils.weights import init_random_
 # 0.5, MAX_ROI_FOR_TRAINING 12, WEIGHT_DECAY 1e-4, OneCycle BASE_LR 0.01
 # over MAX_ITER 41000; rcnn.yaml: MASK_THRESH 0.5, RPN.FIXED,
 # TRAIN.RPN_PRE/POST_NMS_TOP_N 9000/512 (pre capped at the 768 points),
-# the defaults' TRAIN.RPN_NMS_THRESH 0.85 (point_rcnn.TRAIN_RPN_NMS_THRESH),
+# the defaults' TRAIN.RPN_NMS_THRESH 0.85,
 # RCNN.ROI_PER_IMAGE 16, FIX_DISPARITY, FIX_POINTRCNN_RPN, DO_GRAD_CLIP,
 # MAX_ITER 62100; the defaults' MOMENTUM 0.9, BIAS_LR_FACTOR 2 and
 # WEIGHT_DECAY_BIAS 0, GRAD_CLIP 10 as bench_3d sets it
 PSM_TRAIN = dict(max_det=16, roi_size=224, maxdisp=48, mindisp=-48, roi_min_score=0.5,
                  max_roi_train=12)
 PC_TRAIN = dict(BENCH_3D, mask_thresh_train=0.5, rpn_pre_nms_per_roi_train=768,
-                proposals_per_roi_train=512, rcnn_rois_per_instance=16)
+                proposals_per_roi_train=512, rpn_nms_thresh_train=0.85,
+                rcnn_rois_per_instance=16, rpn_fixed=True)
+# rcnn.yaml with RPN.FIXED False and FIX_POINTRCNN_RPN False: the RPN (in
+# train mode, dropout on fixed masks) and the RCNN trained in one step
+JOINT_TRAIN = dict(PC_TRAIN, rpn_fixed=False)
 # rpn.yaml: IMS_PER_BATCH 3, PCNET.MAX_ROI_FOR_TRAINING 20 (no cap on 16
 # detections), MASK_THRESH 0.5, RPN.LOSS_CLS BinaryCrossEntropy (cfg's
 # rpn_loss_cls takes the other forms), the RPN training (RPN.FIXED False) and no RCNN
@@ -137,14 +141,17 @@ def psm_stage(pairs: int, gen: torch.Generator, cfg: dict = PSM_TRAIN,
 
 def pc_stage(pairs: int, gen: torch.Generator, cfg: dict = PC_TRAIN, img_hw=IMG_HW,
              calib: dict = CALIB) -> TrainStage:
-    """The RCNN step on a fixed RPN whose box regression is centred
-    (centre_rpn_boxes_): each instance's ground-truth box is its proposal
-    that holds the most lifted points, found by one train-mode forward.
-    Raises if no instance has a proposal with points."""
+    """The RCNN step on a fixed RPN (PC_TRAIN), or with cfg JOINT_TRAIN the
+    RPN and the RCNN in one step (the RPN trains too, its dropout on fixed
+    masks), the RPN's box regression centred (centre_rpn_boxes_): each
+    instance's ground-truth box is its proposal that holds the most lifted
+    points, found by one train-mode forward. Raises if no instance has a
+    proposal with points."""
     dev = gen.device
     model = init_random_(DispRCNN3D(**cfg, device=dev), gen)
     centre_rpn_boxes_(model)
-    frozen = frozen_path_prefixes(FIX_DISPARITY=True, FIX_POINTRCNN_RPN=True)
+    fixed = model.pointrcnn.rpn_fixed
+    frozen = frozen_path_prefixes(FIX_DISPARITY=True, FIX_POINTRCNN_RPN=fixed)
     opt = make_optimizer(model, one_cycle(0.01, PC_ITER), one_cycle_momentum(PC_ITER), frozen,
                          **SOLVER)
     step = make_train_step(model, opt, do_grad_clip=True, grad_clip=GRAD_CLIP,
@@ -162,6 +169,8 @@ def pc_stage(pairs: int, gen: torch.Generator, cfg: dict = PC_TRAIN, img_hw=IMG_
                  rcnn_draws=rcnn3d.draw_rcnn_draws(pairs * d, prc.proposals_per_roi_train,
                                                    prc.rcnn_rois_per_instance, 10, gen, dev),
                  gt_left=dets.left, gt_valid=torch.ones(pairs, d, dtype=torch.bool, device=dev))
+    if not fixed:
+        batch["rpn_draws"] = rpn3d.draw_rpn_draws(pairs * d, cfg["npoints"], gen, dev)
     seen = {}
     orig = rcnn3d.prepare_rcnn_train_inputs
 

@@ -55,10 +55,18 @@ kwargs (train_psm / train_pc) -> the loop.
   WORLD_SIZE unset or 1 no process group is made and the run is the
   one-process run.
 
-SOLVER.UNCERT_LOSS_WEIGHT other than 0 raises ValueError: no shipped
-config sets it and the step does not wire it in (ROADMAP A7). It runs on
-the card unless --device says otherwise; with --device cuda and no card it
-raises. The CPU runs every kernel's plain version.
+- SOLVER.UNCERT_LOSS_WEIGHT N > 0: N learned loss weights u, from -1,
+  weigh the losses as sum(u) + sum(l_i exp(-u_i)) over the losses sorted
+  by key, with their own optimizer (momentum SOLVER.MOMENTUM on the LR
+  schedule, no weight decay; solver/build.py::UncertWeights); the
+  checkpoints carry u and its optimizer, and each logged iteration writes
+  u as the scalars uncert0 .. uncert{N-1} to TensorBoard (JAX
+  tools/train_net.py:113-121, 158-160).
+- A checkpoint also holds the generator of the model's draws, so that a
+  resumed run draws as the uninterrupted run does.
+
+It runs on the card unless --device says otherwise; with --device cuda and
+no card it raises. The CPU runs every kernel's plain version.
 """
 from __future__ import annotations
 
@@ -81,7 +89,8 @@ from ..models.build import build_detection_model
 from ..parallel.mesh import replicate
 from ..parallel.multihost import (init_distributed, is_main_process, process_count,
                                   process_index, synchronize)
-from ..solver.build import FIX_FLAG_PREFIXES, frozen_path_prefixes, make_optimizer
+from ..solver.build import (FIX_FLAG_PREFIXES, UncertWeights, frozen_path_prefixes,
+                            make_optimizer)
 from ..solver.schedules import make_momentum_schedule, make_schedule
 from ..utils.checkpoint import Checkpointer, load_stage_weights
 from ..utils.logging import MetricLogger, setup_logger
@@ -149,14 +158,12 @@ def train(cfg, dataset: Optional[str] = None, static_hw=(384, 1248), device: str
     into it; MODEL.WEIGHT still applies). -> {"cfg", "model", "optimizer",
     "step" (the TrainStep), "start_iter", "iters" (run here), "metrics" (a
     list of (iteration, {name: float}) at the log cadence), "ckpt_dir",
-    "unmatched" (MODEL.WEIGHT's keys left at their init, or None), "stats"
+    "unmatched" (MODEL.WEIGHT's keys left at their init, or None), "uncert"
+    (the learned loss weights, or None), "stats"
     (seconds: data_s in the loader, to_device_s, step_s, loop_s; and
     s_per_iter, data_share), "world", "rank", "ims_per_rank"}."""
     s = cfg.SOLVER
     check_cli_model(cfg)
-    if s.UNCERT_LOSS_WEIGHT:
-        raise ValueError(f"SOLVER.UNCERT_LOSS_WEIGHT = {s.UNCERT_LOSS_WEIGHT}: the port's train "
-                         "step does not wire in the learned uncertainty weights (ROADMAP A7)")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device (pass --device cpu to run on the CPU)")
     device = init_distributed(dist_backend, device)
@@ -175,12 +182,18 @@ def train(cfg, dataset: Optional[str] = None, static_hw=(384, 1248), device: str
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model: {meta}, {n_params / 1e6:.1f}M parameters on {device}")
     opt, schedule = build_optimizer(cfg, model)
+    # the learned uncertainty loss weights, an optimizer of their own
+    uncert = (UncertWeights(s.UNCERT_LOSS_WEIGHT, schedule, s.MOMENTUM, device)
+              if s.UNCERT_LOSS_WEIGHT else None)
     convert, static_kwargs = make_batch_converter(cfg, device)
-    step = make_train_step(model, opt, s.DO_GRAD_CLIP, s.GRAD_CLIP, forward_kwargs=static_kwargs)
+    step = make_train_step(model, opt, s.DO_GRAD_CLIP, s.GRAD_CLIP, forward_kwargs=static_kwargs,
+                           uncert=uncert)
     ckpt_dir = os.path.join(cfg.OUTPUT_DIR, "ckpt")
     ckpt = Checkpointer(ckpt_dir)
+    generator = torch.Generator(device=device).manual_seed(seed)
     synchronize()
-    start_iter = ckpt.load(model, opt, load_optimizer=s.LOAD_OPTIMIZER)
+    start_iter = ckpt.load(model, opt, load_optimizer=s.LOAD_OPTIMIZER, uncert=uncert,
+                           generator=generator)
     replicate(model)
     if start_iter:
         if s.LOAD_OPTIMIZER:
@@ -198,7 +211,6 @@ def train(cfg, dataset: Optional[str] = None, static_hw=(384, 1248), device: str
                                group_by_aspect=cfg.DATALOADER.ASPECT_RATIO_GROUPING)
     if world > 1:
         logger.info(f"rank {rank} of {world} on {device}: {ims} of every {ims * world} pairs")
-    generator = torch.Generator(device=device).manual_seed(seed)
     meters = MetricLogger()
     tb = SummaryWriter(os.path.join(cfg.OUTPUT_DIR, "tb")) if main else None
     stats = {"data_s": 0.0, "to_device_s": 0.0, "step_s": 0.0}
@@ -225,6 +237,9 @@ def train(cfg, dataset: Optional[str] = None, static_hw=(384, 1248), device: str
                 now = time.perf_counter()
                 scalars = dict(metrics, lr=float(schedule(it)),
                                batch_time=(now - t_last) / max(s.PRINT_INTERVAL, 1))
+                if uncert is not None:
+                    scalars.update({f"uncert{i}": float(v)
+                                    for i, v in enumerate(uncert.u.detach())})
                 t_last = now
                 if tb:
                     tb.add_scalars(scalars, it)
@@ -240,10 +255,10 @@ def train(cfg, dataset: Optional[str] = None, static_hw=(384, 1248), device: str
                 logger.info(f"iter {it}/{s.MAX_ITER} {meters} "
                             f"eta {datetime.timedelta(seconds=int(eta))}")
             if it > start_iter and it % s.CHECKPOINT_PERIOD == 0 and main:
-                ckpt.save(it, model, opt)
+                ckpt.save(it, model, opt, uncert, generator)
         final = max(s.MAX_ITER, it + 1)
         if main:
-            ckpt.save(final, model, opt)
+            ckpt.save(final, model, opt, uncert, generator)
         synchronize()
     finally:
         if tb:
@@ -259,7 +274,8 @@ def train(cfg, dataset: Optional[str] = None, static_hw=(384, 1248), device: str
                 f"{100 * stats['data_share']:.1f}%); checkpoint {ckpt.path(final)}")
     return {"cfg": cfg, "model": model, "optimizer": opt, "step": step,
             "start_iter": start_iter, "iters": iters, "metrics": logged, "ckpt_dir": ckpt_dir,
-            "final_step": final, "unmatched": unmatched, "stats": stats, "world": world,
+            "final_step": final, "unmatched": unmatched, "uncert": uncert, "stats": stats,
+            "world": world,
             "rank": rank, "ims_per_rank": ims}
 
 

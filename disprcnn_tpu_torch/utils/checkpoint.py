@@ -4,15 +4,22 @@ model_serialization.py:10-80). ``torch.save`` takes the place of orbax.
 
 - ``Checkpointer(directory, max_to_keep=10)`` writes ``step_<n>.pt`` files,
   each ``{"model": model.state_dict(), "optimizer": optimizer.state_dict()
-  (with its update count), "step": n}``, and a ``last_checkpoint`` file
-  holding the step; it keeps the newest max_to_keep. ``load(model,
-  optimizer, load_optimizer=...)`` restores the newest into the model (and
+  (with its update count), "uncert": the learned loss weights'
+  state_dict() or None, "generator": the model's draws' generator state or
+  None, "step": n}``, and a ``last_checkpoint`` file holding the step; it
+  keeps the newest max_to_keep. ``load(model, optimizer, load_optimizer=...,
+  uncert=..., generator=...)`` restores the newest into the model (and
   the optimizer) and returns its step as the start iteration. With
   load_optimizer False (SOLVER.LOAD_OPTIMIZER, False in every shipped
   config) the optimizer stays fresh but the saved step is still returned,
   as the JAX package's does: the iterations continue from the saved step
   while the schedules, which read the optimizer's update count, start
-  again at 0.
+  again at 0. The loss weights u and their optimizer's state are restored
+  either way, as the JAX package restores its TrainState's uncert and
+  uncert_opt_state; so is the generator, whose draws then continue as in
+  a run that was not interrupted (the JAX package's draws are keyed by
+  the step), where it lives on the device type it was saved from (a
+  generator's state is its device type's; elsewhere it keeps its seed).
 - ``resolve_weight`` maps the catalog (``catalog://``) and URL names of
   MODEL.WEIGHT to files under $DISPRCNN_WEIGHTS (default ``weights``,
   relative to the working directory): there is no download.
@@ -62,9 +69,13 @@ class Checkpointer:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, model: nn.Module, optimizer=None) -> str:
+    def save(self, step: int, model: nn.Module, optimizer=None, uncert=None,
+             generator: Optional[torch.Generator] = None) -> str:
         state = {"model": model.state_dict(),
                  "optimizer": None if optimizer is None else optimizer.state_dict(),
+                 "uncert": None if uncert is None else uncert.state_dict(),
+                 "generator": None if generator is None else {
+                     "device": generator.device.type, "state": generator.get_state()},
                  "step": int(step)}
         path = self.path(step)
         tmp = path + ".tmp"
@@ -84,18 +95,32 @@ class Checkpointer:
         return torch.load(self.path(step), map_location="cpu", weights_only=True)
 
     def load(self, model: nn.Module, optimizer=None, step: Optional[int] = None,
-             load_optimizer: bool = True) -> int:
-        """Restore `step` (default the newest) into `model` (strict) and, with
-        load_optimizer, into `optimizer`. -> the saved step, 0 when there is
-        no checkpoint."""
+             load_optimizer: bool = True, uncert=None,
+             generator: Optional[torch.Generator] = None) -> int:
+        """Restore `step` (default the newest) into `model` (strict), with
+        load_optimizer into `optimizer`, and into `uncert` and `generator`
+        where given. -> the saved step, 0 when there is no checkpoint."""
         state = self.read(step)
         if state is None:
             return 0
         model.load_state_dict(state["model"])
+        where = self.path(state["step"])
         if load_optimizer and optimizer is not None:
             if state["optimizer"] is None:
-                raise ValueError(f"{self.path(state['step'])} holds no optimizer state")
+                raise ValueError(f"{where} holds no optimizer state")
             optimizer.load_state_dict(state["optimizer"])
+        if uncert is not None:
+            if state.get("uncert") is None:
+                raise ValueError(f"{where} holds no uncertainty loss weights")
+            uncert.load_state_dict(state["uncert"])
+        saved = state.get("generator")
+        if generator is not None and saved is not None:
+            if saved["device"] == generator.device.type:
+                generator.set_state(saved["state"])
+            else:  # a generator's state is its device type's: the draws start anew
+                logging.getLogger("disprcnn_tpu_torch").warning(
+                    f"{where}: the draws' generator was saved on {saved['device']}, not "
+                    f"{generator.device.type}; it keeps its seed")
         return int(state["step"])
 
 

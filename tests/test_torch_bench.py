@@ -97,7 +97,8 @@ def test_train_stages_at_a_tiny_geometry():
     pc = bench_train.pc_stage(1, gen, dict(TINY_3D, mask_thresh_train=0.5,
                                            rpn_pre_nms_per_roi_train=64,
                                            proposals_per_roi_train=16,
-                                           rcnn_rois_per_instance=4), (96, 160), CALIB)
+                                           rcnn_rois_per_instance=4, rpn_fixed=True),
+                              (96, 160), CALIB)
     assert pc.with_points > 0
     assert len(bench_train.time_steps(pc, 1)) == 1
 

@@ -20,7 +20,6 @@ from disprcnn_tpu_torch.config.node import load_yaml
 from disprcnn_tpu_torch.engine.batching import make_batch_converter
 from disprcnn_tpu_torch.models import build as tbuild
 from disprcnn_tpu_torch.models.backbone.resnet import GroupNorm
-from disprcnn_tpu_torch.models.pointrcnn import point_rcnn as tpoint_rcnn
 from disprcnn_tpu_torch.models.pointrcnn import rcnn3d, rpn3d
 from disprcnn_tpu_torch.tools import test_net, train_net
 
@@ -154,45 +153,9 @@ def test_built_model_matches_jax_fields(monkeypatch, path):
         assert (model.max_det, model.post_nms_top_n_test) == (32, 300)
     elif jmodel.det3d_on:
         prc = model.pointrcnn
-        assert jmodel.rpn_nms_thresh_train == tpoint_rcnn.TRAIN_RPN_NMS_THRESH == 0.85
-        # the port's rcnn_enabled stands for JAX's rpn_fixed too
-        assert prc.rcnn_enabled == jmodel.rcnn_enabled == jmodel.rpn_fixed
-
-
-UNSUPPORTED = [
-    ("configs/kitti/car/vob/mask.yaml", ["MODEL.BACKBONE.FREEZE_CONV_BODY_AT", "3"],
-     "FREEZE_CONV_BODY_AT", "A7"),
-    ("configs/kitti/car/vob/mask.yaml", ["MODEL.META_ARCHITECTURE", "GeneralizedRCNN",
-                                         "MODEL.STEREO_ON", "False",
-                                         "MODEL.BACKBONE.FREEZE_CONV_BODY_AT", "1"],
-     "FREEZE_CONV_BODY_AT", "A7"),
-    ("configs/kitti/car/vob/mask.yaml", ["MODEL.RETINANET_ON", "True",
-                                         "MODEL.BACKBONE.FREEZE_CONV_BODY_AT", "3"],
-     "FREEZE_CONV_BODY_AT", "A7"),
-    ("configs/kitti/car/vob/mask.yaml", ["MODEL.RPN.FG_IOU_THRESHOLD", "0.6"],
-     "FG_IOU_THRESHOLD", "A7"),
-    ("configs/kitti/car/vob/mask.yaml", ["MODEL.ROI_HEADS.POSITIVE_FRACTION", "0.5"],
-     "POSITIVE_FRACTION", "A7"),
-    ("configs/kitti/car/vob/mask.yaml", ["MODEL.RPN.STRADDLE_THRESH", "-1"], "STRADDLE",
-     "A7"),
-    ("configs/kitti/car/vob/rcnn.yaml", ["MODEL.POINTRCNN.RPN.FIXED", "False"], "FIXED",
-     "A4.4"),
-    ("configs/kitti/car/vob/rcnn.yaml", ["MODEL.POINTRCNN.AUG_DATA", "False"], "AUG_DATA",
-     "A7"),
-    ("configs/kitti/car/vob/rcnn.yaml", ["MODEL.POINTRCNN.RCNN.ROI_FG_AUG_TIMES", "5"],
-     "ROI_FG_AUG_TIMES", "A7"),
-    ("configs/kitti/car/vob/rcnn.yaml", ["MODEL.POINTRCNN.TRAIN.RPN_NMS_THRESH", "0.8"],
-     "RPN_NMS_THRESH", "A7"),
-]
-
-
-@pytest.mark.parametrize("path,opts,key,item", UNSUPPORTED)
-def test_unsupported_setting_raises(path, opts, key, item):
-    cfg = get_default_cfg()
-    cfg.merge_from_file(str(REPO / path))
-    cfg.merge_from_list(opts)
-    with pytest.raises(ValueError, match=rf"{key}.*ROADMAP {item}\)"):
-        tbuild.build_detection_model(cfg, device="meta")
+        assert prc.rpn_nms_thresh_train == jmodel.rpn_nms_thresh_train == 0.85
+        # stage 4 trains the RCNN on a fixed RPN, stage 3 the RPN alone
+        assert prc.rpn_fixed == jmodel.rpn_fixed == jmodel.rcnn_enabled
 
 
 def _dispnet_fields(m):
@@ -202,12 +165,48 @@ def _dispnet_fields(m):
                 dispnet_conv_layers=d.conv_layers, dispnet_loss_weight=m.dispnet_loss_weight)
 
 
+def _pointrcnn_fields(*names):
+    return lambda m: {n: getattr(m.pointrcnn, n) for n in names}
+
+
 # the settings that the port once refused (ROADMAP A6 and A2, A4.1's loss
-# forms), each with what the built model carries, as the JAX
+# forms, A7 and A4.4), each with what the built model carries, as the JAX
 # build_detection_model's fields: (config (None: the bare default), opts,
-# the port model's values of JAX fields, or None to hold every keyword
-# argument of the port's build to the JAX module's field of that name)
+# the port model's values of JAX fields, or None), beside every keyword
+# argument of the port's build held to the JAX module's field of that name
 SUPPORTED = {
+    "FREEZE_CONV_BODY_AT 3 (DispRCNN)": (
+        "configs/kitti/car/vob/mask.yaml", ["MODEL.BACKBONE.FREEZE_CONV_BODY_AT", "3"],
+        lambda m: dict(freeze_at=m.backbone.body.freeze_at)),
+    "FREEZE_CONV_BODY_AT 1 (mono R-50-C4)": (
+        None, ["MODEL.BACKBONE.FREEZE_CONV_BODY_AT", "1"],
+        lambda m: dict(freeze_at=m.backbone.freeze_at)),
+    "FREEZE_CONV_BODY_AT 3 (RetinaNet)": (
+        "configs/kitti/car/vob/mask.yaml", ["MODEL.RETINANET_ON", "True",
+                                            "MODEL.BACKBONE.FREEZE_CONV_BODY_AT", "3"],
+        lambda m: dict(freeze_at=m.backbone.body.freeze_at)),
+    "RPN.FG_IOU_THRESHOLD": ("configs/kitti/car/vob/mask.yaml",
+                             ["MODEL.RPN.FG_IOU_THRESHOLD", "0.6"],
+                             lambda m: dict(rpn_fg_iou=m.rpn_fg_iou, rpn_bg_iou=m.rpn_bg_iou)),
+    "ROI_HEADS.POSITIVE_FRACTION": ("configs/kitti/car/vob/mask.yaml",
+                                    ["MODEL.ROI_HEADS.POSITIVE_FRACTION", "0.5"],
+                                    lambda m: dict(roi_positive_fraction=m.roi_positive_fraction,
+                                                   roi_fg_iou=m.roi_fg_iou)),
+    "RPN.STRADDLE_THRESH": ("configs/kitti/car/vob/mask.yaml",
+                            ["MODEL.RPN.STRADDLE_THRESH", "-1"],
+                            lambda m: dict(straddle_thresh=m.straddle_thresh)),
+    "POINTRCNN.RPN.FIXED False": ("configs/kitti/car/vob/rcnn.yaml",
+                                  ["MODEL.POINTRCNN.RPN.FIXED", "False"],
+                                  _pointrcnn_fields("rpn_fixed", "rcnn_enabled")),
+    "POINTRCNN.AUG_DATA False": ("configs/kitti/car/vob/rcnn.yaml",
+                                 ["MODEL.POINTRCNN.AUG_DATA", "False"],
+                                 _pointrcnn_fields("aug_data", "fg_aug_times")),
+    "RCNN.ROI_FG_AUG_TIMES 5": ("configs/kitti/car/vob/rcnn.yaml",
+                                ["MODEL.POINTRCNN.RCNN.ROI_FG_AUG_TIMES", "5"],
+                                _pointrcnn_fields("fg_aug_times", "aug_rot_range")),
+    "TRAIN.RPN_NMS_THRESH 0.8": ("configs/kitti/car/vob/rcnn.yaml",
+                                 ["MODEL.POINTRCNN.TRAIN.RPN_NMS_THRESH", "0.8"],
+                                 _pointrcnn_fields("rpn_nms_thresh_train", "rpn_nms_thresh")),
     "BACKBONE.USE_GN": ("configs/kitti/car/vob/mask.yaml", ["MODEL.BACKBONE.USE_GN", "True"],
                         lambda m: dict(use_gn=m.backbone.body.stem.bn1.__class__ is GroupNorm
                                        and m.backbone.body.layer4_2.bn3.__class__ is GroupNorm,
@@ -257,12 +256,11 @@ def test_once_refused_setting_builds_as_jax(monkeypatch, case):
     build_detection_model gives its model (each field against JAX's)."""
     path, opts, read = SUPPORTED[case]
     tm, kw, jm = _built(monkeypatch, path, opts)
-    if read is None:
-        _fields_match(tm, kw, jm)
-        return
-    got = read(tm)
-    want = {k: getattr(jm, k) for k in got}
-    assert got == want, case
+    _fields_match(tm, kw, jm)
+    if read is not None:
+        got = read(tm)
+        want = {k: getattr(jm, k) for k in got}
+        assert got == want, case
 
 
 @pytest.mark.parametrize("opts", [["MODEL.RETINANET_ON", "True"],

@@ -777,6 +777,32 @@ def test_roipool3d_routes_match_plain(card, route, b, n, m, c, s):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("b,n,m,c,s", [(16, 768, 16, 130, 512), (3, 700, 5, 7, 45)])
+def test_roipool3d_train_form_matches_plain_autograd(card, b, n, m, c, s):
+    """Row 14's train form (the RPN and RCNN trained in one step): one
+    kernel launch forward, rows and flags equal to the plain version's, and
+    the points' and features' gradients within 1e-5 of their max of
+    autograd of the plain version, under a non-uniform output gradient;
+    the eval wrapper refuses a feature that needs a gradient."""
+    pts, feats, boxes = _roipool_inputs(b, n, m, c)
+    ct = torch.randn(b, m, s, 3 + c, device=card)
+    runs = []
+    for fn in (croi.roipool3d_train, croi.roipool3d_plain):
+        tp, tf = pts.clone().requires_grad_(True), feats.clone().requires_grad_(True)
+        before = croi.train_launches
+        pooled, empty = fn(tp, tf, boxes, s)
+        assert croi.train_launches == before + (fn is croi.roipool3d_train)
+        pooled.backward(ct)
+        runs.append((pooled.detach(), empty, tp.grad, tf.grad))
+    torch.cuda.synchronize()
+    (gp, ge, gdp, gdf), (wp, we, wdp, wdf) = runs
+    assert torch.equal(gp, wp) and torch.equal(ge, we) and ge.any() and not ge.all()
+    for g, w in ((gdp, wdp), (gdf, wdf)):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    with pytest.raises(RuntimeError, match="no backward"):
+        croi.roipool3d(pts, feats.clone().requires_grad_(True), boxes, s)
+
+
 def test_point_kernels_refuse_bad_inputs(card):
     xyz = torch.zeros(2, 64, 3, device=card)
     with pytest.raises(ValueError, match="contiguous"):

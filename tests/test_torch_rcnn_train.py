@@ -337,12 +337,13 @@ def test_rcnn_loss_matches_jax(with_fg):
 
 # rcnn.yaml at test size: 1 pair of 96x160, 2 detections, crops of 32^2,
 # disparity -16..16 and one hourglass (frozen), clouds of 128 points, SA
-# ladder 128/64/32/16, TRAIN proposals 64 -> 16, 4 RCNN rois per instance
-# (2 foreground slots), MASK_THRESH 0.5, RPN.FIXED
+# ladder 128/64/32/16, TRAIN proposals 64 -> 16 at rcnn.yaml's NMS 0.85, 4
+# RCNN rois per instance (2 foreground slots), MASK_THRESH 0.5, RPN.FIXED
 PC_MODEL = dict(max_det=2, roi_size=32, maxdisp=16, mindisp=-16, det3d_on=True,
                 npoints=128, lift_grid=32, sa_npoints=(128, 64, 32, 16), psm_hourglass=1,
                 mask_thresh_train=0.5, rpn_pre_nms_per_roi_train=64,
-                proposals_per_roi_train=16, rcnn_rois_per_instance=4)
+                proposals_per_roi_train=16, rcnn_rois_per_instance=4, rpn_fixed=True,
+                rpn_nms_thresh_train=0.85)
 RAW_HW = (96, 160)
 CALIB = dict(fu=721.5, fv=721.5, cu=80.0, cv=48.0, tx=0.0, ty=0.0, fuxb=389.6)
 MAX_ITER = 62100
@@ -423,9 +424,7 @@ def test_pc_train_step_matches_jax():
     the most lifted points (the proposals of a first JAX run), so that the
     sampler finds foreground that pools points."""
     left, right, mask, raw = pc_inputs()
-    # the port's train NMS threshold is rcnn.yaml's 0.85 (JAX's is unset by default)
-    jm = j3d.DispRCNN3D(**PC_MODEL, rpn_fixed=True,
-                        rpn_nms_thresh_train=tpr.TRAIN_RPN_NMS_THRESH)
+    jm = j3d.DispRCNN3D(**PC_MODEL)
     jd = JStereoBoxes(left=jnp.asarray(left), right=jnp.asarray(right),
                       score=jnp.asarray([[0.9, 0.8]]), valid=jnp.ones((1, 2), bool),
                       fields={"mask": jnp.asarray(mask)})
