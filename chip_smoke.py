@@ -322,6 +322,26 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      settings with STRADDLE_THRESH -1, RCNN.LOSS_CLS SigmoidFocalLoss,
      AUG_DATA False, ROI_FG_AUG_TIMES and AUG_ROT_RANGE, TRAIN.RPN_NMS_THRESH)
      and UNCERT_LOSS_WEIGHT 3 on the joint step, resumed for a second.
+ 27. iDispNet in bf16 (ROADMAP A8.1): configs/kitti/car/vob/idispnet.yaml
+     built by build_detection_model at its default TPU.COMPUTE_DTYPE
+     (bfloat16), seeded random weights, predict on the bench's geometry (8
+     pairs of 384x1248, 16 detection slots each: 128 crops of 224^2 at
+     +-48): (a) one request with the launches counted from 0: rows 2-7
+     and 15 each launch their bf16 form (EXPECTED_BF16) and no float32
+     form, disparity_roi float32 in the disparity range; (b) each bf16 form
+     on that request's own arguments (the (24, 56^2) trunk, its 28^2 and
+     14^2 hourglass levels, the tower's 112^2 and 56^2 sites) held to its
+     bf16 twin: at least 99.9% of the elements equal, every element at
+     most one bf16 step apart beyond the float32 sums' floor
+     (ops/cuda/conv3d.py::bf16_agreement), the soft-argmin bit-equal to
+     its float32 form on the logits cast up; then timed as phase 9 times a
+     row, the library call being F.conv2d/F.conv3d/F.conv_transpose3d on
+     bf16 tensors and the bound counting 2-byte operands at the dense bf16
+     tensor rate; (c) the request's crops through iDispNet on the bf16
+     kernels, the bf16 twins, the float32 kernels (same weights) and in
+     float64 (plain versions): the bf16 kernel route's mean |disparity -
+     float64| at most 1.25 times the twin route's + 0.01 px; (d) the bf16
+     and float32 requests split into stages in turns, with peak memory.
 Then it prints the card (name, power limit) from nvidia-smi, one JSON line
 of per-kernel numbers (eval kernels per headline request, row 12 per
 SA-off headline request, train forms per train step), and as its last
@@ -332,9 +352,13 @@ boxes in, ms, device_ms, plain_ms, bound_ms) and every row `a6_launches`
 (its launches in each run of phase 25) and `a7_launches` (phase 26's).
 Row 14's train form (roipool3d_train) has its own entry: its launches in
 phase 26's train_net joint run, its times on the joint step's pooling
-inputs (ms the kernel forward, backward_ms the plain backward).
+inputs (ms the kernel forward, backward_ms the plain backward). The bf16
+forms of rows 2-7 and 15 have entries of their own (name "<row>_bf16",
+phase 27: launches in its counted request, equal, beyond, max_ulps and
+max_ulps_clear: see bf16_rows).
 Without a CUDA device, or on any failure, it exits non-zero and prints no
-result. Float32 throughout with TF32 off and deterministic cuDNN.
+result. Float32 with TF32 off and deterministic cuDNN, but phase 27's bf16
+model.
 """
 from __future__ import annotations
 
@@ -418,7 +442,7 @@ import torch_ckpt_writer as ckpt_writer  # noqa: E402
 # the first card run of these kernels) are the bench's
 # (disprcnn_tpu_torch/bench.py); the train stages' configurations are
 # disprcnn_tpu_torch/tools/bench_train.py's.
-PHASES = 26
+PHASES = 27
 PAIRS = 8
 REQUESTS = 2  # at the headline budget; one more at the reference budget
 # the tests' small configurations (tests/torch_port_helpers.py, tests/test_torch_disprcnn3d.py)
@@ -612,17 +636,22 @@ def launches_replaced(**fns):
     """Route the named launch points (nms_sorted_cuda, conv3d_bn_cuda,
     cost_volume_conv_bn_cuda, deconv3d_bn_cuda, conv2d_bn_cuda,
     softargmin_cuda, furthest_point_sample_cuda, sa_ball_mlp_max_cuda,
-    grouped_mlp_max_cuda, fp_fused_cuda, roipool3d_cuda, and the train
+    grouped_mlp_max_cuda, fp_fused_cuda, roipool3d_cuda, the train
     forms' conv3d_train_cuda, conv3d_train_dx_cuda,
-    sa_ball_mlp_max_train_cuda, roipool3d_train_cuda) through the given
-    functions; yields the original launches by name."""
+    sa_ball_mlp_max_train_cuda, roipool3d_train_cuda, and the bf16 forms'
+    conv3d_bn_bf16_cuda, cost_volume_conv_bn_bf16_cuda,
+    deconv3d_bn_bf16_cuda, conv2d_bn_bf16_cuda, softargmin_bf16_cuda)
+    through the given functions; yields the original launches by name."""
     modules = {"nms_sorted_cuda": cuda_nms, "conv3d_bn_cuda": cconv,
                "cost_volume_conv_bn_cuda": cconv, "deconv3d_bn_cuda": cconv,
                "conv2d_bn_cuda": cconv, "softargmin_cuda": csam,
                "furthest_point_sample_cuda": cfps, "sa_ball_mlp_max_cuda": csa,
                "grouped_mlp_max_cuda": cgm, "fp_fused_cuda": cfp, "roipool3d_cuda": croi,
                "conv3d_train_cuda": cconv, "conv3d_train_dx_cuda": cconv,
-               "sa_ball_mlp_max_train_cuda": csa, "roipool3d_train_cuda": croi}
+               "sa_ball_mlp_max_train_cuda": csa, "roipool3d_train_cuda": croi,
+               "conv3d_bn_bf16_cuda": cconv, "cost_volume_conv_bn_bf16_cuda": cconv,
+               "deconv3d_bn_bf16_cuda": cconv, "conv2d_bn_bf16_cuda": cconv,
+               "softargmin_bf16_cuda": csam}
     orig = {name: getattr(modules[name], name) for name in fns}
     for name, fn in fns.items():
         setattr(modules[name], name, fn)
@@ -649,7 +678,12 @@ def all_plain(**overrides):
                  conv3d_train_cuda=cconv.conv3d_train_plain,
                  conv3d_train_dx_cuda=cconv.conv3d_train_dx_plain,
                  sa_ball_mlp_max_train_cuda=csa.sa_ball_mlp_max_plain,
-                 roipool3d_train_cuda=croi.roipool3d_plain)
+                 roipool3d_train_cuda=croi.roipool3d_plain,
+                 conv3d_bn_bf16_cuda=cconv.conv3d_bn_bf16_plain,
+                 cost_volume_conv_bn_bf16_cuda=cconv.cost_volume_conv_bn_bf16_plain,
+                 deconv3d_bn_bf16_cuda=cconv.deconv3d_bn_bf16_plain,
+                 conv2d_bn_bf16_cuda=cconv.conv2d_bn_bf16_plain,
+                 softargmin_bf16_cuda=csam.softargmin_bf16_plain)
     return launches_replaced(**{**plain, **overrides})
 
 
@@ -1112,7 +1146,9 @@ def check_3d(out, b: int, max_det: int) -> int:
 
 def reset_launches() -> None:
     cuda_nms.launches = 0
-    csam.launches = 0
+    csam.launches = csam.launches_bf16 = 0
+    for k in cconv.launches_bf16:
+        cconv.launches_bf16[k] = 0
     for mod in (cfps, csa, cgm, cfp, croi):
         mod.launches = 0
     csa.train_launches = croi.train_launches = 0
@@ -3016,7 +3052,7 @@ def dist_train_run(stage: str, opts, out_dir: str, dtype: str, max_iter: int,
     device = device or DIST_DEVICE
     cfg = train_net.load_config(f"configs/kitti/car/vob/{stage}.yaml",
                                 DIST_TINY + list(opts) + ["OUTPUT_DIR", out_dir], max_iter)
-    model = init_random_(build_detection_model(cfg, device=device),
+    model = init_random_(build_detection_model(cfg, device=device, train=True),
                          torch.Generator(device=device).manual_seed(22))
     store = {}
     f64 = dtype == "float64"
@@ -4793,6 +4829,298 @@ def phase_joint_and_settings(card: str) -> dict:
     return {"row": joint["row"], "ms": joint["ms"], "counts": counts}
 
 
+# Phase 27: iDispNet in bf16 (TPU.COMPUTE_DTYPE bfloat16, ROADMAP A8.1), the
+# stage-2 model of idispnet.yaml at its default compute dtype over the
+# bench's geometry (8 pairs of 384x1248, 16 detection slots each: 128
+# crops of 224^2 at +-48, the trunk's volume (24, 56^2)).
+BF16_YAML = "configs/kitti/car/vob/idispnet.yaml"
+BF16_SEED = 27
+# the bf16 forms' launches in one request, by row (as EXPECTED_LAUNCHES)
+EXPECTED_BF16 = {"cost_volume_conv": 1, "conv3d": 12, "conv3d_cl1": 3, "conv3d_s2": 6,
+                 "deconv3d": 6, "conv2d": 39, "softargmin": 1}
+# the bf16 kernel route's mean |disparity_roi - float64| at most
+# BF16_ROUTE_FACTOR times the bf16 plain route's + BF16_ROUTE_PX
+BF16_ROUTE_FACTOR = 1.25
+BF16_ROUTE_PX = 0.01
+# the dense bf16 tensor-core rate of an H100 SXM (NVIDIA data sheet, 700 W)
+BF16_OPS_PER_S = 989e12
+# each bf16 form's launch point, twin, library call on bf16 tensors, work,
+# source, the TPU kernel it replaces, and the terms K of its float32 sums
+# (as a function of the launch's arguments)
+PC = "disprcnn_tpu/ops/pallas/packed_conv.py"
+
+
+def bf16_work(work):
+    """A float32 row's work as the bf16 form does it: every operand at 2
+    bytes (the float32 count's bytes halved; the epilogue vectors are
+    float32, a few hundred bytes), the operations at the dense bf16
+    tensor-core rate."""
+    def w(args, out):
+        t_bytes, t_ops = work(args, out)
+        return t_bytes / 2, t_ops * FP32_OPS_PER_S / BF16_OPS_PER_S
+    return w
+
+
+def softargmin_bf16_work(args, out):
+    """softargmin_work with 2-byte logits (the float32 map's 4 bytes kept)."""
+    logits = args[0]
+    t_bytes, t_ops = softargmin_work(args, out)
+    return t_bytes - logits.numel() * 2 / HBM_BYTES_PER_S * 1e3, t_ops
+
+
+def bf16_kinds() -> dict:
+    bf = torch.bfloat16
+    return {
+        "conv2d": (cconv.conv2d_bn_bf16_cuda, cconv.conv2d_bn_bf16_plain,
+                   lambda a: F.conv2d(a[0], a[1].to(bf), padding=1), bf16_work(conv_work),
+                   "conv3d_tc.cu", f"{PC}:188", lambda a: 9 * a[0].shape[1]),
+        "cost_volume_conv": (cconv.cost_volume_conv_bn_bf16_cuda,
+                             cconv.cost_volume_conv_bn_bf16_plain, None,
+                             bf16_work(cost_volume_planes_work), "cost_volume_tc.cu",
+                             f"{PC}:96", lambda a: 54 * a[0].shape[1] + 18),
+        "conv3d": (cconv.conv3d_bn_bf16_cuda, cconv.conv3d_bn_bf16_plain,
+                   lambda a: F.conv3d(a[0], a[1].to(bf), padding=1), bf16_work(conv_work),
+                   "conv3d_tc.cu", f"{PC}:540", lambda a: 27 * a[0].shape[1]),
+        "conv3d_cl1": (cconv.conv3d_bn_bf16_cuda, cconv.conv3d_bn_bf16_plain,
+                       lambda a: F.conv3d(a[0], a[1].to(bf), padding=1), bf16_work(conv_work),
+                       "conv3d.cu", f"{PC}:540", lambda a: 27 * a[0].shape[1]),
+        "conv3d_s2": (cconv.conv3d_bn_bf16_cuda, cconv.conv3d_bn_bf16_plain,
+                      lambda a: F.conv3d(a[0], a[1].to(bf), stride=2, padding=1),
+                      bf16_work(conv_work), "conv3d_tc.cu", f"{PC}:288",
+                      lambda a: 27 * a[0].shape[1]),
+        "deconv3d": (cconv.deconv3d_bn_bf16_cuda, cconv.deconv3d_bn_bf16_plain,
+                     lambda a: F.conv_transpose3d(a[0], a[1].to(bf), stride=2, padding=1,
+                                                  output_padding=1),
+                     bf16_work(lambda a, o: conv_work(a, o, transposed=True)), "conv3d_tc.cu",
+                     f"{PC}:405", lambda a: 27 * a[0].shape[1]),
+        "softargmin": (csam.softargmin_bf16_cuda, csam.softargmin_bf16_plain, None,
+                       softargmin_bf16_work, "softargmin.cu",
+                       "disprcnn_tpu/ops/pallas/softargmin.py:65", None),
+    }
+
+
+def bf16_conv_name(args):
+    return "conv3d_s2" if args[6] == 2 else "conv3d_cl1" if args[1].shape[0] == 1 else "conv3d"
+
+
+BF16_POINTS = dict(conv3d_bn_bf16_cuda=bf16_conv_name,
+                   cost_volume_conv_bn_bf16_cuda="cost_volume_conv",
+                   deconv3d_bn_bf16_cuda="deconv3d", conv2d_bn_bf16_cuda="conv2d",
+                   softargmin_bf16_cuda="softargmin")
+
+
+def bf16_floor(name: str, args, terms) -> torch.Tensor:
+    """The difference the float32 sums of a bf16 launch and its twin may
+    show before their one rounding (cconv.bf16_agreement's floor): K
+    F32_SUM_ERR times the twin's function of |x|, |weight| (bf16 values)
+    and |mul|, without add, residual and ReLU; the classifier's conv rounds
+    before its residual joins, so one step of the conv more."""
+    a = list(args)
+    mag = [t.float().abs() if torch.is_tensor(t) and t.dtype == torch.bfloat16 else t for t in a]
+    w = 2 if name == "cost_volume_conv" else 1
+    mag[w] = a[w].to(torch.bfloat16).float().abs()
+    if name == "cost_volume_conv":
+        mags = cconv.cost_volume_conv_bn_plain(*mag[:3], mag[3].abs(), torch.zeros_like(mag[4]),
+                                               mag[5], mag[6], False)
+        return terms * cconv.F32_SUM_ERR * mags
+    mul = None if mag[2] is None else mag[2].abs()
+    add = None if mul is None else torch.zeros_like(mul)
+    if name == "deconv3d":
+        mags = cconv.deconv3d_bn_plain(mag[0], mag[1], mul, add)
+    elif name == "conv2d":
+        mags = cconv.conv2d_bn_plain(mag[0], mag[1], mul, add)
+    else:
+        mags = cconv.conv3d_bn_plain(mag[0], mag[1], mul, add, None, False, a[6])
+    floor = terms * cconv.F32_SUM_ERR * mags
+    if name == "conv3d_cl1":
+        floor = floor + cconv.bf16_step(cconv.conv3d_bn_plain(
+            a[0].float(), a[1].to(torch.bfloat16).float()))
+    return floor
+
+
+@torch.inference_mode()
+def bf16_rows(calls: dict, launches: dict) -> list:
+    """Each bf16 form on the arguments the main path gave it: held to its
+    twin (cconv.bf16_agreement: every element at most one bf16 step apart
+    beyond the float32 sums' floor, and at most one step where that floor
+    is under a step, at least 99.9% equal; the soft-argmin,
+    whose output is float32, bit-equal to the float32 form on its logits
+    cast up and within SOFTARGMIN_TOL_PX of its twin), then timed as phase
+    9 times a row (time_launches: kernel, device, twin, library call on
+    bf16 tensors, bound with 2-byte operands at the bf16 tensor rate)."""
+    rows = []
+    for name, (kernel, plain, library, work, src, replaces, terms) in bf16_kinds().items():
+        args_list = calls.get(name, [])
+        if len(args_list) != EXPECTED_BF16[name]:
+            raise AssertionError(f"{name} bf16: {len(args_list)} launches in one request, "
+                                 f"expected {EXPECTED_BF16[name]}")
+        agree = {"max_ulps": 0, "max_ulps_clear": 0, "equal": 1.0, "beyond": 0, "elements": 0}
+        err = 0.0
+        for a in args_list:
+            got, want = kernel(*a), plain(*a)
+            if name == "softargmin":
+                f32 = csam.softargmin_cuda(a[0].float(), *a[1:])
+                torch.cuda.synchronize()
+                if not torch.equal(got, f32):
+                    raise AssertionError("softargmin bf16 form != its float32 form on the "
+                                         "logits cast up")
+                err = max(err, sam_err(got, want, "softargmin bf16 on the main path"))
+                continue
+            ag = cconv.bf16_agreement(got, want, bf16_floor(name, a, terms(a)))
+            torch.cuda.synchronize()
+            n = got.numel()
+            agree["equal"] = ((agree["equal"] * agree["elements"] + ag["equal"] * n)
+                              / (agree["elements"] + n))
+            agree["elements"] += n
+            for k in ("max_ulps", "max_ulps_clear"):
+                agree[k] = max(agree[k], ag[k])
+            agree["beyond"] += ag["beyond"]
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            if ag["beyond"] or ag["max_ulps_clear"] > 1 or ag["equal"] < 0.999:
+                raise AssertionError(f"{name} bf16 {tuple(a[0].shape)}: kernel against twin "
+                                     f"{ag}")
+            del got, want
+        groups = {}
+        for a in args_list:
+            groups.setdefault(f" {tuple(a[0].shape[2:])}", []).append(a)
+        row = time_launches(
+            f"{name}_bf16", [(label, group, kernel, plain, library, work,
+                              lambda g, w: float((g.float() - w.float()).abs().max()))
+                             for label, group in groups.items()], err, src, replaces)
+        row["launches"] = launches[name]
+        if name != "softargmin":
+            row.update({k: agree[k] for k in ("max_ulps", "max_ulps_clear", "equal", "beyond")})
+            log(f"  {name} bf16 against its twin over {len(args_list)} launches: "
+                f"{100 * agree['equal']:.4f}% of {agree['elements']} elements equal, none "
+                f"beyond a bf16 step and the float32 sums' floor; at most "
+                f"{agree['max_ulps_clear']} step(s) apart where that floor is under a step, "
+                f"{agree['max_ulps']} where the sums cancel below it")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def idispnet_stages(model2d, model3d, req) -> tuple:
+    """One iDispNet request (predict, det3d_on False) split as phase 10
+    splits the 3D stage's iDispNet part. -> (total ms, ms by stage)."""
+    psm = model3d.idispnet
+    hooks = ((model3d, "pre", "2D detector"), (psm.feature_extraction, "pre", "crops"),
+             (psm.feature_extraction, "post", "feature tower"),
+             (psm.dres2, "pre", "cost volume + dres"), (psm.classif1_0, "pre", "hourglasses"),
+             (psm, "post", "classifiers + regression"))
+    return split_by_events(lambda: predict(model2d, model3d, *req[:4]), hooks, (), "outputs")
+
+
+def phase_bf16_idispnet(card: str) -> dict:
+    """Phase 27: idispnet.yaml's model at its default TPU.COMPUTE_DTYPE
+    (bfloat16), seeded random weights, through predict on the bench's
+    geometry: (a) one request with the launches counted from 0: each of
+    rows 2-7 and 15 launches its bf16 form (EXPECTED_BF16) and no float32
+    form of them, disparity_roi float32, finite, within the disparity
+    range; (b) each bf16 form on that request's own arguments held to its
+    twin and timed (bf16_rows); (c) the request's crops through iDispNet on
+    four routes: bf16 kernels, bf16 twins, float32 kernels (the same
+    weights) and float64 plain: the bf16 kernel route's mean |disparity -
+    float64| at most BF16_ROUTE_FACTOR times the bf16 twin route's +
+    BF16_ROUTE_PX; (d) the bf16 and float32 requests split into stages,
+    in turns (float32, bf16, bf16, float32), and each one's peak memory.
+    -> {"rows": the bf16 rows of the kernels line, "ms": ...}."""
+    t0 = time.perf_counter()
+    cfg = get_default_cfg()
+    cfg.merge_from_file(BF16_YAML)
+    cfg.merge_from_list(["TPU.MAX_DETECTIONS", str(BENCH_3D["max_det"])])
+    cfg.freeze()
+    if cfg.TPU.COMPUTE_DTYPE != "bfloat16" or cfg.MODEL.DET3D_ON:
+        raise AssertionError(f"{BF16_YAML}: COMPUTE_DTYPE {cfg.TPU.COMPUTE_DTYPE}, DET3D_ON "
+                             f"{cfg.MODEL.DET3D_ON}")
+    gen = torch.Generator(device="cuda").manual_seed(BF16_SEED)
+    m16 = init_random_(build_detection_model(cfg, device="cuda"), gen)
+    if m16.idispnet.dtype != torch.bfloat16:
+        raise AssertionError(f"{BF16_YAML} built iDispNet in {m16.idispnet.dtype}")
+    cfg32 = cfg.clone()
+    cfg32.defrost()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    cfg32.freeze()
+    m32 = build_detection_model(cfg32, device="cuda")
+    m32.load_state_dict(m16.state_dict())
+    model2d = init_random_(DispRCNN(**BENCH_2D, device="cuda"),
+                           torch.Generator(device="cuda").manual_seed(0))
+    req = bench.make_request(PAIRS, IMG_HW, PAIRS * BENCH_3D["max_det"], BENCH_3D["lift_grid"],
+                             "cuda", BF16_SEED)
+    # (a) the counted request, its crops kept
+    seen = {}
+    hook = m16.idispnet.register_forward_pre_hook(
+        lambda _m, inputs: seen.update(crops=tuple(t.detach().clone() for t in inputs)))
+    reset_launches()
+    out = predict(model2d, m16, *req[:4])
+    torch.cuda.synchronize()
+    hook.remove()
+    got = dict(cconv.launches_bf16, softargmin=csam.launches_bf16)
+    f32 = {k: v for k, v in read_launches().items() if v}
+    if got != EXPECTED_BF16 or set(f32) != {"nms_sorted"}:
+        raise AssertionError(f"bf16 request: bf16 launches {got}, expected {EXPECTED_BF16}; "
+                             f"float32 launches {f32} (only the 2D detector's NMS expected)")
+    disp = out["disparity_roi"]
+    if (disp.dtype != torch.float32 or tuple(disp.shape) != (PAIRS, BENCH_3D["max_det"], 224, 224)
+            or not torch.isfinite(disp).all() or float(disp.min()) < cfg.MODEL.DISPNET.MIN_DISP
+            or float(disp.max()) > cfg.MODEL.DISPNET.MAX_DISP):
+        raise AssertionError(f"bf16 disparity_roi {disp.dtype} {tuple(disp.shape)}, range "
+                             f"[{float(disp.min())}, {float(disp.max())}]")
+    log(f"  idispnet.yaml at TPU.COMPUTE_DTYPE bfloat16: predict {PAIRS}x{IMG_HW[0]}x"
+        f"{IMG_HW[1]} -> {disp.shape[0] * disp.shape[1]} crops of 224^2, bf16 launches {got}, "
+        f"float32 launches {f32}")
+    del out, disp
+    # (b) each bf16 form on the request's own arguments
+    calls = capture_launches(lambda: predict(model2d, m16, *req[:4]), BF16_POINTS)
+    rows = bf16_rows(calls, got)
+    del calls
+    torch.cuda.empty_cache()
+    # (c) the crops through iDispNet on four routes
+    left, right = seen.pop("crops")
+    with torch.inference_mode():
+        routes = {"bf16 kernels": m16.idispnet(left, right)}
+        with all_plain():
+            routes["bf16 twins"] = m16.idispnet(left, right)
+        routes["float32 kernels"] = m32.idispnet(left, right)
+        torch.cuda.empty_cache()
+        psm64 = copy.deepcopy(m32.idispnet).double()
+        with all_plain():
+            ref = psm64(left.double(), right.double())
+        del psm64
+    dist = {k: float((v.double() - ref).abs().mean()) for k, v in routes.items()}
+    worst = {k: float((v.double() - ref).abs().max()) for k, v in routes.items()}
+    log(f"  disparity_roi of {left.shape[0]} crops, mean |d - float64| (max): "
+        + ", ".join(f"{k} {dist[k]:.5f} ({worst[k]:.4f})" for k in routes) + " px")
+    limit = BF16_ROUTE_FACTOR * dist["bf16 twins"] + BF16_ROUTE_PX
+    if not dist["bf16 kernels"] <= limit:
+        raise AssertionError(f"bf16 kernel route {dist['bf16 kernels']} px from float64, over "
+                             f"{limit}")
+    del routes, ref, left, right
+    torch.cuda.empty_cache()
+    # (d) the requests split into stages, in turns
+    for m in (m32, m16):  # warm-up
+        predict(model2d, m, *req[:4])
+    timed = {"float32": [], "bf16": []}
+    peak = {}
+    for label in ("float32", "bf16", "bf16", "float32"):
+        torch.cuda.reset_peak_memory_stats()
+        timed[label].append(idispnet_stages(model2d, m16 if label == "bf16" else m32, req))
+        peak[label] = torch.cuda.max_memory_allocated() / 1e9
+    ms = {}
+    for label, runs in timed.items():
+        total = min(t for t, _ in runs)
+        stages = min(runs, key=lambda r: r[0])[1]
+        ms[label] = {"request": total, **stages}
+        log(f"  {label} request {[round(t, 3) for t, _ in runs]} ms ("
+            f"{PAIRS * 1000.0 / total:.3f} pairs/s), peak {peak[label]:.2f} GB; the faster: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
+    log(f"[27/{PHASES}] iDispNet in bf16 (idispnet.yaml, TPU.COMPUTE_DTYPE bfloat16) on {card} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    del m16, m32, model2d, req
+    torch.cuda.empty_cache()
+    return {"rows": rows, "ms": ms, "disparity_from_float64": dist}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4888,6 +5216,8 @@ def main() -> int:
                         "a7_launches": {run: c["roipool3d_train"]
                                         for run, c in joint["counts"].items()
                                         if c.get("roipool3d_train")}})
+        torch.cuda.empty_cache()
+        kernels += phase_bf16_idispnet(card)["rows"]
         log(f"done in {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     except Exception:  # report any phase's failure and exit non-zero
         traceback.print_exc()

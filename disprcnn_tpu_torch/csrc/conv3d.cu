@@ -1,5 +1,5 @@
 // The PSMNet classifier's 32 -> 1 stride-1 3x3x3 conv on the CUDA cores,
-// for Hopper (sm_90a), float32, canonical NCDHW layout.
+// for Hopper (sm_90a), float32 and its bf16 form, canonical NCDHW layout.
 //
 // Replaces disprcnn_tpu/ops/pallas/packed_conv.py's _conv_call at dg = 1
 // ("cl1"): the conv to one output channel, no BN (conv3d_bn_cuda):
@@ -46,15 +46,32 @@
 //
 // conv3d_cl1_study_cuda launches the same kernel with its copies or its
 // arithmetic left out, so that tools/profile_convs.py can time each alone.
+//
+// The bf16 form (conv3d_bn_bf16_cuda), the classifier of the JAX package's
+// bf16 model: bf16 rows in (staged as bf16, converted as each quad is
+// read), the weights bf16 values held in float32, float32 FMAs in the same
+// order, a bf16 output rounded to nearest even. JAX's classifier rounds its
+// conv to bf16 in the kernel and adds the previous classifier's cost as a
+// separate bf16 add (psmnet.py:976-989); here that add stays the conv's
+// residual, and the epilogue rounds the conv to bf16 before the residual
+// joins and the sum again after it (conv3d.cuh round_first), JAX's two
+// roundings. Its rows come by bulk copies where W % 8 == 0 (a row of 4 qw
+// bf16 is then a multiple of 16 bytes: 112 at W = 56), else by 8-byte
+// cp.async a quad where W % 4 == 0, else by plain loads. Bound at the main
+// path's shape: the bf16 input's 0.62 GB, 0.18 ms at 3.35 TB/s, against
+// the same 0.25 ms of FMAs: operations.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "bf16.cuh"
 #include "conv3d.cuh"
 #include "tma.cuh"
 
 namespace {
 
-using conv::Out;
+using conv::OutT;
 
 constexpr int kTR = 2;           // output rows a thread computes
 constexpr int kCG = 4;           // input channels a stage copies
@@ -71,21 +88,53 @@ struct Geom {
   int qw;      // quads of a column tile
   int ctiles;  // column tiles
   int g;       // row groups: a tile holds kTR * g padded rows
-  int vec;     // 16-byte copies: W % 4 == 0 and x 16-byte aligned
-  int bulk;    // bulk copies of whole runs of rows: vec and one column tile
+  int vec;     // one cp.async a quad: W % 4 == 0 and x aligned to a quad
+  int bulk;    // bulk copies of whole runs of rows: one column tile, rows of 16-byte multiples
 };
 
 using tma::smem_u32;
 
-// cp.async of 16 or 4 bytes, zero-filled where !valid (src is then not read)
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool valid) {
+// cp.async of 16, 8 or 4 bytes, zero-filled where !valid (src is then not read)
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0));
 }
 
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 4 : 0));
+}
+
+// one element, zero where !valid: float by cp.async; bf16 by a load and a
+// store (no cp.async copies 2 bytes)
+__device__ __forceinline__ void copy1(float* dst, const float* src, bool valid) {
+  cp4(dst, src, valid);
+}
+__device__ __forceinline__ void copy1(bf16_t* dst, const bf16_t* src, bool valid) {
+  *dst = valid ? __ldg(reinterpret_cast<const unsigned short*>(src)) : 0;
+}
+
+// one quad (4 columns), zero where !valid: 16 bytes (float) or 8 (bf16)
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) {
+  cp16(dst, src, valid);
+}
+__device__ __forceinline__ void copy4(bf16_t* dst, const bf16_t* src, bool valid) {
+  cp8(dst, src, valid);
+}
+
+// a staged quad as 4 floats (one 16-byte or 8-byte shared load)
+__device__ __forceinline__ float4 quad(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 quad(const bf16_t* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -97,32 +146,43 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Floats of one channel of a stage: TH + 2 staged rows of 4 qw columns,
-// then the two columns either side of each row, then the 28 weights.
-__host__ __device__ inline int chan_floats(int g, int qw) {
-  return (kTR * g + 2) * (4 * qw + 2) + kWPad;
+// Bytes of one channel of a stage: TH + 2 staged rows of 4 qw columns,
+// then the two columns either side of each row (in T, padded to 16 bytes),
+// then the 28 float weights.
+template <typename T>
+__host__ __device__ inline int rows_bytes(int g, int qw) {
+  return ((kTR * g + 2) * (4 * qw + 2) * (int)sizeof(T) + 15) / 16 * 16;
+}
+template <typename T>
+__host__ __device__ inline int chan_bytes(int g, int qw) {
+  return rows_bytes<T>(g, qw) + kWPad * (int)sizeof(float);
 }
 
 // The stages, then per staged row its offset in x (8 bytes), the runs of
 // rows (8 bytes each, at most one a row), their count and rows (8), then a
 // barrier per stage.
+template <typename T>
 inline size_t shared_bytes(int g, int qw) {
-  return sizeof(float) * (size_t)kStages * kCG * chan_floats(g, qw) +
-         16 * (size_t)(kTR * g + 2) + 8 * (size_t)(kStages + 1);
+  return (size_t)kStages * kCG * chan_bytes<T>(g, qw) + 16 * (size_t)(kTR * g + 2) +
+         8 * (size_t)(kStages + 1);
 }
 
-// kMode 0: the conv. The study's builds: 1, the copies and their waits
-// without the arithmetic (the outputs are zeros); 2, the arithmetic on
-// stages zeroed once, with no copy.
-template <int kMode>
+// kMode 0: the conv. The study's builds (float only): 1, the copies and
+// their waits without the arithmetic (the outputs are zeros); 2, the
+// arithmetic on stages zeroed once, with no copy.
+template <int kMode, typename T>
 __global__ void __launch_bounds__(kMaxThreads, 2)
-cl1_kernel(const float* __restrict__ x, const float* __restrict__ wt, const Geom gm,
-           const Out out) {
-  extern __shared__ __align__(16) float smem[];
+cl1_kernel(const T* __restrict__ x, const float* __restrict__ wt, const Geom gm,
+           const OutT<T> out) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int sr = kTR * gm.g + 2;  // staged rows
   const int p = 4 * gm.qw;        // staged columns
-  const int cb = chan_floats(gm.g, gm.qw);
-  const int sb = kCG * cb;        // floats of a stage
+  const int cb = chan_bytes<T>(gm.g, gm.qw);
+  const int rb = rows_bytes<T>(gm.g, gm.qw);
+  const int sb = kCG * cb;        // bytes of a stage
+  // channel c of stage buffer b: its rows (then side columns), its weights
+  auto rows = [&](int b, int c) { return reinterpret_cast<T*>(smem + b * sb + c * cb); };
+  auto wts = [&](int b, int c) { return reinterpret_cast<float*>(smem + b * sb + c * cb + rb); };
   long long* rowoff = reinterpret_cast<long long*>(smem + kStages * sb);
   int2* runs = reinterpret_cast<int2*>(rowoff + sr);  // (first staged row, rows)
   int2* nruns = runs + sr;                            // (runs, rows in them)
@@ -156,7 +216,7 @@ cl1_kernel(const float* __restrict__ x, const float* __restrict__ wt, const Geom
     // once in every stage; no copy writes them
     for (int e = tid; e < kStages * kCG * sr * 2; e += blockDim.x) {
       const int sc = e / (sr * 2);
-      smem[sc * cb + sr * p + e % (sr * 2)] = 0.f;
+      rows(sc / kCG, sc % kCG)[sr * p + e % (sr * 2)] = T(0);
     }
   }
   __syncthreads();
@@ -166,12 +226,13 @@ cl1_kernel(const float* __restrict__ x, const float* __restrict__ wt, const Geom
     for (int e = warp; e < kStages * kCG * sr; e += nwarps) {
       const int r = e % sr;
       if (rowoff[r] >= 0) continue;
-      float* row = smem + (e / sr) * cb + r * p;
-      for (int k = lane; k < p; k += 32) row[k] = 0.f;
+      const int sc = e / sr;
+      T* row = rows(sc / kCG, sc % kCG) + r * p;
+      for (int k = lane; k < p; k += 32) row[k] = T(0);
     }
     if (tid == 0) {
       // runs of rows of one image, contiguous in x and in the stage
-      int nr = 0, rows = 0;
+      int nr = 0, nrows = 0;
       for (int r = 0; r < sr;) {
         if (rowoff[r] < 0) {
           ++r;
@@ -181,10 +242,10 @@ cl1_kernel(const float* __restrict__ x, const float* __restrict__ wt, const Geom
         while (r + k < sr && rowoff[r + k] >= 0 && rowoff[r + k] == rowoff[r] + (long long)k * gm.w)
           ++k;
         runs[nr++] = make_int2(r, k);
-        rows += k;
+        nrows += k;
         r += k;
       }
-      *nruns = make_int2(nr, rows);
+      *nruns = make_int2(nr, nrows);
       for (int b = 0; b < kStages; ++b) tma::bar_init(bars + b);
       tma::bar_init_fence();
     }
@@ -200,50 +261,51 @@ cl1_kernel(const float* __restrict__ x, const float* __restrict__ wt, const Geom
 
   auto issue = [&](int s) {
     if constexpr (kMode == 2) return;
+    const int b = s % kStages;
     if (gm.bulk) {
       // warp 0: one lane per (channel, run) or channel's weights
       if (warp == 0 && s < nstage) {
-        float* st = smem + (s % kStages) * sb;
-        uint64_t* bar = bars + s % kStages;
+        uint64_t* bar = bars + b;
         const int zi = s / ngroups, c0 = (s - zi * ngroups) * kCG;
         const int nc = min(kCG, gm.ci - c0);
         const int2 nr = *nruns;
         // the stage's buffer was last read before this iteration's barrier
         tma::fence_to_async();
-        if (lane == 0) tma::expect(bar, nc * (nr.y * p + kWPad) * 4);  // rows and weights
+        if (lane == 0)  // rows and weights
+          tma::expect(bar, nc * (nr.y * p * (int)sizeof(T) + kWPad * (int)sizeof(float)));
         __syncwarp();
         for (int t = lane; t < nc * (nr.x + 1); t += 32) {
           const int c = t / (nr.x + 1), k = t - c * (nr.x + 1);
           if (k < nr.x) {
             const int2 run = runs[k];
-            tma::load(st + c * cb + run.x * p,
+            tma::load(rows(b, c) + run.x * p,
                       x + rowoff[run.x] + ((long long)(c0 + c) * gm.d + zi) * plane,
-                      run.y * p * 4, bar);
+                      run.y * p * (int)sizeof(T), bar);
           } else {
-            tma::load(st + c * cb + sr * (p + 2), wt + (size_t)(c0 + c) * kWPad, kWPad * 4, bar);
+            tma::load(wts(b, c), wt + (size_t)(c0 + c) * kWPad, kWPad * (int)sizeof(float), bar);
           }
         }
       }
       return;
     }
     if (s < nstage) {
-      float* st = smem + (s % kStages) * sb;
       const int zi = s / ngroups, c0 = (s - zi * ngroups) * kCG;
 #pragma unroll
       for (int c = 0; c < kCG; ++c) {
         const bool cok = c0 + c < gm.ci;
-        const float* xc = x + (cok ? ((long long)(c0 + c) * gm.d + zi) * plane + x0 : 0);
-        float* sc = st + c * cb;
+        const T* xc = x + (cok ? ((long long)(c0 + c) * gm.d + zi) * plane + x0 : 0);
+        T* sc = rows(b, c);
         for (int r = warp * rpw + sub; sub < rpw && r < sr; r += nwarps * rpw) {
           const long long ro = rowoff[r];
           const bool ok = cok && ro >= 0;
-          const float* src = ok ? xc + ro : x;
-          float* dst = sc + r * p;
+          const T* src = ok ? xc + ro : x;
+          T* dst = sc + r * p;
           if (gm.vec) {
             for (int qq = lq; qq < gm.qw; qq += lpr)
-              cp16(dst + 4 * qq, src + (ok ? 4 * qq : 0), ok && x0 + 4 * qq < gm.w);
+              copy4(dst + 4 * qq, src + (ok ? 4 * qq : 0), ok && x0 + 4 * qq < gm.w);
           } else {
-            for (int e = lq; e < p; e += lpr) cp4(dst + e, src + (ok ? e : 0), ok && x0 + e < gm.w);
+            for (int e = lq; e < p; e += lpr)
+              copy1(dst + e, src + (ok ? e : 0), ok && x0 + e < gm.w);
           }
         }
       }
@@ -254,15 +316,14 @@ cl1_kernel(const float* __restrict__ x, const float* __restrict__ wt, const Geom
           const int col = side ? x0 + p : x0 - 1;
           const long long ro = rowoff[r];
           const bool ok = ro >= 0 && c0 + c < gm.ci && col >= 0 && col < gm.w;
-          cp4(st + c * cb + sr * p + 2 * r + side,
-              ok ? x + ro + ((long long)(c0 + c) * gm.d + zi) * plane + col : x, ok);
+          copy1(rows(b, c) + sr * p + 2 * r + side,
+                ok ? x + ro + ((long long)(c0 + c) * gm.d + zi) * plane + col : x, ok);
         }
       }
       for (int e = tid; e < kCG * (kWPad / 4); e += blockDim.x) {
         const int c = e / (kWPad / 4), k = e - c * (kWPad / 4);
         const bool ok = c0 + c < gm.ci;
-        cp16(st + c * cb + sr * (p + 2) + 4 * k, ok ? wt + (size_t)(c0 + c) * kWPad + 4 * k : wt,
-             ok);
+        cp16(wts(b, c) + 4 * k, ok ? wt + (size_t)(c0 + c) * kWPad + 4 * k : wt, ok);
       }
     }
     cp_commit();
@@ -312,7 +373,7 @@ cl1_kernel(const float* __restrict__ x, const float* __restrict__ wt, const Geom
       for (int j = 0; j < 4; ++j) acc[k][rr][j] = 0.f;
 
   if constexpr (kMode == 2) {
-    for (int e = tid; e < kStages * sb; e += blockDim.x) smem[e] = 0.f;
+    for (int e = tid; e < kStages * sb; e += blockDim.x) smem[e] = 0;
     __syncthreads();
   }
   for (int s = 0; s < kStages - 1; ++s) issue(s);
@@ -325,16 +386,16 @@ cl1_kernel(const float* __restrict__ x, const float* __restrict__ wt, const Geom
     }
     __syncthreads();  // everyone's; and stage s - 1 is read
     issue(s + kStages - 1);
-    const float* st = smem + (s % kStages) * sb;
     const int zi = s / ngroups, c0 = (s - zi * ngroups) * kCG;
 #pragma unroll 1
     for (int c = 0; c < kCG; ++c) {
       if (kMode == 1 || c0 + c >= gm.ci) break;
-      const float* cbase = st + c * cb;
+      const T* cbase = rows(s % kStages, c);
+      const float* cw = wts(s % kStages, c);
       float wv[kWPad];
 #pragma unroll
       for (int k = 0; k < kWPad / 4; ++k) {
-        const float4 t = reinterpret_cast<const float4*>(cbase + sr * (p + 2))[k];
+        const float4 t = reinterpret_cast<const float4*>(cw)[k];
         wv[4 * k] = t.x;
         wv[4 * k + 1] = t.y;
         wv[4 * k + 2] = t.z;
@@ -342,11 +403,11 @@ cl1_kernel(const float* __restrict__ x, const float* __restrict__ wt, const Geom
       }
 #pragma unroll
       for (int i = 0; i < kTR + 2; ++i) {
-        const float4 v = *reinterpret_cast<const float4*>(cbase + (row0 + i) * p + 4 * q);
+        const float4 v = quad(cbase + (row0 + i) * p + 4 * q);
         float l = __shfl_up_sync(kFull, v.w, 1);
         float r = __shfl_down_sync(kFull, v.x, 1);
-        if (need_l) l = cbase[lofs + i * lstr];
-        if (need_r) r = cbase[rofs + i * rstr];
+        if (need_l) l = elem_to_float(cbase[lofs + i * lstr]);
+        if (need_r) r = elem_to_float(cbase[rofs + i * rstr]);
         const float u[6] = {l, v.x, v.y, v.z, v.w, r};
 #pragma unroll
         for (int rr = 0; rr < kTR; ++rr) {
@@ -383,11 +444,12 @@ cl1_kernel(const float* __restrict__ x, const float* __restrict__ wt, const Geom
 // Row groups G for quads of qw: among those whose block fits (threads,
 // shared memory), the fewest warps of work on the busiest SM when the
 // tiles spread evenly, ties to the larger tile (fewer halo rows).
+template <typename T>
 int pick_groups(long long padded_rows, int ctiles, int qw, int sms) {
   int best = 0;
   long long best_cost = 0;
   for (int g = 1; g * qw <= kMaxThreads; ++g) {
-    if (shared_bytes(g, qw) > (size_t)kMaxShared) break;
+    if (shared_bytes<T>(g, qw) > (size_t)kMaxShared) break;
     const long long tiles = (padded_rows + kTR * g - 1) / (kTR * g) * ctiles;
     const long long warps = (g * qw + 31) / 32;
     const long long cost = (tiles + sms - 1) / sms * warps;
@@ -399,7 +461,7 @@ int pick_groups(long long padded_rows, int ctiles, int qw, int sms) {
   return best;
 }
 
-template <int kMode>
+template <int kMode, typename T>
 int launch(const void* x, int n, int ci, int d, int h, int w, const void* wt, const void* mul,
            const void* add, const void* res, int relu, void* out, void* stream, int device) {
   // this library links its own CUDA runtime, whose current device is not
@@ -416,21 +478,25 @@ int launch(const void* x, int n, int ci, int d, int h, int w, const void* wt, co
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long padded_rows = (long long)n * (h + 2);
-  const int g = pick_groups(padded_rows, ctiles, qw, sms);
+  const int g = pick_groups<T>(padded_rows, ctiles, qw, sms);
   if (g == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long blocks = (padded_rows + kTR * g - 1) / (kTR * g) * ctiles;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const int vec = w % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const Geom gm{n, ci, d, h, w, qw, ctiles, g, vec, vec && ctiles == 1};
-  const size_t bytes = shared_bytes(g, qw);
-  err = cudaFuncSetAttribute(cl1_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr int kQuadBytes = 4 * sizeof(T);
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const int vec = w % 4 == 0 && xa % kQuadBytes == 0;
+  // a bulk copy moves whole rows: 4 qw T a row, a multiple of 16 bytes
+  const int bulk = vec && ctiles == 1 && (w * (int)sizeof(T)) % 16 == 0 && xa % 16 == 0;
+  const Geom gm{n, ci, d, h, w, qw, ctiles, g, vec, bulk};
+  const size_t bytes = shared_bytes<T>(g, qw);
+  err = cudaFuncSetAttribute(cl1_kernel<kMode, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = 32 * ((g * qw + 31) / 32);
-  cl1_kernel<kMode><<<static_cast<unsigned>(blocks), threads, bytes,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wt), gm,
-      conv::make_out(out, mul, add, res, 1, d, h, w, relu));
+  cl1_kernel<kMode, T><<<static_cast<unsigned>(blocks), threads, bytes,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const float*>(wt), gm,
+      conv::make_out<T>(out, mul, add, res, 1, d, h, w, relu, std::is_same<T, bf16_t>::value));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -448,7 +514,16 @@ extern "C" {
 int conv3d_bn_cuda(const void* x, int n, int ci, int d, int h, int w, const void* wt,
                    const void* mul, const void* add, const void* res, int relu, void* out,
                    void* stream, int device) {
-  return launch<0>(x, n, ci, d, h, w, wt, mul, add, res, relu, out, stream, device);
+  return launch<0, float>(x, n, ci, d, h, w, wt, mul, add, res, relu, out, stream, device);
+}
+
+// conv3d_bn_cuda's bf16 form: x, res and out bf16; wt float32 holding
+// bf16 values (the weight rounded to bf16); mul and add float32. The conv
+// is rounded to bf16 before the residual joins, the sum again after it.
+int conv3d_bn_bf16_cuda(const void* x, int n, int ci, int d, int h, int w, const void* wt,
+                        const void* mul, const void* add, const void* res, int relu, void* out,
+                        void* stream, int device) {
+  return launch<0, bf16_t>(x, n, ci, d, h, w, wt, mul, add, res, relu, out, stream, device);
 }
 
 // conv3d_bn_cuda's arguments, then the study's mode: 1 copies only, 2
@@ -457,9 +532,12 @@ int conv3d_cl1_study_cuda(const void* x, int n, int ci, int d, int h, int w, con
                           const void* mul, const void* add, const void* res, int relu, void* out,
                           void* stream, int device, int mode) {
   switch (mode) {
-    case 0: return launch<0>(x, n, ci, d, h, w, wt, mul, add, res, relu, out, stream, device);
-    case 1: return launch<1>(x, n, ci, d, h, w, wt, mul, add, res, relu, out, stream, device);
-    case 2: return launch<2>(x, n, ci, d, h, w, wt, mul, add, res, relu, out, stream, device);
+    case 0:
+      return launch<0, float>(x, n, ci, d, h, w, wt, mul, add, res, relu, out, stream, device);
+    case 1:
+      return launch<1, float>(x, n, ci, d, h, w, wt, mul, add, res, relu, out, stream, device);
+    case 2:
+      return launch<2, float>(x, n, ci, d, h, w, wt, mul, add, res, relu, out, stream, device);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,6 +1,6 @@
 // The PSMNet 3x3x3 and 3x3 convolutions with a fused epilogue on Hopper's
-// tensor cores (sm_90a), float32 in and out at float32 accuracy, NCDHW
-// (NCHW in 2D).
+// tensor cores (sm_90a), float32 in and out at float32 accuracy, and their
+// bf16 forms, NCDHW (NCHW in 2D).
 //
 // Replaces four TPU kernels of disprcnn_tpu/ops/pallas/packed_conv.py, and
 // through the first the train form's forward and input gradient:
@@ -47,6 +47,26 @@
 // nearest. chip_smoke.py (phase 3) logs the kernel's and cuDNN's distance
 // from a float64 conv at the main path's sites.
 //
+// The bf16 forms (conv3d_tc_bf16_cuda, conv2d_tc_bf16_cuda,
+// deconv3d_tc_bf16_cuda) are the same four TPU kernels as the JAX package's
+// bf16 model runs them (TPU.COMPUTE_DTYPE bfloat16): input, residual and
+// output bf16, the weights rounded to bf16 by their packing
+// (conv3d_tc_pack_bf16_cuda; plain version ops/cuda/conv3d.py::
+// pack_bf16_weight), BN's mul and add float32. As in the TPU kernels
+// (jnp.dot of bf16 operands, preferred_element_type float32), the products
+// are exact, the sums float32, the epilogue float32, and the store rounds
+// once to bf16, to nearest even. Same ring, tiles and fragments as below,
+// with one bf16 mma.m16n8k16 (bf16.cuh) in place of the three TF32
+// products: a K step is 16 channels, and a halo slot holds one channel pair
+// per 32-bit word, so the A fragments are read at the float32 form's
+// offsets and need no split. No cp.async copies 2 bytes, and a pair's two
+// channels lie a plane apart in NCDHW: the halo goes through registers
+// (16 loads a position, then 8 packed stores), so its copy is not
+// overlapped with the products; the weights still come by cp.async. Bound
+// on an H100 SXM at the 56^2 trunk launch: its ~0.53 TFLOP take 0.54 ms at
+// the dense bf16 rate (989 TFLOP/s), its 1.23 GB of bf16 input and output
+// 0.37 ms: operations.
+//
 // Design.
 // GEMM view: per block, M = a tile of output positions of one (n, z) plane,
 // N = all Co (32 or 64), K = Ci x 27, walked as one k8 step per (8-channel
@@ -78,8 +98,9 @@
 // fill for the padding and the ragged edges, 16-byte copies for the
 // weights) two stages ahead of the one that multiplies: one __syncthreads
 // per stage.
-// Halo layout: per channel a slot of CP floats, CP = 8 (mod 32), so that
-// the A-fragment reads of one instruction (8 positions x 4 channels) fall
+// Halo layout: per channel (bf16: channel pair) a slot of CP words, CP = 8
+// (mod 32), so that the A-fragment reads of one instruction (8 positions x
+// 4 slots) fall
 // in distinct banks wherever their 8 positions are consecutive in a halo
 // row (two banks may collide where they cross a row break). Stride 1: the
 // slot holds rows y0 - 1 .. y0 + TH, columns x0 - 1 .. x0 + TW, row
@@ -104,17 +125,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "bf16.cuh"
 #include "conv3d.cuh"
-#include "tf32.cuh"
 
 namespace {
 
-using conv::Out;
+using conv::OutT;
+using tc::AFrag;
+using tc::Form;
+using tc::Frags;
+using tc::mma_tiles;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 3;
-constexpr int kChunk = 8;            // input channels per k8 step
+constexpr int kSlots = 8;            // halo slots a stage: 8 channels, or 8 pairs (bf16)
 constexpr int kMaxSmem = 232448;     // bytes of shared memory a block may take on sm_90
 
 // A launch's tile geometry, the same for every block.
@@ -124,23 +151,51 @@ struct Tile {
   int th, tw, tiles_w;  // rows and columns of positions per block; column tiles per plane
   int hs;               // halo row stride: tw + 2 (stride 1), tw + 1 (stride 2, transposed)
   int ps;               // one halo plane: (th + 2) * hs (stride 1), (th + 1) * hs (the others)
-  int cp;               // floats per staged channel, >= the channel's halo, = 8 (mod 32)
+  int cp;               // words per halo slot, >= the slot's halo, = 8 (mod 32)
 };
 
-// x (N, Ci, D, H, W); wpk the weights as pack_tf32_weight lays them out:
-// (ceil(Ci / 8), wkd, 9 taps, CO / 8 N-tiles, 32 lanes, 4), lane l's 4
-// floats [hi(k), hi(k + 4), lo(k), lo(k + 4)] of input channel k = l % 4 of
-// the chunk and output channel l / 4 of the N-tile (the B fragment); wkd =
-// 3 depth taps, or 1 (the middle one) for the 2D conv, whose D is 1.
-template <int CO, int S>
+// One halo position of a stage, all kSlots slots: the kChunk channels c0 ..
+// of src (x at channel c0, this position; channels `plane` apart), zero
+// where !ok or past the nc channels left. float: one 4-byte cp.async a
+// channel (zero-filled); bf16: the 16 values loaded, then packed in pairs
+// and stored (no cp.async copies 2 bytes); the stage's __syncthreads
+// publishes them as it does the copies.
+template <typename T>
+__device__ __forceinline__ void stage_position(uint32_t* dst, const T* src, const T* any,
+                                               bool ok, int nc, size_t plane, int cp) {
+  if constexpr (Form<T>::kBf16) {
+    bf16_t v[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+      v[c] = ok && c < nc ? __ldg(reinterpret_cast<const unsigned short*>(src) + c * plane) : 0;
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) dst[q * cp] = bf16_pack(v[2 * q], v[2 * q + 1]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kSlots; ++c) {
+      const bool v = ok && c < nc;
+      cp_async4(reinterpret_cast<float*>(dst) + c * cp, v ? src + c * plane : any, v);
+    }
+  }
+}
+
+// x (N, Ci, D, H, W); wpk the weights as pack_tf32_weight (float) or
+// pack_bf16_weight (bf16) lays them out: (ceil(Ci / kChunk), wkd, 9 taps,
+// CO / 8 N-tiles, 32 lanes, kLaneWords words), the B fragment of each lane
+// (float: [hi(k), hi(k + 4), lo(k), lo(k + 4)] of input channel k = l % 4
+// of the chunk and output channel l / 4 of the N-tile; bf16: the pairs of
+// channels (2t, 2t + 1) and (2t + 8, 2t + 9), t = l % 4); wkd = 3 depth
+// taps, or 1 (the middle one) for the 2D conv, whose D is 1.
+template <typename T, int CO, int S>
 __global__ void __launch_bounds__(kThreads, 1)
-conv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
-               const float* __restrict__ wpk, int wkd, const Out out, const Tile tl) {
+conv_tc_kernel(const T* __restrict__ x, int ci, int d, int h, int w,
+               const uint32_t* __restrict__ wpk, int wkd, const OutT<T> out, const Tile tl) {
+  using F = Form<T>;
   constexpr int kNT = CO / 8;        // N-tiles
   constexpr int kMT = 16 / kNT;      // M-tiles per warp
-  constexpr int kWS = 9 * kNT * 128;  // floats of one stage's weights
-  extern __shared__ __align__(16) float smem[];
-  const int stage_floats = kWS + kChunk * tl.cp;
+  constexpr int kWS = 9 * kNT * 32 * F::kLaneWords;  // words of one stage's weights
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int stage_words = kWS + kSlots * tl.cp;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -154,19 +209,21 @@ conv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
   // depth taps inside the volume: input slice S * z + kd - 1 in [0, d)
   const int kd_lo = max(0, 1 - S * z);
   const int nkd = min(2, d - S * z) - kd_lo + 1;
-  const int nstages = (ci + kChunk - 1) / kChunk * nkd;
+  const int nstages = (ci + F::kChunk - 1) / F::kChunk * nkd;
   const size_t plane = (size_t)d * h * w;
-  const float* xn = x + (size_t)n * ci * plane;
+  const T* xn = x + (size_t)n * ci * plane;
 
   auto load_stage = [&](int s, int buf) {
     const int cc = s / nkd, kd = kd_lo + s % nkd;
-    float* ws = smem + buf * stage_floats;
-    const float* wsrc = wpk + (size_t)(cc * wkd + (wkd == 3 ? kd : 0)) * kWS;
-    for (int i = threadIdx.x; i < kWS / 4; i += kThreads) cp_async16(ws + 4 * i, wsrc + 4 * i);
-    float* hs = ws + kWS;
-    const int c0 = cc * kChunk;
-    const int nc = min(kChunk, ci - c0);
-    const float* xs = xn + (size_t)c0 * plane + (size_t)(S * z + kd - 1) * h * w;
+    uint32_t* ws = smem + buf * stage_words;
+    const uint32_t* wsrc = wpk + (size_t)(cc * wkd + (wkd == 3 ? kd : 0)) * kWS;
+    for (int i = threadIdx.x; i < kWS / 4; i += kThreads)
+      cp_async16(reinterpret_cast<float*>(ws) + 4 * i,
+                 reinterpret_cast<const float*>(wsrc) + 4 * i);
+    uint32_t* hs = ws + kWS;
+    const int c0 = cc * F::kChunk;
+    const int nc = min(F::kChunk, ci - c0);
+    const T* xs = xn + (size_t)c0 * plane + (size_t)(S * z + kd - 1) * h * w;
     // halo rows: stride 1, input row y0 - 1 + r; stride 2, input row
     // 2 * y0 - 1 + 2 * i + rp, its consecutive columns dealt to the two
     // column-parity planes of row parity rp
@@ -185,19 +242,14 @@ conv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
       for (int e = lane; e < S * tl.hs; e += 32) {
         const int xin = S * x0 - 1 + e;
         const bool ok = row_ok && xin >= 0 && xin < w;
-        const float* src = ok ? xs + (size_t)yin * w + xin : x;
-        float* dst = hs + off + (S == 1 ? e : (e & 1) * tl.ps + (e >> 1));
-#pragma unroll
-        for (int c = 0; c < kChunk; ++c) {
-          const bool v = ok && c < nc;
-          cp_async4(dst + c * tl.cp, v ? src + c * plane : x, v);
-        }
+        stage_position<T>(hs + off + (S == 1 ? e : (e & 1) * tl.ps + (e >> 1)),
+                          ok ? xs + (size_t)yin * w + xin : x, x, ok, nc, plane, tl.cp);
       }
     }
   };
 
   // this lane's A rows: positions g and g + 8 of each of its M-tiles, as
-  // halo offsets (channel t's slot); positions past the tile read offset 0
+  // halo offsets (slot t); positions past the tile read offset 0
   int aoff[kMT][2];
   int mtiles = 0;  // active M-tiles of this warp (warp-uniform)
 #pragma unroll
@@ -210,7 +262,7 @@ conv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
       aoff[i][hh] = (p < npos ? (p / tl.tw) * tl.hs + p % tl.tw : 0) + t * tl.cp;
     }
   }
-  const int cp4 = 4 * tl.cp;  // channel k + 4
+  const int cp4 = 4 * tl.cp;  // slot t + 4
 
   float acc[kMT][kNT][4];
 #pragma unroll
@@ -229,9 +281,8 @@ conv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
     __syncthreads();     // ... for every thread; and stage s - 1's buffer is free
     if (s + 2 < nstages) load_stage(s + 2, (s + 2) % kStages);
     cp_async_commit();
-    const float* ws = smem + (s % kStages) * stage_floats;
-    const float4* wv = reinterpret_cast<const float4*>(ws);
-    const float* hs = ws + kWS;
+    const uint32_t* ws = smem + (s % kStages) * stage_words;
+    const uint32_t* hs = ws + kWS;
     float part[kMT][kNT][4];  // this stage's products
 #pragma unroll
     for (int i = 0; i < kMT; ++i)
@@ -242,45 +293,19 @@ conv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int kh = tap / 3, kw = tap % 3;
-      const float* ht = hs + (S == 1 ? kh * tl.hs + kw
-                                     : (2 * (kh & 1) + (kw & 1)) * tl.ps + (kh >> 1) * tl.hs +
-                                           (kw >> 1));
-      uint32_t bh[kNT][2], bl[kNT][2];
+      const uint32_t* ht = hs + (S == 1 ? kh * tl.hs + kw
+                                        : (2 * (kh & 1) + (kw & 1)) * tl.ps + (kh >> 1) * tl.hs +
+                                              (kw >> 1));
+      Frags<T> b[kNT];
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const float4 q = wv[(tap * kNT + j) * 32 + lane];
-        bh[j][0] = __float_as_uint(q.x);
-        bh[j][1] = __float_as_uint(q.y);
-        bl[j][0] = __float_as_uint(q.z);
-        bl[j][1] = __float_as_uint(q.w);
-      }
-      uint32_t ah[kMT][4], al[kMT][4];
+      for (int j = 0; j < kNT; ++j) b[j].load_b(ws, (tap * kNT + j) * 32 + lane);
+      AFrag<T> a[kMT];
 #pragma unroll
       for (int i = 0; i < kMT; ++i) {
         if (i >= mtiles) break;
-        split_tf32(ht[aoff[i][0]], ah[i][0], al[i][0]);
-        split_tf32(ht[aoff[i][1]], ah[i][1], al[i][1]);
-        split_tf32(ht[aoff[i][0] + cp4], ah[i][2], al[i][2]);
-        split_tf32(ht[aoff[i][1] + cp4], ah[i][3], al[i][3]);
+        a[i].load(ht, aoff[i][0], aoff[i][1], cp4);
       }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        if (i >= mtiles) break;
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) mma_tf32(part[i][j], al[i], bh[j][0], bh[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        if (i >= mtiles) break;
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) mma_tf32(part[i][j], ah[i], bl[j][0], bl[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        if (i >= mtiles) break;
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) mma_tf32(part[i][j], ah[i], bh[j][0], bh[j][1]);
-      }
+      mma_tiles(part, a, b, mtiles);
     }
     // the stage's sums join the running ones in float32, rounded to nearest
 #pragma unroll
@@ -326,17 +351,18 @@ conv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
 // M-tile w / (CO / 32) and 32 of the output channels (N-tiles 4 (w % (CO /
 // 32)) .. + 3) for all 4 classes: 64 float32 accumulators a thread, so a
 // block takes 128 input positions at CO 32 and 64 at CO 64. wpk is
-// pack_tf32_deconv_weight's layout: pack_kernel's of the (CO, Ci) weight
-// w[c, o, kd, kh, kw].
-template <int CO>
+// pack_tf32_deconv_weight's (pack_bf16_deconv_weight's) layout: the
+// conv's packing of the (CO, Ci) weight w[c, o, kd, kh, kw].
+template <typename T, int CO>
 __global__ void __launch_bounds__(kThreads, 1)
-deconv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
-                 const float* __restrict__ wpk, const Out out, const Tile tl) {
+deconv_tc_kernel(const T* __restrict__ x, int ci, int d, int h, int w,
+                 const uint32_t* __restrict__ wpk, const OutT<T> out, const Tile tl) {
+  using F = Form<T>;
   constexpr int kNT = CO / 8;        // N-tiles
   constexpr int kWN = CO / 32;       // warps along N, 4 N-tiles each
-  constexpr int kWS = 9 * kNT * 128;  // floats of one stage's weights
-  extern __shared__ __align__(16) float smem[];
-  const int stage_floats = kWS + kChunk * tl.cp;
+  constexpr int kWS = 9 * kNT * 32 * F::kLaneWords;  // words of one stage's weights
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int stage_words = kWS + kSlots * tl.cp;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -352,38 +378,36 @@ deconv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
   // depth taps: an even slice kd 1 at input slice m; an odd one kd 2 at m
   // and kd 0 at m + 1, if inside the volume
   const int nkd = pz == 0 ? 1 : (m + 1 < d ? 2 : 1);
-  const int nstages = (ci + kChunk - 1) / kChunk * nkd;
+  const int nstages = (ci + F::kChunk - 1) / F::kChunk * nkd;
   const size_t plane = (size_t)d * h * w;
-  const float* xn = x + (size_t)n * ci * plane;
+  const T* xn = x + (size_t)n * ci * plane;
 
   auto load_stage = [&](int s, int buf) {
     const int cc = s / nkd, tz = s % nkd;
     const int kd = pz == 0 ? 1 : (tz == 0 ? 2 : 0);
-    float* ws = smem + buf * stage_floats;
-    const float* wsrc = wpk + (size_t)(cc * 3 + kd) * kWS;
-    for (int i = threadIdx.x; i < kWS / 4; i += kThreads) cp_async16(ws + 4 * i, wsrc + 4 * i);
-    float* hs = ws + kWS;
-    const int c0c = cc * kChunk;
-    const int nc = min(kChunk, ci - c0c);
-    const float* xs = xn + (size_t)c0c * plane + (size_t)(m + tz) * h * w;
+    uint32_t* ws = smem + buf * stage_words;
+    const uint32_t* wsrc = wpk + (size_t)(cc * 3 + kd) * kWS;
+    for (int i = threadIdx.x; i < kWS / 4; i += kThreads)
+      cp_async16(reinterpret_cast<float*>(ws) + 4 * i,
+                 reinterpret_cast<const float*>(wsrc) + 4 * i);
+    uint32_t* hs = ws + kWS;
+    const int c0c = cc * F::kChunk;
+    const int nc = min(F::kChunk, ci - c0c);
+    const T* xs = xn + (size_t)c0c * plane + (size_t)(m + tz) * h * w;
     // halo rows r0 .. r0 + th, columns c0 .. c0 + tw
     for (int r = warp; r <= tl.th; r += kWarps) {
       const int yin = r0 + r;
       for (int e = lane; e < tl.hs; e += 32) {
         const int xin = c0 + e;
         const bool ok = yin < h && xin < w;
-        const float* src = ok ? xs + (size_t)yin * w + xin : x;
-#pragma unroll
-        for (int c = 0; c < kChunk; ++c) {
-          const bool v = ok && c < nc;
-          cp_async4(hs + c * tl.cp + r * tl.hs + e, v ? src + c * plane : x, v);
-        }
+        stage_position<T>(hs + r * tl.hs + e, ok ? xs + (size_t)yin * w + xin : x, x, ok, nc,
+                          plane, tl.cp);
       }
     }
   };
 
   // this lane's A rows: positions g and g + 8 of its M-tile, as halo
-  // offsets (channel t's slot); positions past the tile read offset 0
+  // offsets (slot t); positions past the tile read offset 0
   int aoff[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -391,7 +415,7 @@ deconv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
     aoff[hh] = (p < npos ? (p / tl.tw) * tl.hs + p % tl.tw : 0) + t * tl.cp;
   }
   const bool active = mt * 16 < npos;  // warp-uniform
-  const int cp4 = 4 * tl.cp;           // channel k + 4
+  const int cp4 = 4 * tl.cp;           // slot t + 4
 
   float acc[4][4][4];  // (class 2 py + px, N-tile, fragment)
 #pragma unroll
@@ -411,47 +435,31 @@ deconv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
     if (s + 2 < nstages) load_stage(s + 2, (s + 2) % kStages);
     cp_async_commit();
     if (!active) continue;
-    const float* ws = smem + (s % kStages) * stage_floats;
-    const float4* wv = reinterpret_cast<const float4*>(ws);
-    const float* hs = ws + kWS;
-    float part[4][4][4];  // this stage's products
+    const uint32_t* ws = smem + (s % kStages) * stage_words;
+    const uint32_t* hs = ws + kWS;
+    float part[4][1][4][4];  // this stage's products (class, M-tile, N-tile, fragment)
 #pragma unroll
     for (int q = 0; q < 4; ++q)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) part[q][j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) part[q][0][j][e] = 0.f;
 #pragma unroll
     for (int dy = 0; dy < 2; ++dy) {
 #pragma unroll
       for (int dx = 0; dx < 2; ++dx) {
-        const float* ht = hs + dy * tl.hs + dx;
-        uint32_t ah[4], al[4];
-        split_tf32(ht[aoff[0]], ah[0], al[0]);
-        split_tf32(ht[aoff[1]], ah[1], al[1]);
-        split_tf32(ht[aoff[0] + cp4], ah[2], al[2]);
-        split_tf32(ht[aoff[1] + cp4], ah[3], al[3]);
+        AFrag<T> a[1];
+        a[0].load(hs + dy * tl.hs + dx, aoff[0], aoff[1], cp4);
         // the taps at this offset: kh 0 (dy 1) or 1, 2 (dy 0); kw alike
 #pragma unroll
         for (int kh = dy ? 0 : 1; kh < (dy ? 1 : 3); ++kh) {
 #pragma unroll
           for (int kw = dx ? 0 : 1; kw < (dx ? 1 : 3); ++kw) {
             const int tap = kh * 3 + kw, q = 2 * (kh != 1) + (kw != 1);
-            uint32_t bh[4][2], bl[4][2];
+            Frags<T> b[4];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const float4 f = wv[(tap * kNT + nw * 4 + j) * 32 + lane];
-              bh[j][0] = __float_as_uint(f.x);
-              bh[j][1] = __float_as_uint(f.y);
-              bl[j][0] = __float_as_uint(f.z);
-              bl[j][1] = __float_as_uint(f.w);
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma_tf32(part[q][j], al, bh[j][0], bh[j][1]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma_tf32(part[q][j], ah, bl[j][0], bl[j][1]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma_tf32(part[q][j], ah, bh[j][0], bh[j][1]);
+            for (int j = 0; j < 4; ++j) b[j].load_b(ws, (tap * kNT + nw * 4 + j) * 32 + lane);
+            mma_tiles(part[q], a, b, 1);
           }
         }
       }
@@ -462,7 +470,7 @@ deconv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[q][j][e] += part[q][j][e];
+        for (int e = 0; e < 4; ++e) acc[q][j][e] += part[q][0][j][e];
   }
   cp_async_wait<0>();
   if (!active) return;
@@ -490,7 +498,7 @@ deconv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
 // the width fits the block's `positions` (else column tiles of one row),
 // the row tiles of a plane equal, and the 3-stage ring within kMaxSmem. A
 // tile's halo is `planes` planes of (th + ext) x (tw + ext); a stage holds
-// `ws` floats of weights. Returns the dynamic shared memory in bytes, 0 if
+// `ws` words of weights. Returns the dynamic shared memory in bytes, 0 if
 // no tile fits.
 size_t plan_tile(int positions, int ws, int ext, int planes, int oh, int ow, Tile& tl) {
   int tw = ow < positions ? ow : positions;
@@ -504,7 +512,7 @@ size_t plan_tile(int positions, int ws, int ext, int planes, int oh, int ow, Til
     tl.ps = (tl.th + ext) * tl.hs;
     const int halo = planes * tl.ps;
     tl.cp = halo <= 8 ? 8 : (halo - 8 + 31) / 32 * 32 + 8;
-    const size_t bytes = sizeof(float) * kStages * ((size_t)ws + (size_t)kChunk * tl.cp);
+    const size_t bytes = sizeof(uint32_t) * kStages * ((size_t)ws + (size_t)kSlots * tl.cp);
     if (bytes <= (size_t)kMaxSmem) return bytes;
     if (th_max > 1) {
       --th_max;
@@ -516,29 +524,39 @@ size_t plan_tile(int positions, int ws, int ext, int planes, int oh, int ow, Til
   }
 }
 
-template <int CO, int S>
-cudaError_t launch(const float* x, int n, int ci, int d, int h, int w, const float* wpk,
-                   int wkd, const Out& o, cudaStream_t s) {
+template <typename T, int CO, int S>
+cudaError_t launch(const T* x, int n, int ci, int d, int h, int w, const uint32_t* wpk,
+                   int wkd, const OutT<T>& o, cudaStream_t s) {
   constexpr int kNT = CO / 8;
   Tile tl;
-  const size_t bytes = plan_tile(kWarps * (16 / kNT) * 16, 9 * kNT * 128, S == 1 ? 2 : 1,
-                                 S == 1 ? 1 : 4, o.h, o.w, tl);
+  const size_t bytes = plan_tile(kWarps * (16 / kNT) * 16, 9 * kNT * 32 * Form<T>::kLaneWords,
+                                 S == 1 ? 2 : 1, S == 1 ? 1 : 4, o.h, o.w, tl);
   if (bytes == 0 || !conv::grid_fits(n, o.d, o.h, o.w, tl.th, tl.tw))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      conv_tc_kernel<CO, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      conv_tc_kernel<T, CO, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(((o.h + tl.th - 1) / tl.th) * tl.tiles_w, o.d, n);
-  conv_tc_kernel<CO, S><<<grid, kThreads, bytes, s>>>(x, ci, d, h, w, wpk, wkd, o, tl);
+  conv_tc_kernel<T, CO, S><<<grid, kThreads, bytes, s>>>(x, ci, d, h, w, wpk, wkd, o, tl);
   return cudaGetLastError();
 }
 
-// The forms of a weight pack_kernel reads: the torch conv weight (Co, Ci,
+// The forms of a weight the packings read: the torch conv weight (Co, Ci,
 // wkd, 3, 3) (wkd = 3, or 1: the 2D weight (Co, Ci, 3, 3)); or (wkd 3) w
 // (Ci, Co, 3, 3, 3) flipped in every spatial dim, the input gradient's
 // weights (flip_transpose); or (wkd 3) the torch ConvTranspose3d weight
 // (Ci, Co, 3, 3, 3) as it is, the transposed conv's.
 enum PackForm { kConv = 0, kFlip = 1, kDeconv = 2 };
+
+// The weight from input channel c to output channel oc at depth tap kd and
+// tap (kh, kw) of w in the given form.
+__device__ __forceinline__ float weight_at(const float* __restrict__ w, int co, int ci, int wkd,
+                                           int form, int c, int oc, int kd, int tap) {
+  const int kh = tap / 3, kw = tap % 3;
+  return form == kFlip     ? w[(((size_t)c * co + oc) * 3 + 2 - kd) * 9 + (2 - kh) * 3 + 2 - kw]
+         : form == kDeconv ? w[(((size_t)c * co + oc) * 3 + kd) * 9 + tap]
+                           : w[(((size_t)oc * ci + c) * wkd + kd) * 9 + tap];
+}
 
 // One float of the staged weights (pack_tf32_weight's layout, (ceil(Ci /
 // 8), wkd, 9, Co / 8, 32, 4)) per thread, from w in the given form.
@@ -554,46 +572,115 @@ __global__ void pack_kernel(const float* __restrict__ w, int co, int ci, int wkd
   r /= 9;
   const int kd = r % wkd, cc = r / wkd;
   const int c = 8 * cc + (l & 3) + 4 * (e & 1), oc = 8 * j + (l >> 2);
-  float v = 0.f;
-  if (c < ci) {
-    const int kh = tap / 3, kw = tap % 3;
-    v = form == kFlip     ? w[(((size_t)c * co + oc) * 3 + 2 - kd) * 9 + (2 - kh) * 3 + 2 - kw]
-        : form == kDeconv ? w[(((size_t)c * co + oc) * 3 + kd) * 9 + tap]
-                          : w[(((size_t)oc * ci + c) * wkd + kd) * 9 + tap];
-  }
+  const float v = c < ci ? weight_at(w, co, ci, wkd, form, c, oc, kd, tap) : 0.f;
   uint32_t hi, lo;
   split_tf32(v, hi, lo);
   out[o] = __uint_as_float(e < 2 ? hi : lo);
 }
 
+// One word of the bf16 staged weights (pack_bf16_weight's layout, (ceil(Ci
+// / 16), wkd, 9, Co / 8, 32, 2)) per thread: lane l's word e holds input
+// channels 16 cc + 2 (l % 4) + 8 e and the next one, to output channel 8 j
+// + l / 4, each rounded to bf16 (nearest even), the lower channel in the
+// lower half (the B fragment of mma.m16n8k16).
+__global__ void pack_bf16_kernel(const float* __restrict__ w, int co, int ci, int wkd, int form,
+                                 uint32_t* __restrict__ out, int total) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= total) return;
+  const int e = o & 1, l = (o >> 1) & 31, nt = co / 8;
+  int r = o >> 6;
+  const int j = r % nt;
+  r /= nt;
+  const int tap = r % 9;
+  r /= 9;
+  const int kd = r % wkd, cc = r / wkd;
+  const int c = 16 * cc + 2 * (l & 3) + 8 * e, oc = 8 * j + (l >> 2);
+  const float lo = c < ci ? weight_at(w, co, ci, wkd, form, c, oc, kd, tap) : 0.f;
+  const float hi = c + 1 < ci ? weight_at(w, co, ci, wkd, form, c + 1, oc, kd, tap) : 0.f;
+  out[o] = bf16x2_rn(lo, hi);
+}
+
 // The launch of one conv: Co 32 or 64, stride 1 or 2, weights of wkd depth
-// taps (pack_kernel's layout).
-cudaError_t run(const float* x, int n, int ci, int d, int h, int w, int stride,
-                const float* wpk, int wkd, const Out& o, cudaStream_t s) {
+// taps (the packing's layout).
+template <typename T>
+cudaError_t run(const T* x, int n, int ci, int d, int h, int w, int stride, const uint32_t* wpk,
+                int wkd, const OutT<T>& o, cudaStream_t s) {
   if (o.co == 32)
-    return stride == 1 ? launch<32, 1>(x, n, ci, d, h, w, wpk, wkd, o, s)
-                       : launch<32, 2>(x, n, ci, d, h, w, wpk, wkd, o, s);
+    return stride == 1 ? launch<T, 32, 1>(x, n, ci, d, h, w, wpk, wkd, o, s)
+                       : launch<T, 32, 2>(x, n, ci, d, h, w, wpk, wkd, o, s);
   if (o.co == 64)
-    return stride == 1 ? launch<64, 1>(x, n, ci, d, h, w, wpk, wkd, o, s)
-                       : launch<64, 2>(x, n, ci, d, h, w, wpk, wkd, o, s);
+    return stride == 1 ? launch<T, 64, 1>(x, n, ci, d, h, w, wpk, wkd, o, s)
+                       : launch<T, 64, 2>(x, n, ci, d, h, w, wpk, wkd, o, s);
   return cudaErrorInvalidValue;
 }
 
 // The transposed conv's launch: a tile of the input grid, its halo one
 // plane of (th + 1) x (tw + 1), a block per (tile, output slice, n).
-template <int CO>
-cudaError_t launch_deconv(const float* x, int n, int ci, int d, int h, int w,
-                          const float* wpk, const Out& o, cudaStream_t s) {
+template <typename T, int CO>
+cudaError_t launch_deconv(const T* x, int n, int ci, int d, int h, int w, const uint32_t* wpk,
+                          const OutT<T>& o, cudaStream_t s) {
   constexpr int kNT = CO / 8;
   Tile tl;
-  const size_t bytes = plan_tile(16 * kWarps / (CO / 32), 9 * kNT * 128, 1, 1, h, w, tl);
+  const size_t bytes =
+      plan_tile(16 * kWarps / (CO / 32), 9 * kNT * 32 * Form<T>::kLaneWords, 1, 1, h, w, tl);
   if (bytes == 0 || !conv::grid_fits(n, o.d, h, w, tl.th, tl.tw)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      deconv_tc_kernel<CO>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      deconv_tc_kernel<T, CO>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(((h + tl.th - 1) / tl.th) * tl.tiles_w, o.d, n);
-  deconv_tc_kernel<CO><<<grid, kThreads, bytes, s>>>(x, ci, d, h, w, wpk, o, tl);
+  deconv_tc_kernel<T, CO><<<grid, kThreads, bytes, s>>>(x, ci, d, h, w, wpk, o, tl);
   return cudaGetLastError();
+}
+
+bool pack_args_ok(int co, int ci, int wkd, int form) {
+  return (co == 32 || co == 64) && ci >= 1 && (wkd == 1 || wkd == 3) && form >= kConv &&
+         form <= kDeconv && (form == kConv || wkd == 3);
+}
+
+template <typename T>
+int conv3d_entry(const void* x, int n, int ci, int d, int h, int w, int stride, const void* wpk,
+                 int co, const void* mul, const void* add, const void* res, int relu, void* out,
+                 void* stream, int device) {
+  // this library links its own CUDA runtime, whose current device is not
+  // PyTorch's: set it to the tensors' device
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ci < 1 || d < 1 || h < 1 || w < 1 || (stride != 1 && stride != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int od = (d - 1) / stride + 1, oh = (h - 1) / stride + 1, ow = (w - 1) / stride + 1;
+  return static_cast<int>(run<T>(static_cast<const T*>(x), n, ci, d, h, w, stride,
+                                 static_cast<const uint32_t*>(wpk), 3,
+                                 conv::make_out<T>(out, mul, add, res, co, od, oh, ow, relu),
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+template <typename T>
+int conv2d_entry(const void* x, int n, int ci, int h, int w, const void* wpk, int co,
+                 const void* mul, const void* add, const void* res, int relu, void* out,
+                 void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ci < 1 || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run<T>(static_cast<const T*>(x), n, ci, 1, h, w, 1,
+                                 static_cast<const uint32_t*>(wpk), 1,
+                                 conv::make_out<T>(out, mul, add, res, co, 1, h, w, relu),
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+template <typename T>
+int deconv3d_entry(const void* x, int n, int ci, int d, int h, int w, const void* wpk, int co,
+                   const void* mul, const void* add, const void* res, int relu, void* out,
+                   void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ci < 1 || d < 1 || h < 1 || w < 1 || (co != 32 && co != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const OutT<T> o = conv::make_out<T>(out, mul, add, res, co, 2 * d, 2 * h, 2 * w, relu);
+  const T* xt = static_cast<const T*>(x);
+  const uint32_t* wt = static_cast<const uint32_t*>(wpk);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(co == 32 ? launch_deconv<T, 32>(xt, n, ci, d, h, w, wt, o, s)
+                                   : launch_deconv<T, 64>(xt, n, ci, d, h, w, wt, o, s));
 }
 
 }  // namespace
@@ -612,12 +699,24 @@ int conv3d_tc_pack_cuda(const void* w, int co, int ci, int wkd, int form, void* 
                         void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if ((co != 32 && co != 64) || ci < 1 || (wkd != 1 && wkd != 3) || form < kConv ||
-      form > kDeconv || (form != kConv && wkd != 3))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!pack_args_ok(co, ci, wkd, form)) return static_cast<int>(cudaErrorInvalidValue);
   const int total = (ci + 7) / 8 * wkd * 9 * co * 16;
   pack_kernel<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(w), co, ci, wkd, form, static_cast<float*>(wpk), total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 forms' staged weights (pack_bf16_weight's layout, (ceil(Ci / 16),
+// wkd, 9, Co / 8, 32, 2) words of two bf16) from the float32 weight w in
+// the given form (as conv3d_tc_pack_cuda), rounded to bf16 to nearest even.
+int conv3d_tc_pack_bf16_cuda(const void* w, int co, int ci, int wkd, int form, void* wpk,
+                             void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!pack_args_ok(co, ci, wkd, form)) return static_cast<int>(cudaErrorInvalidValue);
+  const int total = (ci + 15) / 16 * wkd * 9 * co * 8;
+  pack_bf16_kernel<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(w), co, ci, wkd, form, static_cast<uint32_t*>(wpk), total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -632,17 +731,19 @@ int conv3d_tc_pack_cuda(const void* w, int co, int ci, int wkd, int form, void* 
 int conv3d_tc_cuda(const void* x, int n, int ci, int d, int h, int w, int stride,
                    const void* wpk, int co, const void* mul, const void* add, const void* res,
                    int relu, void* out, void* stream, int device) {
-  // this library links its own CUDA runtime, whose current device is not
-  // PyTorch's: set it to the tensors' device
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (ci < 1 || d < 1 || h < 1 || w < 1 || (stride != 1 && stride != 2))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int od = (d - 1) / stride + 1, oh = (h - 1) / stride + 1, ow = (w - 1) / stride + 1;
-  return static_cast<int>(run(static_cast<const float*>(x), n, ci, d, h, w, stride,
-                              static_cast<const float*>(wpk), 3,
-                              conv::make_out(out, mul, add, res, co, od, oh, ow, relu),
-                              static_cast<cudaStream_t>(stream)));
+  return conv3d_entry<float>(x, n, ci, d, h, w, stride, wpk, co, mul, add, res, relu, out,
+                             stream, device);
+}
+
+// conv3d_tc_cuda's bf16 form: x, res and out bf16, wpk from
+// conv3d_tc_pack_bf16_cuda, mul and add float32; the products on the
+// tensor cores in bf16 into float32 sums, the epilogue in float32, one
+// rounding to bf16 at the store.
+int conv3d_tc_bf16_cuda(const void* x, int n, int ci, int d, int h, int w, int stride,
+                        const void* wpk, int co, const void* mul, const void* add,
+                        const void* res, int relu, void* out, void* stream, int device) {
+  return conv3d_entry<bf16_t>(x, n, ci, d, h, w, stride, wpk, co, mul, add, res, relu, out,
+                              stream, device);
 }
 
 // x (N, Ci, H, W) -> out (N, Co, H, W), the 3x3 stride-1 pad-1 2D conv;
@@ -651,13 +752,15 @@ int conv3d_tc_cuda(const void* x, int n, int ci, int d, int h, int w, int stride
 int conv2d_tc_cuda(const void* x, int n, int ci, int h, int w, const void* wpk, int co,
                    const void* mul, const void* add, const void* res, int relu, void* out,
                    void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (ci < 1 || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(run(static_cast<const float*>(x), n, ci, 1, h, w, 1,
-                              static_cast<const float*>(wpk), 1,
-                              conv::make_out(out, mul, add, res, co, 1, h, w, relu),
-                              static_cast<cudaStream_t>(stream)));
+  return conv2d_entry<float>(x, n, ci, h, w, wpk, co, mul, add, res, relu, out, stream, device);
+}
+
+// conv2d_tc_cuda's bf16 form (as conv3d_tc_bf16_cuda's).
+int conv2d_tc_bf16_cuda(const void* x, int n, int ci, int h, int w, const void* wpk, int co,
+                        const void* mul, const void* add, const void* res, int relu, void* out,
+                        void* stream, int device) {
+  return conv2d_entry<bf16_t>(x, n, ci, h, w, wpk, co, mul, add, res, relu, out, stream,
+                              device);
 }
 
 // x (N, Ci, D, H, W) -> out (N, Co, 2D, 2H, 2W), the transposed conv of
@@ -667,16 +770,17 @@ int conv2d_tc_cuda(const void* x, int n, int ci, int h, int w, const void* wpk, 
 int deconv3d_tc_cuda(const void* x, int n, int ci, int d, int h, int w, const void* wpk,
                      int co, const void* mul, const void* add, const void* res, int relu,
                      void* out, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (ci < 1 || d < 1 || h < 1 || w < 1 || (co != 32 && co != 64))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Out o = conv::make_out(out, mul, add, res, co, 2 * d, 2 * h, 2 * w, relu);
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(wpk);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(co == 32 ? launch_deconv<32>(xf, n, ci, d, h, w, wf, o, s)
-                                   : launch_deconv<64>(xf, n, ci, d, h, w, wf, o, s));
+  return deconv3d_entry<float>(x, n, ci, d, h, w, wpk, co, mul, add, res, relu, out, stream,
+                               device);
+}
+
+// deconv3d_tc_cuda's bf16 form (as conv3d_tc_bf16_cuda's; wpk from
+// conv3d_tc_pack_bf16_cuda with form 2).
+int deconv3d_tc_bf16_cuda(const void* x, int n, int ci, int d, int h, int w, const void* wpk,
+                          int co, const void* mul, const void* add, const void* res, int relu,
+                          void* out, void* stream, int device) {
+  return deconv3d_entry<bf16_t>(x, n, ci, d, h, w, wpk, co, mul, add, res, relu, out, stream,
+                                device);
 }
 
 const char* conv3d_tc_error_string(int err) {

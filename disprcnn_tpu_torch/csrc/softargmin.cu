@@ -1,5 +1,6 @@
 // Fused trilinear upsample + softmax over disparity + expected disparity,
-// for Hopper (sm_90a), float32. The PSMNet eval regression head.
+// for Hopper (sm_90a), float32 logits or bf16 ones, float32 out. The PSMNet
+// eval regression head.
 //
 // Replaces the TPU kernel disprcnn_tpu/ops/pallas/softargmin.py:_kernel
 // (entry fused_softargmin). It computes the same function: the logits
@@ -40,9 +41,19 @@
 // - softargmin_kernel<NV>, for any D4 <= NV (NV = 4, 8, 16, 24, 32, 48, 64)
 //   and D <= 512: the table comes as a kernel argument, each segment's
 //   disparities are a loop.
+// The bf16 form (softargmin_bf16_cuda), the head of the JAX package's bf16
+// model: bf16 logits in, each converted to float32 as it is read (exact),
+// then the same float32 walk, float32 out. JAX's bf16 model casts the
+// classifier's bf16 cost to float32 before fused_softargmin
+// (psmnet.py:1008-1011), so the two forms compute the same function of the
+// same values: the bf16 form equals the float32 form on the logits cast up.
+// (JAX's XLA route, psmnet.py:1012-1020, interpolates and takes the softmax
+// in bf16; the port follows the kernel route, as the TPU runs it.)
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "bf16.cuh"
 
 #include <utility>
 
@@ -88,13 +99,14 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// The output pixel (bi, y, x)'s D4 logits, interpolated bilinearly in H and W with
+// The output pixel (bi, y, x)'s D4 logits (T: float or bf16, read as
+// float32), interpolated bilinearly in H and W with
 // the align-corners taps, into v[0..d4) (v[s] = 0 for d4 <= s < NV). The
 // four taps' weights are formed once; a slice reads two rows through two
 // pointers. kUnitTaps: the caller guarantees h4, w4 >= 2, so x1 = x0 + 1 is
 // an immediate offset.
-template <int NV, bool kUnitTaps>
-__device__ __forceinline__ void bilinear(const float* __restrict__ logits, int d4, int h4,
+template <typename T, int NV, bool kUnitTaps>
+__device__ __forceinline__ void bilinear(const T* __restrict__ logits, int d4, int h4,
                                          int w4, int h, int w, int bi, int y, int x,
                                          float (&v)[NV]) {
   int y0, y1, x0, x1;
@@ -102,18 +114,18 @@ __device__ __forceinline__ void bilinear(const float* __restrict__ logits, int d
   taps(y, h4, h, y0, y1, fy);
   taps(x, w4, w, x0, x1, fx);
   const int hw = h4 * w4, dx = kUnitTaps ? 1 : x1 - x0;
-  const float* r0 = logits + (size_t)bi * d4 * hw + y0 * w4 + x0;
-  const float* r1 = r0 + (y1 - y0) * w4;
+  const T* r0 = logits + (size_t)bi * d4 * hw + y0 * w4 + x0;
+  const T* r1 = r0 + (y1 - y0) * w4;
   const float w00 = (1.f - fy) * (1.f - fx), w01 = (1.f - fy) * fx;
   const float w10 = fy * (1.f - fx), w11 = fy * fx;
 #pragma unroll
   for (int s = 0; s < NV; ++s) {
     v[s] = 0.f;
     if (s < d4) {
-      const float* p0 = r0 + s * hw;
-      const float* p1 = r1 + s * hw;
-      v[s] = fmaf(w11, __ldg(p1 + dx),
-                  fmaf(w10, __ldg(p1), fmaf(w01, __ldg(p0 + dx), w00 * __ldg(p0))));
+      const T* p0 = r0 + s * hw;
+      const T* p1 = r1 + s * hw;
+      v[s] = fmaf(w11, ldg_float(p1 + dx),
+                  fmaf(w10, ldg_float(p1), fmaf(w01, ldg_float(p0 + dx), w00 * ldg_float(p0))));
     }
   }
 }
@@ -121,9 +133,9 @@ __device__ __forceinline__ void bilinear(const float* __restrict__ logits, int d
 // Any D4 <= NV and D <= kMaxD: the segments come as a __grid_constant__
 // argument, read in place from the parameter bank (uniform loads), never
 // copied to the stack; each segment's disparities are a loop.
-template <int NV>
+template <typename T, int NV>
 __global__ void __launch_bounds__(kThreads)
-softargmin_kernel(const float* __restrict__ logits, int b, int d4, int h4, int w4, int h,
+softargmin_kernel(const T* __restrict__ logits, int b, int d4, int h4, int w4, int h,
                   int w, int mindisp, const __grid_constant__ Segments seg,
                   float* __restrict__ out) {
   static_assert(NV >= 2, "the walk reads v[s + 1] for s < NV - 1");
@@ -131,7 +143,7 @@ softargmin_kernel(const float* __restrict__ logits, int b, int d4, int h4, int w
   const int idx = blockIdx.x * kThreads + threadIdx.x;
   if (idx >= b * h * w) return;
   float v[NV];
-  bilinear<NV, false>(logits, d4, h4, w4, h, w, idx / (w * h), (idx / w) % h, idx % w, v);
+  bilinear<T, NV, false>(logits, d4, h4, w4, h, w, idx / (w * h), (idx / w) % h, idx % w, v);
   const int nseg = d4 > 1 ? d4 - 1 : 1;
 
   // the max over D: z is linear in f within a segment, so at one of its ends
@@ -248,15 +260,15 @@ __device__ __forceinline__ float walk(const float (&v)[D4], std::integer_sequenc
 // are immediates and no loop or table read is left. A block is one output
 // row (blockIdx.y, of ROI blockIdx.z), a thread one column: no division to
 // find the pixel. Needs h4, w4 >= 2 and W <= kMaxW.
-template <int D4, int D>
+template <typename T, int D4, int D>
 __global__ void __launch_bounds__(kMaxW)
-softargmin_fixed_kernel(const float* __restrict__ logits, int h4, int w4, int h, int w,
+softargmin_fixed_kernel(const T* __restrict__ logits, int h4, int w4, int h, int w,
                         int mindisp, float* __restrict__ out) {
   static_assert(D4 >= 2 && D >= D4, "every segment holds a disparity");
   const int x = threadIdx.x, y = blockIdx.y, bi = blockIdx.z;
   if (x >= w) return;
   float v[D4];
-  bilinear<D4, true>(logits, D4, h4, w4, h, w, bi, y, x, v);
+  bilinear<T, D4, true>(logits, D4, h4, w4, h, w, bi, y, x, v);
   out[((size_t)bi * h + y) * w + x] =
       (float)mindisp + walk<D4, D>(v, std::make_integer_sequence<int, D>{});
 }
@@ -276,13 +288,57 @@ bool fixed_taps_match(int d4, int d, const float* fk, const int16_t* first,
   return true;
 }
 
-template <int NV>
-cudaError_t launch(const float* logits, int b, int d4, int h4, int w4, int h, int w,
-                   int mindisp, const Segments& seg, float* out, unsigned blocks,
-                   cudaStream_t stream) {
-  softargmin_kernel<NV><<<blocks, kThreads, 0, stream>>>(logits, b, d4, h4, w4, h, w,
-                                                         mindisp, seg, out);
+template <typename T, int NV>
+cudaError_t launch(const T* logits, int b, int d4, int h4, int w4, int h, int w, int mindisp,
+                   const Segments& seg, float* out, unsigned blocks, cudaStream_t stream) {
+  softargmin_kernel<T, NV><<<blocks, kThreads, 0, stream>>>(logits, b, d4, h4, w4, h, w,
+                                                            mindisp, seg, out);
   return cudaGetLastError();
+}
+
+template <typename T>
+int softargmin_entry(const void* logits, int b, int d4, int h4, int w4, int h, int w,
+                     int mindisp, int maxdisp, const void* fk, const void* first,
+                     const void* count, void* out, void* stream, int device) {
+  // this library links its own CUDA runtime, whose current device is not
+  // PyTorch's: set it to the tensors' device
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int d = maxdisp - mindisp;
+  if (b < 1 || d4 < 1 || d4 > kMaxD4 || h4 < 1 || w4 < 1 || h < 1 || w < 1 || d < 1 ||
+      d > kMaxD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = (long long)b * h * w;  // pixels index as int
+  if (total > 2147483647LL - kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  const T* x = static_cast<const T*>(logits);
+  const float* tf = static_cast<const float*>(fk);
+  const int16_t* t0 = static_cast<const int16_t*>(first);
+  const int16_t* tc = static_cast<const int16_t*>(count);
+  float* o = static_cast<float*>(out);
+  const unsigned nb = static_cast<unsigned>(blocks);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (h4 >= 2 && w4 >= 2 && w <= kMaxW && h <= 65535 && b <= 65535 &&
+      fixed_taps_match<24, 96>(d4, d, tf, t0, tc)) {
+    const dim3 grid(1, h, b);
+    softargmin_fixed_kernel<T, 24, 96><<<grid, (w + 31) / 32 * 32, 0, st>>>(x, h4, w4, h, w,
+                                                                           mindisp, o);
+    return static_cast<int>(cudaGetLastError());
+  }
+  Segments seg = {};
+  for (int k = 0; k < d; ++k) seg.fk[k] = tf[k];
+  for (int s = 0; s < (d4 > 1 ? d4 - 1 : 1); ++s) {
+    seg.first[s] = t0[s];
+    seg.count[s] = tc[s];
+  }
+  if (d4 <= 4) err = launch<T, 4>(x, b, d4, h4, w4, h, w, mindisp, seg, o, nb, st);
+  else if (d4 <= 8) err = launch<T, 8>(x, b, d4, h4, w4, h, w, mindisp, seg, o, nb, st);
+  else if (d4 <= 16) err = launch<T, 16>(x, b, d4, h4, w4, h, w, mindisp, seg, o, nb, st);
+  else if (d4 <= 24) err = launch<T, 24>(x, b, d4, h4, w4, h, w, mindisp, seg, o, nb, st);
+  else if (d4 <= 32) err = launch<T, 32>(x, b, d4, h4, w4, h, w, mindisp, seg, o, nb, st);
+  else if (d4 <= 48) err = launch<T, 48>(x, b, d4, h4, w4, h, w, mindisp, seg, o, nb, st);
+  else err = launch<T, 64>(x, b, d4, h4, w4, h, w, mindisp, seg, o, nb, st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -298,45 +354,16 @@ extern "C" {
 int softargmin_cuda(const void* logits, int b, int d4, int h4, int w4, int h, int w,
                     int mindisp, int maxdisp, const void* fk, const void* first,
                     const void* count, void* out, void* stream, int device) {
-  // this library links its own CUDA runtime, whose current device is not
-  // PyTorch's: set it to the tensors' device
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int d = maxdisp - mindisp;
-  if (b < 1 || d4 < 1 || d4 > kMaxD4 || h4 < 1 || w4 < 1 || h < 1 || w < 1 || d < 1 ||
-      d > kMaxD)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = (long long)b * h * w;  // pixels index as int
-  if (total > 2147483647LL - kThreads) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  const float* x = static_cast<const float*>(logits);
-  const float* tf = static_cast<const float*>(fk);
-  const int16_t* t0 = static_cast<const int16_t*>(first);
-  const int16_t* tc = static_cast<const int16_t*>(count);
-  float* o = static_cast<float*>(out);
-  const unsigned nb = static_cast<unsigned>(blocks);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (h4 >= 2 && w4 >= 2 && w <= kMaxW && h <= 65535 && b <= 65535 &&
-      fixed_taps_match<24, 96>(d4, d, tf, t0, tc)) {
-    const dim3 grid(1, h, b);
-    softargmin_fixed_kernel<24, 96><<<grid, (w + 31) / 32 * 32, 0, st>>>(x, h4, w4, h, w,
-                                                                        mindisp, o);
-    return static_cast<int>(cudaGetLastError());
-  }
-  Segments seg = {};
-  for (int k = 0; k < d; ++k) seg.fk[k] = tf[k];
-  for (int s = 0; s < (d4 > 1 ? d4 - 1 : 1); ++s) {
-    seg.first[s] = t0[s];
-    seg.count[s] = tc[s];
-  }
-  if (d4 <= 4) err = launch<4>(x, b, d4, h4, w4, h, w, mindisp, seg, o, nb, st);
-  else if (d4 <= 8) err = launch<8>(x, b, d4, h4, w4, h, w, mindisp, seg, o, nb, st);
-  else if (d4 <= 16) err = launch<16>(x, b, d4, h4, w4, h, w, mindisp, seg, o, nb, st);
-  else if (d4 <= 24) err = launch<24>(x, b, d4, h4, w4, h, w, mindisp, seg, o, nb, st);
-  else if (d4 <= 32) err = launch<32>(x, b, d4, h4, w4, h, w, mindisp, seg, o, nb, st);
-  else if (d4 <= 48) err = launch<48>(x, b, d4, h4, w4, h, w, mindisp, seg, o, nb, st);
-  else err = launch<64>(x, b, d4, h4, w4, h, w, mindisp, seg, o, nb, st);
-  return static_cast<int>(err);
+  return softargmin_entry<float>(logits, b, d4, h4, w4, h, w, mindisp, maxdisp, fk, first,
+                                 count, out, stream, device);
+}
+
+// softargmin_cuda's bf16 form: logits bf16, read as float32; out float32.
+int softargmin_bf16_cuda(const void* logits, int b, int d4, int h4, int w4, int h, int w,
+                         int mindisp, int maxdisp, const void* fk, const void* first,
+                         const void* count, void* out, void* stream, int device) {
+  return softargmin_entry<bf16_t>(logits, b, d4, h4, w4, h, w, mindisp, maxdisp, fk, first,
+                                  count, out, stream, device);
 }
 
 const char* softargmin_error_string(int err) {

@@ -36,15 +36,26 @@ them at the reference defaults), and neither reads MODEL.FBNET.ARCH (an
 FBNet body's arch is its name's; an FBNet body is never frozen, as in
 the JAX package).
 
-Read and not obeyed: TPU.COMPUTE_DTYPE and TPU.PARAM_DTYPE (the port
-computes in float32, ROADMAP C7 and A8), and the TPU layout keys
-TPU.REMAT_* and TPU.MESH_*. Obeyed: TPU.MAX_DETECTIONS, TPU.ROI_CROP_SIZE and
-TPU.SRPN_QUIRK_EXACT here, and TPU.MAX_GT by the datasets
-(data/catalog.py). POINTRCNN.TEST.RPN_PRE_NMS_TOP_N above the cloud's
+TPU.COMPUTE_DTYPE (default bfloat16, as in the JAX build) is obeyed by
+the models whose bf16 form is ported: DispRCNN3D with MODEL.DET3D_ON False
+(idispnet.yaml) builds iDispNet at that dtype (``dtype=torch.bfloat16``,
+eval; ROADMAP A8.1). The others compute in float32 until their bf16 form
+is ported, and the build logs one line naming the pending item: DispRCNN
+(its DispModule too), the mono models and RetinaNet (A8.2), DispRCNN3D
+with DET3D_ON True (A8.3); and with ``train=True`` (tools/train_net.py)
+every model trains in float32 (A8.4). TPU.PARAM_DTYPE is float32 in every
+shipped config and the port's parameters are float32 (the bf16 kernels
+round the weights where they pack them). Read and not obeyed: the TPU
+layout keys TPU.REMAT_* and TPU.MESH_*. Obeyed: TPU.MAX_DETECTIONS,
+TPU.ROI_CROP_SIZE and TPU.SRPN_QUIRK_EXACT here, and TPU.MAX_GT by the
+datasets (data/catalog.py). POINTRCNN.TEST.RPN_PRE_NMS_TOP_N above the cloud's
 points (rcnn.yaml's 9000 over 768) is capped at the points in the
 forward, as in the JAX package.
 """
 from __future__ import annotations
+
+import logging
+from typing import Optional
 
 import torch
 
@@ -66,12 +77,39 @@ def _check_body(cfg, body: str) -> None:
                          "ResNet (R-50/101/152) or FBNet body") from None
 
 
-def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=frozenset()):
+# the ROADMAP item that ports each model's bf16 form, for the models that
+# still compute in float32 at TPU.COMPUTE_DTYPE bfloat16
+_BF16_PENDING = {"RetinaNetDetector": "A8.2", "GeneralizedRCNN": "A8.2", "DispRCNN": "A8.2",
+                 "DispRCNN3D": "A8.3"}
+
+
+def _compute_dtype(cfg, model: str, obeyed: bool, train: bool,
+                   logger: Optional[logging.Logger]) -> torch.dtype:
+    """TPU.COMPUTE_DTYPE for `model`: bfloat16 where its bf16 form is ported
+    (`obeyed`) and it is not built to train, else float32, with one log
+    line naming the pending ROADMAP item."""
+    if cfg.TPU.COMPUTE_DTYPE != "bfloat16":
+        return torch.float32
+    if obeyed and not train:
+        return torch.bfloat16
+    item = "A8.4" if obeyed else _BF16_PENDING[model]
+    (logger or logging.getLogger(__name__)).info(
+        f"TPU.COMPUTE_DTYPE bfloat16: {model} {'trains' if train else 'computes'} in float32 "
+        f"until its bf16 form is ported (ROADMAP {item})")
+    return torch.float32
+
+
+def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=frozenset(),
+                          train: bool = False, logger: Optional[logging.Logger] = None):
     """The port's model of `cfg` on `device`, with constructor-default
     weights (utils/weights.py loads or draws them). kernels_off routes
-    PointNet++ families off a DispRCNN3D (models/pointrcnn/pointnet2.py)."""
+    PointNet++ families off a DispRCNN3D (models/pointrcnn/pointnet2.py).
+    `train` builds the model to train (tools/train_net.py: float32 at any
+    TPU.COMPUTE_DTYPE, ROADMAP A8.4); `logger` takes the line that names a
+    pending bf16 form (default: this module's logger)."""
     meta = cfg.MODEL.META_ARCHITECTURE
     if cfg.MODEL.RETINANET_ON:
+        _compute_dtype(cfg, "RetinaNetDetector", False, train, logger)
         r = cfg.MODEL.RETINANET
         body = cfg.MODEL.BACKBONE.CONV_BODY.replace("-FPN", "").replace("-RETINANET", "")
         _check_body(cfg, body)
@@ -97,6 +135,7 @@ def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=
             device=device,
         )
     if meta == "GeneralizedRCNN" and not cfg.MODEL.STEREO_ON:
+        _compute_dtype(cfg, "GeneralizedRCNN", False, train, logger)
         rpn = cfg.MODEL.RPN
         _check_body(cfg, cfg.MODEL.BACKBONE.CONV_BODY)
         return GeneralizedRCNN(
@@ -124,6 +163,7 @@ def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=
             device=device,
         )
     if meta in ("DispRCNN", "GeneralizedRCNN"):
+        _compute_dtype(cfg, "DispRCNN", False, train, logger)
         body = cfg.MODEL.BACKBONE.CONV_BODY.replace("-FPN", "")
         _check_body(cfg, body)
         rpn, heads = cfg.MODEL.RPN, cfg.MODEL.ROI_HEADS
@@ -187,7 +227,12 @@ def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=
             max_roi_train = cfg.MODEL.PCNET.MAX_ROI_FOR_TRAINING
         else:
             max_roi_train = 0
+        dtype = _compute_dtype(cfg, "DispRCNN3D", not cfg.MODEL.DET3D_ON, train, logger)
+        # passed where it is the JAX build's dtype; a model whose bf16 form
+        # is pending keeps the constructor's float32
+        obeyed = {"dtype": dtype} if dtype != torch.float32 else {}
         return DispRCNN3D(
+            **obeyed,
             max_det=cfg.TPU.MAX_DETECTIONS,
             roi_size=cfg.TPU.ROI_CROP_SIZE,
             maxdisp=cfg.MODEL.DISPNET.MAX_DISP,

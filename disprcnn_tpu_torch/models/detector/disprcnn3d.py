@@ -189,7 +189,10 @@ class DispRCNN3D(nn.Module):
     DISPRCNN_SA_MIN_C0 and DISPRCNN_RCNN_ROI_BLOCK knobs are the arguments
     sa_min_c0 and roi_block, with the shipped values; DISPRCNN_PALLAS_DISABLE's PointNet++
     tags ("sa", "pool", "fp") are the argument kernels_off (none off by
-    default; models/pointrcnn/pointnet2.py)."""
+    default; models/pointrcnn/pointnet2.py). `dtype` is iDispNet's compute
+    dtype (TPU.COMPUTE_DTYPE): float32, or bfloat16 in eval (PSMNet); the
+    crops stay float32, as JAX's crop_and_normalize gives them, and
+    disparity_roi is float32 either way."""
 
     def __init__(self, max_det: int = 32, roi_size: int = 224, maxdisp: int = 48,
                  mindisp: int = -48, npoints: int = 768, lift_grid: int = 112,
@@ -208,6 +211,7 @@ class DispRCNN3D(nn.Module):
                  rcnn_loss_cls: str = "BinaryCrossEntropy", aug_data: bool = True,
                  fg_aug_times: int = FG_AUG_TIMES, aug_rot_range: float = AUG_ROT_RANGE,
                  rpn_nms_thresh_train: Optional[float] = None,
+                 dtype: torch.dtype = torch.float32,
                  device: str | torch.device = "cuda"):
         super().__init__()
         self.max_det = max_det
@@ -219,7 +223,7 @@ class DispRCNN3D(nn.Module):
         self.roi_min_score, self.max_roi_train = roi_min_score, max_roi_train
         with torch.device(device):
             self.idispnet = PSMNet(maxdisp=maxdisp, mindisp=mindisp,
-                                   num_hourglass=psm_hourglass)
+                                   num_hourglass=psm_hourglass, dtype=dtype)
             if det3d_on:
                 self.pointrcnn = PointRCNN(
                     npoints=npoints, mean_size=mean_size, proposals_per_roi=proposals_per_roi,

@@ -30,6 +30,28 @@ The tower's other convs (the stride-2 stem and downsampling, the 1x1
 downsample and SPP convs, the 128-channel and dilated layers, lastconv)
 are cuDNN calls, as the JAX package leaves them to XLA on the TPU.
 
+The compute dtype (``dtype``, TPU.COMPUTE_DTYPE): float32, or bfloat16 as
+the JAX package's ``PSMNet(dtype=jnp.bfloat16)`` computes, eval only. In
+bf16 the parameters stay float32 (TPU.PARAM_DTYPE); the first conv casts
+the float32 crops, and every kernel above takes its bf16 form (bf16
+operands, float32 sums, the BN affine, residual and ReLU in float32, one
+rounding to bf16 at the store; ops/cuda/conv3d.py), as JAX's Pallas
+kernels do on bf16 operands. The classifier's running sum rounds twice, as
+JAX's separate bf16 add (the conv's bf16 form rounds before the residual).
+The soft-argmin reads the bf16 cost as float32 and returns float32
+disparity, as JAX's kernel route does (its XLA route, on the CPU, takes the
+softmax in bf16: ROADMAP C38). The cuDNN convs run on bf16 tensors with
+the weight cast to bf16, as Flax's ``nn.Conv(dtype=bfloat16)`` promotes
+both; their eval BN is Flax's ``BatchNorm(dtype=bfloat16)``
+(``bn_eval``): (x - mean) * (rsqrt(var + eps) * scale) + bias in float32
+from the bf16 input, rounded once to bf16; the residual adds, ReLUs, the
+SPP's average pool and its align-corners upsample (interpolation matrices
+in bf16, as JAX builds them in x.dtype) are bf16 ops, each rounded once.
+One rounding point differs from JAX: layer2's first block's second conv
+(3x3, 64 channels, stride 1) is the 2D kernel here, where JAX's unpacked
+route leaves it to XLA (conv, BN and residual each rounded). DispModule's
+trunk stays float32 (ROADMAP A8.2), and training is float32 (A8.4).
+
 Train mode (``self.training``, psmnet.py:529-579, :691-709, :962-1020):
 every BatchNorm normalizes with the batch statistics as Flax does
 (``batch_norm_train``); every stride-1 3x3x3 trunk conv (dres0_1,
@@ -96,9 +118,37 @@ def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
 
 
+def bn_eval(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """Eval BN with the running statistics. A bf16 x as Flax's
+    ``BatchNorm(dtype=bfloat16)`` normalizes it (flax/linen/
+    normalization.py, ``_normalize``, with its float32 statistics and
+    parameters): y = x - mean, then y * (rsqrt(var + eps) * scale), then +
+    bias, all in float32, and one rounding to bf16 at the end; any other
+    dtype through nn.BatchNorm."""
+    if x.dtype != torch.bfloat16:
+        return bn(x)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+    y = (x.float() - bn.running_mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+    return y.to(torch.bfloat16)
+
+
 def norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
     """Batch statistics in train mode, running statistics in eval."""
-    return batch_norm_train(bn, x) if bn.training else bn(x)
+    return batch_norm_train(bn, x) if bn.training else bn_eval(bn, x)
+
+
+def conv_at(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A bias-free cuDNN conv (nn.Conv2d, nn.Conv3d) of x at x's dtype: the
+    float32 weight cast to bf16 for a bf16 x (Flax's nn.Conv(dtype=...)
+    promotes input and kernel to the compute dtype)."""
+    return conv._conv_forward(x, conv.weight.to(x.dtype), None)
+
+
+def compute(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x at the compute dtype: cast to bf16 for a bf16 model; a float32 model
+    computes in its parameters' dtype (float64 where it was moved there)."""
+    return x if dtype == torch.float32 else x.to(dtype)
 
 
 def _finish(y, relu: bool, residual):
@@ -117,11 +167,13 @@ def fold_bn(bn: nn.modules.batchnorm._BatchNorm) -> Tuple[torch.Tensor, torch.Te
 class ConvBN(nn.Module):
     """kxk conv (no bias, padding dilation * (k // 2)) + eval BN; the
     residual joins before the ReLU. The 3x3 stride-1 undilated form of 32
-    or 64 output channels is one call of the 2D conv kernel."""
+    or 64 output channels is one call of the 2D conv kernel. Its input is
+    cast to the compute dtype `dtype`."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.Conv_0 = nn.Conv2d(cin, cout, kernel, stride, dilation * (kernel // 2),
                                 dilation, bias=False)
         self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=BN_EPS)
@@ -129,9 +181,10 @@ class ConvBN(nn.Module):
         self.eval()
 
     def forward(self, x, relu: bool = False, residual=None):
+        x = compute(x, self.dtype)
         if self.fused and not self.training:
             return conv2d_bn(x, self.Conv_0.weight, *fold_bn(self.BatchNorm_0), residual, relu)
-        return _finish(norm(self.BatchNorm_0, self.Conv_0(x)), relu, residual)
+        return _finish(norm(self.BatchNorm_0, conv_at(self.Conv_0, x)), relu, residual)
 
 
 class BasicBlock(nn.Module):
@@ -139,10 +192,10 @@ class BasicBlock(nn.Module):
     add; the downsample is a 1x1 conv + BN."""
 
     def __init__(self, cin: int, planes: int, stride: int = 1, dilation: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ConvBN_0 = ConvBN(cin, planes, 3, stride, dilation)
-        self.ConvBN_1 = ConvBN(planes, planes, 3, 1, dilation)
+        self.ConvBN_0 = ConvBN(cin, planes, 3, stride, dilation, dtype)
+        self.ConvBN_1 = ConvBN(planes, planes, 3, 1, dilation, dtype)
         if downsample:
             self.Conv_0 = nn.Conv2d(cin, planes, 1, stride, bias=False)
             self.BatchNorm_0 = nn.BatchNorm2d(planes, eps=BN_EPS)
@@ -151,13 +204,13 @@ class BasicBlock(nn.Module):
 
     def forward(self, x):
         out = self.ConvBN_0(x, relu=True)
-        sc = norm(self.BatchNorm_0, self.Conv_0(x)) if self.downsample else x
+        sc = norm(self.BatchNorm_0, conv_at(self.Conv_0, x)) if self.downsample else x
         return self.ConvBN_1(out, residual=sc)
 
 
 def bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """(B, C, h, w) -> (B, C, H, W), align_corners=True, by the same matrix
-    contractions as the JAX package."""
+    contractions as the JAX package, the matrices in x's dtype."""
     mh = interp_matrix_align_corners(x.shape[2], out_hw[0], x.device, x.dtype)
     mw = interp_matrix_align_corners(x.shape[3], out_hw[1], x.device, x.dtype)
     x = torch.einsum("bchw,eh->bcew", x, mh)
@@ -165,32 +218,34 @@ def bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Te
 
 
 class FeatureExtraction(nn.Module):
-    """Siamese tower -> 1/4-res 32-channel features (submodule.py:234-313)."""
+    """Siamese tower -> 1/4-res 32-channel features (submodule.py:234-313),
+    at the compute dtype `dtype`."""
 
     SPP_POOLS = (56, 32, 16, 8)
     # (planes, blocks, stride, dilation) of layer1..layer4
     LAYERS = ((32, 3, 1, 1), (64, 16, 2, 1), (128, 3, 1, 1), (128, 3, 1, 2))
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ConvBN_0 = ConvBN(3, 32, 3, 2)
-        self.ConvBN_1 = ConvBN(32, 32)
-        self.ConvBN_2 = ConvBN(32, 32)
+        self.ConvBN_0 = ConvBN(3, 32, 3, 2, dtype=dtype)
+        self.ConvBN_1 = ConvBN(32, 32, dtype=dtype)
+        self.ConvBN_2 = ConvBN(32, 32, dtype=dtype)
         blocks = []
         cin = 32
         for planes, n, stride, dilation in self.LAYERS:
             for i in range(n):
                 s = stride if i == 0 else 1
                 blocks.append(BasicBlock(cin, planes, s, dilation,
-                                         downsample=i == 0 and (s != 1 or cin != planes)))
+                                         downsample=i == 0 and (s != 1 or cin != planes),
+                                         dtype=dtype))
                 cin = planes
         for i, block in enumerate(blocks):
             self.add_module(f"BasicBlock_{i}", block)
         self.n_blocks = len(blocks)
         self.raw_block = self.LAYERS[0][1] + self.LAYERS[1][1] - 1  # end of layer2
         for i in range(len(self.SPP_POOLS)):
-            self.add_module(f"ConvBN_{3 + i}", ConvBN(128, 32, 1))
-        self.ConvBN_7 = ConvBN(320, 128)
+            self.add_module(f"ConvBN_{3 + i}", ConvBN(128, 32, 1, dtype=dtype))
+        self.ConvBN_7 = ConvBN(320, 128, dtype=dtype)
         self.Conv_0 = nn.Conv2d(128, 32, 1, bias=False)
         self.eval()
 
@@ -214,17 +269,20 @@ class FeatureExtraction(nn.Module):
         # reference concat order: (raw, skip, branch4..branch1)
         x = torch.cat([raw, skip] + spp[::-1], dim=1)  # 320 ch
         x = self.ConvBN_7(x, relu=True)
-        return self.Conv_0(x)
+        return conv_at(self.Conv_0, x)
 
 
 class ConvBN3d(nn.Module):
     """3x3x3 conv (no bias, padding 1, stride 1 or 2) + eval BN
-    (+ residual, + ReLU): one call of the conv3d kernel. In train mode the
+    (+ residual, + ReLU): one call of the conv3d kernel, at the compute
+    dtype `dtype` (its input cast to it). In train mode the
     conv is conv3d_train (stride 1) or a cuDNN conv (stride 2, the cost
     volume), then batch-stat BN, residual and ReLU."""
 
-    def __init__(self, cin: int, cout: int, stride: int = 1):
+    def __init__(self, cin: int, cout: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.Conv_0 = nn.Conv3d(cin, cout, 3, stride, 1, bias=False)
         self.BatchNorm_0 = nn.BatchNorm3d(cout, eps=BN_EPS)
         self.stride = stride
@@ -232,6 +290,7 @@ class ConvBN3d(nn.Module):
 
     def forward(self, x, relu: bool = False, residual=None):
         w = self.Conv_0.weight
+        x = compute(x, self.dtype)
         if self.training:
             y = conv3d_train(x, w) if self.stride == 1 else F.conv3d(x, w, stride=2, padding=1)
             return _finish(batch_norm_train(self.BatchNorm_0, y), relu, residual)
@@ -246,8 +305,8 @@ class ConvBN3d(nn.Module):
                          self.Conv_0.weight, padding=1)
             return _finish(batch_norm_train(self.BatchNorm_0, y), relu, None)
         mul, add = fold_bn(self.BatchNorm_0)
-        return cost_volume_conv_bn(left, right, self.Conv_0.weight, mul, add, mindisp4,
-                                   maxdisp4, relu)
+        return cost_volume_conv_bn(compute(left, self.dtype), compute(right, self.dtype),
+                                   self.Conv_0.weight, mul, add, mindisp4, maxdisp4, relu)
 
 
 def _deconv(cin: int, cout: int) -> nn.ConvTranspose3d:
@@ -259,15 +318,17 @@ def _deconv(cin: int, cout: int) -> nn.ConvTranspose3d:
 
 
 class Hourglass(nn.Module):
-    """Stacked-hourglass block (stackhourglass.py:8-52), canonical form."""
+    """Stacked-hourglass block (stackhourglass.py:8-52), canonical form, at
+    the compute dtype `dtype` (its transposed convs dispatch on their
+    input's dtype)."""
 
-    def __init__(self, planes: int):
+    def __init__(self, planes: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         p2 = planes * 2
-        self.ConvBN_0 = ConvBN3d(planes, p2, 2)
-        self.ConvBN_1 = ConvBN3d(p2, p2, 1)
-        self.ConvBN_2 = ConvBN3d(p2, p2, 2)
-        self.ConvBN_3 = ConvBN3d(p2, p2, 1)
+        self.ConvBN_0 = ConvBN3d(planes, p2, 2, dtype)
+        self.ConvBN_1 = ConvBN3d(p2, p2, 1, dtype)
+        self.ConvBN_2 = ConvBN3d(p2, p2, 2, dtype)
+        self.ConvBN_3 = ConvBN3d(p2, p2, 1, dtype)
         self.ConvTranspose_0 = _deconv(p2, p2)
         self.BatchNorm_0 = nn.BatchNorm3d(p2, eps=BN_EPS)
         self.ConvTranspose_1 = _deconv(p2, planes)
@@ -299,18 +360,21 @@ class CostVolumeTrunk(nn.Module):
     hourglasses dres2.., each hourglass's classifier (classif{k}_0, _1),
     and the regression. ``_build_trunk`` registers the modules under their
     Flax names on the subclass (after the subclass's own first modules, in
-    the JAX creation order); ``_regress`` runs them."""
+    the JAX creation order) at the compute dtype `dtype`; ``_regress`` runs
+    them."""
 
-    def _build_trunk(self, maxdisp: int, mindisp: int, num_hourglass: int) -> None:
+    def _build_trunk(self, maxdisp: int, mindisp: int, num_hourglass: int,
+                     dtype: torch.dtype = torch.float32) -> None:
         self.maxdisp, self.mindisp = maxdisp, mindisp
         self.num_hourglass = num_hourglass
-        self.dres0_0 = ConvBN3d(64, 32)
-        self.dres0_1 = ConvBN3d(32, 32)
-        self.dres1_0 = ConvBN3d(32, 32)
-        self.dres1_1 = ConvBN3d(32, 32)
+        self.dtype = dtype
+        self.dres0_0 = ConvBN3d(64, 32, dtype=dtype)
+        self.dres0_1 = ConvBN3d(32, 32, dtype=dtype)
+        self.dres1_0 = ConvBN3d(32, 32, dtype=dtype)
+        self.dres1_1 = ConvBN3d(32, 32, dtype=dtype)
         for i in range(num_hourglass):
-            self.add_module(f"dres{2 + i}", Hourglass(32))
-            self.add_module(f"classif{i + 1}_0", ConvBN3d(32, 32))
+            self.add_module(f"dres{2 + i}", Hourglass(32, dtype))
+            self.add_module(f"classif{i + 1}_0", ConvBN3d(32, 32, dtype=dtype))
             self.add_module(f"classif{i + 1}_1", nn.Conv3d(32, 1, 3, 1, 1, bias=False))
 
     def _regress(self, lf: torch.Tensor, rf: torch.Tensor, stride: int,
@@ -348,7 +412,8 @@ class CostVolumeTrunk(nn.Module):
             else:
                 # the sum with the previous classifier's cost joins as the
                 # conv's residual: the same single add (the identity affine
-                # leaves v exact)
+                # leaves v exact; the bf16 form rounds v first, as JAX's
+                # separate bf16 add)
                 costs.append(conv3d_bn(z, wc, residual=costs[-1] if i else None))
         if self.training:
             return tuple(softargmin_plain(c[:, 0], out_hw, self.mindisp, self.maxdisp)
@@ -359,17 +424,23 @@ class CostVolumeTrunk(nn.Module):
 class PSMNet(CostVolumeTrunk):
     """Full iDispNet: forward(left, right) -> (B, H, W) disparity in eval,
     the tuple of num_hourglass disparities (deep supervision, the last
-    one the prediction) in train mode."""
+    one the prediction) in train mode. `dtype` is the compute dtype
+    (float32, or bfloat16 in eval; the disparity is float32 either way)."""
 
-    def __init__(self, maxdisp: int = 48, mindisp: int = -48, num_hourglass: int = 3):
+    def __init__(self, maxdisp: int = 48, mindisp: int = -48, num_hourglass: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.feature_extraction = FeatureExtraction()
-        self._build_trunk(maxdisp, mindisp, num_hourglass)
+        self.feature_extraction = FeatureExtraction(dtype)
+        self._build_trunk(maxdisp, mindisp, num_hourglass, dtype)
         self.eval()
 
     def forward(self, left: torch.Tensor, right: torch.Tensor):
-        """left, right (B, 3, H, W) normalized crops -> (B, H, W), or in
-        train mode a tuple of them."""
+        """left, right (B, 3, H, W) normalized crops (float32; the first conv
+        casts them to the compute dtype) -> (B, H, W), or in train mode a
+        tuple of them."""
+        if self.training and self.dtype != torch.float32:
+            raise NotImplementedError(f"PSMNet trains in float32 only (ROADMAP A8.4), not "
+                                      f"{self.dtype}")
         b, _, h, w = left.shape
         both = self.feature_extraction(torch.cat([left, right], dim=0))
         return self._regress(both[:b], both[b:], 4, (h, w))

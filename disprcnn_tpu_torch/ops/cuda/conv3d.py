@@ -40,6 +40,25 @@ The launch points are
 ``conv2d_bn_cuda``, looked up at call time, so a caller can route them
 elsewhere. These launches are forward only (``build.forward_only``).
 
+The bf16 forms (the JAX package's bf16 model, TPU.COMPUTE_DTYPE
+bfloat16): ``conv3d_bn``, ``conv2d_bn``, ``deconv3d_bn`` and
+``cost_volume_conv_bn`` dispatch on the input's dtype. A bf16 input (and
+residual) on the card launches the kernel's bf16 form: the weights rounded
+to bf16 by their packing (``pack_bf16_weight``,
+``pack_bf16_deconv_weight``, ``pack_bf16_cost_volume_weight``: k16
+fragments of bf16 pairs), one bf16 ``mma.sync`` a K step into float32
+sums, the BN affine, residual and ReLU in float32, and one rounding to
+bf16 (nearest even) at the store, as the JAX package's Pallas kernels do
+with bf16 operands; the classifier's Co = 1 form rounds its conv to bf16
+before the residual (the previous classifier's cost) joins and rounds the
+sum again, as JAX's separate bf16 add does. On the CPU a bf16 input takes
+the bf16 twin (``*_bf16_plain``): the float32 plain version of the same
+bf16 values cast up (a product of two bf16 values is exact in float32),
+rounded to bf16 where the kernel stores. The launch points are
+``*_bf16_cuda``, counted in ``launches_bf16``. Each form checks its
+dtypes: a bf16 tensor given to a float32 launch point raises, and a
+float32 one to a bf16 launch point; nothing is cast to reach a kernel.
+
 The train form of the stride-1 conv, ``conv3d_train`` (counterpart of
 ``packed_conv_train``, packed_conv.py:689, a ``jax.custom_vjp``), is a
 ``torch.autograd.Function``: its forward is the raw conv (identity
@@ -66,6 +85,10 @@ from . import build
 # "conv3d_train" counts the train form's forward and input-gradient launches.
 launches = {"cost_volume_conv": 0, "conv3d": 0, "conv3d_cl1": 0, "conv3d_s2": 0,
             "deconv3d": 0, "conv2d": 0, "conv3d_train": 0}
+# Launches of the bf16 forms, by the same names.
+launches_bf16 = {"cost_volume_conv": 0, "conv3d": 0, "conv3d_cl1": 0, "conv3d_s2": 0,
+                 "deconv3d": 0, "conv2d": 0}
+BF16 = torch.bfloat16
 
 # output channel counts the kernels are instantiated for; Co = 1 only for
 # the stride-1 3D conv
@@ -78,6 +101,8 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.conv3d_bn_cuda.argtypes = [p, i, i, i, i, i, p, p, p, p, i, p, p, i]
         lib.conv3d_bn_cuda.restype = i
+        lib.conv3d_bn_bf16_cuda.argtypes = lib.conv3d_bn_cuda.argtypes
+        lib.conv3d_bn_bf16_cuda.restype = i
         lib.conv3d_error_string.argtypes = [i]
         lib.conv3d_error_string.restype = ctypes.c_char_p
     return lib
@@ -91,9 +116,11 @@ def _tc_lib() -> ctypes.CDLL:
         lib.conv2d_tc_cuda.argtypes = [p, i, i, i, i, p, i, p, p, p, i, p, p, i]
         lib.deconv3d_tc_cuda.argtypes = [p, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
         lib.conv3d_tc_pack_cuda.argtypes = [p, i, i, i, i, p, p, i]
-        for fn in (lib.conv3d_tc_cuda, lib.conv2d_tc_cuda, lib.deconv3d_tc_cuda,
-                   lib.conv3d_tc_pack_cuda):
-            fn.restype = i
+        for name in ("conv3d_tc", "conv2d_tc", "deconv3d_tc", "conv3d_tc_pack"):
+            getattr(lib, f"{name}_bf16_cuda").argtypes = getattr(lib, f"{name}_cuda").argtypes
+        for name in ("conv3d_tc", "conv2d_tc", "deconv3d_tc", "conv3d_tc_pack"):
+            for form in ("", "_bf16"):
+                getattr(lib, f"{name}{form}_cuda").restype = i
         lib.conv3d_tc_error_string.argtypes = [i]
         lib.conv3d_tc_error_string.restype = ctypes.c_char_p
     return lib
@@ -105,7 +132,10 @@ def _cv_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.cost_volume_tc_cuda.argtypes = [p, p, i, i, i, i, i, i, p, i, p, p, i, p, p, p, i]
         lib.cost_volume_tc_pack_cuda.argtypes = [p, i, i, p, p, i]
-        for fn in (lib.cost_volume_tc_cuda, lib.cost_volume_tc_pack_cuda):
+        lib.cost_volume_tc_bf16_cuda.argtypes = lib.cost_volume_tc_cuda.argtypes
+        lib.cost_volume_tc_pack_bf16_cuda.argtypes = lib.cost_volume_tc_pack_cuda.argtypes
+        for fn in (lib.cost_volume_tc_cuda, lib.cost_volume_tc_pack_cuda,
+                   lib.cost_volume_tc_bf16_cuda, lib.cost_volume_tc_pack_bf16_cuda):
             fn.restype = i
         lib.cost_volume_tc_error_string.argtypes = [i]
         lib.cost_volume_tc_error_string.restype = ctypes.c_char_p
@@ -184,6 +214,17 @@ def pack_tf32_weight_cuda(weight: torch.Tensor, flip: bool = False) -> torch.Ten
     pack_tf32_weight(flip_transpose(weight)), in one launch of
     csrc/conv3d_tc.cu's packing on the current stream (weight float32,
     contiguous, on the card)."""
+    return _pack_conv(weight, flip, torch.float32)
+
+
+def pack_bf16_weight_cuda(weight: torch.Tensor) -> torch.Tensor:
+    """pack_bf16_weight(weight) in one launch of csrc/conv3d_tc.cu's bf16
+    packing on the current stream (weight float32, contiguous, on the
+    card)."""
+    return _pack_conv(weight, False, BF16)
+
+
+def _pack_conv(weight, flip, dtype):
     co, ci = weight.shape[:2]
     if flip:
         co, ci = ci, co
@@ -194,7 +235,7 @@ def pack_tf32_weight_cuda(weight: torch.Tensor, flip: bool = False) -> torch.Ten
     _check_float32_cuda("weight", weight,
                         (ci, co, 3, 3, 3) if flip else (co, ci) + (3,) * (weight.dim() - 2),
                         weight.device)
-    out = _pack_launch(weight, co, ci, wkd, _PACK_FLIP if flip else _PACK_CONV)
+    out = _pack_launch(weight, co, ci, wkd, _PACK_FLIP if flip else _PACK_CONV, dtype)
     return out[:, 0] if wkd == 1 else out
 
 
@@ -202,19 +243,38 @@ def pack_tf32_deconv_weight_cuda(weight: torch.Tensor) -> torch.Tensor:
     """pack_tf32_deconv_weight(weight) of the ConvTranspose3d weight (Ci, Co,
     3, 3, 3), in one launch of csrc/conv3d_tc.cu's packing on the current
     stream (weight float32, contiguous, on the card)."""
+    return _pack_deconv(weight, torch.float32)
+
+
+def pack_bf16_deconv_weight_cuda(weight: torch.Tensor) -> torch.Tensor:
+    """pack_bf16_deconv_weight(weight) of the ConvTranspose3d weight (Ci,
+    Co, 3, 3, 3), in one launch of csrc/conv3d_tc.cu's bf16 packing."""
+    return _pack_deconv(weight, BF16)
+
+
+def _pack_deconv(weight, dtype):
     if weight.dim() != 5:
         raise ValueError(f"need a (Ci, Co, 3, 3, 3) weight, got {tuple(weight.shape)}")
     ci, co = weight.shape[:2]
     _check_float32_cuda("weight", weight, (ci, co, 3, 3, 3), weight.device)
-    return _pack_launch(weight, co, ci, 3, _PACK_DECONV)
+    return _pack_launch(weight, co, ci, 3, _PACK_DECONV, dtype)
 
 
-def _pack_launch(weight, co, ci, wkd, form):
+def _pack_launch(weight, co, ci, wkd, form, dtype):
+    """One launch of csrc/conv3d_tc.cu's packing for the float32 form
+    ((ceil(Ci / 8), wkd, 9, Co / 8, 32, 4) float32) or the bf16 form
+    ((ceil(Ci / 16), wkd, 9, Co / 8, 32, 2) int32 words)."""
     lib = _tc_lib()
-    out = torch.empty((-(-ci // 8), wkd, 9, co // 8, 32, 4), device=weight.device)
-    err = lib.conv3d_tc_pack_cuda(weight.data_ptr(), co, ci, wkd, form, out.data_ptr(),
-                                  _stream(weight), weight.device.index)
-    _raise_on(lib.conv3d_tc_error_string, err, "conv3d_tc_pack_cuda")
+    if dtype == BF16:
+        out = torch.empty((-(-ci // 16), wkd, 9, co // 8, 32, 2), dtype=torch.int32,
+                          device=weight.device)
+        fn, name = lib.conv3d_tc_pack_bf16_cuda, "conv3d_tc_pack_bf16_cuda"
+    else:
+        out = torch.empty((-(-ci // 8), wkd, 9, co // 8, 32, 4), device=weight.device)
+        fn, name = lib.conv3d_tc_pack_cuda, "conv3d_tc_pack_cuda"
+    err = fn(weight.data_ptr(), co, ci, wkd, form, out.data_ptr(), _stream(weight),
+             weight.device.index)
+    _raise_on(lib.conv3d_tc_error_string, err, name)
     return out
 
 
@@ -222,15 +282,30 @@ def pack_tf32_cost_volume_weight_cuda(weight: torch.Tensor) -> torch.Tensor:
     """pack_tf32_cost_volume_weight(weight) of the (Co, 2C, 3, 3, 3) weight,
     in one launch of csrc/cost_volume_tc.cu's packing on the current stream
     (weight float32, contiguous, on the card)."""
+    return _pack_cost_volume(weight, torch.float32)
+
+
+def pack_bf16_cost_volume_weight_cuda(weight: torch.Tensor) -> torch.Tensor:
+    """pack_bf16_cost_volume_weight(weight) of the (Co, 2C, 3, 3, 3) weight,
+    in one launch of csrc/cost_volume_tc.cu's bf16 packing."""
+    return _pack_cost_volume(weight, BF16)
+
+
+def _pack_cost_volume(weight, dtype):
     if weight.dim() != 5 or weight.shape[1] % 2:
         raise ValueError(f"need a (Co, 2C, 3, 3, 3) weight, got {tuple(weight.shape)}")
     co, c = weight.shape[0], weight.shape[1] // 2
     _check_float32_cuda("weight", weight, (co, 2 * c, 3, 3, 3), weight.device)
     lib = _cv_lib()
-    out = torch.empty((2, 3, -(-c // 8), 3, 3 * co // 8, 32, 4), device=weight.device)
-    err = lib.cost_volume_tc_pack_cuda(weight.data_ptr(), co, c, out.data_ptr(),
-                                       _stream(weight), weight.device.index)
-    _raise_on(lib.cost_volume_tc_error_string, err, "cost_volume_tc_pack_cuda")
+    if dtype == BF16:
+        out = torch.empty((2, 3, -(-c // 16), 3, 3 * co // 8, 32, 2), dtype=torch.int32,
+                          device=weight.device)
+        fn, name = lib.cost_volume_tc_pack_bf16_cuda, "cost_volume_tc_pack_bf16_cuda"
+    else:
+        out = torch.empty((2, 3, -(-c // 8), 3, 3 * co // 8, 32, 4), device=weight.device)
+        fn, name = lib.cost_volume_tc_pack_cuda, "cost_volume_tc_pack_cuda"
+    err = fn(weight.data_ptr(), co, c, out.data_ptr(), _stream(weight), weight.device.index)
+    _raise_on(lib.cost_volume_tc_error_string, err, name)
     return out
 
 
@@ -447,9 +522,164 @@ def conv2d_bn_plain(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
     return _epilogue(F.conv2d(x, weight, padding=1), mul, add, residual, relu)
 
 
+def _up(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.float()
+
+
+def _bf16_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The weight as the bf16 kernels multiply it: rounded to bf16 (nearest
+    even), held in float32."""
+    return weight.to(BF16).float()
+
+
+def conv3d_bn_bf16_plain(x: torch.Tensor, weight: torch.Tensor,
+                         mul: Optional[torch.Tensor] = None, add: Optional[torch.Tensor] = None,
+                         residual: Optional[torch.Tensor] = None, relu: bool = False,
+                         stride: int = 1) -> torch.Tensor:
+    """The bf16 form's twin: conv3d_bn_plain on x (bf16) and the weight
+    rounded to bf16, both cast up to float32, the residual (bf16) too, then
+    the output rounded to bf16. At Co = 1 (the classifier) the conv is
+    rounded to bf16 before the residual joins and the sum rounded again."""
+    y = F.conv3d(x.float(), _bf16_weight(weight), stride=stride, padding=1)
+    if weight.shape[0] == 1:
+        y = _epilogue(y, mul, add, None, False).to(BF16)
+        if residual is not None:
+            y = (y.float() + residual.float()).to(BF16)
+        return torch.relu(y) if relu else y
+    return _epilogue(y, mul, add, _up(residual), relu).to(BF16)
+
+
+def conv2d_bn_bf16_plain(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
+                         add: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                         relu: bool = False) -> torch.Tensor:
+    """conv2d_bn_plain at the bf16 form's rounding points (as
+    conv3d_bn_bf16_plain)."""
+    y = F.conv2d(x.float(), _bf16_weight(weight), padding=1)
+    return _epilogue(y, mul, add, _up(residual), relu).to(BF16)
+
+
+def deconv3d_bn_bf16_plain(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
+                           add: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                           relu: bool = False) -> torch.Tensor:
+    """deconv3d_bn_plain at the bf16 form's rounding points (as
+    conv3d_bn_bf16_plain)."""
+    y = F.conv_transpose3d(x.float(), _bf16_weight(weight), stride=2, padding=1,
+                           output_padding=1)
+    return _epilogue(y, mul, add, _up(residual), relu).to(BF16)
+
+
+def cost_volume_conv_bn_bf16_plain(left: torch.Tensor, right: torch.Tensor,
+                                   weight: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
+                                   mindisp4: int, maxdisp4: int,
+                                   relu: bool = True) -> torch.Tensor:
+    """cost_volume_conv_bn_plain at the bf16 form's rounding points: the
+    bf16 features and the weight rounded to bf16, cast up, the volume's conv
+    and epilogue in float32, the output rounded to bf16."""
+    return cost_volume_conv_bn_plain(left.float(), right.float(), _bf16_weight(weight), mul, add,
+                                     mindisp4, maxdisp4, relu).to(BF16)
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance of two bf16 tensors in bf16 steps: the number
+    of representable values from one to the other (+0 and -0 both 0), as
+    int32."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def bf16_step(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 step at each element's magnitude, float32: 2^(e - 7) for |t|
+    in [2^e, 2^(e + 1)) (8 significant bits), at least the smallest normal
+    number's."""
+    _, e = torch.frexp(t.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+# The float32 sums' worst-case rounding a term, the tensor cores' truncating
+# adds included (2^-23 an add, and a stage's sums promoted with rounding):
+# a correct bf16 kernel and its twin, summing K terms of magnitudes adding
+# up to M in other orders, differ before their one rounding by at most
+# K * F32_SUM_ERR * M.
+F32_SUM_ERR = 2.0 ** -22
+
+
+def bf16_agreement(got: torch.Tensor, want: torch.Tensor, floor=None) -> dict:
+    """A bf16 kernel's output against its twin's: "equal" (the share of
+    elements bit-equal), "beyond" (elements more than one bf16 step apart,
+    at the larger magnitude, plus `floor`: a tensor or number bounding the
+    difference of the float32 sums before the rounding, which exceeds a
+    step where the sums cancel to much less than their terms), "max_ulps"
+    (bf16_ulps over all elements) and "max_ulps_clear" (over the elements
+    whose floor is under a step)."""
+    ulps = bf16_ulps(got, want)
+    diff = (got.float() - want.float()).abs()
+    step = bf16_step(torch.maximum(got.float().abs(), want.float().abs()))
+    floor = torch.zeros_like(step) if floor is None else torch.as_tensor(floor).expand_as(step)
+    clear = floor < step
+    return {"equal": float((ulps == 0).float().mean()), "beyond": int((diff > step + floor).sum()),
+            "max_ulps": int(ulps.max()),
+            "max_ulps_clear": int(ulps[clear].max()) if bool(clear.any()) else 0}
+
+
+def _bf16_words(t: torch.Tensor) -> torch.Tensor:
+    """(..., 2) values -> (...) int32 words of two bf16 (rounded to nearest
+    even), the first in the lower half."""
+    return t.to(BF16).contiguous().view(torch.int32)[..., 0]
+
+
+def pack_bf16_weight(weight: torch.Tensor) -> torch.Tensor:
+    """(Co, Ci, 3, 3, 3) -> csrc/conv3d_tc.cu's bf16 staged weights, int32
+    words of two bf16: (ceil(Ci / 16), 3 kd, 9 taps (kh, kw), Co / 8, 32
+    lanes, 2), Ci padded with zeros to a multiple of 16; a 2D weight (Co,
+    Ci, 3, 3) -> the same without the kd dim. Lane l of N-tile j in chunk cc
+    holds in word e the weights from input channels 16 cc + 8 e + 2 (l % 4)
+    and the next one (lower half) to output channel 8 j + l // 4, rounded to
+    bf16: the B fragment of mma.m16n8k16 (b0, b1). The plain version of the
+    kernel's own packing, pack_bf16_weight_cuda."""
+    w5 = weight[:, :, None] if weight.dim() == 4 else weight
+    co, ci, kd = w5.shape[:3]
+    ci16 = -(-ci // 16)
+    w = F.pad(w5, (0, 0, 0, 0, 0, 0, 0, 16 * ci16 - ci))
+    # (j, l // 4, cc, e, l % 4, pair, kd, tap) -> (cc, kd, tap, j, l, e, pair)
+    w = w.reshape(co // 8, 8, ci16, 2, 4, 2, kd, 9).permute(2, 6, 7, 0, 1, 4, 3, 5)
+    packed = _bf16_words(w.reshape(ci16, kd, 9, co // 8, 32, 2, 2))
+    return (packed[:, 0] if weight.dim() == 4 else packed).contiguous()
+
+
+def pack_bf16_deconv_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The ConvTranspose3d weight (Ci, Co, 3, 3, 3) -> the bf16 transposed
+    conv's staged weights: pack_bf16_weight of weight[c, o] as (Co, Ci),
+    unflipped (as pack_tf32_deconv_weight). The plain version of
+    pack_bf16_deconv_weight_cuda."""
+    return pack_bf16_weight(weight.transpose(0, 1))
+
+
+def pack_bf16_cost_volume_weight(weight: torch.Tensor) -> torch.Tensor:
+    """(Co, 2C, 3, 3, 3) -> csrc/cost_volume_tc.cu's bf16 staged plane
+    weights, int32 words of two bf16: (2 views, 3 kd, ceil(C / 16), 3 kh, 3
+    Co / 8, 32 lanes, 2), C padded with zeros to a multiple of 16; lane l of
+    N-tile j in chunk cc holds in word e the weights of channels v C + 16 cc
+    + 8 e + 2 (l % 4) and the next one for plane column 8 j + l // 4 (column
+    kw Co + o), rounded to bf16. The plain version of
+    pack_bf16_cost_volume_weight_cuda."""
+    co, c = weight.shape[0], weight.shape[1] // 2
+    ci16 = -(-c // 16)
+    w = F.pad(weight.reshape(co, 2, c, 3, 3, 3), (0, 0, 0, 0, 0, 0, 0, 16 * ci16 - c))
+    # (o, v, cc, e, l % 4, pair, kd, kh, kw) -> (v, kd, cc, kh, (kw, o), l % 4, e, pair)
+    w = w.reshape(co, 2, ci16, 2, 4, 2, 3, 3, 3).permute(1, 6, 2, 7, 8, 0, 4, 3, 5)
+    return _bf16_words(w.reshape(2, 3, ci16, 3, 3 * co // 8, 32, 2, 2)).contiguous()
+
+
 def _check_float32_cuda(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.dtype != torch.float32 or not t.is_cuda:
-        raise ValueError(f"{name} must be a float32 CUDA tensor, got {t.dtype} on {t.device}")
+    _check_cuda(name, t, shape, device, torch.float32)
+
+
+def _check_cuda(name: str, t: torch.Tensor, shape, device, dtype) -> None:
+    if t.dtype != dtype or not t.is_cuda:
+        raise ValueError(f"{name} must be a {str(dtype).split('.')[-1]} CUDA tensor, got "
+                         f"{t.dtype} on {t.device}")
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
     if tuple(t.shape) != tuple(shape):
@@ -458,13 +688,14 @@ def _check_float32_cuda(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_input(name: str, t: torch.Tensor, dims: int) -> None:
+def _check_input(name: str, t: torch.Tensor, dims: int, dtype=torch.float32) -> None:
     if t.dim() != dims:
         raise ValueError(f"{name} must have {dims} dims, got {tuple(t.shape)}")
-    _check_float32_cuda(name, t, t.shape, t.device)
+    _check_cuda(name, t, t.shape, t.device, dtype)
 
 
-def _epilogue_args(co: int, mul, add, residual, out_shape, device, channels=CHANNELS):
+def _epilogue_args(co: int, mul, add, residual, out_shape, device, channels=CHANNELS,
+                   dtype=torch.float32):
     if co not in channels:
         raise ValueError(f"the kernel takes Co in {channels}, got {co}")
     if mul is None:
@@ -473,7 +704,7 @@ def _epilogue_args(co: int, mul, add, residual, out_shape, device, channels=CHAN
     _check_float32_cuda("mul", mul, (co,), device)
     _check_float32_cuda("add", add, (co,), device)
     if residual is not None:
-        _check_float32_cuda("residual", residual, out_shape, device)
+        _check_cuda("residual", residual, out_shape, device, dtype)
     return mul, add, None if residual is None else residual.data_ptr()
 
 
@@ -486,23 +717,48 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _counts(dtype) -> dict:
+    return launches_bf16 if dtype == BF16 else launches
+
+
+def _suffix(dtype) -> str:
+    """The C entry points' suffix of the form: "" (float32) or "_bf16"."""
+    return "_bf16" if dtype == BF16 else ""
+
+
 def conv3d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: Optional[torch.Tensor] = None,
                    add: Optional[torch.Tensor] = None, residual: Optional[torch.Tensor] = None,
                    relu: bool = False, stride: int = 1) -> torch.Tensor:
     """Launch csrc/conv3d_tc.cu (Co 32, 64) or csrc/conv3d.cu (Co 1) on the
     current stream; same contract as conv3d_bn_plain."""
     build.forward_only("conv3d_bn_cuda", x, weight, mul, add, residual)
-    out = _conv3d_launch(x, weight, mul, add, residual, relu, stride)
-    launches["conv3d_s2" if stride == 2 else "conv3d_cl1" if weight.shape[0] == 1
-             else "conv3d"] += 1
+    return _conv3d_counted(x, weight, mul, add, residual, relu, stride, torch.float32)
+
+
+def conv3d_bn_bf16_cuda(x: torch.Tensor, weight: torch.Tensor,
+                        mul: Optional[torch.Tensor] = None, add: Optional[torch.Tensor] = None,
+                        residual: Optional[torch.Tensor] = None, relu: bool = False,
+                        stride: int = 1) -> torch.Tensor:
+    """Launch the bf16 form of csrc/conv3d_tc.cu (Co 32, 64) or
+    csrc/conv3d.cu (Co 1) on the current stream: x and residual bf16, the
+    weight, mul and add float32; same contract as conv3d_bn_bf16_plain."""
+    build.forward_only("conv3d_bn_bf16_cuda", x, weight, mul, add, residual)
+    return _conv3d_counted(x, weight, mul, add, residual, relu, stride, BF16)
+
+
+def _conv3d_counted(x, weight, mul, add, residual, relu, stride, dtype):
+    out = _conv3d_launch(x, weight, mul, add, residual, relu, stride, dtype=dtype)
+    _counts(dtype)["conv3d_s2" if stride == 2 else "conv3d_cl1" if weight.shape[0] == 1
+                   else "conv3d"] += 1
     return out
 
 
 def _conv3d_launch(x, weight, mul=None, add=None, residual=None, relu=False, stride=1,
-                   flip=False):
-    """One launch of the conv3d kernel, not counted; with `flip`, the conv
+                   flip=False, dtype=torch.float32):
+    """One launch of the conv3d kernel in the form of `dtype` (x, residual
+    and output of that dtype), not counted; with `flip` (float32), the conv
     with flip_transpose(weight)."""
-    _check_input("x", x, 5)
+    _check_input("x", x, 5, dtype)
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
     n, ci, d, h, w = x.shape
@@ -511,22 +767,25 @@ def _conv3d_launch(x, weight, mul=None, add=None, residual=None, relu=False, str
     _check_float32_cuda("weight", weight, (ci, co, 3, 3, 3) if flip else (co, ci, 3, 3, 3),
                         x.device)
     mul, add, res = _epilogue_args(co, mul, add, residual, out_shape, x.device,
-                                   CHANNELS + ((1,) if stride == 1 else ()))
-    out = torch.empty(out_shape, device=x.device)
+                                   CHANNELS + ((1,) if stride == 1 else ()), dtype)
+    out = torch.empty(out_shape, dtype=dtype, device=x.device)
+    sfx = _suffix(dtype)
     if co == 1 and not flip:
         lib = _lib()
-        wt = F.pad(weight.reshape(ci, 27), (0, 1))
-        err = lib.conv3d_bn_cuda(x.data_ptr(), n, ci, d, h, w, wt.data_ptr(), mul.data_ptr(),
-                                 add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
-                                 x.device.index)
-        _raise_on(lib.conv3d_error_string, err, "conv3d_bn_cuda")
+        # the bf16 form multiplies the weight rounded to bf16, held in float32
+        wt = F.pad((_bf16_weight if dtype == BF16 else lambda t: t)(weight.reshape(ci, 27)),
+                   (0, 1))
+        err = getattr(lib, f"conv3d_bn{sfx}_cuda")(
+            x.data_ptr(), n, ci, d, h, w, wt.data_ptr(), mul.data_ptr(), add.data_ptr(), res,
+            int(relu), out.data_ptr(), _stream(x), x.device.index)
+        _raise_on(lib.conv3d_error_string, err, f"conv3d_bn{sfx}_cuda")
         return out
     lib = _tc_lib()
-    wt = pack_tf32_weight_cuda(weight, flip)
-    err = lib.conv3d_tc_cuda(x.data_ptr(), n, ci, d, h, w, stride, wt.data_ptr(), co,
-                             mul.data_ptr(), add.data_ptr(), res, int(relu), out.data_ptr(),
-                             _stream(x), x.device.index)
-    _raise_on(lib.conv3d_tc_error_string, err, "conv3d_tc_cuda")
+    wt = _pack_conv(weight, flip, dtype)
+    err = getattr(lib, f"conv3d_tc{sfx}_cuda")(
+        x.data_ptr(), n, ci, d, h, w, stride, wt.data_ptr(), co, mul.data_ptr(), add.data_ptr(),
+        res, int(relu), out.data_ptr(), _stream(x), x.device.index)
+    _raise_on(lib.conv3d_tc_error_string, err, f"conv3d_tc{sfx}_cuda")
     return out
 
 
@@ -538,25 +797,42 @@ def cost_volume_conv_bn_cuda(left: torch.Tensor, right: torch.Tensor, weight: to
     cost_volume_conv_bn_plain. The planes, (2, N, H, 9, Co, W), are scratch
     of this call."""
     build.forward_only("cost_volume_conv_bn_cuda", left, right, weight, mul, add)
-    _check_input("left", left, 4)
+    return _cost_volume_launch(left, right, weight, mul, add, mindisp4, maxdisp4, relu,
+                               torch.float32)
+
+
+def cost_volume_conv_bn_bf16_cuda(left: torch.Tensor, right: torch.Tensor,
+                                  weight: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
+                                  mindisp4: int, maxdisp4: int,
+                                  relu: bool = True) -> torch.Tensor:
+    """Launch the bf16 form of csrc/cost_volume_tc.cu (its bf16 weight
+    packing, the tap planes in float32, their sums) on the current stream:
+    left and right bf16; same contract as cost_volume_conv_bn_bf16_plain."""
+    build.forward_only("cost_volume_conv_bn_bf16_cuda", left, right, weight, mul, add)
+    return _cost_volume_launch(left, right, weight, mul, add, mindisp4, maxdisp4, relu, BF16)
+
+
+def _cost_volume_launch(left, right, weight, mul, add, mindisp4, maxdisp4, relu, dtype):
+    _check_input("left", left, 4, dtype)
     n, c, h, w = left.shape
     d = maxdisp4 - mindisp4
     if d < 1:
         raise ValueError(f"empty disparity range [{mindisp4}, {maxdisp4})")
-    _check_float32_cuda("right", right, left.shape, left.device)
+    _check_cuda("right", right, left.shape, left.device, dtype)
     co = weight.shape[0]
     _check_float32_cuda("weight", weight, (co, 2 * c, 3, 3, 3), left.device)
     mul, add, _ = _epilogue_args(co, mul, add, None, None, left.device)
     lib = _cv_lib()
-    wt = pack_tf32_cost_volume_weight_cuda(weight)
+    wt = _pack_cost_volume(weight, dtype)
     planes = torch.empty((2, n, h, 9, co, w), device=left.device)
-    out = torch.empty((n, co, d, h, w), device=left.device)
-    err = lib.cost_volume_tc_cuda(
+    out = torch.empty((n, co, d, h, w), dtype=dtype, device=left.device)
+    name = f"cost_volume_tc{_suffix(dtype)}_cuda"
+    err = getattr(lib, name)(
         left.data_ptr(), right.data_ptr(), n, c, h, w, mindisp4, d, wt.data_ptr(), co,
         mul.data_ptr(), add.data_ptr(), int(relu), planes.data_ptr(), out.data_ptr(),
         _stream(left), left.device.index)
-    _raise_on(lib.cost_volume_tc_error_string, err, "cost_volume_tc_cuda")
-    launches["cost_volume_conv"] += 1
+    _raise_on(lib.cost_volume_tc_error_string, err, name)
+    _counts(dtype)["cost_volume_conv"] += 1
     return out
 
 
@@ -566,20 +842,34 @@ def deconv3d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
     """Launch csrc/conv3d_tc.cu's transposed conv (its weight packing, then
     the conv) on the current stream; same contract as deconv3d_bn_plain."""
     build.forward_only("deconv3d_bn_cuda", x, weight, mul, add, residual)
-    _check_input("x", x, 5)
+    return _deconv3d_launch(x, weight, mul, add, residual, relu, torch.float32)
+
+
+def deconv3d_bn_bf16_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
+                          add: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                          relu: bool = False) -> torch.Tensor:
+    """Launch the bf16 form of csrc/conv3d_tc.cu's transposed conv on the
+    current stream; same contract as deconv3d_bn_bf16_plain."""
+    build.forward_only("deconv3d_bn_bf16_cuda", x, weight, mul, add, residual)
+    return _deconv3d_launch(x, weight, mul, add, residual, relu, BF16)
+
+
+def _deconv3d_launch(x, weight, mul, add, residual, relu, dtype):
+    _check_input("x", x, 5, dtype)
     n, ci, d, h, w = x.shape
     co = weight.shape[1]
     out_shape = (n, co, 2 * d, 2 * h, 2 * w)
     _check_float32_cuda("weight", weight, (ci, co, 3, 3, 3), x.device)
-    mul, add, res = _epilogue_args(co, mul, add, residual, out_shape, x.device)
+    mul, add, res = _epilogue_args(co, mul, add, residual, out_shape, x.device, dtype=dtype)
     lib = _tc_lib()
-    wt = pack_tf32_deconv_weight_cuda(weight)
-    out = torch.empty(out_shape, device=x.device)
-    err = lib.deconv3d_tc_cuda(x.data_ptr(), n, ci, d, h, w, wt.data_ptr(), co, mul.data_ptr(),
-                               add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
-                               x.device.index)
-    _raise_on(lib.conv3d_tc_error_string, err, "deconv3d_tc_cuda")
-    launches["deconv3d"] += 1
+    wt = _pack_deconv(weight, dtype)
+    out = torch.empty(out_shape, dtype=dtype, device=x.device)
+    name = f"deconv3d_tc{_suffix(dtype)}_cuda"
+    err = getattr(lib, name)(x.data_ptr(), n, ci, d, h, w, wt.data_ptr(), co, mul.data_ptr(),
+                             add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
+                             x.device.index)
+    _raise_on(lib.conv3d_tc_error_string, err, name)
+    _counts(dtype)["deconv3d"] += 1
     return out
 
 
@@ -589,25 +879,44 @@ def conv2d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
     """Launch csrc/conv3d_tc.cu's 2D conv (its weight packing, then the
     conv) on the current stream; same contract as conv2d_bn_plain."""
     build.forward_only("conv2d_bn_cuda", x, weight, mul, add, residual)
-    _check_input("x", x, 4)
+    return _conv2d_launch(x, weight, mul, add, residual, relu, torch.float32)
+
+
+def conv2d_bn_bf16_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
+                        add: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                        relu: bool = False) -> torch.Tensor:
+    """Launch the bf16 form of csrc/conv3d_tc.cu's 2D conv on the current
+    stream; same contract as conv2d_bn_bf16_plain."""
+    build.forward_only("conv2d_bn_bf16_cuda", x, weight, mul, add, residual)
+    return _conv2d_launch(x, weight, mul, add, residual, relu, BF16)
+
+
+def _conv2d_launch(x, weight, mul, add, residual, relu, dtype):
+    _check_input("x", x, 4, dtype)
     n, ci, h, w = x.shape
     co = weight.shape[0]
     _check_float32_cuda("weight", weight, (co, ci, 3, 3), x.device)
-    mul, add, res = _epilogue_args(co, mul, add, residual, (n, co, h, w), x.device)
+    mul, add, res = _epilogue_args(co, mul, add, residual, (n, co, h, w), x.device, dtype=dtype)
     lib = _tc_lib()
-    wt = pack_tf32_weight_cuda(weight)
-    out = torch.empty((n, co, h, w), device=x.device)
-    err = lib.conv2d_tc_cuda(x.data_ptr(), n, ci, h, w, wt.data_ptr(), co, mul.data_ptr(),
+    wt = _pack_conv(weight, False, dtype)
+    out = torch.empty((n, co, h, w), dtype=dtype, device=x.device)
+    name = f"conv2d_tc{_suffix(dtype)}_cuda"
+    err = getattr(lib, name)(x.data_ptr(), n, ci, h, w, wt.data_ptr(), co, mul.data_ptr(),
                              add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
                              x.device.index)
-    _raise_on(lib.conv3d_tc_error_string, err, "conv2d_tc_cuda")
-    launches["conv2d"] += 1
+    _raise_on(lib.conv3d_tc_error_string, err, name)
+    _counts(dtype)["conv2d"] += 1
     return out
 
 
 def conv3d_bn(x, weight, mul=None, add=None, residual=None, relu=False,
               stride=1) -> torch.Tensor:
-    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    """Kernel for CUDA tensors, plain version for CPU tensors; a bf16 x
+    takes the bf16 form (kernel or twin)."""
+    if x.dtype == BF16:
+        if x.is_cuda:
+            return conv3d_bn_bf16_cuda(x, weight, mul, add, residual, relu, stride)
+        return conv3d_bn_bf16_plain(x, weight, mul, add, residual, relu, stride)
     if x.is_cuda:
         return conv3d_bn_cuda(x, weight, mul, add, residual, relu, stride)
     return conv3d_bn_plain(x, weight, mul, add, residual, relu, stride)
@@ -615,21 +924,38 @@ def conv3d_bn(x, weight, mul=None, add=None, residual=None, relu=False,
 
 def cost_volume_conv_bn(left, right, weight, mul, add, mindisp4, maxdisp4,
                         relu=True) -> torch.Tensor:
-    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    """Kernel for CUDA tensors, plain version for CPU tensors; bf16 features
+    take the bf16 form (kernel or twin)."""
+    if left.dtype == BF16:
+        if left.is_cuda:
+            return cost_volume_conv_bn_bf16_cuda(left, right, weight, mul, add, mindisp4,
+                                                 maxdisp4, relu)
+        return cost_volume_conv_bn_bf16_plain(left, right, weight, mul, add, mindisp4,
+                                              maxdisp4, relu)
     if left.is_cuda:
         return cost_volume_conv_bn_cuda(left, right, weight, mul, add, mindisp4, maxdisp4, relu)
     return cost_volume_conv_bn_plain(left, right, weight, mul, add, mindisp4, maxdisp4, relu)
 
 
 def deconv3d_bn(x, weight, mul, add, residual=None, relu=False) -> torch.Tensor:
-    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    """Kernel for CUDA tensors, plain version for CPU tensors; a bf16 x
+    takes the bf16 form (kernel or twin)."""
+    if x.dtype == BF16:
+        if x.is_cuda:
+            return deconv3d_bn_bf16_cuda(x, weight, mul, add, residual, relu)
+        return deconv3d_bn_bf16_plain(x, weight, mul, add, residual, relu)
     if x.is_cuda:
         return deconv3d_bn_cuda(x, weight, mul, add, residual, relu)
     return deconv3d_bn_plain(x, weight, mul, add, residual, relu)
 
 
 def conv2d_bn(x, weight, mul, add, residual=None, relu=False) -> torch.Tensor:
-    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    """Kernel for CUDA tensors, plain version for CPU tensors; a bf16 x
+    takes the bf16 form (kernel or twin)."""
+    if x.dtype == BF16:
+        if x.is_cuda:
+            return conv2d_bn_bf16_cuda(x, weight, mul, add, residual, relu)
+        return conv2d_bn_bf16_plain(x, weight, mul, add, residual, relu)
     if x.is_cuda:
         return conv2d_bn_cuda(x, weight, mul, add, residual, relu)
     return conv2d_bn_plain(x, weight, mul, add, residual, relu)

@@ -10,6 +10,15 @@ tensor launches the kernel (csrc/softargmin.cu), whose one launch point is
 ``disparity_segments`` builds the D interpolation's taps by segment, as the
 kernel takes them; ``softargmin_segments_plain`` is the kernel's order of
 operations on the CPU.
+
+bf16 logits (the JAX package's bf16 model, whose classifier's cost is
+bf16) take the kernel's bf16 form, ``softargmin_bf16_cuda``: each logit
+converted to float32 as it is read (exact), then the float32 walk, float32
+out, as JAX's bf16 model casts the cost to float32 before
+fused_softargmin (psmnet.py:1008-1011). Its twin is the float32 plain
+version of the logits cast up (``softargmin_bf16_plain``); its launches are
+counted in ``launches_bf16``. A bf16 tensor given to ``softargmin_cuda``
+raises, and a float32 one to ``softargmin_bf16_cuda``.
 """
 from __future__ import annotations
 
@@ -21,9 +30,10 @@ import torch
 
 from . import build
 
-# Launches of the CUDA kernel in this process; a caller may reset it to 0
-# around a run it wants to count.
+# Launches of the CUDA kernel (its float32 and bf16 forms) in this process;
+# a caller may reset them to 0 around a run it wants to count.
 launches = 0
+launches_bf16 = 0
 
 # the kernel keeps one pixel's D4 bilinear values in a thread, and the D
 # taps in its argument (csrc/softargmin.cu kMaxD4, kMaxD)
@@ -36,8 +46,9 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("softargmin")
     if lib.softargmin_cuda.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.softargmin_cuda.argtypes = [p, i, i, i, i, i, i, i, i, p, p, p, p, p, i]
-        lib.softargmin_cuda.restype = i
+        for fn in (lib.softargmin_cuda, lib.softargmin_bf16_cuda):
+            fn.argtypes = [p, i, i, i, i, i, i, i, i, p, p, p, p, p, i]
+            fn.restype = i
         lib.softargmin_error_string.argtypes = [i]
         lib.softargmin_error_string.restype = ctypes.c_char_p
     return lib
@@ -164,15 +175,38 @@ def softargmin_plain(logits: torch.Tensor, out_hw: Tuple[int, int], mindisp: int
     return torch.einsum("bdhw,d->bhw", p, disp)
 
 
+def softargmin_bf16_plain(logits: torch.Tensor, out_hw: Tuple[int, int], mindisp: int,
+                          maxdisp: int) -> torch.Tensor:
+    """The bf16 form's twin: softargmin_plain of the bf16 logits cast up to
+    float32 (exact); float32 out."""
+    return softargmin_plain(logits.float(), out_hw, mindisp, maxdisp)
+
+
 def softargmin_cuda(logits: torch.Tensor, out_hw: Tuple[int, int], mindisp: int,
                     maxdisp: int) -> torch.Tensor:
     """Launch csrc/softargmin.cu on the current stream; same contract as
     softargmin_plain."""
     global launches
-    build.forward_only("softargmin_cuda", logits)
-    if logits.dim() != 4 or logits.dtype != torch.float32 or not logits.is_cuda:
-        raise ValueError(f"logits must be (B, D4, h4, w4) float32 on CUDA, got "
-                         f"{tuple(logits.shape)} {logits.dtype} on {logits.device}")
+    out = _launch(logits, out_hw, mindisp, maxdisp, torch.float32, "softargmin_cuda")
+    launches += 1
+    return out
+
+
+def softargmin_bf16_cuda(logits: torch.Tensor, out_hw: Tuple[int, int], mindisp: int,
+                         maxdisp: int) -> torch.Tensor:
+    """Launch csrc/softargmin.cu's bf16 form on the current stream: bf16
+    logits, float32 out; same contract as softargmin_bf16_plain."""
+    global launches_bf16
+    out = _launch(logits, out_hw, mindisp, maxdisp, torch.bfloat16, "softargmin_bf16_cuda")
+    launches_bf16 += 1
+    return out
+
+
+def _launch(logits, out_hw, mindisp, maxdisp, dtype, name):
+    build.forward_only(name, logits)
+    if logits.dim() != 4 or logits.dtype != dtype or not logits.is_cuda:
+        raise ValueError(f"logits must be (B, D4, h4, w4) {str(dtype).split('.')[-1]} on CUDA, "
+                         f"got {tuple(logits.shape)} {logits.dtype} on {logits.device}")
     if not logits.is_contiguous():
         raise ValueError("logits must be contiguous")
     b, d4, h4, w4 = logits.shape
@@ -183,20 +217,23 @@ def softargmin_cuda(logits: torch.Tensor, out_hw: Tuple[int, int], mindisp: int,
     fk, first, count = disparity_segments(d4, maxdisp - mindisp)
     lib = _lib()
     out = torch.empty((b, h, w), device=logits.device)
-    err = lib.softargmin_cuda(
+    err = getattr(lib, name)(
         logits.data_ptr(), b, d4, h4, w4, h, w, mindisp, maxdisp, fk.data_ptr(),
         first.data_ptr(), count.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(logits.device).cuda_stream, logits.device.index)
     if err != 0:
-        raise RuntimeError(f"softargmin_cuda launch failed: "
-                           f"{lib.softargmin_error_string(err).decode()}")
-    launches += 1
+        raise RuntimeError(f"{name} launch failed: {lib.softargmin_error_string(err).decode()}")
     return out
 
 
 def softargmin(logits: torch.Tensor, out_hw: Tuple[int, int], mindisp: int,
                maxdisp: int) -> torch.Tensor:
-    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    """Kernel for CUDA tensors, plain version for CPU tensors; bf16 logits
+    take the bf16 form (kernel or twin)."""
+    if logits.dtype == torch.bfloat16:
+        if logits.is_cuda:
+            return softargmin_bf16_cuda(logits, out_hw, mindisp, maxdisp)
+        return softargmin_bf16_plain(logits, out_hw, mindisp, maxdisp)
     if logits.is_cuda:
         return softargmin_cuda(logits, out_hw, mindisp, maxdisp)
     return softargmin_plain(logits, out_hw, mindisp, maxdisp)

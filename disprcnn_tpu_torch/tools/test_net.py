@@ -232,7 +232,8 @@ def run(config_file: str, opts: Sequence[str] = (), dataset: Optional[str] = Non
     if kernels_off and meta != "DispRCNN3D":
         raise ValueError(f"--kernels-off routes PointNet++ kernels; {meta} runs none")
     if model is None:
-        model = build_detection_model(cfg, device=device, kernels_off=kernels_off)
+        model = build_detection_model(cfg, device=device, kernels_off=kernels_off,
+                                      logger=logger)
         init_random_(model, torch.Generator(device=device).manual_seed(seed))
     default_ckpt = os.path.join(cfg.OUTPUT_DIR, "ckpt")
     if not ckpt and os.path.exists(os.path.join(default_ckpt, "last_checkpoint")):

@@ -172,7 +172,8 @@ def train(cfg, dataset: Optional[str] = None, static_hw=(384, 1248), device: str
     logger = logger or setup_logger("disprcnn_tpu_torch.train", cfg.OUTPUT_DIR, rank=rank)
     meta = cfg.MODEL.META_ARCHITECTURE
     if model is None:
-        model = build_detection_model(cfg, device=device, kernels_off=kernels_off)
+        model = build_detection_model(cfg, device=device, kernels_off=kernels_off, train=True,
+                                      logger=logger)
         init_random_(model, torch.Generator(device=device).manual_seed(seed))
     unmatched = None
     if cfg.MODEL.WEIGHT:

@@ -30,6 +30,11 @@ flattened by "/"-joined path. It maps
   eval never reads, is set to 0; eps 1e-5), FBNet's ``RunningBatchNorm2d``
   included.
 
+A model of the JAX package at TPU.COMPUTE_DTYPE bfloat16 keeps float32
+parameters and statistics (TPU.PARAM_DTYPE float32), and so does the
+port's bf16 iDispNet: its variables load unchanged (the bf16 kernels round
+the weights where they pack them; tests/test_torch_bf16_psmnet.py).
+
 Names are the Flax module paths, "/" becoming ".": e.g.
 ``backbone/body/xif3_2/dw/conv`` (FBNet), ``backbone/fpn/p6_s2``,
 ``head/cls_tower0`` (RetinaNet), ``box_head/head/layer4_0/conv1`` (C4),

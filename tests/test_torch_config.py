@@ -9,6 +9,7 @@ that name.
 """
 import pathlib
 
+import jax.numpy as jnp
 import pytest
 import torch
 import yaml
@@ -134,7 +135,8 @@ def _built(monkeypatch, path, opts=()):
 
 def _fields_match(model, kw, jmodel):
     """The port model is the JAX model's class, and every keyword argument
-    the build passed equals the JAX module's field of that name."""
+    the build passed equals the JAX module's field of that name (a dtype by
+    its name: torch.bfloat16 for jnp.bfloat16)."""
     assert type(model).__name__ == type(jmodel).__name__
     kw.pop("device")
     kw.pop("kernels_off", None)
@@ -142,6 +144,8 @@ def _fields_match(model, kw, jmodel):
         want = getattr(jmodel, name)
         if isinstance(want, tuple):
             value = tuple(value)
+        if name == "dtype":
+            value, want = str(value).split(".")[-1], jnp.dtype(want).name
         assert value == want, (name, value, want)
 
 

@@ -996,3 +996,205 @@ def test_dispmodule_softargmin_matches_plain(card):
     torch.cuda.synchronize()
     assert got.shape == (4, 112, 112)
     assert float((got - want).abs().max()) <= 1e-3
+
+
+# The bf16 forms (the JAX package's bf16 model) against their bf16 twins:
+# the twin is the float32 plain version of the same bf16 values, rounded
+# to bf16 where the kernel stores, so the two differ only in the order of
+# their float32 sums and that one rounding: at least 99.9% of the elements
+# equal, and every element at most one bf16 step apart, beyond the float32
+# sums' worst-case rounding where they cancel below a step of their terms
+# (and at most one step where that floor is under a step)
+# (cconv.bf16_agreement; the floor is K * F32_SUM_ERR times the same
+# function of |x|, |weight| and |mul|, K its terms).
+BF16 = torch.bfloat16
+
+
+def _bf16_close(got, want, floor):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == BF16 and got.shape == want.shape
+    agree = cconv.bf16_agreement(got, want, floor)
+    assert agree["beyond"] == 0 and agree["max_ulps_clear"] <= 1, agree
+    assert agree["equal"] >= 0.999, agree
+
+
+def _floor(k, plain, x, weight, mul, *args):
+    """k * F32_SUM_ERR * the plain function of |x| (one tensor or a pair)
+    and the bf16 weight's magnitudes, with |mul|, no add, residual or ReLU:
+    the float32 sums' worst-case rounding over k terms."""
+    xs = x if isinstance(x, tuple) else (x,)
+    mags = plain(*(t.float().abs() for t in xs), weight.to(BF16).float().abs(),
+                 None if mul is None else mul.abs(),
+                 None if mul is None else torch.zeros_like(mul), *args)
+    return k * cconv.F32_SUM_ERR * mags
+
+
+def _randn_bf16(gen, *shape, scale=1.0):
+    return _randn(gen, *shape, scale=scale).to(BF16)
+
+
+@pytest.mark.parametrize("n,ci,co,shape,stride,residual,relu", [
+    (2, 32, 32, (24, 56, 56), 1, False, True), (2, 32, 32, (24, 56, 56), 1, True, False),
+    (2, 64, 64, (12, 28, 28), 1, True, True), (2, 64, 64, (6, 14, 14), 1, False, True),
+    (2, 32, 64, (24, 56, 56), 2, False, True), (2, 64, 64, (12, 28, 28), 2, False, True),
+    (2, 13, 32, (5, 9, 33), 1, True, True),  # Ci off the 16-channel step, ragged sizes
+    (2, 64, 32, (7, 57, 55), 2, False, False),
+])
+def test_conv3d_bf16_kernel_matches_twin(card, n, ci, co, shape, stride, residual, relu):
+    """Rows 3 and 6's bf16 form at the trunk's and hourglasses' sites."""
+    gen = torch.Generator(device="cuda").manual_seed(ci * co + shape[-1] + stride)
+    x = _randn_bf16(gen, n, ci, *shape)
+    weight = _randn(gen, co, ci, 3, 3, 3, scale=0.05)
+    mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
+    out_shape = (n, co, *((s - 1) // stride + 1 for s in shape))
+    res = _randn_bf16(gen, *out_shape) if residual else None
+    name = "conv3d_s2" if stride == 2 else "conv3d"
+    before, before32 = cconv.launches_bf16[name], cconv.launches[name]
+    got = cconv.conv3d_bn(x, weight, mul, add, res, relu, stride)
+    assert cconv.launches_bf16[name] == before + 1 and cconv.launches[name] == before32
+    _bf16_close(got, cconv.conv3d_bn_bf16_plain(x, weight, mul, add, res, relu, stride),
+                _floor(27 * ci, cconv.conv3d_bn_plain, x, weight, mul, None, False, stride))
+
+
+@pytest.mark.parametrize("shape,residual", [
+    ((24, 56, 56), False), ((24, 56, 56), True),  # bulk copies (W % 8 == 0)
+    ((6, 14, 28), True),  # 8-byte cp.async a quad (W % 4 == 0)
+    ((5, 9, 33), True), ((3, 4, 300), False),  # plain loads; two column tiles
+])
+def test_conv3d_cl1_bf16_kernel_matches_twin(card, shape, residual):
+    """Row 4's bf16 form (Co = 1): the conv rounded to bf16 before the
+    previous classifier's cost joins, the sum rounded again."""
+    gen = torch.Generator(device="cuda").manual_seed(shape[-1] + residual)
+    x = _randn_bf16(gen, 2, 32, *shape)
+    weight = _randn(gen, 1, 32, 3, 3, 3, scale=0.05)
+    res = _randn_bf16(gen, 2, 1, *shape) if residual else None
+    before = cconv.launches_bf16["conv3d_cl1"]
+    got = cconv.conv3d_bn(x, weight, residual=res)
+    assert cconv.launches_bf16["conv3d_cl1"] == before + 1
+    # the conv rounds before the residual joins: one step of it more
+    conv = cconv.conv3d_bn_plain(x.float(), weight.to(BF16).float())
+    _bf16_close(got, cconv.conv3d_bn_bf16_plain(x, weight, residual=res),
+                cconv.bf16_step(conv) + _floor(27 * 32, cconv.conv3d_bn_plain, x, weight, None))
+
+
+@pytest.mark.parametrize("ci,co,shape,residual,relu", [
+    (64, 64, (6, 14, 14), True, True), (64, 32, (12, 28, 28), True, False),
+    (13, 32, (3, 5, 7), False, False),
+])
+def test_deconv3d_bf16_kernel_matches_twin(card, ci, co, shape, residual, relu):
+    """Row 5's bf16 form at the hourglasses' sites."""
+    gen = torch.Generator(device="cuda").manual_seed(ci + co + shape[-1])
+    x = _randn_bf16(gen, 2, ci, *shape)
+    weight = _randn(gen, ci, co, 3, 3, 3, scale=0.05)
+    mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
+    out_shape = (2, co, *(2 * s for s in shape))
+    res = _randn_bf16(gen, *out_shape) if residual else None
+    before = cconv.launches_bf16["deconv3d"]
+    got = cconv.deconv3d_bn(x, weight, mul, add, res, relu)
+    assert cconv.launches_bf16["deconv3d"] == before + 1
+    _bf16_close(got, cconv.deconv3d_bn_bf16_plain(x, weight, mul, add, res, relu),
+                _floor(27 * ci, cconv.deconv3d_bn_plain, x, weight, mul))
+
+
+@pytest.mark.parametrize("ci,co,hw,residual,relu", [
+    (32, 32, (112, 112), False, True), (32, 32, (112, 112), True, False),
+    (64, 64, (56, 56), True, False), (13, 32, (20, 33), True, True),
+])
+def test_conv2d_bf16_kernel_matches_twin(card, ci, co, hw, residual, relu):
+    """Row 7's bf16 form at the tower's sites."""
+    gen = torch.Generator(device="cuda").manual_seed(ci + co + hw[0])
+    x = _randn_bf16(gen, 4, ci, *hw)
+    weight = _randn(gen, co, ci, 3, 3, scale=0.05)
+    mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
+    res = _randn_bf16(gen, 4, co, *hw) if residual else None
+    before = cconv.launches_bf16["conv2d"]
+    got = cconv.conv2d_bn(x, weight, mul, add, res, relu)
+    assert cconv.launches_bf16["conv2d"] == before + 1
+    _bf16_close(got, cconv.conv2d_bn_bf16_plain(x, weight, mul, add, res, relu),
+                _floor(9 * ci, cconv.conv2d_bn_plain, x, weight, mul))
+
+
+@pytest.mark.parametrize("c,hw,co,mind4,maxd4", [
+    (32, (56, 56), 32, -12, 12), (13, (9, 40), 32, -3, 5), (32, (13, 40), 64, 3, 11)])
+def test_cost_volume_bf16_kernel_matches_twin(card, c, hw, co, mind4, maxd4):
+    """Row 2's bf16 form: the main path's (24, 56^2) volume, C off the
+    16-channel step, a range above zero at Co 64."""
+    gen = torch.Generator(device="cuda").manual_seed(c + co + mind4)
+    left, right = _randn_bf16(gen, 2, c, *hw), _randn_bf16(gen, 2, c, *hw)
+    weight = _randn(gen, co, 2 * c, 3, 3, 3, scale=0.05)
+    mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
+    before = cconv.launches_bf16["cost_volume_conv"]
+    got = cconv.cost_volume_conv_bn(left, right, weight, mul, add, mind4, maxd4)
+    assert cconv.launches_bf16["cost_volume_conv"] == before + 1
+    _bf16_close(got, cconv.cost_volume_conv_bn_bf16_plain(left, right, weight, mul, add,
+                                                          mind4, maxd4),
+                _floor(54 * c + 18, cconv.cost_volume_conv_bn_plain, (left, right), weight, mul,
+                       mind4, maxd4, False))
+
+
+@pytest.mark.parametrize("co,ci", [(32, 32), (64, 64), (32, 13), (64, 5)])
+def test_bf16_pack_kernels_match_plain(card, co, ci):
+    """The bf16 packings (3D, 2D, transposed, cost volume) equal their plain
+    versions bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(co + ci)
+    w3, w2 = _randn(gen, co, ci, 3, 3, 3), _randn(gen, co, ci, 3, 3)
+    wd = _randn(gen, ci, co, 3, 3, 3)
+    wc = _randn(gen, co, 2 * ci, 3, 3, 3)
+    for got, want in ((cconv.pack_bf16_weight_cuda(w3), cconv.pack_bf16_weight(w3)),
+                      (cconv.pack_bf16_weight_cuda(w2), cconv.pack_bf16_weight(w2)),
+                      (cconv.pack_bf16_deconv_weight_cuda(wd), cconv.pack_bf16_deconv_weight(wd)),
+                      (cconv.pack_bf16_cost_volume_weight_cuda(wc),
+                       cconv.pack_bf16_cost_volume_weight(wc))):
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,d4,hw4,out_hw,disp", [
+    (16, 24, (56, 56), (224, 224), (-48, 48)), (3, 7, (9, 4), (27, 33), (-8, 8))])
+def test_softargmin_bf16_kernel_matches_float32_form(card, b, d4, hw4, out_hw, disp):
+    """Row 15's bf16 form reads its logits as float32: equal to the float32
+    kernel on the logits cast up, bit for bit, and within 1e-3 px of its
+    twin (the float32 plain version, summing in another order)."""
+    gen = torch.Generator(device="cuda").manual_seed(b + d4)
+    logits = _randn_bf16(gen, b, d4, *hw4, scale=3.0)
+    before = csam.launches_bf16
+    got = csam.softargmin(logits, out_hw, *disp)
+    assert csam.launches_bf16 == before + 1 and got.dtype == torch.float32
+    want = csam.softargmin_cuda(logits.float(), out_hw, *disp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float((got - csam.softargmin_bf16_plain(logits, out_hw, *disp)).abs().max()) <= 1e-3
+
+
+def test_kernels_refuse_the_other_dtype(card):
+    """A bf16 tensor given to a float32 launch point raises, and a float32
+    one to a bf16 launch point: nothing is cast to reach a kernel."""
+    x = torch.zeros(1, 32, 4, 8, 8, device=card)
+    w = torch.zeros(32, 32, 3, 3, 3, device=card)
+    mul, add = torch.ones(32, device=card), torch.zeros(32, device=card)
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        cconv.conv3d_bn_cuda(x.to(BF16), w)
+    with pytest.raises(ValueError, match="bfloat16 CUDA"):
+        cconv.conv3d_bn_bf16_cuda(x, w)
+    with pytest.raises(ValueError, match="bfloat16 CUDA"):
+        cconv.conv3d_bn_bf16_cuda(x.to(BF16), w, mul, add, residual=x)
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        cconv.conv2d_bn_cuda(x[:, :, 0].to(BF16), w[:, :, 0], mul, add)
+    with pytest.raises(ValueError, match="bfloat16 CUDA"):
+        cconv.conv2d_bn_bf16_cuda(x[:, :, 0], w[:, :, 0], mul, add)
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        cconv.deconv3d_bn_cuda(x.to(BF16), w, mul, add)
+    with pytest.raises(ValueError, match="bfloat16 CUDA"):
+        cconv.deconv3d_bn_bf16_cuda(x, w, mul, add)
+    f = torch.zeros(1, 32, 8, 8, device=card)
+    wc = torch.zeros(32, 64, 3, 3, 3, device=card)
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        cconv.cost_volume_conv_bn_cuda(f.to(BF16), f.to(BF16), wc, mul, add, 0, 4)
+    with pytest.raises(ValueError, match="bfloat16 CUDA"):
+        cconv.cost_volume_conv_bn_bf16_cuda(f, f, wc, mul, add, 0, 4)
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        cconv.conv3d_train_cuda(x.to(BF16), w)
+    with pytest.raises(ValueError, match="float32"):
+        csam.softargmin_cuda(f.to(BF16), (16, 16), 0, 8)
+    with pytest.raises(ValueError, match="bfloat16"):
+        csam.softargmin_bf16_cuda(f, (16, 16), 0, 8)
