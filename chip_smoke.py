@@ -342,6 +342,34 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      float64 (plain versions): the bf16 kernel route's mean |disparity -
      float64| at most 1.25 times the twin route's + 0.01 px; (d) the bf16
      and float32 requests split into stages in turns, with peak memory.
+ 28. the 3D stage in bf16 (ROADMAP A8.3): configs/kitti/car/vob/rcnn.yaml
+     built by build_detection_model at its default TPU.COMPUTE_DTYPE, its
+     iDispNet and PointRCNN in bf16, seeded random weights (init_random_),
+     the 2D detector float32, predict on the bench's geometry at the
+     headline budget (8 pairs of 384x1248, 16 slots: 128 clouds of 768
+     points, the SA ladder 768/512/256/64, 16 proposals an instance: 2048
+     RCNN ROIs of 512 points): (a) one request with the launches counted
+     from 0: rows 10 and 13 launch their bf16 forms (8 and 3), row 14 reads
+     bf16 features (1), rows 2-7 and 15 their bf16 forms, rows 1 and 9
+     their float32 kernels, and no float32 form of rows 2-7, 10, 13-15;
+     box3d float32, score3d bf16, random and roi_ok bool, finite; (b) each
+     new bf16 form on that request's own arguments (RPN SA1-SA3, fp3-fp1,
+     RCNN SA0-SA1, the pool) held to its twin with bf16_agreement (the
+     chains' floor sa.bf16_chain_floor): none beyond a step and the floor,
+     at least 99.9% equal; row 14 bit-equal; then timed (kernel, device,
+     twin, bound with 2-byte operands: the chains' products at the dense
+     bf16 tensor rate, the rest at the FP32 rate); (c) the request again on
+     the plain bf16 route (every launch point on its twin) and on the
+     float32 model, the kernel route's disparity swapped in so that all
+     three lift the same clouds: roi_ok equal; the kernel route's mean max
+     |box3d - float32's| at most 1.25 times the twin route's + BF16_BOX_M;
+     C16's shares (random equal and box3d within BOX3D_TOL) logged, the
+     twins against the kernels and each against float32 (box_agreement);
+     (d) tools/test_net
+     on rcnn.yaml at its default over synthetic3d_8: the bf16 forms
+     launched, predictions.pkl with the JAX package's keys and dtypes; (e)
+     the bf16 and float32 requests (same weights) split into stages in
+     turns (float32, bf16, bf16, float32), with peak memory.
 Then it prints the card (name, power limit) from nvidia-smi, one JSON line
 of per-kernel numbers (eval kernels per headline request, row 12 per
 SA-off headline request, train forms per train step), and as its last
@@ -355,10 +383,11 @@ phase 26's train_net joint run, its times on the joint step's pooling
 inputs (ms the kernel forward, backward_ms the plain backward). The bf16
 forms of rows 2-7 and 15 have entries of their own (name "<row>_bf16",
 phase 27: launches in its counted request, equal, beyond, max_ulps and
-max_ulps_clear: see bf16_rows).
+max_ulps_clear: see bf16_rows), as do phase 28's of rows 10, 13 and 14
+("sa_bf16", "fp_bf16", "roipool3d_bf16").
 Without a CUDA device, or on any failure, it exits non-zero and prints no
-result. Float32 with TF32 off and deterministic cuDNN, but phase 27's bf16
-model.
+result. Float32 with TF32 off and deterministic cuDNN, but phases 27 and
+28's bf16 models.
 """
 from __future__ import annotations
 
@@ -442,7 +471,7 @@ import torch_ckpt_writer as ckpt_writer  # noqa: E402
 # the first card run of these kernels) are the bench's
 # (disprcnn_tpu_torch/bench.py); the train stages' configurations are
 # disprcnn_tpu_torch/tools/bench_train.py's.
-PHASES = 27
+PHASES = 28
 PAIRS = 8
 REQUESTS = 2  # at the headline budget; one more at the reference budget
 # the tests' small configurations (tests/torch_port_helpers.py, tests/test_torch_disprcnn3d.py)
@@ -493,6 +522,11 @@ DISP_TOL_PX = 1e-2
 # points must be within the tolerance, and roi_ok and random equal.
 BOX3D_TOL = 1e-3
 BOX3D_AGREE = 0.95
+# Phases 1-27 hold the float32 3D stage (every float32 kernel row and its
+# counts): the shipped configs they run pin TPU.COMPUTE_DTYPE float32, since
+# rcnn.yaml and rpn.yaml compute in bf16 at their default (ROADMAP A8.3);
+# phase 28 runs rcnn.yaml at that default
+F32_OPTS = ["TPU.COMPUTE_DTYPE", "float32"]
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit); the 3xTF32 rate is
 # the dense TF32 tensor-core peak over the 3 TF32 products a float32 product
 # takes in csrc/conv3d_tc.cu, csrc/mlp_tc.cuh and csrc/mlp_wgmma.cuh
@@ -640,7 +674,8 @@ def launches_replaced(**fns):
     forms' conv3d_train_cuda, conv3d_train_dx_cuda,
     sa_ball_mlp_max_train_cuda, roipool3d_train_cuda, and the bf16 forms'
     conv3d_bn_bf16_cuda, cost_volume_conv_bn_bf16_cuda,
-    deconv3d_bn_bf16_cuda, conv2d_bn_bf16_cuda, softargmin_bf16_cuda)
+    deconv3d_bn_bf16_cuda, conv2d_bn_bf16_cuda, softargmin_bf16_cuda,
+    sa_ball_mlp_max_bf16_cuda, fp_fused_bf16_cuda, roipool3d_bf16_cuda)
     through the given functions; yields the original launches by name."""
     modules = {"nms_sorted_cuda": cuda_nms, "conv3d_bn_cuda": cconv,
                "cost_volume_conv_bn_cuda": cconv, "deconv3d_bn_cuda": cconv,
@@ -651,7 +686,8 @@ def launches_replaced(**fns):
                "sa_ball_mlp_max_train_cuda": csa, "roipool3d_train_cuda": croi,
                "conv3d_bn_bf16_cuda": cconv, "cost_volume_conv_bn_bf16_cuda": cconv,
                "deconv3d_bn_bf16_cuda": cconv, "conv2d_bn_bf16_cuda": cconv,
-               "softargmin_bf16_cuda": csam}
+               "softargmin_bf16_cuda": csam, "sa_ball_mlp_max_bf16_cuda": csa,
+               "fp_fused_bf16_cuda": cfp, "roipool3d_bf16_cuda": croi}
     orig = {name: getattr(modules[name], name) for name in fns}
     for name, fn in fns.items():
         setattr(modules[name], name, fn)
@@ -683,7 +719,10 @@ def all_plain(**overrides):
                  cost_volume_conv_bn_bf16_cuda=cconv.cost_volume_conv_bn_bf16_plain,
                  deconv3d_bn_bf16_cuda=cconv.deconv3d_bn_bf16_plain,
                  conv2d_bn_bf16_cuda=cconv.conv2d_bn_bf16_plain,
-                 softargmin_bf16_cuda=csam.softargmin_bf16_plain)
+                 softargmin_bf16_cuda=csam.softargmin_bf16_plain,
+                 sa_ball_mlp_max_bf16_cuda=csa.sa_ball_mlp_max_bf16_plain,
+                 fp_fused_bf16_cuda=cfp.fp_fused_bf16_plain,
+                 roipool3d_bf16_cuda=croi.roipool3d_bf16_plain)
     return launches_replaced(**{**plain, **overrides})
 
 
@@ -1152,8 +1191,14 @@ def reset_launches() -> None:
     for mod in (cfps, csa, cgm, cfp, croi):
         mod.launches = 0
     csa.train_launches = croi.train_launches = 0
+    csa.launches_bf16 = cfp.launches_bf16 = croi.launches_bf16 = 0
     for k in cconv.launches:
         cconv.launches[k] = 0
+
+
+def read_bf16_3d_launches() -> dict:
+    """The launches of the bf16 forms of rows 10, 13 and 14."""
+    return {"sa": csa.launches_bf16, "fp": cfp.launches_bf16, "roipool3d": croi.launches_bf16}
 
 
 def read_launches() -> dict:
@@ -2726,9 +2771,9 @@ def phase_eval_entry(card: str) -> None:
                     raise AssertionError(f"GT as detections: AP@{thr} {kind} {res[kind]}")
         for path, name, rows in EVAL_RUNS:
             reset_launches()
-            run = test_net.run(path, ["OUTPUT_DIR", os.path.join(tmp, "out")], dataset=name,
-                               static_hw=IMG_HW, evaluate=True, gt_dir=gt_dir, device="cuda",
-                               seed=20)
+            run = test_net.run(path, F32_OPTS + ["OUTPUT_DIR", os.path.join(tmp, "out")],
+                               dataset=name, static_hw=IMG_HW, evaluate=True, gt_dir=gt_dir,
+                               device="cuda", seed=20)
             torch.cuda.synchronize()
             launches = read_launches()
             cfg, model = run["cfg"], run["model"]
@@ -2899,7 +2944,7 @@ def phase_train_entry(card: str) -> dict:
             reset_launches()
             kw = dict(ckpt=rcnn["ckpt_dir"]) if how == "ckpt" else dict(model=rcnn["model"])
             run = test_net.run("configs/kitti/car/vob/rcnn.yaml",
-                               ["OUTPUT_DIR", os.path.join(tmp, f"eval_{how}")],
+                               F32_OPTS + ["OUTPUT_DIR", os.path.join(tmp, f"eval_{how}")],
                                dataset="synthetic3d_4", static_hw=IMG_HW, device="cuda",
                                seed=20, **kw)
             torch.cuda.synchronize()
@@ -2970,7 +3015,7 @@ DIST_TINY = ["TPU.MAX_DETECTIONS", "4", "TPU.MAX_GT", "4", "TPU.ROI_CROP_SIZE", 
              "MODEL.POINTRCNN.RPN.SA_CONFIG.NPOINTS", "[128, 64, 32, 16]",
              "MODEL.POINTRCNN.TEST.RPN_POST_NMS_TOP_N", "8",
              "MODEL.POINTRCNN.TRAIN.RPN_POST_NMS_TOP_N", "8", "INPUT.DO_RESIZE", "False",
-             "SOLVER.IMS_PER_BATCH", "2", "SOLVER.PRINT_INTERVAL", "1"]
+             "SOLVER.IMS_PER_BATCH", "2", "SOLVER.PRINT_INTERVAL", "1", *F32_OPTS]
 DIST_HW = (192, 640)
 DIST_ITERS = 3  # the first step, then 2 more
 # (stage, extra opts, dtype): float32 on the kernels; the two stages with
@@ -2990,7 +3035,7 @@ DIST_RUNS = (("idispnet", [], "float32"), ("rpn", [], "float32"),
 # statistics (float64) within 1e-6 relative L2 per tensor
 DIST_LOSS_RTOL = {("rpn", "float32"): 1e-4, "float32": 1e-5, "float64": 1e-9}
 DIST_F32_GRAD_L2 = 5e-2
-DIST_EVAL = ("configs/kitti/car/vob/rcnn.yaml", "synthetic3d_8", [])  # config, dataset, opts
+DIST_EVAL = ("configs/kitti/car/vob/rcnn.yaml", "synthetic3d_8", F32_OPTS)  # config, data, opts
 # the recipe: mask.yaml at the scenes' own 192x640 (no resize, so that the
 # boxes are in the raw images' pixels), 8 detection slots, then the records
 # (crops 2^-14, disparity 1e-5 + 1e-6 relative, masks: at most 1e-3 of
@@ -3421,7 +3466,7 @@ STATS_ATOL = 1e-6  # the native build prints 6 significant digits, Python 6 deci
 # where the phase runs and the configs' overrides: the card at the shipped
 # configs (a rehearsal on the CPU sets "cpu" and small models' opts)
 USER_DEVICE = "cuda"
-USER_OPTS: list = []
+USER_OPTS: list = list(F32_OPTS)
 
 
 def user_models() -> dict:
@@ -3754,7 +3799,7 @@ GN_OPTS = ["MODEL.BACKBONE.USE_GN", "True", "MODEL.FPN.USE_GN", "True"]
 VIZ_HW = (192, 640)  # the synthetic scenes' size
 A2_YAML = "configs/kitti/car/vob/rcnn.yaml"
 A2_OPTS = ["TPU.MAX_DETECTIONS", "16", "MODEL.POINTRCNN.TEST.RPN_PRE_NMS_TOP_N", "128",
-           "MODEL.POINTRCNN.TEST.RPN_POST_NMS_TOP_N", "16"]
+           "MODEL.POINTRCNN.TEST.RPN_POST_NMS_TOP_N", "16", *F32_OPTS]
 A2_RUNS = (("NMS_TYPE rotate", ["MODEL.POINTRCNN.RPN.NMS_TYPE", "rotate"], 0),
            ("RPN_DISTANCE_BASED_PROPOSE", ["MODEL.POINTRCNN.TEST.RPN_DISTANCE_BASED_PROPOSE",
                                            "True"], 2))
@@ -4569,7 +4614,7 @@ JOINT_DEVICE = "cuda"
 JOINT_SEED = 26
 JOINT_DATASET = "synthetic3d_4"
 JOINT_OPTS = ["MODEL.POINTRCNN.RPN.FIXED", "False", "SOLVER.FIX_POINTRCNN_RPN", "False",
-              "MODEL.WEIGHT", "", "SOLVER.PRINT_INTERVAL", "1"]
+              "MODEL.WEIGHT", "", "SOLVER.PRINT_INTERVAL", "1", *F32_OPTS]
 JOINT_ITERS = 2
 # the joint step's kernels: the frozen iDispNet's (rows 2-7 and 15), FPS in
 # the train-mode RPN (its BN MLPs take the plain grouped route), NMS at the
@@ -4836,8 +4881,10 @@ def phase_joint_and_settings(card: str) -> dict:
 BF16_YAML = "configs/kitti/car/vob/idispnet.yaml"
 BF16_SEED = 27
 # the bf16 forms' launches in one request, by row (as EXPECTED_LAUNCHES)
+# (a bf16 tower takes layer2's first block's second conv through cuDNN, as
+# JAX's source rounds it: ROADMAP C40; the float32 tower launches 39)
 EXPECTED_BF16 = {"cost_volume_conv": 1, "conv3d": 12, "conv3d_cl1": 3, "conv3d_s2": 6,
-                 "deconv3d": 6, "conv2d": 39, "softargmin": 1}
+                 "deconv3d": 6, "conv2d": 38, "softargmin": 1}
 # the bf16 kernel route's mean |disparity_roi - float64| at most
 # BF16_ROUTE_FACTOR times the bf16 plain route's + BF16_ROUTE_PX
 BF16_ROUTE_FACTOR = 1.25
@@ -5121,6 +5168,328 @@ def phase_bf16_idispnet(card: str) -> dict:
     return {"rows": rows, "ms": ms, "disparity_from_float64": dist}
 
 
+# Phase 28: the 3D stage in bf16 (TPU.COMPUTE_DTYPE bfloat16 with DET3D_ON,
+# ROADMAP A8.3): rcnn.yaml's model at its default compute dtype, over the
+# bench's geometry at the headline budget (A2_OPTS' 16 slots and 128/16
+# proposals a cloud).
+RCNN_BF16_YAML = "configs/kitti/car/vob/rcnn.yaml"
+RCNN_BF16_SEED = 28
+RCNN_BF16_OPTS = ["TPU.MAX_DETECTIONS", str(BENCH_3D["max_det"]),
+                  "MODEL.POINTRCNN.TEST.RPN_PRE_NMS_TOP_N", "128",
+                  "MODEL.POINTRCNN.TEST.RPN_POST_NMS_TOP_N", "16"]
+# the bf16 3D forms' launches in one headline request: SA at the 6 RPN
+# scales with 64+ channels and RCNN SA0-1, FP at fp3-fp1, RoI-pool once
+EXPECTED_BF16_3D = {"sa": 8, "fp": 3, "roipool3d": 1}
+# the float32 kernels such a request launches: NMS (2D and 3D) and FPS
+# (the points stay float32)
+EXPECTED_F32_IN_BF16 = {"nms_sorted": 3, "fps": 5}
+BF16_3D_POINTS = dict(sa_ball_mlp_max_bf16_cuda="sa_bf16", fp_fused_bf16_cuda="fp_bf16",
+                      roipool3d_bf16_cuda="roipool3d_bf16")
+# On the same clouds a bf16 kernel route and its twin route cannot be held
+# in C16's form (phase 7's): their outputs round ~0.01% of their values to
+# a neighbouring bf16 value, and through the proposals' top-k on bf16
+# scores and the score threshold that changes ~1/6 of the instances' boxes
+# (on an H100 at the bench's geometry: 82.8% within BOX3D_TOL, 2 of 128
+# `random` flipped; PERF.md).
+# So each route is held to the float32 model on those clouds, as phase 27
+# holds the disparity to float64: the kernel route's mean over the
+# instances of max |box3d - float32's| at most BF16_ROUTE_FACTOR times the
+# twin route's + BF16_BOX_M metres; the C16 shares are logged.
+BF16_BOX_M = 0.05
+
+
+def chain_bound(nbytes: float, chain: float, other: float) -> tuple:
+    """(bytes ms, operations ms): the chains' products and sums on the
+    tensor cores at the dense bf16 rate, every other operation on the CUDA
+    cores at the FP32 rate."""
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            (chain / BF16_OPS_PER_S + other / FP32_OPS_PER_S) * 1e3)
+
+
+def sa_bf16_work(args, out):
+    """sa_work's count with v, the packed weights and the output at 2 bytes
+    (points, w0x, the affine and the biases float32), the chain at the bf16
+    tensor rate."""
+    xyz, centers, v, w0x, _, _, weights, radius, s = args
+    scanned = hits = 0.0
+    for lo in range(0, xyz.shape[0], 128):
+        d2 = tpoints.sqdist(centers[lo:lo + 128, :, None], xyz[lo:lo + 128, None])
+        a, h = scan_and_hits(d2 < radius * radius, s)
+        scanned, hits = scanned + a, hits + h
+    c0 = v.shape[-1]
+    chain = hits * sum(2 * w.shape[0] * w.shape[1] for w, _ in weights)
+    other = (DIST_OPS * scanned
+             + hits * (3 + 9 * c0 + sum(2 * w.shape[1] for w, _ in weights) + out.shape[-1]))
+    nbytes = (4 * (xyz.numel() + centers.numel() + w0x.numel() + 2 * c0
+                   + sum(b.numel() for _, b in weights))
+              + 2 * (v.numel() + sum(w.numel() for w, _ in weights) + out.numel()))
+    return chain_bound(nbytes, chain, other)
+
+
+def fp_bf16_work(args, out):
+    """fp_work's count with the features, packed weights and output at 2
+    bytes, the chain at the bf16 tensor rate."""
+    unknown, known, kf, uf, weights = args[:5]
+    b, nt, _ = unknown.shape
+    chain = b * nt * sum(2 * w.shape[0] * w.shape[1] for w, _ in weights)
+    other = b * nt * (DIST_OPS * known.shape[1] + 12 + 5 * kf.shape[-1]
+                      + sum(2 * w.shape[1] for w, _ in weights))
+    nbytes = (4 * (unknown.numel() + known.numel() + sum(bb.numel() for _, bb in weights))
+              + 2 * (kf.numel() + uf.numel() + sum(w.numel() for w, _ in weights)
+                     + out.numel()))
+    return chain_bound(nbytes, chain, other)
+
+
+def roipool3d_bf16_work(args, out):
+    """roipool3d_work's count with the bf16 features read at 2 bytes."""
+    pts, extra, feats, boxes, s = args[:5]
+    scanned, _ = scan_and_hits(troi.pts_in_boxes3d(pts, boxes), s)
+    nbytes = (4 * (pts.numel() + extra.numel() + boxes.numel() + out[0].numel())
+              + 2 * feats.numel() + out[1].numel())
+    return bound(nbytes, INBOX_OPS * scanned)
+
+
+def bf16_3d_kinds() -> dict:
+    """Each bf16 3D form: launch point, twin, the twin with the chains'
+    floor (None: bit-equal), work, source, the TPU kernel it replaces."""
+    return {
+        "sa_bf16": (csa.sa_ball_mlp_max_bf16_cuda, csa.sa_ball_mlp_max_bf16_plain,
+                    lambda *a: csa.sa_ball_mlp_max_bf16_plain(*a, chain=csa.bf16_chain_floor),
+                    sa_bf16_work, "sa.cu", "disprcnn_tpu/ops/pallas/sa_fused.py:1107"),
+        "fp_bf16": (cfp.fp_fused_bf16_cuda, cfp.fp_fused_bf16_plain,
+                    lambda *a: cfp.fp_fused_bf16_plain(*a, chain=csa.bf16_chain_floor),
+                    fp_bf16_work, "fp.cu", "disprcnn_tpu/ops/pallas/fp_fused.py:76"),
+        "roipool3d_bf16": (croi.roipool3d_bf16_cuda, croi.roipool3d_bf16_plain, None,
+                           roipool3d_bf16_work, "roipool3d.cu",
+                           "disprcnn_tpu/ops/pallas/roipool3d_fused.py:137"),
+    }
+
+
+def bf16_3d_site(name: str, args) -> str:
+    """A launch's site: SA by its (clouds, N, M, C0, chain), FP by its
+    (targets, sources)."""
+    if name == "sa_bf16":
+        key = (args[0].shape[0], args[0].shape[1], args[1].shape[1], args[2].shape[-1],
+               tuple(w.shape[1] for w, _ in args[6]), args[8])
+        for site, b, n, m, c0, chain, _, s in SA_SITES:
+            if (b, n, m, c0, chain, s) == key:
+                return site
+        return f"SA {key}"
+    if name == "fp_bf16":
+        return LAUNCH_SITE["fp"](args)
+    return "pool"
+
+
+@torch.inference_mode()
+def bf16_3d_rows(calls: dict, launches: dict) -> list:
+    """Each bf16 3D form on the arguments the request gave it, at every
+    site: rows 10 and 13 held to their twins (cconv.bf16_agreement with
+    the chains' floor: none beyond one bf16 step and the floor, at most one
+    step where the floor is under a step, at least 99.9% equal), row 14
+    bit-equal to its twin (the features widened); then each timed as phase
+    9 times a row (time_launches)."""
+    rows = []
+    for name, (kernel, plain, floor_fn, work, src, replaces) in bf16_3d_kinds().items():
+        base = name[:-len("_bf16")]
+        args_list = calls.get(name, [])
+        if len(args_list) != EXPECTED_BF16_3D[base]:
+            raise AssertionError(f"{name}: {len(args_list)} launches in one request, expected "
+                                 f"{EXPECTED_BF16_3D[base]}")
+        agree = {"max_ulps": 0, "max_ulps_clear": 0, "equal": 1.0, "beyond": 0, "elements": 0}
+        groups = {}
+        for a in args_list:
+            site = bf16_3d_site(name, a)
+            groups.setdefault(f" {site}", []).append(a)
+            got, want = kernel(*a), plain(*a)
+            torch.cuda.synchronize()
+            if floor_fn is None:
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"{name} at {site}: kernel != twin")
+                log(f"  {name} at {site} {tuple(got[0].shape)}: bit-equal to its twin")
+                continue
+            ag = cconv.bf16_agreement(got, want, floor_fn(*a))
+            if ag["beyond"] or ag["max_ulps_clear"] > 1 or ag["equal"] < 0.999:
+                raise AssertionError(f"{name} at {site}: kernel against twin {ag}")
+            n = got.numel()
+            agree["equal"] = ((agree["equal"] * agree["elements"] + ag["equal"] * n)
+                              / (agree["elements"] + n))
+            agree["elements"] += n
+            for k in ("max_ulps", "max_ulps_clear"):
+                agree[k] = max(agree[k], ag[k])
+            log(f"  {name} at {site} {tuple(got.shape)}: {100 * ag['equal']:.4f}% equal to its "
+                f"twin, none beyond a step and the floor, max ulps {ag['max_ulps']} "
+                f"({ag['max_ulps_clear']} where the floor is under a step)")
+            del got, want
+            torch.cuda.empty_cache()
+        if floor_fn is None:
+            compare = lambda g, w: float((g[0] - w[0]).abs().max())  # noqa: E731
+        else:
+            compare = lambda g, w: float((g.float() - w.float()).abs().max())  # noqa: E731
+        row = time_launches(name, [(label, group, kernel, plain, None, work, compare)
+                                   for label, group in groups.items()], 0.0, src, replaces)
+        row["launches"] = launches[base]
+        if floor_fn is not None:
+            row.update({k: agree[k] for k in ("max_ulps", "max_ulps_clear", "equal", "beyond")})
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def box_agreement(got, want) -> tuple:
+    """C16's per-instance reading of two runs of the 3D stage on the same
+    clouds: roi_ok must be equal; -> (the share of the instances with
+    points whose `random` is equal and box3d within BOX3D_TOL (x (1 + max
+    |want|)), the instances with `random` flipped, the mean over the
+    instances with points of max |box3d - want's|, the instances)."""
+    ok = want["roi_ok"]
+    if not torch.equal(got["roi_ok"], ok):
+        raise AssertionError("roi_ok differs between two runs on the same clouds")
+    flipped = ok & (got["random"] != want["random"])
+    diff = (got["box3d"].float() - want["box3d"].float()).abs().amax(-1)
+    good = (diff <= BOX3D_TOL * (1 + want["box3d"].float().abs().amax(-1))) & ~flipped
+    n = int(ok.sum())
+    if n == 0:
+        raise AssertionError("no instance with points")
+    return int((ok & good).sum()) / n, int(flipped.sum()), float(diff[ok].mean()), n
+
+
+def phase_bf16_3d(card: str) -> dict:
+    """Phase 28 (see the docstring). -> {"rows": the bf16 3D rows of the
+    kernels line, "ms": the requests' stages}."""
+    t0 = time.perf_counter()
+    cfg = get_default_cfg()
+    cfg.merge_from_file(RCNN_BF16_YAML)
+    cfg.merge_from_list(RCNN_BF16_OPTS)
+    cfg.freeze()
+    if cfg.TPU.COMPUTE_DTYPE != "bfloat16" or not cfg.MODEL.DET3D_ON:
+        raise AssertionError(f"{RCNN_BF16_YAML}: COMPUTE_DTYPE {cfg.TPU.COMPUTE_DTYPE}, "
+                             f"DET3D_ON {cfg.MODEL.DET3D_ON}")
+    gen = torch.Generator(device="cuda").manual_seed(RCNN_BF16_SEED)
+    m16 = init_random_(build_detection_model(cfg, device="cuda"), gen)
+    dts = (m16.idispnet.dtype, m16.pointrcnn.dtype, m16.pointrcnn.anchor.dtype)
+    if dts != (torch.bfloat16,) * 3:
+        raise AssertionError(f"{RCNN_BF16_YAML} built iDispNet, PointRCNN, anchor in {dts}")
+    cfg32 = cfg.clone()
+    cfg32.defrost()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    cfg32.freeze()
+    m32 = build_detection_model(cfg32, device="cuda")
+    m32.load_state_dict(m16.state_dict())
+    model2d = init_random_(DispRCNN(**BENCH_2D, device="cuda"),
+                           torch.Generator(device="cuda").manual_seed(0))
+    req = bench.make_request(PAIRS, IMG_HW, PAIRS * BENCH_3D["max_det"], BENCH_3D["lift_grid"],
+                             "cuda", RCNN_BF16_SEED)
+
+    def run(model):
+        return predict(model2d, model, *req[:4], calib=CALIB, priorities=req[4])
+
+    # (a) the counted request
+    reset_launches()
+    out = run(m16)
+    torch.cuda.synchronize()
+    got3d = read_bf16_3d_launches()
+    got_psm = dict(cconv.launches_bf16, softargmin=csam.launches_bf16)
+    f32 = {k: v for k, v in read_launches().items() if v}
+    if got3d != EXPECTED_BF16_3D or got_psm != EXPECTED_BF16 or f32 != EXPECTED_F32_IN_BF16:
+        raise AssertionError(f"bf16 rcnn.yaml request: bf16 3D launches {got3d} (expected "
+                             f"{EXPECTED_BF16_3D}), bf16 iDispNet launches {got_psm} (expected "
+                             f"{EXPECTED_BF16}), float32 launches {f32} (expected "
+                             f"{EXPECTED_F32_IN_BF16})")
+    dtypes = {k: out[k].dtype for k in ("box3d", "score3d", "random", "roi_ok")}
+    if dtypes != {"box3d": torch.float32, "score3d": torch.bfloat16, "random": torch.bool,
+                  "roi_ok": torch.bool}:
+        raise AssertionError(f"bf16 rcnn.yaml request: output dtypes {dtypes}")
+    n_pts = check_3d(out, PAIRS, BENCH_3D["max_det"])
+    if n_pts == 0:
+        raise AssertionError("bf16 rcnn.yaml request: no instance with lifted points")
+    log(f"  rcnn.yaml at TPU.COMPUTE_DTYPE bfloat16: predict {PAIRS}x{IMG_HW[0]}x{IMG_HW[1]}, "
+        f"{n_pts} instances with points; bf16 3D launches {got3d}, bf16 iDispNet launches "
+        f"{got_psm}, float32 launches {f32}; output dtypes {dtypes}")
+    # (b) each bf16 3D form on the request's own arguments
+    calls = capture_launches(lambda: run(m16), BF16_3D_POINTS)
+    rows = bf16_3d_rows(calls, got3d)
+    del calls
+    torch.cuda.empty_cache()
+    # (c) the request on its plain bf16 route and on the float32 model, the
+    # kernel route's disparity swapped in so that all three lift the same
+    # clouds
+    seen = {}
+
+    def swap(_mod, _inp, disp, ref_disp=out["disparity_roi"]):
+        seen.setdefault("disp", disp)
+        return ref_disp.reshape(disp.shape).to(disp.dtype)
+
+    routes = {}
+    for label, model, plain_route in (("bf16 twins", m16, True), ("float32", m32, False)):
+        hook = model.idispnet.register_forward_hook(swap)
+        try:
+            with all_plain() if plain_route else contextlib.nullcontext():
+                routes[label] = run(model)
+        finally:
+            hook.remove()
+    torch.cuda.synchronize()
+    share, flips, _, n = box_agreement(routes["bf16 twins"], out)
+    dist = {"bf16 kernels": box_agreement(out, routes["float32"]),
+            "bf16 twins": box_agreement(routes["bf16 twins"], routes["float32"])}
+    disp_gap = float((seen["disp"].reshape(out["disparity_roi"].shape)
+                      - out["disparity_roi"]).abs().max())
+    log(f"  on the kernel route's clouds ({n} instances with points): the bf16 twin route "
+        f"agrees with the kernels (random equal, box3d within {BOX3D_TOL}) on "
+        f"{100.0 * share:.1f}%, {flips} `random` flipped (its own disparity {disp_gap:.4g} px "
+        f"from the kernels'); against the float32 model: "
+        + ", ".join(f"{k} {100.0 * v[0]:.1f}% agree, {v[1]} flipped, mean max |box3d diff| "
+                    f"{v[2]:.4f}" for k, v in dist.items()))
+    limit = BF16_ROUTE_FACTOR * dist["bf16 twins"][2] + BF16_BOX_M
+    if not dist["bf16 kernels"][2] <= limit:
+        raise AssertionError(f"bf16 kernel route's boxes {dist['bf16 kernels'][2]} from the "
+                             f"float32 model's, over {limit}")
+    del routes, seen, out
+    torch.cuda.empty_cache()
+    # (d) tools/test_net on rcnn.yaml at its default compute dtype
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        res = test_net.run(RCNN_BF16_YAML, ["OUTPUT_DIR", tmp], dataset=EVAL_RUNS[1][1],
+                           static_hw=IMG_HW, device="cuda", seed=RCNN_BF16_SEED)
+        torch.cuda.synchronize()
+        cli3d = read_bf16_3d_launches()
+        if res["model"].pointrcnn.dtype != torch.bfloat16 or not all(cli3d.values()):
+            raise AssertionError(f"test_net rcnn.yaml: PointRCNN {res['model'].pointrcnn.dtype}, "
+                                 f"bf16 3D launches {cli3d}")
+        ds = res["datasets"][EVAL_RUNS[1][1]]
+        shapes = pred_shapes(res["cfg"])
+        valid = check_predictions(ds["predictions"], shapes, EVAL_IMAGES)
+        with open(os.path.join(ds["out_dir"], "predictions.pkl"), "rb") as fh:
+            check_predictions(pickle.load(fh), shapes, EVAL_IMAGES)
+        log(f"  test_net rcnn.yaml (bf16) on {EVAL_RUNS[1][1]}: {ds['images']} images, valid "
+            f"slots {valid}, bf16 3D launches {cli3d}; predictions.pkl with the JAX package's "
+            f"keys and dtypes")
+        del res
+    torch.cuda.empty_cache()
+    # (e) the requests split into stages, in turns
+    for m in (m32, m16):  # warm-up
+        run(m)
+    timed = {"float32": [], "bf16": []}
+    peak = {}
+    for label in ("float32", "bf16", "bf16", "float32"):
+        torch.cuda.reset_peak_memory_stats()
+        timed[label].append(breakdown(model2d, m16 if label == "bf16" else m32, req,
+                                      "headline"))
+        peak[label] = torch.cuda.max_memory_allocated() / 1e9
+    ms = {}
+    for label, runs in timed.items():
+        total = min(t for t, _ in runs)
+        stages = min(runs, key=lambda r: r[0])[1]
+        ms[label] = {"request": total, **stages}
+        log(f"  {label} rcnn.yaml request {[round(t, 3) for t, _ in runs]} ms ("
+            f"{PAIRS * 1000.0 / total:.3f} pairs/s), peak {peak[label]:.2f} GB; the faster: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
+    log(f"[28/{PHASES}] the 3D stage in bf16 (rcnn.yaml, TPU.COMPUTE_DTYPE bfloat16) on {card} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    del m16, m32, model2d, req
+    torch.cuda.empty_cache()
+    return {"rows": rows, "ms": ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5218,6 +5587,8 @@ def main() -> int:
                                         if c.get("roipool3d_train")}})
         torch.cuda.empty_cache()
         kernels += phase_bf16_idispnet(card)["rows"]
+        torch.cuda.empty_cache()
+        kernels += phase_bf16_3d(card)["rows"]
         log(f"done in {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     except Exception:  # report any phase's failure and exit non-zero
         traceback.print_exc()

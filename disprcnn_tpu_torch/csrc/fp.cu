@@ -11,9 +11,16 @@
 //   r_1) + r_2);
 //   x = [(f[i0] w0 + f[i1] w1) + f[i2] w2, skip[n]], then x = relu(x W_l +
 //   b_l) for each layer.
-// The TPU kernel kept the features and weights in bf16; this one is
-// float32 in and out at float32 accuracy: the chain's products in 3xTF32
-// on the tensor cores (mlp_tc.cuh, the set-abstraction kernel's chain).
+// The float32 form (fp_cuda) is float32 in and out at float32 accuracy:
+// the chain's products in 3xTF32 on the tensor cores (mlp_tc.cuh, the
+// set-abstraction kernel's chain). The bf16 form (fp_bf16_cuda, a bf16
+// model's) follows the TPU kernel: the known and skip features are bf16;
+// the three neighbours and their weights in float32 as above; the known
+// features gathered exactly and interpolated in float32 in JAX's order,
+// ((w0 / wsum) * f0 + (w1 / wsum) * f1) + (w2 / wsum) * f2, each product
+// and sum rounded on its own (fp_fused.py:56-63), then rounded to bf16;
+// the concatenation with the skip features and the chain in its bf16 form
+// (mlp_tc.cuh), bf16 out.
 //
 // Bound on an H100 SXM: operations, the chain's products (fp3: 128 clouds x
 // 256 targets x (1536 x 512 + 512 x 512) multiply-adds, 68.7 GFLOP; the
@@ -34,10 +41,14 @@
 // made again for each pass: the input is read twice at fp3, against the
 // weights' 4.2 MB. The later layers run from shared memory as sa.cu's do;
 // the last one stores its rows from registers. The weights are split and
-// fragment-ordered once per launch by sa.cu's packing (sa_pack_cuda).
+// fragment-ordered once per launch by sa.cu's packing (sa_pack_cuda; the
+// bf16 form's by sa_pack_bf16_cuda). In the bf16 form a chunk's 128
+// columns are 64 words a row (bf16 pairs), made 4 columns a load.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mlp_tc.cuh"
 
@@ -45,8 +56,7 @@ namespace {
 
 using mlp_tc::kFull;
 using mlp_tc::kNT;
-using mlp_tc::lead;
-using mlp_tc::pad8;
+using mlp_tc::lead_words;
 
 // 16 warps, one block an SM: a pass covers 256 output columns, so fp3 and
 // fp2 make their chunks twice, fp1 once (8 warps, mlp_tc's, were slower on
@@ -57,7 +67,13 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxShared = 232448;
 constexpr int kNoIndex = 0x7fffffff;
 constexpr int kKC = 128;          // columns of the first layer's input a chunk holds
-constexpr int kLdC = kKC + 4;     // a chunk row's floats (4 mod 32: no bank conflicts)
+
+// a chunk row's words (4 mod 32: no bank conflicts): 128 floats, or 64
+// words of bf16 pairs
+template <typename T>
+__host__ __device__ constexpr int ld_chunk() {
+  return kKC * static_cast<int>(sizeof(T)) / 4 + 4;
+}
 
 struct Shape {
   int nt, ns, c, cs;
@@ -68,15 +84,70 @@ struct Shape {
 };
 
 // The interpolated and skip columns k0 .. k0 + kKC - 1 of the tile's R rows
-// into dst (R x kLdC), zero past C + Cs and in rows past the cloud's Nt.
-template <int MT>
+// into dst (R x ld_chunk<T>() words), zero past C + Cs and in rows past the
+// cloud's Nt.
+template <int MT, typename T>
 __device__ __forceinline__ void stage_chunk(int k0, const Shape& sh, int rows,
                                             const int* nni, const float* nnw,
-                                            const float* __restrict__ F,
-                                            const float* __restrict__ S, float* dst) {
+                                            const T* __restrict__ F,
+                                            const T* __restrict__ S, uint32_t* dst) {
   constexpr int R = 16 * MT;
+  constexpr int kLdC = ld_chunk<T>();
   const int tid = threadIdx.x, c0 = sh.c + sh.cs;
-  if (sh.vec) {
+  if constexpr (std::is_same<T, bf16_t>::value) {
+    // 4 columns a thread: the interpolation in float32 as JAX orders it,
+    // each operation rounded on its own, then rounded to bf16
+    for (int e = tid; e < R * (kKC / 4); e += kThreads) {
+      const int r = e / (kKC / 4), col = k0 + 4 * (e % (kKC / 4));
+      float y[4] = {0.f, 0.f, 0.f, 0.f};
+      if (r < rows) {
+        if (sh.vec && col + 4 <= sh.c) {
+          const int* ii = nni + r * 3;
+          const float* ww = nnw + r * 3;
+          uint2 q[3];
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            q[k] = __ldg(reinterpret_cast<const uint2*>(F + (size_t)ii[k] * sh.c + col));
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            float f[3];
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+              const uint32_t w = u < 2 ? q[k].x : q[k].y;
+              f[k] = __uint_as_float(u % 2 ? w & 0xffff0000u : w << 16);
+            }
+            y[u] = __fadd_rn(__fadd_rn(__fmul_rn(ww[0], f[0]), __fmul_rn(ww[1], f[1])),
+                             __fmul_rn(ww[2], f[2]));
+          }
+        } else if (sh.vec && col >= sh.c && col + 4 <= c0) {
+          const uint2 q =
+              __ldg(reinterpret_cast<const uint2*>(S + (size_t)r * sh.cs + col - sh.c));
+          y[0] = __uint_as_float(q.x << 16);
+          y[1] = __uint_as_float(q.x & 0xffff0000u);
+          y[2] = __uint_as_float(q.y << 16);
+          y[3] = __uint_as_float(q.y & 0xffff0000u);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int cu = col + u;
+            if (cu < sh.c) {
+              const int* ii = nni + r * 3;
+              const float* ww = nnw + r * 3;
+              float f[3];
+#pragma unroll
+              for (int k = 0; k < 3; ++k) f[k] = ldg_float(F + (size_t)ii[k] * sh.c + cu);
+              y[u] = __fadd_rn(__fadd_rn(__fmul_rn(ww[0], f[0]), __fmul_rn(ww[1], f[1])),
+                               __fmul_rn(ww[2], f[2]));
+            } else if (cu < c0) {
+              y[u] = ldg_float(S + (size_t)r * sh.cs + cu - sh.c);
+            }
+          }
+        }
+      }
+      *reinterpret_cast<uint2*>(dst + r * kLdC + (col - k0) / 2) =
+          make_uint2(bf16x2_rn(y[0], y[1]), bf16x2_rn(y[2], y[3]));
+    }
+  } else if (sh.vec) {
 #pragma unroll 1
     for (int e = tid; e < R * (kKC / 4); e += kThreads) {
       const int r = e / (kKC / 4), col = k0 + 4 * (e % (kKC / 4));
@@ -113,27 +184,33 @@ __device__ __forceinline__ void stage_chunk(int k0, const Shape& sh, int rows,
           v = __ldg(S + (size_t)r * sh.cs + col - sh.c);
         }
       }
-      dst[r * kLdC + col - k0] = v;
+      dst[r * kLdC + col - k0] = __float_as_uint(v);
     }
   }
 }
 
-template <int MT>
+// T: the type of the features, the activations and the output (float, or
+// bf16_t for the bf16 form)
+template <int MT, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 fp_kernel(const float* __restrict__ unknown, const float* __restrict__ known,
-          const float* __restrict__ known_feats, const float* __restrict__ unknown_feats,
-          const mlp_tc::Chain chain, const Shape sh, float* __restrict__ out) {
+          const T* __restrict__ known_feats, const T* __restrict__ unknown_feats,
+          const mlp_tc::Chain chain, const Shape sh, T* __restrict__ out) {
   constexpr int R = 16 * MT;
+  constexpr int kLdC = ld_chunk<T>();
   extern __shared__ __align__(16) float smem[];
   float* nnw = smem;                                 // R x 3
   int* nni = reinterpret_cast<int*>(nnw + R * 3);    // R x 3
-  float* region = smem + R * 6;       // the chunks, then odd layers' outputs (R x lda)
-  float* buf1 = region + R * sh.lda;  // even layers' outputs (R x ld1)
+  // the chunks, then odd layers' outputs (R x lda words); even layers'
+  // outputs (R x ld1 words)
+  uint32_t* region = reinterpret_cast<uint32_t*>(smem + R * 6);
+  uint32_t* buf1 = region + R * sh.lda;
   const int b = blockIdx.y, n0 = blockIdx.x * R;
   const int rows = min(R, sh.nt - n0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const float* K = known + (size_t)b * sh.ns * 3;
-  float* kxyz = region;  // the cloud's points, over both buffers until the 3-NN is done
+  // the cloud's points, over both buffers until the 3-NN is done
+  float* kxyz = reinterpret_cast<float*>(region);
   for (int e = tid; e < sh.ns * 3; e += kThreads) kxyz[e] = K[e];
   __syncthreads();
 
@@ -218,32 +295,34 @@ fp_kernel(const float* __restrict__ unknown, const float* __restrict__ known,
   // 2. the first layer, its input made a chunk at a time: step s is pass s /
   // nk (128 output columns) over chunk s % nk; chunk s + 1 is made while
   // chunk s multiplies
-  const float* F = known_feats + (size_t)b * sh.ns * sh.c;
-  const float* S = unknown_feats + ((size_t)b * sh.nt + n0) * sh.cs;
+  constexpr int kChunkSteps = kKC / mlp_tc::Form<T>::kKStep;  // K steps a chunk
+  const T* F = known_feats + (size_t)b * sh.ns * sh.c;
+  const T* S = unknown_feats + ((size_t)b * sh.nt + n0) * sh.cs;
   const int c1 = chain.c[1];
-  const int k8 = pad8(chain.c[0]) / 8, n8 = pad8(c1) / 8;
-  const int nk = (k8 + kKC / 8 - 1) / (kKC / 8);
+  const int k8 = mlp_tc::padc<T>(chain.c[0]) / mlp_tc::Form<T>::kKStep;
+  const int n8 = mlp_tc::padc<T>(c1) / 8;
+  const int nk = (k8 + kChunkSteps - 1) / kChunkSteps;
   const int steps = (n8 + kWarps * kNT - 1) / (kWarps * kNT) * nk;
-  float* ob = out + ((size_t)b * sh.nt + n0) * chain.c[chain.layers];
-  stage_chunk<MT>(0, sh, rows, nni, nnw, F, S, region);
+  T* ob = out + ((size_t)b * sh.nt + n0) * chain.c[chain.layers];
+  stage_chunk<MT, T>(0, sh, rows, nni, nnw, F, S, region);
   __syncthreads();
   float acc[MT][kNT][4];
   for (int s = 0; s < steps; ++s) {
     const int pass = s / nk, k = s - pass * nk;
     if (nk > 1 && s + 1 < steps)
-      stage_chunk<MT>((k + 1 < nk ? k + 1 : 0) * kKC, sh, rows, nni, nnw, F, S,
-                      region + ((s + 1) & 1) * R * kLdC);
+      stage_chunk<MT, T>((k + 1 < nk ? k + 1 : 0) * kKC, sh, rows, nni, nnw, F, S,
+                         region + ((s + 1) & 1) * R * kLdC);
     if (k == 0) mlp_tc::zero_acc<MT>(acc);
     const int nt0 = pass * kWarps * kNT + warp * kNT;
     if (nt0 < n8) {
-      const int kb = k * (kKC / 8);
-      mlp_tc::pass_accumulate<MT>(region + (nk > 1 ? s & 1 : 0) * R * kLdC, kLdC, kb,
-                                  min(k8, kb + kKC / 8), chain.wpk[0], n8, nt0, acc);
+      const int kb = k * kChunkSteps;
+      mlp_tc::pass_accumulate<MT, T>(region + (nk > 1 ? s & 1 : 0) * R * kLdC, kLdC, kb,
+                                     min(k8, kb + kChunkSteps), chain.wpk[0], n8, nt0, acc);
       if (k == nk - 1) {
         if (chain.layers == 1)
-          mlp_tc::store_relu_rows<MT>(acc, chain.b[0], c1, n8, nt0, rows, ob);
+          mlp_tc::store_relu_rows<MT, T>(acc, chain.b[0], c1, n8, nt0, rows, ob);
         else
-          mlp_tc::store_relu<MT>(acc, chain.b[0], c1, n8, nt0, buf1, sh.ld1);
+          mlp_tc::store_relu<MT, T>(acc, chain.b[0], c1, n8, nt0, buf1, sh.ld1);
       }
     }
     __syncthreads();  // the chunk is read before it is made again
@@ -251,39 +330,40 @@ fp_kernel(const float* __restrict__ unknown, const float* __restrict__ known,
 
   // 3. the later layers: outputs of layers 1 and 3 in the region, of layer
   // 2 in buf1; the last layer's rows from registers to the output
-  float* cur = buf1;
-  float* nxt = region;
+  uint32_t* cur = buf1;
+  uint32_t* nxt = region;
   int lc = sh.ld1, ln = sh.lda;
   for (int l = 1; l < chain.layers; ++l) {
     if (l + 1 < chain.layers) {
-      mlp_tc::hidden_layer<MT, kWarps>(cur, lc, chain.c[l], chain.wpk[l], chain.b[l],
-                                       chain.c[l + 1], nxt, ln);
+      mlp_tc::hidden_layer<MT, kWarps, T>(cur, lc, chain.c[l], chain.wpk[l], chain.b[l],
+                                          chain.c[l + 1], nxt, ln);
       __syncthreads();
-      float* tb = cur;
+      uint32_t* tb = cur;
       cur = nxt;
       nxt = tb;
       const int tl = lc;
       lc = ln;
       ln = tl;
     } else {
-      mlp_tc::last_layer_rows<MT, kWarps>(cur, lc, chain.c[l], chain.wpk[l], chain.b[l],
-                                  chain.c[l + 1], rows, ob);
+      mlp_tc::last_layer_rows<MT, kWarps, T>(cur, lc, chain.c[l], chain.wpk[l], chain.b[l],
+                                             chain.c[l + 1], rows, ob);
     }
   }
 }
 
-// Floats of a row of the region that holds the two chunks, then the
+// Words of a row of the region that holds the two chunks, then the
 // outputs of layers 1 and 3 (a hidden layer's output feeds the next
 // layer), and of a row of the even layers' outputs; both 4 (mod 32).
+template <typename T>
 void row_widths(const mlp_tc::Chain& chain, int* lda, int* ld1) {
-  int wa = 2 * kLdC, w1 = 0;
+  int wa = 2 * ld_chunk<T>(), w1 = 0;
   for (int l = 0; l + 1 < chain.layers; ++l) {
-    const int w = chain.c[l + 1];
+    const int w = mlp_tc::row_words<T>(chain.c[l + 1]);
     if (l % 2 == 0) w1 = w > w1 ? w : w1;
     else wa = w > wa ? w : wa;
   }
-  *lda = lead(wa);
-  *ld1 = w1 > 0 ? lead(w1) : 0;
+  *lda = lead_words(wa);
+  *ld1 = w1 > 0 ? lead_words(w1) : 0;
 }
 
 // The region also holds the cloud's points during the 3-NN, before either
@@ -293,19 +373,64 @@ size_t shared_bytes(int rows, int ns, int lda, int ld1) {
   return sizeof(float) * ((size_t)rows * 6 + (bufs > (size_t)ns * 3 ? bufs : (size_t)ns * 3));
 }
 
-template <int MT>
-cudaError_t launch(const float* unknown, const float* known, const float* kf, const float* uf,
-                   const mlp_tc::Chain& chain, int b, const Shape& sh, float* out,
+template <int MT, typename T>
+cudaError_t launch(const float* unknown, const float* known, const T* kf, const T* uf,
+                   const mlp_tc::Chain& chain, int b, const Shape& sh, T* out,
                    cudaStream_t stream) {
   constexpr int R = 16 * MT;
   const size_t bytes = shared_bytes(R, sh.ns, sh.lda, sh.ld1);
-  cudaError_t err = cudaFuncSetAttribute(fp_kernel<MT>,
+  cudaError_t err = cudaFuncSetAttribute(fp_kernel<MT, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   dim3 grid((sh.nt + R - 1) / R, b);
-  fp_kernel<MT><<<grid, kThreads, bytes, stream>>>(unknown, known, kf, uf, chain, sh, out);
+  fp_kernel<MT, T><<<grid, kThreads, bytes, stream>>>(unknown, known, kf, uf, chain, sh, out);
   return cudaGetLastError();
+}
+
+template <typename T>
+int run(const void* unknown, const void* known, const void* known_feats,
+        const void* unknown_feats, const void* wpk, const void* const* biases, const int* chans,
+        int layers, int b, int nt, int ns, int c, int cs, float eps, void* out, void* stream,
+        int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b < 1 || b > 65535 || nt < 1 || ns < 3 || ns > 4096 || c < 1 || cs < 1 || layers < 1 ||
+      layers > mlp_tc::kMaxLayers || chans[0] != c + cs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  mlp_tc::Chain chain;
+  chain.layers = layers;
+  for (int l = 0; l <= layers; ++l) {
+    if (chans[l] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    chain.c[l] = chans[l];
+  }
+  const uint32_t* wp = static_cast<const uint32_t*>(wpk);
+  for (int l = 0; l < layers; ++l) {
+    chain.wpk[l] = wp;
+    wp += mlp_tc::packed_words<T>(chans[l], chans[l + 1]);
+    chain.b[l] = static_cast<const float*>(biases[l]);
+  }
+  // 16-byte loads (bf16: 8-byte) where the widths and pointers allow
+  constexpr int kVec = std::is_same<T, float>::value ? 16 : 8;
+  Shape sh{nt, ns, c, cs, eps, 0, 0, 0};
+  row_widths<T>(chain, &sh.lda, &sh.ld1);
+  sh.vec = c % 4 == 0 && cs % 4 == 0 && (reinterpret_cast<uintptr_t>(known_feats) % kVec) == 0 &&
+           (reinterpret_cast<uintptr_t>(unknown_feats) % kVec) == 0;
+  const float* u = static_cast<const float*>(unknown);
+  const float* k = static_cast<const float*>(known);
+  const T* kf = static_cast<const T*>(known_feats);
+  const T* uf = static_cast<const T*>(unknown_feats);
+  T* o = static_cast<T*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (shared_bytes(64, ns, sh.lda, sh.ld1) <= (size_t)kMaxShared)
+    err = launch<4, T>(u, k, kf, uf, chain, b, sh, o, st);
+  else if (shared_bytes(32, ns, sh.lda, sh.ld1) <= (size_t)kMaxShared)
+    err = launch<2, T>(u, k, kf, uf, chain, b, sh, o, st);
+  else if (shared_bytes(16, ns, sh.lda, sh.ld1) <= (size_t)kMaxShared)
+    err = launch<1, T>(u, k, kf, uf, chain, b, sh, o, st);
+  else
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -322,42 +447,18 @@ int fp_cuda(const void* unknown, const void* known, const void* known_feats,
             const void* unknown_feats, const void* wpk, const void* const* biases,
             const int* chans, int layers, int b, int nt, int ns, int c, int cs, float eps,
             void* out, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (b < 1 || b > 65535 || nt < 1 || ns < 3 || ns > 4096 || c < 1 || cs < 1 || layers < 1 ||
-      layers > mlp_tc::kMaxLayers || chans[0] != c + cs)
-    return static_cast<int>(cudaErrorInvalidValue);
-  mlp_tc::Chain chain;
-  chain.layers = layers;
-  for (int l = 0; l <= layers; ++l) {
-    if (chans[l] < 1) return static_cast<int>(cudaErrorInvalidValue);
-    chain.c[l] = chans[l];
-  }
-  const float* wp = static_cast<const float*>(wpk);
-  for (int l = 0; l < layers; ++l) {
-    chain.wpk[l] = wp;
-    wp += mlp_tc::packed_floats(chans[l], chans[l + 1]);
-    chain.b[l] = static_cast<const float*>(biases[l]);
-  }
-  Shape sh{nt, ns, c, cs, eps, 0, 0, 0};
-  row_widths(chain, &sh.lda, &sh.ld1);
-  sh.vec = c % 4 == 0 && cs % 4 == 0 && (reinterpret_cast<uintptr_t>(known_feats) & 15) == 0 &&
-           (reinterpret_cast<uintptr_t>(unknown_feats) & 15) == 0;
-  const float* u = static_cast<const float*>(unknown);
-  const float* k = static_cast<const float*>(known);
-  const float* kf = static_cast<const float*>(known_feats);
-  const float* uf = static_cast<const float*>(unknown_feats);
-  float* o = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (shared_bytes(64, ns, sh.lda, sh.ld1) <= (size_t)kMaxShared)
-    err = launch<4>(u, k, kf, uf, chain, b, sh, o, st);
-  else if (shared_bytes(32, ns, sh.lda, sh.ld1) <= (size_t)kMaxShared)
-    err = launch<2>(u, k, kf, uf, chain, b, sh, o, st);
-  else if (shared_bytes(16, ns, sh.lda, sh.ld1) <= (size_t)kMaxShared)
-    err = launch<1>(u, k, kf, uf, chain, b, sh, o, st);
-  else
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  return static_cast<int>(err);
+  return run<float>(unknown, known, known_feats, unknown_feats, wpk, biases, chans, layers, b,
+                    nt, ns, c, cs, eps, out, stream, device);
+}
+
+// The bf16 form: known_feats, unknown_feats and out bf16, wpk packed by
+// sa.cu's sa_pack_bf16_cuda; the rest as fp_cuda's.
+int fp_bf16_cuda(const void* unknown, const void* known, const void* known_feats,
+                 const void* unknown_feats, const void* wpk, const void* const* biases,
+                 const int* chans, int layers, int b, int nt, int ns, int c, int cs, float eps,
+                 void* out, void* stream, int device) {
+  return run<bf16_t>(unknown, known, known_feats, unknown_feats, wpk, biases, chans, layers, b,
+                     nt, ns, c, cs, eps, out, stream, device);
 }
 
 const char* fp_error_string(int err) {

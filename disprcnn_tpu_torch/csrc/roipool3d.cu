@@ -35,9 +35,18 @@
 // width, 133, is a compile-time constant. The direct route, taken where
 // the ring does not fit in shared memory, stores each row from its warp's
 // registers.
+//
+// A bf16 model's form (roipool3d_bf16_cuda): the features come in two
+// arrays, E float32 channels (the RCNN's seg mask and depth) and C bf16
+// channels (the RPN's features); each row is [xyz, the float32 channels,
+// the bf16 channels widened to float32], float32 out, bit-equal to the
+// float32 form on the widened features (the TPU kernel's bf16 channels
+// ride its gather exactly, roipool3d_fused.py:184-194). The caller then
+// keeps no float32 copy of the RPN's features.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -62,21 +71,35 @@ __host__ __device__ inline int chunk_floats(int rows, int width) {
   return align_up(rows * width + 3, 4);
 }
 
+// Channel ch of point j's row: xyz, then the float32 features (e of them;
+// all c in the float32 form), then (kBf16) the bf16 ones widened
+template <bool kBf16>
+__device__ __forceinline__ float row_value(int ch, const float* xyz, const float* f,
+                                          const bf16_t* bf, int e) {
+  if constexpr (kBf16) {
+    if (ch >= 3 + e) return ldg_float(bf + (ch - 3 - e));
+  }
+  return __ldg(ch < 3 ? xyz + ch : f + (ch - 3));
+}
+
 // Rows [s0, s1) of a box with cnt > 0 points inside (sel their indices),
 // row `slot` into dst + (slot - s0) * width: a warp a row, its lanes over
 // the channels; each warp's rows are unrolled so that their loads are in
-// flight together.
-template <int kWidth>
+// flight together. Fb holds e float32 channels a point, Bb (kBf16) c - e
+// bf16 channels.
+template <int kWidth, bool kBf16>
 __device__ __forceinline__ void gather_rows(float* dst, const int* sel, int s0, int s1, int cnt,
                                             const float* __restrict__ P,
-                                            const float* __restrict__ Fb, int c, int warp,
-                                            int lane) {
+                                            const float* __restrict__ Fb,
+                                            const bf16_t* __restrict__ Bb, int c, int e,
+                                            int warp, int lane) {
   const int width = kWidth > 0 ? kWidth : 3 + c;
 #pragma unroll 4
   for (int slot = s0 + warp; slot < s1; slot += kWarps) {
     const int j = sel[slot < cnt ? slot : slot % cnt];
     const float* xyz = P + static_cast<size_t>(j) * 3;
-    const float* f = Fb + static_cast<size_t>(j) * c;
+    const float* f = Fb + static_cast<size_t>(j) * e;
+    const bf16_t* bf = kBf16 ? Bb + static_cast<size_t>(j) * (c - e) : nullptr;
     float* row = dst + static_cast<size_t>(slot - s0) * width;
     if constexpr (kWidth > 0) {
       constexpr int kSteps = (kWidth + 31) / 32;
@@ -84,7 +107,7 @@ __device__ __forceinline__ void gather_rows(float* dst, const int* sel, int s0, 
 #pragma unroll
       for (int q = 0; q < kSteps; ++q) {
         const int ch = lane + 32 * q;
-        v[q] = ch < kWidth ? __ldg(ch < 3 ? xyz + ch : f + (ch - 3)) : 0.f;
+        v[q] = ch < kWidth ? row_value<kBf16>(ch, xyz, f, bf, e) : 0.f;
       }
 #pragma unroll
       for (int q = 0; q < kSteps; ++q) {
@@ -92,7 +115,7 @@ __device__ __forceinline__ void gather_rows(float* dst, const int* sel, int s0, 
         if (ch < kWidth) row[ch] = v[q];
       }
     } else {
-      for (int ch = lane; ch < width; ch += 32) row[ch] = __ldg(ch < 3 ? xyz + ch : f + (ch - 3));
+      for (int ch = lane; ch < width; ch += 32) row[ch] = row_value<kBf16>(ch, xyz, f, bf, e);
     }
   }
 }
@@ -102,12 +125,12 @@ __device__ __forceinline__ void zero_fill(float* dst, size_t count, int tid) {
   for (size_t e = tid; e < count; e += kThreads) dst[e] = 0.f;
 }
 
-template <int kWidth, bool kBulkRoute>
+template <int kWidth, bool kBulkRoute, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 roipool3d_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
-                 const float* __restrict__ boxes, const float* __restrict__ cossin, int n,
-                 int m, int c, int s, int rows, float max_dis, float* __restrict__ out,
-                 uint8_t* __restrict__ empty) {
+                 const bf16_t* __restrict__ bfeats, const float* __restrict__ boxes,
+                 const float* __restrict__ cossin, int n, int m, int c, int e, int s, int rows,
+                 float max_dis, float* __restrict__ out, uint8_t* __restrict__ empty) {
   extern __shared__ __align__(128) unsigned char smem[];
   int* sel = reinterpret_cast<int*>(smem);  // s
   __shared__ int warp_cnt[kWarps];
@@ -152,13 +175,14 @@ roipool3d_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
   if (tid == 0) empty[bm] = cnt == 0;
 
   const int width = kWidth > 0 ? kWidth : 3 + c;
-  const float* Fb = feats + (size_t)b * n * c;
+  const float* Fb = feats + (size_t)b * n * e;
+  const bf16_t* Bb = kBf16 ? bfeats + (size_t)b * n * (c - e) : nullptr;
   const size_t run = bm * (size_t)s * width;  // the box's first float in out
   if (!kBulkRoute) {
     if (cnt == 0)
       zero_fill(out + run, (size_t)s * width, tid);
     else
-      gather_rows<kWidth>(out + run, sel, 0, s, cnt, P, Fb, c, warp, lane);
+      gather_rows<kWidth, kBf16>(out + run, sel, 0, s, cnt, P, Fb, Bb, c, e, warp, lane);
     return;
   }
 
@@ -173,7 +197,8 @@ roipool3d_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
     if (cnt == 0)
       zero_fill(buf + (g0 - a0), g1 - g0, tid);
     else
-      gather_rows<kWidth>(buf + (g0 - a0), sel, s0, s1, cnt, P, Fb, c, warp, lane);
+      gather_rows<kWidth, kBf16>(buf + (g0 - a0), sel, s0, s1, cnt, P, Fb, Bb, c, e, warp,
+                                 lane);
     tma::fence_to_async();
     // the buffer that the next chunk fills was last read by the store of
     // chunk q + 1 - kBufs: at most kBufs - 2 later groups may be pending
@@ -192,23 +217,23 @@ roipool3d_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
   if (tid == 0) tma::wait_all();  // the stores are done before the block leaves
 }
 
-template <int kWidth, bool kBulkRoute>
-cudaError_t launch(const float* pts, const float* feats, const float* boxes, const float* cossin,
-                   int b, int n, int m, int c, int s, int rows, float max_dis, float* out,
-                   uint8_t* empty, int smem, cudaStream_t stream) {
+template <int kWidth, bool kBulkRoute, bool kBf16>
+cudaError_t launch(const float* pts, const float* feats, const bf16_t* bfeats, const float* boxes,
+                   const float* cossin, int b, int n, int m, int c, int e, int s, int rows,
+                   float max_dis, float* out, uint8_t* empty, int smem, cudaStream_t stream) {
   static bool attr_set[64] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   if (!attr_set[device]) {
-    err = cudaFuncSetAttribute(roipool3d_kernel<kWidth, kBulkRoute>,
+    err = cudaFuncSetAttribute(roipool3d_kernel<kWidth, kBulkRoute, kBf16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared - 1024);
     if (err != cudaSuccess) return err;
     attr_set[device] = true;
   }
-  roipool3d_kernel<kWidth, kBulkRoute><<<dim3(m, b), kThreads, smem, stream>>>(
-      pts, feats, boxes, cossin, n, m, c, s, rows, max_dis, out, empty);
+  roipool3d_kernel<kWidth, kBulkRoute, kBf16><<<dim3(m, b), kThreads, smem, stream>>>(
+      pts, feats, bfeats, boxes, cossin, n, m, c, e, s, rows, max_dis, out, empty);
   return cudaGetLastError();
 }
 
@@ -234,6 +259,51 @@ int roipool3d_plan(int c, int s, int route, int* rows_out, int* smem_out) {
   return route;
 }
 
+}  // extern "C"
+
+namespace {
+
+// The launch of either form on its route: the float32 form takes c float32
+// channels a point (e == c, bfeats null), the bf16 form e float32 ones and
+// c - e bf16 ones.
+template <bool kBf16>
+int run(const void* pts, const void* feats, const void* bfeats, const void* boxes,
+        const void* cossin, int b, int n, int m, int c, int e, int s, float max_dis, int route,
+        void* out, void* empty, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b < 1 || b > 65535 || n < 1 || m < 1 || c < 0 || e < 0 || e > c || s < 1 || s > 8192 ||
+      route < 0 || route > kDirect || reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int rows = 0, smem = 0;
+  route = roipool3d_plan(c, s, route, &rows, &smem);
+  if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const float* p = static_cast<const float*>(pts);
+  const float* f = static_cast<const float*>(feats);
+  const bf16_t* bf = static_cast<const bf16_t*>(bfeats);
+  const float* bx = static_cast<const float*>(boxes);
+  const float* cs = static_cast<const float*>(cossin);
+  float* o = static_cast<float*>(out);
+  uint8_t* em = static_cast<uint8_t*>(empty);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool main_width = 3 + c == kMainWidth;
+  if (route == kBulk)
+    err = main_width ? launch<kMainWidth, true, kBf16>(p, f, bf, bx, cs, b, n, m, c, e, s, rows,
+                                                       max_dis, o, em, smem, st)
+                     : launch<0, true, kBf16>(p, f, bf, bx, cs, b, n, m, c, e, s, rows, max_dis,
+                                              o, em, smem, st);
+  else
+    err = main_width ? launch<kMainWidth, false, kBf16>(p, f, bf, bx, cs, b, n, m, c, e, s, rows,
+                                                        max_dis, o, em, smem, st)
+                     : launch<0, false, kBf16>(p, f, bf, bx, cs, b, n, m, c, e, s, rows, max_dis,
+                                               o, em, smem, st);
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+extern "C" {
+
 // pts (B, N, 3), feats (B, N, C), boxes (B, M, 7), cossin (B, M, 2) = (cos
 // ry, sin ry); all float32, contiguous, out 16-byte aligned. out (B, M, S,
 // 3 + C) float32, empty (B, M) uint8. route: 0 the plan's choice, 1 bulk,
@@ -242,31 +312,19 @@ int roipool3d_plan(int c, int s, int route, int* rows_out, int* smem_out) {
 int roipool3d_cuda(const void* pts, const void* feats, const void* boxes, const void* cossin,
                    int b, int n, int m, int c, int s, float max_dis, int route, void* out,
                    void* empty, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (b < 1 || b > 65535 || n < 1 || m < 1 || c < 0 || s < 1 || s > 8192 || route < 0 ||
-      route > kDirect || reinterpret_cast<uintptr_t>(out) % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int rows = 0, smem = 0;
-  route = roipool3d_plan(c, s, route, &rows, &smem);
-  if (route < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const float* p = static_cast<const float*>(pts);
-  const float* f = static_cast<const float*>(feats);
-  const float* bx = static_cast<const float*>(boxes);
-  const float* cs = static_cast<const float*>(cossin);
-  float* o = static_cast<float*>(out);
-  uint8_t* e = static_cast<uint8_t*>(empty);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool main_width = 3 + c == kMainWidth;
-  if (route == kBulk)
-    err = main_width ? launch<kMainWidth, true>(p, f, bx, cs, b, n, m, c, s, rows, max_dis, o, e,
-                                               smem, st)
-                     : launch<0, true>(p, f, bx, cs, b, n, m, c, s, rows, max_dis, o, e, smem, st);
-  else
-    err = main_width ? launch<kMainWidth, false>(p, f, bx, cs, b, n, m, c, s, rows, max_dis, o, e,
-                                                smem, st)
-                     : launch<0, false>(p, f, bx, cs, b, n, m, c, s, rows, max_dis, o, e, smem, st);
-  return static_cast<int>(err);
+  return run<false>(pts, feats, nullptr, boxes, cossin, b, n, m, c, c, s, max_dis, route, out,
+                    empty, stream, device);
+}
+
+// The bf16 form: extra (B, N, E) float32 and feats (B, N, C) bf16, both
+// contiguous; out (B, M, S, 3 + E + C) float32, rows [xyz, extra, feats
+// widened]; the rest as roipool3d_cuda's.
+int roipool3d_bf16_cuda(const void* pts, const void* extra, const void* feats, const void* boxes,
+                        const void* cossin, int b, int n, int m, int e, int c, int s,
+                        float max_dis, int route, void* out, void* empty, void* stream,
+                        int device) {
+  return run<true>(pts, extra, feats, boxes, cossin, b, n, m, e + c, e, s, max_dis, route, out,
+                   empty, stream, device);
 }
 
 const char* roipool3d_error_string(int err) {

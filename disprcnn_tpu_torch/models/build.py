@@ -37,12 +37,13 @@ FBNet body's arch is its name's; an FBNet body is never frozen, as in
 the JAX package).
 
 TPU.COMPUTE_DTYPE (default bfloat16, as in the JAX build) is obeyed by
-the models whose bf16 form is ported: DispRCNN3D with MODEL.DET3D_ON False
-(idispnet.yaml) builds iDispNet at that dtype (``dtype=torch.bfloat16``,
-eval; ROADMAP A8.1). The others compute in float32 until their bf16 form
-is ported, and the build logs one line naming the pending item: DispRCNN
-(its DispModule too), the mono models and RetinaNet (A8.2), DispRCNN3D
-with DET3D_ON True (A8.3); and with ``train=True`` (tools/train_net.py)
+the models whose bf16 form is ported: DispRCNN3D (``dtype=torch.bfloat16``,
+eval) builds iDispNet at that dtype (idispnet.yaml; ROADMAP A8.1) and,
+with MODEL.DET3D_ON (rpn.yaml, rcnn.yaml), PointRCNN too (A8.3); the lift
+between them stays float32, as JAX's kernel route keeps it. The others
+compute in float32 until their bf16 form is ported, and the build logs
+one line naming the pending item: DispRCNN (its DispModule too), the mono
+models and RetinaNet (A8.2); and with ``train=True`` (tools/train_net.py)
 every model trains in float32 (A8.4). TPU.PARAM_DTYPE is float32 in every
 shipped config and the port's parameters are float32 (the bf16 kernels
 round the weights where they pack them). Read and not obeyed: the TPU
@@ -79,8 +80,7 @@ def _check_body(cfg, body: str) -> None:
 
 # the ROADMAP item that ports each model's bf16 form, for the models that
 # still compute in float32 at TPU.COMPUTE_DTYPE bfloat16
-_BF16_PENDING = {"RetinaNetDetector": "A8.2", "GeneralizedRCNN": "A8.2", "DispRCNN": "A8.2",
-                 "DispRCNN3D": "A8.3"}
+_BF16_PENDING = {"RetinaNetDetector": "A8.2", "GeneralizedRCNN": "A8.2", "DispRCNN": "A8.2"}
 
 
 def _compute_dtype(cfg, model: str, obeyed: bool, train: bool,
@@ -227,7 +227,7 @@ def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=
             max_roi_train = cfg.MODEL.PCNET.MAX_ROI_FOR_TRAINING
         else:
             max_roi_train = 0
-        dtype = _compute_dtype(cfg, "DispRCNN3D", not cfg.MODEL.DET3D_ON, train, logger)
+        dtype = _compute_dtype(cfg, "DispRCNN3D", True, train, logger)
         # passed where it is the JAX build's dtype; a model whose bf16 form
         # is pending keeps the constructor's float32
         obeyed = {"dtype": dtype} if dtype != torch.float32 else {}

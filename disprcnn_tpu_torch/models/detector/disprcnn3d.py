@@ -11,7 +11,11 @@ With det3d_on=True (configs/kitti/car/vob/rcnn.yaml) the instance
 disparity is lifted to one fixed-size pseudo-LiDAR cloud per ROI and
 PointRCNN returns one 3D box per ROI; with rcnn_enabled=False (rpn.yaml)
 it has no RCNN, and eval returns the disparity and roi_ok only, as JAX's
-does.
+does. At the compute dtype bf16 (TPU.COMPUTE_DTYPE's default, eval)
+iDispNet and PointRCNN compute in bf16 and the crops, the lift and its
+clouds stay float32, as in the JAX package's bf16 model on its kernel
+route (models/psmnet/psmnet.py and models/pointrcnn/point_rcnn.py say
+where each rounds).
 
 Train mode (SOLVER.TRAIN_PSM / TRAIN_PC, disprcnn3d.py:162-290) first drops
 the low-score detections (keeping the best two) and keeps the
@@ -189,10 +193,12 @@ class DispRCNN3D(nn.Module):
     DISPRCNN_SA_MIN_C0 and DISPRCNN_RCNN_ROI_BLOCK knobs are the arguments
     sa_min_c0 and roi_block, with the shipped values; DISPRCNN_PALLAS_DISABLE's PointNet++
     tags ("sa", "pool", "fp") are the argument kernels_off (none off by
-    default; models/pointrcnn/pointnet2.py). `dtype` is iDispNet's compute
-    dtype (TPU.COMPUTE_DTYPE): float32, or bfloat16 in eval (PSMNet); the
-    crops stay float32, as JAX's crop_and_normalize gives them, and
-    disparity_roi is float32 either way."""
+    default; models/pointrcnn/pointnet2.py). `dtype` is the compute dtype
+    (TPU.COMPUTE_DTYPE) of iDispNet and PointRCNN: float32, or bfloat16 in
+    eval (PSMNet, PointRCNN); the crops stay float32, as JAX's
+    crop_and_normalize gives them, disparity_roi is float32 either way, and
+    so are the lift and its clouds; in bf16 box3d is float32, score3d
+    bf16, random and roi_ok bool, as the JAX bf16 model's outputs."""
 
     def __init__(self, max_det: int = 32, roi_size: int = 224, maxdisp: int = 48,
                  mindisp: int = -48, npoints: int = 768, lift_grid: int = 112,
@@ -236,7 +242,8 @@ class DispRCNN3D(nn.Module):
                     rpn_nms_rotated=rpn_nms_rotated, rpn_distance_based=rpn_distance_based,
                     rpn_loss_cls=rpn_loss_cls, rpn_fixed=rpn_fixed,
                     rcnn_loss_cls=rcnn_loss_cls, aug_data=aug_data, fg_aug_times=fg_aug_times,
-                    aug_rot_range=aug_rot_range, rpn_nms_thresh_train=rpn_nms_thresh_train)
+                    aug_rot_range=aug_rot_range, rpn_nms_thresh_train=rpn_nms_thresh_train,
+                    dtype=dtype)
         self.eval()
 
     @property

@@ -4,6 +4,14 @@ lib/utils/bbox_transform.py, loss_utils.get_reg_loss). A regression vector
 is laid out
 [x_bins | z_bins | (x_res | z_res if xz_fine) | y_offset | ry_bins | ry_res
 | size_res(3)].
+
+A bf16 prediction (a bf16 model's heads) decodes with the JAX package's
+promotions (bbox3d_codec.py:43-70), where a value made of an integer bin
+and Python floats is weakly typed: it takes bf16 where it meets the bf16
+predictions, and a Python constant is rounded to bf16 before its bf16
+operation. So the fine x and z offsets (the RCNN's) and the heading are
+bf16 sums, each operation rounded; the y position is float32 (the base
+points are); the sizes are bf16 (the anchor is); the box is float32.
 """
 from __future__ import annotations
 
@@ -33,9 +41,10 @@ class CodecCfg(NamedTuple):
         return n + 1 + self.num_head_bin * 2 + 3
 
 
-def remainder(x: torch.Tensor, y: float) -> torch.Tensor:
-    """x mod y with the sign of y, computed as jnp.remainder does: the
-    truncated remainder, plus y where its sign differs from y's."""
+def remainder(x: torch.Tensor, y) -> torch.Tensor:
+    """x mod y (a number or a 0-dim tensor) with the sign of y, computed as
+    jnp.remainder does: the truncated remainder, plus y where its sign
+    differs from y's."""
     r = torch.fmod(x, y)
     return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
 
@@ -51,14 +60,26 @@ def decode(base_xyz: torch.Tensor, pred: torch.Tensor, anchor_size: torch.Tensor
     With base_ry the box is decoded in each roi's canonical frame and
     rotated back by its yaw."""
     nbin = cfg.per_loc_bin_num
+    low = pred.dtype == torch.bfloat16
+
+    def weak(v):
+        # a float32 value of bins and Python floats meeting the predictions
+        return v.to(pred.dtype) if low else v
+
+    def const(c):
+        # a Python constant of an operation on the predictions (filled on
+        # their device: no copy from the host)
+        return pred.new_full((), c) if low else c
+
     x_bin = torch.argmax(pred[:, 0:nbin], dim=1)  # the first of equal maxima
     z_bin = torch.argmax(pred[:, nbin:nbin * 2], dim=1)
     pos_x = x_bin * cfg.loc_bin_size + cfg.loc_bin_size / 2 - cfg.loc_scope
     pos_z = z_bin * cfg.loc_bin_size + cfg.loc_bin_size / 2 - cfg.loc_scope
     off = nbin * 2
     if cfg.xz_fine:
-        pos_x = pos_x + _pick(pred[:, off:off + nbin], x_bin) * cfg.loc_bin_size
-        pos_z = pos_z + _pick(pred[:, off + nbin:off + 2 * nbin], z_bin) * cfg.loc_bin_size
+        size = const(cfg.loc_bin_size)
+        pos_x = weak(pos_x) + _pick(pred[:, off:off + nbin], x_bin) * size
+        pos_z = weak(pos_z) + _pick(pred[:, off + nbin:off + 2 * nbin], z_bin) * size
         off += 2 * nbin
     pos_y = base_xyz[:, 1] + pred[:, off]
     off += 1
@@ -67,11 +88,11 @@ def decode(base_xyz: torch.Tensor, pred: torch.Tensor, anchor_size: torch.Tensor
     ry_res = _pick(pred[:, off + nh:off + 2 * nh], ry_bin)
     if cfg.ry_fine:
         per = (math.pi / 2) / nh
-        ry = ry_bin * per + per / 2 + ry_res * (per / 2) - math.pi / 4
+        ry = weak(ry_bin * per + per / 2) + ry_res * const(per / 2) - const(math.pi / 4)
     else:
         per = (2 * math.pi) / nh
-        ry = remainder(ry_bin * per + ry_res * (per / 2), 2 * math.pi)
-        ry = torch.where(ry > math.pi, ry - 2 * math.pi, ry)
+        ry = remainder(weak(ry_bin * per) + ry_res * const(per / 2), const(2 * math.pi))
+        ry = torch.where(ry > const(math.pi), ry - const(2 * math.pi), ry)
     off += 2 * nh
     hwl = pred[:, off:off + 3] * anchor_size + anchor_size
     x, z = pos_x, pos_z

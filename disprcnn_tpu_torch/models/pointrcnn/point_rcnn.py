@@ -35,6 +35,17 @@ rcnn_enabled (RCNN.ENABLED), JAX's names and defaults:
   top-k, NMS, IoU or in-box decisions, nor the segmentation mask. The
   reference runs this under torch.no_grad().
 rpn_fixed with no RCNN has nothing to train and raises in train mode.
+
+The compute dtype (``dtype``, TPU.COMPUTE_DTYPE): float32, or bfloat16 as
+the JAX package's ``PointRCNN(dtype=jnp.bfloat16)`` computes, eval only (a
+bf16 PointRCNN in train mode raises; ROADMAP A8.4). In bf16 the anchor is
+the mean size rounded to bf16 (point_rcnn.py:69: for the car (1.5234375,
+1.625, 3.890625)), the RPN and the RCNN compute in bf16 (pointnet2.py,
+rpn3d.py and rcnn3d.py), the segmentation mask is jax.nn.sigmoid's bf16
+arithmetic on the bf16 scores compared with the threshold in bf16
+(point_rcnn.py:113), and box3d comes out float32, score3d bf16, random
+bool, as JAX's do. The clouds, the proposals' boxes and the lift stay
+float32.
 """
 from __future__ import annotations
 
@@ -45,7 +56,7 @@ from torch import nn
 
 from . import bbox3d_codec as codec
 from . import lift, rcnn3d, rpn3d
-from .pointnet2 import SA_MIN_C0
+from .pointnet2 import BF16, SA_MIN_C0, sigmoid
 
 MEAN_SIZE = (1.52563191462, 1.62856739989, 3.88311640418)  # h, w, l
 ROI_BLOCK = 6400  # disprcnn_tpu point_rcnn._roi_blocks, the shipped cap
@@ -69,8 +80,10 @@ class PointRCNN(nn.Module):
                  rcnn_loss_cls: str = "BinaryCrossEntropy", aug_data: bool = True,
                  fg_aug_times: int = rcnn3d.FG_AUG_TIMES,
                  aug_rot_range: float = rcnn3d.AUG_ROT_RANGE,
-                 rpn_nms_thresh_train: Optional[float] = None):
+                 rpn_nms_thresh_train: Optional[float] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.rpn_nms_rotated, self.rpn_distance_based = rpn_nms_rotated, rpn_distance_based
         if rpn_loss_cls not in rpn3d.RPN_LOSS_CLS:
             raise ValueError(f"rpn_loss_cls {rpn_loss_cls!r}: one of {rpn3d.RPN_LOSS_CLS}")
@@ -84,7 +97,7 @@ class PointRCNN(nn.Module):
             aug_rot_range
         self.npoints = npoints
         self.rcnn_enabled = rcnn_enabled
-        self.register_buffer("anchor", torch.tensor(mean_size, dtype=torch.float32),
+        self.register_buffer("anchor", torch.tensor(mean_size, dtype=torch.float32).to(dtype),
                              persistent=False)
         self.rpn_codec = rpn_codec
         self.rpn_score_thresh = rpn_score_thresh
@@ -100,10 +113,10 @@ class PointRCNN(nn.Module):
         self.rpn_nms_thresh_train = rpn_nms_thresh_train
         self.rcnn_rois_per_instance = rcnn_rois_per_instance
         self.rpn = rpn3d.RPN3D(codec_cfg=rpn_codec, use_bn=rpn_use_bn, npoints=sa_npoints,
-                               sa_min_c0=sa_min_c0, kernels_off=kernels_off)
+                               sa_min_c0=sa_min_c0, kernels_off=kernels_off, dtype=dtype)
         if rcnn_enabled:
             self.rcnn = rcnn3d.RCNNNet(rpn_channels=self.rpn.backbone.out_channels,
-                                       sa_min_c0=sa_min_c0, kernels_off=kernels_off)
+                                       sa_min_c0=sa_min_c0, kernels_off=kernels_off, dtype=dtype)
         self.eval()  # train mode only on request (model.train())
 
     def forward(self, pts: torch.Tensor, roi_valid: torch.Tensor, angles: torch.Tensor,
@@ -119,6 +132,9 @@ class PointRCNN(nn.Module):
         (not rpn_fixed) the RPN's dropout masks rpn_draws -> loss_rpn_cls,
         loss_rpn_reg."""
         train = self.training
+        if train and self.dtype == BF16:
+            raise NotImplementedError("a bf16 PointRCNN trains only once its bf16 train forms "
+                                      "are ported (ROADMAP A8.4): build it to train in float32")
         self.rpn.train(train and not self.rpn_fixed)
         if train:
             if gt_boxes3d is None or gt_ok is None:
@@ -144,7 +160,8 @@ class PointRCNN(nn.Module):
         rois = _decanon_rois(rois_c, angles, pts_mean)
         prop_valid = prop_valid & roi_valid[:, None]
         xyz_rect = lift.decanonicalize(rpn_out["xyz"], angles, pts_mean)
-        seg_mask = (torch.sigmoid(rpn_out["cls"]) > self.rpn_score_thresh).to(pts.dtype)
+        cls = rpn_out["cls"]
+        seg_mask = (sigmoid(cls) > self.rpn_score_thresh).to(cls.dtype)
         # proposal blocks bound the live (R * k / nb, 512, 133) activations
         nb = _roi_blocks(r, k, self.roi_block)
         mb = k // nb
@@ -196,7 +213,7 @@ class PointRCNN(nn.Module):
             nms_thresh=self.rpn_nms_thresh_train or self.rpn_nms_thresh)
         rois = _decanon_rois(rois_c, angles, pts_mean)
         xyz_rect = lift.decanonicalize(rpn_out["xyz"], angles, pts_mean)
-        seg_mask = (torch.sigmoid(rpn_out["cls"]) > self.rpn_score_thresh).to(pts.dtype)
+        seg_mask = (sigmoid(rpn_out["cls"]) > self.rpn_score_thresh).to(pts.dtype)
         pts_input, cls_label, reg_mask, gt_ct, _, _ = rcnn3d.prepare_rcnn_train_inputs(
             rois, prop_valid & roi_valid[:, None], gt_boxes3d, gt_ok & roi_valid, xyz_rect,
             rpn_out["features"], seg_mask, draws,

@@ -54,6 +54,23 @@ In train mode:
   gate has ``not train``, pointnet2.py:481-487).
 
 No kernel of rows 10-13 runs in a train-mode MLP with BN.
+
+The compute dtype (``dtype``, TPU.COMPUTE_DTYPE): float32, or bfloat16 as
+the JAX package's ``Pointnet2MSG(dtype=jnp.bfloat16)`` computes, eval
+only; the parameters stay float32. In bf16 the plain layers run at Flax's
+rounding points (``dense``, ``SharedMLP.norm``): each dense layer's input
+and weight rounded to bf16, the exact products summed in float32 and
+rounded once to bf16, then the bias (rounded to bf16) added in bf16 (Flax
+adds it after the product has been rounded, so no fused addmm); eval BN
+in float32 from the bf16 input, rounded once (``psmnet.bn_eval``); ReLU
+and the max on bf16. mlp0's xyz columns on the centred offsets are JAX's
+unrolled K = 3 sum (pointnet2.py:69-80): the offsets formed in float32 and
+rounded to bf16, three bf16 products and two bf16 adds, (t0 + t1) + t2;
+its feature columns ``v`` a bf16 dense layer, then + b0 in bf16
+(pointnet2.py:298-301). The kernels take their bf16 forms (rows 10 and 13:
+ops/cuda/sa.py and fp.py); the pool route's bf16 x has a plain version
+only (row 12's kernel, ROADMAP A8.3b: it raises on the card). The points
+stay float32 throughout, as JAX keeps them.
 """
 from __future__ import annotations
 
@@ -68,6 +85,8 @@ from ...ops.cuda.sa import sa_ball_mlp_max, sa_ball_mlp_max_train
 from ...ops.points import (ball_query, fps_or_identity, gather_points, group_points,
                            three_interpolate, three_nn, three_nn_interpolate_weights)
 from ..psmnet.psmnet import batch_norm_train
+
+BF16 = torch.bfloat16
 
 BN_EPS = 1e-5
 SA_MIN_C0 = 64  # disprcnn_tpu pointnet2._sa_min_c0, the shipped gate
@@ -95,16 +114,41 @@ def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     return (x - bn.running_mean) * (torch.rsqrt(bn.running_var + BN_EPS) * bn.weight) + bn.bias
 
 
+def product_bf16(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """x @ weight.t() as a bf16 dot: x and the (out, in) weight rounded to
+    bf16, their exact products summed in float32, rounded once to bf16."""
+    return (x.to(BF16).float() @ weight.to(BF16).float().t()).to(BF16)
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Flax's nn.Dense at the compute dtype: float32 through the layer; bf16
+    as product_bf16, then the bias rounded to bf16 and added in bf16 (the
+    module doc)."""
+    if dtype != BF16:
+        return layer(x)
+    y = product_bf16(x, layer.weight)
+    return y if layer.bias is None else y + layer.bias.to(BF16)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.sigmoid at x's dtype: torch.sigmoid for float32; for bf16 its
+    lowering 1 / (1 + exp(-x)), each operation rounded to bf16."""
+    return 1.0 / (1.0 + torch.exp(-x)) if x.dtype == BF16 else torch.sigmoid(x)
+
+
 class SharedMLP(nn.Module):
     """Dense (+ BatchNorm: running statistics in eval, batch statistics in
     train) + ReLU layers over the last axis. ``mlp0`` takes ``in_channels``
     inputs; with BN the dense layers have no bias. Built in eval mode, as
-    the JAX modules default to train=False."""
+    the JAX modules default to train=False. ``dtype`` is the compute dtype
+    (float32, or bf16 in eval: the module doc)."""
 
-    def __init__(self, channels: Sequence[int], in_channels: int, use_bn: bool = True):
+    def __init__(self, channels: Sequence[int], in_channels: int, use_bn: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.channels = tuple(channels)
         self.use_bn = use_bn
+        self.dtype = dtype
         cin = in_channels
         for i, c in enumerate(self.channels):
             setattr(self, f"mlp{i}", nn.Linear(cin, c, bias=not use_bn))
@@ -126,7 +170,9 @@ class SharedMLP(nn.Module):
         if not self.use_bn:
             return x
         bn = getattr(self, f"bn{i}")
-        return batch_norm_train(bn, x, axis=-1) if self.training else batch_norm_eval(bn, x)
+        if self.training:
+            return batch_norm_train(bn, x, axis=-1)
+        return batch_norm_eval(bn, x).to(x.dtype)
 
     def folded_chain(self, start: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """[(W (Ci, Co), b (Co,))] of layers start.., the eval BN folded in,
@@ -143,7 +189,7 @@ class SharedMLP(nn.Module):
 
     def layers_from(self, x: torch.Tensor, start: int) -> torch.Tensor:
         for i in range(start, len(self.channels)):
-            x = torch.relu(self.norm(i, self.dense(i)(x)))
+            x = torch.relu(self.norm(i, dense(self.dense(i), x, self.dtype)))
         return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -152,17 +198,20 @@ class SharedMLP(nn.Module):
 
 def grouped_preactivation(xyz: torch.Tensor, v: Optional[torch.Tensor], new_xyz: torch.Tensor,
                           w0x: torch.Tensor, b0: Optional[torch.Tensor], radius: float,
-                          nsample: int) -> torch.Tensor:
+                          nsample: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """mlp0 over each ball, factored: v (mlp0's feature columns applied at
     the source points, plus its bias) gathered, plus the xyz columns w0x (3,
     C0) on the centred offsets; without features the xyz term plus b0 ->
-    (B, M, S, C0)."""
+    (B, M, S, C0). In bf16 the offsets and w0x are rounded to bf16 and each
+    operation of the term rounds (the module doc)."""
     idx = ball_query(new_xyz, xyz, radius, nsample)
     gx = group_points(xyz, idx) - new_xyz[:, :, None, :]
+    if dtype == BF16:
+        gx, w0x = gx.to(BF16), w0x.to(BF16)
     term = (gx[..., 0:1] * w0x[0] + gx[..., 1:2] * w0x[1]) + gx[..., 2:3] * w0x[2]
     if v is not None:
         return group_points(v, idx) + term
-    return term if b0 is None else term + b0
+    return term if b0 is None else term + b0.to(term.dtype)
 
 
 def ball_mlp_max(mlp: SharedMLP, xyz: torch.Tensor, features: Optional[torch.Tensor],
@@ -173,12 +222,13 @@ def ball_mlp_max(mlp: SharedMLP, xyz: torch.Tensor, features: Optional[torch.Ten
     w0 = mlp.dense(0).weight  # (C0, 3 + C)
     b0 = mlp.dense(0).bias
     c0 = mlp.channels[0]
+    dt = mlp.dtype
     gated = c0 >= sa_min_c0
     v = None
     if features is not None:
-        v = features @ w0[:, 3:].t()
+        v = product_bf16(features, w0[:, 3:]) if dt == BF16 else features @ w0[:, 3:].t()
         if b0 is not None:
-            v = v + b0
+            v = v + b0.to(v.dtype)
     w0x = w0[:, :3].t()
     trains_bn = mlp.training and mlp.use_bn
     if gated and not trains_bn and (mlp.training or "sa" not in kernels_off) and v is not None:
@@ -194,10 +244,10 @@ def ball_mlp_max(mlp: SharedMLP, xyz: torch.Tensor, features: Optional[torch.Ten
         outs = []
         for lo in range(0, b, step):
             x = grouped_preactivation(xyz[lo:lo + step], None if v is None else v[lo:lo + step],
-                                      new_xyz[lo:lo + step], w0x, b0, radius, nsample)
+                                      new_xyz[lo:lo + step], w0x, b0, radius, nsample, dt)
             outs.append(grouped_mlp_max(x.reshape(-1, nsample, c0), mul0, add0, weights))
         return torch.cat(outs, 0).reshape(b, m, -1)
-    x = grouped_preactivation(xyz, v, new_xyz, w0x, b0, radius, nsample)
+    x = grouped_preactivation(xyz, v, new_xyz, w0x, b0, radius, nsample, dt)
     x = torch.relu(mlp.norm(0, x))
     return mlp.layers_from(x, 1).amax(dim=2)
 
@@ -215,13 +265,14 @@ class SAModuleMSG(nn.Module):
 
     def __init__(self, npoint: int, radii: Sequence[float], nsamples: Sequence[int],
                  mlps: Sequence[Sequence[int]], in_features: int, use_bn: bool = True,
-                 sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset()):
+                 sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.npoint, self.radii, self.nsamples = npoint, tuple(radii), tuple(nsamples)
         self.sa_min_c0 = sa_min_c0
         self.kernels_off = kernel_tags(kernels_off)
         for i, mlp in enumerate(mlps):
-            setattr(self, f"mlp_scale{i}", SharedMLP(mlp, 3 + in_features, use_bn))
+            setattr(self, f"mlp_scale{i}", SharedMLP(mlp, 3 + in_features, use_bn, dtype))
         self.out_channels = sum(m[-1] for m in mlps)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor]):
@@ -239,12 +290,13 @@ class SAModule(nn.Module):
 
     def __init__(self, npoint: Optional[int], radius: Optional[float],
                  nsample: Optional[int], mlp: Sequence[int], in_features: int,
-                 use_bn: bool = True, sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset()):
+                 use_bn: bool = True, sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.sa_min_c0 = sa_min_c0
         self.kernels_off = kernel_tags(kernels_off)
-        self.mlp = SharedMLP(mlp, 3 + in_features, use_bn)
+        self.mlp = SharedMLP(mlp, 3 + in_features, use_bn, dtype)
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor]):
         if self.npoint is None:
@@ -262,9 +314,9 @@ class FPModule(nn.Module):
     the skip features, SharedMLP."""
 
     def __init__(self, mlp: Sequence[int], in_channels: int, use_bn: bool = True,
-                 kernels_off=frozenset()):
+                 kernels_off=frozenset(), dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.mlp = SharedMLP(mlp, in_channels, use_bn)
+        self.mlp = SharedMLP(mlp, in_channels, use_bn, dtype)
         self.kernels_off = kernel_tags(kernels_off)
 
     def forward(self, unknown, known, unknown_feats, known_feats):
@@ -298,19 +350,20 @@ class Pointnet2MSG(nn.Module):
                  fp_mlps: Sequence[Sequence[int]] = ((128, 128), (256, 256), (512, 512),
                                                      (512, 512)),
                  in_features: int = 0, use_bn: bool = True, sa_min_c0: int = SA_MIN_C0,
-                 kernels_off=frozenset()):
+                 kernels_off=frozenset(), dtype: torch.dtype = torch.float32):
         super().__init__()
         levels = len(npoints)
         self.levels = levels
         feat = [in_features]
         for k in range(levels):
             sa = SAModuleMSG(npoints[k], radii[k], nsamples[k], mlps[k], feat[k], use_bn,
-                             sa_min_c0, kernels_off)
+                             sa_min_c0, kernels_off, dtype)
             setattr(self, f"sa{k}", sa)
             feat.append(sa.out_channels)
         for i in range(levels - 1, -1, -1):
             known = feat[levels] if i == levels - 1 else fp_mlps[i + 1][-1]
-            setattr(self, f"fp{i}", FPModule(fp_mlps[i], known + feat[i], use_bn, kernels_off))
+            setattr(self, f"fp{i}", FPModule(fp_mlps[i], known + feat[i], use_bn, kernels_off,
+                                             dtype))
         self.out_channels = fp_mlps[0][-1]
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None):

@@ -25,6 +25,17 @@ jax.random inside; here every draw is an input, an ``RCNNDraws``
 Where the pooled points or features carry a gradient (the RPN and RCNN
 trained in one step), the pooling takes row 14's train form
 (``roipool3d_train``); otherwise its eval kernel.
+
+At the compute dtype bf16 (eval; ``RCNNNet(dtype=torch.bfloat16)``) the
+RPN's features and segmentation mask are bf16, as JAX's are: the pooling
+takes row 14's bf16 read (``roipool3d_bf16``: the mask and the depth in
+float32, as JAX's concat promotes them, the features widened in the
+gather), and the pooled input stays float32 (bf16-exact features); the
+RCNN's dense layers, SA scales and heads compute as pointnet2.py's module
+doc says, and cls and reg come out bf16. ``rcnn_postprocess`` takes them
+as JAX's does: jax.nn.sigmoid's bf16 arithmetic (pointnet2.sigmoid), the
+threshold and the -1e10 fill compared in bf16, ties to the first, the
+decoded boxes float32, the score bf16.
 """
 from __future__ import annotations
 
@@ -35,7 +46,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ...ops.cuda.roipool3d import roipool3d, roipool3d_train
+from ...ops.cuda.roipool3d import roipool3d, roipool3d_bf16, roipool3d_train
 from ...ops.iou import iou3d
 from ...ops.losses import binary_cross_entropy, sigmoid_focal_loss_binary
 from ...ops.roipool3d import enlarge_box3d
@@ -43,7 +54,7 @@ from ...ops.topk_select import topk_scores
 from ...parallel.mesh import sum_over_ranks
 from ...structures.boxes3d import rotate_points_along_y
 from . import bbox3d_codec as codec
-from .pointnet2 import SA_MIN_C0, SAModule, SharedMLP
+from .pointnet2 import BF16, SA_MIN_C0, SAModule, SharedMLP, dense, sigmoid
 
 RCNN_CODEC = codec.CodecCfg(loc_scope=1.5, loc_bin_size=0.5, num_head_bin=9, xz_fine=True,
                             ry_fine=True)
@@ -58,17 +69,19 @@ class RCNNNet(nn.Module):
                                                      (256, 256, 512)),
                  cls_fc: Sequence[int] = (256, 256), reg_fc: Sequence[int] = (256, 256),
                  rpn_channels: int = 128, input_extra: int = 2, sa_min_c0: int = SA_MIN_C0,
-                 kernels_off=frozenset()):
+                 kernels_off=frozenset(), dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.nc_in = 3 + input_extra
-        self.xyz_up = SharedMLP(xyz_up, self.nc_in, use_bn=False)
-        self.merge_down = SharedMLP((xyz_up[-1],), xyz_up[-1] + rpn_channels, use_bn=False)
+        self.xyz_up = SharedMLP(xyz_up, self.nc_in, use_bn=False, dtype=dtype)
+        self.merge_down = SharedMLP((xyz_up[-1],), xyz_up[-1] + rpn_channels, use_bn=False,
+                                    dtype=dtype)
         feat = xyz_up[-1]
         self.n_sa = len(sa_npoints)
         for i, (npt, r, ns, mlp) in enumerate(zip(sa_npoints, sa_radius, sa_nsample, sa_mlps)):
             setattr(self, f"sa{i}", SAModule(None if npt == -1 else npt, r, ns, mlp, feat,
                                              use_bn=False, sa_min_c0=sa_min_c0,
-                                             kernels_off=kernels_off))
+                                             kernels_off=kernels_off, dtype=dtype))
             feat = mlp[-1]
         self.cls_fc, self.reg_fc = tuple(cls_fc), tuple(reg_fc)
         for name, hidden, out in (("cls", cls_fc, 1), ("reg", reg_fc, RCNN_CODEC.reg_channels)):
@@ -80,8 +93,8 @@ class RCNNNet(nn.Module):
 
     def _head(self, x: torch.Tensor, name: str, hidden) -> torch.Tensor:
         for i in range(len(hidden)):
-            x = torch.relu(getattr(self, f"{name}_fc{i}")(x))
-        return getattr(self, f"{name}_out")(x)
+            x = torch.relu(dense(getattr(self, f"{name}_fc{i}"), x, self.dtype))
+        return dense(getattr(self, f"{name}_out"), x, self.dtype)
 
     def forward(self, pts_input: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """pts_input (B, P, 5 + C_rpn) -> (cls (B,), reg (B, C))."""
@@ -96,11 +109,17 @@ class RCNNNet(nn.Module):
 
 def _pool(xyz, rpn_feats, seg_mask, rois, num_points, pool_extra_width):
     """Points and [seg_mask, depth / 70 - 0.5, rpn features] pooled in the
-    enlarged rois (R, M, 7) -> pooled (R, M, num_points, 3 + 2 + C), empty."""
+    enlarged rois (R, M, 7) -> pooled (R, M, num_points, 3 + 2 + C) float32,
+    empty. bf16 rpn features take row 14's bf16 read, the mask and depth
+    float32 beside them."""
     norm = torch.linalg.vector_norm(xyz, dim=-1)
     depth = norm / torch.full_like(norm, 70.0) - 0.5  # a division, not a reciprocal multiply
-    feats = torch.cat([seg_mask[..., None], depth[..., None], rpn_feats], dim=-1).contiguous()
     grown = enlarge_box3d(rois, pool_extra_width).contiguous()
+    if rpn_feats.dtype == BF16:
+        extra = torch.stack([seg_mask.float(), depth], dim=-1).contiguous()
+        return roipool3d_bf16(xyz.contiguous(), extra, rpn_feats.contiguous(), grown,
+                              num_points)
+    feats = torch.cat([seg_mask[..., None], depth[..., None], rpn_feats], dim=-1).contiguous()
     pool = roipool3d_train if torch.is_grad_enabled() and feats.requires_grad else roipool3d
     return pool(xyz.contiguous(), feats, grown.detach(), num_points)
 
@@ -132,7 +151,7 @@ def rcnn_postprocess(cls_pred: torch.Tensor, reg_pred: torch.Tensor, rois: torch
     flat = rois.reshape(r * m, 7)
     boxes = codec.decode(flat[:, 0:3], reg_pred.reshape(r * m, -1), anchor_size, RCNN_CODEC,
                          base_ry=flat[:, 6]).reshape(r, m, 7)
-    ok = (torch.sigmoid(cls_pred) > score_thresh) & roi_valid
+    ok = (sigmoid(cls_pred) > score_thresh) & roi_valid
     neg = torch.full_like(cls_pred, -1e10)
     best = torch.argmax(torch.where(ok, cls_pred, neg), dim=1)
     fallback = torch.argmax(torch.where(roi_valid, roi_scores, neg), dim=1)

@@ -6,6 +6,13 @@ In train mode the heads' BN takes batch statistics (Flax's, as
 ``batch_norm_train`` computes them) and the dropout after each head's
 first layer keeps the entries of an input mask (``RPNDraws``, drawn by
 ``draw_rpn_draws``): every train-time random draw is an input.
+
+At the compute dtype bf16 (eval) the backbone and the heads compute as
+pointnet2.py's module doc says (Flax's nn.Dense and BatchNorm at
+dtype=bfloat16), and cls and reg come out bf16, as JAX's do; the points
+stay float32. The proposal layers take those bf16 scores as JAX's do:
+ranked in bf16 (ties to the lowest index), the decoded boxes float32
+(bbox3d_codec.decode).
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ from ...parallel.mesh import sum_over_ranks
 from ...parallel.multihost import process_count
 from ..psmnet.psmnet import batch_norm_train
 from . import bbox3d_codec as codec
-from .pointnet2 import BN_EPS, SA_MIN_C0, Pointnet2MSG, batch_norm_eval
+from .pointnet2 import BN_EPS, SA_MIN_C0, Pointnet2MSG, batch_norm_eval, dense
 
 DP_RATIO = 0.5  # RPN.DP_RATIO (config/defaults.py:229)
 
@@ -52,9 +59,10 @@ class ConvHead(nn.Module):
     after the first (train mode: the kept entries scaled by 1 / (1 -
     DP_RATIO), the others 0), then ``out``."""
 
-    def __init__(self, hidden: Sequence[int], out: int, in_channels: int, use_bn: bool = True):
+    def __init__(self, hidden: Sequence[int], out: int, in_channels: int, use_bn: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.hidden, self.use_bn = tuple(hidden), use_bn
+        self.hidden, self.use_bn, self.dtype = tuple(hidden), use_bn, dtype
         cin = in_channels
         for i, c in enumerate(self.hidden):
             setattr(self, f"fc{i}", nn.Linear(cin, c, bias=not use_bn))
@@ -71,14 +79,15 @@ class ConvHead(nn.Module):
         if dropout and keep is None:
             raise ValueError("train-mode dropout needs its keep mask")
         for i in range(len(self.hidden)):
-            x = getattr(self, f"fc{i}")(x)
+            x = dense(getattr(self, f"fc{i}"), x, self.dtype)
             if self.use_bn:
                 bn = getattr(self, f"bn{i}")
-                x = batch_norm_train(bn, x, axis=-1) if self.training else batch_norm_eval(bn, x)
+                x = (batch_norm_train(bn, x, axis=-1) if self.training
+                     else batch_norm_eval(bn, x).to(x.dtype))
             x = torch.relu(x)
             if i == 0 and dropout:
                 x = torch.where(keep, x / (1.0 - DP_RATIO), torch.zeros_like(x))
-        return self.out(x)
+        return dense(self.out, x, self.dtype)
 
 
 class RPN3D(nn.Module):
@@ -87,13 +96,14 @@ class RPN3D(nn.Module):
     def __init__(self, codec_cfg: codec.CodecCfg = codec.CodecCfg(),
                  cls_fc: Sequence[int] = (128,), reg_fc: Sequence[int] = (128,),
                  use_bn: bool = True, npoints: Sequence[int] = (4096, 1024, 256, 64),
-                 sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset()):
+                 sa_min_c0: int = SA_MIN_C0, kernels_off=frozenset(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.backbone = Pointnet2MSG(npoints=npoints, use_bn=use_bn, sa_min_c0=sa_min_c0,
-                                     kernels_off=kernels_off)
+                                     kernels_off=kernels_off, dtype=dtype)
         c = self.backbone.out_channels
-        self.cls_head = ConvHead(cls_fc, 1, c, use_bn)
-        self.reg_head = ConvHead(reg_fc, codec_cfg.reg_channels, c, use_bn)
+        self.cls_head = ConvHead(cls_fc, 1, c, use_bn, dtype)
+        self.reg_head = ConvHead(reg_fc, codec_cfg.reg_channels, c, use_bn, dtype)
         self.eval()
 
     def forward(self, pts: torch.Tensor,

@@ -47,9 +47,10 @@ both; their eval BN is Flax's ``BatchNorm(dtype=bfloat16)``
 from the bf16 input, rounded once to bf16; the residual adds, ReLUs, the
 SPP's average pool and its align-corners upsample (interpolation matrices
 in bf16, as JAX builds them in x.dtype) are bf16 ops, each rounded once.
-One rounding point differs from JAX: layer2's first block's second conv
-(3x3, 64 channels, stride 1) is the 2D kernel here, where JAX's unpacked
-route leaves it to XLA (conv, BN and residual each rounded). DispModule's
+A block that downsamples (layer2's first: JAX runs it unpacked, with no
+W-packed kernel) takes its second conv (3x3, 64 channels, stride 1) the
+XLA way in bf16 too: the cuDNN conv, ``bn_eval`` and the residual add,
+each rounded (ROADMAP C40); in float32 it stays the 2D kernel. DispModule's
 trunk stays float32 (ROADMAP A8.2), and training is float32 (A8.4).
 
 Train mode (``self.training``, psmnet.py:529-579, :691-709, :962-1020):
@@ -199,6 +200,10 @@ class BasicBlock(nn.Module):
         if downsample:
             self.Conv_0 = nn.Conv2d(cin, planes, 1, stride, bias=False)
             self.BatchNorm_0 = nn.BatchNorm2d(planes, eps=BN_EPS)
+            # JAX packs no block that downsamples: its second conv is XLA's,
+            # each op rounded, in a bf16 model (the module doc, ROADMAP C40)
+            if dtype == torch.bfloat16:
+                self.ConvBN_1.fused = False
         self.downsample = downsample
         self.eval()
 

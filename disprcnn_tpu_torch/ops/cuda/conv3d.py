@@ -612,12 +612,16 @@ def bf16_agreement(got: torch.Tensor, want: torch.Tensor, floor=None) -> dict:
     difference of the float32 sums before the rounding, which exceeds a
     step where the sums cancel to much less than their terms), "max_ulps"
     (bf16_ulps over all elements) and "max_ulps_clear" (over the elements
-    whose floor is under a step)."""
+    whose floor is under a step and whose two values share a binade: two
+    values either side of a power of two, or of zero, are a step of the
+    larger apart in more than one representable value, and "beyond" holds
+    them)."""
     ulps = bf16_ulps(got, want)
-    diff = (got.float() - want.float()).abs()
-    step = bf16_step(torch.maximum(got.float().abs(), want.float().abs()))
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    step = bf16_step(torch.maximum(g.abs(), w.abs()))
     floor = torch.zeros_like(step) if floor is None else torch.as_tensor(floor).expand_as(step)
-    clear = floor < step
+    clear = (floor < step) & (bf16_step(g) == bf16_step(w)) & ((g < 0) == (w < 0))
     return {"equal": float((ulps == 0).float().mean()), "beyond": int((diff > step + floor).sum()),
             "max_ulps": int(ulps.max()),
             "max_ulps_clear": int(ulps[clear].max()) if bool(clear.any()) else 0}

@@ -23,6 +23,14 @@ Its weights are split and laid out as the kernel's shared-memory image by
 one launch before it (``pack_wgmma_chain_cuda``, whose plain version is
 ``pack_wgmma_chain``), in chunks of the launch plan's width
 (``launch_plan``).
+
+A bf16 x (a bf16 model's SA-off route) follows the TPU kernel
+(grouped_mlp.py:26-40): the affine x * mul0 + add0 and the ReLU in float32,
+rounded to bf16, then the chain on bf16 weights with float32 sums, each
+layer rounded to bf16, and the max; bf16 out. Its plain version is
+``grouped_mlp_max_bf16_plain``. It has no kernel yet (ROADMAP A8.3b): on
+the card a bf16 x raises NotImplementedError rather than being cast to
+reach the float32 kernel.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ import torch
 
 from . import build
 from .conv3d import split_tf32
-from .sa import MAX_LAYERS, _check, mlp_chain, mlp_chain_3xtf32
+from .sa import BF16, MAX_LAYERS, _check, mlp_chain, mlp_chain_3xtf32, mlp_chain_bf16
 
 # Launches of the CUDA kernel in this process; a caller may reset it to 0
 # around a run it wants to count.
@@ -94,6 +102,22 @@ def grouped_mlp_max_3xtf32_plain(x: torch.Tensor, mul0: torch.Tensor, add0: torc
     """grouped_mlp_max_plain with each product of the chain in the kernel's
     3xTF32 arithmetic (sa.py::mlp_chain_3xtf32)."""
     return grouped_mlp_max_plain(x, mul0, add0, weights, chain=mlp_chain_3xtf32)
+
+
+def grouped_mlp_max_bf16_plain(x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor,
+                               weights: Weights) -> torch.Tensor:
+    """The bf16 form's plain version: x (G, S, C0) bf16, the affine and ReLU
+    in float32 rounded to bf16, the chain in mlp_chain_bf16's arithmetic,
+    the max over each group -> (G, C_last) bf16 (mul0, add0 and the weights
+    float32)."""
+    _check_layers(weights)
+    g, s, c0 = x.shape
+    widest = max([c0] + [w.shape[1] for w, _ in weights])
+    step = max(1, PLAIN_CHUNK_ELEMS // (s * widest))
+    outs = [mlp_chain_bf16(torch.relu(x[lo:lo + step].float() * mul0 + add0).to(BF16),
+                           weights).amax(dim=1)
+            for lo in range(0, g, step)]
+    return torch.cat(outs, 0)
 
 
 def _pad(c: int) -> int:
@@ -222,7 +246,16 @@ def grouped_mlp_max_cuda(x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor
 
 def grouped_mlp_max(x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor,
                     weights: Weights) -> torch.Tensor:
-    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    """Kernel for CUDA tensors, plain version for CPU tensors; a bf16 x takes
+    the bf16 plain version on the CPU and raises on the card (no bf16 kernel
+    yet, ROADMAP A8.3b)."""
+    if x.dtype == BF16:
+        if x.is_cuda:
+            raise NotImplementedError(
+                "grouped_mlp_max on a bf16 x (the SA-off route of a bf16 model): row 12's bf16 "
+                "kernel is not ported yet (ROADMAP A8.3b); build the model at "
+                "TPU.COMPUTE_DTYPE float32 or leave the SA family on")
+        return grouped_mlp_max_bf16_plain(x, mul0, add0, weights)
     if x.is_cuda:
         return grouped_mlp_max_cuda(x, mul0, add0, weights)
     return grouped_mlp_max_plain(x, mul0, add0, weights)

@@ -18,6 +18,16 @@ staged in shared memory and written by TMA bulk stores), wherever its
 ring of chunks fits in shared memory, else "direct" (each row stored from
 registers); ``_launch(..., route=...)`` forces one.
 
+A bf16 model's features come in two parts (``roipool3d_bf16``): E float32
+channels (the RCNN's seg mask and depth, float32 as the JAX concat gives
+them) and C bf16 channels (the RPN's features); each row is [xyz, the
+float32 channels, the bf16 channels widened], float32, bit-equal to the
+float32 form on the widened features (the TPU kernel's bf16 channels ride
+its gather exactly). On the card it launches csrc/roipool3d.cu's bf16 form
+(``roipool3d_bf16_cuda``, counted in ``launches_bf16``), which widens in
+the gather, so no float32 copy of the features is made; its plain version
+``roipool3d_bf16_plain`` widens them and takes the float32 plain version.
+
 The train form ``roipool3d_train`` (the RCNN and RPN trained in one step,
 where the pooled points and features carry the RPN's gradient) is a
 ``torch.autograd.Function``: the same kernel as its forward (launch point
@@ -39,13 +49,17 @@ from . import build
 from .sa import _check
 
 __all__ = ["roipool3d", "roipool3d_cuda", "roipool3d_plain", "roipool3d_train",
-           "roipool3d_train_cuda", "roipool3d_backward_plain"]
+           "roipool3d_train_cuda", "roipool3d_backward_plain", "roipool3d_bf16",
+           "roipool3d_bf16_cuda", "roipool3d_bf16_plain"]
 
-# Launches of the CUDA kernel in this process, by the eval wrapper and by
-# the train form's forward; a caller may reset them to 0 around a run it
-# wants to count.
+# Launches of the CUDA kernel in this process, by the eval wrapper, by the
+# train form's forward and by the bf16 form; a caller may reset them to 0
+# around a run it wants to count.
 launches = 0
 train_launches = 0
+launches_bf16 = 0
+
+BF16 = torch.bfloat16
 
 MAX_S = 8192
 # the kernel's routes by the number its C interface takes (0: its own plan)
@@ -58,27 +72,34 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.roipool3d_cuda.argtypes = [p, p, p, p, i, i, i, i, i, f, i, p, p, p, i]
         lib.roipool3d_cuda.restype = i
+        lib.roipool3d_bf16_cuda.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, p, p, p, i]
+        lib.roipool3d_bf16_cuda.restype = i
         lib.roipool3d_error_string.argtypes = [i]
         lib.roipool3d_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _launch(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
-            sampled_pts_num: int = 512, max_dis: float = 10.0, route: str = None):
+            sampled_pts_num: int = 512, max_dis: float = 10.0, route: str = None,
+            bf16_feats: torch.Tensor = None):
     """Launch csrc/roipool3d.cu on the current stream on `route` ("bulk",
     "direct", or None: the kernel's plan); same contract as
-    roipool3d_plain. Every tensor float32, contiguous, on one card. The
-    callers count the launch."""
+    roipool3d_plain. Every tensor float32, contiguous, on one card; with
+    `bf16_feats` (B, N, C) bf16 the bf16 form, `feats` then the E float32
+    channels that come first. The callers count the launch."""
     if route is not None and route not in ROUTES:
         raise ValueError(f"route must be one of {sorted(ROUTES)}, got {route!r}")
-    build.forward_only("roipool3d_cuda", pts, feats)
+    build.forward_only("roipool3d_cuda", pts, feats, bf16_feats)
     if not pts.is_cuda:
         raise ValueError(f"pts must be on a CUDA device, got {pts.device}")
     dev = pts.device
     b, n = pts.shape[:2]
-    m, c = boxes3d.shape[1], feats.shape[-1]
+    m, e = boxes3d.shape[1], feats.shape[-1]
+    c = e if bf16_feats is None else bf16_feats.shape[-1]
     _check("pts", pts, (b, n, 3), dev)
-    _check("feats", feats, (b, n, c), dev)
+    _check("feats", feats, (b, n, e), dev)
+    if bf16_feats is not None:
+        _check("bf16_feats", bf16_feats, (b, n, c), dev, BF16)
     _check("boxes3d", boxes3d, (b, m, 7), dev)
     if not (1 <= sampled_pts_num <= MAX_S and 1 <= b <= 65535 and n >= 1 and m >= 1):
         raise ValueError(f"need 1 <= S <= {MAX_S}, 1 <= B <= 65535, N, M >= 1; got "
@@ -86,15 +107,22 @@ def _launch(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
     ry = boxes3d[..., 6]
     cossin = torch.stack([torch.cos(ry), torch.sin(ry)], dim=-1).contiguous()
     lib = _lib()
-    out = torch.empty((b, m, sampled_pts_num, 3 + c), device=dev)
+    width = 3 + e + (0 if bf16_feats is None else c)
+    out = torch.empty((b, m, sampled_pts_num, width), device=dev)
     empty = torch.empty((b, m), dtype=torch.bool, device=dev)
-    err = lib.roipool3d_cuda(pts.data_ptr(), feats.data_ptr(), boxes3d.data_ptr(),
-                             cossin.data_ptr(), b, n, m, c, sampled_pts_num, float(max_dis),
-                             ROUTES.get(route, 0), out.data_ptr(), empty.data_ptr(),
-                             torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    tail = (float(max_dis), ROUTES.get(route, 0), out.data_ptr(), empty.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    if bf16_feats is None:
+        err = lib.roipool3d_cuda(pts.data_ptr(), feats.data_ptr(), boxes3d.data_ptr(),
+                                 cossin.data_ptr(), b, n, m, c, sampled_pts_num, *tail)
+        name = "roipool3d_cuda"
+    else:
+        err = lib.roipool3d_bf16_cuda(pts.data_ptr(), feats.data_ptr(), bf16_feats.data_ptr(),
+                                      boxes3d.data_ptr(), cossin.data_ptr(), b, n, m, e, c,
+                                      sampled_pts_num, *tail)
+        name = "roipool3d_bf16_cuda"
     if err != 0:
-        raise RuntimeError(f"roipool3d_cuda launch failed: "
-                           f"{lib.roipool3d_error_string(err).decode()}")
+        raise RuntimeError(f"{name} launch failed: {lib.roipool3d_error_string(err).decode()}")
     return out, empty
 
 
@@ -114,6 +142,36 @@ def roipool3d(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
     if pts.is_cuda:
         return roipool3d_cuda(pts, feats, boxes3d, sampled_pts_num, max_dis)
     return roipool3d_plain(pts, feats, boxes3d, sampled_pts_num, max_dis)
+
+
+def roipool3d_bf16_plain(pts: torch.Tensor, extra: torch.Tensor, feats: torch.Tensor,
+                         boxes3d: torch.Tensor, sampled_pts_num: int = 512,
+                         max_dis: float = 10.0):
+    """The bf16 form's plain version: pts (B, N, 3) and extra (B, N, E)
+    float32, feats (B, N, C) bf16 -> roipool3d_plain of [extra, feats
+    widened to float32] (pooled (B, M, S, 3 + E + C) float32, empty)."""
+    return roipool3d_plain(pts, torch.cat([extra, feats.float()], dim=-1), boxes3d,
+                           sampled_pts_num, max_dis)
+
+
+def roipool3d_bf16_cuda(pts: torch.Tensor, extra: torch.Tensor, feats: torch.Tensor,
+                        boxes3d: torch.Tensor, sampled_pts_num: int = 512,
+                        max_dis: float = 10.0):
+    """Launch csrc/roipool3d.cu's bf16 form (the bf16 channels widened in
+    the gather); same contract as roipool3d_bf16_plain."""
+    global launches_bf16
+    out = _launch(pts, extra, boxes3d, sampled_pts_num, max_dis, bf16_feats=feats)
+    launches_bf16 += 1
+    return out
+
+
+def roipool3d_bf16(pts: torch.Tensor, extra: torch.Tensor, feats: torch.Tensor,
+                   boxes3d: torch.Tensor, sampled_pts_num: int = 512, max_dis: float = 10.0):
+    """The bf16 form: kernel for CUDA tensors, plain version for CPU
+    tensors."""
+    if pts.is_cuda:
+        return roipool3d_bf16_cuda(pts, extra, feats, boxes3d, sampled_pts_num, max_dis)
+    return roipool3d_bf16_plain(pts, extra, feats, boxes3d, sampled_pts_num, max_dis)
 
 
 def roipool3d_train_cuda(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,

@@ -178,7 +178,9 @@ class Predictor:
         return pred
 
     def _predictions(self, batch, out) -> Dict[str, np.ndarray]:
-        host = lambda t: t.detach().cpu().numpy()
+        # a bf16 output (score3d of a bf16 model) widened exactly: the file
+        # holds float32, as the JAX tool writes it
+        host = lambda t: (t.float() if t.dtype == torch.bfloat16 else t).detach().cpu().numpy()
         if self.meta == "DispRCNN3D":
             valid = np.asarray(batch["pred_valid"])
             if "roi_ok" in out:

@@ -44,7 +44,7 @@ from disprcnn_tpu.ops.pallas.packed_conv import (cost_volume_conv_bn, packed_con
 from disprcnn_tpu.ops.pallas.softargmin import fused_softargmin
 from disprcnn_tpu_torch.config import get_default_cfg
 from disprcnn_tpu_torch.models import build as tbuild
-from disprcnn_tpu_torch.models.psmnet.psmnet import PSMNet
+from disprcnn_tpu_torch.models.psmnet.psmnet import BasicBlock, PSMNet, bn_eval, conv_at
 from disprcnn_tpu_torch.ops.cuda import conv3d as tconv
 from disprcnn_tpu_torch.ops.cuda import softargmin as tsam
 from disprcnn_tpu_torch.utils.weights import load_jax_variables, state_dict_from_jax
@@ -330,8 +330,9 @@ def test_idispnet_yaml_builds_bf16_and_loads_jax_bf16_variables(caplog):
     build gives PSMNet(dtype=bfloat16); JAX's bf16 model keeps float32
     parameters and statistics (TPU.PARAM_DTYPE), so state_dict_from_jax
     loads them unchanged into the port's float32 parameters. Built to
-    train, it is float32 with the pending item logged (A8.4), as is the
-    3D stage (rcnn.yaml, A8.3)."""
+    train, it is float32 with the pending item logged (A8.4); rcnn.yaml's
+    model computes in bf16 too (its 3D stage since A8.3:
+    tests/test_torch_bf16_pointrcnn.py)."""
     cfg, jcfg = get_default_cfg(), jax_default_cfg()
     for c in (cfg, jcfg):
         c.merge_from_file(IDISPNET_YAML)
@@ -359,5 +360,56 @@ def test_idispnet_yaml_builds_bf16_and_loads_jax_bf16_variables(caplog):
             == torch.float32
         rcnn = get_default_cfg()
         rcnn.merge_from_file(str(REPO / "configs/kitti/car/vob/rcnn.yaml"))
-        assert tbuild.build_detection_model(rcnn, device="meta").idispnet.dtype == torch.float32
-    assert "ROADMAP A8.4" in caplog.text and "ROADMAP A8.3" in caplog.text
+        assert tbuild.build_detection_model(rcnn, device="meta").idispnet.dtype == BF16
+    assert "ROADMAP A8.4" in caplog.text and "ROADMAP A8.3" not in caplog.text
+
+
+def test_layer2_first_block_bf16_matches_jax(torch_one_thread):
+    """ROADMAP C40: layer2's first BasicBlock (stride 2, the 1x1 downsample,
+    32 -> 64 channels) at bf16. JAX packs no block that downsamples, so its
+    second conv (3x3, 64 channels, stride 1) is XLA's on both of its routes,
+    and its source rounds the conv, the BN and the residual add each to
+    bf16. The port takes that conv the same way (cuDNN on bf16 tensors,
+    bn_eval, the bf16 add). Held to JAX's block run op by op (each op
+    rounded as the source writes it): every element within one bf16 step
+    beyond the residual add's own rounding (one step of its larger term:
+    each term is rounded before the add, on both sides, and a conv's
+    float32 sums in another order may round one to a neighbouring value).
+    Printed: how far the former route (row 7's bf16 form, one rounding
+    after the fused BN and residual) lay from JAX, and how far jitted JAX
+    lies from its own op-by-op run (ROADMAP C42: XLA keeps each conv's
+    float32 output unrounded before the BN that follows it)."""
+    rng = np.random.default_rng(40)
+    x = bf16_values(rng, 2, 32, 40, 32, scale=0.5)  # NHWC, layer1's output
+    jb = jpsm.BasicBlock(planes=64, stride=2, downsample=True, dtype=jnp.bfloat16)
+    v = draw_variables(jb, jbf(x), seed=40, train=False)
+    try:
+        jpsm._FORCE_INTERPRET = True
+        want = np.asarray(jb.apply(v, jbf(x), False), np.float32)  # op by op
+        jitted = np.asarray(jax.jit(lambda vv, a: jb.apply(vv, a, False))(v, jbf(x)),
+                            np.float32)
+    finally:
+        jpsm._FORCE_INTERPRET = False
+    port = load_jax_variables(BasicBlock(32, 64, 2, 1, downsample=True, dtype=BF16), v)
+    assert not port.ConvBN_1.fused
+    xt = tbf(x.transpose(0, 3, 1, 2))
+    with torch.no_grad():
+        got = port(xt)
+        cb = port.ConvBN_1
+        out = port.ConvBN_0(xt, relu=True)
+        terms = (bn_eval(cb.BatchNorm_0, conv_at(cb.Conv_0, out)).float().abs()
+                 + bn_eval(port.BatchNorm_0, conv_at(port.Conv_0, xt)).float().abs())
+        cb.fused = True  # the former route: row 7's bf16 form
+        old = port(xt)
+    want_t = tbf(want.transpose(0, 3, 1, 2))
+    floor = tconv.bf16_step(terms)
+    agree = tconv.bf16_agreement(got, want_t, floor)
+    former = tconv.bf16_agreement(old, want_t, floor)
+    gap = (old.float() - want_t.float()).abs()
+    jgap = tconv.bf16_agreement(tbf(jitted.transpose(0, 3, 1, 2)), want_t, floor)
+    print(f"C40: layer2's first block, the port vs JAX op by op: {agree}; the former route "
+          f"(row 7): {former}, mean |diff| {float(gap.mean()):.3e}, max {float(gap.max()):.3e}; "
+          f"jitted JAX vs JAX op by op: {jgap}")
+    assert got.dtype == BF16 and agree["beyond"] == 0 and agree["max_ulps_clear"] <= 1, agree
+    assert agree["equal"] >= 0.99, agree
+    assert former["beyond"] > 0 and former["equal"] < agree["equal"], (former, agree)
