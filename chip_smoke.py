@@ -370,6 +370,33 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      launched, predictions.pkl with the JAX package's keys and dtypes; (e)
      the bf16 and float32 requests (same weights) split into stages in
      turns (float32, bf16, bf16, float32), with peak memory.
+ 29. row 12 in bf16 (ROADMAP A8.3b) and DispRCNN3D's train stages in bf16
+     (A8.4): (a) each new form held to its twin at its sites: row 12's bf16
+     form at the SA-off route's 8 sites and its edge cases (its packing
+     bit-equal to pack_wgmma_chain_bf16; bf16_agreement with the chains'
+     floor: none beyond a step and the floor, at most one step where the
+     floor is under a step), row 8's bf16 train form at the iDispNet step's
+     trunk sites (the forward and the input gradient held so, the weight
+     gradient within DK_BF16_RTOL), row 11's at the RCNN's SA0 and SA1 (the
+     forward held so, every gradient to autograd of its twin), row 14's at
+     the pooling sites (rows bit-equal, the features' gradient bf16 within
+     a step); (b) rcnn.yaml at bf16 on phase 28's geometry with the SA
+     family off: one request with the launches counted from 0 (row 12's
+     bf16 form 16 times, no SA launch), row 12's bf16 form on that
+     request's arguments held to its twin and timed, on the SA-on route's
+     clouds its boxes no further from the float32 model's than
+     BF16_ROUTE_FACTOR times the SA-on route's + BF16_BOX_M, both routes'
+     requests timed in turns; (c) tools/train_net in-process on
+     idispnet.yaml, rpn.yaml, rcnn.yaml and rcnn.yaml with RPN.FIXED False
+     at their default TPU.COMPUTE_DTYPE (bf16 models), BF16_TRAIN_ITERS
+     iterations each with the launches counted from 0 (rows 8, 11 and 14's
+     bf16 train forms where the stage runs them, no float32 train form);
+     on each run's first batch and weights (the first three) the kernel
+     step against the plain bf16 step and the float32 step in
+     BF16_STEP_BAND's form; the bf16 and float32 steps timed in turns with
+     peak memory; (d) the four forms timed on (a)'s inputs for the kernels
+     line (row 8 beside F.conv3d plus torch.nn.grad.conv3d_input on the
+     bf16 tensors).
 Then it prints the card (name, power limit) from nvidia-smi, one JSON line
 of per-kernel numbers (eval kernels per headline request, row 12 per
 SA-off headline request, train forms per train step), and as its last
@@ -384,10 +411,13 @@ inputs (ms the kernel forward, backward_ms the plain backward). The bf16
 forms of rows 2-7 and 15 have entries of their own (name "<row>_bf16",
 phase 27: launches in its counted request, equal, beyond, max_ulps and
 max_ulps_clear: see bf16_rows), as do phase 28's of rows 10, 13 and 14
-("sa_bf16", "fp_bf16", "roipool3d_bf16").
+("sa_bf16", "fp_bf16", "roipool3d_bf16"), and phase 29's ("grouped_mlp_bf16",
+launches per bf16 SA-off request; "conv3d_train_bf16", "sa_train_bf16",
+"roipool3d_train_bf16", launches per train_net run, each run's in
+`train_net_launches`).
 Without a CUDA device, or on any failure, it exits non-zero and prints no
-result. Float32 with TF32 off and deterministic cuDNN, but phases 27 and
-28's bf16 models.
+result. Float32 with TF32 off and deterministic cuDNN, but phases 27-29's
+bf16 models.
 """
 from __future__ import annotations
 
@@ -471,7 +501,7 @@ import torch_ckpt_writer as ckpt_writer  # noqa: E402
 # the first card run of these kernels) are the bench's
 # (disprcnn_tpu_torch/bench.py); the train stages' configurations are
 # disprcnn_tpu_torch/tools/bench_train.py's.
-PHASES = 28
+PHASES = 29
 PAIRS = 8
 REQUESTS = 2  # at the headline budget; one more at the reference budget
 # the tests' small configurations (tests/torch_port_helpers.py, tests/test_torch_disprcnn3d.py)
@@ -524,8 +554,9 @@ BOX3D_TOL = 1e-3
 BOX3D_AGREE = 0.95
 # Phases 1-27 hold the float32 3D stage (every float32 kernel row and its
 # counts): the shipped configs they run pin TPU.COMPUTE_DTYPE float32, since
-# rcnn.yaml and rpn.yaml compute in bf16 at their default (ROADMAP A8.3);
-# phase 28 runs rcnn.yaml at that default
+# idispnet.yaml, rcnn.yaml and rpn.yaml compute, and since ROADMAP A8.4
+# train, in bf16 at their default (A8.3); phase 28 runs rcnn.yaml at that
+# default, phase 29 trains the three at it
 F32_OPTS = ["TPU.COMPUTE_DTYPE", "float32"]
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit); the 3xTF32 rate is
 # the dense TF32 tensor-core peak over the 3 TF32 products a float32 product
@@ -675,8 +706,9 @@ def launches_replaced(**fns):
     sa_ball_mlp_max_train_cuda, roipool3d_train_cuda, and the bf16 forms'
     conv3d_bn_bf16_cuda, cost_volume_conv_bn_bf16_cuda,
     deconv3d_bn_bf16_cuda, conv2d_bn_bf16_cuda, softargmin_bf16_cuda,
-    sa_ball_mlp_max_bf16_cuda, fp_fused_bf16_cuda, roipool3d_bf16_cuda)
-    through the given functions; yields the original launches by name."""
+    sa_ball_mlp_max_bf16_cuda, fp_fused_bf16_cuda, roipool3d_bf16_cuda,
+    grouped_mlp_max_bf16_cuda, roipool3d_train_bf16_cuda) through the given
+    functions; yields the original launches by name."""
     modules = {"nms_sorted_cuda": cuda_nms, "conv3d_bn_cuda": cconv,
                "cost_volume_conv_bn_cuda": cconv, "deconv3d_bn_cuda": cconv,
                "conv2d_bn_cuda": cconv, "softargmin_cuda": csam,
@@ -687,7 +719,8 @@ def launches_replaced(**fns):
                "conv3d_bn_bf16_cuda": cconv, "cost_volume_conv_bn_bf16_cuda": cconv,
                "deconv3d_bn_bf16_cuda": cconv, "conv2d_bn_bf16_cuda": cconv,
                "softargmin_bf16_cuda": csam, "sa_ball_mlp_max_bf16_cuda": csa,
-               "fp_fused_bf16_cuda": cfp, "roipool3d_bf16_cuda": croi}
+               "fp_fused_bf16_cuda": cfp, "roipool3d_bf16_cuda": croi,
+               "grouped_mlp_max_bf16_cuda": cgm, "roipool3d_train_bf16_cuda": croi}
     orig = {name: getattr(modules[name], name) for name in fns}
     for name, fn in fns.items():
         setattr(modules[name], name, fn)
@@ -699,7 +732,8 @@ def launches_replaced(**fns):
 
 
 def all_plain(**overrides):
-    """Every launch point routed to its plain version (or to `overrides`)."""
+    """Every launch point routed to its plain version (or to `overrides`);
+    the train forms' by their input's dtype."""
     plain = dict(nms_sorted_cuda=cuda_nms.nms_sorted_plain,
                  conv3d_bn_cuda=cconv.conv3d_bn_plain,
                  cost_volume_conv_bn_cuda=cconv.cost_volume_conv_bn_plain,
@@ -711,9 +745,12 @@ def all_plain(**overrides):
                  grouped_mlp_max_cuda=cgm.grouped_mlp_max_plain,
                  fp_fused_cuda=cfp.fp_fused_plain,
                  roipool3d_cuda=croi.roipool3d_plain,
-                 conv3d_train_cuda=cconv.conv3d_train_plain,
-                 conv3d_train_dx_cuda=cconv.conv3d_train_dx_plain,
-                 sa_ball_mlp_max_train_cuda=csa.sa_ball_mlp_max_plain,
+                 conv3d_train_cuda=by_dtype(cconv.conv3d_train_plain,
+                                            cconv.conv3d_train_bf16_plain),
+                 conv3d_train_dx_cuda=by_dtype(cconv.conv3d_train_dx_plain,
+                                               cconv.conv3d_train_dx_bf16_plain),
+                 sa_ball_mlp_max_train_cuda=by_dtype(csa.sa_ball_mlp_max_plain,
+                                                     csa.sa_ball_mlp_max_bf16_plain, 2),
                  roipool3d_train_cuda=croi.roipool3d_plain,
                  conv3d_bn_bf16_cuda=cconv.conv3d_bn_bf16_plain,
                  cost_volume_conv_bn_bf16_cuda=cconv.cost_volume_conv_bn_bf16_plain,
@@ -722,7 +759,9 @@ def all_plain(**overrides):
                  softargmin_bf16_cuda=csam.softargmin_bf16_plain,
                  sa_ball_mlp_max_bf16_cuda=csa.sa_ball_mlp_max_bf16_plain,
                  fp_fused_bf16_cuda=cfp.fp_fused_bf16_plain,
-                 roipool3d_bf16_cuda=croi.roipool3d_bf16_plain)
+                 roipool3d_bf16_cuda=croi.roipool3d_bf16_plain,
+                 grouped_mlp_max_bf16_cuda=cgm.grouped_mlp_max_bf16_plain,
+                 roipool3d_train_bf16_cuda=croi.roipool3d_bf16_plain)
     return launches_replaced(**{**plain, **overrides})
 
 
@@ -1191,7 +1230,8 @@ def reset_launches() -> None:
     for mod in (cfps, csa, cgm, cfp, croi):
         mod.launches = 0
     csa.train_launches = croi.train_launches = 0
-    csa.launches_bf16 = cfp.launches_bf16 = croi.launches_bf16 = 0
+    csa.launches_bf16 = cfp.launches_bf16 = croi.launches_bf16 = cgm.launches_bf16 = 0
+    csa.train_launches_bf16 = croi.train_launches_bf16 = 0
     for k in cconv.launches:
         cconv.launches[k] = 0
 
@@ -2814,14 +2854,16 @@ def phase_eval_entry(card: str) -> None:
 # from rpn.yaml's, then tools/test_net.py on rcnn.yaml's checkpoint and
 # tools/train_idispnet.py
 TRAIN_ENTRY_ITERS = 2
+# (the 3D stages pinned to float32 (F32_OPTS): phase 29 trains them at
+# their default bf16)
 TRAIN_ENTRY_RUNS = (
     ("mask", "synthetic_8", [], ("nms_sorted",)),
-    ("idispnet", "synthetic3d_4", [], ("conv3d_train",)),
-    ("rpn", "synthetic3d_4", [], ("cost_volume_conv", "conv3d", "conv3d_cl1", "conv3d_s2",
-                                  "deconv3d", "conv2d", "softargmin", "fps")),
-    ("rcnn", "synthetic3d_4", [], ("cost_volume_conv", "conv3d", "conv3d_cl1", "conv3d_s2",
-                                   "deconv3d", "conv2d", "softargmin", "fps", "sa", "fp",
-                                   "nms_sorted", "roipool3d", "sa_train")))
+    ("idispnet", "synthetic3d_4", F32_OPTS, ("conv3d_train",)),
+    ("rpn", "synthetic3d_4", F32_OPTS, ("cost_volume_conv", "conv3d", "conv3d_cl1", "conv3d_s2",
+                                        "deconv3d", "conv2d", "softargmin", "fps")),
+    ("rcnn", "synthetic3d_4", F32_OPTS, ("cost_volume_conv", "conv3d", "conv3d_cl1",
+                                         "conv3d_s2", "deconv3d", "conv2d", "softargmin", "fps",
+                                         "sa", "fp", "nms_sorted", "roipool3d", "sa_train")))
 # the stage whose checkpoint each stage starts from (MODEL.WEIGHT)
 TRAIN_ENTRY_SEED_FROM = {"rpn": "idispnet", "rcnn": "rpn"}
 # train_idispnet: 48 synthetic crops (4 steps of 12) and 12 validation crops
@@ -4626,7 +4668,7 @@ JOINT_ROWS = ("cost_volume_conv", "conv3d", "conv3d_cl1", "conv3d_s2", "deconv3d
 ROI_TRAIN_GRAD_TOL = 1e-5
 # (c): (config, dataset, opts, the setting as the built model carries it),
 # each run from random weights (MODEL.WEIGHT '')
-A7_OPTS = ["MODEL.WEIGHT", "", "SOLVER.PRINT_INTERVAL", "1"]
+A7_OPTS = ["MODEL.WEIGHT", "", "SOLVER.PRINT_INTERVAL", "1", *F32_OPTS]
 A7_RUNS = (
     ("mask", "synthetic_8", ["MODEL.BACKBONE.FREEZE_CONV_BODY_AT", "3"],
      lambda m: m.backbone.body.freeze_at == 3),
@@ -4882,9 +4924,10 @@ BF16_YAML = "configs/kitti/car/vob/idispnet.yaml"
 BF16_SEED = 27
 # the bf16 forms' launches in one request, by row (as EXPECTED_LAUNCHES)
 # (a bf16 tower takes layer2's first block's second conv through cuDNN, as
-# JAX's source rounds it: ROADMAP C40; the float32 tower launches 39)
+# JAX's source rounds it: ROADMAP C40; the float32 tower launches 39), and
+# no launch of row 8's bf16 train form (phase 29's)
 EXPECTED_BF16 = {"cost_volume_conv": 1, "conv3d": 12, "conv3d_cl1": 3, "conv3d_s2": 6,
-                 "deconv3d": 6, "conv2d": 38, "softargmin": 1}
+                 "deconv3d": 6, "conv2d": 38, "conv3d_train": 0, "softargmin": 1}
 # the bf16 kernel route's mean |disparity_roi - float64| at most
 # BF16_ROUTE_FACTOR times the bf16 plain route's + BF16_ROUTE_PX
 BF16_ROUTE_FACTOR = 1.25
@@ -5490,6 +5533,674 @@ def phase_bf16_3d(card: str) -> dict:
     return {"rows": rows, "ms": ms}
 
 
+# -- phase 29: row 12 in bf16 (ROADMAP A8.3b), DispRCNN3D's train stages in
+# bf16 (A8.4) --------------------------------------------------------------
+
+BF16_TRAIN_SEED = 29
+# the SA-off route's row 12 launches in one bf16 headline request, as in
+# float32 (EXPECTED_SA_OFF)
+EXPECTED_SA_OFF_BF16 = {"grouped_mlp": EXPECTED_SA_OFF["grouped_mlp"], "sa": 0}
+# row 12's bf16 twin's floor over this many groups at a time
+GM_FLOOR_GROUPS = 8192
+# row 8's bf16 weight gradient (PyTorch's on bf16 tensors, each a sum over
+# N D H W positions) against its twin's: max |diff| within this share of
+# max |twin| (one bf16 step, 2^-8, and the float32 sums' order)
+DK_BF16_RTOL = 1e-2
+# row 11's bf16 v gradient (bf16 sums by atomic adds) against autograd of
+# its twin: relative L2 within this, max |diff| within 2.5 times this of max
+SA_BF16_DV_L2 = 2e-2
+# phase 29's train_net runs: (label, config, dataset, extra opts, the new
+# bf16 forms that must launch and be counted), each at the config's
+# default TPU.COMPUTE_DTYPE, from random weights (MODEL.WEIGHT '')
+BF16_TRAIN_OPTS = ["MODEL.WEIGHT", "", "SOLVER.PRINT_INTERVAL", "1"]
+# and whether its kernel step is held to the plain and float32 steps (the
+# joint step's RCNN targets come from its train-mode RPN, which the steps
+# cannot share: the run counts row 14's launches and is timed)
+BF16_TRAIN_RUNS = (
+    ("idispnet.yaml", "idispnet", "synthetic3d_4", [], ("conv3d_train_bf16",), True),
+    ("rpn.yaml", "rpn", "synthetic3d_4", [], (), True),
+    ("rcnn.yaml", "rcnn", "synthetic3d_4", [], ("sa_train_bf16",), True),
+    ("rcnn.yaml joint", "rcnn", "synthetic3d_4",
+     ["MODEL.POINTRCNN.RPN.FIXED", "False", "SOLVER.FIX_POINTRCNN_RPN", "False"],
+     ("sa_train_bf16", "roipool3d_train_bf16"), False))
+BF16_TRAIN_ITERS = 2
+# A bf16 step cannot be held to another bf16 step element by element: a
+# rounding that falls the other way in one layer moves the later layers'
+# roundings, and at these depths the two gradients lie about as far apart
+# as either lies from the float32 step (relative L2 ~0.5 on the iDispNet
+# step in tests/test_torch_bf16_train.py, where JAX's bf16 step and the
+# port's do the same). So each step is held in the form of those tests:
+# the kernel step's relative L2 distance from the float32 step (same
+# weights, optimizer state, draws and batch) within a factor
+# BF16_STEP_BAND of the plain bf16 step's, on either side, and its losses
+# within BF16_LOSS_RTOL of the plain step's. A float32 step fails the band
+# (distance 0).
+BF16_STEP_BAND = 1.5
+BF16_LOSS_RTOL = 2e-2
+
+
+def by_dtype(f32, bf16, i: int = 0):
+    """A launch point's plain version in either form, by argument i's
+    dtype."""
+    return lambda *a: (bf16 if a[i].dtype == torch.bfloat16 else f32)(*a)
+
+
+def read_bf16_train_launches() -> dict:
+    """The launches of this phase's new forms: row 12 in bf16, and the bf16
+    train forms of rows 8, 11 and 14."""
+    return {"grouped_mlp_bf16": cgm.launches_bf16,
+            "conv3d_train_bf16": cconv.launches_bf16["conv3d_train"],
+            "sa_train_bf16": csa.train_launches_bf16,
+            "roipool3d_train_bf16": croi.train_launches_bf16}
+
+
+def grouped_mlp_bf16_floor(x, mul0, add0, weights) -> torch.Tensor:
+    """The floor of row 12's bf16 form against its twin (bf16_agreement):
+    sa.bf16_chain_floor over the rounded first-layer input, the largest
+    row's of each group."""
+    out = []
+    for lo in range(0, x.shape[0], GM_FLOOR_GROUPS):
+        x0 = torch.relu(x[lo:lo + GM_FLOOR_GROUPS].float() * mul0 + add0).to(torch.bfloat16)
+        out.append(csa.bf16_chain_floor(x0, weights).amax(dim=1))
+    return torch.cat(out, 0)
+
+
+def grouped_mlp_bf16_work(args, out):
+    """grouped_mlp_work's count with x, the packed weights and the output at
+    2 bytes, the chain at the bf16 tensor rate."""
+    x, _, _, weights = args
+    g, s, c0 = x.shape
+    chain = g * s * sum(2 * w.shape[0] * w.shape[1] for w, _ in weights)
+    other = g * s * (3 * c0 + sum(2 * w.shape[1] for w, _ in weights) + out.shape[-1])
+    nbytes = (4 * (2 * c0 + sum(b.numel() for _, b in weights))
+              + 2 * (x.numel() + sum(w.numel() for w, _ in weights) + out.numel()))
+    return chain_bound(nbytes, chain, other)
+
+
+def within_bf16_step(got, want, floor, what: str) -> dict:
+    """bf16_agreement(got, want, floor): none beyond a step and the floor,
+    at most one step where the floor is under a step."""
+    ag = cconv.bf16_agreement(got, want, floor)
+    if ag["beyond"] or ag["max_ulps_clear"] > 1:
+        raise AssertionError(f"{what}: kernel against twin {ag}")
+    return ag
+
+
+@torch.inference_mode()
+def bf16_grouped_mlp_compare() -> float:
+    """(a) row 12's bf16 form at the SA-off route's site shapes and edge
+    cases: its packing bit-equal to pack_wgmma_chain_bf16, the kernel held
+    to grouped_mlp_max_bf16_plain (within_bf16_step, the chains' floor)."""
+    gen = torch.Generator(device="cuda").manual_seed(BF16_TRAIN_SEED)
+    worst = 0.0
+    for site, g, s, c0, chain in GM_SITES + GM_EDGES:
+        x, mul0, add0, ws = grouped_mlp_inputs(gen, g, s, c0, chain,
+                                               negative=site == "all negative")
+        x = x.to(torch.bfloat16)
+        plan = cgm.launch_plan([c0, *chain], s, bf16=True)
+        if not torch.equal(cgm.pack_wgmma_chain_cuda(ws, plan[1], bf16=True),
+                           cgm.pack_wgmma_chain_bf16(ws, plan[1])):
+            raise AssertionError(f"grouped MLP bf16 {site}: the chain packing != its plain "
+                                 f"version")
+        got = cgm.grouped_mlp_max_bf16_cuda(x, mul0, add0, ws)
+        want = cgm.grouped_mlp_max_bf16_plain(x, mul0, add0, ws)
+        torch.cuda.synchronize()
+        ag = within_bf16_step(got, want, grouped_mlp_bf16_floor(x, mul0, add0, ws),
+                              f"grouped MLP bf16 {site}")
+        if site == "all negative" and float(got.float().abs().max()) != 0:
+            raise AssertionError("grouped MLP bf16: all-negative pre-activations give a max "
+                                 "above 0")
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        log(f"  grouped_mlp bf16 {site} (G {g}, S {s}, {c0} -> {' -> '.join(map(str, chain))}"
+            f"; plan {plan[0]} warpgroups, chunks of {plan[1]}, {plan[2]} slots, "
+            f"{plan[3]} B): {100 * ag['equal']:.4f}% equal to its twin, max ulps "
+            f"{ag['max_ulps']} ({ag['max_ulps_clear']} where the floor is under a step)")
+        del x, got, want
+    torch.cuda.synchronize()
+    return worst
+
+
+def bf16_conv_train_compare() -> float:
+    """(a) row 8's bf16 train form at the iDispNet step's trunk sites: the
+    forward (conv3d_train_cuda on bf16) and the input gradient
+    (conv3d_train_dx_cuda: the flipped weights) held to their twins
+    (within_bf16_step, the float32 sums' floor: 27 Ci terms of |x| |w|);
+    through the autograd Function, the weight gradient (PyTorch's on the
+    bf16 tensors) within DK_BF16_RTOL of the twin's autograd."""
+    gen = torch.Generator(device="cuda").manual_seed(BF16_TRAIN_SEED + 1)
+    worst = 0.0
+    for n, c, d, s in TRAIN_CONV_SITES:
+        x = torch.randn(n, c, d, s, s, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn(c, c, 3, 3, 3, generator=gen, device="cuda") * 0.05
+        dy = torch.randn(n, c, d, s, s, generator=gen, device="cuda").to(torch.bfloat16)
+        wa = w.to(torch.bfloat16).float().abs()
+        with torch.no_grad():
+            y = cconv.conv3d_train_cuda(x, w)
+            yp = cconv.conv3d_train_bf16_plain(x, w)
+            floor = 27 * c * cconv.F32_SUM_ERR * F.conv3d(x.float().abs(), wa, padding=1)
+            ag_y = within_bf16_step(y, yp, floor, f"conv3d_train bf16 y at {tuple(x.shape)}")
+            dx = cconv.conv3d_train_dx_cuda(dy, w)
+            dxp = cconv.conv3d_train_dx_bf16_plain(dy, w)
+            floor = 27 * c * cconv.F32_SUM_ERR * F.conv3d(
+                dy.float().abs(), cconv.flip_transpose(wa), padding=1)
+            ag_dx = within_bf16_step(dx, dxp, floor, f"conv3d_train bf16 dx at {tuple(x.shape)}")
+        grads = []
+        for fn in (cconv._Conv3dTrain.apply, cconv.conv3d_train_bf16_plain):
+            ww = w.clone().requires_grad_(True)
+            fn(x, ww).backward(dy)
+            grads.append(ww.grad)
+        dk_err = float((grads[0] - grads[1]).abs().max())
+        scale = float(grads[1].abs().max())
+        if not dk_err <= DK_BF16_RTOL * scale:
+            raise AssertionError(f"conv3d_train bf16 dk at {tuple(x.shape)}: {dk_err:.3g} off "
+                                 f"the twin's (max {scale:.3g})")
+        worst = max(worst, float((y.float() - yp.float()).abs().max()),
+                    float((dx.float() - dxp.float()).abs().max()))
+        log(f"  conv3d_train bf16 {tuple(x.shape)}: y {100 * ag_y['equal']:.4f}% and dx "
+            f"{100 * ag_dx['equal']:.4f}% equal to their twins (max ulps {ag_y['max_ulps']}, "
+            f"{ag_dx['max_ulps']}), dk max |diff| {dk_err / scale:.3g} of max |twin|")
+        del x, dy, y, yp, dx, dxp, grads
+    torch.cuda.synchronize()
+    return worst
+
+
+def bf16_sa_train_compare() -> float:
+    """(a) row 11's bf16 train form at the RCNN step's SA0 and SA1: the
+    bf16 kernel forward held to sa_ball_mlp_max_bf16_plain (within a step
+    and the chains' floor); every gradient, autograd of that twin
+    recomputed, against autograd of the twin run directly (the same
+    arithmetic; the gathers' backward adds by atomics, in another order
+    each run): the float32 ones within ROI_TRAIN_GRAD_TOL of max, v's (bf16,
+    each point's sum over the balls that took it added in bf16) within
+    SA_BF16_DV_L2 in C19's L2 form."""
+    gen = torch.Generator(device="cuda").manual_seed(BF16_TRAIN_SEED + 2)
+    worst = 0.0
+    for site, b, n, m, c0, chain, radius, s in TRAIN_SA_SITES:
+        xyz = point_clouds(gen, b, n, 1.2 * radius * n ** (1 / 3) / 4, s)
+        centers = torch.cat([xyz[:, :m - 1], torch.full((b, 1, 3), 60.0, device="cuda")],
+                            1).contiguous()
+
+        def randn(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+
+        v = randn(b, n, c0).to(torch.bfloat16).requires_grad_(True)
+        leaves = [v, randn(3, c0, scale=0.5 / radius).requires_grad_(True),
+                  (1 + randn(c0, scale=0.3)).requires_grad_(True),
+                  randn(c0, scale=0.1).requires_grad_(True)]
+        ws, cin = [], c0
+        for co in chain:
+            ws.append((randn(cin, co, scale=cin ** -0.5).requires_grad_(True),
+                       randn(co, scale=0.1).requires_grad_(True)))
+            cin = co
+        flat = [t for pair in ws for t in pair]
+        dy = randn(b, m, chain[-1]).to(torch.bfloat16)
+        outs = []
+        for fn in (csa.sa_ball_mlp_max_train, csa.sa_ball_mlp_max_bf16_plain):
+            out = fn(xyz, centers, *leaves, ws, radius, s)
+            outs.append((out.detach(),) + torch.autograd.grad(out, leaves + flat, dy))
+        with torch.no_grad():
+            floor = csa.sa_ball_mlp_max_bf16_plain(
+                xyz, centers, *(t.detach() for t in leaves),
+                [(w.detach(), bb.detach()) for w, bb in ws], radius, s,
+                chain=csa.bf16_chain_floor)
+        ag = within_bf16_step(outs[0][0], outs[1][0], floor, f"SA train bf16 {site}")
+        names = ["v", "w0x", "mul0", "add0"] + [f"{k}{i}" for i in range(len(ws))
+                                                for k in ("W", "b")]
+        for name, g, w in zip(names, outs[0][1:], outs[1][1:]):
+            d, sc = float((g.float() - w.float()).abs().max()), float(w.float().abs().max())
+            if g.dtype == torch.bfloat16:
+                l2 = float((g.float() - w.float()).norm() / w.float().norm())
+                ok = l2 <= SA_BF16_DV_L2 and d <= 2.5 * SA_BF16_DV_L2 * sc
+            else:
+                ok = d <= ROI_TRAIN_GRAD_TOL * sc
+            if not ok:
+                raise AssertionError(f"SA train bf16 {site} d{name}: {d:.3g} off (max {sc:.3g})")
+            worst = max(worst, d)
+        log(f"  sa_train bf16 {site} ({b}, {n} -> {m}, S {s}): forward {100 * ag['equal']:.4f}% "
+            f"equal to its twin (max ulps {ag['max_ulps']}), {len(names)} gradients within "
+            f"{ROI_TRAIN_GRAD_TOL} of max of the twin's autograd")
+        del outs, leaves, ws, flat
+    torch.cuda.synchronize()
+    return worst
+
+
+def bf16_roipool_train_compare() -> float:
+    """(a) row 14's bf16 train form at the RCNN's pooling sites
+    (ROI_SITES: 128 clouds of 768 points, 128 bf16 feature channels beside
+    2 float32 ones): rows and flags bit-equal to roipool3d_bf16_plain's;
+    under a non-uniform output gradient the points' and float32 channels'
+    gradients within ROI_TRAIN_GRAD_TOL of max of autograd of the twin's,
+    the bf16 features' within one bf16 step of it (the float32 sums of the
+    slots that took a point, in another order, rounded once)."""
+    gen = torch.Generator(device="cuda").manual_seed(BF16_TRAIN_SEED + 3)
+    kinds_of_box = torch.tensor([[0.0, 2.0, 0.0, 4.0, 4.0, 4.0, 0.4],
+                                 [1.0, 0.5, -1.0, 1.6, 2.0, 2.0, -0.8],
+                                 [50.0, 50.0, 50.0, 1.0, 1.0, 1.0, 0.0],
+                                 [0.0, 4.0, 0.0, 8.5, 9.0, 9.0, 0.3]], device="cuda")
+    worst = 0.0
+    for b, n, m, c, s in ROI_SITES:
+        pts = (torch.rand(b, n, 3, generator=gen, device="cuda") * 8 - 4).contiguous()
+        extra = torch.randn(b, n, 2, generator=gen, device="cuda")
+        feats = torch.randn(b, n, c - 2, generator=gen, device="cuda").to(torch.bfloat16)
+        boxes = kinds_of_box[torch.arange(m, device="cuda") % 4][None].repeat(b, 1, 1)
+        boxes[:, :, :3] += torch.randn(b, m, 3, generator=gen, device="cuda") * 0.3
+        boxes = boxes.contiguous()
+        runs = []
+        for use_fn in (True, False):
+            tp, te, tf = (t.clone().requires_grad_(True) for t in (pts, extra, feats))
+            fn = croi.roipool3d_train_bf16 if use_fn else croi.roipool3d_bf16_plain
+            pooled, empty = fn(tp, te, tf, boxes, s)
+            if not runs:
+                ct = torch.randn(pooled.shape, generator=gen, device="cuda")
+            pooled.backward(ct)
+            runs.append((pooled.detach(), empty, tp.grad, te.grad, tf.grad))
+        (fp, fe, *fg), (pp, pe, *pg) = runs
+        if not (torch.equal(fp, pp) and torch.equal(fe, pe)):
+            raise AssertionError("roipool3d_train bf16: its rows differ from the twin's")
+        for what, g, w in zip(("points", "float32 channels", "bf16 features"), fg, pg):
+            d, sc = float((g.float() - w.float()).abs().max()), float(w.float().abs().max())
+            tol = (float(cconv.bf16_step(w).max()) if w.dtype == torch.bfloat16
+                   else ROI_TRAIN_GRAD_TOL * sc)
+            if not (g.dtype == w.dtype and d <= tol):
+                raise AssertionError(f"roipool3d_train bf16: the {what}' gradient ({g.dtype}) "
+                                     f"{d:.3g} off the twin's ({w.dtype}, max {sc:.3g})")
+            worst = max(worst, d)
+        log(f"  roipool3d_train bf16 ({b}, {n}, 2 + {c - 2} ch, {m} boxes, S {s}): rows and "
+            f"flags equal to the twin's; gradients within tolerance, the features' bf16")
+        del runs, pts, extra, feats
+    torch.cuda.synchronize()
+    return worst
+
+
+def sa_off_bf16(card: str) -> dict:
+    """(b) rcnn.yaml at bf16 (phase 28's model and geometry) with the SA
+    family off, beside the SA-on route: one request with the launches
+    counted from 0 (row 12's bf16 form EXPECTED_SA_OFF_BF16 times, no SA
+    launch), finite outputs of the right dtypes; row 12's bf16 form on
+    the request's own arguments held to its twin and timed; on the kernel
+    route's clouds the SA-off route's mean max |box3d - float32's| at most
+    BF16_ROUTE_FACTOR times the SA-on route's + BF16_BOX_M; both routes'
+    requests timed in turns (on, off, off, on). -> {"row", "ms"}."""
+    cfg = get_default_cfg()
+    cfg.merge_from_file(RCNN_BF16_YAML)
+    cfg.merge_from_list(RCNN_BF16_OPTS)
+    cfg.freeze()
+    gen = torch.Generator(device="cuda").manual_seed(BF16_TRAIN_SEED)
+    m16 = init_random_(build_detection_model(cfg, device="cuda"), gen)
+    cfg32 = cfg.clone()
+    cfg32.defrost()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    cfg32.freeze()
+    m32 = build_detection_model(cfg32, device="cuda")
+    m32.load_state_dict(m16.state_dict())
+    model2d = init_random_(DispRCNN(**BENCH_2D, device="cuda"),
+                           torch.Generator(device="cuda").manual_seed(0))
+    req = bench.make_request(PAIRS, IMG_HW, PAIRS * BENCH_3D["max_det"], BENCH_3D["lift_grid"],
+                             "cuda", BF16_TRAIN_SEED)
+
+    def run(model, tags=frozenset()):
+        set_kernels_off(model, tags)
+        try:
+            return predict(model2d, model, *req[:4], calib=CALIB, priorities=req[4])
+        finally:
+            set_kernels_off(model, frozenset())
+
+    on = run(m16)
+    reset_launches()
+    off = run(m16, {"sa"})
+    torch.cuda.synchronize()
+    got = {"grouped_mlp": cgm.launches_bf16, "sa": csa.launches_bf16}
+    if got != EXPECTED_SA_OFF_BF16 or cgm.launches or csa.launches:
+        raise AssertionError(f"bf16 SA-off request: row 12 bf16 and SA bf16 launches {got} "
+                             f"(expected {EXPECTED_SA_OFF_BF16}), float32 row 12 "
+                             f"{cgm.launches}, SA {csa.launches}")
+    n_pts = check_3d(off, PAIRS, BENCH_3D["max_det"])
+    if off["score3d"].dtype != torch.bfloat16 or off["box3d"].dtype != torch.float32:
+        raise AssertionError(f"bf16 SA-off request: score3d {off['score3d'].dtype}, box3d "
+                             f"{off['box3d'].dtype}")
+    calls = capture_launches(lambda: run(m16, {"sa"}),
+                             dict(grouped_mlp_max_bf16_cuda="grouped_mlp_bf16"))
+    args_list = calls["grouped_mlp_bf16"]
+    site_of = {(s, c0, chain): site for site, _, s, c0, chain in GM_SITES}
+    groups = {}
+    for a in args_list:
+        key = (a[0].shape[1], a[0].shape[2], tuple(w.shape[1] for w, _ in a[3]))
+        groups.setdefault(f" {site_of.get(key, key)}", []).append(a)
+
+    def compare(g, w, a_list=args_list):
+        return float((g.float() - w.float()).abs().max())
+
+    for label, group in groups.items():
+        for a in group:
+            with torch.inference_mode():
+                within_bf16_step(cgm.grouped_mlp_max_bf16_cuda(*a),
+                                 cgm.grouped_mlp_max_bf16_plain(*a), grouped_mlp_bf16_floor(*a),
+                                 f"grouped MLP bf16 at{label}")
+    with torch.inference_mode():
+        row = time_launches("grouped_mlp_bf16",
+                            [(label, group, cgm.grouped_mlp_max_bf16_cuda,
+                              cgm.grouped_mlp_max_bf16_plain, None, grouped_mlp_bf16_work,
+                              compare) for label, group in groups.items()], 0.0,
+                            "grouped_mlp.cu", "disprcnn_tpu/ops/pallas/grouped_mlp.py:44")
+    row["launches"] = got["grouped_mlp"]
+    del calls, args_list, groups
+    torch.cuda.empty_cache()
+    # on the kernel route's clouds: its disparity swapped into both routes
+    # and into the float32 model, so that all lift the same clouds
+
+    def swap(_mod, _inp, disp, ref_disp=on["disparity_roi"]):
+        return ref_disp.reshape(disp.shape).to(disp.dtype)
+
+    routes = {}
+    for label, model, tags in (("float32", m32, ()), ("SA off", m16, {"sa"})):
+        hook = model.idispnet.register_forward_hook(swap)
+        try:
+            routes[label] = run(model, frozenset(tags))
+        finally:
+            hook.remove()
+    torch.cuda.synchronize()
+    dist = {"SA on": box_agreement(on, routes["float32"]),
+            "SA off": box_agreement(routes["SA off"], routes["float32"])}
+    log(f"  rcnn.yaml bf16 with the SA family off: {n_pts} instances with points, row 12 bf16 "
+        f"launches {got['grouped_mlp']}; against the float32 model on the same clouds: "
+        + ", ".join(f"{k} {100.0 * v[0]:.1f}% agree, {v[1]} flipped, mean max |box3d diff| "
+                    f"{v[2]:.4f}" for k, v in dist.items()))
+    limit = BF16_ROUTE_FACTOR * dist["SA on"][2] + BF16_BOX_M
+    if not dist["SA off"][2] <= limit:
+        raise AssertionError(f"bf16 SA-off route's boxes {dist['SA off'][2]} from the float32 "
+                             f"model's, over {limit}")
+    del routes, on, off
+    torch.cuda.empty_cache()
+    for tags in ((), {"sa"}):  # warm-up
+        run(m16, frozenset(tags))
+    timed = {"SA on": [], "SA off": []}
+    for label in ("SA on", "SA off", "SA off", "SA on"):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(m16, frozenset({"sa"} if label == "SA off" else ()))
+        end.record()
+        torch.cuda.synchronize()
+        timed[label].append(start.elapsed_time(end))
+    ms = {k: min(v) for k, v in timed.items()}
+    log(f"  bf16 rcnn.yaml request at the headline budget: "
+        + ", ".join(f"{k} {[round(t, 3) for t in timed[k]]} ms ({PAIRS * 1000.0 / ms[k]:.3f} "
+                    f"pairs/s)" for k in timed))
+    del m16, m32, model2d, req
+    torch.cuda.empty_cache()
+    return {"row": row, "ms": ms}
+
+
+@contextlib.contextmanager
+def first_batch(store: list):
+    """Inside the block every TrainStep call appends its batch to `store`
+    (the first one is the one kept)."""
+    orig = trainer_mod.TrainStep.__call__
+
+    def call(self, batch):
+        if not store:
+            store.append(dict(batch))
+        return orig(self, batch)
+
+    trainer_mod.TrainStep.__call__ = call
+    try:
+        yield store
+    finally:
+        trainer_mod.TrainStep.__call__ = orig
+
+
+def step_on(step, batch, gen_state, model, opt, sd, osd, count):
+    """One step from the weights sd, optimizer state osd at count, and the
+    draws' generator at gen_state. -> (metrics, the trainable gradients)."""
+    model.load_state_dict(sd)
+    opt.sgd.load_state_dict(osd)
+    opt.count = count
+    g = torch.Generator(device="cuda")
+    g.set_state(gen_state)
+    m = step(dict(batch, generator=g))
+    return m, {n: p.grad.clone() for n, p in trainable(model).items()}
+
+
+def rel_l2(got: dict, ref: dict) -> float:
+    num = sum(float(((got[k].double() - ref[k].double()) ** 2).sum()) for k in ref)
+    den = sum(float((ref[k].double() ** 2).sum()) for k in ref)
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def bf16_train_run(label: str, stage: str, dataset: str, opts, forms, held: bool,
+                   tmp: str) -> dict:
+    """(c) one train_net run at the config's default dtype: the model bf16,
+    BF16_TRAIN_ITERS iterations with the launches counted from 0, each of
+    `forms` launched and no float32 train form; then, where `held`, on its
+    first batch and final weights the kernel step against the plain bf16
+    step and the float32 kernel step (the frozen stages' output shared with
+    the 3D stage: the same clouds and, with a fixed RPN, the same RCNN
+    targets): losses within BF16_LOSS_RTOL, the kernel step's distance from
+    the float32 step within BF16_STEP_BAND of the plain step's; then the
+    bf16 and float32 steps timed in turns (float32, bf16, bf16, float32;
+    TRAIN_STEPS each), with peak memory. -> {"launches", "ms", "peak",
+    "dist"}."""
+    batches = []
+    with first_batch(batches):
+        res, launches = train_net_run(stage, dataset, BF16_TRAIN_OPTS + list(opts),
+                                      os.path.join(tmp, label.replace(" ", "_")),
+                                      BF16_TRAIN_ITERS)
+    new = read_bf16_train_launches()
+    model, opt, step, cfg = res["model"], res["optimizer"], res["step"], res["cfg"]
+    if cfg.TPU.COMPUTE_DTYPE != "bfloat16" or model.idispnet.dtype != torch.bfloat16 \
+            or (model.det3d_on and model.pointrcnn.dtype != torch.bfloat16):
+        raise AssertionError(f"train_net {label}: not a bf16 model ({cfg.TPU.COMPUTE_DTYPE})")
+    missing = [f for f in forms if not new[f]]
+    f32_forms = [k for k in ("conv3d_train", "sa_train", "roipool3d_train") if launches[k]]
+    if missing or f32_forms:
+        raise AssertionError(f"train_net {label}: bf16 forms not launched {missing}, float32 "
+                             f"train forms launched {f32_forms}: {new}, {launches}")
+    batch = {k: v for k, v in batches[0].items() if k != "generator"}
+    gen_state = torch.Generator(device="cuda").manual_seed(BF16_TRAIN_SEED).get_state()
+    cfg32 = train_net.load_config(f"configs/kitti/car/vob/{stage}.yaml",
+                                  BF16_TRAIN_OPTS + list(opts) + F32_OPTS
+                                  + ["OUTPUT_DIR", os.path.join(tmp, "f32")], BF16_TRAIN_ITERS)
+    m32 = build_detection_model(cfg32, device="cuda", train=True)
+    m32.load_state_dict(model.state_dict())
+    opt32 = train_net.build_optimizer(cfg32, m32)[0]
+    step32 = trainer_mod.make_train_step(m32, opt32, cfg32.SOLVER.DO_GRAD_CLIP,
+                                         cfg32.SOLVER.GRAD_CLIP,
+                                         forward_kwargs=make_batch_converter(cfg32, "cuda")[1])
+    sd = copy.deepcopy(model.state_dict())
+    osd, count = copy.deepcopy(opt.sgd.state_dict()), opt.count
+    osd32 = copy.deepcopy(opt32.sgd.state_dict())
+    losses, dk, dp = {}, None, None
+    if held:
+        prc = model.pointrcnn if model.det3d_on else None
+        shared = []  # the kernel step's PointRCNN inputs, then its RCNN targets
+        if prc is not None:
+            forward, fwd32 = prc.forward, m32.pointrcnn.forward
+            prc.forward = lambda *a: shared.append(a) or forward(*a)
+            if prc.rpn_fixed and prc.rcnn_enabled:
+                targets = prc.rcnn_targets
+                prc.rcnn_targets = lambda *a: shared.append(targets(*a)) or shared[-1]
+        try:
+            with deterministic():
+                mk, gk = step_on(step, batch, gen_state, model, opt, sd, osd, count)
+                if prc is not None:
+                    prc.forward = lambda *a: forward(*shared[0])
+                    m32.pointrcnn.forward = lambda *a: fwd32(*shared[0])
+                    if prc.rpn_fixed and prc.rcnn_enabled:
+                        prc.rcnn_targets = m32.pointrcnn.rcnn_targets = lambda *a: shared[1]
+                reset_launches()
+                with all_plain():
+                    mp, gp = step_on(step, batch, gen_state, model, opt, sd, osd, count)
+                if any(read_launches().values()) or any(read_bf16_train_launches().values()):
+                    raise AssertionError(f"train {label}: the plain step launched "
+                                         f"{read_launches()} {read_bf16_train_launches()}")
+                m3, g3 = step_on(step32, batch, gen_state, m32, opt32, sd, osd32, count)
+        finally:
+            if prc is not None:
+                for mod in (prc, m32.pointrcnn):
+                    for name in ("forward", "rcnn_targets"):
+                        mod.__dict__.pop(name, None)
+        torch.cuda.synchronize()
+        losses = {k: (float(mk[k]), float(mp[k]), float(m3[k])) for k in mk
+                  if k.startswith("loss")}
+        for k, (lk, lp, _) in losses.items():
+            if not abs(lk - lp) <= BF16_LOSS_RTOL * abs(lp):
+                raise AssertionError(f"train {label}: {k} kernel step {lk}, plain step {lp}")
+        dk, dp = rel_l2(gk, g3), rel_l2(gp, g3)
+        if not (dp > 0 and dp / BF16_STEP_BAND <= dk <= BF16_STEP_BAND * dp):
+            raise AssertionError(f"train {label}: the kernel step's gradients {dk:.4g} from "
+                                 f"the float32 step's, the plain step's {dp:.4g} (band x"
+                                 f"{BF16_STEP_BAND})")
+        del gk, gp, g3, shared
+    # timing, in turns, from the run's weights
+    for st in (step32, step):  # warm-up
+        st(dict(batch, generator=torch.Generator(device="cuda").manual_seed(0)))
+    timed, peak = {"float32": [], "bf16": []}, {}
+    for dt in ("float32", "bf16", "bf16", "float32"):
+        st = step if dt == "bf16" else step32
+        torch.cuda.reset_peak_memory_stats()
+        g = torch.Generator(device="cuda").manual_seed(1)
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st(dict(batch, generator=g))
+            torch.cuda.synchronize()
+            timed[dt].append(1e3 * (time.perf_counter() - t0))
+        peak[dt] = torch.cuda.max_memory_allocated() / 1e9
+    ms = {dt: sum(v) / len(v) for dt, v in timed.items()}
+    log(f"  train_net {label} (bf16, {BF16_TRAIN_ITERS} iterations at IMS_PER_BATCH "
+        f"{cfg.SOLVER.IMS_PER_BATCH}): new forms' launches "
+        f"{ {k: v for k, v in new.items() if v} }, other launches "
+        f"{ {k: v for k, v in launches.items() if v} }; ms/step bf16 "
+        f"{[round(t, 2) for t in timed['bf16']]} (mean {ms['bf16']:.2f}), float32 "
+        f"{[round(t, 2) for t in timed['float32']]} (mean {ms['float32']:.2f}); peak memory bf16 "
+        f"{peak['bf16']:.2f} GB, float32 {peak['float32']:.2f} GB"
+        + (f"; losses (kernel, plain, float32) "
+           f"{ {k: tuple(round(x, 5) for x in v) for k, v in losses.items()} }; gradients' "
+           f"relative L2 from the float32 step: kernel {dk:.4g}, plain {dp:.4g}" if held
+           else ""))
+    del res, model, opt, step, m32, opt32, step32, batch, batches, sd, osd, osd32
+    torch.cuda.empty_cache()
+    return {"launches": new, "ms": ms, "peak": peak, "dist": (dk, dp)}
+
+
+def bf16_train_rows(errs: dict, counts: dict) -> list:
+    """The kernels line's rows of the bf16 train forms of rows 8, 11 and 14:
+    (a)'s inputs timed (kernel, twin, bound with 2-byte operands; row 8's
+    library call F.conv3d plus torch.nn.grad.conv3d_input on the bf16
+    tensors), launches from (c)'s train_net runs."""
+    gen = torch.Generator(device="cuda").manual_seed(BF16_TRAIN_SEED + 4)
+    rows = []
+    # row 8: forward and input gradient at each trunk site, one launch each
+    fwd, dx = [], []
+    for n, c, d, s in TRAIN_CONV_SITES:
+        x = torch.randn(n, c, d, s, s, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn(c, c, 3, 3, 3, generator=gen, device="cuda") * 0.05
+        fwd.append((x, w))
+        dx.append((x.clone(), w))
+
+    def conv_work_bf16(args, out):
+        x, w = args
+        n, c, d, h, ww = x.shape
+        ops = 2.0 * n * d * h * ww * 27 * c * w.shape[0]
+        return chain_bound(2 * (x.numel() + w.numel() + out.numel()), ops, 0.0)
+
+    def library(args):
+        x, w = args
+        wb = w.to(torch.bfloat16)
+        F.conv3d(x, wb, padding=1)
+        torch.nn.grad.conv3d_input(x.shape, wb, x, padding=1)
+
+    compare = lambda g, w: float((g.float() - w.float()).abs().max())  # noqa: E731
+    with torch.inference_mode():
+        row = time_launches("conv3d_train_bf16",
+                            [(" forward", fwd, cconv.conv3d_train_cuda,
+                              cconv.conv3d_train_bf16_plain, library, conv_work_bf16, compare),
+                             (" dx", dx, cconv.conv3d_train_dx_cuda,
+                              cconv.conv3d_train_dx_bf16_plain, None, conv_work_bf16, compare)],
+                            errs["conv3d_train_bf16"], "conv3d_tc.cu",
+                            "disprcnn_tpu/ops/pallas/packed_conv.py:689")
+    row["launches"] = counts["conv3d_train_bf16"]
+    rows.append(row)
+    del fwd, dx
+    # row 11: the kernel forward at the RCNN SA sites
+    sa = []
+    for site, b, n, m, c0, chain, radius, s in TRAIN_SA_SITES:
+        xyz = point_clouds(gen, b, n, 1.2 * radius * n ** (1 / 3) / 4, s)
+        centers = xyz[:, :m].contiguous()
+        ws, cin = [], c0
+        for co in chain:
+            ws.append((torch.randn(cin, co, generator=gen, device="cuda") * cin ** -0.5,
+                       torch.randn(co, generator=gen, device="cuda") * 0.1))
+            cin = co
+        sa.append((xyz, centers,
+                   torch.randn(b, n, c0, generator=gen, device="cuda").to(torch.bfloat16),
+                   torch.randn(3, c0, generator=gen, device="cuda") * 0.5 / radius,
+                   torch.ones(c0, device="cuda"), torch.zeros(c0, device="cuda"), ws, radius,
+                   s))
+    with torch.inference_mode():
+        row = time_launches("sa_train_bf16",
+                            [(" forward", sa, csa.sa_ball_mlp_max_train_cuda,
+                              csa.sa_ball_mlp_max_bf16_plain, None, sa_bf16_work, compare)],
+                            errs["sa_train_bf16"], "sa.cu",
+                            "disprcnn_tpu/ops/pallas/sa_fused.py:1073")
+    row["launches"] = counts["sa_train_bf16"]
+    rows.append(row)
+    del sa
+    # row 14: the forward at the RCNN pooling sites
+    kinds_of_box = torch.tensor([[0.0, 2.0, 0.0, 4.0, 4.0, 4.0, 0.4],
+                                 [0.0, 4.0, 0.0, 8.5, 9.0, 9.0, 0.3]], device="cuda")
+    pool = []
+    for b, n, m, c, s in ROI_SITES:
+        boxes = kinds_of_box[torch.arange(m, device="cuda") % 2][None].repeat(b, 1, 1)
+        pool.append(((torch.rand(b, n, 3, generator=gen, device="cuda") * 8 - 4).contiguous(),
+                     torch.randn(b, n, 2, generator=gen, device="cuda"),
+                     torch.randn(b, n, c - 2, generator=gen,
+                                 device="cuda").to(torch.bfloat16), boxes.contiguous(), s))
+    exact = lambda g, w: 0.0 if torch.equal(g[0], w[0]) else float("inf")  # noqa: E731
+    with torch.inference_mode():
+        row = time_launches("roipool3d_train_bf16",
+                            [(" forward", pool, croi.roipool3d_train_bf16_cuda,
+                              croi.roipool3d_bf16_plain, None, roipool3d_bf16_work, exact)],
+                            errs["roipool3d_train_bf16"], "roipool3d.cu",
+                            "disprcnn_tpu/ops/pallas/roipool3d_fused.py:137")
+    if not row["max_abs_err"] <= errs["roipool3d_train_bf16"]:
+        raise AssertionError("roipool3d_train bf16: kernel rows differ from the twin's")
+    row["launches"] = counts["roipool3d_train_bf16"]
+    rows.append(row)
+    del pool
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_bf16_train(card: str) -> dict:
+    """Phase 29 (see the docstring). -> {"rows": the four new forms' rows
+    of the kernels line, "sa_off": (b)'s ms, "train": (c)'s results}."""
+    t0 = time.perf_counter()
+    errs = {"grouped_mlp_bf16": bf16_grouped_mlp_compare(),
+            "conv3d_train_bf16": bf16_conv_train_compare(),
+            "sa_train_bf16": bf16_sa_train_compare(),
+            "roipool3d_train_bf16": bf16_roipool_train_compare()}
+    log(f"  (a) the four new forms held to their twins at their sites in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    sa_off = sa_off_bf16(card)
+    sa_off["row"]["max_abs_err"] = max(sa_off["row"]["max_abs_err"], errs["grouped_mlp_bf16"])
+    train = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, stage, dataset, opts, forms, held in BF16_TRAIN_RUNS:
+            train[label] = bf16_train_run(label, stage, dataset, opts, forms, held, tmp)
+    counts = {k: max(r["launches"][k] for r in train.values())
+              for k in ("conv3d_train_bf16", "sa_train_bf16", "roipool3d_train_bf16")}
+    rows = [sa_off["row"]] + bf16_train_rows(errs, counts)
+    for row in rows:
+        row["train_net_launches"] = {label: r["launches"][row["name"]]
+                                     for label, r in train.items()
+                                     if r["launches"].get(row["name"])}
+    log(f"[29/{PHASES}] row 12 in bf16 (the SA-off route) and DispRCNN3D's train stages in bf16 "
+        f"(rows 8, 11 and 14's bf16 train forms) on {card} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"rows": rows, "sa_off": sa_off["ms"], "train": train}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5589,6 +6300,8 @@ def main() -> int:
         kernels += phase_bf16_idispnet(card)["rows"]
         torch.cuda.empty_cache()
         kernels += phase_bf16_3d(card)["rows"]
+        torch.cuda.empty_cache()
+        kernels += phase_bf16_train(card)["rows"]
         log(f"done in {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     except Exception:  # report any phase's failure and exit non-zero
         traceback.print_exc()

@@ -55,9 +55,10 @@ class PSMTrainer:
         self.logger = setup_logger("disprcnn_tpu_torch.psm_trainer", output_dir)
         self.ckpt = Checkpointer(f"{output_dir}/ckpt")
         if model is None:
-            # float32, the JAX tool's PSMNet default; bf16 training is ROADMAP A8.4
-            self.logger.info("iDispNet trains in float32 until its bf16 train form is ported "
-                             "(ROADMAP A8.4)")
+            # float32, as the JAX tool builds its PSMNet (tools/train_idispnet.py
+            # passes no dtype); train_net trains at TPU.COMPUTE_DTYPE
+            self.logger.info("iDispNet trains in float32, as the JAX package's "
+                             "tools/train_idispnet.py does")
             model = PSMNet(maxdisp=maxdisp, mindisp=mindisp).to(self.device)
             init_random_(model, torch.Generator(device=self.device).manual_seed(seed))
         self.model = model

@@ -30,6 +30,12 @@ process at the global batch, as the JAX package's step over its mesh is.
 u's gradient is summed with them; each rank's loss holds sum(u) / ranks,
 so that the sum over the ranks is the global loss and its gradient. The
 losses in the metrics are summed over the ranks too.
+
+A bf16 model (TPU.COMPUTE_DTYPE bfloat16, ROADMAP A8.4) keeps float32
+parameters: its gradients come out float32 (each cast to bf16 in the
+forward widens its gradient back), and the finite check, the clip, the
+optimizer and the BatchNorm running statistics stay float32, as JAX's
+step keeps its float32 parameters and batch statistics.
 """
 from __future__ import annotations
 
@@ -48,7 +54,8 @@ def total_loss(losses: Dict[str, torch.Tensor], uncert: Optional[torch.Tensor],
     """The sum of the losses (in key order), or the uncertainty weighting
     u_share * sum(u) + sum(l_i * exp(-u_i)) (reference trainer.py:44-51;
     u_share is a rank's share of the global batch)."""
-    vals = [v for _, v in sorted(losses.items())]
+    # a bf16 model's losses join in float32, as JAX's sum promotes them
+    vals = [v.to(torch.promote_types(v.dtype, torch.float32)) for _, v in sorted(losses.items())]
     if uncert is None:
         return torch.stack(vals).sum()
     u_sum = uncert.sum() if u_share == 1.0 else uncert.sum() * u_share

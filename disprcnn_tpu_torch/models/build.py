@@ -37,14 +37,16 @@ FBNet body's arch is its name's; an FBNet body is never frozen, as in
 the JAX package).
 
 TPU.COMPUTE_DTYPE (default bfloat16, as in the JAX build) is obeyed by
-the models whose bf16 form is ported: DispRCNN3D (``dtype=torch.bfloat16``,
-eval) builds iDispNet at that dtype (idispnet.yaml; ROADMAP A8.1) and,
-with MODEL.DET3D_ON (rpn.yaml, rcnn.yaml), PointRCNN too (A8.3); the lift
-between them stays float32, as JAX's kernel route keeps it. The others
-compute in float32 until their bf16 form is ported, and the build logs
-one line naming the pending item: DispRCNN (its DispModule too), the mono
-models and RetinaNet (A8.2); and with ``train=True`` (tools/train_net.py)
-every model trains in float32 (A8.4). TPU.PARAM_DTYPE is float32 in every
+the models whose bf16 form is ported: DispRCNN3D (``dtype=torch.bfloat16``)
+builds iDispNet at that dtype (idispnet.yaml; ROADMAP A8.1) and, with
+MODEL.DET3D_ON (rpn.yaml, rcnn.yaml), PointRCNN too (A8.3), in eval and,
+with ``train=True`` (tools/train_net.py), in train mode (A8.4), as JAX's
+tools/train_net.py builds at the config's dtype; the lift between them
+stays float32, as JAX's kernel route keeps it. The others compute in
+float32 until their bf16 form is ported, and the build logs one line
+naming the pending item: DispRCNN (its DispModule too), the mono models
+and RetinaNet (A8.2), and with ``train=True`` their bf16 training after
+it (A8.5: mask.yaml's 2D stage). TPU.PARAM_DTYPE is float32 in every
 shipped config and the port's parameters are float32 (the bf16 kernels
 round the weights where they pack them). Read and not obeyed: the TPU
 layout keys TPU.REMAT_* and TPU.MESH_*. Obeyed: TPU.MAX_DETECTIONS,
@@ -86,13 +88,14 @@ _BF16_PENDING = {"RetinaNetDetector": "A8.2", "GeneralizedRCNN": "A8.2", "DispRC
 def _compute_dtype(cfg, model: str, obeyed: bool, train: bool,
                    logger: Optional[logging.Logger]) -> torch.dtype:
     """TPU.COMPUTE_DTYPE for `model`: bfloat16 where its bf16 form is ported
-    (`obeyed`) and it is not built to train, else float32, with one log
-    line naming the pending ROADMAP item."""
+    (`obeyed`), in eval and in train, else float32, with one log line naming
+    the pending ROADMAP item (and, built to train, the bf16 training item
+    after it)."""
     if cfg.TPU.COMPUTE_DTYPE != "bfloat16":
         return torch.float32
-    if obeyed and not train:
+    if obeyed:
         return torch.bfloat16
-    item = "A8.4" if obeyed else _BF16_PENDING[model]
+    item = _BF16_PENDING[model] + (", then A8.5" if train else "")
     (logger or logging.getLogger(__name__)).info(
         f"TPU.COMPUTE_DTYPE bfloat16: {model} {'trains' if train else 'computes'} in float32 "
         f"until its bf16 form is ported (ROADMAP {item})")
@@ -104,9 +107,10 @@ def build_detection_model(cfg, device: str | torch.device = "cuda", kernels_off=
     """The port's model of `cfg` on `device`, with constructor-default
     weights (utils/weights.py loads or draws them). kernels_off routes
     PointNet++ families off a DispRCNN3D (models/pointrcnn/pointnet2.py).
-    `train` builds the model to train (tools/train_net.py: float32 at any
-    TPU.COMPUTE_DTYPE, ROADMAP A8.4); `logger` takes the line that names a
-    pending bf16 form (default: this module's logger)."""
+    `train` builds the model to train (tools/train_net.py: at
+    TPU.COMPUTE_DTYPE where the model's bf16 form is ported, ROADMAP A8.4);
+    `logger` takes the line that names a pending bf16 form (default: this
+    module's logger)."""
     meta = cfg.MODEL.META_ARCHITECTURE
     if cfg.MODEL.RETINANET_ON:
         _compute_dtype(cfg, "RetinaNetDetector", False, train, logger)

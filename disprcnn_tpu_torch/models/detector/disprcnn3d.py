@@ -11,11 +11,13 @@ With det3d_on=True (configs/kitti/car/vob/rcnn.yaml) the instance
 disparity is lifted to one fixed-size pseudo-LiDAR cloud per ROI and
 PointRCNN returns one 3D box per ROI; with rcnn_enabled=False (rpn.yaml)
 it has no RCNN, and eval returns the disparity and roi_ok only, as JAX's
-does. At the compute dtype bf16 (TPU.COMPUTE_DTYPE's default, eval)
-iDispNet and PointRCNN compute in bf16 and the crops, the lift and its
-clouds stay float32, as in the JAX package's bf16 model on its kernel
+does. At the compute dtype bf16 (TPU.COMPUTE_DTYPE's default, eval and
+train) iDispNet and PointRCNN compute in bf16 and the crops, the lift and
+its clouds stay float32, as in the JAX package's bf16 model on its kernel
 route (models/psmnet/psmnet.py and models/pointrcnn/point_rcnn.py say
-where each rounds).
+where each rounds); in train mode the deep-supervision disparities are
+bf16 and loss_psm takes them against the float32 target in float32, the
+mask counted in bf16 (ops/losses.py), as JAX's loss does.
 
 Train mode (SOLVER.TRAIN_PSM / TRAIN_PC, disprcnn3d.py:162-290) first drops
 the low-score detections (keeping the best two) and keeps the

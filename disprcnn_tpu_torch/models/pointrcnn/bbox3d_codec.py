@@ -109,6 +109,17 @@ def _sl1(x: torch.Tensor) -> torch.Tensor:
     return torch.where(ax < 1.0, 0.5 * ax * ax, ax - 0.5)
 
 
+def log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """log-softmax over the last axis: F.log_softmax, or on bf16 logits
+    jax.nn.log_softmax's operations, each rounded to bf16 (x - max, exp,
+    the sum accumulated in float32, log, the difference), differentiated
+    through them as JAX differentiates them."""
+    if x.dtype != torch.bfloat16:
+        return F.log_softmax(x, dim=-1)
+    shifted = x - x.amax(dim=-1, keepdim=True).detach()
+    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+
+
 def reg_loss(pred: torch.Tensor, reg_label: torch.Tensor, mask: torch.Tensor,
              anchor_size: torch.Tensor,
              cfg: CodecCfg) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -121,7 +132,7 @@ def reg_loss(pred: torch.Tensor, reg_label: torch.Tensor, mask: torch.Tensor,
     denom = sum_over_ranks(m.sum()).clamp_min(1.0)
 
     def ce(logits, label):
-        return -torch.gather(F.log_softmax(logits, dim=-1), 1, label[:, None])[:, 0]
+        return -torch.gather(log_softmax(logits), 1, label[:, None])[:, 0]
 
     def mean(x):
         return (x * m).sum() / denom

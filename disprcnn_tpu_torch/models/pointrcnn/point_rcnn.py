@@ -37,15 +37,19 @@ rcnn_enabled (RCNN.ENABLED), JAX's names and defaults:
 rpn_fixed with no RCNN has nothing to train and raises in train mode.
 
 The compute dtype (``dtype``, TPU.COMPUTE_DTYPE): float32, or bfloat16 as
-the JAX package's ``PointRCNN(dtype=jnp.bfloat16)`` computes, eval only (a
-bf16 PointRCNN in train mode raises; ROADMAP A8.4). In bf16 the anchor is
+the JAX package's ``PointRCNN(dtype=jnp.bfloat16)`` computes, in eval and
+in train mode (ROADMAP A8.3, A8.4). In bf16 the anchor is
 the mean size rounded to bf16 (point_rcnn.py:69: for the car (1.5234375,
 1.625, 3.890625)), the RPN and the RCNN compute in bf16 (pointnet2.py,
 rpn3d.py and rcnn3d.py), the segmentation mask is jax.nn.sigmoid's bf16
 arithmetic on the bf16 scores compared with the threshold in bf16
 (point_rcnn.py:113), and box3d comes out float32, score3d bf16, random
 bool, as JAX's do. The clouds, the proposals' boxes and the lift stay
-float32.
+float32. In train mode the losses are computed where and at the dtype JAX
+computes them (rpn3d.rpn_loss, rcnn3d.rcnn_loss: bf16 head outputs, their
+sums rounded to bf16, the integer counts widened to float32), the RCNN's
+BN-free scales take row 11's bf16 train form and the joint step's pooling
+row 14's (pointnet2.py, rcnn3d.py).
 """
 from __future__ import annotations
 
@@ -56,7 +60,8 @@ from torch import nn
 
 from . import bbox3d_codec as codec
 from . import lift, rcnn3d, rpn3d
-from .pointnet2 import BF16, SA_MIN_C0, sigmoid
+from ...ops.losses import sigmoid
+from .pointnet2 import BF16, SA_MIN_C0
 
 MEAN_SIZE = (1.52563191462, 1.62856739989, 3.88311640418)  # h, w, l
 ROI_BLOCK = 6400  # disprcnn_tpu point_rcnn._roi_blocks, the shipped cap
@@ -132,9 +137,6 @@ class PointRCNN(nn.Module):
         (not rpn_fixed) the RPN's dropout masks rpn_draws -> loss_rpn_cls,
         loss_rpn_reg."""
         train = self.training
-        if train and self.dtype == BF16:
-            raise NotImplementedError("a bf16 PointRCNN trains only once its bf16 train forms "
-                                      "are ported (ROADMAP A8.4): build it to train in float32")
         self.rpn.train(train and not self.rpn_fixed)
         if train:
             if gt_boxes3d is None or gt_ok is None:
@@ -213,7 +215,7 @@ class PointRCNN(nn.Module):
             nms_thresh=self.rpn_nms_thresh_train or self.rpn_nms_thresh)
         rois = _decanon_rois(rois_c, angles, pts_mean)
         xyz_rect = lift.decanonicalize(rpn_out["xyz"], angles, pts_mean)
-        seg_mask = (sigmoid(rpn_out["cls"]) > self.rpn_score_thresh).to(pts.dtype)
+        seg_mask = (sigmoid(rpn_out["cls"]) > self.rpn_score_thresh).to(rpn_out["cls"].dtype)
         pts_input, cls_label, reg_mask, gt_ct, _, _ = rcnn3d.prepare_rcnn_train_inputs(
             rois, prop_valid & roi_valid[:, None], gt_boxes3d, gt_ok & roi_valid, xyz_rect,
             rpn_out["features"], seg_mask, draws,

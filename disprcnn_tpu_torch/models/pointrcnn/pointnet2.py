@@ -56,8 +56,8 @@ In train mode:
 No kernel of rows 10-13 runs in a train-mode MLP with BN.
 
 The compute dtype (``dtype``, TPU.COMPUTE_DTYPE): float32, or bfloat16 as
-the JAX package's ``Pointnet2MSG(dtype=jnp.bfloat16)`` computes, eval
-only; the parameters stay float32. In bf16 the plain layers run at Flax's
+the JAX package's ``Pointnet2MSG(dtype=jnp.bfloat16)`` computes, in eval
+and in train mode; the parameters stay float32. In bf16 the plain layers run at Flax's
 rounding points (``dense``, ``SharedMLP.norm``): each dense layer's input
 and weight rounded to bf16, the exact products summed in float32 and
 rounded once to bf16, then the bias (rounded to bf16) added in bf16 (Flax
@@ -67,10 +67,18 @@ and the max on bf16. mlp0's xyz columns on the centred offsets are JAX's
 unrolled K = 3 sum (pointnet2.py:69-80): the offsets formed in float32 and
 rounded to bf16, three bf16 products and two bf16 adds, (t0 + t1) + t2;
 its feature columns ``v`` a bf16 dense layer, then + b0 in bf16
-(pointnet2.py:298-301). The kernels take their bf16 forms (rows 10 and 13:
-ops/cuda/sa.py and fp.py); the pool route's bf16 x has a plain version
-only (row 12's kernel, ROADMAP A8.3b: it raises on the card). The points
-stay float32 throughout, as JAX keeps them.
+(pointnet2.py:298-301). The kernels take their bf16 forms (rows 10, 12
+and 13: ops/cuda/sa.py, grouped_mlp.py and fp.py; row 12's on the pool
+route, the SA-off route of a bf16 model). The points stay float32
+throughout, as JAX keeps them.
+
+In train mode at bf16 (ROADMAP A8.4) the BN MLPs' train BN is Flax's
+``BatchNorm(dtype=bfloat16)`` (psmnet.batch_norm_train on the bf16 dense
+output: float32 statistics, one rounding), and the BN-free scales that
+take the SA kernel's train form (JAX's gate, pointnet2.py:209-218, which
+takes it only for bf16 models) take its bf16 form (ops/cuda/sa.py: row
+10's bf16 kernel forward, autograd of the oracle's bf16 arithmetic
+backward).
 """
 from __future__ import annotations
 
@@ -128,12 +136,6 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype = torch.float32)
         return layer(x)
     y = product_bf16(x, layer.weight)
     return y if layer.bias is None else y + layer.bias.to(BF16)
-
-
-def sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.sigmoid at x's dtype: torch.sigmoid for float32; for bf16 its
-    lowering 1 / (1 + exp(-x)), each operation rounded to bf16."""
-    return 1.0 / (1.0 + torch.exp(-x)) if x.dtype == BF16 else torch.sigmoid(x)
 
 
 class SharedMLP(nn.Module):

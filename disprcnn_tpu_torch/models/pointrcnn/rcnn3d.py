@@ -26,14 +26,16 @@ Where the pooled points or features carry a gradient (the RPN and RCNN
 trained in one step), the pooling takes row 14's train form
 (``roipool3d_train``); otherwise its eval kernel.
 
-At the compute dtype bf16 (eval; ``RCNNNet(dtype=torch.bfloat16)``) the
-RPN's features and segmentation mask are bf16, as JAX's are: the pooling
-takes row 14's bf16 read (``roipool3d_bf16``: the mask and the depth in
-float32, as JAX's concat promotes them, the features widened in the
-gather), and the pooled input stays float32 (bf16-exact features); the
+At the compute dtype bf16 (``RCNNNet(dtype=torch.bfloat16)``, eval and
+train) the RPN's features and segmentation mask are bf16, as JAX's are: the
+pooling takes row 14's bf16 read (``roipool3d_bf16``: the mask and the
+depth in float32, as JAX's concat promotes them, the features widened in
+the gather; where they carry a gradient, its train form
+``roipool3d_train_bf16``, the features' gradient rounded once to bf16),
+and the pooled input stays float32 (bf16-exact features); the
 RCNN's dense layers, SA scales and heads compute as pointnet2.py's module
 doc says, and cls and reg come out bf16. ``rcnn_postprocess`` takes them
-as JAX's does: jax.nn.sigmoid's bf16 arithmetic (pointnet2.sigmoid), the
+as JAX's does: jax.nn.sigmoid's bf16 arithmetic (ops/losses.py::sigmoid), the
 threshold and the -1e10 fill compared in bf16, ties to the first, the
 decoded boxes float32, the score bf16.
 """
@@ -46,15 +48,15 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ...ops.cuda.roipool3d import roipool3d, roipool3d_bf16, roipool3d_train
+from ...ops.cuda.roipool3d import roipool3d, roipool3d_bf16, roipool3d_train, roipool3d_train_bf16
 from ...ops.iou import iou3d
-from ...ops.losses import binary_cross_entropy, sigmoid_focal_loss_binary
+from ...ops.losses import binary_cross_entropy, sigmoid, sigmoid_focal_loss_binary
 from ...ops.roipool3d import enlarge_box3d
 from ...ops.topk_select import topk_scores
 from ...parallel.mesh import sum_over_ranks
 from ...structures.boxes3d import rotate_points_along_y
 from . import bbox3d_codec as codec
-from .pointnet2 import BF16, SA_MIN_C0, SAModule, SharedMLP, dense, sigmoid
+from .pointnet2 import BF16, SA_MIN_C0, SAModule, SharedMLP, dense
 
 RCNN_CODEC = codec.CodecCfg(loc_scope=1.5, loc_bin_size=0.5, num_head_bin=9, xz_fine=True,
                             ry_fine=True)
@@ -117,8 +119,9 @@ def _pool(xyz, rpn_feats, seg_mask, rois, num_points, pool_extra_width):
     grown = enlarge_box3d(rois, pool_extra_width).contiguous()
     if rpn_feats.dtype == BF16:
         extra = torch.stack([seg_mask.float(), depth], dim=-1).contiguous()
-        return roipool3d_bf16(xyz.contiguous(), extra, rpn_feats.contiguous(), grown,
-                              num_points)
+        grads = torch.is_grad_enabled() and (extra.requires_grad or rpn_feats.requires_grad)
+        pool = roipool3d_train_bf16 if grads else roipool3d_bf16
+        return pool(xyz.contiguous(), extra, rpn_feats.contiguous(), grown.detach(), num_points)
     feats = torch.cat([seg_mask[..., None], depth[..., None], rpn_feats], dim=-1).contiguous()
     pool = roipool3d_train if torch.is_grad_enabled() and feats.requires_grad else roipool3d
     return pool(xyz.contiguous(), feats, grown.detach(), num_points)

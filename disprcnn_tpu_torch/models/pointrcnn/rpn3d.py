@@ -143,9 +143,11 @@ def rpn_loss(cls_pred: torch.Tensor, reg_pred: torch.Tensor, cls_label: torch.Te
     care = (cls_label >= 0) & roi_valid[:, None]
     pos = (cls_label > 0) & roi_valid[:, None]
     tgt = pos.to(cls_pred.dtype)
+    # JAX's counts are integers widened to float32 (float64 in a float64 run)
+    count_dtype = torch.promote_types(cls_pred.dtype, torch.float32)
     if loss_cls == "SigmoidFocalLoss":
         raw = sigmoid_focal_loss_binary(cls_pred, tgt, focal_gamma, focal_alpha)
-        cls_l = (raw * care).sum() / sum_over_ranks(pos.sum()).to(cls_pred.dtype).clamp_min(1.0)
+        cls_l = (raw * care).sum() / sum_over_ranks(pos.sum()).to(count_dtype).clamp_min(1.0)
     elif loss_cls == "DiceLoss":
         if process_count() > 1:
             raise NotImplementedError("RPN.LOSS_CLS DiceLoss over several ranks: its sums are "
@@ -154,7 +156,7 @@ def rpn_loss(cls_pred: torch.Tensor, reg_pred: torch.Tensor, cls_label: torch.Te
         cls_l = 1.0 - ((p * tgt).sum() + 1e-5) / (p.sum() + tgt.sum() + 1e-5)
     elif loss_cls == "BinaryCrossEntropy":
         bce = binary_cross_entropy(cls_pred, tgt)
-        cls_l = (bce * care).sum() / sum_over_ranks(care.sum()).to(cls_pred.dtype).clamp_min(1.0)
+        cls_l = (bce * care).sum() / sum_over_ranks(care.sum()).to(count_dtype).clamp_min(1.0)
     else:
         raise ValueError(f"RPN.LOSS_CLS {loss_cls!r}: one of {RPN_LOSS_CLS}")
     loc, angle, size = codec.reg_loss(reg_pred.reshape(-1, reg_pred.shape[-1]),

@@ -51,7 +51,7 @@ A block that downsamples (layer2's first: JAX runs it unpacked, with no
 W-packed kernel) takes its second conv (3x3, 64 channels, stride 1) the
 XLA way in bf16 too: the cuDNN conv, ``bn_eval`` and the residual add,
 each rounded (ROADMAP C40); in float32 it stays the 2D kernel. DispModule's
-trunk stays float32 (ROADMAP A8.2), and training is float32 (A8.4).
+trunk stays float32 (ROADMAP A8.2).
 
 Train mode (``self.training``, psmnet.py:529-579, :691-709, :962-1020):
 every BatchNorm normalizes with the batch statistics as Flax does
@@ -63,6 +63,29 @@ tower, the stride-2 and transposed convs, the one-channel classifiers
 and the soft-argmin are plain differentiable PyTorch, as they are XLA in
 the JAX package's training. ``forward`` then returns the deep-supervision
 tuple (one disparity per hourglass).
+
+Train mode at bf16 (ROADMAP A8.4; JAX's PSMNet(dtype=bfloat16) with
+train=True) follows JAX's source at its rounding points: each conv on bf16
+operands (the weight cast to bf16) rounds once (the stride-1 trunk convs
+through row 8's bf16 form, the tower, stride-2 and transposed convs and the
+one-channel classifiers as cuDNN calls on bf16 tensors); each BatchNorm
+takes its batch statistics in float32 from the bf16 input (the running
+statistics float32) and normalizes as JAX's module at that site does
+(``batch_norm_train``): the trunk's, the deconvs' and the W-packed tower
+convs' are the JAX package's ``_PackedBN`` (mul and add rounded to bf16,
+then x * mul + add in bf16), the tower's other convs' Flax's
+``BatchNorm(dtype=bfloat16)`` (the affine in float32, one rounding); the
+residual adds, ReLUs and
+the classifiers' running sum are bf16 ops. The cost volume's first conv is
+JAX's train route, float32 throughout (psmnet.py:566-578, the
+decomposition: its bf16 features widened, the float32 weight), its output
+rounded to bf16 before its BN. The regression of each deep-supervision
+output is JAX's XLA ``regress`` in bf16 (``softargmin_train_bf16``: the
+three interpolation contractions, jax.nn.softmax's operations and its
+gradient, the expectation, each rounded), so the disparities are bf16;
+the loss widens them (models/detector/disprcnn3d.py). Jitted XLA on the
+CPU elides some of these roundings (ROADMAP C42); the port keeps them, as
+the source and JAX run op by op do.
 """
 from __future__ import annotations
 
@@ -75,7 +98,8 @@ from torch import nn
 from ...ops.cost_volume import build_cost_volume
 from ...ops.cuda.conv3d import (CHANNELS, conv2d_bn, conv3d_bn, conv3d_train,
                                 cost_volume_conv_bn, deconv3d_bn)
-from ...ops.cuda.softargmin import interp_matrix_align_corners, softargmin, softargmin_plain
+from ...ops.cuda.softargmin import (interp_matrix_align_corners, softargmin, softargmin_plain,
+                                    softargmin_train_bf16)
 from ...parallel.mesh import sum_over_ranks_autograd
 from ...parallel.multihost import process_count
 
@@ -84,7 +108,7 @@ BN_MOMENTUM = 0.9  # Flax's: running = 0.9 * running + 0.1 * batch
 
 
 def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
-                     axis: int = 1) -> torch.Tensor:
+                     axis: int = 1, packed: bool = False) -> torch.Tensor:
     """Train-mode BN over every axis but the channel axis `axis`, as Flax's
     BatchNorm computes it: the biased variance E[x^2] - E[x]^2 (clipped at
     0) normalizes, and the running statistics take momentum 0.9 with that
@@ -98,25 +122,44 @@ def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     With several ranks the statistics are the global batch's: E[x] and
     E[x^2] from the sums of x and x^2 over every rank's rows, through the
     autograd all-reduce, so that the gradient keeps the cross-rank terms;
-    the running statistics then come out equal on every rank."""
+    the running statistics then come out equal on every rank.
+
+    A bf16 x is normalized as Flax's ``BatchNorm(dtype=bfloat16)`` does: the
+    statistics and the affine in float32 from the bf16 input, one rounding
+    at the end. With `packed` (the sites of the JAX package's depth- or
+    W-packed convs, whose BN is its own ``_PackedBN``, psmnet.py:442-484) a
+    bf16 x takes that module's train arithmetic instead: the variance not
+    clipped, mul = scale * rsqrt(var + eps) and add = bias - mean * mul in
+    float32, both rounded to bf16, then x * mul + add in bf16 (the product
+    and the sum each rounded). A float32 x takes Flax's form at either kind
+    of site (the two agree to float32 roundings)."""
     axis = axis % x.dim()
     dims = [d for d in range(x.dim()) if d != axis]
+    dtype = x.dtype
+    bf16 = dtype == torch.bfloat16
+    xf = x.float() if bf16 else x  # the statistics in float32
     if process_count() == 1:
-        mean = x.mean(dims)
-        var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+        mean = xf.mean(dims)
+        var = (xf * xf).mean(dims) - mean * mean
     else:
-        s = x.sum(dims)
-        rows = torch.full_like(s, float(x.numel() // x.shape[axis]))
-        sums = sum_over_ranks_autograd(torch.stack([s, (x * x).sum(dims), rows]))
+        s = xf.sum(dims)
+        rows = torch.full_like(s, float(xf.numel() // xf.shape[axis]))
+        sums = sum_over_ranks_autograd(torch.stack([s, (xf * xf).sum(dims), rows]))
         mean, mean_sq = sums[0] / sums[2], sums[1] / sums[2]
-        var = (mean_sq - mean * mean).clamp_min(0.0)
+        var = mean_sq - mean * mean
+    packed = packed and bf16
+    if not packed:
+        var = var.clamp_min(0.0)
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_(mean.detach(), alpha=1 - BN_MOMENTUM)
         bn.running_var.mul_(BN_MOMENTUM).add_(var.detach(), alpha=1 - BN_MOMENTUM)
     shape = [1] * x.dim()
     shape[axis] = -1
     mul = torch.rsqrt(var + bn.eps) * bn.weight
-    return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+    if packed:
+        add = bn.bias - mean * mul
+        return x * mul.to(dtype).view(shape) + add.to(dtype).view(shape)
+    return ((xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)).to(dtype)
 
 
 def bn_eval(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
@@ -134,16 +177,37 @@ def bn_eval(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tenso
     return y.to(torch.bfloat16)
 
 
-def norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
-    """Batch statistics in train mode, running statistics in eval."""
-    return batch_norm_train(bn, x) if bn.training else bn_eval(bn, x)
+def norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+         packed: bool = False) -> torch.Tensor:
+    """Batch statistics in train mode (`packed`: batch_norm_train's), running
+    statistics in eval."""
+    return batch_norm_train(bn, x, packed=packed) if bn.training else bn_eval(bn, x)
+
+
+def conv_in_dtype(fn, x: torch.Tensor, weight: torch.Tensor, **kw) -> torch.Tensor:
+    """fn (F.conv2d, F.conv3d or F.conv_transpose3d) of x with the float32
+    weight at x's dtype (Flax's nn.Conv(dtype=...) promotes input and kernel
+    to the compute dtype). On the CPU a bf16 conv runs as the float32 conv of
+    the same bf16 values rounded once: the same function (the products of
+    bf16 values are exact in float32), with its gradients rounded at the
+    same points, at the float32 conv's speed."""
+    if x.dtype == torch.bfloat16 and not x.is_cuda:
+        return fn(x.float(), weight.to(x.dtype).float(), **kw).to(x.dtype)
+    return fn(x, weight.to(x.dtype), **kw)
 
 
 def conv_at(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """A bias-free cuDNN conv (nn.Conv2d, nn.Conv3d) of x at x's dtype: the
-    float32 weight cast to bf16 for a bf16 x (Flax's nn.Conv(dtype=...)
-    promotes input and kernel to the compute dtype)."""
-    return conv._conv_forward(x, conv.weight.to(x.dtype), None)
+    """A bias-free cuDNN conv (nn.Conv2d, nn.Conv3d) of x at x's dtype
+    (conv_in_dtype)."""
+    fn = F.conv3d if isinstance(conv, nn.Conv3d) else F.conv2d
+    return conv_in_dtype(fn, x, conv.weight, stride=conv.stride, padding=conv.padding,
+                         dilation=conv.dilation)
+
+
+def deconv_at(deconv: nn.ConvTranspose3d, x: torch.Tensor) -> torch.Tensor:
+    """The bias-free transposed conv of x at x's dtype (conv_in_dtype)."""
+    return conv_in_dtype(F.conv_transpose3d, x, deconv.weight, stride=deconv.stride,
+                         padding=deconv.padding, output_padding=deconv.output_padding)
 
 
 def compute(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -179,13 +243,16 @@ class ConvBN(nn.Module):
                                 dilation, bias=False)
         self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=BN_EPS)
         self.fused = kernel == 3 and stride == 1 and dilation == 1 and cout in CHANNELS
+        # JAX W-packs this conv (its BN a _PackedBN: batch_norm_train)
+        self.packed = self.fused
         self.eval()
 
     def forward(self, x, relu: bool = False, residual=None):
         x = compute(x, self.dtype)
         if self.fused and not self.training:
             return conv2d_bn(x, self.Conv_0.weight, *fold_bn(self.BatchNorm_0), residual, relu)
-        return _finish(norm(self.BatchNorm_0, conv_at(self.Conv_0, x)), relu, residual)
+        return _finish(norm(self.BatchNorm_0, conv_at(self.Conv_0, x), self.packed), relu,
+                       residual)
 
 
 class BasicBlock(nn.Module):
@@ -202,6 +269,7 @@ class BasicBlock(nn.Module):
             self.BatchNorm_0 = nn.BatchNorm2d(planes, eps=BN_EPS)
             # JAX packs no block that downsamples: its second conv is XLA's,
             # each op rounded, in a bf16 model (the module doc, ROADMAP C40)
+            self.ConvBN_1.packed = False
             if dtype == torch.bfloat16:
                 self.ConvBN_1.fused = False
         self.downsample = downsample
@@ -297,8 +365,8 @@ class ConvBN3d(nn.Module):
         w = self.Conv_0.weight
         x = compute(x, self.dtype)
         if self.training:
-            y = conv3d_train(x, w) if self.stride == 1 else F.conv3d(x, w, stride=2, padding=1)
-            return _finish(batch_norm_train(self.BatchNorm_0, y), relu, residual)
+            y = conv3d_train(x, w) if self.stride == 1 else conv_at(self.Conv_0, x)
+            return _finish(batch_norm_train(self.BatchNorm_0, y, packed=True), relu, residual)
         mul, add = fold_bn(self.BatchNorm_0)
         return conv3d_bn(x, w, mul, add, residual, relu, self.stride)
 
@@ -306,9 +374,14 @@ class ConvBN3d(nn.Module):
         """This conv over the concat cost volume of (N, C, H, W) features,
         the volume built inside the kernel (in train mode, stored)."""
         if self.training:
+            # JAX trains this conv in float32 at any compute dtype
+            # (psmnet.py:566-578), rounding its output to the compute dtype
+            dt = left.dtype
+            if dt == torch.bfloat16:
+                left, right = left.float(), right.float()
             y = F.conv3d(build_cost_volume(left, right, mindisp4, maxdisp4),
-                         self.Conv_0.weight, padding=1)
-            return _finish(batch_norm_train(self.BatchNorm_0, y), relu, None)
+                         self.Conv_0.weight, padding=1).to(dt)
+            return _finish(batch_norm_train(self.BatchNorm_0, y, packed=True), relu, None)
         mul, add = fold_bn(self.BatchNorm_0)
         return cost_volume_conv_bn(compute(left, self.dtype), compute(right, self.dtype),
                                    self.Conv_0.weight, mul, add, mindisp4, maxdisp4, relu)
@@ -347,9 +420,10 @@ class Hourglass(nn.Module):
         out = self.ConvBN_3(out, relu=True)
         skip = presqu if presqu is not None else pre
         if self.training:
-            post = _finish(norm(self.BatchNorm_0, self.ConvTranspose_0(out)), True, skip)
-            up2 = _finish(norm(self.BatchNorm_1, self.ConvTranspose_1(post)), False,
-                          final_residual)
+            post = _finish(batch_norm_train(self.BatchNorm_0, deconv_at(self.ConvTranspose_0, out),
+                                            packed=True), True, skip)
+            up2 = _finish(batch_norm_train(self.BatchNorm_1, deconv_at(self.ConvTranspose_1, post),
+                                           packed=True), False, final_residual)
             return up2, pre, post
         post = deconv3d_bn(out, self.ConvTranspose_0.weight, *fold_bn(self.BatchNorm_0),
                            skip, relu=True)  # 1/2
@@ -412,7 +486,7 @@ class CostVolumeTrunk(nn.Module):
             z = getattr(self, f"classif{i + 1}_0")(o, relu=True)
             wc = getattr(self, f"classif{i + 1}_1").weight
             if self.training:
-                c = F.conv3d(z, wc, padding=1)
+                c = conv_in_dtype(F.conv3d, z, wc, padding=1)
                 costs.append(c if i == 0 else c + costs[-1])
             else:
                 # the sum with the previous classifier's cost joins as the
@@ -421,8 +495,9 @@ class CostVolumeTrunk(nn.Module):
                 # separate bf16 add)
                 costs.append(conv3d_bn(z, wc, residual=costs[-1] if i else None))
         if self.training:
-            return tuple(softargmin_plain(c[:, 0], out_hw, self.mindisp, self.maxdisp)
-                         for c in costs)
+            regress = softargmin_train_bf16 if costs[0].dtype == torch.bfloat16 else \
+                softargmin_plain
+            return tuple(regress(c[:, 0], out_hw, self.mindisp, self.maxdisp) for c in costs)
         return softargmin(costs[-1][:, 0], out_hw, self.mindisp, self.maxdisp)
 
 
@@ -430,7 +505,8 @@ class PSMNet(CostVolumeTrunk):
     """Full iDispNet: forward(left, right) -> (B, H, W) disparity in eval,
     the tuple of num_hourglass disparities (deep supervision, the last
     one the prediction) in train mode. `dtype` is the compute dtype
-    (float32, or bfloat16 in eval; the disparity is float32 either way)."""
+    (float32, or bfloat16: the eval disparity is float32, the train
+    disparities bf16, as JAX's are)."""
 
     def __init__(self, maxdisp: int = 48, mindisp: int = -48, num_hourglass: int = 3,
                  dtype: torch.dtype = torch.float32):
@@ -443,9 +519,6 @@ class PSMNet(CostVolumeTrunk):
         """left, right (B, 3, H, W) normalized crops (float32; the first conv
         casts them to the compute dtype) -> (B, H, W), or in train mode a
         tuple of them."""
-        if self.training and self.dtype != torch.float32:
-            raise NotImplementedError(f"PSMNet trains in float32 only (ROADMAP A8.4), not "
-                                      f"{self.dtype}")
         b, _, h, w = left.shape
         both = self.feature_extraction(torch.cat([left, right], dim=0))
         return self._regress(both[:b], both[b:], 4, (h, w))

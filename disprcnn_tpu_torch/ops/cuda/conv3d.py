@@ -66,7 +66,17 @@ epilogue, no residual, no ReLU: the train path's batch-stat BN stays
 outside) and its input gradient is the same kernel again, run on the
 output gradient with the flipped, channel-transposed weights; the weight
 gradient is PyTorch's (the JAX package takes both from XLA). Its launch
-points are ``conv3d_train_cuda`` and ``conv3d_train_dx_cuda``.
+points are ``conv3d_train_cuda`` and ``conv3d_train_dx_cuda``. On a bf16 x
+(a bf16 model's train step; packed_conv_train on a bf16 packed volume and
+a bf16 kernel) both launch the bf16 form: the forward rounds the conv to
+bf16 once, the output gradient arrives bf16 (JAX's ``_pct_bwd`` casts the
+cotangent to the conv's dtype) and the input gradient is the bf16 conv of
+it with the flipped weights rounded to bf16, rounded once; the weight
+gradient is PyTorch's on the bf16 tensors (XLA's transpose in JAX),
+rounded to bf16 and widened to the float32 parameter. Its plain versions
+are ``conv3d_train_bf16_plain`` (differentiable) and
+``conv3d_train_dx_bf16_plain``; the launches count in
+``launches_bf16["conv3d_train"]``.
 """
 from __future__ import annotations
 
@@ -87,7 +97,7 @@ launches = {"cost_volume_conv": 0, "conv3d": 0, "conv3d_cl1": 0, "conv3d_s2": 0,
             "deconv3d": 0, "conv2d": 0, "conv3d_train": 0}
 # Launches of the bf16 forms, by the same names.
 launches_bf16 = {"cost_volume_conv": 0, "conv3d": 0, "conv3d_cl1": 0, "conv3d_s2": 0,
-                 "deconv3d": 0, "conv2d": 0}
+                 "deconv3d": 0, "conv2d": 0, "conv3d_train": 0}
 BF16 = torch.bfloat16
 
 # output channel counts the kernels are instantiated for; Co = 1 only for
@@ -760,8 +770,8 @@ def _conv3d_counted(x, weight, mul, add, residual, relu, stride, dtype):
 def _conv3d_launch(x, weight, mul=None, add=None, residual=None, relu=False, stride=1,
                    flip=False, dtype=torch.float32):
     """One launch of the conv3d kernel in the form of `dtype` (x, residual
-    and output of that dtype), not counted; with `flip` (float32), the conv
-    with flip_transpose(weight)."""
+    and output of that dtype), not counted; with `flip`, the conv with
+    flip_transpose(weight)."""
     _check_input("x", x, 5, dtype)
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
@@ -984,19 +994,37 @@ def conv3d_train_dx_plain(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tenso
     return F.conv3d(dy, flip_transpose(weight), padding=1)
 
 
+def conv3d_train_bf16_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The bf16 train form's plain version, differentiable by autograd: x
+    bf16 and the weight rounded to bf16, both cast up, the float32 conv
+    rounded once to bf16. Its input gradient comes out as the float32 conv
+    of the bf16 output gradient with the rounded weights, rounded to bf16;
+    its weight gradient as the float32 weight gradient rounded to bf16,
+    widened to the float32 weight (packed_conv_train's bf16 arithmetic)."""
+    return F.conv3d(x.float(), weight.to(BF16).float(), padding=1).to(BF16)
+
+
+def conv3d_train_dx_bf16_plain(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The input gradient of conv3d_train_bf16_plain(x, weight) for the bf16
+    output gradient dy, as the bf16 kernel computes it: dy with the flipped
+    weights rounded to bf16, in float32, rounded once."""
+    return F.conv3d(dy.float(), _bf16_weight(flip_transpose(weight)), padding=1).to(BF16)
+
+
 def conv3d_train_cuda(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """The train form's forward: csrc/conv3d_tc.cu with the identity
-    epilogue."""
-    out = _conv3d_launch(x, weight)
-    launches["conv3d_train"] += 1
+    epilogue, in the form of x's dtype (float32 or bf16)."""
+    out = _conv3d_launch(x, weight, dtype=x.dtype)
+    _counts(x.dtype)["conv3d_train"] += 1
     return out
 
 
 def conv3d_train_dx_cuda(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """The train form's input gradient: csrc/conv3d_tc.cu on dy with the
-    flipped, channel-transposed weights (Ci = Co in every trunk site)."""
-    out = _conv3d_launch(dy.contiguous(), weight, flip=True)
-    launches["conv3d_train"] += 1
+    flipped, channel-transposed weights (Ci = Co in every trunk site), in
+    the form of dy's dtype."""
+    out = _conv3d_launch(dy.contiguous(), weight, flip=True, dtype=dy.dtype)
+    _counts(dy.dtype)["conv3d_train"] += 1
     return out
 
 
@@ -1009,18 +1037,23 @@ class _Conv3dTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
+        dy = dy.to(x.dtype)  # JAX's _pct_bwd: the cotangent at the conv's dtype
         dx = conv3d_train_dx_cuda(dy, weight) if ctx.needs_input_grad[0] else None
         dk = None
         if ctx.needs_input_grad[1]:
-            dk = torch.nn.grad.conv3d_weight(x, weight.shape, dy, padding=1)
+            # a bf16 x: the weight gradient of the bf16 tensors, rounded to
+            # bf16 (the gradient of JAX's bf16 kernel), widened to the weight
+            dk = torch.nn.grad.conv3d_weight(x, weight.shape, dy, padding=1).to(weight.dtype)
         return dx, dk
 
 
 def conv3d_train(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """x (N, Ci, D, H, W), weight (Co, Ci, 3, 3, 3) -> the raw conv (N, Co,
-    D, H, W), differentiable in x and weight. CUDA tensors take the kernel
-    forward and backward (Co and Ci in CHANNELS), CPU tensors the plain
-    version."""
+    """x (N, Ci, D, H, W) float32 or bf16, weight (Co, Ci, 3, 3, 3) float32
+    -> the raw conv (N, Co, D, H, W) at x's dtype, differentiable in x and
+    weight. CUDA tensors take the kernel forward and backward (Co and Ci in
+    CHANNELS), CPU tensors the plain version (the bf16 one for a bf16 x)."""
     if x.is_cuda:
         return _Conv3dTrain.apply(x, weight)
+    if x.dtype == BF16:
+        return conv3d_train_bf16_plain(x, weight)
     return conv3d_train_plain(x, weight)

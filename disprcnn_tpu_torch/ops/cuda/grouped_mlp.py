@@ -28,9 +28,13 @@ A bf16 x (a bf16 model's SA-off route) follows the TPU kernel
 (grouped_mlp.py:26-40): the affine x * mul0 + add0 and the ReLU in float32,
 rounded to bf16, then the chain on bf16 weights with float32 sums, each
 layer rounded to bf16, and the max; bf16 out. Its plain version is
-``grouped_mlp_max_bf16_plain``. It has no kernel yet (ROADMAP A8.3b): on
-the card a bf16 x raises NotImplementedError rather than being cast to
-reach the float32 kernel.
+``grouped_mlp_max_bf16_plain``; on the card it launches the kernel's bf16
+form, ``grouped_mlp_max_bf16_cuda`` (the same kernel body on bf16 tiles:
+one wgmma bf16 product a k16 step, no split), counted in
+``launches_bf16``. Its weights are rounded to bf16 and laid out by
+``pack_wgmma_chain_bf16_cuda`` (plain version ``pack_wgmma_chain_bf16``),
+its plan from ``launch_plan(..., bf16=True)``. Each form raises on the
+other's dtype: nothing is cast to reach a kernel.
 """
 from __future__ import annotations
 
@@ -43,9 +47,10 @@ from . import build
 from .conv3d import split_tf32
 from .sa import BF16, MAX_LAYERS, _check, mlp_chain, mlp_chain_3xtf32, mlp_chain_bf16
 
-# Launches of the CUDA kernel in this process; a caller may reset it to 0
-# around a run it wants to count.
+# Launches of the CUDA kernel in this process, and of its bf16 form; a
+# caller may reset them to 0 around a run it wants to count.
 launches = 0
+launches_bf16 = 0
 
 # a group fits in one consumer warpgroup's 64 rows
 MAX_S = 64
@@ -65,12 +70,17 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("grouped_mlp")
     if lib.grouped_mlp_cuda.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.grouped_mlp_cuda.argtypes = [p, p, p, p, p, p, i, i, i, p, p, p, i]
-        lib.grouped_mlp_plan.argtypes = [p, i, i, p]
+        for sfx in ("", "_bf16"):
+            getattr(lib, f"grouped_mlp{sfx}_cuda").argtypes = [p, p, p, p, p, p, i, i, i, p, p,
+                                                               p, i]
+            getattr(lib, f"grouped_mlp{sfx}_plan").argtypes = [p, i, i, p]
+            getattr(lib, f"grouped_mlp{sfx}_pack_cuda").argtypes = [p, p, i, i, p, p, i]
         lib.grouped_mlp_packed_floats.argtypes = [p, i]
-        lib.grouped_mlp_pack_cuda.argtypes = [p, p, i, i, p, p, i]
+        lib.grouped_mlp_bf16_packed_words.argtypes = [p, i]
         for fn in (lib.grouped_mlp_cuda, lib.grouped_mlp_plan, lib.grouped_mlp_packed_floats,
-                   lib.grouped_mlp_pack_cuda):
+                   lib.grouped_mlp_pack_cuda, lib.grouped_mlp_bf16_cuda,
+                   lib.grouped_mlp_bf16_plan, lib.grouped_mlp_bf16_packed_words,
+                   lib.grouped_mlp_bf16_pack_cuda):
             fn.restype = i
         lib.grouped_mlp_error_string.argtypes = [i]
         lib.grouped_mlp_error_string.restype = ctypes.c_char_p
@@ -151,30 +161,55 @@ def pack_wgmma_chain(weights: Weights, nc: int) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def pack_wgmma_chain_bf16(weights: Weights, nc: int) -> torch.Tensor:
+    """The chain's weights as the kernel's bf16 form reads them into shared
+    memory, int32 words of two bf16 (the lower K value in the lower half):
+    per layer W (Ci, Co) padded with zeros to (Kp, Np), both multiples of
+    SLAB_K, rounded to bf16 (nearest even); cut into chunks of nc output
+    columns (the last one narrower), each chunk into slabs of SLAB_K rows
+    of K; a slab one image (2 k16 steps, NCW / 8 column groups, 2 K halves,
+    8 columns, 8 K values): wgmma's K-major layout without swizzle, core
+    matrices of 8 columns x 8 K values (16-byte rows, as the float32 form's
+    of 4 TF32 values). The plain version of pack_wgmma_chain_bf16_cuda."""
+    parts = []
+    for w, _ in weights:
+        ci, co = w.shape
+        kp, np_ = _pad(ci), _pad(co)
+        wb = torch.nn.functional.pad(w, (0, np_ - co, 0, kp - ci)).to(BF16)
+        for n0 in range(0, np_, nc):
+            ncw = min(nc, np_ - n0)
+            # (slab, kk, half, k8, n8, row) -> (slab, kk, n8, half, row, k8)
+            parts.append(wb[:, n0:n0 + ncw].reshape(kp // SLAB_K, SLAB_K // 16, 2, 8, ncw // 8, 8)
+                         .permute(0, 1, 4, 2, 5, 3).reshape(-1))
+    return torch.cat(parts).contiguous().view(torch.int32)
+
+
 def _chans(weights: Weights, c0: int):
     chans = [c0] + [w.shape[1] for w, _ in weights]
     return (ctypes.c_int * len(chans))(*chans), len(weights)
 
 
-def launch_plan(chans: Sequence[int], s: int) -> Tuple[int, int, int, int]:
-    """The kernel's launch plan for the chain's widths chans (C0, ...,
-    C_last) and groups of s rows: (consumer warpgroups, chunk width nc,
-    ring slots, shared memory bytes). Raises if no plan fits a block's
-    shared memory."""
+def launch_plan(chans: Sequence[int], s: int, bf16: bool = False) -> Tuple[int, int, int, int]:
+    """The kernel's launch plan (its bf16 form's with `bf16`) for the
+    chain's widths chans (C0, ..., C_last) and groups of s rows: (consumer
+    warpgroups, chunk width nc, ring slots, shared memory bytes). Raises if
+    no plan fits a block's shared memory."""
     lib = _lib()
     carr = (ctypes.c_int * len(chans))(*chans)
     plan = (ctypes.c_int * 4)()
-    err = lib.grouped_mlp_plan(carr, len(chans) - 1, s, plan)
+    fn = lib.grouped_mlp_bf16_plan if bf16 else lib.grouped_mlp_plan
+    err = fn(carr, len(chans) - 1, s, plan)
     if err != 0:
         raise ValueError(f"grouped_mlp: no launch plan for widths {tuple(chans)} and S={s}: "
                          f"{lib.grouped_mlp_error_string(err).decode()}")
     return tuple(plan)
 
 
-def pack_wgmma_chain_cuda(weights: Weights, nc: int) -> torch.Tensor:
-    """pack_wgmma_chain(weights, nc) in one launch of csrc/grouped_mlp.cu's
-    packing on the current stream (each W float32, contiguous, on one
-    card; 1 to MAX_LAYERS layers)."""
+def pack_wgmma_chain_cuda(weights: Weights, nc: int, bf16: bool = False) -> torch.Tensor:
+    """pack_wgmma_chain(weights, nc), or with `bf16`
+    pack_wgmma_chain_bf16(weights, nc), in one launch of
+    csrc/grouped_mlp.cu's packing on the current stream (each W float32,
+    contiguous, on one card; 1 to MAX_LAYERS layers)."""
     if nc not in CHUNKS:
         raise ValueError(f"nc must be one of {CHUNKS}, got {nc}")
     _check_layers(weights)
@@ -186,20 +221,27 @@ def pack_wgmma_chain_cuda(weights: Weights, nc: int) -> torch.Tensor:
     lib = _lib()
     carr, nl = _chans(weights, weights[0][0].shape[0])
     wptr = (ctypes.c_void_p * nl)(*[w.data_ptr() for w, _ in weights])
-    out = torch.empty(lib.grouped_mlp_packed_floats(carr, nl), device=dev)
-    err = lib.grouped_mlp_pack_cuda(wptr, carr, nl, nc, out.data_ptr(),
-                                    torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    if bf16:
+        out = torch.empty(lib.grouped_mlp_bf16_packed_words(carr, nl), dtype=torch.int32,
+                          device=dev)
+        fn, name = lib.grouped_mlp_bf16_pack_cuda, "grouped_mlp_bf16_pack_cuda"
+    else:
+        out = torch.empty(lib.grouped_mlp_packed_floats(carr, nl), device=dev)
+        fn, name = lib.grouped_mlp_pack_cuda, "grouped_mlp_pack_cuda"
+    err = fn(wptr, carr, nl, nc, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+             dev.index)
     if err != 0:
-        raise RuntimeError(f"grouped_mlp_pack_cuda launch failed: "
-                           f"{lib.grouped_mlp_error_string(err).decode()}")
+        raise RuntimeError(f"{name} launch failed: {lib.grouped_mlp_error_string(err).decode()}")
     return out
 
 
 def pack_for_launch(x: torch.Tensor, weights: Weights) -> torch.Tensor:
-    """The packed weights that a launch of the kernel on x (G, S, C0) reads:
-    the weight packing each launch runs first."""
-    plan = launch_plan([x.shape[2]] + [w.shape[1] for w, _ in weights], x.shape[1])
-    return pack_wgmma_chain_cuda(weights, plan[1])
+    """The packed weights that a launch of the kernel (its bf16 form for a
+    bf16 x) on x (G, S, C0) reads: the weight packing each launch runs
+    first."""
+    bf16 = x.dtype == BF16
+    plan = launch_plan([x.shape[2]] + [w.shape[1] for w, _ in weights], x.shape[1], bf16)
+    return pack_wgmma_chain_cuda(weights, plan[1], bf16)
 
 
 def grouped_mlp_max_cuda(x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor,
@@ -209,6 +251,27 @@ def grouped_mlp_max_cuda(x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor
     global launches
     build.forward_only("grouped_mlp_max_cuda", x, mul0, add0,
                        *(t for pair in weights for t in pair))
+    out = _launch(x, mul0, add0, weights, torch.float32)
+    launches += 1
+    return out
+
+
+def grouped_mlp_max_bf16_cuda(x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor,
+                              weights: Weights) -> torch.Tensor:
+    """Launch the bf16 form of csrc/grouped_mlp.cu on the current stream;
+    same contract as grouped_mlp_max_bf16_plain. x bf16, every other tensor
+    float32, all contiguous, on one card."""
+    global launches_bf16
+    build.forward_only("grouped_mlp_max_bf16_cuda", x, mul0, add0,
+                       *(t for pair in weights for t in pair))
+    out = _launch(x, mul0, add0, weights, BF16)
+    launches_bf16 += 1
+    return out
+
+
+def _launch(x, mul0, add0, weights, dtype) -> torch.Tensor:
+    """One launch of the kernel in the form of `dtype` (x and the output of
+    that dtype), not counted."""
     if not x.is_cuda:
         raise ValueError(f"x must be on a CUDA device, got {x.device}")
     _check_layers(weights)
@@ -216,7 +279,7 @@ def grouped_mlp_max_cuda(x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor
     if x.dim() != 3:
         raise ValueError(f"x must be (G, S, C0), got {tuple(x.shape)}")
     g, s, c0 = x.shape
-    _check("x", x, (g, s, c0), dev)
+    _check("x", x, (g, s, c0), dev, dtype)
     _check("mul0", mul0, (c0,), dev)
     _check("add0", add0, (c0,), dev)
     chans = [c0]
@@ -227,34 +290,30 @@ def grouped_mlp_max_cuda(x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor
     if not 1 <= s <= MAX_S or g < 1 or g >= 1 << 31:
         raise ValueError(f"need 1 <= S <= {MAX_S} and 1 <= G < 2^31, got S={s}, G={g}")
     lib = _lib()
-    plan = launch_plan(chans, s)
-    wpk = pack_wgmma_chain_cuda(weights, plan[1])
-    out = torch.empty((g, chans[-1]), device=dev)
+    bf16 = dtype == BF16
+    plan = launch_plan(chans, s, bf16)
+    wpk = pack_wgmma_chain_cuda(weights, plan[1], bf16)
+    out = torch.empty((g, chans[-1]), dtype=dtype, device=dev)
     nl = len(weights)
     bptr = (ctypes.c_void_p * nl)(*[bias.data_ptr() for _, bias in weights])
     carr = (ctypes.c_int * len(chans))(*chans)
     parr = (ctypes.c_int * 4)(*plan)
-    err = lib.grouped_mlp_cuda(x.data_ptr(), mul0.data_ptr(), add0.data_ptr(), wpk.data_ptr(),
-                               bptr, carr, nl, g, s, parr, out.data_ptr(),
-                               torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    name = "grouped_mlp_bf16_cuda" if bf16 else "grouped_mlp_cuda"
+    err = getattr(lib, name)(x.data_ptr(), mul0.data_ptr(), add0.data_ptr(), wpk.data_ptr(),
+                             bptr, carr, nl, g, s, parr, out.data_ptr(),
+                             torch.cuda.current_stream(dev).cuda_stream, dev.index)
     if err != 0:
-        raise RuntimeError(f"grouped_mlp_cuda launch failed: "
-                           f"{lib.grouped_mlp_error_string(err).decode()}")
-    launches += 1
+        raise RuntimeError(f"{name} launch failed: {lib.grouped_mlp_error_string(err).decode()}")
     return out
 
 
 def grouped_mlp_max(x: torch.Tensor, mul0: torch.Tensor, add0: torch.Tensor,
                     weights: Weights) -> torch.Tensor:
     """Kernel for CUDA tensors, plain version for CPU tensors; a bf16 x takes
-    the bf16 plain version on the CPU and raises on the card (no bf16 kernel
-    yet, ROADMAP A8.3b)."""
+    the bf16 form (kernel or plain version)."""
     if x.dtype == BF16:
         if x.is_cuda:
-            raise NotImplementedError(
-                "grouped_mlp_max on a bf16 x (the SA-off route of a bf16 model): row 12's bf16 "
-                "kernel is not ported yet (ROADMAP A8.3b); build the model at "
-                "TPU.COMPUTE_DTYPE float32 or leave the SA family on")
+            return grouped_mlp_max_bf16_cuda(x, mul0, add0, weights)
         return grouped_mlp_max_bf16_plain(x, mul0, add0, weights)
     if x.is_cuda:
         return grouped_mlp_max_cuda(x, mul0, add0, weights)

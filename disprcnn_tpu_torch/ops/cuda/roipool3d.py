@@ -37,6 +37,12 @@ and adds each slot's gradient to its point's row (``scatter_add_``, the
 backward of the plain version's gather); an empty box sends none. The
 JAX package's fused kernel has no VJP: its train step differentiates the
 plain gather route (disprcnn_tpu/ops/roipool3d.py), as this backward does.
+On bf16 features, ``roipool3d_train_bf16``: the forward is the bf16 read's
+kernel (launch point ``roipool3d_train_bf16_cuda``, counted in
+``train_launches_bf16``), the backward the same float32 scatter-add, whose
+columns of the bf16 features are rounded once to bf16: in JAX the gather
+reads them widened to float32 (the concat's promotion), so their gradient
+is the float32 sum converted back to bf16.
 """
 from __future__ import annotations
 
@@ -50,7 +56,8 @@ from .sa import _check
 
 __all__ = ["roipool3d", "roipool3d_cuda", "roipool3d_plain", "roipool3d_train",
            "roipool3d_train_cuda", "roipool3d_backward_plain", "roipool3d_bf16",
-           "roipool3d_bf16_cuda", "roipool3d_bf16_plain"]
+           "roipool3d_bf16_cuda", "roipool3d_bf16_plain", "roipool3d_train_bf16",
+           "roipool3d_train_bf16_cuda"]
 
 # Launches of the CUDA kernel in this process, by the eval wrapper, by the
 # train form's forward and by the bf16 form; a caller may reset them to 0
@@ -58,6 +65,7 @@ __all__ = ["roipool3d", "roipool3d_cuda", "roipool3d_plain", "roipool3d_train",
 launches = 0
 train_launches = 0
 launches_bf16 = 0
+train_launches_bf16 = 0
 
 BF16 = torch.bfloat16
 
@@ -227,3 +235,47 @@ def roipool3d_train(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tenso
     if pts.is_cuda:
         return _RoIPool3dTrain.apply(pts, feats, boxes3d, int(sampled_pts_num), float(max_dis))
     return roipool3d_plain(pts, feats, boxes3d, sampled_pts_num, max_dis)
+
+
+def roipool3d_train_bf16_cuda(pts: torch.Tensor, extra: torch.Tensor, feats: torch.Tensor,
+                              boxes3d: torch.Tensor, sampled_pts_num: int = 512,
+                              max_dis: float = 10.0):
+    """The bf16 train form's forward: the bf16 read's kernel, on tensors
+    without autograd."""
+    global train_launches_bf16
+    out = _launch(pts, extra, boxes3d, sampled_pts_num, max_dis, bf16_feats=feats)
+    train_launches_bf16 += 1
+    return out
+
+
+class _RoIPool3dTrainBF16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pts, extra, feats, boxes3d, sampled_pts_num, max_dis):
+        ctx.save_for_backward(pts, boxes3d)
+        ctx.sampled_pts_num, ctx.max_dis, ctx.e = sampled_pts_num, max_dis, extra.shape[-1]
+        pooled, empty = roipool3d_train_bf16_cuda(pts, extra, feats, boxes3d, sampled_pts_num,
+                                                  max_dis)
+        ctx.mark_non_differentiable(empty)
+        return pooled, empty
+
+    @staticmethod
+    def backward(ctx, dpooled, _):
+        pts, boxes3d = ctx.saved_tensors
+        full = roipool3d_backward_plain(pts, boxes3d, dpooled.contiguous(), ctx.sampled_pts_num,
+                                        ctx.max_dis)
+        need = ctx.needs_input_grad
+        e = 3 + ctx.e
+        return (full[..., :3] if need[0] else None, full[..., 3:e] if need[1] else None,
+                full[..., e:].to(torch.bfloat16) if need[2] else None, None, None, None)
+
+
+def roipool3d_train_bf16(pts: torch.Tensor, extra: torch.Tensor, feats: torch.Tensor,
+                         boxes3d: torch.Tensor, sampled_pts_num: int = 512,
+                         max_dis: float = 10.0):
+    """roipool3d_bf16, differentiable in pts, extra and the bf16 feats (the
+    module doc). CUDA tensors take the kernel forward and the scatter-add
+    backward, CPU tensors the plain version (autograd of its gather)."""
+    if pts.is_cuda:
+        return _RoIPool3dTrainBF16.apply(pts, extra, feats, boxes3d, int(sampled_pts_num),
+                                         float(max_dis))
+    return roipool3d_bf16_plain(pts, extra, feats, boxes3d, sampled_pts_num, max_dis)

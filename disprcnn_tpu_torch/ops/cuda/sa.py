@@ -49,7 +49,14 @@ forward, and as its backward autograd of the plain version recomputed
 too). Its launch point is ``sa_ball_mlp_max_train_cuda``. The JAX package
 takes its kernel in training only for bf16 models, because that kernel
 rounds to bf16 inside; this kernel computes in float32, so the port takes
-it for the float32 model.
+it for the float32 model. On a bf16 v (a bf16 model's BN-free scales, the
+JAX package's own case) the forward is the bf16 kernel, counted in
+``train_launches_bf16``, and the backward autograd of
+``sa_ball_mlp_max_bf16_plain``, which rounds where ``_sa_xla_oracle``
+rounds (sa_fused.py:1043-1069: the centred offsets and w0x's xyz columns
+rounded to bf16, the xyz term (t0 + t1) + t2 in bf16, the affine and ReLU
+in float32 rounded once, each layer's float32 sums rounded once, the max);
+the output gradient arrives bf16, as JAX casts it to the oracle's dtype.
 """
 from __future__ import annotations
 
@@ -68,6 +75,7 @@ from .conv3d import F32_SUM_ERR, bf16_step, split_tf32
 launches = 0
 train_launches = 0
 launches_bf16 = 0
+train_launches_bf16 = 0
 
 BF16 = torch.bfloat16
 
@@ -387,10 +395,14 @@ def sa_ball_mlp_max(xyz: torch.Tensor, centers: torch.Tensor, v: torch.Tensor,
 
 
 def sa_ball_mlp_max_train_cuda(xyz, centers, v, w0x, mul0, add0, weights, radius, s):
-    """The train form's forward: the SA kernel."""
-    global train_launches
-    out = _sa_launch(xyz, centers, v, w0x, mul0, add0, weights, radius, s)
-    train_launches += 1
+    """The train form's forward: the SA kernel, its bf16 form for a bf16 v."""
+    global train_launches, train_launches_bf16
+    bf16 = v.dtype == BF16
+    out = _sa_launch(xyz, centers, v, w0x, mul0, add0, weights, radius, s, bf16=bf16)
+    if bf16:
+        train_launches_bf16 += 1
+    else:
+        train_launches += 1
     return out
 
 
@@ -409,8 +421,9 @@ class _SATrain(torch.autograd.Function):
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
             xyz, centers, v, w0x, mul0, add0, *flat = leaves
-            out = sa_ball_mlp_max_plain(xyz, centers, v, w0x, mul0, add0,
-                                        list(zip(flat[0::2], flat[1::2])), ctx.radius, ctx.s)
+            plain = sa_ball_mlp_max_bf16_plain if v.dtype == BF16 else sa_ball_mlp_max_plain
+            out = plain(xyz, centers, v, w0x, mul0, add0, list(zip(flat[0::2], flat[1::2])),
+                        ctx.radius, ctx.s)
             wanted = [t for t, n in zip(leaves, need) if n]
             got = iter(torch.autograd.grad(out, wanted, dout, allow_unused=True))
         return (None, None, *(next(got) if n else None for n in need))
@@ -422,8 +435,10 @@ def sa_ball_mlp_max_train(xyz: torch.Tensor, centers: torch.Tensor, v: torch.Ten
     """sa_ball_mlp_max, differentiable in every tensor argument (v, w0x,
     mul0, add0 and each (W, b) for the train step; xyz and centers through
     the neighbour offsets). CUDA tensors take the kernel forward and the
-    plain version's autograd backward, CPU tensors the plain version."""
+    plain version's autograd backward, CPU tensors the plain version; a
+    bf16 v the bf16 forms of both."""
     if xyz.is_cuda:
         flat = [t for pair in weights for t in pair]
         return _SATrain.apply(float(radius), int(s), xyz, centers, v, w0x, mul0, add0, *flat)
-    return sa_ball_mlp_max_plain(xyz, centers, v, w0x, mul0, add0, weights, radius, s)
+    plain = sa_ball_mlp_max_bf16_plain if v.dtype == BF16 else sa_ball_mlp_max_plain
+    return plain(xyz, centers, v, w0x, mul0, add0, weights, radius, s)

@@ -182,6 +182,46 @@ def softargmin_bf16_plain(logits: torch.Tensor, out_hw: Tuple[int, int], mindisp
     return softargmin_plain(logits.float(), out_hw, mindisp, maxdisp)
 
 
+class _SoftmaxJAX(torch.autograd.Function):
+    """jax.nn.softmax over dim 1 at the input's dtype, each operation rounded
+    as in its source (the max, x - max, exp, the sum accumulated in float32
+    and rounded, the division), and its gradient as JAX's custom JVP
+    transposes it: g = y * ct, then g - y * sum(g) (each product, the sum and
+    the difference rounded)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        e = torch.exp(x - x.amax(dim=1, keepdim=True))
+        y = e / e.sum(dim=1, keepdim=True)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, ct):
+        (y,) = ctx.saved_tensors
+        g = y * ct
+        return g - y * g.sum(dim=1, keepdim=True)
+
+
+def softargmin_train_bf16(logits: torch.Tensor, out_hw: Tuple[int, int], mindisp: int,
+                          maxdisp: int) -> torch.Tensor:
+    """The JAX package's train-mode regression of a bf16 model (its XLA
+    ``regress``, psmnet.py:1001-1011): softargmin_plain's contractions on
+    the bf16 logits with the interpolation matrices in bf16, each rounded,
+    jax.nn.softmax's bf16 arithmetic (``_SoftmaxJAX``) and the expectation
+    with bf16 disparities -> (B, H, W) bf16, differentiable."""
+    _, d4, h4, w4 = logits.shape
+    h, w = out_hw
+    dev, dt = logits.device, logits.dtype
+    c = torch.einsum("bdhw,ed->behw", logits,
+                     interp_matrix_align_corners(d4, maxdisp - mindisp, dev, dt))
+    c = torch.einsum("bdhw,eh->bdew", c, interp_matrix_align_corners(h4, h, dev, dt))
+    c = torch.einsum("bdhw,ew->bdhe", c, interp_matrix_align_corners(w4, w, dev, dt))
+    p = _SoftmaxJAX.apply(c)
+    disp = torch.arange(mindisp, maxdisp, dtype=dt, device=dev)
+    return torch.einsum("bdhw,d->bhw", p, disp)
+
+
 def softargmin_cuda(logits: torch.Tensor, out_hw: Tuple[int, int], mindisp: int,
                     maxdisp: int) -> torch.Tensor:
     """Launch csrc/softargmin.cu on the current stream; same contract as

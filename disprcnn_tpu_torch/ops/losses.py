@@ -37,19 +37,47 @@ def psm_deep_supervision_loss(preds: Sequence[torch.Tensor], target: torch.Tenso
     """Masked smooth-L1 of each PSMNet output against the target, weighted
     and summed (reference utils/loss_utils.py PSMLoss). With fewer outputs
     than weights the last weights apply: the last output always carries
-    the last weight."""
+    the last weight. The mask is counted in the outputs' dtype, as JAX counts
+    it (disprcnn3d.py:209-215): a bf16 model's count is rounded to bf16; a
+    bf16 output's difference from the float32 target is float32."""
     m = mask.to(target.dtype)
-    denom = sum_over_ranks(m.sum()).clamp_min(1.0)
+    denom = sum_over_ranks(m.sum()).to(preds[-1].dtype).to(target.dtype).clamp_min(1.0)
     total = target.new_zeros(())
     for w, p in zip(tuple(weights)[-len(preds):], preds):
         total = total + w * (smooth_l1(p - target) * m).sum() / denom
     return total
 
 
+class _SigmoidBF16(torch.autograd.Function):
+    """jax.nn.sigmoid (lax.logistic) on bf16: the value of its lowering, 1 /
+    (1 + exp(-x)) with each operation rounded to bf16, and the derivative of
+    its JVP rule, g * (y * (1 - y)), each operation rounded; never the
+    0 * inf of 1 / (1 + exp(-x))'s own derivative where exp(-x) overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1.0 - y))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.sigmoid at x's dtype: torch.sigmoid for float32; for bf16
+    _SigmoidBF16."""
+    return _SigmoidBF16.apply(x) if x.dtype == torch.bfloat16 else torch.sigmoid(x)
+
+
 def binary_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Elementwise -(t log p + (1 - t) log(1 - p)) of p = sigmoid(logits),
-    each log clipped at 1e-12 (rcnn3d.rcnn_loss's BinaryCrossEntropy)."""
-    p = torch.sigmoid(logits)
+    each log clipped at 1e-12 (rcnn3d.rcnn_loss's BinaryCrossEntropy). On
+    bf16 logits p is jax.nn.sigmoid's bf16 arithmetic (``sigmoid``), and
+    every later operation rounds at bf16 as JAX's do."""
+    p = sigmoid(logits)
     return -(targets * torch.log(p.clamp_min(1e-12))
              + (1 - targets) * torch.log((1 - p).clamp_min(1e-12)))
 

@@ -54,7 +54,7 @@ from disprcnn_tpu_torch.config import get_default_cfg
 from disprcnn_tpu_torch.models import build as tbuild
 from disprcnn_tpu_torch.models.pointrcnn import bbox3d_codec as tcodec
 from disprcnn_tpu_torch.models.pointrcnn import point_rcnn as tpr
-from disprcnn_tpu_torch.models.pointrcnn.pointnet2 import sigmoid
+from disprcnn_tpu_torch.ops.losses import sigmoid
 from disprcnn_tpu_torch.models.pointrcnn import rcnn3d as trcnn
 from disprcnn_tpu_torch.models.pointrcnn import rpn3d as trpn
 from disprcnn_tpu_torch.models.psmnet.psmnet import PSMNet
@@ -166,7 +166,7 @@ def test_fp_bf16_twin_matches_pallas(torch_one_thread):
 def test_grouped_mlp_bf16_twin_matches_pallas(torch_one_thread):
     """Row 12 (the SA-off route): the JAX kernel in interpret mode on a bf16
     grouped x, the port's grouped_mlp_max_bf16_plain (the CPU route of a
-    bf16 model; the card has no bf16 kernel yet, ROADMAP A8.3b)."""
+    bf16 model; on the card its kernel, ROADMAP A8.3b)."""
     rng = np.random.default_rng(12)
     g, s, c0 = 24, 16, 64
     x = bf16_values(rng, g, s, c0)
@@ -394,8 +394,9 @@ def test_rcnn_yaml_builds_bf16_and_loads_jax_bf16_variables(caplog):
     gives DispRCNN3D with iDispNet and PointRCNN both at bf16, as the JAX
     build gives DispRCNN3D(dtype=bfloat16); its parameters stay float32, so
     state_dict_from_jax loads the JAX bf16 model's variables unchanged.
-    Built to train it is float32 (ROADMAP A8.4), and a bf16 PointRCNN in
-    train mode raises."""
+    Built to train (tools/train_net) it is bf16 too, as JAX's train_net
+    builds it (ROADMAP A8.4), and a bf16 PointRCNN in train mode asks for
+    its ground truth."""
     opts = ["TPU.ROI_CROP_SIZE", "32", "MODEL.DISPNET.MAX_DISP", "16",
             "MODEL.DISPNET.MIN_DISP", "-16", "MODEL.POINTRCNN.RPN.NPOINTS", str(N),
             "MODEL.POINTRCNN.RPN.SA_CONFIG.NPOINTS", "[128, 64, 32, 16]",
@@ -434,7 +435,7 @@ def test_rcnn_yaml_builds_bf16_and_loads_jax_bf16_variables(caplog):
         assert torch.equal(tm.idispnet.state_dict()[k], t_), k
     with caplog.at_level(logging.INFO, logger="disprcnn_tpu_torch.models.build"):
         trained = tbuild.build_detection_model(cfg, device="meta", train=True)
-    assert trained.pointrcnn.dtype == torch.float32 and "ROADMAP A8.4" in caplog.text
+    assert trained.pointrcnn.dtype == BF16 and "ROADMAP A8" not in caplog.text
     tm.pointrcnn.train()
-    with pytest.raises(NotImplementedError, match="A8.4"):
+    with pytest.raises(ValueError, match="gt_boxes3d"):
         tm.pointrcnn(*(t(a) for a in _instances()))

@@ -330,9 +330,9 @@ def test_idispnet_yaml_builds_bf16_and_loads_jax_bf16_variables(caplog):
     build gives PSMNet(dtype=bfloat16); JAX's bf16 model keeps float32
     parameters and statistics (TPU.PARAM_DTYPE), so state_dict_from_jax
     loads them unchanged into the port's float32 parameters. Built to
-    train, it is float32 with the pending item logged (A8.4); rcnn.yaml's
-    model computes in bf16 too (its 3D stage since A8.3:
-    tests/test_torch_bf16_pointrcnn.py)."""
+    train (tools/train_net), it is bf16 too, with no pending item logged
+    (A8.4: tests/test_torch_bf16_train.py); rcnn.yaml's model computes in
+    bf16 too (its 3D stage since A8.3: tests/test_torch_bf16_pointrcnn.py)."""
     cfg, jcfg = get_default_cfg(), jax_default_cfg()
     for c in (cfg, jcfg):
         c.merge_from_file(IDISPNET_YAML)
@@ -357,11 +357,11 @@ def test_idispnet_yaml_builds_bf16_and_loads_jax_bf16_variables(caplog):
         assert torch.equal(t, want[k]), k
     with caplog.at_level(logging.INFO, logger="disprcnn_tpu_torch.models.build"):
         assert tbuild.build_detection_model(cfg, device="meta", train=True).idispnet.dtype \
-            == torch.float32
+            == BF16
         rcnn = get_default_cfg()
         rcnn.merge_from_file(str(REPO / "configs/kitti/car/vob/rcnn.yaml"))
         assert tbuild.build_detection_model(rcnn, device="meta").idispnet.dtype == BF16
-    assert "ROADMAP A8.4" in caplog.text and "ROADMAP A8.3" not in caplog.text
+    assert "ROADMAP A8" not in caplog.text
 
 
 def test_layer2_first_block_bf16_matches_jax(torch_one_thread):

@@ -1306,9 +1306,9 @@ def test_bf16_chain_pack_matches_plain(card, chans):
 
 
 def test_pointnet_kernels_refuse_the_other_dtype(card):
-    """Rows 10, 13 and 14: each form raises on the other's dtype; a bf16 x
-    on the pool route raises on the card (row 12 has no bf16 kernel yet,
-    ROADMAP A8.3b) rather than being cast to the float32 kernel."""
+    """Rows 10, 12, 13 and 14: each form raises on the other's dtype rather
+    than casting to reach a kernel (row 12's bf16 form since ROADMAP
+    A8.3b)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     xyz, centers, v, w0x, mul0, add0, ws = _sa_args(gen, 2, 64, 16, 64, (64,))
     with pytest.raises(ValueError, match="float32"):
@@ -1327,7 +1327,33 @@ def test_pointnet_kernels_refuse_the_other_dtype(card):
     with pytest.raises(ValueError, match="float32"):
         croi.roipool3d_cuda(pts, extra.to(BF16), boxes, 8)
     x = _randn_bf16(gen, 8, 16, 64)
-    with pytest.raises(NotImplementedError, match="A8.3b"):
-        cgm.grouped_mlp_max(x, mul0, add0, ws)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cgm.grouped_mlp_max_bf16_cuda(x.float(), mul0, add0, ws)
     with pytest.raises(ValueError, match="float32"):
         cgm.grouped_mlp_max_cuda(x, mul0, add0, ws)
+
+
+@pytest.mark.parametrize("g,s,c0,chain", [(4096, 16, 64, (64, 128)), (1001, 32, 256, (384, 512)),
+                                         (517, 24, 65, (70, 33, 18))])
+def test_grouped_mlp_bf16_matches_twin(card, g, s, c0, chain):
+    """Row 12's bf16 form (the SA-off route of a bf16 model) against its
+    twin: its packing bit-equal to pack_wgmma_chain_bf16, the output within
+    a bf16 step beyond the chains' floor (bf16_agreement), and
+    grouped_mlp_max dispatching a bf16 x to it."""
+    gen = torch.Generator(device="cuda").manual_seed(g)
+    x = _randn_bf16(gen, g, s, c0)
+    mul0, add0 = 1 + 0.3 * _randn(gen, c0), 0.1 * _randn(gen, c0)
+    ws, cin = [], c0
+    for co in chain:
+        ws.append((_randn(gen, cin, co) * cin ** -0.5, 0.1 * _randn(gen, co)))
+        cin = co
+    nc = cgm.launch_plan([c0, *chain], s, bf16=True)[1]
+    assert torch.equal(cgm.pack_wgmma_chain_cuda(ws, nc, bf16=True),
+                       cgm.pack_wgmma_chain_bf16(ws, nc))
+    before = cgm.launches_bf16
+    got = cgm.grouped_mlp_max(x, mul0, add0, ws)
+    assert cgm.launches_bf16 == before + 1 and got.dtype == BF16
+    want = cgm.grouped_mlp_max_bf16_plain(x, mul0, add0, ws)
+    x0 = torch.relu(x.float() * mul0 + add0).to(BF16)
+    ag = cconv.bf16_agreement(got, want, csa.bf16_chain_floor(x0, ws).amax(dim=1))
+    assert ag["beyond"] == 0 and ag["max_ulps_clear"] <= 1, ag

@@ -1,12 +1,21 @@
 """Several ranks of the port on the CPU, for tests/test_torch_dist*.py: each
 rank a subprocess (tests/torch_dist_worker.py) on the gloo backend, with
 torchrun's environment and a free port, as tests/test_multihost_merge.py
-runs its JAX processes. Imports nothing of JAX: the workers import it."""
+runs its JAX processes. Imports nothing of JAX: the workers import it.
+
+The port is checked free here and bound later by rank 0's store, so
+something else may take it in between: under pytest-xdist another worker's
+ranks open gloo connections, each of which takes a port of the kernel's
+ephemeral range (32768-60999 by default), and another worker may pick the
+same port. So the port is drawn at random below that range, where no
+outgoing connection is given one, and a run whose rank 0 finds it taken
+(EADDRINUSE) is started again on another port."""
 import contextlib
 import json
 import os
 import pathlib
 import pickle
+import random
 import socket
 import subprocess
 import sys
@@ -19,21 +28,52 @@ from disprcnn_tpu_torch.tools import train_net as trn
 REPO = pathlib.Path(__file__).resolve().parents[1]
 WORKER = pathlib.Path(__file__).with_name("torch_dist_worker.py")
 TIMEOUT_S = 300
+# the ports free_port draws from: below Linux's default ephemeral range
+PORTS = (20000, 32000)
+# runs of run_ranks, the first included, while rank 0 finds its port taken
+PORT_TRIES = 4
 
 
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    """A port of PORTS that is free now, drawn at random."""
+    rng = random.SystemRandom()
+    for _ in range(200):
+        port = rng.randrange(*PORTS)
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError(f"no free port in {PORTS}")
+
+
+def _port_taken(out: str) -> bool:
+    return "EADDRINUSE" in out or "address already in use" in out.lower()
 
 
 def run_ranks(job: str, args: dict, out_dir, world: int = 2, timeout: float = TIMEOUT_S):
     """`world` ranks of the worker's `job` on `args`, each writing
-    out_dir/rank{r}.pkl; every rank must exit 0 within `timeout` s.
-    -> [each rank's pickled result]."""
-    port = free_port()
+    out_dir/rank{r}.pkl; every rank must exit 0 within `timeout` s. A run
+    whose port was taken before rank 0 bound it is started again on another
+    (at most PORT_TRIES runs). -> [each rank's pickled result]."""
+    for _ in range(PORT_TRIES):
+        procs, outs = _start_ranks(job, args, out_dir, world, timeout)
+        if not any(p.returncode and _port_taken(o) for p, o in zip(procs, outs)):
+            break
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{o[-4000:]}"
+    res = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+def _start_ranks(job, args, out_dir, world, timeout):
+    """One run of the ranks on a fresh port -> (processes, their output)."""
     env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
-               MASTER_ADDR="localhost", MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+               MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([str(REPO), str(WORKER.parent),
                                            os.environ.get("PYTHONPATH", "")]))
     procs = [subprocess.Popen([sys.executable, str(WORKER), job, json.dumps(args),
@@ -50,13 +90,7 @@ def run_ranks(job: str, args: dict, out_dir, world: int = 2, timeout: float = TI
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, o) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r}:\n{o[-4000:]}"
-    res = []
-    for r in range(world):
-        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
-            res.append(pickle.load(f))
-    return res
+    return procs, outs
 
 
 @contextlib.contextmanager
