@@ -5,8 +5,9 @@
 
 Phases, each ending in torch.cuda.synchronize() and one progress line:
   1. build every CUDA kernel of the port (build.SOURCES: csrc/nms.cu,
-     conv3d.cu, conv3d_tc.cu, cost_volume_tc.cu, softargmin.cu, fps.cu,
-     sa.cu, grouped_mlp.cu, fp.cu, roipool3d.cu), one nvcc per source, all
+     conv3d.cu, conv3d_tc.cu, conv_bf16_wgmma.cu, cost_volume_tc.cu,
+     softargmin.cu, fps.cu, sa.cu, grouped_mlp.cu, fp.cu, roipool3d.cu), one
+     nvcc per source, all
      at once, into
      disprcnn_tpu_torch/csrc/build/ (listed in .gitignore), printing each
      kernel's registers, spills and shared memory from ptxas;
@@ -327,8 +328,9 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      (bfloat16), seeded random weights, predict on the bench's geometry (8
      pairs of 384x1248, 16 detection slots each: 128 crops of 224^2 at
      +-48): (a) one request with the launches counted from 0: rows 2-7
-     and 15 each launch their bf16 form (EXPECTED_BF16) and no float32
-     form, disparity_roi float32 in the disparity range; (b) each bf16 form
+     and 15 each launch their bf16 form (EXPECTED_BF16; rows 5 and 7's are
+     csrc/conv_bf16_wgmma.cu) and no float32 form, disparity_roi float32
+     in the disparity range; (b) each bf16 form
      on that request's own arguments (the (24, 56^2) trunk, its 28^2 and
      14^2 hourglass levels, the tower's 112^2 and 56^2 sites) held to its
      bf16 twin: at least 99.9% of the elements equal, every element at
@@ -418,6 +420,14 @@ launches per bf16 SA-off request; "conv3d_train_bf16", "sa_train_bf16",
 Without a CUDA device, or on any failure, it exits non-zero and prints no
 result. Float32 with TF32 off and deterministic cuDNN, but phases 27-29's
 bf16 models.
+
+    python3 chip_smoke.py --time-bf16 TAG ROW [ROW ...]
+
+runs phase 27's (a) and (b) alone for the bf16 rows named (bf16_kinds'
+keys, such as conv2d and deconv3d) and prints one JSON line {TAG: {row:
+{ms, device_ms, plain_ms, library_ms, bound_ms, ...}}} (time_bf16_forms):
+run from a tree's root and from its parent's copy in one call (parent,
+change, change, parent), it compares two commits' forms on one card.
 """
 from __future__ import annotations
 
@@ -4963,7 +4973,7 @@ def bf16_kinds() -> dict:
     return {
         "conv2d": (cconv.conv2d_bn_bf16_cuda, cconv.conv2d_bn_bf16_plain,
                    lambda a: F.conv2d(a[0], a[1].to(bf), padding=1), bf16_work(conv_work),
-                   "conv3d_tc.cu", f"{PC}:188", lambda a: 9 * a[0].shape[1]),
+                   "conv_bf16_wgmma.cu", f"{PC}:188", lambda a: 9 * a[0].shape[1]),
         "cost_volume_conv": (cconv.cost_volume_conv_bn_bf16_cuda,
                              cconv.cost_volume_conv_bn_bf16_plain, None,
                              bf16_work(cost_volume_planes_work), "cost_volume_tc.cu",
@@ -4981,8 +4991,8 @@ def bf16_kinds() -> dict:
         "deconv3d": (cconv.deconv3d_bn_bf16_cuda, cconv.deconv3d_bn_bf16_plain,
                      lambda a: F.conv_transpose3d(a[0], a[1].to(bf), stride=2, padding=1,
                                                   output_padding=1),
-                     bf16_work(lambda a, o: conv_work(a, o, transposed=True)), "conv3d_tc.cu",
-                     f"{PC}:405", lambda a: 27 * a[0].shape[1]),
+                     bf16_work(lambda a, o: conv_work(a, o, transposed=True)),
+                     "conv_bf16_wgmma.cu", f"{PC}:405", lambda a: 27 * a[0].shape[1]),
         "softargmin": (csam.softargmin_bf16_cuda, csam.softargmin_bf16_plain, None,
                        softargmin_bf16_work, "softargmin.cu",
                        "disprcnn_tpu/ops/pallas/softargmin.py:65", None),
@@ -5029,17 +5039,21 @@ def bf16_floor(name: str, args, terms) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def bf16_rows(calls: dict, launches: dict) -> list:
+def bf16_rows(calls: dict, launches: dict, names=None) -> list:
     """Each bf16 form on the arguments the main path gave it: held to its
     twin (cconv.bf16_agreement: every element at most one bf16 step apart
     beyond the float32 sums' floor, and at most one step where that floor
-    is under a step, at least 99.9% equal; the soft-argmin,
+    is under a step, at least 99.9% equal; rows 5 and 7's weight packing
+    byte-equal to pack_wgmma_weight on each launch's weight; the soft-argmin,
     whose output is float32, bit-equal to the float32 form on its logits
     cast up and within SOFTARGMIN_TOL_PX of its twin), then timed as phase
     9 times a row (time_launches: kernel, device, twin, library call on
-    bf16 tensors, bound with 2-byte operands at the bf16 tensor rate)."""
+    bf16 tensors, bound with 2-byte operands at the bf16 tensor rate).
+    `names`: only these rows (bf16_kinds' keys), by default all."""
     rows = []
     for name, (kernel, plain, library, work, src, replaces, terms) in bf16_kinds().items():
+        if names is not None and name not in names:
+            continue
         args_list = calls.get(name, [])
         if len(args_list) != EXPECTED_BF16[name]:
             raise AssertionError(f"{name} bf16: {len(args_list)} launches in one request, "
@@ -5058,6 +5072,12 @@ def bf16_rows(calls: dict, launches: dict) -> list:
                 continue
             ag = cconv.bf16_agreement(got, want, bf16_floor(name, a, terms(a)))
             torch.cuda.synchronize()
+            if name in ("conv2d", "deconv3d"):  # csrc/conv_bf16_wgmma.cu's weight packing
+                packed = cconv.pack_wgmma_weight_cuda(a[1])
+                if not torch.equal(packed.view(torch.int16),
+                                   cconv.pack_wgmma_weight(a[1]).view(torch.int16)):
+                    raise AssertionError(f"{name} bf16: the weight packing differs from "
+                                         f"pack_wgmma_weight")
             n = got.numel()
             agree["equal"] = ((agree["equal"] * agree["elements"] + ag["equal"] * n)
                               / (agree["elements"] + n))
@@ -5088,6 +5108,43 @@ def bf16_rows(calls: dict, launches: dict) -> list:
         rows.append(row)
         torch.cuda.empty_cache()
     return rows
+
+
+def time_bf16_forms(tag: str, names) -> dict:
+    """Phase 27's (a) and (b) alone, for the bf16 rows named (bf16_kinds'
+    keys): the kernels built, the bf16 idispnet.yaml request run once with
+    the launches counted, each launch's arguments captured on a second run,
+    and the named forms held to their twins and timed (bf16_rows). A tree's
+    child names the rows it redesigned, so that this tree and the child's
+    time the same rows on one card (`--time-bf16`). Prints the card's name
+    and power limit, then one JSON line {tag: {row: {...}}}."""
+    print(card_line(), flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    phase_build()
+    cfg = get_default_cfg()
+    cfg.merge_from_file(BF16_YAML)
+    cfg.merge_from_list(["TPU.MAX_DETECTIONS", str(BENCH_3D["max_det"])])
+    cfg.freeze()
+    m16 = init_random_(build_detection_model(cfg, device="cuda"),
+                       torch.Generator(device="cuda").manual_seed(BF16_SEED))
+    model2d = init_random_(DispRCNN(**BENCH_2D, device="cuda"),
+                           torch.Generator(device="cuda").manual_seed(0))
+    req = bench.make_request(PAIRS, IMG_HW, PAIRS * BENCH_3D["max_det"], BENCH_3D["lift_grid"],
+                             "cuda", BF16_SEED)
+    reset_launches()
+    predict(model2d, m16, *req[:4])
+    torch.cuda.synchronize()
+    got = dict(cconv.launches_bf16, softargmin=csam.launches_bf16)
+    calls = capture_launches(lambda: predict(model2d, m16, *req[:4]), BF16_POINTS)
+    keep = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "launches",
+            "source", "equal", "beyond", "max_ulps_clear", "form_ms")
+    result = {tag: {r["name"]: {k: r.get(k) for k in keep}
+                    for r in bf16_rows(calls, got, names)}}
+    print(json.dumps(result), flush=True)
+    return result
 
 
 def idispnet_stages(model2d, model3d, req) -> tuple:
@@ -6318,4 +6375,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         sys.exit(dist_worker(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--time-bf16"] and len(sys.argv) > 3 and torch.cuda.is_available():
+        time_bf16_forms(sys.argv[2], sys.argv[3:])
+        sys.exit(0)
     sys.exit(main())

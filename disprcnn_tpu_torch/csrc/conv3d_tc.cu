@@ -1,6 +1,6 @@
 // The PSMNet 3x3x3 and 3x3 convolutions with a fused epilogue on Hopper's
-// tensor cores (sm_90a), float32 in and out at float32 accuracy, and their
-// bf16 forms, NCDHW (NCHW in 2D).
+// tensor cores (sm_90a), float32 in and out at float32 accuracy, and the
+// bf16 form of the 3x3x3 conv, NCDHW (NCHW in 2D).
 //
 // Replaces four TPU kernels of disprcnn_tpu/ops/pallas/packed_conv.py, and
 // through the first the train form's forward and input gradient:
@@ -47,9 +47,10 @@
 // nearest. chip_smoke.py (phase 3) logs the kernel's and cuDNN's distance
 // from a float64 conv at the main path's sites.
 //
-// The bf16 forms (conv3d_tc_bf16_cuda, conv2d_tc_bf16_cuda,
-// deconv3d_tc_bf16_cuda) are the same four TPU kernels as the JAX package's
-// bf16 model runs them (TPU.COMPUTE_DTYPE bfloat16): input, residual and
+// The bf16 form, conv3d_tc_bf16_cuda, is rows 3 and 6 (and row 8, the
+// train form's forward and input gradient) as the JAX package's bf16 model
+// runs them (TPU.COMPUTE_DTYPE bfloat16); the bf16 forms of rows 5 and 7
+// are csrc/conv_bf16_wgmma.cu. Input, residual and
 // output bf16, the weights rounded to bf16 by their packing
 // (conv3d_tc_pack_bf16_cuda; plain version ops/cuda/conv3d.py::
 // pack_bf16_weight), BN's mul and add float32. As in the TPU kernels
@@ -351,8 +352,9 @@ conv_tc_kernel(const T* __restrict__ x, int ci, int d, int h, int w,
 // M-tile w / (CO / 32) and 32 of the output channels (N-tiles 4 (w % (CO /
 // 32)) .. + 3) for all 4 classes: 64 float32 accumulators a thread, so a
 // block takes 128 input positions at CO 32 and 64 at CO 64. wpk is
-// pack_tf32_deconv_weight's (pack_bf16_deconv_weight's) layout: the
-// conv's packing of the (CO, Ci) weight w[c, o, kd, kh, kw].
+// pack_tf32_deconv_weight's layout: the conv's packing of the (CO, Ci)
+// weight w[c, o, kd, kh, kw]. Only the float32 form is built (the bf16 form
+// of the transposed conv is conv_bf16_wgmma.cu's).
 template <typename T, int CO>
 __global__ void __launch_bounds__(kThreads, 1)
 deconv_tc_kernel(const T* __restrict__ x, int ci, int d, int h, int w,
@@ -654,35 +656,6 @@ int conv3d_entry(const void* x, int n, int ci, int d, int h, int w, int stride, 
                                  static_cast<cudaStream_t>(stream)));
 }
 
-template <typename T>
-int conv2d_entry(const void* x, int n, int ci, int h, int w, const void* wpk, int co,
-                 const void* mul, const void* add, const void* res, int relu, void* out,
-                 void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (ci < 1 || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(run<T>(static_cast<const T*>(x), n, ci, 1, h, w, 1,
-                                 static_cast<const uint32_t*>(wpk), 1,
-                                 conv::make_out<T>(out, mul, add, res, co, 1, h, w, relu),
-                                 static_cast<cudaStream_t>(stream)));
-}
-
-template <typename T>
-int deconv3d_entry(const void* x, int n, int ci, int d, int h, int w, const void* wpk, int co,
-                   const void* mul, const void* add, const void* res, int relu, void* out,
-                   void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (ci < 1 || d < 1 || h < 1 || w < 1 || (co != 32 && co != 64))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const OutT<T> o = conv::make_out<T>(out, mul, add, res, co, 2 * d, 2 * h, 2 * w, relu);
-  const T* xt = static_cast<const T*>(x);
-  const uint32_t* wt = static_cast<const uint32_t*>(wpk);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(co == 32 ? launch_deconv<T, 32>(xt, n, ci, d, h, w, wt, o, s)
-                                   : launch_deconv<T, 64>(xt, n, ci, d, h, w, wt, o, s));
-}
-
 }  // namespace
 
 extern "C" {
@@ -706,14 +679,16 @@ int conv3d_tc_pack_cuda(const void* w, int co, int ci, int wkd, int form, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 forms' staged weights (pack_bf16_weight's layout, (ceil(Ci / 16),
-// wkd, 9, Co / 8, 32, 2) words of two bf16) from the float32 weight w in
-// the given form (as conv3d_tc_pack_cuda), rounded to bf16 to nearest even.
+// conv3d_tc_bf16_cuda's staged weights (pack_bf16_weight's layout,
+// (ceil(Ci / 16), 3, 9, Co / 8, 32, 2) words of two bf16) from the float32
+// weight w, form 0 or 1 (as conv3d_tc_pack_cuda's, wkd 3), rounded to bf16
+// to nearest even.
 int conv3d_tc_pack_bf16_cuda(const void* w, int co, int ci, int wkd, int form, void* wpk,
                              void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!pack_args_ok(co, ci, wkd, form)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!pack_args_ok(co, ci, wkd, form) || wkd != 3 || form == kDeconv)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int total = (ci + 15) / 16 * wkd * 9 * co * 8;
   pack_bf16_kernel<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(w), co, ci, wkd, form, static_cast<uint32_t*>(wpk), total);
@@ -752,15 +727,13 @@ int conv3d_tc_bf16_cuda(const void* x, int n, int ci, int d, int h, int w, int s
 int conv2d_tc_cuda(const void* x, int n, int ci, int h, int w, const void* wpk, int co,
                    const void* mul, const void* add, const void* res, int relu, void* out,
                    void* stream, int device) {
-  return conv2d_entry<float>(x, n, ci, h, w, wpk, co, mul, add, res, relu, out, stream, device);
-}
-
-// conv2d_tc_cuda's bf16 form (as conv3d_tc_bf16_cuda's).
-int conv2d_tc_bf16_cuda(const void* x, int n, int ci, int h, int w, const void* wpk, int co,
-                        const void* mul, const void* add, const void* res, int relu, void* out,
-                        void* stream, int device) {
-  return conv2d_entry<bf16_t>(x, n, ci, h, w, wpk, co, mul, add, res, relu, out, stream,
-                              device);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ci < 1 || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run<float>(static_cast<const float*>(x), n, ci, 1, h, w, 1,
+                                     static_cast<const uint32_t*>(wpk), 1,
+                                     conv::make_out<float>(out, mul, add, res, co, 1, h, w, relu),
+                                     static_cast<cudaStream_t>(stream)));
 }
 
 // x (N, Ci, D, H, W) -> out (N, Co, 2D, 2H, 2W), the transposed conv of
@@ -770,17 +743,16 @@ int conv2d_tc_bf16_cuda(const void* x, int n, int ci, int h, int w, const void* 
 int deconv3d_tc_cuda(const void* x, int n, int ci, int d, int h, int w, const void* wpk,
                      int co, const void* mul, const void* add, const void* res, int relu,
                      void* out, void* stream, int device) {
-  return deconv3d_entry<float>(x, n, ci, d, h, w, wpk, co, mul, add, res, relu, out, stream,
-                               device);
-}
-
-// deconv3d_tc_cuda's bf16 form (as conv3d_tc_bf16_cuda's; wpk from
-// conv3d_tc_pack_bf16_cuda with form 2).
-int deconv3d_tc_bf16_cuda(const void* x, int n, int ci, int d, int h, int w, const void* wpk,
-                          int co, const void* mul, const void* add, const void* res, int relu,
-                          void* out, void* stream, int device) {
-  return deconv3d_entry<bf16_t>(x, n, ci, d, h, w, wpk, co, mul, add, res, relu, out, stream,
-                                device);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ci < 1 || d < 1 || h < 1 || w < 1 || (co != 32 && co != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const conv::Out o = conv::make_out(out, mul, add, res, co, 2 * d, 2 * h, 2 * w, relu);
+  const float* xt = static_cast<const float*>(x);
+  const uint32_t* wt = static_cast<const uint32_t*>(wpk);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(co == 32 ? launch_deconv<float, 32>(xt, n, ci, d, h, w, wt, o, s)
+                                   : launch_deconv<float, 64>(xt, n, ci, d, h, w, wt, o, s));
 }
 
 const char* conv3d_tc_error_string(int err) {

@@ -52,6 +52,7 @@
 #include "bf16.cuh"
 #include "tf32.cuh"
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace mlp_wgmma {
 
@@ -122,46 +123,16 @@ struct Cursor {
   }
 };
 
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(tma::smem_u32(bar)), "r"(count));
-}
+using wg::arrive;
+using wg::bar_init;
+using wg::fence_regs;
+using wg::named_sync;
 
-__device__ __forceinline__ void arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(tma::smem_u32(bar))
-               : "memory");
-}
-
-// bar.sync on a named barrier of `threads` threads (id 0 is __syncthreads')
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// wgmma's matrix descriptor of a K-major operand without swizzle at `p`:
-// leading byte offset 128 (the second K half of a k8 step), stride byte
-// offset 256 (the next 8 columns)
+// wgmma's matrix descriptor of the packed weights at `p` (K-major, no
+// swizzle): leading byte offset 128 (the second K half of a k8 step),
+// stride byte offset 256 (the next 8 columns)
 __device__ __forceinline__ uint64_t desc(const float* p) {
-  const uint64_t addr = tma::smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(256 >> 4) << 32);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accesses of an accumulator across the
-// asynchronous products' issue and wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  return wg::desc(tma::smem_u32(p), 128, 256);
 }
 
 // d (+)= a * b: a 64 x 8 TF32 tile from registers (a warp's rows as
@@ -292,7 +263,7 @@ __device__ __forceinline__ void slab_product(const float* ap, int lda, int s, in
   tma::wait(&ring.full[cur.stage], cur.phase);
   const float* slot = ring.slot + (size_t)cur.stage * ring.slot_floats;
   fence_regs<NCW / 2>(part);
-  wg_fence();
+  wg::fence();
 #pragma unroll
   for (int kk = 0; kk < kSlabK8; ++kk)
     mma<NCW>(part, cl[kk], desc(slot + 8 * NCW * kk), kk != 0);
@@ -301,9 +272,9 @@ __device__ __forceinline__ void slab_product(const float* ap, int lda, int s, in
     mma<NCW>(part, ch[kk], desc(slot + kSlabK * NCW + 8 * NCW * kk), 1);
 #pragma unroll
   for (int kk = 0; kk < kSlabK8; ++kk) mma<NCW>(part, ch[kk], desc(slot + 8 * NCW * kk), 1);
-  wg_commit();
+  wg::commit();
   if (s + 1 < slabs) load_a<AFFINE>(ap, lda, s + 1, mul0, add0, nh, nl);
-  wg_wait_all();
+  wg::wait<0>();
   fence_regs<NCW / 2>(part);
   __syncwarp();
   if ((threadIdx.x & 31) == 0) arrive(&ring.empty[cur.stage]);
@@ -611,12 +582,12 @@ __device__ __forceinline__ void slab_product_bf16(const bf16_t* ap, int lda, int
   tma::wait(&ring.full[cur.stage], cur.phase);
   const float* slot = ring.slot + (size_t)cur.stage * ring.slot_floats;
   fence_regs<NCW / 2>(part);
-  wg_fence();
+  wg::fence();
   mma_bf16<NCW>(part, ca[0], desc(slot), 0);
   mma_bf16<NCW>(part, ca[1], desc(slot + 8 * NCW), 1);
-  wg_commit();
+  wg::commit();
   if (s + 1 < slabs) load_a_bf16<AFFINE>(ap, lda, s + 1, mul0, add0, na);
-  wg_wait_all();
+  wg::wait<0>();
   fence_regs<NCW / 2>(part);
   __syncwarp();
   if ((threadIdx.x & 31) == 0) arrive(&ring.empty[cur.stage]);

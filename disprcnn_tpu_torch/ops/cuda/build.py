@@ -26,8 +26,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 # every kernel source of the port, in the order chip_smoke.py builds them
-SOURCES = ("nms", "conv3d", "conv3d_tc", "cost_volume_tc", "softargmin", "fps", "sa",
-           "grouped_mlp", "fp", "roipool3d")
+SOURCES = ("nms", "conv3d", "conv3d_tc", "conv_bf16_wgmma", "cost_volume_tc", "softargmin",
+           "fps", "sa", "grouped_mlp", "fp", "roipool3d")
 # -Xptxas -v only reports registers and shared memory. No fast math: the
 # kernels keep IEEE division, exp and denormals.
 NVCC_FLAGS = (

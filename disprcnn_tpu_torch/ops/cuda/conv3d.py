@@ -44,17 +44,25 @@ The bf16 forms (the JAX package's bf16 model, TPU.COMPUTE_DTYPE
 bfloat16): ``conv3d_bn``, ``conv2d_bn``, ``deconv3d_bn`` and
 ``cost_volume_conv_bn`` dispatch on the input's dtype. A bf16 input (and
 residual) on the card launches the kernel's bf16 form: the weights rounded
-to bf16 by their packing (``pack_bf16_weight``,
-``pack_bf16_deconv_weight``, ``pack_bf16_cost_volume_weight``: k16
-fragments of bf16 pairs), one bf16 ``mma.sync`` a K step into float32
-sums, the BN affine, residual and ReLU in float32, and one rounding to
-bf16 (nearest even) at the store, as the JAX package's Pallas kernels do
-with bf16 operands; the classifier's Co = 1 form rounds its conv to bf16
-before the residual (the previous classifier's cost) joins and rounds the
-sum again, as JAX's separate bf16 add does. On the CPU a bf16 input takes
-the bf16 twin (``*_bf16_plain``): the float32 plain version of the same
-bf16 values cast up (a product of two bf16 values is exact in float32),
-rounded to bf16 where the kernel stores. The launch points are
+to bf16 by their packing, exact products into float32 sums, the BN
+affine, residual and ReLU in float32, and one rounding to bf16 (nearest
+even) at the store, as the JAX package's Pallas kernels do with bf16
+operands. ``conv3d_bn`` and ``cost_volume_conv_bn`` run one bf16
+``mma.sync`` a K step on csrc/conv3d_tc.cu's and cost_volume_tc.cu's
+bodies (``pack_bf16_weight``, ``pack_bf16_cost_volume_weight``: k16
+fragments of bf16 pairs); ``conv2d_bn`` and ``deconv3d_bn`` are
+csrc/conv_bf16_wgmma.cu, warpgroup products (``wgmma``) over a halo laid
+channels-innermost in shared memory, each tap an address offset, with
+TMA copies in and out (``pack_wgmma_weight``: each tap's 16 x Co block in
+wgmma's K-major core matrices); they take any Ci and raise on a Co
+other than 32 or 64 and on an input row wider than their tiles take
+(``conv_bf16_wgmma_max_width``). The classifier's Co = 1 form rounds its
+conv to bf16 before the residual (the previous classifier's cost) joins
+and rounds the sum again, as JAX's separate bf16 add does. On the CPU a
+bf16 input takes the bf16 twin (``*_bf16_plain``): the float32 plain
+version of the same bf16 values cast up (a product of two bf16 values is
+exact in float32), rounded to bf16 where the kernel stores. The launch
+points are
 ``*_bf16_cuda``, counted in ``launches_bf16``. Each form checks its
 dtypes: a bf16 tensor given to a float32 launch point raises, and a
 float32 one to a bf16 launch point; nothing is cast to reach a kernel.
@@ -81,6 +89,7 @@ are ``conv3d_train_bf16_plain`` (differentiable) and
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -126,13 +135,29 @@ def _tc_lib() -> ctypes.CDLL:
         lib.conv2d_tc_cuda.argtypes = [p, i, i, i, i, p, i, p, p, p, i, p, p, i]
         lib.deconv3d_tc_cuda.argtypes = [p, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
         lib.conv3d_tc_pack_cuda.argtypes = [p, i, i, i, i, p, p, i]
-        for name in ("conv3d_tc", "conv2d_tc", "deconv3d_tc", "conv3d_tc_pack"):
-            getattr(lib, f"{name}_bf16_cuda").argtypes = getattr(lib, f"{name}_cuda").argtypes
-        for name in ("conv3d_tc", "conv2d_tc", "deconv3d_tc", "conv3d_tc_pack"):
-            for form in ("", "_bf16"):
-                getattr(lib, f"{name}{form}_cuda").restype = i
+        lib.conv3d_tc_bf16_cuda.argtypes = lib.conv3d_tc_cuda.argtypes
+        lib.conv3d_tc_pack_bf16_cuda.argtypes = lib.conv3d_tc_pack_cuda.argtypes
+        for fn in (lib.conv3d_tc_cuda, lib.conv2d_tc_cuda, lib.deconv3d_tc_cuda,
+                   lib.conv3d_tc_pack_cuda, lib.conv3d_tc_bf16_cuda, lib.conv3d_tc_pack_bf16_cuda):
+            fn.restype = i
         lib.conv3d_tc_error_string.argtypes = [i]
         lib.conv3d_tc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _wg_lib() -> ctypes.CDLL:
+    lib = build.load("conv_bf16_wgmma")
+    if lib.conv2d_bf16_wgmma_cuda.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.conv2d_bf16_wgmma_cuda.argtypes = [p, i, i, i, i, p, i, p, p, p, i, p, p, i]
+        lib.deconv3d_bf16_wgmma_cuda.argtypes = [p, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
+        lib.conv_bf16_wgmma_pack_cuda.argtypes = [p, i, i, i, p, p, i]
+        lib.conv_bf16_wgmma_max_width.argtypes = [i, i]
+        for fn in (lib.conv2d_bf16_wgmma_cuda, lib.deconv3d_bf16_wgmma_cuda,
+                   lib.conv_bf16_wgmma_pack_cuda, lib.conv_bf16_wgmma_max_width):
+            fn.restype = i
+        lib.conv_bf16_wgmma_error_string.argtypes = [i]
+        lib.conv_bf16_wgmma_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -229,8 +254,10 @@ def pack_tf32_weight_cuda(weight: torch.Tensor, flip: bool = False) -> torch.Ten
 
 def pack_bf16_weight_cuda(weight: torch.Tensor) -> torch.Tensor:
     """pack_bf16_weight(weight) in one launch of csrc/conv3d_tc.cu's bf16
-    packing on the current stream (weight float32, contiguous, on the
-    card)."""
+    packing on the current stream (weight (Co, Ci, 3, 3, 3) float32,
+    contiguous, on the card)."""
+    if weight.dim() != 5:
+        raise ValueError(f"need a (Co, Ci, 3, 3, 3) weight, got {tuple(weight.shape)}")
     return _pack_conv(weight, False, BF16)
 
 
@@ -253,21 +280,15 @@ def pack_tf32_deconv_weight_cuda(weight: torch.Tensor) -> torch.Tensor:
     """pack_tf32_deconv_weight(weight) of the ConvTranspose3d weight (Ci, Co,
     3, 3, 3), in one launch of csrc/conv3d_tc.cu's packing on the current
     stream (weight float32, contiguous, on the card)."""
-    return _pack_deconv(weight, torch.float32)
+    return _pack_deconv(weight)
 
 
-def pack_bf16_deconv_weight_cuda(weight: torch.Tensor) -> torch.Tensor:
-    """pack_bf16_deconv_weight(weight) of the ConvTranspose3d weight (Ci,
-    Co, 3, 3, 3), in one launch of csrc/conv3d_tc.cu's bf16 packing."""
-    return _pack_deconv(weight, BF16)
-
-
-def _pack_deconv(weight, dtype):
+def _pack_deconv(weight):
     if weight.dim() != 5:
         raise ValueError(f"need a (Ci, Co, 3, 3, 3) weight, got {tuple(weight.shape)}")
     ci, co = weight.shape[:2]
     _check_float32_cuda("weight", weight, (ci, co, 3, 3, 3), weight.device)
-    return _pack_launch(weight, co, ci, 3, _PACK_DECONV, dtype)
+    return _pack_launch(weight, co, ci, 3, _PACK_DECONV, torch.float32)
 
 
 def _pack_launch(weight, co, ci, wkd, form, dtype):
@@ -646,28 +667,57 @@ def _bf16_words(t: torch.Tensor) -> torch.Tensor:
 def pack_bf16_weight(weight: torch.Tensor) -> torch.Tensor:
     """(Co, Ci, 3, 3, 3) -> csrc/conv3d_tc.cu's bf16 staged weights, int32
     words of two bf16: (ceil(Ci / 16), 3 kd, 9 taps (kh, kw), Co / 8, 32
-    lanes, 2), Ci padded with zeros to a multiple of 16; a 2D weight (Co,
-    Ci, 3, 3) -> the same without the kd dim. Lane l of N-tile j in chunk cc
-    holds in word e the weights from input channels 16 cc + 8 e + 2 (l % 4)
-    and the next one (lower half) to output channel 8 j + l // 4, rounded to
-    bf16: the B fragment of mma.m16n8k16 (b0, b1). The plain version of the
-    kernel's own packing, pack_bf16_weight_cuda."""
-    w5 = weight[:, :, None] if weight.dim() == 4 else weight
+    lanes, 2), Ci padded with zeros to a multiple of 16. Lane l of N-tile j
+    in chunk cc holds in word e the weights from input channels 16 cc + 8 e
+    + 2 (l % 4) and the next one (lower half) to output channel 8 j + l //
+    4, rounded to bf16: the B fragment of mma.m16n8k16 (b0, b1). The plain
+    version of the kernel's own packing, pack_bf16_weight_cuda."""
+    co, ci = weight.shape[:2]
+    ci16 = -(-ci // 16)
+    w = F.pad(weight, (0, 0, 0, 0, 0, 0, 0, 16 * ci16 - ci))
+    # (j, l // 4, cc, e, l % 4, pair, kd, tap) -> (cc, kd, tap, j, l, e, pair)
+    w = w.reshape(co // 8, 8, ci16, 2, 4, 2, 3, 9).permute(2, 6, 7, 0, 1, 4, 3, 5)
+    return _bf16_words(w.reshape(ci16, 3, 9, co // 8, 32, 2, 2)).contiguous()
+
+
+def pack_wgmma_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The bf16 forms of rows 5 and 7 (csrc/conv_bf16_wgmma.cu): the 2D conv
+    weight (Co, Ci, 3, 3), or the ConvTranspose3d weight (Ci, Co, 3, 3, 3)
+    unflipped, -> bf16 (ceil(Ci / 16), wkd, 9 taps (kh, kw), Co / 8, 2, 8,
+    8), wkd 1 or 3 depth taps: element (cc, kd, tap, j, half, r, k) is the
+    weight from input channel 16 cc + 8 half + k to output channel 8 j + r,
+    rounded to bf16 (nearest even), zero past Ci. A tap's (16 channels x Co)
+    block is wgmma's B operand in K-major core matrices (8 output channels x
+    8 input channels); a stage's 9 taps are one contiguous slab. The plain
+    version of pack_wgmma_weight_cuda."""
+    w5 = weight[:, :, None] if weight.dim() == 4 else weight.transpose(0, 1)
     co, ci, kd = w5.shape[:3]
     ci16 = -(-ci // 16)
     w = F.pad(w5, (0, 0, 0, 0, 0, 0, 0, 16 * ci16 - ci))
-    # (j, l // 4, cc, e, l % 4, pair, kd, tap) -> (cc, kd, tap, j, l, e, pair)
-    w = w.reshape(co // 8, 8, ci16, 2, 4, 2, kd, 9).permute(2, 6, 7, 0, 1, 4, 3, 5)
-    packed = _bf16_words(w.reshape(ci16, kd, 9, co // 8, 32, 2, 2))
-    return (packed[:, 0] if weight.dim() == 4 else packed).contiguous()
+    # (j, r, cc, half, k, kd, tap) -> (cc, kd, tap, j, half, r, k)
+    w = w.reshape(co // 8, 8, ci16, 2, 8, kd, 9).permute(2, 5, 6, 0, 3, 1, 4)
+    return w.to(BF16).contiguous()
 
 
-def pack_bf16_deconv_weight(weight: torch.Tensor) -> torch.Tensor:
-    """The ConvTranspose3d weight (Ci, Co, 3, 3, 3) -> the bf16 transposed
-    conv's staged weights: pack_bf16_weight of weight[c, o] as (Co, Ci),
-    unflipped (as pack_tf32_deconv_weight). The plain version of
-    pack_bf16_deconv_weight_cuda."""
-    return pack_bf16_weight(weight.transpose(0, 1))
+def pack_wgmma_weight_cuda(weight: torch.Tensor) -> torch.Tensor:
+    """pack_wgmma_weight(weight) in one launch of csrc/conv_bf16_wgmma.cu's
+    packing on the current stream (weight float32, contiguous, on the
+    card)."""
+    if weight.dim() not in (4, 5):
+        raise ValueError(f"need a (Co, Ci, 3, 3) or (Ci, Co, 3, 3, 3) weight, got "
+                         f"{tuple(weight.shape)}")
+    deconv = weight.dim() == 5
+    ci, co = weight.shape[:2] if deconv else weight.shape[1::-1]
+    _check_float32_cuda("weight", weight, tuple(weight.shape), weight.device)
+    if co not in CHANNELS:
+        raise ValueError(f"the packing takes Co in {CHANNELS}, got {co}")
+    out = torch.empty((-(-ci // 16), 3 if deconv else 1, 9, co // 8, 2, 8, 8), dtype=BF16,
+                      device=weight.device)
+    lib = _wg_lib()
+    err = lib.conv_bf16_wgmma_pack_cuda(weight.data_ptr(), co, ci, int(deconv), out.data_ptr(),
+                                        _stream(weight), weight.device.index)
+    _raise_on(lib.conv_bf16_wgmma_error_string, err, "conv_bf16_wgmma_pack_cuda")
+    return out
 
 
 def pack_bf16_cost_volume_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -862,8 +912,9 @@ def deconv3d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
 def deconv3d_bn_bf16_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
                           add: torch.Tensor, residual: Optional[torch.Tensor] = None,
                           relu: bool = False) -> torch.Tensor:
-    """Launch the bf16 form of csrc/conv3d_tc.cu's transposed conv on the
-    current stream; same contract as deconv3d_bn_bf16_plain."""
+    """Launch csrc/conv_bf16_wgmma.cu's transposed conv (its weight packing,
+    then the conv) on the current stream; same contract as
+    deconv3d_bn_bf16_plain."""
     build.forward_only("deconv3d_bn_bf16_cuda", x, weight, mul, add, residual)
     return _deconv3d_launch(x, weight, mul, add, residual, relu, BF16)
 
@@ -875,16 +926,43 @@ def _deconv3d_launch(x, weight, mul, add, residual, relu, dtype):
     out_shape = (n, co, 2 * d, 2 * h, 2 * w)
     _check_float32_cuda("weight", weight, (ci, co, 3, 3, 3), x.device)
     mul, add, res = _epilogue_args(co, mul, add, residual, out_shape, x.device, dtype=dtype)
-    lib = _tc_lib()
-    wt = _pack_deconv(weight, dtype)
     out = torch.empty(out_shape, dtype=dtype, device=x.device)
-    name = f"deconv3d_tc{_suffix(dtype)}_cuda"
-    err = getattr(lib, name)(x.data_ptr(), n, ci, d, h, w, wt.data_ptr(), co, mul.data_ptr(),
-                             add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
-                             x.device.index)
-    _raise_on(lib.conv3d_tc_error_string, err, name)
+    if dtype == BF16:
+        lib, name = _wg_lib(), "deconv3d_bf16_wgmma_cuda"
+        _check_width(1, co, w)
+        wt = pack_wgmma_weight_cuda(weight)
+        err = lib.deconv3d_bf16_wgmma_cuda(x.data_ptr(), n, ci, d, h, w, wt.data_ptr(), co,
+                                           mul.data_ptr(), add.data_ptr(), res, int(relu),
+                                           out.data_ptr(), _stream(x), x.device.index)
+        _raise_on(lib.conv_bf16_wgmma_error_string, err, name)
+    else:
+        lib, name = _tc_lib(), "deconv3d_tc_cuda"
+        wt = _pack_deconv(weight)
+        err = lib.deconv3d_tc_cuda(x.data_ptr(), n, ci, d, h, w, wt.data_ptr(), co,
+                                   mul.data_ptr(), add.data_ptr(), res, int(relu),
+                                   out.data_ptr(), _stream(x), x.device.index)
+        _raise_on(lib.conv3d_tc_error_string, err, name)
     _counts(dtype)["deconv3d"] += 1
     return out
+
+
+@functools.cache
+def _widest(deconv: int, co: int) -> int:
+    return _wg_lib().conv_bf16_wgmma_max_width(deconv, co)
+
+
+def _check_width(deconv: int, co: int, w: int) -> None:
+    """Raise on a Co or an input width the bf16 form of row 5 or 7 does not
+    take: every width up to the library's conv_bf16_wgmma_max_width plans a
+    tile at every height (its M-tiles hold a halo row of W + 1 positions, and
+    its staging, halos and output tile fit in shared memory)."""
+    form = "transposed conv" if deconv else "2D conv"
+    if co not in CHANNELS:
+        raise ValueError(f"the bf16 {form} takes Co in {CHANNELS}, got {co}")
+    widest = _widest(deconv, co)
+    if w > widest:
+        raise ValueError(f"the bf16 {form} at Co {co} takes inputs up to {widest} wide, got "
+                         f"W = {w}")
 
 
 def conv2d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
@@ -899,8 +977,8 @@ def conv2d_bn_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
 def conv2d_bn_bf16_cuda(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
                         add: torch.Tensor, residual: Optional[torch.Tensor] = None,
                         relu: bool = False) -> torch.Tensor:
-    """Launch the bf16 form of csrc/conv3d_tc.cu's 2D conv on the current
-    stream; same contract as conv2d_bn_bf16_plain."""
+    """Launch csrc/conv_bf16_wgmma.cu's 2D conv (its weight packing, then
+    the conv) on the current stream; same contract as conv2d_bn_bf16_plain."""
     build.forward_only("conv2d_bn_bf16_cuda", x, weight, mul, add, residual)
     return _conv2d_launch(x, weight, mul, add, residual, relu, BF16)
 
@@ -911,14 +989,22 @@ def _conv2d_launch(x, weight, mul, add, residual, relu, dtype):
     co = weight.shape[0]
     _check_float32_cuda("weight", weight, (co, ci, 3, 3), x.device)
     mul, add, res = _epilogue_args(co, mul, add, residual, (n, co, h, w), x.device, dtype=dtype)
-    lib = _tc_lib()
-    wt = _pack_conv(weight, False, dtype)
     out = torch.empty((n, co, h, w), dtype=dtype, device=x.device)
-    name = f"conv2d_tc{_suffix(dtype)}_cuda"
-    err = getattr(lib, name)(x.data_ptr(), n, ci, h, w, wt.data_ptr(), co, mul.data_ptr(),
-                             add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
-                             x.device.index)
-    _raise_on(lib.conv3d_tc_error_string, err, name)
+    if dtype == BF16:
+        lib, name = _wg_lib(), "conv2d_bf16_wgmma_cuda"
+        _check_width(0, co, w)
+        wt = pack_wgmma_weight_cuda(weight)
+        err = lib.conv2d_bf16_wgmma_cuda(x.data_ptr(), n, ci, h, w, wt.data_ptr(), co,
+                                         mul.data_ptr(), add.data_ptr(), res, int(relu),
+                                         out.data_ptr(), _stream(x), x.device.index)
+        _raise_on(lib.conv_bf16_wgmma_error_string, err, name)
+    else:
+        lib, name = _tc_lib(), "conv2d_tc_cuda"
+        wt = _pack_conv(weight, False, dtype)
+        err = lib.conv2d_tc_cuda(x.data_ptr(), n, ci, h, w, wt.data_ptr(), co, mul.data_ptr(),
+                                 add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
+                                 x.device.index)
+        _raise_on(lib.conv3d_tc_error_string, err, name)
     _counts(dtype)["conv2d"] += 1
     return out
 

@@ -1114,6 +1114,106 @@ def test_conv2d_bf16_kernel_matches_twin(card, ci, co, hw, residual, relu):
                 _floor(9 * ci, cconv.conv2d_bn_plain, x, weight, mul))
 
 
+def _wgmma_form_matches_twin(kind, n, ci, co, shape, residual, relu, seed):
+    """One launch of row 5 or 7's bf16 form (csrc/conv_bf16_wgmma.cu) held
+    to its twin with bf16_agreement: no element beyond one bf16 step and
+    the float32 sums' floor; the launch counted once, as bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = _randn_bf16(gen, n, ci, *shape)
+    mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
+    if kind == "conv2d":
+        weight = _randn(gen, co, ci, 3, 3, scale=0.05)
+        out_shape = (n, co, *shape)
+        launch, twin, plain, k = cconv.conv2d_bn, cconv.conv2d_bn_bf16_plain, \
+            cconv.conv2d_bn_plain, 9 * ci
+    else:
+        weight = _randn(gen, ci, co, 3, 3, 3, scale=0.05)
+        out_shape = (n, co, *(2 * s for s in shape))
+        launch, twin, plain, k = cconv.deconv3d_bn, cconv.deconv3d_bn_bf16_plain, \
+            cconv.deconv3d_bn_plain, 27 * ci
+    res = _randn_bf16(gen, *out_shape) if residual else None
+    before, before32 = cconv.launches_bf16[kind], cconv.launches[kind]
+    got = launch(x, weight, mul, add, res, relu)
+    assert cconv.launches_bf16[kind] == before + 1 and cconv.launches[kind] == before32
+    _bf16_close(got, twin(x, weight, mul, add, res, relu), _floor(k, plain, x, weight, mul))
+
+
+@pytest.mark.parametrize("kind,n,ci,co,shape,residual,relu", [
+    ("conv2d", 256, 32, 32, (112, 112), False, True),  # firstconv, layer1
+    ("conv2d", 256, 32, 32, (112, 112), True, False),
+    ("conv2d", 256, 64, 64, (56, 56), False, True),  # layer2
+    ("conv2d", 256, 64, 64, (56, 56), True, False),
+    ("conv2d", 256, 64, 64, (56, 56), True, True),
+    ("deconv3d", 128, 64, 64, (6, 14, 14), True, True),  # the hourglasses
+    ("deconv3d", 128, 64, 32, (12, 28, 28), True, False),
+])
+def test_wgmma_bf16_forms_at_main_path_sites(card, kind, n, ci, co, shape, residual, relu):
+    """Rows 5 and 7's bf16 forms at the bf16 idispnet.yaml request's own
+    sites: 128 ROI slots, both views in the tower."""
+    _wgmma_form_matches_twin(kind, n, ci, co, shape, residual, relu, seed=n + ci + co)
+
+
+@pytest.mark.parametrize("kind,n,ci,co,shape,residual,relu", [
+    ("conv2d", 1, 32, 32, (112, 112), True, True),  # N = 1
+    ("conv2d", 2, 32, 32, (20, 33), True, False),  # W 33: plain staging, direct stores
+    ("conv2d", 2, 64, 64, (20, 20), False, True),  # W 20: no multiple of 8, TMA legal
+    ("conv2d", 2, 32, 32, (20, 112), True, False),  # a ragged last tile (tiles of 7 rows)
+    ("conv2d", 1, 64, 64, (61, 56), True, True),  # ragged at Co 64 (tiles of 8 rows)
+    ("conv2d", 2, 16, 32, (9, 8), False, False),  # one tile, Ci 16
+    ("deconv3d", 1, 64, 64, (1, 14, 14), True, True),  # D = 1
+    ("deconv3d", 2, 64, 32, (3, 28, 28), False, True),  # D = 3, no residual
+    ("deconv3d", 2, 64, 32, (3, 30, 30), True, False),  # a ragged last tile
+    ("deconv3d", 1, 32, 64, (3, 10, 20), True, False),  # W 20
+    ("deconv3d", 2, 13, 32, (3, 5, 7), True, True),  # Ci off the 16-channel step
+])
+def test_wgmma_bf16_forms_edge_cases(card, kind, n, ci, co, shape, residual, relu):
+    """Rows 5 and 7's bf16 forms off the main path's shapes."""
+    _wgmma_form_matches_twin(kind, n, ci, co, shape, residual, relu, seed=7 * n + ci + shape[-1])
+
+
+def test_wgmma_bf16_forms_refuse_what_they_do_not_take(card):
+    """Rows 5 and 7's bf16 launch points take every Ci (the channels past Ci
+    are zero in the weights and in the staged input), and raise on a Co
+    other than 32 or 64 and on a row wider than they take (a tile's M-tiles
+    hold one halo row, and its staging and halos fit in shared memory),
+    naming it; nothing falls back to another body or to the twin."""
+    x = torch.zeros(1, 13, 8, 8, device=card, dtype=BF16)
+    mul, add = torch.ones(16, device=card), torch.zeros(16, device=card)
+    with pytest.raises(ValueError, match="Co in"):
+        cconv.conv2d_bn_bf16_cuda(x, torch.zeros(16, 13, 3, 3, device=card), mul, add)
+    with pytest.raises(ValueError, match="Co in"):
+        cconv.deconv3d_bn_bf16_cuda(x[:, :, None], torch.zeros(13, 16, 3, 3, 3, device=card),
+                                    mul, add)
+    mul, add = torch.ones(64, device=card), torch.zeros(64, device=card)
+    wide = torch.zeros(1, 64, 2, 600, device=card, dtype=BF16)
+    with pytest.raises(ValueError, match="W = 600"):
+        cconv.conv2d_bn_bf16_cuda(wide, torch.zeros(64, 64, 3, 3, device=card), mul, add)
+    with pytest.raises(ValueError, match="W = 600"):
+        cconv.deconv3d_bn_bf16_cuda(wide[:, :, None], torch.zeros(64, 64, 3, 3, 3, device=card),
+                                    mul, add)
+    # within the M-tiles' 895 positions at Co 32, but the tile's staging and
+    # halos do not fit in shared memory
+    with pytest.raises(ValueError, match="W = 600"):
+        cconv.conv2d_bn_bf16_cuda(wide[:, :32], torch.zeros(32, 32, 3, 3, device=card),
+                                  mul[:32], add[:32])
+
+
+@pytest.mark.parametrize("kind,co", [("conv2d", 32), ("conv2d", 64), ("deconv3d", 32),
+                                     ("deconv3d", 64)])
+def test_wgmma_bf16_forms_take_their_widest_row(card, kind, co):
+    """The widest input row the launch point lets through
+    (conv_bf16_wgmma_max_width) runs at the height whose tiles take the
+    most shared memory (8 times the rows a tile holds) and agrees with the
+    twin."""
+    deconv = int(kind == "deconv3d")
+    w = cconv._widest(deconv, co)
+    mrows = 2 * 64 * {(0, 32): 7, (0, 64): 4, (1, 32): 2, (1, 64): 1}[deconv, co]  # M-tile rows
+    assert 56 <= w < mrows
+    rows = 8 * (mrows // (w + 1))
+    shape = (1, rows, w) if deconv else (rows, w)
+    _wgmma_form_matches_twin(kind, 1, 16, co, shape, True, True, seed=w + co)
+
+
 @pytest.mark.parametrize("c,hw,co,mind4,maxd4", [
     (32, (56, 56), 32, -12, 12), (13, (9, 40), 32, -3, 5), (32, (13, 40), 64, 3, 11)])
 def test_cost_volume_bf16_kernel_matches_twin(card, c, hw, co, mind4, maxd4):
@@ -1141,12 +1241,15 @@ def test_bf16_pack_kernels_match_plain(card, co, ci):
     wd = _randn(gen, ci, co, 3, 3, 3)
     wc = _randn(gen, co, 2 * ci, 3, 3, 3)
     for got, want in ((cconv.pack_bf16_weight_cuda(w3), cconv.pack_bf16_weight(w3)),
-                      (cconv.pack_bf16_weight_cuda(w2), cconv.pack_bf16_weight(w2)),
-                      (cconv.pack_bf16_deconv_weight_cuda(wd), cconv.pack_bf16_deconv_weight(wd)),
+                      (cconv.pack_wgmma_weight_cuda(w2), cconv.pack_wgmma_weight(w2)),
+                      (cconv.pack_wgmma_weight_cuda(wd), cconv.pack_wgmma_weight(wd)),
                       (cconv.pack_bf16_cost_volume_weight_cuda(wc),
                        cconv.pack_bf16_cost_volume_weight(wc))):
         torch.cuda.synchronize()
-        assert torch.equal(got, want)
+        assert got.dtype == want.dtype and torch.equal(got.view(torch.int16)
+                                                       if got.dtype == BF16 else got,
+                                                       want.view(torch.int16)
+                                                       if want.dtype == BF16 else want)
 
 
 @pytest.mark.parametrize("b,d4,hw4,out_hw,disp", [
@@ -1192,8 +1295,11 @@ def test_kernels_refuse_the_other_dtype(card):
         cconv.cost_volume_conv_bn_cuda(f.to(BF16), f.to(BF16), wc, mul, add, 0, 4)
     with pytest.raises(ValueError, match="bfloat16 CUDA"):
         cconv.cost_volume_conv_bn_bf16_cuda(f, f, wc, mul, add, 0, 4)
-    with pytest.raises(ValueError, match="float32 CUDA"):
-        cconv.conv3d_train_cuda(x.to(BF16), w)
+    # the train form's launch point takes x's dtype (row 8's bf16 form):
+    # a bf16 x reaches the bf16 kernel uncast
+    before = cconv.launches_bf16["conv3d_train"]
+    assert cconv.conv3d_train_cuda(x.to(BF16), w).dtype == BF16
+    assert cconv.launches_bf16["conv3d_train"] == before + 1
     with pytest.raises(ValueError, match="float32"):
         csam.softargmin_cuda(f.to(BF16), (16, 16), 0, 8)
     with pytest.raises(ValueError, match="bfloat16"):

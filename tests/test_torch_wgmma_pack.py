@@ -1,0 +1,38 @@
+"""The weight packing of rows 5 and 7's bf16 forms (csrc/conv_bf16_wgmma.cu)
+on the CPU: ops/cuda/conv3d.py::pack_wgmma_weight, the plain version the
+card test holds the packing kernel to byte for byte, against a direct index
+of the weight. Exact: the packing only moves values and rounds each to
+bf16 once."""
+import numpy as np
+import pytest
+import torch
+
+from disprcnn_tpu_torch.ops.cuda import conv3d as tconv
+from torch_train_helpers import torch_one_thread  # noqa: F401 (fixture)
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("deconv,co,ci", [(False, 32, 32), (False, 64, 64), (False, 32, 13),
+                                          (True, 64, 64), (True, 32, 64), (True, 32, 5)])
+def test_pack_wgmma_weight_is_a_direct_index(torch_one_thread, deconv, co, ci):
+    """Element (cc, kd, tap, j, half, r, k) is the weight from input channel
+    16 cc + 8 half + k to output channel 8 j + r at depth tap kd and tap
+    (tap // 3, tap % 3), rounded to bf16, zero past Ci; the 2D weight has
+    one depth tap, the transposed conv's (Ci, Co, 3, 3, 3) weight is read
+    unflipped."""
+    gen = torch.Generator().manual_seed(co + ci + deconv)
+    shape = (ci, co, 3, 3, 3) if deconv else (co, ci, 3, 3)
+    weight = torch.randn(shape, generator=gen)
+    got = tconv.pack_wgmma_weight(weight)
+    wkd = 3 if deconv else 1
+    ci16 = -(-ci // 16)
+    assert got.dtype == BF16 and tuple(got.shape) == (ci16, wkd, 9, co // 8, 2, 8, 8)
+    w = weight.to(BF16).float().numpy()
+    want = np.zeros(got.shape, np.float32)
+    for cc, kd, tap, j, half, r, k in np.ndindex(*got.shape):
+        c, o = 16 * cc + 8 * half + k, 8 * j + r
+        if c < ci:
+            kh, kw = divmod(tap, 3)
+            want[cc, kd, tap, j, half, r, k] = w[c, o, kd, kh, kw] if deconv else w[o, c, kh, kw]
+    assert np.array_equal(got.float().numpy(), want)
