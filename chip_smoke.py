@@ -328,8 +328,8 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      (bfloat16), seeded random weights, predict on the bench's geometry (8
      pairs of 384x1248, 16 detection slots each: 128 crops of 224^2 at
      +-48): (a) one request with the launches counted from 0: rows 2-7
-     and 15 each launch their bf16 form (EXPECTED_BF16; rows 5 and 7's are
-     csrc/conv_bf16_wgmma.cu) and no float32 form, disparity_roi float32
+     and 15 each launch their bf16 form (EXPECTED_BF16; rows 3, 5, 6 and
+     7's are csrc/conv_bf16_wgmma.cu) and no float32 form, disparity_roi float32
      in the disparity range; (b) each bf16 form
      on that request's own arguments (the (24, 56^2) trunk, its 28^2 and
      14^2 hourglass levels, the tower's 112^2 and 56^2 sites) held to its
@@ -378,8 +378,10 @@ Phases, each ending in torch.cuda.synchronize() and one progress line:
      bit-equal to pack_wgmma_chain_bf16; bf16_agreement with the chains'
      floor: none beyond a step and the floor, at most one step where the
      floor is under a step), row 8's bf16 train form at the iDispNet step's
-     trunk sites (the forward and the input gradient held so, the weight
-     gradient within DK_BF16_RTOL), row 11's at the RCNN's SA0 and SA1 (the
+     trunk sites (csrc/conv_bf16_wgmma.cu's stride-1 form: the forward and
+     the input gradient held so, their "conv" and "flip" weight packings
+     byte-equal to pack_wgmma_weight, the weight gradient within
+     DK_BF16_RTOL), row 11's at the RCNN's SA0 and SA1 (the
      forward held so, every gradient to autograd of its twin), row 14's at
      the pooling sites (rows bit-equal, the features' gradient bf16 within
      a step); (b) rcnn.yaml at bf16 on phase 28's geometry with the SA
@@ -424,7 +426,7 @@ bf16 models.
     python3 chip_smoke.py --time-bf16 TAG ROW [ROW ...]
 
 runs phase 27's (a) and (b) alone for the bf16 rows named (bf16_kinds'
-keys, such as conv2d and deconv3d) and prints one JSON line {TAG: {row:
+keys, such as conv3d and conv3d_s2) and prints one JSON line {TAG: {row:
 {ms, device_ms, plain_ms, library_ms, bound_ms, ...}}} (time_bf16_forms):
 run from a tree's root and from its parent's copy in one call (parent,
 change, change, parent), it compares two commits' forms on one card.
@@ -4980,13 +4982,13 @@ def bf16_kinds() -> dict:
                              f"{PC}:96", lambda a: 54 * a[0].shape[1] + 18),
         "conv3d": (cconv.conv3d_bn_bf16_cuda, cconv.conv3d_bn_bf16_plain,
                    lambda a: F.conv3d(a[0], a[1].to(bf), padding=1), bf16_work(conv_work),
-                   "conv3d_tc.cu", f"{PC}:540", lambda a: 27 * a[0].shape[1]),
+                   "conv_bf16_wgmma.cu", f"{PC}:540", lambda a: 27 * a[0].shape[1]),
         "conv3d_cl1": (cconv.conv3d_bn_bf16_cuda, cconv.conv3d_bn_bf16_plain,
                        lambda a: F.conv3d(a[0], a[1].to(bf), padding=1), bf16_work(conv_work),
                        "conv3d.cu", f"{PC}:540", lambda a: 27 * a[0].shape[1]),
         "conv3d_s2": (cconv.conv3d_bn_bf16_cuda, cconv.conv3d_bn_bf16_plain,
                       lambda a: F.conv3d(a[0], a[1].to(bf), stride=2, padding=1),
-                      bf16_work(conv_work), "conv3d_tc.cu", f"{PC}:288",
+                      bf16_work(conv_work), "conv_bf16_wgmma.cu", f"{PC}:288",
                       lambda a: 27 * a[0].shape[1]),
         "deconv3d": (cconv.deconv3d_bn_bf16_cuda, cconv.deconv3d_bn_bf16_plain,
                      lambda a: F.conv_transpose3d(a[0], a[1].to(bf), stride=2, padding=1,
@@ -4997,6 +4999,12 @@ def bf16_kinds() -> dict:
                        softargmin_bf16_work, "softargmin.cu",
                        "disprcnn_tpu/ops/pallas/softargmin.py:65", None),
     }
+
+
+# the bf16 rows on csrc/conv_bf16_wgmma.cu and the form of their weights'
+# packing (row 8's dx: "flip", bf16_conv_train_compare)
+WGMMA_PACK_FORM = {"conv2d": "conv", "deconv3d": "deconv", "conv3d": "conv",
+                   "conv3d_s2": "conv"}
 
 
 def bf16_conv_name(args):
@@ -5043,8 +5051,8 @@ def bf16_rows(calls: dict, launches: dict, names=None) -> list:
     """Each bf16 form on the arguments the main path gave it: held to its
     twin (cconv.bf16_agreement: every element at most one bf16 step apart
     beyond the float32 sums' floor, and at most one step where that floor
-    is under a step, at least 99.9% equal; rows 5 and 7's weight packing
-    byte-equal to pack_wgmma_weight on each launch's weight; the soft-argmin,
+    is under a step, at least 99.9% equal; rows 3, 5, 6 and 7's weight
+    packing byte-equal to pack_wgmma_weight on each launch's weight; the soft-argmin,
     whose output is float32, bit-equal to the float32 form on its logits
     cast up and within SOFTARGMIN_TOL_PX of its twin), then timed as phase
     9 times a row (time_launches: kernel, device, twin, library call on
@@ -5072,10 +5080,11 @@ def bf16_rows(calls: dict, launches: dict, names=None) -> list:
                 continue
             ag = cconv.bf16_agreement(got, want, bf16_floor(name, a, terms(a)))
             torch.cuda.synchronize()
-            if name in ("conv2d", "deconv3d"):  # csrc/conv_bf16_wgmma.cu's weight packing
-                packed = cconv.pack_wgmma_weight_cuda(a[1])
+            if name in WGMMA_PACK_FORM:  # csrc/conv_bf16_wgmma.cu's weight packing
+                form = WGMMA_PACK_FORM[name]
+                packed = cconv.pack_wgmma_weight_cuda(a[1], form)
                 if not torch.equal(packed.view(torch.int16),
-                                   cconv.pack_wgmma_weight(a[1]).view(torch.int16)):
+                                   cconv.pack_wgmma_weight(a[1], form).view(torch.int16)):
                     raise AssertionError(f"{name} bf16: the weight packing differs from "
                                          f"pack_wgmma_weight")
             n = got.numel()
@@ -5721,9 +5730,11 @@ def bf16_conv_train_compare() -> float:
     """(a) row 8's bf16 train form at the iDispNet step's trunk sites: the
     forward (conv3d_train_cuda on bf16) and the input gradient
     (conv3d_train_dx_cuda: the flipped weights) held to their twins
-    (within_bf16_step, the float32 sums' floor: 27 Ci terms of |x| |w|);
-    through the autograd Function, the weight gradient (PyTorch's on the
-    bf16 tensors) within DK_BF16_RTOL of the twin's autograd."""
+    (within_bf16_step, the float32 sums' floor: 27 Ci terms of |x| |w|),
+    their weights' packings (csrc/conv_bf16_wgmma.cu's "conv" and "flip")
+    byte-equal to pack_wgmma_weight; through the autograd Function, the
+    weight gradient (PyTorch's on the bf16 tensors) within DK_BF16_RTOL of
+    the twin's autograd."""
     gen = torch.Generator(device="cuda").manual_seed(BF16_TRAIN_SEED + 1)
     worst = 0.0
     for n, c, d, s in TRAIN_CONV_SITES:
@@ -5741,6 +5752,11 @@ def bf16_conv_train_compare() -> float:
             floor = 27 * c * cconv.F32_SUM_ERR * F.conv3d(
                 dy.float().abs(), cconv.flip_transpose(wa), padding=1)
             ag_dx = within_bf16_step(dx, dxp, floor, f"conv3d_train bf16 dx at {tuple(x.shape)}")
+            for form in ("conv", "flip"):
+                if not torch.equal(cconv.pack_wgmma_weight_cuda(w, form).view(torch.int16),
+                                   cconv.pack_wgmma_weight(w, form).view(torch.int16)):
+                    raise AssertionError(f"conv3d_train bf16: the {form!r} weight packing "
+                                         f"differs from pack_wgmma_weight")
         grads = []
         for fn in (cconv._Conv3dTrain.apply, cconv.conv3d_train_bf16_plain):
             ww = w.clone().requires_grad_(True)
@@ -6173,7 +6189,7 @@ def bf16_train_rows(errs: dict, counts: dict) -> list:
                               cconv.conv3d_train_bf16_plain, library, conv_work_bf16, compare),
                              (" dx", dx, cconv.conv3d_train_dx_cuda,
                               cconv.conv3d_train_dx_bf16_plain, None, conv_work_bf16, compare)],
-                            errs["conv3d_train_bf16"], "conv3d_tc.cu",
+                            errs["conv3d_train_bf16"], "conv_bf16_wgmma.cu",
                             "disprcnn_tpu/ops/pallas/packed_conv.py:689")
     row["launches"] = counts["conv3d_train_bf16"]
     rows.append(row)

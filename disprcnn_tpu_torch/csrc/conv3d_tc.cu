@@ -1,6 +1,6 @@
 // The PSMNet 3x3x3 and 3x3 convolutions with a fused epilogue on Hopper's
-// tensor cores (sm_90a), float32 in and out at float32 accuracy, and the
-// bf16 form of the 3x3x3 conv, NCDHW (NCHW in 2D).
+// tensor cores (sm_90a), float32 in and out at float32 accuracy, NCDHW
+// (NCHW in 2D). Their bf16 forms are csrc/conv_bf16_wgmma.cu's.
 //
 // Replaces four TPU kernels of disprcnn_tpu/ops/pallas/packed_conv.py, and
 // through the first the train form's forward and input gradient:
@@ -47,26 +47,9 @@
 // nearest. chip_smoke.py (phase 3) logs the kernel's and cuDNN's distance
 // from a float64 conv at the main path's sites.
 //
-// The bf16 form, conv3d_tc_bf16_cuda, is rows 3 and 6 (and row 8, the
-// train form's forward and input gradient) as the JAX package's bf16 model
-// runs them (TPU.COMPUTE_DTYPE bfloat16); the bf16 forms of rows 5 and 7
-// are csrc/conv_bf16_wgmma.cu. Input, residual and
-// output bf16, the weights rounded to bf16 by their packing
-// (conv3d_tc_pack_bf16_cuda; plain version ops/cuda/conv3d.py::
-// pack_bf16_weight), BN's mul and add float32. As in the TPU kernels
-// (jnp.dot of bf16 operands, preferred_element_type float32), the products
-// are exact, the sums float32, the epilogue float32, and the store rounds
-// once to bf16, to nearest even. Same ring, tiles and fragments as below,
-// with one bf16 mma.m16n8k16 (bf16.cuh) in place of the three TF32
-// products: a K step is 16 channels, and a halo slot holds one channel pair
-// per 32-bit word, so the A fragments are read at the float32 form's
-// offsets and need no split. No cp.async copies 2 bytes, and a pair's two
-// channels lie a plane apart in NCDHW: the halo goes through registers
-// (16 loads a position, then 8 packed stores), so its copy is not
-// overlapped with the products; the weights still come by cp.async. Bound
-// on an H100 SXM at the 56^2 trunk launch: its ~0.53 TFLOP take 0.54 ms at
-// the dense bf16 rate (989 TFLOP/s), its 1.23 GB of bf16 input and output
-// 0.37 ms: operations.
+// The bf16 forms of these four kernels (and of row 8's train form), as the
+// JAX package's bf16 model runs them, are csrc/conv_bf16_wgmma.cu's
+// warpgroup body; this source builds the float32 forms only.
 //
 // Design.
 // GEMM view: per block, M = a tile of output positions of one (n, z) plane,
@@ -99,7 +82,7 @@
 // fill for the padding and the ragged edges, 16-byte copies for the
 // weights) two stages ahead of the one that multiplies: one __syncthreads
 // per stage.
-// Halo layout: per channel (bf16: channel pair) a slot of CP words, CP = 8
+// Halo layout: per channel a slot of CP words, CP = 8
 // (mod 32), so that the A-fragment reads of one instruction (8 positions x
 // 4 slots) fall
 // in distinct banks wherever their 8 positions are consecutive in a halo
@@ -126,14 +109,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "bf16.cuh"
 #include "conv3d.cuh"
 
 namespace {
 
-using conv::OutT;
+using conv::Out;
 using tc::AFrag;
 using tc::Form;
 using tc::Frags;
@@ -142,7 +122,7 @@ using tc::mma_tiles;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 3;
-constexpr int kSlots = 8;            // halo slots a stage: 8 channels, or 8 pairs (bf16)
+constexpr int kSlots = 8;            // halo slots a stage: 8 channels
 constexpr int kMaxSmem = 232448;     // bytes of shared memory a block may take on sm_90
 
 // A launch's tile geometry, the same for every block.
@@ -155,43 +135,29 @@ struct Tile {
   int cp;               // words per halo slot, >= the slot's halo, = 8 (mod 32)
 };
 
-// One halo position of a stage, all kSlots slots: the kChunk channels c0 ..
-// of src (x at channel c0, this position; channels `plane` apart), zero
-// where !ok or past the nc channels left. float: one 4-byte cp.async a
-// channel (zero-filled); bf16: the 16 values loaded, then packed in pairs
-// and stored (no cp.async copies 2 bytes); the stage's __syncthreads
-// publishes them as it does the copies.
-template <typename T>
-__device__ __forceinline__ void stage_position(uint32_t* dst, const T* src, const T* any,
+// One halo position of a stage, all kSlots slots: the kSlots channels c0
+// .. of src (x at channel c0, this position; channels `plane` apart), zero
+// where !ok or past the nc channels left, by one 4-byte cp.async a channel
+// (zero-filled).
+__device__ __forceinline__ void stage_position(uint32_t* dst, const float* src, const float* any,
                                                bool ok, int nc, size_t plane, int cp) {
-  if constexpr (Form<T>::kBf16) {
-    bf16_t v[16];
 #pragma unroll
-    for (int c = 0; c < 16; ++c)
-      v[c] = ok && c < nc ? __ldg(reinterpret_cast<const unsigned short*>(src) + c * plane) : 0;
-#pragma unroll
-    for (int q = 0; q < kSlots; ++q) dst[q * cp] = bf16_pack(v[2 * q], v[2 * q + 1]);
-  } else {
-#pragma unroll
-    for (int c = 0; c < kSlots; ++c) {
-      const bool v = ok && c < nc;
-      cp_async4(reinterpret_cast<float*>(dst) + c * cp, v ? src + c * plane : any, v);
-    }
+  for (int c = 0; c < kSlots; ++c) {
+    const bool v = ok && c < nc;
+    cp_async4(reinterpret_cast<float*>(dst) + c * cp, v ? src + c * plane : any, v);
   }
 }
 
-// x (N, Ci, D, H, W); wpk the weights as pack_tf32_weight (float) or
-// pack_bf16_weight (bf16) lays them out: (ceil(Ci / kChunk), wkd, 9 taps,
-// CO / 8 N-tiles, 32 lanes, kLaneWords words), the B fragment of each lane
-// (float: [hi(k), hi(k + 4), lo(k), lo(k + 4)] of input channel k = l % 4
-// of the chunk and output channel l / 4 of the N-tile; bf16: the pairs of
-// channels (2t, 2t + 1) and (2t + 8, 2t + 9), t = l % 4); wkd = 3 depth
-// taps, or 1 (the middle one) for the 2D conv, whose D is 1.
-template <typename T, int CO, int S>
+// x (N, Ci, D, H, W); wpk the weights as pack_tf32_weight lays them out:
+// (ceil(Ci / 8), wkd, 9 taps, CO / 8 N-tiles, 32 lanes, 4 words), the B
+// fragment of each lane ([hi(k), hi(k + 4), lo(k), lo(k + 4)] of input
+// channel k = l % 4 of the chunk and output channel l / 4 of the N-tile);
+// wkd = 3 depth taps, or 1 (the middle one) for the 2D conv, whose D is 1.
+template <int CO, int S>
 __global__ void __launch_bounds__(kThreads, 1)
-conv_tc_kernel(const T* __restrict__ x, int ci, int d, int h, int w,
-               const uint32_t* __restrict__ wpk, int wkd, const OutT<T> out, const Tile tl) {
-  using F = Form<T>;
+conv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
+               const uint32_t* __restrict__ wpk, int wkd, const Out out, const Tile tl) {
+  using F = Form<float>;
   constexpr int kNT = CO / 8;        // N-tiles
   constexpr int kMT = 16 / kNT;      // M-tiles per warp
   constexpr int kWS = 9 * kNT * 32 * F::kLaneWords;  // words of one stage's weights
@@ -212,7 +178,7 @@ conv_tc_kernel(const T* __restrict__ x, int ci, int d, int h, int w,
   const int nkd = min(2, d - S * z) - kd_lo + 1;
   const int nstages = (ci + F::kChunk - 1) / F::kChunk * nkd;
   const size_t plane = (size_t)d * h * w;
-  const T* xn = x + (size_t)n * ci * plane;
+  const float* xn = x + (size_t)n * ci * plane;
 
   auto load_stage = [&](int s, int buf) {
     const int cc = s / nkd, kd = kd_lo + s % nkd;
@@ -224,7 +190,7 @@ conv_tc_kernel(const T* __restrict__ x, int ci, int d, int h, int w,
     uint32_t* hs = ws + kWS;
     const int c0 = cc * F::kChunk;
     const int nc = min(F::kChunk, ci - c0);
-    const T* xs = xn + (size_t)c0 * plane + (size_t)(S * z + kd - 1) * h * w;
+    const float* xs = xn + (size_t)c0 * plane + (size_t)(S * z + kd - 1) * h * w;
     // halo rows: stride 1, input row y0 - 1 + r; stride 2, input row
     // 2 * y0 - 1 + 2 * i + rp, its consecutive columns dealt to the two
     // column-parity planes of row parity rp
@@ -243,7 +209,7 @@ conv_tc_kernel(const T* __restrict__ x, int ci, int d, int h, int w,
       for (int e = lane; e < S * tl.hs; e += 32) {
         const int xin = S * x0 - 1 + e;
         const bool ok = row_ok && xin >= 0 && xin < w;
-        stage_position<T>(hs + off + (S == 1 ? e : (e & 1) * tl.ps + (e >> 1)),
+        stage_position(hs + off + (S == 1 ? e : (e & 1) * tl.ps + (e >> 1)),
                           ok ? xs + (size_t)yin * w + xin : x, x, ok, nc, plane, tl.cp);
       }
     }
@@ -297,10 +263,10 @@ conv_tc_kernel(const T* __restrict__ x, int ci, int d, int h, int w,
       const uint32_t* ht = hs + (S == 1 ? kh * tl.hs + kw
                                         : (2 * (kh & 1) + (kw & 1)) * tl.ps + (kh >> 1) * tl.hs +
                                               (kw >> 1));
-      Frags<T> b[kNT];
+      Frags<float> b[kNT];
 #pragma unroll
       for (int j = 0; j < kNT; ++j) b[j].load_b(ws, (tap * kNT + j) * 32 + lane);
-      AFrag<T> a[kMT];
+      AFrag<float> a[kMT];
 #pragma unroll
       for (int i = 0; i < kMT; ++i) {
         if (i >= mtiles) break;
@@ -353,13 +319,12 @@ conv_tc_kernel(const T* __restrict__ x, int ci, int d, int h, int w,
 // 32)) .. + 3) for all 4 classes: 64 float32 accumulators a thread, so a
 // block takes 128 input positions at CO 32 and 64 at CO 64. wpk is
 // pack_tf32_deconv_weight's layout: the conv's packing of the (CO, Ci)
-// weight w[c, o, kd, kh, kw]. Only the float32 form is built (the bf16 form
-// of the transposed conv is conv_bf16_wgmma.cu's).
-template <typename T, int CO>
+// weight w[c, o, kd, kh, kw].
+template <int CO>
 __global__ void __launch_bounds__(kThreads, 1)
-deconv_tc_kernel(const T* __restrict__ x, int ci, int d, int h, int w,
-                 const uint32_t* __restrict__ wpk, const OutT<T> out, const Tile tl) {
-  using F = Form<T>;
+deconv_tc_kernel(const float* __restrict__ x, int ci, int d, int h, int w,
+                 const uint32_t* __restrict__ wpk, const Out out, const Tile tl) {
+  using F = Form<float>;
   constexpr int kNT = CO / 8;        // N-tiles
   constexpr int kWN = CO / 32;       // warps along N, 4 N-tiles each
   constexpr int kWS = 9 * kNT * 32 * F::kLaneWords;  // words of one stage's weights
@@ -382,7 +347,7 @@ deconv_tc_kernel(const T* __restrict__ x, int ci, int d, int h, int w,
   const int nkd = pz == 0 ? 1 : (m + 1 < d ? 2 : 1);
   const int nstages = (ci + F::kChunk - 1) / F::kChunk * nkd;
   const size_t plane = (size_t)d * h * w;
-  const T* xn = x + (size_t)n * ci * plane;
+  const float* xn = x + (size_t)n * ci * plane;
 
   auto load_stage = [&](int s, int buf) {
     const int cc = s / nkd, tz = s % nkd;
@@ -395,14 +360,14 @@ deconv_tc_kernel(const T* __restrict__ x, int ci, int d, int h, int w,
     uint32_t* hs = ws + kWS;
     const int c0c = cc * F::kChunk;
     const int nc = min(F::kChunk, ci - c0c);
-    const T* xs = xn + (size_t)c0c * plane + (size_t)(m + tz) * h * w;
+    const float* xs = xn + (size_t)c0c * plane + (size_t)(m + tz) * h * w;
     // halo rows r0 .. r0 + th, columns c0 .. c0 + tw
     for (int r = warp; r <= tl.th; r += kWarps) {
       const int yin = r0 + r;
       for (int e = lane; e < tl.hs; e += 32) {
         const int xin = c0 + e;
         const bool ok = yin < h && xin < w;
-        stage_position<T>(hs + r * tl.hs + e, ok ? xs + (size_t)yin * w + xin : x, x, ok, nc,
+        stage_position(hs + r * tl.hs + e, ok ? xs + (size_t)yin * w + xin : x, x, ok, nc,
                           plane, tl.cp);
       }
     }
@@ -450,7 +415,7 @@ deconv_tc_kernel(const T* __restrict__ x, int ci, int d, int h, int w,
     for (int dy = 0; dy < 2; ++dy) {
 #pragma unroll
       for (int dx = 0; dx < 2; ++dx) {
-        AFrag<T> a[1];
+        AFrag<float> a[1];
         a[0].load(hs + dy * tl.hs + dx, aoff[0], aoff[1], cp4);
         // the taps at this offset: kh 0 (dy 1) or 1, 2 (dy 0); kw alike
 #pragma unroll
@@ -458,7 +423,7 @@ deconv_tc_kernel(const T* __restrict__ x, int ci, int d, int h, int w,
 #pragma unroll
           for (int kw = dx ? 0 : 1; kw < (dx ? 1 : 3); ++kw) {
             const int tap = kh * 3 + kw, q = 2 * (kh != 1) + (kw != 1);
-            Frags<T> b[4];
+            Frags<float> b[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j) b[j].load_b(ws, (tap * kNT + nw * 4 + j) * 32 + lane);
             mma_tiles(part[q], a, b, 1);
@@ -526,20 +491,20 @@ size_t plan_tile(int positions, int ws, int ext, int planes, int oh, int ow, Til
   }
 }
 
-template <typename T, int CO, int S>
-cudaError_t launch(const T* x, int n, int ci, int d, int h, int w, const uint32_t* wpk,
-                   int wkd, const OutT<T>& o, cudaStream_t s) {
+template <int CO, int S>
+cudaError_t launch(const float* x, int n, int ci, int d, int h, int w, const uint32_t* wpk,
+                   int wkd, const Out& o, cudaStream_t s) {
   constexpr int kNT = CO / 8;
   Tile tl;
-  const size_t bytes = plan_tile(kWarps * (16 / kNT) * 16, 9 * kNT * 32 * Form<T>::kLaneWords,
+  const size_t bytes = plan_tile(kWarps * (16 / kNT) * 16, 9 * kNT * 32 * Form<float>::kLaneWords,
                                  S == 1 ? 2 : 1, S == 1 ? 1 : 4, o.h, o.w, tl);
   if (bytes == 0 || !conv::grid_fits(n, o.d, o.h, o.w, tl.th, tl.tw))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      conv_tc_kernel<T, CO, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      conv_tc_kernel<CO, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(((o.h + tl.th - 1) / tl.th) * tl.tiles_w, o.d, n);
-  conv_tc_kernel<T, CO, S><<<grid, kThreads, bytes, s>>>(x, ci, d, h, w, wpk, wkd, o, tl);
+  conv_tc_kernel<CO, S><<<grid, kThreads, bytes, s>>>(x, ci, d, h, w, wpk, wkd, o, tl);
   return cudaGetLastError();
 }
 
@@ -580,57 +545,34 @@ __global__ void pack_kernel(const float* __restrict__ w, int co, int ci, int wkd
   out[o] = __uint_as_float(e < 2 ? hi : lo);
 }
 
-// One word of the bf16 staged weights (pack_bf16_weight's layout, (ceil(Ci
-// / 16), wkd, 9, Co / 8, 32, 2)) per thread: lane l's word e holds input
-// channels 16 cc + 2 (l % 4) + 8 e and the next one, to output channel 8 j
-// + l / 4, each rounded to bf16 (nearest even), the lower channel in the
-// lower half (the B fragment of mma.m16n8k16).
-__global__ void pack_bf16_kernel(const float* __restrict__ w, int co, int ci, int wkd, int form,
-                                 uint32_t* __restrict__ out, int total) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= total) return;
-  const int e = o & 1, l = (o >> 1) & 31, nt = co / 8;
-  int r = o >> 6;
-  const int j = r % nt;
-  r /= nt;
-  const int tap = r % 9;
-  r /= 9;
-  const int kd = r % wkd, cc = r / wkd;
-  const int c = 16 * cc + 2 * (l & 3) + 8 * e, oc = 8 * j + (l >> 2);
-  const float lo = c < ci ? weight_at(w, co, ci, wkd, form, c, oc, kd, tap) : 0.f;
-  const float hi = c + 1 < ci ? weight_at(w, co, ci, wkd, form, c + 1, oc, kd, tap) : 0.f;
-  out[o] = bf16x2_rn(lo, hi);
-}
-
 // The launch of one conv: Co 32 or 64, stride 1 or 2, weights of wkd depth
 // taps (the packing's layout).
-template <typename T>
-cudaError_t run(const T* x, int n, int ci, int d, int h, int w, int stride, const uint32_t* wpk,
-                int wkd, const OutT<T>& o, cudaStream_t s) {
+cudaError_t run(const float* x, int n, int ci, int d, int h, int w, int stride,
+                const uint32_t* wpk, int wkd, const Out& o, cudaStream_t s) {
   if (o.co == 32)
-    return stride == 1 ? launch<T, 32, 1>(x, n, ci, d, h, w, wpk, wkd, o, s)
-                       : launch<T, 32, 2>(x, n, ci, d, h, w, wpk, wkd, o, s);
+    return stride == 1 ? launch<32, 1>(x, n, ci, d, h, w, wpk, wkd, o, s)
+                       : launch<32, 2>(x, n, ci, d, h, w, wpk, wkd, o, s);
   if (o.co == 64)
-    return stride == 1 ? launch<T, 64, 1>(x, n, ci, d, h, w, wpk, wkd, o, s)
-                       : launch<T, 64, 2>(x, n, ci, d, h, w, wpk, wkd, o, s);
+    return stride == 1 ? launch<64, 1>(x, n, ci, d, h, w, wpk, wkd, o, s)
+                       : launch<64, 2>(x, n, ci, d, h, w, wpk, wkd, o, s);
   return cudaErrorInvalidValue;
 }
 
 // The transposed conv's launch: a tile of the input grid, its halo one
 // plane of (th + 1) x (tw + 1), a block per (tile, output slice, n).
-template <typename T, int CO>
-cudaError_t launch_deconv(const T* x, int n, int ci, int d, int h, int w, const uint32_t* wpk,
-                          const OutT<T>& o, cudaStream_t s) {
+template <int CO>
+cudaError_t launch_deconv(const float* x, int n, int ci, int d, int h, int w, const uint32_t* wpk,
+                          const Out& o, cudaStream_t s) {
   constexpr int kNT = CO / 8;
   Tile tl;
   const size_t bytes =
-      plan_tile(16 * kWarps / (CO / 32), 9 * kNT * 32 * Form<T>::kLaneWords, 1, 1, h, w, tl);
+      plan_tile(16 * kWarps / (CO / 32), 9 * kNT * 32 * Form<float>::kLaneWords, 1, 1, h, w, tl);
   if (bytes == 0 || !conv::grid_fits(n, o.d, h, w, tl.th, tl.tw)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      deconv_tc_kernel<T, CO>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      deconv_tc_kernel<CO>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(((h + tl.th - 1) / tl.th) * tl.tiles_w, o.d, n);
-  deconv_tc_kernel<T, CO><<<grid, kThreads, bytes, s>>>(x, ci, d, h, w, wpk, o, tl);
+  deconv_tc_kernel<CO><<<grid, kThreads, bytes, s>>>(x, ci, d, h, w, wpk, o, tl);
   return cudaGetLastError();
 }
 
@@ -639,7 +581,6 @@ bool pack_args_ok(int co, int ci, int wkd, int form) {
          form <= kDeconv && (form == kConv || wkd == 3);
 }
 
-template <typename T>
 int conv3d_entry(const void* x, int n, int ci, int d, int h, int w, int stride, const void* wpk,
                  int co, const void* mul, const void* add, const void* res, int relu, void* out,
                  void* stream, int device) {
@@ -650,10 +591,10 @@ int conv3d_entry(const void* x, int n, int ci, int d, int h, int w, int stride, 
   if (ci < 1 || d < 1 || h < 1 || w < 1 || (stride != 1 && stride != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const int od = (d - 1) / stride + 1, oh = (h - 1) / stride + 1, ow = (w - 1) / stride + 1;
-  return static_cast<int>(run<T>(static_cast<const T*>(x), n, ci, d, h, w, stride,
-                                 static_cast<const uint32_t*>(wpk), 3,
-                                 conv::make_out<T>(out, mul, add, res, co, od, oh, ow, relu),
-                                 static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run(static_cast<const float*>(x), n, ci, d, h, w, stride,
+                              static_cast<const uint32_t*>(wpk), 3,
+                              conv::make_out(out, mul, add, res, co, od, oh, ow, relu),
+                              static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -679,22 +620,6 @@ int conv3d_tc_pack_cuda(const void* w, int co, int ci, int wkd, int form, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// conv3d_tc_bf16_cuda's staged weights (pack_bf16_weight's layout,
-// (ceil(Ci / 16), 3, 9, Co / 8, 32, 2) words of two bf16) from the float32
-// weight w, form 0 or 1 (as conv3d_tc_pack_cuda's, wkd 3), rounded to bf16
-// to nearest even.
-int conv3d_tc_pack_bf16_cuda(const void* w, int co, int ci, int wkd, int form, void* wpk,
-                             void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!pack_args_ok(co, ci, wkd, form) || wkd != 3 || form == kDeconv)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int total = (ci + 15) / 16 * wkd * 9 * co * 8;
-  pack_bf16_kernel<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(w), co, ci, wkd, form, static_cast<uint32_t*>(wpk), total);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // x (N, Ci, D, H, W); wpk the split, fragment-ordered weights of
 // conv3d_tc_pack_cuda (ops/cuda/conv3d.py::pack_tf32_weight's layout) for
 // the torch weight (Co, Ci, 3, 3, 3); mul, add (Co,); stride 1 or 2
@@ -706,19 +631,8 @@ int conv3d_tc_pack_bf16_cuda(const void* w, int co, int ci, int wkd, int form, v
 int conv3d_tc_cuda(const void* x, int n, int ci, int d, int h, int w, int stride,
                    const void* wpk, int co, const void* mul, const void* add, const void* res,
                    int relu, void* out, void* stream, int device) {
-  return conv3d_entry<float>(x, n, ci, d, h, w, stride, wpk, co, mul, add, res, relu, out,
-                             stream, device);
-}
-
-// conv3d_tc_cuda's bf16 form: x, res and out bf16, wpk from
-// conv3d_tc_pack_bf16_cuda, mul and add float32; the products on the
-// tensor cores in bf16 into float32 sums, the epilogue in float32, one
-// rounding to bf16 at the store.
-int conv3d_tc_bf16_cuda(const void* x, int n, int ci, int d, int h, int w, int stride,
-                        const void* wpk, int co, const void* mul, const void* add,
-                        const void* res, int relu, void* out, void* stream, int device) {
-  return conv3d_entry<bf16_t>(x, n, ci, d, h, w, stride, wpk, co, mul, add, res, relu, out,
-                              stream, device);
+  return conv3d_entry(x, n, ci, d, h, w, stride, wpk, co, mul, add, res, relu, out, stream,
+                      device);
 }
 
 // x (N, Ci, H, W) -> out (N, Co, H, W), the 3x3 stride-1 pad-1 2D conv;
@@ -730,10 +644,10 @@ int conv2d_tc_cuda(const void* x, int n, int ci, int h, int w, const void* wpk, 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (ci < 1 || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(run<float>(static_cast<const float*>(x), n, ci, 1, h, w, 1,
-                                     static_cast<const uint32_t*>(wpk), 1,
-                                     conv::make_out<float>(out, mul, add, res, co, 1, h, w, relu),
-                                     static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run(static_cast<const float*>(x), n, ci, 1, h, w, 1,
+                              static_cast<const uint32_t*>(wpk), 1,
+                              conv::make_out(out, mul, add, res, co, 1, h, w, relu),
+                              static_cast<cudaStream_t>(stream)));
 }
 
 // x (N, Ci, D, H, W) -> out (N, Co, 2D, 2H, 2W), the transposed conv of
@@ -751,8 +665,8 @@ int deconv3d_tc_cuda(const void* x, int n, int ci, int d, int h, int w, const vo
   const float* xt = static_cast<const float*>(x);
   const uint32_t* wt = static_cast<const uint32_t*>(wpk);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(co == 32 ? launch_deconv<float, 32>(xt, n, ci, d, h, w, wt, o, s)
-                                   : launch_deconv<float, 64>(xt, n, ci, d, h, w, wt, o, s));
+  return static_cast<int>(co == 32 ? launch_deconv<32>(xt, n, ci, d, h, w, wt, o, s)
+                                   : launch_deconv<64>(xt, n, ci, d, h, w, wt, o, s));
 }
 
 const char* conv3d_tc_error_string(int err) {

@@ -1,13 +1,24 @@
-// The bf16 forms of two PSMNet convolutions redesigned for Hopper (sm_90a):
-// the feature tower's 3x3 stride-1 2D conv and the hourglass's stride-2
+// The bf16 forms of the PSMNet convolutions with Co 32 or 64 redesigned for
+// Hopper (sm_90a): the feature tower's 3x3 stride-1 2D conv, the trunk's
+// 3x3x3 stride-1 and stride-2 convs, and the hourglass's stride-2
 // transposed 3x3x3 conv, each + folded BN + optional residual + optional
-// ReLU, NC(D)HW bf16 in and out.
+// ReLU, NC(D)HW bf16 in and out. One kernel body in three forms
+// (ConvForm): stride 1 (the 2D conv is the 3D one at depth 1), transposed,
+// stride 2.
 //
-// Replaces two TPU kernels of disprcnn_tpu/ops/pallas/packed_conv.py as the
+// Replaces four TPU kernels of disprcnn_tpu/ops/pallas/packed_conv.py as the
 // JAX package's bf16 model runs them (TPU.COMPUTE_DTYPE bfloat16):
 //   - _kernel_w (wpacked_conv_bn, :188): out[n, o, y, x] = epi(sum_{c, kh,
 //     kw} in(n, c, y + kh - 1, x + kw - 1) * wt[o, c, kh, kw]), zero
 //     outside the image (conv2d_bf16_wgmma_cuda);
+//   - _kernel (packed_conv_bn via _conv_call, :540/:652) and _kernel_s2
+//     (packed_conv_bn_s2, :288): out[n, o, z, y, x] = epi(sum_{c, kd, kh,
+//     kw} in(n, c, S z + kd - 1, S y + kh - 1, S x + kw - 1) * wt[o, c, kd,
+//     kh, kw]), stride S 1 or 2, zero outside the volume
+//     (conv3d_bf16_wgmma_cuda); through the first also packed_conv_train
+//     (:689), whose forward is that conv and whose input gradient is the
+//     stride-1 conv of the output gradient with the weights flipped in
+//     space and channel-transposed (packed by form kPackFlip);
 //   - _kernel_dc (packed_deconv_bn, :405): torch ConvTranspose3d(k 3,
 //     stride 2, padding 1, output_padding 1), (N, Ci, D, H, W) -> (N, Co, 2D,
 //     2H, 2W) (deconv3d_bf16_wgmma_cuda).
@@ -19,12 +30,16 @@
 // (9 Ci or 27 Ci terms); their adds truncate, within the 2^-22 a term that
 // ops/cuda/conv3d.py's bf16_agreement allows (F32_SUM_ERR).
 //
-// Bound on an H100 SXM: bytes. A tower launch at 112^2 (N 256, 32 -> 32)
-// moves 0.41 GB of bf16 input and output (+ 0.21 GB of residual) and does
-// 59 GFLOP: 0.12-0.19 ms of memory traffic against 0.06 ms at the dense
-// bf16 rate (989 TFLOP/s). The transposed conv at 28^2 -> 56^2 (N 128, 64
-// -> 32, D 12 -> 24) reads 0.15 GB and writes 0.62 GB (+ 0.62 GB of
-// residual), 0.41 ms, against 0.13 TFLOP, 0.14 ms.
+// Bound on an H100 SXM: bytes for the 2D, transposed and stride-2 convs,
+// operations for the stride-1 3D conv. A tower launch at 112^2 (N 256, 32
+// -> 32) moves 0.41 GB of bf16 input and output (+ 0.21 GB of residual)
+// and does 59 GFLOP: 0.12-0.19 ms of memory traffic against 0.06 ms at the
+// dense bf16 rate (989 TFLOP/s). The transposed conv at 28^2 -> 56^2 (N
+// 128, 64 -> 32, D 12 -> 24) reads 0.15 GB and writes 0.62 GB (+ 0.62 GB of
+// residual), 0.41 ms, against 0.13 TFLOP, 0.14 ms. The trunk's stride-1
+// conv at (24, 56^2) (N 128, 32 -> 32) does 0.53 TFLOP, 0.54 ms, against
+// 1.23 GB, 0.37 ms; the stride-2 conv (24, 56^2) -> (12, 28^2), 32 -> 64,
+// reads 0.62 GB and writes 0.15 GB, 0.23 ms, against 0.13 TFLOP.
 //
 // Design.
 // GEMM view: M = positions of a tile, N = Co (32 or 64), K = 16 input
@@ -44,7 +59,19 @@
 // M-tile's descriptor shifted by kh hs + kw slots, any whole number of
 // slots keeping the 16-byte alignment the descriptors need; the one junk
 // column a row is computed and not stored (0.9% extra work at 112, 1.8% at
-// 56). Laying the halo channels-innermost is the choice the position-
+// 56). The stride-2 conv lays a stage's input rows as their four (row
+// parity, column parity) planes, each of (TH + 1) rows of hs = OW + 1
+// slots (OW the output width): plane (rp, cp) holds input rows 2 y0 - 1 +
+// 2 i + rp and columns 2 j - 1 + cp, so tap (kh, kw) of output (r, c)
+// reads plane (kh == 1, kw == 1) at (r + (kh == 2), c + (kw == 2)): again
+// an offset of the M-tile's descriptor, and the left padding column is
+// slot 0 of the odd-column planes, never written. The relayout sends each
+// position to its plane: stmatrix takes one address a row, so 8 staged
+// positions split 4 + 4 over two planes at no cost. (TMA's element
+// strides could load one parity, but only along the flattened positions,
+// where a stride of 2 picks alternate columns only for an even W, and
+// each parity would be a box of its own.) Laying the halo
+// channels-innermost is the choice the position-
 // contiguous NCHW layout leaves: MN-major A wants 8 consecutive positions of
 // 8 channels as one 128-byte core matrix, so a one-position kw shift breaks
 // its alignment and would need a copy of the halo per column offset.
@@ -73,14 +100,29 @@
 // tiles, and the ring runs on across them, so the next tile's loads and
 // relayout overlap this tile's products and epilogue. Each stage brings its
 // own weight slab (9 taps x 16 channels x Co, 9 or 18 KB, L2-resident) by
-// one bulk copy into its ring slot: one mechanism for both convs, and at 64
+// one bulk copy into its ring slot: one mechanism for every form, and at 64
 // -> 64 two or three slabs in the ring take less shared memory than the 72
 // KB of resident weights, which the output tile needs.
 // Consumers: two warpgroups, with the producer's registers (setmaxnreg: 56
 // a producer thread, 224 a consumer's), 112 or 128 float32 accumulators a
-// thread. The 2D conv: M-tiles w, w + 2, ... of a tile of TH whole output
-// rows, 7 (Co 32) or 4 (Co 64) a warpgroup, so TH hs <= 896 or 512
-// positions. The transposed conv: a tile of TH whole input rows of one
+// thread. The stride-1 and stride-2 convs: M-tiles w, w + 2, ... of a tile
+// of TH whole output rows of one output slice, 7 (Co 32) or 4 (Co 64) a
+// warpgroup at stride 1 and 2 at stride 2 (mtiles), so TH hs <= 896, 512
+// or 256 positions; TH is balanced over the slice's row tiles, or made a
+// little larger where that lets TMA boxes of whole output rows store the
+// tile, or smaller where shared memory asks. A 3D tile's stages are (16-channel chunk, depth tap
+// kd) with input slice S z + kd - 1 inside the volume, 2 or 3 a chunk, all
+// 27 Ci / 16 k16 steps into the same accumulators. An input slice feeds
+// three output slices, and each of their tiles stages it anew: tiles are
+// numbered with the rows fastest, so the 132 persistent blocks work on
+// neighbouring slices at once and the restaged rows come from L2. Holding
+// K output slices as accumulator sets would stage a slice once for K, but
+// within the same 7 or 4 M-tiles a warpgroup each slice would get 1 / K of
+// the rows, and a tile's two extra halo rows would weigh more: staged rows
+// an output row fall from 3.4 (K = 1, 14 rows at 56^2) only to 2.7 (K = 2)
+// or 2.5 (K = 3). The producer sets the pace at every trunk site
+// (tools/profile_bf16_convs.py --study builds each side alone). The
+// transposed conv: a tile of TH whole input rows of one
 // input slice for one output slice (its depth parity fixes the depth taps:
 // kd 1 at slice m for an even output slice 2m, kd 2 at m and kd 0 at m + 1
 // for an odd one, a stage each); its 8 output parity classes are stride-1
@@ -106,7 +148,9 @@
 // TMA store per box writes the tile, each output row once and whole (the
 // transposed conv's two column classes side by side). Where the output's
 // tensor map is not legal (an output slice's positions not a multiple of
-// 8), the consumers store straight to device memory.
+// 8, e.g. the trunk's 14^2 slices, or no whole rows of a tile making a box
+// of a multiple of 8 positions), the consumers store straight to device
+// memory.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -116,6 +160,13 @@
 #include "tma.cuh"
 #include "wgmma.cuh"
 
+// A study build (tools/profile_bf16_convs.py --study) times one side of the
+// ring alone: 1, the consumers issue no products; 2, the producer lays out
+// nothing. Its output is not the conv. 0 (the default) is the kernel.
+#ifndef CONV_WGMMA_STUDY
+#define CONV_WGMMA_STUDY 0
+#endif
+
 namespace {
 
 constexpr int kThreads = 384;       // consumer warpgroups 0 and 1, producer warpgroup 2
@@ -124,20 +175,31 @@ constexpr int kMaxRing = 4;          // halo stages, staging slots, in flight at
 constexpr int kFixedBytes = 1024;    // barriers, mul and add
 constexpr int kBoxes[3] = {72, 136, 200};  // staging box lengths: = 8 (mod 64) positions
 
+// The forms of the body: the stride-1 conv (2D or 3D), the transposed
+// conv, the stride-2 3D conv.
+enum ConvForm { kStride1 = 0, kTransposed = 1, kStride2 = 2 };
+
 // M-tiles a consumer warpgroup holds (128 or 112 float32 accumulators a
-// thread): the 2D conv at Co 32 takes 7 so that two staging slots, two halo
-// stages and the output tile fit at 112^2.
-__host__ __device__ constexpr int mtiles(int co, bool dc) {
-  return dc ? (co == 32 ? 2 : 1) : (co == 32 ? 7 : 4);
+// thread): the stride-1 conv at Co 32 takes 7 so that two staging slots,
+// two halo stages and the output tile fit at 112^2. The stride-2 conv takes
+// 2 (256 output positions a tile): its staged rows and four-plane halo hold
+// four input positions an output position, and at 4 M-tiles its tile of
+// the trunk's 28^2 output would not fit in shared memory twice.
+__host__ __device__ constexpr int mtiles(int co, int form) {
+  return form == kTransposed ? (co == 32 ? 2 : 1)
+         : form == kStride2  ? 2
+                             : (co == 32 ? 7 : 4);
 }
 
 // A launch's geometry, the same for every block.
 struct Geo {
   int n, ci, d, h, w;  // the input (N, Ci, D, H, W); D = 1 for the 2D conv
-  int hs;              // halo row stride in slots: W + 1
+  int od, oh, ow;      // the output's depth, rows and columns
+  int wkd;             // depth taps of the packed weights: 3, or 1 (the 2D conv)
+  int hs;              // halo row stride in slots: W + 1, or OW + 1 (stride 2)
+  int ps;              // slots of one parity plane (stride 2): (th + 1) hs
   int th;              // rows of a tile (output rows, or input rows of the transposed conv)
-  int tiles_h;         // row tiles of a plane
-  int od;              // item planes a sample: 1, or the output depth 2D
+  int tiles_h;         // row tiles of a slice
   int items;           // tiles in all: N od tiles_h
   int nch;             // 16-channel chunks of Ci
   int slots;           // halo slots of one 8-channel half of a stage
@@ -146,7 +208,7 @@ struct Geo {
   int raw_bytes;       // one staging slot: boxes x 16 channels x bl
   int a_bytes;         // one halo (both channel halves), 1024-aligned
   int w_bytes;         // one stage's weights: 9 taps x Co x 16 channels
-  int t_len;           // output elements of a tile, a channel: th W, or 4 th W
+  int t_len;           // output elements of a tile, a channel: th OW, or 4 th W
   int bk, bt;          // output rows a box, and its length bk ow
   int o_bytes;         // one output tile: Co t_len bf16, 1024-aligned
   int off_raw, off_a, off_o;  // shared memory offsets (bytes)
@@ -167,46 +229,60 @@ struct Stage {
 // ceil(2^40 / d): exact there (the error n (m - 2^40 / d) / 2^40 < 2^-16
 // stays under 1 / d), and no division
 __device__ __forceinline__ int div_magic(int n, unsigned long long m) {
-  return static_cast<int>((static_cast<unsigned long long>(n) * m) >> 40);
+  return static_cast<int>((static_cast<unsigned long long>(static_cast<unsigned>(n)) * m) >> 40);
 }
 
-// A tile: sample n, output slice zo (the transposed conv; 0 for the 2D
-// conv), row tile t, and its stages (nkd depth taps a channel chunk).
+// A tile: sample n, output slice zo (0 for the 2D conv), row tile t, and
+// its stages: nkd depth taps a channel chunk, from kd0 (the 3D convs; the
+// transposed conv's are its slice parity's).
 struct Item {
-  int n, zo, t, nkd, nst;
+  int n, zo, t, kd0, nkd, nst;
 };
 
-template <bool DC>
+template <int FORM>
 __device__ __forceinline__ Item item_of(const Geo& g, int item) {
   Item it;
   const int q = div_magic(item, g.th_magic);  // item / tiles_h
   it.t = item - q * g.tiles_h;
-  it.n = DC ? div_magic(q, g.od_magic) : q;
-  it.zo = DC ? q - it.n * g.od : 0;
-  it.nkd = DC && (it.zo & 1) && (it.zo >> 1) + 1 < g.d ? 2 : 1;
+  it.n = div_magic(q, g.od_magic);
+  it.zo = q - it.n * g.od;
+  if (FORM == kTransposed) {
+    it.kd0 = 0;
+    it.nkd = (it.zo & 1) && (it.zo >> 1) + 1 < g.d ? 2 : 1;
+  } else {
+    // the depth taps whose input slice zc + kd - 1 lies in [0, D)
+    const int zc = FORM == kStride2 ? 2 * it.zo : it.zo;
+    it.kd0 = max(0, 1 - zc);
+    it.nkd = min(2, g.d - zc) - it.kd0 + 1;
+  }
   it.nst = g.nch * it.nkd;
   return it;
 }
 
 // stage k of a tile
-template <bool DC>
+template <int FORM>
 __device__ __forceinline__ Stage stage_of(const Geo& g, const Item& it, int k) {
   Stage st;
   st.n = it.n;
   st.y0 = it.t * g.th;
-  st.cc = it.nkd == 2 ? k >> 1 : k;
-  if (!DC) {
-    st.zi = 0;
-    st.wslab = k;
-    st.f0 = max(0, st.y0 - 1) * g.w;
-    st.f1 = min(g.h, st.y0 + g.th + 1) * g.w;
-  } else {
-    const int tz = it.nkd == 2 ? k & 1 : 0;
+  st.cc = it.nkd == 1 ? k : it.nkd == 2 ? k >> 1 : k / 3;
+  const int tz = k - st.cc * it.nkd;
+  if (FORM == kTransposed) {
     st.zi = (it.zo >> 1) + tz;
     st.wslab = st.cc * 3 + ((it.zo & 1) == 0 ? 1 : (tz == 0 ? 2 : 0));
     const int plane = st.zi * g.h * g.w;
     st.f0 = plane + st.y0 * g.w;
     st.f1 = plane + min(g.h, st.y0 + g.th + 1) * g.w;
+  } else {
+    const int kd = it.kd0 + tz;
+    st.zi = (FORM == kStride2 ? 2 * it.zo : it.zo) + kd - 1;
+    st.wslab = st.cc * g.wkd + (g.wkd == 3 ? kd : 0);
+    const int plane = st.zi * g.h * g.w;
+    // input rows y0 - 1 .. y0 + th, or 2 y0 - 1 .. 2 y0 + 2 th - 1 (stride 2)
+    const int r0 = FORM == kStride2 ? 2 * st.y0 - 1 : st.y0 - 1;
+    const int r1 = FORM == kStride2 ? 2 * (st.y0 + g.th) : st.y0 + g.th + 1;
+    st.f0 = plane + max(0, r0) * g.w;
+    st.f1 = plane + min(g.h, r1) * g.w;
   }
   st.fs = st.f0 & ~7;
   return st;
@@ -214,20 +290,20 @@ __device__ __forceinline__ Stage stage_of(const Geo& g, const Item& it, int k) {
 
 // The walk of a block over its tiles' stages: items blockIdx.x,
 // blockIdx.x + gridDim.x, ..., each its stages in order.
-template <bool DC>
+template <int FORM>
 struct Walk {
   int item, k;
   Item it;
   __device__ explicit Walk(const Geo& g) : item(blockIdx.x), k(0) {
-    if (item < g.items) it = item_of<DC>(g, item);
+    if (item < g.items) it = item_of<FORM>(g, item);
   }
   __device__ bool valid(const Geo& g) const { return item < g.items; }
-  __device__ Stage stage(const Geo& g) const { return stage_of<DC>(g, it, k); }
+  __device__ Stage stage(const Geo& g) const { return stage_of<FORM>(g, it, k); }
   __device__ void next(const Geo& g) {
     if (++k == it.nst) {
       item += gridDim.x;
       k = 0;
-      if (item < g.items) it = item_of<DC>(g, item);
+      if (item < g.items) it = item_of<FORM>(g, item);
     }
   }
 };
@@ -330,10 +406,10 @@ __device__ void fill_raw(const Geo& g, const Stage& st, const bf16_t* __restrict
 // The staged rows channels-innermost into the halo slot at shared address
 // `a`: each 8 x 8 matrix (8 channels x 8 staged positions) by ldmatrix,
 // written transposed by stmatrix, row by row, to the slots of its
-// positions (a slot past the halo for a position outside it); then the
-// halo rows outside the image zeroed. The halo's padding column is never
-// written and stays zero.
-template <bool DC>
+// positions (a slot past the halo for a position outside it; at stride 2
+// the slot of its parity plane); then the halo rows outside the image
+// zeroed. The halo's padding column is never written and stays zero.
+template <int FORM>
 __device__ void relayout(const Geo& g, const Stage& st, const bf16_t* raw, uint32_t a,
                          int ptid) {
   const int lane = ptid & 31, pw = ptid >> 5, row = lane & 7, q = lane >> 3;
@@ -343,40 +419,67 @@ __device__ void relayout(const Geo& g, const Stage& st, const bf16_t* raw, uint3
   const uint32_t raw_s = tma::smem_u32(raw);
   // matrix mi: the staged octet mi / 2 (in box b), channel half mi % 2; this
   // lane reads its row `row` and writes the transposed row to the slot of
-  // that row's position (a slot past the halo for a position outside it)
+  // that row's position (a slot past the halo for a position outside it, or
+  // for a matrix past the staged rows, which reads the slot's start). No
+  // branch, so that the compiler interleaves the groups' address chains:
+  // the loop's pace is their latency, one producer warp a scheduler.
   auto addresses = [&](int mi, uint32_t& src, uint32_t& dst) {
     const int o = mi >> 1, half = mi & 1;
-    int slot = g.slots - 1;
-    src = raw_s;
-    if (mi < total) {
-      const int b = div_magic(o, g.oct_magic);
-      src += 2 * ((b * 16 + half * 8 + row) * g.bl + 8 * (o - b * noct));
-      const int f = st.fs + 8 * o + row;
-      if (f >= st.f0 && f < st.f1) {
-        const int rel = f - plane;
-        const int y = div_magic(rel, g.w_magic), x = rel - y * g.w;
-        slot = DC ? (y - st.y0) * g.hs + x : (y - st.y0 + 1) * g.hs + x + 1;
+    const int b = div_magic(o, g.oct_magic);
+    const int f = st.fs + 8 * o + row;
+    const int rel = max(f - plane, 0);
+    const int y = div_magic(rel, g.w_magic), x = rel - y * g.w;
+    int slot;
+    if (FORM == kTransposed) {
+      slot = (y - st.y0) * g.hs + x;
+    } else if (FORM == kStride1) {
+      slot = (y - st.y0 + 1) * g.hs + x + 1;
+    } else {
+      // row 2 y0 - 1 + ry: plane (ry & 1, x even), its row ry / 2 and
+      // column (x + 1) / 2
+      const int ry = y - 2 * st.y0 + 1;
+      slot = (2 * (ry & 1) + (~x & 1)) * g.ps + (ry >> 1) * g.hs + ((x + 1) >> 1);
+    }
+    const bool staged = mi < total;
+    src = raw_s + (staged ? 2 * ((b * 16 + half * 8 + row) * g.bl + 8 * (o - b * noct)) : 0);
+    dst = a + (half * g.slots + (staged && f >= st.f0 && f < st.f1 ? slot : g.slots - 1)) * 16;
+  };
+  // x4 groups a warp and iteration: four, or two at stride 2, whose longer
+  // address chains ran slower at four
+  constexpr int kGroups = FORM == kStride2 ? 2 : 4;
+  __syncwarp();  // ldmatrix and stmatrix want the whole warp
+  for (int base = pw * 4; base < total; base += 16 * kGroups) {
+    uint32_t s[kGroups], d[kGroups], r[kGroups][4];
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) addresses(base + 16 * j + q, s[j], d[j]);
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) ldmatrix_x4(s[j], r[j]);
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) stmatrix_x4_trans(d[j], r[j]);
+  }
+  if (FORM == kStride2) {
+    // plane rows: input row 2 y0 - 1 + pr is row pr / 2 of planes 2 (pr &
+    // 1) and 2 (pr & 1) + 1; each zeroed whole (both halves) outside the image
+    for (int pr = 0; pr < 2 * g.th + 1; ++pr) {
+      const int y = 2 * st.y0 - 1 + pr;
+      if (y >= 0 && y < g.h) continue;
+      const int base = 2 * (pr & 1) * g.ps + (pr >> 1) * g.hs;
+      for (int i = ptid; i < 4 * g.hs; i += 128) {
+        const int half = i & 1, cp = (i >> 1) / g.hs, j = (i >> 1) - cp * g.hs;
+        const uint32_t p = a + (half * g.slots + base + cp * g.ps + j) * 16;
+        asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(p), "r"(0) : "memory");
       }
     }
-    dst = a + (half * g.slots + slot) * 16;
-  };
-  __syncwarp();  // ldmatrix and stmatrix want the whole warp
-  for (int base = pw * 4; base < total; base += 32) {  // two x4 a warp and iteration
-    uint32_t s0, d0, s1, d1, r0[4], r1[4];
-    addresses(base + q, s0, d0);
-    addresses(base + 16 + q, s1, d1);
-    ldmatrix_x4(s0, r0);
-    ldmatrix_x4(s1, r1);
-    stmatrix_x4_trans(d0, r0);
-    stmatrix_x4_trans(d1, r1);
+    return;
   }
-  const int hrows = DC ? g.th + 1 : g.th + 2;
+  const int hrows = FORM == kTransposed ? g.th + 1 : g.th + 2;
   for (int hr = 0; hr < hrows; ++hr) {
-    const int y = DC ? st.y0 + hr : st.y0 - 1 + hr;
+    const int y = FORM == kTransposed ? st.y0 + hr : st.y0 - 1 + hr;
     if (y >= 0 && y < g.h) continue;
     for (int i = ptid; i < 2 * g.w; i += 128) {
       const int half = i / g.w, x = i % g.w;
-      const uint32_t p = a + (half * g.slots + hr * g.hs + x + (DC ? 0 : 1)) * 16;
+      const uint32_t p =
+          a + (half * g.slots + hr * g.hs + x + (FORM == kTransposed ? 0 : 1)) * 16;
       asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(p), "r"(0) : "memory");
     }
   }
@@ -408,11 +511,12 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
 // x (N, Ci, D, H, W) bf16; wpk the packed weights (pack_wgmma_weight's
 // layout: (ceil(Ci / 16), wkd, 9 taps, Co / 8, 2, 8, 8) bf16, a stage's slab
 // contiguous); mul, add (Co,) float32; res of the output's shape or null;
-// out (N, Co, H, W), or (N, Co, 2D, 2H, 2W) for the transposed conv (DC).
-// xmap: x as (D H W, Ci, N) in boxes of bl x 16 x 1 (if g.tma); omap,
+// out (N, Co, OD, OH, OW) (the 2D conv: (N, Co, H, W); the transposed
+// conv: (N, Co, 2D, 2H, 2W)). xmap: x as (D H W, Ci, N) in boxes of bl x 16
+// x 1 (if g.tma); omap,
 // rmap: out and res as (P, OD, Co, N), P an output slice's positions, in
 // boxes of bt x 1 x Co x 1 (if g.tma_out).
-template <int CO, bool DC>
+template <int CO, int FORM>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ CUtensorMap omap,
@@ -420,7 +524,8 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                   const bf16_t* __restrict__ wpk, const float* __restrict__ mul,
                   const float* __restrict__ add, const bf16_t* __restrict__ res,
                   bf16_t* __restrict__ out, const Geo g) {
-  constexpr int MT = mtiles(CO, DC);
+  constexpr bool DC = FORM == kTransposed;
+  constexpr int MT = mtiles(CO, FORM);
   constexpr int kCls = DC ? 4 : 1;   // accumulator sets an M-tile: output parity classes
   constexpr int kAcc = CO / 2;       // accumulators of one m64nCO product a thread
   constexpr int kPx = DC ? 2 : 1;    // outputs a thread stores side by side (column parity)
@@ -464,9 +569,9 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     // the producer warpgroup: its registers go to the consumers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     const int ptid = threadIdx.x - 256;
-    Walk<DC> work(g);
+    Walk<FORM> work(g);
     if (g.tma && ptid == 0) {
-      Walk<DC> issue = work;
+      Walk<FORM> issue = work;
       for (int k = 0; k < g.rr && issue.valid(g); ++k, issue.next(g))
         issue_raw(g, issue.stage(g), &xmap, raw_ring + k * (g.raw_bytes / 2), &raw_full[k]);
     }
@@ -487,7 +592,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         tma::load(aslot + g.a_bytes, wpk + (size_t)st.wslab * (g.w_bytes / 2), g.w_bytes,
                   &a_full[slot]);
       }
-      relayout<DC>(g, st, raw, tma::smem_u32(aslot), ptid);
+      if (CONV_WGMMA_STUDY != 2) relayout<FORM>(g, st, raw, tma::smem_u32(aslot), ptid);
       // each warp fences its halo writes for the tensor cores and arrives;
       // the last warp done reading the staging slot refills it with stage
       // s + rr, so no warp waits for another
@@ -500,7 +605,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
           if (atomicSub(&raw_left[rslot], 1) == 1) {
             __threadfence_block();
             raw_left[rslot] = 4;
-            Walk<DC> ahead = work;
+            Walk<FORM> ahead = work;
             for (int i = 0; i < g.rr && ahead.valid(g); ++i) ahead.next(g);
             if (ahead.valid(g)) issue_raw(g, ahead.stage(g), &xmap, raw, &raw_full[rslot]);
           }
@@ -515,14 +620,13 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   const int cw = threadIdx.x >> 7;
   const int ctid = threadIdx.x & 127;
   const int wq = ctid >> 5, lane = ctid & 31, gq = lane >> 2, tq = lane & 3;
-  const int ow = DC ? 2 * g.w : g.w;     // output row length
-  const int oh = DC ? 2 * g.h : g.h;
+  const int ow = g.ow, oh = g.oh;
   float acc[MT][kCls][kAcc];
   int s = 0, it = 0;
   for (int item = blockIdx.x; item < g.items; item += gridDim.x, ++it) {
-    const Item itm = item_of<DC>(g, item);
+    const Item itm = item_of<FORM>(g, item);
     const int y0 = itm.t * g.th;
-    const int thv = min(g.th, g.h - y0);
+    const int thv = min(g.th, (DC ? g.h : oh) - y0);  // the tile's rows in the image
     const int n = itm.n, zo = itm.zo;
     const int o0 = (DC ? 2 * y0 : y0) * ow;  // the tile's first output position in its slice
     const int ob = it % g.no;                 // its output tile in shared memory
@@ -549,11 +653,15 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       for (int tap = 0; tap < 9; ++tap) {
         const int kh = tap / 3, kw = tap % 3;
         const int cls = DC ? 2 * (kh != 1) + (kw != 1) : 0;
-        const int off = DC ? (kh == 0) * g.hs + (kw == 0) : kh * g.hs + kw;
+        const int off = DC                  ? (kh == 0) * g.hs + (kw == 0)
+                        : FORM == kStride2 ? (2 * (kh == 1) + (kw == 1)) * g.ps +
+                                                 (kh == 2) * g.hs + (kw == 2)
+                                           : kh * g.hs + kw;
         const uint64_t dbt = db + (uint64_t)(tap * CO * 2);  // CO x 16 bf16 a tap, in 16-byte units
 #pragma unroll
         for (int i = 0; i < MT; ++i)
-          mma<CO>(acc[i][cls], da + (uint64_t)((cw + 2 * i) * 64 + off), dbt);
+          if (CONV_WGMMA_STUDY != 1)
+            mma<CO>(acc[i][cls], da + (uint64_t)((cw + 2 * i) * 64 + off), dbt);
       }
       wg::commit();
       if (k == 0 && threadIdx.x == 0 && g.tma_out) {
@@ -599,7 +707,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       for (int h = 0; h < 2; ++h) {
         const int p = (cw + 2 * i) * 64 + 16 * wq + gq + 8 * h;
         const int r = p / g.hs, c = p - r * g.hs;
-        if (c >= g.w || r >= thv) continue;
+        if (c >= (DC ? g.w : ow) || r >= thv) continue;
 #pragma unroll
         for (int py = 0; py < (DC ? 2 : 1); ++py) {
           const int orow = DC ? 2 * r + py : r;   // the output row in the tile
@@ -639,9 +747,9 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
               }
             }
           } else {
-            const size_t f0 = ((size_t)n * CO * (DC ? g.od : 1) + zo) * oh * (size_t)ow + o0 +
+            const size_t f0 = ((size_t)n * CO * g.od + zo) * oh * (size_t)ow + o0 +
                               (size_t)orow * ow + x0;
-            const size_t cs = (size_t)(DC ? g.od : 1) * oh * ow;  // channel stride
+            const size_t cs = (size_t)g.od * oh * ow;  // channel stride
 #pragma unroll
             for (int q = 0; q < CO / 4; ++q) {
               const int o = 8 * (q >> 1) + 2 * tq + (q & 1);
@@ -714,82 +822,115 @@ int output_box_rows(int rows, int ow) {
   return 0;
 }
 
-// The geometry of a launch: tiles, the staging boxes, which copies go by
-// TMA (tma: x's (D H W) a multiple of 8, Ci >= 16, x aligned; tma_out: an
-// output slice's positions and every tile's start a multiple of 8, whole
-// output rows a box, out and res aligned), and shared memory: two staging
-// slots, two halo stages and one output tile at least, then a second output
-// tile, a third staging slot and up to four halo stages as they fit. False
-// if no tile fits (a width past what the consumers' M-tiles hold).
-bool plan(int n, int ci, int d, int h, int w, int co, bool dc, const void* x, const void* res,
-          const void* out, Geo& g) {
-  const int mt = mtiles(co, dc);
+// The geometry of a launch of form `form` on x (N, Ci, D, H, W), weights of
+// wkd depth taps: tiles, the staging boxes, which copies go by TMA (tma:
+// x's (D H W) a multiple of 8, Ci >= 16, x aligned; tma_out: an output
+// slice's positions and every tile's start a multiple of 8, whole output
+// rows a box, out and res aligned), and shared memory: two staging slots,
+// two halo stages and one output tile at least, then a second output tile,
+// a third staging slot and up to four halo stages as they fit. A tile takes
+// as many whole rows as the M-tiles hold, balanced over the slice's row
+// tiles, and fewer where that does not fit in shared memory (the stride-2
+// halo's four planes take four times the M-tiles' positions). False if no
+// tile fits (a row past what the consumers' M-tiles hold, or shared memory).
+bool plan(int form, int n, int ci, int d, int h, int w, int co, int wkd, const void* x,
+          const void* res, const void* out, Geo& g) {
+  const int mt = mtiles(co, form);
+  const int span = 2 * mt * 64;  // positions a tile's M-tiles cover
   g = Geo{};
   g.n = n;
   g.ci = ci;
   g.d = d;
   g.h = h;
   g.w = w;
-  g.hs = w + 1;
-  g.th = min(h, 2 * mt * 64 / g.hs);
-  if (g.th < 1) return false;
-  g.tiles_h = (h + g.th - 1) / g.th;
-  g.od = dc ? 2 * d : 1;
-  const long long items = (long long)n * g.od * g.tiles_h;
-  if (items >= (1 << 24) || g.tiles_h >= (1 << 16) || g.od >= (1 << 16)) return false;
-  g.items = (int)items;
+  g.wkd = wkd;
+  const int s = form == kStride2 ? 2 : 1;
+  g.od = form == kTransposed ? 2 * d : (d - 1) / s + 1;
+  g.oh = form == kTransposed ? 2 * h : (h - 1) / s + 1;
+  g.ow = form == kTransposed ? 2 * w : (w - 1) / s + 1;
+  g.hs = form == kStride2 ? g.ow + 1 : w + 1;
   g.nch = (ci + 15) / 16;
-  g.slots = (2 * mt * 64 + (dc ? g.hs + 1 : 2 * g.hs + 2) + 8 + 7) & ~7;
-  if ((long long)h * w >= (1 << 24)) return false;  // div_magic's range
-  // staging boxes: the fewest bytes, a box counted as 16 rows of 128 more
-  const int lmax = (dc ? g.th + 1 : g.th + 2) * w + 16;
-  long long best_cost = 0;
-  for (int bl : kBoxes) {
-    const int boxes = (lmax + bl - 1) / bl;
-    const long long cost = (long long)boxes * (bl + 64);
-    if (g.bl == 0 || cost < best_cost) {
-      g.bl = bl;
-      best_cost = cost;
-    }
-  }
-  g.raw_bytes = (int)round1024(2LL * 16 * ((lmax + g.bl - 1) / g.bl * g.bl));
+  if ((long long)h * w >= (1 << 24) || g.od >= (1 << 16)) return false;  // div_magic's range
   g.w_magic = ((1ULL << 40) + w - 1) / w;
-  g.th_magic = ((1ULL << 40) + g.tiles_h - 1) / g.tiles_h;
   g.od_magic = ((1ULL << 40) + g.od - 1) / g.od;
-  g.oct_magic = ((1ULL << 40) + g.bl / 8 - 1) / (g.bl / 8);
-  g.a_bytes = (int)round1024(2LL * g.slots * 16);
   g.w_bytes = 9 * co * 32;
-  const int ow = dc ? 2 * w : w;
-  const long long slice = (long long)(dc ? 2 * h : h) * ow;  // an output slice's positions
-  g.t_len = (dc ? 2 * g.th : g.th) * ow;
-  g.bk = output_box_rows(dc ? 2 * g.th : g.th, ow);
-  g.bt = g.bk * ow;
   g.tma = (long long)d * h * w % 8 == 0 && ci >= 16 && aligned16(x);
-  g.tma_out = g.bk > 0 && slice % 8 == 0 && aligned16(out) && (res == nullptr || aligned16(res));
-  g.o_bytes = g.tma_out ? (int)round1024(2LL * co * g.t_len) : 0;
-  const long long per = (long long)g.a_bytes + g.w_bytes;
+  const long long slice = (long long)g.oh * g.ow;  // an output slice's positions
   auto fits = [&](int rr, int ring, int no) {
-    return kFixedBytes + (long long)rr * g.raw_bytes + ring * per + (long long)no * g.o_bytes <=
+    return kFixedBytes + (long long)rr * g.raw_bytes + ring * ((long long)g.a_bytes + g.w_bytes) +
+               (long long)no * g.o_bytes <=
            kMaxSmem;
   };
-  if (!fits(2, 2, 1)) return false;
-  g.no = g.tma_out && fits(2, 2, 2) ? 2 : 1;
-  g.rr = fits(3, 2, g.no) ? 3 : 2;
-  g.ring = 2;
-  while (g.ring < kMaxRing && fits(g.rr, g.ring + 1, g.no)) ++g.ring;
-  g.off_raw = kFixedBytes;
-  g.off_a = g.off_raw + g.rr * g.raw_bytes;
-  g.off_o = g.off_a + g.ring * (g.a_bytes + g.w_bytes);
-  return true;
+  // whole rows a tile (output rows; input rows of the transposed conv):
+  // the tile geometry of th rows in tiles_h tiles, false if it does not fit
+  const int rows = form == kTransposed ? h : g.oh;
+  auto orows = [&](int th) { return form == kTransposed ? 2 * th : th; };  // its output rows
+  auto try_rows = [&](int th, int tiles_h) {
+    g.th = th;
+    g.tiles_h = tiles_h;
+    g.th_magic = ((1ULL << 40) + tiles_h - 1) / tiles_h;
+    // the halo: the M-tiles' reads past their span (the largest tap
+    // offset), a junk slot for staged positions outside the halo
+    if (form == kStride2) {
+      g.ps = (th + 1) * g.hs;
+      g.slots = (max(4 * g.ps, 3 * g.ps + span) + 8 + 7) & ~7;
+    } else {
+      g.slots = (span + (form == kTransposed ? g.hs + 1 : 2 * g.hs + 2) + 8 + 7) & ~7;
+    }
+    g.a_bytes = (int)round1024(2LL * g.slots * 16);
+    // staging boxes: the fewest bytes, a box counted as 16 rows of 128 more
+    const int in_rows = form == kTransposed ? th + 1 : form == kStride2 ? 2 * th + 1 : th + 2;
+    const int lmax = in_rows * w + 16;
+    long long best_cost = 0;
+    g.bl = 0;
+    for (int bl : kBoxes) {
+      const int boxes = (lmax + bl - 1) / bl;
+      const long long cost = (long long)boxes * (bl + 64);
+      if (g.bl == 0 || cost < best_cost) {
+        g.bl = bl;
+        best_cost = cost;
+      }
+    }
+    g.raw_bytes = (int)round1024(2LL * 16 * ((lmax + g.bl - 1) / g.bl * g.bl));
+    g.oct_magic = ((1ULL << 40) + g.bl / 8 - 1) / (g.bl / 8);
+    g.t_len = orows(th) * g.ow;
+    g.bk = output_box_rows(orows(th), g.ow);
+    g.bt = g.bk * g.ow;
+    g.tma_out =
+        g.bk > 0 && slice % 8 == 0 && aligned16(out) && (res == nullptr || aligned16(res));
+    g.o_bytes = g.tma_out ? (int)round1024(2LL * co * g.t_len) : 0;
+    return fits(2, 2, 1);
+  };
+  for (int cap = min(rows, span / g.hs); cap >= 1; --cap) {
+    const int tiles_h = (rows + cap - 1) / cap;
+    const long long items = (long long)n * g.od * tiles_h;
+    if (items >= (1 << 24) || tiles_h >= (1 << 16)) return false;
+    g.items = (int)items;
+    // the rows balanced over the tiles, or, where those make no TMA box of
+    // output rows, the fewest more that do in as many tiles
+    const int th = (rows + tiles_h - 1) / tiles_h;
+    int thx = th;
+    for (int t = th; slice % 8 == 0 && t <= cap && thx == th; ++t)
+      if (output_box_rows(orows(t), g.ow) > 0) thx = t;
+    if (!(thx != th && try_rows(thx, tiles_h)) && !try_rows(th, tiles_h)) continue;
+    g.no = g.tma_out && fits(2, 2, 2) ? 2 : 1;
+    g.rr = fits(3, 2, g.no) ? 3 : 2;
+    g.ring = 2;
+    while (g.ring < kMaxRing && fits(g.rr, g.ring + 1, g.no)) ++g.ring;
+    g.off_raw = kFixedBytes;
+    g.off_a = g.off_raw + g.rr * g.raw_bytes;
+    g.off_o = g.off_a + g.ring * (g.a_bytes + g.w_bytes);
+    return true;
+  }
+  return false;
 }
 
 int smem_bytes(const Geo& g) { return g.off_o + g.no * g.o_bytes; }
 
 // out or res as the 4D tensor map (P, OD, Co, N) of bf16, P an output
 // slice's positions, boxes of bt x 1 x Co x 1
-bool output_map(EncodeTiled enc, CUtensorMap* map, const void* base, const Geo& g, int co,
-                bool dc) {
-  const cuuint64_t p = (cuuint64_t)g.h * g.w * (dc ? 4 : 1), od = dc ? 2 * g.d : 1;
+bool output_map(EncodeTiled enc, CUtensorMap* map, const void* base, const Geo& g, int co) {
+  const cuuint64_t p = (cuuint64_t)g.oh * g.ow, od = g.od;
   const cuuint64_t dims[4] = {p, od, (cuuint64_t)co, (cuuint64_t)g.n};
   const cuuint64_t strides[3] = {p * 2, od * p * 2, co * od * p * 2};
   const cuuint32_t box[4] = {(cuuint32_t)g.bt, 1, (cuuint32_t)co, 1};
@@ -800,12 +941,12 @@ bool output_map(EncodeTiled enc, CUtensorMap* map, const void* base, const Geo& 
          CUDA_SUCCESS;
 }
 
-template <int CO, bool DC>
-cudaError_t launch(const bf16_t* x, int n, int ci, int d, int h, int w, const bf16_t* wpk,
-                   const float* mul, const float* add, const bf16_t* res, int relu, bf16_t* out,
-                   cudaStream_t stream, int device) {
+template <int CO, int FORM>
+cudaError_t launch(const bf16_t* x, int n, int ci, int d, int h, int w, int wkd,
+                   const bf16_t* wpk, const float* mul, const float* add, const bf16_t* res,
+                   int relu, bf16_t* out, cudaStream_t stream, int device) {
   Geo g;
-  if (!plan(n, ci, d, h, w, CO, DC, x, res, out, g)) return cudaErrorInvalidValue;
+  if (!plan(FORM, n, ci, d, h, w, CO, wkd, x, res, out, g)) return cudaErrorInvalidValue;
   g.relu = relu;
   CUtensorMap xmap, omap, rmap;
   memset(&xmap, 0, sizeof(xmap));
@@ -826,24 +967,29 @@ cudaError_t launch(const bf16_t* x, int n, int ci, int d, int h, int w, const bf
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
         return cudaErrorInvalidValue;
     }
-    if (g.tma_out && (!output_map(enc, &omap, out, g, CO, DC) ||
-                      (res != nullptr && !output_map(enc, &rmap, res, g, CO, DC))))
+    if (g.tma_out && (!output_map(enc, &omap, out, g, CO) ||
+                      (res != nullptr && !output_map(enc, &rmap, res, g, CO))))
       return cudaErrorInvalidValue;
   }
   int sms = 0;
   cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   const int bytes = smem_bytes(g);
-  err = cudaFuncSetAttribute(conv_wgmma_kernel<CO, DC>,
+  err = cudaFuncSetAttribute(conv_wgmma_kernel<CO, FORM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int grid = g.items < sms ? g.items : sms;
-  conv_wgmma_kernel<CO, DC><<<grid, kThreads, bytes, stream>>>(xmap, omap, rmap, x, wpk, mul,
-                                                               add, res, out, g);
+  conv_wgmma_kernel<CO, FORM><<<grid, kThreads, bytes, stream>>>(xmap, omap, rmap, x, wpk, mul,
+                                                                 add, res, out, g);
   return cudaGetLastError();
 }
 
-enum PackForm { kConv2d = 0, kDeconv = 1 };
+// The weights' forms: the 2D conv's (Co, Ci, 3, 3); the transposed conv's
+// torch ConvTranspose3d weight (Ci, Co, 3, 3, 3), unflipped; the 3D conv's
+// (Co, Ci, 3, 3, 3); and, for the input gradient of a 3D conv with weight w
+// (Ci, Co, 3, 3, 3), w flipped in every spatial dim and channel-transposed
+// (ops/cuda/conv3d.py::flip_transpose).
+enum PackForm { kPack2d = 0, kPackDeconv = 1, kPack3d = 2, kPackFlip = 3 };
 
 // One bf16 of pack_wgmma_weight's layout, (ceil(Ci / 16), wkd, 9 taps, Co /
 // 8, 2, 8, 8), per thread: element (cc, kd, tap, j, half, r, k) is the
@@ -866,14 +1012,15 @@ __global__ void pack_kernel(const float* __restrict__ w, int co, int ci, int wkd
   const int c = 16 * cc + 8 * half + k, o = 8 * j + r;
   float v = 0.f;
   if (c < ci)
-    v = form == kDeconv ? w[(((size_t)c * co + o) * 3 + kd) * 9 + tap]
-                        : w[((size_t)o * ci + c) * 9 + tap];
+    v = form == kPackDeconv ? w[(((size_t)c * co + o) * 3 + kd) * 9 + tap]
+        : form == kPackFlip ? w[(((size_t)c * co + o) * 3 + 2 - kd) * 9 + 8 - tap]
+                            : w[(((size_t)o * ci + c) * wkd + kd) * 9 + tap];
   out[i] = bf16_rn(v);
 }
 
-cudaError_t run(int dc, const void* x, int n, int ci, int d, int h, int w, const void* wpk,
-                int co, const void* mul, const void* add, const void* res, int relu, void* out,
-                void* stream, int device) {
+cudaError_t run(int form, const void* x, int n, int ci, int d, int h, int w, int wkd,
+                const void* wpk, int co, const void* mul, const void* add, const void* res,
+                int relu, void* out, void* stream, int device) {
   if (n < 1 || ci < 1 || d < 1 || h < 1 || w < 1) return cudaErrorInvalidValue;
   const bf16_t* xt = static_cast<const bf16_t*>(x);
   const bf16_t* wt = static_cast<const bf16_t*>(wpk);
@@ -882,10 +1029,16 @@ cudaError_t run(int dc, const void* x, int n, int ci, int d, int h, int w, const
   const bf16_t* rt = static_cast<const bf16_t*>(res);
   bf16_t* ot = static_cast<bf16_t*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!dc && co == 32) return launch<32, false>(xt, n, ci, 1, h, w, wt, m, a, rt, relu, ot, s, device);
-  if (!dc && co == 64) return launch<64, false>(xt, n, ci, 1, h, w, wt, m, a, rt, relu, ot, s, device);
-  if (dc && co == 32) return launch<32, true>(xt, n, ci, d, h, w, wt, m, a, rt, relu, ot, s, device);
-  if (dc && co == 64) return launch<64, true>(xt, n, ci, d, h, w, wt, m, a, rt, relu, ot, s, device);
+#define CONV_WGMMA_LAUNCH(CO, FORM) \
+  if (co == CO && form == FORM)     \
+    return launch<CO, FORM>(xt, n, ci, d, h, w, wkd, wt, m, a, rt, relu, ot, s, device);
+  CONV_WGMMA_LAUNCH(32, kStride1)
+  CONV_WGMMA_LAUNCH(64, kStride1)
+  CONV_WGMMA_LAUNCH(32, kTransposed)
+  CONV_WGMMA_LAUNCH(64, kTransposed)
+  CONV_WGMMA_LAUNCH(32, kStride2)
+  CONV_WGMMA_LAUNCH(64, kStride2)
+#undef CONV_WGMMA_LAUNCH
   return cudaErrorInvalidValue;
 }
 
@@ -893,19 +1046,23 @@ cudaError_t run(int dc, const void* x, int n, int ci, int d, int h, int w, const
 
 extern "C" {
 
-// The packed weights of conv2d_bf16_wgmma_cuda (form 0: w (Co, Ci, 3, 3))
-// or deconv3d_bf16_wgmma_cuda (form 1: w (Ci, Co, 3, 3, 3)) into wpk (bf16,
-// ceil(Ci / 16) x wkd x 9 x Co x 16 values; ops/cuda/conv3d.py::
-// pack_wgmma_weight is the plain version). w float32, contiguous, on
-// `device`; Co is 32 or 64. Launches on `stream`, returns the cudaError_t
-// of the launch.
+// The packed weights of the convs below into wpk (bf16, ceil(Ci / 16) x wkd
+// x 9 x Co x 16 values; ops/cuda/conv3d.py::pack_wgmma_weight is the plain
+// version), Co and Ci the packed conv's: form 0, w (Co, Ci, 3, 3), wkd 1
+// (conv2d_bf16_wgmma_cuda); form 1, w (Ci, Co, 3, 3, 3)
+// (deconv3d_bf16_wgmma_cuda); form 2, w (Co, Ci, 3, 3, 3)
+// (conv3d_bf16_wgmma_cuda); form 3, w (Ci, Co, 3, 3, 3), the weights of the
+// conv whose input gradient this is, packed flipped and channel-transposed
+// (conv3d_bf16_wgmma_cuda at stride 1 on the output gradient). w float32,
+// contiguous, on `device`; Co is 32 or 64. Launches on `stream`, returns
+// the cudaError_t of the launch.
 int conv_bf16_wgmma_pack_cuda(const void* w, int co, int ci, int form, void* wpk, void* stream,
                               int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if ((co != 32 && co != 64) || ci < 1 || (form != kConv2d && form != kDeconv))
+  if ((co != 32 && co != 64) || ci < 1 || form < kPack2d || form > kPackFlip)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int wkd = form == kDeconv ? 3 : 1;
+  const int wkd = form == kPack2d ? 1 : 3;
   const int total = (ci + 15) / 16 * wkd * 9 * co * 16;
   pack_kernel<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(w), co, ci, wkd, form, static_cast<bf16_t*>(wpk), total);
@@ -923,7 +1080,21 @@ int conv2d_bf16_wgmma_cuda(const void* x, int n, int ci, int h, int w, const voi
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      run(0, x, n, ci, 1, h, w, wpk, co, mul, add, res, relu, out, stream, device));
+      run(kStride1, x, n, ci, 1, h, w, 1, wpk, co, mul, add, res, relu, out, stream, device));
+}
+
+// x (N, Ci, D, H, W) -> out (N, Co, D', H', W'), the 3x3x3 pad-1 conv at
+// stride 1 or 2 (D' = (D - 1) / stride + 1, the same for H and W); wpk from
+// conv_bf16_wgmma_pack_cuda (form 2, or form 3 for an input gradient).
+// Otherwise as conv2d_bf16_wgmma_cuda.
+int conv3d_bf16_wgmma_cuda(const void* x, int n, int ci, int d, int h, int w, int stride,
+                           const void* wpk, int co, const void* mul, const void* add,
+                           const void* res, int relu, void* out, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (stride != 1 && stride != 2) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run(stride == 2 ? kStride2 : kStride1, x, n, ci, d, h, w, 3, wpk, co,
+                              mul, add, res, relu, out, stream, device));
 }
 
 // x (N, Ci, D, H, W) -> out (N, Co, 2D, 2H, 2W), the transposed conv of
@@ -935,30 +1106,36 @@ int deconv3d_bf16_wgmma_cuda(const void* x, int n, int ci, int d, int h, int w, 
                              void* out, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      run(1, x, n, ci, d, h, w, wpk, co, mul, add, res, relu, out, stream, device));
+  return static_cast<int>(run(kTransposed, x, n, ci, d, h, w, 3, wpk, co, mul, add, res, relu,
+                              out, stream, device));
 }
 
-// The widest input row a form takes: every width up to it plans a tile at
-// every height (its M-tiles hold a halo row, and two staging slots, two
-// halo stages and the output tile fit in shared memory), on aligned tensors,
+// The widest input row a form (ConvForm: 0 stride 1, 2D or 3D; 1
+// transposed; 2 stride 2) takes: every width up to it plans a tile at every
+// height (its M-tiles hold a halo row, and two staging slots, two halo
+// stages and the output tile fit in shared memory), on aligned tensors,
 // whose output goes through the shared-memory tile where a box allows. A
-// tile's rows are min(H, cap), cap = (M-tile rows) / (W + 1): the heights
-// 1 .. cap, and 8 cap for a tile of cap rows whose output slice is a
-// multiple of 8 positions, are every case plan() tells apart. 0 for a Co
-// the kernel does not take.
-int conv_bf16_wgmma_max_width(int dc, int co) {
-  if (co != 32 && co != 64) return 0;
-  const bool d = dc != 0;
-  const int rows = 2 * mtiles(co, d) * 64;
+// tile's rows are at most cap = (M-tile rows) / hs, the row stride hs W + 1
+// (stride 2: its output width + 1), at most the rows to split, and fewer
+// where shared memory asks: the heights of 1 .. cap rows, and 8 cap rows,
+// whose output slice is a multiple of 8 positions, are every case plan()
+// tells apart. The depth does not enter plan()'s shared memory. 0 for a Co
+// or form the kernel does not take.
+int conv_bf16_wgmma_max_width(int form, int co) {
+  if ((co != 32 && co != 64) || form < kStride1 || form > kStride2) return 0;
+  const int span = 2 * mtiles(co, form) * 64;
   const void* p = reinterpret_cast<const void*>(1024);
   Geo g;
-  for (int w = 1; w < rows; ++w) {
-    const int cap = rows / (w + 1);
-    for (int h = 1; h <= cap + 1; ++h)
-      if (!plan(1, 16, 1, h <= cap ? h : 8 * cap, w, co, d, p, p, p, g)) return w - 1;
+  for (int w = 1;; ++w) {
+    const int cap = span / (form == kStride2 ? (w - 1) / 2 + 2 : w + 1);
+    if (cap < 1) return w - 1;
+    for (int r = 1; r <= cap + 1; ++r) {
+      const int rows = r <= cap ? r : 8 * cap;
+      if (!plan(form, 1, 16, 1, form == kStride2 ? 2 * rows : rows, w, co,
+                form == kStride1 ? 1 : 3, p, p, p, g))
+        return w - 1;
+    }
   }
-  return rows - 1;
 }
 
 const char* conv_bf16_wgmma_error_string(int err) {

@@ -47,16 +47,18 @@ residual) on the card launches the kernel's bf16 form: the weights rounded
 to bf16 by their packing, exact products into float32 sums, the BN
 affine, residual and ReLU in float32, and one rounding to bf16 (nearest
 even) at the store, as the JAX package's Pallas kernels do with bf16
-operands. ``conv3d_bn`` and ``cost_volume_conv_bn`` run one bf16
-``mma.sync`` a K step on csrc/conv3d_tc.cu's and cost_volume_tc.cu's
-bodies (``pack_bf16_weight``, ``pack_bf16_cost_volume_weight``: k16
-fragments of bf16 pairs); ``conv2d_bn`` and ``deconv3d_bn`` are
-csrc/conv_bf16_wgmma.cu, warpgroup products (``wgmma``) over a halo laid
-channels-innermost in shared memory, each tap an address offset, with
-TMA copies in and out (``pack_wgmma_weight``: each tap's 16 x Co block in
-wgmma's K-major core matrices); they take any Ci and raise on a Co
-other than 32 or 64 and on an input row wider than their tiles take
-(``conv_bf16_wgmma_max_width``). The classifier's Co = 1 form rounds its
+operands. ``cost_volume_conv_bn`` runs one bf16 ``mma.sync`` a K step
+on csrc/cost_volume_tc.cu's body (``pack_bf16_cost_volume_weight``: k16
+fragments of bf16 pairs); ``conv3d_bn`` at Co 32 and 64 (stride 1 and
+2), ``conv2d_bn`` and ``deconv3d_bn`` are csrc/conv_bf16_wgmma.cu, one
+kernel body in three forms (stride 1, transposed, stride 2): warpgroup
+products (``wgmma``) over a halo laid channels-innermost in shared memory
+(at stride 2 as its four parity planes, ``conv3d_s2_parity_plain``), each
+tap an address offset, with TMA copies in and out (``pack_wgmma_weight``:
+each tap's 16 x Co block in wgmma's K-major core matrices); they take any
+Ci and raise on a Co other than 32 or 64 and on an input row wider than
+their tiles take (``conv_bf16_wgmma_max_width``). The classifier's Co = 1
+form (csrc/conv3d.cu) rounds its
 conv to bf16 before the residual (the previous classifier's cost) joins
 and rounds the sum again, as JAX's separate bf16 add does. On the CPU a
 bf16 input takes the bf16 twin (``*_bf16_plain``): the float32 plain
@@ -79,7 +81,8 @@ points are ``conv3d_train_cuda`` and ``conv3d_train_dx_cuda``. On a bf16 x
 a bf16 kernel) both launch the bf16 form: the forward rounds the conv to
 bf16 once, the output gradient arrives bf16 (JAX's ``_pct_bwd`` casts the
 cotangent to the conv's dtype) and the input gradient is the bf16 conv of
-it with the flipped weights rounded to bf16, rounded once; the weight
+it with the flipped weights rounded to bf16 (``pack_wgmma_weight``'s
+"flip" form), rounded once; the weight
 gradient is PyTorch's on the bf16 tensors (XLA's transpose in JAX),
 rounded to bf16 and widened to the float32 parameter. Its plain versions
 are ``conv3d_train_bf16_plain`` (differentiable) and
@@ -135,10 +138,8 @@ def _tc_lib() -> ctypes.CDLL:
         lib.conv2d_tc_cuda.argtypes = [p, i, i, i, i, p, i, p, p, p, i, p, p, i]
         lib.deconv3d_tc_cuda.argtypes = [p, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
         lib.conv3d_tc_pack_cuda.argtypes = [p, i, i, i, i, p, p, i]
-        lib.conv3d_tc_bf16_cuda.argtypes = lib.conv3d_tc_cuda.argtypes
-        lib.conv3d_tc_pack_bf16_cuda.argtypes = lib.conv3d_tc_pack_cuda.argtypes
         for fn in (lib.conv3d_tc_cuda, lib.conv2d_tc_cuda, lib.deconv3d_tc_cuda,
-                   lib.conv3d_tc_pack_cuda, lib.conv3d_tc_bf16_cuda, lib.conv3d_tc_pack_bf16_cuda):
+                   lib.conv3d_tc_pack_cuda):
             fn.restype = i
         lib.conv3d_tc_error_string.argtypes = [i]
         lib.conv3d_tc_error_string.restype = ctypes.c_char_p
@@ -150,11 +151,13 @@ def _wg_lib() -> ctypes.CDLL:
     if lib.conv2d_bf16_wgmma_cuda.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.conv2d_bf16_wgmma_cuda.argtypes = [p, i, i, i, i, p, i, p, p, p, i, p, p, i]
+        lib.conv3d_bf16_wgmma_cuda.argtypes = [p, i, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
         lib.deconv3d_bf16_wgmma_cuda.argtypes = [p, i, i, i, i, i, p, i, p, p, p, i, p, p, i]
         lib.conv_bf16_wgmma_pack_cuda.argtypes = [p, i, i, i, p, p, i]
         lib.conv_bf16_wgmma_max_width.argtypes = [i, i]
-        for fn in (lib.conv2d_bf16_wgmma_cuda, lib.deconv3d_bf16_wgmma_cuda,
-                   lib.conv_bf16_wgmma_pack_cuda, lib.conv_bf16_wgmma_max_width):
+        for fn in (lib.conv2d_bf16_wgmma_cuda, lib.conv3d_bf16_wgmma_cuda,
+                   lib.deconv3d_bf16_wgmma_cuda, lib.conv_bf16_wgmma_pack_cuda,
+                   lib.conv_bf16_wgmma_max_width):
             fn.restype = i
         lib.conv_bf16_wgmma_error_string.argtypes = [i]
         lib.conv_bf16_wgmma_error_string.restype = ctypes.c_char_p
@@ -249,19 +252,10 @@ def pack_tf32_weight_cuda(weight: torch.Tensor, flip: bool = False) -> torch.Ten
     pack_tf32_weight(flip_transpose(weight)), in one launch of
     csrc/conv3d_tc.cu's packing on the current stream (weight float32,
     contiguous, on the card)."""
-    return _pack_conv(weight, flip, torch.float32)
+    return _pack_conv(weight, flip)
 
 
-def pack_bf16_weight_cuda(weight: torch.Tensor) -> torch.Tensor:
-    """pack_bf16_weight(weight) in one launch of csrc/conv3d_tc.cu's bf16
-    packing on the current stream (weight (Co, Ci, 3, 3, 3) float32,
-    contiguous, on the card)."""
-    if weight.dim() != 5:
-        raise ValueError(f"need a (Co, Ci, 3, 3, 3) weight, got {tuple(weight.shape)}")
-    return _pack_conv(weight, False, BF16)
-
-
-def _pack_conv(weight, flip, dtype):
+def _pack_conv(weight, flip):
     co, ci = weight.shape[:2]
     if flip:
         co, ci = ci, co
@@ -272,7 +266,7 @@ def _pack_conv(weight, flip, dtype):
     _check_float32_cuda("weight", weight,
                         (ci, co, 3, 3, 3) if flip else (co, ci) + (3,) * (weight.dim() - 2),
                         weight.device)
-    out = _pack_launch(weight, co, ci, wkd, _PACK_FLIP if flip else _PACK_CONV, dtype)
+    out = _pack_launch(weight, co, ci, wkd, _PACK_FLIP if flip else _PACK_CONV)
     return out[:, 0] if wkd == 1 else out
 
 
@@ -288,24 +282,17 @@ def _pack_deconv(weight):
         raise ValueError(f"need a (Ci, Co, 3, 3, 3) weight, got {tuple(weight.shape)}")
     ci, co = weight.shape[:2]
     _check_float32_cuda("weight", weight, (ci, co, 3, 3, 3), weight.device)
-    return _pack_launch(weight, co, ci, 3, _PACK_DECONV, torch.float32)
+    return _pack_launch(weight, co, ci, 3, _PACK_DECONV)
 
 
-def _pack_launch(weight, co, ci, wkd, form, dtype):
-    """One launch of csrc/conv3d_tc.cu's packing for the float32 form
-    ((ceil(Ci / 8), wkd, 9, Co / 8, 32, 4) float32) or the bf16 form
-    ((ceil(Ci / 16), wkd, 9, Co / 8, 32, 2) int32 words)."""
+def _pack_launch(weight, co, ci, wkd, form):
+    """One launch of csrc/conv3d_tc.cu's packing: (ceil(Ci / 8), wkd, 9,
+    Co / 8, 32, 4) float32."""
     lib = _tc_lib()
-    if dtype == BF16:
-        out = torch.empty((-(-ci // 16), wkd, 9, co // 8, 32, 2), dtype=torch.int32,
-                          device=weight.device)
-        fn, name = lib.conv3d_tc_pack_bf16_cuda, "conv3d_tc_pack_bf16_cuda"
-    else:
-        out = torch.empty((-(-ci // 8), wkd, 9, co // 8, 32, 4), device=weight.device)
-        fn, name = lib.conv3d_tc_pack_cuda, "conv3d_tc_pack_cuda"
-    err = fn(weight.data_ptr(), co, ci, wkd, form, out.data_ptr(), _stream(weight),
-             weight.device.index)
-    _raise_on(lib.conv3d_tc_error_string, err, name)
+    out = torch.empty((-(-ci // 8), wkd, 9, co // 8, 32, 4), device=weight.device)
+    err = lib.conv3d_tc_pack_cuda(weight.data_ptr(), co, ci, wkd, form, out.data_ptr(),
+                                  _stream(weight), weight.device.index)
+    _raise_on(lib.conv3d_tc_error_string, err, "conv3d_tc_pack_cuda")
     return out
 
 
@@ -525,6 +512,33 @@ def deconv3d_bn_parity_plain(x: torch.Tensor, weight: torch.Tensor, mul: torch.T
     return _epilogue(y, mul, add, residual, relu)
 
 
+def conv3d_s2_parity_plain(x: torch.Tensor, weight: torch.Tensor,
+                           mul: Optional[torch.Tensor] = None, add: Optional[torch.Tensor] = None,
+                           residual: Optional[torch.Tensor] = None,
+                           relu: bool = False) -> torch.Tensor:
+    """conv3d_bn_plain at stride 2 as the bf16 kernel indexes it: the input,
+    padded by one before each axis and up to 2 O + 1 after it (O the
+    output's size), split into its four (row parity, column parity) planes,
+    plane (rp, cp) holding input rows 2 i - 1 + rp and columns 2 j - 1 + cp;
+    tap (kd, kh, kw) of output (z, y, x) is plane (kh == 1, kw == 1) at
+    depth slice 2 z - 1 + kd, row y + (kh == 2), column x + (kw == 2), its
+    27 products summed tap by tap, then the epilogue."""
+    od, oh, ow = ((s - 1) // 2 + 1 for s in x.shape[2:])
+    d, h, w = x.shape[2:]
+    xp = F.pad(x, (1, 2 * ow - w, 1, 2 * oh - h, 1, 2 * od - d))
+    planes = {(rp, cp): xp[:, :, :, rp::2, cp::2] for rp in (0, 1) for cp in (0, 1)}
+    y = None
+    for kd in range(3):
+        for kh in range(3):
+            for kw in range(3):
+                a, b = int(kh == 2), int(kw == 2)
+                plane = planes[int(kh == 1), int(kw == 1)]
+                tap = plane[:, :, kd:kd + 2 * od - 1:2, a:a + oh, b:b + ow]
+                t = torch.einsum("ncdhw,oc->nodhw", tap, weight[:, :, kd, kh, kw])
+                y = t if y is None else y + t
+    return _epilogue(y, mul, add, residual, relu)
+
+
 def deconv3d_bn_3xtf32_plain(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,
                              add: torch.Tensor, residual: Optional[torch.Tensor] = None,
                              relu: bool = False) -> torch.Tensor:
@@ -664,33 +678,32 @@ def _bf16_words(t: torch.Tensor) -> torch.Tensor:
     return t.to(BF16).contiguous().view(torch.int32)[..., 0]
 
 
-def pack_bf16_weight(weight: torch.Tensor) -> torch.Tensor:
-    """(Co, Ci, 3, 3, 3) -> csrc/conv3d_tc.cu's bf16 staged weights, int32
-    words of two bf16: (ceil(Ci / 16), 3 kd, 9 taps (kh, kw), Co / 8, 32
-    lanes, 2), Ci padded with zeros to a multiple of 16. Lane l of N-tile j
-    in chunk cc holds in word e the weights from input channels 16 cc + 8 e
-    + 2 (l % 4) and the next one (lower half) to output channel 8 j + l //
-    4, rounded to bf16: the B fragment of mma.m16n8k16 (b0, b1). The plain
-    version of the kernel's own packing, pack_bf16_weight_cuda."""
-    co, ci = weight.shape[:2]
-    ci16 = -(-ci // 16)
-    w = F.pad(weight, (0, 0, 0, 0, 0, 0, 0, 16 * ci16 - ci))
-    # (j, l // 4, cc, e, l % 4, pair, kd, tap) -> (cc, kd, tap, j, l, e, pair)
-    w = w.reshape(co // 8, 8, ci16, 2, 4, 2, 3, 9).permute(2, 6, 7, 0, 1, 4, 3, 5)
-    return _bf16_words(w.reshape(ci16, 3, 9, co // 8, 32, 2, 2)).contiguous()
+# pack_wgmma_weight's forms: the conv weight (2D or 3D), the
+# ConvTranspose3d weight, and a 3D conv weight for its input gradient
+# (csrc/conv_bf16_wgmma.cu's PackForm, the 2D and 3D conv weights by dim)
+WGMMA_PACK_FORMS = ("conv", "deconv", "flip")
 
 
-def pack_wgmma_weight(weight: torch.Tensor) -> torch.Tensor:
-    """The bf16 forms of rows 5 and 7 (csrc/conv_bf16_wgmma.cu): the 2D conv
-    weight (Co, Ci, 3, 3), or the ConvTranspose3d weight (Ci, Co, 3, 3, 3)
-    unflipped, -> bf16 (ceil(Ci / 16), wkd, 9 taps (kh, kw), Co / 8, 2, 8,
-    8), wkd 1 or 3 depth taps: element (cc, kd, tap, j, half, r, k) is the
-    weight from input channel 16 cc + 8 half + k to output channel 8 j + r,
-    rounded to bf16 (nearest even), zero past Ci. A tap's (16 channels x Co)
-    block is wgmma's B operand in K-major core matrices (8 output channels x
-    8 input channels); a stage's 9 taps are one contiguous slab. The plain
-    version of pack_wgmma_weight_cuda."""
-    w5 = weight[:, :, None] if weight.dim() == 4 else weight.transpose(0, 1)
+def pack_wgmma_weight(weight: torch.Tensor, form: str) -> torch.Tensor:
+    """The bf16 forms of rows 3 and 5-8 (csrc/conv_bf16_wgmma.cu): with
+    `form` "conv" the conv weight (Co, Ci, 3, 3) or (Co, Ci, 3, 3, 3), with
+    "deconv" the ConvTranspose3d weight (Ci, Co, 3, 3, 3) unflipped, with
+    "flip" flip_transpose(weight) of a conv weight (the input gradient's
+    conv, Co and Ci swapped), -> bf16 (ceil(Ci / 16), wkd, 9 taps (kh, kw),
+    Co / 8, 2, 8, 8), wkd 1 (the 2D weight) or 3 depth taps: element (cc,
+    kd, tap, j, half, r, k) is the weight from input channel 16 cc + 8 half
+    + k to output channel 8 j + r, rounded to bf16 (nearest even), zero past
+    Ci. A tap's (16 channels x Co) block is wgmma's B operand in K-major
+    core matrices (8 output channels x 8 input channels); a stage's 9 taps
+    are one contiguous slab. The plain version of pack_wgmma_weight_cuda."""
+    if form not in WGMMA_PACK_FORMS:
+        raise ValueError(f"form must be one of {WGMMA_PACK_FORMS}, got {form!r}")
+    if form == "deconv":
+        w5 = weight.transpose(0, 1)
+    elif form == "flip":
+        w5 = flip_transpose(weight)
+    else:
+        w5 = weight[:, :, None] if weight.dim() == 4 else weight
     co, ci, kd = w5.shape[:3]
     ci16 = -(-ci // 16)
     w = F.pad(w5, (0, 0, 0, 0, 0, 0, 0, 16 * ci16 - ci))
@@ -699,22 +712,24 @@ def pack_wgmma_weight(weight: torch.Tensor) -> torch.Tensor:
     return w.to(BF16).contiguous()
 
 
-def pack_wgmma_weight_cuda(weight: torch.Tensor) -> torch.Tensor:
-    """pack_wgmma_weight(weight) in one launch of csrc/conv_bf16_wgmma.cu's
-    packing on the current stream (weight float32, contiguous, on the
-    card)."""
-    if weight.dim() not in (4, 5):
-        raise ValueError(f"need a (Co, Ci, 3, 3) or (Ci, Co, 3, 3, 3) weight, got "
+def pack_wgmma_weight_cuda(weight: torch.Tensor, form: str) -> torch.Tensor:
+    """pack_wgmma_weight(weight, form) in one launch of
+    csrc/conv_bf16_wgmma.cu's packing on the current stream (weight
+    float32, contiguous, on the card)."""
+    if form not in WGMMA_PACK_FORMS:
+        raise ValueError(f"form must be one of {WGMMA_PACK_FORMS}, got {form!r}")
+    if weight.dim() != 5 and (form != "conv" or weight.dim() != 4):
+        raise ValueError(f"need a (Co, Ci, 3, 3) or 3x3x3 weight for form {form!r}, got "
                          f"{tuple(weight.shape)}")
-    deconv = weight.dim() == 5
-    ci, co = weight.shape[:2] if deconv else weight.shape[1::-1]
     _check_float32_cuda("weight", weight, tuple(weight.shape), weight.device)
+    co, ci = weight.shape[:2] if form == "conv" else weight.shape[1::-1]
     if co not in CHANNELS:
         raise ValueError(f"the packing takes Co in {CHANNELS}, got {co}")
-    out = torch.empty((-(-ci // 16), 3 if deconv else 1, 9, co // 8, 2, 8, 8), dtype=BF16,
-                      device=weight.device)
+    code = {"conv": 0 if weight.dim() == 4 else 2, "deconv": 1, "flip": 3}[form]
+    out = torch.empty((-(-ci // 16), 1 if weight.dim() == 4 else 3, 9, co // 8, 2, 8, 8),
+                      dtype=BF16, device=weight.device)
     lib = _wg_lib()
-    err = lib.conv_bf16_wgmma_pack_cuda(weight.data_ptr(), co, ci, int(deconv), out.data_ptr(),
+    err = lib.conv_bf16_wgmma_pack_cuda(weight.data_ptr(), co, ci, code, out.data_ptr(),
                                         _stream(weight), weight.device.index)
     _raise_on(lib.conv_bf16_wgmma_error_string, err, "conv_bf16_wgmma_pack_cuda")
     return out
@@ -803,9 +818,10 @@ def conv3d_bn_bf16_cuda(x: torch.Tensor, weight: torch.Tensor,
                         mul: Optional[torch.Tensor] = None, add: Optional[torch.Tensor] = None,
                         residual: Optional[torch.Tensor] = None, relu: bool = False,
                         stride: int = 1) -> torch.Tensor:
-    """Launch the bf16 form of csrc/conv3d_tc.cu (Co 32, 64) or
-    csrc/conv3d.cu (Co 1) on the current stream: x and residual bf16, the
-    weight, mul and add float32; same contract as conv3d_bn_bf16_plain."""
+    """Launch csrc/conv_bf16_wgmma.cu's 3D conv (Co 32, 64; its weight
+    packing, then the conv) or csrc/conv3d.cu's bf16 form (Co 1) on the
+    current stream: x and residual bf16, the weight, mul and add float32;
+    same contract as conv3d_bn_bf16_plain."""
     build.forward_only("conv3d_bn_bf16_cuda", x, weight, mul, add, residual)
     return _conv3d_counted(x, weight, mul, add, residual, relu, stride, BF16)
 
@@ -844,12 +860,19 @@ def _conv3d_launch(x, weight, mul=None, add=None, residual=None, relu=False, str
             int(relu), out.data_ptr(), _stream(x), x.device.index)
         _raise_on(lib.conv3d_error_string, err, f"conv3d_bn{sfx}_cuda")
         return out
-    lib = _tc_lib()
-    wt = _pack_conv(weight, flip, dtype)
-    err = getattr(lib, f"conv3d_tc{sfx}_cuda")(
+    if dtype == BF16:
+        lib, name = _wg_lib(), "conv3d_bf16_wgmma_cuda"
+        _check_width(FORM_STRIDE2 if stride == 2 else FORM_STRIDE1, co, w)
+        wt = pack_wgmma_weight_cuda(weight, "flip" if flip else "conv")
+        err_string = lib.conv_bf16_wgmma_error_string
+    else:
+        lib, name = _tc_lib(), "conv3d_tc_cuda"
+        wt = _pack_conv(weight, flip)
+        err_string = lib.conv3d_tc_error_string
+    err = getattr(lib, name)(
         x.data_ptr(), n, ci, d, h, w, stride, wt.data_ptr(), co, mul.data_ptr(), add.data_ptr(),
         res, int(relu), out.data_ptr(), _stream(x), x.device.index)
-    _raise_on(lib.conv3d_tc_error_string, err, f"conv3d_tc{sfx}_cuda")
+    _raise_on(err_string, err, name)
     return out
 
 
@@ -929,8 +952,8 @@ def _deconv3d_launch(x, weight, mul, add, residual, relu, dtype):
     out = torch.empty(out_shape, dtype=dtype, device=x.device)
     if dtype == BF16:
         lib, name = _wg_lib(), "deconv3d_bf16_wgmma_cuda"
-        _check_width(1, co, w)
-        wt = pack_wgmma_weight_cuda(weight)
+        _check_width(FORM_TRANSPOSED, co, w)
+        wt = pack_wgmma_weight_cuda(weight, "deconv")
         err = lib.deconv3d_bf16_wgmma_cuda(x.data_ptr(), n, ci, d, h, w, wt.data_ptr(), co,
                                            mul.data_ptr(), add.data_ptr(), res, int(relu),
                                            out.data_ptr(), _stream(x), x.device.index)
@@ -946,22 +969,30 @@ def _deconv3d_launch(x, weight, mul, add, residual, relu, dtype):
     return out
 
 
+# csrc/conv_bf16_wgmma.cu's forms (its ConvForm): the stride-1 conv (2D or
+# 3D), the transposed conv, the stride-2 conv
+FORM_STRIDE1, FORM_TRANSPOSED, FORM_STRIDE2 = 0, 1, 2
+_FORM_NAMES = {FORM_STRIDE1: "stride-1 conv", FORM_TRANSPOSED: "transposed conv",
+               FORM_STRIDE2: "stride-2 conv"}
+
+
 @functools.cache
-def _widest(deconv: int, co: int) -> int:
-    return _wg_lib().conv_bf16_wgmma_max_width(deconv, co)
+def _widest(form: int, co: int) -> int:
+    return _wg_lib().conv_bf16_wgmma_max_width(form, co)
 
 
-def _check_width(deconv: int, co: int, w: int) -> None:
-    """Raise on a Co or an input width the bf16 form of row 5 or 7 does not
-    take: every width up to the library's conv_bf16_wgmma_max_width plans a
-    tile at every height (its M-tiles hold a halo row of W + 1 positions, and
-    its staging, halos and output tile fit in shared memory)."""
-    form = "transposed conv" if deconv else "2D conv"
+def _check_width(form: int, co: int, w: int) -> None:
+    """Raise on a Co or an input width a form of csrc/conv_bf16_wgmma.cu
+    does not take: every width up to the library's conv_bf16_wgmma_max_width
+    plans a tile at every height (its M-tiles hold a halo row of W + 1
+    positions, at stride 2 of the output's width + 1, and its staging, halos
+    and output tile fit in shared memory)."""
+    name = _FORM_NAMES[form]
     if co not in CHANNELS:
-        raise ValueError(f"the bf16 {form} takes Co in {CHANNELS}, got {co}")
-    widest = _widest(deconv, co)
+        raise ValueError(f"the bf16 {name} takes Co in {CHANNELS}, got {co}")
+    widest = _widest(form, co)
     if w > widest:
-        raise ValueError(f"the bf16 {form} at Co {co} takes inputs up to {widest} wide, got "
+        raise ValueError(f"the bf16 {name} at Co {co} takes inputs up to {widest} wide, got "
                          f"W = {w}")
 
 
@@ -992,15 +1023,15 @@ def _conv2d_launch(x, weight, mul, add, residual, relu, dtype):
     out = torch.empty((n, co, h, w), dtype=dtype, device=x.device)
     if dtype == BF16:
         lib, name = _wg_lib(), "conv2d_bf16_wgmma_cuda"
-        _check_width(0, co, w)
-        wt = pack_wgmma_weight_cuda(weight)
+        _check_width(FORM_STRIDE1, co, w)
+        wt = pack_wgmma_weight_cuda(weight, "conv")
         err = lib.conv2d_bf16_wgmma_cuda(x.data_ptr(), n, ci, h, w, wt.data_ptr(), co,
                                          mul.data_ptr(), add.data_ptr(), res, int(relu),
                                          out.data_ptr(), _stream(x), x.device.index)
         _raise_on(lib.conv_bf16_wgmma_error_string, err, name)
     else:
         lib, name = _tc_lib(), "conv2d_tc_cuda"
-        wt = _pack_conv(weight, False, dtype)
+        wt = _pack_conv(weight, False)
         err = lib.conv2d_tc_cuda(x.data_ptr(), n, ci, h, w, wt.data_ptr(), co, mul.data_ptr(),
                                  add.data_ptr(), res, int(relu), out.data_ptr(), _stream(x),
                                  x.device.index)
@@ -1098,17 +1129,19 @@ def conv3d_train_dx_bf16_plain(dy: torch.Tensor, weight: torch.Tensor) -> torch.
 
 
 def conv3d_train_cuda(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """The train form's forward: csrc/conv3d_tc.cu with the identity
-    epilogue, in the form of x's dtype (float32 or bf16)."""
+    """The train form's forward with the identity epilogue, in the form of
+    x's dtype: csrc/conv3d_tc.cu (float32) or csrc/conv_bf16_wgmma.cu
+    (bf16)."""
     out = _conv3d_launch(x, weight, dtype=x.dtype)
     _counts(x.dtype)["conv3d_train"] += 1
     return out
 
 
 def conv3d_train_dx_cuda(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """The train form's input gradient: csrc/conv3d_tc.cu on dy with the
+    """The train form's input gradient: the stride-1 conv of dy with the
     flipped, channel-transposed weights (Ci = Co in every trunk site), in
-    the form of dy's dtype."""
+    the form of dy's dtype (csrc/conv3d_tc.cu or csrc/conv_bf16_wgmma.cu,
+    as the forward)."""
     out = _conv3d_launch(dy.contiguous(), weight, flip=True, dtype=dy.dtype)
     _counts(dy.dtype)["conv3d_train"] += 1
     return out

@@ -10,6 +10,7 @@ import copy
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from disprcnn_tpu_torch.models.pointrcnn import pointnet2 as tpn2
 from disprcnn_tpu_torch.ops import nms as tnms
@@ -1115,9 +1116,10 @@ def test_conv2d_bf16_kernel_matches_twin(card, ci, co, hw, residual, relu):
 
 
 def _wgmma_form_matches_twin(kind, n, ci, co, shape, residual, relu, seed):
-    """One launch of row 5 or 7's bf16 form (csrc/conv_bf16_wgmma.cu) held
-    to its twin with bf16_agreement: no element beyond one bf16 step and
-    the float32 sums' floor; the launch counted once, as bf16."""
+    """One launch of a bf16 form of csrc/conv_bf16_wgmma.cu (rows 3, 5, 6 and
+    7: kind "conv3d", "deconv3d", "conv3d_s2", "conv2d") held to its twin
+    with bf16_agreement: no element beyond one bf16 step and the float32
+    sums' floor; the launch counted once, as bf16."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = _randn_bf16(gen, n, ci, *shape)
     mul, add = 1 + _randn(gen, co, scale=0.3), _randn(gen, co, scale=0.1)
@@ -1126,16 +1128,27 @@ def _wgmma_form_matches_twin(kind, n, ci, co, shape, residual, relu, seed):
         out_shape = (n, co, *shape)
         launch, twin, plain, k = cconv.conv2d_bn, cconv.conv2d_bn_bf16_plain, \
             cconv.conv2d_bn_plain, 9 * ci
-    else:
+        args = ()
+    elif kind == "deconv3d":
         weight = _randn(gen, ci, co, 3, 3, 3, scale=0.05)
         out_shape = (n, co, *(2 * s for s in shape))
         launch, twin, plain, k = cconv.deconv3d_bn, cconv.deconv3d_bn_bf16_plain, \
             cconv.deconv3d_bn_plain, 27 * ci
+        args = ()
+    else:
+        stride = 2 if kind == "conv3d_s2" else 1
+        weight = _randn(gen, co, ci, 3, 3, 3, scale=0.05)
+        out_shape = (n, co, *((s - 1) // stride + 1 for s in shape))
+        launch, twin, plain, k = cconv.conv3d_bn, cconv.conv3d_bn_bf16_plain, \
+            cconv.conv3d_bn_plain, 27 * ci
+        args = (stride,)
     res = _randn_bf16(gen, *out_shape) if residual else None
     before, before32 = cconv.launches_bf16[kind], cconv.launches[kind]
-    got = launch(x, weight, mul, add, res, relu)
+    got = launch(x, weight, mul, add, res, relu, *args)
     assert cconv.launches_bf16[kind] == before + 1 and cconv.launches[kind] == before32
-    _bf16_close(got, twin(x, weight, mul, add, res, relu), _floor(k, plain, x, weight, mul))
+    assert got.shape == out_shape
+    _bf16_close(got, twin(x, weight, mul, add, res, relu, *args),
+                _floor(k, plain, x, weight, mul, *((None, False) + args if args else ())))
 
 
 @pytest.mark.parametrize("kind,n,ci,co,shape,residual,relu", [
@@ -1146,10 +1159,17 @@ def _wgmma_form_matches_twin(kind, n, ci, co, shape, residual, relu, seed):
     ("conv2d", 256, 64, 64, (56, 56), True, True),
     ("deconv3d", 128, 64, 64, (6, 14, 14), True, True),  # the hourglasses
     ("deconv3d", 128, 64, 32, (12, 28, 28), True, False),
+    ("conv3d", 128, 32, 32, (24, 56, 56), False, True),  # dres0_1, dres1_0, classif*_0
+    ("conv3d", 128, 32, 32, (24, 56, 56), True, False),  # dres1_1
+    ("conv3d", 128, 64, 64, (12, 28, 28), False, True),  # ConvBN_1 of the first hourglass
+    ("conv3d", 128, 64, 64, (12, 28, 28), True, True),  # ConvBN_1 of the later two
+    ("conv3d", 128, 64, 64, (6, 14, 14), False, True),  # ConvBN_3: 196-position slices
+    ("conv3d_s2", 128, 32, 64, (24, 56, 56), False, True),  # ConvBN_0
+    ("conv3d_s2", 128, 64, 64, (12, 28, 28), False, True),  # ConvBN_2
 ])
 def test_wgmma_bf16_forms_at_main_path_sites(card, kind, n, ci, co, shape, residual, relu):
-    """Rows 5 and 7's bf16 forms at the bf16 idispnet.yaml request's own
-    sites: 128 ROI slots, both views in the tower."""
+    """The bf16 forms of rows 3, 5, 6 and 7 at the bf16 idispnet.yaml
+    request's own sites: 128 ROI slots, both views in the tower."""
     _wgmma_form_matches_twin(kind, n, ci, co, shape, residual, relu, seed=n + ci + co)
 
 
@@ -1165,18 +1185,62 @@ def test_wgmma_bf16_forms_at_main_path_sites(card, kind, n, ci, co, shape, resid
     ("deconv3d", 2, 64, 32, (3, 30, 30), True, False),  # a ragged last tile
     ("deconv3d", 1, 32, 64, (3, 10, 20), True, False),  # W 20
     ("deconv3d", 2, 13, 32, (3, 5, 7), True, True),  # Ci off the 16-channel step
+    ("conv3d", 1, 32, 32, (24, 56, 56), True, True),  # N = 1
+    ("conv3d", 2, 32, 32, (1, 56, 56), True, False),  # D = 1: one depth tap
+    ("conv3d", 2, 64, 64, (3, 28, 28), False, True),  # D = 3, no residual
+    ("conv3d", 2, 32, 32, (3, 20, 33), True, True),  # W 33: plain staging, direct stores
+    ("conv3d", 2, 64, 64, (4, 10, 20), True, False),  # W 20
+    ("conv3d", 256, 64, 64, (6, 7, 7), True, True),  # DispModule's (6, 7^2): plain staging
+    ("conv3d", 256, 64, 64, (12, 14, 14), False, True),  # DispModule's (12, 14^2)
+    ("conv3d", 2, 13, 32, (3, 9, 16), True, True),  # Ci 13
+    ("conv3d", 2, 16, 64, (3, 9, 16), True, False),  # Ci 16
+    ("conv3d", 1, 32, 32, (2, 61, 56), True, True),  # ragged at Co 32: rows 13, 13, ..., 9
+    ("conv3d", 1, 64, 64, (2, 61, 32), True, True),  # ragged at Co 64: tiles of 13 rows
+    ("conv3d_s2", 1, 32, 64, (24, 56, 56), True, True),  # N = 1, with a residual
+    ("conv3d_s2", 2, 64, 64, (1, 28, 28), False, True),  # D = 1
+    ("conv3d_s2", 2, 64, 32, (3, 28, 28), False, False),  # D = 3: the last slice's two taps
+    ("conv3d_s2", 2, 32, 64, (3, 20, 33), True, True),  # W 33: odd, plain staging
+    ("conv3d_s2", 2, 64, 64, (4, 10, 20), True, False),  # W 20: output 10 wide
+    ("conv3d_s2", 256, 64, 64, (12, 14, 14), False, True),  # DispModule's 14^2 -> 7^2
+    ("conv3d_s2", 256, 32, 64, (24, 28, 28), False, True),  # DispModule's 28^2 -> 14^2
+    ("conv3d_s2", 2, 13, 32, (5, 9, 11), True, True),  # Ci 13, odd sizes
+    ("conv3d_s2", 2, 16, 64, (4, 16, 16), False, False),  # Ci 16
+    ("conv3d_s2", 1, 32, 32, (2, 122, 112), True, True),  # ragged at Co 32: 61 output rows
+    ("conv3d_s2", 1, 64, 64, (2, 121, 64), True, True),  # ragged at Co 64: 61 output rows
 ])
 def test_wgmma_bf16_forms_edge_cases(card, kind, n, ci, co, shape, residual, relu):
-    """Rows 5 and 7's bf16 forms off the main path's shapes."""
+    """The bf16 forms of rows 3, 5, 6 and 7 off the main path's shapes."""
     _wgmma_form_matches_twin(kind, n, ci, co, shape, residual, relu, seed=7 * n + ci + shape[-1])
 
 
+@pytest.mark.parametrize("c,d,s", [(32, 24, 56), (64, 12, 28), (64, 6, 14)])
+def test_wgmma_bf16_train_form_at_trunk_sites(card, c, d, s):
+    """Row 8's bf16 train form at the iDispNet step's trunk sites (24 ROI
+    crops): the forward (conv3d_train_cuda) and the input gradient
+    (conv3d_train_dx_cuda, the flipped weights) each one launch of
+    csrc/conv_bf16_wgmma.cu's stride-1 form, held to their twins."""
+    gen = torch.Generator(device="cuda").manual_seed(c + d + s)
+    x = _randn_bf16(gen, 24, c, d, s, s)
+    dy = _randn_bf16(gen, 24, c, d, s, s)
+    w = _randn(gen, c, c, 3, 3, 3, scale=0.05)
+    before = cconv.launches_bf16["conv3d_train"]
+    y, dx = cconv.conv3d_train_cuda(x, w), cconv.conv3d_train_dx_cuda(dy, w)
+    assert cconv.launches_bf16["conv3d_train"] == before + 2
+    wa = w.to(BF16).float().abs()
+    _bf16_close(y, cconv.conv3d_train_bf16_plain(x, w),
+                27 * c * cconv.F32_SUM_ERR * F.conv3d(x.float().abs(), wa, padding=1))
+    _bf16_close(dx, cconv.conv3d_train_dx_bf16_plain(dy, w),
+                27 * c * cconv.F32_SUM_ERR * F.conv3d(dy.float().abs(),
+                                                      cconv.flip_transpose(wa), padding=1))
+
+
 def test_wgmma_bf16_forms_refuse_what_they_do_not_take(card):
-    """Rows 5 and 7's bf16 launch points take every Ci (the channels past Ci
-    are zero in the weights and in the staged input), and raise on a Co
-    other than 32 or 64 and on a row wider than they take (a tile's M-tiles
-    hold one halo row, and its staging and halos fit in shared memory),
-    naming it; nothing falls back to another body or to the twin."""
+    """The bf16 launch points of csrc/conv_bf16_wgmma.cu take every Ci (the
+    channels past Ci are zero in the weights and in the staged input), and
+    raise on a Co other than 32 or 64 and on a row wider than they take (a
+    tile's M-tiles hold one halo row, and its staging and halos fit in
+    shared memory), naming it; nothing falls back to another body or to the
+    twin."""
     x = torch.zeros(1, 13, 8, 8, device=card, dtype=BF16)
     mul, add = torch.ones(16, device=card), torch.zeros(16, device=card)
     with pytest.raises(ValueError, match="Co in"):
@@ -1184,6 +1248,12 @@ def test_wgmma_bf16_forms_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="Co in"):
         cconv.deconv3d_bn_bf16_cuda(x[:, :, None], torch.zeros(13, 16, 3, 3, 3, device=card),
                                     mul, add)
+    for stride in (1, 2):
+        with pytest.raises(ValueError, match="Co in"):
+            cconv.conv3d_bn_bf16_cuda(x[:, :, None], torch.zeros(16, 13, 3, 3, 3, device=card),
+                                      mul, add, stride=stride)
+    with pytest.raises(ValueError, match="Co in"):
+        cconv.conv3d_train_dx_cuda(x[:, :, None], torch.zeros(13, 16, 3, 3, 3, device=card))
     mul, add = torch.ones(64, device=card), torch.zeros(64, device=card)
     wide = torch.zeros(1, 64, 2, 600, device=card, dtype=BF16)
     with pytest.raises(ValueError, match="W = 600"):
@@ -1191,6 +1261,15 @@ def test_wgmma_bf16_forms_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="W = 600"):
         cconv.deconv3d_bn_bf16_cuda(wide[:, :, None], torch.zeros(64, 64, 3, 3, 3, device=card),
                                     mul, add)
+    w3 = torch.zeros(64, 64, 3, 3, 3, device=card)
+    with pytest.raises(ValueError, match="W = 600"):
+        cconv.conv3d_bn_bf16_cuda(wide[:, :, None], w3, mul, add)
+    with pytest.raises(ValueError, match="W = 600"):
+        cconv.conv3d_train_cuda(wide[:, :, None], w3)
+    # stride 2: 1200 wide is a 600-wide output row
+    wider = torch.zeros(1, 64, 1, 2, 1200, device=card, dtype=BF16)
+    with pytest.raises(ValueError, match="W = 1200"):
+        cconv.conv3d_bn_bf16_cuda(wider, w3, mul, add, stride=2)
     # within the M-tiles' 895 positions at Co 32, but the tile's staging and
     # halos do not fit in shared memory
     with pytest.raises(ValueError, match="W = 600"):
@@ -1198,19 +1277,30 @@ def test_wgmma_bf16_forms_refuse_what_they_do_not_take(card):
                                   mul[:32], add[:32])
 
 
+# the forms (conv_bf16_wgmma_max_width's) and the rows an M-tile set holds
+_WGMMA_FORMS = {"conv2d": cconv.FORM_STRIDE1, "conv3d": cconv.FORM_STRIDE1,
+                "deconv3d": cconv.FORM_TRANSPOSED, "conv3d_s2": cconv.FORM_STRIDE2}
+
+
 @pytest.mark.parametrize("kind,co", [("conv2d", 32), ("conv2d", 64), ("deconv3d", 32),
-                                     ("deconv3d", 64)])
+                                     ("deconv3d", 64), ("conv3d", 32), ("conv3d", 64),
+                                     ("conv3d_s2", 32), ("conv3d_s2", 64)])
 def test_wgmma_bf16_forms_take_their_widest_row(card, kind, co):
     """The widest input row the launch point lets through
     (conv_bf16_wgmma_max_width) runs at the height whose tiles take the
     most shared memory (8 times the rows a tile holds) and agrees with the
     twin."""
-    deconv = int(kind == "deconv3d")
-    w = cconv._widest(deconv, co)
-    mrows = 2 * 64 * {(0, 32): 7, (0, 64): 4, (1, 32): 2, (1, 64): 1}[deconv, co]  # M-tile rows
-    assert 56 <= w < mrows
-    rows = 8 * (mrows // (w + 1))
-    shape = (1, rows, w) if deconv else (rows, w)
+    form = _WGMMA_FORMS[kind]
+    w = cconv._widest(form, co)
+    mrows = 2 * 64 * {(0, 32): 7, (0, 64): 4, (1, 32): 2, (1, 64): 1, (2, 32): 2,
+                      (2, 64): 2}[form, co]  # M-tile rows (mtiles)
+    hs = (w - 1) // 2 + 2 if form == cconv.FORM_STRIDE2 else w + 1  # the halo row
+    assert 56 <= w and hs <= mrows
+    rows = 8 * (mrows // hs)  # output rows (input rows of the transposed conv)
+    if kind == "conv2d":
+        shape = (rows, w)
+    else:
+        shape = (1, 2 * rows if form == cconv.FORM_STRIDE2 else rows, w)
     _wgmma_form_matches_twin(kind, 1, 16, co, shape, True, True, seed=w + co)
 
 
@@ -1234,15 +1324,21 @@ def test_cost_volume_bf16_kernel_matches_twin(card, c, hw, co, mind4, maxd4):
 
 @pytest.mark.parametrize("co,ci", [(32, 32), (64, 64), (32, 13), (64, 5)])
 def test_bf16_pack_kernels_match_plain(card, co, ci):
-    """The bf16 packings (3D, 2D, transposed, cost volume) equal their plain
-    versions bit for bit."""
+    """The bf16 packings (3D, flipped 3D, 2D, transposed, cost volume) equal
+    their plain versions bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(co + ci)
     w3, w2 = _randn(gen, co, ci, 3, 3, 3), _randn(gen, co, ci, 3, 3)
     wd = _randn(gen, ci, co, 3, 3, 3)
     wc = _randn(gen, co, 2 * ci, 3, 3, 3)
-    for got, want in ((cconv.pack_bf16_weight_cuda(w3), cconv.pack_bf16_weight(w3)),
-                      (cconv.pack_wgmma_weight_cuda(w2), cconv.pack_wgmma_weight(w2)),
-                      (cconv.pack_wgmma_weight_cuda(wd), cconv.pack_wgmma_weight(wd)),
+    wf = _randn(gen, ci, co, 3, 3, 3)  # a forward weight whose input gradient has Co out
+    for got, want in ((cconv.pack_wgmma_weight_cuda(w3, "conv"),
+                       cconv.pack_wgmma_weight(w3, "conv")),
+                      (cconv.pack_wgmma_weight_cuda(wf, "flip"),
+                       cconv.pack_wgmma_weight(wf, "flip")),
+                      (cconv.pack_wgmma_weight_cuda(w2, "conv"),
+                       cconv.pack_wgmma_weight(w2, "conv")),
+                      (cconv.pack_wgmma_weight_cuda(wd, "deconv"),
+                       cconv.pack_wgmma_weight(wd, "deconv")),
                       (cconv.pack_bf16_cost_volume_weight_cuda(wc),
                        cconv.pack_bf16_cost_volume_weight(wc))):
         torch.cuda.synchronize()
