@@ -426,7 +426,8 @@ bf16 models.
     python3 chip_smoke.py --time-bf16 TAG ROW [ROW ...]
 
 runs phase 27's (a) and (b) alone for the bf16 rows named (bf16_kinds'
-keys, such as conv3d and conv3d_s2) and prints one JSON line {TAG: {row:
+keys, such as conv3d and conv3d_s2; conv3d_train: row 8's bf16 train form
+at the iDispNet step's trunk sites) and prints one JSON line {TAG: {row:
 {ms, device_ms, plain_ms, library_ms, bound_ms, ...}}} (time_bf16_forms):
 run from a tree's root and from its parent's copy in one call (parent,
 change, change, parent), it compares two commits' forms on one card.
@@ -5123,35 +5124,45 @@ def time_bf16_forms(tag: str, names) -> dict:
     """Phase 27's (a) and (b) alone, for the bf16 rows named (bf16_kinds'
     keys): the kernels built, the bf16 idispnet.yaml request run once with
     the launches counted, each launch's arguments captured on a second run,
-    and the named forms held to their twins and timed (bf16_rows). A tree's
-    child names the rows it redesigned, so that this tree and the child's
-    time the same rows on one card (`--time-bf16`). Prints the card's name
-    and power limit, then one JSON line {tag: {row: {...}}}."""
+    and the named forms held to their twins and timed (bf16_rows); and for
+    the name conv3d_train, row 8's bf16 train form at the iDispNet step's
+    trunk sites, held and timed (conv3d_train_bf16_row). A tree's child
+    names the rows it redesigned, so that this tree and the child's time the
+    same rows on one card (`--time-bf16`). Prints the card's name and power
+    limit, then one JSON line {tag: {row: {...}}}."""
     print(card_line(), flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     phase_build()
-    cfg = get_default_cfg()
-    cfg.merge_from_file(BF16_YAML)
-    cfg.merge_from_list(["TPU.MAX_DETECTIONS", str(BENCH_3D["max_det"])])
-    cfg.freeze()
-    m16 = init_random_(build_detection_model(cfg, device="cuda"),
-                       torch.Generator(device="cuda").manual_seed(BF16_SEED))
-    model2d = init_random_(DispRCNN(**BENCH_2D, device="cuda"),
-                           torch.Generator(device="cuda").manual_seed(0))
-    req = bench.make_request(PAIRS, IMG_HW, PAIRS * BENCH_3D["max_det"], BENCH_3D["lift_grid"],
-                             "cuda", BF16_SEED)
-    reset_launches()
-    predict(model2d, m16, *req[:4])
-    torch.cuda.synchronize()
-    got = dict(cconv.launches_bf16, softargmin=csam.launches_bf16)
-    calls = capture_launches(lambda: predict(model2d, m16, *req[:4]), BF16_POINTS)
+    rows = []
+    if any(name in bf16_kinds() for name in names):
+        cfg = get_default_cfg()
+        cfg.merge_from_file(BF16_YAML)
+        cfg.merge_from_list(["TPU.MAX_DETECTIONS", str(BENCH_3D["max_det"])])
+        cfg.freeze()
+        m16 = init_random_(build_detection_model(cfg, device="cuda"),
+                           torch.Generator(device="cuda").manual_seed(BF16_SEED))
+        model2d = init_random_(DispRCNN(**BENCH_2D, device="cuda"),
+                               torch.Generator(device="cuda").manual_seed(0))
+        req = bench.make_request(PAIRS, IMG_HW, PAIRS * BENCH_3D["max_det"],
+                                 BENCH_3D["lift_grid"], "cuda", BF16_SEED)
+        reset_launches()
+        predict(model2d, m16, *req[:4])
+        torch.cuda.synchronize()
+        got = dict(cconv.launches_bf16, softargmin=csam.launches_bf16)
+        calls = capture_launches(lambda: predict(model2d, m16, *req[:4]), BF16_POINTS)
+        rows += bf16_rows(calls, got, names)
+        del m16, model2d, req, calls
+        torch.cuda.empty_cache()
+    if "conv3d_train" in names:
+        rows.append(conv3d_train_bf16_row(
+            torch.Generator(device="cuda").manual_seed(BF16_TRAIN_SEED + 4), 0.0, hold=True))
     keep = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "launches",
-            "source", "equal", "beyond", "max_ulps_clear", "form_ms")
-    result = {tag: {r["name"]: {k: r.get(k) for k in keep}
-                    for r in bf16_rows(calls, got, names)}}
+            "source", "equal", "beyond", "max_ulps_clear", "form_ms", "launch_ms",
+            "device_launch_ms")
+    result = {tag: {r["name"]: {k: r.get(k) for k in keep} for r in rows}}
     print(json.dumps(result), flush=True)
     return result
 
@@ -6155,20 +6166,37 @@ def bf16_train_run(label: str, stage: str, dataset: str, opts, forms, held: bool
     return {"launches": new, "ms": ms, "peak": peak, "dist": (dk, dp)}
 
 
-def bf16_train_rows(errs: dict, counts: dict) -> list:
-    """The kernels line's rows of the bf16 train forms of rows 8, 11 and 14:
-    (a)'s inputs timed (kernel, twin, bound with 2-byte operands; row 8's
-    library call F.conv3d plus torch.nn.grad.conv3d_input on the bf16
-    tensors), launches from (c)'s train_net runs."""
-    gen = torch.Generator(device="cuda").manual_seed(BF16_TRAIN_SEED + 4)
-    rows = []
-    # row 8: forward and input gradient at each trunk site, one launch each
+def conv3d_train_bf16_row(gen, err: float, hold: bool = False) -> dict:
+    """Row 8's bf16 train form on the kernels line: the forward and the
+    input gradient at each trunk site (TRAIN_CONV_SITES), one launch each,
+    timed (kernel, twin, bound with 2-byte operands; library call F.conv3d
+    plus torch.nn.grad.conv3d_input on the bf16 tensors). `hold`: each
+    launch first held to its twin (within_bf16_step, the float32 sums'
+    floor), as bf16_conv_train_compare does, and the row gets the share
+    equal. Uses only the launch points and twins, so that a parent's tree
+    can be timed by this function too (`--time-bf16 TAG conv3d_train`)."""
     fwd, dx = [], []
     for n, c, d, s in TRAIN_CONV_SITES:
         x = torch.randn(n, c, d, s, s, generator=gen, device="cuda").to(torch.bfloat16)
         w = torch.randn(c, c, 3, 3, 3, generator=gen, device="cuda") * 0.05
         fwd.append((x, w))
         dx.append((x.clone(), w))
+    equal = []
+    if hold:
+        with torch.inference_mode():
+            for (x, w), (dy, _) in zip(fwd, dx):
+                c, wa = w.shape[1], w.to(torch.bfloat16).float().abs()
+                for kernel, twin, floor, what in (
+                        (cconv.conv3d_train_cuda, cconv.conv3d_train_bf16_plain,
+                         F.conv3d(x.float().abs(), wa, padding=1), "y"),
+                        (cconv.conv3d_train_dx_cuda, cconv.conv3d_train_dx_bf16_plain,
+                         F.conv3d(dy.float().abs(), cconv.flip_transpose(wa), padding=1),
+                         "dx")):
+                    arg = x if what == "y" else dy
+                    ag = within_bf16_step(kernel(arg, w), twin(arg, w),
+                                          27 * c * cconv.F32_SUM_ERR * floor,
+                                          f"conv3d_train bf16 {what} at {tuple(arg.shape)}")
+                    equal.append(ag["equal"])
 
     def conv_work_bf16(args, out):
         x, w = args
@@ -6189,11 +6217,22 @@ def bf16_train_rows(errs: dict, counts: dict) -> list:
                               cconv.conv3d_train_bf16_plain, library, conv_work_bf16, compare),
                              (" dx", dx, cconv.conv3d_train_dx_cuda,
                               cconv.conv3d_train_dx_bf16_plain, None, conv_work_bf16, compare)],
-                            errs["conv3d_train_bf16"], "conv_bf16_wgmma.cu",
+                            err, "conv_bf16_wgmma.cu",
                             "disprcnn_tpu/ops/pallas/packed_conv.py:689")
+    if equal:
+        row["equal"] = min(equal)
+    return row
+
+
+def bf16_train_rows(errs: dict, counts: dict) -> list:
+    """The kernels line's rows of the bf16 train forms of rows 8, 11 and 14:
+    (a)'s inputs timed (kernel, twin, bound with 2-byte operands; row 8's
+    by conv3d_train_bf16_row), launches from (c)'s train_net runs."""
+    gen = torch.Generator(device="cuda").manual_seed(BF16_TRAIN_SEED + 4)
+    row = conv3d_train_bf16_row(gen, errs["conv3d_train_bf16"])
     row["launches"] = counts["conv3d_train_bf16"]
-    rows.append(row)
-    del fwd, dx
+    rows = [row]
+    compare = lambda g, w: float((g.float() - w.float()).abs().max())  # noqa: E731
     # row 11: the kernel forward at the RCNN SA sites
     sa = []
     for site, b, n, m, c0, chain, radius, s in TRAIN_SA_SITES:

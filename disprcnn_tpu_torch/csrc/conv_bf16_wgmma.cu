@@ -110,18 +110,27 @@
 // warpgroup at stride 1 and 2 at stride 2 (mtiles), so TH hs <= 896, 512
 // or 256 positions; TH is balanced over the slice's row tiles, or made a
 // little larger where that lets TMA boxes of whole output rows store the
-// tile, or smaller where shared memory asks. A 3D tile's stages are (16-channel chunk, depth tap
-// kd) with input slice S z + kd - 1 inside the volume, 2 or 3 a chunk, all
-// 27 Ci / 16 k16 steps into the same accumulators. An input slice feeds
-// three output slices, and each of their tiles stages it anew: tiles are
-// numbered with the rows fastest, so the 132 persistent blocks work on
-// neighbouring slices at once and the restaged rows come from L2. Holding
-// K output slices as accumulator sets would stage a slice once for K, but
-// within the same 7 or 4 M-tiles a warpgroup each slice would get 1 / K of
-// the rows, and a tile's two extra halo rows would weigh more: staged rows
-// an output row fall from 3.4 (K = 1, 14 rows at 56^2) only to 2.7 (K = 2)
-// or 2.5 (K = 3). The producer sets the pace at every trunk site
-// (tools/profile_bf16_convs.py --study builds each side alone). The
+// tile, or smaller where shared memory asks. A 3D tile's stages are
+// (16-channel chunk, depth tap kd) with input slice S z + kd - 1 inside the
+// volume, 2 or 3 a chunk, all 27 Ci / 16 k16 steps into the same
+// accumulators. An input slice feeds three output slices, and each of
+// their tiles stages it anew: tiles are numbered with the rows fastest, so
+// the 132 persistent blocks work on neighbouring slices at once and the
+// restaged rows come from L2. Where the M-tiles hold two whole output
+// slices (the trunk's 14^2 ones: 2 x 14 rows + 2 at hs 15, 450 of 512
+// positions at Co 64), a tile is a slice pair: the second slice's halo
+// lies 2 rows below the first's, so the pair is one stride-1 tile of 2 H +
+// 2 rows whose 2 middle rows are computed and not stored, and a stage
+// stages both input slices z + kd - 1 and z + kd (contiguous in (D H W))
+// for one weight slab. A stage's fixed costs (its waits, its weight slab,
+// the copies' latency) set the pace at 14^2, and a pair halves the stages
+// an output slice; plan() takes pairs only where they take fewer rounds of
+// the persistent blocks. Elsewhere a tile holds one slice: K slices as
+// accumulator sets in the same 7 or 4 M-tiles would give each slice 1 / K
+// of the rows, and staged rows an output row fall from 3.4 (K = 1, 14 rows
+// at 56^2) only to 2.7 (K = 2) or 2.5 (K = 3). The producer sets the pace
+// at every trunk site (builds that left out one side's work timed the
+// other alone). The
 // transposed conv: a tile of TH whole input rows of one
 // input slice for one output slice (its depth parity fixes the depth taps:
 // kd 1 at slice m for an even output slice 2m, kd 2 at m and kd 0 at m + 1
@@ -149,8 +158,10 @@
 // transposed conv's two column classes side by side). Where the output's
 // tensor map is not legal (an output slice's positions not a multiple of
 // 8, e.g. the trunk's 14^2 slices, or no whole rows of a tile making a box
-// of a multiple of 8 positions), the consumers store straight to device
-// memory.
+// of a multiple of 8 positions), and for slice pairs, the consumers store
+// straight to device memory: at 14^2 those stores take about 1% of the
+// time (a build without them), so a flattened (D H W, Co, N) output map,
+// legal there, would gain no more.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -159,13 +170,6 @@
 #include "bf16.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
-
-// A study build (tools/profile_bf16_convs.py --study) times one side of the
-// ring alone: 1, the consumers issue no products; 2, the producer lays out
-// nothing. Its output is not the conv. 0 (the default) is the kernel.
-#ifndef CONV_WGMMA_STUDY
-#define CONV_WGMMA_STUDY 0
-#endif
 
 namespace {
 
@@ -195,12 +199,13 @@ __host__ __device__ constexpr int mtiles(int co, int form) {
 struct Geo {
   int n, ci, d, h, w;  // the input (N, Ci, D, H, W); D = 1 for the 2D conv
   int od, oh, ow;      // the output's depth, rows and columns
+  int zs, odt;         // output slices a tile (1, or 2: slice pairs), tiles along the depth
   int wkd;             // depth taps of the packed weights: 3, or 1 (the 2D conv)
   int hs;              // halo row stride in slots: W + 1, or OW + 1 (stride 2)
   int ps;              // slots of one parity plane (stride 2): (th + 1) hs
   int th;              // rows of a tile (output rows, or input rows of the transposed conv)
   int tiles_h;         // row tiles of a slice
-  int items;           // tiles in all: N od tiles_h
+  int items;           // tiles in all: N odt tiles_h
   int nch;             // 16-channel chunks of Ci
   int slots;           // halo slots of one 8-channel half of a stage
   int bl;              // staging box length (positions)
@@ -214,7 +219,7 @@ struct Geo {
   int off_raw, off_a, off_o;  // shared memory offsets (bytes)
   int relu, tma, tma_out;     // ReLU; TMA staging; the output tile by TMA
   unsigned long long w_magic, oct_magic;  // ceil(2^40 / d) for d = W, bl / 8 (div_magic)
-  unsigned long long th_magic, od_magic;  // and for d = tiles_h, od
+  unsigned long long th_magic, od_magic;  // and for d = tiles_h, odt
 };
 
 // One stage of a tile: channels 16 cc.. of sample n at input slice zi, the
@@ -239,20 +244,21 @@ struct Item {
   int n, zo, t, kd0, nkd, nst;
 };
 
-template <int FORM>
+template <int FORM, bool PAIR>
 __device__ __forceinline__ Item item_of(const Geo& g, int item) {
   Item it;
   const int q = div_magic(item, g.th_magic);  // item / tiles_h
   it.t = item - q * g.tiles_h;
   it.n = div_magic(q, g.od_magic);
-  it.zo = q - it.n * g.od;
+  it.zo = (q - it.n * g.odt) * (PAIR ? 2 : 1);
   if (FORM == kTransposed) {
     it.kd0 = 0;
     it.nkd = (it.zo & 1) && (it.zo >> 1) + 1 < g.d ? 2 : 1;
   } else {
-    // the depth taps whose input slice zc + kd - 1 lies in [0, D)
+    // the depth taps whose input slice zc + kd - 1 lies in [0, D), for the
+    // pair's second slice zc + kd too
     const int zc = FORM == kStride2 ? 2 * it.zo : it.zo;
-    it.kd0 = max(0, 1 - zc);
+    it.kd0 = max(0, 1 - zc - (PAIR && it.zo + 1 < g.od));
     it.nkd = min(2, g.d - zc) - it.kd0 + 1;
   }
   it.nst = g.nch * it.nkd;
@@ -260,7 +266,7 @@ __device__ __forceinline__ Item item_of(const Geo& g, int item) {
 }
 
 // stage k of a tile
-template <int FORM>
+template <int FORM, bool PAIR>
 __device__ __forceinline__ Stage stage_of(const Geo& g, const Item& it, int k) {
   Stage st;
   st.n = it.n;
@@ -278,11 +284,13 @@ __device__ __forceinline__ Stage stage_of(const Geo& g, const Item& it, int k) {
     st.zi = (FORM == kStride2 ? 2 * it.zo : it.zo) + kd - 1;
     st.wslab = st.cc * g.wkd + (g.wkd == 3 ? kd : 0);
     const int plane = st.zi * g.h * g.w;
-    // input rows y0 - 1 .. y0 + th, or 2 y0 - 1 .. 2 y0 + 2 th - 1 (stride 2)
+    // input rows y0 - 1 .. y0 + th, or 2 y0 - 1 .. 2 y0 + 2 th - 1 (stride
+    // 2); a slice pair's two whole input slices, zi and zi + 1 (either may
+    // lie outside the volume: the staging fills it with zeros)
     const int r0 = FORM == kStride2 ? 2 * st.y0 - 1 : st.y0 - 1;
     const int r1 = FORM == kStride2 ? 2 * (st.y0 + g.th) : st.y0 + g.th + 1;
     st.f0 = plane + max(0, r0) * g.w;
-    st.f1 = plane + min(g.h, r1) * g.w;
+    st.f1 = plane + min((PAIR ? 2 : 1) * g.h, r1) * g.w;
   }
   st.fs = st.f0 & ~7;
   return st;
@@ -290,20 +298,20 @@ __device__ __forceinline__ Stage stage_of(const Geo& g, const Item& it, int k) {
 
 // The walk of a block over its tiles' stages: items blockIdx.x,
 // blockIdx.x + gridDim.x, ..., each its stages in order.
-template <int FORM>
+template <int FORM, bool PAIR>
 struct Walk {
   int item, k;
   Item it;
   __device__ explicit Walk(const Geo& g) : item(blockIdx.x), k(0) {
-    if (item < g.items) it = item_of<FORM>(g, item);
+    if (item < g.items) it = item_of<FORM, PAIR>(g, item);
   }
   __device__ bool valid(const Geo& g) const { return item < g.items; }
-  __device__ Stage stage(const Geo& g) const { return stage_of<FORM>(g, it, k); }
+  __device__ Stage stage(const Geo& g) const { return stage_of<FORM, PAIR>(g, it, k); }
   __device__ void next(const Geo& g) {
     if (++k == it.nst) {
       item += gridDim.x;
       k = 0;
-      if (item < g.items) it = item_of<FORM>(g, item);
+      if (item < g.items) it = item_of<FORM, PAIR>(g, item);
     }
   }
 };
@@ -409,7 +417,10 @@ __device__ void fill_raw(const Geo& g, const Stage& st, const bf16_t* __restrict
 // positions (a slot past the halo for a position outside it; at stride 2
 // the slot of its parity plane); then the halo rows outside the image
 // zeroed. The halo's padding column is never written and stays zero.
-template <int FORM>
+// PAIR: a slice pair's tile (stride 1), its second slice 2 rows down and
+// no halo row outside the image (its layout is the same every time: its
+// padding rows are never written).
+template <int FORM, bool PAIR>
 __device__ void relayout(const Geo& g, const Stage& st, const bf16_t* raw, uint32_t a,
                          int ptid) {
   const int lane = ptid & 31, pw = ptid >> 5, row = lane & 7, q = lane >> 3;
@@ -433,7 +444,9 @@ __device__ void relayout(const Geo& g, const Stage& st, const bf16_t* raw, uint3
     if (FORM == kTransposed) {
       slot = (y - st.y0) * g.hs + x;
     } else if (FORM == kStride1) {
-      slot = (y - st.y0 + 1) * g.hs + x + 1;
+      // a slice pair's second slice (y >= H) lies 2 halo rows further down,
+      // past the first one's bottom and its own top padding row
+      slot = (y + (PAIR && y >= g.h ? 2 : 0) - st.y0 + 1) * g.hs + x + 1;
     } else {
       // row 2 y0 - 1 + ry: plane (ry & 1, x even), its row ry / 2 and
       // column (x + 1) / 2
@@ -472,7 +485,7 @@ __device__ void relayout(const Geo& g, const Stage& st, const bf16_t* raw, uint3
     }
     return;
   }
-  const int hrows = FORM == kTransposed ? g.th + 1 : g.th + 2;
+  const int hrows = PAIR ? 0 : FORM == kTransposed ? g.th + 1 : g.th + 2;
   for (int hr = 0; hr < hrows; ++hr) {
     const int y = FORM == kTransposed ? st.y0 + hr : st.y0 - 1 + hr;
     if (y >= 0 && y < g.h) continue;
@@ -515,8 +528,10 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
 // conv: (N, Co, 2D, 2H, 2W)). xmap: x as (D H W, Ci, N) in boxes of bl x 16
 // x 1 (if g.tma); omap,
 // rmap: out and res as (P, OD, Co, N), P an output slice's positions, in
-// boxes of bt x 1 x Co x 1 (if g.tma_out).
-template <int CO, int FORM>
+// boxes of bt x 1 x Co x 1 (if g.tma_out). PAIR: slice pairs (g.zs 2; the
+// stride-1 conv at Co 64 alone, a kernel of its own, so that the other
+// kernels' registers and address chains stay as they are).
+template <int CO, int FORM, bool PAIR>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ CUtensorMap omap,
@@ -569,9 +584,9 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     // the producer warpgroup: its registers go to the consumers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     const int ptid = threadIdx.x - 256;
-    Walk<FORM> work(g);
+    Walk<FORM, PAIR> work(g);
     if (g.tma && ptid == 0) {
-      Walk<FORM> issue = work;
+      Walk<FORM, PAIR> issue = work;
       for (int k = 0; k < g.rr && issue.valid(g); ++k, issue.next(g))
         issue_raw(g, issue.stage(g), &xmap, raw_ring + k * (g.raw_bytes / 2), &raw_full[k]);
     }
@@ -592,7 +607,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         tma::load(aslot + g.a_bytes, wpk + (size_t)st.wslab * (g.w_bytes / 2), g.w_bytes,
                   &a_full[slot]);
       }
-      if (CONV_WGMMA_STUDY != 2) relayout<FORM>(g, st, raw, tma::smem_u32(aslot), ptid);
+      relayout<FORM, PAIR>(g, st, raw, tma::smem_u32(aslot), ptid);
       // each warp fences its halo writes for the tensor cores and arrives;
       // the last warp done reading the staging slot refills it with stage
       // s + rr, so no warp waits for another
@@ -605,7 +620,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
           if (atomicSub(&raw_left[rslot], 1) == 1) {
             __threadfence_block();
             raw_left[rslot] = 4;
-            Walk<FORM> ahead = work;
+            Walk<FORM, PAIR> ahead = work;
             for (int i = 0; i < g.rr && ahead.valid(g); ++i) ahead.next(g);
             if (ahead.valid(g)) issue_raw(g, ahead.stage(g), &xmap, raw, &raw_full[rslot]);
           }
@@ -624,9 +639,11 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   float acc[MT][kCls][kAcc];
   int s = 0, it = 0;
   for (int item = blockIdx.x; item < g.items; item += gridDim.x, ++it) {
-    const Item itm = item_of<FORM>(g, item);
+    const Item itm = item_of<FORM, PAIR>(g, item);
     const int y0 = itm.t * g.th;
-    const int thv = min(g.th, (DC ? g.h : oh) - y0);  // the tile's rows in the image
+    // the tile's rows in the image (a slice pair: both slices and the 2
+    // rows between them)
+    const int thv = min(g.th, (DC ? g.h : PAIR ? 2 * oh + 2 : oh) - y0);
     const int n = itm.n, zo = itm.zo;
     const int o0 = (DC ? 2 * y0 : y0) * ow;  // the tile's first output position in its slice
     const int ob = it % g.no;                 // its output tile in shared memory
@@ -660,8 +677,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         const uint64_t dbt = db + (uint64_t)(tap * CO * 2);  // CO x 16 bf16 a tap, in 16-byte units
 #pragma unroll
         for (int i = 0; i < MT; ++i)
-          if (CONV_WGMMA_STUDY != 1)
-            mma<CO>(acc[i][cls], da + (uint64_t)((cw + 2 * i) * 64 + off), dbt);
+          mma<CO>(acc[i][cls], da + (uint64_t)((cw + 2 * i) * 64 + off), dbt);
       }
       wg::commit();
       if (k == 0 && threadIdx.x == 0 && g.tma_out) {
@@ -708,9 +724,15 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         const int p = (cw + 2 * i) * 64 + 16 * wq + gq + 8 * h;
         const int r = p / g.hs, c = p - r * g.hs;
         if (c >= (DC ? g.w : ow) || r >= thv) continue;
+        // a slice pair: rows oh + 2 on are its second slice's; the 2 rows
+        // between the slices, and a second slice past the volume, are not
+        // stored
+        const int b = PAIR && r >= oh + 2;
+        const int rs = r - b * (oh + 2), zq = zo + b;
+        if (PAIR && (rs >= oh || zq >= g.od)) continue;
 #pragma unroll
         for (int py = 0; py < (DC ? 2 : 1); ++py) {
-          const int orow = DC ? 2 * r + py : r;   // the output row in the tile
+          const int orow = DC ? 2 * rs + py : rs;   // the output row in the tile
           const int x0 = DC ? 2 * c : c;
           float v[CO / 4][kPx];  // channels 8 j + 2 tq + e, column parities
           if (g.tma_out) {
@@ -747,7 +769,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
               }
             }
           } else {
-            const size_t f0 = ((size_t)n * CO * g.od + zo) * oh * (size_t)ow + o0 +
+            const size_t f0 = ((size_t)n * CO * g.od + zq) * oh * (size_t)ow + o0 +
                               (size_t)orow * ow + x0;
             const size_t cs = (size_t)g.od * oh * ow;  // channel stride
 #pragma unroll
@@ -823,18 +845,19 @@ int output_box_rows(int rows, int ow) {
 }
 
 // The geometry of a launch of form `form` on x (N, Ci, D, H, W), weights of
-// wkd depth taps: tiles, the staging boxes, which copies go by TMA (tma:
-// x's (D H W) a multiple of 8, Ci >= 16, x aligned; tma_out: an output
-// slice's positions and every tile's start a multiple of 8, whole output
-// rows a box, out and res aligned), and shared memory: two staging slots,
-// two halo stages and one output tile at least, then a second output tile,
+// wkd depth taps, on sms multiprocessors: tiles (slice pairs where they
+// take fewer rounds), the staging boxes, which copies go by TMA (tma: x's
+// (D H W) a multiple of 8, Ci >= 16, x aligned; tma_out: an output slice's
+// positions and every tile's start a multiple of 8, whole output rows a
+// box, out and res aligned, no slice pair), and shared memory: two staging
+// slots, two halo stages and one output tile at least, then a second output tile,
 // a third staging slot and up to four halo stages as they fit. A tile takes
 // as many whole rows as the M-tiles hold, balanced over the slice's row
 // tiles, and fewer where that does not fit in shared memory (the stride-2
 // halo's four planes take four times the M-tiles' positions). False if no
 // tile fits (a row past what the consumers' M-tiles hold, or shared memory).
-bool plan(int form, int n, int ci, int d, int h, int w, int co, int wkd, const void* x,
-          const void* res, const void* out, Geo& g) {
+bool plan(int form, int sms, int n, int ci, int d, int h, int w, int co, int wkd,
+          const void* x, const void* res, const void* out, Geo& g) {
   const int mt = mtiles(co, form);
   const int span = 2 * mt * 64;  // positions a tile's M-tiles cover
   g = Geo{};
@@ -852,7 +875,8 @@ bool plan(int form, int n, int ci, int d, int h, int w, int co, int wkd, const v
   g.nch = (ci + 15) / 16;
   if ((long long)h * w >= (1 << 24) || g.od >= (1 << 16)) return false;  // div_magic's range
   g.w_magic = ((1ULL << 40) + w - 1) / w;
-  g.od_magic = ((1ULL << 40) + g.od - 1) / g.od;
+  g.zs = 1;
+  g.odt = g.od;
   g.w_bytes = 9 * co * 32;
   g.tma = (long long)d * h * w % 8 == 0 && ci >= 16 && aligned16(x);
   const long long slice = (long long)g.oh * g.ow;  // an output slice's positions
@@ -912,7 +936,32 @@ bool plan(int form, int n, int ci, int d, int h, int w, int co, int wkd, const v
     int thx = th;
     for (int t = th; slice % 8 == 0 && t <= cap && thx == th; ++t)
       if (output_box_rows(orows(t), g.ow) > 0) thx = t;
-    if (!(thx != th && try_rows(thx, tiles_h)) && !try_rows(th, tiles_h)) continue;
+    if (!(thx != th && try_rows(thx, tiles_h))) {
+      thx = th;
+      if (!try_rows(th, tiles_h)) continue;
+    }
+    // A whole output slice a tile, and the M-tiles hold two: the stride-1
+    // 3D conv at Co 64 takes slice pairs, the second slice's halo 2 rows below the
+    // first's (H + 2 rows apart: the first's bottom padding row and the
+    // second's top one), each stage both input slices, so that a stage's
+    // weights and fixed costs serve twice the positions; its output is
+    // stored straight to device memory. Only where the pairs take fewer
+    // rounds of the sms persistent blocks: a pair's stage costs about what
+    // a slice's does, but one round of half as many tiles leaves blocks idle.
+    const long long pairs = (long long)n * ((g.od + 1) / 2);
+    if (form == kStride1 && co == 64 && g.od >= 2 && tiles_h == 1 && (2 * h + 2) * g.hs <= span &&
+        (pairs + sms - 1) / sms < (items + sms - 1) / sms) {
+      if (try_rows(2 * h + 2, 1)) {
+        g.zs = 2;
+        g.odt = (g.od + 1) / 2;
+        g.items = (int)pairs;
+        g.tma_out = 0;
+        g.o_bytes = 0;
+      } else if (!try_rows(thx, tiles_h)) {
+        continue;
+      }
+    }
+    g.od_magic = ((1ULL << 40) + g.odt - 1) / g.odt;
     g.no = g.tma_out && fits(2, 2, 2) ? 2 : 1;
     g.rr = fits(3, 2, g.no) ? 3 : 2;
     g.ring = 2;
@@ -945,8 +994,11 @@ template <int CO, int FORM>
 cudaError_t launch(const bf16_t* x, int n, int ci, int d, int h, int w, int wkd,
                    const bf16_t* wpk, const float* mul, const float* add, const bf16_t* res,
                    int relu, bf16_t* out, cudaStream_t stream, int device) {
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
   Geo g;
-  if (!plan(FORM, n, ci, d, h, w, CO, wkd, x, res, out, g)) return cudaErrorInvalidValue;
+  if (!plan(FORM, sms, n, ci, d, h, w, CO, wkd, x, res, out, g)) return cudaErrorInvalidValue;
   g.relu = relu;
   CUtensorMap xmap, omap, rmap;
   memset(&xmap, 0, sizeof(xmap));
@@ -971,16 +1023,14 @@ cudaError_t launch(const bf16_t* x, int n, int ci, int d, int h, int w, int wkd,
                       (res != nullptr && !output_map(enc, &rmap, res, g, CO))))
       return cudaErrorInvalidValue;
   }
-  int sms = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
   const int bytes = smem_bytes(g);
-  err = cudaFuncSetAttribute(conv_wgmma_kernel<CO, FORM>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  auto kernel = conv_wgmma_kernel<CO, FORM, false>;
+  if constexpr (CO == 64 && FORM == kStride1)
+    if (g.zs == 2) kernel = conv_wgmma_kernel<CO, FORM, true>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int grid = g.items < sms ? g.items : sms;
-  conv_wgmma_kernel<CO, FORM><<<grid, kThreads, bytes, stream>>>(xmap, omap, rmap, x, wpk, mul,
-                                                                 add, res, out, g);
+  kernel<<<grid, kThreads, bytes, stream>>>(xmap, omap, rmap, x, wpk, mul, add, res, out, g);
   return cudaGetLastError();
 }
 
@@ -1131,7 +1181,7 @@ int conv_bf16_wgmma_max_width(int form, int co) {
     if (cap < 1) return w - 1;
     for (int r = 1; r <= cap + 1; ++r) {
       const int rows = r <= cap ? r : 8 * cap;
-      if (!plan(form, 1, 16, 1, form == kStride2 ? 2 * rows : rows, w, co,
+      if (!plan(form, 1, 1, 16, 1, form == kStride2 ? 2 * rows : rows, w, co,
                 form == kStride1 ? 1 : 3, p, p, p, g))
         return w - 1;
     }

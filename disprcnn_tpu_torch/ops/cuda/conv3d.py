@@ -53,8 +53,9 @@ fragments of bf16 pairs); ``conv3d_bn`` at Co 32 and 64 (stride 1 and
 2), ``conv2d_bn`` and ``deconv3d_bn`` are csrc/conv_bf16_wgmma.cu, one
 kernel body in three forms (stride 1, transposed, stride 2): warpgroup
 products (``wgmma``) over a halo laid channels-innermost in shared memory
-(at stride 2 as its four parity planes, ``conv3d_s2_parity_plain``), each
-tap an address offset, with TMA copies in and out (``pack_wgmma_weight``:
+(at stride 2 as its four parity planes, ``conv3d_s2_parity_plain``; at
+stride 1 and Co 64, two whole output slices a tile where that takes
+fewer rounds, ``conv3d_slice_pair_plain``), each tap an address offset, with TMA copies in and out (``pack_wgmma_weight``:
 each tap's 16 x Co block in wgmma's K-major core matrices); they take any
 Ci and raise on a Co other than 32 or 64 and on an input row wider than
 their tiles take (``conv_bf16_wgmma_max_width``). The classifier's Co = 1
@@ -537,6 +538,39 @@ def conv3d_s2_parity_plain(x: torch.Tensor, weight: torch.Tensor,
                 t = torch.einsum("ncdhw,oc->nodhw", tap, weight[:, :, kd, kh, kw])
                 y = t if y is None else y + t
     return _epilogue(y, mul, add, residual, relu)
+
+
+def conv3d_slice_pair_plain(x: torch.Tensor, weight: torch.Tensor,
+                            mul: Optional[torch.Tensor] = None,
+                            add: Optional[torch.Tensor] = None,
+                            residual: Optional[torch.Tensor] = None,
+                            relu: bool = False) -> torch.Tensor:
+    """conv3d_bn_plain at stride 1 as the bf16 kernel's slice pairs index it
+    (csrc/conv_bf16_wgmma.cu, form kStride1, PAIR): output slices 2 p and 2
+    p + 1 are one tall image of 2 H + 2 rows, the first slice's rows, 2 zero
+    rows, the second's, padded by a zero row and column on each side; depth
+    tap kd stages input slices 2 p + kd - 1 and 2 p + kd (zero outside the
+    volume) into it, its 9 taps are shifts of that image, and rows H and H +
+    1 of the result are dropped; its 27 products summed tap by tap, then the
+    epilogue."""
+    n, ci, d, h, w = x.shape
+    pairs = (d + 1) // 2
+    # xp[:, :, j] is input slice j - 1, for j in [0, 2 pairs + 2)
+    xp = F.pad(x, (0, 0, 0, 0, 1, 2 * pairs + 1 - d))
+    gap = x.new_zeros(n, ci, pairs, 2, w)
+    y = None
+    for kd in range(3):
+        tall = torch.cat([xp[:, :, kd:kd + 2 * pairs:2], gap,
+                          xp[:, :, kd + 1:kd + 1 + 2 * pairs:2]], dim=3)
+        tall = F.pad(tall, (1, 1, 1, 1))
+        for kh in range(3):
+            for kw in range(3):
+                tap = tall[:, :, :, kh:kh + 2 * h + 2, kw:kw + w]
+                t = torch.einsum("ncphw,oc->nophw", tap, weight[:, :, kd, kh, kw])
+                y = t if y is None else y + t
+    out = torch.stack([y[:, :, :, :h], y[:, :, :, h + 2:]], dim=3)
+    out = out.reshape(n, weight.shape[0], 2 * pairs, h, w)[:, :, :d]
+    return _epilogue(out, mul, add, residual, relu)
 
 
 def deconv3d_bn_3xtf32_plain(x: torch.Tensor, weight: torch.Tensor, mul: torch.Tensor,

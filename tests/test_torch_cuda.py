@@ -1196,6 +1196,10 @@ def test_wgmma_bf16_forms_at_main_path_sites(card, kind, n, ci, co, shape, resid
     ("conv3d", 2, 16, 64, (3, 9, 16), True, False),  # Ci 16
     ("conv3d", 1, 32, 32, (2, 61, 56), True, True),  # ragged at Co 32: rows 13, 13, ..., 9
     ("conv3d", 1, 64, 64, (2, 61, 32), True, True),  # ragged at Co 64: tiles of 13 rows
+    # slice pairs (Co 64, whole slices, fewer rounds than single slices):
+    ("conv3d", 64, 64, 64, (3, 14, 14), True, True),  # odd D: a second slice past the volume
+    ("conv3d", 100, 13, 64, (2, 9, 11), True, False),  # Ci 13, plain staging, D 2
+    ("conv3d", 200, 16, 64, (5, 4, 6), False, True),  # TMA staging from before the volume
     ("conv3d_s2", 1, 32, 64, (24, 56, 56), True, True),  # N = 1, with a residual
     ("conv3d_s2", 2, 64, 64, (1, 28, 28), False, True),  # D = 1
     ("conv3d_s2", 2, 64, 32, (3, 28, 28), False, False),  # D = 3: the last slice's two taps
